@@ -13,26 +13,45 @@ Phases — any failure exits non-zero:
 2. build: every kernel of ``paddle_tpu_torch/csrc`` with nvcc (one
    process per source, all at once), with the build seconds and the
    compiler's register/shared-memory report;
-3. kernels: K1 (the flash-attention forward, ``csrc/flash_fwd.cu``)
-   against its plain torch version on the same inputs, on the serving
-   shapes and on the edge cases (f32 causal and not, tq != tk, ragged T,
-   D = 64, fp16), and timed beside the plain version and
-   ``scaled_dot_product_attention`` (a yardstick only — the port never
-   calls it);
+3. kernels: K1 (the flash-attention forward, ``csrc/flash_fwd.cu``) and
+   K2/K3 (its backward, dQ and dK/dV, ``csrc/flash_bwd.cu``) against
+   their plain torch versions on the same inputs — the serving and
+   training shapes and the edge cases (f32 causal and not, tq != tk
+   with fully masked rows, ragged T, D = 64, fp16) — with dQ, dK and dV
+   each checked on its own, in a tier set by the output's type and
+   scale; at the training shape, grid and tile-loop faults planted in
+   copies of the outputs must fail that tier; ``attention_with_lse``'s
+   gradient through
+   both outputs against plain autograd of ``ref_attention_lse``; each
+   kernel timed beside its plain version, its bound and
+   ``scaled_dot_product_attention`` forward or backward (a yardstick
+   only — the port never calls it);
 4. serve: the Llama-3-8B-width forward program, all 32 layers (random
    weights from SEED) behind the port's ``ServingEngine``: warmup over the
    buckets, concurrent requests, each answer held against the same
    request run alone through ``Executor.run``, no step build after
-   warmup, and K1 launched once per layer per dispatch — in bfloat16
-   (the main path, whose K1 launches the kernel line reports), then in
-   float32, where answers match the lone runs logit for logit.
+   warmup, and K1 launched once per layer per dispatch — in bfloat16,
+   then in float32, where answers match the lone runs logit for logit;
+5. train: the Llama-3-8B-width model cut to 8 layers, bf16, through
+   ``build_llama(targets)`` → ``Adam.minimize`` → ``Executor.run`` on one
+   fixed batch of 2 x 2048 tokens: 2 warmup and 8 timed steps with
+   finite, falling loss, K1/K2/K3 each launched once per layer per step,
+   step time, tokens/s, peak memory and one step's device time by kind
+   (the main path of this slice, whose launches the kernel line
+   reports);
+6. train parity: a narrow float32 model (head dim 128, TF32 off) whose
+   step on the card (the kernels) matches the same step on the CPU (the
+   plain versions): loss and every parameter's gradient, then 3 Adam
+   steps' losses.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
 """
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,13 +68,31 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
               "float32": 67e12}        # float32 outside the tensor cores
 
-# tolerances (|got - want| <= atol + rtol * |want|)
+# tolerances (|got - want| <= atol + rtol * |want|). A kernel's plain
+# version is evaluated in float32 on the kernel's own inputs and rounded
+# once to the output's type, as the kernel does; the tier follows the
+# output's type.
 TOL_F32 = (2e-4, 2e-5)     # tests/test_attention.py's f32 kernel tier
-TOL_HALF = (2e-2, 2e-2)    # bf16/fp16: the plain version rounds scores
-                           # and probabilities to the input type, the
-                           # kernel keeps them in float32
+TOL_HALF_RTOL = 1e-2       # bf16/fp16 outputs: one rounding apart at
+                           # most (a bf16 ulp is <= 2**-7 of the value)
+TOL_HALF_RMS = 1e-2        # ... plus an atol of this x the plain
+                           # output's RMS, for sums that cancel near 0
 TOL_LOGITS_F32 = (5e-4, 5e-4)   # 32 float32 layers, summed in other orders
 TOL_LOGITS_BF16_RMS = 0.1       # see phase_serve
+TOL_GRAD_F32 = (2e-3, 2e-4)     # tests/test_attention.py's f32 gradient tier
+TOL_LOSS_F32 = 2e-3             # tests/test_llama.py's loss tier
+
+TRAIN_LAYERS = 8                # 32 → 8: Adam state of 32 layers
+                                # (8.03 B params x 8 bytes in bf16) does
+                                # not fit in 80 GB
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+TRAIN_LABEL = "training shape"
+INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
+
+KERNEL_NAMES = (("k1_flash_fwd", "flash_fwd_kernel"),
+                ("k2_flash_bwd_dq", "flash_bwd_dq_kernel"),
+                ("k3_flash_bwd_dkv", "flash_bwd_dkv_kernel"))
 
 
 class SmokeFailure(Exception):
@@ -110,12 +147,41 @@ def allclose_err(got, want, tol):
     return ok, float(err.max())
 
 
-def attention_bound_ms(bh, tq, tk, d, dtype_name, causal, itemsize):
-    """Least time for one K1 call: q, k, v read once, o and lse written
-    once, against the FLOPs this call's mask leaves (2 products of
-    2*d FLOPs per visible (row, key) pair)."""
-    nbytes = (bh * tq * d + 2 * bh * tk * d + bh * tq * d) * itemsize \
-        + bh * tq * 4
+def kernel_err(got, want):
+    """A kernel output against its plain version, in the tier of the
+    output's type: (ok, max abs err, worst err / limit)."""
+    wf = want.float()
+    if want.element_size() >= 4:
+        rtol, atol = TOL_F32
+    else:
+        rtol = TOL_HALF_RTOL
+        atol = TOL_HALF_RMS * float(wf.square().mean().sqrt())
+    err = (got.float() - wf).abs()
+    ratio = float((err / (atol + rtol * wf.abs())).max())
+    return ratio <= 1.0, float(err.max()), ratio
+
+
+TOL_TEXT = (f"f32 rtol={TOL_F32[0]} atol={TOL_F32[1]}; bf16/fp16 "
+            f"rtol={TOL_HALF_RTOL} atol={TOL_HALF_RMS} x rms")
+
+
+def attention_bound_ms(bh, tq, tk, d, dtype_name, causal, itemsize,
+                       kind="fwd"):
+    """Least time for one call of K1 (``kind`` "fwd"), K2 ("dq") or K3
+    ("dkv"): each input read once and each output written once, against
+    the FLOPs this call's mask leaves per visible (row, key) pair — K1
+    4*d (QK^T, PV), K2 6*d (QK^T, dO V^T, dS K), K3 8*d (QK^T, dO V^T,
+    P^T dO, dS^T Q)."""
+    q_bytes, kv_bytes = bh * tq * d * itemsize, bh * tk * d * itemsize
+    row_bytes = bh * tq * 4                          # lse / delta, f32
+    nbytes, per_pair = {
+        # q, k, v in; o, lse out
+        "fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes, 4),
+        # q, k, v, do, lse, delta in; dq out
+        "dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 6),
+        # q, k, v, do, lse, delta in; dk, dv out
+        "dkv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 8),
+    }[kind]
     if causal:
         rows = np.arange(tq)
         vis = np.clip(rows + (tk - tq) + 1, 0, tk)
@@ -123,7 +189,7 @@ def attention_bound_ms(bh, tq, tk, d, dtype_name, causal, itemsize):
         pairs = int(vis.sum())
     else:
         pairs = tq * tk
-    flops = 4.0 * bh * d * pairs
+    flops = float(per_pair) * bh * d * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_flops = flops / PEAK_FLOPS[dtype_name]
     return (max(t_bytes, t_flops) * 1e3,
@@ -131,15 +197,25 @@ def attention_bound_ms(bh, tq, tk, d, dtype_name, causal, itemsize):
             nbytes, flops)
 
 
+def attention_inputs(torch, gen, dev, bh, tq, tk, d, dt):
+    q = (torch.randn(bh, tq, d, generator=gen, device=dev) * 0.5).to(dt)
+    k = (torch.randn(bh, tk, d, generator=gen, device=dev) * 0.5).to(dt)
+    v = (torch.randn(bh, tk, d, generator=gen, device=dev) * 0.5).to(dt)
+    do = torch.randn(bh, tq, d, generator=gen, device=dev).to(dt)
+    return q, k, v, do
+
+
 def phase_kernels(torch, fa, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    bh_train = TRAIN_BATCH * 32
     # (label, bh, tq, tk, d, dtype, causal)
     cases = [
         ("serving T=128", 4 * 32, 128, 128, 128, bf16, True),
         ("serving T=256", 4 * 32, 256, 256, 128, bf16, True),
+        (TRAIN_LABEL, bh_train, TRAIN_SEQ, TRAIN_SEQ, 128, bf16, True),
         ("f32 causal", 8, 256, 256, 128, f32, True),
         ("f32 non-causal", 8, 256, 256, 128, f32, False),
         ("f32 tq<tk causal", 8, 128, 256, 128, f32, True),
@@ -156,33 +232,58 @@ def phase_kernels(torch, fa, seed):
     results = {}
     failures = []
     for label, bh, tq, tk, d, dt, causal in cases:
-        q = (torch.randn(bh, tq, d, generator=gen, device=dev) * 0.5).to(dt)
-        k = (torch.randn(bh, tk, d, generator=gen, device=dev) * 0.5).to(dt)
-        v = (torch.randn(bh, tk, d, generator=gen, device=dev) * 0.5).to(dt)
+        q, k, v, do = attention_inputs(torch, gen, dev, bh, tq, tk, d, dt)
         scale = 1.0 / np.sqrt(d)
         o, lse = fa.flash_fwd(q, k, v, scale, causal)
         torch.cuda.synchronize()
-        o_ref, lse_ref = fa.ref_attention_lse(q, k, v, scale, causal)
-        tol = TOL_F32 if dt == f32 else TOL_HALF
-        ok_o, err_o = allclose_err(o, o_ref, tol)
-        ok_l, err_l = allclose_err(lse, lse_ref, tol)
-        finite = bool(torch.isfinite(o).all())
-        log(f"K1 {label}: bh={bh} tq={tq} tk={tk} d={d} {dt} "
-            f"causal={causal}: max|dO|={err_o:.3e} max|dlse|={err_l:.3e} "
-            f"(rtol={tol[0]}, atol={tol[1]}) "
-            f"{'ok' if ok_o and ok_l and finite else 'MISMATCH'}")
-        if not (ok_o and ok_l and finite):
+        # K1's plain version rounds scores and probabilities to the
+        # input type; evaluated in float32 it rounds only its output
+        o_ref, lse_ref = fa.ref_attention_lse(q.float(), k.float(),
+                                              v.float(), scale, causal)
+        pairs = {"O": (o, o_ref.to(dt)), "lse": (lse, lse_ref)}
+        del o_ref, lse_ref
+        # K2 and K3 on the forward's own lse and delta, each output
+        # checked on its own against the plain versions on those inputs
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+        torch.cuda.synchronize()
+        pairs["dQ"] = (dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta,
+                                               scale, causal))
+        want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta,
+                                              scale, causal)
+        pairs["dK"], pairs["dV"] = (dk, want_k), (dv, want_v)
+        errs = {n: kernel_err(g, w) for n, (g, w) in pairs.items()}
+        finite = all(bool(torch.isfinite(g).all()) for g, _ in pairs.values())
+        ok = finite and all(e[0] for e in errs.values())
+        log(f"K1-3 {label}: bh={bh} tq={tq} tk={tk} d={d} {dt} "
+            f"causal={causal}: max abs err (err/limit) "
+            + ", ".join(f"{n} {e:.3e} ({r:.3f})"
+                        for n, (_, e, r) in errs.items())
+            + f" ({TOL_TEXT}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
             failures.append(label)
-        results[label] = (q, k, v, causal, max(err_o, err_l))
-    check(not failures, f"K1 disagrees with its plain version: {failures}")
+        results[label] = dict(
+            inputs=(q, k, v, do, causal),
+            err_fwd=max(errs["O"][1], errs["lse"][1]), err_dq=errs["dQ"][1],
+            err_dkv=max(errs["dK"][1], errs["dV"][1]))
+        if label == TRAIN_LABEL and ok:
+            check_planted_faults(fa, (q, k, v, do, lse, delta), scale,
+                                 pairs, errs)
+        del o, lse, delta, dq, dk, dv, pairs, want_k, want_v
+    check(not failures,
+          f"K1/K2/K3 disagree with their plain versions: {failures}")
+    check_lse_gradient(torch, fa, gen, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
     timing = {}
-    for label in ("serving T=128", "serving T=256"):
-        q, k, v, causal, err = results[label]
+    for label in ("serving T=256", TRAIN_LABEL):
+        r = results[label]
+        q, k, v, do, causal = r["inputs"]
         bh, t, d = q.shape
         scale = 1.0 / np.sqrt(d)
-        q4, k4, v4 = (x.view(4, 32, t, d) for x in (q, k, v))
+        b = bh // 32
+        q4, k4, v4 = (x.view(b, 32, t, d) for x in (q, k, v))
         ms = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), torch,
                      flush=flush)
         plain_ms = time_ms(
@@ -192,15 +293,140 @@ def phase_kernels(torch, fa, seed):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal), torch, flush=flush)
         bound, by, nbytes, flops = attention_bound_ms(
-            bh, t, t, d, "bfloat16", causal, q.element_size())
-        timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound, bound_by=by, max_abs_err=err)
+            bh, t, t, d, "bfloat16", causal, q.element_size(), "fwd")
+        timing[("K1", label)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+            bound_by=by, max_abs_err=r["err_fwd"])
         log(f"K1 {label} timing (cold L2, mean of 20): kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
             f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.3f} GFLOP)")
-    del flush
+        if label != TRAIN_LABEL:
+            continue
+        o, lse = fa.flash_fwd(q, k, v, scale, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        # the yardstick: SDPA's backward (dQ, dK and dV in one call) on
+        # a saved graph, at the same shape
+        qg, kg, vg = (x.detach().clone().requires_grad_()
+                      for x in (q4, k4, v4))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=causal)
+        do4 = do.view(b, 32, t, d)
+        sdpa_bwd_ms = time_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
+                                        retain_graph=True),
+            torch, flush=flush)
+        for name, kind, kern, plain, err in (
+                ("K2", "dq",
+                 lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale,
+                                         causal),
+                 lambda: fa.ref_flash_bwd_dq(q, k, v, do, lse, delta,
+                                             scale, causal),
+                 r["err_dq"]),
+                ("K3", "dkv",
+                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                          causal),
+                 lambda: fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta,
+                                              scale, causal),
+                 r["err_dkv"])):
+            ms = time_ms(kern, torch, flush=flush)
+            plain_ms = time_ms(plain, torch, iters=5, flush=flush)
+            bound, by, nbytes, flops = attention_bound_ms(
+                bh, t, t, d, "bfloat16", causal, q.element_size(), kind)
+            timing[(name, label)] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+            log(f"{name} {label} timing (cold L2): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, sdpa backward (dQ, dK, dV) "
+                f"{sdpa_bwd_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        del out, qg, kg, vg, o, lse, delta
+    del flush, results
     return timing
+
+
+def check_planted_faults(fa, inputs, scale, pairs, errs):
+    """The bf16 tier must catch what a grid or tile-loop fault leaves at
+    the training shape (causal, tq = tk = T), where late rows and keys
+    hold the smallest values: each fault is planted in a copy of a
+    kernel's output and must fail the check the kernel passed. Tiles are
+    the kernels' own: K2 64-row q tiles over 32-key tiles, K3 64-key
+    tiles over 32-row q tiles (csrc/flash_bwd.cu), K1 64-row q tiles."""
+    q, k, v, do, lse, delta = inputs
+    bh, t, d = q.shape
+    nt = t // 64
+
+    def last_tile_lost(x):
+        x = x.clone()
+        x[:, -64:] = 0
+        return x
+
+    def minus(x, part):
+        return (x.float() - part.float().reshape(x.shape)).to(x.dtype)
+
+    # K2 stops one k tile early: under causal the last k tile of q tile
+    # i is keys [64i + 32, 64i + 64), whose share of dQ is the plain dQ
+    # of those rows against those keys (the masks align bottom-right)
+    q_t, do_t = (x.view(bh, nt, 64, d) for x in (q, do))
+    k_t, v_t = (x.view(bh, nt, 2, 32, d)[:, :, 1] for x in (k, v))
+    lse_t, delta_t = (x.view(bh, nt, 64) for x in (lse, delta))
+    dq_last_k = fa.ref_flash_bwd_dq(q_t, k_t, v_t, do_t, lse_t, delta_t,
+                                    scale, True)
+    # K3 stops one q tile early: every k tile's loop ends at rows
+    # [T - 32, T)
+    dk_last_q, dv_last_q = fa.ref_flash_bwd_dkv(
+        q[:, -32:], k, v, do[:, -32:], lse[:, -32:], delta[:, -32:],
+        scale, True)
+    (o, _), (dq, _), (dk, _), (dv, _) = (pairs[n]
+                                         for n in ("O", "dQ", "dK", "dV"))
+    faults = (
+        ("O", "K1 leaves its last q tile unwritten", last_tile_lost(o)),
+        ("dQ", "K2 leaves its last q tile unwritten", last_tile_lost(dq)),
+        ("dQ", "K2 skips each q tile's last k tile", minus(dq, dq_last_k)),
+        ("dK", "K3 leaves its last k tile unwritten", last_tile_lost(dk)),
+        ("dV", "K3 leaves its last k tile unwritten", last_tile_lost(dv)),
+        ("dK", "K3 skips its last q tile", minus(dk, dk_last_q)),
+        ("dV", "K3 skips its last q tile", minus(dv, dv_last_q)),
+    )
+    for name, what, bad in faults:
+        _, err, ratio = kernel_err(bad, pairs[name][1])
+        log(f"planted fault, {TRAIN_LABEL}: {what}: {name} max abs err "
+            f"{err:.3e}, err/limit {ratio:.3f} (the kernel's own "
+            f"{errs[name][2]:.3f}) {'caught' if ratio > 1 else 'MISSED'}")
+        check(ratio > 1.0, f"the bf16 tier does not catch a planted fault "
+                           f"({what}: {name} err/limit {ratio:.3f})")
+
+
+def check_lse_gradient(torch, fa, gen, dev):
+    """attention_with_lse is differentiable in o AND lse: its gradient
+    (K1, K2, K3) against plain torch autograd through ref_attention_lse,
+    on the card, float32, with fully masked rows (tq > tk) and without."""
+    for tq, tk in ((256, 256), (256, 128)):
+        q, k, v, do = attention_inputs(torch, gen, dev, 8, tq, tk, 128,
+                                       torch.float32)
+        dl = torch.randn(8, tq, generator=gen, device=dev)
+        q, k, v = (x.view(2, 4, -1, 128) for x in (q, k, v))
+        do, dl = do.view(2, 4, tq, 128), dl.view(2, 4, tq)
+        grads = []
+        for f in (lambda a, b, c: fa.attention_with_lse(a, b, c,
+                                                         causal=True),
+                  lambda a, b, c: fa.ref_attention_lse(
+                      a, b, c, 1.0 / math.sqrt(128), True)):
+            ts = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            o, lse = f(*ts)
+            loss = (o * do).sum() + (lse * dl).sum()
+            grads.append(torch.autograd.grad(loss, ts))
+        torch.cuda.synchronize()
+        errs = [allclose_err(g, w, TOL_GRAD_F32)
+                for g, w in zip(grads[0], grads[1])]
+        log(f"attention_with_lse gradient through o and lse, f32 tq={tq} "
+            f"tk={tk} causal: max|dq|,|dk|,|dv| = "
+            + ", ".join(f"{e:.3e}" for _, e in errs)
+            + f" vs plain autograd (rtol={TOL_GRAD_F32[0]}, "
+            f"atol={TOL_GRAD_F32[1]})")
+        check(all(ok for ok, _ in errs),
+              f"attention_with_lse gradient differs from plain autograd "
+              f"(tq={tq}, tk={tk})")
 
 
 def where_the_time_goes(torch, exe, program, fetch, scope, feed):
@@ -209,8 +435,6 @@ def where_the_time_goes(torch, exe, program, fetch, scope, feed):
     time by kind from torch.profiler (K1, matrix products, copies, the
     rest). Diagnostic only — reports "not measured" where the profiler
     sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     def run(return_numpy):
         t0 = time.perf_counter()
         out = exe.run(program, feed=feed, fetch_list=[fetch], scope=scope,
@@ -221,11 +445,48 @@ def where_the_time_goes(torch, exe, program, fetch, scope, feed):
     run(True)
     no_fetch = sorted(run(False)[0] for _ in range(3))[1]
     with_fetch = sorted(run(True)[0] for _ in range(3))[1]
+    kinds = device_ms_by_kind(torch, lambda: run(False))
+    out = {"feed": {k: list(v.shape) for k, v in feed.items()},
+           "wall_ms_device_fetch": no_fetch * 1e3,
+           "wall_ms_numpy_fetch": with_fetch * 1e3}
+    add_busy(out, kinds, no_fetch * 1e3)
+    return out
+
+
+def device_ms_by_kind(torch, fn):
+    """Device time of one call of ``fn`` by kind, from torch.profiler:
+    K1/K2/K3, matrix products, copies, the rest — and the rest's eight
+    largest kernels by name under ``"other_top"``, and the kernels of a
+    train step's optimizer segment (the lowering's profiler range) under
+    ``"optimizer_segment"``. None where the profiler sees no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.core.lowering import RANGE_OPTIMIZER
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run(False)
-    kinds = {"k1_flash_fwd": 0.0, "matmul": 0.0, "copy": 0.0, "other": 0.0}
+        fn()
+        torch.cuda.synchronize()
+    kinds = dict.fromkeys([k for k, _ in KERNEL_NAMES]
+                          + ["matmul", "copy", "other"], 0.0)
+    other = {}
+    # the optimizer range's mark on the device is a span from its first
+    # kernel to its last, not a kernel; the step runs on one stream, so
+    # the kernels that start inside it are the optimizer's
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range for e in on_device if e.name == RANGE_OPTIMIZER]
+    seg = None
+    if spans:
+        seg = {"span_ms": sum(s.elapsed_us() for s in spans) / 1e3,
+               "kernels_ms": sum(
+                   e.time_range.elapsed_us() for e in on_device
+                   if e.name != RANGE_OPTIMIZER and any(
+                       s.start <= e.time_range.start < s.end
+                       for s in spans)) / 1e3}
     for e in prof.key_averages():
+        if e.key == RANGE_OPTIMIZER:
+            continue
         # kernels and copies only: an aten op's device time is its
         # kernels' again
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -236,26 +497,38 @@ def where_the_time_goes(torch, exe, program, fetch, scope, feed):
         if not us:
             continue
         name = e.key.lower()
-        if "flash_fwd_kernel" in name:
-            kinds["k1_flash_fwd"] += us / 1e3
-        elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma",
-                                     "matmul")):
-            kinds["matmul"] += us / 1e3
-        elif "memcpy" in name or "memset" in name:
-            kinds["copy"] += us / 1e3
-        else:
-            kinds["other"] += us / 1e3
-    busy = sum(kinds.values())
-    out = {"feed": {k: list(v.shape) for k, v in feed.items()},
-           "wall_ms_device_fetch": no_fetch * 1e3,
-           "wall_ms_numpy_fetch": with_fetch * 1e3}
-    if busy:
-        out.update({"device_busy_ms": busy,
-                    "device_idle_share": 1 - busy / (no_fetch * 1e3),
-                    "device_ms_by_kind": kinds})
-    else:
+        kind = next((k for k, kern in KERNEL_NAMES if kern in name), None)
+        if kind is None:
+            if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma",
+                                       "matmul")):
+                kind = "matmul"
+            elif "memcpy" in name or "memset" in name:
+                kind = "copy"
+            else:
+                kind = "other"
+                short = e.key.replace("void at::native::", "")[:120]
+                other[short] = other.get(short, 0.0) + us / 1e3
+        kinds[kind] += us / 1e3
+    if not sum(kinds.values()):
+        return None
+    kinds["other_top"] = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    kinds["optimizer_segment"] = seg
+    return kinds
+
+
+def add_busy(out, kinds, wall_ms):
+    """Device busy ms, idle share of ``wall_ms`` and ms by kind into
+    ``out`` ("not measured" where the profiler saw no device time)."""
+    if kinds is None:
         out["device_busy_ms"] = "not measured"
-    return out
+        return
+    seg = kinds.pop("optimizer_segment")
+    busy = sum(v for k, v in kinds.items() if k != "other_top")
+    if seg is not None:
+        out["optimizer_segment"] = seg
+    out.update({"device_busy_ms": busy,
+                "device_idle_share": 1 - busy / wall_ms,
+                "device_ms_by_kind": kinds})
 
 
 def phase_serve(torch, fluid, dtype, card):
@@ -395,6 +668,164 @@ def phase_serve(torch, fluid, dtype, card):
     return launches, serve
 
 
+def build_train(fluid, cfg, lr):
+    """``build_llama(cfg, tokens, targets)`` → ``Adam(lr).minimize``, in
+    fresh programs seeded from SEED. Returns (main, startup, loss)."""
+    from paddle_tpu_torch.models.llama import build_llama
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        tokens = fluid.layers.data(name="tokens", shape=[-1, -1],
+                                   dtype="int64", append_batch_size=False)
+        targets = fluid.layers.data(name="targets", shape=[-1, -1],
+                                    dtype="int64", append_batch_size=False)
+        _, loss = build_llama(cfg, tokens, targets)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss
+
+
+def train_feed(vocab, batch, seq):
+    toks = np.random.RandomState(SEED).randint(0, vocab, (batch, seq)) \
+        .astype(np.int64)
+    return {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+
+
+def phase_train(torch, fluid, fa, card):
+    """Train the 8B-width model, cut to TRAIN_LAYERS layers, in bf16 on
+    one fixed batch. Returns (launches by kernel, train stats)."""
+    from paddle_tpu_torch.models.llama import LLAMA3_8B
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
+    main, startup, loss = build_train(fluid, cfg, 1e-4)   # bench.py's lr
+    scope = fluid.Scope()
+    exe = fluid.Executor()                     # the card: CUDAPlace(0)
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in (scope.find_var(v.name)
+                                       for v in main.all_parameters()))
+    log(f"train: Llama-3-8B width (dim {cfg.dim}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv, ffn {cfg.ffn_hidden}, vocab "
+        f"{cfg.vocab_size}), {cfg.n_layers} of 32 layers, bf16, Adam: "
+        f"{n_params / 1e9:.3f} B params, startup on the card "
+        f"{time.perf_counter() - t0:.2f} s")
+    feed = train_feed(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    probe = scope.find_var("l0.wq")[:8, :8].clone()
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    # the main path: counts reset just before, read just after
+    for w in wrappers:
+        w.launches = 0
+    for step in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+        log(f"train: step {step}: loss {losses[-1]:.4f}, "
+            f"{step_s[-1] * 1e3:.1f} ms")
+    launches = [w.launches for w in wrappers]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    # random init: logits ~ N(0, dim * INIT_STD^2) (the final rms_norm
+    # makes the hidden state's squared norm dim), so the expected first
+    # loss is ln V + dim * INIT_STD^2 / 2
+    expected = math.log(cfg.vocab_size) + cfg.dim * INIT_STD ** 2 / 2
+    check(abs(losses[0] - expected) < 0.5,
+          f"first loss {losses[0]:.4f} not within 0.5 of {expected:.4f} "
+          f"(ln V = {math.log(cfg.vocab_size):.4f})")
+    check(losses[-1] < losses[0],
+          f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    for name, n in zip(("K1", "K2", "K3"), launches):
+        check(n == cfg.n_layers * n_steps,
+              f"{name} launched {n} times, not {cfg.n_layers} layers x "
+              f"{n_steps} steps")
+    changed = float((scope.find_var("l0.wq")[:8, :8].float()
+                     - probe.float()).abs().max())
+    check(changed > 0, "parameter l0.wq did not change")
+    log(f"train: K1/K2/K3 launched {launches} times = {cfg.n_layers} "
+        f"layers x {n_steps} steps; l0.wq moved by up to {changed:.3e}")
+
+    timed = sorted(step_s[TRAIN_WARMUP:])
+    step_ms = timed[len(timed) // 2] * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    breakdown = {}
+    add_busy(breakdown, device_ms_by_kind(
+        torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope)), step_ms)
+    breakdown.setdefault("optimizer_segment", "not measured")
+    stats = {"layers": cfg.n_layers, "params_b": n_params / 1e9,
+             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "losses": losses, "first_loss_expected": expected,
+             "step_ms_median": step_ms,
+             "step_ms_min": timed[0] * 1e3, "step_ms_max": timed[-1] * 1e3,
+             "tokens_per_s": tokens / (step_ms / 1e3),
+             "peak_mem_gb": peak_gb, "launches_k1_k2_k3": launches,
+             "one_step": breakdown, "card": card}
+    log("train: " + json.dumps(stats))
+    return dict(zip(("K1", "K2", "K3"), launches)), stats
+
+
+def phase_train_parity(torch, fluid, card):
+    """One float32 step of a narrow model with head dim 128 on the card
+    (K1/K2/K3) and on the CPU (the plain versions), from one startup
+    scope: the loss and every parameter's gradient within the f32
+    gradient tier, then 3 Adam steps' losses within the loss tier."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=2048, dim=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=1024, dtype="float32")
+    main, startup, loss = build_train(fluid, cfg, 1e-3)
+    gpu_scope = fluid.Scope()
+    gpu = fluid.Executor()
+    gpu.run(startup, scope=gpu_scope)
+    cpu_scope = weights.load_state(fluid.Scope(),
+                                   weights.dump_state(gpu_scope),
+                                   torch.device("cpu"))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    feed = train_feed(cfg.vocab_size, 2, 256)
+    grads = sorted(v for v in main.global_block().vars
+                   if v.endswith("@GRAD"))
+    got = gpu.run(main, feed=feed, fetch_list=[loss] + grads,
+                  scope=gpu_scope)
+    want = cpu.run(main, feed=feed, fetch_list=[loss] + grads,
+                   scope=cpu_scope)
+    worst = 0.0
+    for name, g, w in zip(["loss"] + grads, got, want):
+        rtol, atol = TOL_GRAD_F32
+        err = np.abs(g - w)
+        check(bool((err <= atol + rtol * np.abs(w)).all()),
+              f"f32 {name} on the card differs from the CPU by "
+              f"{float(err.max()):.3e} (rtol={rtol}, atol={atol})")
+        worst = max(worst, float((err / (atol + rtol * np.abs(w))).max()))
+    lg, lc = [], []
+    for _ in range(3):
+        lg.append(float(gpu.run(main, feed=feed, fetch_list=[loss],
+                                scope=gpu_scope)[0].reshape(())))
+        lc.append(float(cpu.run(main, feed=feed, fetch_list=[loss],
+                                scope=cpu_scope)[0].reshape(())))
+    check(np.allclose(lg, lc, rtol=TOL_LOSS_F32, atol=0),
+          f"f32 Adam losses differ: card {lg} vs CPU {lc}")
+    out = {"config": dataclasses.asdict(cfg), "batch": [2, 256],
+           "loss_step1": [float(got[0].reshape(())),
+                          float(want[0].reshape(()))],
+           "grads_checked": len(grads),
+           "worst_err_over_tolerance": worst,
+           "adam_losses_card": lg, "adam_losses_cpu": lc, "card": card}
+    log("train parity f32: " + json.dumps(out))
+    return out
+
+
+def free_card(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -410,6 +841,7 @@ def main():
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     try:
         kind = torch.cuda.get_device_name(0)
         smi = nvidia_smi()
@@ -429,26 +861,45 @@ def main():
                         log(f"build {name}: {line.strip()}")
 
         timing = phase_kernels(torch, fa, SEED)
-        # the main path in bf16; then float32, where the answers can be
-        # held to the request run alone logit for logit
-        launches, _ = phase_serve(torch, fluid, "bfloat16", smi)
-        torch.cuda.empty_cache()
+        free_card(torch)
+        # serving: bf16, then float32, where the answers can be held to
+        # the request run alone logit for logit
+        serve_launches, _ = phase_serve(torch, fluid, "bfloat16", smi)
+        free_card(torch)
         phase_serve(torch, fluid, "float32", smi)
+        free_card(torch)
+        # training, this slice's main path
+        train_launches, _ = phase_train(torch, fluid, fa, smi)
+        free_card(torch)
+        phase_train_parity(torch, fluid, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
-    t = timing["serving T=256"]
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas_attention.py:59",
-        "launches": launches, "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-        "shape": "bh=4*32 t=256 d=128 causal bf16",
-        "card": kind, "power_limit": smi.rsplit(",", 1)[-1].strip()}]
+    power = smi.rsplit(",", 1)[-1].strip()
+    train_shape = (f"bh={TRAIN_BATCH}*32 t={TRAIN_SEQ} d=128 causal bf16 "
+                   f"(training)")
+    serve_k1 = timing[("K1", "serving T=256")]
+    kernels = []
+    for name, fn, src, replaces in (
+            ("K1", "flash_fwd", "flash_fwd.cu", ":59"),
+            ("K2", "flash_bwd_dq", "flash_bwd.cu", ":223"),
+            ("K3", "flash_bwd_dkv", "flash_bwd.cu", ":189")):
+        t = timing[(name, TRAIN_LABEL)]
+        row = {"name": fn, "route": "cuda",
+               "source": f"paddle_tpu_torch/csrc/{src}",
+               "replaces": f"paddle_tpu/ops/pallas_attention.py{replaces}",
+               "launches": train_launches[name],
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "shape": train_shape, "card": kind, "power_limit": power}
+        if name == "K1":
+            row["serving"] = dict(serve_k1, launches=serve_launches,
+                                  shape="bh=4*32 t=256 d=128 causal bf16")
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ scripts run with ``import paddle_tpu_torch as fluid``::
     from paddle_tpu_torch.models.llama import LLAMA3_8B, build_llama
     tokens = fluid.layers.data(name="tokens", shape=[-1, -1],
                                dtype="int64", append_batch_size=False)
-    logits, _ = build_llama(LLAMA3_8B, tokens)
+    targets = fluid.layers.data(name="targets", shape=[-1, -1],
+                                dtype="int64", append_batch_size=False)
+    _, loss = build_llama(LLAMA3_8B, tokens, targets)
+    fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
     exe = fluid.Executor()                  # the card: CUDAPlace(0)
     exe.run(fluid.default_startup_program())
+    exe.run(feed={"tokens": ..., "targets": ...}, fetch_list=[loss])
 
 Programs run op by op on torch tensors; the reference's Pallas kernels
 are hand-written Hopper kernels (``csrc/``), built with nvcc at first
@@ -22,6 +26,7 @@ nothing of paddle_tpu.
 from .ops import basic as _ops_basic          # noqa: F401
 from .ops import nn as _ops_nn                # noqa: F401
 from .ops import transformer_ops as _ops_tf   # noqa: F401
+from .ops import optimizer_ops as _ops_opt    # noqa: F401
 
 from .core.framework import (                  # noqa: F401
     Program, Block, Variable, Parameter, Operator,
@@ -34,6 +39,10 @@ from .core import unique_name                  # noqa: F401
 
 from . import layers                           # noqa: F401
 from . import initializer                      # noqa: F401
+from . import optimizer                        # noqa: F401
+from . import regularizer                      # noqa: F401
+from . import clip                             # noqa: F401
+from .core.backward import append_backward     # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import resilience                       # noqa: F401
 from . import serving                          # noqa: F401

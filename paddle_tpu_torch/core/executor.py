@@ -15,8 +15,12 @@ Fetches returned as numpy (``return_numpy=True``) come back in their
 dtype, except bfloat16, which numpy cannot hold without ml_dtypes: those
 come back as float32 (exact — every bfloat16 is a float32).
 
+A program with a ``backward`` marker is one train step (lowering.py);
+``run(..., repeats=k)`` takes k such steps on the same feed, as the
+reference does in one dispatch.
+
 Later slices: the artifact store, the profiler hook, the static verifier,
-the PADDLE_TPU_OPTIMIZE hook, ``repeats`` and the NaN guard.
+the PADDLE_TPU_OPTIMIZE hook and the NaN guard.
 """
 import contextlib
 import warnings
@@ -150,12 +154,20 @@ class Executor:
 
     # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, mode=None):
+            return_numpy=True, mode=None, repeats=1):
         """Run one step of ``program``. Feeds move to the place's
-        device; ``mode == "test"`` runs under ``torch.inference_mode()``
-        (thread-local, so it is entered here, on the calling thread —
-        the serving engine's worker), other modes under
-        ``torch.no_grad()`` until training is ported."""
+        device. A train program (one with a ``backward`` marker) manages
+        grad mode itself; any other runs under ``torch.inference_mode()``
+        in ``mode == "test"`` (thread-local, so it is entered here, on
+        the calling thread — the serving engine's worker) and under
+        ``torch.no_grad()`` otherwise.
+
+        ``repeats`` (1 to 32) runs that many steps on the same feed,
+        each on the state the one before wrote, with the rng advancing
+        per step exactly as separate calls would; fetches are the last
+        step's."""
+        if not 1 <= repeats <= 32:
+            raise ValueError(f"repeats must be in [1, 32], got {repeats}")
         program = program or framework.default_main_program()
         scope = scope or global_scope()
         feed = dict(feed) if feed else {}
@@ -177,7 +189,8 @@ class Executor:
         sigs.add(_feed_signature(feed_vals))
 
         self._step += 1
-        step = self._step
+        first_step = self._step
+        self._step += repeats - 1
 
         def _dispatch():
             # deterministic transient-fault point (resilience/
@@ -186,11 +199,21 @@ class Executor:
             if _faultinject.fires("device_error"):
                 raise TransientDeviceError(
                     "injected transient device error (UNAVAILABLE)")
-            grad_mode = (torch.inference_mode() if mode == "test"
-                         else torch.no_grad())
+            if step_fn.trains:
+                grad_mode = contextlib.nullcontext()
+            elif mode == "test":
+                grad_mode = torch.inference_mode()
+            else:
+                grad_mode = torch.no_grad()
+            cur, written, fetches = state, {}, None
             with grad_mode:
-                return step_fn(state, feed_vals, self.device,
-                               program.random_seed or 0, step)
+                for i in range(repeats):
+                    new_state, fetches = step_fn(
+                        cur, feed_vals, self.device,
+                        program.random_seed or 0, first_step + i)
+                    written.update(new_state)
+                    cur = {**cur, **new_state}
+            return written, fetches
 
         policy = self._retry_policy or default_policy()
         new_state, fetches = with_retries(

@@ -118,9 +118,8 @@ class Variable:
         return len(self.shape) if self.shape is not None else None
 
     def astype(self, dtype):
-        raise NotImplementedError(
-            "Variable.astype needs layers.tensor.cast, which is ported "
-            "with the ROADMAP.md item 'Training'")
+        from ..layers import tensor as tensor_layers
+        return tensor_layers.cast(self, dtype)
 
     def __repr__(self):
         return (f"Variable(name={self.name}, shape={self.shape}, "

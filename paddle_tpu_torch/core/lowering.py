@@ -1,18 +1,29 @@
-"""Program → torch lowering (forward only).
+"""Program → torch lowering.
 
 Port of ``paddle_tpu/core/lowering.py``. The reference lowers a whole
 Program into one pure function that ``jax.jit`` traces; here the same
 walk runs eagerly, op by op, on torch tensors that live on the
-executor's device. The autodiff segment behind a ``backward`` marker,
-AMP casts and the NaN guard arrive with training (ROADMAP.md item
-'Training').
+executor's device.
+
+A program with a ``backward`` marker (``append_backward``) is one train
+step, as in the reference: the ops before the marker run under
+``torch.enable_grad()`` with each marked parameter a leaf that requires
+grad, ``torch.autograd.grad`` of the loss binds the ``<param>@GRAD``
+names (zeros for a parameter the loss does not reach, as
+``jax.value_and_grad`` gives), and the optimizer ops after the marker
+run under ``torch.no_grad()``. The remat policies, AMP casts and the NaN
+guard are refused until they are ported (ROADMAP.md item 'Training').
 """
 import torch
 
 from . import framework
 from .registry import get_op
 
-__all__ = ["LoweringContext", "Env", "lower_program", "written_names"]
+__all__ = ["LoweringContext", "Env", "lower_program", "written_names",
+           "read_names", "RANGE_OPTIMIZER"]
+
+# the torch.profiler range around a train step's optimizer ops
+RANGE_OPTIMIZER = "paddle_tpu_torch.optimizer"
 
 
 class Env:
@@ -72,19 +83,29 @@ class LoweringContext:
     """Carries step-wide services to op lowering rules: the device,
     deterministic per-op random generators, and train/test mode."""
 
-    def __init__(self, program, mode, device, seed, step):
+    def __init__(self, program, mode, device, seed, step, read=None):
         self.program = program
         self.mode = mode  # "train" | "test"
         self.device = device
         self._seed = seed
         self._step = step
         self._key_count = 0
+        self._read = read  # names something reads (None: assume all)
         self.op = None    # current op (set by eval_op)
         self.env = None   # current env (set by eval_op)
 
     @property
     def is_test(self):
         return self.mode == "test"
+
+    def wants(self, slot):
+        """Whether the current op's ``slot`` output is read by an op,
+        fetched or persistable. A rule may skip an optional output that
+        nothing wants — the eager counterpart of ``jax.jit`` dropping
+        dead code."""
+        if self._read is None or self.op is None:
+            return True
+        return any(n in self._read for n in self.op.outputs.get(slot, ()))
 
     def next_key(self):
         """A fresh ``torch.Generator`` on the device, seeded from
@@ -162,40 +183,111 @@ def written_names(block, recursive=True):
     return out
 
 
+def read_names(block):
+    """Every name an op of ``block`` or of its sub-blocks reads: its
+    inputs and its string attributes (ops that name variables in
+    attributes)."""
+    out = set()
+    for op in block.ops:
+        for names in op.inputs.values():
+            out.update(names)
+        for v in op.attrs.values():
+            if isinstance(v, framework.Block):
+                out |= read_names(v)
+            elif isinstance(v, str):
+                out.add(v)
+            elif isinstance(v, (list, tuple)):
+                out.update(x for x in v if isinstance(x, str))
+    return out
+
+
+def _refuse_later_slices(program, has_backward):
+    for attr, what in (("_amp", "AMP (program._amp)"),
+                       ("_nan_guard", "the NaN guard (program._nan_guard)")):
+        if getattr(program, attr, False):
+            raise NotImplementedError(
+                f"{what} is a later slice of the torch port (ROADMAP.md "
+                "item 'Training': AMP and the NaN guard)")
+    if has_backward and program._remat_policy:
+        raise NotImplementedError(
+            f"remat policy {program._remat_policy!r} (memory_optimize) is "
+            "a later slice of the torch port (ROADMAP.md item 'Training': "
+            "remat policies as torch.utils.checkpoint)")
+
+
 def lower_program(program, fetch_names, mode):
-    """Builds the step function for a forward-only Program.
+    """Builds the step function for a Program.
 
     Returns ``fn(state, feed, device, seed, step) -> (new_state,
     fetches)`` where ``state`` holds the scope's persistables and
     ``new_state`` every persistable some op of the program wrote.
+    ``fn.trains`` is True when the program has a backward marker: the
+    step then manages grad mode itself and must not run under
+    ``torch.no_grad()`` or ``torch.inference_mode()``.
     """
     gb = program.global_block()
     ops = gb.ops
-    for op in ops:
-        if op.type == "backward":
-            raise NotImplementedError(
-                "the program has a backward marker (append_backward); "
-                "training is a later slice of the torch port (ROADMAP.md "
-                "item 'Training')")
-    for attr in ("_amp", "_nan_guard"):
-        if getattr(program, attr, False):
-            raise NotImplementedError(
-                f"program.{attr} is set; AMP and the NaN guard are a "
-                "later slice of the torch port (ROADMAP.md item "
-                "'Training')")
+    bwd_idx = next((i for i, op in enumerate(ops) if op.type == "backward"),
+                   None)
+    _refuse_later_slices(program, bwd_idx is not None)
     written = written_names(gb)
-    out_names = sorted(n for n, v in gb.vars.items()
-                       if v.persistable and n in written)
+    persistables = {n for n, v in gb.vars.items() if v.persistable}
+    out_names = sorted(persistables & written)
+    read = read_names(gb) | set(fetch_names) | persistables
+
+    if bwd_idx is not None:
+        bwd_op = ops[bwd_idx]
+        loss_name = bwd_op.input("Loss")[0]
+        param_names = list(bwd_op.attr("parameter_names"))
+        # only forward values referenced later (fetches, optimizer-op
+        # inputs, persistables) outlive the forward segment; the rest
+        # (the activations) is dropped before the backward pass runs
+        needed_after = set(fetch_names)
+        for op in ops[bwd_idx + 1:]:
+            for ns in op.inputs.values():
+                needed_after.update(ns)
+        needed_after.update(persistables)
+
+    def train_segment(ctx, env):
+        leaves = {p: env[p].detach().requires_grad_() for p in param_names}
+        fwd = Env()
+        fwd.update(env.d)
+        fwd.update(leaves)
+        with torch.enable_grad():
+            for op in ops[:bwd_idx]:
+                ctx.eval_op(op, fwd)
+            loss = fwd[loss_name].reshape(())
+            kept = {n: v for n, v in fwd.d.items()
+                    if n in needed_after and n not in leaves}
+            del fwd
+            if loss.requires_grad:
+                grads = torch.autograd.grad(
+                    loss, [leaves[p] for p in param_names],
+                    allow_unused=True)
+            else:
+                grads = [None] * len(param_names)
+        env.update({n: v.detach() for n, v in kept.items()})
+        for p, g in zip(param_names, grads):
+            env[framework.grad_var_name(p)] = \
+                torch.zeros_like(env[p]) if g is None else g
+        with torch.no_grad(), \
+                torch.profiler.record_function(RANGE_OPTIMIZER):
+            for op in ops[bwd_idx + 1:]:
+                ctx.eval_op(op, env)
 
     def fn(state, feed, device, seed, step):
-        ctx = LoweringContext(program, mode, device, seed, step)
+        ctx = LoweringContext(program, mode, device, seed, step, read)
         env = Env()
         env.update(state)
         env.update(feed)
-        for op in ops:
-            ctx.eval_op(op, env)
+        if bwd_idx is None:
+            for op in ops:
+                ctx.eval_op(op, env)
+        else:
+            train_segment(ctx, env)
         new_state = {n: env.d[n] for n in out_names if n in env.d}
         fetches = [env[n] for n in fetch_names]
         return new_state, fetches
 
+    fn.trains = bwd_idx is not None
     return fn

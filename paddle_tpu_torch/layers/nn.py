@@ -1,17 +1,20 @@
 """High-level neural network layers (port of ``paddle_tpu/layers/nn.py``).
 
-This slice carries the layers the Llama forward program uses: ``fc``,
-``embedding`` and ``reshape``, copied with only the sharding annotation
-type changed. The rest of the reference module lands with the slices
-that port its ops. Each layer builds Program ops; shapes are inferred in
-Python (batch dims stay -1) so parameters can be sized.
+This port carries the layers the Llama and MNIST programs use: ``fc``,
+``embedding``, ``reshape``, ``softmax`` and the losses
+``cross_entropy`` and ``softmax_with_cross_entropy``, copied with only
+the sharding annotation type changed. The rest of the reference module
+lands with the slices that port its ops. Each layer builds Program ops;
+shapes are inferred in Python (batch dims stay -1) so parameters can be
+sized.
 """
 import numpy as np
 
 from ..layer_helper import LayerHelper
 from ..sharding import PartitionSpec as P
 
-__all__ = ["fc", "embedding", "reshape"]
+__all__ = ["fc", "embedding", "reshape", "softmax", "cross_entropy",
+           "softmax_with_cross_entropy"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -101,3 +104,44 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
                      attrs={"shape": list(shape)})
     return helper.append_activation(out)
 
+
+def softmax(input, use_cudnn=True, name=None, axis=-1,
+            param_attr=None, bias_attr=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=input.shape, lod_level=input.lod_level)
+    helper.append_op(type="softmax", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out_shape = list(input.shape[:-1]) + [1]
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=out_shape, lod_level=input.lod_level)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss_shape = list(logits.shape[:-1]) + [1]
+    loss = helper.create_variable_for_type_inference(logits.dtype,
+                                                     shape=loss_shape)
+    sm = helper.create_variable_for_type_inference(logits.dtype,
+                                                   shape=logits.shape)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits.name], "Label": [label.name]},
+                     outputs={"Loss": [loss.name], "Softmax": [sm.name]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, sm
+    return loss

@@ -1,7 +1,7 @@
 """Thin auto-generated layer wrappers for simple ops (port of
-``paddle_tpu/layers/ops.py``). This slice generates the elementwise
-layers whose rules it registers; the rest of the family lands with
-their rules."""
+``paddle_tpu/layers/ops.py``): the elementwise layers whose rules the
+port registers, ``scale`` and ``mean``; the rest of the family lands
+with their rules."""
 from ..layer_helper import LayerHelper
 
 __all__ = []
@@ -29,6 +29,29 @@ def _make_binary(op_type):
 
 
 _g = globals()
-for _name in ["elementwise_add", "elementwise_mul"]:
+for _name in ["elementwise_add", "elementwise_mul", "elementwise_div",
+              "elementwise_max"]:
     _g[_name] = _make_binary(_name)
     __all__.append(_name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(
+        dtype=x.dtype, shape=x.shape, lod_level=x.lod_level)
+    helper.append_op(type="scale", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype, shape=[1])
+    helper.append_op(type="mean", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+__all__ += ["scale", "mean"]

@@ -1,11 +1,13 @@
 """Llama-3-style decoder-only LLM (port of ``paddle_tpu/models/llama.py``).
 
-This slice builds the forward program — embedding → [rms_norm → GQA
-attention with rope on the flash kernel → rms_norm → SwiGLU MLP] × L →
-rms_norm → lm_head — with the same layer calls, so the port's program
-has the reference's op types and parameter names one for one. Training
-(``targets``), MoE, pipeline stacking, sharded variants and generation
-arrive with later slices (ROADMAP.md).
+The port builds the unrolled decoder — embedding → [rms_norm → GQA
+attention with rope on the flash kernels → rms_norm → SwiGLU MLP] × L →
+rms_norm → lm_head, and with ``targets`` the unfused loss
+softmax_with_cross_entropy → mean — with the same layer calls, so the
+port's program has the reference's op types and parameter names one for
+one. MoE, the layer-stacked pipeline (``shard_pp``), the vocab-chunked
+fused head (``fused_head_chunk``), sharded variants and generation
+arrive with later slices (ROADMAP.md) and are refused by name.
 """
 from dataclasses import dataclass
 
@@ -49,15 +51,32 @@ def _linear(x, out_dim, name):
                          initializer=init_mod.Normal(0.0, 0.02)))
 
 
-def build_llama(cfg, tokens, targets=None):
-    """Builds the forward graph. tokens: int data var [batch, seq].
-    Returns (logits, None) — the reference's (logits, avg_loss) with no
-    loss, as ``build_llama(cfg, tokens)`` returns there."""
-    if targets is not None:
+def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
+                shard_dp=False, shard_pp=False, pp_n_micro=0,
+                pp_schedule="gpipe", fused_head_chunk=0, scan_unroll=1,
+                remat=True):
+    """Builds the forward (and loss if ``targets``) graph, as the
+    reference does. tokens (and targets): int data vars [batch, seq].
+    Returns (logits, avg_loss|None). ``scan_unroll`` and ``remat`` only
+    shape the reference's ``shard_pp`` layer scan; the other knobs are
+    refused until their slice is ported."""
+    if pp_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pp_schedule {pp_schedule!r}")
+    if shard_pp or pp_schedule != "gpipe":
         raise NotImplementedError(
-            "build_llama(targets=...) builds a training loss; training "
+            "shard_pp / pp_schedule (the layer-stacked decoder, "
+            "llama_decoder_stack) is a later slice of the torch port "
+            "(ROADMAP.md items 'Training' and 'Multi-device parallelism')")
+    if fused_head_chunk:
+        raise NotImplementedError(
+            "fused_head_chunk (the vocab-chunked fused_head_cross_entropy) "
             "is a later slice of the torch port (ROADMAP.md item "
             "'Training')")
+    if shard_tp or shard_sp or shard_dp:
+        raise NotImplementedError(
+            "shard_tp / shard_sp / shard_dp need a device mesh, a later "
+            "slice of the torch port (ROADMAP.md item 'Multi-device "
+            "parallelism')")
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             "MoE FFNs are a later slice of the torch port (ROADMAP.md "
@@ -97,4 +116,9 @@ def build_llama(cfg, tokens, targets=None):
                      param_attr=ParamAttr(name="final_norm"))
     logits = _linear(h, cfg.vocab_size, "lm_head")
     tokens.sharding = P(None, None)
-    return logits, None
+    avg_loss = None
+    if targets is not None:
+        targets.sharding = P(None, None)
+        loss = layers.softmax_with_cross_entropy(logits, targets)
+        avg_loss = layers.mean(loss)
+    return logits, avg_loss

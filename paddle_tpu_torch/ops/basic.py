@@ -1,6 +1,8 @@
 """Basic tensor / math op lowering rules (port of
-``paddle_tpu/ops/basic.py``): the creation, matmul, elementwise and
-reshape rules the Llama forward program and its startup use."""
+``paddle_tpu/ops/basic.py``): the creation, cast, matmul, elementwise,
+reduction, softmax and reshape rules that the Llama and MNIST train
+programs, their startups and the optimizers' helper ops (beta-power
+``scale``, L1/L2 decay, gradient clipping) use."""
 import torch
 
 from ..core.framework import torch_dtype
@@ -21,6 +23,16 @@ def _fill_constant(ctx, ins, attrs):
                                device=ctx.device)]}
 
 
+@register_op("uniform_random", stateful=True)
+def _uniform_random(ctx, ins, attrs):
+    shape = tuple(attrs["shape"])
+    dt = torch_dtype(attrs.get("dtype", "float32"))
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    out = torch.rand(shape, generator=ctx.next_key(), device=ctx.device,
+                     dtype=torch.float32) * (hi - lo) + lo
+    return {"Out": [out.to(dt)]}
+
+
 @register_op("gaussian_random", stateful=True)
 def _gaussian_random(ctx, ins, attrs):
     shape = tuple(attrs["shape"])
@@ -29,6 +41,11 @@ def _gaussian_random(ctx, ins, attrs):
                        dtype=torch.float32) * attrs.get("std", 1.0)
            + attrs.get("mean", 0.0))
     return {"Out": [out.to(dt)]}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
 
 
 # ---------------------------------------------------------------------------
@@ -85,9 +102,72 @@ def _register_elementwise(name, fn):
         return {"Out": [_fn(x, y)]}
 
 
+# div and max: global-norm gradient clipping (clip.py)
 for _n, _f in [("elementwise_add", torch.add),
-               ("elementwise_mul", torch.mul)]:
+               ("elementwise_mul", torch.mul),
+               ("elementwise_div", torch.div),
+               ("elementwise_max", torch.maximum)]:
     _register_elementwise(_n, _f)
+
+
+@register_op("scale")
+def _scale(ctx, ins, attrs):
+    x = ins["X"][0]
+    scale = attrs.get("scale", 1.0)
+    bias = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [x * scale + bias]}
+    return {"Out": [(x + bias) * scale]}
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].mean().reshape((1,))]}
+
+
+# ---------------------------------------------------------------------------
+# activations and math the optimizers' helper ops use
+# ---------------------------------------------------------------------------
+
+
+register_op("sqrt")(lambda ctx, ins, attrs: {
+    "Out": [torch.sqrt(ins["X"][0])]})
+register_op("sign")(lambda ctx, ins, attrs: {
+    "Out": [torch.sign(ins["X"][0])]})
+
+
+@register_op("softmax")
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    mn = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [x * (mn / torch.clamp(norm, min=mn))]}
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                                     device=x.device)]}
 
 
 # ---------------------------------------------------------------------------

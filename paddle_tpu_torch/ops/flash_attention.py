@@ -1,19 +1,36 @@
-"""Flash attention forward (port of ``paddle_tpu/ops/pallas_attention.py``).
+"""Flash attention, forward and backward (port of
+``paddle_tpu/ops/pallas_attention.py``).
 
-K1, the reference's Pallas forward kernel ``_fa_kernel``, is the CUDA
-kernel ``csrc/flash_fwd.cu`` here. :func:`flash_fwd` is its wrapper: on a
-CUDA tensor it launches the kernel (or raises — there is no fallback),
-on a CPU tensor it runs :func:`ref_attention_lse`, the plain torch copy
-of the reference's ``_ref_attention_lse`` that the kernel is held to.
+The reference's three Pallas kernels are CUDA kernels here:
 
-The kernel follows ``_ref_attention_lse``'s semantics, not the Pallas
-kernel's quirks: causal masking is bottom-right aligned
-(``row + tk - tq >= col``; the Pallas kernel masks top-left, which agrees
-only when tq == tk) and keys past tk never enter the softmax (the Pallas
-kernel has no key-bounds mask for a ragged tail).
+- K1 ``_fa_kernel`` (the forward) is ``csrc/flash_fwd.cu``, wrapped by
+  :func:`flash_fwd`; its plain version is :func:`ref_attention_lse`, a
+  torch copy of the reference's ``_ref_attention_lse``.
+- K2 ``_fa_bwd_dq_kernel`` (dQ) and K3 ``_fa_bwd_dkv_kernel`` (dK, dV)
+  are ``csrc/flash_bwd.cu``, wrapped by :func:`flash_bwd_dq` and
+  :func:`flash_bwd_dkv`; their plain versions are
+  :func:`ref_flash_bwd_dq` and :func:`ref_flash_bwd_dkv`, which recompute
+  P from lse over the whole score matrix.
 
-Forward only: the differentiable entry with the backward kernels K2/K3
-(``torch.autograd.Function``) comes with training.
+On a CUDA tensor a wrapper launches its kernel (or raises — there is no
+fallback); on a CPU tensor it runs the plain version. Each wrapper
+counts its launches in ``<wrapper>.launches``.
+
+The kernels follow the semantics of ``_ref_attention_lse`` and of
+``jax.vjp`` of it, not the Pallas kernels' quirks: causal masking is
+bottom-right aligned (``row + tk - tq >= col``; the Pallas kernels mask
+top-left, which agrees only when tq == tk), keys past tk never enter the
+softmax (the Pallas forward has no key-bounds mask for a ragged tail),
+masked entries get dS = 0, and a row with every key masked (causal with
+tq > tk) averages V, so its backward has P = 1/tk and dS = 0.
+
+``flash_attention`` and ``attention_with_lse`` are differentiable
+through :class:`FlashAttention`, a ``torch.autograd.Function`` whose
+backward runs K2 and K3 — the counterpart of the reference's
+``jax.custom_vjp``. ``attention_with_lse`` is differentiable in both
+outputs, as the reference's plain-jnp version is: since
+d lse / d S = P, the lse cotangent folds into the kernels' row term as
+delta = rowsum(dO * O) - dlse.
 """
 import ctypes
 import math
@@ -23,7 +40,9 @@ import torch
 from . import cuda_build
 
 __all__ = ["flash_attention", "attention_with_lse", "flash_fwd",
-           "ref_attention_lse", "NEG_INF"]
+           "flash_bwd_dq", "flash_bwd_dkv", "FlashAttention",
+           "ref_attention_lse", "ref_flash_bwd_dq", "ref_flash_bwd_dkv",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -50,14 +69,110 @@ def ref_attention_lse(q, k, v, scale, causal, bias=None):
     return o, lse
 
 
-def _kernel():
-    fn = cuda_build.load("flash_fwd").flash_fwd
+def _ref_p_ds(q, k, v, do, lse, delta, scale, causal):
+    """The backward tile math of the reference's ``_recompute_ds`` over
+    the whole [tq, tk] matrix, in float32: P = exp(S - lse) and
+    dS = P * (dO V^T - delta) * scale, with masked entries 0 and fully
+    masked rows at P = 1/tk, dS = 0 (their lse cannot give P back)."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("...qd,...kd->...qk", dof, vf)
+    ds = p * (dp - delta.float()[..., None]) * scale
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        rows = torch.arange(tq, device=s.device)[:, None]
+        cols = torch.arange(tk, device=s.device)[None, :]
+        masked = rows + (tk - tq) < cols
+        p = p.masked_fill(masked, 0.0)
+        p = torch.where(rows + (tk - tq) < 0, 1.0 / tk, p)
+        ds = ds.masked_fill(masked, 0.0)
+    return p, ds
+
+
+def ref_flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
+    """dQ = dS K in q's dtype — the plain version of K2."""
+    _, ds = _ref_p_ds(q, k, v, do, lse, delta, scale, causal)
+    return torch.einsum("...qk,...kd->...qd", ds, k.float()).to(q.dtype)
+
+
+def ref_flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
+    """(dK = dS^T Q, dV = P^T dO) in k's and v's dtype — the plain
+    version of K3."""
+    p, ds = _ref_p_ds(q, k, v, do, lse, delta, scale, causal)
+    dk = torch.einsum("...qk,...qd->...kd", ds, q.float())
+    dv = torch.einsum("...qk,...qd->...kd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(name, q, k, v, extra=()):
+    """The wrappers' shared input contract. q (and each tensor of
+    ``extra``): [BH, tq, D]; k, v: [BH, tk, D]; one dtype, one device."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{name} takes [BH, T, D] tensors, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, tq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    for x in extra:
+        if x.shape != q.shape:
+            raise ValueError(f"{name}: {tuple(x.shape)} does not match q "
+                             f"{tuple(q.shape)}")
+    ts = (q, k, v) + tuple(extra)
+    if len({x.dtype for x in ts}) != 1:
+        raise ValueError(f"{name}: dtypes differ: "
+                         f"{[x.dtype for x in ts]}")
+    if len({x.device for x in ts}) != 1:
+        raise ValueError(f"{name}: devices differ: "
+                         f"{[x.device for x in ts]}")
+
+
+def _check_kernel_inputs(name, tensors, rows):
+    """What the CUDA kernels take beyond the shared contract: CUDA
+    tensors of a kernel dtype and head dim, contiguous; float32 row
+    vectors ``rows`` of shape [BH, tq]."""
+    q = tensors[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name} kernel takes float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
+    if q.shape[2] not in _HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head dims {_HEAD_DIMS}, "
+                         f"got {q.shape[2]}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+    for x in rows:
+        if x.dtype != torch.float32 or x.shape != q.shape[:2] \
+                or x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{name}: lse/delta must be contiguous "
+                             f"float32 [BH, tq] on {q.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _bind(lib, fn_name, n_ptrs):
+    fn = getattr(cuda_build.load(lib), fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        # q, k, v, o, lse; bh, tq, tk, d, dtype; scale, causal, stream
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        # pointers; bh, tq, tk, d, dtype; scale, causal, stream
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+def _launch(name, kernel, ptrs, q, tk, scale, causal):
+    bh, tq, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = kernel(*ptrs, bh, tq, tk, d, _DTYPE_CODE[q.dtype],
+                    float(scale), int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"(bh={bh}, tq={tq}, tk={tk}, d={d}, "
+                           f"dtype={q.dtype})")
 
 
 def flash_fwd(q, k, v, scale, causal):
@@ -65,46 +180,16 @@ def flash_fwd(q, k, v, scale, causal):
     dtype, one device. Returns (o [BH, tq, D] in q's dtype,
     lse [BH, tq] float32). ``flash_fwd.launches`` counts kernel
     launches."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError(f"flash_fwd takes [BH, T, D] tensors, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    bh, tq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
-        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
-                         f"do not match q {tuple(q.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q/k/v devices differ: {q.device}, {k.device}, "
-                         f"{v.device}")
+    _check("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return ref_attention_lse(q, k, v, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on CUDA or CPU tensors, got "
-                         f"{q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_fwd kernel takes float32, bfloat16 or "
-                         f"float16, got {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head dims {_HEAD_DIMS}, "
-                         f"got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd needs contiguous q, k, v")
-    kernel = _kernel()
+    _check_kernel_inputs("flash_fwd", (q, k, v), ())
+    kernel = _bind("flash_fwd", "flash_fwd", 5)
     o = torch.empty_like(q)
-    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    o.data_ptr(), lse.data_ptr(), bh, tq, k.shape[1], d,
-                    _DTYPE_CODE[q.dtype], float(scale), int(bool(causal)),
-                    stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
-                           f"{rc} (bh={bh}, tq={tq}, tk={k.shape[1]}, "
-                           f"d={d}, dtype={q.dtype})")
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", kernel,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr()), q, k.shape[1], scale, causal)
     flash_fwd.launches += 1
     return o, lse
 
@@ -112,25 +197,98 @@ def flash_fwd(q, k, v, scale, causal):
 flash_fwd.launches = 0
 
 
-def _flash_fwd(q, k, v, causal, scale):
-    """[B, H, T, D] → (o [B, H, tq, D], lse [B, H, tq]) through K1.
-    ``scale`` 0 or None means 1/sqrt(D), as in the reference."""
-    sc = scale or (1.0 / math.sqrt(q.shape[-1]))
-    b, h, t, d = q.shape
-    o, lse = flash_fwd(q.reshape(b * h, t, d).contiguous(),
-                       k.reshape(b * h, k.shape[2], d).contiguous(),
-                       v.reshape(b * h, v.shape[2], d).contiguous(),
-                       sc, causal)
-    return o.reshape(q.shape), lse.reshape(b, h, t)
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
+    """K2's wrapper. q, do: [BH, tq, D]; k, v: [BH, tk, D]; lse, delta:
+    [BH, tq] float32 (delta = rowsum(dO * O) - dlse). Returns dq in q's
+    dtype. ``flash_bwd_dq.launches`` counts kernel launches."""
+    _check("flash_bwd_dq", q, k, v, (do,))
+    if q.device.type == "cpu":
+        return ref_flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    _check_kernel_inputs("flash_bwd_dq", (q, k, v, do), (lse, delta))
+    kernel = _bind("flash_bwd", "flash_bwd_dq", 7)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", kernel,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
+            q, k.shape[1], scale, causal)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
+    """K3's wrapper; arguments as :func:`flash_bwd_dq`. Returns (dk, dv)
+    in k's and v's dtype. ``flash_bwd_dkv.launches`` counts kernel
+    launches."""
+    _check("flash_bwd_dkv", q, k, v, (do,))
+    if q.device.type == "cpu":
+        return ref_flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    _check_kernel_inputs("flash_bwd_dkv", (q, k, v, do), (lse, delta))
+    kernel = _bind("flash_bwd", "flash_bwd_dkv", 8)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", kernel,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+             dv.data_ptr()), q, k.shape[1], scale, causal)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def _fold(x):
+    """[B, H, T, D] → contiguous [B*H, T, D]."""
+    return x.reshape(x.shape[0] * x.shape[1], x.shape[2], x.shape[3]) \
+        .contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """q, k, v: [B, H, T, D] → (o [B, H, tq, D], lse [B, H, tq] float32)
+    through K1; the backward runs K2 and K3 on the saved q, k, v, o and
+    lse. ``scale`` is the softmax scale (already resolved)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        b, h, tq, d = q.shape
+        qf, kf, vf = _fold(q), _fold(k), _fold(v)
+        o, lse = flash_fwd(qf, kf, vf, scale, causal)
+        ctx.save_for_backward(qf, kf, vf, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.shapes = (q.shape, k.shape, v.shape)
+        return o.reshape(b, h, tq, d), lse.reshape(b, h, tq)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        qf, kf, vf, o, lse = ctx.saved_tensors
+        qs, ks, vs = ctx.shapes
+        dof = _fold(do.to(qf.dtype))
+        # delta = rowsum(dO * O) in float32, outside the kernels as in
+        # the reference (_flash_bwd_pallas); the lse cotangent enters
+        # through it because d lse / d S = P
+        delta = (dof.float() * o.float()).sum(-1)
+        if dlse is not None:
+            delta = delta - dlse.reshape(delta.shape).float()
+        delta = delta.contiguous()
+        dq = flash_bwd_dq(qf, kf, vf, dof, lse, delta, ctx.scale,
+                          ctx.causal)
+        dk, dv = flash_bwd_dkv(qf, kf, vf, dof, lse, delta, ctx.scale,
+                               ctx.causal)
+        return dq.reshape(qs), dk.reshape(ks), dv.reshape(vs), None, None
 
 
 def attention_with_lse(q, k, v, scale=None, causal=False):
     """Attention that also returns log-sum-exp — the building block
-    ring attention merges partial results with. q,k,v: [B, H, T, D]."""
-    return _flash_fwd(q, k, v, causal, scale)
+    ring attention merges partial results with. q,k,v: [B, H, T, D].
+    ``scale`` 0 or None means 1/sqrt(D), as in the reference.
+    Differentiable in both outputs."""
+    sc = scale or (1.0 / math.sqrt(q.shape[-1]))
+    return FlashAttention.apply(q, k, v, bool(causal), float(sc))
 
 
 def flash_attention(q, k, v, causal=True, scale=None):
-    """q,k,v: [B, H, T, D] → [B, H, T, D] (forward only)."""
-    o, _ = _flash_fwd(q, k, v, causal, scale)
+    """q,k,v: [B, H, T, D] → [B, H, T, D], differentiable (K2/K3)."""
+    o, _ = attention_with_lse(q, k, v, scale, causal)
     return o

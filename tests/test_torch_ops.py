@@ -57,16 +57,24 @@ def _assert_same(jout, tout, **tol):
             np.testing.assert_allclose(b, a, **(tol or TOL))
 
 
-PORTED = {"fill_constant", "gaussian_random", "mul", "elementwise_add",
-          "elementwise_mul", "reshape", "reshape2", "lookup_table",
-          "rms_norm", "rope", "multihead_attention", "silu"}
+OPTIMIZER_RULES = {"sgd", "momentum", "adam", "adamax", "adagrad",
+                   "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "lamb",
+                   "proximal_gd", "proximal_adagrad"}
+PORTED = {"fill_constant", "uniform_random", "gaussian_random", "cast",
+          "mul", "elementwise_add", "elementwise_mul", "elementwise_div",
+          "elementwise_max", "scale", "sum", "mean", "sqrt", "sign",
+          "softmax", "clip", "clip_by_norm",
+          "increment", "reshape", "reshape2", "lookup_table",
+          "cross_entropy", "softmax_with_cross_entropy", "squared_l2_norm",
+          "rms_norm", "rope", "multihead_attention",
+          "silu"} | OPTIMIZER_RULES
 
 
 def test_port_registers_exactly_the_slice_ops():
     assert set(pt_registry.registered_ops()) == PORTED
     assert PORTED <= set(jax_registry.registered_ops())
     with pytest.raises(NotImplementedError, match="no lowering rule"):
-        pt_registry.get_op("softmax_with_cross_entropy")
+        pt_registry.get_op("conv2d")
 
 
 def test_double_registration_is_loud():
@@ -93,7 +101,8 @@ BCAST_CASES = [((2, 3, 4), (2, 3, 4), -1), ((2, 3, 4), (), -1),
                ((3, 4), (2, 3, 4), -1)]
 
 
-@pytest.mark.parametrize("op_type", ["elementwise_add", "elementwise_mul"])
+@pytest.mark.parametrize("op_type", ["elementwise_add", "elementwise_mul",
+                                     "elementwise_div", "elementwise_max"])
 @pytest.mark.parametrize("xshape,yshape,axis", BCAST_CASES)
 def test_elementwise_axis_broadcast(op_type, xshape, yshape, axis):
     r = _rng(1)
@@ -240,3 +249,100 @@ def test_gqa_repeat_is_interleave_not_tile():
         alone = attention_core(q[:, :, h:h + 1], k[:, :, h // 2:h // 2 + 1],
                                v[:, :, h // 2:h // 2 + 1], causal=True)
         torch.testing.assert_close(out[:, :, h:h + 1], alone)
+
+
+@pytest.mark.parametrize("attrs", [{"scale": 0.9},
+                                   {"scale": 2.0, "bias": 0.5},
+                                   {"scale": 2.0, "bias": 0.5,
+                                    "bias_after_scale": False}])
+def test_scale(attrs):
+    x = _rng(10).randn(3, 4).astype(np.float32)
+    _assert_same(*_run_both("scale", {"X": [x]}, attrs))
+
+
+def test_sum_mean_sqrt_sign_squared_l2_norm():
+    r = _rng(11)
+    xs = [r.randn(3, 5).astype(np.float32) for _ in range(3)]
+    _assert_same(*_run_both("sum", {"X": xs}, {}))
+    j, t = _run_both("mean", {"X": [xs[0]]}, {})
+    _assert_same(j, t)
+    assert t["Out"][0].shape == (1,)
+    _assert_same(*_run_both("sqrt", {"X": [np.abs(xs[1])]}, {}))
+    _assert_same(*_run_both("sign", {"X": [xs[2]]}, {}))
+    _assert_same(*_run_both("squared_l2_norm", {"X": [xs[0]]}, {}))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int64", "bfloat16"])
+def test_cast(dtype):
+    x = (_rng(12).randn(4, 3) * 10).astype(np.float32)
+    j, t = _run_both("cast", {"X": [x]}, {"in_dtype": "float32",
+                                          "out_dtype": dtype})
+    _assert_same(j, t, rtol=0, atol=0)
+
+
+def test_clip_clip_by_norm_increment_softmax():
+    r = _rng(13)
+    x = (r.randn(4, 6) * 3).astype(np.float32)
+    _assert_same(*_run_both("clip", {"X": [x]}, {"min": -1.0, "max": 2.0}))
+    for mn in (1.0, 1e3):                 # clipped and not
+        _assert_same(*_run_both("clip_by_norm", {"X": [x]},
+                                {"max_norm": mn}))
+    _assert_same(*_run_both("increment", {"X": [x[:1, :1]]},
+                            {"step": 2.0}))
+    for axis in (-1, 0):
+        _assert_same(*_run_both("softmax", {"X": [x]}, {"axis": axis}))
+
+
+@pytest.mark.parametrize("label_shape", ["n1", "n"])
+@pytest.mark.parametrize("ignore", [-100, 2])
+def test_softmax_with_cross_entropy_and_cross_entropy(label_shape, ignore):
+    """Hard labels ([N, 1] or [N]), with ignore_index hitting some rows;
+    cross_entropy on the softmax of the same logits."""
+    r = _rng(14)
+    logits = (r.randn(2, 5, 7) * 2).astype(np.float32)
+    label = r.randint(0, 7, (2, 5, 1)).astype(np.int64)
+    label[0, :2, 0] = 2
+    if label_shape == "n":
+        label = label[..., 0]
+    attrs = {"soft_label": False, "ignore_index": ignore}
+    j, t = _run_both("softmax_with_cross_entropy",
+                     {"Logits": [logits], "Label": [label]}, attrs)
+    _assert_same(j, t)
+    assert t["Loss"][0].shape == (2, 5, 1)
+    if ignore == 2:
+        assert not t["Loss"][0][0, :2].any()
+    probs = np.array(j["Softmax"][0])
+    _assert_same(*_run_both("cross_entropy",
+                            {"X": [probs], "Label": [label]}, attrs))
+
+
+def test_soft_label_losses():
+    r = _rng(15)
+    logits = r.randn(6, 4).astype(np.float32)
+    soft = np.abs(r.randn(6, 4)).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    j, t = _run_both("softmax_with_cross_entropy",
+                     {"Logits": [logits], "Label": [soft]},
+                     {"soft_label": True})
+    _assert_same(j, t)
+    _assert_same(*_run_both("cross_entropy",
+                            {"X": [np.array(j["Softmax"][0])],
+                             "Label": [soft]},
+                            {"soft_label": True}))
+
+
+def test_uniform_random_distribution_and_determinism():
+    attrs = {"shape": [300, 100], "dtype": "float32", "min": -0.5,
+             "max": 1.5}
+    rule = pt_registry.get_op("uniform_random").lower
+
+    def draw(seed, step):
+        ctx = pt_lowering.LoweringContext(None, "train",
+                                          torch.device("cpu"), seed, step)
+        return rule(ctx, {}, attrs)["Out"][0]
+
+    a = draw(0, 1)
+    assert a.shape == (300, 100) and a.dtype == torch.float32
+    assert float(a.min()) >= -0.5 and float(a.max()) < 1.5
+    assert abs(float(a.mean()) - 0.5) < 0.01
+    assert torch.equal(a, draw(0, 1)) and not torch.equal(a, draw(0, 2))

@@ -11,38 +11,46 @@ Phases — any failure exits non-zero:
 1. device: the card's name, ``nvidia-smi`` name and power limit, torch
    and CUDA versions;
 2. build: every kernel of ``paddle_tpu_torch/csrc`` with nvcc (one
-   process per source, all at once), with the build seconds and the
-   compiler's register/shared-memory report;
-3. kernels: K1 (the flash-attention forward, ``csrc/flash_fwd.cu``) and
-   K2/K3 (its backward, dQ and dK/dV, ``csrc/flash_bwd.cu``) against
-   their plain torch versions on the same inputs — the serving and
-   training shapes and the edge cases (f32 causal and not, tq != tk
-   with fully masked rows, ragged T, D = 64, fp16) — with dQ, dK and dV
-   each checked on its own, in a tier set by the output's type and
-   scale; at the training shape, grid and tile-loop faults planted in
-   copies of the outputs must fail that tier; ``attention_with_lse``'s
-   gradient through
-   both outputs against plain autograd of ``ref_attention_lse``; each
-   kernel timed beside its plain version, its bound and
-   ``scaled_dot_product_attention`` forward or backward (a yardstick
-   only — the port never calls it);
+   process per source, all at once), with the build seconds, the
+   compiler's register/shared-memory/spill report, and each kernel's
+   count of tensor-core instructions (``HMMA``) in its SASS
+   (``cuobjdump``) — none in ``flash_fwd_mma`` or ``flash_bwd_dkv_mma``
+   fails the run;
+3. kernels: K1 (the flash-attention forward) and K2/K3 (its backward,
+   dQ and dK/dV) against their plain torch versions on the same inputs,
+   on both routes — bf16/fp16 through the tensor-core kernels
+   (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dkv_mma.cu``; K2 stays
+   ``csrc/flash_bwd.cu``), float32 through the SIMT kernels
+   (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) — at the serving and
+   training shapes and the edge cases (causal and not, tq != tk with
+   fully masked rows, ragged T, D = 64, in f32, bf16 and fp16), each
+   case asserting which variant launched, with dQ, dK and dV each
+   checked on its own, in a tier set by the output's type and scale; at
+   the training shape, grid and tile-loop faults planted in copies of
+   the outputs, at the tiles of the kernels that ran, must fail that
+   tier; ``attention_with_lse``'s gradient through both outputs against
+   plain autograd of ``ref_attention_lse``; each kernel timed beside its
+   plain version, its bound and ``scaled_dot_product_attention``
+   forward or backward (a yardstick only — the port never calls it);
 4. serve: the Llama-3-8B-width forward program, all 32 layers (random
    weights from SEED) behind the port's ``ServingEngine``: warmup over the
    buckets, concurrent requests, each answer held against the same
    request run alone through ``Executor.run``, no step build after
-   warmup, and K1 launched once per layer per dispatch — in bfloat16,
-   then in float32, where answers match the lone runs logit for logit;
+   warmup, and K1 launched once per layer per dispatch — in bfloat16
+   (every launch the tensor-core K1), then in float32 (every launch the
+   SIMT K1), where answers match the lone runs logit for logit;
 5. train: the Llama-3-8B-width model cut to 8 layers, bf16, through
    ``build_llama(targets)`` → ``Adam.minimize`` → ``Executor.run`` on one
    fixed batch of 2 x 2048 tokens: 2 warmup and 8 timed steps with
-   finite, falling loss, K1/K2/K3 each launched once per layer per step,
+   finite, falling loss, K1/K2/K3 each launched once per layer per step
+   (K1 and K3 every time on the tensor cores),
    step time, tokens/s, peak memory and one step's device time by kind
    (the main path of this slice, whose launches the kernel line
    reports);
 6. train parity: a narrow float32 model (head dim 128, TF32 off) whose
    step on the card (the kernels) matches the same step on the CPU (the
-   plain versions): loss and every parameter's gradient, then 3 Adam
-   steps' losses.
+   plain versions; the SIMT K1 and K3): loss and every parameter's
+   gradient, then 3 Adam steps' losses.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -90,9 +98,20 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 TRAIN_LABEL = "training shape"
 INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
-KERNEL_NAMES = (("k1_flash_fwd", "flash_fwd_kernel"),
-                ("k2_flash_bwd_dq", "flash_bwd_dq_kernel"),
-                ("k3_flash_bwd_dkv", "flash_bwd_dkv_kernel"))
+# the profiler's kinds and the kernel functions each covers (both routes)
+KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
+                ("k2_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+                ("k3_flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                                      "flash_bwd_dkv_mma_kernel")))
+# the tensor-core kernels, whose SASS must hold HMMA instructions
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+# kernel symbol -> the constexprs of its source that give its tile's q
+# rows and keys, where the planted faults are placed
+TILE_CONSTEXPRS = {"flash_fwd": ("BLOCK_M", "BLOCK_N"),
+                   "flash_fwd_mma": ("BLOCK_M", "BLOCK_N"),
+                   "flash_bwd_dq": ("DQ_BLOCK_M", "DQ_BLOCK_N"),
+                   "flash_bwd_dkv": ("DKV_BLOCK_M", "DKV_BLOCK_N"),
+                   "flash_bwd_dkv_mma": ("BLOCK_M", "BLOCK_N")}
 
 
 class SmokeFailure(Exception):
@@ -211,10 +230,13 @@ def phase_kernels(torch, fa, seed):
     dev = torch.device("cuda", 0)
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     bh_train = TRAIN_BATCH * 32
-    # (label, bh, tq, tk, d, dtype, causal)
+    # (label, bh, tq, tk, d, dtype, causal); bf16/fp16 run the
+    # tensor-core K1 and K3, float32 the SIMT ones, K2 is SIMT for all
     cases = [
         ("serving T=128", 4 * 32, 128, 128, 128, bf16, True),
         ("serving T=256", 4 * 32, 256, 256, 128, bf16, True),
+        ("f32 serving T=128", 4 * 32, 128, 128, 128, f32, True),
+        ("f32 serving T=256", 4 * 32, 256, 256, 128, f32, True),
         (TRAIN_LABEL, bh_train, TRAIN_SEQ, TRAIN_SEQ, 128, bf16, True),
         ("f32 causal", 8, 256, 256, 128, f32, True),
         ("f32 non-causal", 8, 256, 256, 128, f32, False),
@@ -224,7 +246,14 @@ def phase_kernels(torch, fa, seed):
         ("f32 ragged T=200 causal", 8, 200, 200, 128, f32, True),
         ("f32 ragged T=200 non-causal", 8, 200, 200, 128, f32, False),
         ("f32 D=64 causal", 8, 256, 256, 64, f32, True),
+        ("bf16 tq<tk causal", 8, 128, 256, 128, bf16, True),
+        ("bf16 tq>tk causal (fully masked rows)", 8, 256, 128, 128, bf16,
+         True),
+        ("bf16 ragged T=200 causal", 8, 200, 200, 128, bf16, True),
+        ("bf16 ragged T=200 non-causal", 8, 200, 200, 128, bf16, False),
         ("bf16 D=64 causal", 8, 256, 256, 64, bf16, True),
+        ("bf16 D=64 non-causal", 8, 256, 256, 64, bf16, False),
+        ("fp16 ragged T=200 causal", 8, 200, 200, 128, f16, True),
         ("fp16 ragged T=200 non-causal", 8, 200, 200, 128, f16, False),
     ]
     gen = torch.Generator(device=dev)
@@ -234,6 +263,7 @@ def phase_kernels(torch, fa, seed):
     for label, bh, tq, tk, d, dt, causal in cases:
         q, k, v, do = attention_inputs(torch, gen, dev, bh, tq, tk, d, dt)
         scale = 1.0 / np.sqrt(d)
+        fa.reset_launch_counts()
         o, lse = fa.flash_fwd(q, k, v, scale, causal)
         torch.cuda.synchronize()
         # K1's plain version rounds scores and probabilities to the
@@ -248,6 +278,7 @@ def phase_kernels(torch, fa, seed):
         dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
         torch.cuda.synchronize()
+        ran = check_variants(fa, dt, d)
         pairs["dQ"] = (dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta,
                                                scale, causal))
         want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta,
@@ -257,7 +288,7 @@ def phase_kernels(torch, fa, seed):
         finite = all(bool(torch.isfinite(g).all()) for g, _ in pairs.values())
         ok = finite and all(e[0] for e in errs.values())
         log(f"K1-3 {label}: bh={bh} tq={tq} tk={tk} d={d} {dt} "
-            f"causal={causal}: max abs err (err/limit) "
+            f"causal={causal} ({', '.join(ran)}): max abs err (err/limit) "
             + ", ".join(f"{n} {e:.3e} ({r:.3f})"
                         for n, (_, e, r) in errs.items())
             + f" ({TOL_TEXT}) {'ok' if ok else 'MISMATCH'}")
@@ -268,7 +299,7 @@ def phase_kernels(torch, fa, seed):
             err_fwd=max(errs["O"][1], errs["lse"][1]), err_dq=errs["dQ"][1],
             err_dkv=max(errs["dK"][1], errs["dV"][1]))
         if label == TRAIN_LABEL and ok:
-            check_planted_faults(fa, (q, k, v, do, lse, delta), scale,
+            check_planted_faults(torch, fa, (q, k, v, do, lse, delta), scale,
                                  pairs, errs)
         del o, lse, delta, dq, dk, dv, pairs, want_k, want_v
     check(not failures,
@@ -277,116 +308,157 @@ def phase_kernels(torch, fa, seed):
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
     timing = {}
-    for label in ("serving T=256", TRAIN_LABEL):
-        r = results[label]
-        q, k, v, do, causal = r["inputs"]
-        bh, t, d = q.shape
-        scale = 1.0 / np.sqrt(d)
-        b = bh // 32
-        q4, k4, v4 = (x.view(b, 32, t, d) for x in (q, k, v))
-        ms = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), torch,
-                     flush=flush)
-        plain_ms = time_ms(
-            lambda: fa.ref_attention_lse(q, k, v, scale, causal), torch,
-            flush=flush)
-        lib_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal), torch, flush=flush)
-        bound, by, nbytes, flops = attention_bound_ms(
-            bh, t, t, d, "bfloat16", causal, q.element_size(), "fwd")
-        timing[("K1", label)] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-            bound_by=by, max_abs_err=r["err_fwd"])
-        log(f"K1 {label} timing (cold L2, mean of 20): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-            f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.3f} GFLOP)")
-        if label != TRAIN_LABEL:
-            continue
-        o, lse = fa.flash_fwd(q, k, v, scale, causal)
-        delta = (do.float() * o.float()).sum(-1)
-        # the yardstick: SDPA's backward (dQ, dK and dV in one call) on
-        # a saved graph, at the same shape
-        qg, kg, vg = (x.detach().clone().requires_grad_()
-                      for x in (q4, k4, v4))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=causal)
-        do4 = do.view(b, 32, t, d)
-        sdpa_bwd_ms = time_ms(
-            lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
-                                        retain_graph=True),
-            torch, flush=flush)
-        for name, kind, kern, plain, err in (
-                ("K2", "dq",
-                 lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale,
-                                         causal),
-                 lambda: fa.ref_flash_bwd_dq(q, k, v, do, lse, delta,
-                                             scale, causal),
-                 r["err_dq"]),
-                ("K3", "dkv",
-                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                          causal),
-                 lambda: fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta,
-                                              scale, causal),
-                 r["err_dkv"])):
-            ms = time_ms(kern, torch, flush=flush)
-            plain_ms = time_ms(plain, torch, iters=5, flush=flush)
-            bound, by, nbytes, flops = attention_bound_ms(
-                bh, t, t, d, "bfloat16", causal, q.element_size(), kind)
-            timing[(name, label)] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
-                bound_ms=bound, bound_by=by, max_abs_err=err)
-            log(f"{name} {label} timing (cold L2): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, sdpa backward (dQ, dK, dV) "
-                f"{sdpa_bwd_ms:.4f} ms, bound {bound:.4f} ms by {by} "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
-        del out, qg, kg, vg, o, lse, delta
+    for label, kinds in (("serving T=256", ("fwd",)),
+                         ("f32 serving T=256", ("fwd",)),
+                         (TRAIN_LABEL, ("fwd", "dq", "dkv")),
+                         ("f32 causal", ("fwd", "dkv"))):
+        timing.update(time_kernels(torch, fa, results[label], label, kinds,
+                                   flush))
     del flush, results
     return timing
 
 
-def check_planted_faults(fa, inputs, scale, pairs, errs):
+def check_variants(fa, dt, d):
+    """Each wrapper launched once since the counts were reset, and that
+    launch went to the variant ``kernel_for`` names for ``dt``; returns
+    the variants' symbols."""
+    ran = []
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        _, sym = fa.kernel_for(w.__name__, dt, d)
+        by = w.launches_by_kernel
+        check(w.launches == 1 and by[sym] == 1,
+              f"{w.__name__} on {dt}: launches {by}, expected one of {sym}")
+        ran.append(sym)
+    return ran
+
+
+def time_kernels(torch, fa, r, label, kinds, flush):
+    """Time the wrappers of ``kinds`` ("fwd" K1, "dq" K2, "dkv" K3) on
+    case ``r``'s inputs (cold L2), beside their plain versions, SDPA's
+    forward or backward and their bounds. Returns {(kind, label): row}."""
+    q, k, v, do, causal = r["inputs"]
+    bh, t, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    dt_name = str(q.dtype).rsplit(".", 1)[-1]
+    heads = 32 if bh % 32 == 0 else bh
+    q4, k4, v4, do4 = (x.view(bh // heads, heads, t, d)
+                       for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    lib_ms = {"fwd": time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal),
+                             torch, flush=flush)}
+    if set(kinds) - {"fwd"}:
+        # SDPA's backward (dQ, dK and dV in one call) on a saved graph
+        qg, kg, vg = (x.detach().clone().requires_grad_()
+                      for x in (q4, k4, v4))
+        out = sdpa(qg, kg, vg, is_causal=causal)
+        lib_ms["dq"] = lib_ms["dkv"] = time_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
+                                        retain_graph=True),
+            torch, flush=flush)
+        del out, qg, kg, vg
+    bwd = (q, k, v, do, lse, delta, scale, causal)
+    calls = {
+        "fwd": ("flash_fwd", "err_fwd",
+                lambda: fa.flash_fwd(q, k, v, scale, causal),
+                lambda: fa.ref_attention_lse(q, k, v, scale, causal), 20),
+        "dq": ("flash_bwd_dq", "err_dq", lambda: fa.flash_bwd_dq(*bwd),
+               lambda: fa.ref_flash_bwd_dq(*bwd), 5),
+        "dkv": ("flash_bwd_dkv", "err_dkv", lambda: fa.flash_bwd_dkv(*bwd),
+                lambda: fa.ref_flash_bwd_dkv(*bwd), 5),
+    }
+    rows = {}
+    for kind in kinds:
+        wrapper, err, kern, plain, plain_iters = calls[kind]
+        ms = time_ms(kern, torch, flush=flush)
+        plain_ms = time_ms(plain, torch, iters=plain_iters, flush=flush)
+        bound, by, nbytes, flops = attention_bound_ms(
+            bh, t, t, d, dt_name, causal, q.element_size(), kind)
+        symbol = fa.kernel_for(wrapper, q.dtype, d)[1]
+        rows[(kind, label)] = dict(
+            kernel=symbol, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms[kind], bound_ms=bound, bound_by=by,
+            max_abs_err=r[err])
+        log(f"{symbol} {label} timing (cold L2): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa "
+            f"{'forward' if kind == 'fwd' else 'backward (dQ, dK, dV)'} "
+            f"{lib_ms[kind]:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    del o, lse, delta
+    return rows
+
+
+def kernel_tile(fa, wrapper, dtype, d=128):
+    """(q rows, keys) of a tile of the kernel ``wrapper`` launches on
+    ``dtype``, read from its source's constexprs."""
+    from paddle_tpu_torch.ops import cuda_build
+    lib, sym = fa.kernel_for(wrapper, dtype, d)
+    values = cuda_build.constexprs(lib)
+    return tuple(values[name] for name in TILE_CONSTEXPRS[sym])
+
+
+def planted_fault_tiles(torch, fa):
+    """(q rows, keys) of a tile of each kernel the bf16 training shape
+    runs (K1 and K3 on the tensor cores, K2 SIMT)."""
+    return {w: kernel_tile(fa, w, torch.bfloat16)
+            for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def check_planted_faults(torch, fa, inputs, scale, pairs, errs):
     """The bf16 tier must catch what a grid or tile-loop fault leaves at
     the training shape (causal, tq = tk = T), where late rows and keys
     hold the smallest values: each fault is planted in a copy of a
     kernel's output and must fail the check the kernel passed. Tiles are
-    the kernels' own: K2 64-row q tiles over 32-key tiles, K3 64-key
-    tiles over 32-row q tiles (csrc/flash_bwd.cu), K1 64-row q tiles."""
+    those of the kernels that ran (:func:`planted_fault_tiles`)."""
     q, k, v, do, lse, delta = inputs
     bh, t, d = q.shape
-    nt = t // 64
+    tiles = planted_fault_tiles(torch, fa)
+    fwd_rows, _ = tiles["flash_fwd"]
+    dq_rows, dq_keys = tiles["flash_bwd_dq"]
+    dkv_rows, dkv_keys = tiles["flash_bwd_dkv"]
 
-    def last_tile_lost(x):
+    def last_tile_lost(x, n):
         x = x.clone()
-        x[:, -64:] = 0
+        x[:, -n:] = 0
         return x
 
     def minus(x, part):
         return (x.float() - part.float().reshape(x.shape)).to(x.dtype)
 
     # K2 stops one k tile early: under causal the last k tile of q tile
-    # i is keys [64i + 32, 64i + 64), whose share of dQ is the plain dQ
-    # of those rows against those keys (the masks align bottom-right)
-    q_t, do_t = (x.view(bh, nt, 64, d) for x in (q, do))
-    k_t, v_t = (x.view(bh, nt, 2, 32, d)[:, :, 1] for x in (k, v))
-    lse_t, delta_t = (x.view(bh, nt, 64) for x in (lse, delta))
+    # i is keys [(i + 1) dq_rows - dq_keys, (i + 1) dq_rows), whose share
+    # of dQ is the plain dQ of those rows against those keys (the masks
+    # align bottom-right)
+    nt = t // dq_rows
+    q_t, do_t = (x.view(bh, nt, dq_rows, d) for x in (q, do))
+    k_t, v_t = (x.view(bh, nt, dq_rows // dq_keys, dq_keys, d)[:, :, -1]
+                for x in (k, v))
+    lse_t, delta_t = (x.view(bh, nt, dq_rows) for x in (lse, delta))
     dq_last_k = fa.ref_flash_bwd_dq(q_t, k_t, v_t, do_t, lse_t, delta_t,
                                     scale, True)
     # K3 stops one q tile early: every k tile's loop ends at rows
-    # [T - 32, T)
+    # [T - dkv_rows, T)
     dk_last_q, dv_last_q = fa.ref_flash_bwd_dkv(
-        q[:, -32:], k, v, do[:, -32:], lse[:, -32:], delta[:, -32:],
-        scale, True)
+        q[:, -dkv_rows:], k, v, do[:, -dkv_rows:], lse[:, -dkv_rows:],
+        delta[:, -dkv_rows:], scale, True)
     (o, _), (dq, _), (dk, _), (dv, _) = (pairs[n]
                                          for n in ("O", "dQ", "dK", "dV"))
     faults = (
-        ("O", "K1 leaves its last q tile unwritten", last_tile_lost(o)),
-        ("dQ", "K2 leaves its last q tile unwritten", last_tile_lost(dq)),
-        ("dQ", "K2 skips each q tile's last k tile", minus(dq, dq_last_k)),
-        ("dK", "K3 leaves its last k tile unwritten", last_tile_lost(dk)),
-        ("dV", "K3 leaves its last k tile unwritten", last_tile_lost(dv)),
-        ("dK", "K3 skips its last q tile", minus(dk, dk_last_q)),
-        ("dV", "K3 skips its last q tile", minus(dv, dv_last_q)),
+        ("O", f"K1 leaves its last {fwd_rows}-row q tile unwritten",
+         last_tile_lost(o, fwd_rows)),
+        ("dQ", f"K2 leaves its last {dq_rows}-row q tile unwritten",
+         last_tile_lost(dq, dq_rows)),
+        ("dQ", f"K2 skips each q tile's last {dq_keys}-key tile",
+         minus(dq, dq_last_k)),
+        ("dK", f"K3 leaves its last {dkv_keys}-key tile unwritten",
+         last_tile_lost(dk, dkv_keys)),
+        ("dV", f"K3 leaves its last {dkv_keys}-key tile unwritten",
+         last_tile_lost(dv, dkv_keys)),
+        ("dK", f"K3 skips its last {dkv_rows}-row q tile",
+         minus(dk, dk_last_q)),
+        ("dV", f"K3 skips its last {dkv_rows}-row q tile",
+         minus(dv, dv_last_q)),
     )
     for name, what, bad in faults:
         _, err, ratio = kernel_err(bad, pairs[name][1])
@@ -497,7 +569,8 @@ def device_ms_by_kind(torch, fn):
         if not us:
             continue
         name = e.key.lower()
-        kind = next((k for k, kern in KERNEL_NAMES if kern in name), None)
+        kind = next((k for k, kerns in KERNEL_NAMES
+                     if any(kern in name for kern in kerns)), None)
         if kind is None:
             if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma",
                                        "matmul")):
@@ -533,7 +606,9 @@ def add_busy(out, kinds, wall_ms):
 
 def phase_serve(torch, fluid, dtype, card):
     """Serve the 8B-width forward in ``dtype`` and hold every answer to
-    the same request run alone. Returns (K1 launches, serve stats).
+    the same request run alone; every K1 launch must go to the variant
+    the dtype routes to (bf16: tensor cores, float32: SIMT). Returns (K1
+    launches, serve stats).
 
     The tiers: in float32 each logit within TOL_LOGITS_F32 and the greedy
     token exact. In bfloat16 a 32-layer network amplifies rounding that
@@ -542,7 +617,7 @@ def phase_serve(torch, fluid, dtype, card):
     greedy flip is allowed only where the top-1 margin is within twice
     that row's logit error."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B, build_llama
-    from paddle_tpu_torch.ops.flash_attention import flash_fwd
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
                                           ServingEngine)
 
@@ -580,7 +655,7 @@ def phase_serve(torch, fluid, dtype, card):
     torch.cuda.reset_peak_memory_stats()
     try:
         # the main path: counts reset just before, read just after
-        flash_fwd.launches = 0
+        fa.reset_launch_counts()
         t0 = time.perf_counter()
         warm = engine.warmup()
         warm_s = time.perf_counter() - t0
@@ -594,7 +669,8 @@ def phase_serve(torch, fluid, dtype, card):
         with ThreadPoolExecutor(len(reqs)) as pool:
             answers = list(pool.map(call, reqs))
         wall = time.perf_counter() - t0
-        launches = flash_fwd.launches
+        launches = fa.flash_fwd.launches
+        by_kernel = dict(fa.flash_fwd.launches_by_kernel)
         stats = engine.stats()
         engine.assert_no_recompiles()
     finally:
@@ -608,8 +684,12 @@ def phase_serve(torch, fluid, dtype, card):
     check(launches == cfg.n_layers * dispatches,
           f"K1 launches {launches} != {cfg.n_layers} layers x "
           f"{dispatches} dispatches")
+    _, variant = fa.kernel_for("flash_fwd", getattr(torch, dtype),
+                               cfg.dim // cfg.n_heads)
+    check(by_kernel[variant] == launches,
+          f"K1 launches by kernel {by_kernel}: not all {variant}")
     log(f"{tag}: K1 launched {launches} times = {cfg.n_layers} x "
-        f"{dispatches} dispatches")
+        f"{dispatches} dispatches, all {variant}")
 
     worst_abs = worst_rms = 0.0
     for n, r, ans in zip(lengths, reqs, answers):
@@ -658,7 +738,8 @@ def phase_serve(torch, fluid, dtype, card):
              "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
              "batches": stats["batches_total"],
              "batch_p50_ms": stats["batch_latency"]["p50_ms"],
-             "k1_launches": launches, "dispatches": dispatches,
+             "k1_launches": launches, "k1_variant": variant,
+             "dispatches": dispatches,
              "layers": cfg.n_layers,
              "max_abs_logit_err_vs_alone": worst_abs,
              "max_rel_rms_logit_err_vs_alone": worst_rms,
@@ -692,7 +773,8 @@ def train_feed(vocab, batch, seq):
 
 def phase_train(torch, fluid, fa, card):
     """Train the 8B-width model, cut to TRAIN_LAYERS layers, in bf16 on
-    one fixed batch. Returns (launches by kernel, train stats)."""
+    one fixed batch; every K1 and K3 launch must be the tensor-core
+    kernel's. Returns (launches by kernel symbol, train stats)."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B
 
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
@@ -715,8 +797,7 @@ def phase_train(torch, fluid, fa, card):
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     # the main path: counts reset just before, read just after
-    for w in wrappers:
-        w.launches = 0
+    fa.reset_launch_counts()
     for step in range(TRAIN_WARMUP + TRAIN_STEPS):
         t0 = time.perf_counter()
         out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
@@ -726,6 +807,8 @@ def phase_train(torch, fluid, fa, card):
         log(f"train: step {step}: loss {losses[-1]:.4f}, "
             f"{step_s[-1] * 1e3:.1f} ms")
     launches = [w.launches for w in wrappers]
+    by_kernel = {sym: n for w in wrappers
+                 for sym, n in w.launches_by_kernel.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -738,15 +821,20 @@ def phase_train(torch, fluid, fa, card):
           f"(ln V = {math.log(cfg.vocab_size):.4f})")
     check(losses[-1] < losses[0],
           f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
-    for name, n in zip(("K1", "K2", "K3"), launches):
+    for name, w, n in zip(("K1", "K2", "K3"), wrappers, launches):
         check(n == cfg.n_layers * n_steps,
               f"{name} launched {n} times, not {cfg.n_layers} layers x "
               f"{n_steps} steps")
+        _, variant = fa.kernel_for(w.__name__, torch.bfloat16, 128)
+        check(by_kernel[variant] == n,
+              f"{name} launches by kernel {w.launches_by_kernel}: not all "
+              f"{variant}")
     changed = float((scope.find_var("l0.wq")[:8, :8].float()
                      - probe.float()).abs().max())
     check(changed > 0, "parameter l0.wq did not change")
     log(f"train: K1/K2/K3 launched {launches} times = {cfg.n_layers} "
-        f"layers x {n_steps} steps; l0.wq moved by up to {changed:.3e}")
+        f"layers x {n_steps} steps ({by_kernel}); l0.wq moved by up to "
+        f"{changed:.3e}")
 
     timed = sorted(step_s[TRAIN_WARMUP:])
     step_ms = timed[len(timed) // 2] * 1e3
@@ -763,16 +851,18 @@ def phase_train(torch, fluid, fa, card):
              "step_ms_min": timed[0] * 1e3, "step_ms_max": timed[-1] * 1e3,
              "tokens_per_s": tokens / (step_ms / 1e3),
              "peak_mem_gb": peak_gb, "launches_k1_k2_k3": launches,
+             "launches_by_kernel": by_kernel,
              "one_step": breakdown, "card": card}
     log("train: " + json.dumps(stats))
-    return dict(zip(("K1", "K2", "K3"), launches)), stats
+    return by_kernel, stats
 
 
-def phase_train_parity(torch, fluid, card):
+def phase_train_parity(torch, fluid, fa, card):
     """One float32 step of a narrow model with head dim 128 on the card
-    (K1/K2/K3) and on the CPU (the plain versions), from one startup
-    scope: the loss and every parameter's gradient within the f32
-    gradient tier, then 3 Adam steps' losses within the loss tier."""
+    (K1/K2/K3, every launch a SIMT kernel) and on the CPU (the plain
+    versions), from one startup scope: the loss and every parameter's
+    gradient within the f32 gradient tier, then 3 Adam steps' losses
+    within the loss tier. Returns (launches by kernel symbol, stats)."""
     from paddle_tpu_torch import weights
     from paddle_tpu_torch.models.llama import LlamaConfig
 
@@ -791,6 +881,8 @@ def phase_train_parity(torch, fluid, card):
     feed = train_feed(cfg.vocab_size, 2, 256)
     grads = sorted(v for v in main.global_block().vars
                    if v.endswith("@GRAD"))
+    # this path's counts: reset just before, read after its last step
+    fa.reset_launch_counts()
     got = gpu.run(main, feed=feed, fetch_list=[loss] + grads,
                   scope=gpu_scope)
     want = cpu.run(main, feed=feed, fetch_list=[loss] + grads,
@@ -811,14 +903,40 @@ def phase_train_parity(torch, fluid, card):
                                 scope=cpu_scope)[0].reshape(())))
     check(np.allclose(lg, lc, rtol=TOL_LOSS_F32, atol=0),
           f"f32 Adam losses differ: card {lg} vs CPU {lc}")
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    by_kernel = {sym: n for w in wrappers
+                 for sym, n in w.launches_by_kernel.items()}
+    for w in wrappers:
+        _, variant = fa.kernel_for(w.__name__, torch.float32, 128)
+        check(w.launches == cfg.n_layers * 4
+              and by_kernel[variant] == w.launches,
+              f"f32 {w.__name__} launches by kernel "
+              f"{w.launches_by_kernel}: not {cfg.n_layers} layers x 4 "
+              f"steps of {variant}")
     out = {"config": dataclasses.asdict(cfg), "batch": [2, 256],
            "loss_step1": [float(got[0].reshape(())),
                           float(want[0].reshape(()))],
            "grads_checked": len(grads),
            "worst_err_over_tolerance": worst,
-           "adam_losses_card": lg, "adam_losses_cpu": lc, "card": card}
+           "adam_losses_card": lg, "adam_losses_cpu": lc,
+           "launches_by_kernel": by_kernel, "card": card}
     log("train parity f32: " + json.dumps(out))
-    return out
+    return by_kernel, out
+
+
+def check_sass(cuda_build):
+    """Log each kernel's count of tensor-core instructions (HMMA) from
+    its SASS; fail if a tensor-core kernel has none."""
+    hmma = {}
+    for name in cuda_build.SOURCES:
+        for fn, n in cuda_build.sass_counts(name, "HMMA").items():
+            hmma[fn] = n
+            log(f"sass {name}: {fn}: {n} HMMA")
+    for kern in MMA_KERNELS:
+        fns = {fn: n for fn, n in hmma.items() if kern in fn}
+        check(fns and all(fns.values()),
+              f"{kern}: no HMMA instruction in its SASS ({fns})")
+    return hmma
 
 
 def free_card(torch):
@@ -859,6 +977,7 @@ def main():
                 for line in open(report).read().splitlines():
                     if "registers" in line or "spill" in line:
                         log(f"build {name}: {line.strip()}")
+        check_sass(cuda_build)
 
         timing = phase_kernels(torch, fa, SEED)
         free_card(torch)
@@ -866,12 +985,12 @@ def main():
         # the request run alone logit for logit
         serve_launches, _ = phase_serve(torch, fluid, "bfloat16", smi)
         free_card(torch)
-        phase_serve(torch, fluid, "float32", smi)
+        serve_f32_launches, _ = phase_serve(torch, fluid, "float32", smi)
         free_card(torch)
-        # training, this slice's main path
+        # training, the main path of slices 2 and 3
         train_launches, _ = phase_train(torch, fluid, fa, smi)
         free_card(torch)
-        phase_train_parity(torch, fluid, smi)
+        parity_launches, _ = phase_train_parity(torch, fluid, fa, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -881,24 +1000,43 @@ def main():
     power = smi.rsplit(",", 1)[-1].strip()
     train_shape = (f"bh={TRAIN_BATCH}*32 t={TRAIN_SEQ} d=128 causal bf16 "
                    f"(training)")
-    serve_k1 = timing[("K1", "serving T=256")]
+    f32_shape = "bh=8 t=256 d=128 causal f32 (train parity)"
+    replaces = {"fwd": ":59", "dq": ":223", "dkv": ":189"}
     kernels = []
-    for name, fn, src, replaces in (
-            ("K1", "flash_fwd", "flash_fwd.cu", ":59"),
-            ("K2", "flash_bwd_dq", "flash_bwd.cu", ":223"),
-            ("K3", "flash_bwd_dkv", "flash_bwd.cu", ":189")):
-        t = timing[(name, TRAIN_LABEL)]
+    # bf16 rows at the training shape (launches: the bf16 train step),
+    # then the float32 SIMT K1 and K3 (launches: the f32 train step)
+    for kind_, label, launches, shape in (
+            ("fwd", TRAIN_LABEL, train_launches, train_shape),
+            ("dq", TRAIN_LABEL, train_launches, train_shape),
+            ("dkv", TRAIN_LABEL, train_launches, train_shape),
+            ("fwd", "f32 causal", parity_launches, f32_shape),
+            ("dkv", "f32 causal", parity_launches, f32_shape)):
+        t = timing[(kind_, label)]
+        fn = t["kernel"]
+        lib = fa.kernel_for(
+            {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+             "dkv": "flash_bwd_dkv"}[kind_],
+            torch.float32 if label == "f32 causal" else torch.bfloat16,
+            128)[0]
         row = {"name": fn, "route": "cuda",
-               "source": f"paddle_tpu_torch/csrc/{src}",
-               "replaces": f"paddle_tpu/ops/pallas_attention.py{replaces}",
-               "launches": train_launches[name],
+               "source": f"paddle_tpu_torch/csrc/{lib}.cu",
+               "replaces": "paddle_tpu/ops/pallas_attention.py"
+                           + replaces[kind_],
+               "launches": launches[fn],
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-               "shape": train_shape, "card": kind, "power_limit": power}
-        if name == "K1":
-            row["serving"] = dict(serve_k1, launches=serve_launches,
-                                  shape="bh=4*32 t=256 d=128 causal bf16")
+               "shape": shape, "card": kind, "power_limit": power}
+        if kind_ == "fwd":
+            # K1 at this dtype's serving shape, timed and held to its
+            # plain version in phase_kernels; launches: that serve phase
+            f32 = label == "f32 causal"
+            serve = dict(timing[("fwd", "f32 serving T=256" if f32
+                                 else "serving T=256")])
+            serve.pop("kernel")
+            row["serving"] = dict(
+                serve, launches=serve_f32_launches if f32 else serve_launches,
+                shape=f"bh=4*32 t=256 d=128 causal {'f32' if f32 else 'bf16'}")
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface.
+// K2 (dQ) here serves every dtype. K3 (dK/dV) here is the float32
+// route: bf16 and fp16 inputs run flash_bwd_dkv_mma.cu on the tensor
+// cores, float32 stays on the CUDA cores because TF32 tensor cores
+// cannot meet the float32 tiers (rtol 2e-4 / atol 2e-5).
 //
 // Replaces the two Pallas backward kernels of
 // paddle_tpu/ops/pallas_attention.py (launched by _flash_bwd_pallas),
@@ -41,15 +45,18 @@
 //       and keeps D/4 dK and D/4 dV accumulators in registers. q tiles
 //       wholly above the causal diagonal are skipped.
 //
-// What it leaves on the table, as K1 does: no tensor cores (wgmma /
-// mma.sync), synchronous tile loads, S and dO V^T recomputed by both
-// kernels (FA-2 fuses dQ into the dK/dV pass with atomics), and K/V of
-// a GQA group read once per q head. Each is later work.
+// What it leaves on the table: K2 runs without tensor cores (wgmma /
+// mma.sync) for every dtype, and both kernels load tiles synchronously;
+// S and dO V^T are recomputed by K2 and K3 (FA-2 fuses dQ into the
+// dK/dV pass with atomics); K/V of a GQA group are read once per q
+// head. K2's redesign is the next kernel work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -393,7 +400,11 @@ struct DQ {
 
 template <typename T, int D>
 struct DKV {
-  static int run(const Args& a) { return launch_dkv<T, D>(a); }
+  static int run(const Args& a) {
+    // bfloat16 and float16 are flash_bwd_dkv_mma.cu's
+    if constexpr (std::is_same<T, float>::value) return launch_dkv<T, D>(a);
+    return (int)cudaErrorInvalidValue;
+  }
 };
 
 }  // namespace
@@ -412,7 +423,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return dispatch<DQ>(a, d, dtype);
 }
 
-// dk, dv: [bh, tk, d] in the inputs' dtype.
+// dk, dv: [bh, tk, d] float32 (dtype 0 only: the 16-bit route is
+// flash_bwd_dkv_mma.cu).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv, int bh,

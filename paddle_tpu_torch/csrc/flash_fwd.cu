@@ -1,4 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface.
+// Flash-attention forward for Hopper (sm_90a), plain C interface: the
+// float32 route. bf16 and fp16 inputs run flash_fwd_mma.cu on the
+// tensor cores; float32 stays here, on the CUDA cores, because TF32
+// tensor cores cannot meet the float32 tiers (rtol 2e-4 / atol 2e-5).
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:_fa_kernel (launched by
 // _flash_fwd_pallas). Computes, per (batch*head) slice of q [tq, D] and
@@ -25,15 +28,12 @@
 // warp shuffles, and each keeps D/4 output accumulators in registers.
 // Whole k tiles above the causal diagonal are skipped.
 //
-// What it leaves on the table: the products run on the CUDA cores in
-// float32, not on the tensor cores (wgmma / mma.sync); tiles are loaded
-// synchronously (no TMA / cp.async double buffering), so loads and math
-// do not overlap; K/V of a GQA group are re-read once per q head. Each
-// is later work.
+// What it leaves on the table: tiles are loaded synchronously (no TMA /
+// cp.async double buffering), so loads and math do not overlap; K/V of
+// a GQA group are re-read once per q head. The 16-bit route's design
+// (flash_fwd_mma.cu) answers the rest.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <math.h>
 
 namespace {
@@ -45,17 +45,9 @@ constexpr int COLS_PER_THREAD = BLOCK_N / 4;
 constexpr float MASKED = -1e30f;  // the reference's NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -222,7 +214,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. q: [bh, tq, d]; k, v:
+// dtype: 0 float32 (bfloat16 and float16 are flash_fwd_mma.cu's, and
+// refused here). q: [bh, tq, d]; k, v:
 // [bh, tk, d]; o like q; lse: [bh, tq] float32. All contiguous, on the
 // current device. Returns the CUDA error code of the launch (0 = ok).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -233,8 +226,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_d<float>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
-    case 1: return launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
-    case 2: return launch_d<__half>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

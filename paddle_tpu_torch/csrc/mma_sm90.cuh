@@ -1,0 +1,198 @@
+// PTX helpers shared by the tensor-core attention kernels
+// (flash_fwd_mma.cu, flash_bwd_dkv_mma.cu): cp.async tile copies,
+// ldmatrix fragment loads and mma.sync.m16n8k16 with float32
+// accumulators, for bf16 and fp16. sm_80+ instructions, built for
+// sm_90a.
+//
+// Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
+// t = lane % 4), which the kernels' index arithmetic relies on:
+//   A (16 x 16, row major), four 32-bit registers of two halves each:
+//     a0 (row g,     cols 2t, 2t+1)   a2 (row g,     cols 2t+8, 2t+9)
+//     a1 (row g + 8, cols 2t, 2t+1)   a3 (row g + 8, cols 2t+8, 2t+9)
+//   B (16 x 8, k x n, "col"), two registers:
+//     b0 (k 2t, 2t+1, col g)          b1 (k 2t+8, 2t+9, col g)
+//   C / D (16 x 8) float32:
+//     c0, c1 (row g, cols 2t, 2t+1)   c2, c3 (row g + 8, cols 2t, 2t+1)
+// So the accumulators of two neighbouring 8-column blocks j = 2s, 2s+1
+// are, packed in pairs, the A fragment of k-step s of the next product:
+// a[2 (j & 1)] = (c0, c1), a[2 (j & 1) + 1] = (c2, c3). A probability
+// tile never leaves the registers between its two products.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mma_sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; with pred false nothing is
+// read and the 16 bytes are zero-filled (src must still be a valid
+// address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when pred is false
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [g0, g0 + ROWS) of a row-major [t, D] slice into a shared tile of
+// row stride LD elements, 16 bytes a copy; rows past t are zero
+template <int THREADS, int ROWS, int D, int LD, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, int g0,
+                                                int t) {
+  constexpr int CHUNKS = D * (int)sizeof(T) / 16;
+  constexpr int PER = 16 / (int)sizeof(T);
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int row = i / CHUNKS, ch = i % CHUNKS;
+    const int g = g0 + row;
+    const bool in = g < t;
+    cp_async_16(dst + row * LD + ch * PER,
+                src + (long long)(in ? g : 0) * D + ch * PER, in);
+  }
+}
+
+// the shared tile's rows [0, ROWS) to rows [g0, g0 + ROWS) of a [t, D]
+// slice, 16 bytes a store, rows past t not written; one group of
+// NTHREADS threads (thread index ti) does it
+template <int NTHREADS, int ROWS, int D, int LD, typename T>
+__device__ __forceinline__ void store_tile(T* dst, const T* src, int g0,
+                                           int t, int ti) {
+  constexpr int CHUNKS = D * (int)sizeof(T) / 16;
+  constexpr int PER = 16 / (int)sizeof(T);
+  for (int i = ti; i < ROWS * CHUNKS; i += NTHREADS) {
+    const int row = i / CHUNKS, ch = i % CHUNKS;
+    const int g = g0 + row;
+    if (g < t)
+      *reinterpret_cast<uint4*>(dst + (long long)g * D + ch * PER) =
+          *reinterpret_cast<const uint4*>(src + row * LD + ch * PER);
+  }
+}
+
+// four 8 x 8 matrices of 16-bit values; lanes 8i .. 8i+7 give the row
+// addresses of matrix i, register i receives it
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// the same, each matrix transposed on the way
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Lane addresses for ldmatrix.x4 on a row-major shared tile of row
+// stride LD (elements), relative to the 16 x 16 block at (r0, c0):
+//   a_frag: the A fragment of the block (rows r0.., k = cols c0..)
+//   b_frag: the B fragments of two 8-column blocks of a product whose
+//           B^T is stored (rows = n, cols = k): registers 0, 1 for
+//           n-rows r0..r0+7, registers 2, 3 for r0+8..r0+15
+//   bt_frag (with ldsm_x4_trans): the B fragments of two 8-column
+//           blocks of a product whose B is stored (rows = k, cols = n):
+//           registers 0, 1 for cols c0..c0+7, 2, 3 for c0+8..c0+15
+template <int LD, typename T>
+__device__ __forceinline__ const T* a_frag(const T* s, int r0, int c0,
+                                           int lane) {
+  return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+template <int LD, typename T>
+__device__ __forceinline__ const T* b_frag(const T* s, int r0, int c0,
+                                           int lane) {
+  return s + (r0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+template <int LD, typename T>
+__device__ __forceinline__ const T* bt_frag(const T* s, int r0, int c0,
+                                            int lane) {
+  return s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 +
+         (lane >> 4) * 8;
+}
+
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+  // c += a b
+  static __device__ __forceinline__ void run(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  // (x, y) rounded to a bf16 pair, x in the low half
+  static __device__ __forceinline__ uint32_t pack(float x, float y) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  }
+};
+
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ void run(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float x, float y) {
+    __half2 h = __floats2half2_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
+  }
+};
+
+// (x, y) as a pair rounded to T (hi) and the pair of what that rounding
+// lost, rounded again (lo): hi + lo carries ~16 significant bits, so a
+// product a = hi + lo taken as two mma.sync keeps a float32 operand's
+// accuracy to ~2^-16 where one 16-bit rounding (2^-9 in bf16) would not
+// meet the kernels' check tier
+template <typename T>
+__device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = Mma<T>::pack(x, y);
+  const float2 h = Mma<T>::unpack(hi);
+  lo = Mma<T>::pack(x - h.x, y - h.y);
+}
+
+}  // namespace mma_sm90

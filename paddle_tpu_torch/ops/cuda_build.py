@@ -11,17 +11,19 @@ all started together).
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "library_path", "SOURCES"]
+__all__ = ["build", "load", "library_path", "sass_counts", "constexprs",
+           "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_fwd_mma", "flash_bwd_dkv_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -29,13 +31,13 @@ _lock = threading.Lock()
 _loaded = {}
 
 
-def _nvcc():
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def _tool(name):
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
-                       "CUDA kernels build on a machine with the CUDA "
-                       "toolkit")
+    raise RuntimeError(f"{name} not found (PATH or /usr/local/cuda/bin): "
+                       f"the CUDA kernels build on a machine with the CUDA "
+                       f"toolkit")
 
 
 def library_path(name):
@@ -48,13 +50,26 @@ def library_path(name):
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def constexprs(name):
+    """The file-scope ``constexpr int NAME = expr;`` of ``csrc/<name>.cu``
+    (tile sizes and the like), evaluated in order with C's integer
+    division; an expression may name earlier constants."""
+    values = {}
+    text = (CSRC / f"{name}.cu").read_text()
+    for const, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                  re.M):
+        values[const] = eval(expr.replace("/", "//"),
+                             {"__builtins__": {}}, dict(values))
+    return values
+
+
 def build(names=SOURCES):
     """Compile every library in ``names`` that is not built yet, all
     nvcc processes at once. Returns ``{name: seconds}`` for what was
     compiled; raises with nvcc's output on a failure. The compiler's
     report (``-Xptxas=-v``: registers, shared memory, spills) is kept
     beside each library as ``<lib>.log``."""
-    nvcc = _nvcc()
+    nvcc = _tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -93,3 +108,33 @@ def load(name):
                 build((name,))
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def sass_counts(name, opcode):
+    """``{kernel function: count}`` of the SASS instructions whose opcode
+    starts with ``opcode`` (e.g. "HMMA", the tensor-core products) in
+    each kernel of ``csrc/<name>.cu``'s built library, read with
+    ``cuobjdump --dump-sass``. Function names are as compiled
+    (mangled)."""
+    out = subprocess.run([_tool("cuobjdump"), "--dump-sass",
+                          str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return parse_sass_counts(out, opcode)
+
+
+def parse_sass_counts(sass, opcode):
+    """:func:`sass_counts` on the text of a ``cuobjdump --dump-sass``."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and line.startswith("/*"):
+            # "/*0c50*/  HMMA.16816.F32.BF16 R32, R40, R24, R32 ;  /* ... */"
+            parts = line.split("*/", 1)[1].split()
+            if parts and parts[0].startswith("@"):   # predicate
+                parts = parts[1:]
+            if parts and parts[0].startswith(opcode):
+                counts[fn] += 1
+    return counts

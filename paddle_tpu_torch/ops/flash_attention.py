@@ -3,18 +3,27 @@
 
 The reference's three Pallas kernels are CUDA kernels here:
 
-- K1 ``_fa_kernel`` (the forward) is ``csrc/flash_fwd.cu``, wrapped by
-  :func:`flash_fwd`; its plain version is :func:`ref_attention_lse`, a
-  torch copy of the reference's ``_ref_attention_lse``.
-- K2 ``_fa_bwd_dq_kernel`` (dQ) and K3 ``_fa_bwd_dkv_kernel`` (dK, dV)
-  are ``csrc/flash_bwd.cu``, wrapped by :func:`flash_bwd_dq` and
-  :func:`flash_bwd_dkv`; their plain versions are
-  :func:`ref_flash_bwd_dq` and :func:`ref_flash_bwd_dkv`, which recompute
-  P from lse over the whole score matrix.
+- K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
+  and fp16 run ``csrc/flash_fwd_mma.cu`` (tensor cores), float32
+  ``csrc/flash_fwd.cu`` (SIMT). Its plain version is
+  :func:`ref_attention_lse`, a torch copy of the reference's
+  ``_ref_attention_lse``.
+- K2 ``_fa_bwd_dq_kernel`` (dQ), wrapped by :func:`flash_bwd_dq`:
+  ``csrc/flash_bwd.cu`` for every dtype.
+- K3 ``_fa_bwd_dkv_kernel`` (dK, dV), wrapped by :func:`flash_bwd_dkv`:
+  bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu`` (tensor cores),
+  float32 ``csrc/flash_bwd.cu`` (SIMT).
+
+The float32 route stays on the SIMT kernels because TF32 tensor cores
+cannot meet the float32 tiers. :func:`kernel_for` is the routing; the
+plain versions of K2 and K3 are :func:`ref_flash_bwd_dq` and
+:func:`ref_flash_bwd_dkv`, which recompute P from lse over the whole
+score matrix.
 
 On a CUDA tensor a wrapper launches its kernel (or raises — there is no
 fallback); on a CPU tensor it runs the plain version. Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches`` and, by kernel symbol, in
+``<wrapper>.launches_by_kernel``.
 
 The kernels follow the semantics of ``_ref_attention_lse`` and of
 ``jax.vjp`` of it, not the Pallas kernels' quirks: causal masking is
@@ -42,12 +51,47 @@ from . import cuda_build
 __all__ = ["flash_attention", "attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "FlashAttention",
            "ref_attention_lse", "ref_flash_bwd_dq", "ref_flash_bwd_dkv",
-           "NEG_INF"]
+           "kernel_for", "reset_launch_counts", "NEG_INF"]
 
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
+_ALIGN = 16   # bytes: the tensor-core kernels copy 16 bytes a cp.async
+# the kernels that load their tiles by cp.async, and so need _ALIGN
+_CP_ASYNC = ("flash_fwd_mma", "flash_bwd_dkv_mma")
+
+# (library under csrc/, C symbol) of the kernel each wrapper launches:
+# on float32, on bf16/fp16 inputs
+_ROUTES = {
+    "flash_fwd": (("flash_fwd", "flash_fwd"),
+                  ("flash_fwd_mma", "flash_fwd_mma")),
+    "flash_bwd_dq": (("flash_bwd", "flash_bwd_dq"),
+                     ("flash_bwd", "flash_bwd_dq")),
+    "flash_bwd_dkv": (("flash_bwd", "flash_bwd_dkv"),
+                      ("flash_bwd_dkv_mma", "flash_bwd_dkv_mma")),
+}
+
+
+def kernel_for(wrapper, dtype, d):
+    """(library, symbol) of the CUDA kernel that ``wrapper``
+    ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
+    tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
+    tensor-core kernels (K1, K3), float32 to the SIMT ones. Raises
+    ValueError for what no kernel takes."""
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{wrapper} kernels take head dims {_HEAD_DIMS}, "
+                         f"got {d}")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"{wrapper} kernels take float32, bfloat16 or "
+                         f"float16, got {dtype}")
+    return _ROUTES[wrapper][dtype != torch.float32]
+
+
+def _misaligned(tensors):
+    """The tensors whose data does not start on a 16-byte boundary (a
+    contiguous view with a storage offset need not)."""
+    return [x for x in tensors if x.data_ptr() % _ALIGN]
 
 
 def ref_attention_lse(q, k, v, scale, causal, bias=None):
@@ -131,29 +175,32 @@ def _check(name, q, k, v, extra=()):
 
 def _check_kernel_inputs(name, tensors, rows):
     """What the CUDA kernels take beyond the shared contract: CUDA
-    tensors of a kernel dtype and head dim, contiguous; float32 row
-    vectors ``rows`` of shape [BH, tq]."""
+    tensors of a kernel dtype and head dim, contiguous, and 16-byte
+    aligned where the kernel copies them by cp.async (the SIMT kernels
+    load element by element and take any view); float32 row vectors
+    ``rows`` of shape [BH, tq]. Returns the kernel's (library,
+    symbol)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
                          f"{q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name} kernel takes float32, bfloat16 or "
-                         f"float16, got {q.dtype}")
-    if q.shape[2] not in _HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head dims {_HEAD_DIMS}, "
-                         f"got {q.shape[2]}")
+    route = kernel_for(name, q.dtype, q.shape[2])
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
+    if route[1] in _CP_ASYNC and _misaligned(tensors):
+        raise ValueError(f"{name} ({route[1]}) needs inputs that start on "
+                         f"a {_ALIGN}-byte boundary")
     for x in rows:
         if x.dtype != torch.float32 or x.shape != q.shape[:2] \
                 or x.device != q.device or not x.is_contiguous():
             raise ValueError(f"{name}: lse/delta must be contiguous "
                              f"float32 [BH, tq] on {q.device}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return route
 
 
-def _bind(lib, fn_name, n_ptrs):
+def _bind(route, n_ptrs):
+    lib, fn_name = route
     fn = getattr(cuda_build.load(lib), fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -163,7 +210,11 @@ def _bind(lib, fn_name, n_ptrs):
     return fn
 
 
-def _launch(name, kernel, ptrs, q, tk, scale, causal):
+def _launch(wrapper, route, ptrs, q, tk, scale, causal):
+    """Launch ``route``'s kernel with the pointers ``ptrs`` and count it
+    on ``wrapper``."""
+    name = route[1]
+    kernel = _bind(route, len(ptrs))
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -173,28 +224,25 @@ def _launch(name, kernel, ptrs, q, tk, scale, causal):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"(bh={bh}, tq={tq}, tk={tk}, d={d}, "
                            f"dtype={q.dtype})")
+    wrapper.launches += 1
+    wrapper.launches_by_kernel[name] += 1
 
 
 def flash_fwd(q, k, v, scale, causal):
     """K1's wrapper. q: [BH, tq, D]; k, v: [BH, tk, D], contiguous, one
     dtype, one device. Returns (o [BH, tq, D] in q's dtype,
     lse [BH, tq] float32). ``flash_fwd.launches`` counts kernel
-    launches."""
+    launches, ``flash_fwd.launches_by_kernel`` each variant's."""
     _check("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return ref_attention_lse(q, k, v, scale, causal)
-    _check_kernel_inputs("flash_fwd", (q, k, v), ())
-    kernel = _bind("flash_fwd", "flash_fwd", 5)
+    route = _check_kernel_inputs("flash_fwd", (q, k, v), ())
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", kernel,
+    _launch(flash_fwd, route,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()), q, k.shape[1], scale, causal)
-    flash_fwd.launches += 1
     return o, lse
-
-
-flash_fwd.launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
@@ -204,39 +252,41 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     _check("flash_bwd_dq", q, k, v, (do,))
     if q.device.type == "cpu":
         return ref_flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
-    _check_kernel_inputs("flash_bwd_dq", (q, k, v, do), (lse, delta))
-    kernel = _bind("flash_bwd", "flash_bwd_dq", 7)
+    route = _check_kernel_inputs("flash_bwd_dq", (q, k, v, do),
+                                 (lse, delta))
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", kernel,
+    _launch(flash_bwd_dq, route,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             q, k.shape[1], scale, causal)
-    flash_bwd_dq.launches += 1
     return dq
-
-
-flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
     """K3's wrapper; arguments as :func:`flash_bwd_dq`. Returns (dk, dv)
     in k's and v's dtype. ``flash_bwd_dkv.launches`` counts kernel
-    launches."""
+    launches, ``flash_bwd_dkv.launches_by_kernel`` each variant's."""
     _check("flash_bwd_dkv", q, k, v, (do,))
     if q.device.type == "cpu":
         return ref_flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
-    _check_kernel_inputs("flash_bwd_dkv", (q, k, v, do), (lse, delta))
-    kernel = _bind("flash_bwd", "flash_bwd_dkv", 8)
+    route = _check_kernel_inputs("flash_bwd_dkv", (q, k, v, do),
+                                 (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", kernel,
+    _launch(flash_bwd_dkv, route,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
              dv.data_ptr()), q, k.shape[1], scale, causal)
-    flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+def reset_launch_counts():
+    """Zero every wrapper's ``launches`` and ``launches_by_kernel``."""
+    for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+        w.launches = 0
+        w.launches_by_kernel = {sym: 0 for _, sym in _ROUTES[w.__name__]}
+
+
+reset_launch_counts()
 
 
 def _fold(x):

@@ -8,11 +8,18 @@ machine that has only PyTorch and the CUDA toolkit::
 test skips. Tolerance: f32 rtol 2e-4 / atol 2e-5 (TF32 off); bf16 2e-2.
 Gradients through the autograd.Function (K1, K2, K3 on the card)
 against the plain versions on the CPU: rtol 2e-3 / atol 2e-4.
+
+The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
+``flash_bwd_dkv_mma``) are held to chip_smoke.py's 16-bit tier: rtol
+1e-2 (one rounding of the output) plus atol 1e-2 x the plain output's
+RMS, against the plain version evaluated in float32 on the same inputs
+and rounded once to the output's type.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import cuda_build
 from paddle_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(1)
@@ -96,3 +103,173 @@ def test_attention_gradients_on_the_card_match_the_cpu():
         grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, ts)]
     for g, w in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-4)
+
+
+HALF_RTOL, HALF_RMS = 1e-2, 1e-2
+
+# (tq, tk, d, causal): ragged T, tq < tk, tq > tk (fully masked rows),
+# both head dims, causal and not
+MMA_CASES = [(200, 200, 128, True), (200, 200, 128, False),
+             (128, 256, 128, True), (256, 128, 128, True),
+             (256, 256, 64, True), (256, 256, 64, False),
+             (256, 256, 128, False)]
+
+
+def _half_tier_ratio(got, want):
+    """Worst |got - want| / (rtol |want| + atol) in the 16-bit tier;
+    ``want`` is the plain version evaluated in float32."""
+    wf = want.float()
+    atol = HALF_RMS * float(wf.square().mean().sqrt())
+    return float(((got.float() - wf).abs()
+                  / (atol + HALF_RTOL * wf.abs())).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("tq,tk,d,causal", MMA_CASES)
+def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
+    """K1 and K3 on the tensor cores (and K2, SIMT, on their outputs),
+    each output against its plain version, with the variant that
+    launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    sc = 1 / np.sqrt(d)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in
+               _qkv(21, (8, tq, d), (8, tk, d)))
+    do = torch.from_numpy(np.random.RandomState(22).randn(8, tq, d)
+                          .astype(np.float32)).cuda().to(dt)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches_by_kernel == {"flash_fwd": 0,
+                                               "flash_fwd_mma": 1}
+    assert fa.flash_bwd_dkv.launches_by_kernel == {
+        "flash_bwd_dkv": 0, "flash_bwd_dkv_mma": 1}
+    assert fa.flash_bwd_dq.launches_by_kernel == {"flash_bwd_dq": 1}
+    want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
+                                            sc, causal)
+    want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
+                                          causal)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    for name, got, want in (("O", o, want_o.to(dt)), ("dQ", dq, want_q),
+                            ("dK", dk, want_k), ("dV", dv, want_v)):
+        assert got.dtype == dt and torch.isfinite(got).all(), name
+        ratio = _half_tier_ratio(got, want)
+        assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
+
+
+@pytest.mark.gpu
+def test_mma_route_refuses_what_it_does_not_take():
+    """A 16-bit CUDA input the tensor-core kernels do not take raises;
+    it never falls back to the SIMT kernel or the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_fwd(q, q, q, 0.1, True)
+    buf = torch.zeros(2 * 64 * 128 + 1, dtype=torch.bfloat16, device="cuda")
+    q = buf[1:].view(2, 64, 128)          # contiguous, 2 bytes off
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd(q, q, q, 0.1, True)
+    assert fa.flash_fwd.launches == 0
+
+
+@pytest.mark.gpu
+def test_simt_route_takes_views_off_the_16_byte_boundary():
+    """float32 views 4 bytes off a 16-byte boundary go through the SIMT
+    K1, K2 and K3, which load element by element, and match the plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sc = 1 / np.sqrt(128)
+    n = 8 * 200 * 128
+    arrs = _qkv(16, (8, 200, 128), (8, 200, 128)) + (
+        np.random.RandomState(17).randn(8, 200, 128).astype(np.float32),)
+    q, k, v, do = (torch.cat([torch.zeros(1), torch.from_numpy(a).reshape(-1)])
+                   .cuda()[1:1 + n].view(8, 200, 128) for a in arrs)
+    assert all(fa._misaligned((x,)) for x in (q, k, v, do))
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, True)
+    delta = (do * o).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches_by_kernel["flash_fwd"] == 1
+    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv"] == 1
+    want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, True)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    for got, want in ((o, want_o), (lse, want_lse), (dk, want_k),
+                      (dv, want_v),
+                      (dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
+                                               True))):
+        torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.gpu
+def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
+    """FlashAttention in bf16 on the card (K1 and K3 on the tensor
+    cores, K2 SIMT), through o and lse, causal, T = 256, held two ways.
+
+    Against the plain backward on the card's own bf16 O and lse (the
+    same delta = rowsum(dO * O) - dlse the backward forms, the rest in
+    float32, rounded once to bf16): the 16-bit tier, rtol 1e-2 plus
+    1e-2 x the plain gradient's RMS. A K3 that skips its last q tile
+    must fail that tier.
+
+    Against float32 autograd on the CPU on the same bf16-valued inputs:
+    rtol 2e-2 plus 0.1 x the float32 gradient's RMS. That path keeps O
+    in float32, and dP - delta cancels, so O's bf16 rounding alone moves
+    dQ by ~0.05 x RMS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    r = np.random.RandomState(15)
+    arrs = [(r.randn(2, 4, 256, 128) * 0.5).astype(np.float32)
+            for _ in range(3)]
+    do = torch.from_numpy(r.randn(2, 4, 256, 128).astype(np.float32)) \
+        .to(torch.bfloat16)
+    dl = torch.from_numpy(r.randn(2, 4, 256).astype(np.float32))
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    sc = 1 / np.sqrt(128)
+    grads = {}
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        ts = [x.to(dev).to(dt).requires_grad_() for x in bf]
+        fa.reset_launch_counts()
+        o, lse = fa.attention_with_lse(*ts, causal=True)
+        loss = (o.float() * do.to(dev).to(dt).float()).sum() \
+            + (lse * dl.to(dev)).sum()
+        grads[dev] = [g.float().cpu() for g in torch.autograd.grad(loss, ts)]
+        if dev == "cuda":
+            assert fa.flash_fwd.launches_by_kernel["flash_fwd_mma"] == 1
+            assert fa.flash_bwd_dkv.launches_by_kernel[
+                "flash_bwd_dkv_mma"] == 1
+            card_o, card_lse = o.detach().cpu(), lse.detach().cpu()
+    q, k, v = bf
+    delta = (do.float() * card_o.float()).sum(-1) - dl
+    want_q = fa.ref_flash_bwd_dq(q, k, v, do, card_lse, delta, sc, True)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, card_lse, delta, sc,
+                                          True)
+    got_q, got_k, got_v = grads["cuda"]
+    for name, got, want in (("dQ", got_q, want_q), ("dK", got_k, want_k),
+                            ("dV", got_v, want_v)):
+        ratio = _half_tier_ratio(got, want)
+        assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
+    # K3 skipping its last q tile loses those rows' share of dK and dV
+    m = cuda_build.constexprs("flash_bwd_dkv_mma")["BLOCK_M"]
+    lost_k, lost_v = fa.ref_flash_bwd_dkv(
+        q[:, :, -m:], k, v, do[:, :, -m:], card_lse[..., -m:],
+        delta[..., -m:], sc, True)
+    for name, got, lost, want in (("dK", got_k, lost_k, want_k),
+                                  ("dV", got_v, lost_v, want_v)):
+        ratio = _half_tier_ratio(got - lost.float(), want)
+        assert ratio > 1.0, f"{name}: a skipped q tile reads {ratio:.3f}"
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        atol = 0.1 * float(w.square().mean().sqrt())
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=atol)

@@ -14,13 +14,13 @@ Phases — any failure exits non-zero:
    process per source, all at once), with the build seconds, the
    compiler's register/shared-memory/spill report, and each kernel's
    count of tensor-core instructions (``HMMA``) in its SASS
-   (``cuobjdump``) — none in ``flash_fwd_mma`` or ``flash_bwd_dkv_mma``
-   fails the run;
+   (``cuobjdump``) — none in ``flash_fwd_mma``, ``flash_bwd_dq_mma`` or
+   ``flash_bwd_dkv_mma`` fails the run;
 3. kernels: K1 (the flash-attention forward) and K2/K3 (its backward,
    dQ and dK/dV) against their plain torch versions on the same inputs,
    on both routes — bf16/fp16 through the tensor-core kernels
-   (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dkv_mma.cu``; K2 stays
-   ``csrc/flash_bwd.cu``), float32 through the SIMT kernels
+   (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dq_mma.cu``,
+   ``csrc/flash_bwd_dkv_mma.cu``), float32 through the SIMT kernels
    (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) — at the serving and
    training shapes and the edge cases (causal and not, tq != tk with
    fully masked rows, ragged T, D = 64, in f32, bf16 and fp16), each
@@ -43,13 +43,13 @@ Phases — any failure exits non-zero:
    ``build_llama(targets)`` → ``Adam.minimize`` → ``Executor.run`` on one
    fixed batch of 2 x 2048 tokens: 2 warmup and 8 timed steps with
    finite, falling loss, K1/K2/K3 each launched once per layer per step
-   (K1 and K3 every time on the tensor cores),
+   (every time on the tensor cores),
    step time, tokens/s, peak memory and one step's device time by kind
    (the main path of this slice, whose launches the kernel line
    reports);
 6. train parity: a narrow float32 model (head dim 128, TF32 off) whose
    step on the card (the kernels) matches the same step on the CPU (the
-   plain versions; the SIMT K1 and K3): loss and every parameter's
+   plain versions; the SIMT K1, K2 and K3): loss and every parameter's
    gradient, then 3 Adam steps' losses.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
@@ -100,16 +100,19 @@ INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
 # the profiler's kinds and the kernel functions each covers (both routes)
 KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
-                ("k2_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+                ("k2_flash_bwd_dq", ("flash_bwd_dq_kernel",
+                                     "flash_bwd_dq_mma_kernel")),
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                                       "flash_bwd_dkv_mma_kernel")))
 # the tensor-core kernels, whose SASS must hold HMMA instructions
-MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+               "flash_bwd_dkv_mma_kernel")
 # kernel symbol -> the constexprs of its source that give its tile's q
 # rows and keys, where the planted faults are placed
 TILE_CONSTEXPRS = {"flash_fwd": ("BLOCK_M", "BLOCK_N"),
                    "flash_fwd_mma": ("BLOCK_M", "BLOCK_N"),
                    "flash_bwd_dq": ("DQ_BLOCK_M", "DQ_BLOCK_N"),
+                   "flash_bwd_dq_mma": ("BLOCK_M", "BLOCK_N"),
                    "flash_bwd_dkv": ("DKV_BLOCK_M", "DKV_BLOCK_N"),
                    "flash_bwd_dkv_mma": ("BLOCK_M", "BLOCK_N")}
 
@@ -231,7 +234,7 @@ def phase_kernels(torch, fa, seed):
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     bh_train = TRAIN_BATCH * 32
     # (label, bh, tq, tk, d, dtype, causal); bf16/fp16 run the
-    # tensor-core K1 and K3, float32 the SIMT ones, K2 is SIMT for all
+    # tensor-core K1, K2 and K3, float32 the SIMT ones
     cases = [
         ("serving T=128", 4 * 32, 128, 128, 128, bf16, True),
         ("serving T=256", 4 * 32, 256, 256, 128, bf16, True),
@@ -255,6 +258,7 @@ def phase_kernels(torch, fa, seed):
         ("bf16 D=64 non-causal", 8, 256, 256, 64, bf16, False),
         ("fp16 ragged T=200 causal", 8, 200, 200, 128, f16, True),
         ("fp16 ragged T=200 non-causal", 8, 200, 200, 128, f16, False),
+        ("fp16 D=64 causal", 8, 256, 256, 64, f16, True),
     ]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -311,7 +315,7 @@ def phase_kernels(torch, fa, seed):
     for label, kinds in (("serving T=256", ("fwd",)),
                          ("f32 serving T=256", ("fwd",)),
                          (TRAIN_LABEL, ("fwd", "dq", "dkv")),
-                         ("f32 causal", ("fwd", "dkv"))):
+                         ("f32 causal", ("fwd", "dq", "dkv"))):
         timing.update(time_kernels(torch, fa, results[label], label, kinds,
                                    flush))
     del flush, results
@@ -400,7 +404,7 @@ def kernel_tile(fa, wrapper, dtype, d=128):
 
 def planted_fault_tiles(torch, fa):
     """(q rows, keys) of a tile of each kernel the bf16 training shape
-    runs (K1 and K3 on the tensor cores, K2 SIMT)."""
+    runs (K1, K2 and K3 on the tensor cores)."""
     return {w: kernel_tile(fa, w, torch.bfloat16)
             for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
@@ -773,7 +777,7 @@ def train_feed(vocab, batch, seq):
 
 def phase_train(torch, fluid, fa, card):
     """Train the 8B-width model, cut to TRAIN_LAYERS layers, in bf16 on
-    one fixed batch; every K1 and K3 launch must be the tensor-core
+    one fixed batch; every K1, K2 and K3 launch must be the tensor-core
     kernel's. Returns (launches by kernel symbol, train stats)."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B
 
@@ -987,7 +991,7 @@ def main():
         free_card(torch)
         serve_f32_launches, _ = phase_serve(torch, fluid, "float32", smi)
         free_card(torch)
-        # training, the main path of slices 2 and 3
+        # training, the main path of slices 2 to 4
         train_launches, _ = phase_train(torch, fluid, fa, smi)
         free_card(torch)
         parity_launches, _ = phase_train_parity(torch, fluid, fa, smi)
@@ -1004,12 +1008,13 @@ def main():
     replaces = {"fwd": ":59", "dq": ":223", "dkv": ":189"}
     kernels = []
     # bf16 rows at the training shape (launches: the bf16 train step),
-    # then the float32 SIMT K1 and K3 (launches: the f32 train step)
+    # then the float32 SIMT K1, K2 and K3 (launches: the f32 train step)
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, train_launches, train_shape),
             ("dq", TRAIN_LABEL, train_launches, train_shape),
             ("dkv", TRAIN_LABEL, train_launches, train_shape),
             ("fwd", "f32 causal", parity_launches, f32_shape),
+            ("dq", "f32 causal", parity_launches, f32_shape),
             ("dkv", "f32 causal", parity_launches, f32_shape)):
         t = timing[(kind_, label)]
         fn = t["kernel"]

@@ -1,8 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface.
-// K2 (dQ) here serves every dtype. K3 (dK/dV) here is the float32
-// route: bf16 and fp16 inputs run flash_bwd_dkv_mma.cu on the tensor
-// cores, float32 stays on the CUDA cores because TF32 tensor cores
-// cannot meet the float32 tiers (rtol 2e-4 / atol 2e-5).
+// Flash-attention backward for Hopper (sm_90a), plain C interface: the
+// float32 route of K2 (dQ) and K3 (dK/dV). bf16 and fp16 inputs run the
+// tensor-core kernels (flash_bwd_dq_mma.cu, flash_bwd_dkv_mma.cu);
+// float32 stays on the CUDA cores because TF32 tensor cores cannot meet
+// the float32 tiers (rtol 2e-4 / atol 2e-5).
 //
 // Replaces the two Pallas backward kernels of
 // paddle_tpu/ops/pallas_attention.py (launched by _flash_bwd_pallas),
@@ -24,11 +24,12 @@
 // -1e30 + log(tk), which rounds to -1e30 in float32, so P cannot be
 // recomputed from it: such rows are recognised by their index instead.
 //
-// What bounds it: at the training shape (B*H = 2*32, T = 2048, D = 128,
-// causal, bf16) K2 does 6*D FLOP per visible (row, key) pair (QK^T,
-// dO V^T, dS K) and K3 8*D (QK^T, dO V^T, P^T dO, dS^T Q): ~103 and
-// ~138 GFLOP against ~134 MB moved, so the card's bound is its bf16
-// tensor-core rate (~0.10 and ~0.14 ms).
+// What bounds it: K2 does 6*D FLOP per visible (row, key) pair (QK^T,
+// dO V^T, dS K) and K3 8*D (QK^T, dO V^T, P^T dO, dS^T Q), in float32
+// outside the tensor cores (67 TFLOP/s on the H100): at chip_smoke.py's
+// float32 shape (B*H = 8, T = 256, D = 128, causal) that is 0.20 and
+// 0.27 GFLOP against ~5 and ~6 MB, bound by operations (~0.003 and
+// ~0.004 ms).
 //
 // Design (simple and right first, as K1 in flash_fwd.cu): SIMT float32
 // FMAs, tiles staged in shared memory as float32, rows padded to D + 1
@@ -45,18 +46,13 @@
 //       and keeps D/4 dK and D/4 dV accumulators in registers. q tiles
 //       wholly above the causal diagonal are skipped.
 //
-// What it leaves on the table: K2 runs without tensor cores (wgmma /
-// mma.sync) for every dtype, and both kernels load tiles synchronously;
-// S and dO V^T are recomputed by K2 and K3 (FA-2 fuses dQ into the
-// dK/dV pass with atomics); K/V of a GQA group are read once per q
-// head. K2's redesign is the next kernel work.
+// What it leaves on the table: both kernels load tiles synchronously;
+// S and dO V^T are recomputed by K2 and K3; K/V of a GQA group are read
+// once per q head. A float32 design on the tensor cores needs another
+// precision scheme than TF32 (a 3xTF32 split, say).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <math.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -69,19 +65,6 @@ constexpr int DQ_BLOCK_N = 4 * PER_THREAD;
 constexpr int DKV_BLOCK_N = 64;
 constexpr int DKV_BLOCK_M = 4 * PER_THREAD;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
-
 // rows [g0, g0 + n) of a [t, D] slice into a padded float32 tile; rows
 // past t are zero
 template <typename T, int D>
@@ -91,7 +74,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int g0,
   for (int i = threadIdx.x; i < n * D; i += THREADS) {
     const int row = i / D, col = i % D;
     const int g = g0 + row;
-    dst[row * DP + col] = g < t ? to_f32(src[(long long)g * D + col]) : 0.f;
+    dst[row * DP + col] = g < t ? src[(long long)g * D + col] : 0.f;
   }
 }
 
@@ -103,7 +86,7 @@ __device__ __forceinline__ void store_tile(T* dst, const float* src, int g0,
   for (int i = threadIdx.x; i < n * D; i += THREADS) {
     const int row = i / D, col = i % D;
     const int g = g0 + row;
-    if (g < t) dst[(long long)g * D + col] = from_f32<T>(src[row * DP + col]);
+    if (g < t) dst[(long long)g * D + col] = src[row * DP + col];
   }
 }
 
@@ -377,20 +360,15 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// one of the two launchers above, for the dtype code and head dim
+// one of the two launchers above, for the head dim; float32 only:
+// bfloat16 and float16 are the tensor-core kernels'
 template <template <typename, int> class L>
 int dispatch(const Args& a, int d, int dtype) {
-  if (a.bh <= 0 || a.tq <= 0 || a.tk <= 0 || a.bh > 65535)
+  if (a.bh <= 0 || a.tq <= 0 || a.tk <= 0 || a.bh > 65535 || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return d == 64 ? L<float, 64>::run(a) : L<float, 128>::run(a);
-    case 1:
-      return d == 64 ? L<__nv_bfloat16, 64>::run(a)
-                     : L<__nv_bfloat16, 128>::run(a);
-    case 2: return d == 64 ? L<__half, 64>::run(a) : L<__half, 128>::run(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (d == 64) return L<float, 64>::run(a);
+  if (d == 128) return L<float, 128>::run(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -400,19 +378,16 @@ struct DQ {
 
 template <typename T, int D>
 struct DKV {
-  static int run(const Args& a) {
-    // bfloat16 and float16 are flash_bwd_dkv_mma.cu's
-    if constexpr (std::is_same<T, float>::value) return launch_dkv<T, D>(a);
-    return (int)cudaErrorInvalidValue;
-  }
+  static int run(const Args& a) { return launch_dkv<T, D>(a); }
 };
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16; d: 64 or 128. q, dout, dq:
-// [bh, tq, d]; k, v: [bh, tk, d]; lse, delta: [bh, tq] float32. All
-// contiguous, on the current device. Return the CUDA error code of the
-// launch (0 = ok).
+// dtype: 0 float32 only (1 bfloat16 and 2 float16 are refused: the
+// 16-bit route is flash_bwd_dq_mma.cu and flash_bwd_dkv_mma.cu); d: 64
+// or 128. q, dout, dq: [bh, tq, d]; k, v: [bh, tk, d]; lse, delta:
+// [bh, tq] float32. All contiguous, on the current device. Return the
+// CUDA error code of the launch (0 = ok).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, int bh, int tq,
@@ -423,8 +398,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return dispatch<DQ>(a, d, dtype);
 }
 
-// dk, dv: [bh, tk, d] float32 (dtype 0 only: the 16-bit route is
-// flash_bwd_dkv_mma.cu).
+// dk, dv: [bh, tk, d] float32.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv, int bh,

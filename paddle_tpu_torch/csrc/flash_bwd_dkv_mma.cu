@@ -1,7 +1,7 @@
 // Flash-attention backward dK/dV on Hopper's tensor cores (sm_90a,
 // mma.sync), bf16 and fp16, plain C interface. The float32 route stays
-// the SIMT kernel flash_bwd_dkv of flash_bwd.cu, and dQ (K2) stays
-// flash_bwd_dq there.
+// the SIMT kernel flash_bwd_dkv of flash_bwd.cu; dQ (K2) is
+// flash_bwd_dq_mma.cu's.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel
 // (with _recompute_ds, :161; the second pallas_call of
@@ -53,8 +53,10 @@
 //   a ragged end crosses.
 //
 // What it leaves: wgmma with TMA and warp specialisation; fusing dQ
-// (K2) into this pass with atomics, as FlashAttention-2 does; reading
-// GQA KV heads in place instead of after repeat_interleave.
+// (K2) into this pass with atomics, as FlashAttention-2 does (dQ stays
+// a kernel of its own, flash_bwd_dq_mma.cu: this kernel's dS is held
+// transposed, and atomics would make dQ nondeterministic); reading GQA
+// KV heads in place instead of after repeat_interleave.
 
 #include "mma_sm90.cuh"
 

@@ -1,8 +1,8 @@
 // PTX helpers shared by the tensor-core attention kernels
-// (flash_fwd_mma.cu, flash_bwd_dkv_mma.cu): cp.async tile copies,
-// ldmatrix fragment loads and mma.sync.m16n8k16 with float32
-// accumulators, for bf16 and fp16. sm_80+ instructions, built for
-// sm_90a.
+// (flash_fwd_mma.cu, flash_bwd_dq_mma.cu, flash_bwd_dkv_mma.cu): cp.async
+// tile copies, ldmatrix fragment loads and mma.sync.m16n8k16 with
+// float32 accumulators, for bf16 and fp16. sm_80+ instructions, built
+// for sm_90a.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4), which the kernels' index arithmetic relies on:

@@ -8,8 +8,9 @@ The reference's three Pallas kernels are CUDA kernels here:
   ``csrc/flash_fwd.cu`` (SIMT). Its plain version is
   :func:`ref_attention_lse`, a torch copy of the reference's
   ``_ref_attention_lse``.
-- K2 ``_fa_bwd_dq_kernel`` (dQ), wrapped by :func:`flash_bwd_dq`:
-  ``csrc/flash_bwd.cu`` for every dtype.
+- K2 ``_fa_bwd_dq_kernel`` (dQ), wrapped by :func:`flash_bwd_dq`: bf16
+  and fp16 run ``csrc/flash_bwd_dq_mma.cu`` (tensor cores), float32
+  ``csrc/flash_bwd.cu`` (SIMT).
 - K3 ``_fa_bwd_dkv_kernel`` (dK, dV), wrapped by :func:`flash_bwd_dkv`:
   bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu`` (tensor cores),
   float32 ``csrc/flash_bwd.cu`` (SIMT).
@@ -59,7 +60,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _ALIGN = 16   # bytes: the tensor-core kernels copy 16 bytes a cp.async
 # the kernels that load their tiles by cp.async, and so need _ALIGN
-_CP_ASYNC = ("flash_fwd_mma", "flash_bwd_dkv_mma")
+_CP_ASYNC = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
 
 # (library under csrc/, C symbol) of the kernel each wrapper launches:
 # on float32, on bf16/fp16 inputs
@@ -67,7 +68,7 @@ _ROUTES = {
     "flash_fwd": (("flash_fwd", "flash_fwd"),
                   ("flash_fwd_mma", "flash_fwd_mma")),
     "flash_bwd_dq": (("flash_bwd", "flash_bwd_dq"),
-                     ("flash_bwd", "flash_bwd_dq")),
+                     ("flash_bwd_dq_mma", "flash_bwd_dq_mma")),
     "flash_bwd_dkv": (("flash_bwd", "flash_bwd_dkv"),
                       ("flash_bwd_dkv_mma", "flash_bwd_dkv_mma")),
 }
@@ -77,7 +78,7 @@ def kernel_for(wrapper, dtype, d):
     """(library, symbol) of the CUDA kernel that ``wrapper``
     ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
-    tensor-core kernels (K1, K3), float32 to the SIMT ones. Raises
+    tensor-core kernels, float32 to the SIMT ones. Raises
     ValueError for what no kernel takes."""
     if d not in _HEAD_DIMS:
         raise ValueError(f"{wrapper} kernels take head dims {_HEAD_DIMS}, "
@@ -248,7 +249,8 @@ def flash_fwd(q, k, v, scale, causal):
 def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     """K2's wrapper. q, do: [BH, tq, D]; k, v: [BH, tk, D]; lse, delta:
     [BH, tq] float32 (delta = rowsum(dO * O) - dlse). Returns dq in q's
-    dtype. ``flash_bwd_dq.launches`` counts kernel launches."""
+    dtype. ``flash_bwd_dq.launches`` counts kernel launches,
+    ``flash_bwd_dq.launches_by_kernel`` each variant's."""
     _check("flash_bwd_dq", q, k, v, (do,))
     if q.device.type == "cpu":
         return ref_flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)

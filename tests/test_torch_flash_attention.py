@@ -136,7 +136,8 @@ def test_library_path_keys_on_sources():
     assert p.parent == cuda_build.BUILD_DIR
     assert p.name.startswith("libflash_fwd-") and p.suffix == ".so"
     assert set(cuda_build.SOURCES) == {"flash_fwd", "flash_bwd",
-                                       "flash_fwd_mma", "flash_bwd_dkv_mma"}
+                                       "flash_fwd_mma", "flash_bwd_dq_mma",
+                                       "flash_bwd_dkv_mma"}
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").exists()
     assert cuda_build.library_path("flash_bwd").name.startswith(

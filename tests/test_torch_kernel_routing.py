@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+import dq_tile_sweep
 from paddle_tpu_torch.ops import cuda_build
 from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -33,15 +34,15 @@ def _library_of(symbol):
     ("flash_bwd_dkv", torch.bfloat16, "flash_bwd_dkv_mma"),
     ("flash_bwd_dkv", torch.float16, "flash_bwd_dkv_mma"),
     ("flash_bwd_dkv", torch.float32, "flash_bwd_dkv"),
-    ("flash_bwd_dq", torch.bfloat16, "flash_bwd_dq"),
-    ("flash_bwd_dq", torch.float16, "flash_bwd_dq"),
+    ("flash_bwd_dq", torch.bfloat16, "flash_bwd_dq_mma"),
+    ("flash_bwd_dq", torch.float16, "flash_bwd_dq_mma"),
     ("flash_bwd_dq", torch.float32, "flash_bwd_dq"),
 ])
 @pytest.mark.parametrize("d", [64, 128])
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
-    """16-bit inputs go to the tensor-core kernels of K1 and K3, float32
-    to the SIMT kernels; K2 is one kernel for every dtype. The library
-    is the source the symbol is built from."""
+    """16-bit inputs go to the tensor-core kernels of K1, K2 and K3,
+    float32 to the SIMT kernels. The library is the source the symbol is
+    built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
     assert sym == want
     assert lib in cuda_build.SOURCES
@@ -87,16 +88,18 @@ def test_planted_faults_follow_the_bf16_kernels_tiles():
     """chip_smoke.py plants its tile faults at the tiles of the kernels
     the bf16 training shape runs, read from the sources' constexprs."""
     tiles = chip_smoke.planted_fault_tiles(torch, fa)
-    assert tiles == {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 32),
+    assert tiles == {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 64),
                      "flash_bwd_dkv": (64, 64)}
     # float32 runs the SIMT kernels, whose tiles differ
     assert chip_smoke.kernel_tile(fa, "flash_fwd", torch.float32) == (64, 32)
+    assert chip_smoke.kernel_tile(fa, "flash_bwd_dq",
+                                  torch.float32) == (64, 32)
     assert chip_smoke.kernel_tile(fa, "flash_bwd_dkv",
                                   torch.float32) == (32, 64)
 
 
 def test_new_sources_build_with_the_others():
-    for name in ("flash_fwd_mma", "flash_bwd_dkv_mma"):
+    for name in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"):
         assert name in cuda_build.SOURCES
         text = (CSRC / f"{name}.cu").read_text()
         assert '#include "mma_sm90.cuh"' in text
@@ -104,6 +107,29 @@ def test_new_sources_build_with_the_others():
     # the header is part of every library's build key
     p = cuda_build.library_path("flash_fwd_mma")
     assert p.name.startswith("libflash_fwd_mma-") and p.suffix == ".so"
+
+
+def test_tile_sweep_rewrites_only_the_tile_of_the_shipped_source():
+    """dq_tile_sweep.py's first variant is the source as it ships; each
+    other one changes only its tile constexprs and blocks a SM, into a
+    tile the kernel's static_asserts and the planted faults accept."""
+    text = (CSRC / "flash_bwd_dq_mma.cu").read_text()
+    shipped = cuda_build.constexprs("flash_bwd_dq_mma")
+    variants = list(dq_tile_sweep.VARIANTS.values())
+    assert variants[0] == ({}, 2)
+    assert dq_tile_sweep.variant_source(text, {}, 2) == text
+    for consts, blocks in variants[1:]:
+        out = dq_tile_sweep.variant_source(text, consts, blocks)
+        tile = dict(shipped, **consts)
+        assert tile["BLOCK_M"] == 16 * tile["WARPS"]
+        assert tile["BLOCK_M"] % tile["BLOCK_N"] == 0
+        assert tile["BLOCK_N"] % 16 == 0
+        for name, value in consts.items():
+            assert f"constexpr int {name} = {value};" in out
+        assert f"__launch_bounds__(THREADS, {blocks})" in out
+        changed = [(a, b) for a, b in zip(text.splitlines(),
+                                           out.splitlines()) if a != b]
+        assert len(changed) == len(consts) + (blocks != 2)
 
 
 def test_misaligned_views_are_found():
@@ -136,6 +162,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         assert not any(w.launches_by_kernel.values())
     assert fa.flash_fwd.launches_by_kernel == {"flash_fwd": 0,
                                                "flash_fwd_mma": 0}
+    assert fa.flash_bwd_dq.launches_by_kernel == {"flash_bwd_dq": 0,
+                                                  "flash_bwd_dq_mma": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {"flash_bwd_dkv": 0,
                                                    "flash_bwd_dkv_mma": 0}
 
@@ -167,7 +195,7 @@ def _tier_ratio(got, want, dt):
 
 
 def _rounding_ratios(dt, seed=0, bh=2, t=2048, d=128):
-    """The err / limit of O, dK and dV at the training shape when the
+    """The err / limit of O, dQ, dK and dV at the training shape when the
     product's 16-bit operand (P, or dS) is rounded once to ``dt``, and
     when it is split into hi + lo halves of ``dt``; the rest in float32
     as in the kernels."""
@@ -200,6 +228,7 @@ def _rounding_ratios(dt, seed=0, bh=2, t=2048, d=128):
     for how, r in (("once", once), ("split", split)):
         out[how] = {
             "O": _tier_ratio(r(p) @ v / l, o, dt),
+            "dQ": _tier_ratio(r(ds) @ k, ds @ k, dt),
             "dK": _tier_ratio(r(ds).transpose(1, 2) @ q,
                               ds.transpose(1, 2) @ q, dt),
             "dV": _tier_ratio(r(pn).transpose(1, 2) @ do,
@@ -209,10 +238,11 @@ def _rounding_ratios(dt, seed=0, bh=2, t=2048, d=128):
 
 def test_one_bf16_rounding_of_p_misses_the_tier_and_the_split_meets_it():
     """At the training shape (T = 2048, D = 128, causal; two heads), a
-    P or dS rounded once to bf16 before its product puts O, dK and dV
-    over the 16-bit tier's limit (late rows average ~2000 values of
+    P or dS rounded once to bf16 before its product puts O, dQ, dK and
+    dV over the 16-bit tier's limit (late rows average ~2000 values of
     ~1e-2, so 2^-9 per term exceeds 1e-2 x RMS); hi + lo halves keep
-    every output within it, one output rounding apart."""
+    every output within it, one output rounding apart. So every
+    tensor-core kernel splits its P or dS operand."""
     r = _rounding_ratios(torch.bfloat16)
     assert all(x > 1.0 for x in r["once"].values()), r
     assert all(x < 0.8 for x in r["split"].values()), r

@@ -10,7 +10,8 @@ Gradients through the autograd.Function (K1, K2, K3 on the card)
 against the plain versions on the CPU: rtol 2e-3 / atol 2e-4.
 
 The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
-``flash_bwd_dkv_mma``) are held to chip_smoke.py's 16-bit tier: rtol
+``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) are held to chip_smoke.py's
+16-bit tier: rtol
 1e-2 (one rounding of the output) plus atol 1e-2 x the plain output's
 RMS, against the plain version evaluated in float32 on the same inputs
 and rounded once to the output's type.
@@ -128,9 +129,8 @@ def _half_tier_ratio(got, want):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("tq,tk,d,causal", MMA_CASES)
 def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
-    """K1 and K3 on the tensor cores (and K2, SIMT, on their outputs),
-    each output against its plain version, with the variant that
-    launched."""
+    """K1, K2 and K3 on the tensor cores, each output against its
+    plain version, with the variant that launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,7 +150,8 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
                                                "flash_fwd_mma": 1}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
         "flash_bwd_dkv": 0, "flash_bwd_dkv_mma": 1}
-    assert fa.flash_bwd_dq.launches_by_kernel == {"flash_bwd_dq": 1}
+    assert fa.flash_bwd_dq.launches_by_kernel == {"flash_bwd_dq": 0,
+                                                  "flash_bwd_dq_mma": 1}
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
                                             sc, causal)
     want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
@@ -179,6 +180,10 @@ def test_mma_route_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_fwd(q, q, q, 0.1, True)
     assert fa.flash_fwd.launches == 0
+    rows = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dq(q, q, q, q, rows, rows, 0.1, True)
+    assert fa.flash_bwd_dq.launches == 0
 
 
 @pytest.mark.gpu
@@ -203,6 +208,7 @@ def test_simt_route_takes_views_off_the_16_byte_boundary():
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
     torch.cuda.synchronize()
     assert fa.flash_fwd.launches_by_kernel["flash_fwd"] == 1
+    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq"] == 1
     assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv"] == 1
     want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, True)
     want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
@@ -215,14 +221,15 @@ def test_simt_route_takes_views_off_the_16_byte_boundary():
 
 @pytest.mark.gpu
 def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
-    """FlashAttention in bf16 on the card (K1 and K3 on the tensor
-    cores, K2 SIMT), through o and lse, causal, T = 256, held two ways.
+    """FlashAttention in bf16 on the card (K1, K2 and K3 on the
+    tensor cores), through o and lse, causal, T = 256, held two ways.
 
     Against the plain backward on the card's own bf16 O and lse (the
     same delta = rowsum(dO * O) - dlse the backward forms, the rest in
     float32, rounded once to bf16): the 16-bit tier, rtol 1e-2 plus
-    1e-2 x the plain gradient's RMS. A K3 that skips its last q tile
-    must fail that tier.
+    1e-2 x the plain gradient's RMS. A K3 that skips its last q tile,
+    and a K2 that skips each q tile's last k tile, must fail that
+    tier.
 
     Against float32 autograd on the CPU on the same bf16-valued inputs:
     rtol 2e-2 plus 0.1 x the float32 gradient's RMS. That path keeps O
@@ -248,6 +255,8 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
         grads[dev] = [g.float().cpu() for g in torch.autograd.grad(loss, ts)]
         if dev == "cuda":
             assert fa.flash_fwd.launches_by_kernel["flash_fwd_mma"] == 1
+            assert fa.flash_bwd_dq.launches_by_kernel[
+                "flash_bwd_dq_mma"] == 1
             assert fa.flash_bwd_dkv.launches_by_kernel[
                 "flash_bwd_dkv_mma"] == 1
             card_o, card_lse = o.detach().cpu(), lse.detach().cpu()
@@ -270,6 +279,22 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
                                   ("dV", got_v, lost_v, want_v)):
         ratio = _half_tier_ratio(got - lost.float(), want)
         assert ratio > 1.0, f"{name}: a skipped q tile reads {ratio:.3f}"
+    # K2 skipping each q tile's last k tile loses, under causal with
+    # tq = tk, the share of the keys on the diagonal tile: the plain dQ
+    # of each q tile's rows against those keys (the masks align
+    # bottom-right)
+    tiles = cuda_build.constexprs("flash_bwd_dq_mma")
+    bm, bn = tiles["BLOCK_M"], tiles["BLOCK_N"]
+    nt = 256 // bm
+    q_t, do_t = (x.reshape(2, 4, nt, bm, 128) for x in (q, do))
+    k_t, v_t = (x.reshape(2, 4, nt, bm // bn, bn, 128)[:, :, :, -1]
+                for x in (k, v))
+    lost_q = fa.ref_flash_bwd_dq(q_t, k_t, v_t, do_t,
+                                 card_lse.reshape(2, 4, nt, bm),
+                                 delta.reshape(2, 4, nt, bm), sc, True)
+    ratio = _half_tier_ratio(got_q - lost_q.float().reshape(got_q.shape),
+                             want_q)
+    assert ratio > 1.0, f"dQ: a skipped k tile reads {ratio:.3f}"
     for g, w in zip(grads["cuda"], grads["cpu"]):
         atol = 0.1 * float(w.square().mean().sqrt())
         torch.testing.assert_close(g, w, rtol=2e-2, atol=atol)

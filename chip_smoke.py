@@ -14,21 +14,24 @@ Phases — any failure exits non-zero:
    process per source, all at once), with the build seconds, the
    compiler's register/shared-memory/spill report, and each kernel's
    count of tensor-core instructions (``HMMA``) in its SASS
-   (``cuobjdump``) — none in ``flash_fwd_mma``, ``flash_bwd_dq_mma`` or
-   ``flash_bwd_dkv_mma`` fails the run;
+   (``cuobjdump``) — none in ``flash_fwd_mma``, ``flash_fwd_f32mma``,
+   ``flash_bwd_dq_mma`` or ``flash_bwd_dkv_mma`` fails the run;
 3. kernels: K1 (the flash-attention forward) and K2/K3 (its backward,
    dQ and dK/dV) against their plain torch versions on the same inputs,
    on both routes — bf16/fp16 through the tensor-core kernels
    (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dq_mma.cu``,
-   ``csrc/flash_bwd_dkv_mma.cu``), float32 through the SIMT kernels
-   (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) — at the serving and
+   ``csrc/flash_bwd_dkv_mma.cu``), float32 through K1's split-operand
+   tensor-core kernel (``csrc/flash_fwd_f32mma.cu``) and the SIMT K2 and
+   K3 (``csrc/flash_bwd.cu``) — at the serving and
    training shapes and the edge cases (causal and not, tq != tk with
    fully masked rows, ragged T, D = 64, in f32, bf16 and fp16), each
    case asserting which variant launched, with dQ, dK and dV each
    checked on its own, in a tier set by the output's type and scale; at
    the training shape, grid and tile-loop faults planted in copies of
    the outputs, at the tiles of the kernels that ran, must fail that
-   tier; ``attention_with_lse``'s gradient through both outputs against
+   tier, as must two K1 faults at the float32 K1's tile at the f32
+   serving shape and ``f32 causal``, in the float32 tier;
+   ``attention_with_lse``'s gradient through both outputs against
    plain autograd of ``ref_attention_lse``; each kernel timed beside its
    plain version, its bound and ``scaled_dot_product_attention``
    forward or backward (a yardstick only — the port never calls it);
@@ -37,8 +40,9 @@ Phases — any failure exits non-zero:
    buckets, concurrent requests, each answer held against the same
    request run alone through ``Executor.run``, no step build after
    warmup, and K1 launched once per layer per dispatch — in bfloat16
-   (every launch the tensor-core K1), then in float32 (every launch the
-   SIMT K1), where answers match the lone runs logit for logit;
+   (every launch ``flash_fwd_mma``), then in float32 (every launch
+   ``flash_fwd_f32mma``), where answers match the lone runs logit for
+   logit; one (4 x 256) dispatch's device time by kind in each dtype;
 5. train: the Llama-3-8B-width model cut to 8 layers, bf16, through
    ``build_llama(targets)`` → ``Adam.minimize`` → ``Executor.run`` on one
    fixed batch of 2 x 2048 tokens: 2 warmup and 8 timed steps with
@@ -49,8 +53,8 @@ Phases — any failure exits non-zero:
    reports);
 6. train parity: a narrow float32 model (head dim 128, TF32 off) whose
    step on the card (the kernels) matches the same step on the CPU (the
-   plain versions; the SIMT K1, K2 and K3): loss and every parameter's
-   gradient, then 3 Adam steps' losses.
+   plain versions; K1 ``flash_fwd_f32mma``, the SIMT K2 and K3): loss
+   and every parameter's gradient, then 3 Adam steps' losses.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -73,8 +77,14 @@ SEED = 0   # random weights, inputs and requests all derive from it
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
+F32_SPLIT_RATE = "float32 3xbf16"
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
-              "float32": 67e12}        # float32 outside the tensor cores
+              "float32": 67e12,        # float32 outside the tensor cores
+              # float32 products as three bf16 tensor-core products
+              F32_SPLIT_RATE: 989e12 / 3}
+# the kernels whose float32 products run as a split on the tensor
+# cores: their bounds count operations at the split's rate
+RATE_OF_KERNEL = {"flash_fwd_f32mma": F32_SPLIT_RATE}
 
 # tolerances (|got - want| <= atol + rtol * |want|). A kernel's plain
 # version is evaluated in float32 on the kernel's own inputs and rounded
@@ -96,20 +106,24 @@ TRAIN_LAYERS = 8                # 32 → 8: Adam state of 32 layers
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 TRAIN_LABEL = "training shape"
+F32_K1 = "flash_fwd_f32mma"     # K1's float32 kernel
+# the float32 cases where faults planted at F32_K1's tile must fail
+F32_FAULT_CASES = ("f32 serving T=256", "f32 causal")
 INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
 # the profiler's kinds and the kernel functions each covers (both routes)
-KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
+KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
+                                   "flash_fwd_mma_kernel")),
                 ("k2_flash_bwd_dq", ("flash_bwd_dq_kernel",
                                      "flash_bwd_dq_mma_kernel")),
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                                       "flash_bwd_dkv_mma_kernel")))
 # the tensor-core kernels, whose SASS must hold HMMA instructions
-MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-               "flash_bwd_dkv_mma_kernel")
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_f32mma_kernel",
+               "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
 # kernel symbol -> the constexprs of its source that give its tile's q
 # rows and keys, where the planted faults are placed
-TILE_CONSTEXPRS = {"flash_fwd": ("BLOCK_M", "BLOCK_N"),
+TILE_CONSTEXPRS = {"flash_fwd_f32mma": ("BLOCK_M", "BLOCK_N"),
                    "flash_fwd_mma": ("BLOCK_M", "BLOCK_N"),
                    "flash_bwd_dq": ("DQ_BLOCK_M", "DQ_BLOCK_N"),
                    "flash_bwd_dq_mma": ("BLOCK_M", "BLOCK_N"),
@@ -234,7 +248,8 @@ def phase_kernels(torch, fa, seed):
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     bh_train = TRAIN_BATCH * 32
     # (label, bh, tq, tk, d, dtype, causal); bf16/fp16 run the
-    # tensor-core K1, K2 and K3, float32 the SIMT ones
+    # tensor-core K1, K2 and K3, float32 the split-operand tensor-core
+    # K1 and the SIMT K2 and K3
     cases = [
         ("serving T=128", 4 * 32, 128, 128, 128, bf16, True),
         ("serving T=256", 4 * 32, 256, 256, 128, bf16, True),
@@ -282,7 +297,7 @@ def phase_kernels(torch, fa, seed):
         dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
         torch.cuda.synchronize()
-        ran = check_variants(fa, dt, d)
+        ran = check_variants(torch, fa, dt, d)
         pairs["dQ"] = (dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta,
                                                scale, causal))
         want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta,
@@ -305,6 +320,9 @@ def phase_kernels(torch, fa, seed):
         if label == TRAIN_LABEL and ok:
             check_planted_faults(torch, fa, (q, k, v, do, lse, delta), scale,
                                  pairs, errs)
+        if label in F32_FAULT_CASES and ok:
+            check_planted_f32_faults(torch, fa, label, (q, k, v), scale,
+                                     pairs["O"], errs["O"])
         del o, lse, delta, dq, dk, dv, pairs, want_k, want_v
     check(not failures,
           f"K1/K2/K3 disagree with their plain versions: {failures}")
@@ -322,13 +340,15 @@ def phase_kernels(torch, fa, seed):
     return timing
 
 
-def check_variants(fa, dt, d):
+def check_variants(torch, fa, dt, d):
     """Each wrapper launched once since the counts were reset, and that
     launch went to the variant ``kernel_for`` names for ``dt``; returns
     the variants' symbols."""
     ran = []
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         _, sym = fa.kernel_for(w.__name__, dt, d)
+        if w is fa.flash_fwd and dt == torch.float32:
+            check(sym == F32_K1, f"float32 K1 routes to {sym}, not {F32_K1}")
         by = w.launches_by_kernel
         check(w.launches == 1 and by[sym] == 1,
               f"{w.__name__} on {dt}: launches {by}, expected one of {sym}")
@@ -377,9 +397,16 @@ def time_kernels(torch, fa, r, label, kinds, flush):
         wrapper, err, kern, plain, plain_iters = calls[kind]
         ms = time_ms(kern, torch, flush=flush)
         plain_ms = time_ms(plain, torch, iters=plain_iters, flush=flush)
-        bound, by, nbytes, flops = attention_bound_ms(
-            bh, t, t, d, dt_name, causal, q.element_size(), kind)
         symbol = fa.kernel_for(wrapper, q.dtype, d)[1]
+        rate = RATE_OF_KERNEL.get(symbol, dt_name)
+        bound, by, nbytes, flops = attention_bound_ms(
+            bh, t, t, d, rate, causal, q.element_size(), kind)
+        at_rate = f"{PEAK_FLOPS[rate] / 1e12:.1f} TFLOP/s {rate}"
+        if rate != dt_name:   # the dtype's own rate, for comparison
+            own, _, _, _ = attention_bound_ms(bh, t, t, d, dt_name, causal,
+                                              q.element_size(), kind)
+            at_rate += (f"; at {PEAK_FLOPS[dt_name] / 1e12:.0f} TFLOP/s "
+                        f"{dt_name}: {own:.4f} ms")
         rows[(kind, label)] = dict(
             kernel=symbol, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms[kind], bound_ms=bound, bound_by=by,
@@ -388,7 +415,8 @@ def time_kernels(torch, fa, r, label, kinds, flush):
             f"plain {plain_ms:.4f} ms, sdpa "
             f"{'forward' if kind == 'fwd' else 'backward (dQ, dK, dV)'} "
             f"{lib_ms[kind]:.4f} ms, bound {bound:.4f} ms by {by} "
-            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at "
+            f"{at_rate})")
     del o, lse, delta
     return rows
 
@@ -471,6 +499,39 @@ def check_planted_faults(torch, fa, inputs, scale, pairs, errs):
             f"{errs[name][2]:.3f}) {'caught' if ratio > 1 else 'MISSED'}")
         check(ratio > 1.0, f"the bf16 tier does not catch a planted fault "
                            f"({what}: {name} err/limit {ratio:.3f})")
+
+
+def check_planted_f32_faults(torch, fa, label, inputs, scale, o_pair,
+                             o_err):
+    """The float32 tier must catch what a grid or tile-loop fault of the
+    float32 K1 leaves at a causal case: each fault is planted in a copy
+    of the kernel's O and must fail the check the kernel passed, at the
+    kernel's own tile (read from its source's constexprs)."""
+    q, k, v = inputs
+    tq, tk = q.shape[1], k.shape[1]
+    rows, keys = kernel_tile(fa, "flash_fwd", torch.float32, q.shape[2])
+    o, want = o_pair
+    lost = o.clone()
+    lost[:, (tq - 1) // rows * rows:] = 0
+    # each q tile's last visited key tile skipped: the block's loop ends
+    # at its last row's causal limit, so the keys of that tile leave the
+    # softmax of the tile's rows (the plain version with them masked out)
+    q0 = torch.arange(tq, device=q.device) // rows * rows
+    last = ((q0 + rows - 1 + tk - tq) // keys).clamp(max=(tk - 1) // keys)
+    cols = torch.arange(tk, device=q.device)[None, :]
+    skipped = cols // keys == last[:, None]
+    bias = torch.zeros(tq, tk, device=q.device).masked_fill(skipped,
+                                                            -math.inf)
+    skip_o, _ = fa.ref_attention_lse(q, k, v, scale, True, bias)
+    for what, bad in (
+            (f"K1 f32 leaves its last {rows}-row q tile unwritten", lost),
+            (f"K1 f32 skips each q tile's last {keys}-key tile", skip_o)):
+        _, err, ratio = kernel_err(bad, want)
+        log(f"planted fault, {label}: {what}: O max abs err {err:.3e}, "
+            f"err/limit {ratio:.3f} (the kernel's own {o_err[2]:.3f}) "
+            f"{'caught' if ratio > 1 else 'MISSED'}")
+        check(ratio > 1.0, f"the f32 tier does not catch a planted fault "
+                           f"({label}: {what}: O err/limit {ratio:.3f})")
 
 
 def check_lse_gradient(torch, fa, gen, dev):
@@ -611,8 +672,8 @@ def add_busy(out, kinds, wall_ms):
 def phase_serve(torch, fluid, dtype, card):
     """Serve the 8B-width forward in ``dtype`` and hold every answer to
     the same request run alone; every K1 launch must go to the variant
-    the dtype routes to (bf16: tensor cores, float32: SIMT). Returns (K1
-    launches, serve stats).
+    the dtype routes to (bf16: flash_fwd_mma, float32:
+    flash_fwd_f32mma). Returns (K1 launches, serve stats).
 
     The tiers: in float32 each logit within TOL_LOGITS_F32 and the greedy
     token exact. In bfloat16 a 32-layer network amplifies rounding that
@@ -735,8 +796,9 @@ def phase_serve(torch, fluid, dtype, card):
     lat = stats["request_latency"]
     long_batch, _, _ = buckets.pad_batch(
         [{"tokens": r} for r, n in zip(reqs, lengths) if n > 128][:4])
-    log(f"{tag}: one dispatch: " + json.dumps(where_the_time_goes(
-        torch, exe, infer, logits, scope, long_batch)))
+    dispatch = where_the_time_goes(torch, exe, infer, logits, scope,
+                                   long_batch)
+    log(f"{tag}: one dispatch: " + json.dumps(dispatch))
     serve = {"dtype": dtype, "requests": len(reqs), "wall_s": wall,
              "requests_per_s": len(reqs) / wall,
              "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
@@ -750,7 +812,7 @@ def phase_serve(torch, fluid, dtype, card):
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "card": card}
     log(f"{tag}: " + json.dumps(serve))
-    return launches, serve
+    return launches, dict(serve, one_dispatch=dispatch)
 
 
 def build_train(fluid, cfg, lr):
@@ -863,10 +925,11 @@ def phase_train(torch, fluid, fa, card):
 
 def phase_train_parity(torch, fluid, fa, card):
     """One float32 step of a narrow model with head dim 128 on the card
-    (K1/K2/K3, every launch a SIMT kernel) and on the CPU (the plain
-    versions), from one startup scope: the loss and every parameter's
-    gradient within the f32 gradient tier, then 3 Adam steps' losses
-    within the loss tier. Returns (launches by kernel symbol, stats)."""
+    (K1 on flash_fwd_f32mma, K2/K3 on the SIMT kernels) and on the CPU
+    (the plain versions), from one startup scope: the loss and every
+    parameter's gradient within the f32 gradient tier, then 3 Adam
+    steps' losses within the loss tier. Returns (launches by kernel
+    symbol, stats)."""
     from paddle_tpu_torch import weights
     from paddle_tpu_torch.models.llama import LlamaConfig
 
@@ -979,7 +1042,8 @@ def main():
             report = f"{cuda_build.library_path(name)}.log"
             if os.path.exists(report):
                 for line in open(report).read().splitlines():
-                    if "registers" in line or "spill" in line:
+                    if any(w in line for w in ("Function properties",
+                                               "registers", "spill")):
                         log(f"build {name}: {line.strip()}")
         check_sass(cuda_build)
 
@@ -987,10 +1051,17 @@ def main():
         free_card(torch)
         # serving: bf16, then float32, where the answers can be held to
         # the request run alone logit for logit
-        serve_launches, _ = phase_serve(torch, fluid, "bfloat16", smi)
+        serve_launches, serve_bf16 = phase_serve(torch, fluid, "bfloat16",
+                                                 smi)
         free_card(torch)
-        serve_f32_launches, _ = phase_serve(torch, fluid, "float32", smi)
+        serve_f32_launches, serve_f32 = phase_serve(torch, fluid, "float32",
+                                                    smi)
         free_card(torch)
+        log("serve: one (4 x 256) dispatch's device ms by kind, bf16 | "
+            "float32: " + json.dumps({
+                s["dtype"]: {k: s["one_dispatch"].get(k, "not measured")
+                             for k in ("device_busy_ms", "device_ms_by_kind")}
+                for s in (serve_bf16, serve_f32)}))
         # training, the main path of slices 2 to 4
         train_launches, _ = phase_train(torch, fluid, fa, smi)
         free_card(torch)
@@ -1008,7 +1079,8 @@ def main():
     replaces = {"fwd": ":59", "dq": ":223", "dkv": ":189"}
     kernels = []
     # bf16 rows at the training shape (launches: the bf16 train step),
-    # then the float32 SIMT K1, K2 and K3 (launches: the f32 train step)
+    # then the float32 K1 (split-operand tensor cores), K2 and K3 (SIMT)
+    # (launches: the f32 train step)
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, train_launches, train_shape),
             ("dq", TRAIN_LABEL, train_launches, train_shape),

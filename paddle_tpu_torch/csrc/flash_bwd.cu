@@ -1,8 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface: the
 // float32 route of K2 (dQ) and K3 (dK/dV). bf16 and fp16 inputs run the
 // tensor-core kernels (flash_bwd_dq_mma.cu, flash_bwd_dkv_mma.cu);
-// float32 stays on the CUDA cores because TF32 tensor cores cannot meet
-// the float32 tiers (rtol 2e-4 / atol 2e-5).
+// float32 stays on the CUDA cores: one TF32 rounding cannot meet the
+// float32 tiers (rtol 2e-4 / atol 2e-5), and the split-operand scheme
+// of the float32 forward (flash_fwd_f32mma.cu) is not applied here yet.
 //
 // Replaces the two Pallas backward kernels of
 // paddle_tpu/ops/pallas_attention.py (launched by _flash_bwd_pallas),
@@ -31,7 +32,7 @@
 // 0.27 GFLOP against ~5 and ~6 MB, bound by operations (~0.003 and
 // ~0.004 ms).
 //
-// Design (simple and right first, as K1 in flash_fwd.cu): SIMT float32
+// Design (simple and right first, as the first K1 was): SIMT float32
 // FMAs, tiles staged in shared memory as float32, rows padded to D + 1
 // floats so the four threads that share a row (K2) or a key (K3) and
 // the eight rows of a warp hit distinct banks.

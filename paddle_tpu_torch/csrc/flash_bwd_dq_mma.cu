@@ -54,7 +54,7 @@
 // - registers: __launch_bounds__(128, 2) leaves up to 255 a thread
 //   (shared memory, not registers, holds it to two blocks a SM): 224
 //   (bf16) / 220 (fp16) at D = 128, 188 at D = 64, no spill. Of the
-//   tiles dq_tile_sweep.py times on the H100, this one was fastest:
+//   tiles tile_sweep.py times on the H100, this one was fastest:
 //   128 rows with 8 warps (one block a SM) ran 11% slower, 32-key tiles
 //   with three blocks a SM 2% slower (PERF.md).
 //

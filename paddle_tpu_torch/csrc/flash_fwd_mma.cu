@@ -1,10 +1,10 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a, mma.sync),
-// bf16 and fp16, plain C interface. The float32 route stays the SIMT
-// kernel of flash_fwd.cu.
+// bf16 and fp16, plain C interface. float32 inputs run
+// flash_fwd_f32mma.cu.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:59 _fa_kernel (launched by
-// _flash_fwd_pallas, :111). Computes exactly what flash_fwd.cu computes,
-// per (batch*head) slice of q [tq, D] and k, v [tk, D], D in {64, 128}:
+// _flash_fwd_pallas, :111). Computes, per (batch*head) slice of
+// q [tq, D] and k, v [tk, D], D in {64, 128}:
 //   S   = (Q K^T) * scale, causal-masked bottom-right (row + tk - tq >= col)
 //   O   = softmax(S) V    by online softmax (running max m, sum l)
 //   lse = m + log(l)      (l == 0 -> 1), compact [BH, tq] float32
@@ -288,8 +288,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// dtype: 1 bfloat16, 2 float16 (float32 is flash_fwd.cu's). q: [bh, tq,
-// d]; k, v: [bh, tk, d]; o like q; lse: [bh, tq] float32. All
+// dtype: 1 bfloat16, 2 float16 (float32 is flash_fwd_f32mma.cu's). q:
+// [bh, tq, d]; k, v: [bh, tk, d]; o like q; lse: [bh, tq] float32. All
 // contiguous, 16-byte aligned, on the current device. Returns the CUDA
 // error code of the launch (0 = ok).
 extern "C" int flash_fwd_mma(const void* q, const void* k, const void* v,

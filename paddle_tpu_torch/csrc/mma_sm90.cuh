@@ -1,8 +1,9 @@
 // PTX helpers shared by the tensor-core attention kernels
-// (flash_fwd_mma.cu, flash_bwd_dq_mma.cu, flash_bwd_dkv_mma.cu): cp.async
-// tile copies, ldmatrix fragment loads and mma.sync.m16n8k16 with
-// float32 accumulators, for bf16 and fp16. sm_80+ instructions, built
-// for sm_90a.
+// (flash_fwd_mma.cu, flash_bwd_dq_mma.cu, flash_bwd_dkv_mma.cu, and the
+// float32 flash_fwd_f32mma.cu): cp.async tile copies, ldmatrix fragment
+// loads and mma.sync.m16n8k16 with float32 accumulators, for bf16 and
+// fp16, and the split of float32 operands into bf16 hi + lo halves.
+// sm_80+ instructions, built for sm_90a.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4), which the kernels' index arithmetic relies on:
@@ -193,6 +194,46 @@ __device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
   hi = Mma<T>::pack(x, y);
   const float2 h = Mma<T>::unpack(hi);
   lo = Mma<T>::pack(x - h.x, y - h.y);
+}
+
+// rows [g0, g0 + ROWS) of a row-major float32 [t, D] slice (global or
+// shared memory, rows 16-byte aligned), each element x split into
+// hi = bf16(x) and lo = bf16(x - hi), into two shared bf16 tiles of row
+// stride LD; rows past t are zero. bf16 keeps float32's exponent range,
+// so lo is a normal number wherever x is: hi + lo holds x to ~2^-17.
+template <int THREADS, int ROWS, int D, int LD>
+__device__ __forceinline__ void split_tile(__nv_bfloat16* hi,
+                                           __nv_bfloat16* lo,
+                                           const float* src, int g0, int t) {
+  constexpr int CHUNKS = D / 4;
+  static_assert(ROWS * CHUNKS % THREADS == 0, "whole passes of the block");
+#pragma unroll
+  for (int it = 0; it < ROWS * CHUNKS / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int row = i / CHUNKS, ch = i % CHUNKS;
+    const int g = g0 + row;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g < t)
+      x = *reinterpret_cast<const float4*>(src + (long long)g * D + ch * 4);
+    uint2 h, l;
+    split_pack<__nv_bfloat16>(x.x, x.y, h.x, l.x);
+    split_pack<__nv_bfloat16>(x.z, x.w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + row * LD + ch * 4) = h;
+    *reinterpret_cast<uint2*>(lo + row * LD + ch * 4) = l;
+  }
+}
+
+// c += a b for float32 operands held as bf16 halves a = ah + al,
+// b = (bh0, bh1) + (bl0, bl1): three products, the small ones first;
+// al bl (~2^-18 of a b) is dropped
+__device__ __forceinline__ void mma_split3(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  Mma<__nv_bfloat16>::run(c, al, bh0, bh1);
+  Mma<__nv_bfloat16>::run(c, ah, bl0, bl1);
+  Mma<__nv_bfloat16>::run(c, ah, bh0, bh1);
 }
 
 }  // namespace mma_sm90

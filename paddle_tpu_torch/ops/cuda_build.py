@@ -19,12 +19,12 @@ import time
 from pathlib import Path
 
 __all__ = ["build", "load", "library_path", "sass_counts", "constexprs",
-           "SOURCES"]
+           "parse_constexprs", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd", "flash_bwd", "flash_fwd_mma", "flash_bwd_dq_mma",
-           "flash_bwd_dkv_mma")
+SOURCES = ("flash_fwd_f32mma", "flash_bwd", "flash_fwd_mma",
+           "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -55,8 +55,12 @@ def constexprs(name):
     """The file-scope ``constexpr int NAME = expr;`` of ``csrc/<name>.cu``
     (tile sizes and the like), evaluated in order with C's integer
     division; an expression may name earlier constants."""
+    return parse_constexprs((CSRC / f"{name}.cu").read_text())
+
+
+def parse_constexprs(text):
+    """:func:`constexprs` on the text of a source."""
     values = {}
-    text = (CSRC / f"{name}.cu").read_text()
     for const, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
                                   re.M):
         values[const] = eval(expr.replace("/", "//"),

@@ -4,8 +4,10 @@
 The reference's three Pallas kernels are CUDA kernels here:
 
 - K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
-  and fp16 run ``csrc/flash_fwd_mma.cu`` (tensor cores), float32
-  ``csrc/flash_fwd.cu`` (SIMT). Its plain version is
+  and fp16 run ``csrc/flash_fwd_mma.cu``, float32
+  ``csrc/flash_fwd_f32mma.cu`` (both on the tensor cores; float32 with
+  every operand split into bf16 hi + lo halves and each product taken
+  three times). Its plain version is
   :func:`ref_attention_lse`, a torch copy of the reference's
   ``_ref_attention_lse``.
 - K2 ``_fa_bwd_dq_kernel`` (dQ), wrapped by :func:`flash_bwd_dq`: bf16
@@ -15,8 +17,9 @@ The reference's three Pallas kernels are CUDA kernels here:
   bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu`` (tensor cores),
   float32 ``csrc/flash_bwd.cu`` (SIMT).
 
-The float32 route stays on the SIMT kernels because TF32 tensor cores
-cannot meet the float32 tiers. :func:`kernel_for` is the routing; the
+The float32 K2 and K3 stay on the SIMT kernels: one TF32 rounding
+cannot meet the float32 tiers, and the forward's split scheme has not
+reached them yet. :func:`kernel_for` is the routing; the
 plain versions of K2 and K3 are :func:`ref_flash_bwd_dq` and
 :func:`ref_flash_bwd_dkv`, which recompute P from lse over the whole
 score matrix.
@@ -60,12 +63,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _ALIGN = 16   # bytes: the tensor-core kernels copy 16 bytes a cp.async
 # the kernels that load their tiles by cp.async, and so need _ALIGN
-_CP_ASYNC = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
+_CP_ASYNC = ("flash_fwd_mma", "flash_fwd_f32mma", "flash_bwd_dq_mma",
+             "flash_bwd_dkv_mma")
 
 # (library under csrc/, C symbol) of the kernel each wrapper launches:
 # on float32, on bf16/fp16 inputs
 _ROUTES = {
-    "flash_fwd": (("flash_fwd", "flash_fwd"),
+    "flash_fwd": (("flash_fwd_f32mma", "flash_fwd_f32mma"),
                   ("flash_fwd_mma", "flash_fwd_mma")),
     "flash_bwd_dq": (("flash_bwd", "flash_bwd_dq"),
                      ("flash_bwd_dq_mma", "flash_bwd_dq_mma")),
@@ -78,7 +82,8 @@ def kernel_for(wrapper, dtype, d):
     """(library, symbol) of the CUDA kernel that ``wrapper``
     ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
-    tensor-core kernels, float32 to the SIMT ones. Raises
+    tensor-core kernels; float32 to the split-operand tensor-core K1 and
+    the SIMT K2 and K3. Raises
     ValueError for what no kernel takes."""
     if d not in _HEAD_DIMS:
         raise ValueError(f"{wrapper} kernels take head dims {_HEAD_DIMS}, "
@@ -177,8 +182,9 @@ def _check(name, q, k, v, extra=()):
 def _check_kernel_inputs(name, tensors, rows):
     """What the CUDA kernels take beyond the shared contract: CUDA
     tensors of a kernel dtype and head dim, contiguous, and 16-byte
-    aligned where the kernel copies them by cp.async (the SIMT kernels
-    load element by element and take any view); float32 row vectors
+    aligned where the kernel copies them by cp.async (every K1, and the
+    16-bit K2 and K3; the SIMT K2 and K3 load element by element and
+    take any view); float32 row vectors
     ``rows`` of shape [BH, tq]. Returns the kernel's (library,
     symbol)."""
     q = tensors[0]

@@ -131,11 +131,11 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 def test_library_path_keys_on_sources():
-    p = cuda_build.library_path("flash_fwd")
-    assert p == cuda_build.library_path("flash_fwd")
+    p = cuda_build.library_path("flash_fwd_f32mma")
+    assert p == cuda_build.library_path("flash_fwd_f32mma")
     assert p.parent == cuda_build.BUILD_DIR
-    assert p.name.startswith("libflash_fwd-") and p.suffix == ".so"
-    assert set(cuda_build.SOURCES) == {"flash_fwd", "flash_bwd",
+    assert p.name.startswith("libflash_fwd_f32mma-") and p.suffix == ".so"
+    assert set(cuda_build.SOURCES) == {"flash_fwd_f32mma", "flash_bwd",
                                        "flash_fwd_mma", "flash_bwd_dq_mma",
                                        "flash_bwd_dkv_mma"}
     for name in cuda_build.SOURCES:

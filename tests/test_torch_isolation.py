@@ -25,7 +25,7 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "dq_tile_sweep.py"]
+                                         REPO / "tile_sweep.py"]
 
 
 def _forbidden(module):

@@ -1,7 +1,8 @@
 """Which CUDA kernel each attention wrapper launches, the tiles the
 kernels use, and why the tensor-core kernels split their probabilities —
 all on the CPU (the kernels themselves run only on the card:
-tests/test_torch_kernels_gpu.py, chip_smoke.py).
+tests/test_torch_kernels_gpu.py, chip_smoke.py). Why the float32 K1
+splits every operand: tests/test_torch_f32_split.py.
 """
 import math
 from pathlib import Path
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
-import dq_tile_sweep
+import tile_sweep
 from paddle_tpu_torch.ops import cuda_build
 from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -30,7 +31,7 @@ def _library_of(symbol):
 @pytest.mark.parametrize("wrapper,dtype,want", [
     ("flash_fwd", torch.bfloat16, "flash_fwd_mma"),
     ("flash_fwd", torch.float16, "flash_fwd_mma"),
-    ("flash_fwd", torch.float32, "flash_fwd"),
+    ("flash_fwd", torch.float32, "flash_fwd_f32mma"),
     ("flash_bwd_dkv", torch.bfloat16, "flash_bwd_dkv_mma"),
     ("flash_bwd_dkv", torch.float16, "flash_bwd_dkv_mma"),
     ("flash_bwd_dkv", torch.float32, "flash_bwd_dkv"),
@@ -40,9 +41,9 @@ def _library_of(symbol):
 ])
 @pytest.mark.parametrize("d", [64, 128])
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
-    """16-bit inputs go to the tensor-core kernels of K1, K2 and K3,
-    float32 to the SIMT kernels. The library is the source the symbol is
-    built from."""
+    """16-bit inputs go to the tensor-core kernels of K1, K2 and K3;
+    float32 to K1's split-operand tensor-core kernel and the SIMT K2 and
+    K3. The library is the source the symbol is built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
     assert sym == want
     assert lib in cuda_build.SOURCES
@@ -78,10 +79,11 @@ def test_tiles_match_the_sources_constexprs(symbol):
 
 
 def test_constexprs_evaluate_in_order_with_integer_division():
-    # flash_fwd.cu: COLS_PER_THREAD = BLOCK_N / 4
-    values = cuda_build.constexprs("flash_fwd")
-    assert values["COLS_PER_THREAD"] == values["BLOCK_N"] // 4
-    assert type(values["COLS_PER_THREAD"]) is int
+    # flash_fwd_f32mma.cu: WARPS = BLOCK_M / 16, THREADS = WARPS * 32
+    values = cuda_build.constexprs("flash_fwd_f32mma")
+    assert values["WARPS"] == values["BLOCK_M"] // 16
+    assert values["THREADS"] == values["WARPS"] * 32
+    assert type(values["WARPS"]) is int
 
 
 def test_planted_faults_follow_the_bf16_kernels_tiles():
@@ -90,8 +92,10 @@ def test_planted_faults_follow_the_bf16_kernels_tiles():
     tiles = chip_smoke.planted_fault_tiles(torch, fa)
     assert tiles == {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 64),
                      "flash_bwd_dkv": (64, 64)}
-    # float32 runs the SIMT kernels, whose tiles differ
-    assert chip_smoke.kernel_tile(fa, "flash_fwd", torch.float32) == (64, 32)
+    # float32 runs K1's split-operand kernel and the SIMT K2 and K3,
+    # whose tiles differ
+    assert chip_smoke.kernel_tile(fa, "flash_fwd", torch.float32) == \
+        (128, 64)
     assert chip_smoke.kernel_tile(fa, "flash_bwd_dq",
                                   torch.float32) == (64, 32)
     assert chip_smoke.kernel_tile(fa, "flash_bwd_dkv",
@@ -99,28 +103,43 @@ def test_planted_faults_follow_the_bf16_kernels_tiles():
 
 
 def test_new_sources_build_with_the_others():
-    for name in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"):
+    header = (CSRC / "mma_sm90.cuh").read_text()
+    for name in ("flash_fwd_mma", "flash_fwd_f32mma", "flash_bwd_dq_mma",
+                 "flash_bwd_dkv_mma"):
         assert name in cuda_build.SOURCES
         text = (CSRC / f"{name}.cu").read_text()
         assert '#include "mma_sm90.cuh"' in text
-        assert "mma.sync" in (CSRC / "mma_sm90.cuh").read_text()
+        assert "mma.sync" in header
+    # the float32 K1 splits its operands with the header's helpers
+    f32 = (CSRC / "flash_fwd_f32mma.cu").read_text()
+    for helper in ("split_tile", "mma_split3", "split_pack"):
+        assert helper in f32 and f"{helper}(" in header
+    assert "flash_fwd" not in cuda_build.SOURCES   # the SIMT K1 is gone
+    assert not (CSRC / "flash_fwd.cu").exists()
     # the header is part of every library's build key
     p = cuda_build.library_path("flash_fwd_mma")
     assert p.name.startswith("libflash_fwd_mma-") and p.suffix == ".so"
 
 
 def test_tile_sweep_rewrites_only_the_tile_of_the_shipped_source():
-    """dq_tile_sweep.py's first variant is the source as it ships; each
-    other one changes only its tile constexprs and blocks a SM, into a
-    tile the kernel's static_asserts and the planted faults accept."""
-    text = (CSRC / "flash_bwd_dq_mma.cu").read_text()
-    shipped = cuda_build.constexprs("flash_bwd_dq_mma")
-    variants = list(dq_tile_sweep.VARIANTS.values())
-    assert variants[0] == ({}, 2)
-    assert dq_tile_sweep.variant_source(text, {}, 2) == text
+    """tile_sweep.py's first variant of each source is the source as it
+    ships; each other one changes only its tile constexprs and blocks a
+    SM, into whole mma tiles of one m16 row block a warp."""
+    assert set(tile_sweep.SWEEPS) == {"flash_fwd_f32mma", "flash_bwd_dq_mma"}
+    for source in tile_sweep.SWEEPS:
+        _check_tile_variants(source)
+
+
+def _check_tile_variants(source):
+    text = (CSRC / f"{source}.cu").read_text()
+    variants = list(tile_sweep.SWEEPS[source].values())
+    shipped_blocks = variants[0][1]
+    assert variants[0][0] == {}
+    assert f"__launch_bounds__(THREADS, {shipped_blocks})" in text
+    assert tile_sweep.variant_source(text, {}, shipped_blocks) == text
     for consts, blocks in variants[1:]:
-        out = dq_tile_sweep.variant_source(text, consts, blocks)
-        tile = dict(shipped, **consts)
+        out = tile_sweep.variant_source(text, consts, blocks)
+        tile = cuda_build.parse_constexprs(out)
         assert tile["BLOCK_M"] == 16 * tile["WARPS"]
         assert tile["BLOCK_M"] % tile["BLOCK_N"] == 0
         assert tile["BLOCK_N"] % 16 == 0
@@ -129,7 +148,7 @@ def test_tile_sweep_rewrites_only_the_tile_of_the_shipped_source():
         assert f"__launch_bounds__(THREADS, {blocks})" in out
         changed = [(a, b) for a, b in zip(text.splitlines(),
                                            out.splitlines()) if a != b]
-        assert len(changed) == len(consts) + (blocks != 2)
+        assert len(changed) == len(consts) + (blocks != shipped_blocks)
 
 
 def test_misaligned_views_are_found():
@@ -145,8 +164,9 @@ def test_misaligned_views_are_found():
 @pytest.mark.parametrize("symbol", sorted(chip_smoke.TILE_CONSTEXPRS))
 def test_only_cp_async_kernels_need_16_byte_alignment(symbol):
     """The alignment check applies to the kernels that copy their tiles
-    by cp.async (those built on mma_sm90.cuh); the SIMT kernels load
-    element by element and take any contiguous view."""
+    by cp.async (those built on mma_sm90.cuh, the float32 K1 among
+    them); the SIMT K2 and K3 load element by element and take any
+    contiguous view."""
     text = (CSRC / f"{_library_of(symbol)}.cu").read_text()
     assert (symbol in fa._CP_ASYNC) == ('#include "mma_sm90.cuh"' in text)
 
@@ -160,7 +180,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         assert w.launches == 0
         assert not any(w.launches_by_kernel.values())
-    assert fa.flash_fwd.launches_by_kernel == {"flash_fwd": 0,
+    assert fa.flash_fwd.launches_by_kernel == {"flash_fwd_f32mma": 0,
                                                "flash_fwd_mma": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {"flash_bwd_dq": 0,
                                                   "flash_bwd_dq_mma": 0}

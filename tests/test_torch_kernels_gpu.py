@@ -14,7 +14,9 @@ The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
 16-bit tier: rtol
 1e-2 (one rounding of the output) plus atol 1e-2 x the plain output's
 RMS, against the plain version evaluated in float32 on the same inputs
-and rounded once to the output's type.
+and rounded once to the output's type. K1's float32 kernel
+(``flash_fwd_f32mma``, tensor cores with every operand split into bf16
+halves) and the float32 K2 and K3 (SIMT) are held to the f32 tier.
 """
 import numpy as np
 import pytest
@@ -126,11 +128,12 @@ def _half_tier_ratio(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("tq,tk,d,causal", MMA_CASES)
 def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
-    """K1, K2 and K3 on the tensor cores, each output against its
-    plain version, with the variant that launched."""
+    """K1, K2 and K3 on the tensor cores (float32: K1 on the tensor
+    cores, K2 and K3 SIMT), each output against its plain version in
+    the tier of its type, with the variant that launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -146,12 +149,13 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
     torch.cuda.synchronize()
-    assert fa.flash_fwd.launches_by_kernel == {"flash_fwd": 0,
-                                               "flash_fwd_mma": 1}
+    f32 = dt == torch.float32
+    assert fa.flash_fwd.launches_by_kernel == {
+        "flash_fwd_f32mma": int(f32), "flash_fwd_mma": int(not f32)}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
-        "flash_bwd_dkv": 0, "flash_bwd_dkv_mma": 1}
-    assert fa.flash_bwd_dq.launches_by_kernel == {"flash_bwd_dq": 0,
-                                                  "flash_bwd_dq_mma": 1}
+        "flash_bwd_dkv": int(f32), "flash_bwd_dkv_mma": int(not f32)}
+    assert fa.flash_bwd_dq.launches_by_kernel == {
+        "flash_bwd_dq": int(f32), "flash_bwd_dq_mma": int(not f32)}
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
                                             sc, causal)
     want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
@@ -161,6 +165,9 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
     for name, got, want in (("O", o, want_o.to(dt)), ("dQ", dq, want_q),
                             ("dK", dk, want_k), ("dV", dv, want_v)):
         assert got.dtype == dt and torch.isfinite(got).all(), name
+        if f32:
+            torch.testing.assert_close(got, want, **F32_TOL)
+            continue
         ratio = _half_tier_ratio(got, want)
         assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
 
@@ -188,9 +195,10 @@ def test_mma_route_refuses_what_it_does_not_take():
 
 @pytest.mark.gpu
 def test_simt_route_takes_views_off_the_16_byte_boundary():
-    """float32 views 4 bytes off a 16-byte boundary go through the SIMT
-    K1, K2 and K3, which load element by element, and match the plain
-    versions."""
+    """float32 views 4 bytes off a 16-byte boundary: K1's float32 kernel
+    copies its tiles by cp.async and raises on them (it never falls back
+    to the plain version), while the SIMT K2 and K3, which load element
+    by element, take them and match the plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -202,12 +210,15 @@ def test_simt_route_takes_views_off_the_16_byte_boundary():
                    .cuda()[1:1 + n].view(8, 200, 128) for a in arrs)
     assert all(fa._misaligned((x,)) for x in (q, k, v, do))
     fa.reset_launch_counts()
-    o, lse = fa.flash_fwd(q, k, v, sc, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd(q, k, v, sc, True)
+    assert fa.flash_fwd.launches == 0
+    o, lse = fa.flash_fwd(q.clone(), k.clone(), v.clone(), sc, True)
+    assert fa.flash_fwd.launches_by_kernel["flash_fwd_f32mma"] == 1
     delta = (do * o).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
     torch.cuda.synchronize()
-    assert fa.flash_fwd.launches_by_kernel["flash_fwd"] == 1
     assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq"] == 1
     assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv"] == 1
     want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, True)

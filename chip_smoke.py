@@ -14,27 +14,30 @@ Phases — any failure exits non-zero:
    process per source, all at once), with the build seconds, the
    compiler's register/shared-memory/spill report, and each kernel's
    count of tensor-core instructions (``HMMA``) in its SASS
-   (``cuobjdump``) — none in ``flash_fwd_mma``, ``flash_fwd_f32mma``,
-   ``flash_bwd_dq_mma`` or ``flash_bwd_dkv_mma`` fails the run;
+   (``cuobjdump``) — none in a kernel (every one is ``_mma`` or
+   ``_f32mma``) fails the run;
 3. kernels: K1 (the flash-attention forward) and K2/K3 (its backward,
    dQ and dK/dV) against their plain torch versions on the same inputs,
-   on both routes — bf16/fp16 through the tensor-core kernels
+   on both routes — bf16/fp16 through the 16-bit tensor-core kernels
    (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dq_mma.cu``,
-   ``csrc/flash_bwd_dkv_mma.cu``), float32 through K1's split-operand
-   tensor-core kernel (``csrc/flash_fwd_f32mma.cu``) and the SIMT K2 and
-   K3 (``csrc/flash_bwd.cu``) — at the serving and
-   training shapes and the edge cases (causal and not, tq != tk with
-   fully masked rows, ragged T, D = 64, in f32, bf16 and fp16), each
-   case asserting which variant launched, with dQ, dK and dV each
-   checked on its own, in a tier set by the output's type and scale; at
-   the training shape, grid and tile-loop faults planted in copies of
-   the outputs, at the tiles of the kernels that ran, must fail that
-   tier, as must two K1 faults at the float32 K1's tile at the f32
-   serving shape and ``f32 causal``, in the float32 tier;
-   ``attention_with_lse``'s gradient through both outputs against
-   plain autograd of ``ref_attention_lse``; each kernel timed beside its
-   plain version, its bound and ``scaled_dot_product_attention``
-   forward or backward (a yardstick only — the port never calls it);
+   ``csrc/flash_bwd_dkv_mma.cu``), float32 through the split-operand
+   tensor-core kernels (``csrc/flash_fwd_f32mma.cu``,
+   ``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``) —
+   at the serving and training shapes and the edge cases (causal and
+   not, tq != tk with fully masked rows, ragged T, D = 64, in f32, bf16
+   and fp16), each case asserting which variant launched, with dQ, dK
+   and dV each checked on its own, in a tier set by the output's type
+   and scale; at the training shape, grid and tile-loop faults planted
+   in copies of the outputs, at the tiles of the kernels that ran, must
+   fail that tier, as must two faults of each float32 kernel at its own
+   tile at the f32 serving shape and ``f32 causal``, in the float32
+   tier; every kernel in bf16 and float32 at B*H = 65536 (past
+   gridDim.y's 65535, launched in chunks); ``attention_with_lse``'s
+   gradient through both outputs against plain autograd of
+   ``ref_attention_lse``; each kernel timed beside its plain version,
+   its bound and ``scaled_dot_product_attention`` forward or backward (a
+   yardstick only — the port never calls it), the float32 ones also at
+   B*H = 2 x 32, T = 2048;
 4. serve: the Llama-3-8B-width forward program, all 32 layers (random
    weights from SEED) behind the port's ``ServingEngine``: warmup over the
    buckets, concurrent requests, each answer held against the same
@@ -52,9 +55,16 @@ Phases — any failure exits non-zero:
    (the main path of this slice, whose launches the kernel line
    reports);
 6. train parity: a narrow float32 model (head dim 128, TF32 off) whose
-   step on the card (the kernels) matches the same step on the CPU (the
-   plain versions; K1 ``flash_fwd_f32mma``, the SIMT K2 and K3): loss
-   and every parameter's gradient, then 3 Adam steps' losses.
+   step on the card (the kernels: ``flash_fwd_f32mma``,
+   ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``) matches the same
+   step on the CPU (the plain versions): loss and every parameter's
+   gradient, then 3 Adam steps' losses;
+7. plain route: ``LLAMA_TINY`` (head dim 16, off the reference's
+   D % 128 == 0 gate) trains one step and 3 Adam steps and serves
+   requests through ``ServingEngine`` on the card, matching the same
+   runs on the CPU; its attention runs the plain versions, as the
+   reference's gate sends that shape to its own, counted as
+   ``launches_by_kernel["plain"]``, with no kernel launched.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -78,13 +88,23 @@ SEED = 0   # random weights, inputs and requests all derive from it
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_SPLIT_RATE = "float32 3xbf16"
+F32_SPLIT_TF32_RATE = "float32 3xtf32"
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
-              "float32": 67e12,        # float32 outside the tensor cores
-              # float32 products as three bf16 tensor-core products
-              F32_SPLIT_RATE: 989e12 / 3}
-# the kernels whose float32 products run as a split on the tensor
-# cores: their bounds count operations at the split's rate
-RATE_OF_KERNEL = {"flash_fwd_f32mma": F32_SPLIT_RATE}
+              # float32 products as three bf16 / three TF32 tensor-core
+              # products
+              F32_SPLIT_RATE: 989e12 / 3, F32_SPLIT_TF32_RATE: 494.7e12 / 3}
+# each kind's products, 2 d FLOP per visible (row, key) pair each
+PRODUCTS = {"fwd": ("QK^T", "PV"), "dq": ("QK^T", "dOV^T", "dSK"),
+            "dkv": ("QK^T", "dOV^T", "P^TdO", "dS^TQ")}
+# the float32 kernels take each product as a split on the tensor cores:
+# their bounds count each product at its split's rate (a kernel not
+# listed runs every product at its dtype's rate)
+RATE_OF_KERNEL = {
+    "flash_fwd_f32mma": (F32_SPLIT_RATE, F32_SPLIT_RATE),
+    "flash_bwd_dq_f32mma": (F32_SPLIT_RATE, F32_SPLIT_TF32_RATE,
+                            F32_SPLIT_RATE),
+    "flash_bwd_dkv_f32mma": (F32_SPLIT_RATE, F32_SPLIT_TF32_RATE,
+                             F32_SPLIT_TF32_RATE, F32_SPLIT_RATE)}
 
 # tolerances (|got - want| <= atol + rtol * |want|). A kernel's plain
 # version is evaluated in float32 on the kernel's own inputs and rounded
@@ -106,29 +126,32 @@ TRAIN_LAYERS = 8                # 32 → 8: Adam state of 32 layers
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 TRAIN_LABEL = "training shape"
-F32_K1 = "flash_fwd_f32mma"     # K1's float32 kernel
-# the float32 cases where faults planted at F32_K1's tile must fail
+# each wrapper's float32 kernel
+F32_KERNELS = {"flash_fwd": "flash_fwd_f32mma",
+               "flash_bwd_dq": "flash_bwd_dq_f32mma",
+               "flash_bwd_dkv": "flash_bwd_dkv_f32mma"}
+# the float32 cases where faults planted at the float32 kernels' tiles
+# must fail
 F32_FAULT_CASES = ("f32 serving T=256", "f32 causal")
+F32_LONG_LABEL = "f32 T=2048"   # the float32 kernels where the grid fills
+BIG_BH = 65536                  # past gridDim.y's 65535
 INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
 # the profiler's kinds and the kernel functions each covers (both routes)
 KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                    "flash_fwd_mma_kernel")),
-                ("k2_flash_bwd_dq", ("flash_bwd_dq_kernel",
+                ("k2_flash_bwd_dq", ("flash_bwd_dq_f32mma_kernel",
                                      "flash_bwd_dq_mma_kernel")),
-                ("k3_flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                ("k3_flash_bwd_dkv", ("flash_bwd_dkv_f32mma_kernel",
                                       "flash_bwd_dkv_mma_kernel")))
-# the tensor-core kernels, whose SASS must hold HMMA instructions
-MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_f32mma_kernel",
-               "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+# the tensor-core kernels, whose SASS must hold HMMA instructions: all
+MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns)
 # kernel symbol -> the constexprs of its source that give its tile's q
 # rows and keys, where the planted faults are placed
-TILE_CONSTEXPRS = {"flash_fwd_f32mma": ("BLOCK_M", "BLOCK_N"),
-                   "flash_fwd_mma": ("BLOCK_M", "BLOCK_N"),
-                   "flash_bwd_dq": ("DQ_BLOCK_M", "DQ_BLOCK_N"),
-                   "flash_bwd_dq_mma": ("BLOCK_M", "BLOCK_N"),
-                   "flash_bwd_dkv": ("DKV_BLOCK_M", "DKV_BLOCK_N"),
-                   "flash_bwd_dkv_mma": ("BLOCK_M", "BLOCK_N")}
+TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
+                   for sym in ("flash_fwd_f32mma", "flash_fwd_mma",
+                               "flash_bwd_dq_f32mma", "flash_bwd_dq_mma",
+                               "flash_bwd_dkv_f32mma", "flash_bwd_dkv_mma")}
 
 
 class SmokeFailure(Exception):
@@ -201,23 +224,27 @@ TOL_TEXT = (f"f32 rtol={TOL_F32[0]} atol={TOL_F32[1]}; bf16/fp16 "
             f"rtol={TOL_HALF_RTOL} atol={TOL_HALF_RMS} x rms")
 
 
-def attention_bound_ms(bh, tq, tk, d, dtype_name, causal, itemsize,
+def attention_bound_ms(bh, tq, tk, d, rates, causal, itemsize,
                        kind="fwd"):
     """Least time for one call of K1 (``kind`` "fwd"), K2 ("dq") or K3
     ("dkv"): each input read once and each output written once, against
-    the FLOPs this call's mask leaves per visible (row, key) pair — K1
-    4*d (QK^T, PV), K2 6*d (QK^T, dO V^T, dS K), K3 8*d (QK^T, dO V^T,
-    P^T dO, dS^T Q)."""
+    the FLOPs this call's mask leaves per visible (row, key) pair, 2*d a
+    product (:data:`PRODUCTS`) — K1 4*d (QK^T, PV), K2 6*d (QK^T,
+    dO V^T, dS K), K3 8*d (QK^T, dO V^T, P^T dO, dS^T Q) — each product
+    at its rate: ``rates`` names one rate of PEAK_FLOPS for all, or is a
+    tuple of one a product."""
     q_bytes, kv_bytes = bh * tq * d * itemsize, bh * tk * d * itemsize
     row_bytes = bh * tq * 4                          # lse / delta, f32
-    nbytes, per_pair = {
+    nbytes = {
         # q, k, v in; o, lse out
-        "fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes, 4),
+        "fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,
         # q, k, v, do, lse, delta in; dq out
-        "dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 6),
+        "dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
         # q, k, v, do, lse, delta in; dk, dv out
-        "dkv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 8),
+        "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
     }[kind]
+    if isinstance(rates, str):
+        rates = (rates,) * len(PRODUCTS[kind])
     if causal:
         rows = np.arange(tq)
         vis = np.clip(rows + (tk - tq) + 1, 0, tk)
@@ -225,9 +252,10 @@ def attention_bound_ms(bh, tq, tk, d, dtype_name, causal, itemsize,
         pairs = int(vis.sum())
     else:
         pairs = tq * tk
-    flops = float(per_pair) * bh * d * pairs
+    product_flops = 2.0 * bh * d * pairs
+    flops = product_flops * len(rates)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS[dtype_name]
+    t_flops = sum(product_flops / PEAK_FLOPS[r] for r in rates)
     return (max(t_bytes, t_flops) * 1e3,
             "bytes" if t_bytes >= t_flops else "operations",
             nbytes, flops)
@@ -247,9 +275,8 @@ def phase_kernels(torch, fa, seed):
     dev = torch.device("cuda", 0)
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     bh_train = TRAIN_BATCH * 32
-    # (label, bh, tq, tk, d, dtype, causal); bf16/fp16 run the
-    # tensor-core K1, K2 and K3, float32 the split-operand tensor-core
-    # K1 and the SIMT K2 and K3
+    # (label, bh, tq, tk, d, dtype, causal); bf16/fp16 run the 16-bit
+    # tensor-core K1, K2 and K3, float32 the split-operand ones
     cases = [
         ("serving T=128", 4 * 32, 128, 128, 128, bf16, True),
         ("serving T=256", 4 * 32, 256, 256, 128, bf16, True),
@@ -274,6 +301,7 @@ def phase_kernels(torch, fa, seed):
         ("fp16 ragged T=200 causal", 8, 200, 200, 128, f16, True),
         ("fp16 ragged T=200 non-causal", 8, 200, 200, 128, f16, False),
         ("fp16 D=64 causal", 8, 256, 256, 64, f16, True),
+        (F32_LONG_LABEL, bh_train, TRAIN_SEQ, TRAIN_SEQ, 128, f32, True),
     ]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -321,37 +349,43 @@ def phase_kernels(torch, fa, seed):
             check_planted_faults(torch, fa, (q, k, v, do, lse, delta), scale,
                                  pairs, errs)
         if label in F32_FAULT_CASES and ok:
-            check_planted_f32_faults(torch, fa, label, (q, k, v), scale,
-                                     pairs["O"], errs["O"])
+            check_planted_f32_faults(torch, fa, label,
+                                     (q, k, v, do, lse, delta), scale,
+                                     pairs, errs)
         del o, lse, delta, dq, dk, dv, pairs, want_k, want_v
     check(not failures,
           f"K1/K2/K3 disagree with their plain versions: {failures}")
     check_lse_gradient(torch, fa, gen, dev)
+    check_big_bh(torch, fa, gen, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
     timing = {}
     for label, kinds in (("serving T=256", ("fwd",)),
                          ("f32 serving T=256", ("fwd",)),
                          (TRAIN_LABEL, ("fwd", "dq", "dkv")),
-                         ("f32 causal", ("fwd", "dq", "dkv"))):
+                         ("f32 causal", ("fwd", "dq", "dkv")),
+                         (F32_LONG_LABEL, ("fwd", "dq", "dkv"))):
         timing.update(time_kernels(torch, fa, results[label], label, kinds,
                                    flush))
     del flush, results
     return timing
 
 
-def check_variants(torch, fa, dt, d):
-    """Each wrapper launched once since the counts were reset, and that
-    launch went to the variant ``kernel_for`` names for ``dt``; returns
-    the variants' symbols."""
+def check_variants(torch, fa, dt, d, launches=1):
+    """Each wrapper launched ``launches`` kernels (one call, in that many
+    B*H chunks) since the counts were reset, all of the variant
+    ``kernel_for`` names for ``dt``; returns the variants' symbols."""
     ran = []
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         _, sym = fa.kernel_for(w.__name__, dt, d)
-        if w is fa.flash_fwd and dt == torch.float32:
-            check(sym == F32_K1, f"float32 K1 routes to {sym}, not {F32_K1}")
+        want = F32_KERNELS[w.__name__]
+        check(dt != torch.float32 or sym == want,
+              f"float32 {w.__name__} routes to {sym}, not {want}")
         by = w.launches_by_kernel
-        check(w.launches == 1 and by[sym] == 1,
-              f"{w.__name__} on {dt}: launches {by}, expected one of {sym}")
+        check(w.launches == launches and by[sym] == launches
+              and not by[fa.PLAIN],
+              f"{w.__name__} on {dt}: launches {by}, expected {launches} "
+              f"of {sym}")
         ran.append(sym)
     return ran
 
@@ -398,25 +432,29 @@ def time_kernels(torch, fa, r, label, kinds, flush):
         ms = time_ms(kern, torch, flush=flush)
         plain_ms = time_ms(plain, torch, iters=plain_iters, flush=flush)
         symbol = fa.kernel_for(wrapper, q.dtype, d)[1]
-        rate = RATE_OF_KERNEL.get(symbol, dt_name)
+        rates = RATE_OF_KERNEL.get(symbol, (dt_name,) * len(PRODUCTS[kind]))
         bound, by, nbytes, flops = attention_bound_ms(
-            bh, t, t, d, rate, causal, q.element_size(), kind)
-        at_rate = f"{PEAK_FLOPS[rate] / 1e12:.1f} TFLOP/s {rate}"
-        if rate != dt_name:   # the dtype's own rate, for comparison
-            own, _, _, _ = attention_bound_ms(bh, t, t, d, dt_name, causal,
-                                              q.element_size(), kind)
-            at_rate += (f"; at {PEAK_FLOPS[dt_name] / 1e12:.0f} TFLOP/s "
-                        f"{dt_name}: {own:.4f} ms")
+            bh, t, t, d, rates, causal, q.element_size(), kind)
+        at_rate = ", ".join(f"{prod} at {PEAK_FLOPS[r] / 1e12:.1f} TFLOP/s"
+                            f" {r}" for prod, r in zip(PRODUCTS[kind], rates))
         rows[(kind, label)] = dict(
             kernel=symbol, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms[kind], bound_ms=bound, bound_by=by,
             max_abs_err=r[err])
+        also = ""
+        if symbol in RATE_OF_KERNEL:
+            # the same work with every product at the 3xbf16 rate: one
+            # yardstick for any float32 design, whichever splits it takes
+            rows[(kind, label)]["bound_3xbf16_ms"] = attention_bound_ms(
+                bh, t, t, d, F32_SPLIT_RATE, causal, q.element_size(),
+                kind)[0]
+            also = (f" (every product at 3xbf16: "
+                    f"{rows[(kind, label)]['bound_3xbf16_ms']:.4f} ms)")
         log(f"{symbol} {label} timing (cold L2): kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa "
             f"{'forward' if kind == 'fwd' else 'backward (dQ, dK, dV)'} "
-            f"{lib_ms[kind]:.4f} ms, bound {bound:.4f} ms by {by} "
-            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at "
-            f"{at_rate})")
+            f"{lib_ms[kind]:.4f} ms, bound {bound:.4f} ms by {by}{also} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP: {at_rate})")
     del o, lse, delta
     return rows
 
@@ -501,37 +539,115 @@ def check_planted_faults(torch, fa, inputs, scale, pairs, errs):
                            f"({what}: {name} err/limit {ratio:.3f})")
 
 
-def check_planted_f32_faults(torch, fa, label, inputs, scale, o_pair,
-                             o_err):
-    """The float32 tier must catch what a grid or tile-loop fault of the
-    float32 K1 leaves at a causal case: each fault is planted in a copy
-    of the kernel's O and must fail the check the kernel passed, at the
-    kernel's own tile (read from its source's constexprs)."""
-    q, k, v = inputs
-    tq, tk = q.shape[1], k.shape[1]
-    rows, keys = kernel_tile(fa, "flash_fwd", torch.float32, q.shape[2])
-    o, want = o_pair
-    lost = o.clone()
-    lost[:, (tq - 1) // rows * rows:] = 0
-    # each q tile's last visited key tile skipped: the block's loop ends
-    # at its last row's causal limit, so the keys of that tile leave the
-    # softmax of the tile's rows (the plain version with them masked out)
-    q0 = torch.arange(tq, device=q.device) // rows * rows
-    last = ((q0 + rows - 1 + tk - tq) // keys).clamp(max=(tk - 1) // keys)
+def check_planted_f32_faults(torch, fa, label, inputs, scale, pairs,
+                             errs):
+    """The float32 tier must catch what a grid or tile-loop fault of each
+    float32 kernel leaves at a causal case (tq = tk): each fault is
+    planted in a copy of the kernel's output and must fail the check the
+    kernel passed, at the kernel's own tile (read from its source's
+    constexprs) — K1 and K2 leaving their last q tile unwritten or
+    skipping each q tile's last visited key tile, K3 leaving its last
+    key tile unwritten or skipping its last q tile."""
+    q, k, v, do, lse, delta = inputs
+    tq, tk, d = q.shape[1], k.shape[1], q.shape[2]
+    rows_i = torch.arange(tq, device=q.device)
     cols = torch.arange(tk, device=q.device)[None, :]
-    skipped = cols // keys == last[:, None]
+
+    def last_tile_lost(x, n):
+        x = x.clone()
+        x[:, (x.shape[1] - 1) // n * n:] = 0
+        return x
+
+    def last_key_tile(rows, keys, last_row):
+        """[tq, tk]: the keys of the last key tile the q tile of each row
+        visits, whose loop ends at the causal limit of ``last_row`` (the
+        tile's last row) — K1's and K2's loop bound."""
+        last = ((last_row(rows_i // rows * rows) + tk - tq) // keys) \
+            .clamp(max=(tk - 1) // keys)
+        return cols // keys == last[:, None]
+
+    faults = []
+    rows, keys = kernel_tile(fa, "flash_fwd", torch.float32, d)
+    # K1: the skipped keys leave the softmax of the tile's rows
+    skipped = last_key_tile(rows, keys, lambda q0: q0 + rows - 1)
     bias = torch.zeros(tq, tk, device=q.device).masked_fill(skipped,
                                                             -math.inf)
     skip_o, _ = fa.ref_attention_lse(q, k, v, scale, True, bias)
-    for what, bad in (
-            (f"K1 f32 leaves its last {rows}-row q tile unwritten", lost),
-            (f"K1 f32 skips each q tile's last {keys}-key tile", skip_o)):
-        _, err, ratio = kernel_err(bad, want)
-        log(f"planted fault, {label}: {what}: O max abs err {err:.3e}, "
-            f"err/limit {ratio:.3f} (the kernel's own {o_err[2]:.3f}) "
-            f"{'caught' if ratio > 1 else 'MISSED'}")
+    faults += [("O", f"K1 f32 leaves its last {rows}-row q tile unwritten",
+                last_tile_lost(pairs["O"][0], rows)),
+               ("O", f"K1 f32 skips each q tile's last {keys}-key tile",
+                skip_o)]
+    del skip_o, bias
+    # K2: the skipped keys' share of dQ, dS K over those keys
+    rows, keys = kernel_tile(fa, "flash_bwd_dq", torch.float32, d)
+    skipped = last_key_tile(rows, keys,
+                            lambda q0: (q0 + rows).clamp(max=tq) - 1)
+    _, ds = fa._ref_p_ds(q, k, v, do, lse, delta, scale, True)
+    lost_dq = torch.einsum("bqk,bkd->bqd", ds * skipped, k.float())
+    del ds
+    dq = pairs["dQ"][0]
+    faults += [("dQ", f"K2 f32 leaves its last {rows}-row q tile unwritten",
+                last_tile_lost(dq, rows)),
+               ("dQ", f"K2 f32 skips each q tile's last {keys}-key tile",
+                dq - lost_dq)]
+    # K3: the last q tile's share of dK and dV
+    rows, keys = kernel_tile(fa, "flash_bwd_dkv", torch.float32, d)
+    r0 = (tq - 1) // rows * rows
+    lost_dk, lost_dv = fa.ref_flash_bwd_dkv(
+        q[:, r0:], k, v, do[:, r0:], lse[:, r0:], delta[:, r0:], scale, True)
+    for name, lost in (("dK", lost_dk), ("dV", lost_dv)):
+        got = pairs[name][0]
+        faults += [(name, f"K3 f32 leaves its last {keys}-key tile "
+                          f"unwritten", last_tile_lost(got, keys)),
+                   (name, f"K3 f32 skips its last {rows}-row q tile",
+                    got - lost)]
+    for name, what, bad in faults:
+        _, err, ratio = kernel_err(bad, pairs[name][1])
+        log(f"planted fault, {label}: {what}: {name} max abs err "
+            f"{err:.3e}, err/limit {ratio:.3f} (the kernel's own "
+            f"{errs[name][2]:.3f}) {'caught' if ratio > 1 else 'MISSED'}")
         check(ratio > 1.0, f"the f32 tier does not catch a planted fault "
-                           f"({label}: {what}: O err/limit {ratio:.3f})")
+                           f"({label}: {what}: {name} err/limit "
+                           f"{ratio:.3f})")
+
+
+def check_big_bh(torch, fa, gen, dev):
+    """B*H = BIG_BH, one past gridDim.y's 65535, which the launchers take
+    in chunks: K1, K2 and K3 in bf16 and float32 (causal, T = 32,
+    D = 64) against their plain versions in the tier of the output's
+    type — the slices past the first chunk among them."""
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = attention_inputs(torch, gen, dev, BIG_BH, 32, 32, 64,
+                                       dt)
+        scale = 1.0 / 8
+        fa.reset_launch_counts()
+        o, lse = fa.flash_fwd(q, k, v, scale, True)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, True)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True)
+        torch.cuda.synchronize()
+        # one call a wrapper, launched as two chunks of B*H
+        ran = check_variants(torch, fa, dt, 64,
+                             launches=-(-BIG_BH // fa.MAX_GRID_Y))
+        o_ref, lse_ref = fa.ref_attention_lse(q.float(), k.float(),
+                                              v.float(), scale, True)
+        want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta,
+                                              scale, True)
+        errs = {"O": kernel_err(o, o_ref.to(dt)),
+                "lse": kernel_err(lse, lse_ref),
+                "dQ": kernel_err(dq, fa.ref_flash_bwd_dq(
+                    q, k, v, do, lse, delta, scale, True)),
+                "dK": kernel_err(dk, want_k), "dV": kernel_err(dv, want_v)}
+        ok = all(e[0] for e in errs.values())
+        log(f"K1-3 bh={BIG_BH} (past gridDim.y) t=32 d=64 {dt} causal "
+            f"({', '.join(ran)}): max abs err (err/limit) "
+            + ", ".join(f"{n} {e:.3e} ({r:.3f})"
+                        for n, (_, e, r) in errs.items())
+            + f" {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"kernels at bh={BIG_BH} disagree with their plain "
+                  f"versions ({dt})")
+        del q, k, v, do, o, lse, delta, dq, dk, dv, o_ref, lse_ref
+        del want_k, want_v
 
 
 def check_lse_gradient(torch, fa, gen, dev):
@@ -873,8 +989,7 @@ def phase_train(torch, fluid, fa, card):
         log(f"train: step {step}: loss {losses[-1]:.4f}, "
             f"{step_s[-1] * 1e3:.1f} ms")
     launches = [w.launches for w in wrappers]
-    by_kernel = {sym: n for w in wrappers
-                 for sym, n in w.launches_by_kernel.items()}
+    by_kernel = launches_by_kernel(fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -923,21 +1038,16 @@ def phase_train(torch, fluid, fa, card):
     return by_kernel, stats
 
 
-def phase_train_parity(torch, fluid, fa, card):
-    """One float32 step of a narrow model with head dim 128 on the card
-    (K1 on flash_fwd_f32mma, K2/K3 on the SIMT kernels) and on the CPU
-    (the plain versions), from one startup scope: the loss and every
-    parameter's gradient within the f32 gradient tier, then 3 Adam
-    steps' losses within the loss tier. Returns (launches by kernel
-    symbol, stats)."""
+def train_card_vs_cpu(torch, fluid, cfg, lr, batch, seq, tag):
+    """One float32 step of ``cfg`` on the card and on the CPU from one
+    startup scope (TF32 off): the loss and every parameter's gradient
+    within the f32 gradient tier, then 3 Adam steps' losses within the
+    loss tier. Returns the stats."""
     from paddle_tpu_torch import weights
-    from paddle_tpu_torch.models.llama import LlamaConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig(vocab_size=2048, dim=512, n_layers=2, n_heads=4,
-                      n_kv_heads=2, ffn_hidden=1024, dtype="float32")
-    main, startup, loss = build_train(fluid, cfg, 1e-3)
+    main, startup, loss = build_train(fluid, cfg, lr)
     gpu_scope = fluid.Scope()
     gpu = fluid.Executor()
     gpu.run(startup, scope=gpu_scope)
@@ -945,11 +1055,9 @@ def phase_train_parity(torch, fluid, fa, card):
                                    weights.dump_state(gpu_scope),
                                    torch.device("cpu"))
     cpu = fluid.Executor(fluid.CPUPlace())
-    feed = train_feed(cfg.vocab_size, 2, 256)
+    feed = train_feed(cfg.vocab_size, batch, seq)
     grads = sorted(v for v in main.global_block().vars
                    if v.endswith("@GRAD"))
-    # this path's counts: reset just before, read after its last step
-    fa.reset_launch_counts()
     got = gpu.run(main, feed=feed, fetch_list=[loss] + grads,
                   scope=gpu_scope)
     want = cpu.run(main, feed=feed, fetch_list=[loss] + grads,
@@ -959,7 +1067,7 @@ def phase_train_parity(torch, fluid, fa, card):
         rtol, atol = TOL_GRAD_F32
         err = np.abs(g - w)
         check(bool((err <= atol + rtol * np.abs(w)).all()),
-              f"f32 {name} on the card differs from the CPU by "
+              f"{tag}: {name} on the card differs from the CPU by "
               f"{float(err.max()):.3e} (rtol={rtol}, atol={atol})")
         worst = max(worst, float((err / (atol + rtol * np.abs(w))).max()))
     lg, lc = [], []
@@ -969,26 +1077,143 @@ def phase_train_parity(torch, fluid, fa, card):
         lc.append(float(cpu.run(main, feed=feed, fetch_list=[loss],
                                 scope=cpu_scope)[0].reshape(())))
     check(np.allclose(lg, lc, rtol=TOL_LOSS_F32, atol=0),
-          f"f32 Adam losses differ: card {lg} vs CPU {lc}")
-    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    by_kernel = {sym: n for w in wrappers
-                 for sym, n in w.launches_by_kernel.items()}
-    for w in wrappers:
-        _, variant = fa.kernel_for(w.__name__, torch.float32, 128)
+          f"{tag}: Adam losses differ: card {lg} vs CPU {lc}")
+    return {"config": dataclasses.asdict(cfg), "batch": [batch, seq],
+            "loss_step1": [float(got[0].reshape(())),
+                           float(want[0].reshape(()))],
+            "grads_checked": len(grads),
+            "worst_err_over_tolerance": worst,
+            "adam_losses_card": lg, "adam_losses_cpu": lc}
+
+
+def launches_by_kernel(fa):
+    """{kernel symbol: launches} over the three wrappers, and the plain
+    route's calls under "<wrapper> plain"."""
+    return {(f"{w.__name__} {sym}" if sym == fa.PLAIN else sym): n
+            for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+            for sym, n in w.launches_by_kernel.items()}
+
+
+def phase_train_parity(torch, fluid, fa, card):
+    """One float32 step of a narrow model with head dim 128 on the card
+    (K1, K2 and K3 on flash_fwd_f32mma, flash_bwd_dq_f32mma and
+    flash_bwd_dkv_f32mma: 2 layers x 4 steps, 8 launches each) and on
+    the CPU (the plain versions), from one startup scope: the loss and
+    every parameter's gradient within the f32 gradient tier, then 3 Adam
+    steps' losses within the loss tier. Returns (launches by kernel
+    symbol, stats)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=2048, dim=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_hidden=1024, dtype="float32")
+    # this path's counts: reset just before, read after its last step
+    fa.reset_launch_counts()
+    out = train_card_vs_cpu(torch, fluid, cfg, 1e-3, 2, 256,
+                            "train parity f32")
+    by_kernel = launches_by_kernel(fa)
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        variant = F32_KERNELS[w.__name__]
         check(w.launches == cfg.n_layers * 4
               and by_kernel[variant] == w.launches,
               f"f32 {w.__name__} launches by kernel "
               f"{w.launches_by_kernel}: not {cfg.n_layers} layers x 4 "
               f"steps of {variant}")
-    out = {"config": dataclasses.asdict(cfg), "batch": [2, 256],
-           "loss_step1": [float(got[0].reshape(())),
-                          float(want[0].reshape(()))],
-           "grads_checked": len(grads),
-           "worst_err_over_tolerance": worst,
-           "adam_losses_card": lg, "adam_losses_cpu": lc,
-           "launches_by_kernel": by_kernel, "card": card}
+    out.update(launches_by_kernel=by_kernel, card=card)
     log("train parity f32: " + json.dumps(out))
     return by_kernel, out
+
+
+def phase_plain_route(torch, fluid, fa, card):
+    """LLAMA_TINY, whose head dim (16) no kernel takes, on the card: its
+    attention takes the plain versions, as the reference's gate sends
+    such shapes to its own plain path on every backend. One train step
+    and 3 Adam steps match the CPU (train_card_vs_cpu), and
+    ServingEngine's answers match CPU Executor.run of each request alone
+    at TOL_LOGITS_F32; every attention call, forward and backward, is
+    counted as the plain route and no kernel launches."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models.llama import LLAMA_TINY, build_llama
+    from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
+                                          ServingEngine)
+
+    cfg = LLAMA_TINY
+    d = cfg.dim // cfg.n_heads
+    for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        try:
+            fa.kernel_for(w, torch.float32, d)
+        except ValueError:
+            continue
+        raise SmokeFailure(f"{w}: a kernel takes head dim {d}")
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    # the main path of this phase: counts reset just before, read after
+    fa.reset_launch_counts()
+    train = train_card_vs_cpu(torch, fluid, cfg, 1e-3, 2, 64,
+                              "LLAMA_TINY train")
+    steps = 4
+    for w in wrappers:
+        check(w.launches == 0 and
+              w.launches_by_kernel[fa.PLAIN] == cfg.n_layers * steps,
+              f"LLAMA_TINY train: {w.__name__} {w.launches_by_kernel}, "
+              f"launches {w.launches}: not {cfg.n_layers} layers x "
+              f"{steps} steps of the plain route")
+    train_calls = launches_by_kernel(fa)
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        tokens = fluid.layers.data(name="tokens", shape=[-1, -1],
+                                   dtype="int64", append_batch_size=False)
+        logits, _ = build_llama(cfg, tokens)
+    infer = main.clone(for_test=True)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    cpu_scope = weights.load_state(fluid.Scope(), weights.dump_state(scope),
+                                   torch.device("cpu"))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    buckets = BucketSpec(batch_sizes=(1, 2, 4), seq_lens={"tokens": (16, 32)})
+    engine = ServingEngine(infer, ["tokens"], [logits], scope=scope,
+                           buckets=buckets,
+                           config=ServingConfig(max_wait_ms=20.0,
+                                                default_timeout_s=120.0))
+    rng = np.random.RandomState(SEED)
+    lengths = [5, 16, 23, 32]
+    reqs = [rng.randint(0, cfg.vocab_size, (1, n)).astype(np.int64)
+            for n in lengths]
+    fa.reset_launch_counts()
+    try:
+        warm = engine.warmup()
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            answers = list(pool.map(
+                lambda r: engine.infer({"tokens": r}, timeout=120.0), reqs))
+        stats = engine.stats()
+        engine.assert_no_recompiles()
+    finally:
+        engine.close()
+    dispatches = warm["signatures"] + stats["batches_total"]
+    check(fa.flash_fwd.launches == 0 and fa.flash_fwd.launches_by_kernel[
+              fa.PLAIN] == cfg.n_layers * dispatches,
+          f"LLAMA_TINY serve: K1 {fa.flash_fwd.launches_by_kernel}: not "
+          f"{cfg.n_layers} layers x {dispatches} dispatches of the plain "
+          f"route")
+    worst = 0.0
+    for n, r, ans in zip(lengths, reqs, answers):
+        got = ans[0][:, :n]
+        want = cpu.run(infer, feed={"tokens": r}, fetch_list=[logits],
+                       scope=cpu_scope)[0]
+        rtol, atol = TOL_LOGITS_F32
+        err = np.abs(got - want)
+        check(got.shape == want.shape and np.isfinite(got).all()
+              and bool((err <= atol + rtol * np.abs(want)).all()),
+              f"LLAMA_TINY serve: len {n}: logits differ from the CPU by "
+              f"{float(err.max()):.3e} (rtol={rtol}, atol={atol})")
+        worst = max(worst, float((err / (atol + rtol * np.abs(want))).max()))
+    out = {"head_dim": d, "train": dict(train, calls=train_calls),
+           "serve": {"requests": len(reqs), "dispatches": dispatches,
+                     "worst_err_over_tolerance": worst,
+                     "calls": launches_by_kernel(fa)},
+           "card": card}
+    log("plain route LLAMA_TINY: " + json.dumps(out))
+    return out
 
 
 def check_sass(cuda_build):
@@ -1065,7 +1290,10 @@ def main():
         # training, the main path of slices 2 to 4
         train_launches, _ = phase_train(torch, fluid, fa, smi)
         free_card(torch)
+        # float32 training, the main path of slices 5 and 6
         parity_launches, _ = phase_train_parity(torch, fluid, fa, smi)
+        free_card(torch)
+        phase_plain_route(torch, fluid, fa, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1079,8 +1307,8 @@ def main():
     replaces = {"fwd": ":59", "dq": ":223", "dkv": ":189"}
     kernels = []
     # bf16 rows at the training shape (launches: the bf16 train step),
-    # then the float32 K1 (split-operand tensor cores), K2 and K3 (SIMT)
-    # (launches: the f32 train step)
+    # then the float32 K1, K2 and K3 (split-operand tensor cores;
+    # launches: the f32 train step)
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, train_launches, train_shape),
             ("dq", TRAIN_LABEL, train_launches, train_shape),
@@ -1104,6 +1332,14 @@ def main():
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                "shape": shape, "card": kind, "power_limit": power}
+        if label == "f32 causal":
+            # the float32 kernel where its grid fills the card, timed and
+            # held to its plain version in phase_kernels (not launched on
+            # the main path)
+            long = dict(timing[(kind_, F32_LONG_LABEL)])
+            long.pop("kernel")
+            row["t2048"] = dict(long, shape=f"bh={TRAIN_BATCH}*32 "
+                                f"t={TRAIN_SEQ} d=128 causal f32")
         if kind_ == "fwd":
             # K1 at this dtype's serving shape, timed and held to its
             # plain version in phase_kernels; launches: that serve phase

@@ -1,12 +1,11 @@
 // Flash-attention backward dK/dV on Hopper's tensor cores (sm_90a,
-// mma.sync), bf16 and fp16, plain C interface. The float32 route stays
-// the SIMT kernel flash_bwd_dkv of flash_bwd.cu; dQ (K2) is
-// flash_bwd_dq_mma.cu's.
+// mma.sync), bf16 and fp16, plain C interface. The float32 route is
+// flash_bwd_dkv_f32mma.cu; dQ (K2) is flash_bwd_dq_mma.cu's.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel
 // (with _recompute_ds, :161; the second pallas_call of
 // _flash_bwd_pallas, :290). Per (batch*head) slice of q, do [tq, D] and
-// k, v [tk, D], D in {64, 128}, it computes what flash_bwd_dkv computes:
+// k, v [tk, D], D in {64, 128}, it computes:
 //   P  = exp(S - lse), S = (Q K^T) * scale   (lse from the forward, K1)
 //   dS = P o (dO V^T - delta) * scale         (delta per q row, from the
 //                                              caller: rowsum(dO o O) - dlse)
@@ -341,13 +340,17 @@ int launch(const Args& a) {
       flash_bwd_dkv_mma_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.tk + BLOCK_N - 1) / BLOCK_N, a.bh);
-  flash_bwd_dkv_mma_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.tq, a.tk,
-      a.scale, a.causal);
-  return (int)cudaGetLastError();
+  return for_bh_chunks(a.bh, [&](int b0, int n) {
+    const long long qo = (long long)b0 * a.tq * D;
+    const long long ko = (long long)b0 * a.tk * D;
+    const long long ro = (long long)b0 * a.tq;
+    const dim3 grid((a.tk + BLOCK_N - 1) / BLOCK_N, n);
+    flash_bwd_dkv_mma_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q) + qo, static_cast<const T*>(a.k) + ko,
+        static_cast<const T*>(a.v) + ko, static_cast<const T*>(a.dout) + qo,
+        a.lse + ro, a.delta + ro, static_cast<T*>(a.dk) + ko,
+        static_cast<T*>(a.dv) + ko, a.tq, a.tk, a.scale, a.causal);
+  });
 }
 
 template <typename T>
@@ -359,7 +362,7 @@ int launch_d(const Args& a, int d) {
 
 }  // namespace
 
-// dtype: 1 bfloat16, 2 float16 (float32 is flash_bwd.cu's); d: 64 or
+// dtype: 1 bfloat16, 2 float16 (float32 is flash_bwd_dkv_f32mma.cu's); d: 64 or
 // 128. q, dout: [bh, tq, d]; k, v, dk, dv: [bh, tk, d]; lse, delta:
 // [bh, tq] float32. All contiguous, the 16-bit tensors 16-byte aligned,
 // on the current device. Returns the CUDA error code of the launch
@@ -369,7 +372,7 @@ extern "C" int flash_bwd_dkv_mma(const void* q, const void* k, const void* v,
                                  const float* delta, void* dk, void* dv,
                                  int bh, int tq, int tk, int d, int dtype,
                                  float scale, int causal, void* stream) {
-  if (bh <= 0 || tq <= 0 || tk <= 0 || bh > 65535)
+  if (bh <= 0 || tq <= 0 || tk <= 0)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
                scale, causal, static_cast<cudaStream_t>(stream)};

@@ -284,12 +284,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       flash_fwd_f32mma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, bh);
-  flash_fwd_f32mma_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, tq, tk,
-      scale, causal);
-  return (int)cudaGetLastError();
+  return for_bh_chunks(bh, [&](int b0, int n) {
+    const long long qo = (long long)b0 * tq * D, ko = (long long)b0 * tk * D;
+    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n);
+    flash_fwd_f32mma_kernel<D><<<grid, THREADS, smem, stream>>>(
+        static_cast<const float*>(q) + qo, static_cast<const float*>(k) + ko,
+        static_cast<const float*>(v) + ko, static_cast<float*>(o) + qo,
+        lse + (long long)b0 * tq, tq, tk, scale, causal);
+  });
 }
 
 }  // namespace
@@ -302,7 +304,7 @@ extern "C" int flash_fwd_f32mma(const void* q, const void* k, const void* v,
                                 void* o, float* lse, int bh, int tq, int tk,
                                 int d, int dtype, float scale, int causal,
                                 void* stream) {
-  if (bh <= 0 || tq <= 0 || tk <= 0 || bh > 65535 || dtype != 0)
+  if (bh <= 0 || tq <= 0 || tk <= 0 || dtype != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(q, k, v, o, lse, bh, tq, tk, scale, causal, s);

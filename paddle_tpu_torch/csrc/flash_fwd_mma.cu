@@ -267,12 +267,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       flash_fwd_mma_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, bh);
-  flash_fwd_mma_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, tq, tk, scale,
-      causal);
-  return (int)cudaGetLastError();
+  return for_bh_chunks(bh, [&](int b0, int n) {
+    const long long qo = (long long)b0 * tq * D, ko = (long long)b0 * tk * D;
+    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n);
+    flash_fwd_mma_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(q) + qo, static_cast<const T*>(k) + ko,
+        static_cast<const T*>(v) + ko, static_cast<T*>(o) + qo,
+        lse + (long long)b0 * tq, tq, tk, scale, causal);
+  });
 }
 
 template <typename T>
@@ -296,7 +298,7 @@ extern "C" int flash_fwd_mma(const void* q, const void* k, const void* v,
                              void* o, float* lse, int bh, int tq, int tk,
                              int d, int dtype, float scale, int causal,
                              void* stream) {
-  if (bh <= 0 || tq <= 0 || tk <= 0 || bh > 65535)
+  if (bh <= 0 || tq <= 0 || tk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -1,9 +1,11 @@
 // PTX helpers shared by the tensor-core attention kernels
 // (flash_fwd_mma.cu, flash_bwd_dq_mma.cu, flash_bwd_dkv_mma.cu, and the
-// float32 flash_fwd_f32mma.cu): cp.async tile copies, ldmatrix fragment
+// float32 flash_fwd_f32mma.cu, flash_bwd_dq_f32mma.cu,
+// flash_bwd_dkv_f32mma.cu): cp.async tile copies, ldmatrix fragment
 // loads and mma.sync.m16n8k16 with float32 accumulators, for bf16 and
-// fp16, and the split of float32 operands into bf16 hi + lo halves.
-// sm_80+ instructions, built for sm_90a.
+// fp16; the split of float32 operands into bf16 hi + lo halves; and
+// mma.sync.m16n8k8 on TF32 hi + lo halves. sm_80+ instructions, built
+// for sm_90a.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4), which the kernels' index arithmetic relies on:
@@ -26,6 +28,24 @@
 #include <stdint.h>
 
 namespace mma_sm90 {
+
+// gridDim.y's limit: the launchers put B*H there and launch a larger
+// B*H in chunks of at most this many slices
+constexpr int MAX_GRID_Y = 65535;
+
+// Calls launch_chunk(b0, n) for each chunk of at most MAX_GRID_Y of the
+// bh slices: b0 is its first slice and n its size, which the launcher
+// puts on gridDim.y after offsetting its pointers by b0. Returns the
+// first launch error as a CUDA error code (0 = ok).
+template <class F>
+int for_bh_chunks(int bh, F launch_chunk) {
+  for (int b0 = 0; b0 < bh; b0 += MAX_GRID_Y) {
+    launch_chunk(b0, bh - b0 < MAX_GRID_Y ? bh - b0 : MAX_GRID_Y);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -234,6 +254,71 @@ __device__ __forceinline__ void mma_split3(float (&c)[4],
   Mma<__nv_bfloat16>::run(c, al, bh0, bh1);
   Mma<__nv_bfloat16>::run(c, ah, bl0, bl1);
   Mma<__nv_bfloat16>::run(c, ah, bh0, bh1);
+}
+
+// ---- TF32: mma.sync.m16n8k8, float32 accumulators ----
+//
+// Fragment layouts of mma.m16n8k8.tf32 (lane = 4 g + t), one 32-bit
+// register a value:
+//   A (16 x 8, row major): a0 (row g, k t)   a1 (row g + 8, k t)
+//                          a2 (row g, k t+4) a3 (row g + 8, k t+4)
+//   B (8 x 8, k x n):      b0 (k t, col g)   b1 (k t+4, col g)
+//   C / D: as m16n8k16's.
+// A sum over k does not depend on the order of k, so a kernel may read
+// k index t as its column 2t and t + 4 as 2t + 1, in A and B alike:
+// then a0, a2 (and b0, b1 of a B stored n-major) are neighbours in
+// memory, one 8-byte load, and the accumulators c0, c1 (c2, c3) of a
+// product with rows m are straight away a0, a2 (a1, a3) of the next
+// product over those columns.
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+// zero), as the bits of a float32 whose low 13 bits are 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as hi = tf32(x) and lo = tf32(x - hi): hi + lo holds x to ~2^-22
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b on TF32 operands
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for float32 operands held as TF32 halves a = ah + al,
+// b = (bh0, bh1) + (bl0, bl1): three products, the small ones first;
+// al bl (~2^-22 of a b) is dropped. Half mma_split3's tensor rate, for
+// products whose 3xbf16 split misses the float32 tier
+__device__ __forceinline__ void mma_split3_tf32(float (&c)[4],
+                                                const uint32_t (&ah)[4],
+                                                const uint32_t (&al)[4],
+                                                uint32_t bh0, uint32_t bh1,
+                                                uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// the four values of an A fragment (a0..a3) split into TF32 halves
+__device__ __forceinline__ void split_tf32_frag(float x0, float x1, float x2,
+                                                float x3, uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+  split_tf32(x0, hi[0], lo[0]);
+  split_tf32(x1, hi[1], lo[1]);
+  split_tf32(x2, hi[2], lo[2]);
+  split_tf32(x3, hi[3], lo[3]);
 }
 
 }  // namespace mma_sm90

@@ -1,33 +1,48 @@
 """Flash attention, forward and backward (port of
 ``paddle_tpu/ops/pallas_attention.py``).
 
-The reference's three Pallas kernels are CUDA kernels here:
+The reference's three Pallas kernels are CUDA kernels here, all on the
+tensor cores (``mma.sync``), one source a route:
 
 - K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
   and fp16 run ``csrc/flash_fwd_mma.cu``, float32
-  ``csrc/flash_fwd_f32mma.cu`` (both on the tensor cores; float32 with
-  every operand split into bf16 hi + lo halves and each product taken
-  three times). Its plain version is
+  ``csrc/flash_fwd_f32mma.cu``. Its plain version is
   :func:`ref_attention_lse`, a torch copy of the reference's
   ``_ref_attention_lse``.
 - K2 ``_fa_bwd_dq_kernel`` (dQ), wrapped by :func:`flash_bwd_dq`: bf16
-  and fp16 run ``csrc/flash_bwd_dq_mma.cu`` (tensor cores), float32
-  ``csrc/flash_bwd.cu`` (SIMT).
+  and fp16 run ``csrc/flash_bwd_dq_mma.cu``, float32
+  ``csrc/flash_bwd_dq_f32mma.cu``.
 - K3 ``_fa_bwd_dkv_kernel`` (dK, dV), wrapped by :func:`flash_bwd_dkv`:
-  bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu`` (tensor cores),
-  float32 ``csrc/flash_bwd.cu`` (SIMT).
+  bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu``, float32
+  ``csrc/flash_bwd_dkv_f32mma.cu``.
 
-The float32 K2 and K3 stay on the SIMT kernels: one TF32 rounding
-cannot meet the float32 tiers, and the forward's split scheme has not
-reached them yet. :func:`kernel_for` is the routing; the
-plain versions of K2 and K3 are :func:`ref_flash_bwd_dq` and
+One TF32 or bf16 rounding of the operands cannot meet the float32
+tiers, so the float32 kernels split every operand into hi + lo halves
+and take each product three times: bf16 halves (``mma.sync`` m16n8k16)
+for Q·Kᵀ, P·V, dS·K and dSᵀ·Q, TF32 halves (m16n8k8) for dO·Vᵀ and
+Pᵀ·dO, whose bf16 split misses the tier's margin
+(tests/test_torch_f32_split.py). :func:`kernel_for` is the routing;
+the plain versions of K2 and K3 are :func:`ref_flash_bwd_dq` and
 :func:`ref_flash_bwd_dkv`, which recompute P from lse over the whole
 score matrix.
 
 On a CUDA tensor a wrapper launches its kernel (or raises — there is no
 fallback); on a CPU tensor it runs the plain version. Each wrapper
 counts its launches in ``<wrapper>.launches`` and, by kernel symbol, in
-``<wrapper>.launches_by_kernel``.
+``<wrapper>.launches_by_kernel``: one a call, or ceil(B·H / 65535) for
+B·H past ``gridDim.y``'s limit, which the launchers start in chunks.
+
+The head dims the kernels take are 64 and 128. The reference sends the
+head dims its Pallas kernels do not take (D % 128 != 0) to its plain
+path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``); so does
+:class:`FlashAttention` here, decided by the head dim before any
+launch: on a CUDA tensor of a head dim that is neither 64 nor a
+multiple of 128 it runs :func:`ref_attention_lse` and its gradient the
+plain versions of K2 and K3, and counts each call in
+``launches_by_kernel["plain"]`` of the wrapper it stands in for
+(``launches`` counts kernels only). The wrappers themselves still
+refuse that head dim on CUDA, and a multiple of 128 other than 128
+(which the reference runs on its kernels) reaches them and raises.
 
 The kernels follow the semantics of ``_ref_attention_lse`` and of
 ``jax.vjp`` of it, not the Pallas kernels' quirks: causal masking is
@@ -55,25 +70,27 @@ from . import cuda_build
 __all__ = ["flash_attention", "attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "FlashAttention",
            "ref_attention_lse", "ref_flash_bwd_dq", "ref_flash_bwd_dkv",
-           "kernel_for", "reset_launch_counts", "NEG_INF"]
+           "kernel_for", "takes_kernels", "reset_launch_counts", "NEG_INF",
+           "PLAIN", "MAX_GRID_Y"]
 
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
-_ALIGN = 16   # bytes: the tensor-core kernels copy 16 bytes a cp.async
-# the kernels that load their tiles by cp.async, and so need _ALIGN
-_CP_ASYNC = ("flash_fwd_mma", "flash_fwd_f32mma", "flash_bwd_dq_mma",
-             "flash_bwd_dkv_mma")
+_ALIGN = 16   # bytes: every kernel copies 16 bytes a cp.async
+# B*H slices a kernel launch takes (gridDim.y's limit, in the header)
+MAX_GRID_Y = cuda_build.parse_constexprs(
+    (cuda_build.CSRC / "mma_sm90.cuh").read_text())["MAX_GRID_Y"]
+PLAIN = "plain"   # launches_by_kernel's entry for the head-dim gate
 
 # (library under csrc/, C symbol) of the kernel each wrapper launches:
 # on float32, on bf16/fp16 inputs
 _ROUTES = {
     "flash_fwd": (("flash_fwd_f32mma", "flash_fwd_f32mma"),
                   ("flash_fwd_mma", "flash_fwd_mma")),
-    "flash_bwd_dq": (("flash_bwd", "flash_bwd_dq"),
+    "flash_bwd_dq": (("flash_bwd_dq_f32mma", "flash_bwd_dq_f32mma"),
                      ("flash_bwd_dq_mma", "flash_bwd_dq_mma")),
-    "flash_bwd_dkv": (("flash_bwd", "flash_bwd_dkv"),
+    "flash_bwd_dkv": (("flash_bwd_dkv_f32mma", "flash_bwd_dkv_f32mma"),
                       ("flash_bwd_dkv_mma", "flash_bwd_dkv_mma")),
 }
 
@@ -82,9 +99,8 @@ def kernel_for(wrapper, dtype, d):
     """(library, symbol) of the CUDA kernel that ``wrapper``
     ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
-    tensor-core kernels; float32 to the split-operand tensor-core K1 and
-    the SIMT K2 and K3. Raises
-    ValueError for what no kernel takes."""
+    16-bit tensor-core kernels, float32 to the split-operand ones.
+    Raises ValueError for what no kernel takes."""
     if d not in _HEAD_DIMS:
         raise ValueError(f"{wrapper} kernels take head dims {_HEAD_DIMS}, "
                          f"got {d}")
@@ -92,6 +108,18 @@ def kernel_for(wrapper, dtype, d):
         raise ValueError(f"{wrapper} kernels take float32, bfloat16 or "
                          f"float16, got {dtype}")
     return _ROUTES[wrapper][dtype != torch.float32]
+
+
+def takes_kernels(x):
+    """Whether attention on ``x`` ([..., T, D]) goes to the wrappers: a
+    CPU tensor takes their plain versions, a CUDA tensor of head dim 64,
+    128 or a multiple of 128 their kernels (one past 128 raises in
+    :func:`kernel_for`). False only for a CUDA tensor of a head dim that
+    is neither 64 nor a multiple of 128, which the reference's gate
+    (``pallas_attention.py`` ``_flash_fwd``, ``_bwd_shapes_ok``: D % 128
+    == 0) also sends to its plain path."""
+    d = x.shape[-1]
+    return x.device.type != "cuda" or d in _HEAD_DIMS or d % 128 == 0
 
 
 def _misaligned(tensors):
@@ -182,9 +210,8 @@ def _check(name, q, k, v, extra=()):
 def _check_kernel_inputs(name, tensors, rows):
     """What the CUDA kernels take beyond the shared contract: CUDA
     tensors of a kernel dtype and head dim, contiguous, and 16-byte
-    aligned where the kernel copies them by cp.async (every K1, and the
-    16-bit K2 and K3; the SIMT K2 and K3 load element by element and
-    take any view); float32 row vectors
+    aligned (every kernel copies its tiles by cp.async); float32 row
+    vectors
     ``rows`` of shape [BH, tq]. Returns the kernel's (library,
     symbol)."""
     q = tensors[0]
@@ -194,7 +221,7 @@ def _check_kernel_inputs(name, tensors, rows):
     route = kernel_for(name, q.dtype, q.shape[2])
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
-    if route[1] in _CP_ASYNC and _misaligned(tensors):
+    if _misaligned(tensors):
         raise ValueError(f"{name} ({route[1]}) needs inputs that start on "
                          f"a {_ALIGN}-byte boundary")
     for x in rows:
@@ -218,8 +245,8 @@ def _bind(route, n_ptrs):
 
 
 def _launch(wrapper, route, ptrs, q, tk, scale, causal):
-    """Launch ``route``'s kernel with the pointers ``ptrs`` and count it
-    on ``wrapper``."""
+    """Launch ``route``'s kernel with the pointers ``ptrs`` and count its
+    launches (one for each chunk of B·H) on ``wrapper``."""
     name = route[1]
     kernel = _bind(route, len(ptrs))
     bh, tq, d = q.shape
@@ -231,8 +258,9 @@ def _launch(wrapper, route, ptrs, q, tk, scale, causal):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"(bh={bh}, tq={tq}, tk={tk}, d={d}, "
                            f"dtype={q.dtype})")
-    wrapper.launches += 1
-    wrapper.launches_by_kernel[name] += 1
+    n = -(-bh // MAX_GRID_Y)
+    wrapper.launches += n
+    wrapper.launches_by_kernel[name] += n
 
 
 def flash_fwd(q, k, v, scale, causal):
@@ -288,10 +316,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
 
 
 def reset_launch_counts():
-    """Zero every wrapper's ``launches`` and ``launches_by_kernel``."""
+    """Zero every wrapper's ``launches`` and ``launches_by_kernel`` (its
+    kernels' symbols and :data:`PLAIN`)."""
     for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
         w.launches = 0
         w.launches_by_kernel = {sym: 0 for _, sym in _ROUTES[w.__name__]}
+        w.launches_by_kernel[PLAIN] = 0
 
 
 reset_launch_counts()
@@ -306,13 +336,21 @@ def _fold(x):
 class FlashAttention(torch.autograd.Function):
     """q, k, v: [B, H, T, D] → (o [B, H, tq, D], lse [B, H, tq] float32)
     through K1; the backward runs K2 and K3 on the saved q, k, v, o and
-    lse. ``scale`` is the softmax scale (already resolved)."""
+    lse. ``scale`` is the softmax scale (already resolved). A CUDA
+    tensor of a head dim the reference sends to its plain path
+    (:func:`takes_kernels`) runs the plain versions instead, counted as
+    :data:`PLAIN`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         b, h, tq, d = q.shape
         qf, kf, vf = _fold(q), _fold(k), _fold(v)
-        o, lse = flash_fwd(qf, kf, vf, scale, causal)
+        ctx.plain = not takes_kernels(q)
+        if ctx.plain:
+            o, lse = ref_attention_lse(qf, kf, vf, scale, causal)
+            flash_fwd.launches_by_kernel[PLAIN] += 1
+        else:
+            o, lse = flash_fwd(qf, kf, vf, scale, causal)
         ctx.save_for_backward(qf, kf, vf, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.shapes = (q.shape, k.shape, v.shape)
@@ -330,10 +368,15 @@ class FlashAttention(torch.autograd.Function):
         if dlse is not None:
             delta = delta - dlse.reshape(delta.shape).float()
         delta = delta.contiguous()
-        dq = flash_bwd_dq(qf, kf, vf, dof, lse, delta, ctx.scale,
-                          ctx.causal)
-        dk, dv = flash_bwd_dkv(qf, kf, vf, dof, lse, delta, ctx.scale,
-                               ctx.causal)
+        bwd = (qf, kf, vf, dof, lse, delta, ctx.scale, ctx.causal)
+        if ctx.plain:
+            dq = ref_flash_bwd_dq(*bwd)
+            dk, dv = ref_flash_bwd_dkv(*bwd)
+            flash_bwd_dq.launches_by_kernel[PLAIN] += 1
+            flash_bwd_dkv.launches_by_kernel[PLAIN] += 1
+        else:
+            dq = flash_bwd_dq(*bwd)
+            dk, dv = flash_bwd_dkv(*bwd)
         return dq.reshape(qs), dk.reshape(ks), dv.reshape(vs), None, None
 
 

@@ -142,3 +142,94 @@ def test_the_split_halves_hold_float32s_range():
     assert bool((rel < 2.0 ** -16).all()), rel
     rel_once = (hi.double() - x.double()).abs() / x.double().abs()
     assert float(rel_once.max()) > 2.0 ** -12
+
+
+# --- the backward: why K2 and K3 on float32 split their products, and
+# why dP = dO Vᵀ and dV = Pᵀ dO are taken in 3xTF32 ---
+
+def _mm(a, b):
+    return a @ b
+
+
+def _emulate_bwd(q, k, v, do, lse, delta, scale, causal, mms):
+    """K2's and K3's arithmetic with the products S = Q Kᵀ, dP = dO Vᵀ,
+    dQ = dS K, dK = dSᵀ Q and dV = Pᵀ dO taken by the five functions
+    ``mms``, in that order: P = 2^(S scale log2(e) - lse log2(e)),
+    dS = P (dP - delta) scale, masked entries 0, fully masked rows at
+    P = 1/tk and dS = 0. Returns (dQ, dK, dV)."""
+    mm_s, mm_dp, mm_dq, mm_dk, mm_dv = mms
+    tq, tk = q.shape[-2], k.shape[-2]
+    s = mm_s(q, k.transpose(-1, -2))
+    if q.dtype == torch.float64:   # the plain version: exact exp
+        p = torch.exp(s * scale - lse[..., None])
+    else:
+        p = torch.exp2(s * np.float32(scale * LOG2E)
+                       - lse[..., None] * np.float32(LOG2E))
+    ds = p * (mm_dp(do, v.transpose(-1, -2)) - delta[..., None]) \
+        * np.float32(scale)
+    if causal:
+        rows = torch.arange(tq)[:, None]
+        cols = torch.arange(tk)[None, :]
+        masked = rows + (tk - tq) < cols
+        p = torch.where(rows + (tk - tq) < 0, 1.0 / tk,
+                        p.masked_fill(masked, 0.0)).to(q.dtype)
+        ds = ds.masked_fill(masked, 0.0)
+    return (mm_dq(ds, k), mm_dk(ds.transpose(-1, -2), q),
+            mm_dv(p.transpose(-1, -2), do))
+
+
+_B3, _T3 = _split3(_bf16), _split3(_tf32)
+# the backward's schemes, each the functions of (S, dP, dQ, dK, dV);
+# "shipped" is what flash_bwd_dq_f32mma.cu (S, dP, dQ) and
+# flash_bwd_dkv_f32mma.cu (S, dP, dK, dV) take
+BWD_SCHEMES = {"bf16 once": (_once(_bf16),) * 5,
+               "tf32 once": (_once(_tf32),) * 5,
+               "3xbf16": (_B3,) * 5,
+               "3xtf32": (_T3,) * 5,
+               "shipped": (_B3, _T3, _B3, _B3, _T3)}
+
+
+def _bwd_ratios(bh, tq, tk, d, causal, seed):
+    """{scheme: (dQ, dK, dV err/limit)} against the float64 plain
+    backward rounded to float32, on the inputs the kernels get: float32
+    q, k, v, dO, the forward's lse rounded to float32 and
+    delta = rowsum(dO O) in float32."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy((rng.randn(bh, t, d) * 0.5)
+                                .astype(np.float32))
+               for t in (tq, tk, tk))
+    do = torch.from_numpy(rng.randn(bh, tq, d).astype(np.float32))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = _emulate(q.double(), k.double(), v.double(), scale, causal, _mm)
+    lse = lse.float()
+    delta = (do * o.float()).sum(-1)
+    want = [x.float().double() for x in _emulate_bwd(
+        q.double(), k.double(), v.double(), do.double(), lse.double(),
+        delta.double(), scale, causal, (_mm,) * 5)]
+    return {how: tuple(_ratio(g, w) for g, w in zip(
+                _emulate_bwd(q, k, v, do, lse, delta, scale, causal, mms),
+                want))
+            for how, mms in BWD_SCHEMES.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_one_rounding_misses_the_f32_tier_and_the_shipped_split_meets_it(
+        case, seed):
+    """dQ, dK and dV: one bf16 or TF32 rounding of the operands misses
+    the f32 tier on every causal case (and at least one output misses it
+    without the mask). The kernels' scheme — S = Q Kᵀ, dQ = dS K and
+    dK = dSᵀ Q as 3×bf16 splits, dP = dO Vᵀ and dV = Pᵀ dO as 3×TF32
+    splits — keeps all three under half of the limit on every case and
+    seed, and under a 3×bf16 split of every product. The 3×bf16 dP
+    is what costs dQ and dK (the cancellation in dP - delta), the 3×bf16
+    Pᵀ dO what costs dV: at the f32 serving shape they pass 0.5."""
+    bh, tq, tk, d, causal = CASES[case]
+    r = _bwd_ratios(bh, tq, tk, d, causal, seed)
+    for once in ("bf16 once", "tf32 once"):
+        if causal:
+            assert min(r[once]) > 1.0, r
+        else:
+            assert max(r[once]) > 1.0, r
+    assert max(r["shipped"]) < 0.5, r
+    assert max(r["shipped"]) < max(r["3xbf16"]), r

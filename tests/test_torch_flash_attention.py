@@ -135,13 +135,13 @@ def test_library_path_keys_on_sources():
     assert p == cuda_build.library_path("flash_fwd_f32mma")
     assert p.parent == cuda_build.BUILD_DIR
     assert p.name.startswith("libflash_fwd_f32mma-") and p.suffix == ".so"
-    assert set(cuda_build.SOURCES) == {"flash_fwd_f32mma", "flash_bwd",
-                                       "flash_fwd_mma", "flash_bwd_dq_mma",
-                                       "flash_bwd_dkv_mma"}
+    assert set(cuda_build.SOURCES) == {
+        "flash_fwd_f32mma", "flash_bwd_dq_f32mma", "flash_bwd_dkv_f32mma",
+        "flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"}
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").exists()
-    assert cuda_build.library_path("flash_bwd").name.startswith(
-        "libflash_bwd-")
+    assert cuda_build.library_path("flash_bwd_dq_f32mma").name.startswith(
+        "libflash_bwd_dq_f32mma-")
 
 
 def test_build_without_nvcc_raises(monkeypatch):

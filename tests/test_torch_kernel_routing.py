@@ -1,10 +1,12 @@
-"""Which CUDA kernel each attention wrapper launches, the tiles the
-kernels use, and why the tensor-core kernels split their probabilities —
-all on the CPU (the kernels themselves run only on the card:
-tests/test_torch_kernels_gpu.py, chip_smoke.py). Why the float32 K1
-splits every operand: tests/test_torch_f32_split.py.
+"""Which CUDA kernel each attention wrapper launches, which shapes go to
+the plain versions instead, the tiles the kernels use, and why the
+tensor-core kernels split their probabilities — all on the CPU (the
+kernels themselves run only on the card: tests/test_torch_kernels_gpu.py,
+chip_smoke.py). Why the float32 kernels split every operand:
+tests/test_torch_f32_split.py.
 """
 import math
+import types
 from pathlib import Path
 
 import numpy as np
@@ -34,16 +36,16 @@ def _library_of(symbol):
     ("flash_fwd", torch.float32, "flash_fwd_f32mma"),
     ("flash_bwd_dkv", torch.bfloat16, "flash_bwd_dkv_mma"),
     ("flash_bwd_dkv", torch.float16, "flash_bwd_dkv_mma"),
-    ("flash_bwd_dkv", torch.float32, "flash_bwd_dkv"),
+    ("flash_bwd_dkv", torch.float32, "flash_bwd_dkv_f32mma"),
     ("flash_bwd_dq", torch.bfloat16, "flash_bwd_dq_mma"),
     ("flash_bwd_dq", torch.float16, "flash_bwd_dq_mma"),
-    ("flash_bwd_dq", torch.float32, "flash_bwd_dq"),
+    ("flash_bwd_dq", torch.float32, "flash_bwd_dq_f32mma"),
 ])
 @pytest.mark.parametrize("d", [64, 128])
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
-    """16-bit inputs go to the tensor-core kernels of K1, K2 and K3;
-    float32 to K1's split-operand tensor-core kernel and the SIMT K2 and
-    K3. The library is the source the symbol is built from."""
+    """16-bit inputs go to the 16-bit tensor-core kernels of K1, K2 and
+    K3, float32 to the split-operand ones. The library is the source the
+    symbol is built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
     assert sym == want
     assert lib in cuda_build.SOURCES
@@ -62,6 +64,56 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
 def test_routing_raises_for_what_no_kernel_takes(wrapper, dtype, d, match):
     with pytest.raises(ValueError, match=match):
         fa.kernel_for(wrapper, dtype, d)
+
+
+@pytest.mark.parametrize("d,kernels", [(8, False), (16, False), (32, False),
+                                       (96, False), (64, True), (128, True),
+                                       (256, True)])
+def test_head_dim_gate_sends_what_no_kernel_takes_to_the_plain_route(
+        d, kernels):
+    """On a CUDA tensor, head dims 64 and 128 go to the kernels at any T;
+    a head dim that is neither 64 nor a multiple of 128 (LLAMA_TINY's 16,
+    TRANSFORMER_TINY's 8) to the plain versions, as the reference's gate
+    (D % 128 == 0) sends it to its plain path. A multiple of 128 that no
+    kernel takes (256) goes to the wrappers as in the reference, and
+    kernel_for refuses it there, as it refuses the plain route's head
+    dims. A CPU tensor always takes the wrappers' plain versions."""
+    for t in (16, 128, 2048):
+        cuda = types.SimpleNamespace(device=torch.device("cuda", 0),
+                                     shape=(2, 4, t, d))
+        assert fa.takes_kernels(cuda) is kernels
+        assert fa.takes_kernels(torch.zeros(1, 1, t, d))
+    if d not in (64, 128):
+        with pytest.raises(ValueError, match="head dims"):
+            fa.kernel_for("flash_fwd", torch.float32, d)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_route_computes_what_the_wrappers_do_and_counts_it(
+        monkeypatch, causal):
+    """The plain route of FlashAttention (taken on CUDA by a head dim no
+    kernel takes; here forced on CPU tensors) gives the outputs and
+    gradients of the wrappers' CPU path, and counts one "plain" call on
+    each wrapper per forward and backward, no kernel launch."""
+    r = np.random.RandomState(3)
+    arrs = [(r.randn(2, 4, 24, 16) * 0.5).astype(np.float32)
+            for _ in range(3)]
+    do = torch.from_numpy(r.randn(2, 4, 24, 16).astype(np.float32))
+    dl = torch.from_numpy(r.randn(2, 4, 24).astype(np.float32))
+    outs = {}
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(fa, "takes_kernels", lambda x: False)
+        fa.reset_launch_counts()
+        ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+        o, lse = fa.attention_with_lse(*ts, causal=causal)
+        grads = torch.autograd.grad((o * do).sum() + (lse * dl).sum(), ts)
+        outs[plain] = (o, lse) + grads
+        for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+            assert w.launches == 0
+            assert w.launches_by_kernel[fa.PLAIN] == int(plain)
+    for got, want in zip(outs[True], outs[False]):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("symbol", sorted(chip_smoke.TILE_CONSTEXPRS))
@@ -92,42 +144,93 @@ def test_planted_faults_follow_the_bf16_kernels_tiles():
     tiles = chip_smoke.planted_fault_tiles(torch, fa)
     assert tiles == {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 64),
                      "flash_bwd_dkv": (64, 64)}
-    # float32 runs K1's split-operand kernel and the SIMT K2 and K3,
-    # whose tiles differ
-    assert chip_smoke.kernel_tile(fa, "flash_fwd", torch.float32) == \
-        (128, 64)
-    assert chip_smoke.kernel_tile(fa, "flash_bwd_dq",
-                                  torch.float32) == (64, 32)
-    assert chip_smoke.kernel_tile(fa, "flash_bwd_dkv",
-                                  torch.float32) == (32, 64)
 
 
-def test_new_sources_build_with_the_others():
+@pytest.mark.parametrize("wrapper,tile", [("flash_fwd", (128, 64)),
+                                          ("flash_bwd_dq", (64, 64)),
+                                          ("flash_bwd_dkv", (64, 32))])
+def test_planted_f32_faults_follow_the_f32_kernels_tiles(wrapper, tile):
+    """The float32 faults are planted at the split-operand kernels' own
+    tiles, (q rows, keys) read from their sources' constexprs."""
+    lib, sym = fa.kernel_for(wrapper, torch.float32, 128)
+    assert sym == chip_smoke.F32_KERNELS[wrapper]
+    values = cuda_build.constexprs(lib)
+    assert (values["BLOCK_M"], values["BLOCK_N"]) == tile
+    assert chip_smoke.kernel_tile(fa, wrapper, torch.float32) == tile
+
+
+def test_planted_f32_faults_are_caught_where_the_kernels_agree():
+    """chip_smoke's float32 faults, planted in the plain outputs (which
+    stand for kernels that agree exactly) at f32 causal's shape, each
+    fail the float32 tier: K1's and K2's last q tile unwritten or each
+    q tile's last key tile skipped, K3's last key tile unwritten or its
+    last q tile skipped."""
+    r = np.random.RandomState(4)
+    q, k, v = (torch.from_numpy((r.randn(2, 256, 64) * 0.5)
+                                .astype(np.float32)) for _ in range(3))
+    do = torch.from_numpy(r.randn(2, 256, 64).astype(np.float32))
+    sc = 1 / 8
+    o, lse = fa.ref_attention_lse(q, k, v, sc, True)
+    delta = (do * o).sum(-1)
+    dq = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
+    dk, dv = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    pairs = {"O": (o, o), "dQ": (dq, dq), "dK": (dk, dk), "dV": (dv, dv)}
+    errs = {n: chip_smoke.kernel_err(g, w) for n, (g, w) in pairs.items()}
+    logged = []
+    chip_smoke.log, log = logged.append, chip_smoke.log
+    try:
+        chip_smoke.check_planted_f32_faults(
+            torch, fa, "f32 causal", (q, k, v, do, lse, delta), sc, pairs,
+            errs)
+    finally:
+        chip_smoke.log = log
+    assert len(logged) == 8 and all(" caught" in x for x in logged), logged
+
+
+@pytest.mark.parametrize("name", cuda_build.SOURCES)
+def test_new_sources_build_with_the_others(name):
+    """Every source is a tensor-core kernel on the shared header, whose
+    library is keyed by it; the float32 ones split their operands with
+    the header's helpers (the backward also into TF32 halves). The SIMT
+    sources are gone."""
     header = (CSRC / "mma_sm90.cuh").read_text()
-    for name in ("flash_fwd_mma", "flash_fwd_f32mma", "flash_bwd_dq_mma",
-                 "flash_bwd_dkv_mma"):
-        assert name in cuda_build.SOURCES
-        text = (CSRC / f"{name}.cu").read_text()
-        assert '#include "mma_sm90.cuh"' in text
-        assert "mma.sync" in header
-    # the float32 K1 splits its operands with the header's helpers
-    f32 = (CSRC / "flash_fwd_f32mma.cu").read_text()
-    for helper in ("split_tile", "mma_split3", "split_pack"):
-        assert helper in f32 and f"{helper}(" in header
-    assert "flash_fwd" not in cuda_build.SOURCES   # the SIMT K1 is gone
-    assert not (CSRC / "flash_fwd.cu").exists()
+    text = (CSRC / f"{name}.cu").read_text()
+    assert '#include "mma_sm90.cuh"' in text
+    assert "mma.sync" in header
+    assert f'extern "C" int {name}(' in text
+    helpers = {"flash_fwd_f32mma": ("split_tile", "mma_split3",
+                                    "split_pack"),
+               "flash_bwd_dq_f32mma": ("split_tile", "mma_split3",
+                                       "split_pack", "mma_split3_tf32",
+                                       "split_tf32"),
+               "flash_bwd_dkv_f32mma": ("split_tile", "mma_split3",
+                                        "split_pack", "mma_split3_tf32",
+                                        "split_tf32")}.get(name, ())
+    for helper in helpers:
+        assert helper in text and f"{helper}(" in header
+    # B*H past gridDim.y's limit is launched in chunks, by one helper
+    assert "for_bh_chunks(" in text and "65535" not in text
+    assert "b0 += MAX_GRID_Y" in header and "b0 += MAX_GRID_Y" not in text
+    assert fa.MAX_GRID_Y == 65535
+    for gone in ("flash_fwd", "flash_bwd"):   # the SIMT kernels
+        assert gone not in cuda_build.SOURCES
+        assert not (CSRC / f"{gone}.cu").exists()
     # the header is part of every library's build key
-    p = cuda_build.library_path("flash_fwd_mma")
-    assert p.name.startswith("libflash_fwd_mma-") and p.suffix == ".so"
+    p = cuda_build.library_path(name)
+    assert p.name.startswith(f"lib{name}-") and p.suffix == ".so"
 
 
-def test_tile_sweep_rewrites_only_the_tile_of_the_shipped_source():
+@pytest.mark.parametrize("source", sorted(tile_sweep.SWEEPS))
+def test_tile_sweep_rewrites_only_the_tile_of_the_shipped_source(source):
     """tile_sweep.py's first variant of each source is the source as it
     ships; each other one changes only its tile constexprs and blocks a
-    SM, into whole mma tiles of one m16 row block a warp."""
-    assert set(tile_sweep.SWEEPS) == {"flash_fwd_f32mma", "flash_bwd_dq_mma"}
-    for source in tile_sweep.SWEEPS:
-        _check_tile_variants(source)
+    SM, into whole mma tiles: one m16 row block a warp (K1, K2), or 16
+    keys a warp and whole 16-row k-steps of its q rows (K3)."""
+    assert set(tile_sweep.SWEEPS) == {
+        "flash_fwd_f32mma", "flash_bwd_dq_mma", "flash_bwd_dq_f32mma",
+        "flash_bwd_dkv_f32mma"}
+    assert set(tile_sweep.N_PTRS) == set(tile_sweep.SWEEPS)
+    _check_tile_variants(source)
 
 
 def _check_tile_variants(source):
@@ -140,9 +243,13 @@ def _check_tile_variants(source):
     for consts, blocks in variants[1:]:
         out = tile_sweep.variant_source(text, consts, blocks)
         tile = cuda_build.parse_constexprs(out)
-        assert tile["BLOCK_M"] == 16 * tile["WARPS"]
-        assert tile["BLOCK_M"] % tile["BLOCK_N"] == 0
         assert tile["BLOCK_N"] % 16 == 0
+        if source == "flash_bwd_dkv_f32mma":
+            assert tile["KGROUPS"] * tile["RGROUPS"] == tile["WARPS"]
+            assert tile["WROWS"] % 16 == 0
+        else:
+            assert tile["BLOCK_M"] == 16 * tile["WARPS"]
+            assert tile["BLOCK_M"] % tile["BLOCK_N"] == 0
         for name, value in consts.items():
             assert f"constexpr int {name} = {value};" in out
         assert f"__launch_bounds__(THREADS, {blocks})" in out
@@ -163,12 +270,13 @@ def test_misaligned_views_are_found():
 
 @pytest.mark.parametrize("symbol", sorted(chip_smoke.TILE_CONSTEXPRS))
 def test_only_cp_async_kernels_need_16_byte_alignment(symbol):
-    """The alignment check applies to the kernels that copy their tiles
-    by cp.async (those built on mma_sm90.cuh, the float32 K1 among
-    them); the SIMT K2 and K3 load element by element and take any
-    contiguous view."""
+    """Every kernel copies its tiles by cp.async (mma_sm90.cuh's
+    load_tile_async), so the wrappers refuse any input off a 16-byte
+    boundary: no SIMT kernel that took any contiguous view is left."""
     text = (CSRC / f"{_library_of(symbol)}.cu").read_text()
-    assert (symbol in fa._CP_ASYNC) == ('#include "mma_sm90.cuh"' in text)
+    assert '#include "mma_sm90.cuh"' in text
+    assert "load_tile_async<" in text
+    assert "cp.async" in (CSRC / "mma_sm90.cuh").read_text()
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -181,11 +289,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         assert w.launches == 0
         assert not any(w.launches_by_kernel.values())
     assert fa.flash_fwd.launches_by_kernel == {"flash_fwd_f32mma": 0,
-                                               "flash_fwd_mma": 0}
-    assert fa.flash_bwd_dq.launches_by_kernel == {"flash_bwd_dq": 0,
-                                                  "flash_bwd_dq_mma": 0}
-    assert fa.flash_bwd_dkv.launches_by_kernel == {"flash_bwd_dkv": 0,
-                                                   "flash_bwd_dkv_mma": 0}
+                                               "flash_fwd_mma": 0,
+                                               "plain": 0}
+    assert fa.flash_bwd_dq.launches_by_kernel == {
+        "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0, "plain": 0}
+    assert fa.flash_bwd_dkv.launches_by_kernel == {
+        "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0, "plain": 0}
 
 
 def test_sass_counts_parse_cuobjdump_text():

@@ -14,14 +14,17 @@ The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
 16-bit tier: rtol
 1e-2 (one rounding of the output) plus atol 1e-2 x the plain output's
 RMS, against the plain version evaluated in float32 on the same inputs
-and rounded once to the output's type. K1's float32 kernel
-(``flash_fwd_f32mma``, tensor cores with every operand split into bf16
-halves) and the float32 K2 and K3 (SIMT) are held to the f32 tier.
+and rounded once to the output's type. The float32 kernels
+(``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``:
+tensor cores with every operand split into bf16 or TF32 halves) are held
+to the f32 tier.
 """
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+import paddle_tpu_torch as fluid
 from paddle_tpu_torch.ops import cuda_build
 from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -131,9 +134,9 @@ def _half_tier_ratio(got, want):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("tq,tk,d,causal", MMA_CASES)
 def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
-    """K1, K2 and K3 on the tensor cores (float32: K1 on the tensor
-    cores, K2 and K3 SIMT), each output against its plain version in
-    the tier of its type, with the variant that launched."""
+    """K1, K2 and K3 on the tensor cores (float32: the split-operand
+    kernels), each output against its plain version in the tier of its
+    type, with the variant that launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -151,11 +154,14 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
     torch.cuda.synchronize()
     f32 = dt == torch.float32
     assert fa.flash_fwd.launches_by_kernel == {
-        "flash_fwd_f32mma": int(f32), "flash_fwd_mma": int(not f32)}
+        "flash_fwd_f32mma": int(f32), "flash_fwd_mma": int(not f32),
+        "plain": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
-        "flash_bwd_dkv": int(f32), "flash_bwd_dkv_mma": int(not f32)}
+        "flash_bwd_dkv_f32mma": int(f32), "flash_bwd_dkv_mma": int(not f32),
+        "plain": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {
-        "flash_bwd_dq": int(f32), "flash_bwd_dq_mma": int(not f32)}
+        "flash_bwd_dq_f32mma": int(f32), "flash_bwd_dq_mma": int(not f32),
+        "plain": 0}
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
                                             sc, causal)
     want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
@@ -174,8 +180,8 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
 
 @pytest.mark.gpu
 def test_mma_route_refuses_what_it_does_not_take():
-    """A 16-bit CUDA input the tensor-core kernels do not take raises;
-    it never falls back to the SIMT kernel or the plain version."""
+    """A 16-bit CUDA input the tensor-core kernels do not take raises at
+    the wrapper; it never falls back to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     q = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device="cuda")
@@ -194,11 +200,11 @@ def test_mma_route_refuses_what_it_does_not_take():
 
 
 @pytest.mark.gpu
-def test_simt_route_takes_views_off_the_16_byte_boundary():
-    """float32 views 4 bytes off a 16-byte boundary: K1's float32 kernel
-    copies its tiles by cp.async and raises on them (it never falls back
-    to the plain version), while the SIMT K2 and K3, which load element
-    by element, take them and match the plain versions."""
+def test_float32_route_refuses_views_off_the_16_byte_boundary():
+    """float32 views 4 bytes off a 16-byte boundary: K1, K2 and K3 copy
+    their tiles by cp.async and raise on them (never falling back to the
+    plain version); the same values, copied to aligned tensors, run and
+    match the plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -212,15 +218,21 @@ def test_simt_route_takes_views_off_the_16_byte_boundary():
     fa.reset_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_fwd(q, k, v, sc, True)
-    assert fa.flash_fwd.launches == 0
     o, lse = fa.flash_fwd(q.clone(), k.clone(), v.clone(), sc, True)
-    assert fa.flash_fwd.launches_by_kernel["flash_fwd_f32mma"] == 1
     delta = (do * o).sum(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (1, 0, 0)
+    q, k, v, do = (x.clone() for x in (q, k, v, do))
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
     torch.cuda.synchronize()
-    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq"] == 1
-    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv"] == 1
+    assert fa.flash_fwd.launches_by_kernel["flash_fwd_f32mma"] == 1
+    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq_f32mma"] == 1
+    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_f32mma"] == 1
     want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, True)
     want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
     for got, want in ((o, want_o), (lse, want_lse), (dk, want_k),
@@ -228,6 +240,58 @@ def test_simt_route_takes_views_off_the_16_byte_boundary():
                       (dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
                                                True))):
         torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernels_take_bh_past_the_grid_y_limit(dtype):
+    """B*H = 65536, one past gridDim.y's 65535: each launcher takes B*H in
+    chunks, and K1, K2 and K3 match their plain versions on every slice
+    (bf16 in the 16-bit tier, float32 in the f32 tier), T = 16, causal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    bh, t, d = 65536, 16, 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, t, t,
+                                              d, dt)
+    sc = 1 / np.sqrt(d)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, True)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    torch.cuda.synchronize()
+    # one call a wrapper, each launched as two chunks of B*H
+    assert fa.MAX_GRID_Y == 65535
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (2, 2, 2)
+    want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
+                                            sc, True)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    for name, got, want in (
+            ("O", o, want_o.to(dt)), ("dK", dk, want_k), ("dV", dv, want_v),
+            ("dQ", dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
+                                           True))):
+        ok, err, ratio = chip_smoke.kernel_err(got, want)
+        assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
+
+
+@pytest.mark.gpu
+def test_llama_tiny_trains_and_serves_on_the_card_through_the_plain_route():
+    """LLAMA_TINY (head dim 16, which no kernel takes) on CUDAPlace(0):
+    one train step and 3 Adam steps match CPUPlace() at the f32 gradient
+    and loss tiers, ServingEngine's answers match CPU Executor.run at
+    the f32 logits tier, and every attention call takes the counted
+    plain route, no kernel (chip_smoke.phase_plain_route)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = chip_smoke.phase_plain_route(torch, fluid, fa, "test")
+    assert out["train"]["calls"]["flash_fwd plain"] == 8
+    assert out["serve"]["calls"]["flash_fwd plain"] > 0
 
 
 @pytest.mark.gpu

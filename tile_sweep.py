@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Times tile variants of the port's tensor-core attention kernels on one
-CUDA card: K1's float32 kernel (``csrc/flash_fwd_f32mma.cu``) at
+CUDA card: the float32 kernels (``csrc/flash_fwd_f32mma.cu``,
+``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``) at
 chip_smoke.py's float32 shapes, and K2's bf16 kernel
 (``csrc/flash_bwd_dq_mma.cu``) at its bf16 training shape.
 
@@ -8,10 +9,14 @@ Run from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit::
 
     python3 tile_sweep.py [source ...]     # default: every source below
+    python3 tile_sweep.py --before SOURCE=FILE.cu:SYMBOL ... [source ...]
 
 Each variant is the shipped source with its tile constexprs and its
 ``__launch_bounds__`` minimum of blocks a SM rewritten, built with the
-port's nvcc flags into a temporary directory. Each is checked against
+port's nvcc flags into a temporary directory. ``--before`` adds, to
+SOURCE's variants, the kernel SYMBOL of another source file with the
+same C interface (an older tree's kernel of the same wrapper, say),
+checked and timed in the same turns. Each is checked against
 the kernel's plain version in chip_smoke's tier for the output's type,
 then all are timed (CUDA events, cold L2) in turns: forward through the
 list, then back. Prints the compiler's register/spill report and one
@@ -45,7 +50,27 @@ SWEEPS = {
                                                      "WARPS": 8}, 1),
         "64 rows x 32 keys, 4 warps, 3 blocks/SM": ({"BLOCK_N": 32}, 3),
     },
+    "flash_bwd_dq_f32mma": {
+        "64 rows x 64 keys, 4 warps, 1 block/SM (shipped)": ({}, 1),
+        "64 rows x 32 keys, 4 warps, 1 block/SM": ({"BLOCK_N": 32}, 1),
+        "128 rows x 32 keys, 8 warps, 1 block/SM": ({"BLOCK_M": 128,
+                                                     "BLOCK_N": 32}, 1),
+    },
+    # K3: keys per block x q rows per tile; warps split the keys in 16s
+    # and the rows among the rest
+    "flash_bwd_dkv_f32mma": {
+        "32 keys x 64 rows, 4 warps, 1 block/SM (shipped)": ({}, 1),
+        "64 keys x 64 rows, 8 warps, 1 block/SM": ({"BLOCK_N": 64,
+                                                    "WARPS": 8}, 1),
+        "64 keys x 32 rows, 8 warps, 1 block/SM": ({"BLOCK_N": 64,
+                                                    "BLOCK_M": 32,
+                                                    "WARPS": 8}, 1),
+        "32 keys x 32 rows, 4 warps, 2 blocks/SM": ({"BLOCK_M": 32}, 2),
+    },
 }
+# pointers each source's C entry takes
+N_PTRS = {"flash_fwd_f32mma": 5, "flash_bwd_dq_mma": 7,
+          "flash_bwd_dq_f32mma": 7, "flash_bwd_dkv_f32mma": 8}
 
 
 def variant_source(text, consts, min_blocks):
@@ -59,7 +84,7 @@ def variant_source(text, consts, min_blocks):
     return text
 
 
-def build(cuda_build, tmp, source, name, text):
+def build(cuda_build, tmp, source, name, text, symbol=None):
     src = os.path.join(tmp, f"{name}.cu")
     with open(src, "w") as f:
         f.write(text)
@@ -71,10 +96,9 @@ def build(cuda_build, tmp, source, name, text):
     report = [line.strip() for line in (r.stdout + r.stderr).splitlines()
               if any(w in line for w in ("Function properties",
                                          "registers", "spill"))]
-    fn = getattr(ctypes.CDLL(out), source)
+    fn = getattr(ctypes.CDLL(out), symbol or source)
     fn.restype = ctypes.c_int
-    n_ptrs = {"flash_fwd_f32mma": 5, "flash_bwd_dq_mma": 7}[source]
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * N_PTRS[source] + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn, report
 
@@ -104,30 +128,50 @@ def cases(source, torch, fa, chip_smoke, gen, dev):
                 return o, lse
             want = fa.ref_attention_lse(q, k, v, scale, True)
             out.append((label, call, want,
-                        (bh, t, t, d, chip_smoke.F32_SPLIT_RATE, True, 4,
-                         "fwd")))
+                        (bh, t, t, d, chip_smoke.RATE_OF_KERNEL[source],
+                         True, 4, "fwd")))
         return out
-    bh, t, d = chip_smoke.TRAIN_BATCH * 32, chip_smoke.TRAIN_SEQ, 128
-    q, k, v, do = chip_smoke.attention_inputs(torch, gen, dev, bh, t, t, d,
-                                              torch.bfloat16)
-    scale = 1.0 / np.sqrt(d)
-    o, lse = fa.flash_fwd(q, k, v, scale, True)
-    delta = (do.float() * o.float()).sum(-1)
+    bh_train, t_train = chip_smoke.TRAIN_BATCH * 32, chip_smoke.TRAIN_SEQ
+    if source == "flash_bwd_dq_mma":
+        shapes = ((f"bh={bh_train} t={t_train} d=128 causal bf16 "
+                   f"(training)", bh_train, t_train, torch.bfloat16),)
+    else:
+        shapes = (("bh=8 t=256 d=128 causal f32 (train parity)", 8, 256,
+                   torch.float32),
+                  (f"bh={bh_train} t={t_train} d=128 causal f32", bh_train,
+                   t_train, torch.float32))
+    kind = "dkv" if source == "flash_bwd_dkv_f32mma" else "dq"
+    for label, bh, t, dt in shapes:
+        d = 128
+        q, k, v, do = chip_smoke.attention_inputs(torch, gen, dev, bh, t, t,
+                                                  d, dt)
+        scale = 1.0 / np.sqrt(d)
+        o, lse = fa.flash_fwd(q, k, v, scale, True)
+        delta = (do.float() * o.float()).sum(-1)
+        code = 0 if dt == torch.float32 else 1
 
-    def call(fn):
-        dq = torch.empty_like(q)
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, t,
-                d, 1, float(scale), 1, stream)
-        if rc:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
-        return (dq,)
-    want = (fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, scale, True),)
-    return [(f"bh={bh} t={t} d={d} causal bf16 (training)", call, want,
-             (bh, t, t, d, "bfloat16", True, 2, "dq"))]
+        def call(fn, q=q, k=k, v=v, do=do, lse=lse, delta=delta, bh=bh,
+                 t=t, scale=scale, code=code):
+            outs = (torch.empty_like(q),) if kind == "dq" else \
+                (torch.empty_like(k), torch.empty_like(v))
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(),
+                    *(x.data_ptr() for x in outs), bh, t, t, d, code,
+                    float(scale), 1, stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+            return outs
+        bwd = (q, k, v, do, lse, delta, scale, True)
+        want = (fa.ref_flash_bwd_dq(*bwd),) if kind == "dq" else \
+            fa.ref_flash_bwd_dkv(*bwd)
+        rates = chip_smoke.RATE_OF_KERNEL.get(source, "bfloat16")
+        out.append((label, call, want,
+                    (bh, t, t, d, rates, True, q.element_size(), kind)))
+    return out
 
 
-def sweep(source, torch, fa, chip_smoke, cuda_build, smi, flush):
+def sweep(source, torch, fa, chip_smoke, cuda_build, smi, flush,
+          before=None):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(chip_smoke.SEED)
@@ -139,6 +183,14 @@ def sweep(source, torch, fa, chip_smoke, cuda_build, smi, flush):
         for i, (label, (consts, blocks)) in enumerate(SWEEPS[source].items()):
             fns[label], report = build(cuda_build, tmp, source, f"v{i}",
                                        variant_source(text, consts, blocks))
+            for line in report:
+                print(f"{source} {label}: {line}", flush=True)
+        if before:
+            path, symbol = before.rsplit(":", 1)
+            label = f"before: {path}:{symbol}"
+            with open(path) as f:
+                fns[label], report = build(cuda_build, tmp, source, "before",
+                                           f.read(), symbol)
             for line in report:
                 print(f"{source} {label}: {line}", flush=True)
     finally:
@@ -178,8 +230,13 @@ def main(argv):
     from paddle_tpu_torch.ops import cuda_build
     from paddle_tpu_torch.ops import flash_attention as fa
 
+    before = {}
+    while argv[:1] == ["--before"]:
+        source, spec = argv[1].split("=", 1)
+        before[source] = spec
+        argv = argv[2:]
     sources = argv or list(SWEEPS)
-    unknown = [s for s in sources if s not in SWEEPS]
+    unknown = [s for s in sources + list(before) if s not in SWEEPS]
     if unknown:
         print(f"tile_sweep: no variants for {unknown}; sources: "
               f"{list(SWEEPS)}", file=sys.stderr)
@@ -188,7 +245,8 @@ def main(argv):
     smi = chip_smoke.nvidia_smi()
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     for source in sources:
-        result = sweep(source, torch, fa, chip_smoke, cuda_build, smi, flush)
+        result = sweep(source, torch, fa, chip_smoke, cuda_build, smi, flush,
+                       before.get(source))
         if result is None:
             return 1
         print(json.dumps(result), flush=True)

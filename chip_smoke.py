@@ -52,14 +52,35 @@ Phases — any failure exits non-zero:
    finite, falling loss, K1/K2/K3 each launched once per layer per step
    (every time on the tensor cores),
    step time, tokens/s, peak memory and one step's device time by kind
-   (the main path of this slice, whose launches the kernel line
-   reports);
-6. train parity: a narrow float32 model (head dim 128, TF32 off) whose
+   (the main path of slices 2 to 4);
+6. train_stack (the main path of this slice, whose launches the kernel
+   line reports): the reference's own train benchmark (``bench.py``
+   ``transformer_main``) at ``phase_train``'s width, depth, batch and
+   steps — ``build_llama(shard_pp=True, fused_head_chunk=2048,
+   remat=True)``: the layer-stacked decoder, each layer recomputed in
+   the backward pass (K1 twice a layer a step, K2/K3 once), and the
+   vocab-chunked fused loss, which never builds the logits; the checks
+   of 5, and peak memory below 5's, with both steps' times, tokens/s,
+   peak memory and device time by kind side by side;
+7. train parity: a narrow float32 model (head dim 128, TF32 off) whose
    step on the card (the kernels: ``flash_fwd_f32mma``,
    ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``) matches the same
    step on the CPU (the plain versions): loss and every parameter's
-   gradient, then 3 Adam steps' losses;
-7. plain route: ``LLAMA_TINY`` (head dim 16, off the reference's
+   gradient, then 3 Adam steps' losses; then the same model built as 6
+   builds its own (stacked, remat, a fused loss whose last chunk slides
+   back), held to the CPU the same way, and its step with remat off and
+   under ``memory_optimize`` (``nothing_saveable``, ``dots_saveable``)
+   equal to the step with remat on;
+8. amp: the 8B width cut to 4 layers with float32 master state,
+   unrolled and stacked, under ``amp_transpile`` O1 and O2: 3 Adam steps
+   with finite, falling losses, every attention launch on the bf16
+   kernels, the state still float32, and the first loss near the same
+   program's without AMP;
+9. nan guard: on 7's stacked model, the guarded step equals the
+   unguarded one, an inf planted in ``blocks.wq`` raises
+   FloatingPointError naming the op outputs the CPU names, and
+   ``repeats=2`` raises ValueError;
+10. plain route: ``LLAMA_TINY`` (head dim 16, off the reference's
    D % 128 == 0 gate) trains one step and 3 Adam steps and serves
    requests through ``ServingEngine`` on the card, matching the same
    runs on the CPU; its attention runs the plain versions, as the
@@ -126,6 +147,14 @@ TRAIN_LAYERS = 8                # 32 → 8: Adam state of 32 layers
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 TRAIN_LABEL = "training shape"
+STACK_CHUNK = 2048              # bench.py's fused_head_chunk
+# the f32 parity model (dim 512, head dim 128, vocab 2048): stacked, its
+# fused loss in chunks of 384, so the last of 6 slides back by 256
+PARITY_CHUNK = 384
+AMP_LAYERS = 4                  # 32 → 4: float32 master state (params,
+                                # gradients, two Adam moments) of 4 layers
+                                # with the embedding and head is 31 GB
+AMP_STEPS = 3
 # each wrapper's float32 kernel
 F32_KERNELS = {"flash_fwd": "flash_fwd_f32mma",
                "flash_bwd_dq": "flash_bwd_dq_f32mma",
@@ -931,9 +960,11 @@ def phase_serve(torch, fluid, dtype, card):
     return launches, dict(serve, one_dispatch=dispatch)
 
 
-def build_train(fluid, cfg, lr):
-    """``build_llama(cfg, tokens, targets)`` → ``Adam(lr).minimize``, in
-    fresh programs seeded from SEED. Returns (main, startup, loss)."""
+def build_train(fluid, cfg, lr, policy=None, **llama_kw):
+    """``build_llama(cfg, tokens, targets, **llama_kw)`` →
+    ``Adam(lr).minimize``, in fresh programs seeded from SEED, with
+    ``memory_optimize(policy)`` where a remat policy is given. Returns
+    (main, startup, loss)."""
     from paddle_tpu_torch.models.llama import build_llama
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
@@ -942,8 +973,10 @@ def build_train(fluid, cfg, lr):
                                    dtype="int64", append_batch_size=False)
         targets = fluid.layers.data(name="targets", shape=[-1, -1],
                                     dtype="int64", append_batch_size=False)
-        _, loss = build_llama(cfg, tokens, targets)
+        _, loss = build_llama(cfg, tokens, targets, **llama_kw)
         fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    if policy:
+        fluid.memory_optimize(main, policy=policy)
     return main, startup, loss
 
 
@@ -955,12 +988,56 @@ def train_feed(vocab, batch, seq):
 
 def phase_train(torch, fluid, fa, card):
     """Train the 8B-width model, cut to TRAIN_LAYERS layers, in bf16 on
-    one fixed batch; every K1, K2 and K3 launch must be the tensor-core
-    kernel's. Returns (launches by kernel symbol, train stats)."""
+    one fixed batch, unrolled with the full logits (``build_llama``'s
+    defaults); every K1, K2 and K3 launch must be the tensor-core
+    kernel's, once per layer per step. Returns (launches by kernel
+    symbol, train stats)."""
+    return train_8b(torch, fluid, fa, card, "train", "l0.wq", 1)
+
+
+def phase_train_stack(torch, fluid, fa, card, train):
+    """The main path of this slice: the reference's own train benchmark
+    (``bench.py`` ``transformer_main``: ``build_llama(shard_pp=True,
+    fused_head_chunk=2048, remat=True)``, ``Adam(1e-4)``) at the 8B
+    width and ``phase_train``'s depth, batch and steps: the layer-stacked
+    decoder with each layer recomputed in the backward pass (K1 twice a
+    layer a step, K2 and K3 once) and the vocab-chunked fused loss
+    (128256 = 62 x 2048 + 1280: 63 chunks, the last slid back by 768
+    columns). Its peak memory must be below ``train``'s (phase_train's
+    stats, from this run). Returns (launches by kernel symbol, stats)."""
+    by_kernel, stats = train_8b(
+        torch, fluid, fa, card, "train_stack", "blocks.wq", 2,
+        shard_pp=True, fused_head_chunk=STACK_CHUNK, remat=True)
+    check(stats["peak_mem_gb"] < train["peak_mem_gb"],
+          f"train_stack peak {stats['peak_mem_gb']:.2f} GB is not below "
+          f"the unrolled step's {train['peak_mem_gb']:.2f} GB")
+    keys = ("step_ms_median", "step_ms_min", "step_ms_max", "tokens_per_s",
+            "peak_mem_gb")
+    beside = {name: dict({k: st[k] for k in keys},
+                         **{k: st["one_step"].get(k, "not measured")
+                            for k in ("device_busy_ms", "device_idle_share",
+                                      "device_ms_by_kind",
+                                      "optimizer_segment")})
+              for name, st in (("train", train), ("train_stack", stats))}
+    log("train_stack beside train: " + json.dumps(beside))
+    return by_kernel, stats
+
+
+def train_8b(torch, fluid, fa, card, tag, probe_name, k1_per_layer,
+             **llama_kw):
+    """Train the 8B-width model, cut to TRAIN_LAYERS layers, in bf16 on
+    one fixed batch (``build_llama(**llama_kw)``, ``Adam(1e-4)`` as
+    bench.py): TRAIN_WARMUP + TRAIN_STEPS steps with finite, falling
+    loss, the first near ln V + dim·0.02²/2, K1 launched
+    ``k1_per_layer`` times and K2/K3 once per layer per step (each time
+    on the tensor cores), ``probe_name`` moved; step time, tokens/s,
+    peak memory and one step's device time by kind. Returns (launches by
+    kernel symbol, stats)."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B
 
     cfg = dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_LAYERS)
-    main, startup, loss = build_train(fluid, cfg, 1e-4)   # bench.py's lr
+    main, startup, loss = build_train(fluid, cfg, 1e-4,   # bench.py's lr
+                                      **llama_kw)
     scope = fluid.Scope()
     exe = fluid.Executor()                     # the card: CUDAPlace(0)
     t0 = time.perf_counter()
@@ -968,13 +1045,18 @@ def phase_train(torch, fluid, fa, card):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in (scope.find_var(v.name)
                                        for v in main.all_parameters()))
-    log(f"train: Llama-3-8B width (dim {cfg.dim}, {cfg.n_heads} heads / "
+    log(f"{tag}: Llama-3-8B width (dim {cfg.dim}, {cfg.n_heads} heads / "
         f"{cfg.n_kv_heads} kv, ffn {cfg.ffn_hidden}, vocab "
-        f"{cfg.vocab_size}), {cfg.n_layers} of 32 layers, bf16, Adam: "
-        f"{n_params / 1e9:.3f} B params, startup on the card "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{cfg.vocab_size}), {cfg.n_layers} of 32 layers, bf16, Adam, "
+        f"build_llama({llama_kw}): {n_params / 1e9:.3f} B params, startup "
+        f"on the card {time.perf_counter() - t0:.2f} s")
     feed = train_feed(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
-    probe = scope.find_var("l0.wq")[:8, :8].clone()
+
+    def probe():
+        w = scope.find_var(probe_name)
+        return w.reshape(-1, w.shape[-1])[:8, :8].float().clone()
+
+    before = probe()
     wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
@@ -986,36 +1068,37 @@ def phase_train(torch, fluid, fa, card):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(np.asarray(out[0]).reshape(())))
-        log(f"train: step {step}: loss {losses[-1]:.4f}, "
+        log(f"{tag}: step {step}: loss {losses[-1]:.4f}, "
             f"{step_s[-1] * 1e3:.1f} ms")
     launches = [w.launches for w in wrappers]
     by_kernel = launches_by_kernel(fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag}: non-finite loss {losses}")
     # random init: logits ~ N(0, dim * INIT_STD^2) (the final rms_norm
     # makes the hidden state's squared norm dim), so the expected first
     # loss is ln V + dim * INIT_STD^2 / 2
     expected = math.log(cfg.vocab_size) + cfg.dim * INIT_STD ** 2 / 2
     check(abs(losses[0] - expected) < 0.5,
-          f"first loss {losses[0]:.4f} not within 0.5 of {expected:.4f} "
-          f"(ln V = {math.log(cfg.vocab_size):.4f})")
+          f"{tag}: first loss {losses[0]:.4f} not within 0.5 of "
+          f"{expected:.4f} (ln V = {math.log(cfg.vocab_size):.4f})")
     check(losses[-1] < losses[0],
-          f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
-    for name, w, n in zip(("K1", "K2", "K3"), wrappers, launches):
-        check(n == cfg.n_layers * n_steps,
-              f"{name} launched {n} times, not {cfg.n_layers} layers x "
-              f"{n_steps} steps")
+          f"{tag}: loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    for name, w, n, per_layer in zip(("K1", "K2", "K3"), wrappers, launches,
+                                     (k1_per_layer, 1, 1)):
+        check(n == per_layer * cfg.n_layers * n_steps,
+              f"{tag}: {name} launched {n} times, not {per_layer} x "
+              f"{cfg.n_layers} layers x {n_steps} steps")
         _, variant = fa.kernel_for(w.__name__, torch.bfloat16, 128)
         check(by_kernel[variant] == n,
-              f"{name} launches by kernel {w.launches_by_kernel}: not all "
-              f"{variant}")
-    changed = float((scope.find_var("l0.wq")[:8, :8].float()
-                     - probe.float()).abs().max())
-    check(changed > 0, "parameter l0.wq did not change")
-    log(f"train: K1/K2/K3 launched {launches} times = {cfg.n_layers} "
-        f"layers x {n_steps} steps ({by_kernel}); l0.wq moved by up to "
-        f"{changed:.3e}")
+              f"{tag}: {name} launches by kernel {w.launches_by_kernel}: "
+              f"not all {variant}")
+    changed = float((probe() - before).abs().max())
+    check(changed > 0, f"{tag}: parameter {probe_name} did not change")
+    log(f"{tag}: K1/K2/K3 launched {launches} times = ({k1_per_layer}, 1, "
+        f"1) x {cfg.n_layers} layers x {n_steps} steps ({by_kernel}); "
+        f"{probe_name} moved by up to {changed:.3e}")
 
     timed = sorted(step_s[TRAIN_WARMUP:])
     step_ms = timed[len(timed) // 2] * 1e3
@@ -1026,6 +1109,7 @@ def phase_train(torch, fluid, fa, card):
                                scope=scope)), step_ms)
     breakdown.setdefault("optimizer_segment", "not measured")
     stats = {"layers": cfg.n_layers, "params_b": n_params / 1e9,
+             "build_llama": llama_kw,
              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
              "losses": losses, "first_loss_expected": expected,
              "step_ms_median": step_ms,
@@ -1034,20 +1118,20 @@ def phase_train(torch, fluid, fa, card):
              "peak_mem_gb": peak_gb, "launches_k1_k2_k3": launches,
              "launches_by_kernel": by_kernel,
              "one_step": breakdown, "card": card}
-    log("train: " + json.dumps(stats))
+    log(f"{tag}: " + json.dumps(stats))
     return by_kernel, stats
 
 
-def train_card_vs_cpu(torch, fluid, cfg, lr, batch, seq, tag):
-    """One float32 step of ``cfg`` on the card and on the CPU from one
-    startup scope (TF32 off): the loss and every parameter's gradient
-    within the f32 gradient tier, then 3 Adam steps' losses within the
-    loss tier. Returns the stats."""
+def train_card_vs_cpu(torch, fluid, cfg, lr, batch, seq, tag, **llama_kw):
+    """One float32 step of ``cfg`` (``build_llama(**llama_kw)``) on the
+    card and on the CPU from one startup scope (TF32 off): the loss and
+    every parameter's gradient within the f32 gradient tier, then 3 Adam
+    steps' losses within the loss tier. Returns the stats."""
     from paddle_tpu_torch import weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    main, startup, loss = build_train(fluid, cfg, lr)
+    main, startup, loss = build_train(fluid, cfg, lr, **llama_kw)
     gpu_scope = fluid.Scope()
     gpu = fluid.Executor()
     gpu.run(startup, scope=gpu_scope)
@@ -1078,7 +1162,8 @@ def train_card_vs_cpu(torch, fluid, cfg, lr, batch, seq, tag):
                                 scope=cpu_scope)[0].reshape(())))
     check(np.allclose(lg, lc, rtol=TOL_LOSS_F32, atol=0),
           f"{tag}: Adam losses differ: card {lg} vs CPU {lc}")
-    return {"config": dataclasses.asdict(cfg), "batch": [batch, seq],
+    return {"config": dataclasses.asdict(cfg), "build_llama": llama_kw,
+            "batch": [batch, seq],
             "loss_step1": [float(got[0].reshape(())),
                            float(want[0].reshape(()))],
             "grads_checked": len(grads),
@@ -1121,6 +1206,243 @@ def phase_train_parity(torch, fluid, fa, card):
     out.update(launches_by_kernel=by_kernel, card=card)
     log("train parity f32: " + json.dumps(out))
     return by_kernel, out
+
+
+PARITY_CFG = dict(vocab_size=2048, dim=512, n_layers=2, n_heads=4,
+                  n_kv_heads=2, ffn_hidden=1024, dtype="float32")
+
+
+def phase_train_stack_parity(torch, fluid, fa, card):
+    """The float32 parity model (``phase_train_parity``'s) built as
+    ``phase_train_stack`` builds the 8B one — stacked, remat, its fused
+    loss in chunks of PARITY_CHUNK (the last slides back) — on the card
+    (K1 twice a layer a step, K2 and K3 once, on the ``_f32mma``
+    kernels) against the CPU at the f32 tiers. Then the same step on the
+    card with ``remat=False`` and under ``memory_optimize`` with
+    ``nothing_saveable`` and ``dots_saveable`` (a checkpoint of the
+    whole forward around each layer's own) gives the loss and gradients
+    of ``remat=True`` within the f32 gradient tier; whether they are
+    bit-identical is reported. Returns (launches by kernel symbol,
+    stats)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(**PARITY_CFG)
+    stack = dict(shard_pp=True, fused_head_chunk=PARITY_CHUNK, remat=True)
+    fa.reset_launch_counts()
+    out = train_card_vs_cpu(torch, fluid, cfg, 1e-3, 2, 256,
+                            "train_stack parity f32", **stack)
+    by_kernel = launches_by_kernel(fa)
+    for w, per_layer in zip((fa.flash_fwd, fa.flash_bwd_dq,
+                             fa.flash_bwd_dkv), (2, 1, 1)):
+        variant = F32_KERNELS[w.__name__]
+        check(w.launches == per_layer * cfg.n_layers * 4
+              and by_kernel[variant] == w.launches,
+              f"train_stack parity f32: {w.__name__} launches by kernel "
+              f"{w.launches_by_kernel}: not {per_layer} x {cfg.n_layers} "
+              f"layers x 4 steps of {variant}")
+
+    feed = train_feed(cfg.vocab_size, 2, 256)
+    variants = {"remat": dict(stack),
+                "no_remat": dict(stack, remat=False),
+                "nothing_saveable": dict(stack, policy="nothing_saveable"),
+                "dots_saveable": dict(stack, policy="dots_saveable")}
+    results = {}
+    for name, kw in variants.items():
+        main, startup, loss = build_train(fluid, cfg, 1e-3, **kw)
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        grads = sorted(v for v in main.global_block().vars
+                       if v.endswith("@GRAD"))
+        fa.reset_launch_counts()
+        results[name] = (grads, exe.run(main, feed=feed,
+                                        fetch_list=[loss] + grads,
+                                        scope=scope),
+                         fa.flash_fwd.launches)
+    grads, want, _ = results["remat"]
+    rtol, atol = TOL_GRAD_F32
+    same = {}
+    for name, (g_names, got, k1) in results.items():
+        check(g_names == grads, f"{name}: other gradients {g_names}")
+        for n, g, w in zip(["loss"] + grads, got, want):
+            err = np.abs(g - w)
+            check(bool((err <= atol + rtol * np.abs(w)).all()),
+                  f"train_stack parity f32 {name}: {n} differs from "
+                  f"remat=True by {float(err.max()):.3e}")
+        same[name] = {"bit_identical": all(np.array_equal(g, w)
+                                           for g, w in zip(got, want)),
+                      "max_abs_diff": max(float(np.abs(g - w).max())
+                                          for g, w in zip(got, want)),
+                      "k1_launches": k1}
+    # K1 a layer: once without remat, twice with, three times when the
+    # whole forward's checkpoint nests around each layer's
+    for name, k1 in (("no_remat", 1), ("remat", 2),
+                     ("nothing_saveable", 3), ("dots_saveable", 3)):
+        check(same[name]["k1_launches"] == k1 * cfg.n_layers,
+              f"{name}: K1 launched {same[name]['k1_launches']} times, "
+              f"not {k1} x {cfg.n_layers} layers")
+    out.update(launches_by_kernel=by_kernel, remat_variants=same,
+               card=card)
+    log("train_stack parity f32: " + json.dumps(out))
+    return by_kernel, out
+
+
+def phase_amp(torch, fluid, fa, card):
+    """AMP on the 8B width, cut to AMP_LAYERS layers, float32 master
+    state: the unrolled program and the stacked one (``phase_train_
+    stack``'s knobs), each under ``amp_transpile`` O1 and O2 for
+    AMP_STEPS Adam steps on one batch of 2 x 2048 from a fresh startup:
+    finite, falling losses; K1-K3 on the bf16 tensor-core kernels (the
+    f32 program's products run in bf16, attention among them); every
+    parameter and Adam moment still float32; and the first loss against
+    the same program's forward without AMP (float32, TF32 off) within
+    the bf16 tier TOL_HALF_RTOL. Returns (launches by kernel symbol of
+    each run, stats)."""
+    from paddle_tpu_torch.models.llama import LLAMA3_8B
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=AMP_LAYERS,
+                              dtype="float32")
+    feed = train_feed(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    out, launches = {}, {}
+    for model, kw, k1_per_layer in (
+            ("unrolled", {}, 1),
+            ("stacked", dict(shard_pp=True, fused_head_chunk=STACK_CHUNK,
+                             remat=True), 2)):
+        main, startup, loss = build_train(fluid, cfg, 1e-4, **kw)
+
+        def fresh():
+            # a fresh Executor draws the startup's numbers anew: the same
+            # initial state for every run
+            scope = fluid.Scope()
+            exe = fluid.Executor()
+            exe.run(startup, scope=scope)
+            return scope, exe
+
+        scope, exe = fresh()
+        ref = float(np.asarray(exe.run(
+            main.clone(for_test=True), feed=feed, fetch_list=[loss],
+            scope=scope)[0]).reshape(()))
+        del scope, exe
+        free_card(torch)
+        for level in ("O1", "O2"):
+            tag = f"amp {model} {level}"
+            prog = fluid.transpiler.amp_transpile(main.clone(), level=level)
+            scope, exe = fresh()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = [float(np.asarray(exe.run(
+                prog, feed=feed, fetch_list=[loss],
+                scope=scope)[0]).reshape(())) for _ in range(AMP_STEPS)]
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            by_kernel = launches_by_kernel(fa)
+            check(all(math.isfinite(x) for x in losses),
+                  f"{tag}: non-finite loss {losses}")
+            check(losses[-1] < losses[0],
+                  f"{tag}: loss did not fall: {losses}")
+            check(abs(losses[0] - ref) <= TOL_HALF_RTOL * abs(ref),
+                  f"{tag}: first loss {losses[0]:.5f} vs {ref:.5f} without "
+                  f"AMP (rtol {TOL_HALF_RTOL})")
+            for name, w, per_layer in zip(("K1", "K2", "K3"), wrappers,
+                                          (k1_per_layer, 1, 1)):
+                _, variant = fa.kernel_for(w.__name__, torch.bfloat16, 128)
+                n = per_layer * cfg.n_layers * AMP_STEPS
+                check(w.launches == n and by_kernel[variant] == n,
+                      f"{tag}: {name} launches by kernel "
+                      f"{w.launches_by_kernel}: not {n} of {variant}")
+            state = {v.name: scope.find_var(v.name).dtype
+                     for v in main.global_block().vars.values()
+                     if v.persistable and scope.find_var(v.name) is not None
+                     and scope.find_var(v.name).is_floating_point()}
+            check(all(dt == torch.float32 for dt in state.values()),
+                  f"{tag}: state not float32: "
+                  f"{ {k: str(v) for k, v in state.items()} }")
+            check(any("moment1" in n for n in state),
+                  f"{tag}: no Adam moment in the scope")
+            out[tag] = {"losses": losses, "first_loss_without_amp": ref,
+                        "first_loss_rel_diff": abs(losses[0] - ref) / abs(ref),
+                        "steps_s": took, "float32_state": len(state),
+                        "launches_by_kernel": by_kernel}
+            launches[tag] = by_kernel
+            del scope, exe
+            free_card(torch)
+    out = {"layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "runs": out, "card": card}
+    log("amp: " + json.dumps(out))
+    return launches, out
+
+
+def phase_nan_guard(torch, fluid, fa, card):
+    """The NaN guard on the card, on ``phase_train_stack_parity``'s
+    stacked float32 model: with clean weights the guarded step equals
+    the unguarded one (loss and every gradient within the f32 gradient
+    tier; which are bit-identical is reported); with one
+    planted inf in ``blocks.wq`` ``Executor.run`` raises
+    FloatingPointError naming the same op outputs as the CPU run of the
+    same step; ``repeats=2`` raises ValueError."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(**PARITY_CFG)
+    main, startup, loss = build_train(
+        fluid, cfg, 1e-3, shard_pp=True, fused_head_chunk=PARITY_CHUNK,
+        remat=True)
+    guarded = fluid.debugger.enable_nan_guard(main.clone())
+    gpu = fluid.Executor()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    gpu.run(startup, scope=scope)
+    state = weights.dump_state(scope)
+    feed = train_feed(cfg.vocab_size, 2, 256)
+    grads = sorted(v for v in main.global_block().vars
+                   if v.endswith("@GRAD"))
+    plain_scope = weights.load_state(fluid.Scope(), state, gpu.device)
+    got = gpu.run(guarded, feed=feed, fetch_list=[loss] + grads,
+                  scope=scope)
+    want = gpu.run(main, feed=feed, fetch_list=[loss] + grads,
+                   scope=plain_scope)
+    rtol, atol = TOL_GRAD_F32
+    for n, g, w in zip(["loss"] + grads, got, want):
+        err = np.abs(g - w)
+        check(bool((err <= atol + rtol * np.abs(w)).all()),
+              f"nan_guard: {n} of the guarded step differs from the "
+              f"unguarded one's by {float(err.max()):.3e}")
+    # the embedding's gradient sums rows in an order the device picks
+    identical = [n for n, g, w in zip(["loss"] + grads, got, want)
+                 if np.array_equal(g, w)]
+
+    wq = state["blocks.wq"].copy()
+    wq[0, 0, 0] = np.inf
+    messages = {}
+    for name, exe, dev in (("card", gpu, gpu.device),
+                           ("cpu", cpu, torch.device("cpu"))):
+        sc = weights.load_state(fluid.Scope(), dict(state, **{
+            "blocks.wq": wq}), dev)
+        try:
+            exe.run(guarded, feed=feed, fetch_list=[loss], scope=sc)
+        except FloatingPointError as e:
+            messages[name] = str(e)
+        check(name in messages, f"nan_guard: no FloatingPointError on the "
+                                f"{name} with an inf in blocks.wq")
+    check(messages["card"] == messages["cpu"],
+          f"nan_guard: the card names {messages['card']!r}, the CPU "
+          f"{messages['cpu']!r}")
+    try:
+        gpu.run(guarded, feed=feed, fetch_list=[loss], scope=scope,
+                repeats=2)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "nan_guard: repeats=2 with the guard did not raise")
+    out = {"clean_step_within_f32_tier": True,
+           "bit_identical": len(identical) == len(grads) + 1,
+           "differ_in_bits": sorted(set(["loss"] + grads) - set(identical)),
+           "grads": len(grads),
+           "tripped": messages["card"], "card": card}
+    log("nan_guard: " + json.dumps(out))
+    return out
 
 
 def phase_plain_route(torch, fluid, fa, card):
@@ -1288,10 +1610,21 @@ def main():
                              for k in ("device_busy_ms", "device_ms_by_kind")}
                 for s in (serve_bf16, serve_f32)}))
         # training, the main path of slices 2 to 4
-        train_launches, _ = phase_train(torch, fluid, fa, smi)
+        train_launches, train = phase_train(torch, fluid, fa, smi)
+        free_card(torch)
+        # the reference's own train benchmark (stacked, remat, fused
+        # loss): the main path whose launches the kernel line reports
+        stack_launches, _ = phase_train_stack(torch, fluid, fa, smi, train)
         free_card(torch)
         # float32 training, the main path of slices 5 and 6
         parity_launches, _ = phase_train_parity(torch, fluid, fa, smi)
+        free_card(torch)
+        stack_parity_launches, _ = phase_train_stack_parity(torch, fluid,
+                                                            fa, smi)
+        free_card(torch)
+        amp_launches, _ = phase_amp(torch, fluid, fa, smi)
+        free_card(torch)
+        phase_nan_guard(torch, fluid, fa, smi)
         free_card(torch)
         phase_plain_route(torch, fluid, fa, smi)
     except SmokeFailure as e:
@@ -1306,13 +1639,18 @@ def main():
     f32_shape = "bh=8 t=256 d=128 causal f32 (train parity)"
     replaces = {"fwd": ":59", "dq": ":223", "dkv": ":189"}
     kernels = []
-    # bf16 rows at the training shape (launches: the bf16 train step),
-    # then the float32 K1, K2 and K3 (split-operand tensor cores;
-    # launches: the f32 train step)
+    # bf16 rows at the training shape (launches: this slice's main path,
+    # the stacked bf16 train step, K1 with its remat recompute), then the
+    # float32 K1, K2 and K3 (split-operand tensor cores; launches: the
+    # f32 train step); every path's launches under "launches_by_path"
+    paths = {"train": train_launches, "train_stack": stack_launches,
+             "train_parity_f32": parity_launches,
+             "train_stack_parity_f32": stack_parity_launches,
+             **amp_launches}
     for kind_, label, launches, shape in (
-            ("fwd", TRAIN_LABEL, train_launches, train_shape),
-            ("dq", TRAIN_LABEL, train_launches, train_shape),
-            ("dkv", TRAIN_LABEL, train_launches, train_shape),
+            ("fwd", TRAIN_LABEL, stack_launches, train_shape),
+            ("dq", TRAIN_LABEL, stack_launches, train_shape),
+            ("dkv", TRAIN_LABEL, stack_launches, train_shape),
             ("fwd", "f32 causal", parity_launches, f32_shape),
             ("dq", "f32 causal", parity_launches, f32_shape),
             ("dkv", "f32 causal", parity_launches, f32_shape)):
@@ -1328,6 +1666,7 @@ def main():
                "replaces": "paddle_tpu/ops/pallas_attention.py"
                            + replaces[kind_],
                "launches": launches[fn],
+               "launches_by_path": {p: n[fn] for p, n in paths.items()},
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -27,6 +27,7 @@ from .ops import basic as _ops_basic          # noqa: F401
 from .ops import nn as _ops_nn                # noqa: F401
 from .ops import transformer_ops as _ops_tf   # noqa: F401
 from .ops import optimizer_ops as _ops_opt    # noqa: F401
+from .ops import fused_loss as _ops_loss      # noqa: F401
 
 from .core.framework import (                  # noqa: F401
     Program, Block, Variable, Parameter, Operator,
@@ -47,5 +48,8 @@ from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import resilience                       # noqa: F401
 from . import serving                          # noqa: F401
 from . import weights                          # noqa: F401
+from . import debugger                         # noqa: F401
+from . import transpiler                       # noqa: F401
+from .transpiler import memory_optimize        # noqa: F401
 
 __version__ = "0.1.0"

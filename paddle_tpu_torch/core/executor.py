@@ -17,10 +17,16 @@ come back as float32 (exact — every bfloat16 is a float32).
 
 A program with a ``backward`` marker is one train step (lowering.py);
 ``run(..., repeats=k)`` takes k such steps on the same feed, as the
-reference does in one dispatch.
+reference does in one dispatch. A train step donates its state, as the
+reference's Executor does by default: each optimizer update ends in the
+scope's own tensor, so the old and the new state are never both held
+(a tensor placed in two scopes is updated in both). With the NaN guard on
+(``debugger.enable_nan_guard``) a run reads the step's finite flags back
+once, after writing the scope, and raises ``FloatingPointError`` naming
+the first non-finite op outputs.
 
-Later slices: the artifact store, the profiler hook, the static verifier,
-the PADDLE_TPU_OPTIMIZE hook and the NaN guard.
+Later slices: the artifact store, the profiler hook, the static verifier
+and the PADDLE_TPU_OPTIMIZE hook.
 """
 import contextlib
 import warnings
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from . import framework
-from .lowering import lower_program, written_names
+from .lowering import GUARD, lower_program, written_names
 from ..resilience import faultinject as _faultinject
 from ..resilience.retry import (TransientDeviceError, default_policy,
                                 with_retries)
@@ -169,6 +175,9 @@ class Executor:
         if not 1 <= repeats <= 32:
             raise ValueError(f"repeats must be in [1, 32], got {repeats}")
         program = program or framework.default_main_program()
+        if repeats > 1 and getattr(program, "_nan_guard", False):
+            raise ValueError("repeats > 1 does not compose with the "
+                             "NaN guard — flags are per dispatch")
         scope = scope or global_scope()
         feed = dict(feed) if feed else {}
         fetch_names, mode, state, feed_vals = \
@@ -221,8 +230,12 @@ class Executor:
             on_retry=lambda exc, n, delay: warnings.warn(
                 f"transient device error on dispatch (failure {n}): "
                 f"{exc}; retrying in {delay:.3g}s", stacklevel=3))
+        guard = new_state.pop(GUARD, None)
         for n, v in new_state.items():
             scope.set(n, v)
+        # after the scope is written, so a tripped guard leaves the
+        # step's state readable
+        check_nan_guard(guard, step_fn.guard_labels)
         if return_numpy:
             fetches = [to_numpy(f) for f in fetches]
         return fetches
@@ -273,7 +286,8 @@ class Executor:
             raise NotImplementedError(
                 "SequenceBatch values are a later slice of the torch port "
                 "(ROADMAP.md item 'Remaining op families')")
-        return torch.as_tensor(np.asarray(v), device=self.device)
+        # a copy: a donated update never writes into the caller's array
+        return torch.as_tensor(np.array(v), device=self.device)
 
     # ------------------------------------------------------------------
     # step-build introspection (serving/ warmup leans on this to PROVE
@@ -299,10 +313,28 @@ class Executor:
         self._cache.clear()
 
 
+def check_nan_guard(flags, labels):
+    """Raise FloatingPointError naming the first non-finite op outputs
+    of a guarded step (``flags``: its bool tensor, one flag a label; None
+    when the guard is off). One read back from the device."""
+    if flags is None:
+        return
+    ok = flags.cpu().numpy()
+    if not ok.all():
+        bad = [labels[i] if i < len(labels) else f"op#{i}"
+               for i in np.nonzero(~ok)[0][:8]]
+        raise FloatingPointError(
+            "NaN/Inf guard tripped — first non-finite op "
+            f"outputs: {bad}")
+
+
 def to_numpy(t):
-    """A fetched tensor as numpy on the host; bfloat16 widens to
-    float32 (numpy has no bfloat16 without ml_dtypes)."""
+    """A fetched tensor as a numpy array of its own on the host (a fetched
+    state tensor is updated in place by a later donating step);
+    bfloat16 widens to float32 (numpy has no bfloat16 without
+    ml_dtypes)."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
+        return t.float().cpu().numpy()
+    a = t.cpu().numpy()
+    return a.copy() if t.device.type == "cpu" else a

@@ -11,19 +11,116 @@ step, as in the reference: the ops before the marker run under
 grad, ``torch.autograd.grad`` of the loss binds the ``<param>@GRAD``
 names (zeros for a parameter the loss does not reach, as
 ``jax.value_and_grad`` gives), and the optimizer ops after the marker
-run under ``torch.no_grad()``. The remat policies, AMP casts and the NaN
-guard are refused until they are ported (ROADMAP.md item 'Training').
+run under ``torch.no_grad()``.
+
+Three program-level switches shape the step, as in the reference:
+
+- AMP (``program._amp``, ``transpiler/amp.py``): the casts of
+  ``core/amp_policy.py`` around each op. They are torch ops inside the
+  autograd graph, so float32 master parameters get float32 gradients,
+  as ``jax.value_and_grad`` gives them through ``astype``.
+- Rematerialisation (``program._remat_policy``,
+  ``transpiler/memory_optimization.py``): the forward segment runs under
+  ``torch.utils.checkpoint`` (non-reentrant), with a selective policy
+  where the jax policy saves some values (:data:`REMAT_POLICIES`).
+- The NaN guard (``program._nan_guard``, ``debugger.py``): one
+  ``isfinite(v).all()`` flag per float op output, labelled
+  ``"{op.type} -> {name}"``, stacked into one tensor that the executor
+  reads back once per run.
 """
+import functools
+
 import torch
 
 from . import framework
+from .amp_policy import (AMP_BF16_FLOW_OPS, AMP_MATMUL_OPS,
+                         AMP_SELF_MANAGED_DTYPE_OPS)
 from .registry import get_op
 
 __all__ = ["LoweringContext", "Env", "lower_program", "written_names",
-           "read_names", "RANGE_OPTIMIZER"]
+           "read_names", "RANGE_OPTIMIZER", "REMAT_POLICIES", "remat_saves",
+           "GUARD"]
 
 # the torch.profiler range around a train step's optimizer ops
 RANGE_OPTIMIZER = "paddle_tpu_torch.optimizer"
+# the new-state entry that carries a guarded step's finite flags
+GUARD = "__nan_guard__"
+
+# jax.checkpoint policy names the reference accepts → the aten products
+# whose outputs the torch form saves (None: no checkpoint at all; an
+# empty tuple: a plain checkpoint that saves nothing). jax's dot_general
+# is torch's mm / addmm (products of [.., K] x [K, N], no batch dims) and
+# bmm (batched).
+_DOTS = ("mm", "addmm", "bmm")
+_DOTS_NO_BATCH = ("mm", "addmm")
+REMAT_POLICIES = {
+    "everything_saveable": None,
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+    "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
+}
+_CONV_NETS = "ROADMAP.md item 'Conv nets and the transpilers'"
+# the reference's other policy names, refused by name
+_REFUSED_POLICIES = {
+    "recompute_norms": "it saves all but the batch_norm_out values that "
+                       "the conv-net ops tag, a later slice of the torch "
+                       f"port ({_CONV_NETS})",
+    "save_conv_only": "it saves only the conv_out values that the conv-net "
+                      "ops tag, a later slice of the torch port "
+                      f"({_CONV_NETS})",
+    "offload_dot_with_no_batch_dims": "host offload of saved values is not "
+                                      "ported",
+    "save_and_offload_only_these_names": "host offload of saved values is "
+                                         "not ported",
+}
+for _n in ("save_anything_except_these_names", "save_any_names_but_these",
+           "save_only_these_names", "save_from_both_policies"):
+    _REFUSED_POLICIES[_n] = (
+        "it is a jax policy factory that takes value names, and the "
+        f"only named values are the conv-net tags ({_CONV_NETS})")
+
+
+def remat_saves(policy):
+    """The aten products the torch form of remat ``policy`` saves (see
+    :data:`REMAT_POLICIES`). Raises NotImplementedError naming a policy
+    the reference accepts that the port has no counterpart for, and
+    ValueError for a name neither knows."""
+    if policy in REMAT_POLICIES:
+        return REMAT_POLICIES[policy]
+    if policy in _REFUSED_POLICIES:
+        raise NotImplementedError(
+            f"remat policy {policy!r}: {_REFUSED_POLICIES[policy]}")
+    valid = ["auto"] + sorted(REMAT_POLICIES) + sorted(_REFUSED_POLICIES)
+    raise ValueError(f"unknown remat policy {policy!r}; one of {valid}")
+
+
+def checkpointed(fn, saves):
+    """``fn`` under non-reentrant ``torch.utils.checkpoint``: a plain
+    checkpoint for ``saves == ()``, selective checkpointing that saves
+    the outputs of the aten ops named in ``saves`` (and recomputes the
+    rest) otherwise, ``fn`` itself for ``saves is None``.
+
+    The hand kernels launch through ctypes, which the dispatcher cannot
+    see; only the ``torch.empty`` of their outputs is an aten op, and no
+    policy here saves one, so a kernel's output is either recomputed
+    with its launch or kept by its autograd node as a whole."""
+    if saves is None:
+        return fn
+    from torch.utils import checkpoint as ckpt
+    if not saves:
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    keep = {getattr(torch.ops.aten, n).default for n in saves}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in keep
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(
+        ckpt.checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy))
 
 
 class Env:
@@ -93,6 +190,12 @@ class LoweringContext:
         self._read = read  # names something reads (None: assume all)
         self.op = None    # current op (set by eval_op)
         self.env = None   # current env (set by eval_op)
+        # (label, is-finite flag) per float op output when the program's
+        # NaN guard is on (debugger.enable_nan_guard); None: not recording
+        self.guard = [] if getattr(program, "_nan_guard", False) else None
+        # name -> state tensor an optimizer op may update in place (a
+        # step that donates its state, during its optimizer segment)
+        self.donated = {}
 
     @property
     def is_test(self):
@@ -106,6 +209,19 @@ class LoweringContext:
         if self._read is None or self.op is None:
             return True
         return any(n in self._read for n in self.op.outputs.get(slot, ()))
+
+    def donated_output(self, in_slot, out_slot, value):
+        """The tensor the current op may write its ``out_slot`` into in
+        place: ``value`` — what it reads at ``in_slot`` — when that is a
+        donated state tensor and ``out_slot`` writes the same name back;
+        else None (a rule then writes a new tensor)."""
+        op = self.op
+        if not self.donated or op is None:
+            return None
+        names = op.inputs.get(in_slot, [])
+        if len(names) != 1 or op.outputs.get(out_slot) != names:
+            return None
+        return value if self.donated.get(names[0]) is value else None
 
     def next_key(self):
         """A fresh ``torch.Generator`` on the device, seeded from
@@ -144,6 +260,21 @@ class LoweringContext:
         opdef = get_op(op.type)
         ins = {slot: [env[n] for n in names]
                for slot, names in op.inputs.items()}
+        amp_level = getattr(self.program, "_amp", False)
+        amp = bool(amp_level) and op.type in AMP_MATMUL_OPS
+        o2 = amp_level == "O2"
+        o2_flow = o2 and not amp and op.type in AMP_BF16_FLOW_OPS
+        flow_had_bf16 = False
+        if amp:
+            # matmul-shaped ops compute in bf16; master values stay f32
+            ins = _cast_all(ins, torch.float32, torch.bfloat16)
+        elif o2 and not o2_flow:
+            # O2: any op outside the flow set (softmax, losses, optimizer
+            # math) gets f32 inputs
+            ins = _cast_all(ins, torch.bfloat16, torch.float32)
+        elif o2_flow:
+            flow_had_bf16 = any(getattr(v, "dtype", None) == torch.bfloat16
+                                for vals in ins.values() for v in vals)
         prev_op, prev_env = self.op, self.env
         self.op, self.env = op, env
         try:
@@ -152,6 +283,13 @@ class LoweringContext:
             self.op, self.env = prev_op, prev_env
         if outs is None:
             return
+        if amp and not o2:
+            outs = _cast_all(outs, torch.bfloat16, torch.float32)
+        elif o2_flow and flow_had_bf16 \
+                and op.type not in AMP_SELF_MANAGED_DTYPE_OPS:
+            # a mixed-dtype flow op (a bf16 activation + an f32 bias)
+            # computes in f32, but its write stays bf16
+            outs = _cast_all(outs, torch.float32, torch.bfloat16)
         block = op.block
         for slot, names in op.outputs.items():
             if slot not in outs:
@@ -166,6 +304,41 @@ class LoweringContext:
                         and val.is_floating_point()):
                     val = val.detach()
                 env[name] = val
+                if self.guard is not None and val.is_floating_point():
+                    # detached: the probe is no part of the autograd
+                    # graph, so a remat's recompute saves what the
+                    # first run saved
+                    self.guard.append((f"{op.type} -> {name}",
+                                       torch.isfinite(val.detach()).all()))
+
+
+def _donate(op, env, state):
+    """Write each output of ``op`` that updates a tensor of ``state`` with
+    a new tensor into that state tensor and rebind the name to it: the
+    new tensor is freed at once, as a donated buffer is."""
+    for names in op.outputs.values():
+        for n in names:
+            old, new = state.get(n), env.d.get(n)
+            if (old is None or new is None or new is old
+                    or new.shape != old.shape or new.dtype != old.dtype
+                    or new.device != old.device):
+                continue
+            # a rule that wrote into the state itself hands back an alias
+            if (new.data_ptr(), new.stride()) != (old.data_ptr(),
+                                                  old.stride()):
+                old.copy_(new)
+            env[n] = old
+
+
+def _cast_all(vals_by_slot, from_dtype, to_dtype):
+    """Each tensor of ``{slot: value or [values]}`` of ``from_dtype`` cast
+    to ``to_dtype``; the rest as they are."""
+    def cast(v):
+        return v.to(to_dtype) if getattr(v, "dtype", None) == from_dtype \
+            else v
+    return {slot: [cast(v) for v in (vals if isinstance(vals, (list, tuple))
+                                     else [vals])]
+            for slot, vals in vals_by_slot.items()}
 
 
 def written_names(block, recursive=True):
@@ -201,39 +374,34 @@ def read_names(block):
     return out
 
 
-def _refuse_later_slices(program, has_backward):
-    for attr, what in (("_amp", "AMP (program._amp)"),
-                       ("_nan_guard", "the NaN guard (program._nan_guard)")):
-        if getattr(program, attr, False):
-            raise NotImplementedError(
-                f"{what} is a later slice of the torch port (ROADMAP.md "
-                "item 'Training': AMP and the NaN guard)")
-    if has_backward and program._remat_policy:
-        raise NotImplementedError(
-            f"remat policy {program._remat_policy!r} (memory_optimize) is "
-            "a later slice of the torch port (ROADMAP.md item 'Training': "
-            "remat policies as torch.utils.checkpoint)")
-
-
 def lower_program(program, fetch_names, mode):
     """Builds the step function for a Program.
 
     Returns ``fn(state, feed, device, seed, step) -> (new_state,
     fetches)`` where ``state`` holds the scope's persistables and
-    ``new_state`` every persistable some op of the program wrote.
+    ``new_state`` every persistable some op of the program wrote — and,
+    when the NaN guard is on, :data:`GUARD`: a bool tensor of one flag a
+    float op output, whose labels are ``fn.guard_labels``.
     ``fn.trains`` is True when the program has a backward marker: the
     step then manages grad mode itself and must not run under
     ``torch.no_grad()`` or ``torch.inference_mode()``.
+
+    A train step donates ``state`` (the reference's buffer donation):
+    each optimizer op's update of a persistable of ``state`` ends in
+    that state's own tensor as the op runs, so the old and the new state
+    are never both alive. A rule that asks
+    (:meth:`LoweringContext.donated_output`, Adam's) writes there
+    itself; any other's new tensor is copied in and freed.
     """
     gb = program.global_block()
     ops = gb.ops
     bwd_idx = next((i for i, op in enumerate(ops) if op.type == "backward"),
                    None)
-    _refuse_later_slices(program, bwd_idx is not None)
     written = written_names(gb)
     persistables = {n for n, v in gb.vars.items() if v.persistable}
     out_names = sorted(persistables & written)
     read = read_names(gb) | set(fetch_names) | persistables
+    guarded = bool(getattr(program, "_nan_guard", False))
 
     if bwd_idx is not None:
         bwd_op = ops[bwd_idx]
@@ -247,33 +415,58 @@ def lower_program(program, fetch_names, mode):
             for ns in op.inputs.values():
                 needed_after.update(ns)
         needed_after.update(persistables)
+        # memory_optimize(): the forward segment under torch.utils.
+        # checkpoint, saving what the policy saves
+        saves = (remat_saves(program._remat_policy)
+                 if program._remat_policy else None)
 
-    def train_segment(ctx, env):
+    def train_segment(ctx, env, state):
+        base = dict(env.d)
+        key0 = ctx._key_count
+        runs = []
+
+        def forward(*leaf_vals):
+            # a recompute (remat) draws the same random numbers and adds
+            # no guard flags: it re-runs what the first run recorded
+            ctx._key_count = key0
+            guard, ctx.guard = ctx.guard, (ctx.guard if not runs else None)
+            runs.append(True)
+            try:
+                fwd = Env()
+                fwd.update(base)
+                fwd.update(zip(param_names, leaf_vals))
+                for op in ops[:bwd_idx]:
+                    ctx.eval_op(op, fwd)
+                loss = fwd[loss_name].reshape(())
+                # the forward's own values: what came in stays as it is
+                return loss, {n: v for n, v in fwd.d.items()
+                              if n in needed_after and n not in leaves
+                              and v is not base.get(n)}
+            finally:
+                ctx.guard = guard
+
         leaves = {p: env[p].detach().requires_grad_() for p in param_names}
-        fwd = Env()
-        fwd.update(env.d)
-        fwd.update(leaves)
         with torch.enable_grad():
-            for op in ops[:bwd_idx]:
-                ctx.eval_op(op, fwd)
-            loss = fwd[loss_name].reshape(())
-            kept = {n: v for n, v in fwd.d.items()
-                    if n in needed_after and n not in leaves}
-            del fwd
+            loss, kept = checkpointed(forward, saves)(
+                *(leaves[p] for p in param_names))
+            key_after = ctx._key_count
             if loss.requires_grad:
                 grads = torch.autograd.grad(
                     loss, [leaves[p] for p in param_names],
                     allow_unused=True)
             else:
                 grads = [None] * len(param_names)
+        ctx._key_count = key_after
         env.update({n: v.detach() for n, v in kept.items()})
         for p, g in zip(param_names, grads):
             env[framework.grad_var_name(p)] = \
                 torch.zeros_like(env[p]) if g is None else g
+        ctx.donated = state
         with torch.no_grad(), \
                 torch.profiler.record_function(RANGE_OPTIMIZER):
             for op in ops[bwd_idx + 1:]:
                 ctx.eval_op(op, env)
+                _donate(op, env, state)
 
     def fn(state, feed, device, seed, step):
         ctx = LoweringContext(program, mode, device, seed, step, read)
@@ -284,10 +477,17 @@ def lower_program(program, fetch_names, mode):
             for op in ops:
                 ctx.eval_op(op, env)
         else:
-            train_segment(ctx, env)
+            train_segment(ctx, env, state)
         new_state = {n: env.d[n] for n in out_names if n in env.d}
         fetches = [env[n] for n in fetch_names]
+        if guarded:
+            # emitted whenever the guard is on, even with no float output
+            fn.guard_labels = [label for label, _ in ctx.guard]
+            new_state[GUARD] = (
+                torch.stack([flag for _, flag in ctx.guard]) if ctx.guard
+                else torch.ones((0,), dtype=torch.bool, device=device))
         return new_state, fetches
 
     fn.trains = bwd_idx is not None
+    fn.guard_labels = []
     return fn

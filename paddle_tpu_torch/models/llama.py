@@ -1,13 +1,18 @@
 """Llama-3-style decoder-only LLM (port of ``paddle_tpu/models/llama.py``).
 
-The port builds the unrolled decoder — embedding → [rms_norm → GQA
-attention with rope on the flash kernels → rms_norm → SwiGLU MLP] × L →
-rms_norm → lm_head, and with ``targets`` the unfused loss
-softmax_with_cross_entropy → mean — with the same layer calls, so the
-port's program has the reference's op types and parameter names one for
-one. MoE, the layer-stacked pipeline (``shard_pp``), the vocab-chunked
-fused head (``fused_head_chunk``), sharded variants and generation
-arrive with later slices (ROADMAP.md) and are refused by name.
+The port builds the decoder with the same layer calls as the reference,
+so its program has the reference's op types and parameter names one for
+one: embedding → [rms_norm → GQA attention with rope on the flash
+kernels → rms_norm → SwiGLU MLP] × L → rms_norm → lm_head, and with
+``targets`` the loss softmax_with_cross_entropy → mean. ``shard_pp``
+builds the layers as one layer-stacked ``llama_decoder_stack`` op (on
+one device a loop over the layers, each rematerialised with ``remat``),
+and ``fused_head_chunk`` the loss as the vocab-chunked
+``fused_head_cross_entropy``, which never builds the logits — the
+reference's own train benchmark takes both (``bench.py``
+``transformer_main``). A pipeline over a mesh (``pp_schedule="1f1b"``),
+the other mesh knobs, MoE and generation arrive with later slices
+(ROADMAP.md) and are refused by name.
 """
 from dataclasses import dataclass
 
@@ -57,21 +62,38 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
                 remat=True):
     """Builds the forward (and loss if ``targets``) graph, as the
     reference does. tokens (and targets): int data vars [batch, seq].
-    Returns (logits, avg_loss|None). ``scan_unroll`` and ``remat`` only
-    shape the reference's ``shard_pp`` layer scan; the other knobs are
-    refused until their slice is ported."""
+    Returns (logits, avg_loss|None); logits are None under
+    ``fused_head_chunk``, which needs ``targets``.
+
+    ``shard_pp`` builds the decoder as one layer-stacked op
+    (``llama_decoder_stack``); on one device, as here, that is a loop
+    over the layers, with ``pp_n_micro`` and ``scan_unroll`` kept on the
+    op and changing nothing, and ``remat`` recomputing each layer in the
+    backward pass. ``fused_head_chunk`` > 0 computes the loss with the
+    vocab-chunked fused lm-head cross entropy in chunks of that many
+    columns."""
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {pp_schedule!r}")
-    if shard_pp or pp_schedule != "gpipe":
+    if pp_schedule == "1f1b" and not shard_pp:
+        raise ValueError("pp_schedule='1f1b' requires shard_pp=True")
+    if pp_schedule == "1f1b" and targets is None:
+        raise ValueError("pp_schedule='1f1b' requires targets — the "
+                         "loss lives inside the pipelined op")
+    if fused_head_chunk and targets is None:
+        raise ValueError("fused_head_chunk requires targets")
+    if shard_pp and cfg.moe_experts > 0:
+        raise ValueError("shard_pp does not compose with moe_experts — "
+                         "pick pipeline or expert parallelism per stack")
+    if shard_pp and (shard_tp or shard_sp):
+        raise ValueError("shard_pp composes with dp (microbatch axis), "
+                         "not with tp/sp — stage weights are pp-sharded "
+                         "and the stacked decoder runs flash (not ring) "
+                         "attention inside the pipeline")
+    if pp_schedule == "1f1b":
         raise NotImplementedError(
-            "shard_pp / pp_schedule (the layer-stacked decoder, "
-            "llama_decoder_stack) is a later slice of the torch port "
-            "(ROADMAP.md items 'Training' and 'Multi-device parallelism')")
-    if fused_head_chunk:
-        raise NotImplementedError(
-            "fused_head_chunk (the vocab-chunked fused_head_cross_entropy) "
-            "is a later slice of the torch port (ROADMAP.md item "
-            "'Training')")
+            "pp_schedule='1f1b' (llama_stack_1f1b_loss, the pipelined "
+            "backward) is a later slice of the torch port (ROADMAP.md "
+            "item 'Multi-device parallelism')")
     if shard_tp or shard_sp or shard_dp:
         raise NotImplementedError(
             "shard_tp / shard_sp / shard_dp need a device mesh, a later "
@@ -88,6 +110,14 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
                              name="tok_emb",
                              initializer=init_mod.Normal(0.0, 0.02)),
                          dtype=dt)
+    if shard_pp:
+        h = tfl.llama_decoder_stack(
+            h, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, ffn_hidden=cfg.ffn_hidden,
+            rope_base=cfg.rope_base, epsilon=cfg.norm_eps,
+            n_micro=pp_n_micro, scan_unroll=scan_unroll, remat=remat,
+            name="blocks")
+        return _finish(cfg, h, tokens, targets, fused_head_chunk)
     for i in range(cfg.n_layers):
         pre = tfl.rms_norm(h, epsilon=cfg.norm_eps,
                            param_attr=ParamAttr(name=f"l{i}.attn_norm"))
@@ -111,14 +141,26 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
         mlp = _linear(layers.elementwise_mul(gate, up), cfg.dim,
                       f"l{i}.w_down")
         h = layers.elementwise_add(h, mlp)
+    return _finish(cfg, h, tokens, targets, fused_head_chunk)
 
+
+def _finish(cfg, h, tokens, targets, fused_head_chunk=0):
+    """final_norm → lm_head logits (none under ``fused_head_chunk``) →
+    the loss when ``targets`` (reference ``_finish``, one device)."""
     h = tfl.rms_norm(h, epsilon=cfg.norm_eps,
                      param_attr=ParamAttr(name="final_norm"))
-    logits = _linear(h, cfg.vocab_size, "lm_head")
+    logits = None
+    if not fused_head_chunk:
+        logits = _linear(h, cfg.vocab_size, "lm_head")
     tokens.sharding = P(None, None)
     avg_loss = None
     if targets is not None:
         targets.sharding = P(None, None)
-        loss = layers.softmax_with_cross_entropy(logits, targets)
+        if fused_head_chunk:
+            loss = tfl.fused_head_cross_entropy(
+                h, targets, cfg.vocab_size, chunk_size=fused_head_chunk,
+                head_name="lm_head")
+        else:
+            loss = layers.softmax_with_cross_entropy(logits, targets)
         avg_loss = layers.mean(loss)
     return logits, avg_loss

@@ -53,20 +53,17 @@ def _momentum(ctx, ins, attrs):
             "VelocityOut": [_like(v_out, v)]}
 
 
-@register_op("adam")
-def _adam(ctx, ins, attrs):
-    """The reference's arithmetic in its order. The f32 temporaries that
-    this rule creates itself are updated in place, so at most a handful
-    of f32 copies of the parameter are alive at once — at a 128256 x
-    4096 bf16 table each is 2.1 GB."""
-    p, g = ins["Param"][0], ins["Grad"][0]
-    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
-    b1p = ins["Beta1Pow"][0].reshape(())
-    b2p = ins["Beta2Pow"][0].reshape(())
-    b1 = attrs.get("beta1", 0.9)
-    b2 = attrs.get("beta2", 0.999)
-    eps = attrs.get("epsilon", 1e-8)
-    lr = _lr(ins) * torch.sqrt(1 - b2p) / (1 - b1p)
+# elements of a parameter one Adam update takes at a time: its float32
+# temporaries are a few of these (64 MB each), not a few float32 copies
+# of the whole parameter (2.1 GB each at a 128256 x 4096 table), so the
+# optimizer segment does not set a train step's peak memory
+ADAM_CHUNK = 1 << 24
+
+
+def _adam_math(p, g, m1, m2, lr, b1, b2, eps):
+    """The reference's arithmetic in its order, in float32: (param,
+    moment1, moment2) updated. The f32 temporaries it creates itself are
+    updated in place."""
     gf, = _f32(g)
     m1o = b1 * m1.float()
     m1o += (1 - b1) * gf
@@ -78,9 +75,38 @@ def _adam(ctx, ins, attrs):
     denom += eps
     upd /= denom
     del denom
-    po = p.float() - upd
-    return {"ParamOut": [_like(po, p)], "Moment1Out": [_like(m1o, m1)],
-            "Moment2Out": [_like(m2o, m2)]}
+    return p.float() - upd, m1o, m2o
+
+
+@register_op("adam")
+def _adam(ctx, ins, attrs):
+    """Elementwise, so it runs a slice of ADAM_CHUNK elements at a time,
+    each slice's float32 results rounded once to the stored dtype as
+    they are written — the same numbers as the whole tensor at once.
+    A step that donates its state (``LoweringContext.donated_output``)
+    has each slice written into the parameter and moments themselves:
+    a slice is read whole before it is written."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    b1p = ins["Beta1Pow"][0].reshape(())
+    b2p = ins["Beta2Pow"][0].reshape(())
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    lr = _lr(ins) * torch.sqrt(1 - b2p) / (1 - b1p)
+    outs = []
+    for slot, t in (("Param", p), ("Moment1", m1), ("Moment2", m2)):
+        dest = ctx.donated_output(slot, slot + "Out", t) \
+            if ctx is not None else None
+        outs.append(torch.empty_like(t) if dest is None else dest)
+    flat = [t.reshape(-1) for t in (p, g, m1, m2)]
+    for start in range(0, p.numel(), ADAM_CHUNK):
+        part = slice(start, start + ADAM_CHUNK)
+        for out, val in zip(outs, _adam_math(*(t[part] for t in flat), lr,
+                                             b1, b2, eps)):
+            out.view(-1)[part].copy_(val)
+    return {"ParamOut": [outs[0]], "Moment1Out": [outs[1]],
+            "Moment2Out": [outs[2]]}
 
 
 @register_op("adamax")

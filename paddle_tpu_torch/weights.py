@@ -31,14 +31,16 @@ def array_to_tensor(arr, device):
 
 
 def tensor_to_array(t, bfloat16=None):
-    """One tensor as a host numpy array. bfloat16 comes back as its bits
-    viewed as ``bfloat16`` (a numpy dtype) when given, else as float32."""
+    """One tensor as a host numpy array of its own (never a view of the
+    tensor: a train step that donates its state updates the scope's
+    tensors in place). bfloat16 comes back as its bits viewed as
+    ``bfloat16`` (a numpy dtype) when given, else as float32."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         if bfloat16 is None:
             return t.float().numpy()
-        return t.view(torch.int16).numpy().view(bfloat16)
-    return t.numpy()
+        return t.view(torch.int16).numpy().copy().view(bfloat16)
+    return t.numpy().copy()
 
 
 def load_state(scope, arrays, device):

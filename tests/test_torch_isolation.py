@@ -67,6 +67,9 @@ import paddle_tpu_torch.weights, paddle_tpu_torch.ops.cuda_build
 import paddle_tpu_torch.optimizer, paddle_tpu_torch.regularizer
 import paddle_tpu_torch.clip, paddle_tpu_torch.core.backward
 import paddle_tpu_torch.ops.optimizer_ops, paddle_tpu_torch.layers.tensor
+import paddle_tpu_torch.ops.fused_loss, paddle_tpu_torch.core.amp_policy
+import paddle_tpu_torch.transpiler.amp, paddle_tpu_torch.debugger
+import paddle_tpu_torch.transpiler.memory_optimization
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                     "ml_dtypes"))
@@ -114,8 +117,9 @@ def test_tpu_place_is_the_card():
 
 def test_later_slices_refuse_loudly():
     """What the port has not ported yet raises NotImplementedError naming
-    its ROADMAP item; training itself (the backward marker,
-    build_llama(targets=...)) runs."""
+    its ROADMAP item; training itself runs, with the switches ported so
+    far: AMP, the NaN guard, remat policies, the layer-stacked decoder
+    (shard_pp) and the fused head loss (fused_head_chunk)."""
     infer, _, logits = _tiny_program()
     with pytest.raises(NotImplementedError, match="optimize"):
         ServingEngine(infer, ["tokens"], [logits], place=fluid.CPUPlace(),
@@ -132,24 +136,40 @@ def test_later_slices_refuse_loudly():
             fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
         return main, startup, loss
 
-    main, startup, loss = train_program()
     exe = fluid.Executor(fluid.CPUPlace())
-    scope = fluid.Scope()
-    exe.run(startup, scope=scope)
     feed = {"tokens": np.zeros((1, 8), np.int64)}
-    assert np.isfinite(exe.run(main, feed=feed, fetch_list=[loss],
-                               scope=scope)[0]).all()
-    for attr, value, match in (("_amp", "O1", "AMP"),
-                               ("_nan_guard", True, "NaN guard"),
-                               ("_remat_policy", "recompute_norms",
-                                "remat")):
+
+    def runs(main, startup, loss):
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        assert np.isfinite(out[0]).all()
+        return scope
+
+    main, startup, loss = train_program()
+    scope = runs(main, startup, loss)
+    # lifted: each switch's step runs
+    for attr, value in (("_amp", "O1"), ("_amp", "O2"), ("_nan_guard", True),
+                        ("_remat_policy", "nothing_saveable"),
+                        ("_remat_policy", "dots_saveable")):
         prog = main.clone()
         setattr(prog, attr, value)
-        with pytest.raises(NotImplementedError, match=match):
+        runs(prog, startup, loss)
+    for kw in (dict(fused_head_chunk=64), dict(shard_pp=True),
+               dict(shard_pp=True, fused_head_chunk=64, remat=False)):
+        runs(*train_program(**kw))
+    # still refused, by name
+    for policy in ("recompute_norms", "save_conv_only"):
+        prog = main.clone()
+        prog._remat_policy = policy
+        with pytest.raises(NotImplementedError, match=policy):
             exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
-    for kw, match in ((dict(fused_head_chunk=64), "fused_head_chunk"),
-                      (dict(shard_pp=True), "shard_pp"),
-                      (dict(shard_tp=True), "mesh")):
+        with pytest.raises(NotImplementedError, match=policy):
+            fluid.memory_optimize(main.clone(), policy=policy)
+    with pytest.raises(NotImplementedError, match="auto"):
+        fluid.memory_optimize(main.clone(), policy="auto")
+    for kw, match in ((dict(shard_pp=True, pp_schedule="1f1b"), "1f1b"),
+                      (dict(shard_tp=True), "shard_tp")):
         with pytest.raises(NotImplementedError, match=match):
             train_program(**kw)
     with pytest.raises(NotImplementedError, match="MoE"):

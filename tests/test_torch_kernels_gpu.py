@@ -373,3 +373,119 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
     for g, w in zip(grads["cuda"], grads["cpu"]):
         atol = 0.1 * float(w.square().mean().sqrt())
         torch.testing.assert_close(g, w, rtol=2e-2, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the training switches on the card: stacked decoder with remat, the fused
+# loss, memory_optimize, AMP and the NaN guard
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_stacked_remat_fused_llama_on_the_card_matches_the_cpu():
+    """``build_llama(shard_pp=True, fused_head_chunk=384, remat=True)``
+    in float32 on the card (the three ``_f32mma`` kernels, K1 twice a
+    layer a step) against the CPU at the f32 tiers; remat off and
+    ``memory_optimize`` (``nothing_saveable``, ``dots_saveable``) give
+    the gradients of remat on (chip_smoke.phase_train_stack_parity)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    by_kernel, out = chip_smoke.phase_train_stack_parity(torch, fluid, fa,
+                                                         "test")
+    assert by_kernel["flash_fwd_f32mma"] == 16
+    assert out["remat_variants"]["nothing_saveable"]["k1_launches"] == 6
+
+
+@pytest.mark.gpu
+def test_nan_guard_on_the_card_names_what_the_cpu_names():
+    """chip_smoke.phase_nan_guard: the guarded step equals the unguarded
+    one; an inf in blocks.wq trips the guard on the card with the CPU's
+    message; repeats=2 raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = chip_smoke.phase_nan_guard(torch, fluid, fa, "test")
+    assert "llama_decoder_stack -> " in out["tripped"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_loss_on_the_card_matches_float64(dtype):
+    """The fused loss at a sliding last chunk (V = 1000, chunk 192), its
+    loss, dH and dW on the card against float64 autograd of the full
+    logits on the same (dtype-valued) inputs: float32 (TF32 off) at
+    rtol 1e-4 / atol 1e-5, bf16 — logits in float32 from bf16 products,
+    the softmax gradient rounded once to bf16 before its products — at
+    rtol 2e-2 plus 1e-2 x the float64 gradient's RMS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.ops import fused_loss as fl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    r = np.random.RandomState(21)
+    h = torch.from_numpy(r.randn(300, 128).astype(np.float32)).to(dt)
+    w = torch.from_numpy((r.randn(128, 1000) * 0.1).astype(np.float32)) \
+        .to(dt)
+    t = torch.from_numpy(r.randint(0, 1000, (300,)))
+    t[::7] = -100
+    gw = torch.from_numpy(r.rand(300).astype(np.float32))
+    hc, wc = (x.cuda().requires_grad_() for x in (h, w))
+    loss = fl.fused_head_cross_entropy(hc, wc, t.cuda(), 192)
+    (loss * gw.cuda()).sum().backward()
+    h64, w64 = (x.double().requires_grad_() for x in (h, w))
+    logits = h64 @ w64
+    keep = t != -100
+    want = torch.zeros(300, dtype=torch.float64)
+    want[keep] = torch.logsumexp(logits[keep], -1) \
+        - logits[keep].gather(1, t[keep][:, None])[:, 0]
+    (want * gw.double()).sum().backward()
+    if dt == torch.float32:
+        tol = dict(rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(loss.detach().cpu().double(), want.detach(),
+                                   **tol)
+        torch.testing.assert_close(hc.grad.cpu().double(), h64.grad, **tol)
+        torch.testing.assert_close(wc.grad.cpu().double(), w64.grad, **tol)
+    else:
+        torch.testing.assert_close(loss.detach().cpu().double(),
+                                   want.detach(), rtol=1e-5, atol=1e-4)
+        for got, ref in ((hc.grad, h64.grad), (wc.grad, w64.grad)):
+            atol = 1e-2 * float(ref.square().mean().sqrt())
+            torch.testing.assert_close(got.cpu().double(), ref, rtol=2e-2,
+                                       atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_amp_on_the_card_runs_the_bf16_kernels(level):
+    """A float32 Llama (head dim 128) under amp_transpile on the card:
+    every K1/K2/K3 launch is a bf16 ``_mma`` kernel, the state stays
+    float32, and 3 Adam losses track the CPU's AMP run at rtol 5e-2
+    (tests/test_torch_amp.py's tier)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, ffn_hidden=512, dtype="float32")
+    main, startup, loss = chip_smoke.build_train(
+        fluid, cfg, 1e-3, shard_pp=True, fused_head_chunk=200, remat=True)
+    fluid.transpiler.amp_transpile(main, level=level)
+    gpu = fluid.Executor()
+    scope = fluid.Scope()
+    gpu.run(startup, scope=scope)
+    cpu_scope = weights.load_state(fluid.Scope(), weights.dump_state(scope),
+                                   torch.device("cpu"))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    feed = chip_smoke.train_feed(cfg.vocab_size, 2, 128)
+    fa.reset_launch_counts()
+    got = [float(gpu.run(main, feed=feed, fetch_list=[loss],
+                         scope=scope)[0].reshape(())) for _ in range(3)]
+    assert fa.flash_fwd.launches_by_kernel["flash_fwd_mma"] == 12
+    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq_mma"] == 6
+    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_mma"] == 6
+    assert fa.flash_fwd.launches == 12
+    want = [float(cpu.run(main, feed=feed, fetch_list=[loss],
+                          scope=cpu_scope)[0].reshape(())) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=5e-2)
+    assert got[-1] < got[0]
+    for p in main.all_parameters():
+        assert scope.find_var(p.name).dtype == torch.float32, p.name

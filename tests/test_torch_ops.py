@@ -67,7 +67,8 @@ PORTED = {"fill_constant", "uniform_random", "gaussian_random", "cast",
           "increment", "reshape", "reshape2", "lookup_table",
           "cross_entropy", "softmax_with_cross_entropy", "squared_l2_norm",
           "rms_norm", "rope", "multihead_attention",
-          "silu"} | OPTIMIZER_RULES
+          "silu", "llama_decoder_stack",
+          "fused_head_cross_entropy"} | OPTIMIZER_RULES
 
 
 def test_port_registers_exactly_the_slice_ops():

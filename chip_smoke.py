@@ -85,7 +85,33 @@ Phases — any failure exits non-zero:
    requests through ``ServingEngine`` on the card, matching the same
    runs on the CPU; its attention runs the plain versions, as the
    reference's gate sends that shape to its own, counted as
-   ``launches_by_kernel["plain"]``, with no kernel launched.
+   ``launches_by_kernel["plain"]``, with no kernel launched;
+11. transformer (the Transformer main path): ``TRANSFORMER_BASE``
+   (models/transformer.py: d_model 512, 8 heads of 64, 6 + 6 layers,
+   vocab 10000, dropout 0.1, label smoothing 0.1) in float32 at full
+   width and depth through ``Executor.run``, 32 x 256 source and target
+   tokens with lengths drawn from SEED, ``noam_decay(512, 4000)``
+   feeding ``Adam(beta1=0.9, beta2=0.98, epsilon=1e-9)``: 2 warmup and 8
+   timed steps with finite losses, the first near ln V + d/(d + V), the
+   last below the first, every fetched rate equal to its closed form,
+   K1/K2/K3 6 launches a step (the causal decoder self-attention) on the
+   float32 kernels; step time, tokens/s, peak memory and one step's
+   device time by kind;
+12. transformer_infer: ``clone(for_test=True)`` of the labels-free
+   program on 11's trained scope, logits equal to the CPU's within the
+   f32 serving tier and moved by the 1 - p dropout scaling;
+13. transformer_unpadded: the same model going on from 11's scope with
+   no lengths, 256 source and 128 target tokens, every attention on the
+   kernels (18 launches a step each, cross-attention tq 128 != tk 256);
+14. transformer_parity: the base width at 2 + 2 layers, dropout 0, its
+   step on the card equal to the CPU's (loss and every gradient, then 3
+   noam + Adam losses, the rates and the LR counter);
+15. dropout: the rule on the card over 32 x 256 x 512 values, kept share
+   within 5 sigma of 1 - p, replayed for one seed and step, both
+   scalings.
+The kernels phase also checks and times the float32 K1, K2 and K3 at
+Transformer-base's shapes (B*H 32 x 8, D 64: causal T 256, and
+non-causal tq 128 over tk 256), whose rows the kernel line adds.
 
 It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -164,6 +190,23 @@ F32_KERNELS = {"flash_fwd": "flash_fwd_f32mma",
 F32_FAULT_CASES = ("f32 serving T=256", "f32 causal")
 F32_LONG_LABEL = "f32 T=2048"   # the float32 kernels where the grid fills
 BIG_BH = 65536                  # past gridDim.y's 65535
+# Transformer-base (models/transformer.py TRANSFORMER_BASE: d_model 512,
+# 8 heads of 64, 6 + 6 layers, d_ff 2048, vocab 10000, float32) trained
+# as "Attention Is All You Need" section 5.3 does: noam_decay(512, 4000)
+# feeding Adam(beta1 0.9, beta2 0.98, eps 1e-9)
+TF_BATCH, TF_SEQ = 32, 256
+TF_LEN_RANGE = (64, 256)        # source/target lengths drawn from SEED
+TF_WARMUP, TF_STEPS = 2, 8
+TF_UNPADDED_STEPS = 3
+TF_NOAM_WARMUP = 4000
+TF_CAUSAL_LABEL = "f32 D=64 transformer causal"
+TF_CROSS_LABEL = "f32 D=64 transformer cross tq<tk"
+# the card-vs-CPU Transformer: the base width (head dim 64, so the
+# kernels) at 2 + 2 layers, 4 x 128 tokens with lengths, no dropout
+TF_PARITY = dict(n_encoder_layers=2, n_decoder_layers=2, dropout=0.0)
+TF_PARITY_BATCH, TF_PARITY_SEQ = 4, 128
+TOL_LOGITS_REL_RMS_F32 = 5e-4   # PERF.md section 2's f32 serving tier
+DROPOUT_P = 0.1
 INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
 # the profiler's kinds and the kernel functions each covers (both routes)
@@ -331,6 +374,12 @@ def phase_kernels(torch, fa, seed):
         ("fp16 ragged T=200 non-causal", 8, 200, 200, 128, f16, False),
         ("fp16 D=64 causal", 8, 256, 256, 64, f16, True),
         (F32_LONG_LABEL, bh_train, TRAIN_SEQ, TRAIN_SEQ, 128, f32, True),
+        # Transformer-base's attention (32 x 8 heads, head dim 64, f32):
+        # the causal decoder self-attention at T 256, and the unpadded
+        # cross-attention of 128 target rows over 256 source keys
+        (TF_CAUSAL_LABEL, TF_BATCH * 8, TF_SEQ, TF_SEQ, 64, f32, True),
+        (TF_CROSS_LABEL, TF_BATCH * 8, TF_SEQ // 2, TF_SEQ, 64, f32,
+         False),
     ]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -371,7 +420,7 @@ def phase_kernels(torch, fa, seed):
         if not ok:
             failures.append(label)
         results[label] = dict(
-            inputs=(q, k, v, do, causal),
+            inputs=(q, k, v, do, causal), heads=8 if d == 64 else None,
             err_fwd=max(errs["O"][1], errs["lse"][1]), err_dq=errs["dQ"][1],
             err_dkv=max(errs["dK"][1], errs["dV"][1]))
         if label == TRAIN_LABEL and ok:
@@ -393,7 +442,9 @@ def phase_kernels(torch, fa, seed):
                          ("f32 serving T=256", ("fwd",)),
                          (TRAIN_LABEL, ("fwd", "dq", "dkv")),
                          ("f32 causal", ("fwd", "dq", "dkv")),
-                         (F32_LONG_LABEL, ("fwd", "dq", "dkv"))):
+                         (F32_LONG_LABEL, ("fwd", "dq", "dkv")),
+                         (TF_CAUSAL_LABEL, ("fwd", "dq", "dkv")),
+                         (TF_CROSS_LABEL, ("fwd", "dq", "dkv"))):
         timing.update(time_kernels(torch, fa, results[label], label, kinds,
                                    flush))
     del flush, results
@@ -424,12 +475,16 @@ def time_kernels(torch, fa, r, label, kinds, flush):
     case ``r``'s inputs (cold L2), beside their plain versions, SDPA's
     forward or backward and their bounds. Returns {(kind, label): row}."""
     q, k, v, do, causal = r["inputs"]
-    bh, t, d = q.shape
+    bh, tq, d = q.shape
+    tk = k.shape[1]
     scale = 1.0 / np.sqrt(d)
     dt_name = str(q.dtype).rsplit(".", 1)[-1]
-    heads = 32 if bh % 32 == 0 else bh
-    q4, k4, v4, do4 = (x.view(bh // heads, heads, t, d)
-                       for x in (q, k, v, do))
+    heads = r.get("heads") or (32 if bh % 32 == 0 else bh)
+    # SDPA's is_causal masks top-left: held only where tq == tk
+    check(not causal or tq == tk, f"{label}: SDPA's causal mask is "
+          "top-left, the kernels' bottom-right; time causal at tq == tk")
+    q4, do4 = (x.view(bh // heads, heads, tq, d) for x in (q, do))
+    k4, v4 = (x.view(bh // heads, heads, tk, d) for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     o, lse = fa.flash_fwd(q, k, v, scale, causal)
     delta = (do.float() * o.float()).sum(-1)
@@ -463,7 +518,7 @@ def time_kernels(torch, fa, r, label, kinds, flush):
         symbol = fa.kernel_for(wrapper, q.dtype, d)[1]
         rates = RATE_OF_KERNEL.get(symbol, (dt_name,) * len(PRODUCTS[kind]))
         bound, by, nbytes, flops = attention_bound_ms(
-            bh, t, t, d, rates, causal, q.element_size(), kind)
+            bh, tq, tk, d, rates, causal, q.element_size(), kind)
         at_rate = ", ".join(f"{prod} at {PEAK_FLOPS[r] / 1e12:.1f} TFLOP/s"
                             f" {r}" for prod, r in zip(PRODUCTS[kind], rates))
         rows[(kind, label)] = dict(
@@ -475,7 +530,7 @@ def time_kernels(torch, fa, r, label, kinds, flush):
             # the same work with every product at the 3xbf16 rate: one
             # yardstick for any float32 design, whichever splits it takes
             rows[(kind, label)]["bound_3xbf16_ms"] = attention_bound_ms(
-                bh, t, t, d, F32_SPLIT_RATE, causal, q.element_size(),
+                bh, tq, tk, d, F32_SPLIT_RATE, causal, q.element_size(),
                 kind)[0]
             also = (f" (every product at 3xbf16: "
                     f"{rows[(kind, label)]['bound_3xbf16_ms']:.4f} ms)")
@@ -1538,6 +1593,415 @@ def phase_plain_route(torch, fluid, fa, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Transformer-base: the main path of ROADMAP item 1b
+# ---------------------------------------------------------------------------
+
+
+def build_transformer_train(fluid, cfg, src_seq, tgt_seq, padded,
+                            labels=True):
+    """``build_transformer(cfg, src, tgt, lbl[, src_lengths,
+    tgt_lengths])`` and, with labels, ``noam_decay(d_model,
+    TF_NOAM_WARMUP)`` feeding ``Adam(lr, beta1=0.9, beta2=0.98,
+    epsilon=1e-9)``, in fresh programs seeded from SEED. Returns (main,
+    startup, logits, loss, lr)."""
+    from paddle_tpu_torch.models.transformer import build_transformer
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        def data(name, shape):
+            return fluid.layers.data(name=name, shape=shape, dtype="int64",
+                                     append_batch_size=False)
+        src, tgt = data("src", [-1, src_seq]), data("tgt", [-1, tgt_seq])
+        lbl = data("lbl", [-1, tgt_seq]) if labels else None
+        kw = dict(src_lengths=data("src_len", [-1]),
+                  tgt_lengths=data("tgt_len", [-1])) if padded else {}
+        logits, loss = build_transformer(cfg, src, tgt, lbl, **kw)
+        lr = None
+        if labels:
+            lr = fluid.layers.noam_decay(cfg.d_model, TF_NOAM_WARMUP)
+            fluid.optimizer.Adam(lr, beta1=0.9, beta2=0.98,
+                                 epsilon=1e-9).minimize(loss)
+    return main, startup, logits, loss, lr
+
+
+def transformer_feed(cfg, batch, src_seq, tgt_seq, padded, labels=True,
+                     seed=SEED):
+    """Random token ids (as models/zoo.py's transformer feed) and, when
+    ``padded``, source and target lengths drawn in TF_LEN_RANGE (capped
+    at the sequence)."""
+    r = np.random.RandomState(seed)
+    feed = {"src": r.randint(0, cfg.src_vocab_size, (batch, src_seq)),
+            "tgt": r.randint(0, cfg.tgt_vocab_size, (batch, tgt_seq))}
+    if labels:
+        feed["lbl"] = r.randint(0, cfg.tgt_vocab_size, (batch, tgt_seq))
+    if padded:
+        lo, hi = TF_LEN_RANGE
+        feed["src_len"] = r.randint(lo, min(hi, src_seq) + 1, batch)
+        feed["tgt_len"] = r.randint(lo, min(hi, tgt_seq) + 1, batch)
+    return {k: v.astype(np.int64) for k, v in feed.items()}
+
+
+def noam_closed_form(d_model, counter):
+    """The noam rate at LR-counter value ``counter`` (0 on the first
+    run): d^-0.5 * min(s^-0.5, s * warmup^-1.5), s = max(counter, 1)."""
+    s = max(counter, 1)
+    return d_model ** -0.5 * min(s ** -0.5, s * TF_NOAM_WARMUP ** -1.5)
+
+
+def first_loss_expected(cfg):
+    """The expected first loss of a random-init Transformer: the final
+    layer_norm gives each target row a squared norm of d_model, and the
+    Xavier-uniform ``out_proj`` [d_model, V] has variance
+    2 / (d_model + V), so the logits are ~ N(0, s2) with
+    s2 = 2 d_model / (d_model + V), and the (label-smoothed) cross
+    entropy is ln V + s2 / 2 in expectation."""
+    v = cfg.tgt_vocab_size
+    return math.log(v) + cfg.d_model / (cfg.d_model + v)
+
+
+def check_losses(tag, cfg, losses):
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag}: non-finite loss {losses}")
+    expected = first_loss_expected(cfg)
+    check(abs(losses[0] - expected) < 0.5,
+          f"{tag}: first loss {losses[0]:.4f} not within 0.5 of "
+          f"{expected:.4f} (ln V = {math.log(cfg.tgt_vocab_size):.4f})")
+    check(losses[-1] < losses[0],
+          f"{tag}: loss did not fall: {losses[0]:.5f} -> {losses[-1]:.5f}")
+    return expected
+
+
+def check_tf_launches(torch, fa, tag, by_kernel, per_step, steps):
+    """Each of K1, K2 and K3 launched ``per_step`` times a step, every
+    launch the float32 kernel's and none on the plain route."""
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        variant = F32_KERNELS[w.__name__]
+        n = per_step * steps
+        check(w.launches == n and by_kernel[variant] == n
+              and not w.launches_by_kernel[fa.PLAIN],
+              f"{tag}: {w.__name__} launches by kernel "
+              f"{w.launches_by_kernel}: not {per_step} x {steps} steps of "
+              f"{variant}")
+
+
+def train_transformer(torch, fluid, fa, card, tag, src_seq, tgt_seq,
+                      padded, steps, attn_per_layer, scope=None, feed=None):
+    """TRANSFORMER_BASE at full width and depth in float32 (TF32 off)
+    through ``Executor.run`` on the card, on one fixed batch of TF_BATCH
+    sequences, with the base recipe (noam + Adam): finite losses, the
+    first near :func:`first_loss_expected`, the last below the first,
+    the fetched rate equal to its closed form at every step, the LR
+    counter one a step, and K1/K2/K3 ``attn_per_layer`` launches a
+    decoder layer a step on the float32 kernels. ``scope``: go on
+    training that scope (its parameters, Adam moments and LR counter)
+    instead of a fresh startup; ``feed``: that batch instead of a new
+    one from SEED. Returns (launches by kernel symbol, stats, (main,
+    scope, feed))."""
+    from paddle_tpu_torch.models.transformer import TRANSFORMER_BASE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TRANSFORMER_BASE
+    main, startup, _, loss, lr = build_transformer_train(
+        fluid, cfg, src_seq, tgt_seq, padded)
+    exe = fluid.Executor()                     # the card: CUDAPlace(0)
+    t0 = time.perf_counter()
+    counter0 = 0
+    if scope is None:
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        torch.cuda.synchronize()
+    else:
+        counter0 = int(scope.find_var("@LR_DECAY_COUNTER@").reshape(())) + 1
+    n_params = sum(scope.find_var(p.name).numel()
+                   for p in main.all_parameters() if p.trainable)
+    log(f"{tag}: Transformer-base (d_model {cfg.d_model}, {cfg.n_head} "
+        f"heads of {cfg.d_model // cfg.n_head}, {cfg.n_encoder_layers} + "
+        f"{cfg.n_decoder_layers} layers, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.tgt_vocab_size}, dropout {cfg.dropout}, label smoothing "
+        f"{cfg.label_smooth_eps}, {cfg.dtype}), {n_params / 1e6:.2f} M "
+        f"trainable params, batch {TF_BATCH} x {src_seq} source / "
+        f"{tgt_seq} target tokens, lengths {padded}, "
+        + (f"startup {time.perf_counter() - t0:.2f} s" if not counter0
+           else f"going on from LR counter {counter0}"))
+    if feed is None:
+        feed = transformer_feed(cfg, TF_BATCH, src_seq, tgt_seq, padded)
+    torch.cuda.reset_peak_memory_stats()
+    losses, rates, step_s = [], [], []
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    for step in range(steps):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+        rates.append(float(np.asarray(out[1]).reshape(())))
+        log(f"{tag}: step {step}: loss {losses[-1]:.5f}, lr "
+            f"{rates[-1]:.6e}, {step_s[-1] * 1e3:.1f} ms")
+    by_kernel = launches_by_kernel(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = check_losses(tag, cfg, losses)
+    want = [noam_closed_form(cfg.d_model, counter0 + c)
+            for c in range(steps)]
+    check(np.allclose(rates, want, rtol=1e-6, atol=0),
+          f"{tag}: noam rates {rates} != closed form {want}")
+    counter = int(scope.find_var("@LR_DECAY_COUNTER@").reshape(()))
+    check(counter == counter0 + steps - 1,
+          f"{tag}: LR counter {counter} after {steps} runs from "
+          f"{counter0}")
+    check_tf_launches(torch, fa, tag, by_kernel,
+                      attn_per_layer * cfg.n_decoder_layers, steps)
+    stats = {"batch": TF_BATCH, "src_seq": src_seq, "tgt_seq": tgt_seq,
+             "padded": padded, "params_m": n_params / 1e6,
+             "losses": losses, "first_loss_expected": expected,
+             "rates": rates, "lr_counter": counter,
+             "launches_by_kernel": by_kernel, "peak_mem_gb": peak_gb,
+             "card": card}
+    if padded:
+        stats["src_len_mean"] = float(feed["src_len"].mean())
+        stats["tgt_len_mean"] = float(feed["tgt_len"].mean())
+    if steps > TF_WARMUP:
+        timed = sorted(step_s[TF_WARMUP:])
+        step_ms = timed[len(timed) // 2] * 1e3
+        tokens = TF_BATCH * (src_seq + tgt_seq)
+        breakdown = {}
+        add_busy(breakdown, device_ms_by_kind(
+            torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=scope)), step_ms)
+        breakdown.setdefault("optimizer_segment", "not measured")
+        stats.update(step_ms_median=step_ms, step_ms_min=timed[0] * 1e3,
+                     step_ms_max=timed[-1] * 1e3,
+                     tokens_per_s=tokens / (step_ms / 1e3),
+                     tgt_tokens_per_s=TF_BATCH * tgt_seq / (step_ms / 1e3),
+                     one_step=breakdown)
+    else:
+        stats["step_ms"] = [x * 1e3 for x in step_s]
+    log(f"{tag}: " + json.dumps(stats))
+    return by_kernel, stats, (main, scope, feed)
+
+
+def phase_transformer(torch, fluid, fa, card):
+    """The main path of this slice: TRANSFORMER_BASE with source and
+    target lengths (the padded encoder self-attention and cross-attention
+    take the biased matmul + softmax path; the causal decoder
+    self-attention takes the kernels: K1/K2/K3 6 launches a step),
+    TF_WARMUP + TF_STEPS steps; step time, tokens/s, peak memory and one
+    step's device time by kind."""
+    return train_transformer(
+        torch, fluid, fa, card, "transformer", TF_SEQ, TF_SEQ, True,
+        TF_WARMUP + TF_STEPS, 1)
+
+
+def phase_transformer_unpadded(torch, fluid, fa, card, trained):
+    """The same model and recipe with no lengths, as models/zoo.py feeds
+    it, a source of TF_SEQ and a target of TF_SEQ / 2 tokens: every
+    attention on the kernels — encoder self-attention (non-causal, T
+    256), decoder self-attention (causal, T 128) and cross-attention
+    (non-causal, tq 128 over tk 256) — so K1/K2/K3 18 launches a step,
+    TF_UNPADDED_STEPS steps. It goes on training ``phase_transformer``'s
+    scope on its batch (the source, and the first TF_SEQ / 2 target
+    tokens and labels): the schedule goes on from its counter, and the
+    three steps fit the labels the first ten began to fit. Three steps
+    from a fresh start (rates ~2e-7), or on a new batch of random labels
+    (Adam's moments still pointing at the old batch's), move the loss
+    less than a new dropout mask does."""
+    _, scope, feed = trained
+    half = TF_SEQ // 2
+    feed = {"src": feed["src"], "tgt": feed["tgt"][:, :half],
+            "lbl": feed["lbl"][:, :half]}
+    return train_transformer(
+        torch, fluid, fa, card, "transformer_unpadded", TF_SEQ, half,
+        False, TF_UNPADDED_STEPS, 3, scope=scope, feed=feed)
+
+
+def phase_transformer_infer(torch, fluid, fa, card, trained):
+    """``clone(for_test=True)`` of the labels-free program serves one
+    batch on ``phase_transformer``'s trained scope: finite logits, equal
+    on a second run (no draw at test time), within
+    TOL_LOGITS_REL_RMS_F32 of the CPU's on the same scope, and away from
+    the same scope's logits through a dropout-0 program (the
+    ``downgrade_in_infer`` scaling by 1 - p is applied); K1 6 launches,
+    no backward."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models.transformer import TRANSFORMER_BASE
+
+    cfg = TRANSFORMER_BASE
+    scope = trained[1]
+    batch = 4
+    main, _, logits, _, _ = build_transformer_train(
+        fluid, cfg, TF_SEQ, TF_SEQ, True, labels=False)
+    infer = main.clone(for_test=True)
+    drops = [o for o in infer.global_block().ops if o.type == "dropout"]
+    check(drops and all(o.attrs.get("is_test") for o in drops),
+          "transformer_infer: the test clone has dropout not at test time")
+    nodrop = build_transformer_train(
+        fluid, dataclasses.replace(cfg, dropout=0.0), TF_SEQ, TF_SEQ, True,
+        labels=False)
+    feed = transformer_feed(cfg, batch, TF_SEQ, TF_SEQ, True, labels=False,
+                            seed=SEED + 1)
+    exe = fluid.Executor()
+    fa.reset_launch_counts()
+    got = exe.run(infer, feed=feed, fetch_list=[logits], scope=scope)[0]
+    by_kernel = launches_by_kernel(fa)
+    launches = {w: w.launches for w in (fa.flash_fwd, fa.flash_bwd_dq,
+                                        fa.flash_bwd_dkv)}
+    again = exe.run(infer, feed=feed, fetch_list=[logits], scope=scope)[0]
+    plain = exe.run(nodrop[0].clone(for_test=True), feed=feed,
+                    fetch_list=[nodrop[2]], scope=scope)[0]
+    names = [p.name for p in main.all_parameters()]
+    cpu_scope = weights.load_state(
+        fluid.Scope(), weights.dump_state(scope, names), torch.device("cpu"))
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        infer, feed=feed, fetch_list=[logits], scope=cpu_scope)[0]
+    rms = float(np.sqrt(np.mean(want.astype(np.float64) ** 2)))
+    rel = float(np.sqrt(np.mean((got.astype(np.float64) - want) ** 2))) / rms
+    moved = float(np.sqrt(np.mean((plain.astype(np.float64) - got) ** 2))) \
+        / rms
+    check(got.shape == (batch, TF_SEQ, cfg.tgt_vocab_size)
+          and np.isfinite(got).all(),
+          f"transformer_infer: logits {got.shape}, finite "
+          f"{np.isfinite(got).all()}")
+    check(np.array_equal(got, again),
+          "transformer_infer: two runs of the test program differ")
+    check(rel <= TOL_LOGITS_REL_RMS_F32,
+          f"transformer_infer: card vs CPU relative RMS {rel:.3e} > "
+          f"{TOL_LOGITS_REL_RMS_F32}")
+    check(moved > 10 * TOL_LOGITS_REL_RMS_F32,
+          f"transformer_infer: logits without the 1 - p scaling moved by "
+          f"only {moved:.3e} (relative RMS)")
+    for w, n in ((fa.flash_fwd, cfg.n_decoder_layers),
+                 (fa.flash_bwd_dq, 0), (fa.flash_bwd_dkv, 0)):
+        check(launches[w] == n and by_kernel[F32_KERNELS[w.__name__]] == n,
+              f"transformer_infer: {w.__name__} launched {launches[w]} "
+              f"times ({by_kernel}), not {n}")
+    out = {"batch": batch, "card_vs_cpu_rel_rms": rel,
+           "tier": TOL_LOGITS_REL_RMS_F32,
+           "without_keep_scaling_rel_rms": moved,
+           "launches_by_kernel": by_kernel, "card": card}
+    log("transformer_infer: " + json.dumps(out))
+    return out
+
+
+def phase_transformer_parity(torch, fluid, fa, card):
+    """The base width at TF_PARITY's depth (head dim 64: the float32
+    kernels on the card, their plain versions on the CPU) in float32,
+    TF32 off, batch TF_PARITY_BATCH x TF_PARITY_SEQ with lengths, dropout
+    0, label smoothing 0.1: one step on the card and on the CPU from one
+    startup scope — the loss and every parameter's gradient within the
+    f32 gradient tier — then 3 noam + Adam steps' losses within the loss
+    tier, the rates and the LR counter equal."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models.transformer import TRANSFORMER_BASE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(TRANSFORMER_BASE, **TF_PARITY)
+    main, startup, _, loss, lr = build_transformer_train(
+        fluid, cfg, TF_PARITY_SEQ, TF_PARITY_SEQ, True)
+    gpu_scope = fluid.Scope()
+    gpu = fluid.Executor()
+    gpu.run(startup, scope=gpu_scope)
+    cpu_scope = weights.load_state(fluid.Scope(),
+                                   weights.dump_state(gpu_scope),
+                                   torch.device("cpu"))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    feed = transformer_feed(cfg, TF_PARITY_BATCH, TF_PARITY_SEQ,
+                            TF_PARITY_SEQ, True)
+    grads = sorted(v for v in main.global_block().vars
+                   if v.endswith("@GRAD"))
+    fa.reset_launch_counts()
+    got = gpu.run(main, feed=feed, fetch_list=[loss] + grads,
+                  scope=gpu_scope)
+    want = cpu.run(main, feed=feed, fetch_list=[loss] + grads,
+                   scope=cpu_scope)
+    worst = 0.0
+    rtol, atol = TOL_GRAD_F32
+    for name, g, w in zip(["loss"] + grads, got, want):
+        err = np.abs(g - w)
+        check(g.shape == w.shape
+              and bool((err <= atol + rtol * np.abs(w)).all()),
+              f"transformer_parity: {name} on the card differs from the "
+              f"CPU by {float(err.max()):.3e} (rtol={rtol}, atol={atol})")
+        worst = max(worst, float((err / (atol + rtol * np.abs(w))).max()))
+    lg, lc, rg, rc = [], [], [], []
+    for _ in range(3):
+        g = gpu.run(main, feed=feed, fetch_list=[loss, lr], scope=gpu_scope)
+        c = cpu.run(main, feed=feed, fetch_list=[loss, lr], scope=cpu_scope)
+        lg.append(float(g[0].reshape(())))
+        lc.append(float(c[0].reshape(())))
+        rg.append(float(g[1].reshape(())))
+        rc.append(float(c[1].reshape(())))
+    by_kernel = launches_by_kernel(fa)
+    check(np.allclose(lg, lc, rtol=TOL_LOSS_F32, atol=0),
+          f"transformer_parity: Adam losses differ: card {lg} vs CPU {lc}")
+    check(rg == rc, f"transformer_parity: rates differ: {rg} vs {rc}")
+    counters = [int(s.find_var("@LR_DECAY_COUNTER@").reshape(()))
+                for s in (gpu_scope, cpu_scope)]
+    check(counters == [3, 3],
+          f"transformer_parity: LR counters {counters}, not [3, 3]")
+    # 4 card steps, the causal decoder self-attention of each layer
+    check_tf_launches(torch, fa, "transformer_parity", by_kernel,
+                      cfg.n_decoder_layers, 4)
+    out = {"config": dataclasses.asdict(cfg),
+           "batch": [TF_PARITY_BATCH, TF_PARITY_SEQ],
+           "loss_step1": [float(got[0].reshape(())),
+                          float(want[0].reshape(()))],
+           "grads_checked": len(grads),
+           "worst_err_over_tolerance": worst,
+           "adam_losses_card": lg, "adam_losses_cpu": lc, "rates": rg,
+           "lr_counter": counters[0], "launches_by_kernel": by_kernel,
+           "card": card}
+    log("transformer_parity: " + json.dumps(out))
+    return by_kernel, out
+
+
+def phase_dropout(torch, card):
+    """The dropout rule on the card at DROPOUT_P over a TF_BATCH x TF_SEQ
+    x 512 float32 tensor: the kept share within 5 sigma of 1 - p, the
+    mask replayed for the same program seed and step (``ctx.next_key``)
+    and changed for the next step, ``upscale_in_train`` scaling kept
+    values by 1 / (1 - p) and ``downgrade_in_infer`` keeping them."""
+    from paddle_tpu_torch.core import lowering, registry
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.randn(TF_BATCH, TF_SEQ, 512, generator=gen, device=dev) + 3.0
+    rule = registry.get_op("dropout").lower
+
+    def draw(step, impl):
+        ctx = lowering.LoweringContext(None, "train", dev, SEED, step)
+        return rule(ctx, {"X": [x]}, {"dropout_prob": DROPOUT_P,
+                                      "dropout_implementation": impl})
+
+    p, n = DROPOUT_P, x.numel()
+    out = {}
+    for impl, kept_values in (("downgrade_in_infer", x),
+                              ("upscale_in_train", x / (1.0 - p))):
+        a = draw(1, impl)
+        mask = a["Mask"][0]
+        kept = float(mask.mean())
+        sigma = math.sqrt(p * (1 - p) / n)
+        check(abs(kept - (1 - p)) < 5 * sigma,
+              f"dropout {impl}: kept share {kept:.6f}, not within 5 sigma "
+              f"({5 * sigma:.2e}) of {1 - p}")
+        check(torch.equal(a["Out"][0], torch.where(
+            mask.bool(), kept_values, torch.zeros_like(x))),
+              f"dropout {impl}: kept values are not "
+              + ("x / (1 - p)" if impl == "upscale_in_train" else "x"))
+        check(torch.equal(draw(1, impl)["Mask"][0], mask),
+              f"dropout {impl}: the mask does not replay for one seed and "
+              "step")
+        check(not torch.equal(draw(2, impl)["Mask"][0], mask),
+              f"dropout {impl}: step 2 drew step 1's mask")
+        out[impl] = {"kept_share": kept, "five_sigma": 5 * sigma}
+    out.update(shape=list(x.shape), p=p, card=card)
+    log("dropout: " + json.dumps(out))
+    return out
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -1627,6 +2091,19 @@ def main():
         phase_nan_guard(torch, fluid, fa, smi)
         free_card(torch)
         phase_plain_route(torch, fluid, fa, smi)
+        free_card(torch)
+        # Transformer-base: the main path of ROADMAP item 1b, then its
+        # unpadded form, serving on the trained scope, card vs CPU, dropout
+        tf_launches, _, trained = phase_transformer(torch, fluid, fa, smi)
+        phase_transformer_infer(torch, fluid, fa, smi, trained)
+        tf_unpadded_launches, _, _ = phase_transformer_unpadded(
+            torch, fluid, fa, smi, trained)
+        del trained
+        free_card(torch)
+        tf_parity_launches, _ = phase_transformer_parity(torch, fluid, fa,
+                                                         smi)
+        free_card(torch)
+        phase_dropout(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1646,7 +2123,9 @@ def main():
     paths = {"train": train_launches, "train_stack": stack_launches,
              "train_parity_f32": parity_launches,
              "train_stack_parity_f32": stack_parity_launches,
-             **amp_launches}
+             **amp_launches, "transformer": tf_launches,
+             "transformer_unpadded": tf_unpadded_launches,
+             "transformer_parity_f32": tf_parity_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),
@@ -1690,6 +2169,31 @@ def main():
                 serve, launches=serve_f32_launches if f32 else serve_launches,
                 shape=f"bh=4*32 t=256 d=128 causal {'f32' if f32 else 'bf16'}")
         kernels.append(row)
+    # float32 rows at Transformer-base's attention shapes, head dim 64
+    # (launches: the Transformer main path, the padded model, for the
+    # causal decoder self-attention; its unpadded form for the
+    # cross-attention, tq 128 over tk 256)
+    tf_shapes = {
+        TF_CAUSAL_LABEL: ("transformer", tf_launches,
+                          f"bh={TF_BATCH}*8 t={TF_SEQ} d=64 causal f32"),
+        TF_CROSS_LABEL: ("transformer_unpadded", tf_unpadded_launches,
+                         f"bh={TF_BATCH}*8 tq={TF_SEQ // 2} tk={TF_SEQ} "
+                         "d=64 non-causal f32")}
+    for label, (path, launches, shape) in tf_shapes.items():
+        for kind_ in ("fwd", "dq", "dkv"):
+            t = timing[(kind_, label)]
+            fn = t["kernel"]
+            kernels.append({
+                "name": fn, "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/{fn}.cu",
+                "replaces": "paddle_tpu/ops/pallas_attention.py"
+                            + replaces[kind_],
+                "launches": launches[fn], "path": path,
+                "launches_by_path": {p: n[fn] for p, n in paths.items()},
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": shape, "card": kind, "power_limit": power})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from .ops import nn as _ops_nn                # noqa: F401
 from .ops import transformer_ops as _ops_tf   # noqa: F401
 from .ops import optimizer_ops as _ops_opt    # noqa: F401
 from .ops import fused_loss as _ops_loss      # noqa: F401
+from .ops import sequence as _ops_seq         # noqa: F401
 
 from .core.framework import (                  # noqa: F401
     Program, Block, Variable, Parameter, Operator,

@@ -13,9 +13,58 @@ the analysis package.
 import torch
 
 __all__ = ["register_op", "get_op", "has_op", "registered_ops",
-           "canonical_int"]
+           "canonical_int", "WAITING"]
 
 _REGISTRY = {}
+
+# The reference's op types the port does not register yet, by the
+# ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
+_ITEMS = {
+    "Optimize rewrite and verifier": (
+        "fused_elementwise",),
+    "IO, persistables and Inferencer": (
+        "load",),
+    "Generation and the paged decode engine": (
+        "llama_generate", "llama_spec_generate", "llama_paged_prefill",
+        "llama_paged_prefill_chunk", "llama_paged_decode",
+        "llama_paged_spec_step"),
+    "Conv nets and the transpilers": (
+        "conv2d", "depthwise_conv2d", "conv2d_transpose", "conv3d",
+        "conv3d_transpose", "pool2d", "pool3d", "batch_norm", "lrn",
+        "bilinear_interp", "nearest_interp", "roi_pool", "random_crop",
+        "flatten_concat", "fused_param_split"),
+    "Multi-device parallelism": (
+        "llama_stack_1f1b_loss", "moe_ffn"),
+    "Remaining op families and the zoo": (
+        # ops/nn.py
+        "im2sequence", "hierarchical_sigmoid", "nce", "row_conv",
+        # ops/sequence.py, all but sequence_mask
+        "sequence_pool", "sequence_first_step", "sequence_last_step",
+        "sequence_softmax", "sequence_expand", "sequence_conv",
+        "sequence_reshape", "sequence_concat", "sequence_slice",
+        "sequence_enumerate", "sequence_erase", "sequence_pad",
+        "sequence_unpad", "lod_reset", "lod_array_length",
+        "edit_distance",
+        # ops/rnn.py, control_flow.py, crf_ctc.py, detection.py,
+        # eval_ops.py, extras.py
+        "lstm", "gru", "lstm_unit", "gru_unit", "scan",
+        "while", "if_else", "select_input", "print", "is_empty",
+        "write_to_array", "read_from_array",
+        "linear_chain_crf", "crf_decoding", "warpctc", "ctc_greedy_decoder",
+        "beam_search", "beam_search_decode", "beam_expand", "beam_gather",
+        "iou_similarity", "box_coder", "prior_box", "bipartite_match",
+        "target_assign", "multiclass_nms", "polygon_box_transform",
+        "ssd_loss", "anchor_generator", "rpn_target_assign",
+        "generate_proposals", "generate_proposal_labels",
+        "chunk_eval", "detection_map",
+        "minus", "modified_huber_loss", "pad_constant_like", "conv_shift",
+        "max_pool2d_with_index", "unpool", "spp", "positive_negative_pair",
+        "precision_recall", "fake_quantize_abs_max",
+        "fake_dequantize_max_abs", "weight_norm", "weight_norm_g_init",
+        "quantized_mul", "quantized_conv2d"),
+}
+#: op type -> the ROADMAP.md item that ports it
+WAITING = {op: item for item, ops in _ITEMS.items() for op in ops}
 
 
 def canonical_int():
@@ -57,6 +106,11 @@ def get_op(type):
     try:
         return _REGISTRY[type]
     except KeyError:
+        if type in WAITING:
+            raise NotImplementedError(
+                f"no lowering rule registered for op {type!r} in the torch "
+                f"port yet: it is ported with ROADMAP.md item "
+                f"'{WAITING[type]}'") from None
         raise NotImplementedError(
             f"no lowering rule registered for op {type!r} in the torch "
             f"port; ported ops: {sorted(_REGISTRY)}") from None

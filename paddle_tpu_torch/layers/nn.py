@@ -1,20 +1,35 @@
 """High-level neural network layers (port of ``paddle_tpu/layers/nn.py``).
 
-This port carries the layers the Llama and MNIST programs use: ``fc``,
-``embedding``, ``reshape``, ``softmax`` and the losses
-``cross_entropy`` and ``softmax_with_cross_entropy``, copied with only
-the sharding annotation type changed. The rest of the reference module
-lands with the slices that port its ops. Each layer builds Program ops;
-shapes are inferred in Python (batch dims stay -1) so parameters can be
-sized.
+The layers over the ops the port registers, copied from the reference
+with only the sharding annotation type changed: ``fc``, ``embedding``,
+the norms, ``dropout``, the losses, the reductions, the shape and
+gather/scatter layers, ``autoincreased_step_counter`` (the LR
+schedulers' counter) and the activation layers. The conv, pool,
+``batch_norm``, ``lrn``, image-resize, ``roi_pool`` and ``random_crop``
+layers arrive with ROADMAP.md item 'Conv nets and the transpilers';
+``hsigmoid``, ``nce``, ``im2sequence``, ``row_conv`` and the CRF, CTC
+and beam-search layers with item 'Remaining op families and the zoo'.
+Each layer builds Program ops; shapes are inferred in Python (batch
+dims stay -1) so parameters can be sized.
 """
 import numpy as np
 
+from ..core import framework
 from ..layer_helper import LayerHelper
 from ..sharding import PartitionSpec as P
+from .. import initializer as init_mod
 
-__all__ = ["fc", "embedding", "reshape", "softmax", "cross_entropy",
-           "softmax_with_cross_entropy"]
+__all__ = [
+    "fc", "embedding", "layer_norm", "group_norm", "dropout", "softmax",
+    "cross_entropy", "softmax_with_cross_entropy", "square_error_cost",
+    "smooth_l1", "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+    "reduce_prod", "split", "matmul", "topk", "transpose", "reshape",
+    "squeeze", "unsqueeze", "one_hot", "l2_normalize", "pad", "pad2d",
+    "label_smooth", "dice_loss", "gather", "scatter", "mean_iou", "relu",
+    "log", "crop", "rank_loss", "prelu", "flatten", "stack", "unstack",
+    "expand", "autoincreased_step_counter", "cos_sim", "multiplex",
+    "maxout", "brelu", "hard_sigmoid",
+]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -145,3 +160,521 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, sm
     return loss
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input.name]}
+    if scale:
+        s = helper.create_parameter(helper.param_attr, norm_shape, dtype,
+                                    default_initializer=init_mod.Constant(1.0))
+        inputs["Scale"] = [s.name]
+    if shift:
+        b = helper.create_parameter(helper.bias_attr, norm_shape, dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b.name]
+    out = helper.create_variable_for_type_inference(dtype, shape=input.shape)
+    mean = helper.create_variable_for_type_inference(
+        dtype, shape=list(input.shape[:begin_norm_axis]), stop_gradient=True)
+    var = helper.create_variable_for_type_inference(
+        dtype, shape=list(input.shape[:begin_norm_axis]), stop_gradient=True)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [out.name], "Mean": [mean.name],
+                              "Variance": [var.name]},
+                     attrs={"begin_norm_axis": begin_norm_axis,
+                            "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    c = int(input.shape[1])
+    inputs = {"X": [input.name]}
+    if helper.param_attr is not False:
+        s = helper.create_parameter(helper.param_attr, [c], dtype,
+                                    default_initializer=init_mod.Constant(1.0))
+        inputs["Scale"] = [s.name]
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [c], dtype, is_bias=True)
+        inputs["Bias"] = [b.name]
+    out = helper.create_variable_for_type_inference(dtype, shape=input.shape)
+    mean = helper.create_variable_for_type_inference(
+        dtype, shape=[input.shape[0], groups], stop_gradient=True)
+    var = helper.create_variable_for_type_inference(
+        dtype, shape=[input.shape[0], groups], stop_gradient=True)
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs={"Y": [out.name], "Mean": [mean.name],
+                              "Variance": [var.name]},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, shape=x.shape, lod_level=x.lod_level)
+    mask = helper.create_variable_for_type_inference(x.dtype, shape=x.shape,
+                                                     stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Mask": [mask.name]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input.name], "Y": [label.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1")
+    diff = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    out = helper.create_variable_for_type_inference(x.dtype,
+                                                    shape=[x.shape[0], 1])
+    inputs = {"X": [x.name], "Y": [y.name]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight.name]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight.name]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": [out.name], "Diff": [diff.name]},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    if dim is None:
+        reduce_all, dims = True, [0]
+        shape = [1]
+    else:
+        reduce_all = False
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        nd = len(input.shape)
+        axes = sorted(d % nd for d in dims)
+        if keep_dim:
+            shape = [1 if i in axes else s for i, s in enumerate(input.shape)]
+        else:
+            shape = [s for i, s in enumerate(input.shape) if i not in axes]
+        if not shape:
+            shape = [1]
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    helper.append_op(type=op_type, inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"dim": list(dims), "keep_dim": keep_dim,
+                            "reduce_all": reduce_all})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    nd = len(input.shape)
+    axis = dim % nd
+    in_size = input.shape[axis]
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+        sizes = [in_size // num if in_size != -1 else -1] * num
+    else:
+        sections = list(num_or_sections)
+        num, sizes = 0, sections
+    outs = []
+    for s in sizes:
+        shp = list(input.shape)
+        shp[axis] = s
+        outs.append(helper.create_variable_for_type_inference(input.dtype,
+                                                              shape=shp))
+    helper.append_op(type="split", inputs={"X": [input.name]},
+                     outputs={"Out": [o.name for o in outs]},
+                     attrs={"axis": axis, "num": num, "sections": sections})
+    return outs
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    xs = list(x.shape)
+    ys = list(y.shape)
+    if transpose_x and len(xs) > 1:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y and len(ys) > 1:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    if len(xs) >= 2 and len(ys) >= 2:
+        shape = (xs[:-2] if len(xs) >= len(ys) else ys[:-2]) + [xs[-2], ys[-1]]
+    else:
+        shape = [1]
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shape)
+    helper.append_op(type="matmul", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = list(input.shape[:-1]) + [k]
+    vals = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    idx = helper.create_variable_for_type_inference("int64", shape=shape,
+                                                    stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [vals.name], "Indices": [idx.name]},
+                     attrs={"k": k})
+    return vals, idx
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    shape = [x.shape[p] for p in perm]
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shape)
+    helper.append_op(type="transpose", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": list(perm)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    shape = [s for i, s in enumerate(input.shape)
+             if not (i in [a % len(input.shape) for a in axes] and s == 1)] \
+        if axes else [s for s in input.shape if s != 1]
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    helper.append_op(type="squeeze", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axes": list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    shape = list(input.shape)
+    for a in sorted(axes):
+        shape.insert(a, 1)
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    helper.append_op(type="unsqueeze", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axes": list(axes)})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    shape = list(input.shape)
+    if shape and shape[-1] == 1:
+        shape = shape[:-1]
+    out = helper.create_variable_for_type_inference("float32",
+                                                    shape=shape + [depth])
+    helper.append_op(type="one_hot", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"depth": depth})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    norm = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="norm", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Norm": [norm.name]},
+                     attrs={"axis": 1 if axis is None else axis,
+                            "epsilon": epsilon})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    shape = [s if s == -1 else s + paddings[2 * i] + paddings[2 * i + 1]
+             for i, s in enumerate(x.shape)]
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shape)
+    helper.append_op(type="pad", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    shape = list(input.shape)
+    hi, wi = (2, 3) if data_format == "NCHW" else (1, 2)
+    if shape[hi] != -1:
+        shape[hi] += paddings[0] + paddings[1]
+    if shape[wi] != -1:
+        shape[wi] += paddings[2] + paddings[3]
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    helper.append_op(type="pad2d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value),
+                            "data_format": data_format})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype, shape=label.shape)
+    inputs = {"X": [label.name]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist.name]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out.name]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    helper = LayerHelper("dice_loss")
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=[input.shape[0]])
+    helper.append_op(type="dice_loss",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    shape = [index.shape[0]] + list(input.shape[1:])
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    helper.append_op(type="gather",
+                     inputs={"X": [input.name], "Index": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    helper.append_op(type="scatter",
+                     inputs={"X": [input.name], "Ids": [index.name],
+                             "Updates": [updates.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"overwrite": overwrite})
+    return out
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32", shape=[1])
+    wrong = helper.create_variable_for_type_inference("int32",
+                                                      shape=[num_classes])
+    correct = helper.create_variable_for_type_inference("int32",
+                                                        shape=[num_classes])
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": [input.name],
+                             "Labels": [label.name]},
+                     outputs={"OutMeanIou": [miou.name],
+                              "OutWrong": [wrong.name],
+                              "OutCorrect": [correct.name]},
+                     attrs={"num_classes": num_classes})
+    return miou, wrong, correct
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper("crop", name=name)
+    if isinstance(shape, framework.Variable):
+        raise NotImplementedError(
+            "crop with a runtime shape tensor is data-dependent, and the "
+            "reference refuses it (its programs have static shapes); pass "
+            "a python list of dims")
+    shape = list(shape)
+    offsets = offsets or [0] * len(x.shape)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shape)
+    helper.append_op(type="crop", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"offsets": list(offsets), "shape": shape})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference("float32",
+                                                    shape=label.shape)
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": [label.name], "Left": [left.name],
+                             "Right": [right.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [int(x.shape[1])]
+    else:
+        alpha_shape = [int(np.prod([s for s in x.shape[1:]]))]
+    alpha = helper.create_parameter(
+        helper.param_attr, alpha_shape, x.dtype,
+        default_initializer=init_mod.Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="prelu",
+                     inputs={"X": [x.name], "Alpha": [alpha.name]},
+                     outputs={"Out": [out.name]}, attrs={"mode": mode})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", name=name)
+    lead = int(np.prod(x.shape[:axis])) if axis > 0 and -1 not in x.shape[:axis] else -1
+    tail = int(np.prod(x.shape[axis:])) if -1 not in x.shape[axis:] else -1
+    out = helper.create_variable_for_type_inference(x.dtype,
+                                                    shape=[lead, tail])
+    helper.append_op(type="flatten", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    shape = list(xs[0].shape)
+    shape.insert(axis % (len(shape) + 1), len(xs))
+    out = helper.create_variable_for_type_inference(xs[0].dtype, shape=shape)
+    helper.append_op(type="stack", inputs={"X": [v.name for v in xs]},
+                     outputs={"Y": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    num = num or x.shape[axis]
+    shape = [s for i, s in enumerate(x.shape) if i != axis % len(x.shape)]
+    outs = [helper.create_variable_for_type_inference(x.dtype, shape=shape)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x.name]},
+                     outputs={"Y": [o.name for o in outs]},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    shape = [s if s == -1 else s * t for s, t in zip(x.shape, expand_times)]
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shape)
+    helper.append_op(type="expand", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """Persistable int64 counter incremented once per executor run
+    (reference layers/nn.py autoincreased_step_counter) — drives LR
+    schedulers."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    gb = helper.main_program.global_block()
+    if gb.has_var_local(name):
+        return gb.var(name)
+    counter = helper.create_global_variable(shape=[1], dtype="int64",
+                                            persistable=True, name=name)
+    helper.set_variable_initializer(
+        counter, init_mod.Constant(float(begin - step)))
+    helper.main_program.global_block().prepend_op(
+        type="increment", inputs={"X": [counter.name]},
+        outputs={"Out": [counter.name]}, attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype,
+                                                    shape=[X.shape[0], 1])
+    xn = helper.create_variable_for_type_inference(X.dtype,
+                                                   shape=[X.shape[0], 1])
+    yn = helper.create_variable_for_type_inference(X.dtype,
+                                                   shape=[Y.shape[0], 1])
+    helper.append_op(type="cos_sim",
+                     inputs={"X": [X.name], "Y": [Y.name]},
+                     outputs={"Out": [out.name], "XNorm": [xn.name],
+                              "YNorm": [yn.name]})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype,
+                                                    shape=inputs[0].shape)
+    helper.append_op(type="multiplex",
+                     inputs={"X": [v.name for v in inputs],
+                             "Ids": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="relu", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def log(x, name=None):
+    helper = LayerHelper("log", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="log", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    shape = list(x.shape)
+    shape[1] = shape[1] // groups if shape[1] != -1 else -1
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shape)
+    helper.append_op(type="maxout", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"groups": groups})
+    return out
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    helper = LayerHelper("brelu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="brelu", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"t_min": t_min, "t_max": t_max})
+    return out
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    helper = LayerHelper("hard_sigmoid", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="hard_sigmoid", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"slope": slope, "offset": offset})
+    return out

@@ -1,0 +1,166 @@
+"""Model-zoo program builders (port of ``paddle_tpu/models/zoo.py``):
+the entries whose ops the port has, each building a complete (main,
+startup) Program pair at a tiny configuration with an example feed —
+``mnist_mlp``, ``fit_a_line``, ``transformer`` and ``llama``. Every
+other zoo name of the reference raises NotImplementedError naming the
+ROADMAP.md item that ports what it needs.
+"""
+from .. import layers, optimizer
+from ..core import framework, unique_name
+
+__all__ = ["ZOO", "zoo_model_names", "build_zoo_program", "ZooProgram",
+           "example_feed", "WAITING"]
+
+ZOO = {}
+FEEDS = {}
+
+_CONV = "Conv nets and the transpilers"
+_SEQ = "Remaining op families and the zoo"
+#: the reference's other zoo names -> the ROADMAP.md item they wait for
+WAITING = {"mnist": _CONV, "vgg": _CONV, "resnet": _CONV,
+           "se_resnext": _CONV, "ocr_recognition": _CONV,
+           "word2vec": _SEQ, "recommender": _SEQ, "ctr": _SEQ,
+           "stacked_dynamic_lstm": _SEQ, "machine_translation": _SEQ,
+           "label_semantic_roles": _SEQ, "faster_rcnn": _SEQ}
+
+
+class ZooProgram:
+    """The program pair plus the train-loop contract (what gets fed,
+    what gets fetched)."""
+
+    def __init__(self, main, startup, fetch_list, feed_names):
+        self.main = main
+        self.startup = startup
+        self.fetch_list = fetch_list
+        self.feed_names = feed_names
+
+
+def _zoo(name):
+    def deco(fn):
+        assert name not in ZOO, name
+        ZOO[name] = fn
+        return fn
+    return deco
+
+
+def _feed(name):
+    def deco(fn):
+        assert name not in FEEDS, name
+        FEEDS[name] = fn
+        return fn
+    return deco
+
+
+def example_feed(name, batch=2, seed=0):
+    """Deterministic synthetic feed for the named zoo model — shapes,
+    dtypes, and vocab ranges matching the builder's data declarations
+    — for any consumer that needs to actually RUN a zoo program."""
+    import numpy as np
+    _refuse_waiting(name)
+    try:
+        builder = FEEDS[name]
+    except KeyError:
+        raise KeyError(f"no example feed for zoo model {name!r}; one "
+                       f"of {sorted(FEEDS)}") from None
+    return builder(batch, np.random.RandomState(seed))
+
+
+def _refuse_waiting(name):
+    if name in WAITING:
+        raise NotImplementedError(
+            f"zoo model {name!r} is ported with ROADMAP.md item "
+            f"'{WAITING[name]}'")
+
+
+def zoo_model_names():
+    return sorted(ZOO)
+
+
+def build_zoo_program(name):
+    """Builds the named model into fresh programs (isolated from the
+    caller's default programs and name generator)."""
+    _refuse_waiting(name)
+    try:
+        builder = ZOO[name]
+    except KeyError:
+        raise KeyError(f"unknown zoo model {name!r}; one of "
+                       f"{zoo_model_names()}") from None
+    main, startup = framework.Program(), framework.Program()
+    with framework.program_guard(main, startup), unique_name.guard():
+        fetch_list, feed_names = builder()
+    return ZooProgram(main, startup, fetch_list, feed_names)
+
+
+@_zoo("mnist_mlp")
+def _build_mnist_mlp():
+    from .mnist import mlp_model
+    img = layers.data(name="img", shape=[784], dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    loss, acc, _ = mlp_model(img, label)
+    optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return [loss, acc], ["img", "label"]
+
+
+@_zoo("fit_a_line")
+def _build_fit_a_line():
+    from .fit_a_line import build_fit_a_line
+    x = layers.data(name="x", shape=[13], dtype="float32")
+    y = layers.data(name="y", shape=[1], dtype="float32")
+    _, loss = build_fit_a_line(x, y)
+    optimizer.SGD(learning_rate=0.05).minimize(loss)
+    return [loss], ["x", "y"]
+
+
+@_zoo("transformer")
+def _build_transformer():
+    from .transformer import TRANSFORMER_TINY, build_transformer
+    src = layers.data(name="src", shape=[-1, 8], dtype="int64",
+                      append_batch_size=False)
+    tgt = layers.data(name="tgt", shape=[-1, 8], dtype="int64",
+                      append_batch_size=False)
+    lbl = layers.data(name="lbl", shape=[-1, 8], dtype="int64",
+                      append_batch_size=False)
+    _, loss = build_transformer(TRANSFORMER_TINY, src, tgt, lbl)
+    optimizer.Adam(learning_rate=5e-3).minimize(loss)
+    return [loss], ["src", "tgt", "lbl"]
+
+
+@_zoo("llama")
+def _build_llama():
+    from .llama import LLAMA_TINY, build_llama
+    tokens = layers.data(name="tokens", shape=[-1, 16], dtype="int64",
+                         append_batch_size=False)
+    targets = layers.data(name="targets", shape=[-1, 16], dtype="int64",
+                          append_batch_size=False)
+    _, loss = build_llama(LLAMA_TINY, tokens, targets)
+    optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return [loss], ["tokens", "targets"]
+
+
+@_feed("mnist_mlp")
+def _feed_mnist_mlp(b, rng):
+    import numpy as np
+    return {"img": rng.rand(b, 784).astype(np.float32),
+            "label": rng.randint(0, 10, (b, 1)).astype(np.int64)}
+
+
+@_feed("fit_a_line")
+def _feed_fit_a_line(b, rng):
+    import numpy as np
+    x = rng.randn(b, 13).astype(np.float32)
+    return {"x": x, "y": rng.randn(b, 1).astype(np.float32)}
+
+
+@_feed("transformer")
+def _feed_transformer(b, rng):
+    import numpy as np
+    s = rng.randint(2, 64, (b, 8)).astype(np.int64)
+    t = np.concatenate([np.ones((b, 1), np.int64), s[:, :-1]], 1)
+    return {"src": s, "tgt": t, "lbl": s}
+
+
+@_feed("llama")
+def _feed_llama(b, rng):
+    import numpy as np
+    toks = rng.randint(2, 256, (b, 16)).astype(np.int64)
+    return {"tokens": toks, "targets": np.roll(toks, -1, 1)}

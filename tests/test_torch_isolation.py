@@ -70,6 +70,12 @@ import paddle_tpu_torch.ops.optimizer_ops, paddle_tpu_torch.layers.tensor
 import paddle_tpu_torch.ops.fused_loss, paddle_tpu_torch.core.amp_policy
 import paddle_tpu_torch.transpiler.amp, paddle_tpu_torch.debugger
 import paddle_tpu_torch.transpiler.memory_optimization
+import paddle_tpu_torch.models.transformer, paddle_tpu_torch.models.zoo
+import paddle_tpu_torch.models.mnist, paddle_tpu_torch.models.fit_a_line
+import paddle_tpu_torch.ops.sequence, paddle_tpu_torch.layers.math_op_patch
+import paddle_tpu_torch.layers.learning_rate_scheduler
+import paddle_tpu_torch.layers.metric_op
+import paddle_tpu_torch.layers.sequence_layers
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                     "ml_dtypes"))
@@ -119,7 +125,8 @@ def test_later_slices_refuse_loudly():
     """What the port has not ported yet raises NotImplementedError naming
     its ROADMAP item; training itself runs, with the switches ported so
     far: AMP, the NaN guard, remat policies, the layer-stacked decoder
-    (shard_pp) and the fused head loss (fused_head_chunk)."""
+    (shard_pp), the fused head loss (fused_head_chunk) and (item 1b) the
+    op library's layers, math_op_patch and the LR schedulers."""
     infer, _, logits = _tiny_program()
     with pytest.raises(NotImplementedError, match="optimize"):
         ServingEngine(infer, ["tokens"], [logits], place=fluid.CPUPlace(),
@@ -175,3 +182,44 @@ def test_later_slices_refuse_loudly():
     with pytest.raises(NotImplementedError, match="MoE"):
         tokens = infer.global_block().var("tokens")
         build_llama(dataclasses.replace(LLAMA_TINY, moe_experts=4), tokens)
+    # item 1b lifted: a step built from the op library's layers, the
+    # operator sugar and a scheduled rate runs
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        h = fluid.layers.dropout(fluid.layers.layer_norm(
+            fluid.layers.fc(x, size=8, act="gelu")), 0.1)
+        loss = fluid.layers.reduce_mean(h * h) + 1.0
+        fluid.optimizer.Adam(fluid.layers.noam_decay(8, 4)).minimize(loss)
+    exe.run(startup, scope=scope)
+    out = exe.run(main, feed={"x": np.ones((2, 8), np.float32)},
+                  fetch_list=[loss], scope=scope)
+    assert np.isfinite(out[0]).all()
+    # still refused, by name: the ops that wait for later items, sequence
+    # feeds, and the zoo's other models
+    for op_type, item in (("conv2d", "Conv nets and the transpilers"),
+                          ("batch_norm", "Conv nets and the transpilers"),
+                          ("load", "IO, persistables and Inferencer"),
+                          ("fused_elementwise",
+                           "Optimize rewrite and verifier"),
+                          ("sequence_pool",
+                           "Remaining op families and the zoo")):
+        prog = main.clone()
+        prog.global_block().append_op(
+            type=op_type, inputs={"X": ["x"]}, outputs={"Out": ["x"]})
+        with pytest.raises(NotImplementedError, match=item):
+            exe.run(prog, feed={"x": np.ones((2, 8), np.float32)},
+                    fetch_list=[loss], scope=scope)
+    seq_main = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(seq_main,
+                                                        fluid.Program()):
+        w = fluid.layers.data(name="w", shape=[1], dtype="int64",
+                              lod_level=1)
+    with pytest.raises(NotImplementedError, match="Remaining op families"):
+        exe.run(seq_main, feed={"w": np.zeros((2, 1), np.int64)},
+                scope=scope)
+    from paddle_tpu_torch.models import zoo
+    with pytest.raises(NotImplementedError, match="Conv nets"):
+        zoo.build_zoo_program("resnet")
+    with pytest.raises(NotImplementedError, match="Remaining op families"):
+        zoo.build_zoo_program("machine_translation")

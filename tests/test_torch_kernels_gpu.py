@@ -489,3 +489,73 @@ def test_amp_on_the_card_runs_the_bf16_kernels(level):
     assert got[-1] < got[0]
     for p in main.all_parameters():
         assert scope.find_var(p.name).dtype == torch.float32, p.name
+
+
+# ---------------------------------------------------------------------------
+# Transformer-base (head dim 64, float32): the kernels at its attention
+# shapes, its card-vs-CPU step and dropout on the card
+# ---------------------------------------------------------------------------
+
+# (tq, tk, causal): the decoder self-attention (causal, T 256 padded, 128
+# unpadded), the encoder self-attention and the cross-attention of 128
+# target rows over 256 source keys (non-causal)
+TF_CASES = [(256, 256, True), (128, 128, True), (256, 256, False),
+            (128, 256, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk,causal", TF_CASES)
+def test_f32_kernels_at_the_transformer_shapes(tq, tk, causal):
+    """K1, K2 and K3 in float32 at head dim 64 and B·H 32 x 8, called as
+    the model calls them: [B, T, H, D] projections, the heads moved next
+    to the batch by a transpose view (``attention_core``), so strided
+    inputs reach ``FlashAttention``, which hands the kernels contiguous,
+    aligned copies. Output and gradients against the plain versions on
+    the same inputs at the f32 tiers; one launch each, on the
+    ``_f32mma`` kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from paddle_tpu_torch.ops.transformer_ops import attention_core
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, d = 32, 8, 64
+    q, k, v = (torch.from_numpy(a).cuda() for a in
+               _qkv(31, (b, tq, h, d), (b, tk, h, d)))
+    do = torch.from_numpy(np.random.RandomState(32).randn(b, tq, h, d)
+                          .astype(np.float32)).cuda()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launch_counts()
+    out = attention_core(*leaves, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert w.launches == 1 and \
+            w.launches_by_kernel[chip_smoke.F32_KERNELS[w.__name__]] == 1
+    ref = [x.cpu().clone().requires_grad_() for x in (q, k, v)]
+    want = attention_core(*ref, causal=causal)
+    want_grads = torch.autograd.grad(want, ref, do.cpu())
+    torch.testing.assert_close(out.cpu(), want.detach(), **F32_TOL)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_transformer_on_the_card_matches_the_cpu():
+    """The base width at 2 + 2 layers in float32 (chip_smoke's
+    ``transformer_parity``): loss and every gradient at the f32 tiers,
+    3 noam + Adam losses, the rates and the LR counter; K1/K2/K3 on the
+    float32 kernels, 2 decoder layers x 4 steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    by_kernel, out = chip_smoke.phase_transformer_parity(torch, fluid, fa,
+                                                         "test")
+    assert by_kernel["flash_fwd_f32mma"] == 8
+    assert out["lr_counter"] == 3
+
+
+@pytest.mark.gpu
+def test_dropout_on_the_card():
+    """chip_smoke's dropout phase: kept share, replay and scaling."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = chip_smoke.phase_dropout(torch, "test")
+    assert abs(out["upscale_in_train"]["kept_share"] - 0.9) < 0.01

@@ -108,7 +108,33 @@ Phases — any failure exits non-zero:
    noam + Adam losses, the rates and the LR counter);
 15. dropout: the rule on the card over 32 x 256 x 512 values, kept share
    within 5 sigma of 1 - p, replayed for one seed and step, both
-   scalings.
+   scalings;
+16. transformer_serve (the main path of ROADMAP item 2, run right after
+   11 on its trained scope): ``clone(for_test=True)`` of the labels-free
+   padded model behind ``ServingEngine`` with its default optimize
+   (fold + fuse + cse + dce on a clone, folding on the card), buckets
+   (1, 2, 4, 8), 32 concurrent single-pair requests padded to 256 tokens
+   with lengths: the optimize report equal to the reference's (26
+   fused), every answer within the f32 serving tier of the same request
+   run alone through the unoptimized program, one 8 x 256 batch through
+   the optimized and the unoptimized program bit-identical, K1 6
+   launches a dispatch on ``flash_fwd_f32mma`` and K2/K3 none, no step
+   build after warmup; then requests/s and p50/p99 under sustained
+   load (32 closed-loop clients, three 3 s windows), that dispatch's
+   device time by kind and idle share, its host wall optimized against
+   unoptimized in 25 alternating pairs, and the construction's optimize
+   (the engine's own ``optimize_ms``) and verify (cheap and full) wall
+   times;
+17. transformer_optimized: 11's steps again from the same initial state
+   under ``PADDLE_TPU_OPTIMIZE=1`` and ``validate="strict"``: the ten
+   losses and every persistable after the run bit for bit equal to 11's,
+   K1/K2/K3 6 launches a step; the step-time median beside 11's.
+Phase 4 also times the default optimize and the verifier at the
+32-layer program's construction, whose report must be empty (the
+reference rewrites nothing there). Every phase runs under
+``Executor.run``'s default verifier (``validate="1"``) with its
+``VerifyWarning`` — and a rewrite falling back to the unoptimized
+program — raised as an error.
 The kernels phase also checks and times the float32 K1, K2 and K3 at
 Transformer-base's shapes (B*H 32 x 8, D 64: causal T 256, and
 non-causal tq 128 over tk 256), whose rows the kernel line adds.
@@ -126,6 +152,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -206,6 +233,25 @@ TF_CROSS_LABEL = "f32 D=64 transformer cross tq<tk"
 TF_PARITY = dict(n_encoder_layers=2, n_decoder_layers=2, dropout=0.0)
 TF_PARITY_BATCH, TF_PARITY_SEQ = 4, 128
 TOL_LOGITS_REL_RMS_F32 = 5e-4   # PERF.md section 2's f32 serving tier
+# Transformer-base served (the main path of ROADMAP item 2): the
+# labels-free padded program's test clone behind ServingEngine with its
+# default optimize, TF_SERVE_REQUESTS concurrent single-pair requests
+# padded to TF_SEQ tokens with lengths drawn on SEED + 2
+TF_SERVE_REQUESTS = 32
+TF_SERVE_BATCHES = (1, 2, 4, 8)
+# the served rate and tail under sustained load: TF_SERVE_REQUESTS
+# closed-loop clients for TF_SERVE_WINDOW_S seconds, TF_SERVE_WINDOWS
+# times (one wave of 32 requests is ~4 dispatches, too few to read)
+TF_SERVE_WINDOWS, TF_SERVE_WINDOW_S = 3, 3.0
+# optimized against unoptimized 8 x TF_SEQ dispatches, in alternation
+TF_SERVE_PAIRS = 25
+# what the reference's optimize reports on that program
+# (tests/test_torch_optimize.py pins these against the JAX package);
+# the 8B serving program passes through unchanged
+TF_SERVE_OPTIMIZE_COUNTS = {"folded": 0, "fused": 26, "merged": 0,
+                            "removed": 0, "converted": 0,
+                            "layout_transposes": 0}
+SERVE_8B_OPTIMIZE_COUNTS = dict.fromkeys(TF_SERVE_OPTIMIZE_COUNTS, 0)
 DROPOUT_P = 0.1
 INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
@@ -790,6 +836,28 @@ def where_the_time_goes(torch, exe, program, fetch, scope, feed):
     return out
 
 
+def paired_dispatch_ms(torch, exe, programs, fetch, scope, feed, pairs):
+    """Host wall ms of one dispatch of ``feed`` (logits left on the card)
+    through each of the two ``programs``, taken in alternation ``pairs``
+    times (the order flipping each pair) so the host's drift falls on
+    both alike. Returns each program's median and the per-pair ratio's
+    (first over second) median and 10th/90th percentiles."""
+    times = ([], [])
+    for k in range(pairs):
+        for i in ((0, 1) if k % 2 == 0 else (1, 0)):
+            t0 = time.perf_counter()
+            exe.run(programs[i], feed=feed, fetch_list=[fetch],
+                    scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            times[i].append((time.perf_counter() - t0) * 1e3)
+    ratios = np.asarray(times[0]) / np.asarray(times[1])
+    return {"pairs": pairs,
+            "median_ms": [float(np.median(t)) for t in times],
+            "ratio_median": float(np.median(ratios)),
+            "ratio_p10_p90": [float(r) for r in
+                              np.percentile(ratios, [10, 90])]}
+
+
 def device_ms_by_kind(torch, fn):
     """Device time of one call of ``fn`` by kind, from torch.profiler:
     K1/K2/K3, matrix products, copies, the rest — and the rest's eight
@@ -909,10 +977,19 @@ def phase_serve(torch, fluid, dtype, card):
 
     buckets = BucketSpec(batch_sizes=(1, 2, 4),
                          seq_lens={"tokens": (128, 256)})
+    t0 = time.perf_counter()
     engine = ServingEngine(infer, ["tokens"], [logits], scope=scope,
                            buckets=buckets,
                            config=ServingConfig(max_wait_ms=20.0,
                                                 default_timeout_s=600.0))
+    construction = construction_costs(infer, ["tokens"], logits, engine,
+                                      time.perf_counter() - t0)
+    check(engine.optimize_report.counts() == SERVE_8B_OPTIMIZE_COUNTS,
+          f"{tag}: optimize rewrote the Llama program "
+          f"({engine.optimize_report.counts()}); the reference rewrites "
+          "nothing")
+    log(f"{tag}: construction (default optimize + verify of the "
+        f"{cfg.n_layers}-layer program): " + json.dumps(construction))
     rng = np.random.RandomState(SEED)
     lengths = [40, 77, 128, 96, 130, 200, 256, 171]
     reqs = [rng.randint(0, cfg.vocab_size, (1, n)).astype(np.int64)
@@ -1010,9 +1087,36 @@ def phase_serve(torch, fluid, dtype, card):
              "max_abs_logit_err_vs_alone": worst_abs,
              "max_rel_rms_logit_err_vs_alone": worst_rms,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-             "card": card}
+             "construction": construction, "card": card}
     log(f"{tag}: " + json.dumps(serve))
     return launches, dict(serve, one_dispatch=dispatch)
+
+
+def construction_costs(infer, feed_names, fetch, engine, engine_s):
+    """The serving engine's construction-time work on the host clock:
+    the whole constructor (a clone and the default optimize, folding on
+    the card), the optimize pipeline alone (the engine's own
+    ``optimize_ms``), and ``Program.verify`` at the executor's level
+    ("cheap", once per program version) and in full. The engine must
+    hold a report, and the verifier must find no error."""
+    from paddle_tpu_torch.analysis import errors
+    check(engine.optimize_report is not None,
+          "the engine holds no optimize report: its rewrite failed")
+    out = {"engine_ctor_ms": engine_s * 1e3,
+           "optimize_ms": engine.optimize_ms,
+           "ops_before": len(infer.global_block().ops),
+           "ops_after": len(engine.program.global_block().ops),
+           "report": engine.optimize_report.to_dict()}
+    for level in ("cheap", "full"):
+        t0 = time.perf_counter()
+        diags = infer.verify(fetch_list=[fetch.name], feed_names=feed_names,
+                             level=level)
+        out[f"verify_{level}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"verify_{level}_findings"] = sorted({d.code for d in diags})
+        check(not errors(diags),
+              f"verify ({level}) found errors: "
+              + "; ".join(d.format() for d in errors(diags)))
+    return out
 
 
 def build_train(fluid, cfg, lr, policy=None, **llama_kw):
@@ -1552,6 +1656,9 @@ def phase_plain_route(torch, fluid, fa, card):
                            buckets=buckets,
                            config=ServingConfig(max_wait_ms=20.0,
                                                 default_timeout_s=120.0))
+    check(engine.optimize_report is not None,
+          "LLAMA_TINY serve: the engine holds no optimize report: its "
+          "rewrite failed")
     rng = np.random.RandomState(SEED)
     lengths = [5, 16, 23, 32]
     reqs = [rng.randint(0, cfg.vocab_size, (1, n)).astype(np.int64)
@@ -1686,7 +1793,8 @@ def check_tf_launches(torch, fa, tag, by_kernel, per_step, steps):
 
 
 def train_transformer(torch, fluid, fa, card, tag, src_seq, tgt_seq,
-                      padded, steps, attn_per_layer, scope=None, feed=None):
+                      padded, steps, attn_per_layer, scope=None, feed=None,
+                      validate=None):
     """TRANSFORMER_BASE at full width and depth in float32 (TF32 off)
     through ``Executor.run`` on the card, on one fixed batch of TF_BATCH
     sequences, with the base recipe (noam + Adam): finite losses, the
@@ -1696,7 +1804,8 @@ def train_transformer(torch, fluid, fa, card, tag, src_seq, tgt_seq,
     decoder layer a step on the float32 kernels. ``scope``: go on
     training that scope (its parameters, Adam moments and LR counter)
     instead of a fresh startup; ``feed``: that batch instead of a new
-    one from SEED. Returns (launches by kernel symbol, stats, (main,
+    one from SEED; ``validate``: ``Executor.run``'s verifier mode (None:
+    its default). Returns (launches by kernel symbol, stats, (main,
     scope, feed))."""
     from paddle_tpu_torch.models.transformer import TRANSFORMER_BASE
 
@@ -1733,7 +1842,8 @@ def train_transformer(torch, fluid, fa, card, tag, src_seq, tgt_seq,
     fa.reset_launch_counts()
     for step in range(steps):
         t0 = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope,
+                      validate=validate)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(np.asarray(out[0]).reshape(())))
@@ -1769,7 +1879,8 @@ def train_transformer(torch, fluid, fa, card, tag, src_seq, tgt_seq,
         breakdown = {}
         add_busy(breakdown, device_ms_by_kind(
             torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
-                                   scope=scope)), step_ms)
+                                   scope=scope, validate=validate)),
+            step_ms)
         breakdown.setdefault("optimizer_segment", "not measured")
         stats.update(step_ms_median=step_ms, step_ms_min=timed[0] * 1e3,
                      step_ms_max=timed[-1] * 1e3,
@@ -1882,6 +1993,245 @@ def phase_transformer_infer(torch, fluid, fa, card, trained):
            "launches_by_kernel": by_kernel, "card": card}
     log("transformer_infer: " + json.dumps(out))
     return out
+
+
+def transformer_requests(cfg, n, seed):
+    """``n`` single sentence-pair requests, as a client sends them:
+    source and target padded to TF_SEQ tokens (zeros past the lengths,
+    drawn in TF_LEN_RANGE on ``seed``) with the source length. The
+    labels-free program never reads ``tgt_len`` (the reference's verifier
+    reports it as a dangling feed), so the engine's feeds are what the
+    program reads: ``src``, ``tgt`` and ``src_len``."""
+    feed = transformer_feed(cfg, n, TF_SEQ, TF_SEQ, True, labels=False,
+                            seed=seed)
+    pos = np.arange(TF_SEQ)[None, :]
+    src = np.where(pos < feed["src_len"][:, None], feed["src"], 0)
+    tgt = np.where(pos < feed["tgt_len"][:, None], feed["tgt"], 0)
+    return [{"src": src[i:i + 1], "tgt": tgt[i:i + 1],
+             "src_len": feed["src_len"][i:i + 1]} for i in range(n)]
+
+
+def sustained_load(engine, reqs, window_s):
+    """One window of closed-loop load: a client per request, each sending
+    its request again as soon as its answer comes, until ``window_s``
+    seconds have passed. Every answer must be finite. Returns the
+    window's requests, wall seconds (the last answers included),
+    requests/s and client-side p50/p99 latency (host clock)."""
+    deadline = time.perf_counter() + window_s
+    lat = [[] for _ in reqs]
+
+    def client(i):
+        while time.perf_counter() < deadline:
+            t = time.perf_counter()
+            ans = engine.infer(reqs[i], timeout=600.0)
+            lat[i].append(time.perf_counter() - t)
+            check(np.isfinite(ans[0]).all(),
+                  f"sustained load: request {i}: non-finite logits")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        for f in [pool.submit(client, i) for i in range(len(reqs))]:
+            f.result()
+    wall = time.perf_counter() - t0
+    all_lat = np.concatenate([np.asarray(x) for x in lat]) * 1e3
+    p50, p99 = np.percentile(all_lat, [50, 99])
+    return {"requests": int(all_lat.size), "wall_s": wall,
+            "requests_per_s": all_lat.size / wall,
+            "p50_ms": float(p50), "p99_ms": float(p99)}
+
+
+def phase_transformer_serve(torch, fluid, fa, card, trained):
+    """The main path of this slice: ``clone(for_test=True)`` of the
+    labels-free padded TRANSFORMER_BASE behind ``ServingEngine`` with its
+    DEFAULT optimize (the reference's ``optimize=True``), on
+    ``phase_transformer``'s trained scope; batch buckets
+    TF_SERVE_BATCHES, no sequence bucketing. After ``warmup()``,
+    TF_SERVE_REQUESTS concurrent requests (``transformer_requests`` on
+    SEED + 2). Checks: the optimize report equals the reference's
+    (TF_SERVE_OPTIMIZE_COUNTS); every answer within TOL_LOGITS_F32 of the
+    same request run alone through the UNOPTIMIZED program; one 8 x TF_SEQ
+    batch through ``engine.program`` and through the unoptimized program
+    bit-identical (the reference's optcheck contract, on the card); K1
+    launched 6 times a dispatch, all flash_fwd_f32mma, K2/K3 never; no
+    step build after warmup. Then, counts read, the rate and tail under
+    sustained load (``sustained_load``, TF_SERVE_WINDOWS windows), with
+    no step build either. Returns (launches by kernel symbol, stats)."""
+    from paddle_tpu_torch.models.transformer import TRANSFORMER_BASE
+    from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
+                                          ServingEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, tag = TRANSFORMER_BASE, "transformer_serve"
+    scope = trained[1]
+    main, _, logits, _, _ = build_transformer_train(
+        fluid, cfg, TF_SEQ, TF_SEQ, True, labels=False)
+    infer = main.clone(for_test=True)
+    feeds = ["src", "tgt", "src_len"]
+    exe = fluid.Executor()                     # the card: CUDAPlace(0)
+    buckets = BucketSpec(batch_sizes=TF_SERVE_BATCHES)
+    t0 = time.perf_counter()
+    engine = ServingEngine(infer, feeds, [logits], scope=scope,
+                           buckets=buckets,
+                           config=ServingConfig(max_wait_ms=20.0,
+                                                default_timeout_s=600.0))
+    construction = construction_costs(infer, feeds, logits, engine,
+                                      time.perf_counter() - t0)
+    counts = engine.optimize_report.counts()
+    check(counts == TF_SERVE_OPTIMIZE_COUNTS,
+          f"{tag}: optimize report {counts} != the reference's "
+          f"{TF_SERVE_OPTIMIZE_COUNTS}")
+    log(f"{tag}: construction: " + json.dumps(construction))
+    reqs = transformer_requests(cfg, TF_SERVE_REQUESTS, SEED + 2)
+    try:
+        # the main path: counts reset just before, read just after
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        warm = engine.warmup()
+        warm_s = time.perf_counter() - t0
+        start = threading.Barrier(len(reqs))
+
+        def call(r):
+            start.wait()
+            return engine.infer(r, timeout=600.0)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            answers = list(pool.map(call, reqs))
+        wall = time.perf_counter() - t0
+        by_kernel = launches_by_kernel(fa)
+        launches = {w: w.launches for w in (fa.flash_fwd, fa.flash_bwd_dq,
+                                            fa.flash_bwd_dkv)}
+        stats = engine.stats()
+        engine.assert_no_recompiles()
+        sustained = [sustained_load(engine, reqs, TF_SERVE_WINDOW_S)
+                     for _ in range(TF_SERVE_WINDOWS)]
+        engine.assert_no_recompiles()
+    finally:
+        engine.close()
+    dispatches = warm["signatures"] + stats["batches_total"]
+    log(f"{tag}: warmup {warm['signatures']} bucket signatures in "
+        f"{warm_s:.2f} s; {len(reqs)} concurrent requests in "
+        f"{stats['batches_total']} batches, no step build after warmup")
+    log(f"{tag}: sustained load, {len(reqs)} closed-loop clients, "
+        f"{TF_SERVE_WINDOWS} windows of {TF_SERVE_WINDOW_S} s: "
+        + json.dumps(sustained))
+    check(stats["responses_total"] == len(reqs),
+          f"{tag}: responses {stats['responses_total']} != {len(reqs)}")
+    check(stats["optimize"] == engine.optimize_report.to_dict(),
+          f"{tag}: stats()['optimize'] is not the engine's report")
+    n_k1 = cfg.n_decoder_layers * dispatches
+    for w, n in ((fa.flash_fwd, n_k1), (fa.flash_bwd_dq, 0),
+                 (fa.flash_bwd_dkv, 0)):
+        check(launches[w] == n and by_kernel[F32_KERNELS[w.__name__]] == n
+              and not w.launches_by_kernel[fa.PLAIN],
+              f"{tag}: {w.__name__} launched {launches[w]} times "
+              f"({by_kernel}), not {n}")
+    log(f"{tag}: K1 launched {n_k1} times = {cfg.n_decoder_layers} x "
+        f"{dispatches} dispatches, all flash_fwd_f32mma; K2/K3 0")
+
+    worst = 0.0
+    rtol, atol = TOL_LOGITS_F32
+    for i, (r, ans) in enumerate(zip(reqs, answers)):
+        got = ans[0]
+        check(got.shape == (1, TF_SEQ, cfg.tgt_vocab_size)
+              and np.isfinite(got).all(),
+              f"{tag}: request {i}: logits {got.shape}, finite "
+              f"{np.isfinite(got).all()}")
+        alone = exe.run(infer, feed=r, fetch_list=[logits], scope=scope)[0]
+        err = np.abs(got - alone)
+        worst = max(worst, float((err / (atol + rtol * np.abs(alone)))
+                                 .max()))
+        check(bool((err <= atol + rtol * np.abs(alone)).all()),
+              f"{tag}: request {i}: served logits differ from the "
+              f"unoptimized program run alone beyond rtol={rtol}, "
+              f"atol={atol} (max |d| {float(err.max()):.3e})")
+    batch, _, _ = buckets.pad_batch(reqs[:max(TF_SERVE_BATCHES)])
+    opt_out = exe.run(engine.program, feed=batch, fetch_list=[logits],
+                      scope=scope)[0]
+    plain_out = exe.run(infer, feed=batch, fetch_list=[logits],
+                        scope=scope)[0]
+    check(np.array_equal(opt_out, plain_out),
+          f"{tag}: the optimized program's {max(TF_SERVE_BATCHES)} x "
+          f"{TF_SEQ} batch differs from the unoptimized program's (max "
+          f"|d| {float(np.abs(opt_out - plain_out).max()):.3e}): the "
+          "rewrite is not bit-exact on the card")
+    dispatch = where_the_time_goes(torch, exe, engine.program, logits,
+                                   scope, batch)
+    dispatch_plain = where_the_time_goes(torch, exe, infer, logits, scope,
+                                         batch)
+    paired = paired_dispatch_ms(torch, exe, (engine.program, infer), logits,
+                                scope, batch, TF_SERVE_PAIRS)
+    lat = stats["request_latency"]
+    out = {"requests": len(reqs), "wall_s": wall,
+           "requests_per_s": len(reqs) / wall,
+           "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+           "batches": stats["batches_total"],
+           "batch_p50_ms": stats["batch_latency"]["p50_ms"],
+           "dispatches": dispatches, "k1_launches": n_k1,
+           "worst_err_over_tolerance": worst,
+           "sustained_requests_per_s": [w["requests_per_s"]
+                                        for w in sustained],
+           "sustained_p50_ms": [w["p50_ms"] for w in sustained],
+           "sustained_p99_ms": [w["p99_ms"] for w in sustained],
+           "batch_bit_exact_vs_unoptimized": True,
+           "construction": construction,
+           "launches_by_kernel": by_kernel, "card": card}
+    log(f"{tag}: " + json.dumps(out))
+    log(f"{tag}: one ({max(TF_SERVE_BATCHES)} x {TF_SEQ}) dispatch, "
+        "optimized: " + json.dumps(dispatch))
+    log(f"{tag}: the same dispatch, unoptimized: "
+        + json.dumps(dispatch_plain))
+    log(f"{tag}: the same dispatch, optimized and unoptimized in "
+        "alternation: " + json.dumps(paired))
+    return by_kernel, dict(out, one_dispatch=dispatch,
+                           one_dispatch_unoptimized=dispatch_plain,
+                           paired_dispatch=paired)
+
+
+def phase_transformer_optimized(torch, fluid, fa, card, trained, stats):
+    """``phase_transformer``'s TF_WARMUP + TF_STEPS steps again, from the
+    same initial state (a fresh startup on a fresh Executor draws the
+    same values) and on the same batch, with PADDLE_TPU_OPTIMIZE=1 (the
+    executor runs fold + fuse + cse + dce clones) and
+    ``validate="strict"`` (the full verifier before lowering): the ten
+    losses and every persistable after the run — parameters, both Adam
+    moments, the beta powers, the LR counter — bit for bit equal to the
+    unoptimized run's; K1/K2/K3 6 launches a step on the f32 kernels
+    (``train_transformer``'s checks). Returns (launches by kernel
+    symbol, stats)."""
+    _, scope, feed = trained
+    old = os.environ.get("PADDLE_TPU_OPTIMIZE")
+    os.environ["PADDLE_TPU_OPTIMIZE"] = "1"
+    try:
+        by_kernel, opt_stats, (main, opt_scope, _) = train_transformer(
+            torch, fluid, fa, card, "transformer_optimized", TF_SEQ, TF_SEQ,
+            True, TF_WARMUP + TF_STEPS, 1, feed=feed, validate="strict")
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_OPTIMIZE", None)
+        else:
+            os.environ["PADDLE_TPU_OPTIMIZE"] = old
+    check(opt_stats["losses"] == stats["losses"],
+          "transformer_optimized: losses differ from the unoptimized "
+          f"run: {opt_stats['losses']} vs {stats['losses']}")
+    names = sorted(n for n, v in main.global_block().vars.items()
+                   if v.persistable)
+    differ = []
+    for n in names:
+        a, b = scope.find_var(n), opt_scope.find_var(n)
+        if a is None or b is None or not torch.equal(a, b):
+            differ.append(n)
+    check(not differ,
+          f"transformer_optimized: {len(differ)} of {len(names)} "
+          f"persistables differ from the unoptimized run's (first: "
+          f"{differ[:4]})")
+    out = {"losses_bit_exact": True, "persistables_bit_exact": len(names),
+           "step_ms_median": opt_stats.get("step_ms_median"),
+           "step_ms_median_unoptimized": stats.get("step_ms_median"),
+           "launches_by_kernel": by_kernel, "card": card}
+    log("transformer_optimized: " + json.dumps(out))
+    return by_kernel, dict(out, one_step=opt_stats.get("one_step"))
 
 
 def phase_transformer_parity(torch, fluid, fa, card):
@@ -2030,6 +2380,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import paddle_tpu_torch as fluid
+        from paddle_tpu_torch.analysis import VerifyWarning
         from paddle_tpu_torch.ops import cuda_build
         from paddle_tpu_torch.ops import flash_attention as fa
     except ImportError as e:
@@ -2038,6 +2389,12 @@ def main():
         return 2
 
     t_start = time.perf_counter()
+    # every Executor.run verifies its program first (the default
+    # validate="1"), and the serving engine and PADDLE_TPU_OPTIMIZE
+    # rewrite theirs: a finding the verifier raises as a warning, or a
+    # rewrite that falls back to the unoptimized program, fails the run
+    warnings.simplefilter("error", VerifyWarning)
+    warnings.filterwarnings("error", message=".*rewrite failed.*")
     try:
         kind = torch.cuda.get_device_name(0)
         smi = nvidia_smi()
@@ -2094,7 +2451,18 @@ def main():
         free_card(torch)
         # Transformer-base: the main path of ROADMAP item 1b, then its
         # unpadded form, serving on the trained scope, card vs CPU, dropout
-        tf_launches, _, trained = phase_transformer(torch, fluid, fa, smi)
+        tf_launches, tf_stats, trained = phase_transformer(torch, fluid, fa,
+                                                          smi)
+        # the main path of this slice: served through the engine's
+        # default optimize; then the training path under the
+        # PADDLE_TPU_OPTIMIZE rewrite, bit for bit
+        tf_serve_launches, tf_serve = phase_transformer_serve(
+            torch, fluid, fa, smi, trained)
+        tf_opt_launches, tf_opt = phase_transformer_optimized(
+            torch, fluid, fa, smi, trained, tf_stats)
+        log("transformer: step ms median, unoptimized | optimized: "
+            f"{tf_stats.get('step_ms_median')} | "
+            f"{tf_opt['step_ms_median']}")
         phase_transformer_infer(torch, fluid, fa, smi, trained)
         tf_unpadded_launches, _, _ = phase_transformer_unpadded(
             torch, fluid, fa, smi, trained)
@@ -2124,6 +2492,8 @@ def main():
              "train_parity_f32": parity_launches,
              "train_stack_parity_f32": stack_parity_launches,
              **amp_launches, "transformer": tf_launches,
+             "transformer_serve": tf_serve_launches,
+             "transformer_optimized": tf_opt_launches,
              "transformer_unpadded": tf_unpadded_launches,
              "transformer_parity_f32": tf_parity_launches}
     for kind_, label, launches, shape in (

@@ -50,6 +50,7 @@ from . import resilience                       # noqa: F401
 from . import serving                          # noqa: F401
 from . import weights                          # noqa: F401
 from . import debugger                         # noqa: F401
+from . import analysis                         # noqa: F401
 from . import transpiler                       # noqa: F401
 from .transpiler import memory_optimize        # noqa: F401
 

@@ -25,10 +25,20 @@ scope's own tensor, so the old and the new state are never both held
 once, after writing the scope, and raises ``FloatingPointError`` naming
 the first non-finite op outputs.
 
-Later slices: the artifact store, the profiler hook, the static verifier
-and the PADDLE_TPU_OPTIMIZE hook.
+Before a program version first runs, ``run`` verifies it statically
+(``validate=`` / ``PADDLE_TPU_VALIDATE``, default ``"1"``: the cheap
+structural passes, an error finding becomes a ``VerifyWarning``;
+``"strict"``: every pass, and an error raises ``VerifyError`` before
+anything is lowered; ``"0"``: off), once per (program, version, fetch
+set, mode). With ``PADDLE_TPU_OPTIMIZE`` on (``"1"``, or a list of
+passes such as ``"fold,dce"``) it runs an optimized clone of the program
+(analysis/optimize.py) in its place, folding constants on the
+executor's own device.
+
+Later slices: the artifact store and the profiler hook.
 """
 import contextlib
+import os
 import warnings
 
 import numpy as np
@@ -152,6 +162,12 @@ class Executor:
         self.device = self.place.device      # raises without CUDA
         # (uid, version, mode, fetch names) -> [step fn, feed signatures]
         self._cache = {}
+        # (uid, version, fetch names, validate mode) already verified
+        self._validated = set()
+        # PADDLE_TPU_OPTIMIZE: (program uid, fetch names, passes) ->
+        # (source version, optimized clone) — the rewritten twin that
+        # runs in the caller's program's place
+        self._opt_cache = {}
         self._step = 0
         # None → resilience.retry.default_policy() resolved per run, so
         # PADDLE_TPU_MAX_RETRIES / PADDLE_TPU_RETRY_BACKOFF changes in
@@ -160,7 +176,7 @@ class Executor:
 
     # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, mode=None, repeats=1):
+            return_numpy=True, mode=None, repeats=1, validate=None):
         """Run one step of ``program``. Feeds move to the place's
         device. A train program (one with a ``backward`` marker) manages
         grad mode itself; any other runs under ``torch.inference_mode()``
@@ -171,7 +187,14 @@ class Executor:
         ``repeats`` (1 to 32) runs that many steps on the same feed,
         each on the state the one before wrote, with the rng advancing
         per step exactly as separate calls would; fetches are the last
-        step's."""
+        step's.
+
+        ``validate`` gates the static verifier (analysis/), run once per
+        new program version and fetch set, BEFORE lowering: None reads
+        ``PADDLE_TPU_VALIDATE`` (default "1" — cheap structural checks,
+        error findings surface as VerifyWarning); "strict" runs the
+        full pass pipeline and raises VerifyError on any error-level
+        diagnostic; "0"/False disables."""
         if not 1 <= repeats <= 32:
             raise ValueError(f"repeats must be in [1, 32], got {repeats}")
         program = program or framework.default_main_program()
@@ -180,6 +203,12 @@ class Executor:
                              "NaN guard — flags are per dispatch")
         scope = scope or global_scope()
         feed = dict(feed) if feed else {}
+        # static verification BEFORE anything is prepared or lowered,
+        # once per (program version, fetch set, validate mode)
+        self._validate(program, fetch_list, feed, validate)
+        # opt-in graph rewrites (PADDLE_TPU_OPTIMIZE): run an optimized
+        # clone instead of the caller's program, cached per fetch set
+        program = self._maybe_optimize(program, fetch_list)
         fetch_names, mode, state, feed_vals = \
             self._prepare(program, feed, fetch_list, scope, mode)
 
@@ -239,6 +268,89 @@ class Executor:
         if return_numpy:
             fetches = [to_numpy(f) for f in fetches]
         return fetches
+
+    # ------------------------------------------------------------------
+    def _maybe_optimize(self, program, fetch_list):
+        """The PADDLE_TPU_OPTIMIZE opt-in hook: returns the program to
+        actually lower. "1"/"on" runs the full rewrite pipeline
+        (fold + fuse + cse + dce, analysis/optimize.py); a
+        comma-separated value ("fold,dce") selects exactly those
+        passes. The rewrites run over an internal CLONE keyed by
+        (program uid, fetch set, passes), never the caller's program:
+        fetch-set-specific dead-code removal must not leak into a
+        program another call site fetches differently from. Constants
+        fold on this executor's device. The clone is re-derived when the
+        source program's version moves; a rewrite failure degrades to
+        running the original with a warning (never blocks the run)."""
+        flag = os.environ.get("PADDLE_TPU_OPTIMIZE", "0")
+        if flag in ("0", "", "off", "none") or not fetch_list:
+            return program
+        fetch_names = tuple(
+            v.name if isinstance(v, framework.Variable) else v
+            for v in fetch_list)
+        okey = (program.uid, fetch_names, flag)
+        cached = self._opt_cache.get(okey)
+        if cached is not None and cached[0] == program.version:
+            return cached[1]
+        try:
+            from ..analysis.optimize import optimize_program, parse_passes
+            clone = program.clone(for_test=program._is_test)
+            clone._nan_guard = getattr(program, "_nan_guard", False)
+            optimize_program(clone, fetch_list=list(fetch_names),
+                             passes=parse_passes(flag), device=self.device)
+        except Exception as e:   # an optimizer bug must not block runs
+            warnings.warn(
+                f"PADDLE_TPU_OPTIMIZE rewrite failed ({e!r}); running "
+                "the program unoptimized", stacklevel=3)
+            clone = program
+        if cached is not None:
+            # the source program changed: drop step functions built
+            # from the stale clone
+            for k in [k for k in self._cache if k[0] == cached[1].uid]:
+                del self._cache[k]
+        self._opt_cache[okey] = (program.version, clone)
+        return clone
+
+    def _validate(self, program, fetch_list, feed, validate):
+        """Pre-lowering static verification (analysis/), gated by the
+        ``validate`` argument / PADDLE_TPU_VALIDATE env var, cached so
+        each (program version, fetch set, mode) is checked ONCE — the
+        same cadence as building a step, never per step. Cheap mode must
+        never block a run: any error-level finding (or a verifier
+        crash) degrades to a VerifyWarning. Strict mode runs the full
+        pipeline and raises VerifyError before anything is lowered."""
+        mode = validate
+        if mode is None:
+            mode = os.environ.get("PADDLE_TPU_VALIDATE", "1")
+        if mode in (False, "0", "off", "none"):
+            return
+        fetch_names = tuple(
+            v.name if isinstance(v, framework.Variable) else v
+            for v in (fetch_list or []))
+        vkey = (program.uid, program.version, fetch_names, str(mode))
+        if vkey in self._validated:
+            return
+        from ..analysis import VerifyError, VerifyWarning, errors, \
+            verify_program
+        feed_names = sorted(feed) if feed else []
+        if mode == "strict":
+            diags = verify_program(program, fetch_list=fetch_names,
+                                   feed_names=feed_names, level="full")
+            if errors(diags):
+                raise VerifyError(diags)
+        else:
+            try:
+                diags = verify_program(program, fetch_list=fetch_names,
+                                       feed_names=feed_names,
+                                       level="cheap")
+                for d in errors(diags):
+                    warnings.warn(d.format(), VerifyWarning,
+                                  stacklevel=3)
+            except Exception as e:  # verifier bug — never block the run
+                warnings.warn(f"program validation crashed ({e!r}); "
+                              "set PADDLE_TPU_VALIDATE=0 to silence",
+                              VerifyWarning, stacklevel=3)
+        self._validated.add(vkey)
 
     # ------------------------------------------------------------------
     def _prepare(self, program, feed, fetch_list, scope, mode):
@@ -311,6 +423,7 @@ class Executor:
 
     def close(self):
         self._cache.clear()
+        self._opt_cache.clear()
 
 
 def check_nan_guard(flags, labels):

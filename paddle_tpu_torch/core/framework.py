@@ -3,7 +3,8 @@
 Port of ``paddle_tpu/core/framework.py``: the same IR, so a program built
 with the port's layers is op for op and name for name the program the
 JAX package builds. Only the dtype table (torch dtypes, bfloat16 without
-ml_dtypes) and the hooks into modules the port does not have yet differ.
+ml_dtypes), the place ``Program.optimize`` folds constants (the CPU) and
+the hooks into modules the port does not have yet differ.
 
 Capability parity with Fluid's ProgramDesc stack (reference
 paddle/fluid/framework/program_desc.h, block_desc.h, op_desc.h and
@@ -488,9 +489,13 @@ class Program:
         error-level diagnostic is found; ``level="cheap"`` restricts to
         the structural per-compile subset the Executor uses.
         """
-        raise NotImplementedError(
-            "Program.verify needs the analysis package, which is ported "
-            "with the ROADMAP.md item 'Optimize rewrite and verifier'")
+        from ..analysis import verify_program, VerifyError, errors
+        diags = verify_program(self, startup=startup_program,
+                               fetch_list=fetch_list,
+                               feed_names=feed_names, level=level)
+        if strict and errors(diags):
+            raise VerifyError(diags)
+        return diags
 
     def optimize(self, fetch_list=None, passes=None,
                  collect_cost=False):
@@ -498,8 +503,9 @@ class Program:
         optimize.py) over this program IN PLACE: constant folding,
         elementwise-chain fusion, common-subexpression elimination,
         and dead-op elimination — all proven against the dataflow
-        facts in analysis/dataflow.py and gated bit-exact by
-        tools/optcheck.py. ``passes`` selects/orders the pipeline
+        facts in analysis/dataflow.py and held bit-exact by
+        tests/test_torch_optimize.py. ``passes`` selects/orders the
+        pipeline
         (default ``("fold", "fuse", "cse", "dce")``; also accepts a
         comma-separated string).
 
@@ -509,20 +515,31 @@ class Program:
         Stateful ops, persistable/data writes, and control-flow are
         never touched, so fetch outputs and scope writes are
         bit-identical before and after (enforced by
-        tests/test_dataflow.py's zoo parity sweep). Returns an
+        tests/test_torch_optimize.py's zoo sweep). Returns an
         :class:`analysis.optimize.OptimizeReport`; mutation bumps
-        ``version`` so executor jit caches refresh.
-        ``collect_cost=True`` records per-pass cost-model deltas in
-        the report.
+        ``version`` so executor step caches refresh.
+        ``collect_cost=True`` (per-pass cost-model deltas in the
+        reference) raises NotImplementedError until the cost model
+        comes with ROADMAP.md item 'Fleet and analyzers'.
+
+        The constant fold evaluates the port's lowering rules on the
+        card when CUDA is available and on the CPU otherwise, as the
+        reference evaluates its rules on jax's default backend, so a
+        folded value is the card's own bit for bit. The executor's
+        ``PADDLE_TPU_OPTIMIZE`` hook and the serving engine fold on
+        their own device; ``analysis.optimize_program(..., device=)``
+        names the device.
 
         The executor applies this automatically (to an internal clone,
         never the caller's program) when ``PADDLE_TPU_OPTIMIZE`` is
         on, and the serving engines apply it by default
         (``optimize=True``).
         """
-        raise NotImplementedError(
-            "Program.optimize needs analysis/optimize.py, which is ported "
-            "with the ROADMAP.md item 'Optimize rewrite and verifier'")
+        from ..analysis.optimize import (DEFAULT_PASSES,
+                                         optimize_program)
+        return optimize_program(self, fetch_list=fetch_list,
+                                passes=passes or DEFAULT_PASSES,
+                                collect_cost=collect_cost)
 
     # ------ serialization ----------------------------------------------
     def to_json(self):

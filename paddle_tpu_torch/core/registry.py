@@ -7,21 +7,37 @@ reference's signature::
 
 where ``ins`` maps input slot names to lists of tensors on the
 executor's device and ``ctx`` is the LoweringContext (device, rng, mode).
-The static infer and numerics registries of the reference arrive with
-the analysis package.
+
+Beside it, as in the reference, the two static registries the analysis
+package reads: an op's infer rule (shapes and dtypes,
+``analysis/infer.py``) and its numerics rule (value ranges,
+``analysis/numcheck.py``). Both are pure Python over the IR: they never
+touch a tensor.
 """
 import torch
 
 __all__ = ["register_op", "get_op", "has_op", "registered_ops",
+           "registered_op_types", "register_infer", "get_infer",
+           "has_infer", "registered_infer_types", "register_numerics",
+           "get_numerics", "has_numerics", "registered_numerics_types",
            "canonical_int", "WAITING"]
 
 _REGISTRY = {}
 
+# op type → static shape/dtype inference rule (analysis/infer.py engine),
+# kept beside the lowering registry so an op's halves — how it computes
+# and what it computes — register in the same place (reference
+# paddle/fluid/framework/shape_inference.h). Rules MUST NOT touch a
+# tensor or a device: the verifier runs before anything is lowered.
+_INFER = {}
+
+# op type → numerics transfer function (analysis/numcheck.py engine):
+# how an op's value RANGES behave. Same colocation and purity rule.
+_NUMERICS = {}
+
 # The reference's op types the port does not register yet, by the
 # ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
 _ITEMS = {
-    "Optimize rewrite and verifier": (
-        "fused_elementwise",),
     "IO, persistables and Inferencer": (
         "load",),
     "Generation and the paged decode engine": (
@@ -122,3 +138,84 @@ def has_op(type):
 
 def registered_ops():
     return sorted(_REGISTRY)
+
+
+def registered_op_types():
+    """All op types with a lowering rule — the analysis-visible surface
+    (analysis/verify.py checks programs against it)."""
+    return sorted(_REGISTRY)
+
+
+def register_infer(type):
+    """Decorator: register a static shape/dtype inference rule for
+    ``type``. Signature::
+
+        def rule(op, ins, attrs) -> {slot: [VarInfo, ...]} | None
+
+    where ``ins`` maps input slot names to lists of
+    ``analysis.infer.VarInfo`` and returning None means "unknown" (the
+    conservative lattice bottom). Rules may raise
+    ``analysis.infer.InferError`` to report a statically-provable
+    shape/dtype contradiction."""
+    def deco(fn):
+        if type in _INFER:
+            raise ValueError(
+                f"infer rule for op {type!r} registered twice (existing: "
+                f"{_INFER[type].__module__}.{_INFER[type].__qualname__})")
+        _INFER[type] = fn
+        return fn
+    return deco
+
+
+def get_infer(type):
+    """The registered inference rule for ``type``, or None (unknown)."""
+    return _INFER.get(type)
+
+
+def has_infer(type):
+    return type in _INFER
+
+
+def registered_infer_types():
+    """All op types with a static infer rule: an op with a lowering rule
+    but none is a blind spot for every shape/dtype pass
+    (analysis/verify.py InferCoveragePass)."""
+    return sorted(_INFER)
+
+
+def register_numerics(type):
+    """Decorator: register a numerics transfer function for ``type``
+    (the abstract interpreter in analysis/numcheck.py). Signature::
+
+        def rule(op, ins, attrs) -> {slot: [NumInfo, ...]} | None
+
+    where ``ins`` maps input slot names to lists of
+    ``analysis.numcheck.NumInfo`` (value-range interval + provable
+    finiteness, with the inferred shape along for reduction-size
+    scaling) and returning None means "unknown" — the engine joins the
+    outputs to the conservative top element."""
+    def deco(fn):
+        if type in _NUMERICS:
+            raise ValueError(
+                f"numerics rule for op {type!r} registered twice "
+                f"(existing: {_NUMERICS[type].__module__}."
+                f"{_NUMERICS[type].__qualname__})")
+        _NUMERICS[type] = fn
+        return fn
+    return deco
+
+
+def get_numerics(type):
+    """The registered numerics transfer function for ``type``, or None
+    (unknown — numcheck joins to top)."""
+    return _NUMERICS.get(type)
+
+
+def has_numerics(type):
+    return type in _NUMERICS
+
+
+def registered_numerics_types():
+    """All op types with a numerics transfer function — the surface
+    numcheck can see through."""
+    return sorted(_NUMERICS)

@@ -2,7 +2,10 @@
 ``paddle_tpu/ops/basic.py``): creation and assignment, the random
 ``*_batch_size_like`` ops, matmul, the elementwise family with fluid
 axis broadcast, the unary activation table, reductions, shape movement,
-gather/scatter, arg/sort/top-k, norms, and the compare and logical ops.
+gather/scatter, arg/sort/top-k, norms, the compare and logical ops,
+and ``fused_elementwise``, the chain the optimize pass's fusion builds;
+then each op's static infer and numerics rules (the reference's, for
+the analysis package).
 
 Every rule is plain torch: XLA fused these in the reference and no
 Pallas kernel exists for any of them. Integer index outputs are
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.framework import torch_dtype
-from ..core.registry import canonical_int, register_op
+from ..core.registry import canonical_int, get_op, register_op
 
 
 def _prod(dims):
@@ -714,3 +717,984 @@ def _bilinear_tensor_product(ctx, ins, attrs):
     if ins.get("Bias"):
         out = out + ins["Bias"][0]
     return {"Out": [out]}
+
+
+# ---------------------------------------------------------------------------
+# the fused elementwise chain (analysis/optimize.py fusion pass)
+# ---------------------------------------------------------------------------
+
+@register_op("fused_elementwise")
+def _fused_elementwise(ctx, ins, attrs):
+    """One elementwise chain the fusion pass collapsed (reference
+    ``paddle_tpu/ops/basic.py`` ``_fused_elementwise``).
+    ``attrs['steps']`` replays the original ops in order; each step's
+    ``arg`` picks its second operand: -1 none (unary), -2 the chain
+    value itself, >=0 an index into the ``Args`` input slot. Every step
+    but dropout calls the registered rule of the op it replaces (the
+    binaries with their axis broadcast, ``cast``, ``scale``, the unary
+    table), so the chain's torch ops — and therefore its values, on the
+    CPU and the card alike, and its autograd gradients — are the
+    unfused chain's by construction. Test-time dropout, the one step
+    kept inline, is the rule's ``x * (1 - p)`` or identity without the
+    ``Mask`` fill nothing reads."""
+    cur = ins["X"][0]
+    args = ins.get("Args", [])
+    for step in attrs["steps"]:
+        t, a, arg = step["op"], step.get("attrs", {}), step.get("arg", -1)
+        if t == "dropout":
+            # test time only (the fusion pass admits is_test=True alone):
+            # the rule's deterministic downscale or identity, never a draw
+            if a.get("dropout_implementation",
+                     "downgrade_in_infer") == "downgrade_in_infer":
+                cur = cur * (1.0 - a.get("dropout_prob", 0.5))
+            continue
+        step_ins = {"X": [cur]}
+        if arg != -1:
+            step_ins["Y"] = [cur if arg == -2 else args[arg]]
+        cur = get_op(t).lower(ctx, step_ins, a)["Out"][0]
+    return {"Out": [cur]}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype inference rules (analysis/infer.py engine).
+# Colocated with the lowering rules above — the same pairing as Fluid,
+# where InferShape lives on each OperatorWithKernel
+# (paddle/fluid/framework/shape_inference.h). These are the reference's
+# rules (paddle_tpu/ops/basic.py) for the ops the port registers, pure
+# shape arithmetic: they touch no tensor. Integer outputs are declared
+# int32 as the reference declares them (the port's kernels emit
+# canonical_int()), so the two packages' inferences agree exactly.
+# ---------------------------------------------------------------------------
+from ..analysis.infer import (InferError, VarInfo, broadcast_shapes,  # noqa: E402
+                              dim_prod, dims_compatible, first_in, same_as)
+from ..core.framework import convert_dtype  # noqa: E402
+from ..core.registry import register_infer  # noqa: E402
+
+
+def _register_same_shape(*types, in_slot="X", out_slot="Out"):
+    for t in types:
+        def rule(op, ins, attrs, _slot_in=in_slot, _slot_out=out_slot):
+            return {_slot_out: [same_as(first_in(ins, _slot_in))]}
+        register_infer(t)(rule)
+
+
+_register_same_shape(*UNARY_TABLE.keys())
+_register_same_shape("softmax", "log_softmax", "prelu", "assign",
+                     "fill_zeros_like", "clip", "clip_by_norm", "cumsum",
+                     "increment", "scale")
+
+
+def _attr_dtype(attrs, key="dtype", default="float32"):
+    try:
+        return convert_dtype(attrs.get(key, default))
+    except Exception:
+        return None
+
+
+@register_infer("fill_constant")
+def _infer_fill_constant(op, ins, attrs):
+    return {"Out": [VarInfo(tuple(attrs.get("shape", [1])),
+                            _attr_dtype(attrs), confident=True)]}
+
+
+@register_infer("assign_value")
+def _infer_assign_value(op, ins, attrs):
+    shape = np.shape(np.asarray(attrs.get("values", [0.0])))
+    return {"Out": [VarInfo(tuple(shape), _attr_dtype(attrs),
+                            confident=True)]}
+
+
+@register_infer("fused_elementwise")
+def _infer_fused_elementwise(op, ins, attrs):
+    """Shape follows the chain head (broadcast never widens X under
+    fluid axis semantics); dtype threads through cast steps."""
+    x = first_in(ins, "X")
+    dtype = x.dtype
+    for step in attrs.get("steps", []):
+        if step.get("op") == "cast":
+            try:
+                dtype = convert_dtype(step["attrs"]["out_dtype"])
+            except Exception:
+                dtype = None
+    return {"Out": [VarInfo(x.shape, dtype, x.lod_level,
+                            x.confident)]}
+
+
+def _infer_batch_size_like(op, ins, attrs):
+    ref = first_in(ins, "Input")
+    shape = list(attrs["shape"])
+    in_idx = attrs.get("input_dim_idx", 0)
+    out_idx = attrs.get("output_dim_idx", 0)
+    shape[out_idx] = ref.shape[in_idx] if ref.shape is not None \
+        and in_idx < len(ref.shape) else -1
+    return {"Out": [VarInfo(shape, _attr_dtype(attrs),
+                            confident=ref.confident)]}
+
+
+for _t in ("fill_constant_batch_size_like",
+           "uniform_random_batch_size_like",
+           "gaussian_random_batch_size_like"):
+    register_infer(_t)(_infer_batch_size_like)
+
+
+def _infer_random(op, ins, attrs):
+    return {"Out": [VarInfo(tuple(attrs["shape"]), _attr_dtype(attrs),
+                            confident=True)]}
+
+
+for _t in ("uniform_random", "gaussian_random",
+           "truncated_gaussian_random"):
+    register_infer(_t)(_infer_random)
+
+
+@register_infer("cast")
+def _infer_cast(op, ins, attrs):
+    x = first_in(ins, "X")
+    return {"Out": [VarInfo(x.shape, _attr_dtype(attrs, "out_dtype",
+                                                 x.dtype),
+                            x.lod_level, x.confident)]}
+
+
+@register_infer("shape")
+def _infer_shape_op(op, ins, attrs):
+    x = first_in(ins, "Input")
+    n = x.ndim if x.ndim is not None else -1
+    return {"Out": [VarInfo((n,), "int32", confident=x.confident)]}
+
+
+@register_infer("mul")
+def _infer_mul(op, ins, attrs):
+    x, y = first_in(ins, "X"), first_in(ins, "Y")
+    if x.lod_level > 0:
+        # SequenceBatch path: [b, t, d] @ [d, k] — padded rank differs
+        # from the declared lod-var rank, stay conservative
+        return {"Out": [VarInfo(None, x.dtype, x.lod_level)]}
+    if x.shape is None or y.shape is None:
+        return {"Out": [VarInfo(None, x.dtype or y.dtype)]}
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    kx = dim_prod(x.shape[xn:])
+    ky = dim_prod(y.shape[:yn])
+    if x.confident and y.confident and kx >= 0 and ky >= 0 and kx != ky:
+        raise InferError(
+            f"mul contraction mismatch: X{x.shape} flattened at "
+            f"x_num_col_dims={xn} gives inner dim {kx}, but Y{y.shape} "
+            f"flattened at y_num_col_dims={yn} gives {ky}",
+            hint="the fc/mul weight's first dim must equal the "
+                 "flattened feature size of its input")
+    return {"Out": [VarInfo(x.shape[:xn] + y.shape[yn:], x.dtype,
+                            confident=x.confident and y.confident)]}
+
+
+@register_infer("matmul")
+def _infer_matmul(op, ins, attrs):
+    x, y = first_in(ins, "X"), first_in(ins, "Y")
+    if x.shape is None or y.shape is None or x.ndim < 2 or y.ndim < 2:
+        return {"Out": [VarInfo(None, x.dtype or y.dtype)]}
+    xs = list(x.shape)
+    ys = list(y.shape)
+    if attrs.get("transpose_X", False):
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if attrs.get("transpose_Y", False):
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    if x.confident and y.confident \
+            and not dims_compatible(xs[-1], ys[-2]):
+        raise InferError(
+            f"matmul contraction mismatch: {tuple(xs)} @ {tuple(ys)} "
+            f"(inner dims {xs[-1]} vs {ys[-2]})")
+    batch = broadcast_shapes(tuple(xs[:-2]), tuple(ys[:-2]))
+    return {"Out": [VarInfo(batch + (xs[-2], ys[-1]), x.dtype,
+                            confident=x.confident and y.confident)]}
+
+
+def _infer_elementwise(op, ins, attrs):
+    x, y = first_in(ins, "X"), first_in(ins, "Y")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype, x.lod_level)]}
+    if y.shape is None or x.shape == y.shape or y.ndim == 0:
+        return {"Out": [same_as(x)]}
+    if y.ndim > x.ndim:
+        return {"Out": [VarInfo(broadcast_shapes(x.shape, y.shape),
+                                x.dtype, x.lod_level,
+                                x.confident and y.confident)]}
+    axis = attrs.get("axis", -1)
+    if axis is None or axis == -1:
+        axis = x.ndim - y.ndim
+    out = list(x.shape)
+    for i, yd in enumerate(y.shape):
+        xi = axis + i
+        if xi >= len(out):
+            break
+        xd = out[xi]
+        if yd == 1 or yd < 0:
+            continue
+        if xd < 0:
+            out[xi] = yd if x.confident and y.confident else -1
+        elif xd != yd and xd != 1 and x.confident and y.confident:
+            raise InferError(
+                f"{op.type}: Y{y.shape} does not match X{x.shape} at "
+                f"axis {axis} (dim {xd} vs {yd})",
+                hint="fluid broadcast requires Y's shape to match a "
+                     "contiguous span of X's dims starting at `axis`")
+    return {"Out": [VarInfo(out, x.dtype, x.lod_level,
+                            x.confident and y.confident)]}
+
+
+for _t in ("elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_max", "elementwise_min",
+           "elementwise_pow", "elementwise_mod", "elementwise_floordiv"):
+    register_infer(_t)(_infer_elementwise)
+
+
+@register_infer("sum")
+def _infer_sum(op, ins, attrs):
+    xs = ins.get("X", [])
+    known = [x for x in xs if x.shape is not None]
+    if not known:
+        return {"Out": [VarInfo(None, xs[0].dtype if xs else None)]}
+    return {"Out": [same_as(known[0])]}
+
+
+@register_infer("mean")
+def _infer_mean(op, ins, attrs):
+    x = first_in(ins, "X")
+    return {"Out": [VarInfo((1,), x.dtype, confident=x.confident)]}
+
+
+def _infer_reduce(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    if attrs.get("reduce_all", False):
+        shape = (1,) * x.ndim if attrs.get("keep_dim", False) else ()
+        return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+    dim = attrs.get("dim", [0])
+    axes = {d % x.ndim for d in
+            (dim if isinstance(dim, (list, tuple)) else [dim])}
+    if attrs.get("keep_dim", False):
+        shape = tuple(1 if i in axes else d
+                      for i, d in enumerate(x.shape))
+    else:
+        shape = tuple(d for i, d in enumerate(x.shape) if i not in axes)
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+
+
+for _t in ("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "reduce_prod"):
+    register_infer(_t)(_infer_reduce)
+
+
+@register_infer("reshape")
+def _infer_reshape(op, ins, attrs):
+    x = first_in(ins, "X")
+    shape = [int(s) for s in attrs["shape"]]
+    if x.shape is not None:
+        shape = [x.shape[i] if s == 0 and i < len(x.shape) else s
+                 for i, s in enumerate(shape)]
+        total = dim_prod(x.shape)
+        rest = dim_prod([s for s in shape if s != -1])
+        if -1 in shape:
+            if total >= 0 and rest > 0 and total % rest == 0:
+                shape[shape.index(-1)] = total // rest
+        elif x.confident and total >= 0 and rest >= 0 and total != rest:
+            raise InferError(
+                f"reshape cannot map {x.shape} ({total} elements) to "
+                f"{tuple(shape)} ({rest} elements)")
+    else:
+        shape = [-1 if s in (0, -1) else s for s in shape]
+    return {"Out": [VarInfo(shape, x.dtype, x.lod_level, x.confident)]}
+
+
+@register_infer("reshape2")
+def _infer_reshape2(op, ins, attrs):
+    out = _infer_reshape(op, ins, attrs)
+    x = first_in(ins, "X")
+    xshape = VarInfo((0,) + x.shape if x.shape is not None else None,
+                     x.dtype, confident=x.confident)
+    out["XShape"] = [xshape]
+    return out
+
+
+@register_infer("squeeze")
+def _infer_squeeze(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    axes = attrs.get("axes", [])
+    if not axes:
+        shape = tuple(d for d in x.shape if d != 1)
+    else:
+        drop = {a % x.ndim for a in axes}
+        shape = tuple(d for i, d in enumerate(x.shape) if i not in drop)
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+
+
+@register_infer("unsqueeze")
+def _infer_unsqueeze(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    shape = list(x.shape)
+    for a in sorted(attrs["axes"]):
+        shape.insert(a if a >= 0 else a + len(shape) + 1, 1)
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+
+
+@register_infer("transpose")
+def _infer_transpose(op, ins, attrs):
+    x = first_in(ins, "X")
+    perm = attrs.get("axis")
+    if x.shape is None or perm is None or len(perm) != x.ndim:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    return {"Out": [VarInfo(tuple(x.shape[p] for p in perm), x.dtype,
+                            confident=x.confident)]}
+
+
+@register_infer("transpose2")
+def _infer_transpose2(op, ins, attrs):
+    out = _infer_transpose(op, ins, attrs)
+    x = first_in(ins, "X")
+    out["XShape"] = [VarInfo((0,) + x.shape if x.shape is not None
+                             else None, x.dtype, confident=x.confident)]
+    return out
+
+
+@register_infer("pad2d")
+def _infer_pad2d(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.shape is None or len(x.shape) != 4:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    t, b, l, r = attrs.get("paddings", [0, 0, 0, 0])
+    hi, wi = (2, 3) if attrs.get("data_format", "NCHW") == "NCHW" \
+        else (1, 2)
+    shape = list(x.shape)
+    if shape[hi] >= 0:
+        shape[hi] += t + b
+    if shape[wi] >= 0:
+        shape[wi] += l + r
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+
+
+@register_infer("flatten")
+def _infer_flatten(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    axis = attrs.get("axis", 1)
+    lead = dim_prod(x.shape[:axis]) if axis > 0 else 1
+    rest = dim_prod(x.shape[axis:])
+    return {"Out": [VarInfo((lead, rest), x.dtype,
+                            confident=x.confident)]}
+
+
+@register_infer("concat")
+def _infer_concat(op, ins, attrs):
+    xs = ins.get("X", [])
+    axis = attrs.get("axis", 0)
+    known = [x for x in xs if x.shape is not None]
+    if not known:
+        return {"Out": [VarInfo(None, xs[0].dtype if xs else None)]}
+    nd = known[0].ndim
+    ax = axis % nd
+    out = list(known[0].shape)
+    csum = 0
+    confident = all(x.confident for x in xs)
+    for x in xs:
+        if x.shape is None or x.ndim != nd:
+            csum = -1
+            continue
+        for i in range(nd):
+            if i == ax:
+                continue
+            if confident and not dims_compatible(out[i], x.shape[i]):
+                raise InferError(
+                    f"concat inputs disagree on non-axis dim {i}: "
+                    f"{tuple(out)} vs {x.shape} (axis={ax})")
+            if out[i] < 0:
+                out[i] = x.shape[i]
+        if csum >= 0:
+            csum = -1 if x.shape[ax] < 0 else csum + x.shape[ax]
+    out[ax] = csum
+    return {"Out": [VarInfo(out, known[0].dtype, known[0].lod_level,
+                            confident)]}
+
+
+@register_infer("split")
+def _infer_split(op, ins, attrs):
+    x = first_in(ins, "X")
+    n_out = len(op.outputs.get("Out", []))
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)] * n_out}
+    axis = attrs.get("axis", 0) % x.ndim
+    sections = attrs.get("sections", [])
+    outs = []
+    for i in range(n_out):
+        shape = list(x.shape)
+        if sections:
+            shape[axis] = sections[i] if i < len(sections) else -1
+        elif shape[axis] >= 0 and n_out:
+            shape[axis] = shape[axis] // n_out
+        outs.append(VarInfo(shape, x.dtype, confident=x.confident))
+    return {"Out": outs}
+
+
+@register_infer("stack")
+def _infer_stack(op, ins, attrs):
+    xs = ins.get("X", [])
+    known = [x for x in xs if x.shape is not None]
+    if not known:
+        return {"Y": [VarInfo(None, xs[0].dtype if xs else None)]}
+    axis = attrs.get("axis", 0)
+    shape = list(known[0].shape)
+    shape.insert(axis if axis >= 0 else axis + len(shape) + 1, len(xs))
+    return {"Y": [VarInfo(shape, known[0].dtype,
+                          confident=all(x.confident for x in xs))]}
+
+
+@register_infer("expand")
+def _infer_expand(op, ins, attrs):
+    x = first_in(ins, "X")
+    times = attrs["expand_times"]
+    if x.shape is None or len(times) != x.ndim:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    shape = tuple(-1 if d < 0 else d * t
+                  for d, t in zip(x.shape, times))
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+
+
+@register_infer("slice")
+def _infer_slice(op, ins, attrs):
+    x = first_in(ins, "Input")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    shape = list(x.shape)
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = shape[a]
+        if dim < 0:
+            continue
+        s2 = max(s + dim, 0) if s < 0 else min(s, dim)
+        e2 = max(e + dim, 0) if e < 0 else min(e, dim)
+        shape[a] = max(e2 - s2, 0)
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+
+
+@register_infer("gather")
+def _infer_gather(op, ins, attrs):
+    x, idx = first_in(ins, "X"), first_in(ins, "Index")
+    if x.shape is None or idx.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    return {"Out": [VarInfo((dim_prod(idx.shape),) + x.shape[1:],
+                            x.dtype,
+                            confident=x.confident and idx.confident)]}
+
+
+@register_infer("one_hot")
+def _infer_one_hot(op, ins, attrs):
+    x = first_in(ins, "X")
+    depth = attrs["depth"]
+    if x.shape is None:
+        return {"Out": [VarInfo(None, "float32")]}
+    base = x.shape[:-1] if x.shape and x.shape[-1] == 1 else x.shape
+    return {"Out": [VarInfo(base + (depth,), "float32",
+                            confident=x.confident)]}
+
+
+@register_infer("arg_max")
+def _infer_arg_max(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, "int32")]}
+    axis = attrs.get("axis", -1) % x.ndim
+    shape = tuple(d for i, d in enumerate(x.shape) if i != axis)
+    return {"Out": [VarInfo(shape, "int32", confident=x.confident)]}
+
+
+register_infer("arg_min")(_infer_arg_max)
+
+
+@register_infer("argsort")
+def _infer_argsort(op, ins, attrs):
+    x = first_in(ins, "X")
+    return {"Out": [same_as(x)],
+            "Indices": [VarInfo(x.shape, "int32", confident=x.confident)]}
+
+
+@register_infer("top_k")
+def _infer_top_k(op, ins, attrs):
+    x = first_in(ins, "X")
+    k = attrs["k"]
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)],
+                "Indices": [VarInfo(None, "int32")]}
+    shape = x.shape[:-1] + (k,)
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)],
+            "Indices": [VarInfo(shape, "int32", confident=x.confident)]}
+
+
+@register_infer("pad")
+def _infer_pad(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)]}
+    p = attrs["paddings"]
+    shape = tuple(-1 if d < 0 else d + p[2 * i] + p[2 * i + 1]
+                  for i, d in enumerate(x.shape))
+    return {"Out": [VarInfo(shape, x.dtype, confident=x.confident)]}
+
+
+# ---------------------------------------------------------------------------
+# Numerics transfer functions (analysis/numcheck.py engine) — the third
+# registered half of each op: how its value RANGES move. The reference's
+# rules for the ops the port registers, colocated with the lowering +
+# infer rules above, same purity contract (no tensors). The
+# engine stamps dtype/shape/confidence; rules only do interval
+# arithmetic and finiteness. Intervals are conservative over REAL
+# arithmetic — the engine separately checks narrow-dtype overflow.
+# ---------------------------------------------------------------------------
+from ..analysis.infer import dim_prod as _num_dim_prod  # noqa: E402
+from ..analysis.numcheck import (NumInfo, interval, num_first,  # noqa: E402
+                                 add_iv, sub_iv, mul_iv, div_iv, join_iv)
+from ..core.registry import get_numerics, register_numerics  # noqa: E402
+
+
+def _register_num_passthrough(*types, in_slot="X", out_slot="Out"):
+    """Value-preserving ops (data movement, assign): output range is
+    the input range."""
+    for t in types:
+        def rule(op, ins, attrs, _si=in_slot, _so=out_slot):
+            x = num_first(ins, _si)
+            return {_so: [x.with_range(x.lo, x.hi)]}
+        register_numerics(t)(rule)
+
+
+_register_num_passthrough(
+    "assign", "reshape", "reshape2", "squeeze", "unsqueeze", "transpose",
+    "transpose2", "flatten", "slice", "gather", "expand", "cast")
+
+
+def _register_num_unary(**table):
+    """Monotone-interval unaries: fn(lo, hi, attrs) → (lo, hi, finite)."""
+    for t, fn in table.items():
+        def rule(op, ins, attrs, _fn=fn):
+            x = num_first(ins, "X")
+            lo, hi, finite = _fn(x.lo, x.hi, attrs)
+            return {"Out": [interval(lo, hi, finite)]}
+        register_numerics(t)(rule)
+
+
+def _softplus(x):
+    # overflow-safe log(1 + e^x): ~x for large x, ~0 for very negative
+    if x > 30.0:
+        return x
+    if x < -30.0:
+        return 0.0
+    return math.log1p(math.exp(x))
+
+
+def _safe_exp(x):
+    try:
+        return math.exp(x)
+    except OverflowError:
+        return math.inf
+
+
+def _leaky(lo, hi, alpha):
+    return (lo if lo >= 0 else alpha * lo,
+            hi if hi >= 0 else alpha * hi)
+
+
+def _square_iv(lo, hi):
+    a, b = lo * lo, hi * hi
+    a, b = (0.0 if math.isnan(v) else v for v in (a, b))
+    return (0.0 if lo <= 0 <= hi else min(a, b)), max(a, b)
+
+
+_register_num_unary(
+    relu=lambda lo, hi, a: (max(lo, 0.0), max(hi, 0.0), True),
+    relu6=lambda lo, hi, a: (0.0, a.get("threshold", 6.0), True),
+    brelu=lambda lo, hi, a: (a.get("t_min", 0.0), a.get("t_max", 24.0),
+                             True),
+    sigmoid=lambda lo, hi, a: (0.0, 1.0, True),
+    hard_sigmoid=lambda lo, hi, a: (0.0, 1.0, True),
+    tanh=lambda lo, hi, a: (-1.0, 1.0, True),
+    stanh=lambda lo, hi, a: (-abs(a.get("scale_b", 1.7159)),
+                             abs(a.get("scale_b", 1.7159)), True),
+    sin=lambda lo, hi, a: (-1.0, 1.0, True),
+    cos=lambda lo, hi, a: (-1.0, 1.0, True),
+    sign=lambda lo, hi, a: (-1.0, 1.0, True),
+    logical_not=lambda lo, hi, a: (0.0, 1.0, True),
+    softsign=lambda lo, hi, a: (-1.0, 1.0, True),
+    abs=lambda lo, hi, a: ((0.0 if lo <= 0 <= hi else min(abs(lo),
+                                                          abs(hi))),
+                           max(abs(lo), abs(hi)), True),
+    square=lambda lo, hi, a: _square_iv(lo, hi) + (True,),
+    exp=lambda lo, hi, a: (_safe_exp(lo), _safe_exp(hi), True),
+    softplus=lambda lo, hi, a: (_softplus(lo), _softplus(hi), True),
+    soft_relu=lambda lo, hi, a: (0.0, a.get("threshold", 40.0) + 0.7,
+                                 True),
+    logsigmoid=lambda lo, hi, a: (-_softplus(-lo), -_softplus(-hi),
+                                  True),
+    leaky_relu=lambda lo, hi, a: _leaky(lo, hi, a.get("alpha", 0.02))
+    + (True,),
+    elu=lambda lo, hi, a: (max(lo, -abs(a.get("alpha", 1.0)))
+                           if lo < 0 else lo, max(hi, 0.0), True),
+    # gelu/swish/mish dip slightly below 0 (min ≈ -0.17 / -0.28/β /
+    # -0.31) and sit under max(x, 0) above
+    gelu=lambda lo, hi, a: (max(min(lo, 0.0), -0.17), max(hi, 0.0),
+                            True),
+    swish=lambda lo, hi, a: (max(min(lo, 0.0),
+                                 -0.2785 / max(a.get("beta", 1.0),
+                                               1e-6)),
+                             max(hi, 0.0), True),
+    mish=lambda lo, hi, a: (max(min(lo, 0.0), -0.31), max(hi, 0.0),
+                            True),
+    tanh_shrink=lambda lo, hi, a: (min(lo, 0.0), max(hi, 0.0), True),
+    softshrink=lambda lo, hi, a: (min(lo, 0.0), max(hi, 0.0), True),
+    hard_shrink=lambda lo, hi, a: (min(lo, 0.0), max(hi, 0.0), True),
+    thresholded_relu=lambda lo, hi, a: (0.0, max(hi, 0.0), True),
+    floor=lambda lo, hi, a: (lo - 1.0, hi, True),
+    ceil=lambda lo, hi, a: (lo, hi + 1.0, True),
+    round=lambda lo, hi, a: (lo - 0.5, hi + 0.5, True),
+    clip=lambda lo, hi, a: (a.get("min", -math.inf),
+                            a.get("max", math.inf), True),
+    clip_by_norm=lambda lo, hi, a: (
+        max(lo, -abs(a.get("max_norm", math.inf))),
+        min(hi, abs(a.get("max_norm", math.inf))), True),
+    softmax=lambda lo, hi, a: (0.0, 1.0, True),
+    log_softmax=lambda lo, hi, a: (-math.inf, 0.0, True),
+)
+
+
+@register_numerics("log")
+def _num_log(op, ins, attrs):
+    x = num_first(ins, "X")
+    if x.lo > 0:
+        return {"Out": [interval(math.log(x.lo),
+                                 math.log(x.hi) if x.hi < math.inf
+                                 else math.inf)]}
+    return {"Out": [interval(-math.inf,
+                             math.log(x.hi) if 0 < x.hi < math.inf
+                             else math.inf, finite=False)]}
+
+
+@register_numerics("sqrt")
+def _num_sqrt(op, ins, attrs):
+    x = num_first(ins, "X")
+    ok = x.lo >= 0
+    lo = math.sqrt(max(x.lo, 0.0))
+    hi = math.sqrt(x.hi) if 0 <= x.hi < math.inf else math.inf
+    return {"Out": [interval(lo, hi, finite=ok)]}
+
+
+@register_numerics("rsqrt")
+def _num_rsqrt(op, ins, attrs):
+    x = num_first(ins, "X")
+    if x.lo > 0:
+        return {"Out": [interval(
+            1.0 / math.sqrt(x.hi) if x.hi < math.inf else 0.0,
+            1.0 / math.sqrt(x.lo))]}
+    return {"Out": [NumInfo(confident=True)]}
+
+
+@register_numerics("reciprocal")
+def _num_reciprocal(op, ins, attrs):
+    x = num_first(ins, "X")
+    qlo, qhi = div_iv(interval(1.0, 1.0), x)
+    return {"Out": [interval(qlo, qhi,
+                             finite=(x.lo > 0 or x.hi < 0))]}
+
+
+@register_numerics("pow")
+def _num_pow(op, ins, attrs):
+    x = num_first(ins, "X")
+    f = attrs.get("factor", 1.0)
+    if f == 1.0:
+        return {"Out": [x.with_range(x.lo, x.hi)]}
+    if f == 2.0:
+        lo, hi = _square_iv(x.lo, x.hi)
+        return {"Out": [interval(lo, hi)]}
+    if f == 0.5:
+        return _num_sqrt(op, ins, attrs)
+    return None
+
+
+@register_numerics("scale")
+def _num_scale(op, ins, attrs):
+    x = num_first(ins, "X")
+    s = float(attrs.get("scale", 1.0))
+    b = float(attrs.get("bias", 0.0))
+    if attrs.get("bias_after_scale", True):
+        lo, hi = x.lo * s + b, x.hi * s + b
+    else:
+        lo, hi = (x.lo + b) * s, (x.hi + b) * s
+    if s < 0:
+        lo, hi = hi, lo
+    lo, hi = (0.0 if math.isnan(v) else v for v in (lo, hi))
+    return {"Out": [interval(lo, hi)]}
+
+
+@register_numerics("increment")
+def _num_increment(op, ins, attrs):
+    x = num_first(ins, "X")
+    step = float(attrs.get("step", 1.0))
+    return {"Out": [interval(x.lo + step, x.hi + step)]}
+
+
+@register_numerics("fill_constant")
+def _num_fill_constant(op, ins, attrs):
+    v = float(attrs.get("value", 0.0))
+    return {"Out": [interval(v, v)]}
+
+
+@register_numerics("assign_value")
+def _num_assign_value(op, ins, attrs):
+    vals = [float(v) for v in np.asarray(
+        attrs.get("values", [0.0])).ravel()]
+    return {"Out": [interval(min(vals), max(vals))]} if vals else None
+
+
+@register_numerics("fill_zeros_like")
+def _num_fill_zeros_like(op, ins, attrs):
+    return {"Out": [interval(0.0, 0.0)]}
+
+
+@register_numerics("fill_constant_batch_size_like")
+def _num_fill_batch_like(op, ins, attrs):
+    v = float(attrs.get("value", 0.0))
+    return {"Out": [interval(v, v)]}
+
+
+@register_numerics("uniform_random")
+def _num_uniform_random(op, ins, attrs):
+    return {"Out": [interval(float(attrs.get("min", -1.0)),
+                             float(attrs.get("max", 1.0)))]}
+
+
+@register_numerics("gaussian_random")
+def _num_gaussian_random(op, ins, attrs):
+    # unbounded support, but every draw is finite
+    return {"Out": [interval(-math.inf, math.inf)]}
+
+
+def _num_binary(op, ins, attrs, fn, finite_fn=None):
+    x, y = num_first(ins, "X"), num_first(ins, "Y")
+    lo, hi = fn(x, y)
+    fin = finite_fn(x, y) if finite_fn else True
+    return {"Out": [interval(lo, hi, finite=fin)]}
+
+
+register_numerics("elementwise_add")(
+    lambda op, ins, attrs: _num_binary(op, ins, attrs, add_iv))
+register_numerics("elementwise_sub")(
+    lambda op, ins, attrs: _num_binary(op, ins, attrs, sub_iv))
+register_numerics("elementwise_mul")(
+    lambda op, ins, attrs: _num_binary(op, ins, attrs, mul_iv))
+register_numerics("elementwise_div")(
+    lambda op, ins, attrs: _num_binary(
+        op, ins, attrs, div_iv,
+        finite_fn=lambda x, y: y.lo > 0 or y.hi < 0))
+register_numerics("elementwise_max")(
+    lambda op, ins, attrs: _num_binary(
+        op, ins, attrs, lambda x, y: (max(x.lo, y.lo), max(x.hi, y.hi))))
+register_numerics("elementwise_min")(
+    lambda op, ins, attrs: _num_binary(
+        op, ins, attrs, lambda x, y: (min(x.lo, y.lo), min(x.hi, y.hi))))
+
+
+@register_numerics("elementwise_mod")
+def _num_mod(op, ins, attrs):
+    y = num_first(ins, "Y")
+    if y.lo > 0 or y.hi < 0:
+        m = y.mag
+        return {"Out": [interval(-m, m)]}
+    return {"Out": [NumInfo(confident=True)]}
+
+
+def _contraction_bound(x, y, k):
+    """|out| ≤ k · max|x| · max|y| — the accumulate-width-aware bound
+    for matmul-shaped ops (k = contraction size). Returns a finite
+    NumInfo, unbounded when k or an operand magnitude is unknown."""
+    if k is None or k < 0 or x.mag == math.inf or y.mag == math.inf:
+        return interval(-math.inf, math.inf)
+    m = k * x.mag * y.mag
+    lo = 0.0 if (x.lo >= 0 and y.lo >= 0) else -m
+    return interval(lo, m)
+
+
+@register_numerics("mul")
+def _num_mul_op(op, ins, attrs):
+    x, y = num_first(ins, "X"), num_first(ins, "Y")
+    xn = attrs.get("x_num_col_dims", 1)
+    k = _num_dim_prod(x.shape[xn:]) if x.shape is not None else None
+    return {"Out": [_contraction_bound(x, y, k)]}
+
+
+@register_numerics("matmul")
+def _num_matmul(op, ins, attrs):
+    x, y = num_first(ins, "X"), num_first(ins, "Y")
+    k = None
+    if x.shape is not None and len(x.shape) >= 2:
+        k = x.shape[-2] if attrs.get("transpose_X", False) \
+            else x.shape[-1]
+    return {"Out": [_contraction_bound(x, y, k)]}
+
+
+@register_numerics("sum")
+def _num_sum(op, ins, attrs):
+    xs = ins.get("X", [])
+    if not xs:
+        return None
+    lo = sum(x.lo for x in xs)
+    hi = sum(x.hi for x in xs)
+    lo, hi = (0.0 if math.isnan(v) else v for v in (lo, hi))
+    return {"Out": [interval(lo, hi)]}
+
+
+@register_numerics("mean")
+def _num_mean(op, ins, attrs):
+    x = num_first(ins, "X")
+    return {"Out": [interval(x.lo, x.hi)]}
+
+
+def _reduced_count(x, attrs):
+    if x.shape is None:
+        return None
+    if attrs.get("reduce_all", False):
+        return _num_dim_prod(x.shape)
+    dim = attrs.get("dim", [0])
+    axes = [d % len(x.shape) for d in
+            (dim if isinstance(dim, (list, tuple)) else [dim])]
+    return _num_dim_prod([x.shape[a] for a in axes])
+
+
+@register_numerics("reduce_sum")
+def _num_reduce_sum(op, ins, attrs):
+    x = num_first(ins, "X")
+    k = _reduced_count(x, attrs)
+    if k is None or k < 0:
+        # unknown reduced count: still a finite sum of finite terms,
+        # but the range degrades to the sign information alone
+        return {"Out": [interval(-math.inf if x.lo < 0 else 0.0,
+                                 math.inf if x.hi > 0 else 0.0)]}
+    lo = min(k * x.lo, 0.0) if x.lo < 0 else k * x.lo
+    hi = max(k * x.hi, 0.0) if x.hi > 0 else k * x.hi
+    return {"Out": [interval(lo, hi)]}
+
+
+@register_numerics("reduce_mean")
+def _num_reduce_mean(op, ins, attrs):
+    x = num_first(ins, "X")
+    return {"Out": [interval(x.lo, x.hi)]}
+
+
+register_numerics("reduce_max")(
+    lambda op, ins, attrs: {"Out": [interval(num_first(ins, "X").lo,
+                                             num_first(ins, "X").hi)]})
+register_numerics("reduce_min")(
+    lambda op, ins, attrs: {"Out": [interval(num_first(ins, "X").lo,
+                                             num_first(ins, "X").hi)]})
+
+
+@register_numerics("cumsum")
+def _num_cumsum(op, ins, attrs):
+    x = num_first(ins, "X")
+    if x.shape is None:
+        return {"Out": [interval(-math.inf if x.lo < 0 else 0.0,
+                                 math.inf if x.hi > 0 else 0.0)]}
+    axis = attrs.get("axis", -1)
+    k = x.shape[axis] if -len(x.shape) <= axis < len(x.shape) else -1
+    if k < 0:
+        return {"Out": [interval(-math.inf if x.lo < 0 else 0.0,
+                                 math.inf if x.hi > 0 else 0.0)]}
+    return {"Out": [interval(min(k * x.lo, x.lo), max(k * x.hi, x.hi))]}
+
+
+@register_numerics("concat")
+def _num_concat(op, ins, attrs):
+    xs = ins.get("X", [])
+    j = join_iv(xs)
+    return {"Out": [interval(j.lo, j.hi, j.finite)]}
+
+
+@register_numerics("stack")
+def _num_stack(op, ins, attrs):
+    xs = ins.get("X", [])
+    j = join_iv(xs)
+    return {"Out": [interval(j.lo, j.hi, j.finite)]}
+
+
+@register_numerics("split")
+def _num_split(op, ins, attrs):
+    x = num_first(ins, "X")
+    n = len(op.output("Out"))
+    return {"Out": [x.with_range(x.lo, x.hi) for _ in range(n)]}
+
+
+def _num_pad_like(op, ins, attrs):
+    x = num_first(ins, "X")
+    v = float(attrs.get("pad_value", 0.0))
+    return {"Out": [interval(min(x.lo, v), max(x.hi, v))]}
+
+
+register_numerics("pad")(_num_pad_like)
+register_numerics("pad2d")(_num_pad_like)
+
+
+@register_numerics("one_hot")
+def _num_one_hot(op, ins, attrs):
+    return {"Out": [interval(0.0, 1.0)]}
+
+
+@register_numerics("top_k")
+def _num_top_k(op, ins, attrs):
+    x = num_first(ins, "X")
+    hi_idx = float(x.shape[-1] - 1) \
+        if x.shape and x.shape[-1] > 0 else math.inf
+    return {"Out": [interval(x.lo, x.hi)],
+            "Indices": [interval(0.0, hi_idx)]}
+
+
+class _ChainOp:
+    """Stand-in op handed to per-step numerics rules when the fused
+    chain replays them (rules only touch .type/.input/.output)."""
+
+    def __init__(self, type):
+        self.type = type
+
+    def input(self, slot):
+        return ["<chain>"]
+
+    def output(self, slot):
+        return ["<chain>"]
+
+
+@register_numerics("fused_elementwise")
+def _num_fused_elementwise(op, ins, attrs):
+    """Replays the fused chain's steps over intervals — the same
+    per-step transfer functions the unfused ops would get, so
+    admitting a fusion never loses range precision."""
+    x = num_first(ins, "X")
+    cur = interval(x.lo, x.hi, x.finite)
+    args = ins.get("Args", [])
+    for step in attrs.get("steps", []):
+        t = step.get("op")
+        sattrs = step.get("attrs", {})
+        arg = step.get("arg", -1)
+        other = args[arg] if 0 <= arg < len(args) else cur
+        if t == "dropout":
+            # fused chains carry eval-mode dropout only: identity or a
+            # deterministic |scale| <= 1 downscale — range shrinks
+            cur = interval(min(cur.lo, 0.0), max(cur.hi, 0.0),
+                           cur.finite)
+            continue
+        rule = get_numerics(t)
+        out = rule(_ChainOp(t), {"X": [cur], "Y": [other]}, sattrs) \
+            if rule is not None else None
+        vals = (out or {}).get("Out")
+        nxt = vals[0] if vals else None
+        if nxt is None:
+            cur = NumInfo(confident=True)
+        else:
+            nxt.finite = nxt.finite and cur.finite and other.finite
+            cur = nxt
+    return {"Out": [cur]}

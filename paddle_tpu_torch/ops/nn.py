@@ -2,7 +2,8 @@
 the embedding lookup, ``layer_norm`` and ``group_norm``, ``dropout``,
 the losses, ``label_smooth``, the norms and distances, the metrics
 (``mean_iou``, ``accuracy``, ``auc``) and the composed
-``scaled_dot_product_attention``.
+``scaled_dot_product_attention``; then each op's static infer and
+numerics rules (the reference's, for the analysis package).
 
 Every rule is plain torch, as XLA fused them in the reference. The
 convolutions, pools, ``batch_norm``, ``lrn``, the interps, ``roi_pool``
@@ -377,3 +378,169 @@ def _sdpa(ctx, ins, attrs):
         logits = logits + ins["Mask"][0]
     w = torch.softmax(logits, dim=-1)
     return {"Out": [torch.matmul(w, v)]}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype inference rules (analysis/infer.py engine) — the
+# reference's (paddle_tpu/ops/nn.py) for the ops the port registers, pure
+# shape arithmetic colocated with the lowerings above.
+# ---------------------------------------------------------------------------
+from ..analysis.infer import VarInfo, first_in, same_as  # noqa: E402
+from ..core.registry import register_infer  # noqa: E402
+
+
+@register_infer("layer_norm")
+def _infer_layer_norm(op, ins, attrs):
+    return {"Y": [same_as(first_in(ins, "X"))]}
+
+
+@register_infer("group_norm")
+def _infer_group_norm(op, ins, attrs):
+    return {"Y": [same_as(first_in(ins, "X"))]}
+
+
+@register_infer("label_smooth")
+def _infer_label_smooth(op, ins, attrs):
+    return {"Out": [same_as(first_in(ins, "X"))]}
+
+
+@register_infer("lookup_table")
+def _infer_lookup_table(op, ins, attrs):
+    w, ids = first_in(ins, "W"), first_in(ins, "Ids")
+    emb = w.shape[-1] if w.shape is not None and len(w.shape) else -1
+    if ids.shape is None:
+        return {"Out": [VarInfo(None, w.dtype, ids.lod_level)]}
+    base = ids.shape[:-1] if ids.shape and ids.shape[-1] == 1 \
+        else ids.shape
+    return {"Out": [VarInfo(base + (emb,), w.dtype, ids.lod_level,
+                            confident=w.confident and ids.confident)]}
+
+
+@register_infer("dropout")
+def _infer_dropout(op, ins, attrs):
+    x = first_in(ins, "X")
+    return {"Out": [same_as(x)], "Mask": [same_as(x)]}
+
+
+def _loss_shape(x):
+    """[N, ..., D] → [N, ..., 1] per-row loss."""
+    if x.shape is None:
+        return None
+    return x.shape[:-1] + (1,)
+
+
+@register_infer("cross_entropy")
+def _infer_cross_entropy(op, ins, attrs):
+    x = first_in(ins, "X")
+    return {"Y": [VarInfo(_loss_shape(x), x.dtype,
+                          confident=x.confident)]}
+
+
+@register_infer("softmax_with_cross_entropy")
+def _infer_softmax_ce(op, ins, attrs):
+    logits = first_in(ins, "Logits")
+    return {"Loss": [VarInfo(_loss_shape(logits), logits.dtype,
+                             confident=logits.confident)],
+            "Softmax": [same_as(logits)]}
+
+
+@register_infer("sigmoid_cross_entropy_with_logits")
+def _infer_sigmoid_ce(op, ins, attrs):
+    return {"Out": [same_as(first_in(ins, "X"))]}
+
+
+@register_infer("square_error_cost")
+def _infer_square_error(op, ins, attrs):
+    return {"Out": [same_as(first_in(ins, "X"))]}
+
+
+@register_infer("accuracy")
+def _infer_accuracy(op, ins, attrs):
+    conf = first_in(ins, "Indices").confident
+    return {"Accuracy": [VarInfo((1,), "float32", confident=conf)],
+            "Correct": [VarInfo((1,), "int32", confident=conf)],
+            "Total": [VarInfo((1,), "int32", confident=conf)]}
+
+
+# ---------------------------------------------------------------------------
+# Numerics transfer functions (analysis/numcheck.py) — value-range and
+# finiteness behavior, colocated like the infer rules above. Pure
+# interval arithmetic, no tensors.
+# ---------------------------------------------------------------------------
+from ..analysis.numcheck import (interval, num_first)  # noqa: E402
+from ..core.registry import register_numerics  # noqa: E402
+
+
+@register_numerics("layer_norm")
+def _num_layer_norm(op, ins, attrs):
+    return {"Y": [interval(-math.inf, math.inf)]}
+
+
+@register_numerics("group_norm")
+def _num_group_norm(op, ins, attrs):
+    return {"Y": [interval(-math.inf, math.inf)]}
+
+
+@register_numerics("label_smooth")
+def _num_label_smooth(op, ins, attrs):
+    x = num_first(ins, "X")
+    return {"Out": [interval(min(x.lo, 0.0), max(x.hi, 1.0))]}
+
+
+@register_numerics("lookup_table")
+def _num_lookup_table(op, ins, attrs):
+    w = num_first(ins, "W")
+    return {"Out": [interval(w.lo, w.hi)]}
+
+
+@register_numerics("dropout")
+def _num_dropout(op, ins, attrs):
+    """Train: mask then 1/(1-p) upscale; eval: identity or (1-p)
+    downscale. Either way the range is the (0-joined) input range
+    scaled by at most 1/(1-p)."""
+    x = num_first(ins, "X")
+    p = float(attrs.get("dropout_prob", 0.5))
+    s = 1.0 / max(1.0 - p, 1e-6)
+    return {"Out": [interval(min(x.lo * s, 0.0), max(x.hi * s, 0.0))],
+            "Mask": [interval(0.0, s)]}
+
+
+@register_numerics("cross_entropy")
+def _num_cross_entropy(op, ins, attrs):
+    """-log(p + 1e-9) (the lowering's epsilon): bounded and finite for
+    probability inputs p ∈ [0, 1]; unproven otherwise (a negative p
+    would put the log over a non-positive argument)."""
+    x = num_first(ins, "X")
+    if x.lo >= 0.0:
+        hi = -math.log(max(x.lo, 0.0) + 1e-9)
+        lo = 0.0 if x.hi == math.inf else min(-math.log(x.hi + 1e-9),
+                                              0.0)
+        return {"Y": [interval(lo, hi)]}
+    return {"Y": [interval(-math.inf, math.inf, finite=False)]}
+
+
+@register_numerics("softmax_with_cross_entropy")
+def _num_softmax_ce(op, ins, attrs):
+    # stable log-softmax formulation: finite for finite logits; loss
+    # magnitude bounded by the logit spread, which seeds leave open
+    return {"Loss": [interval(0.0, math.inf)],
+            "Softmax": [interval(0.0, 1.0)]}
+
+
+@register_numerics("sigmoid_cross_entropy_with_logits")
+def _num_sigmoid_ce(op, ins, attrs):
+    return {"Out": [interval(0.0, math.inf)]}
+
+
+@register_numerics("square_error_cost")
+def _num_square_error(op, ins, attrs):
+    x, y = num_first(ins, "X"), num_first(ins, "Label")
+    d = max(abs(x.hi - y.lo), abs(y.hi - x.lo))
+    return {"Out": [interval(0.0, d * d if d < math.inf else math.inf)]}
+
+
+@register_numerics("accuracy")
+def _num_accuracy(op, ins, attrs):
+    return {"Accuracy": [interval(0.0, 1.0)],
+            "Correct": [interval(0.0, math.inf)],
+            "Total": [interval(0.0, math.inf)]}

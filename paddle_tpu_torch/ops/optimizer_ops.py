@@ -266,3 +266,39 @@ def _proximal_adagrad(ctx, ins, attrs):
     return {"ParamOut": [_like(_prox(pf - lr * gf / torch.sqrt(mo + 1e-12),
                                      lr, l1, l2), p)],
             "MomentOut": [_like(mo, m)]}
+
+
+# ---------------------------------------------------------------------------
+# Static inference rules: every optimizer update op's outputs mirror
+# the state inputs they update (ParamOut ≡ Param, MomentOut ≡ Moment,
+# ...), which is exactly what the verifier needs to prove parameter
+# shapes survive the update sweep.
+# ---------------------------------------------------------------------------
+from ..analysis.infer import passthrough  # noqa: E402
+from ..core.registry import register_infer  # noqa: E402
+
+_OPT_SLOT_MAPS = {
+    "sgd": {"ParamOut": "Param"},
+    "momentum": {"ParamOut": "Param", "VelocityOut": "Velocity"},
+    "adam": {"ParamOut": "Param", "Moment1Out": "Moment1",
+             "Moment2Out": "Moment2"},
+    "adamax": {"ParamOut": "Param", "MomentOut": "Moment",
+               "InfNormOut": "InfNorm"},
+    "adagrad": {"ParamOut": "Param", "MomentOut": "Moment"},
+    "decayed_adagrad": {"ParamOut": "Param", "MomentOut": "Moment"},
+    "adadelta": {"ParamOut": "Param",
+                 "AvgSquaredGradOut": "AvgSquaredGrad",
+                 "AvgSquaredUpdateOut": "AvgSquaredUpdate"},
+    "rmsprop": {"ParamOut": "Param", "MeanSquareOut": "MeanSquare",
+                "MomentOut": "Moment", "MeanGradOut": "MeanGrad"},
+    "ftrl": {"ParamOut": "Param",
+             "SquaredAccumOut": "SquaredAccumulator",
+             "LinearAccumOut": "LinearAccumulator"},
+    "lamb": {"ParamOut": "Param", "Moment1Out": "Moment1",
+             "Moment2Out": "Moment2"},
+    "proximal_gd": {"ParamOut": "Param"},
+    "proximal_adagrad": {"ParamOut": "Param", "MomentOut": "Moment"},
+}
+
+for _t, _m in _OPT_SLOT_MAPS.items():
+    register_infer(_t)(passthrough(_m))

@@ -34,15 +34,22 @@ nothing mutable). Single worker by design: the device executes one
 program at a time anyway, and one consumer keeps batch assembly
 trivially racefree — parallelism belongs to the batch dimension.
 
+As in the reference, the engine serves an optimized CLONE of its
+program by default (``optimize=True``: analysis/optimize.py's fold +
+fuse + cse + dce, bit-exact on every fetch), with the report in
+``optimize_report`` and ``stats()["optimize"]``; ``optimize_ms`` holds
+the rewrite's wall time on the host clock (port-only).
+
 Differences from the reference: the default place is the card
 (``CUDAPlace(0)``; constructing without one raises where CUDA is
-absent), the ``optimize`` rewrite (analysis/optimize.py) is not ported
-yet so ``optimize`` defaults to False and True raises, and
-``from_saved_model`` / ``compile_store`` arrive with the io slice.
+absent), the optimize rewrite folds constants on the engine's own
+device, and ``from_saved_model`` / ``compile_store`` arrive with the io
+slice.
 """
 import os
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -139,27 +146,47 @@ class ServingEngine:
 
     def __init__(self, program, feed_names, fetch_list, scope=None,
                  place=None, buckets=None, config=None, auto_start=True,
-                 optimize=False, model_version=None):
-        if optimize:
-            raise NotImplementedError(
-                "ServingEngine(optimize=True) applies analysis/optimize.py, "
-                "which is a later slice of the torch port (ROADMAP.md "
-                "item 'Optimize rewrite and verifier'); pass "
-                "optimize=False")
+                 optimize=True, model_version=None):
         self.feed_names = list(feed_names)
         self.fetch_list = list(fetch_list)
         # deployment identity (None for engines built straight from a
         # Program) — surfaced in stats()
         self.model_version = model_version
-        self.program = program
-        self.scope = scope or global_scope()
-        self.buckets = buckets or BucketSpec()
-        self.config = config or ServingConfig()
         # all retries surface here (counted in metrics); the inner
         # executor must not also retry or attempts would multiply.
         # The default place is the card, never the host.
         self.exe = Executor(place if place is not None else CUDAPlace(0),
                             retry_policy=RetryPolicy(max_attempts=1))
+        # graph rewrites on the serving hot path (analysis/optimize.py:
+        # fold + fuse + cse + dce, bit-exact): the engine runs an
+        # optimized CLONE — the caller's program is never mutated, and
+        # the clone's own (uid, version) keys the executor's step
+        # cache, so warmup()/assert_no_recompiles() pin the optimized
+        # steps exactly as before. Constants fold on the engine's own
+        # device. A rewrite failure degrades to serving the original
+        # program, with a warning. ``optimize_ms`` is the rewrite's
+        # own wall time (the clone excluded).
+        self.optimize_report = None
+        self.optimize_ms = None
+        if optimize:
+            try:
+                from ..analysis.optimize import optimize_program
+                fetch_names = [v.name if hasattr(v, "name") else v
+                               for v in self.fetch_list]
+                clone = program.clone(for_test=program._is_test)
+                t0 = time.perf_counter()
+                self.optimize_report = optimize_program(
+                    clone, fetch_list=fetch_names, device=self.exe.device)
+                self.optimize_ms = (time.perf_counter() - t0) * 1e3
+                program = clone
+            except Exception as e:   # a rewrite bug must not block serving
+                warnings.warn(
+                    f"serving optimize rewrite failed ({e!r}); "
+                    "serving the program unoptimized", stacklevel=2)
+        self.program = program
+        self.scope = scope or global_scope()
+        self.buckets = buckets or BucketSpec()
+        self.config = config or ServingConfig()
         self.metrics = ServingMetrics()
         self.batcher = MicroBatcher(
             max_batch_size=self.buckets.max_batch,
@@ -418,6 +445,9 @@ class ServingEngine:
         snap["queue_depth"] = self.batcher.depth()
         snap["health_state"] = self.health.state
         snap["model_version"] = self.model_version
+        snap["optimize"] = (self.optimize_report.to_dict()
+                            if self.optimize_report is not None
+                            else None)
         snap["breaker"] = self.breaker.snapshot()
         open_sigs = {str(sig): br.snapshot()
                      for sig, br in self._sig_breakers.items()

@@ -76,6 +76,9 @@ import paddle_tpu_torch.ops.sequence, paddle_tpu_torch.layers.math_op_patch
 import paddle_tpu_torch.layers.learning_rate_scheduler
 import paddle_tpu_torch.layers.metric_op
 import paddle_tpu_torch.layers.sequence_layers
+import paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.optimize
+import paddle_tpu_torch.analysis.numcheck, paddle_tpu_torch.analysis.layout
+import paddle_tpu_torch.analysis.lints, paddle_tpu_torch.analysis.verify
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                     "ml_dtypes"))
@@ -125,14 +128,31 @@ def test_later_slices_refuse_loudly():
     """What the port has not ported yet raises NotImplementedError naming
     its ROADMAP item; training itself runs, with the switches ported so
     far: AMP, the NaN guard, remat policies, the layer-stacked decoder
-    (shard_pp), the fused head loss (fused_head_chunk) and (item 1b) the
-    op library's layers, math_op_patch and the LR schedulers."""
+    (shard_pp), the fused head loss (fused_head_chunk), (item 1b) the
+    op library's layers, math_op_patch and the LR schedulers, and (item
+    2) the optimize rewrite — the serving engine's default — and the
+    verifier."""
     infer, _, logits = _tiny_program()
-    with pytest.raises(NotImplementedError, match="optimize"):
-        ServingEngine(infer, ["tokens"], [logits], place=fluid.CPUPlace(),
-                      optimize=True, auto_start=False)
-    with pytest.raises(NotImplementedError):
-        infer.optimize(fetch_list=[logits])
+    # item 2 lifted: the engine optimizes a clone by default, and
+    # Program.optimize / Program.verify run
+    engine = ServingEngine(infer, ["tokens"], [logits],
+                           place=fluid.CPUPlace(), auto_start=False)
+    assert engine.optimize_report is not None
+    assert engine.program is not infer
+    assert engine.stats()["optimize"]["passes"] == ["fold", "fuse", "cse",
+                                                    "dce"]
+    report = infer.clone(for_test=True).optimize(fetch_list=[logits])
+    assert report.counts() == engine.optimize_report.counts()
+    assert not fluid.analysis.errors(infer.verify(fetch_list=[logits]))
+    # still refused, by name: the cost model and the source checkers
+    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
+        infer.clone(for_test=True).optimize(fetch_list=[logits],
+                                            collect_cost=True)
+    for name in ("cost", "racecheck", "protocheck", "program_cost"):
+        with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
+            getattr(fluid.analysis, name)
+    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
+        from paddle_tpu_torch.analysis import cost  # noqa: F401
 
     def train_program(**kw):
         main, startup = fluid.Program(), fluid.Program()
@@ -200,8 +220,7 @@ def test_later_slices_refuse_loudly():
     for op_type, item in (("conv2d", "Conv nets and the transpilers"),
                           ("batch_norm", "Conv nets and the transpilers"),
                           ("load", "IO, persistables and Inferencer"),
-                          ("fused_elementwise",
-                           "Optimize rewrite and verifier"),
+                          ("lrn", "Conv nets and the transpilers"),
                           ("sequence_pool",
                            "Remaining op families and the zoo")):
         prog = main.clone()

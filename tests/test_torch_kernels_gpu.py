@@ -559,3 +559,91 @@ def test_dropout_on_the_card():
         pytest.skip("needs a CUDA card")
     out = chip_smoke.phase_dropout(torch, "test")
     assert abs(out["upscale_in_train"]["kept_share"] - 0.9) < 0.01
+
+
+def _engine(optimize, build, feeds, scope):
+    from paddle_tpu_torch import serving
+    main, fetch = build
+    return serving.ServingEngine(
+        main, feeds, [fetch], scope=scope,
+        buckets=serving.BucketSpec(batch_sizes=(1, 2)),
+        config=serving.ServingConfig(max_wait_ms=5.0), optimize=optimize)
+
+
+def _fold_chain():
+    """A test program whose constant feeds an exp/log/pow chain (all
+    foldable), times tanh of the feed. Returns (program, fetch, feed)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        c = fluid.layers.fill_constant([16], "float32", 0.7310585)
+        k = fluid.layers.pow(fluid.layers.log(fluid.layers.exp(
+            fluid.layers.scale(c, scale=3.3, bias=0.1))), factor=1.7)
+        out = fluid.layers.elementwise_mul(fluid.layers.tanh(x), k)
+    feed = {"x": np.random.RandomState(5).randn(2, 16).astype(np.float32)}
+    return main.clone(for_test=True), out, feed
+
+
+@pytest.mark.gpu
+def test_engine_folds_on_the_card_bit_exact():
+    """A foldable exp/log/pow chain: the engine's default optimize folds
+    it on the card (its own device), so the served answer equals the
+    unoptimized program run on the card bit for bit — a CPU fold could
+    differ from the card's exp/log in the last bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    infer, out, feed = _fold_chain()
+    scope = fluid.Scope()
+    want = fluid.Executor().run(infer, feed=feed, fetch_list=[out],
+                                scope=scope)[0]
+    with _engine(True, (infer, out), ["x"], scope) as eng:
+        assert eng.optimize_report.n_folded >= 3
+        assert [op.type for op in eng.program.global_block().ops
+                ].count("exp") == 0
+        got = eng.infer(feed, timeout=60.0)[0]
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_direct_optimize_folds_on_the_card_bit_exact():
+    """``Program.optimize`` names no device and, with a card present,
+    folds the same chain on the card (as the reference folds on jax's
+    default backend), so the optimized program run on the card equals
+    the unoptimized one bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    infer, out, feed = _fold_chain()
+    opt = infer.clone(for_test=True)
+    assert opt.optimize(fetch_list=[out.name]).n_folded >= 3
+    exe, scope = fluid.Executor(), fluid.Scope()
+    got = exe.run(opt, feed=feed, fetch_list=[out], scope=scope)[0]
+    want = exe.run(infer, feed=feed, fetch_list=[out], scope=scope)[0]
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_engine_serves_optimized_clone_identically_on_the_card():
+    """An MLP whose bias-add + relu chains fuse: the optimized engine's
+    answers equal the unoptimized engine's bit for bit on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[32], dtype="float32")
+        h = fluid.layers.fc(x, size=64, act="relu")
+        pred = fluid.layers.fc(h, size=10, act="softmax")
+    infer = main.clone(for_test=True)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(6).randn(2, 32).astype(np.float32)}
+    with _engine(False, (infer, pred), ["x"], scope) as off:
+        off.warmup()
+        want = off.infer(feed, timeout=60.0)[0]
+    with _engine(True, (infer, pred), ["x"], scope) as on:
+        assert on.optimize_report.n_fused >= 1
+        on.warmup()
+        got = on.infer(feed, timeout=60.0)[0]
+        on.assert_no_recompiles()
+    assert np.array_equal(got, want)
+

@@ -100,8 +100,10 @@ NN_REST = {"layer_norm", "group_norm", "dropout",
            "hinge_loss", "log_loss", "kldiv_loss", "dice_loss",
            "label_smooth", "l1_norm", "squared_l2_distance", "mean_iou",
            "accuracy", "auc", "scaled_dot_product_attention"}
+# ROADMAP item 2: the optimize pass's fused chain
+REWRITE = {"fused_elementwise"}
 PORTED = (LLAMA_SLICES | BASIC_REST | NN_REST | {"sequence_mask"}
-          | OPTIMIZER_RULES)
+          | OPTIMIZER_RULES | REWRITE)
 
 
 def test_port_registers_exactly_the_slice_ops():
@@ -114,7 +116,7 @@ def test_port_registers_exactly_the_slice_ops():
 # what waits, by name, with its ROADMAP item
 STILL_REFUSED = {
     "load": "IO, persistables and Inferencer",
-    "fused_elementwise": "Optimize rewrite and verifier",
+    "lrn": "Conv nets and the transpilers",
     "flatten_concat": "Conv nets and the transpilers",
     "fused_param_split": "Conv nets and the transpilers",
     "conv2d": "Conv nets and the transpilers",

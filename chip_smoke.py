@@ -129,12 +129,45 @@ Phases — any failure exits non-zero:
    under ``PADDLE_TPU_OPTIMIZE=1`` and ``validate="strict"``: the ten
    losses and every persistable after the run bit for bit equal to 11's,
    K1/K2/K3 6 launches a step; the step-time median beside 11's.
+18. io_train_resume (ROADMAP item 3, path A): 11's model, batch and
+   recipe trained by ``Trainer`` for 6 steps in epochs of 2, every batch
+   new, written once with ``batcher.write_fixed`` and read through
+   ``FixedBatcher`` -> ``DeviceLoader`` (pinned memory, copies on a side
+   stream), a checkpoint an epoch; a second run killed by the
+   ``torn_write`` fault in its second checkpoint, a third resumed from
+   the newest valid one: its losses and every persistable bit for bit
+   the uninterrupted run's (``torch.equal``; the checkpoint restores the
+   step counter that seeds dropout), K1/K2/K3 6 launches a step on the
+   float32 kernels; step time with and without ``DeviceLoader``, each
+   with its device busy time and idle share;
+19. io_saved_serve (the main path of item 3): 18's trained test clone
+   through ``save_inference_model`` (buckets (1, 2, 4, 8) x 256, the
+   embedded artifact store, a golden set of 8), then a fresh
+   ``ServingEngine.from_saved_model(compile_store=True)``: warmup builds
+   no step (4 store hits), 32 requests bit for bit an in-memory engine's answers, K1 on
+   ``flash_fwd_f32mma`` (6 a dispatch), K2/K3 none, no build after
+   warmup; ``Inferencer.from_inference_model`` and the golden set equal;
+   ``CompiledPredictor`` (``__compiled__.pt2``) at batch 1 and 8 within
+   the f32 serving tier, K1 launched through its ``torch.library``
+   operator; the save, load, construction and warmup times with and
+   without the store; K1's operator copies no input;
+20. io_llama_saved (path B): ``LLAMA3_8B`` at full width cut to 2
+   layers in bf16 saved and served back: every persistable's bits, 8
+   requests across (1, 2, 4) x (128, 256) bit for bit the in-memory
+   engine's, K1 on ``flash_fwd_mma`` at D 128, ``CompiledPredictor``
+   within the bf16 tier.
+The kernels phase also holds K1's operator (``flash_fwd_op``, what an
+exported graph calls) to the wrapper bit for bit and to the plain
+version, at Transformer-base's f32 D 64 shape and the 8B width's bf16
+serving shape.
 Phase 4 also times the default optimize and the verifier at the
 32-layer program's construction, whose report must be empty (the
 reference rewrites nothing there). Every phase runs under
 ``Executor.run``'s default verifier (``validate="1"``) with its
 ``VerifyWarning`` — and a rewrite falling back to the unoptimized
-program — raised as an error.
+program, a save falling back to the JSON path (no ``__compiled__.pt2``)
+or to an unseeded artifact store, and a bypassed store — raised as an
+error.
 The kernels phase also checks and times the float32 K1, K2 and K3 at
 Transformer-base's shapes (B*H 32 x 8, D 64: causal T 256, and
 non-causal tq 128 over tk 256), whose rows the kernel line adds.
@@ -252,6 +285,20 @@ TF_SERVE_OPTIMIZE_COUNTS = {"folded": 0, "fused": 26, "merged": 0,
                             "removed": 0, "converted": 0,
                             "layout_transposes": 0}
 SERVE_8B_OPTIMIZE_COUNTS = dict.fromkeys(TF_SERVE_OPTIMIZE_COUNTS, 0)
+# ROADMAP item 3 (IO, persistables, checkpoints, the Inferencer): path A
+# trains TRANSFORMER_BASE (TF_BATCH x TF_SEQ, lengths) through Trainer
+# for IO_STEPS steps in epochs of IO_EPOCH_STEPS, a checkpoint at each
+# epoch's end (IO_KEEP kept), then serves it from its saved directory;
+# path B saves and serves the 8B width at IO_LLAMA_LAYERS layers in bf16
+# (32 layers would be 16 GB of params.npz to write and hash a run)
+IO_STEPS, IO_EPOCH_STEPS, IO_KEEP = 6, 2, 3
+IO_TIMED_STEPS = 4              # steps timed with and without DeviceLoader
+IO_GOLDEN = 8                   # the golden set's requests
+IO_LLAMA_LAYERS = 2
+# the cases where K1's custom operator is held to the wrapper and the
+# plain version: Transformer-base's decoder (f32, D 64) and the 8B
+# width's serving shape (bf16, D 128)
+OP_CASES = (TF_CAUSAL_LABEL, "serving T=256")
 DROPOUT_P = 0.1
 INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
@@ -463,6 +510,9 @@ def phase_kernels(torch, fa, seed):
             + ", ".join(f"{n} {e:.3e} ({r:.3f})"
                         for n, (_, e, r) in errs.items())
             + f" ({TOL_TEXT}) {'ok' if ok else 'MISMATCH'}")
+        if label in OP_CASES and ok:
+            check_custom_op(torch, fa, label, (q, k, v), scale, causal,
+                            (o, lse), pairs["O"][1])
         if not ok:
             failures.append(label)
         results[label] = dict(
@@ -495,6 +545,29 @@ def phase_kernels(torch, fa, seed):
                                    flush))
     del flush, results
     return timing
+
+
+def check_custom_op(torch, fa, label, qkv, scale, causal, wrapper_out,
+                    o_plain):
+    """K1 through its ``torch.library`` operator (``fa.flash_fwd_op``,
+    what an exported graph calls): one launch of the variant
+    ``kernel_for`` names, outputs equal to the wrapper's bit for bit and
+    within the tier of the plain version."""
+    q = qkv[0]
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd_op(*qkv, scale, causal)
+    torch.cuda.synchronize()
+    sym = fa.kernel_for("flash_fwd", q.dtype, q.shape[-1])[1]
+    ok, err, ratio = kernel_err(o, o_plain)
+    check(fa.flash_fwd.launches == 1
+          and fa.flash_fwd.launches_by_kernel[sym] == 1,
+          f"K1 operator {label}: launches {fa.flash_fwd.launches_by_kernel}"
+          f", not one of {sym}")
+    check(torch.equal(o, wrapper_out[0]) and torch.equal(lse, wrapper_out[1])
+          and ok, f"K1 operator {label}: differs from the wrapper or from "
+          f"the plain version (err {err:.3e}, {ratio:.3f} of the limit)")
+    log(f"K1 operator {label}: {sym}, equal to the wrapper, max abs err "
+        f"{err:.3e} ({ratio:.3f} of the limit)")
 
 
 def check_variants(torch, fa, dt, d, launches=1):
@@ -2307,6 +2380,550 @@ def phase_transformer_parity(torch, fluid, fa, card):
     return by_kernel, out
 
 
+# ---------------------------------------------------------------------------
+# IO, persistables, checkpoints and the Inferencer (ROADMAP item 3)
+# ---------------------------------------------------------------------------
+
+
+# checkpoints, saved models and record files are written and read back
+# here, in the package's git-ignored build directory inside the checkout
+IO_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "paddle_tpu_torch", "_build", "chip_smoke_io")
+
+
+def io_workdir(name):
+    """A fresh directory ``name`` under IO_ROOT."""
+    import shutil
+    path = os.path.join(IO_ROOT, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def io_batches(cfg, workdir):
+    """The IO_STEPS training batches of ``phase_io_train_resume``
+    (``transformer_feed`` on SEED + 10 + step), written once with
+    ``batcher.write_fixed``: one record file an epoch of IO_EPOCH_STEPS
+    batches, one record a sentence pair. Returns (feed names, record
+    specs, the files, the batches as numpy)."""
+    from paddle_tpu_torch.io import batcher
+    names = ["src", "tgt", "lbl", "src_len", "tgt_len"]
+    specs = [((TF_SEQ,), "int64")] * 3 + [((1,), "int64")] * 2
+    feeds = [transformer_feed(cfg, TF_BATCH, TF_SEQ, TF_SEQ, True,
+                              seed=SEED + 10 + s) for s in range(IO_STEPS)]
+    paths = []
+    for e in range(IO_STEPS // IO_EPOCH_STEPS):
+        path = os.path.join(workdir, f"epoch{e}.recordio")
+        rows = [tuple(np.reshape(feeds[s][n][i], (-1,)) for n in names)
+                for s in range(e * IO_EPOCH_STEPS, (e + 1) * IO_EPOCH_STEPS)
+                for i in range(TF_BATCH)]
+        batcher.write_fixed(path, rows, specs)
+        paths.append(path)
+    return names, specs, paths, feeds
+
+
+class IOTrainRun:
+    """One ``Trainer`` over TRANSFORMER_BASE (float32, the base recipe)
+    fed by ``FixedBatcher`` -> ``DeviceLoader``, checkpointing at every
+    epoch's end into ``ckpt_dir``; the epoch's record file is chosen by
+    its BeginEpochEvent. Records each step's loss and wall time."""
+
+    def __init__(self, fluid, cfg, ckpt_dir, names, specs, paths):
+        from paddle_tpu_torch.io import DeviceLoader, batcher
+        from paddle_tpu_torch.models.transformer import build_transformer
+        self.losses, self.step_s = [], []
+        self.model_cfg = cfg
+        self.logits = None
+        self._epoch = 0
+        self._t = None
+
+        def train_func():
+            def data(name, shape):
+                return fluid.layers.data(name=name, shape=shape,
+                                         dtype="int64",
+                                         append_batch_size=False)
+            src, tgt = data("src", [-1, TF_SEQ]), data("tgt", [-1, TF_SEQ])
+            lbl = data("lbl", [-1, TF_SEQ])
+            logits, loss = build_transformer(
+                cfg, src, tgt, lbl, src_lengths=data("src_len", [-1]),
+                tgt_lengths=data("tgt_len", [-1]))
+            self.logits = logits.name
+            return [loss]
+
+        def optimizer_func():
+            lr = fluid.layers.noam_decay(cfg.d_model, TF_NOAM_WARMUP)
+            return fluid.optimizer.Adam(lr, beta1=0.9, beta2=0.98,
+                                        epsilon=1e-9)
+
+        self.cfg = fluid.CheckpointConfig(
+            checkpoint_dir=ckpt_dir, max_num_checkpoints=IO_KEEP,
+            epoch_interval=1, step_interval=10 ** 9)
+        # the card: Trainer's and DeviceLoader's default place
+        self.trainer = fluid.Trainer(train_func, optimizer_func,
+                                     checkpoint_config=self.cfg)
+
+        def batches():
+            # the lengths come back as [batch, 1] records
+            for fields in batcher.FixedBatcher(paths[self._epoch], specs,
+                                               TF_BATCH, n_threads=1):
+                yield fields[:3] + tuple(f[:, 0] for f in fields[3:])
+
+        self.reader = lambda: DeviceLoader(batches, feed_names=names,
+                                           buffer_size=2)
+
+    def handler(self, event):
+        import paddle_tpu_torch as fluid
+        if isinstance(event, fluid.BeginEpochEvent):
+            self._epoch = event.epoch
+        elif isinstance(event, fluid.BeginStepEvent):
+            self._t = time.perf_counter()
+        elif isinstance(event, fluid.EndStepEvent):
+            # the fetched loss is on the host: the step is done
+            self.step_s.append(time.perf_counter() - self._t)
+            self.losses.append(float(np.asarray(event.metrics[0])))
+
+    def train(self):
+        self.trainer.train(num_epochs=IO_STEPS // IO_EPOCH_STEPS,
+                           event_handler=self.handler, reader=self.reader)
+
+    def state(self):
+        scope = self.trainer.scope
+        return {n: scope.find_var(n) for n in scope.keys()
+                if scope.find_var(n) is not None}
+
+
+def phase_io_train_resume(torch, fluid, fa, card):
+    """Path A's training (ROADMAP item 3): TRANSFORMER_BASE in float32
+    at full width and the ``transformer`` phase's batch (TF_BATCH x
+    TF_SEQ a side, lengths from SEED), trained by ``Trainer`` (noam +
+    Adam, dropout 0.1) for IO_STEPS steps, fed from record files written
+    once with ``batcher.write_fixed`` and read through ``FixedBatcher``
+    -> ``DeviceLoader`` (pinned memory, side-stream copies), a
+    checkpoint at every epoch's end (IO_EPOCH_STEPS steps). Run 1 goes
+    through; run 2 is killed by the ``torn_write`` fault during its
+    second checkpoint; run 3, a fresh Trainer on run 2's directory,
+    resumes from the newest valid checkpoint (the torn temp is ignored)
+    and finishes. Checks: run 3's losses and every persistable after the
+    last step equal run 1's bit for bit (``torch.equal``: the step
+    counter that seeds dropout is restored), run 2's first epoch equals
+    run 1's, K1/K2/K3 6 launches a step on the float32 kernels (run 1,
+    counts reset just before and read just after). Then the step time
+    with and without ``DeviceLoader`` (host numpy feeds), each with one
+    step's device busy time and idle share. Returns (launches by kernel
+    symbol, stats, run 1)."""
+    from paddle_tpu_torch.models.transformer import TRANSFORMER_BASE
+    from paddle_tpu_torch.resilience import faultinject
+    from paddle_tpu_torch.resilience.checkpoint import list_serials
+
+    tag = "io_train_resume"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TRANSFORMER_BASE
+    work = io_workdir("train")
+    t0 = time.perf_counter()
+    names, specs, paths, feeds = io_batches(cfg, work)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run1 = IOTrainRun(fluid, cfg, os.path.join(work, "ckpt1"),
+                      names, specs, paths)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    run1.train()
+    by_kernel = launches_by_kernel(fa)
+    check_tf_launches(torch, fa, tag, by_kernel, cfg.n_decoder_layers,
+                      IO_STEPS)
+    # a new batch of random labels every step, at noam's first rates
+    # (~1e-7): the loss stays near its expected start, it need not fall
+    expected = first_loss_expected(cfg)
+    check(all(math.isfinite(x) and abs(x - expected) < 0.5
+              for x in run1.losses),
+          f"{tag}: losses {run1.losses} not finite within 0.5 of "
+          f"{expected:.4f}")
+    check(len(run1.losses) == IO_STEPS, f"{tag}: run 1 took "
+          f"{len(run1.losses)} steps, not {IO_STEPS}")
+
+    run2 = IOTrainRun(fluid, cfg, os.path.join(work, "ckpt2"),
+                      names, specs, paths)
+    faultinject.arm("torn_write", at=1)
+    try:
+        run2.train()
+        check(False, f"{tag}: run 2 was not killed by the torn write")
+    except faultinject.SimulatedCrash:
+        pass
+    finally:
+        faultinject.disarm("torn_write")
+    ckpt2 = os.path.join(work, "ckpt2")
+    torn = [e for e in os.listdir(ckpt2) if e.startswith(".tmp_ckpt_")]
+    check(list_serials(ckpt2) == [1] and len(torn) == 1,
+          f"{tag}: after the crash {ckpt2} holds serials "
+          f"{list_serials(ckpt2)} and temps {torn}")
+    check(run2.losses == run1.losses[:len(run2.losses)]
+          and len(run2.losses) == 2 * IO_EPOCH_STEPS,
+          f"{tag}: run 2's losses {run2.losses} are not run 1's "
+          f"{run1.losses}")
+    del run2
+    free_card(torch)
+
+    t0 = time.perf_counter()
+    run3 = IOTrainRun(fluid, cfg, ckpt2, names, specs, paths)
+    resume_s = time.perf_counter() - t0
+    check(run3.cfg.epoch_id == 1, f"{tag}: run 3 resumes at epoch "
+          f"{run3.cfg.epoch_id}, not 1")
+    run3.train()
+    check(run3.losses == run1.losses[IO_EPOCH_STEPS:],
+          f"{tag}: resumed losses {run3.losses} != uninterrupted "
+          f"{run1.losses[IO_EPOCH_STEPS:]}")
+    s1, s3 = run1.state(), run3.state()
+    check(sorted(s1) == sorted(s3), f"{tag}: persistables differ: "
+          f"{sorted(set(s1) ^ set(s3))}")
+    differ = [n for n in s1 if not torch.equal(s1[n], s3[n])]
+    check(not differ, f"{tag}: {len(differ)} persistables differ after "
+          f"the resume: {differ[:5]}")
+    del run3
+    free_card(torch)
+
+    # step time with and without DeviceLoader, on run 1's scope
+    t1 = run1.trainer
+    loss = t1.train_outputs[0]
+    timing = {}
+    for label in ("device_loader", "host_feed"):
+        walls = []
+        if label == "device_loader":
+            it = iter(run1.reader())
+            feed_of = lambda: next(it)                  # noqa: E731
+        else:
+            host = iter(feeds * 4)
+            feed_of = lambda: next(host)                # noqa: E731
+        for _ in range(IO_TIMED_STEPS):
+            t0 = time.perf_counter()
+            t1.exe.run(t1.train_program, feed=feed_of(), fetch_list=[loss],
+                       scope=t1.scope)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if label == "device_loader" and len(walls) % IO_EPOCH_STEPS \
+                    == 0:
+                run1._epoch = (run1._epoch + 1) % len(paths)
+                it = iter(run1.reader())
+        med = sorted(walls)[len(walls) // 2] * 1e3
+        entry = {"step_ms_median": med, "step_ms": [w * 1e3 for w in walls]}
+        if label == "device_loader":
+            it = iter(run1.reader())
+        add_busy(entry, device_ms_by_kind(
+            torch, lambda: t1.exe.run(t1.train_program, feed=feed_of(),
+                                      fetch_list=[loss], scope=t1.scope)),
+            med)
+        timing[label] = entry
+    stats = {"steps": IO_STEPS, "epoch_steps": IO_EPOCH_STEPS,
+             "losses": run1.losses, "first_loss_expected": expected,
+             "trainer_step_ms": [s * 1e3 for s in run1.step_s],
+             "record_write_s": write_s, "trainer_startup_s": startup_s,
+             "resume_construction_s": resume_s,
+             "launches_by_kernel": by_kernel, **timing, "card": card}
+    log(f"{tag}: " + json.dumps(stats))
+    return by_kernel, stats, run1
+
+
+def engine_answers(engine, reqs):
+    """Every request submitted before the worker starts (one wave, FIFO,
+    batches of the largest bucket), then the answers in request order."""
+    pending = [engine.submit(r, timeout=600.0) for r in reqs]
+    engine.start()
+    return [p.result(600.0) for p in pending]
+
+
+def rel_rms(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.sqrt(np.mean((np.asarray(got, np.float64) - want) ** 2))
+                 / np.sqrt(np.mean(want ** 2)))
+
+
+def phase_io_saved_serve(torch, fluid, fa, card, run):
+    """Path A's serving, the main path of this slice:
+    ``save_inference_model`` of ``phase_io_train_resume``'s trained test
+    clone (feeds src, tgt, src_len; the logits), with buckets
+    TF_SERVE_BATCHES x TF_SEQ, ``artifact_store=True`` (``__artifacts__/``
+    seeded by replaying ``from_saved_model`` + ``warmup()``), and a golden
+    set of IO_GOLDEN requests recorded from an engine on the trained
+    in-memory scope. Then a fresh ``ServingEngine.from_saved_model(dir,
+    compile_store=True)``:
+    ``warmup()`` builds no step (every bucket a store hit), TF_SERVE_
+    REQUESTS concurrent requests get answers bit-identical to the
+    in-memory engine's (the same wave, batched alike), K1 on
+    flash_fwd_f32mma 6 launches a dispatch and K2/K3 none, no step build
+    after warmup; ``Inferencer.from_inference_model(dir).infer`` of the
+    first 8 requests equals them; the golden set replays equal; the
+    ``CompiledPredictor`` of ``__compiled__.pt2`` at batch 1 and 8 within
+    TOL_LOGITS_REL_RMS_F32 of the engine, K1 launched through the custom
+    op, which copies no input there nor in the engine. The save, load, construction and warmup times, with the store and
+    without it. Returns (launches by kernel symbol, stats)."""
+    from paddle_tpu_torch import io as fio
+    from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
+                                          ServingEngine)
+
+    tag = "io_saved_serve"
+    t1 = run.trainer
+    feeds = ["src", "tgt", "src_len"]
+    buckets = BucketSpec(batch_sizes=TF_SERVE_BATCHES)
+    config = ServingConfig(max_wait_ms=20.0, default_timeout_s=600.0)
+    work = io_workdir("saved")
+    reqs = transformer_requests(run.model_cfg, TF_SERVE_REQUESTS, SEED + 2)
+    mem = ServingEngine(t1.test_program.prune(feeds, [run.logits]), feeds,
+                        [run.logits], scope=t1.scope,
+                        buckets=buckets, config=config, auto_start=False)
+    mem.warmup()
+    golden_feeds = reqs[:IO_GOLDEN]
+    t0 = time.perf_counter()
+    with fluid.scope_guard(t1.scope):
+        fio.save_inference_model(
+            work, feeds, [run.logits], t1.exe, main_program=t1.test_program,
+            serving_buckets=buckets, artifact_store=True)
+    save_s = time.perf_counter() - t0
+    want = engine_answers(mem, reqs)
+    # the golden set is recorded one request at a time, as it replays
+    fio.save_golden_set(work, golden_feeds,
+                        [mem.infer(f, timeout=600.0) for f in golden_feeds])
+    mem.close()
+    with open(os.path.join(work, "__meta__.json")) as f:
+        meta = json.load(f)
+    store_entries = len(os.listdir(os.path.join(work, "__artifacts__")))
+    check(meta["model_version"] == 1 and meta["feed_names"] == feeds
+          and meta["serving"]["buckets"]["batch_sizes"]
+          == list(TF_SERVE_BATCHES),
+          f"{tag}: __meta__.json {meta}")
+
+    t0 = time.perf_counter()
+    eng = ServingEngine.from_saved_model(work, config=config,
+                                         auto_start=False,
+                                         compile_store=True)
+    construct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    store = eng.stats()["artifact_store"]
+    check(warm["compiles"] == 0 and eng.exe.total_compiles() == 0,
+          f"{tag}: warmup built {warm} steps with the store")
+    check(store["hits_total"] == len(TF_SERVE_BATCHES)
+          and store["misses_total"] == 0,
+          f"{tag}: store counters after warmup {store}")
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    got = engine_answers(eng, reqs)
+    by_kernel = launches_by_kernel(fa)
+    engine_copies = fa.flash_fwd.input_copies
+    dispatches = eng.stats().get("batches_total")
+    eng.assert_no_recompiles()
+    check(eng.exe.total_compiles() == 0,
+          f"{tag}: a step was built after warmup")
+    same = [i for i, (g, w) in enumerate(zip(got, want))
+            if not np.array_equal(g[0], w[0])]
+    check(not same, f"{tag}: answers {same} differ from the in-memory "
+          "engine's")
+    k1 = F32_KERNELS["flash_fwd"]
+    n_dec = run.model_cfg.n_decoder_layers
+    check(by_kernel[k1] > 0 and by_kernel[k1] % n_dec == 0
+          and fa.flash_fwd.launches == by_kernel[k1]
+          and not fa.flash_bwd_dq.launches
+          and not fa.flash_bwd_dkv.launches,
+          f"{tag}: launches {by_kernel}")
+    if dispatches is not None:
+        check(by_kernel[k1] == n_dec * dispatches,
+              f"{tag}: K1 {by_kernel[k1]} launches for {dispatches} "
+              "dispatches")
+    golden = fio.load_golden_set(work)
+    replay = [eng.infer(f, timeout=600.0) for f in golden[0]]
+    check(len(golden[0]) == IO_GOLDEN
+          and all(np.array_equal(r[0], o[0])
+                  for r, o in zip(replay, golden[1])),
+          f"{tag}: the golden set does not replay equal")
+    eng.close()
+
+    t0 = time.perf_counter()
+    inf = fluid.Inferencer.from_inference_model(work)
+    inf_load_s = time.perf_counter() - t0
+    first = {n: np.concatenate([r[n] for r in reqs[:8]]) for n in feeds}
+    out = inf.infer(first)[0]
+    check(all(np.array_equal(out[i:i + 1], got[i][0]) for i in range(8)),
+          f"{tag}: Inferencer.infer differs from the engine")
+    del inf
+
+    t0 = time.perf_counter()
+    pred = fio.load_compiled_predictor(work)
+    pred_load_s = time.perf_counter() - t0
+    pred_err, pred_copies = {}, {}
+    for b in (1, 8):
+        feed = {n: np.concatenate([r[n] for r in reqs[:b]]) for n in feeds}
+        fa.reset_launch_counts()
+        p = pred.run(feed)[0]
+        pred_copies[b] = fa.flash_fwd.input_copies
+        check(pred_copies[b] == 0 and engine_copies == 0,
+              f"{tag}: K1's operator copied inputs (engine "
+              f"{engine_copies}, the predictor at batch {b} "
+              f"{pred_copies[b]})")
+        check(fa.flash_fwd.launches == n_dec
+              and fa.flash_fwd.launches_by_kernel[k1] == n_dec,
+              f"{tag}: the CompiledPredictor at batch {b} launched K1 "
+              f"{fa.flash_fwd.launches_by_kernel}")
+        err = max(rel_rms(p[i:i + 1], got[i][0]) for i in range(b))
+        check(err <= TOL_LOGITS_REL_RMS_F32,
+              f"{tag}: CompiledPredictor batch {b}: relative RMS {err:.3e}")
+        pred_err[b] = err
+    del pred
+
+    # without the store (the default): the same load builds every bucket
+    t0 = time.perf_counter()
+    bare = ServingEngine.from_saved_model(work, config=config,
+                                          auto_start=False,
+                                          compile_store=False)
+    bare_construct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bare_warm = bare.warmup()
+    torch.cuda.synchronize()
+    bare_warm_s = time.perf_counter() - t0
+    check(bare_warm["compiles"] == len(TF_SERVE_BATCHES),
+          f"{tag}: warmup without the store built {bare_warm}")
+    bare.close()
+    stats = {"save_s": save_s, "store_entries": store_entries,
+             "construct_s": construct_s, "warmup_s": warm_s,
+             "warmup": warm, "store": {k: store[k] for k in (
+                 "hits_total", "misses_total", "puts_total", "entries",
+                 "total_bytes")},
+             "construct_s_no_store": bare_construct_s,
+             "warmup_s_no_store": bare_warm_s, "warmup_no_store": bare_warm,
+             "inferencer_load_s": inf_load_s,
+             "predictor_load_s": pred_load_s,
+             "predictor_rel_rms": pred_err, "dispatches": dispatches,
+             "k1_input_copies": {"engine": engine_copies,
+                                 "predictor": pred_copies},
+             "launches_by_kernel": by_kernel, "card": card}
+    log(f"{tag}: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def phase_io_llama_saved(torch, fluid, fa, card):
+    """Path B: the Llama-3-8B width (dim 4096, head dim 128, vocab
+    128256) cut to IO_LLAMA_LAYERS layers, in bfloat16, saved with
+    ``save_inference_model`` (buckets (1, 2, 4) x (128, 256)) and served
+    back by ``ServingEngine.from_saved_model``: every persistable's bits
+    survive the round trip (the bfloat16 ``params.npz`` members are
+    2-byte void arrays that the port reads by the program's dtype), 8
+    requests across the buckets get answers bit-identical to an engine
+    on the in-memory scope, K1 launched on flash_fwd_mma at D 128, and
+    the ``CompiledPredictor`` within TOL_LOGITS_BF16_RMS of the engine,
+    K1's operator copying no input. Returns (launches by kernel symbol, stats)."""
+    from paddle_tpu_torch import io as fio
+    from paddle_tpu_torch.models.llama import LLAMA3_8B, build_llama
+    from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
+                                          ServingEngine)
+
+    tag = "io_llama_saved"
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=IO_LLAMA_LAYERS,
+                              dtype="bfloat16")
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        tokens = fluid.layers.data(name="tokens", shape=[-1, -1],
+                                   dtype="int64", append_batch_size=False)
+        logits, _ = build_llama(cfg, tokens)
+    infer = main.clone(for_test=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor()                     # the card: CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in scope.vars.values())
+    buckets = BucketSpec(batch_sizes=(1, 2, 4),
+                         seq_lens={"tokens": (128, 256)})
+    config = ServingConfig(max_wait_ms=20.0, default_timeout_s=600.0)
+    work = io_workdir("llama")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fio.save_inference_model(work, ["tokens"], [logits], exe,
+                                 main_program=infer,
+                                 serving_buckets=buckets)
+    save_s = time.perf_counter() - t0
+    npz_bytes = os.path.getsize(os.path.join(work, "params.npz"))
+    t0 = time.perf_counter()
+    eng = ServingEngine.from_saved_model(work, config=config,
+                                         auto_start=False)
+    load_s = time.perf_counter() - t0
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    loaded = sorted(eng.scope.keys())
+    differ = [n for n in loaded
+              if eng.scope.find_var(n).dtype != scope.find_var(n).dtype
+              or not torch.equal(bits(eng.scope.find_var(n)),
+                                 bits(scope.find_var(n)))]
+    check(loaded and not differ,
+          f"{tag}: persistables changed across the round trip: {differ}")
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    mem = ServingEngine(infer, ["tokens"], [logits], scope=scope,
+                        buckets=buckets, config=config,
+                        auto_start=False)
+    mem.warmup()
+    rng = np.random.RandomState(SEED + 3)
+    lengths = [40, 130, 256, 77, 128, 200, 96, 171]
+    reqs = [{"tokens": rng.randint(0, cfg.vocab_size, (1, n))
+             .astype(np.int64)} for n in lengths]
+    want = engine_answers(mem, reqs)
+    mem.close()
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    got = engine_answers(eng, reqs)
+    by_kernel = launches_by_kernel(fa)
+    engine_copies = fa.flash_fwd.input_copies
+    eng.assert_no_recompiles()
+    eng.close()
+    same = [i for i, (g, w) in enumerate(zip(got, want))
+            if not np.array_equal(g[0], w[0])]
+    check(not same, f"{tag}: answers {same} differ from the in-memory "
+          "engine's")
+    # answers come back padded to their length bucket; causal attention
+    # leaves a request's own rows untouched by the padding after them
+    check(all(np.isfinite(g[0]).all() and g[0].shape[0] == 1
+              and g[0].shape[1] >= n and g[0].shape[2] == cfg.vocab_size
+              for g, n in zip(got, lengths)),
+          f"{tag}: logits not finite or of the wrong shape")
+    check(by_kernel["flash_fwd_mma"] > 0
+          and by_kernel["flash_fwd_mma"] == fa.flash_fwd.launches
+          and by_kernel["flash_fwd_mma"] % cfg.n_layers == 0
+          and not fa.flash_bwd_dq.launches,
+          f"{tag}: launches {by_kernel}")
+    t0 = time.perf_counter()
+    pred = fio.load_compiled_predictor(work)
+    pred_load_s = time.perf_counter() - t0
+    errs, pred_copies = [], []
+    for i in (0, 2):
+        fa.reset_launch_counts()
+        p = pred.run(reqs[i])[0]
+        pred_copies.append(fa.flash_fwd.input_copies)
+        check(pred_copies[-1] == 0 and engine_copies == 0,
+              f"{tag}: K1's operator copied inputs (engine "
+              f"{engine_copies}, the predictor {pred_copies[-1]})")
+        check(fa.flash_fwd.launches_by_kernel["flash_fwd_mma"]
+              == cfg.n_layers,
+              f"{tag}: CompiledPredictor launched K1 "
+              f"{fa.flash_fwd.launches_by_kernel}")
+        errs.append(rel_rms(p, got[i][0][:, :lengths[i]]))
+    check(max(errs) <= TOL_LOGITS_BF16_RMS,
+          f"{tag}: CompiledPredictor relative RMS {errs}")
+    del pred, eng
+    stats = {"layers": cfg.n_layers, "params_b": n_params / 1e9,
+             "params_npz_gb": npz_bytes / 1e9, "save_s": save_s,
+             "load_and_construct_s": load_s, "warmup_s": warm_s,
+             "warmup": warm, "predictor_load_s": pred_load_s,
+             "predictor_rel_rms": errs,
+             "k1_input_copies": {"engine": engine_copies,
+                                 "predictor": pred_copies},
+             "launches_by_kernel": by_kernel, "card": card}
+    log(f"{tag}: " + json.dumps(stats))
+    return by_kernel, stats
+
+
 def phase_dropout(torch, card):
     """The dropout rule on the card at DROPOUT_P over a TF_BATCH x TF_SEQ
     x 512 float32 tensor: the kept share within 5 sigma of 1 - p, the
@@ -2395,6 +3012,11 @@ def main():
     # rewrite that falls back to the unoptimized program, fails the run
     warnings.simplefilter("error", VerifyWarning)
     warnings.filterwarnings("error", message=".*rewrite failed.*")
+    # save_inference_model degrading to the JSON path (no
+    # __compiled__.pt2) or to an unseeded store, and an artifact store
+    # bypassed, fail the run too
+    warnings.filterwarnings("error", message=".*AOT export skipped.*")
+    warnings.filterwarnings("error", message=".*artifact.store.*")
     try:
         kind = torch.cuda.get_device_name(0)
         smi = nvidia_smi()
@@ -2472,6 +3094,21 @@ def main():
                                                          smi)
         free_card(torch)
         phase_dropout(torch, smi)
+        free_card(torch)
+        # ROADMAP item 3: path A trained through the native input
+        # pipeline with a crash and a resume, then served from its saved
+        # directory (the main path of this slice); path B, the 8B width
+        # in bf16 from disk
+        io_train_launches, _, io_run = phase_io_train_resume(
+            torch, fluid, fa, smi)
+        io_serve_launches, _ = phase_io_saved_serve(torch, fluid, fa, smi,
+                                                    io_run)
+        del io_run
+        free_card(torch)
+        io_llama_launches, _ = phase_io_llama_saved(torch, fluid, fa, smi)
+        free_card(torch)
+        import shutil
+        shutil.rmtree(IO_ROOT, ignore_errors=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2495,7 +3132,10 @@ def main():
              "transformer_serve": tf_serve_launches,
              "transformer_optimized": tf_opt_launches,
              "transformer_unpadded": tf_unpadded_launches,
-             "transformer_parity_f32": tf_parity_launches}
+             "transformer_parity_f32": tf_parity_launches,
+             "io_train_resume": io_train_launches,
+             "io_saved_serve": io_serve_launches,
+             "io_llama_saved": io_llama_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),

@@ -53,5 +53,12 @@ from . import debugger                         # noqa: F401
 from . import analysis                         # noqa: F401
 from . import transpiler                       # noqa: F401
 from .transpiler import memory_optimize        # noqa: F401
+from .data_feeder import DataFeeder            # noqa: F401
+from . import io                               # noqa: F401
+from . import reader                           # noqa: F401
+from .reader import batch                      # noqa: F401
+from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa: F401
+                      BeginStepEvent, EndStepEvent, CheckpointConfig)
+from .inferencer import Inferencer             # noqa: F401
 
 __version__ = "0.1.0"

@@ -35,7 +35,26 @@ passes such as ``"fold,dce"``) it runs an optimized clone of the program
 (analysis/optimize.py) in its place, folding constants on the
 executor's own device.
 
-Later slices: the artifact store and the profiler hook.
+In-graph readers (layers.py_reader / open_files / ...): any started
+reader of the program supplies its variables unless they are fed
+explicitly (explicit feed keys win); an exhausted one raises
+:class:`EOFException`, which ends an epoch. Feeds that are already
+tensors on the executor's device (``io.DeviceLoader``) are used as
+they are, with no host round trip.
+
+A persistent artifact store (``compile_store=`` / the
+``PADDLE_TPU_ARTIFACT_DIR`` env var, io/artifact_store.py): before a
+test-mode step of a new argument signature is built, the store is asked
+for the exported step under the content key of (canonical program,
+mode, fetches, signature, library fingerprint); a hit runs the loaded
+graph and builds nothing (``compile_counts`` does not grow), a miss
+builds the step as always and persists its export for the next process.
+The exported step returns the persistables it writes with its fetches,
+and they go to the scope as the eager step's do. ``store_stats()`` reads
+the counters. Train steps, guarded steps and steps that draw random
+numbers bypass the store.
+
+Later slice: the profiler hook.
 """
 import contextlib
 import os
@@ -157,9 +176,20 @@ class Executor:
     """Op-by-op executor over torch tensors (vs. fluid's per-op
     interpreter, reference paddle/fluid/framework/executor.cc)."""
 
-    def __init__(self, place=None, retry_policy=None):
+    def __init__(self, place=None, retry_policy=None, compile_store=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device      # raises without CUDA
+        # persistent artifact store (io/artifact_store.py): an
+        # ArtifactStore, a directory, None (PADDLE_TPU_ARTIFACT_DIR) or
+        # False (off even with the env var)
+        from ..io.artifact_store import resolve_store
+        self._store = resolve_store(compile_store)
+        self._store_fns = {}     # artifact key -> loaded step
+        self._store_new = {}     # ("artifact", key) -> 1 per exported miss
+        self._akey_cache = {}    # (uid, version, mode, fetch, sig) -> key
+        self._prog_repr = {}     # (uid, version, fetch) -> canonical repr
+        self._store_warned = False
+        self._fp = None          # library fingerprint, resolved lazily
         # (uid, version, mode, fetch names) -> [step fn, feed signatures]
         self._cache = {}
         # (uid, version, fetch names, validate mode) already verified
@@ -203,6 +233,13 @@ class Executor:
                              "NaN guard — flags are per dispatch")
         scope = scope or global_scope()
         feed = dict(feed) if feed else {}
+        # in-graph readers (layers.py_reader / open_files / ...): any
+        # started reader supplies its variables unless explicitly fed;
+        # an exhausted one raises EOFException
+        for r in getattr(program, "_readers", []):
+            if r.started() and not all(n in feed for n in r.var_names()):
+                for k, v in r.next_feed().items():
+                    feed.setdefault(k, v)   # explicit feed keys win
         # static verification BEFORE anything is prepared or lowered,
         # once per (program version, fetch set, validate mode)
         self._validate(program, fetch_list, feed, validate)
@@ -212,19 +249,16 @@ class Executor:
         fetch_names, mode, state, feed_vals = \
             self._prepare(program, feed, fetch_list, scope, mode)
 
-        key = (program.uid, program.version, mode, tuple(fetch_names))
-        entry = self._cache.get(key)
-        if entry is None:
-            # drop step functions of older versions of this program so a
-            # mutate-and-run loop doesn't leak them
-            stale = [k for k in self._cache
-                     if k[0] == program.uid and k[1] != program.version]
-            for k in stale:
-                del self._cache[k]
-            entry = self._cache[key] = [
-                lower_program(program, fetch_names, mode), set()]
-        step_fn, sigs = entry
-        sigs.add(_feed_signature(feed_vals))
+        # artifact store: a hit runs the loaded step (no step build);
+        # a miss builds the step below and persists its export
+        art = (self._artifact_for(program, mode, fetch_names, repeats,
+                                  state, feed_vals)
+               if self._store is not None else None)
+        step_fn = None if art is not None and art.source == "exported" \
+            else self._step_fn(program, mode, fetch_names, feed_vals)
+        if art is not None and art.source == "pending":
+            art = self._export_and_persist(art, program, step_fn, state,
+                                           feed_vals, mode, fetch_names)
 
         self._step += 1
         first_step = self._step
@@ -237,6 +271,12 @@ class Executor:
             if _faultinject.fires("device_error"):
                 raise TransientDeviceError(
                     "injected transient device error (UNAVAILABLE)")
+            if art is not None:
+                with torch.inference_mode():
+                    fetches, written = art(
+                        [state[n] for n in art.param_names],
+                        [feed_vals[n] for n in art.feed_names])
+                return dict(written), list(fetches)
             if step_fn.trains:
                 grad_mode = contextlib.nullcontext()
             elif mode == "test":
@@ -264,10 +304,132 @@ class Executor:
             scope.set(n, v)
         # after the scope is written, so a tripped guard leaves the
         # step's state readable
-        check_nan_guard(guard, step_fn.guard_labels)
+        check_nan_guard(guard, step_fn.guard_labels if step_fn else [])
         if return_numpy:
             fetches = [to_numpy(f) for f in fetches]
         return fetches
+
+    def _step_fn(self, program, mode, fetch_names, feed_vals):
+        """The built step of (program version, mode, fetch set), built
+        on first use; records the feed signature (one step build
+        each)."""
+        key = (program.uid, program.version, mode, tuple(fetch_names))
+        entry = self._cache.get(key)
+        if entry is None:
+            # drop step functions of older versions of this program so a
+            # mutate-and-run loop doesn't leak them
+            stale = [k for k in self._cache
+                     if k[0] == program.uid and k[1] != program.version]
+            for k in stale:
+                del self._cache[k]
+            entry = self._cache[key] = [
+                lower_program(program, fetch_names, mode), set()]
+        step_fn, sigs = entry
+        sigs.add(_feed_signature(feed_vals))
+        return step_fn
+
+    # ------------------------------------------------------------------
+    def _fingerprint(self):
+        if self._fp is None:
+            from ..io.artifact_store import library_fingerprint
+            self._fp = library_fingerprint(self.device)
+        return self._fp
+
+    def _store_bypass(self, why):
+        """Count a dispatch the store could not serve; warn once."""
+        self._store._incr("bypass_total")
+        if not self._store_warned:
+            self._store_warned = True
+            warnings.warn(f"artifact store bypassed ({why}); building "
+                          "the step as usual", stacklevel=4)
+
+    def _artifact_for(self, program, mode, fetch_names, repeats, state,
+                      feed_vals):
+        """Store-backed step for this dispatch: an in-memory hit, a
+        verified disk load (no step build), or a ``"pending"`` marker
+        for a miss whose step is built and then exported. None for what
+        the store does not hold (train steps, guarded steps, repeats)
+        or on any failure — the ordinary step runs, so the store can
+        degrade but never break a dispatch. A step that draws random
+        numbers bypasses it too: the exported graph has no seed or step
+        input, so it would repeat one draw."""
+        from ..io import artifact_store as ast
+        if mode != "test" or repeats != 1 or \
+                getattr(program, "_nan_guard", False) or any(
+                    op.type == "backward"
+                    for op in program.global_block().ops) or \
+                _draws_rng(program):
+            self._store._incr("bypass_total")
+            return None
+        try:
+            sig = ast.arg_signature(state, feed_vals)
+            ckey = (program.uid, program.version, mode,
+                    tuple(fetch_names), sig)
+            akey = self._akey_cache.get(ckey)
+            if akey is None:
+                pkey = (program.uid, program.version,
+                        tuple(sorted(fetch_names)))
+                prepr = self._prog_repr.get(pkey)
+                if prepr is None:
+                    prepr = ast.canonical_program_repr(program,
+                                                       fetch_names)
+                    self._prog_repr[pkey] = prepr
+                akey = ast.artifact_key(prepr, mode, fetch_names, repeats,
+                                        True, sig, self._fingerprint())
+                self._akey_cache[ckey] = akey
+            art = self._store_fns.get(akey)
+            if art is None:
+                art = self._store.load(akey)
+            if art is None:
+                return ast._LoadedArtifact(None, "pending", akey,
+                                           sorted(state), sorted(feed_vals))
+            self._store_fns[akey] = art
+            if len(self._store_fns) > 512:   # mutate-and-run bound
+                self._store_fns.pop(next(iter(self._store_fns)))
+            return art
+        except Exception as e:        # noqa: BLE001 — degrade, never block
+            self._store_bypass(f"{type(e).__name__}: {e}")
+            return None
+
+    def _export_and_persist(self, art, program, step_fn, state, feed_vals,
+                            mode, fetch_names):
+        """The store-miss path: export the step just built for exactly
+        this signature (io/aot.py's machinery), persist it for every
+        later process, and run it in this one too, so a miss and a hit
+        run the same graph. The build is counted in ``compile_counts``
+        (the step's feed signature, plus an ("artifact", key) entry)."""
+        from ..io.aot import export_step, save_exported
+        try:
+            ep = export_step(step_fn, art.param_names,
+                             [state[n] for n in art.param_names],
+                             art.feed_names,
+                             [feed_vals[n] for n in art.feed_names],
+                             self.device, with_state=True)
+            self._store.save(
+                art.key, save_exported(ep), self._fingerprint(),
+                meta={"mode": mode, "fetch": list(fetch_names),
+                      "param_names": art.param_names,
+                      "feed_names": art.feed_names})
+        except Exception as e:        # noqa: BLE001 — degrade, never block
+            self._store_bypass(f"export failed: {type(e).__name__}: {e}")
+            return None
+        self._store_new[("artifact", art.key)] = 1
+        from ..io.artifact_store import _LoadedArtifact
+        fresh = _LoadedArtifact(ep.module(), "fresh", art.key,
+                                art.param_names, art.feed_names)
+        self._store_fns[art.key] = fresh
+        return fresh
+
+    def store_stats(self):
+        """The artifact store's counter snapshot (plus how many loaded
+        steps this executor holds), or None when no store is
+        configured — surfaced by the serving engine under
+        stats()["artifact_store"]."""
+        if self._store is None:
+            return None
+        snap = self._store.stats()
+        snap["loaded_executables"] = len(self._store_fns)
+        return snap
 
     # ------------------------------------------------------------------
     def _maybe_optimize(self, program, fetch_list):
@@ -413,17 +575,40 @@ class Executor:
         signature; eager torch builds nothing per shape, but the count
         keeps its meaning: each declared serving bucket contributes
         exactly one, and a request shape that escapes the buckets adds
-        one."""
-        return {k: len(sigs) for k, (_, sigs) in self._cache.items()}
+        one. A step loaded from the artifact store counts nowhere —
+        that absence is the zero-build cold start; a store miss adds an
+        ``("artifact", key)`` entry beside its build."""
+        out = {k: len(sigs) for k, (_, sigs) in self._cache.items()}
+        out.update(self._store_new)
+        return out
 
     def total_compiles(self):
         """Total step builds across every lowered program — the scalar
         warmup assertions compare."""
-        return sum(self.compile_counts().values())
+        return sum(len(sigs) for _, sigs in self._cache.values())
 
     def close(self):
         self._cache.clear()
         self._opt_cache.clear()
+        self._store_fns.clear()
+        self._store_new.clear()
+        self._akey_cache.clear()
+        self._prog_repr.clear()
+
+
+def _draws_rng(program):
+    """Whether a test-mode step of ``program`` draws random numbers: an
+    op registered ``stateful`` in any block, but dropout, which is the
+    identity (or a scale) at test time."""
+    key = (program.uid, program.version)
+    memo = getattr(program, "_draws_rng_memo", None)
+    if memo is None or memo[0] != key:
+        from .registry import _REGISTRY
+        hit = any(getattr(_REGISTRY.get(op.type), "stateful", False)
+                  and op.type != "dropout"
+                  for blk in program.blocks for op in blk.ops)
+        memo = program._draws_rng_memo = (key, hit)
+    return memo[1]
 
 
 def check_nan_guard(flags, labels):

@@ -38,8 +38,6 @@ _NUMERICS = {}
 # The reference's op types the port does not register yet, by the
 # ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
 _ITEMS = {
-    "IO, persistables and Inferencer": (
-        "load",),
     "Generation and the paged decode engine": (
         "llama_generate", "llama_spec_generate", "llama_paged_prefill",
         "llama_paged_prefill_chunk", "llama_paged_decode",

@@ -1,0 +1,547 @@
+"""Model IO: save/load persistables and inference models.
+
+Port of ``paddle_tpu/io/__init__.py`` (parity with
+python/paddle/fluid/io.py: save_vars, save_params, save_persistables,
+load_*, save_inference_model, load_inference_model). The files are the
+JAX package's, byte for byte: ``params.npz`` (a bfloat16 tensor as the
+2-byte void ``.npy`` numpy writes for an ml_dtypes array,
+``weights.savez``), its sha256 manifest, ``__model__.json``
+(``Program.to_json``) and ``__meta__.json`` — so a directory saved by
+either package loads in the other. Loading puts tensors on the
+executor's device; a bfloat16 array, which ``np.load`` gives back as
+void, is read by the dtype the program declares for its variable.
+Train-state checkpoints go through the crash-safe store in
+resilience/checkpoint.py (atomic temp→fsync→rename, per-array sha256
+MANIFEST, quarantine + newest-valid fallback on load).
+
+``save_inference_model`` also exports the pruned program through
+``torch.export`` for :class:`CompiledPredictor` (io/aot.py:
+``__compiled__.pt2``) and, with ``artifact_store=``, seeds the
+compiled-artifact store (io/artifact_store.py) with the exporter's
+serving buckets.
+"""
+import json
+import os
+
+import numpy as np
+import torch
+
+from .. import weights
+from ..core import framework
+from ..core.executor import global_scope
+
+__all__ = ["save_vars", "save_params", "save_persistables", "load_vars",
+           "load_params", "load_persistables", "save_inference_model",
+           "load_inference_model", "load_serving_manifest",
+           "save_golden_set", "load_golden_set",
+           "save_checkpoint", "load_checkpoint",
+           "get_inference_program", "CompiledPredictor",
+           "load_compiled_predictor", "is_parameter", "is_persistable",
+           "get_parameter_value", "get_parameter_value_by_name",
+           "ArtifactStore", "DeviceLoader"]
+
+from .aot import CompiledPredictor, load_compiled_predictor  # noqa: F401,E402
+from .artifact_store import ArtifactStore  # noqa: F401,E402
+
+
+def is_parameter(var):
+    """True iff ``var`` is a Parameter (reference io.py is_parameter)."""
+    return isinstance(var, framework.Parameter)
+
+
+def is_persistable(var):
+    """True iff ``var`` persists across executor runs (reference io.py
+    is_persistable)."""
+    return bool(getattr(var, "persistable", False))
+
+
+def get_parameter_value(para, executor):
+    """Current value of a Parameter as numpy (reference io.py
+    get_parameter_value). The reference round-trips through a fetch
+    program; here parameters live in the scope as device tensors, so
+    this is a host copy of the scope entry (bfloat16 widened to float32,
+    as fetches are). ``executor`` is accepted for signature parity."""
+    if not is_parameter(para):
+        raise AssertionError(
+            f"get_parameter_value expects a Parameter, got "
+            f"{type(para).__name__}")
+    val = global_scope().find_var(para.name)
+    if val is None:
+        raise RuntimeError(
+            f"parameter {para.name!r} has no value in the scope — run "
+            "the startup program (or load a checkpoint) first")
+    if isinstance(val, torch.Tensor):
+        return weights.tensor_to_array(val)
+    return np.asarray(val)
+
+
+def get_parameter_value_by_name(name, executor, program=None):
+    """Reference io.py get_parameter_value_by_name."""
+    program = program or framework.default_main_program()
+    var = program.global_block().var(name)
+    return get_parameter_value(var, executor)
+
+
+def _target_vars(program, predicate):
+    return [v for v in program.list_vars() if predicate(v)]
+
+
+# internal aliases kept for the save/load predicate call sites
+_is_persistable = is_persistable
+_is_param = is_parameter
+
+
+PARAMS_MANIFEST = "__params_manifest__.json"
+
+
+def _save_arrays(dirname, names, scope):
+    # parent dirs created in one go; the write is temp+rename so a kill
+    # mid-save never leaves a half-written params.npz behind
+    os.makedirs(dirname, exist_ok=True)
+    arrays = {}
+    for n in names:
+        val = scope.find_var(n)
+        if val is None:
+            raise ValueError(
+                f"cannot save variable {n!r}: it has no value in the "
+                "scope — run the startup program (or load a checkpoint) "
+                "before saving")
+        arrays[n.replace("/", "%2F")] = val
+    final = os.path.join(dirname, "params.npz")
+    tmp = os.path.join(dirname, f".tmp.{os.getpid()}.params.npz")
+    try:
+        weights.savez(tmp, arrays)
+        # sha256 of the exact bytes that hit the disk, written beside
+        # the params (resilience-store discipline): loaders that care
+        # (CompiledPredictor) verify before deserializing, so a torn
+        # copy or bit rot surfaces as ChecksumMismatch, never as
+        # silently wrong weights
+        import hashlib
+        with open(tmp, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        os.replace(tmp, final)
+        mtmp = os.path.join(dirname, f".tmp.{os.getpid()}.manifest")
+        with open(mtmp, "w") as f:
+            json.dump({"file": "params.npz", "sha256": digest,
+                       "n_arrays": len(arrays)}, f)
+        os.replace(mtmp, os.path.join(dirname, PARAMS_MANIFEST))
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _load_arrays(dirname, scope, names=None, program=None, device=None):
+    """``params.npz`` into ``scope`` as tensors on ``device``; a void
+    (bfloat16) array takes the dtype ``program`` declares for it."""
+    path = os.path.join(dirname, "params.npz")
+    data = np.load(path)
+    gb = program.global_block() if program is not None else None
+    available = {k.replace("%2F", "/"): k for k in data.files}
+    if names is not None:
+        missing = sorted(set(names) - set(available))
+        if missing:
+            raise ValueError(
+                f"checkpoint at {dirname} is missing variables {missing}; "
+                "it was saved from a different program")
+    loaded = []
+    for name, key in available.items():
+        if names is not None and name not in names:
+            continue
+        var = gb.vars.get(name) if gb is not None else None
+        scope.set(name, weights.array_to_tensor(
+            data[key], device, dtype=getattr(var, "dtype", None)))
+        loaded.append(name)
+    return loaded
+
+
+def _resolve_var_names(program, vars, what):
+    """Variable-or-name list → sorted unique names, validating that
+    plain-string entries exist in the program — a typo'd name raises a
+    ValueError naming it (and what call it broke) instead of the bare
+    KeyError Block.var would throw."""
+    names = set()
+    gb = program.global_block()
+    for v in vars:
+        if isinstance(v, framework.Variable):
+            names.add(v.name)
+            continue
+        try:
+            gb.var(v)
+        except KeyError:
+            raise ValueError(
+                f"{what}: variable {v!r} does not exist in the program "
+                "— check the name (program.list_vars() enumerates "
+                "candidates)")
+        names.add(v)
+    return sorted(names)
+
+
+def save_vars(executor, dirname, main_program=None, vars=None,
+              predicate=None, filename=None):
+    program = main_program or framework.default_main_program()
+    if vars is None:
+        vars = _target_vars(program, predicate or _is_persistable)
+    names = _resolve_var_names(program, vars, "save_vars")
+    _save_arrays(dirname, names, global_scope())
+
+
+def save_params(executor, dirname, main_program=None, filename=None):
+    save_vars(executor, dirname, main_program, predicate=_is_param)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None):
+    save_vars(executor, dirname, main_program, predicate=_is_persistable)
+
+
+def load_vars(executor, dirname, main_program=None, vars=None,
+              predicate=None, filename=None):
+    program = main_program or framework.default_main_program()
+    if vars is None:
+        vars = _target_vars(program, predicate or _is_persistable)
+    names = {v.name if isinstance(v, framework.Variable) else v
+             for v in vars}
+    _load_arrays(dirname, global_scope(), names, program,
+                 _device(executor))
+
+
+def load_params(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, predicate=_is_param)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, predicate=_is_persistable)
+
+
+def _device(executor):
+    """Where loaded values go: the executor's device."""
+    if executor is None or not hasattr(executor, "device"):
+        raise TypeError("loading needs the Executor whose device the "
+                        f"values go to, got {executor!r}")
+    return executor.device
+
+
+def _next_model_version(dirname):
+    """Auto-bump: previous export's ``model_version`` + 1, or 1 for a
+    fresh dir (or one whose meta predates versioning)."""
+    try:
+        with open(os.path.join(dirname, "__meta__.json")) as f:
+            prev = json.load(f).get("model_version")
+        return int(prev) + 1 if prev else 1
+    except (OSError, ValueError, TypeError):
+        return 1
+
+
+def save_inference_model(dirname, feeded_var_names, target_vars, executor,
+                         main_program=None, model_filename=None,
+                         params_filename=None, export_for_deployment=True,
+                         serving_buckets=None, decode_max_batch=None,
+                         artifact_store=None, model_version=None):
+    """Prunes the program to the inference slice and saves graph + params
+    (reference python/paddle/fluid/io.py save_inference_model).
+
+    ``serving_buckets`` (a ``serving.BucketSpec`` or its manifest dict)
+    and ``decode_max_batch`` persist the serving geometry seen at
+    export into the artifact's ``__meta__.json``: a fresh replica
+    loaded with ``ServingEngine.from_saved_model`` then ``warmup()``s
+    exactly the exporter's bucket signatures instead of guessing —
+    the fast-scale-out half of the replica-pool story
+    (docs/SERVING.md "Running a replica pool").
+
+    ``artifact_store`` pre-seeds a persistent compiled-artifact store
+    with the exported steps for the exporter's bucket set, so those
+    buckets ship WITH their steps and a fresh replica's ``warmup()``
+    performs zero step builds (io/artifact_store.py; a replica asks for
+    the embedded store with ``from_saved_model(dir,
+    compile_store=True)``):
+    ``True`` embeds the store in the saved-model dir itself
+    (``__artifacts__/`` — the dir alone provisions a new replica
+    host), or pass a path / ``ArtifactStore`` for a shared store.
+    Seeding replays exactly the ``from_saved_model`` + ``warmup()``
+    path a replica takes (on this executor's place), so the stored keys
+    match by construction; a seeding failure degrades to a normal
+    (build-at-warmup) artifact with a warning, never a failed save.
+
+    Every export is stamped with a monotonically increasing
+    ``model_version`` in ``__meta__.json`` (auto-bumped from any
+    previous export in ``dirname``, or caller-supplied — supplying one
+    LOWER than the dir's current version raises, preserving
+    monotonicity). It is the deployment identity
+    ``cluster/deploy.py`` names versions by, and engines surface it
+    in ``stats()`` / the membership view so operators can see which
+    version each replica is actually serving."""
+    program = main_program or framework.default_main_program()
+    prev_version = _next_model_version(dirname) - 1
+    if model_version is None:
+        model_version = prev_version + 1
+    else:
+        model_version = int(model_version)
+        if model_version < prev_version:
+            raise ValueError(
+                f"model_version={model_version} would move {dirname} "
+                f"backwards (already at {prev_version}); versions are "
+                "monotonic — export the rollback target to its own "
+                "directory instead")
+    fetch_names = [v.name if isinstance(v, framework.Variable) else v
+                   for v in target_vars]
+    # validate names BEFORE pruning: prune silently drops unknown
+    # targets, deferring the failure to load time on another machine —
+    # a typo should fail here, naming the variable
+    _resolve_var_names(program, list(feeded_var_names),
+                       "save_inference_model(feeded_var_names)")
+    _resolve_var_names(program, list(target_vars),
+                       "save_inference_model(target_vars)")
+    inference_program = program.prune(list(feeded_var_names), fetch_names)
+    os.makedirs(dirname, exist_ok=True)
+    meta = {
+        "feed_names": list(feeded_var_names),
+        "fetch_names": fetch_names,
+        "model_version": model_version,
+    }
+    serving_meta = {}
+    if serving_buckets is not None:
+        serving_meta["buckets"] = (
+            serving_buckets if isinstance(serving_buckets, dict)
+            else serving_buckets.to_manifest())
+    if decode_max_batch is not None:
+        serving_meta["decode_max_batch"] = int(decode_max_batch)
+    if serving_meta:
+        meta["serving"] = serving_meta
+    with open(os.path.join(dirname, "__model__.json"), "w") as f:
+        f.write(inference_program.to_json())
+    with open(os.path.join(dirname, "__meta__.json"), "w") as f:
+        json.dump(meta, f)
+    # only persistables the pruned graph actually reads belong in the
+    # deployment artifact (not optimizer moments / LR counters)
+    referenced = set()
+    for op in inference_program.global_block().ops:
+        framework.collect_op_input_names(op, referenced)
+    persist = sorted(v.name for v in inference_program.list_vars()
+                     if v.persistable and v.name in referenced)
+    _save_arrays(dirname, persist, global_scope())
+    if export_for_deployment:
+        # AOT artifact: the lowered program exported via torch.export,
+        # so serving needs neither the Program IR nor the registry
+        # (io/aot.py — the reference's C++ inference-library
+        # separation). Programs torch.export cannot export fall back to
+        # the JSON+IR path, with a warning.
+        from .aot import export_compiled
+        try:
+            export_compiled(dirname, inference_program,
+                            list(feeded_var_names), fetch_names,
+                            global_scope(), device=_device(executor))
+        except Exception as e:                    # noqa: BLE001
+            import warnings
+            warnings.warn(
+                f"AOT export skipped ({type(e).__name__}: {e}); the "
+                "saved model still loads via load_inference_model")
+    if artifact_store:
+        try:
+            _seed_artifact_store(dirname, artifact_store, executor.place)
+        except Exception as e:                    # noqa: BLE001
+            import warnings
+            warnings.warn(
+                f"artifact-store seeding skipped ({type(e).__name__}: "
+                f"{e}); replicas will compile at warmup instead of "
+                "loading")
+    return inference_program
+
+
+def _seed_artifact_store(dirname, artifact_store, place):
+    """Warm the compiled-artifact store with the exporter's bucket set
+    by replaying the exact load path a replica takes —
+    ``ServingEngine.from_saved_model`` + ``warmup()`` — so the
+    persisted keys match a future replica's lookups by construction
+    (same pruned program, same optimize pipeline, same buckets)."""
+    from ..serving.engine import ServingEngine
+    from .artifact_store import EMBEDDED_DIRNAME, resolve_store
+    if artifact_store is True:
+        store = resolve_store(os.path.join(dirname, EMBEDDED_DIRNAME))
+    else:
+        store = resolve_store(artifact_store)
+    eng = ServingEngine.from_saved_model(
+        dirname, place=place, compile_store=store, auto_start=False)
+    try:
+        report = eng.warmup()
+        report["store"] = eng.exe.store_stats()
+        return report
+    finally:
+        eng.close()
+
+
+def load_serving_manifest(dirname):
+    """The serving geometry persisted at export time (bucket manifest
+    + decode max_batch), or {} for artifacts written without one (old
+    exports stay loadable — serving falls back to default buckets)."""
+    try:
+        with open(os.path.join(dirname, "__meta__.json")) as f:
+            return json.load(f).get("serving") or {}
+    except (OSError, ValueError):
+        return {}
+
+
+GOLDEN_FILENAME = "__golden__.npz"
+
+
+def save_golden_set(dirname, feeds, outputs):
+    """Persist a recorded golden-request set next to a saved model:
+    ``feeds`` is a list of feed dicts (name → array), ``outputs`` the
+    matching reference fetch lists recorded from the version every
+    later candidate must agree with. Written temp→rename like the
+    params, so a kill mid-save never leaves a torn golden set for a
+    promotion gate to trust. ``cluster/deploy.py`` replays these
+    through a canary and tolerance-compares before (and while) it
+    receives traffic — TPU-MLIR's verify-before-deploy discipline
+    applied to model versions."""
+    feeds = list(feeds)
+    outputs = [list(outs) for outs in outputs]
+    if len(feeds) != len(outputs):
+        raise ValueError(
+            f"golden set needs one output list per feed: "
+            f"{len(feeds)} feeds vs {len(outputs)} outputs")
+    os.makedirs(dirname, exist_ok=True)
+    arrays = {"__n__": np.asarray(len(feeds))}
+    for i, feed in enumerate(feeds):
+        for name, arr in feed.items():
+            arrays[f"feed.{i}.{name.replace('/', '%2F')}"] = arr
+        for j, out in enumerate(outputs[i]):
+            arrays[f"out.{i}.{j}"] = out
+    final = os.path.join(dirname, GOLDEN_FILENAME)
+    tmp = os.path.join(dirname, f".tmp.{os.getpid()}.golden.npz")
+    try:
+        weights.savez(tmp, arrays)
+        os.replace(tmp, final)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return final
+
+
+def load_golden_set(dirname):
+    """The golden-request set saved next to a model, as
+    ``(feeds, outputs)`` — or ``None`` when the dir has none (a
+    deployment manager then refuses numerics-gated promotion rather
+    than silently promoting unverified)."""
+    path = os.path.join(dirname, GOLDEN_FILENAME)
+    if not os.path.exists(path):
+        return None
+    data = np.load(path)
+    n = int(data["__n__"])
+    feeds = [{} for _ in range(n)]
+    outs = [{} for _ in range(n)]
+    for key in data.files:
+        if key == "__n__":
+            continue
+        kind, idx, rest = key.split(".", 2)
+        i = int(idx)
+        if kind == "feed":
+            feeds[i][rest.replace("%2F", "/")] = data[key]
+        elif kind == "out":
+            outs[i][int(rest)] = data[key]
+    outputs = [[row[j] for j in sorted(row)] for row in outs]
+    return feeds, outputs
+
+
+def load_inference_model(dirname, executor, model_filename=None,
+                         params_filename=None, pserver_endpoints=None,
+                         scope=None):
+    """The pruned program, its feed names and fetch variables of a
+    ``save_inference_model`` directory, with its parameters loaded into
+    ``scope`` (default: the global scope) as tensors on the executor's
+    device."""
+    if pserver_endpoints is not None:
+        raise ValueError(
+            "pserver_endpoints is a parameter-server concept; the "
+            "distributed path here is collectives over a device mesh "
+            "(ROADMAP.md item 'Multi-device parallelism') — load the "
+            "model normally instead")
+    device = _device(executor)
+    with open(os.path.join(dirname, "__model__.json")) as f:
+        program = framework.Program.from_json(f.read())
+    with open(os.path.join(dirname, "__meta__.json")) as f:
+        meta = json.load(f)
+    # scope= lets concurrent loaders (replica rebuilds under live
+    # traffic) target a private scope without swapping the process
+    # global, which is not thread-safe
+    _load_arrays(dirname, global_scope() if scope is None else scope,
+                 program=program, device=device)
+    fetch_vars = [program.global_block().var(n)
+                  for n in meta["fetch_names"]]
+    return program, meta["feed_names"], fetch_vars
+
+
+# ---------------------------------------------------------------------------
+# full train-state checkpoints (crash-safe store, resilience/checkpoint.py)
+# ---------------------------------------------------------------------------
+
+
+def save_checkpoint(executor, checkpoint_dir, trainer_id=0,
+                    main_program=None, step=None,
+                    max_num_checkpoints=None, meta=None):
+    """Whole train-state checkpoint (params + optimizer accumulators +
+    counters) — the reference's checkpoint/resume subsystem (reference
+    python/paddle/fluid/trainer.py _save_checkpoint), written through
+    the crash-safe store: temp dir + per-array sha256 MANIFEST + fsync
+    + atomic rename, pruned without racing an in-flight save. A kill
+    at any point leaves the previous serial intact and loadable.
+
+    Retention: an explicit ``max_num_checkpoints`` wins; otherwise the
+    ``PADDLE_TPU_CKPT_KEEP`` env knob; otherwise keep 3. In a
+    multi-writer fleet only ``trainer_id == 0`` (the leader) prunes —
+    followers write but never delete, so two concurrent savers can
+    never reap each other's in-flight serial."""
+    from ..resilience import checkpoint as _ckpt
+    program = main_program or framework.default_main_program()
+    scope = global_scope()
+    persist = sorted(v.name for v in program.list_vars() if v.persistable)
+    state = {n: scope.find_var(n)
+             for n in persist if scope.find_var(n) is not None}
+    step = step if step is not None else 0
+    full_meta = {"trainer_id": trainer_id, "step": step}
+    full_meta.update(meta or {})
+    if max_num_checkpoints is None:
+        raw = os.environ.get("PADDLE_TPU_CKPT_KEEP", "").strip()
+        # 0 (or negative) means "keep everything" — save_state's
+        # retention_keep maps non-positive to no-prune
+        max_num_checkpoints = int(raw) if raw else 3
+    return _ckpt.save_state(checkpoint_dir, state, serial=step,
+                            meta=full_meta,
+                            max_num_checkpoints=max_num_checkpoints,
+                            leader=(int(trainer_id) == 0))
+
+
+def load_checkpoint(executor, checkpoint_dir, serial=None,
+                    main_program=None):
+    """Restore the newest checksum-valid checkpoint into the scope.
+    Damaged serials (torn write, bit rot) are quarantined under
+    ``<dir>/quarantine/`` and the scan falls back to the next older
+    valid one; ``serial`` pins an exact checkpoint (damage there
+    raises). Raises FileNotFoundError when nothing valid exists."""
+    from ..resilience import checkpoint as _ckpt
+    state, _manifest, _serial, path = _ckpt.load_latest_valid(
+        checkpoint_dir, serial=serial, device=_device(executor))
+    scope = global_scope()
+    for k, v in state.items():
+        scope.set(k, v)
+    return path
+
+
+from . import recordio  # noqa: F401,E402  (native chunked record format)
+from .device_loader import DeviceLoader  # noqa: E402,F401
+
+
+def get_inference_program(target_vars, main_program=None):
+    """Prune a train program down to an inference program computing
+    ``target_vars`` (reference io.py get_inference_program)."""
+    program = main_program or framework.default_main_program()
+    if not isinstance(target_vars, (list, tuple)):
+        target_vars = [target_vars]
+    names = []
+    for v in target_vars:
+        if hasattr(v, "metrics"):            # evaluator-style object
+            names.extend(x.name for x in v.metrics)
+        else:
+            names.append(v.name if isinstance(v, framework.Variable) else v)
+    gb = program.global_block()
+    feeds = [n for n, var in gb.vars.items() if getattr(var, "is_data",
+                                                        False)]
+    return program.prune(feeds, names)

@@ -1,0 +1,331 @@
+"""AOT inference export — the serving path without the framework.
+
+Port of ``paddle_tpu/io/aot.py``. The reference ships a C++ inference
+library so a trained model serves without the training stack:
+``PaddlePredictor`` / ``CreatePaddlePredictor`` (reference
+paddle/fluid/inference/api/paddle_inference_api.h:90,:177) load a
+persisted ProgramDesc + params and run them through the C++ executor.
+
+Here ``save_inference_model`` lowers the pruned inference program once
+and exports it through ``torch.export`` (non-strict) to one graph of
+aten operators and the flash-attention forward K1, which is the custom
+operator ``torch.ops.paddle_tpu_torch.flash_fwd`` (ops/flash_attention.py:
+on the card it launches the hand-written kernel). Every feed whose shape
+starts with -1 shares one symbolic batch dimension (``Dim("b")``), so
+one artifact serves any batch size, 1 included: the example batch is 2,
+because ``torch.export`` specializes a dimension whose example is 1.
+The other -1 dimensions are ``Dim.AUTO``: dynamic where the program
+allows it, specialized to the example where it does not (a sequence
+length that fixes a weight's shape).
+
+``CompiledPredictor`` loads that graph and runs it: no Program IR, no op
+registry, no lowering. It imports ``torch.export``, numpy and the
+operator's registration — nothing else of the package.
+
+Artifact layout (inside the save_inference_model dirname)::
+
+    __compiled__.pt2         the torch.export program (parameters are
+                             its inputs, not its constants)
+    __compiled_meta__.json   feed names/shapes/dtypes, fetch names,
+                             param order and dtypes, the export device
+    params.npz               shared with the JSON-program path
+
+A directory the JAX package exported carries ``__compiled__.stablehlo``
+instead: ``load_compiled_predictor`` refuses it by name, and its JSON
+program still loads through ``load_inference_model``.
+"""
+import json
+import os
+import threading
+
+import numpy as np
+import torch
+
+__all__ = ["export_compiled", "CompiledPredictor",
+           "load_compiled_predictor"]
+
+_ARTIFACT = "__compiled__.pt2"
+_META = "__compiled_meta__.json"
+_JAX_ARTIFACT = "__compiled__.stablehlo"
+# example size of the symbolic batch (torch.export specializes 0 and 1)
+_EXAMPLE_BATCH = 2
+# torch.export traces under process-wide modes: one export at a time
+_EXPORT_LOCK = threading.Lock()
+
+
+def _warn_if_stochastic(gb):
+    """The exported graph bakes in one fixed seed and step (the executor
+    advances its step per run; an exported graph has no step counter).
+    Deterministic inference — dropout is identity in test mode — is
+    unaffected; warn loudly for anything that still samples."""
+    from ..core.registry import _REGISTRY
+    noisy = sorted({op.type for op in gb.ops
+                    if getattr(_REGISTRY.get(op.type), "stateful", False)
+                    and op.type != "dropout"})
+    if noisy:
+        import warnings
+        warnings.warn(
+            f"AOT export: ops {noisy} sample from the rng, but the "
+            "exported graph uses one FIXED seed — every run returns the "
+            "same draw, and it will differ from the executor's per-step "
+            "stream. Serve stochastic programs through the executor.")
+
+
+class _StepModule(torch.nn.Module):
+    """The test-mode step of a lowered program as ``forward(params,
+    feeds) -> tuple(fetches)``, both lists in a fixed name order — the
+    function ``torch.export`` traces (here and in the artifact store).
+    With ``with_state`` it returns ``(tuple(fetches), new_state)``, the
+    dict of persistables the step writes, for the caller to put back in
+    its scope. The seed and step are fixed at 0: only a step that draws
+    no random numbers gives the executor's answers (the artifact store
+    sends any other down the eager path)."""
+
+    def __init__(self, step_fn, param_names, feed_names, device,
+                 with_state=False):
+        super().__init__()
+        self.step_fn = step_fn
+        self.param_names = list(param_names)
+        self.feed_names = list(feed_names)
+        self.device = device
+        self.with_state = with_state
+
+    def forward(self, params, feeds):
+        state = dict(zip(self.param_names, params))
+        feed = dict(zip(self.feed_names, feeds))
+        new_state, fetches = self.step_fn(state, feed, self.device, 0, 0)
+        if self.with_state:
+            return tuple(fetches), dict(new_state)
+        return tuple(fetches)
+
+
+def export_step(step_fn, param_names, params, feed_names, feeds, device,
+                dynamic_shapes=None, with_state=False):
+    """``torch.export`` (non-strict) of one test-mode step on example
+    ``params`` and ``feeds`` (lists of tensors on ``device``), under
+    ``torch.no_grad()``. Returns the ExportedProgram."""
+    mod = _StepModule(step_fn, param_names, feed_names, device, with_state)
+    with _EXPORT_LOCK, torch.no_grad():
+        return torch.export.export(
+            mod, (list(params), list(feeds)),
+            dynamic_shapes=dynamic_shapes, strict=False)
+
+
+def save_exported(ep):
+    """An ExportedProgram as bytes (``torch.export.save``), without its
+    example inputs: ``torch.export.save`` writes them too, and here they
+    are the parameters (the whole model again, in every artifact)."""
+    import io as _io
+    ep.example_inputs = None
+    buf = _io.BytesIO()
+    torch.export.save(ep, buf)
+    return buf.getvalue()
+
+
+def load_exported(blob):
+    """The callable graph module of an exported program's bytes."""
+    import io as _io
+    return torch.export.load(_io.BytesIO(blob)).module()
+
+
+def export_compiled(dirname, program, feed_names, fetch_names, scope,
+                    device, batch_symbol="b", param_names=None):
+    """Lower ``program`` (already pruned to the inference slice) to its
+    test-mode step of (params, feeds), export it through
+    ``torch.export`` on ``device`` with one symbolic leading batch dim
+    shared by every feed whose shape starts with -1, and write it into
+    ``dirname``. Returns the meta dict.
+
+    Raises whatever ``torch.export`` raises if the program is not
+    exportable (a value read back to the host, a data-dependent shape)
+    — callers that want the JSON-program fallback catch and continue.
+    A sequence feed (lod_level > 0) raises: sequences are ROADMAP.md
+    item 'Remaining op families and the zoo'."""
+    from ..core.framework import collect_op_input_names
+    from ..core.lowering import lower_program
+
+    gb = program.global_block()
+    _warn_if_stochastic(gb)
+    step_fn = lower_program(program, list(fetch_names), "test")
+    if param_names is None:
+        # persistables the ops actually read (what save_inference_model
+        # writes to params.npz)
+        referenced = set()
+        for op in gb.ops:
+            collect_op_input_names(op, referenced)
+        param_names = sorted(
+            v.name for v in program.list_vars()
+            if v.persistable and v.name in referenced
+            and scope.find_var(v.name) is not None)
+    from .. import weights
+    params = []
+    for n in param_names:
+        val = scope.find_var(n)
+        if not isinstance(val, torch.Tensor):
+            val = weights.array_to_tensor(val, device,
+                                          dtype=gb.var(n).dtype)
+        params.append(val.to(device))
+
+    batch = torch.export.Dim(batch_symbol)
+    feed_specs, examples, dyn = [], [], []
+    for n in feed_names:
+        v = gb.var(n)
+        if int(getattr(v, "lod_level", 0) or 0):
+            raise NotImplementedError(
+                f"feed {n!r} is a sequence (lod_level {v.lod_level}); "
+                "sequences are a later slice of the torch port "
+                "(ROADMAP.md item 'Remaining op families and the zoo')")
+        shape = [int(s) for s in v.shape]
+        feed_specs.append({"name": n, "shape": shape, "dtype": v.dtype,
+                           "lod_level": 0})
+        ex = [(_EXAMPLE_BATCH if j == 0 else 2 * _EXAMPLE_BATCH + 1)
+              if s == -1 else s for j, s in enumerate(shape)]
+        examples.append(torch.zeros(ex, dtype=_torch_dtype(v.dtype),
+                                    device=device))
+        dyn.append({j: (batch if j == 0 else torch.export.Dim.AUTO)
+                    for j, s in enumerate(shape) if s == -1} or None)
+    ep = export_step(step_fn, param_names, params, feed_names, examples,
+                     device, dynamic_shapes=([None] * len(params), dyn))
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, _ARTIFACT), "wb") as f:
+        f.write(save_exported(ep))
+    meta = {"param_names": list(param_names),
+            "param_dtypes": [str(p.dtype).replace("torch.", "")
+                             for p in params],
+            "feed_specs": feed_specs,
+            "fetch_names": list(fetch_names),
+            "device": str(torch.device(device))}
+    with open(os.path.join(dirname, _META), "w") as f:
+        json.dump(meta, f)
+    return meta
+
+
+def _torch_dtype(name):
+    return getattr(torch, str(name))
+
+
+def _verify_params_manifest(dirname):
+    """Re-hash params.npz against the saved-model manifest
+    (``__params_manifest__.json``, written by ``_save_arrays`` with
+    the resilience store's discipline). Absent manifest → legacy
+    artifact, load unchecked as before. A mismatch quarantines the
+    damaged file under ``<dirname>/quarantine/`` — evidence, exactly
+    the resilience-store path — and raises ChecksumMismatch."""
+    mpath = os.path.join(dirname, "__params_manifest__.json")
+    if not os.path.exists(mpath):
+        return
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError):
+        return          # unreadable manifest: no contract to enforce
+    want = manifest.get("sha256")
+    if not want:
+        return
+    import hashlib
+    ppath = os.path.join(dirname, "params.npz")
+    with open(ppath, "rb") as f:
+        got = hashlib.sha256(f.read()).hexdigest()
+    if got == want:
+        return
+    from ..resilience.checkpoint import ChecksumMismatch
+    import uuid
+    qdir = os.path.join(dirname, "quarantine")
+    try:
+        os.makedirs(qdir, exist_ok=True)
+        os.rename(ppath, os.path.join(
+            qdir, f"params.npz.{uuid.uuid4().hex[:8]}"))
+    except OSError:
+        pass            # racing another loader — the raise is the point
+    raise ChecksumMismatch(
+        f"saved model {dirname}: params.npz sha256 mismatch "
+        f"(expected {want[:12]}…, got {got[:12]}…) — torn copy or bit "
+        "rot; the damaged file was quarantined, restore the artifact "
+        "from its source")
+
+
+class CompiledPredictor:
+    """Runs an exported inference artifact — the ``PaddlePredictor``
+    analogue (reference paddle_inference_api.h:90). Needs only this
+    module and the K1 operator's registration: no Program IR, no
+    registry, no lowering. Runs on the card (``cuda:0``) unless given
+    another ``device`` (``"cpu"``); an artifact exported on one device
+    type is moved to the other by ``torch.export``'s device pass.
+
+    >>> pred = load_compiled_predictor(dirname)
+    >>> outs = pred.run({"img": batch})        # list of np.ndarray
+    """
+
+    def __init__(self, dirname, device=None):
+        # the K1 operator must be registered before the graph loads
+        from ..ops import flash_attention  # noqa: F401
+        from .. import weights
+        if not os.path.exists(os.path.join(dirname, _ARTIFACT)) and \
+                os.path.exists(os.path.join(dirname, _JAX_ARTIFACT)):
+            raise ValueError(
+                f"{dirname} holds a JAX export ({_JAX_ARTIFACT}), which "
+                "torch cannot run; its JSON program still serves through "
+                "load_inference_model / ServingEngine.from_saved_model")
+        self.device = torch.device(device if device is not None
+                                   else "cuda:0")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CompiledPredictor: CUDA is not available "
+                               "on this machine; pass device='cpu'")
+        with open(os.path.join(dirname, _META)) as f:
+            self._meta = json.load(f)
+        with open(os.path.join(dirname, _ARTIFACT), "rb") as f:
+            ep = torch.export.load(f)
+        if torch.device(self._meta.get("device", "cpu")).type != \
+                self.device.type:
+            from torch.export.passes import move_to_device_pass
+            ep = move_to_device_pass(ep, self.device)
+        self._call = ep.module()
+        # params ride beside the artifact in params.npz — verified
+        # against the saved-model sha256 manifest BEFORE they are read
+        # (a torn copy must surface as ChecksumMismatch, never as
+        # silently wrong weights), then staged on the device once
+        _verify_params_manifest(dirname)
+        data = np.load(os.path.join(dirname, "params.npz"))
+        self._params = [
+            weights.array_to_tensor(data[n.replace("/", "%2F")],
+                                    self.device, dtype=dt)
+            for n, dt in zip(self._meta["param_names"],
+                             self._meta["param_dtypes"])]
+
+    @property
+    def feed_names(self):
+        return [s["name"] for s in self._meta["feed_specs"]]
+
+    @property
+    def fetch_names(self):
+        return list(self._meta["fetch_names"])
+
+    def run(self, feed, return_numpy=True):
+        """feed: dict name -> array (batch size free wherever the saved
+        program's feed shape had -1). Returns the fetches in fetch
+        order, as numpy arrays (bfloat16 widened to float32) or, with
+        ``return_numpy=False``, as tensors on the device."""
+        feeds = []
+        for spec in self._meta["feed_specs"]:
+            n = spec["name"]
+            if n not in feed:
+                raise KeyError(
+                    f"missing feed {n!r}; predictor feeds: "
+                    f"{self.feed_names}")
+            v = feed[n]
+            if not isinstance(v, torch.Tensor):
+                v = torch.as_tensor(np.asarray(v, dtype=spec["dtype"]))
+            feeds.append(v.to(self.device,
+                              dtype=_torch_dtype(spec["dtype"])))
+        with torch.no_grad():
+            outs = self._call(self._params, feeds)
+        if not return_numpy:
+            return list(outs)
+        return [o.float().cpu().numpy() if o.dtype == torch.bfloat16
+                else o.cpu().numpy() for o in outs]
+
+
+def load_compiled_predictor(dirname, device=None):
+    """``CreatePaddlePredictor`` analogue (reference
+    paddle_inference_api.h:177)."""
+    return CompiledPredictor(dirname, device=device)

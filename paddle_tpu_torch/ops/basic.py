@@ -181,8 +181,10 @@ def _matmul(ctx, ins, attrs):
 def _bcast(x, y, axis):
     """fluid broadcast: Y's shape must match a contiguous span of X's dims
     starting at ``axis`` (default: trailing). Reference
-    paddle/fluid/operators/elementwise_op_function.h."""
-    if x.shape == y.shape or y.dim() == 0:
+    paddle/fluid/operators/elementwise_op_function.h. Ranks are compared
+    first, so an exported graph (torch.export) gets no guard comparing a
+    symbolic batch with a width."""
+    if y.dim() == 0 or (x.dim() == y.dim() and x.shape == y.shape):
         return x, y
     if y.dim() > x.dim():
         # symmetric case (rare); fall back to numpy-style broadcasting
@@ -716,6 +718,26 @@ def _bilinear_tensor_product(ctx, ins, attrs):
     out = torch.einsum("bi,oij,bj->bo", x, w, y)
     if ins.get("Bias"):
         out = out + ins["Bias"][0]
+    return {"Out": [out]}
+
+
+@register_op("load")
+def _load(ctx, ins, attrs):
+    """Load a variable from a numpy file (reference load_op.cc; files
+    here are .npy, or the .npz written by io.save_vars with the target
+    variable name as the key). A bfloat16 file array, which ``np.load``
+    gives back as 2-byte void, takes the variable's declared dtype."""
+    from .. import weights
+    path = attrs["file_path"]
+    data = np.load(path)
+    name = ctx.op.outputs["Out"][0]
+    if hasattr(data, "files"):          # npz archive
+        data = data[name] if name in data.files else data[data.files[0]]
+    var = ctx.op.block._find_var_recursive(name)
+    out = weights.array_to_tensor(np.asarray(data), ctx.device,
+                                  dtype=getattr(var, "dtype", None))
+    if attrs.get("load_as_fp16"):
+        out = out.half()
     return {"Out": [out]}
 
 

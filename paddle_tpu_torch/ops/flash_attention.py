@@ -52,6 +52,17 @@ softmax (the Pallas forward has no key-bounds mask for a ragged tail),
 masked entries get dS = 0, and a row with every key masked (causal with
 tq > tk) averages V, so its backward has P = 1/tk and dS = 0.
 
+K1 is also the operator ``torch.ops.paddle_tpu_torch.flash_fwd``
+(:func:`flash_fwd_op`, a ``torch.library.custom_op`` with a fake
+implementation for its shapes), so an exported graph (``torch.export``,
+io/aot.py and the artifact store) keeps the kernel as one node: on a
+CUDA tensor the operator runs :func:`flash_fwd` (the launcher, counted
+as any other launch), on a CPU tensor the plain version.
+:class:`FlashAttention` calls it for its forward, so attention with and
+without a gradient takes one path. An input the kernels cannot take as
+it is (a view an exported graph hands over) is copied by the operator
+and counted in ``flash_fwd.input_copies``.
+
 ``flash_attention`` and ``attention_with_lse`` are differentiable
 through :class:`FlashAttention`, a ``torch.autograd.Function`` whose
 backward runs K2 and K3 — the counterpart of the reference's
@@ -71,7 +82,7 @@ __all__ = ["flash_attention", "attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "FlashAttention",
            "ref_attention_lse", "ref_flash_bwd_dq", "ref_flash_bwd_dkv",
            "kernel_for", "takes_kernels", "reset_launch_counts", "NEG_INF",
-           "PLAIN", "MAX_GRID_Y"]
+           "PLAIN", "MAX_GRID_Y", "flash_fwd_op"]
 
 NEG_INF = -1e30
 
@@ -317,20 +328,61 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
 
 def reset_launch_counts():
     """Zero every wrapper's ``launches`` and ``launches_by_kernel`` (its
-    kernels' symbols and :data:`PLAIN`)."""
+    kernels' symbols and :data:`PLAIN`), and ``flash_fwd.input_copies``
+    (the inputs :func:`flash_fwd_op` had to copy)."""
     for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
         w.launches = 0
         w.launches_by_kernel = {sym: 0 for _, sym in _ROUTES[w.__name__]}
         w.launches_by_kernel[PLAIN] = 0
+    flash_fwd.input_copies = 0
 
 
 reset_launch_counts()
 
 
+def _aligned_copy(x):
+    """``x`` itself when the kernels take it (contiguous, on a 16-byte
+    boundary), else a contiguous copy, counted."""
+    if x.is_contiguous() and not _misaligned((x,)):
+        return x
+    flash_fwd.input_copies += 1
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, causal: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a torch operator on [BH, T, D] tensors: the launcher
+    :func:`flash_fwd` (CUDA: the kernel, counted; CPU: the plain
+    version), or on a CUDA tensor of a head dim the reference sends to
+    its plain path (:func:`takes_kernels`) the plain version, counted as
+    :data:`PLAIN`."""
+    if not takes_kernels(q):
+        flash_fwd.launches_by_kernel[PLAIN] += 1
+        o, lse = ref_attention_lse(q, k, v, scale, causal)
+        return o, lse.contiguous()
+    # an exported graph records no copy for a ``.contiguous()`` that was
+    # a no-op at its example shapes, so its inputs may arrive as views:
+    # each is copied here, and counted in ``flash_fwd.input_copies``
+    q, k, v = (_aligned_copy(x) for x in (q, k, v))
+    o, lse = flash_fwd(q, k, v, scale, causal)
+    return o, lse.contiguous()
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
 def _fold(x):
-    """[B, H, T, D] → contiguous [B*H, T, D]."""
-    return x.reshape(x.shape[0] * x.shape[1], x.shape[2], x.shape[3]) \
-        .contiguous()
+    """[B, H, T, D] → contiguous [B*H, T, D]. The copy comes before the
+    reshape, so an exported graph records it at every batch size: a
+    reshape that copies at the example's batch is a view at batch 1,
+    and a ``.contiguous()`` after it would be recorded as nothing."""
+    return x.contiguous().reshape(x.shape[0] * x.shape[1], x.shape[2],
+                                  x.shape[3])
 
 
 class FlashAttention(torch.autograd.Function):
@@ -346,11 +398,7 @@ class FlashAttention(torch.autograd.Function):
         b, h, tq, d = q.shape
         qf, kf, vf = _fold(q), _fold(k), _fold(v)
         ctx.plain = not takes_kernels(q)
-        if ctx.plain:
-            o, lse = ref_attention_lse(qf, kf, vf, scale, causal)
-            flash_fwd.launches_by_kernel[PLAIN] += 1
-        else:
-            o, lse = flash_fwd(qf, kf, vf, scale, causal)
+        o, lse = flash_fwd_op(qf, kf, vf, scale, causal)
         ctx.save_for_backward(qf, kf, vf, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.shapes = (q.shape, k.shape, v.shape)

@@ -40,12 +40,22 @@ fuse + cse + dce, bit-exact on every fetch), with the report in
 ``optimize_report`` and ``stats()["optimize"]``; ``optimize_ms`` holds
 the rewrite's wall time on the host clock (port-only).
 
+``from_saved_model`` serves a ``save_inference_model`` directory from
+a private scope, with the exporter's buckets and its ``model_version``;
+``compile_store=`` hands the executor a persistent artifact store
+(io/artifact_store.py), so ``warmup()`` loads the exported bucket steps
+instead of building them, and ``stats()["artifact_store"]`` reads its
+counters. The directory's embedded store (``__artifacts__/``) is used
+only when asked for, with ``compile_store=True``: in this port a store
+hit loads a graph, which takes longer than the eager build it replaces
+(PERF.md §7), where the reference's hit skips an XLA compile.
+
 Differences from the reference: the default place is the card
 (``CUDAPlace(0)``; constructing without one raises where CUDA is
-absent), the optimize rewrite folds constants on the engine's own
-device, and ``from_saved_model`` / ``compile_store`` arrive with the io
-slice.
+absent), and the optimize rewrite folds constants on the engine's own
+device.
 """
+import json
 import os
 import threading
 import time
@@ -53,7 +63,7 @@ import warnings
 
 import numpy as np
 
-from ..core.executor import CUDAPlace, Executor, global_scope
+from ..core.executor import CUDAPlace, Executor, Scope, global_scope
 from ..resilience import faultinject as _faultinject
 from ..resilience.retry import (RetryPolicy, TransientDeviceError,
                                 default_policy, with_retries)
@@ -146,7 +156,7 @@ class ServingEngine:
 
     def __init__(self, program, feed_names, fetch_list, scope=None,
                  place=None, buckets=None, config=None, auto_start=True,
-                 optimize=True, model_version=None):
+                 optimize=True, compile_store=None, model_version=None):
         self.feed_names = list(feed_names)
         self.fetch_list = list(fetch_list)
         # deployment identity (None for engines built straight from a
@@ -155,8 +165,14 @@ class ServingEngine:
         # all retries surface here (counted in metrics); the inner
         # executor must not also retry or attempts would multiply.
         # The default place is the card, never the host.
+        # compile_store: persistent artifact store (io/artifact_store.py)
+        # — warmup() then LOADS this engine's bucket steps instead of
+        # building them when a peer process (or an export-time seeding
+        # pass) already persisted them. None defers to
+        # PADDLE_TPU_ARTIFACT_DIR; False disables outright.
         self.exe = Executor(place if place is not None else CUDAPlace(0),
-                            retry_policy=RetryPolicy(max_attempts=1))
+                            retry_policy=RetryPolicy(max_attempts=1),
+                            compile_store=compile_store)
         # graph rewrites on the serving hot path (analysis/optimize.py:
         # fold + fuse + cse + dce, bit-exact): the engine runs an
         # optimized CLONE — the caller's program is never mutated, and
@@ -210,6 +226,58 @@ class ServingEngine:
         self._crash = threading.Event()
         if auto_start:
             self.start()
+
+    # -- construction from artifacts -------------------------------------
+    @classmethod
+    def from_saved_model(cls, dirname, place=None, **kw):
+        """Serve a ``save_inference_model`` directory: loads the pruned
+        program + params into a PRIVATE scope (two engines from the
+        same dir never share state) on ``place`` (the card by default).
+        When the artifact carries a serving manifest
+        (``save_inference_model(..., serving_buckets=...)``) and the
+        caller passes no ``buckets``, the exported BucketSpec is used —
+        ``warmup()`` then runs exactly the bucket signatures the
+        exporter saw.
+
+        ``compile_store=True`` serves from the artifact's embedded
+        artifact store (``save_inference_model(..., artifact_store=True)``
+        writes ``__artifacts__/`` beside the params; FileNotFoundError
+        when there is none): warmup() then performs ZERO step builds,
+        the saved-model dir alone carrying every bucket's step. The
+        default (None) is the executor's: ``PADDLE_TPU_ARTIFACT_DIR``,
+        else no store."""
+        from .. import io as fluid_io
+        from ..io.artifact_store import EMBEDDED_DIRNAME
+        place = place if place is not None else CUDAPlace(0)
+        scope = Scope()
+        exe = Executor(place)
+        # the target scope is passed explicitly — a guard swap of the
+        # process-global scope here would race the worker threads of
+        # every other live engine
+        program, feed_names, fetch_vars = \
+            fluid_io.load_inference_model(dirname, exe, scope=scope)
+        if kw.get("buckets") is None:
+            manifest = fluid_io.load_serving_manifest(dirname)
+            if manifest.get("buckets"):
+                kw["buckets"] = BucketSpec.from_manifest(
+                    manifest["buckets"])
+        if kw.get("compile_store") is True:
+            embedded = os.path.join(dirname, EMBEDDED_DIRNAME)
+            if not os.path.isdir(embedded):
+                raise FileNotFoundError(
+                    f"compile_store=True: {dirname} has no embedded "
+                    f"artifact store ({EMBEDDED_DIRNAME}/); save it with "
+                    "save_inference_model(..., artifact_store=True)")
+            kw["compile_store"] = embedded
+        if kw.get("model_version") is None:
+            try:
+                with open(os.path.join(dirname, "__meta__.json")) as f:
+                    kw["model_version"] = json.load(f).get(
+                        "model_version")
+            except (OSError, ValueError):
+                pass
+        return cls(program, feed_names, fetch_vars, scope=scope,
+                   place=place, **kw)
 
     # -- lifecycle -------------------------------------------------------
     def start(self):
@@ -445,6 +513,7 @@ class ServingEngine:
         snap["queue_depth"] = self.batcher.depth()
         snap["health_state"] = self.health.state
         snap["model_version"] = self.model_version
+        snap["artifact_store"] = self.exe.store_stats()
         snap["optimize"] = (self.optimize_report.to_dict()
                             if self.optimize_report is not None
                             else None)

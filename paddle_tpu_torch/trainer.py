@@ -1,0 +1,350 @@
+"""High-level train loop with event callbacks and checkpointing.
+
+Port of ``paddle_tpu/trainer.py`` (API parity with the reference's
+``python/paddle/fluid/trainer.py``: Trainer, event classes,
+CheckpointConfig): the train program is built once from ``train_func``
+and run by the port's Executor on the card (``CPUPlace()`` asks for the
+host); the epoch loop is host-side orchestration — events, metrics
+fetch, checkpoints.
+
+A checkpoint also records the executor's step counter (``rng_step`` in
+the manifest's meta), which seeds every random draw of a step (the
+per-(seed, step, draw) ``torch.Generator`` of core/lowering.py); a
+resumed Trainer restores it, so its dropout masks are those of the run
+that never stopped. A reader may yield feed dicts (``io.DeviceLoader``'s
+batches of device tensors); they are fed as they are.
+
+Checkpoints go through the crash-safe store (resilience/checkpoint.py:
+atomic rename + sha256 MANIFEST + quarantine-and-fallback on load),
+and the loop carries the resilience hooks — crash/NaN fault-injection
+points and the PADDLE_TPU_NAN_GUARD rollback sentinel. Knobs are
+documented in docs/RELIABILITY.md.
+"""
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from . import io as fluid_io
+from . import optimizer as optimizer_mod
+from .core import framework, unique_name
+from .core.executor import CUDAPlace, Executor, Scope, scope_guard
+from .data_feeder import DataFeeder
+from .resilience import checkpoint as _ckpt
+from .resilience import faultinject
+
+__all__ = ["BeginEpochEvent", "EndEpochEvent", "BeginStepEvent",
+           "EndStepEvent", "CheckpointConfig", "Trainer"]
+
+
+class BeginEpochEvent:
+    def __init__(self, epoch_id):
+        self.epoch = epoch_id
+
+
+class EndEpochEvent:
+    def __init__(self, epoch_id):
+        self.epoch = epoch_id
+
+
+class BeginStepEvent:
+    def __init__(self, epoch_id, step_id):
+        self.epoch = epoch_id
+        self.step = step_id
+        #: set False in the handler to skip fetching metrics this step
+        self.fetch_metrics = True
+
+
+class EndStepEvent:
+    def __init__(self, epoch_id, step_id, metrics):
+        self.epoch = epoch_id
+        self.step = step_id
+        self.metrics = metrics
+
+
+class CheckpointConfig:
+    """Reference trainer.py:100 — periodic checkpoint policy. After a
+    crash, a new Trainer with the same ``checkpoint_dir`` auto-resumes
+    from the newest checksum-valid checkpoint (reference trainer.py:572
+    _load_checkpoint); ``epoch_id``/``step_id`` then hold the resumed
+    position.
+
+    When ``checkpoint_dir`` is None the default honors the
+    ``PADDLE_TPU_CHECKPOINT_DIR`` env var (point it at a TMPDIR-style
+    location in tests/CI) before falling back to the reference's
+    ``<cwd>/checkpoint`` — which pollutes the working directory, so
+    prefer either an explicit dir or the env override.
+
+    ``max_num_checkpoints=None`` defers to the ``PADDLE_TPU_CKPT_KEEP``
+    env knob (0 there keeps everything), falling back to the
+    reference's 3 — the same retention ladder io.save_checkpoint
+    uses, so a fleet tunes retention in one place."""
+
+    def __init__(self, checkpoint_dir=None, max_num_checkpoints=None,
+                 epoch_interval=1, step_interval=10):
+        self.checkpoint_dir = (checkpoint_dir
+                               or os.environ.get(
+                                   "PADDLE_TPU_CHECKPOINT_DIR")
+                               or os.path.join(os.getcwd(), "checkpoint"))
+        if max_num_checkpoints is None:
+            raw = os.environ.get("PADDLE_TPU_CKPT_KEEP", "").strip()
+            max_num_checkpoints = int(raw) if raw else 3
+        self.max_num_checkpoints = max_num_checkpoints
+        self.epoch_interval = max(1, int(epoch_interval))
+        self.step_interval = max(1, int(step_interval))
+        # filled on auto-resume
+        self.epoch_id = 0
+        self.step_id = 0
+
+
+class Trainer:
+    """Reference trainer.py:169.
+
+    ``train_func`` builds the forward graph and returns the loss variable
+    (or a list whose first element is the loss); ``optimizer_func``
+    returns an Optimizer. The Trainer owns its Programs and Scope so
+    several trainers can coexist.
+    """
+
+    def __init__(self, train_func, optimizer_func, param_path=None,
+                 place=None, parallel=False, checkpoint_config=None):
+        self._place = place if place is not None else CUDAPlace(0)
+        self._parallel = parallel
+        self._stop = False
+        self._checkpoint_cfg = checkpoint_config
+        self._serial = 0
+
+        self.scope = Scope()
+        self.startup_program = framework.Program()
+        self.train_program = framework.Program()
+        with framework.program_guard(self.train_program,
+                                     self.startup_program), \
+                unique_name.guard():
+            out = train_func()
+            if isinstance(out, (list, tuple)):
+                self.train_outputs = list(out)
+            else:
+                self.train_outputs = [out]
+            loss = self.train_outputs[0]
+            opt = optimizer_func()
+            if not isinstance(opt, optimizer_mod.Optimizer):
+                raise TypeError("optimizer_func must return an Optimizer")
+            opt.minimize(loss)
+        self.test_program = self.train_program.clone(for_test=True)
+
+        self.exe = Executor(self._place)
+        with scope_guard(self.scope):
+            self.exe.run(self.startup_program)
+            if param_path:
+                fluid_io.load_persistables(self.exe, param_path,
+                                           main_program=self.train_program)
+        if self._checkpoint_cfg:
+            self._load_checkpoint()
+
+    # ------------------------------------------------------------------
+    def stop(self):
+        """Ask the running train() loop to exit after the current step."""
+        self._stop = True
+
+    def train(self, num_epochs, event_handler, reader=None, feed_order=None):
+        feeder = self._feeder(self.train_program, feed_order)
+        self._stop = False
+        start_epoch = (self._checkpoint_cfg.epoch_id
+                       if self._checkpoint_cfg else 0)
+        nan_guard = os.environ.get(
+            "PADDLE_TPU_NAN_GUARD", "0").lower() not in ("0", "", "off")
+        self._nan_rollbacks = 0
+        if nan_guard and self._checkpoint_cfg and self._serial == 0:
+            # guarantee a rollback target before the first step: without
+            # it a NaN on step 0 would have nowhere to go but a crash
+            # (step_id=0 meta → resume replays this epoch from the start)
+            self._save_checkpoint(start_epoch, 0)
+        try:
+            for epoch_id in range(start_epoch, num_epochs):
+                event_handler(BeginEpochEvent(epoch_id))
+                for step_id, data in enumerate(reader()):
+                    if self._stop:
+                        return  # match reference: no epoch-end events
+                    if faultinject.fires("crash_at_step"):
+                        raise faultinject.SimulatedCrash(
+                            f"injected crash at epoch {epoch_id} "
+                            f"step {step_id}")
+                    begin = BeginStepEvent(epoch_id, step_id)
+                    event_handler(begin)
+                    fetch = (self.train_outputs if begin.fetch_metrics
+                             else [])
+                    with scope_guard(self.scope):
+                        metrics = self.exe.run(self.train_program,
+                                               feed=feeder.feed(data),
+                                               fetch_list=fetch)
+                    if metrics and faultinject.fires("nan_step"):
+                        # poison the fetched loss exactly as a diverged
+                        # step would surface it
+                        metrics[0] = np.full_like(
+                            np.asarray(metrics[0]), np.nan)
+                    if (nan_guard and metrics
+                            and not np.isfinite(
+                                np.asarray(metrics[0])).all()):
+                        # the step is discarded: state rolls back to the
+                        # last good checkpoint, no EndStepEvent fires
+                        self._handle_nonfinite(epoch_id, step_id)
+                        continue
+                    event_handler(EndStepEvent(epoch_id, step_id,
+                                               metrics))
+                    if (self._checkpoint_cfg and
+                            (step_id + 1)
+                            % self._checkpoint_cfg.step_interval == 0):
+                        self._save_checkpoint(epoch_id, step_id)
+                event_handler(EndEpochEvent(epoch_id))
+                if (self._checkpoint_cfg and
+                        (epoch_id + 1)
+                        % self._checkpoint_cfg.epoch_interval == 0):
+                    self._save_checkpoint(epoch_id, -1)
+        except faultinject.SimulatedCrash:
+            # a simulated SIGKILL gets NO failure hook — the whole point
+            # is to test recovery from what is already on disk
+            raise
+        except BaseException:
+            # failure hook: persist state before propagating so the
+            # next Trainer(checkpoint_config=...) resumes at the crash
+            # point instead of epoch 0 (reference trainer.py's
+            # checkpoint-on-exit semantics)
+            if self._checkpoint_cfg:
+                try:
+                    self._save_checkpoint(epoch_id, -1)
+                except Exception:
+                    pass
+            raise
+
+    def test(self, reader, feed_order=None):
+        """Average the train_func outputs over the reader with the test
+        clone (dropout off, batch-norm in inference mode)."""
+        feeder = self._feeder(self.test_program, feed_order)
+        sums, count = None, 0
+        for data in reader():
+            with scope_guard(self.scope):
+                vals = self.exe.run(self.test_program,
+                                    feed=feeder.feed(data),
+                                    fetch_list=self.train_outputs)
+            n = (len(next(iter(data.values()))) if isinstance(data, dict)
+                 else len(data))
+            vals = [float(np.ravel(v)[0]) * n for v in vals]
+            sums = vals if sums is None else [a + b
+                                              for a, b in zip(sums, vals)]
+            count += n
+        if not count:
+            return [0.0 for _ in self.train_outputs]
+        return [s / count for s in sums]
+
+    def save_params(self, param_path):
+        with scope_guard(self.scope):
+            fluid_io.save_persistables(self.exe, param_path,
+                                       main_program=self.train_program)
+
+    # ------------------------------------------------------------------
+    def _feeder(self, program, feed_order):
+        if feed_order is None:
+            feed_order = [name for name, v in
+                          program.global_block().vars.items()
+                          if getattr(v, "is_data", False)]
+        return DataFeeder(list(feed_order), self._place, program=program)
+
+    def _train_state(self):
+        """Every persistable of the train program that has a value —
+        params, optimizer accumulators, LR — as the scope's tensors
+        (the checkpoint store copies them to the host)."""
+        persist = sorted(v.name for v in self.train_program.list_vars()
+                         if v.persistable)
+        return {n: self.scope.find_var(n) for n in persist
+                if self.scope.find_var(n) is not None}
+
+    def _save_checkpoint(self, epoch_id, step_id):
+        """Crash-safe periodic checkpoint: the whole train state goes
+        through resilience/checkpoint.py (temp dir + per-array sha256
+        MANIFEST + fsync + atomic rename), with the resume position in
+        the manifest meta; pruning keeps max_num_checkpoints without
+        racing this (or any other) in-flight save."""
+        cfg = self._checkpoint_cfg
+        self._serial += 1
+        return _ckpt.save_state(
+            cfg.checkpoint_dir, self._train_state(), serial=self._serial,
+            meta={"epoch_id": epoch_id, "step_id": step_id,
+                  "serial": self._serial, "rng_step": self.exe._step},
+            max_num_checkpoints=cfg.max_num_checkpoints)
+
+    def _load_checkpoint(self):
+        """Auto-resume (reference trainer.py:572 _load_checkpoint):
+        restore persistables + epoch/step position from the newest
+        CHECKSUM-VALID checkpoint under checkpoint_dir. An empty,
+        missing, or partially-created directory (a crash during the
+        very first save leaves only a .tmp_* dir) is a fresh run, not
+        an error; damaged serials are quarantined and the next older
+        valid one wins."""
+        cfg = self._checkpoint_cfg
+        try:
+            state, manifest, serial, _path = _ckpt.load_latest_valid(
+                cfg.checkpoint_dir, device=self.exe.device)
+        except FileNotFoundError:
+            return          # nothing valid on disk — start fresh
+        for k, v in state.items():
+            self.scope.set(k, v)
+        self._serial = serial
+        meta = manifest.get("meta", {})
+        if "rng_step" in meta:
+            # the step counter that seeds each step's random draws
+            self.exe._step = int(meta["rng_step"])
+        if "epoch_id" in meta:
+            # an epoch-end checkpoint (step -1) resumes at the NEXT
+            # epoch; a mid-epoch one replays its epoch from the start
+            # (steps are not individually addressable in a generic
+            # reader — same stance as the reference's epoch granularity)
+            cfg.epoch_id = meta["epoch_id"] + (
+                1 if meta.get("step_id") == -1 else 0)
+            cfg.step_id = max(0, meta.get("step_id", 0))
+
+    def _handle_nonfinite(self, epoch_id, step_id):
+        """The PADDLE_TPU_NAN_GUARD sentinel:
+        a non-finite fetched loss means the optimizer update that just
+        landed is poison, so restore the whole train state from the
+        last good checkpoint and scale the learning rate down by
+        PADDLE_TPU_NAN_LR_FACTOR (default 0.5; 1.0 disables) before
+        continuing. After PADDLE_TPU_NAN_MAX_ROLLBACKS (default 2)
+        rollbacks in one train() call, give up loudly."""
+        budget = int(os.environ.get("PADDLE_TPU_NAN_MAX_ROLLBACKS", "2"))
+        self._nan_rollbacks += 1
+        where = f"epoch {epoch_id} step {step_id}"
+        if not self._checkpoint_cfg:
+            raise FloatingPointError(
+                f"non-finite loss at {where} and no checkpoint_config "
+                "to roll back to — pass CheckpointConfig(...) or unset "
+                "PADDLE_TPU_NAN_GUARD")
+        if self._nan_rollbacks > budget:
+            raise FloatingPointError(
+                f"non-finite loss at {where} after {budget} rollback(s) "
+                "— training is diverging; lower the learning rate or "
+                "inspect the data")
+        cfg = self._checkpoint_cfg
+        try:
+            state, manifest, serial, _path = _ckpt.load_latest_valid(
+                cfg.checkpoint_dir, device=self.exe.device)
+        except FileNotFoundError:
+            raise FloatingPointError(
+                f"non-finite loss at {where} and no valid checkpoint "
+                f"under {cfg.checkpoint_dir} to roll back to")
+        for k, v in state.items():
+            self.scope.set(k, v)
+        factor = float(os.environ.get("PADDLE_TPU_NAN_LR_FACTOR", "0.5"))
+        if factor != 1.0:
+            # the optimizer's global LR lives in the scope as a
+            # persistable learning_rate_* var — scale the restored copy
+            for name in list(self.scope.keys()):
+                if name.startswith("learning_rate"):
+                    val = self.scope.find_var(name)
+                    if isinstance(val, torch.Tensor):
+                        self.scope.set(name, val * factor)
+        warnings.warn(
+            f"NaN guard: non-finite loss at {where}; rolled back to "
+            f"checkpoint serial {serial} and scaled learning_rate by "
+            f"{factor} (rollback {self._nan_rollbacks}/{budget})",
+            stacklevel=2)

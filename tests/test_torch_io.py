@@ -1,0 +1,400 @@
+"""Model IO of the torch port (paddle_tpu_torch/io/) against the JAX
+package: saved inference models and persistables cross both ways, the
+saved files are the reference's, bfloat16 survives, and the ``load`` op.
+
+A directory saved by the JAX package (2 training steps of
+TRANSFORMER_TINY with lengths, and of LLAMA_TINY) is served by the
+port's ``load_inference_model`` and ``ServingEngine.from_saved_model``
+on the CPU, and the port's own saves by the JAX package; the outputs are
+held to the reference's own reload at the tiers the parity tests use for
+those models (tests/test_torch_transformer.py,
+tests/test_torch_llama_serving.py): float32 logits rtol 1e-4 / atol
+1e-4. Parameters cross bit for bit (``np.array_equal``).
+"""
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jfluid
+from paddle_tpu.models import llama as jllama
+from paddle_tpu.models import transformer as jtf
+
+import paddle_tpu_torch as tfluid
+from paddle_tpu_torch import weights
+from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.models import transformer as ttf
+from paddle_tpu_torch.serving import BucketSpec, ServingEngine
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+TOL = dict(rtol=1e-4, atol=1e-4)
+SRC, TGT, BATCH = 16, 12, 3
+TF_FEEDS = ["src", "tgt", "src_len", "tgt_len"]
+
+
+def _transformer(fluid, tf):
+    """(main, startup, test program, logits, loss): TRANSFORMER_TINY with
+    lengths, noam + Adam (tests/test_torch_transformer.py's recipe)."""
+    cfg = tf.TRANSFORMER_TINY
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        data = lambda n, shape: fluid.layers.data(  # noqa: E731
+            name=n, shape=shape, dtype="int64", append_batch_size=False)
+        src, tgt = data("src", [-1, SRC]), data("tgt", [-1, TGT])
+        lbl = data("lbl", [-1, TGT])
+        logits, loss = tf.build_transformer(
+            cfg, src, tgt, lbl, src_lengths=data("src_len", [-1]),
+            tgt_lengths=data("tgt_len", [-1]))
+        test = main.clone(for_test=True)
+        lr = fluid.layers.noam_decay(cfg.d_model, 4)
+        fluid.optimizer.Adam(lr, beta1=0.9, beta2=0.98,
+                             epsilon=1e-9).minimize(loss)
+    return main, startup, test, logits, loss
+
+
+def _llama(fluid, llama):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        tokens = fluid.layers.data(name="tokens", shape=[-1, -1],
+                                   dtype="int64", append_batch_size=False)
+        targets = fluid.layers.data(name="targets", shape=[-1, -1],
+                                    dtype="int64", append_batch_size=False)
+        logits, loss = llama.build_llama(llama.LLAMA_TINY, tokens, targets)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, test, logits, loss
+
+
+def _tf_feed(step, labels=True):
+    r = np.random.RandomState(300 + step)
+    feed = {"src": r.randint(0, 64, (BATCH, SRC)).astype(np.int64),
+            "tgt": r.randint(0, 64, (BATCH, TGT)).astype(np.int64),
+            "src_len": np.asarray([SRC, 9, 4], np.int64),
+            "tgt_len": np.asarray([TGT, 7, 2], np.int64)}
+    if labels:
+        feed["lbl"] = r.randint(0, 64, (BATCH, TGT)).astype(np.int64)
+    return feed
+
+
+def _llama_feed(step, labels=True):
+    r = np.random.RandomState(400 + step)
+    tok = r.randint(0, 256, (2, 8)).astype(np.int64)
+    return {"tokens": tok, **({"targets": np.roll(tok, -1, 1)}
+                              if labels else {})}
+
+
+MODELS = {"transformer": (_transformer, jtf, ttf, _tf_feed, TF_FEEDS),
+          "llama": (_llama, jllama, tllama, _llama_feed, ["tokens"])}
+
+
+def _train_and_save(fluid, mod, name, dirname, steps=2):
+    """Build ``name`` in ``fluid``, run its startup and ``steps`` train
+    steps on the CPU, and save the inference model of the test program
+    (feeds, logits) into ``dirname``. Returns (scope, test, logits)."""
+    build, _, _, feed, feeds = MODELS[name]
+    main, startup, test, logits, loss = build(fluid, mod)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for s in range(steps):
+            exe.run(main, feed=feed(s), fetch_list=[loss])
+        fluid.io.save_inference_model(dirname, feeds, [logits], exe,
+                                      main_program=test)
+    return scope, test, logits
+
+
+def _reload_and_run(fluid, dirname, feed):
+    """``load_inference_model`` into a fresh scope and one run."""
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        prog, feeds, fetch = fluid.io.load_inference_model(dirname, exe)
+        out = exe.run(prog, feed={n: feed[n] for n in feeds},
+                      fetch_list=fetch)[0]
+    return out, feeds, scope
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_jax_saved_model_serves_in_the_port(tmp_path, name):
+    """The JAX package trains and saves; the port's load_inference_model
+    and from_saved_model answer as the reference's own reload does."""
+    _, jmod, _, feed_fn, feeds = MODELS[name]
+    d = str(tmp_path / "jax_saved")
+    _train_and_save(jfluid, jmod, name, d)
+    feed = feed_fn(9, labels=False)
+    want, jfeeds, jscope = _reload_and_run(jfluid, d, feed)
+    got, tfeeds, tscope = _reload_and_run(tfluid, d, feed)
+    assert tfeeds == jfeeds
+    np.testing.assert_allclose(got, want, **TOL)
+    # the parameters crossed bit for bit
+    assert sorted(tscope.keys()) == sorted(jscope.keys())
+    for n in jscope.keys():
+        assert np.array_equal(weights.tensor_to_array(tscope.find_var(n)),
+                              np.asarray(jscope.find_var(n))), n
+    eng = ServingEngine.from_saved_model(d, place=tfluid.CPUPlace(),
+                                         auto_start=False)
+    assert eng.model_version == 1 and eng.feed_names == feeds
+    row = {n: feed[n][:1] for n in feeds}
+    eng.start()
+    try:
+        np.testing.assert_allclose(eng.infer(row)[0], want[:1], **TOL)
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_port_saved_model_serves_in_the_jax_package(tmp_path, name):
+    """The reverse: the port trains and saves; the JAX package's
+    load_inference_model answers as the port's own reload does."""
+    _, _, tmod, feed_fn, feeds = MODELS[name]
+    d = str(tmp_path / "port_saved")
+    _train_and_save(tfluid, tmod, name, d)
+    feed = feed_fn(9, labels=False)
+    want, _, tscope = _reload_and_run(tfluid, d, feed)
+    got, jfeeds, jscope = _reload_and_run(jfluid, d, feed)
+    assert jfeeds == feeds
+    np.testing.assert_allclose(got, want, **TOL)
+    for n in tscope.keys():
+        assert np.array_equal(np.asarray(jscope.find_var(n)),
+                              weights.tensor_to_array(tscope.find_var(n)))
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_persistables_cross_both_ways(tmp_path, direction):
+    """save_persistables of a trained scope (parameters, Adam moments,
+    the LR counter) in one package, load_persistables in the other:
+    every value equal, and the next train step's loss at the f32 tier."""
+    jm, js, _, _, jl = _transformer(jfluid, jtf)
+    tm, ts, _, _, tl = _transformer(tfluid, ttf)
+    jexe, texe = jfluid.Executor(jfluid.CPUPlace()), \
+        tfluid.Executor(tfluid.CPUPlace())
+    jscope, tscope = jfluid.Scope(), tfluid.Scope()
+    d = str(tmp_path / "persist")
+    src_is_jax = direction == "jax_to_port"
+    with jfluid.scope_guard(jscope), tfluid.scope_guard(tscope):
+        if src_is_jax:
+            jexe.run(js)
+            jexe.run(jm, feed=_tf_feed(0), fetch_list=[jl])
+            jfluid.io.save_persistables(jexe, d, main_program=jm)
+            tfluid.io.load_persistables(texe, d, main_program=tm)
+        else:
+            texe.run(ts)
+            texe.run(tm, feed=_tf_feed(0), fetch_list=[tl])
+            tfluid.io.save_persistables(texe, d, main_program=tm)
+            jfluid.io.load_persistables(jexe, d, main_program=jm)
+        names = sorted(v.name for v in tm.list_vars() if v.persistable)
+        assert names == sorted(jscope.keys()) == sorted(tscope.keys())
+        for n in names:
+            assert np.array_equal(
+                weights.tensor_to_array(tscope.find_var(n)),
+                np.asarray(jscope.find_var(n))), n
+        want = jexe.run(jm, feed=_tf_feed(1), fetch_list=[jl])[0]
+        got = texe.run(tm, feed=_tf_feed(1), fetch_list=[tl])[0]
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+
+
+def _fc_program(fluid, dtype="float32"):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[8], dtype=dtype)
+        y = fluid.layers.fc(x, size=4, act="relu")
+        z = fluid.layers.fc(y, size=3)
+    return main, startup, z
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_saved_files_are_the_reference_files(tmp_path, pkg):
+    """__meta__.json, the params manifest's sha256, model_version's
+    auto-bump and its refusal to go back, unknown names refused at save,
+    the serving manifest and the golden set — the same in both
+    packages."""
+    fluid = jfluid if pkg == "jax" else tfluid
+    main, startup, z = _fc_program(fluid)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    d = str(tmp_path / "m")
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(
+            d, ["x"], [z], exe, main_program=main,
+            serving_buckets=BucketSpec(batch_sizes=(1, 4)))
+        meta = json.load(open(os.path.join(d, "__meta__.json")))
+        assert meta == {"feed_names": ["x"], "fetch_names": [z.name],
+                        "model_version": 1,
+                        "serving": {"buckets": {"batch_sizes": [1, 4],
+                                                "seq_lens": {},
+                                                "pad_values": {}}}}
+        import hashlib
+        man = json.load(open(os.path.join(d, "__params_manifest__.json")))
+        blob = open(os.path.join(d, "params.npz"), "rb").read()
+        assert man == {"file": "params.npz",
+                       "sha256": hashlib.sha256(blob).hexdigest(),
+                       "n_arrays": 4}
+        fluid.io.save_inference_model(d, ["x"], [z], exe,
+                                      main_program=main)
+        assert json.load(open(os.path.join(d, "__meta__.json")))[
+            "model_version"] == 2
+        with pytest.raises(ValueError, match="backwards"):
+            fluid.io.save_inference_model(d, ["x"], [z], exe,
+                                          main_program=main,
+                                          model_version=1)
+        fluid.io.save_inference_model(d, ["x"], [z], exe,
+                                      main_program=main, model_version=7)
+        assert fluid.io.load_serving_manifest(d) == {}
+        assert json.load(open(os.path.join(d, "__meta__.json")))[
+            "model_version"] == 7
+        with pytest.raises(ValueError, match="nope"):
+            fluid.io.save_inference_model(d, ["nope"], [z], exe,
+                                          main_program=main)
+        with pytest.raises(ValueError, match="ghost"):
+            fluid.io.save_inference_model(d, ["x"], ["ghost"], exe,
+                                          main_program=main)
+    x = np.arange(16, dtype=np.float32).reshape(2, 8)
+    feeds = [{"x": x}, {"x": x[:1]}]
+    outs = [[np.ones((2, 3), np.float32)], [np.zeros((1, 3), np.float32)]]
+    fluid.io.save_golden_set(d, feeds, outs)
+    gf, go = fluid.io.load_golden_set(d)
+    assert len(gf) == 2 and np.array_equal(gf[1]["x"], x[:1])
+    assert np.array_equal(go[0][0], outs[0][0])
+    with pytest.raises(ValueError, match="one output list per feed"):
+        fluid.io.save_golden_set(d, feeds, outs[:1])
+    assert fluid.io.load_golden_set(str(tmp_path / "none")) is None
+    with pytest.raises(ValueError, match="pserver_endpoints"):
+        fluid.io.load_inference_model(d, exe, pserver_endpoints=["h:1"])
+
+
+def test_golden_sets_cross_both_ways(tmp_path):
+    feeds = [{"x": np.arange(6, dtype=np.float32).reshape(2, 3)}]
+    outs = [[np.full((2, 2), 3.0, np.float32), np.arange(2)]]
+    for save, load in ((jfluid, tfluid), (tfluid, jfluid)):
+        d = str(tmp_path / f"g_{save.__name__}")
+        save.io.save_golden_set(d, feeds, outs)
+        gf, go = load.io.load_golden_set(d)
+        assert np.array_equal(gf[0]["x"], feeds[0]["x"])
+        assert all(np.array_equal(a, b) for a, b in zip(go[0], outs[0]))
+
+
+def test_bfloat16_saved_model_reloads_bit_for_bit(tmp_path):
+    """A bfloat16 program saved by the port: params.npz holds the same
+    2-byte void members the JAX package writes, the port reloads every
+    parameter bit for bit by the program's dtype and answers as before.
+    The reference cannot run the same directory: its loader hands the
+    void arrays to jax (ROADMAP.md section 3, R1) — pinned here so a
+    fix there is noticed."""
+    main, startup, z = _fc_program(tfluid, "bfloat16")
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    d = str(tmp_path / "bf16")
+    x = np.random.RandomState(0).randn(3, 8).astype(np.float32)
+    with tfluid.scope_guard(scope):
+        exe.run(startup)
+        want = exe.run(main, feed={"x": torch.tensor(x).bfloat16()},
+                       fetch_list=[z])[0]
+        tfluid.io.save_inference_model(d, ["x"], [z], exe,
+                                       main_program=main)
+    data = np.load(os.path.join(d, "params.npz"))
+    assert all(data[k].dtype.str == "|V2" for k in data.files)
+    got, _, tscope = _reload_and_run(
+        tfluid, d, {"x": torch.tensor(x).bfloat16()})
+    for n in scope.keys():
+        a, b = scope.find_var(n), tscope.find_var(n)
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), n
+    assert np.array_equal(got, want)
+    # the JAX package writes the same bytes for the same bits
+    import ml_dtypes
+    jd = str(tmp_path / "jax_bf16.npz")
+    np.savez(jd, **{k.replace("/", "%2F"): weights.tensor_to_array(
+        scope.find_var(k), bfloat16=ml_dtypes.bfloat16)
+        for k in scope.keys()})
+    jdata = np.load(jd)
+    assert sorted(jdata.files) == sorted(data.files)
+    assert all(jdata[k].tobytes() == data[k].tobytes()
+               and jdata[k].dtype == data[k].dtype for k in data.files)
+    # R1: the reference's reload of the directory fails in jax
+    jexe = jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(jfluid.Scope()):
+        prog, feeds, fetch = jfluid.io.load_inference_model(d, jexe)
+        with pytest.raises(TypeError, match="V2"):
+            jexe.run(prog, feed={"x": x.astype(ml_dtypes.bfloat16)},
+                     fetch_list=fetch)
+
+
+@pytest.mark.parametrize("fmt", ["npy", "npz"])
+def test_load_op_matches_the_reference(tmp_path, fmt):
+    """layers.load reads a .npy, or the member of a save_vars .npz named
+    by its output, in both packages alike (``load_as_fp16`` too)."""
+    w = np.random.RandomState(1).randn(3, 4).astype(np.float32)
+    path = str(tmp_path / ("w.npy" if fmt == "npy" else "w.npz"))
+    if fmt == "npy":
+        np.save(path, w)
+    else:
+        np.savez(path, other=np.zeros(2), w_in=w)
+    outs = []
+    for fluid in (jfluid, tfluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            v = main.global_block().create_var(
+                name="w_in", shape=[3, 4], dtype="float32",
+                persistable=False)
+            fluid.layers.load(v, path)
+            h = main.global_block().create_var(
+                name="w_half", shape=[3, 4], dtype="float16")
+            fluid.layers.load(h, path, load_as_fp16=True)
+        got = fluid.Executor(fluid.CPUPlace()).run(
+            main, fetch_list=["w_in", "w_half"], scope=fluid.Scope())
+        outs.append(got)
+    for g, w_ in zip(outs[1], outs[0]):
+        assert g.dtype == np.asarray(w_).dtype
+        assert np.array_equal(g, np.asarray(w_))
+    assert np.array_equal(outs[1][0], w)
+
+
+def test_parameter_helpers_and_get_inference_program():
+    main, startup, z = _fc_program(tfluid)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    with tfluid.scope_guard(scope):
+        exe.run(startup)
+        params = main.all_parameters()
+        assert all(tfluid.io.is_parameter(p) for p in params)
+        assert not tfluid.io.is_parameter(main.global_block().var("x"))
+        assert all(tfluid.io.is_persistable(p) for p in params)
+        val = tfluid.io.get_parameter_value(params[0], exe)
+        assert isinstance(val, np.ndarray)
+        assert np.array_equal(val, weights.tensor_to_array(
+            scope.find_var(params[0].name)))
+        assert np.array_equal(tfluid.io.get_parameter_value_by_name(
+            params[0].name, exe, main), val)
+    inf = tfluid.io.get_inference_program([z], main_program=main)
+    jm, _, jz = _fc_program(jfluid)
+    jinf = jfluid.io.get_inference_program([jz], main_program=jm)
+    assert [o.type for o in inf.global_block().ops] == \
+        [o.type for o in jinf.global_block().ops]
+
+
+def test_loading_needs_the_executor_and_a_declared_bf16_dtype(tmp_path):
+    """Values land on the executor's device, so a load without an
+    executor raises; a void array whose variable is not bfloat16 is
+    refused rather than read as bfloat16."""
+    with pytest.raises(TypeError, match="Executor"):
+        tfluid.io.load_inference_model(str(tmp_path), None)
+    void = np.zeros(3, np.int16).view(np.dtype("V2"))
+    with pytest.raises(ValueError, match="bfloat16"):
+        weights.array_to_tensor(void, CPU, dtype="float16")
+    t = weights.array_to_tensor(void, CPU, dtype="bfloat16")
+    assert t.dtype == torch.bfloat16 and not t.any()
+
+
+def test_dataclass_configs_are_the_same():
+    """Both packages build these models from equal configurations (the
+    saved programs above are the same programs)."""
+    assert dataclasses.asdict(ttf.TRANSFORMER_TINY) == \
+        dataclasses.asdict(jtf.TRANSFORMER_TINY)
+    assert vars(tllama.LLAMA_TINY) == vars(jllama.LLAMA_TINY)

@@ -647,3 +647,92 @@ def test_engine_serves_optimized_clone_identically_on_the_card():
         on.assert_no_recompiles()
     assert np.array_equal(got, want)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 128)])
+def test_custom_op_launches_flash_attentions_kernel(dtype, d):
+    """K1's operator (``torch.ops.paddle_tpu_torch.flash_fwd``, what an
+    exported graph calls) launches the kernel FlashAttention launches:
+    one launch of the same variant, outputs bit for bit equal; an
+    exported step on the card counts its K1 launches through it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt).reshape(2, 4, 128, d)
+               for a in _qkv(21, (8, 128, d), (8, 128, d)))
+    sym = fa.kernel_for("flash_fwd", dt, d)[1]
+    fa.reset_launch_counts()
+    o_op, lse_op = fa.flash_fwd_op(fa._fold(q), fa._fold(k), fa._fold(v),
+                                   1 / np.sqrt(d), True)
+    assert fa.flash_fwd.launches_by_kernel[sym] == 1
+    fa.reset_launch_counts()
+    o, lse = fa.FlashAttention.apply(q.requires_grad_(), k, v, True,
+                                     float(1 / np.sqrt(d)))
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches_by_kernel[sym] == 1
+    assert torch.equal(o.detach().reshape(o_op.shape), o_op)
+    assert torch.equal(lse.detach().reshape(lse_op.shape), lse_op)
+
+    from paddle_tpu_torch.io import aot
+    step = lambda st, feed, dev, seed, n: (  # noqa: E731
+        {}, [fa.flash_attention(feed["q"], feed["k"], feed["v"])])
+    ep = aot.export_step(step, [], [], ["q", "k", "v"],
+                         [q.detach(), k, v], q.device)
+    fa.reset_launch_counts()
+    got = ep.module()([], [q.detach(), k, v])[0]
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches_by_kernel[sym] == 1
+    assert fa.flash_fwd.input_copies == 0
+    assert torch.equal(got, o.detach())
+    # a view the kernels cannot take is copied by the operator, counted
+    fa.reset_launch_counts()
+    qt = fa._fold(q.detach()).transpose(1, 2).contiguous().transpose(1, 2)
+    o_view, _ = fa.flash_fwd_op(qt, fa._fold(k), fa._fold(v),
+                                1 / np.sqrt(d), True)
+    assert fa.flash_fwd.input_copies == 1
+    assert torch.equal(o_view, o_op)
+
+
+@pytest.mark.gpu
+def test_device_loader_copies_on_a_side_stream():
+    """DeviceLoader on the card: every batch arrives as a CUDA tensor
+    equal to the host array, copied from pinned memory on the loader's
+    own stream, the consumer's stream waiting on its event; a train
+    step consuming the batches right away equals host-fed steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.io import DeviceLoader
+
+    def reader():
+        rng = np.random.RandomState(0)
+        for _ in range(12):
+            yield rng.randn(64, 256).astype(np.float32), \
+                rng.randint(0, 2, (64, 1)).astype(np.int64)
+
+    dl = DeviceLoader(reader, feed_names=["x", "y"], buffer_size=3)
+    got = list(dl)
+    assert dl._copy_stream is not None
+    assert dl._copy_stream != torch.cuda.current_stream()
+    assert len(got) == 12
+    for f, (x, y) in zip(got, reader()):
+        assert f["x"].is_cuda and torch.equal(f["x"].cpu(),
+                                              torch.from_numpy(x))
+        assert torch.equal(f["y"].cpu(), torch.from_numpy(y))
+    losses = {}
+    for mode in ("loader", "host"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.layers.data("x", shape=[256])
+            y = fluid.layers.data("y", shape=[1], dtype="int64")
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(
+                    fluid.layers.fc(x, size=2), y))
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        src = DeviceLoader(reader, feed_names=["x", "y"]) \
+            if mode == "loader" else ({"x": a, "y": b} for a, b in reader())
+        losses[mode] = [exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0].item() for f in src]
+    assert losses["loader"] == losses["host"]

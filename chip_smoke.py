@@ -155,7 +155,23 @@ Phases — any failure exits non-zero:
    layers in bf16 saved and served back: every persistable's bits, 8
    requests across (1, 2, 4) x (128, 256) bit for bit the in-memory
    engine's, K1 on ``flash_fwd_mma`` at D 128, ``CompiledPredictor``
-   within the bf16 tier.
+   within the bf16 tier;
+21. generate (ROADMAP item 4a, the main path of this slice): the 8B
+   width, all 32 layers in bf16, through ``build_llama_generator`` and
+   ``Executor.run``: 4 prompts of 128 tokens, 64 new tokens each, every
+   generated token held against ``build_llama(shard_pp=True)``'s
+   forward of the generated sequence on the same scope (K1 32 launches
+   on ``flash_fwd_mma``), a flip allowed only within twice the row's
+   logit error; FirstProbs against that forward's softmax; the int8 KV
+   cache and W8A8 (their int8 accumulators exact on the card against
+   the CPU; FirstProbs' distance and token agreement reported);
+   speculative decoding with the target as its draft (tokens equal
+   greedy's under the same tier; acceptance, rounds); sampling
+   (replayed for a seed and step, different across steps); float32 at
+   4 layers, exact wherever the margin exceeds the f32 tier (K1 on
+   ``flash_fwd_f32mma``); prefill and per-token decode ms at batch 1
+   and 4 beside the weights' read bound, speculative tokens/s, the
+   device's busy share over a 16-token batch-4 generate.
 The kernels phase also holds K1's operator (``flash_fwd_op``, what an
 exported graph calls) to the wrapper bit for bit and to the plain
 version, at Transformer-base's f32 D 64 shape and the 8B width's bf16
@@ -299,6 +315,18 @@ IO_LLAMA_LAYERS = 2
 # plain version: Transformer-base's decoder (f32, D 64) and the 8B
 # width's serving shape (bf16, D 128)
 OP_CASES = (TF_CAUSAL_LABEL, "serving T=256")
+# ROADMAP item 4a (the fused KV-cache generator): the 8B width generates
+# GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows, and
+# the layer-stacked forward (K1) scores the generated sequence again
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
+GEN_F32_LAYERS = 4              # 32 → 4: the exact float32 check
+GEN_GAMMA = 4
+GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+GEN_SAMPLED_NEW = 16            # the sampled checks' new tokens
+GEN_PROFILED_NEW = 16           # the profiled generate's new tokens
+GEN_LABEL = "generate T=192"    # K1 in the recompute: B*H 4*32, T 192
+# the reference's int8-KV bounds (tests/test_llama_generate.py:533)
+KV8_MAX_DP, KV8_MAX_KL = 0.02, 1e-3
 DROPOUT_P = 0.1
 INIT_STD = 0.02                 # models/llama.py _linear's Normal(0, 0.02)
 
@@ -445,6 +473,8 @@ def phase_kernels(torch, fa, seed):
     cases = [
         ("serving T=128", 4 * 32, 128, 128, 128, bf16, True),
         ("serving T=256", 4 * 32, 256, 256, 128, bf16, True),
+        (GEN_LABEL, GEN_BATCH * 32, GEN_PROMPT + GEN_NEW,
+         GEN_PROMPT + GEN_NEW, 128, bf16, True),
         ("f32 serving T=128", 4 * 32, 128, 128, 128, f32, True),
         ("f32 serving T=256", 4 * 32, 256, 256, 128, f32, True),
         (TRAIN_LABEL, bh_train, TRAIN_SEQ, TRAIN_SEQ, 128, bf16, True),
@@ -535,6 +565,7 @@ def phase_kernels(torch, fa, seed):
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
     timing = {}
     for label, kinds in (("serving T=256", ("fwd",)),
+                         (GEN_LABEL, ("fwd",)),
                          ("f32 serving T=256", ("fwd",)),
                          (TRAIN_LABEL, ("fwd", "dq", "dkv")),
                          ("f32 causal", ("fwd", "dq", "dkv")),
@@ -2969,6 +3000,479 @@ def phase_dropout(torch, card):
     return out
 
 
+def gen_programs(fluid, cfg, prompt_len, **gen_kw):
+    """A generator program over a [-1, prompt_len] prompt; returns
+    (program, startup, fetches)."""
+    from paddle_tpu_torch.models.llama import build_llama_generator
+    prog, startup = fluid.Program(), fluid.Program()
+    prog.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(prog, startup), fluid.unique_name.guard():
+        ptok = fluid.layers.data(name="ptok", shape=[-1, prompt_len],
+                                 dtype="int64", append_batch_size=False)
+        out = build_llama_generator(cfg, ptok, **gen_kw)
+    return prog, startup, list(out) if isinstance(out, tuple) else [out]
+
+
+def recompute_program(fluid, cfg):
+    """``build_llama(cfg, tokens, shard_pp=True)``'s test clone: the
+    layer-stacked forward (K1 once a layer) over the same parameter
+    names as the generator. Returns (program, logits)."""
+    from paddle_tpu_torch.models.llama import build_llama
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()), \
+            fluid.unique_name.guard():
+        ftok = fluid.layers.data(name="ftok", shape=[-1, -1],
+                                 dtype="int64", append_batch_size=False)
+        logits, _ = build_llama(cfg, ftok, shard_pp=True)
+    return main.clone(for_test=True), logits
+
+
+def greedy_against_recompute(tag, gen, logits, prompt_len, row_err,
+                             stop_at_flip):
+    """Each generated token of ``gen`` [b, T] against the argmax of the
+    recompute's float32 ``logits`` [b, T, V] at the position before it.
+    A token that differs passes only where the recompute's top-1 margin
+    over the generated token is within twice ``row_err`` (per row); with
+    ``stop_at_flip`` the row is compared no further after such a flip.
+    Returns the tokens compared and agreeing per row."""
+    agreed = []
+    for r in range(gen.shape[0]):
+        n = 0
+        for pos in range(prompt_len, gen.shape[1]):
+            row = logits[r, pos - 1]
+            want = int(row.argmax())
+            got = int(gen[r, pos])
+            if got != want:
+                margin = float(row[want] - row[got])
+                check(margin <= 2 * row_err[r],
+                      f"{tag}: row {r} position {pos}: generated {got}, "
+                      f"the recompute's argmax {want} with a margin "
+                      f"{margin:.3e} > 2 x the row's logit error "
+                      f"{row_err[r]:.3e}")
+                if stop_at_flip:
+                    break
+                continue
+            n += 1
+        agreed.append(n)
+    return agreed
+
+
+def log_prob_error(torch, probs, logits):
+    """Per row, the largest |log p - log_softmax(logits)| over the
+    vocabulary: the logit error of the generator's first step against
+    the recompute (a softmax removes the rows' constant)."""
+    lp = torch.log(probs.float().clamp_min(1e-30))
+    return (lp - torch.log_softmax(logits.float(), dim=-1)).abs() \
+        .amax(dim=-1).tolist()
+
+
+def run_gen(exe, prog, fetches, scope, prompt, return_numpy=True):
+    return exe.run(prog, feed={"ptok": prompt}, fetch_list=fetches,
+                   scope=scope, mode="test", return_numpy=return_numpy)
+
+
+def timed(torch, fn):
+    """(``fn()``, its host wall ms, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def wall_ms(torch, fn, reps=3):
+    """Median host wall ms of ``fn`` over ``reps`` runs."""
+    return float(np.median([timed(torch, fn)[1] for _ in range(reps)]))
+
+
+def decode_weight_bytes(scope):
+    """Bytes of the weights a decode step reads once: the seven stacked
+    matmul weights and the lm head (their scales too, where int8)."""
+    names = [f"blocks.{s}" for s in ("wq", "wk", "wv", "wo", "w_gate",
+                                     "w_up", "w_down")] + ["lm_head"]
+    total = 0
+    for n in names + [n + "@scale" for n in names]:
+        t = scope.find_var(n)
+        if t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def check_int8_exact(torch, tag, got, a, b, eq):
+    """``got`` (int32 on the card) against the exact product of the
+    int8 operands ``a`` and ``b`` on the CPU, in float64 (exact: every
+    partial sum is an integer far below 2**53)."""
+    want = torch.einsum(eq, a.cpu().double(), b.cpu().double())
+    check(torch.equal(got.cpu().to(torch.int64), want.to(torch.int64)),
+          f"{tag}: int32 accumulators differ from the exact product "
+          f"({eq}, {tuple(a.shape)} x {tuple(b.shape)})")
+    return int(got.numel())
+
+
+def gen_layer0_activations(torch, scope, cfg, prompt):
+    """Layer 0's tensors of the prefill, on the card: the attention input
+    ``pre`` [b, T, D], roped q [b, T, H, hd] and k, v [b, T, n_kv, hd],
+    and the attention output at each row's last position [b, H*hd] (what
+    ``wo`` takes there), from the plain causal GQA attention."""
+    from paddle_tpu_torch.ops import transformer_ops as tops
+    dev = scope.find_var("tok_emb").device
+    h = scope.find_var("tok_emb")[torch.as_tensor(prompt, device=dev)]
+    hd = cfg.dim // cfg.n_heads
+    b, t = prompt.shape
+    pre = tops.rms_normalize(h, scope.find_var("blocks.attn_norm")[0],
+                             cfg.norm_eps)
+    pos = torch.arange(t, device=dev)
+    q = tops.apply_rope_at((pre @ scope.find_var("blocks.wq")[0]).reshape(
+        b, t, cfg.n_heads, hd), pos, cfg.rope_base)
+    k = tops.apply_rope_at((pre @ scope.find_var("blocks.wk")[0]).reshape(
+        b, t, cfg.n_kv_heads, hd), pos, cfg.rope_base)
+    v = (pre @ scope.find_var("blocks.wv")[0]).reshape(b, t,
+                                                      cfg.n_kv_heads, hd)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kr, vr = (x.float().repeat_interleave(rep, dim=2) for x in (k, v))
+    w = torch.softmax(torch.einsum("bhd,bkhd->bhk", q[:, -1].float(), kr)
+                      / math.sqrt(hd), dim=-1)
+    attn = torch.einsum("bhk,bkhd->bhd", w, vr).reshape(b, -1).to(q.dtype)
+    return pre, q, k, v, attn
+
+
+def check_kv8_contractions(torch, tag, cfg, q, k, v):
+    """The int8 KV cache's two contractions (``int8_einsum``) on card
+    tensors of the prefill against the exact product on the CPU: Q.K^T
+    over the head dim, and the quantized softmax weights times V over
+    every position."""
+    from paddle_tpu_torch.ops import transformer_ops as tops
+    b, t, n_kv, hd = k.shape
+    rep = cfg.n_heads // n_kv
+    qq, _ = tops._act_quant(q.reshape(b, t, n_kv, rep, hd))
+    kq, _ = tops._act_quant(k)
+    vq, _ = tops._act_quant(v)
+    eq_qk, eq_wv = "bqgrd,bkgd->bgrqk", "bgrqk,bkgd->bqgrd"
+    l32 = tops.int8_einsum(eq_qk, qq, kq)
+    n = check_int8_exact(torch, tag, l32, qq, kq, eq_qk)
+    w = torch.softmax(l32.float(), dim=-1)
+    wq8, _ = tops._act_quant(w)
+    o32 = tops.int8_einsum(eq_wv, wq8, vq)
+    n += check_int8_exact(torch, tag, o32, wq8, vq, eq_wv)
+    return n
+
+
+def check_qmat_exact(torch, tag, qscope, pre, attn):
+    """``int8_mm`` (qmat's product) on layer 0's int8 weights and
+    activations: each row's last position (M = batch, padded to 17
+    inside) and, for the products that take ``pre``, a prefill block of
+    32 rows, against the exact product."""
+    from paddle_tpu_torch.ops import transformer_ops as tops
+    n = 0
+    for s in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        w = qscope.find_var(f"blocks.{s}")[0]
+        if s == "w_down":
+            # the SwiGLU product w_down takes, through the int8 qmat
+            p = {"G": qscope.find_var("blocks.w_gate")[0],
+                 "GScale": qscope.find_var("blocks.w_gate@scale")[0],
+                 "U": qscope.find_var("blocks.w_up")[0],
+                 "UScale": qscope.find_var("blocks.w_up@scale")[0]}
+            g = tops.qmat(pre[:, -1], p, "G")
+            rows = [(g * torch.sigmoid(g)) * tops.qmat(pre[:, -1], p, "U")]
+        elif s == "wo":
+            rows = [attn]
+        else:
+            rows = [pre[:, -1], pre[0, :32]]
+        for x in rows:
+            xq, _ = tops._act_quant(x)
+            n += check_int8_exact(torch, f"{tag} {s}", tops.int8_mm(xq, w),
+                                  xq, w, "mk,kn->mn")
+    return n
+
+
+def phase_generate(torch, fluid, fa, card):
+    """ROADMAP item 4a, the main path of this slice: the Llama-3-8B width
+    (all 32 layers, bf16, random weights from SEED) generating
+    GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows
+    through ``Executor.run(gen_program, feed={"ptok": prompt},
+    fetch_list=[out])``, held against ``build_llama(shard_pp=True)``'s
+    forward of the generated sequence on the same scope (K1 once a layer
+    a dispatch, on flash_fwd_mma): the prompt echoed, every generated
+    token the recompute's argmax at its position (a flip only where the
+    recompute's margin is within twice the row's logit error, and the
+    row compared no further), FirstProbs within TOL_LOGITS_BF16_RMS of
+    the recompute's softmax at the last prompt position. Then: the int8
+    KV cache (its contractions exact on the card; FirstProbs' distance
+    reported against the reference's bounds), W8A8 (qmat's accumulators
+    exact on the card; agreement reported), speculative decoding with
+    the target as its own draft (tokens equal greedy's under the same
+    tier; acceptance and rounds), sampling (in the vocabulary, replayed
+    for a seed and step, different across steps), the float32 check at
+    GEN_F32_LAYERS layers (exact where the margin exceeds the f32 tier,
+    K1 on flash_fwd_f32mma), and the timings: prefill, per-token decode
+    at batch 1 and GEN_BATCH for bf16, W8A8 and the int8 cache beside
+    the weights' read bound, speculative tokens/s, the device's busy
+    share over a GEN_PROFILED_NEW-token generate. Returns (K1 launches
+    by kernel, stats)."""
+    from paddle_tpu_torch.models.llama import (LLAMA3_8B,
+                                               build_llama_spec_generator,
+                                               copy_weights_as_draft,
+                                               quantize_generator_weights)
+    tag = "generate"
+    t_phase = time.perf_counter()
+    cfg = LLAMA3_8B                                   # 32 layers, bf16
+    total = GEN_PROMPT + GEN_NEW
+    gen_p, startup, (out_v, probs_v) = gen_programs(
+        fluid, cfg, GEN_PROMPT, max_new_tokens=GEN_NEW, return_probs=True)
+    fwd_p, logits_v = recompute_program(fluid, cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor()                     # the card: CUDAPlace(0)
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 5)
+    prompt = rng.randint(0, cfg.vocab_size,
+                         (GEN_BATCH, GEN_PROMPT)).astype(np.int64)
+
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    gen, probs = run_gen(exe, gen_p, [out_v, probs_v], scope, prompt)
+    logits = exe.run(fwd_p, feed={"ftok": gen}, fetch_list=[logits_v],
+                     scope=scope, mode="test", return_numpy=False)[0]
+    torch.cuda.synchronize()
+    by_kernel = launches_by_kernel(fa)
+    check(gen.shape == (GEN_BATCH, total), f"{tag}: tokens {gen.shape}")
+    check(np.array_equal(gen[:, :GEN_PROMPT], prompt),
+          f"{tag}: the prompt is not echoed")
+    check(((gen >= 0) & (gen < cfg.vocab_size)).all(),
+          f"{tag}: a token outside the vocabulary")
+    check(by_kernel["flash_fwd_mma"] == cfg.n_layers
+          and fa.flash_fwd.launches == cfg.n_layers
+          and not fa.flash_bwd_dq.launches,
+          f"{tag}: K1 launches {by_kernel}, not {cfg.n_layers} on "
+          "flash_fwd_mma (one dispatch)")
+    logits = logits.float()
+    check(bool(torch.isfinite(logits).all()), f"{tag}: recompute logits")
+    probs_t = torch.as_tensor(probs, device=logits.device)
+    row_err = log_prob_error(torch, probs_t, logits[:, GEN_PROMPT - 1])
+    want_p = torch.softmax(logits[:, GEN_PROMPT - 1], dim=-1)
+    p_rms = rel_rms(probs, want_p.cpu().numpy())
+    check(p_rms <= TOL_LOGITS_BF16_RMS,
+          f"{tag}: FirstProbs differ from the recompute's softmax by rel "
+          f"rms {p_rms:.3e} > {TOL_LOGITS_BF16_RMS}")
+    # the same distance for the two bf16 programs, beside the int8
+    # cache's below: KL(recompute || generator) at the first step
+    kl_bf16 = torch.nn.functional.kl_div(
+        torch.log(probs_t.float().clamp_min(1e-12)), want_p,
+        reduction="none").sum(-1)
+    logits_h = logits.cpu().numpy()
+    del logits
+    agreed = greedy_against_recompute(tag, gen, logits_h, GEN_PROMPT,
+                                      row_err, stop_at_flip=True)
+    log(f"{tag}: bf16 greedy, {GEN_BATCH} x ({GEN_PROMPT} + {GEN_NEW}): "
+        f"tokens agreeing with the K1 recompute before any flip {agreed} "
+        f"of {GEN_NEW}; FirstProbs rel rms {p_rms:.3e}; the rows' "
+        f"first-step logit error {[f'{e:.3e}' for e in row_err]}; K1 "
+        f"{by_kernel['flash_fwd_mma']} launches on flash_fwd_mma")
+    stats = {"layers": cfg.n_layers, "batch": GEN_BATCH,
+             "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+             "startup_s": startup_s, "agreed_before_flip": agreed,
+             "first_probs_rel_rms": p_rms, "row_logit_err": row_err,
+             "first_probs_kl_vs_recompute": kl_bf16.tolist(),
+             "launches_by_kernel": by_kernel}
+
+    # the int8 KV cache: its contractions exact on the card; FirstProbs
+    # against the bf16 cache's, with the reference's bounds beside
+    pre, q, k, v, attn = gen_layer0_activations(torch, scope, cfg, prompt)
+    n_kv8 = check_kv8_contractions(torch, tag, cfg, q, k, v)
+    del q, k, v
+    kv8_p, _, (kv8_out, kv8_probs) = gen_programs(
+        fluid, cfg, GEN_PROMPT, max_new_tokens=GEN_NEW, kv_int8=True,
+        return_probs=True)
+    # the int8 programs' runs at GEN_BATCH are their timed runs: the
+    # checks above warmed their kernels
+    main_ms = {}
+    (kv8, p8), main_ms["kv_int8"] = timed(torch, lambda: run_gen(
+        exe, kv8_p, [kv8_out, kv8_probs], scope, prompt))
+    check(np.array_equal(kv8[:, :GEN_PROMPT], prompt),
+          f"{tag} kv_int8: the prompt is not echoed")
+    kl = (probs * (np.log(probs + 1e-12) - np.log(p8 + 1e-12))).sum(-1)
+    stats["kv_int8"] = {
+        "exact_accumulators": n_kv8,
+        "max_abs_dp": float(np.abs(p8 - probs).max()),
+        "mean_kl": float(kl.mean()), "max_kl": float(kl.max()),
+        "bounds_max_dp_kl": [KV8_MAX_DP, KV8_MAX_KL],
+        "token_agreement": float((kv8 == gen)[:, GEN_PROMPT:].mean())}
+    log(f"{tag} kv_int8: " + json.dumps(stats["kv_int8"]))
+
+    # W8A8: a second scope aliasing the bf16 tensors, its matmul
+    # weights and head replaced by int8 with @scale companions
+    qscope = fluid.Scope()
+    for n in scope.keys():
+        qscope.set(n, scope.find_var(n))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_generator_weights(qscope)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    n_q = check_qmat_exact(torch, f"{tag} w8a8", qscope, pre, attn)
+    del pre, attn
+    q_p, _, (q_out, q_probs) = gen_programs(
+        fluid, cfg, GEN_PROMPT, max_new_tokens=GEN_NEW, quantize=True,
+        return_probs=True)
+    (wq, pq), main_ms["w8a8"] = timed(torch, lambda: run_gen(
+        exe, q_p, [q_out, q_probs], qscope, prompt))
+    check(np.array_equal(wq[:, :GEN_PROMPT], prompt)
+          and ((wq >= 0) & (wq < cfg.vocab_size)).all(),
+          f"{tag} w8a8: prompt not echoed or a token out of range")
+    stats["w8a8"] = {
+        "quantize_s": quant_s, "exact_accumulators": n_q,
+        "weights_gb": decode_weight_bytes(qscope) / 1e9,
+        "first_probs_max_abs_dp": float(np.abs(pq - probs).max()),
+        "first_probs_rel_rms": rel_rms(pq, probs),
+        "token_agreement": float((wq == gen)[:, GEN_PROMPT:].mean())}
+    log(f"{tag} w8a8: " + json.dumps(stats["w8a8"]))
+
+    # speculative decoding, the target as its own draft (aliases)
+    copy_weights_as_draft(scope)
+    spec_p = fluid.Program()
+    with fluid.program_guard(spec_p, fluid.Program()), \
+            fluid.unique_name.guard():
+        ptok = fluid.layers.data(name="ptok", shape=[-1, GEN_PROMPT],
+                                 dtype="int64", append_batch_size=False)
+        spec_vars = build_llama_spec_generator(
+            cfg, cfg, ptok, GEN_NEW, gamma=GEN_GAMMA, return_stats=True)
+    (spec, rounds, emitted), spec_ms = timed(torch, lambda: run_gen(
+        exe, spec_p, list(spec_vars), scope, prompt))
+    rounds, emitted = int(rounds), int(emitted)
+    check(emitted == GEN_NEW, f"{tag} spec: emitted {emitted}")
+    differ = [(r, int(np.nonzero(spec[r] != gen[r])[0][0]))
+              for r in range(GEN_BATCH) if not np.array_equal(spec[r],
+                                                               gen[r])]
+    for r, pos in differ:
+        # a flip explicable by rounding: the recompute (of greedy's own
+        # sequence) puts the two tokens within twice the row's error
+        row = logits_h[r, pos - 1]
+        margin = abs(float(row[gen[r, pos]] - row[spec[r, pos]]))
+        check(margin <= 2 * row_err[r],
+              f"{tag} spec: row {r} leaves greedy at {pos} with a margin "
+              f"{margin:.3e} > 2 x {row_err[r]:.3e}")
+    stats["spec"] = {"gamma": GEN_GAMMA, "rounds": rounds,
+                     "emitted": emitted,
+                     "tokens_per_round": (emitted - 1) / max(rounds, 1),
+                     "rows_equal_to_greedy": GEN_BATCH - len(differ),
+                     "first_difference": differ}
+    log(f"{tag} spec: " + json.dumps(stats["spec"]))
+
+    # sampling: in the vocabulary, replayed for a seed and step (a fresh
+    # executor starts at the same step), different across steps
+    s_p, _, (s_out,) = gen_programs(fluid, cfg, GEN_PROMPT,
+                                    max_new_tokens=GEN_SAMPLED_NEW,
+                                    **GEN_SAMPLING)
+    exe1 = fluid.Executor()
+    s1 = run_gen(exe1, s_p, [s_out], scope, prompt)[0]
+    s2 = run_gen(exe1, s_p, [s_out], scope, prompt)[0]
+    s1_again = run_gen(fluid.Executor(), s_p, [s_out], scope, prompt)[0]
+    check(((s1 >= 0) & (s1 < cfg.vocab_size)).all()
+          and np.array_equal(s1[:, :GEN_PROMPT], prompt),
+          f"{tag} sampled: prompt not echoed or a token out of range")
+    check(np.array_equal(s1, s1_again),
+          f"{tag} sampled: the same seed and step drew other tokens")
+    check(not np.array_equal(s1[:, GEN_PROMPT:], s2[:, GEN_PROMPT:]),
+          f"{tag} sampled: two successive steps drew the same tokens")
+    stats["sampled"] = dict(GEN_SAMPLING, replayed=True,
+                            steps_differ=True)
+
+    # timings: prefill alone (one new token), then decode per token at
+    # batch 1 and GEN_BATCH beside the weights' read bound (the int8
+    # programs' generate at GEN_BATCH is their run above)
+    timing = {}
+    progs = {"bf16": (gen_p, out_v, scope, {}),
+             "w8a8": (q_p, q_out, qscope, dict(quantize=True)),
+             "kv_int8": (kv8_p, kv8_out, scope, dict(kv_int8=True))}
+    for name, (prog, out, sc, kw) in progs.items():
+        one_p, _, (one_out,) = gen_programs(fluid, cfg, GEN_PROMPT,
+                                            max_new_tokens=1, **kw)
+        bound = decode_weight_bytes(sc) / HBM_BYTES_PER_S * 1e3
+        row = {"decode_bound_ms": bound}
+        for b in (1, GEN_BATCH):
+            pb = prompt[:b]
+            pre_ms = wall_ms(torch, lambda: run_gen(
+                exe, one_p, [one_out], sc, pb, return_numpy=False))
+            # one run: its GEN_NEW - 1 decode steps are the average
+            full_ms = main_ms.get(name) if b == GEN_BATCH else None
+            full_ms = full_ms or timed(torch, lambda: run_gen(
+                exe, prog, [out], sc, pb, return_numpy=False))[1]
+            row[f"b{b}"] = {"prefill_ms": pre_ms, "generate_ms": full_ms,
+                            "decode_ms_per_token":
+                                (full_ms - pre_ms) / (GEN_NEW - 1)}
+        timing[name] = row
+        log(f"{tag} timing {name}: " + json.dumps(row))
+    timing["spec_tokens_per_s"] = GEN_BATCH * GEN_NEW / (spec_ms / 1e3)
+    # the device's busy share over a shorter bf16 generate (fewer events
+    # for the profiler), against the same run unprofiled
+    pf_p, _, (pf_out,) = gen_programs(fluid, cfg, GEN_PROMPT,
+                                      max_new_tokens=GEN_PROFILED_NEW)
+
+    def profiled():
+        return run_gen(exe, pf_p, [pf_out], scope, prompt,
+                       return_numpy=False)
+    profiled()
+    wall = timed(torch, profiled)[1]
+    busy = {"new_tokens": GEN_PROFILED_NEW, "wall_ms": wall}
+    add_busy(busy, device_ms_by_kind(torch, profiled), wall)
+    timing["bf16_decode_device"] = busy
+    stats["timing"] = timing
+    log(f"{tag} timing: spec {timing['spec_tokens_per_s']:.1f} tokens/s; "
+        f"bf16 b{GEN_BATCH} device: " + json.dumps(busy))
+    del scope, qscope, logits_h
+    free_card(torch)
+
+    # float32 at GEN_F32_LAYERS layers, TF32 off: exact wherever the
+    # recompute's margin exceeds the f32 logit tier
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(LLAMA3_8B, n_layers=GEN_F32_LAYERS,
+                                dtype="float32")
+    g32_p, st32, (g32_out, g32_probs) = gen_programs(
+        fluid, cfg32, GEN_PROMPT, max_new_tokens=GEN_NEW,
+        return_probs=True)
+    f32_p, f32_logits = recompute_program(fluid, cfg32)
+    scope32 = fluid.Scope()
+    exe.run(st32, scope=scope32)
+    fa.reset_launch_counts()
+    g32, p32 = run_gen(exe, g32_p, [g32_out, g32_probs], scope32, prompt)
+    l32 = exe.run(f32_p, feed={"ftok": g32}, fetch_list=[f32_logits],
+                  scope=scope32, mode="test")[0]
+    f32_launches = launches_by_kernel(fa)
+    check(f32_launches["flash_fwd_f32mma"] == GEN_F32_LAYERS,
+          f"{tag} f32: K1 launches {f32_launches}")
+    # the logits before each generated token, their top two and argmax
+    before = l32[:, GEN_PROMPT - 1:total - 1]
+    top2 = np.partition(before, -2, axis=-1)[..., -2:]
+    rtol, atol = TOL_LOGITS_F32
+    decided = top2[..., 1] - top2[..., 0] > 2 * (
+        atol + rtol * np.abs(top2[..., 1]))
+    wrong = np.argwhere(decided & (g32[:, GEN_PROMPT:]
+                                   != before.argmax(-1)))
+    check(not len(wrong), f"{tag} f32: generated tokens at (row, new "
+          f"token) {wrong.tolist()} differ from the recompute's argmax "
+          "where its margin exceeds the f32 tier")
+    want32 = np.exp(before[:, 0] - before[:, 0].max(-1, keepdims=True))
+    want32 /= want32.sum(-1, keepdims=True)
+    p_rms32 = rel_rms(p32, want32)
+    check(p_rms32 <= TOL_LOGITS_REL_RMS_F32,
+          f"{tag} f32: FirstProbs differ from the recompute's softmax by "
+          f"rel rms {p_rms32:.3e} > {TOL_LOGITS_REL_RMS_F32}")
+    stats["f32"] = {"layers": GEN_F32_LAYERS,
+                    "tokens_decided": int(decided.sum()),
+                    "tokens_within_tier": int((~decided).sum()),
+                    "first_probs_rel_rms": p_rms32,
+                    "launches_by_kernel": f32_launches}
+    log(f"{tag} f32: " + json.dumps(stats["f32"]))
+    del scope32
+    stats["card"] = card
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: " + json.dumps({k: v for k, v in stats.items()
+                                  if k != "timing"}))
+    return by_kernel, stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -3109,6 +3613,10 @@ def main():
         free_card(torch)
         import shutil
         shutil.rmtree(IO_ROOT, ignore_errors=True)
+        # ROADMAP item 4a, the main path of this slice: the 8B width
+        # generating tokens, held against the K1 recompute
+        gen_launches, _ = phase_generate(torch, fluid, fa, smi)
+        free_card(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3135,7 +3643,8 @@ def main():
              "transformer_parity_f32": tf_parity_launches,
              "io_train_resume": io_train_launches,
              "io_saved_serve": io_serve_launches,
-             "io_llama_saved": io_llama_launches}
+             "io_llama_saved": io_llama_launches,
+             "generate": gen_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),
@@ -3178,6 +3687,16 @@ def main():
             row["serving"] = dict(
                 serve, launches=serve_f32_launches if f32 else serve_launches,
                 shape=f"bh=4*32 t=256 d=128 causal {'f32' if f32 else 'bf16'}")
+            if not f32:
+                # K1 at the recompute's shape of the generate phase (this
+                # slice's main path), timed and held to its plain version
+                # in phase_kernels; launches: that phase's recompute
+                g = dict(timing[("fwd", GEN_LABEL)])
+                g.pop("kernel")
+                row["generate"] = dict(
+                    g, launches=gen_launches["flash_fwd_mma"],
+                    shape=f"bh={GEN_BATCH}*32 t={GEN_PROMPT + GEN_NEW} "
+                          "d=128 causal bf16")
         kernels.append(row)
     # float32 rows at Transformer-base's attention shapes, head dim 64
     # (launches: the Transformer main path, the padded model, for the

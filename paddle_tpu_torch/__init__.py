@@ -19,7 +19,7 @@ scripts run with ``import paddle_tpu_torch as fluid``::
 Programs run op by op on torch tensors; the reference's Pallas kernels
 are hand-written Hopper kernels (``csrc/``), built with nvcc at first
 use. Entry points run on the card unless the caller passes
-``CPUPlace()``. The package imports torch and numpy, never jax and
+``CPUPlace()`` (or calls ``force_cpu()`` for the whole process). The package imports torch and numpy, never jax and
 nothing of paddle_tpu.
 """
 # op lowering rules must register before any program executes
@@ -36,7 +36,7 @@ from .core.framework import (                  # noqa: F401
     switch_main_program, switch_startup_program, name_scope, get_var)
 from .core.executor import (                   # noqa: F401
     Executor, Scope, global_scope, scope_guard, _switch_scope,
-    CPUPlace, TPUPlace, CUDAPlace)
+    CPUPlace, TPUPlace, CUDAPlace, force_cpu)
 from .core import unique_name                  # noqa: F401
 
 from . import layers                           # noqa: F401
@@ -52,7 +52,7 @@ from . import weights                          # noqa: F401
 from . import debugger                         # noqa: F401
 from . import analysis                         # noqa: F401
 from . import transpiler                       # noqa: F401
-from .transpiler import memory_optimize        # noqa: F401
+from .transpiler import memory_optimize, release_memory  # noqa: F401
 from .data_feeder import DataFeeder            # noqa: F401
 from . import io                               # noqa: F401
 from . import reader                           # noqa: F401
@@ -60,5 +60,21 @@ from .reader import batch                      # noqa: F401
 from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa: F401
                       BeginStepEvent, EndStepEvent, CheckpointConfig)
 from .inferencer import Inferencer             # noqa: F401
+from . import models                           # noqa: F401
+from .waiting import CONV, FLEET, MESH, REST, module_getattr
 
 __version__ = "0.1.0"
+
+# the reference's top-level names of later ROADMAP.md items
+WAITING = {**dict.fromkeys(("ParallelExecutor", "ExecutionStrategy",
+                            "BuildStrategy", "DistributeTranspiler",
+                            "parallel"), MESH),
+           "InferenceTranspiler": CONV, "cluster": FLEET,
+           **dict.fromkeys((
+               "SequenceBatch", "to_sequence_batch", "lod_tensor",
+               "create_lod_tensor", "create_random_int_lodtensor", "nets",
+               "concurrency", "make_channel", "channel_send",
+               "channel_recv", "channel_close", "Select", "evaluator",
+               "metrics", "average", "profiler", "contrib", "dataset",
+               "default_scope_funcs", "recordio_writer"), REST)}
+__getattr__ = module_getattr(__name__, WAITING)

@@ -15,6 +15,7 @@ Not ported yet, and refused by name: the static cost model
 source-level checkers (``racecheck``, ``protocheck``), with ROADMAP.md
 item 'Fleet and analyzers'.
 """
+from ..waiting import FLEET, module_getattr
 from .diagnostics import (Diagnostic, SourceDiagnostic,  # noqa: F401
                           VerifyError, VerifyWarning,
                           ERROR, WARNING, INFO, CODES, errors)
@@ -50,16 +51,8 @@ __all__ = ["Diagnostic", "SourceDiagnostic", "VerifyError",
            "axis_permutation"]
 
 #: the reference's analysis names the port refuses, by ROADMAP item
-WAITING = {name: "Fleet and analyzers" for name in (
+WAITING = dict.fromkeys((
     "cost", "racecheck", "protocheck", "OpCost", "CostReport",
     "program_cost", "recommend_remat_policy", "estimate_remat_residuals",
-    "estimate_remat_policies")}
-
-
-def __getattr__(name):
-    if name in WAITING:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.analysis.{name} is not ported yet: it comes "
-            f"with ROADMAP.md item '{WAITING[name]}'")
-    raise AttributeError(
-        f"module 'paddle_tpu_torch.analysis' has no attribute {name!r}")
+    "estimate_remat_policies"), FLEET)
+__getattr__ = module_getattr(__name__, WAITING)

@@ -345,8 +345,12 @@ def _eval_const_op(op, const, is_test, device):
 def default_fold_device():
     """Where a fold runs when the caller names no device: the card when
     CUDA is available, the counterpart of jax's default backend (the
-    accelerator on its host), else the CPU."""
+    accelerator on its host), else the CPU — and the CPU after
+    ``force_cpu()``, as the reference's routes all of jax there."""
     import torch
+    from ..core import executor
+    if executor._FORCED_CPU:
+        return torch.device("cpu")
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 

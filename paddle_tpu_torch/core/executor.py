@@ -9,7 +9,8 @@ Places are real devices: ``CUDAPlace(i)`` is ``cuda:i`` and
 reference scripts keep running on the card — the reverse of the
 reference, where CUDAPlace aliased the TPU. An Executor built without a
 place runs on ``CUDAPlace(0)`` and raises where CUDA is absent: the CPU
-is only used when the caller asks for it.
+is only used when the caller asks for it (a place, or ``force_cpu()``
+for the whole process).
 
 Fetches returned as numpy (``return_numpy=True``) come back in their
 dtype, except bfloat16, which numpy cannot hold without ml_dtypes: those
@@ -70,7 +71,8 @@ from ..resilience.retry import (TransientDeviceError, default_policy,
                                 with_retries)
 
 __all__ = ["Scope", "global_scope", "scope_guard", "Executor",
-           "CPUPlace", "TPUPlace", "CUDAPlace", "EOFException"]
+           "CPUPlace", "TPUPlace", "CUDAPlace", "EOFException",
+           "force_cpu", "default_place"]
 
 
 class EOFException(Exception):
@@ -166,6 +168,27 @@ class CUDAPlace(Place):
 # reference scripts say TPUPlace(); in the port the accelerator is the card
 TPUPlace = CUDAPlace
 
+# set by force_cpu(): the process's entry points then default to the host
+_FORCED_CPU = False
+
+
+def force_cpu():
+    """Make the host the default place of every entry point in this
+    process (``Executor()``, ``ServingEngine``, ``Trainer``,
+    ``Inferencer``, ``DeviceLoader``, the fold's device) — the
+    counterpart of the reference's ``force_cpu``, which routes all of
+    jax to its CPU backend. Call it before building the entry points;
+    an explicit place still wins. Safe to call more than once."""
+    global _FORCED_CPU
+    _FORCED_CPU = True
+
+
+def default_place():
+    """The place an entry point runs on when the caller names none: the
+    card, ``CUDAPlace(0)`` (resolving its device raises where CUDA is
+    absent), or ``CPUPlace()`` after :func:`force_cpu`."""
+    return CPUPlace() if _FORCED_CPU else CUDAPlace(0)
+
 
 def _feed_signature(feed):
     return tuple(sorted((k, tuple(v.shape), str(v.dtype))
@@ -177,7 +200,7 @@ class Executor:
     interpreter, reference paddle/fluid/framework/executor.cc)."""
 
     def __init__(self, place=None, retry_policy=None, compile_store=None):
-        self.place = place if place is not None else CUDAPlace(0)
+        self.place = place if place is not None else default_place()
         self.device = self.place.device      # raises without CUDA
         # persistent artifact store (io/artifact_store.py): an
         # ArtifactStore, a directory, None (PADDLE_TPU_ARTIFACT_DIR) or
@@ -598,15 +621,13 @@ class Executor:
 
 def _draws_rng(program):
     """Whether a test-mode step of ``program`` draws random numbers: an
-    op registered ``stateful`` in any block, but dropout, which is the
-    identity (or a scale) at test time."""
+    op of any block for which ``registry.draws_rng`` holds (a ``stateful``
+    op, but dropout and greedy generation)."""
     key = (program.uid, program.version)
     memo = getattr(program, "_draws_rng_memo", None)
     if memo is None or memo[0] != key:
-        from .registry import _REGISTRY
-        hit = any(getattr(_REGISTRY.get(op.type), "stateful", False)
-                  and op.type != "dropout"
-                  for blk in program.blocks for op in blk.ops)
+        from .registry import draws_rng
+        hit = any(draws_rng(op) for blk in program.blocks for op in blk.ops)
         memo = program._draws_rng_memo = (key, hit)
     return memo[1]
 

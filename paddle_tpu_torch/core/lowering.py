@@ -228,9 +228,16 @@ class LoweringContext:
         (program seed, step, draw count) — the reference's
         ``fold_in(key, count)``."""
         g = torch.Generator(device=self.device)
-        g.manual_seed(_mix_seed(self._seed, self._step, self._key_count))
-        self._key_count += 1
+        g.manual_seed(self.next_seed())
         return g
+
+    def next_seed(self):
+        """The seed :meth:`next_key` seeds its generator with, taking the
+        same draw — for an op that folds counters of its own into its key
+        (the reference's ``fold_in(key, i)`` on one op's key)."""
+        seed = _mix_seed(self._seed, self._step, self._key_count)
+        self._key_count += 1
+        return seed
 
     # ------ block evaluation -------------------------------------------
     def eval_block(self, block, env):

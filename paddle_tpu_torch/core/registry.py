@@ -20,7 +20,7 @@ __all__ = ["register_op", "get_op", "has_op", "registered_ops",
            "registered_op_types", "register_infer", "get_infer",
            "has_infer", "registered_infer_types", "register_numerics",
            "get_numerics", "has_numerics", "registered_numerics_types",
-           "canonical_int", "WAITING"]
+           "canonical_int", "draws_rng", "WAITING"]
 
 _REGISTRY = {}
 
@@ -39,9 +39,8 @@ _NUMERICS = {}
 # ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
 _ITEMS = {
     "Generation and the paged decode engine": (
-        "llama_generate", "llama_spec_generate", "llama_paged_prefill",
-        "llama_paged_prefill_chunk", "llama_paged_decode",
-        "llama_paged_spec_step"),
+        "llama_paged_prefill", "llama_paged_prefill_chunk",
+        "llama_paged_decode", "llama_paged_spec_step"),
     "Conv nets and the transpilers": (
         "conv2d", "depthwise_conv2d", "conv2d_transpose", "conv3d",
         "conv3d_transpose", "pool2d", "pool3d", "batch_norm", "lrn",
@@ -96,6 +95,23 @@ class OpDef:
         self.type = type
         self.lower = lower
         self.stateful = stateful   # uses rng (dropout, random init ops)
+
+
+# stateful ops whose draws depend on their temperature: greedy (<= 0)
+# generation takes the argmax and draws nothing
+_SAMPLES_IFF_TEMPERATURE = ("llama_generate", "llama_spec_generate")
+
+
+def draws_rng(op):
+    """Whether ``op`` draws random numbers in a test-mode step: a
+    ``stateful`` op, but dropout (the identity, or a scale, at test time)
+    and greedy generation (reference ``io/aot.py``'s exemptions)."""
+    od = _REGISTRY.get(op.type)
+    if od is None or not od.stateful or op.type == "dropout":
+        return False
+    if op.type in _SAMPLES_IFF_TEMPERATURE:
+        return float(op.attrs.get("temperature") or 0.0) > 0.0
+    return True
 
 
 def register_op(type, stateful=False):

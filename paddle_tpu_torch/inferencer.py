@@ -20,14 +20,14 @@ import os
 
 from . import io as fluid_io
 from .core import framework
-from .core.executor import CUDAPlace, Executor, Scope, scope_guard
+from .core.executor import Executor, Scope, default_place, scope_guard
 
 __all__ = ["Inferencer"]
 
 
 class Inferencer:
     def __init__(self, infer_func, param_path, place=None, parallel=False):
-        self._place = place if place is not None else CUDAPlace(0)
+        self._place = place if place is not None else default_place()
         self.scope = Scope()
         self.startup_program = framework.Program()
         self.inference_program = framework.Program()
@@ -56,7 +56,7 @@ class Inferencer:
         artifact, so the serving process needs no model-building code
         at all. Parameters land in this Inferencer's PRIVATE scope."""
         self = cls.__new__(cls)
-        self._place = place if place is not None else CUDAPlace(0)
+        self._place = place if place is not None else default_place()
         self.scope = Scope()
         self.startup_program = None
         self.exe = Executor(self._place)

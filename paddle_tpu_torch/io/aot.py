@@ -56,19 +56,19 @@ _EXPORT_LOCK = threading.Lock()
 def _warn_if_stochastic(gb):
     """The exported graph bakes in one fixed seed and step (the executor
     advances its step per run; an exported graph has no step counter).
-    Deterministic inference — dropout is identity in test mode — is
-    unaffected; warn loudly for anything that still samples."""
-    from ..core.registry import _REGISTRY
-    noisy = sorted({op.type for op in gb.ops
-                    if getattr(_REGISTRY.get(op.type), "stateful", False)
-                    and op.type != "dropout"})
+    Deterministic inference — dropout is identity in test mode,
+    generation at temperature 0 is argmax — is unaffected; warn loudly
+    for anything that still samples."""
+    from ..core.registry import draws_rng
+    noisy = sorted({op.type for op in gb.ops if draws_rng(op)})
     if noisy:
         import warnings
         warnings.warn(
             f"AOT export: ops {noisy} sample from the rng, but the "
             "exported graph uses one FIXED seed — every run returns the "
             "same draw, and it will differ from the executor's per-step "
-            "stream. Serve stochastic programs through the executor.")
+            "stream. Serve stochastic programs through the executor, or "
+            "export at temperature 0.")
 
 
 class _StepModule(torch.nn.Module):
@@ -248,9 +248,10 @@ class CompiledPredictor:
     """Runs an exported inference artifact — the ``PaddlePredictor``
     analogue (reference paddle_inference_api.h:90). Needs only this
     module and the K1 operator's registration: no Program IR, no
-    registry, no lowering. Runs on the card (``cuda:0``) unless given
-    another ``device`` (``"cpu"``); an artifact exported on one device
-    type is moved to the other by ``torch.export``'s device pass.
+    registry, no lowering. Runs on the card (``cuda:0``; the host after
+    ``force_cpu()``) unless given another ``device`` (``"cpu"``); an
+    artifact exported on one device type is moved to the other by
+    ``torch.export``'s device pass.
 
     >>> pred = load_compiled_predictor(dirname)
     >>> outs = pred.run({"img": batch})        # list of np.ndarray
@@ -266,8 +267,10 @@ class CompiledPredictor:
                 f"{dirname} holds a JAX export ({_JAX_ARTIFACT}), which "
                 "torch cannot run; its JSON program still serves through "
                 "load_inference_model / ServingEngine.from_saved_model")
-        self.device = torch.device(device if device is not None
-                                   else "cuda:0")
+        if device is None:
+            from ..core.executor import default_place
+            device = default_place().device      # raises without CUDA
+        self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CompiledPredictor: CUDA is not available "
                                "on this machine; pass device='cpu'")

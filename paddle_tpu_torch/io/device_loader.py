@@ -32,10 +32,11 @@ _END = object()
 
 def _resolve_device(device):
     """A torch.device from a device, a string or a Place; None is the
-    card (``CUDAPlace(0)``), which raises where CUDA is absent."""
+    card (``CUDAPlace(0)``), which raises where CUDA is absent, or the
+    host after ``force_cpu()``."""
     if device is None:
-        from ..core.executor import CUDAPlace
-        return CUDAPlace(0).device
+        from ..core.executor import default_place
+        return default_place().device
     if hasattr(device, "device"):
         return device.device
     dev = torch.device(device)

@@ -1,4 +1,7 @@
-"""Layers namespace (port of ``paddle_tpu/layers``)."""
+"""Layers namespace (port of ``paddle_tpu/layers``). The layers of later
+ROADMAP.md items (conv and detection nets, sequences, control flow, MoE,
+the paged decode ops) are refused by name."""
+from ..waiting import REST, module_getattr
 from . import ops
 from .ops import *            # noqa: F401,F403
 from . import tensor
@@ -22,3 +25,19 @@ monkey_patch_variable()
 __all__ = (ops.__all__ + tensor.__all__ + io.__all__ + nn.__all__
            + metric_op.__all__ + learning_rate_scheduler.__all__
            + transformer.__all__ + sequence_layers.__all__)
+
+# the reference's control_flow.py and detection.py layers, and each
+# submodule's own waiting names
+WAITING = {**dict.fromkeys((
+    "While", "Switch", "IfElse", "StaticRNN", "DynamicRNN", "increment",
+    "array_write", "create_array", "array_read", "array_length",
+    "less_than", "less_equal", "greater_than", "greater_equal", "equal",
+    "not_equal", "is_empty", "Print", "reorder_lod_tensor_by_rank",
+    "ParallelDo", "prior_box", "multi_box_head", "bipartite_match",
+    "target_assign", "detection_output", "ssd_loss", "iou_similarity",
+    "box_coder", "polygon_box_transform", "multiclass_nms",
+    "anchor_generator", "rpn_target_assign", "generate_proposals",
+    "generate_proposal_labels", "detection_map"), REST),
+    **nn.WAITING, **metric_op.WAITING, **transformer.WAITING,
+    **sequence_layers.WAITING}
+__getattr__ = module_getattr(__name__, WAITING)

@@ -3,9 +3,13 @@ with python/paddle/fluid/layers/metric_op.py): ``accuracy`` and the
 streaming ``auc``. ``chunk_eval`` needs the sequence ops of ROADMAP.md
 item 'Remaining op families and the zoo'."""
 from ..layer_helper import LayerHelper
+from ..waiting import REST, module_getattr
 from .. import initializer as init_mod
 
 __all__ = ["accuracy", "auc"]
+
+WAITING = {"chunk_eval": REST}
+__getattr__ = module_getattr(__name__, WAITING)
 
 
 def accuracy(input, label, k=1, correct=None, total=None):

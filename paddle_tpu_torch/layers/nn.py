@@ -17,6 +17,7 @@ import numpy as np
 from ..core import framework
 from ..layer_helper import LayerHelper
 from ..sharding import PartitionSpec as P
+from ..waiting import CONV, REST, module_getattr
 from .. import initializer as init_mod
 
 __all__ = [
@@ -30,6 +31,16 @@ __all__ = [
     "expand", "autoincreased_step_counter", "cos_sim", "multiplex",
     "maxout", "brelu", "hard_sigmoid",
 ]
+
+WAITING = {**dict.fromkeys((
+    "conv2d", "conv3d", "conv2d_transpose", "conv3d_transpose", "pool2d",
+    "pool3d", "batch_norm", "lrn", "roi_pool", "image_resize",
+    "image_resize_short", "resize_bilinear", "random_crop"), CONV),
+    **dict.fromkeys((
+        "hsigmoid", "nce", "im2sequence", "row_conv", "linear_chain_crf",
+        "crf_decoding", "warpctc", "ctc_greedy_decoder", "beam_search",
+        "beam_search_decode", "beam_expand", "beam_gather"), REST)}
+__getattr__ = module_getattr(__name__, WAITING)
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,

@@ -3,8 +3,18 @@
 layers need ``SequenceBatch`` and the sequence ops of ROADMAP.md item
 'Remaining op families and the zoo'."""
 from ..layer_helper import LayerHelper
+from ..waiting import REST, module_getattr
 
 __all__ = ["sequence_mask"]
+
+WAITING = dict.fromkeys((
+    "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
+    "lstm_unit", "sequence_pool", "sequence_softmax", "sequence_conv",
+    "sequence_expand", "sequence_first_step", "sequence_last_step",
+    "sequence_reshape", "sequence_pad", "sequence_unpad",
+    "sequence_enumerate", "sequence_concat", "sequence_slice",
+    "sequence_erase", "lod_reset", "edit_distance"), REST)
+__getattr__ = module_getattr(__name__, WAITING)
 
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):

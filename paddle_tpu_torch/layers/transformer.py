@@ -1,17 +1,28 @@
 """Transformer building-block layers (port of
 ``paddle_tpu/layers/transformer.py``): rms_norm, rope, multihead
-attention (the flash kernel), silu, the layer-stacked decoder and the
-vocab-chunked fused head loss. MoE, generation and paged-decode layers
-arrive with their slices."""
+attention (the flash kernel), silu, the layer-stacked decoder, the
+vocab-chunked fused head loss and the fused KV-cache generators
+(``llama_generate``, ``llama_spec_generate``). The paged-decode layers
+arrive with ROADMAP.md item 'Generation and the paged decode engine'
+(4b); ``moe_ffn`` and ``llama_stack_1f1b_loss`` with 'Multi-device
+parallelism'."""
 import copy
 
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..sharding import PartitionSpec as P
+from ..waiting import DECODE, MESH, module_getattr
 from .. import initializer as init_mod
 
 __all__ = ["rms_norm", "rope", "multihead_attention", "silu",
-           "llama_decoder_stack", "fused_head_cross_entropy"]
+           "llama_decoder_stack", "fused_head_cross_entropy",
+           "llama_generate", "llama_spec_generate"]
+
+WAITING = {"moe_ffn": MESH, "llama_stack_1f1b_loss": MESH,
+           "llama_paged_prefill": DECODE,
+           "llama_paged_prefill_chunk": DECODE,
+           "llama_paged_decode": DECODE, "llama_paged_spec_step": DECODE}
+__getattr__ = module_getattr(__name__, WAITING)
 
 
 def fused_head_cross_entropy(h, label, vocab_size, chunk_size=8192,
@@ -41,11 +52,13 @@ def fused_head_cross_entropy(h, label, vocab_size, chunk_size=8192,
 
 
 def _stack_params(helper, x_dtype, n_layers, n_heads, n_kv_heads, d, hd,
-                  ffn_hidden, param_attr):
+                  ffn_hidden, param_attr, pp_sharded=True):
     """The layer-stacked decoder weights (leading [L] axis), named
-    ``{helper.name}.{suffix}`` as the reference's, annotated
-    ``P('pp', ...)`` (read once a mesh exists: ROADMAP.md item
-    'Multi-device parallelism')."""
+    ``{helper.name}.{suffix}`` as the reference's — shared by
+    llama_decoder_stack (training) and llama_generate (inference), so a
+    trained scope serves generation directly. With ``pp_sharded`` they
+    are annotated ``P('pp', ...)`` (read once a mesh exists: ROADMAP.md
+    item 'Multi-device parallelism')."""
     base_attr = ParamAttr._to_attr(param_attr)
 
     def _p(suffix, shape, default_init):
@@ -54,7 +67,8 @@ def _stack_params(helper, x_dtype, n_layers, n_heads, n_kv_heads, d, hd,
         if attr.initializer is None:
             attr.initializer = default_init
         w = helper.create_parameter(attr, shape, x_dtype)
-        w.sharding = P(*(("pp",) + (None,) * (len(shape) - 1)))
+        if pp_sharded:
+            w.sharding = P(*(("pp",) + (None,) * (len(shape) - 1)))
         return w
 
     ninit = init_mod.Normal(0.0, 0.02)
@@ -144,3 +158,211 @@ def llama_decoder_stack(x, n_layers, n_heads, n_kv_heads, ffn_hidden,
                "n_micro": n_micro, "remat": remat,
                "scan_unroll": int(scan_unroll)})
     return out
+
+
+def _validate_sampling(temperature, top_k, top_p):
+    """Build-time twin of ``warp_logits``' guards: a bad processor
+    configuration fails when the generator is BUILT, not at its first
+    run."""
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def _generated_shape(tokens, max_new_tokens):
+    if tokens.shape[1] is not None and tokens.shape[1] >= 0:
+        return [tokens.shape[0], tokens.shape[1] + max_new_tokens]
+    return [tokens.shape[0], -1]
+
+
+def llama_generate(tokens, vocab_size, dim, n_layers, n_heads,
+                   n_kv_heads, ffn_hidden, max_new_tokens,
+                   rope_base=10000.0, epsilon=1e-6, dtype="float32",
+                   temperature=0.0, top_k=0, top_p=1.0,
+                   name="blocks", emb_name="tok_emb",
+                   final_norm_name="final_norm", head_name="lm_head",
+                   quantize=False, eos_id=None, pad_id=0,
+                   moe_experts=0, moe_top_k=2,
+                   unroll_layers=False, decode_unroll=1,
+                   kv_int8=False, return_probs=False):
+    """KV-cache generation as one op (ops/transformer_ops.py
+    ``llama_generate``): prefill and decode loop in one step. Parameter
+    names default to the ones ``build_llama`` creates (tok_emb /
+    {name}.* / final_norm / lm_head), so running this program against a
+    trained scope generates from the trained weights. tokens: [batch,
+    prompt_len] int; returns [batch, prompt_len + max_new_tokens] (and,
+    with ``return_probs``, the first decode step's [batch, vocab]
+    distribution).
+
+    ``quantize=True`` builds the int8 serving form: the stacked matmul
+    weights and the lm head are declared int8 with ``<w>@scale``
+    per-output-channel float32 companions (write them with
+    ``models.llama.quantize_generator_weights`` on a trained scope), and
+    each product runs W8A8 (``qmat``). ``kv_int8`` keeps the KV cache in
+    int8 with per-(position, kv-head) scales. ``unroll_layers`` and
+    ``decode_unroll`` are kept on the op as the reference keeps them
+    (XLA unrolling) and change nothing in the port. MoE
+    (``moe_experts``) comes with ROADMAP.md item 'Multi-device
+    parallelism'."""
+    _validate_sampling(temperature, top_k, top_p)
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if moe_experts:
+        raise NotImplementedError(
+            "MoE generation is a later slice of the torch port "
+            f"(ROADMAP.md item '{MESH}')")
+    helper = LayerHelper("llama_generate", name=name)
+    hd = dim // n_heads
+    weights = _stack_params(helper, dtype, n_layers, n_heads, n_kv_heads,
+                            dim, hd, ffn_hidden, None, pp_sharded=False)
+    emb = helper.create_parameter(
+        ParamAttr(name=emb_name, initializer=init_mod.Normal(0.0, 0.02)),
+        [vocab_size, dim], dtype)
+    fnorm = helper.create_parameter(
+        ParamAttr(name=final_norm_name,
+                  initializer=init_mod.Constant(1.0)), [dim], dtype)
+    head = helper.create_parameter(
+        ParamAttr(name=head_name, initializer=init_mod.Normal(0.0, 0.02)),
+        [dim, vocab_size], dtype)
+
+    quant_inputs = {}
+    if quantize:
+        out_dims = {"Wq": n_heads * hd, "Wk": n_kv_heads * hd,
+                    "Wv": n_kv_heads * hd, "Wo": dim,
+                    "WGate": ffn_hidden, "WUp": ffn_hidden, "WDown": dim}
+        for slot, out_d in out_dims.items():
+            w = weights[slot]
+            w.dtype = "int8"
+            sc = helper.create_parameter(
+                ParamAttr(name=w.name + "@scale",
+                          initializer=init_mod.Constant(1.0)),
+                [n_layers, 1, out_d], "float32")
+            quant_inputs[slot + "Scale"] = [sc.name]
+        head.dtype = "int8"
+        hsc = helper.create_parameter(
+            ParamAttr(name=head.name + "@scale",
+                      initializer=init_mod.Constant(1.0)),
+            [vocab_size], "float32")
+        quant_inputs["LmHeadScale"] = [hsc.name]
+
+    out = helper.create_variable_for_type_inference(
+        tokens.dtype, shape=_generated_shape(tokens, max_new_tokens))
+    outputs = {"Out": [out.name]}
+    probs = None
+    if return_probs:
+        probs = helper.create_variable_for_type_inference(
+            "float32", shape=[tokens.shape[0], vocab_size])
+        outputs["FirstProbs"] = [probs.name]
+    helper.append_op(
+        type="llama_generate",
+        inputs={"Tokens": [tokens.name], "Emb": [emb.name],
+                "FinalNorm": [fnorm.name], "LmHead": [head.name],
+                **{slot: [w.name] for slot, w in weights.items()},
+                **quant_inputs},
+        outputs=outputs,
+        attrs={"n_heads": n_heads, "n_kv_heads": n_kv_heads,
+               "rope_base": rope_base, "epsilon": epsilon,
+               "max_new_tokens": max_new_tokens,
+               "temperature": temperature, "top_k": top_k,
+               "top_p": top_p,
+               "eos_id": -1 if eos_id is None else int(eos_id),
+               "pad_id": int(pad_id), "moe_top_k": int(moe_top_k),
+               "unroll_layers": bool(unroll_layers),
+               "decode_unroll": int(decode_unroll),
+               "kv_int8": bool(kv_int8),
+               "return_probs": bool(return_probs)})
+    if return_probs:
+        return out, probs
+    return out
+
+
+def llama_spec_generate(tokens, vocab_size, max_new_tokens, *,
+                        dim, n_layers, n_heads, n_kv_heads, ffn_hidden,
+                        draft_dim, draft_n_layers, draft_n_heads,
+                        draft_n_kv_heads, draft_ffn_hidden,
+                        gamma=4, rope_base=10000.0, epsilon=1e-6,
+                        draft_rope_base=None, draft_epsilon=None,
+                        draft_dtype=None, unroll_layers=False,
+                        dtype="float32", temperature=0.0,
+                        top_k=0, top_p=1.0,
+                        eos_id=None, pad_id=0, return_stats=False,
+                        name="blocks", draft_name="draft",
+                        emb_name="tok_emb",
+                        final_norm_name="final_norm",
+                        head_name="lm_head"):
+    """Speculative decoding (ops/transformer_ops.py
+    ``llama_spec_generate``): a draft model proposes ``gamma`` tokens,
+    the target verifies them in one cached forward. At ``temperature`` 0
+    the output is exactly the target-only greedy tokens; above it,
+    speculative sampling, distributed as ``llama_generate``'s sampler with
+    the same ``temperature`` / ``top_k`` / ``top_p``. Target parameter
+    names default to the trained ``build_llama`` layout; the draft's live
+    under ``{draft_name}.*`` (with ``{draft_name}.tok_emb`` etc.).
+    ``return_stats`` returns (tokens, rounds, emitted)."""
+    _validate_sampling(temperature, top_k, top_p)
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    helper = LayerHelper("llama_spec_generate", name=name)
+    ninit = init_mod.Normal(0.0, 0.02)
+    draft_rope_base = (rope_base if draft_rope_base is None
+                       else draft_rope_base)
+    draft_epsilon = epsilon if draft_epsilon is None else draft_epsilon
+    draft_dtype = dtype if draft_dtype is None else draft_dtype
+
+    def _model_params(h, d, heads, kv, ffn, nl, prefix, model_dtype):
+        weights = _stack_params(h, model_dtype, nl, heads, kv, d,
+                                d // heads, ffn, None, pp_sharded=False)
+        emb = h.create_parameter(
+            ParamAttr(name=f"{prefix}{emb_name}", initializer=ninit),
+            [vocab_size, d], model_dtype)
+        fnorm = h.create_parameter(
+            ParamAttr(name=f"{prefix}{final_norm_name}",
+                      initializer=init_mod.Constant(1.0)), [d],
+            model_dtype)
+        head = h.create_parameter(
+            ParamAttr(name=f"{prefix}{head_name}", initializer=ninit),
+            [d, vocab_size], model_dtype)
+        return weights, emb, fnorm, head
+
+    t_w, t_emb, t_fn, t_head = _model_params(
+        helper, dim, n_heads, n_kv_heads, ffn_hidden, n_layers, "", dtype)
+    d_helper = LayerHelper("llama_spec_generate", name=draft_name)
+    d_w, d_emb, d_fn, d_head = _model_params(
+        d_helper, draft_dim, draft_n_heads, draft_n_kv_heads,
+        draft_ffn_hidden, draft_n_layers, f"{draft_name}.", draft_dtype)
+
+    out = helper.create_variable_for_type_inference(
+        tokens.dtype, shape=_generated_shape(tokens, max_new_tokens))
+    rounds = helper.create_variable_for_type_inference("int32", shape=[])
+    emitted = helper.create_variable_for_type_inference("int32", shape=[])
+    helper.append_op(
+        type="llama_spec_generate",
+        inputs={"Tokens": [tokens.name], "Emb": [t_emb.name],
+                "FinalNorm": [t_fn.name], "LmHead": [t_head.name],
+                "DraftEmb": [d_emb.name], "DraftFinalNorm": [d_fn.name],
+                "DraftLmHead": [d_head.name],
+                **{slot: [w.name] for slot, w in t_w.items()},
+                **{"Draft" + slot: [w.name] for slot, w in d_w.items()}},
+        outputs={"Out": [out.name], "Rounds": [rounds.name],
+                 "Emitted": [emitted.name]},
+        attrs={"n_heads": n_heads, "n_kv_heads": n_kv_heads,
+               "draft_n_heads": draft_n_heads,
+               "draft_n_kv_heads": draft_n_kv_heads,
+               "rope_base": rope_base, "epsilon": epsilon,
+               "draft_rope_base": draft_rope_base,
+               "draft_epsilon": draft_epsilon,
+               "unroll_layers": bool(unroll_layers),
+               "max_new_tokens": int(max_new_tokens),
+               "eos_id": -1 if eos_id is None else int(eos_id),
+               "pad_id": int(pad_id),
+               "temperature": float(temperature),
+               "top_k": int(top_k), "top_p": float(top_p),
+               "gamma": int(gamma)})
+    return (out, rounds, emitted) if return_stats else out

@@ -10,19 +10,43 @@ one device a loop over the layers, each rematerialised with ``remat``),
 and ``fused_head_chunk`` the loss as the vocab-chunked
 ``fused_head_cross_entropy``, which never builds the logits — the
 reference's own train benchmark takes both (``bench.py``
-``transformer_main``). A pipeline over a mesh (``pp_schedule="1f1b"``),
-the other mesh knobs, MoE and generation arrive with later slices
-(ROADMAP.md) and are refused by name.
+``transformer_main``).
+
+Generation: ``build_llama_generator`` (greedy or sampled, W8A8 with
+``quantize=True`` over a ``quantize_generator_weights``'d scope, an int8
+KV cache with ``kv_int8``) and ``build_llama_spec_generator``
+(speculative decoding) serve a scope trained with ``shard_pp=True``
+directly, since the parameter names match; ``stack_generator_weights``
+converts a per-layer scope, ``copy_weights_as_draft`` aliases the
+target as its own draft, and ``save_decode_model`` /
+``load_decode_model`` persist (config, weights). A pipeline over a mesh
+(``pp_schedule="1f1b"``), the other mesh knobs and MoE (ROADMAP.md item
+'Multi-device parallelism') and the paged decode programs (item
+'Generation and the paged decode engine', 4b) are refused by name.
 """
-from dataclasses import dataclass
+import json
+import os
+from dataclasses import asdict, dataclass
+
+import numpy as np
+import torch
 
 from .. import layers
+from .. import weights as _weights
 from ..layers import transformer as tfl
 from ..param_attr import ParamAttr
 from .. import initializer as init_mod
 from ..sharding import PartitionSpec as P
+from ..waiting import DECODE, MESH, module_getattr
 
-__all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA_TINY", "build_llama"]
+__all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA_TINY", "build_llama",
+           "build_llama_generator", "build_llama_spec_generator",
+           "quantize_generator_weights", "stack_generator_weights",
+           "save_decode_model", "load_decode_model"]
+
+WAITING = {"build_llama_paged_programs": DECODE,
+           "PagedDecodePrograms": DECODE, "_tp_spec_table": MESH}
+__getattr__ = module_getattr(__name__, WAITING)
 
 
 @dataclass
@@ -164,3 +188,220 @@ def _finish(cfg, h, tokens, targets, fused_head_chunk=0):
             loss = layers.softmax_with_cross_entropy(logits, targets)
         avg_loss = layers.mean(loss)
     return logits, avg_loss
+
+
+def _refuse_mesh(shard_tp, shard_dp):
+    if shard_tp or shard_dp:
+        raise NotImplementedError(
+            "shard_tp / shard_dp need a device mesh, a later slice of the "
+            f"torch port (ROADMAP.md item '{MESH}')")
+
+
+def build_llama_generator(cfg, tokens, max_new_tokens,
+                          temperature=0.0, top_k=0, top_p=1.0,
+                          quantize=False, eos_id=None, pad_id=0,
+                          shard_tp=False, shard_dp=False,
+                          unroll_layers=False, decode_unroll=1,
+                          kv_int8=False, return_probs=False):
+    """KV-cache generation program for a model trained with
+    ``build_llama(shard_pp=True)`` (the layer-stacked weight layout):
+    build it in its OWN program and run it with the trained scope —
+    parameter names match, so there is no conversion step (a per-layer
+    scope converts with :func:`stack_generator_weights`). Returns the
+    [batch, prompt + max_new] token variable; with ``return_probs``,
+    ``(tokens, probs)``, ``probs`` being the first decode step's [batch,
+    vocab] distribution from the prefill cache alone."""
+    _refuse_mesh(shard_tp, shard_dp)
+    return tfl.llama_generate(
+        tokens, vocab_size=cfg.vocab_size, dim=cfg.dim,
+        n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, ffn_hidden=cfg.ffn_hidden,
+        max_new_tokens=max_new_tokens, rope_base=cfg.rope_base,
+        epsilon=cfg.norm_eps, dtype=cfg.dtype,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        name="blocks", quantize=quantize, eos_id=eos_id, pad_id=pad_id,
+        moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
+        unroll_layers=unroll_layers, decode_unroll=decode_unroll,
+        kv_int8=kv_int8, return_probs=return_probs)
+
+
+def build_llama_spec_generator(cfg, draft_cfg, tokens, max_new_tokens,
+                               gamma=4, unroll_layers=False,
+                               temperature=0.0, top_k=0, top_p=1.0,
+                               eos_id=None, pad_id=0,
+                               return_stats=False,
+                               name="blocks", draft_name="draft"):
+    """Speculative decoding: ``draft_cfg`` (a smaller LlamaConfig)
+    proposes ``gamma`` tokens a round and ``cfg`` (the target) verifies
+    them in one cached forward. At ``temperature`` 0 the tokens are
+    exactly ``build_llama_generator(cfg, ...)``'s greedy output; above
+    it, speculative sampling, distributed as the plain generator's
+    sampler. Target weights use the trained ``build_llama`` names, the
+    draft's ``{draft_name}.*`` (:func:`copy_weights_as_draft` aliases the
+    target there). ``return_stats`` returns (tokens, rounds, emitted):
+    (emitted - 1) / rounds against the gamma + 1 ceiling is the achieved
+    speculation efficiency. int8 scopes (refused when run) and MoE
+    configs go through ``build_llama_generator``."""
+    if cfg.vocab_size != draft_cfg.vocab_size:
+        raise ValueError(
+            f"target and draft must share a vocabulary: "
+            f"{cfg.vocab_size} vs {draft_cfg.vocab_size}")
+    if cfg.moe_experts or draft_cfg.moe_experts:
+        raise NotImplementedError(
+            "speculative decoding with MoE configs is not implemented "
+            "(the dense path is; route MoE serving through "
+            "build_llama_generator)")
+    return tfl.llama_spec_generate(
+        tokens, vocab_size=cfg.vocab_size,
+        max_new_tokens=max_new_tokens, gamma=gamma,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        return_stats=return_stats,
+        dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, ffn_hidden=cfg.ffn_hidden,
+        draft_dim=draft_cfg.dim, draft_n_layers=draft_cfg.n_layers,
+        draft_n_heads=draft_cfg.n_heads,
+        draft_n_kv_heads=draft_cfg.n_kv_heads,
+        draft_ffn_hidden=draft_cfg.ffn_hidden,
+        rope_base=cfg.rope_base, epsilon=cfg.norm_eps, dtype=cfg.dtype,
+        # the draft keeps its own rope base, epsilon and dtype
+        draft_rope_base=draft_cfg.rope_base,
+        draft_epsilon=draft_cfg.norm_eps, draft_dtype=draft_cfg.dtype,
+        unroll_layers=unroll_layers, eos_id=eos_id, pad_id=pad_id,
+        name=name, draft_name=draft_name)
+
+
+# scope-name suffixes of the layer-stacked generator weights (the
+# lowercase twins of ops/transformer_ops._STACK_SLOTS) plus the singleton
+# tensors: the full tensor set a generator serves from
+GENERATOR_STACK_SUFFIXES = ("attn_norm", "wq", "wk", "wv", "wo",
+                            "mlp_norm", "w_gate", "w_up", "w_down")
+GENERATOR_SINGLETON_NAMES = ("tok_emb", "final_norm", "lm_head")
+_QUANT_SUFFIXES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# columns of the lm head quantized at once (bounds the float32 temporary)
+_HEAD_CHUNK = 16384
+
+
+def _scope(scope):
+    from ..core.executor import global_scope
+    return scope or global_scope()
+
+
+def _tensor(v):
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v))
+
+
+def copy_weights_as_draft(scope, name="blocks", draft_name="draft"):
+    """Alias the target generator's tensors under the ``{draft_name}.*``
+    names llama_spec_generate reads — the 'perfect draft' arrangement
+    (acceptance ~1). No tensor is copied."""
+    for suffix in GENERATOR_STACK_SUFFIXES:
+        scope.set(f"{draft_name}.{suffix}",
+                  scope.find_var(f"{name}.{suffix}"))
+    for nm in GENERATOR_SINGLETON_NAMES:
+        scope.set(f"{draft_name}.{nm}", scope.find_var(nm))
+
+
+def stack_generator_weights(cfg, scope=None, name="blocks"):
+    """Convert a scope trained with the PER-LAYER weight layout (the
+    unstacked ``build_llama`` path) into the layer-stacked ``{name}.*``
+    tensors the generator reads: ``l{i}.wq [d, H*hd]`` -> ``blocks.wq
+    [L, d, H*hd]`` etc., on the weights' own device. The per-layer
+    entries stay in the scope. MoE tables wait for ROADMAP.md item
+    'Multi-device parallelism'."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "stacking MoE expert tables is a later slice of the torch port "
+            f"(ROADMAP.md item '{MESH}')")
+    scope = _scope(scope)
+    for sfx in GENERATOR_STACK_SUFFIXES:
+        rows = []
+        for i in range(cfg.n_layers):
+            v = scope.find_var(f"l{i}.{sfx}")
+            if v is None:
+                raise KeyError(f"missing trained weight l{i}.{sfx}")
+            rows.append(_tensor(v))
+        scope.set(f"{name}.{sfx}", torch.stack(rows))
+
+
+def _quantize_columns(w):
+    """Symmetric int8 of ``w`` [in, out] with one scale per output
+    column (the reference's numpy recipe: absmax / 127 in float32, at
+    least 1e-10, then round half to even and clip to [-127, 127]; both
+    divisions by a tensor, so bit for bit the recipe's on either
+    device). Returns (int8 [in, out], float32 [1, out])."""
+    m = w.abs().amax(dim=0, keepdim=True).float()
+    scale = torch.clamp(m / torch.full_like(m, 127.0), min=1e-10)
+    q = torch.round(w.float() / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_generator_weights(scope=None, name="blocks",
+                               head_name="lm_head"):
+    """Rewrite a trained scope's stacked decoder matmul weights and lm
+    head to int8 (symmetric, per layer x output channel) with
+    ``<w>@scale`` float32 companions — the serving scope of
+    ``build_llama_generator(..., quantize=True)``. Embedding and norm
+    weights stay float. Works on each tensor's own device, one layer (and
+    one block of head columns) at a time, so the float32 temporaries stay
+    a layer's size; the int8 values and scales are the reference's numpy
+    recipe bit for bit. The scope's entries are replaced, not written
+    into: a tensor another scope also holds keeps its float values."""
+    scope = _scope(scope)
+    for suffix in _QUANT_SUFFIXES:
+        n = f"{name}.{suffix}"
+        v = scope.find_var(n)
+        if v is None:
+            raise KeyError(
+                f"missing {n!r} in scope — run the startup program (or "
+                "stack_generator_weights on a trained per-layer scope) "
+                "before quantize_generator_weights")
+        w = _tensor(v)                                  # [L, in, out]
+        wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty((w.shape[0], 1, w.shape[-1]),
+                            dtype=torch.float32, device=w.device)
+        for i in range(w.shape[0]):
+            wq[i], scale[i] = _quantize_columns(w[i])
+        scope.set(n, wq)
+        scope.set(n + "@scale", scale)                  # [L, 1, out]
+    head = _tensor(scope.find_var(head_name))           # [D, V]
+    hq = torch.empty(head.shape, dtype=torch.int8, device=head.device)
+    hscale = torch.empty(head.shape[1], dtype=torch.float32,
+                         device=head.device)
+    for c in range(0, head.shape[1], _HEAD_CHUNK):
+        hq[:, c:c + _HEAD_CHUNK], sc = _quantize_columns(
+            head[:, c:c + _HEAD_CHUNK])
+        hscale[c:c + _HEAD_CHUNK] = sc[0]
+    scope.set(head_name, hq)
+    scope.set(head_name + "@scale", hscale)             # [V]
+
+
+def save_decode_model(dirname, cfg, scope):
+    """Persist a decode-servable model: the LlamaConfig as JSON
+    (``llama_config.json``) and every scope tensor in one ``params.npz``
+    (bfloat16 as numpy writes the reference's: ``weights.savez``)."""
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, "llama_config.json"), "w") as f:
+        json.dump(asdict(cfg), f, indent=1, sort_keys=True)
+    params = {n: scope.find_var(n) for n in scope.keys()
+              if scope.find_var(n) is not None}
+    _weights.savez(os.path.join(dirname, "params.npz"), params)
+    return dirname
+
+
+def load_decode_model(dirname):
+    """Load a :func:`save_decode_model` directory (the port's or the
+    reference's) back into ``(LlamaConfig, Scope)`` with host tensors,
+    which the executor stages to its device at its first run. A 2-byte
+    void array is a bfloat16 array as numpy writes one."""
+    from ..core.executor import Scope
+    with open(os.path.join(dirname, "llama_config.json")) as f:
+        cfg = LlamaConfig(**json.load(f))
+    scope = Scope()
+    with np.load(os.path.join(dirname, "params.npz")) as blobs:
+        for n in blobs.files:
+            arr = blobs[n]
+            scope.set(n, _weights.array_to_tensor(
+                arr, torch.device("cpu"),
+                dtype="bfloat16" if arr.dtype.kind == "V" else None))
+    return cfg, scope

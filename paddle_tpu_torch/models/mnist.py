@@ -3,8 +3,12 @@ benchmark/fluid/models/mnist.py): the book's MLP. ``cnn_model`` needs
 conv2d and pool2d, ported with ROADMAP.md item 'Conv nets and the
 transpilers'."""
 from .. import layers
+from ..waiting import CONV, module_getattr
 
 __all__ = ["mlp_model"]
+
+WAITING = {"cnn_model": CONV}
+__getattr__ = module_getattr(__name__, WAITING)
 
 
 def mlp_model(data, label, hidden_sizes=(128, 64), class_num=10):

@@ -1,17 +1,34 @@
 """Transformer-family op lowering rules (port of
 ``paddle_tpu/ops/transformer_ops.py``): RMSNorm, rotary embeddings,
-multi-head attention on the flash kernel, SiLU, and the layer-stacked
-decoder ``llama_decoder_stack``.
+multi-head attention on the flash kernel, SiLU, the layer-stacked
+decoder ``llama_decoder_stack``, and the fused KV-cache generators
+``llama_generate`` and ``llama_spec_generate`` with their sampling
+(``warp_logits``), W8A8 (``qmat``) and int8 KV cache.
 
 rms_norm, rope and silu are plain torch: XLA fused them in the
 reference and no Pallas kernel exists for them. Attention goes through
-K1 forward and K2/K3 backward (ops/flash_attention.py).
+K1 forward and K2/K3 backward (ops/flash_attention.py). The generators'
+cached attention is plain torch too, as the reference's is plain jax (a
+grouped einsum against the n_kv cache). The paged decode ops come with
+ROADMAP.md item 'Generation and the paged decode engine' (4b) and the
+1F1B pipelined loss with 'Multi-device parallelism'.
 """
+import math
+
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from ..core.lowering import _mix_seed
 from ..core.registry import register_op
+from ..waiting import DECODE, MESH, module_getattr
 from .flash_attention import flash_attention
+from .moe import _act_quant
+
+# the reference's helpers of the paged decode ops (4b) and of the 1F1B
+# pipelined loss
+WAITING = {"_PagedRunner": DECODE, "_make_paged_runner": DECODE,
+           "_paged_model_inputs": DECODE, "_llama_stack_1f1b_loss": MESH}
+__getattr__ = module_getattr(__name__, WAITING)
 
 
 def rms_normalize(x, scale=None, eps=1e-6):
@@ -57,6 +74,36 @@ def apply_rope(x, base=10000.0, position_offset=0):
         x, position_offset + torch.arange(t, device=x.device), base)
 
 
+def warp_logits(logits, temperature, top_k=0, top_p=1.0):
+    """The sampling logits processors — temperature scaling, top-k
+    truncation, top-p (nucleus) filtering — on raw logits ([..., V]);
+    masked entries go to -1e30. Shared by ``llama_generate``'s sampler
+    and ``llama_spec_generate``'s speculative sampler, which must warp
+    alike (speculative sampling preserves the WARPED target
+    distribution). Deterministic: the reference's own computation, step
+    for step. ``temperature`` must be > 0 (greedy is argmax on raw
+    logits)."""
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 < top_p <= 1.0:
+        # top_p == 0 would otherwise take the threshold of the SMALLEST
+        # sorted logit and silently disable filtering
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    logits = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -1e30, logits)
+    if top_p < 1.0:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_l, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # smallest prefix with cumulative mass >= top_p stays
+        cut = (cum - probs < top_p).sum(dim=-1) - 1
+        thresh = sorted_l.gather(-1, cut[..., None])
+        logits = torch.where(logits < thresh, -1e30, logits)
+    return logits
+
+
 @register_op("rope")
 def _rope(ctx, ins, attrs):
     return {"Out": [apply_rope(ins["X"][0], attrs.get("base", 10000.0))]}
@@ -94,6 +141,76 @@ def _silu(ctx, ins, attrs):
 
 _STACK_SLOTS = ("AttnNorm", "Wq", "Wk", "Wv", "Wo",
                 "MlpNorm", "WGate", "WUp", "WDown")
+_MATMUL_SLOTS = ("Wq", "Wk", "Wv", "Wo", "WGate", "WUp", "WDown")
+
+# int8 x int8 products summed in float32 stay exact while every partial
+# sum is an integer below 2**24: at most this many terms of 127**2 each
+EXACT_F32_TERMS = 1040
+# torch._int_mm on CUDA takes more than 16 rows, and an inner and outer
+# width that are multiples of 8
+_INT_MM_MIN_ROWS = 17
+_INT_MM_ALIGN = 8
+
+
+def int8_mm(a, b):
+    """``a @ b`` of int8 [M, K] by int8 [K, N] with an exact int32 sum
+    (``torch._int_mm``, the library's int8 GEMM — the reference leaves
+    this product to XLA outside any kernel). On CUDA fewer than 17 rows
+    are padded with zero rows, which give zero rows and change nothing
+    else; a width the GEMM does not take raises."""
+    if a.device.type == "cuda":
+        k, n = b.shape
+        if k % _INT_MM_ALIGN or n % _INT_MM_ALIGN:
+            raise ValueError(
+                f"int8_mm on CUDA needs the inner and outer widths to be "
+                f"multiples of {_INT_MM_ALIGN}, got [{a.shape[0]}, {k}] x "
+                f"[{k}, {n}]")
+        m = a.shape[0]
+        if m < _INT_MM_MIN_ROWS:
+            pad = a.new_zeros((_INT_MM_MIN_ROWS - m, k))
+            return torch._int_mm(torch.cat([a, pad]), b)[:m]
+    return torch._int_mm(a, b)
+
+
+def int8_einsum(eq, a, b):
+    """The int32 ``einsum(eq, a, b)`` of two int8 tensors, exact: torch has
+    no batched int8 product, so the operands go to float32 (every int8 is
+    exact there, and in TF32) and the one contracted index is summed in
+    chunks of at most :data:`EXACT_F32_TERMS` terms, each exact in a
+    float32 accumulator, converted to int32 and added."""
+    ins, out = eq.split("->")
+    sa, sb = ins.split(",")
+    (c,) = [ch for ch in sa if ch in sb and ch not in out]
+    ia, ib = sa.index(c), sb.index(c)
+    n = a.shape[ia]
+    acc = None
+    for s in range(0, n, EXACT_F32_TERMS):
+        m = min(EXACT_F32_TERMS, n - s)
+        part = torch.einsum(eq, a.narrow(ia, s, m).float(),
+                            b.narrow(ib, s, m).float()).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def qmat(x, p, slot, cdt=None):
+    """``x @ p[slot]``, int8-serving aware. When the slot carries a
+    ``<Slot>Scale`` companion the weight is int8 and the product is
+    W8A8-dynamic, as in the reference: each activation row quantized
+    (per-row absmax, :func:`_act_quant`), int8 x int8 → int32 exactly
+    (:func:`int8_mm`), then both scales in the reference's order,
+    ``(y32 * xs) * scale``, in float32, and the result in ``cdt``
+    (default ``x.dtype``)."""
+    w = p[slot]
+    sc = p.get(slot + "Scale")
+    if sc is None:
+        return x @ w
+    cdt = cdt or x.dtype
+    xq, xs = _act_quant(x)
+    lead = xq.shape[:-1]
+    y32 = int8_mm(xq.reshape(-1, xq.shape[-1]), w).reshape(
+        *lead, w.shape[-1])
+    y = (y32.float() * xs) * sc.reshape(-1).float()
+    return y.to(cdt)
 
 
 def _reject_quant_scales(ins, op_name):
@@ -111,27 +228,36 @@ def _reject_quant_scales(ins, op_name):
             "scope.")
 
 
-def decoder_block(p, h, *, n_heads, n_kv, base, eps, pos, attend_fn):
+def decoder_block(p, h, *, n_heads, n_kv, base, eps, pos, attend_fn,
+                  moe_top_k=2):
     """One Llama decoder block over one layer's weights ``p`` (the
-    ``_STACK_SLOTS``) — the single copy of the block math: rms_norm →
-    roped QKV at ``pos`` → ``attend_fn`` → residual → rms_norm → SwiGLU
-    → residual. ``attend_fn(q, k, v) -> [b, t, n_heads*hd]`` gets the
-    roped q/k and raw v ([b, t, heads, hd]). The products are plain
-    ``x @ w``: the reference's int8 ``qmat`` is serving-only and its MoE
-    branch a later slice (ROADMAP.md items 'Generation and the paged
-    decode engine' and 'Multi-device parallelism')."""
+    ``_STACK_SLOTS``, with ``<Slot>Scale`` companions for int8 weights)
+    — the single copy of the block math shared by training
+    (``llama_decoder_stack``) and generation (``llama_generate``):
+    rms_norm → roped QKV at ``pos`` → ``attend_fn`` → residual →
+    rms_norm → SwiGLU → residual. ``attend_fn(q, k, v) -> [b, t,
+    n_heads*hd]`` gets the roped q/k and raw v ([b, t, heads, hd]) and
+    owns the attention (and any KV-cache side effects). Every product
+    goes through :func:`qmat`. The reference's MoE FFN branch
+    (``moe_top_k``) comes with ROADMAP.md item 'Multi-device
+    parallelism'."""
     b, t, _ = h.shape
     hd = p["Wq"].shape[-1] // n_heads
     pre = rms_normalize(h, p["AttnNorm"], eps)
-    q = apply_rope_at((pre @ p["Wq"]).reshape(b, t, n_heads, hd), pos,
+    q = apply_rope_at(qmat(pre, p, "Wq").reshape(b, t, n_heads, hd), pos,
                       base)
-    k = apply_rope_at((pre @ p["Wk"]).reshape(b, t, n_kv, hd), pos, base)
-    v = (pre @ p["Wv"]).reshape(b, t, n_kv, hd)
-    h = h + attend_fn(q, k, v) @ p["Wo"]
+    k = apply_rope_at(qmat(pre, p, "Wk").reshape(b, t, n_kv, hd), pos,
+                      base)
+    v = qmat(pre, p, "Wv").reshape(b, t, n_kv, hd)
+    h = h + qmat(attend_fn(q, k, v), p, "Wo")
     pre2 = rms_normalize(h, p["MlpNorm"], eps)
-    g = pre2 @ p["WGate"]
-    u = pre2 @ p["WUp"]
-    return h + ((g * torch.sigmoid(g)) * u) @ p["WDown"]
+    if p.get("MoeRouter") is not None:
+        raise NotImplementedError(
+            "MoE FFNs in the decoder block are a later slice of the torch "
+            f"port (ROADMAP.md item '{MESH}')")
+    g = qmat(pre2, p, "WGate")
+    u = qmat(pre2, p, "WUp")
+    return h + qmat((g * torch.sigmoid(g)) * u, p, "WDown")
 
 
 def make_flash_block(n_heads, n_kv, base, eps, remat=True):
@@ -187,3 +313,450 @@ def _llama_decoder_stack(ctx, ins, attrs):
     for i in range(len(layers["Wq"])):
         h = blk({s: w[i] for s, w in layers.items()}, h)
     return {"Out": [h]}
+
+
+# ---------------------------------------------------------------------
+# KV-cache generation: the reference's fused generators, one op each.
+# The reference runs them as one XLA program (a lax.scan over decode
+# steps, a bounded lax.while_loop over speculative rounds); here each is
+# a Python loop of eager steps with the same trip counts, the same
+# masking and the same cache writes (in place: the caches are the op's
+# own tensors).
+# ---------------------------------------------------------------------
+
+def _generator(device, *parts):
+    """A torch.Generator seeded from (seed, fold, ...) — the reference's
+    ``jax.random.fold_in(key, i)`` chain."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_mix_seed(*parts))
+    return g
+
+
+def _categorical(gen, logits):
+    """One draw per row from softmax(``logits``) by the Gumbel-max
+    trick, as ``jax.random.categorical`` draws (its bits differ)."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device,
+                   dtype=torch.float32)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+
+
+def _make_cached_runner(params, emb_w, fnorm, head, *, n_heads, n_kv,
+                        base, eps, b, total, moe_top_k=2, kv_int8=False):
+    """KV-cached model runner shared by llama_generate and
+    llama_spec_generate: returns (run_layers, logits_all, k_cache,
+    v_cache) over one model's stacked weights ``params`` (slot -> [L,
+    ...] tensor, with int8 ``<Slot>Scale`` companions where the caller
+    assembled them). The attention is the grouped GQA einsum against the
+    small n_kv cache, never expanded to n_heads (that would cost rep x
+    the bandwidth the small cache exists to save), with each step's K/V
+    written into the cache before it is attended. ``run_layers`` writes
+    the caches in place."""
+    n_layers = params["Wq"].shape[0]
+    hd = params["Wq"].shape[-1] // n_heads
+    rep = n_heads // n_kv
+    dev = emb_w.device
+    layers = [{s: w[i] for s, w in params.items()} for i in range(n_layers)]
+    k_pos = torch.arange(total, device=dev)[None, :]
+
+    def kv_quant(t):
+        """Per-(position, kv-head) absmax int8 quantization of a K/V
+        block [b, t, g, hd]; the scale [b, t, g] rides beside it."""
+        q, s = _act_quant(t)
+        return q, s[..., 0]
+
+    def cached_attend(q, kc, vc, q_pos0, t_len):
+        qg = q.reshape(b, t_len, n_kv, rep, hd)
+        q_pos = q_pos0 + torch.arange(t_len, device=dev)[:, None]
+        masked = (k_pos > q_pos)[None, None, None]
+        if kv_int8:
+            # both contractions int8 x int8 -> int32 (int8_einsum, exact):
+            # Q.K^T with per-query-row-quantized q, both scales factored
+            # out per output element; the per-position V scale folds into
+            # the float32 softmax weights before their row quantization
+            qq, qs = _act_quant(qg)                  # qs [b,q,g,r,1]
+            l32 = int8_einsum("bqgrd,bkgd->bgrqk", qq, kc["q"])
+            logits = (l32.float()
+                      * torch.movedim(qs, (1, 2, 3), (3, 1, 2))
+                      * kc["s"].transpose(1, 2)[:, :, None, None, :]
+                      / math.sqrt(hd))
+            w = torch.softmax(logits.masked_fill(masked, -1e30), dim=-1)
+            wf = w * vc["s"].transpose(1, 2)[:, :, None, None, :]
+            wq8, wsc = _act_quant(wf)                # rows over k
+            o32 = int8_einsum("bgrqk,bkgd->bqgrd", wq8, vc["q"])
+            out = o32.float() * torch.movedim(wsc, (1, 2, 3), (2, 3, 1))
+        else:
+            logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                                  kc.float()) / math.sqrt(hd)
+            w = torch.softmax(logits.masked_fill(masked, -1e30), dim=-1)
+            out = torch.einsum("bgrqk,bkgd->bqgrd", w, vc.float())
+        return out.to(q.dtype).reshape(b, t_len, n_heads * hd)
+
+    def block_step(i, h, k_caches, v_caches, t0, t_len):
+        pos = t0 + torch.arange(t_len, device=dev)
+
+        def attend(q, k, v):
+            if kv_int8:
+                k8, ks = kv_quant(k)
+                v8, vs = kv_quant(v)
+                kc = {"q": k_caches["q"][i], "s": k_caches["s"][i]}
+                vc = {"q": v_caches["q"][i], "s": v_caches["s"][i]}
+                for c, x in ((kc["q"], k8), (kc["s"], ks), (vc["q"], v8),
+                             (vc["s"], vs)):
+                    c.index_copy_(1, pos, x)
+            else:
+                kc, vc = k_caches[i], v_caches[i]
+                kc.index_copy_(1, pos, k)
+                vc.index_copy_(1, pos, v)
+            return cached_attend(q, kc, vc, t0, t_len)
+
+        return decoder_block(layers[i], h, n_heads=n_heads, n_kv=n_kv,
+                             base=base, eps=eps, pos=pos, attend_fn=attend,
+                             moe_top_k=moe_top_k)
+
+    def run_layers(h, k_caches, v_caches, t0, t_len):
+        """h [b, t_len, D] at positions t0.. (an int or a 0-dim tensor)
+        through every layer; writes each layer's K/V at t0.. into the
+        caches."""
+        for i in range(n_layers):
+            h = block_step(i, h, k_caches, v_caches, t0, t_len)
+        return h
+
+    def logits_all(h):
+        """float32 logits at EVERY position of h [b, t, d] (the verify
+        pass scores all candidate positions in one forward)."""
+        return (rms_normalize(h, fnorm, eps) @ head).float()
+
+    shape = (n_layers, b, total, n_kv, hd)
+    if kv_int8:
+        def cache():
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=dev)}
+        return run_layers, logits_all, cache(), cache()
+    return (run_layers, logits_all,
+            torch.zeros(shape, dtype=emb_w.dtype, device=dev),
+            torch.zeros(shape, dtype=emb_w.dtype, device=dev))
+
+
+def _refuse_moe(ins, op_name):
+    moe = sorted(s for s in ins if s.startswith("Moe")
+                 or s.startswith("DraftMoe"))
+    if moe:
+        raise NotImplementedError(
+            f"{op_name}: MoE FFN inputs {moe} are a later slice of the "
+            f"torch port (ROADMAP.md item '{MESH}')")
+
+
+@register_op("llama_generate", stateful=True)    # draws iff temperature > 0
+def _llama_generate(ctx, ins, attrs):
+    """Autoregressive generation with a KV cache as one op: a prefill
+    pass over the prompt (causal attention, writing every layer's K/V),
+    then ``max_new_tokens - 1`` single-position decode steps that read
+    and extend the cache. Greedy at temperature 0, else sampled through
+    :func:`warp_logits` (a generator per step from the op's key, as the
+    reference folds the step into its key). Weights are the layer-stacked
+    tensors the training-side ``llama_decoder_stack`` uses (plus
+    embedding, final norm and lm head), so a trained scope generates
+    directly; int8 weights with ``<Slot>Scale`` companions (and an int8
+    head with ``LmHeadScale``) run W8A8 through :func:`qmat`, and
+    ``kv_int8`` keeps an int8 cache.
+
+    Rows that emit ``eos_id`` emit ``pad_id`` from then on; the loop runs
+    its fixed count regardless, as the reference's static scan does (no
+    early exit). ``unroll_layers`` and ``decode_unroll`` choose XLA's
+    unrolling in the reference and change nothing here. MoE inputs wait
+    for ROADMAP.md item 'Multi-device parallelism'.
+
+    Tokens [B, T_prompt] int; Out [B, T_prompt + max_new_tokens]; with
+    ``return_probs`` also FirstProbs [B, V], the first decode step's
+    distribution from the prefill cache alone.
+    """
+    _refuse_moe(ins, "llama_generate")
+    tokens = ins["Tokens"][0]
+    emb_w = ins["Emb"][0]                               # [V, D]
+    params = {s: ins[s][0] for s in _STACK_SLOTS if s in ins}
+    for s in _MATMUL_SLOTS:
+        if s + "Scale" in ins:
+            params[s + "Scale"] = ins[s + "Scale"][0]
+    head_scale = ins["LmHeadScale"][0] if "LmHeadScale" in ins else None
+    fnorm = ins["FinalNorm"][0]                         # [D]
+    head = ins["LmHead"][0]                             # [D, V]
+    n_heads = attrs["n_heads"]
+    n_kv = attrs.get("n_kv_heads", n_heads)
+    eps = attrs.get("epsilon", 1e-6)
+    max_new = attrs["max_new_tokens"]
+    eos_id = attrs.get("eos_id", -1)
+    eos_id = -1 if eos_id is None else int(eos_id)
+    pad_id = int(attrs.get("pad_id", 0) or 0)
+    temperature = float(attrs.get("temperature", 0.0))
+    top_k = min(int(attrs.get("top_k", 0)), emb_w.shape[0])
+    top_p = float(attrs.get("top_p", 1.0))
+    # the key is taken whatever the temperature, as the reference's
+    # ctx.next_key(): the draw count of later ops stays the reference's
+    base_seed = ctx.next_seed()
+
+    b, t_prompt = tokens.shape
+    total = t_prompt + max_new
+    run_layers, _, k_cache, v_cache = _make_cached_runner(
+        params, emb_w, fnorm, head, n_heads=n_heads, n_kv=n_kv,
+        base=attrs.get("rope_base", 10000.0), eps=eps, b=b, total=total,
+        moe_top_k=int(attrs.get("moe_top_k", 2)),
+        kv_int8=bool(attrs.get("kv_int8", False)))
+
+    def logits_of(h_last):
+        hn = rms_normalize(h_last, fnorm, eps)
+        if head_scale is None:
+            return (hn @ head).float()
+        return qmat(hn, {"W": head, "WScale": head_scale}, "W",
+                    cdt=torch.float32)
+
+    def pick(logits, step):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        return _categorical(_generator(logits.device, base_seed, step),
+                            warp_logits(logits, temperature, top_k, top_p))
+
+    # prefill over the prompt
+    h = run_layers(emb_w[tokens], k_cache, v_cache, 0, t_prompt)
+    first_logits = logits_of(h[:, -1])                  # [b, V] float32
+    tok = pick(first_logits, 0)                         # [b]
+    out = torch.empty((b, total), dtype=tokens.dtype, device=tokens.device)
+    out[:, :t_prompt] = tokens
+    out[:, t_prompt] = tok
+    done = tok == eos_id if eos_id >= 0 else None
+    # max_new - 1 decode steps, each emitting the NEXT token (the last new
+    # token needs no further forward pass)
+    for i in range(max_new - 1):
+        pos = t_prompt + i
+        x = run_layers(emb_w[tok][:, None, :], k_cache, v_cache, pos, 1)
+        tok = pick(logits_of(x[:, 0]), pos)
+        if done is not None:
+            tok = torch.where(done, torch.full_like(tok, pad_id), tok)
+            done = done | (tok == eos_id)
+        out[:, pos + 1] = tok
+    outs = {"Out": [out]}
+    if attrs.get("return_probs", False):
+        outs["FirstProbs"] = [torch.softmax(first_logits, dim=-1)]
+    return outs
+
+
+@register_op("llama_spec_generate", stateful=True)   # draws iff temp > 0
+def _llama_spec_generate(ctx, ins, attrs):
+    """Speculative decoding as one op: a DRAFT model proposes ``gamma``
+    tokens autoregressively, the TARGET scores all of them (plus a bonus
+    position) in one cached forward, and the longest accepted prefix is
+    kept.
+
+    - **greedy** (temperature 0, draws nothing): a draft token is
+      accepted iff it equals the target's argmax, so every emitted token
+      is the target's argmax at its position — the output equals
+      target-only greedy ``llama_generate``.
+    - **sampled** (temperature > 0): speculative sampling (Leviathan et
+      al. 2022, Chen et al. 2023) — x_j ~ q_j from the draft's warped
+      distribution is accepted with probability min(1, p_j(x_j)/q_j(x_j)),
+      the first rejection is replaced by a draw from norm(max(p_j - q_j,
+      0)), and a fully accepted round draws a bonus token from p_gamma:
+      every emitted token is distributed as the warped target
+      distribution (distribution-equal to ``llama_generate``'s sampler,
+      not bitwise).
+
+    Batch rows advance in lockstep at the minimum per-row acceptance;
+    rows that accepted further re-speculate those positions next round.
+    The reference's bounded ``lax.while_loop`` is a Python loop over at
+    most ``max_new_tokens - 1`` rounds (a round emits at least one
+    token) with counters held as tensors, leaving once every token is
+    emitted — the reference's loop condition — except while
+    ``torch.export`` traces it, where the remaining rounds are traced as
+    no-ops (no value may be read back there). int8 scopes and MoE are
+    refused, as in the reference. ``Rounds`` counts verification rounds and ``Emitted``
+    the tokens emitted, so (Emitted - 1) / Rounds is the achieved
+    speculation efficiency.
+    """
+    _refuse_moe(ins, "llama_spec_generate")
+    tokens = ins["Tokens"][0]
+    t_params = {s: ins[s][0] for s in _STACK_SLOTS}
+    d_params = {s: ins["Draft" + s][0] for s in _STACK_SLOTS}
+    emb_w, fnorm, head = (ins["Emb"][0], ins["FinalNorm"][0],
+                          ins["LmHead"][0])
+    demb, dfnorm, dhead = (ins["DraftEmb"][0], ins["DraftFinalNorm"][0],
+                           ins["DraftLmHead"][0])
+    for nm, v in [("target", t_params["Wq"]), ("draft", d_params["Wq"]),
+                  ("lm_head", head)]:
+        if v.dtype == torch.int8:
+            raise NotImplementedError(
+                f"llama_spec_generate is float-only but the {nm} weights in "
+                "the scope are int8 (a quantize_generator_weights'd "
+                "scope?): the op declares no <Slot>Scale inputs, so int8 "
+                "tensors would flow into float matmuls as garbage. Serve "
+                "quantized models through "
+                "build_llama_generator(quantize=True).")
+    n_heads = attrs["n_heads"]
+    n_kv = attrs.get("n_kv_heads", n_heads)
+    d_heads = attrs["draft_n_heads"]
+    d_kv = attrs.get("draft_n_kv_heads", d_heads)
+    base = attrs.get("rope_base", 10000.0)
+    eps = attrs.get("epsilon", 1e-6)
+    # the draft keeps its own rope base and epsilon
+    d_base = attrs.get("draft_rope_base", base)
+    d_eps = attrs.get("draft_epsilon", eps)
+    max_new = int(attrs["max_new_tokens"])
+    gamma = int(attrs.get("gamma", 4))
+    eos_id = attrs.get("eos_id", -1)
+    eos_id = -1 if eos_id is None else int(eos_id)
+    pad_id = int(attrs.get("pad_id", 0) or 0)
+    temperature = float(attrs.get("temperature", 0.0))
+    top_k = min(int(attrs.get("top_k", 0)), emb_w.shape[0])
+    top_p = float(attrs.get("top_p", 1.0))
+    sampled = temperature > 0.0
+    # greedy takes no key: the draw count of later ops stays unchanged
+    base_seed = ctx.next_seed() if sampled else None
+    dev = tokens.device
+
+    def warp(logits):
+        return warp_logits(logits, temperature, top_k, top_p)
+
+    def gen(*parts):
+        return _generator(dev, base_seed, *parts)
+
+    b, t_prompt = tokens.shape
+    # room for the largest overshoot: the final round may write gamma + 1
+    # tokens starting one short of max_new
+    total = t_prompt + max_new + gamma + 1
+    t_run, t_logits, tk, tv = _make_cached_runner(
+        t_params, emb_w, fnorm, head, n_heads=n_heads, n_kv=n_kv,
+        base=base, eps=eps, b=b, total=total)
+    d_run, d_logits, dk, dv = _make_cached_runner(
+        d_params, demb, dfnorm, dhead, n_heads=d_heads, n_kv=d_kv,
+        base=d_base, eps=d_eps, b=b, total=total)
+
+    # prefill both models over the prompt
+    th = t_run(emb_w[tokens], tk, tv, 0, t_prompt)
+    first_logits = t_logits(th[:, -1:])[:, 0]
+    if sampled:
+        first = _categorical(gen(0), warp(first_logits))
+    else:
+        first = torch.argmax(first_logits, dim=-1)           # [b]
+    d_run(demb[tokens], dk, dv, 0, t_prompt)
+
+    buf = torch.zeros((b, total), dtype=tokens.dtype, device=dev)
+    buf[:, :t_prompt] = tokens
+    buf[:, t_prompt] = first
+    # pos: the absolute position of cur (the last accepted token, not yet
+    # processed by the draft; the target's window starts with it); prev:
+    # the token at pos - 1. Counters are 0-dim tensors, so the loop holds
+    # no value read back from the device but its eager early exit.
+    i64 = dict(dtype=torch.int64, device=dev)
+    emitted = torch.ones((), **i64)
+    pos = torch.full((), t_prompt, **i64)
+    rounds = torch.zeros((), **i64)
+    cur, prev = first, tokens[:, -1].to(first.dtype)
+    done = first == eos_id if eos_id >= 0 else None
+    window = torch.arange(gamma + 1, device=dev)
+    # a round emits at least one token: max_new - 1 rounds at most. A
+    # round once every token is emitted (possible only when the loop is
+    # traced for export, where the eager exit below is off) changes
+    # nothing: its writes go to positions nothing reads again, or are
+    # masked, and the counters stay.
+    for r in range(max_new - 1):
+        active = emitted < max_new
+        kr = r + 1               # round keys never collide with fold 0
+        p0 = torch.where(active, pos, torch.full_like(pos, t_prompt))
+        # 1. the draft proposes gamma tokens. The first step processes
+        # the 2-token window [prev, cur]: after a fully accepted round
+        # the draft never processed its own last proposal, a cache hole
+        # at pos - 1 that this fills (and rewrites alike otherwise)
+        drafts, qs = [], []
+        hx = d_run(demb[torch.stack([prev, cur], dim=1)], dk, dv, p0 - 1, 2)
+        dl = d_logits(hx[:, 1:])[:, 0]
+        for i in range(gamma):
+            if i > 0:
+                hx = d_run(demb[d_tok][:, None], dk, dv, p0 + i, 1)
+                dl = d_logits(hx)[:, 0]
+            if sampled:
+                dl = warp(dl)
+                d_tok = _categorical(gen(kr, i), dl)
+                qs.append(torch.softmax(dl, dim=-1))
+            else:
+                d_tok = torch.argmax(dl, dim=-1)
+            drafts.append(d_tok)
+        D = torch.stack(drafts, dim=1)                       # [b, gamma]
+
+        # 2. the target scores cur and every draft in one forward
+        cand = torch.cat([cur[:, None], D.to(cur.dtype)], dim=1)
+        hx = t_run(emb_w[cand], tk, tv, p0, gamma + 1)
+        tl = t_logits(hx)                                    # [b, g+1, V]
+        if sampled:
+            tl = warp(tl)
+            P = torch.softmax(tl, dim=-1)
+            Q = torch.stack(qs, dim=1)                       # [b, g, V]
+            p_d = P[:, :gamma].gather(-1, D[..., None])[..., 0]
+            q_d = Q.gather(-1, D[..., None])[..., 0]
+            u = torch.rand((b, gamma), generator=gen(kr, gamma),
+                           device=dev, dtype=torch.float32)
+            accept = u * q_d < p_d                           # u < p/q
+            R = torch.clamp(P[:, :gamma] - Q, min=0.0)
+            rs = R.sum(dim=-1, keepdim=True)
+            # p == q gives zero residual mass, where a rejection has
+            # probability 0: P keeps the (never kept) draw finite
+            R = torch.where(rs > 0, R / torch.clamp(rs, min=1e-20),
+                            P[:, :gamma])
+            res = _categorical(gen(kr, gamma + 1),
+                               torch.log(torch.clamp(R, min=1e-30)))
+            bonus = _categorical(gen(kr, gamma + 2), tl[:, gamma])
+            a_row = torch.cumprod(accept.int(), dim=1).sum(dim=1)
+            col = torch.arange(gamma, device=dev)[None, :]
+            # column j < a_row: the accepted draft; j == a_row: the
+            # residual draw (the bonus at column gamma, kept only when
+            # every row accepted all)
+            raw = torch.cat([torch.where(col < a_row[:, None], D, res),
+                             bonus[:, None]], dim=1)         # [b, g+1]
+        else:
+            raw = torch.argmax(tl, dim=-1)                   # [b, g+1]
+
+        # 3. the emission window: raw verbatim, or llama_generate's
+        # sequential eos rule replayed over it
+        if done is not None:
+            emits, dones = [], []
+            dj = done
+            for j in range(gamma + 1):
+                e = torch.where(dj, torch.full_like(raw[:, j], pad_id),
+                                raw[:, j])
+                dj = dj | (e == eos_id)
+                emits.append(e)
+                dones.append(dj)
+            E = torch.stack(emits, dim=1)
+            DONES = torch.stack(dones, dim=1)
+        else:
+            E = raw
+
+        # 4. lockstep acceptance: the longest prefix every row accepted;
+        # a done row never throttles the batch (its emissions are pad)
+        match = accept if sampled else D == raw[:, :gamma]
+        if done is not None:
+            match = match | DONES[:, :gamma]
+        m = torch.cumprod(match.int(), dim=1).sum(dim=1).min().long()
+        m_col = m.expand(b, 1)
+        if done is not None:
+            done = torch.where(active, DONES.gather(1, m_col)[:, 0], done)
+        # columns past m + 1 hold unaccepted values that the next round's
+        # write (starting at emitted + m + 1) overwrites before any read
+        cols = torch.where(active, t_prompt + emitted + window, window)
+        buf.index_copy_(1, cols, torch.where(
+            active, E.to(buf.dtype), buf.index_select(1, cols)))
+        prev_new = torch.where(m > 0, E.gather(1, (m_col - 1).clamp(min=0))
+                               [:, 0], cur)
+        cur = torch.where(active, E.gather(1, m_col)[:, 0], cur)
+        prev = torch.where(active, prev_new, prev)
+        # the draft's caches carry: accepted entries match the emitted
+        # tokens, stale ones sit at positions >= pos + m + 1 and are
+        # rewritten before any later query attends them
+        step = active.long() * (m + 1)
+        emitted, pos, rounds = emitted + step, pos + step, \
+            rounds + active.long()
+        if not torch.compiler.is_exporting() and not bool(
+                emitted < max_new):
+            break
+    return {"Out": [buf[:, :t_prompt + max_new]],
+            "Rounds": [rounds.to(torch.int32)],
+            "Emitted": [torch.clamp(emitted, max=max_new).to(torch.int32)]}

@@ -1,7 +1,9 @@
 """paddle_tpu_torch.serving — the bucketed model server (port of
 ``paddle_tpu.serving``): dynamic micro-batching over pre-declared shape
 buckets, admission control, health and serving metrics. Continuous
-decode batching arrives with the generation slice.
+decode batching (the decode engine, its page allocator, schedulers and
+overload control) arrives with ROADMAP.md item 'Generation and the paged
+decode engine' (4b) and is refused by name.
 
     from paddle_tpu_torch import serving
     eng = serving.ServingEngine(program, ["tokens"], [logits], scope=scope,
@@ -10,6 +12,7 @@ decode batching arrives with the generation slice.
     eng.warmup()
     out = eng.infer({"tokens": toks})          # toks: [1, T]
 """
+from ..waiting import DECODE, module_getattr
 from .batching import (MicroBatcher, PendingResult, QueueFullError,  # noqa: F401
                        RequestTimeoutError, ServerClosedError,
                        ServingError)
@@ -25,3 +28,11 @@ __all__ = ["BucketError", "BucketSpec", "CircuitBreaker",
            "ServerClosedError", "ServiceUnavailableError", "ServingError",
            "ServingConfig", "ServingEngine", "ServingMetrics",
            "WorkerDiedError"]
+
+WAITING = dict.fromkeys((
+    "AdmissionController", "BrownoutController", "DecodeConfig",
+    "DecodeEngine", "DecodeRequest", "FIFOScheduler", "PRIORITIES",
+    "PageAllocator", "PagesExhaustedError", "RetryBudget",
+    "RetryBudgetExhaustedError", "SLOClass", "SLOScheduler",
+    "get_scheduler", "priority_rank"), DECODE)
+__getattr__ = module_getattr(__name__, WAITING)

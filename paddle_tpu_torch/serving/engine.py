@@ -63,7 +63,7 @@ import warnings
 
 import numpy as np
 
-from ..core.executor import CUDAPlace, Executor, Scope, global_scope
+from ..core.executor import Executor, Scope, default_place, global_scope
 from ..resilience import faultinject as _faultinject
 from ..resilience.retry import (RetryPolicy, TransientDeviceError,
                                 default_policy, with_retries)
@@ -170,7 +170,7 @@ class ServingEngine:
         # building them when a peer process (or an export-time seeding
         # pass) already persisted them. None defers to
         # PADDLE_TPU_ARTIFACT_DIR; False disables outright.
-        self.exe = Executor(place if place is not None else CUDAPlace(0),
+        self.exe = Executor(place if place is not None else default_place(),
                             retry_policy=RetryPolicy(max_attempts=1),
                             compile_store=compile_store)
         # graph rewrites on the serving hot path (analysis/optimize.py:
@@ -248,7 +248,7 @@ class ServingEngine:
         else no store."""
         from .. import io as fluid_io
         from ..io.artifact_store import EMBEDDED_DIRNAME
-        place = place if place is not None else CUDAPlace(0)
+        place = place if place is not None else default_place()
         scope = Scope()
         exe = Executor(place)
         # the target scope is passed explicitly — a guard swap of the

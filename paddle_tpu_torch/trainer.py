@@ -29,7 +29,7 @@ import torch
 from . import io as fluid_io
 from . import optimizer as optimizer_mod
 from .core import framework, unique_name
-from .core.executor import CUDAPlace, Executor, Scope, scope_guard
+from .core.executor import Executor, Scope, default_place, scope_guard
 from .data_feeder import DataFeeder
 from .resilience import checkpoint as _ckpt
 from .resilience import faultinject
@@ -109,7 +109,7 @@ class Trainer:
 
     def __init__(self, train_func, optimizer_func, param_path=None,
                  place=None, parallel=False, checkpoint_config=None):
-        self._place = place if place is not None else CUDAPlace(0)
+        self._place = place if place is not None else default_place()
         self._parallel = parallel
         self._stop = False
         self._checkpoint_cfg = checkpoint_config

@@ -23,7 +23,7 @@ the name-taking policy factories and the host-offload policies.
 from ..core import framework
 from ..core.lowering import remat_saves
 
-__all__ = ["memory_optimize"]
+__all__ = ["memory_optimize", "release_memory"]
 
 _ANALYZERS = ("ROADMAP.md item 'Fleet and analyzers': analysis/cost.py's "
               "static residual analysis")
@@ -46,3 +46,10 @@ def memory_optimize(input_program=None, skip_opt_set=None, print_log=False,
     program._remat_policy = policy
     program._bump()
     return program
+
+
+def release_memory(input_program=None, skip_opt_set=None):
+    """fluid-compat alias, as the reference's: there are no intermediate
+    buffers to release at the Python level (a train step donates its
+    state); returns the program."""
+    return input_program or framework.default_main_program()

@@ -11,6 +11,7 @@ atol 1e-4, tests/test_torch_llama_serving.py's), at batch 1 — which
 other batch sizes.
 """
 import ast
+import dataclasses
 import inspect
 import json
 import os
@@ -267,3 +268,101 @@ def test_predictor_needs_no_program_ir():
         if isinstance(n, ast.Attribute)}
     assert not names & {"framework", "registry", "lowering",
                         "lower_program", "Program", "get_op"}
+
+
+GEN_CFG = dict(vocab_size=64, dim=32, n_layers=2, n_heads=4, n_kv_heads=2,
+               ffn_hidden=64, dtype="float32")
+
+
+def _gen_program(build, prompt_len, **kw):
+    prog, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(prog, startup):
+        ptok = tfluid.layers.data(name="ptok", shape=[-1, prompt_len],
+                                  dtype="int64", append_batch_size=False)
+        out = build(ptok, **kw)
+    return prog, startup, out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_aot_exports_llama_generator(tmp_path, quant):
+    """The generator program (prefill and the decode loop, int8 weights
+    too) exports with no warning, and the predictor's greedy tokens
+    equal the executor's (reference tests/test_aot_export.py:260)."""
+    import warnings
+    cfg = tllama.LlamaConfig(**GEN_CFG)
+    prompt_len, new = 6, 5
+    prog, startup, out = _gen_program(
+        lambda p, **kw: tllama.build_llama_generator(cfg, p, **kw),
+        prompt_len, max_new_tokens=new, quantize=quant)
+    d = str(tmp_path / ("gen_int8" if quant else "gen_f32"))
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    prompt = (np.arange(2 * prompt_len).reshape(2, prompt_len)
+              % (cfg.vocab_size - 4)).astype(np.int64)
+    with tfluid.scope_guard(tfluid.Scope()):
+        exe.run(startup)
+        if quant:
+            tllama.quantize_generator_weights()
+        want = exe.run(prog, feed={"ptok": prompt}, fetch_list=[out],
+                       mode="test")[0]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            tfluid.io.save_inference_model(d, ["ptok"], [out], exe,
+                                           main_program=prog)
+    got = aot.load_compiled_predictor(d, device="cpu").run(
+        {"ptok": prompt})[0]
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (2, prompt_len + new)
+
+
+def test_spec_decode_aot_exports(tmp_path):
+    """The greedy speculative program (two caches, a bounded round loop)
+    exports with no warning — greedy draws nothing — and the predictor
+    reproduces the executor's tokens (reference
+    tests/test_spec_decode.py:169)."""
+    import warnings
+    target = tllama.LlamaConfig(**dict(GEN_CFG, vocab_size=97))
+    draft = tllama.LlamaConfig(vocab_size=97, dim=16, n_layers=1,
+                               n_heads=2, n_kv_heads=1, ffn_hidden=32,
+                               dtype="float32")
+    prog, startup, out = _gen_program(
+        lambda p, **kw: tllama.build_llama_spec_generator(target, draft, p,
+                                                          **kw),
+        7, max_new_tokens=5, gamma=2)
+    d = str(tmp_path / "spec_model")
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    prompt = (np.arange(14).reshape(2, 7) % 94).astype(np.int64)
+    with tfluid.scope_guard(tfluid.Scope()):
+        exe.run(startup)
+        want = exe.run(prog, feed={"ptok": prompt}, fetch_list=[out],
+                       mode="test")[0]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            tfluid.io.save_inference_model(d, ["ptok"], [out], exe,
+                                           main_program=prog)
+    got = aot.load_compiled_predictor(d, device="cpu").run(
+        {"ptok": prompt})[0]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sampled_spec_aot_export_warns_fixed_seed(tmp_path):
+    """Exporting a SAMPLED speculative program warns that the graph uses
+    one fixed seed, naming the op (reference
+    tests/test_spec_decode.py:521); a greedy one does not (above)."""
+    import warnings
+    tiny = tllama.LlamaConfig(vocab_size=24, dim=16, n_layers=1, n_heads=2,
+                              n_kv_heads=1, ffn_hidden=32, dtype="float32")
+    small = dataclasses.replace(tiny, dim=8, ffn_hidden=16)
+    prog, startup, out = _gen_program(
+        lambda p, **kw: tllama.build_llama_spec_generator(tiny, small, p,
+                                                          **kw),
+        7, max_new_tokens=4, gamma=2, temperature=0.9)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    with tfluid.scope_guard(tfluid.Scope()):
+        exe.run(startup)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            tfluid.io.save_inference_model(str(tmp_path / "m"), ["ptok"],
+                                           [out], exe, main_program=prog)
+    msgs = [str(x.message) for x in w]
+    assert any("FIXED seed" in m and "llama_spec_generate" in m
+               for m in msgs), msgs

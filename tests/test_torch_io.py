@@ -398,3 +398,93 @@ def test_dataclass_configs_are_the_same():
     assert dataclasses.asdict(ttf.TRANSFORMER_TINY) == \
         dataclasses.asdict(jtf.TRANSFORMER_TINY)
     assert vars(tllama.LLAMA_TINY) == vars(jllama.LLAMA_TINY)
+
+
+DECODE_CFG = dict(vocab_size=64, dim=32, n_layers=2, n_heads=4,
+                  n_kv_heads=2, ffn_hidden=64)
+
+
+def _decode_generator(fluid, llama, cfg):
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        ptok = fluid.layers.data(name="ptok", shape=[-1, 6], dtype="int64",
+                                 append_batch_size=False)
+        out = llama.build_llama_generator(cfg, ptok, max_new_tokens=4)
+    return prog, startup, out
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_decode_model_crosses_both_ways(tmp_path, direction):
+    """save_decode_model / load_decode_model (llama_config.json and one
+    params.npz) written by one package load in the other: the config and
+    every tensor equal (a quantized scope: int8 weights, their float32
+    scales, the float32 embedding and norms), and the loaded scope
+    generates the writer's int8 tokens."""
+    d = str(tmp_path / "decode")
+    prompt = np.random.RandomState(2).randint(0, 60, (2, 6)) \
+        .astype(np.int64)
+    jcfg = jllama.LlamaConfig(**DECODE_CFG, dtype="float32")
+    tcfg = tllama.LlamaConfig(**DECODE_CFG, dtype="float32")
+    _, jstart, _ = _decode_generator(jfluid, jllama, jcfg)
+    jexe = jfluid.Executor(jfluid.CPUPlace())
+    texe = tfluid.Executor(tfluid.CPUPlace())
+    jscope = jfluid.Scope()
+    jexe.run(jstart, scope=jscope)
+    jllama.quantize_generator_weights(jscope)
+    arrays = {n: np.asarray(jscope.find_var(n)) for n in jscope.keys()}
+    if direction == "jax_to_port":
+        jllama.save_decode_model(d, jcfg, jscope)
+        cfg, scope = tllama.load_decode_model(d)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        got = {n: weights.tensor_to_array(scope.find_var(n))
+               for n in scope.keys()}
+    else:
+        tllama.save_decode_model(
+            d, tcfg, weights.load_state(tfluid.Scope(), arrays, CPU))
+        cfg, scope = jllama.load_decode_model(d)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
+        got = {n: np.asarray(scope.find_var(n)) for n in scope.keys()}
+    assert sorted(got) == sorted(arrays)
+    for n, a in arrays.items():
+        assert got[n].dtype == a.dtype, n
+        np.testing.assert_array_equal(got[n], a)
+    # the int8 scope generates alike in both packages
+    jq = _quantized_generator(jfluid, jllama, jcfg)
+    tq = _quantized_generator(tfluid, tllama, tcfg)
+    want = np.asarray(jexe.run(jq[0], feed={"ptok": prompt},
+                               fetch_list=[jq[1]], scope=jscope,
+                               mode="test")[0])
+    tscope = weights.load_state(tfluid.Scope(), got, CPU)
+    np.testing.assert_array_equal(
+        texe.run(tq[0], feed={"ptok": prompt}, fetch_list=[tq[1]],
+                 scope=tscope, mode="test")[0], want)
+
+
+def _quantized_generator(fluid, llama, cfg):
+    prog = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog,
+                                                        fluid.Program()):
+        ptok = fluid.layers.data(name="ptok", shape=[-1, 6], dtype="int64",
+                                 append_batch_size=False)
+        out = llama.build_llama_generator(cfg, ptok, max_new_tokens=4,
+                                          quantize=True)
+    return prog, out
+
+
+def test_bfloat16_decode_model_round_trip(tmp_path):
+    """A bfloat16 decode model saved by the port: params.npz holds the
+    2-byte void members numpy writes for the reference's arrays, and
+    load_decode_model gives every tensor back bit for bit."""
+    cfg = tllama.LlamaConfig(**DECODE_CFG, dtype="bfloat16")
+    _, startup, _ = _decode_generator(tfluid, tllama, cfg)
+    scope = tfluid.Scope()
+    tfluid.Executor(tfluid.CPUPlace()).run(startup, scope=scope)
+    d = tllama.save_decode_model(str(tmp_path / "bf16"), cfg, scope)
+    data = np.load(os.path.join(d, "params.npz"))
+    assert all(data[k].dtype.str == "|V2" for k in data.files)
+    cfg2, back = tllama.load_decode_model(d)
+    assert cfg2 == cfg and sorted(back.keys()) == sorted(scope.keys())
+    for n in scope.keys():
+        a, b = scope.find_var(n), back.find_var(n)
+        assert b.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), n

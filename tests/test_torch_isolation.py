@@ -86,6 +86,9 @@ import paddle_tpu_torch.resilience.checkpoint, paddle_tpu_torch.reader
 import paddle_tpu_torch.reader.decorator, paddle_tpu_torch.trainer
 import paddle_tpu_torch.inferencer, paddle_tpu_torch.data_feeder
 import paddle_tpu_torch.layers.io
+import paddle_tpu_torch.ops.moe, paddle_tpu_torch.models.llama_import
+import paddle_tpu_torch.waiting, paddle_tpu_torch.layers.transformer
+import paddle_tpu_torch.ops.transformer_ops
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                     "ml_dtypes"))
@@ -249,6 +252,28 @@ def test_later_slices_refuse_loudly():
         zoo.build_zoo_program("resnet")
     with pytest.raises(NotImplementedError, match="Remaining op families"):
         zoo.build_zoo_program("machine_translation")
+    # item 4a (the fused generator) lifted: the generator builders, their
+    # layers and the weight tools resolve; still refused, by name: the
+    # paged decode programs, layers and serving names (item 4b), the mesh
+    # knobs and MoE (item 6)
+    from paddle_tpu_torch.models import llama as tllama
+    for name in ("build_llama_generator", "build_llama_spec_generator",
+                 "quantize_generator_weights", "stack_generator_weights",
+                 "copy_weights_as_draft", "save_decode_model",
+                 "load_decode_model"):
+        assert callable(getattr(tllama, name))
+    for name in ("llama_generate", "llama_spec_generate"):
+        assert callable(getattr(fluid.layers, name))
+    decode = "Generation and the paged decode engine"
+    for mod, name in ((tllama, "build_llama_paged_programs"),
+                      (fluid.layers, "llama_paged_decode"),
+                      (fluid.serving, "DecodeEngine"),
+                      (fluid.serving, "PageAllocator")):
+        with pytest.raises(NotImplementedError, match=decode):
+            getattr(mod, name)
+    tokens = infer.global_block().var("tokens")
+    with pytest.raises(NotImplementedError, match="Multi-device"):
+        tllama.build_llama_generator(LLAMA_TINY, tokens, 4, shard_tp=True)
     # item 3 (IO, persistables and Inferencer) lifted: the load op runs;
     # still refused, by name: decode serving (item 4), replica pools and
     # remote replicas (item 8), sequence readers and feeders (item 7)
@@ -306,3 +331,80 @@ def test_io_entry_points_default_to_the_card(tmp_path):
         fluid.io.load_compiled_predictor(d)
     with pytest.raises(RuntimeError, match=cuda):
         fluid.io.DeviceLoader(lambda: iter([]))
+
+
+def test_f7_names_resolve(monkeypatch):
+    """F7: the reference's top-level ``force_cpu`` and ``release_memory``
+    and the ported model modules resolve. ``force_cpu()`` makes the host
+    the default place of the process's entry points (an explicit place
+    still wins); ``release_memory`` returns the program, as the
+    reference's."""
+    from paddle_tpu_torch.core import executor
+    monkeypatch.setattr(executor, "_FORCED_CPU", False)
+    import paddle_tpu_torch.models as models
+    for name in ("llama", "llama_import", "transformer", "mnist",
+                 "fit_a_line", "zoo"):
+        assert getattr(models, name).__name__ == \
+            f"paddle_tpu_torch.models.{name}"
+    main = fluid.Program()
+    assert fluid.release_memory(main) is main
+    assert fluid.transpiler.release_memory(main) is main
+    fluid.force_cpu()
+    assert fluid.Executor().device == torch.device("cpu")
+    assert executor.default_place().device == torch.device("cpu")
+    from paddle_tpu_torch.analysis.optimize import default_fold_device
+    assert default_fold_device() == torch.device("cpu")
+    infer, _, logits = _tiny_program()
+    engine = ServingEngine(infer, ["tokens"], [logits], auto_start=False)
+    assert engine.exe.device == torch.device("cpu")
+    engine.close()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fluid.Executor(fluid.CUDAPlace(0))
+
+
+def _reference_modules():
+    """Every module of the JAX package that has a port file, by dotted
+    name under the package (``""`` the package itself)."""
+    names = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(PORT)
+        if not (REPO / "paddle_tpu" / rel).exists():
+            continue
+        parts = list(rel.with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+@pytest.mark.parametrize("mod", _reference_modules(),
+                         ids=lambda m: m or "paddle_tpu")
+def test_reference_names_resolve_or_refuse(mod):
+    """F7's scan: every public name of a reference module that has a port
+    file (its ``__all__``, else the names the module defines itself, or,
+    for the package, every public attribute) is a value in the port, or
+    raises NotImplementedError naming the ROADMAP item that ports it —
+    never a bare AttributeError."""
+    import importlib
+    import types
+    ref = importlib.import_module("paddle_tpu" + (f".{mod}" if mod else ""))
+    port = importlib.import_module(
+        "paddle_tpu_torch" + (f".{mod}" if mod else ""))
+    if hasattr(ref, "__all__"):
+        names = list(ref.__all__)
+    elif not mod:
+        names = [n for n in dir(ref) if not n.startswith("_")]
+    else:
+        names = [n for n, v in vars(ref).items() if not n.startswith("_")
+                 and not isinstance(v, types.ModuleType)
+                 and getattr(v, "__module__", ref.__name__) == ref.__name__]
+    missing = []
+    for name in names:
+        try:
+            getattr(port, name)
+        except NotImplementedError as e:
+            assert "ROADMAP.md item '" in str(e), (name, str(e))
+        except AttributeError:
+            missing.append(name)
+    assert not missing, f"{port.__name__} lacks {missing}"

@@ -736,3 +736,105 @@ def test_device_loader_copies_on_a_side_stream():
         losses[mode] = [exe.run(main, feed=f, fetch_list=[loss],
                                 scope=scope)[0].item() for f in src]
     assert losses["loader"] == losses["host"]
+
+
+def _exact_product(eq, a, b):
+    """The exact int64 product of two int8 tensors, on the CPU (float64
+    sums of integers far below 2**53 are exact)."""
+    return torch.einsum(eq, a.cpu().double(), b.cpu().double()).long()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (14336, 4096)])
+def test_qmat_int8_product_exact_on_the_card(m, k, n):
+    """qmat's int8 x int8 -> int32 product (``int8_mm``: torch._int_mm,
+    fewer than 17 rows padded with zero rows) at the decode step's row
+    counts and the 8B width's inner sizes equals the exact product, with
+    the extreme values the quantization gives (+-127)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the int8 GEMM runs there")
+    from paddle_tpu_torch.ops import transformer_ops as tops
+    g = torch.Generator(device="cuda").manual_seed(m * k)
+    a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                      dtype=torch.int8)
+    a[0] = 127
+    b[:, 0] = 127                      # one sum of k products of 127**2
+    got = tops.int8_mm(a, b)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu().long(), _exact_product("mk,kn->mn", a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eq,a_shape,b_shape", [
+    ("bqgrd,bkgd->bgrqk", (2, 3, 8, 4, 1500), (2, 64, 8, 1500)),
+    ("bgrqk,bkgd->bqgrd", (2, 8, 4, 3, 3000), (2, 3000, 8, 128))])
+def test_int8_kv_contraction_exact_on_the_card(eq, a_shape, b_shape):
+    """The int8 KV cache's contractions (``int8_einsum``: float32 products
+    in chunks of at most 1040 terms) past 1040 terms, where one float32
+    sum of 127**2-sized products would round, equal the exact product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.ops import transformer_ops as tops
+    g = torch.Generator(device="cuda").manual_seed(7)
+    sign = lambda s: (torch.randint(0, 2, s, generator=g,  # noqa: E731
+                                    device="cuda") * 254 - 127).to(
+                                        torch.int8)
+    a, b = sign(a_shape), sign(b_shape)
+    got = tops.int8_einsum(eq, a, b)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu().long(), _exact_product(eq, a, b))
+
+
+@pytest.mark.gpu
+def test_generator_on_the_card_matches_the_cpu():
+    """A float32 generator (head dim 128, TF32 off) on the card: greedy
+    tokens equal the CPU's (a seeded model whose margins are far above
+    float32's rounding) and FirstProbs within rtol 1e-4 / atol 1e-6; its
+    int8 forms (quantize, kv_int8) run on the card and echo the
+    prompt."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               build_llama_generator,
+                                               quantize_generator_weights)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, ffn_hidden=512, dtype="float32")
+    progs = {}
+    for name, kw in (("f32", {}), ("int8", dict(quantize=True)),
+                     ("kv8", dict(kv_int8=True))):
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+            ptok = fluid.layers.data(name="ptok", shape=[-1, 16],
+                                     dtype="int64", append_batch_size=False)
+            progs[name] = (prog, startup, build_llama_generator(
+                cfg, ptok, max_new_tokens=8, return_probs=True, **kw))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    cpu.run(progs["f32"][1], scope=scope)
+    prompt = np.random.RandomState(0).randint(0, 512, (3, 16)) \
+        .astype(np.int64)
+    prog, _, (out, probs) = progs["f32"]
+    want, wprobs = cpu.run(prog, feed={"ptok": prompt},
+                           fetch_list=[out, probs], scope=scope,
+                           mode="test")
+    card_scope = fluid.Scope()
+    for n in scope.keys():
+        card_scope.set(n, scope.find_var(n).cuda())
+    card = fluid.Executor()
+    got, gprobs = card.run(prog, feed={"ptok": prompt},
+                           fetch_list=[out, probs], scope=card_scope,
+                           mode="test")
+    np.testing.assert_allclose(gprobs, wprobs, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(got, want)
+    for name in ("kv8", "int8"):
+        if name == "int8":
+            quantize_generator_weights(card_scope)
+        prog, _, (out, _) = progs[name]
+        toks = card.run(prog, feed={"ptok": prompt}, fetch_list=[out],
+                        scope=card_scope, mode="test")[0]
+        np.testing.assert_array_equal(toks[:, :16], prompt)
+        assert ((toks >= 0) & (toks < 512)).all()

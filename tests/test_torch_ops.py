@@ -104,8 +104,10 @@ NN_REST = {"layer_norm", "group_norm", "dropout",
 REWRITE = {"fused_elementwise"}
 # ROADMAP item 3: IO, persistables and Inferencer
 IO = {"load"}
+# ROADMAP item 4a: the fused KV-cache generators
+GENERATE = {"llama_generate", "llama_spec_generate"}
 PORTED = (LLAMA_SLICES | BASIC_REST | NN_REST | {"sequence_mask"}
-          | OPTIMIZER_RULES | REWRITE | IO)
+          | OPTIMIZER_RULES | REWRITE | IO | GENERATE)
 
 
 def test_port_registers_exactly_the_slice_ops():
@@ -130,7 +132,7 @@ STILL_REFUSED = {
     "sequence_pool": "Remaining op families and the zoo",
     "sequence_pad": "Remaining op families and the zoo",
     "row_conv": "Remaining op families and the zoo",
-    "llama_generate": "Generation and the paged decode engine",
+    "llama_paged_decode": "Generation and the paged decode engine",
     "moe_ffn": "Multi-device parallelism",
 }
 
@@ -148,6 +150,18 @@ def test_every_reference_op_is_ported_or_named_as_waiting():
     ref = set(jax_registry.registered_ops())
     assert set(pt_registry.WAITING) == ref - PORTED
     assert not set(pt_registry.WAITING) & PORTED
+
+
+def test_registry_counts():
+    """253 reference ops: 163 ported, 90 named as waiting; both
+    generators registered ``stateful`` (they draw at temperature > 0),
+    as in the reference."""
+    ref = set(jax_registry.registered_ops())
+    assert (len(ref), len(PORTED), len(pt_registry.WAITING)) == \
+        (253, 163, 90)
+    for op in GENERATE:
+        assert pt_registry.get_op(op).stateful
+        assert jax_registry.get_op(op).stateful
 
 
 def test_double_registration_is_loud():

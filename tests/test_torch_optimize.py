@@ -5,8 +5,9 @@ against the JAX package's.
 Mirrors tests/test_optimize_rewrites.py's TestFold, TestFuse (with
 ``test_fused_elementwise_gradients_bit_exact``), TestPassSelection and
 TestServingOptimize (the ServingEngine; the decode engine comes with
-ROADMAP.md item 'Generation and the paged decode engine'; the ``load``
-fold case with item 'IO, persistables and Inferencer'). Every case
+ROADMAP.md item 'Generation and the paged decode engine', 4b), with
+``test_load_op_never_folds`` (the ``load`` op, ported with item 'IO,
+persistables and Inferencer'). Every case
 asserts on the port what the reference case asserts, and that both
 packages' reports (every folded/fused/merged/removed record) and the
 op-type sequence after the rewrite are the same.
@@ -241,6 +242,28 @@ class TestFold:
             gb.append_op("scale", inputs={"X": [x.name]},
                          outputs={"Out": ["y"]}, attrs={"scale": 1.0})
         assert _optimize_both(build, ["y"])[2].n_folded == 0
+
+    def test_load_op_never_folds(self, tmp_path):
+        """``load`` reads the filesystem: folding would pin the file's
+        optimize-time contents instead of its run-time contents. Neither
+        package folds it, and the port's run reads the file as it is at
+        run time."""
+        path = str(tmp_path / "w.npy")
+        np.save(path, np.ones((4,), np.float32))
+
+        def build(fluid):
+            gb = _gb(fluid)
+            _var(fluid, "w")
+            gb.append_op("load", outputs={"Out": ["w"]},
+                         attrs={"file_path": path})
+            _var(fluid, "y")
+            gb.append_op("scale", inputs={"X": ["w"]},
+                         outputs={"Out": ["y"]}, attrs={"scale": 2.0})
+        _, main, report, _ = _optimize_both(build, ["y"])
+        assert report.n_folded == 0 and "load" in _types(main)
+        np.save(path, np.full((4,), 5.0, np.float32))
+        np.testing.assert_array_equal(_run(main, ["y"])[0][0],
+                                      np.full((4,), 10.0, np.float32))
 
     def test_seq_aware_ops_never_fold(self):
         """The reference refuses to fold its seq-aware ops (``mul``

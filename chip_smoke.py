@@ -171,11 +171,36 @@ Phases — any failure exits non-zero:
    4 layers, exact wherever the margin exceeds the f32 tier (K1 on
    ``flash_fwd_f32mma``); prefill and per-token decode ms at batch 1
    and 4 beside the weights' read bound, speculative tokens/s, the
-   device's busy share over a 16-token batch-4 generate.
+   device's busy share over a 16-token batch-4 generate;
+22. head_dim_256 (the head-dim repair): the 8B width with 16 heads of
+   256 and 4 kv heads at 2 layers through ``build_llama`` →
+   ``Adam.minimize`` → ``Executor.run``: one bf16 train step at 2 x
+   2048 (K1, K2, K3 once a layer on ``flash_*_mma``, run in 128-column
+   slices), one ``ServingEngine`` dispatch of the trained scope, one
+   float32 train step at 1 x 256 (the ``_f32mma`` kernels); no launch
+   on the plain route; first losses near ln V + dim·0.02²/2;
+23. decode_engine (ROADMAP item 4b, the main path of this slice): the
+   8B width, all 32 layers in bf16, behind ``DecodeEngine`` built with
+   no place (the card): warmup, 24 requests of 40-256 prompt tokens and
+   64 new from 8 concurrent clients, every request's tokens against the
+   port's ``llama_generate`` of its prompt at batch 1 (a flip only where
+   the K1 recompute puts the two tokens within twice the row's
+   first-step logit error), no step build after warmup, the pools
+   written in place on the card, every page back after the drain; TTFT
+   p50/p99, decode ms a token a slot beside the weights' read bound,
+   tokens/s, the device's idle share over a shorter wave, the page
+   high-water mark; then chunked prefill (``chunk_size=128``), W8A8
+   (``quantize=True`` against the quantized generator) and speculative
+   mode (a 2-layer draft cut from the target, gamma 4) at max_batch 4,
+   and float32 at 4 layers, exact past the f32 tier.
+The kernels phase also checks K1-K3 at head dims 256 and 384 on both
+routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
+on its kernel symbol, and times them at the head_dim_256 phase's bf16
+and float32 shapes, whose rows the kernel line adds.
 The kernels phase also holds K1's operator (``flash_fwd_op``, what an
 exported graph calls) to the wrapper bit for bit and to the plain
-version, at Transformer-base's f32 D 64 shape and the 8B width's bf16
-serving shape.
+version, at Transformer-base's f32 D 64 shape, the 8B width's bf16
+serving shape and head dim 256 in bf16.
 Phase 4 also times the default optimize and the verifier at the
 32-layer program's construction, whose report must be empty (the
 reference rewrites nothing there). Every phase runs under
@@ -311,10 +336,6 @@ IO_STEPS, IO_EPOCH_STEPS, IO_KEEP = 6, 2, 3
 IO_TIMED_STEPS = 4              # steps timed with and without DeviceLoader
 IO_GOLDEN = 8                   # the golden set's requests
 IO_LLAMA_LAYERS = 2
-# the cases where K1's custom operator is held to the wrapper and the
-# plain version: Transformer-base's decoder (f32, D 64) and the 8B
-# width's serving shape (bf16, D 128)
-OP_CASES = (TF_CAUSAL_LABEL, "serving T=256")
 # ROADMAP item 4a (the fused KV-cache generator): the 8B width generates
 # GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows, and
 # the layer-stacked forward (K1) scores the generated sequence again
@@ -325,6 +346,41 @@ GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 GEN_SAMPLED_NEW = 16            # the sampled checks' new tokens
 GEN_PROFILED_NEW = 16           # the profiled generate's new tokens
 GEN_LABEL = "generate T=192"    # K1 in the recompute: B*H 4*32, T 192
+# head dims past 128 (the reference's Pallas gate takes D % 128 == 0):
+# the 8B width with HD256_HEADS heads (head dim 4096 / 16 = 256) and
+# HD256_KV kv heads (LLAMA3_8B's 4:1 GQA ratio), cut to HD256_LAYERS
+# layers, trains one bf16 step at TRAIN_BATCH x TRAIN_SEQ and one
+# float32 step at HD256_F32_BATCH x HD256_F32_SEQ, and serves one
+# dispatch; the kernels phase adds K1-K3 cases at D 256 and 384
+HD256_HEADS, HD256_KV, HD256_LAYERS = 16, 4, 2
+HD256_F32_BATCH, HD256_F32_SEQ = 1, 256
+HD256_LABEL = "D=256 training shape"
+HD256_F32_LABEL = "f32 D=256 train step"
+# K1 at the phase's served dispatch: one 200-token request in bucket
+# 256, B*H 1*16
+HD256_OP_LABEL = "bf16 D=256 serving T=256"
+# ROADMAP item 4b (the paged decode engine): the 8B width, all 32 layers
+# in bf16, behind DecodeEngine with DEC_CONFIG, DEC_REQUESTS requests of
+# DEC_PROMPT_RANGE prompt tokens (lengths and tokens from SEED + 7)
+# submitted by DEC_CLIENTS concurrent clients; float32 at
+# DEC_F32_LAYERS layers; quantize, speculative (the target as its own
+# draft, then a DEC_DRAFT_LAYERS-layer draft cut from the target, gamma
+# DEC_GAMMA) and chunked prefill
+# (DEC_CHUNK) once each at max_batch DEC_SMALL_BATCH
+DEC_CONFIG = dict(max_batch=8, prompt_buckets=(128, 256), max_new_tokens=64,
+                  page_size=16, decode_block=4, prefill_batch=4)
+DEC_REQUESTS, DEC_CLIENTS = 24, 8
+DEC_PROMPT_RANGE = (40, 256)
+DEC_F32_LAYERS, DEC_F32_REQUESTS = 4, 8
+DEC_SMALL_BATCH, DEC_SMALL_REQUESTS = 4, 4
+DEC_DRAFT_LAYERS, DEC_GAMMA, DEC_CHUNK = 2, 4, 128
+DEC_PROFILED_REQUESTS, DEC_PROFILED_NEW = 8, 16
+DEC_PAGE_SAMPLE_S = 0.005       # the page high-water mark's sampling
+# the cases where K1's custom operator is held to the wrapper and the
+# plain version: Transformer-base's decoder (f32, D 64), the 8B width's
+# serving shape (bf16, D 128) and the head_dim_256 phase's serving
+# shape (bf16, D 256)
+OP_CASES = (TF_CAUSAL_LABEL, "serving T=256", HD256_OP_LABEL)
 # the reference's int8-KV bounds (tests/test_llama_generate.py:533)
 KV8_MAX_DP, KV8_MAX_KL = 0.02, 1e-3
 DROPOUT_P = 0.1
@@ -503,6 +559,37 @@ def phase_kernels(torch, fa, seed):
         (TF_CAUSAL_LABEL, TF_BATCH * 8, TF_SEQ, TF_SEQ, 64, f32, True),
         (TF_CROSS_LABEL, TF_BATCH * 8, TF_SEQ // 2, TF_SEQ, 64, f32,
          False),
+        # head dims past 128, run in 128-column slices: the D = 256
+        # training, serving and f32 train-step shapes of the head_dim_256
+        # phase, T 128 and 2048, causal and not, tq != tk, ragged; D = 384
+        (HD256_OP_LABEL, HD256_HEADS, 256, 256, 256, bf16, True),
+        ("bf16 D=256 T=128 causal", 8, 128, 128, 256, bf16, True),
+        ("bf16 D=256 T=128 non-causal", 8, 128, 128, 256, bf16, False),
+        (HD256_LABEL, TRAIN_BATCH * HD256_HEADS, TRAIN_SEQ, TRAIN_SEQ, 256,
+         bf16, True),
+        ("bf16 D=256 T=2048 non-causal", 4, TRAIN_SEQ, TRAIN_SEQ, 256, bf16,
+         False),
+        ("bf16 D=256 tq<tk causal", 8, 128, 256, 256, bf16, True),
+        ("bf16 D=256 tq>tk causal (fully masked rows)", 8, 256, 128, 256,
+         bf16, True),
+        ("bf16 D=256 ragged T=200 causal", 8, 200, 200, 256, bf16, True),
+        ("fp16 D=256 ragged T=200 non-causal", 8, 200, 200, 256, f16,
+         False),
+        ("f32 D=256 T=128 causal", 8, 128, 128, 256, f32, True),
+        ("f32 D=256 T=128 non-causal", 8, 128, 128, 256, f32, False),
+        (HD256_F32_LABEL, HD256_F32_BATCH * HD256_HEADS, HD256_F32_SEQ,
+         HD256_F32_SEQ, 256, f32, True),
+        ("f32 D=256 T=2048 causal", 4, TRAIN_SEQ, TRAIN_SEQ, 256, f32, True),
+        ("f32 D=256 tq<tk causal", 8, 128, 256, 256, f32, True),
+        ("f32 D=256 tq>tk causal (fully masked rows)", 8, 256, 128, 256,
+         f32, True),
+        ("f32 D=256 ragged T=200 non-causal", 8, 200, 200, 256, f32, False),
+        ("bf16 D=384 causal", 8, 256, 256, 384, bf16, True),
+        ("bf16 D=384 ragged T=200 non-causal", 8, 200, 200, 384, bf16,
+         False),
+        ("f32 D=384 causal", 8, 256, 256, 384, f32, True),
+        ("f32 D=384 tq>tk causal (fully masked rows)", 8, 256, 128, 384, f32,
+         True),
     ]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -546,7 +633,8 @@ def phase_kernels(torch, fa, seed):
         if not ok:
             failures.append(label)
         results[label] = dict(
-            inputs=(q, k, v, do, causal), heads=8 if d == 64 else None,
+            inputs=(q, k, v, do, causal),
+            heads={64: 8, 256: HD256_HEADS}.get(d),
             err_fwd=max(errs["O"][1], errs["lse"][1]), err_dq=errs["dQ"][1],
             err_dkv=max(errs["dK"][1], errs["dV"][1]))
         if label == TRAIN_LABEL and ok:
@@ -571,7 +659,10 @@ def phase_kernels(torch, fa, seed):
                          ("f32 causal", ("fwd", "dq", "dkv")),
                          (F32_LONG_LABEL, ("fwd", "dq", "dkv")),
                          (TF_CAUSAL_LABEL, ("fwd", "dq", "dkv")),
-                         (TF_CROSS_LABEL, ("fwd", "dq", "dkv"))):
+                         (TF_CROSS_LABEL, ("fwd", "dq", "dkv")),
+                         (HD256_LABEL, ("fwd", "dq", "dkv")),
+                         (HD256_OP_LABEL, ("fwd",)),
+                         (HD256_F32_LABEL, ("fwd", "dq", "dkv"))):
         timing.update(time_kernels(torch, fa, results[label], label, kinds,
                                    flush))
     del flush, results
@@ -3473,6 +3564,600 @@ def phase_generate(torch, fluid, fa, card):
     return by_kernel, stats
 
 
+def phase_head_dim_256(torch, fluid, fa, card):
+    """Head dims past 128 on the main path: the 8B width with
+    HD256_HEADS heads (head dim 256) and HD256_KV kv heads, cut to
+    HD256_LAYERS layers, through ``build_llama`` → ``Adam(1e-4)`` →
+    ``Executor.run``: one bf16 train step at TRAIN_BATCH x TRAIN_SEQ (K1,
+    K2 and K3 once a layer on the 16-bit tensor-core kernels, in
+    128-column slices), one ``ServingEngine`` dispatch of that scope's
+    test clone (K1 once a layer), and one float32 train step at
+    HD256_F32_BATCH x HD256_F32_SEQ with TF32 off (the split-operand
+    kernels); every launch on its kernel symbol, none on the plain
+    route, finite losses near ln V + dim·0.02²/2. Returns ({"bf16": ...,
+    "f32": ...} launches by kernel symbol, stats)."""
+    from paddle_tpu_torch.models.llama import LLAMA3_8B, build_llama
+    from paddle_tpu_torch.serving import BucketSpec, ServingEngine
+    tag = "head_dim_256"
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=HD256_LAYERS,
+                              n_heads=HD256_HEADS, n_kv_heads=HD256_KV)
+    d = cfg.dim // cfg.n_heads
+    check(d == 256, f"{tag}: head dim {d}")
+    expected = math.log(cfg.vocab_size) + cfg.dim * INIT_STD ** 2 / 2
+    stats = {"head_dim": d, "layers": cfg.n_layers, "heads": cfg.n_heads,
+             "kv_heads": cfg.n_kv_heads, "first_loss_expected": expected,
+             "card": card}
+    launches = {}
+
+    def one_step(name, cfg_, batch, seq, kernels):
+        main, startup, loss = build_train(fluid, cfg_, 1e-4)
+        scope = fluid.Scope()
+        exe = fluid.Executor()                 # the card: CUDAPlace(0)
+        exe.run(startup, scope=scope)
+        feed = train_feed(cfg_.vocab_size, batch, seq)
+        # the main path: counts reset just before, read just after
+        fa.reset_launch_counts()
+        out, ms = timed(torch, lambda: exe.run(main, feed=feed,
+                                               fetch_list=[loss],
+                                               scope=scope))
+        by_kernel = launches_by_kernel(fa)
+        first = float(np.asarray(out[0]).reshape(()))
+        check(math.isfinite(first) and abs(first - expected) < 0.5,
+              f"{tag} {name}: first loss {first:.4f} not within 0.5 of "
+              f"{expected:.4f}")
+        for sym in kernels:
+            check(by_kernel[sym] == cfg_.n_layers,
+                  f"{tag} {name}: {sym} launched {by_kernel[sym]} times, "
+                  f"not once a layer ({cfg_.n_layers}): {by_kernel}")
+        plain = {k: n for k, n in by_kernel.items() if "plain" in k and n}
+        others = {k: n for k, n in by_kernel.items()
+                  if k not in kernels and "plain" not in k and n}
+        check(not plain and not others,
+              f"{tag} {name}: launches off the {kernels}: {by_kernel}")
+        stats[name] = {"batch": batch, "seq": seq, "first_loss": first,
+                       "step_ms": ms, "launches_by_kernel": by_kernel}
+        log(f"{tag} {name}: head dim {d}, {cfg_.n_layers} layers, "
+            f"{batch} x {seq}: loss {first:.4f} (expected {expected:.4f}), "
+            f"{ms:.1f} ms, launches {by_kernel}")
+        return main, scope, exe, by_kernel
+
+    # bf16: a train step, then one served dispatch of the trained scope
+    _, scope, exe, by_kernel = one_step(
+        "bf16 train", cfg, TRAIN_BATCH, TRAIN_SEQ,
+        ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"))
+    launches["bf16"] = by_kernel
+    serve_p, serve_s = fluid.Program(), fluid.Program()
+    with fluid.program_guard(serve_p, serve_s), fluid.unique_name.guard():
+        tokens = fluid.layers.data(name="tokens", shape=[-1, -1],
+                                   dtype="int64", append_batch_size=False)
+        logits, _ = build_llama(cfg, tokens)
+    engine = ServingEngine(serve_p.clone(for_test=True), ["tokens"],
+                           [logits], scope=scope,
+                           buckets=BucketSpec(batch_sizes=(1,),
+                                              seq_lens={"tokens": (256,)}))
+    try:
+        fa.reset_launch_counts()
+        engine.warmup()
+        req = np.random.RandomState(SEED + 6).randint(
+            0, cfg.vocab_size, (1, 200)).astype(np.int64)
+        ans = engine.infer({"tokens": req}, timeout=600.0)
+        torch.cuda.synchronize()
+        served = launches_by_kernel(fa)
+        engine.assert_no_recompiles()
+    finally:
+        engine.close()
+    ans = np.asarray(ans[0], np.float32)
+    check(np.isfinite(ans).all() and ans.shape[-1] == cfg.vocab_size,
+          f"{tag} serve: logits {ans.shape}, finite "
+          f"{bool(np.isfinite(ans).all())}")
+    check(served["flash_fwd_mma"] == 2 * cfg.n_layers
+          and sum(served.values()) == 2 * cfg.n_layers,
+          f"{tag} serve: K1 launches {served}, not {cfg.n_layers} a "
+          "dispatch (warmup + one request) on flash_fwd_mma")
+    launches["serve"] = served
+    stats["serve"] = {"launches_by_kernel": served}
+    log(f"{tag} serve: one request of 200 tokens (bucket 256), K1 "
+        f"{served['flash_fwd_mma']} launches on flash_fwd_mma")
+    del scope, exe, engine
+    free_card(torch)
+
+    # float32 with TF32 off: the split-operand kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, scope, exe, by_kernel = one_step(
+        "f32 train", dataclasses.replace(cfg, dtype="float32"),
+        HD256_F32_BATCH, HD256_F32_SEQ,
+        ("flash_fwd_f32mma", "flash_bwd_dq_f32mma", "flash_bwd_dkv_f32mma"))
+    launches["f32"] = by_kernel
+    del scope, exe
+    free_card(torch)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: " + json.dumps(stats))
+    return launches, stats
+
+
+def dec_prompts(vocab, n, rng):
+    """``n`` prompts of DEC_PROMPT_RANGE tokens (lengths and tokens from
+    ``rng``)."""
+    lo, hi = DEC_PROMPT_RANGE
+    return [rng.randint(0, vocab, (int(n_tok),)).astype(np.int64)
+            for n_tok in rng.randint(lo, hi + 1, n)]
+
+
+def dec_reference(fluid, exe, scope, cfg, prompt, fwd, new, **gen_kw):
+    """The port's own ``llama_generate`` of ``prompt`` at batch 1 (its
+    generated tokens and FirstProbs), and the float32 logits [T, V] of
+    ``fwd`` (the K1 recompute, ``build_llama(shard_pp=True)``) over the
+    generated sequence. Returns (tokens, first probs, logits)."""
+    gen_p, _, (out_v, probs_v) = gen_programs(
+        fluid, cfg, len(prompt), max_new_tokens=new, return_probs=True,
+        **gen_kw)
+    toks, probs = run_gen(exe, gen_p, [out_v, probs_v], scope, prompt[None])
+    logits = None if fwd is None else dec_recompute(exe, scope, fwd, toks[0])
+    return toks[0, len(prompt):], probs[0], logits
+
+
+def dec_recompute(exe, scope, fwd, seq):
+    """The float32 logits [T, V] of ``fwd`` (the K1 recompute,
+    ``build_llama(shard_pp=True)``) over the token sequence ``seq``."""
+    fwd_p, logits_v = fwd
+    return exe.run(fwd_p, feed={"ftok": np.asarray(seq)[None]},
+                   fetch_list=[logits_v], scope=scope, mode="test",
+                   return_numpy=False)[0][0].float()
+
+
+def dec_margins(torch, logits, prompt_len, toks):
+    """Per generated token of ``toks`` (after a ``prompt_len``-token
+    prompt), how far the logits [T, V] at the position before it put it
+    below their argmax (0 where it is the argmax)."""
+    rows = logits[prompt_len - 1:prompt_len - 1 + len(toks)]
+    idx = torch.as_tensor(np.asarray(toks, np.int64), device=rows.device)
+    return rows.amax(-1) - rows.gather(1, idx[:, None])[:, 0]
+
+
+def dec_own_rule(torch, tag, exe, scope, fwd, prompt, got, allowed):
+    """``got`` (an engine's tokens after ``prompt``) against the K1
+    recompute of the engine's own sequence: at every position, the
+    token within ``allowed`` logits of the recompute's argmax. Then a
+    control, the same tokens after the prompt rolled by one position
+    (what an engine reading each prompt token's K/V one place off would
+    be conditioned on), which the rule must reject somewhere. Returns
+    (positions at the argmax, the largest margin / ``allowed``,
+    positions the control rejects)."""
+    m = dec_margins(torch, dec_recompute(
+        exe, scope, fwd, np.concatenate([prompt, got])), len(prompt), got)
+    j = int(m.argmax())
+    check(float(m[j]) <= allowed,
+          f"{tag}: token {j} is {int(got[j])}, {float(m[j]):.3e} below the "
+          f"argmax of the recompute of the engine's own sequence, past "
+          f"{allowed:.3e}")
+    ctl = dec_margins(torch, dec_recompute(
+        exe, scope, fwd, np.concatenate([np.roll(prompt, 1), got])),
+        len(prompt), got)
+    rejected = int((ctl > allowed).sum())
+    check(rejected > 0,
+          f"{tag}: the rule passes the tokens after a prompt rolled by one "
+          "(it cannot tell a wrong context)")
+    return int((m == 0).sum()), float(m[j]) / allowed, rejected
+
+
+def dec_within_flip_rule(tag, got, want, margin_of, allowed):
+    """``got`` (an engine's tokens) against ``want`` (the generator's)
+    of one request: equal, or equal up to a first difference at j where
+    ``margin_of(j)`` (the reference's preference of want[j] over got[j],
+    in logits) is at most ``allowed``; past a flip the two sequences go
+    their own ways. Returns the tokens agreeing before the flip."""
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.shape == want.shape,
+          f"{tag}: {got.shape[0]} tokens, the generator's {want.shape[0]}")
+    diff = np.nonzero(got != want)[0]
+    if not len(diff):
+        return int(got.shape[0])
+    j = int(diff[0])
+    margin = margin_of(j)
+    check(margin <= allowed,
+          f"{tag}: token {j} is {int(got[j])} where the generator's is "
+          f"{int(want[j])}, with a margin {margin:.3e} > {allowed:.3e}")
+    return j
+
+
+def dec_serve(engine, prompts, clients, max_new=None):
+    """Every prompt through ``engine`` by ``clients`` concurrent clients
+    (each ``generate``s its share in turn), the engine's page occupancy
+    sampled every DEC_PAGE_SAMPLE_S meanwhile. Returns (outputs in
+    prompt order, wall s, page high-water mark)."""
+    high = [engine.allocator.in_use]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(DEC_PAGE_SAMPLE_S):
+            high.append(engine.allocator.in_use)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    order = list(range(len(prompts)))
+
+    def client(c):
+        return [(i, engine.generate(prompts[i], max_new=max_new,
+                                    timeout=900.0))
+                for i in order[c::clients]]
+
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(clients) as pool:
+            results = [x for part in pool.map(client, range(clients))
+                       for x in part]
+    finally:
+        done.set()
+        sampler.join()
+    wall = time.perf_counter() - t0
+    outs = [None] * len(prompts)
+    for i, toks in results:
+        outs[i] = toks
+    return outs, wall, max(high + [engine.allocator.in_use])
+
+
+def phase_decode_engine(torch, fluid, fa, card):
+    """ROADMAP item 4b, the main path of this slice: the Llama-3-8B width
+    (all 32 layers, bf16, random weights from SEED through
+    ``build_llama_generator``'s startup) behind ``DecodeEngine`` built
+    with no place (the card) and DEC_CONFIG: warmup, then DEC_REQUESTS
+    requests of DEC_PROMPT_RANGE prompt tokens from DEC_CLIENTS
+    concurrent clients; every request's tokens against the port's own
+    ``llama_generate`` of that prompt at batch 1, a flip allowed only
+    where the K1 recompute of the generator's sequence puts the two
+    tokens within twice the row's first-step logit error (the generate
+    phase's rule: a batch of 8 rounds bf16 in other GEMM shapes than
+    batch 1), and at every one of the new tokens, past any flip, each
+    token within that error of the argmax of the K1 recompute of the
+    engine's own sequence (with a control the rule must reject); no
+    step build after warmup; the pools written in place on the card;
+    every page back after a drain. Then a float32 engine at
+    DEC_F32_LAYERS layers (TF32 off), exact wherever the recompute's
+    margin exceeds the f32 logit tier; and, at max_batch
+    DEC_SMALL_BATCH on DEC_SMALL_REQUESTS prompts, ``quantize=True``
+    against the quantized generator, speculative mode (the target as
+    its own draft, accepting drafts, then a DEC_DRAFT_LAYERS-layer draft
+    cut from the target, gamma DEC_GAMMA) and ``chunk_size=DEC_CHUNK`` against the generator. Prints TTFT
+    p50/p99, decode ms a token per slot beside the bound of reading the
+    weights once, aggregate tokens/s, the device's idle share and the
+    page high-water mark. Returns (K1 launches of the checks' recompute,
+    stats)."""
+    from paddle_tpu_torch.models.llama import (LLAMA3_8B,
+                                               copy_weights_as_draft,
+                                               quantize_generator_weights)
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+    tag = "decode_engine"
+    t_phase = time.perf_counter()
+    cfg = LLAMA3_8B
+    _, startup, _ = gen_programs(fluid, cfg, DEC_PROMPT_RANGE[1],
+                                 max_new_tokens=1)
+    scope = fluid.Scope()
+    exe = fluid.Executor()                     # the card: CUDAPlace(0)
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    stats = {"layers": cfg.n_layers, "config": DEC_CONFIG,
+             "requests": DEC_REQUESTS, "clients": DEC_CLIENTS,
+             "startup_s": time.perf_counter() - t0, "card": card}
+    rng = np.random.RandomState(SEED + 7)
+    prompts = dec_prompts(cfg.vocab_size, DEC_REQUESTS, rng)
+    new = DEC_CONFIG["max_new_tokens"]
+    # the prompts of the max_batch DEC_SMALL_BATCH engines below: the
+    # longest (chunked prefill needs prompts past DEC_CHUNK)
+    small = sorted(range(DEC_REQUESTS), key=lambda i: -len(prompts[i]))
+    small = small[:DEC_SMALL_REQUESTS]
+
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = DecodeEngine(cfg, scope=scope, config=DecodeConfig(
+        default_timeout_s=900.0, **DEC_CONFIG))
+    try:
+        check(engine.exe.device.type == "cuda"
+              and engine._kp.device.type == "cuda",
+              f"{tag}: the engine with no place runs on "
+              f"{engine.exe.device}, its pools on {engine._kp.device}")
+        pools = (engine._kp.data_ptr(), engine._vp.data_ptr())
+        warm = engine.warmup()
+        warm_s = time.perf_counter() - t0
+        outs, wall, high = dec_serve(engine, prompts, DEC_CLIENTS)
+        engine.assert_no_recompiles()
+        st = engine.stats()
+        check((engine._kp.data_ptr(), engine._vp.data_ptr()) == pools,
+              f"{tag}: the pools were replaced, not written in place")
+    finally:
+        engine.close(drain=True)
+    by_kernel = launches_by_kernel(fa)
+    check(not any(by_kernel.values()),
+          f"{tag}: the paged ops launched attention kernels {by_kernel}")
+    check(engine.allocator.in_use == 0 and st["pages_in_use"] == 0,
+          f"{tag}: {engine.allocator.in_use} pages still held after the "
+          "drain")
+    check(st["responses_total"] == DEC_REQUESTS
+          and all(o is not None and len(o) == new for o in outs),
+          f"{tag}: {st['responses_total']} responses of {DEC_REQUESTS}")
+    generated = sum(len(o) for o in outs)
+    bound_ms = decode_weight_bytes(scope) / HBM_BYTES_PER_S * 1e3
+    stats.update({
+        "warmup": warm, "warmup_s": warm_s, "wave_s": wall,
+        "tokens_per_s": generated / wall,
+        "ttft_ms": {k: st["ttft_s"][k] for k in ("p50_ms", "p99_ms")},
+        "decode_ms_per_token_per_slot": {
+            k: st["tpot_s"][k] for k in ("p50_ms", "p99_ms")},
+        "decode_bound_ms": bound_ms, "page_high_water": high,
+        "pages_usable": engine.allocator.usable_pages,
+        "step_builds_after_warmup": 0,
+        "dispatches": {k: st[k] for k in ("prefill_total",
+                                          "decode_batches_total")}})
+    log(f"{tag}: {DEC_REQUESTS} requests ({min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} prompt tokens, {new} new) from "
+        f"{DEC_CLIENTS} clients in {wall:.2f} s on {card}: "
+        f"{stats['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
+        f"{stats['ttft_ms']['p50_ms']:.1f}/{stats['ttft_ms']['p99_ms']:.1f}"
+        f" ms, decode {stats['decode_ms_per_token_per_slot']['p50_ms']:.2f}"
+        f"/{stats['decode_ms_per_token_per_slot']['p99_ms']:.2f} ms a "
+        f"token a slot (p50/p99) beside the {bound_ms:.2f} ms bound of "
+        f"reading the weights once, page high-water {high} of "
+        f"{engine.allocator.usable_pages}; warmup {warm} in {warm_s:.2f} s,"
+        " no step build after it, every page back after the drain")
+
+    # each request against the generator at batch 1 (the checks: K1 in
+    # the recompute, counted apart from the engine's path above)
+    fwd = recompute_program(fluid, cfg)
+    fa.reset_launch_counts()
+    refs, agreed, own = [], [], []
+    for i, (p, got) in enumerate(zip(prompts, outs)):
+        want, probs, logits = dec_reference(fluid, exe, scope, cfg, p, fwd,
+                                            new)
+        row_err = log_prob_error(torch, torch.as_tensor(probs)[None].to(
+            logits.device), logits[None, len(p) - 1])[0]
+        # the recompute's logits are kept for the prompts served again
+        refs.append((want, logits if i in small else None, row_err))
+        agreed.append(dec_within_flip_rule(
+            f"{tag} request {i}", got, want,
+            lambda j: float(logits[len(p) + j - 1, want[j]]
+                            - logits[len(p) + j - 1, got[j]]),
+            2 * row_err))
+        own.append(dec_own_rule(torch, f"{tag} request {i}", exe, scope,
+                                fwd, p, got, 2 * row_err))
+    check_launches = launches_by_kernel(fa)
+    # three recomputes a request: the generator's sequence, the
+    # engine's, and the engine's tokens after the rolled prompt
+    check(check_launches["flash_fwd_mma"]
+          == 3 * cfg.n_layers * DEC_REQUESTS,
+          f"{tag}: the recompute's K1 launches {check_launches}")
+    stats["agreed_before_flip"] = agreed
+    stats["own_sequence"] = {
+        "at_argmax": [o[0] for o in own],
+        "worst_margin_over_allowed": max(o[1] for o in own),
+        "control_rejected": [o[2] for o in own]}
+    worst = stats["own_sequence"]["worst_margin_over_allowed"]
+    log(f"{tag}: tokens equal to the generator's before any allowed flip "
+        f"{agreed} of {new} (equal throughout: "
+        f"{sum(a == new for a in agreed)} of {DEC_REQUESTS}); against the "
+        f"recompute of the engine's own sequence, every token within the "
+        f"rule (worst {worst:.3f} of it), at the argmax "
+        f"{stats['own_sequence']['at_argmax']} of {new}; the control "
+        f"(prompt rolled by one) rejected at "
+        f"{stats['own_sequence']['control_rejected']} of {new} positions")
+
+    # the device's idle share over a shorter wave, against the same wave
+    # unprofiled
+    prof_prompts = prompts[:DEC_PROFILED_REQUESTS]
+    engine = DecodeEngine(cfg, scope=scope, config=DecodeConfig(
+        default_timeout_s=900.0, **DEC_CONFIG))
+    try:
+        engine.warmup()
+        dec_serve(engine, prof_prompts, DEC_CLIENTS, DEC_PROFILED_NEW)
+        _, prof_wall, _ = dec_serve(engine, prof_prompts, DEC_CLIENTS,
+                                    DEC_PROFILED_NEW)
+        busy = {"requests": DEC_PROFILED_REQUESTS,
+                "new_tokens": DEC_PROFILED_NEW, "wall_ms": prof_wall * 1e3}
+        add_busy(busy, device_ms_by_kind(torch, lambda: dec_serve(
+            engine, prof_prompts, DEC_CLIENTS, DEC_PROFILED_NEW)),
+            prof_wall * 1e3)
+    finally:
+        engine.close()
+    stats["device"] = busy
+    log(f"{tag}: device over {DEC_PROFILED_REQUESTS} requests x "
+        f"{DEC_PROFILED_NEW} tokens on {card}: " + json.dumps(busy))
+
+    # once each at max_batch DEC_SMALL_BATCH: chunked prefill (the
+    # longest prompts, past DEC_CHUNK), W8A8, speculative
+    check(len(prompts[small[0]]) > DEC_CHUNK,
+          f"{tag}: no prompt past the chunk size {DEC_CHUNK}")
+    small_conf = dict(DEC_CONFIG, max_batch=DEC_SMALL_BATCH,
+                      default_timeout_s=900.0)
+
+    def bf16_rule(name, eng_outs):
+        """Each of the small runs' requests against the generator up to
+        a flip, and against the recompute of its own sequence at every
+        position; returns the tokens agreeing before the flip."""
+        out = []
+        for i, got in zip(small, eng_outs):
+            want, logits, row_err = refs[i]
+            p = prompts[i]
+            out.append(dec_within_flip_rule(
+                f"{tag} {name} request {i}", got, want,
+                lambda j: float(logits[len(p) + j - 1, want[j]]
+                                - logits[len(p) + j - 1, got[j]]),
+                2 * row_err))
+            dec_own_rule(torch, f"{tag} {name} request {i}", exe, scope,
+                         fwd, p, got, 2 * row_err)
+        return out
+
+    engine = DecodeEngine(cfg, scope=scope, config=DecodeConfig(
+        chunk_size=DEC_CHUNK, **small_conf))
+    try:
+        engine.warmup()
+        c_outs, _, _ = dec_serve(engine, [prompts[i] for i in small],
+                                 DEC_SMALL_BATCH)
+        engine.assert_no_recompiles()
+        c_st = engine.stats()
+    finally:
+        engine.close()
+    check(c_st["chunk_prefill_total"] > 0, f"{tag} chunk: no chunk ran")
+    stats["chunk"] = {"chunk_size": DEC_CHUNK,
+                      "chunk_dispatches": c_st["chunk_prefill_total"],
+                      "agreed_before_flip": bf16_rule("chunk", c_outs)}
+    log(f"{tag} chunk: " + json.dumps(stats["chunk"]))
+
+    # W8A8: a scope aliasing the bf16 tensors, its matmul weights and
+    # head replaced by int8 with @scale companions; held to the
+    # quantized generator at batch 1. Where the two differ, the
+    # generator fed the shared prefix scores the two tokens, within
+    # twice the row's first-step logit error: the larger of its
+    # log-prob distance between that generator at batch 1 with a cache
+    # of prompt + new and at batch DEC_SMALL_BATCH (the prompt repeated)
+    # with a cache of prompt + 1 (other GEMM shapes and reduction
+    # lengths, the same rows), and the bf16 row's error (the int8
+    # products are exact; what rounds differently is the bf16 work
+    # between them)
+    qscope = fluid.Scope()
+    for n in scope.keys():
+        qscope.set(n, scope.find_var(n))
+    quantize_generator_weights(qscope)
+    engine = DecodeEngine(cfg, scope=qscope, config=DecodeConfig(
+        quantize=True, **small_conf))
+    try:
+        engine.warmup()
+        q_outs, _, _ = dec_serve(engine, [prompts[i] for i in small],
+                                 DEC_SMALL_BATCH)
+        engine.assert_no_recompiles()
+    finally:
+        engine.close()
+    q_agreed = []
+    for i, got in zip(small, q_outs):
+        p = prompts[i]
+        want, probs, _ = dec_reference(fluid, exe, qscope, cfg, p, None,
+                                       new, quantize=True)
+        g4_p, _, (_, g4_probs) = gen_programs(
+            fluid, cfg, len(p), max_new_tokens=1, return_probs=True,
+            quantize=True)
+        p4 = run_gen(exe, g4_p, [g4_probs], qscope,
+                     np.repeat(p[None], DEC_SMALL_BATCH, 0))[0]
+        row_err = max(refs[i][2], float(np.abs(
+            np.log(np.maximum(p4, 1e-30))
+            - np.log(np.maximum(probs, 1e-30))).max()))
+
+        def margin(j, p=p, want=want, got=got):
+            tf = np.concatenate([p, want[:j]])
+            tf_p, _, (_, tf_probs) = gen_programs(
+                fluid, cfg, len(tf), max_new_tokens=1, return_probs=True,
+                quantize=True)
+            dist = run_gen(exe, tf_p, [tf_probs], qscope, tf[None])[0][0]
+            return float(np.log(max(dist[want[j]], 1e-30))
+                         - np.log(max(dist[got[j]], 1e-30)))
+        q_agreed.append(dec_within_flip_rule(
+            f"{tag} w8a8 request {i}", got, want, margin,
+            2 * row_err))
+    stats["w8a8"] = {"agreed_before_flip": q_agreed}
+    log(f"{tag} w8a8: " + json.dumps(stats["w8a8"]))
+    del qscope
+    free_card(torch)
+
+    # speculative, first with the target as its own draft (the drafts
+    # accepted, so the multi-token commit, the truncation of rejected
+    # rows and the advance across pages run), then a DEC_DRAFT_LAYERS-
+    # layer draft, the target's first layers (views of its stacks) with
+    # its embedding and head
+    copy_weights_as_draft(scope)
+    engine = DecodeEngine(cfg, scope=scope, draft_cfg=cfg,
+                          config=DecodeConfig(gamma=DEC_GAMMA,
+                                              **small_conf))
+    try:
+        engine.warmup()
+        ss_outs, ss_wall, _ = dec_serve(engine, [prompts[i] for i in small],
+                                        DEC_SMALL_BATCH)
+        engine.assert_no_recompiles()
+        ss_st = engine.stats()
+    finally:
+        engine.close()
+    check(ss_st["spec_rounds_total"] > 0,
+          f"{tag} spec self-draft: no round ran")
+    accepted = ss_st["spec_tokens_accepted_total"] / ss_st[
+        "spec_rounds_total"]
+    check(accepted > 1, f"{tag} spec self-draft: {accepted:.3f} tokens a "
+          "round, no draft token accepted")
+    stats["spec_self_draft"] = {
+        "draft_layers": cfg.n_layers, "gamma": DEC_GAMMA,
+        "rounds": ss_st["spec_rounds_total"],
+        "accepted_per_round": accepted,
+        "tokens_per_s": sum(map(len, ss_outs)) / ss_wall,
+        "agreed_before_flip": bf16_rule("spec self-draft", ss_outs)}
+    log(f"{tag} spec self-draft: " + json.dumps(stats["spec_self_draft"]))
+    for sfx in ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+                "w_up", "w_down"):
+        scope.set(f"draft.{sfx}", scope.find_var(f"draft.{sfx}")[
+            :DEC_DRAFT_LAYERS])
+    draft_cfg = dataclasses.replace(cfg, n_layers=DEC_DRAFT_LAYERS)
+    engine = DecodeEngine(cfg, scope=scope, draft_cfg=draft_cfg,
+                          config=DecodeConfig(gamma=DEC_GAMMA,
+                                              **small_conf))
+    try:
+        engine.warmup()
+        s_outs, s_wall, _ = dec_serve(engine, [prompts[i] for i in small],
+                                      DEC_SMALL_BATCH)
+        engine.assert_no_recompiles()
+        s_st = engine.stats()
+    finally:
+        engine.close()
+    check(s_st["spec_rounds_total"] > 0, f"{tag} spec: no round ran")
+    stats["spec"] = {
+        "draft_layers": DEC_DRAFT_LAYERS, "gamma": DEC_GAMMA,
+        "rounds": s_st["spec_rounds_total"],
+        "accepted_per_round": s_st["spec_tokens_accepted_total"]
+        / s_st["spec_rounds_total"],
+        "tokens_per_s": sum(map(len, s_outs)) / s_wall,
+        "agreed_before_flip": bf16_rule("spec", s_outs)}
+    log(f"{tag} spec: " + json.dumps(stats["spec"]))
+    del scope, refs
+    free_card(torch)
+
+    # float32 at DEC_F32_LAYERS layers, TF32 off: exact wherever the
+    # recompute's margin exceeds the f32 logit tier
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, n_layers=DEC_F32_LAYERS,
+                                dtype="float32")
+    _, st32, _ = gen_programs(fluid, cfg32, DEC_PROMPT_RANGE[1],
+                              max_new_tokens=1)
+    scope32 = fluid.Scope()
+    exe.run(st32, scope=scope32)
+    p32 = prompts[:DEC_F32_REQUESTS]
+    engine = DecodeEngine(cfg32, scope=scope32, config=DecodeConfig(
+        default_timeout_s=900.0, **DEC_CONFIG))
+    try:
+        engine.warmup()
+        o32, _, _ = dec_serve(engine, p32, DEC_CLIENTS)
+        engine.assert_no_recompiles()
+    finally:
+        engine.close(drain=True)
+    fwd32 = recompute_program(fluid, cfg32)
+    rtol, atol = TOL_LOGITS_F32
+    f32_agreed = []
+    for i, (p, got) in enumerate(zip(p32, o32)):
+        want, _, logits = dec_reference(fluid, exe, scope32, cfg32, p,
+                                        fwd32, new)
+
+        def undecided(j, p=p, want=want, got=got, logits=logits):
+            row = logits[len(p) + j - 1]
+            # the preference of the generator's token over the engine's,
+            # less twice the f32 tier: > 0 only where the tier decides
+            return float(row[want[j]] - row[got[j]]) - 2 * (
+                atol + rtol * float(row[want[j]].abs()))
+        f32_agreed.append(dec_within_flip_rule(
+            f"{tag} f32 request {i}", got, want, undecided, 0.0))
+    stats["f32"] = {"layers": DEC_F32_LAYERS, "requests": DEC_F32_REQUESTS,
+                    "agreed_before_undecided": f32_agreed}
+    log(f"{tag} f32: " + json.dumps(stats["f32"]))
+    del scope32
+    free_card(torch)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: " + json.dumps(stats))
+    return check_launches, stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -3617,6 +4302,13 @@ def main():
         # generating tokens, held against the K1 recompute
         gen_launches, _ = phase_generate(torch, fluid, fa, smi)
         free_card(torch)
+        # the head-dim repair: K1-K3 at D = 256 on the main path
+        hd_launches, _ = phase_head_dim_256(torch, fluid, fa, smi)
+        free_card(torch)
+        # ROADMAP item 4b, the main path of this slice: the paged decode
+        # engine serving the 8B width
+        dec_launches, _ = phase_decode_engine(torch, fluid, fa, smi)
+        free_card(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3644,7 +4336,11 @@ def main():
              "io_train_resume": io_train_launches,
              "io_saved_serve": io_serve_launches,
              "io_llama_saved": io_llama_launches,
-             "generate": gen_launches}
+             "generate": gen_launches,
+             "head_dim_256_bf16_train": hd_launches["bf16"],
+             "head_dim_256_serve": hd_launches["serve"],
+             "head_dim_256_f32_train": hd_launches["f32"],
+             "decode_engine_checks": dec_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),
@@ -3698,6 +4394,43 @@ def main():
                     shape=f"bh={GEN_BATCH}*32 t={GEN_PROMPT + GEN_NEW} "
                           "d=128 causal bf16")
         kernels.append(row)
+    # K1-K3 at head dim 256 (128-column slices) on both routes: the
+    # bf16 training shape of the head_dim_256 phase (launches: its bf16
+    # train step; its serve dispatch under launches_by_path) and its
+    # float32 train step's shape
+    for label, path, dtype, shape in (
+            (HD256_LABEL, "bf16", torch.bfloat16,
+             f"bh={TRAIN_BATCH}*{HD256_HEADS} t={TRAIN_SEQ} d=256 causal "
+             "bf16 (head_dim_256 train step)"),
+            (HD256_F32_LABEL, "f32", torch.float32,
+             f"bh={HD256_F32_BATCH}*{HD256_HEADS} t={HD256_F32_SEQ} d=256 "
+             "causal f32 (head_dim_256 f32 train step)")):
+        for kind_ in ("fwd", "dq", "dkv"):
+            t = timing[(kind_, label)]
+            fn = t["kernel"]
+            lib = fa.kernel_for({"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+                                 "dkv": "flash_bwd_dkv"}[kind_], dtype,
+                                256)[0]
+            kernels.append({
+                "name": fn, "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/{lib}.cu",
+                "replaces": "paddle_tpu/ops/pallas_attention.py"
+                            + replaces[kind_],
+                "launches": hd_launches[path][fn],
+                "path": f"head_dim_256_{path}_train",
+                "launches_by_path": {p: n[fn] for p, n in paths.items()},
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": shape, "card": kind, "power_limit": power})
+            if kind_ == "fwd" and path == "bf16":
+                # K1 at the phase's served shape, timed and held to its
+                # plain version in phase_kernels; launches: its dispatch
+                serve = dict(timing[("fwd", HD256_OP_LABEL)])
+                serve.pop("kernel")
+                kernels[-1]["serving"] = dict(
+                    serve, launches=hd_launches["serve"][fn],
+                    shape=f"bh=1*{HD256_HEADS} t=256 d=256 causal bf16")
     # float32 rows at Transformer-base's attention shapes, head dim 64
     # (launches: the Transformer main path, the padded model, for the
     # causal decoder self-attention; its unpadded form for the

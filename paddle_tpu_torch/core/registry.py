@@ -38,9 +38,6 @@ _NUMERICS = {}
 # The reference's op types the port does not register yet, by the
 # ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
 _ITEMS = {
-    "Generation and the paged decode engine": (
-        "llama_paged_prefill", "llama_paged_prefill_chunk",
-        "llama_paged_decode", "llama_paged_spec_step"),
     "Conv nets and the transpilers": (
         "conv2d", "depthwise_conv2d", "conv2d_transpose", "conv3d",
         "conv3d_transpose", "pool2d", "pool3d", "batch_norm", "lrn",

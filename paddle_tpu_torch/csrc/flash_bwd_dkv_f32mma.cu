@@ -6,7 +6,8 @@
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel
 // (with _recompute_ds, :161; the second pallas_call of
 // _flash_bwd_pallas, :290) on the float32 route. Per (batch*head) slice
-// of q, do [tq, D] and k, v [tk, D], D in {64, 128}, it computes what
+// of q, do [tq, D] and k, v [tk, D], D 64 or any multiple of 128, it
+// computes what
 // flash_bwd_dkv_mma.cu computes:
 //   P  = exp(S - lse), S = (Q K^T) * scale   (lse from the forward, K1)
 //   dS = P o (dO V^T - delta) * scale         (delta per q row, from the
@@ -68,6 +69,13 @@
 //   spill.
 // - B*H above MAX_GRID_Y (gridDim.y's limit) is launched in chunks.
 //
+// - a head dim past 128 runs the D = 128 kernel in 128-column slices
+//   (mma_sm90.cuh HEAD_SLICE): block z of gridDim.z writes columns
+//   [128 z, 128 z + 128) of dK and dV. S^T and dP^T sum the slices'
+//   products before P^T is formed, each slice's k and q split and its v
+//   and dO copied afresh (waited for), the last slice being z, whose q
+//   halves and dO tile dK and dV read.
+//
 // What it leaves: wgmma with TMA; fusing dQ into this pass with atomics
 // (nondeterministic dQ); reading GQA KV heads in place.
 
@@ -113,7 +121,34 @@ struct Layout {
                 "reduction fits");
 };
 
-template <int D>
+// dP^T += V dO^T, 3xTF32, 8 head-dim columns a step (k index t is
+// column 2t, t + 4 is 2t + 1, in V and dO alike): v_a is this lane's v
+// rows, dos the float32 dO tile
+template <int RBLK, int LDV, int LDO, int D>
+__device__ __forceinline__ void dp_tf32(float (&dp)[RBLK][4],
+                                        const float* v_a, const float* dos,
+                                        int r0, int g, int tg) {
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const float2 x0 = *reinterpret_cast<const float2*>(v_a + kk * 8);
+    const float2 x1 =
+        *reinterpret_cast<const float2*>(v_a + 8 * LDV + kk * 8);
+    uint32_t ah[4], al[4];
+    split_tf32_frag(x0.x, x1.x, x0.y, x1.y, ah, al);
+#pragma unroll
+    for (int n = 0; n < RBLK; ++n) {
+      const float2 y = *reinterpret_cast<const float2*>(
+          dos + (r0 + 8 * n + g) * LDO + kk * 8 + 2 * tg);
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(y.x, bh0, bl0);
+      split_tf32(y.y, bh1, bl1);
+      mma_split3_tf32(dp[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// WIDE: D = HEAD_SLICE and the head is gridDim.z slices of it
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -145,8 +180,13 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
   const int r0 = rg * WROWS;          // the warp's first row of a q tile
   const int k0 = blockIdx.x * BLOCK_N;
   const long long bh = blockIdx.y;
-  const float* qb = q + bh * tq * D;
-  const float* dob = dout + bh * tq * D;
+  const int ns = WIDE ? gridDim.z : 1, z = WIDE ? blockIdx.z : 0;
+  const int ld = D * ns;               // global row stride
+  const int s0 = WIDE ? slice_at(0, z, ns) : 0;
+  const float* qb = q + bh * tq * ld;
+  const float* dob = dout + bh * tq * ld;
+  const float* kb = k + bh * tk * ld;
+  const float* vb = v + bh * tk * ld;
   const float* lseb = lse + bh * tq;
   const float* dlb = delta + bh * tq;
 
@@ -161,7 +201,7 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
 
   auto load_dout = [&](int t) {
     const int q0 = t * BLOCK_M;
-    load_tile_async<THREADS, BLOCK_M, D, LDO>(dos, dob, q0, tq);
+    load_tile_async<THREADS, BLOCK_M, D, LDO>(dos, dob + s0 * D, q0, tq, ld);
     if (tid < 2 * BLOCK_M) {
       const int i = tid % BLOCK_M, row = q0 + i;
       const bool in = row < tq;
@@ -171,14 +211,15 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
   };
   // k through the staging tile into its halves; v, the first q and dO
   // tiles after it
-  load_tile_async<THREADS, BLOCK_N, D, D>(st, k + bh * tk * D, k0, tk);
-  load_tile_async<THREADS, BLOCK_N, D, LDV>(vs, v + bh * tk * D, k0, tk);
+  load_tile_async<THREADS, BLOCK_N, D, D>(st, kb + s0 * D, k0, tk, ld);
+  load_tile_async<THREADS, BLOCK_N, D, LDV>(vs, vb + s0 * D, k0, tk, ld);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   split_tile<THREADS, BLOCK_N, D, LD>(kh, kl, st, 0, BLOCK_N);
   __syncthreads();
-  load_tile_async<THREADS, BLOCK_M, D, D>(st, qb, t0 * BLOCK_M, tq);
+  load_tile_async<THREADS, BLOCK_M, D, D>(st, qb + s0 * D, t0 * BLOCK_M, tq,
+                                          ld);
   load_dout(t0);
   cp_async_commit();
 
@@ -202,7 +243,8 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
     split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, st, 0, BLOCK_M);
     __syncthreads();
     if (next) {  // the staging tile is free again
-      load_tile_async<THREADS, BLOCK_M, D, D>(st, qb, (t + 1) * BLOCK_M, tq);
+      load_tile_async<THREADS, BLOCK_M, D, D>(st, qb + s0 * D,
+                                              (t + 1) * BLOCK_M, tq, ld);
       cp_async_commit();
     }
     const int q0 = t * BLOCK_M;
@@ -216,25 +258,54 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
                       (causal && w0 + offset < kw + 15);
     float p[RBLK][4];
     uint32_t dsh[WROWS / 16][4], dsl[WROWS / 16][4];
-    if (!skip) {
-      // S^T = K Q^T, 3xbf16: 16 keys x WROWS rows
-      float s[RBLK][4];
+    // S^T = K Q^T, 3xbf16: 16 keys x WROWS rows; a wide head also sums
+    // dP^T = V dO^T here, slice by slice (the last slice z, which dV and
+    // dK read)
+    float s[RBLK][4], dp[RBLK][4];
 #pragma unroll
-      for (int j = 0; j < RBLK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < RBLK; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ah[4], al[4];
-        ldsm_x4(ah, a_frag<LD>(kh, 16 * kg, kk * 16, lane));
-        ldsm_x4(al, a_frag<LD>(kl, 16 * kg, kk * 16, lane));
-#pragma unroll
-        for (int np = 0; np < RBLK / 2; ++np) {
-          uint32_t bh_[4], bl_[4];
-          ldsm_x4(bh_, b_frag<LD>(qh, r0 + np * 16, kk * 16, lane));
-          ldsm_x4(bl_, b_frag<LD>(ql, r0 + np * 16, kk * 16, lane));
-          mma_split3(s[2 * np], ah, al, bh_[0], bh_[1], bl_[0], bl_[1]);
-          mma_split3(s[2 * np + 1], ah, al, bh_[2], bh_[3], bl_[2], bl_[3]);
-        }
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    for (int i = 0; i < ns; ++i) {
+      if (WIDE && (i > 0 || t > t0)) {
+        // this step's slice of k and v (held slice z since the last
+        // tile) and, past the first step, of q and dO, k and q split
+        // straight from global memory
+        const int sl = slice_at(i, z, ns);
+        __syncthreads();
+        load_tile_async<THREADS, BLOCK_N, D, LDV>(vs, vb + sl * D, k0, tk, ld);
+        if (i > 0)
+          load_tile_async<THREADS, BLOCK_M, D, LDO>(dos, dob + sl * D, q0, tq,
+                                                    ld);
+        cp_async_commit();
+        split_tile<THREADS, BLOCK_N, D, LD>(kh, kl, kb + sl * D, k0, tk, ld);
+        if (i > 0)
+          split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, qb + sl * D, q0, tq,
+                                              ld);
+        cp_async_wait<0>();
+        __syncthreads();
       }
+      if (!skip) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t ah[4], al[4];
+          ldsm_x4(ah, a_frag<LD>(kh, 16 * kg, kk * 16, lane));
+          ldsm_x4(al, a_frag<LD>(kl, 16 * kg, kk * 16, lane));
+#pragma unroll
+          for (int np = 0; np < RBLK / 2; ++np) {
+            uint32_t bh_[4], bl_[4];
+            ldsm_x4(bh_, b_frag<LD>(qh, r0 + np * 16, kk * 16, lane));
+            ldsm_x4(bl_, b_frag<LD>(ql, r0 + np * 16, kk * 16, lane));
+            mma_split3(s[2 * np], ah, al, bh_[0], bh_[1], bl_[0], bl_[1]);
+            mma_split3(s[2 * np + 1], ah, al, bh_[2], bh_[3], bl_[2],
+                       bl_[3]);
+          }
+        }
+        if (WIDE) dp_tf32<RBLK, LDV, LDO, D>(dp, v_a, dos, r0, g, tg);
+      }
+    }
+    if (!skip) {
       // P^T in float32 with the masks: element e of block j is key
       // key_a + 8 (e >> 1), row r0 + 8 j + 2 tg + (e & 1) of the tile
 #pragma unroll
@@ -274,29 +345,7 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
           mma_split3_tf32(dv_acc[n], ah, al, bh0, bh1, bl0, bl1);
         }
       }
-      // dP^T = V dO^T, 3xTF32, 8 head-dim columns a step (k index t is
-      // column 2t, t + 4 is 2t + 1, in V and dO alike)
-      float dp[RBLK][4];
-#pragma unroll
-      for (int j = 0; j < RBLK; ++j)
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const float2 x0 = *reinterpret_cast<const float2*>(v_a + kk * 8);
-        const float2 x1 =
-            *reinterpret_cast<const float2*>(v_a + 8 * LDV + kk * 8);
-        uint32_t ah[4], al[4];
-        split_tf32_frag(x0.x, x1.x, x0.y, x1.y, ah, al);
-#pragma unroll
-        for (int n = 0; n < RBLK; ++n) {
-          const float2 y = *reinterpret_cast<const float2*>(
-              dos + (r0 + 8 * n + g) * LDO + kk * 8 + 2 * tg);
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(y.x, bh0, bl0);
-          split_tf32(y.y, bh1, bl1);
-          mma_split3_tf32(dp[n], ah, al, bh0, bh1, bl0, bl1);
-        }
-      }
+      if (!WIDE) dp_tf32<RBLK, LDV, LDO, D>(dp, v_a, dos, r0, g, tg);
       // dS^T = P^T o (dP^T - delta) scale: 0 wherever P^T is 0 and on
       // fully masked rows; as the A operand (bf16 hi, lo) of dK += dS^T Q,
       // k-step kk covering the rows of blocks 2 kk, 2 kk + 1
@@ -370,8 +419,8 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
     }
   }
   if (rg != 0) return;
-  float* dkb = dk + bh * tk * D;
-  float* dvb = dv + bh * tk * D;
+  float* dkb = dk + bh * tk * ld + z * D;
+  float* dvb = dv + bh * tk * ld + z * D;
 #pragma unroll
   for (int j = 0; j < DBLK; ++j) {
     const int col = 8 * j + 2 * tg;
@@ -379,7 +428,7 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
     for (int r = 0; r < 2; ++r) {
       const int key = key_a + 8 * r;
       if (key < tk) {
-        const long long at = (long long)key * D + col;
+        const long long at = (long long)key * ld + col;
         *reinterpret_cast<float2*>(dkb + at) =
             make_float2(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
         *reinterpret_cast<float2*>(dvb + at) =
@@ -389,19 +438,20 @@ flash_bwd_dkv_f32mma_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool WIDE>
 int launch(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* delta, float* dk, float* dv, int bh,
-           int tq, int tk, float scale, int causal, cudaStream_t stream) {
+           int tq, int tk, int d, float scale, int causal,
+           cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32mma_kernel<D>,
+      flash_bwd_dkv_f32mma_kernel<D, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return for_bh_chunks(bh, [&](int b0, int n) {
-    const long long qo = (long long)b0 * tq * D, ko = (long long)b0 * tk * D;
-    const dim3 grid((tk + BLOCK_N - 1) / BLOCK_N, n);
-    flash_bwd_dkv_f32mma_kernel<D><<<grid, THREADS, smem, stream>>>(
+    const long long qo = (long long)b0 * tq * d, ko = (long long)b0 * tk * d;
+    const dim3 grid((tk + BLOCK_N - 1) / BLOCK_N, n, d / D);
+    flash_bwd_dkv_f32mma_kernel<D, WIDE><<<grid, THREADS, smem, stream>>>(
         q + qo, k + ko, v + ko, dout + qo, lse + (long long)b0 * tq,
         delta + (long long)b0 * tq, dk + ko, dv + ko, tq, tk, scale, causal);
   });
@@ -410,7 +460,7 @@ int launch(const float* q, const float* k, const float* v, const float* dout,
 }  // namespace
 
 // dtype: 0 float32 (bf16 and fp16 are flash_bwd_dkv_mma.cu's); d: 64 or
-// 128. q, dout: [bh, tq, d]; k, v, dk, dv: [bh, tk, d]; lse, delta:
+// a multiple of 128. q, dout: [bh, tq, d]; k, v, dk, dv: [bh, tk, d]; lse, delta:
 // [bh, tq] float32. All contiguous, 16-byte aligned, on the current
 // device. Returns the CUDA error code of the launch (0 = ok).
 extern "C" int flash_bwd_dkv_f32mma(const void* q, const void* k,
@@ -428,10 +478,13 @@ extern "C" int flash_bwd_dkv_f32mma(const void* q, const void* k,
               *df = static_cast<const float*>(dout);
   float *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv);
   if (d == 64)
-    return launch<64>(qf, kf, vf, df, lse, delta, dkf, dvf, bh, tq, tk,
-                      scale, causal, s);
-  if (d == 128)
-    return launch<128>(qf, kf, vf, df, lse, delta, dkf, dvf, bh, tq, tk,
-                       scale, causal, s);
+    return launch<64, false>(qf, kf, vf, df, lse, delta, dkf, dvf, bh, tq,
+                             tk, d, scale, causal, s);
+  if (d == HEAD_SLICE)
+    return launch<HEAD_SLICE, false>(qf, kf, vf, df, lse, delta, dkf, dvf, bh,
+                                     tq, tk, d, scale, causal, s);
+  if (d > 0 && d % HEAD_SLICE == 0)
+    return launch<HEAD_SLICE, true>(qf, kf, vf, df, lse, delta, dkf, dvf, bh,
+                                    tq, tk, d, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

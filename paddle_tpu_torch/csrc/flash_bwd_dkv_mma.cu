@@ -5,7 +5,7 @@
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel
 // (with _recompute_ds, :161; the second pallas_call of
 // _flash_bwd_pallas, :290). Per (batch*head) slice of q, do [tq, D] and
-// k, v [tk, D], D in {64, 128}, it computes:
+// k, v [tk, D], D 64 or any multiple of 128, it computes:
 //   P  = exp(S - lse), S = (Q K^T) * scale   (lse from the forward, K1)
 //   dS = P o (dO V^T - delta) * scale         (delta per q row, from the
 //                                              caller: rowsum(dO o O) - dlse)
@@ -50,6 +50,14 @@
 //   which see every key; a warp whose rows are all left of its keys
 //   skips the tile's math; the mask runs only on tiles the diagonal or
 //   a ragged end crosses.
+
+// - a head dim past 128 runs the D = 128 kernel in 128-column slices
+//   (mma_sm90.cuh HEAD_SLICE): block z of gridDim.z writes columns
+//   [128 z, 128 z + 128) of dK and dV. S^T and dP^T sum the slices'
+//   products before P^T is formed, each slice's k, v, q and dO tiles
+//   copied afresh (waited for), the last slice being z, whose q and dO
+//   tiles dV and dK read. Both score tiles are live beside the
+//   accumulators there.
 //
 // What it leaves: wgmma with TMA and warp specialisation; fusing dQ
 // (K2) into this pass with atomics, as FlashAttention-2 does (dQ stays
@@ -83,7 +91,8 @@ struct Layout {
   static_assert(4 * (D / 8) * 2 * 32 * 16 <= 2 * 4 * TILE, "reduction fits");
 };
 
-template <typename T, int D>
+// WIDE: D = HEAD_SLICE and the head is gridDim.z slices of it
+template <typename T, int D, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -110,8 +119,13 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = (warp >> 2) * 32;  // first q row of the warp's half
   const int k0 = blockIdx.x * BLOCK_N;
   const long long bh = blockIdx.y;
-  const T* qb = q + bh * tq * D;
-  const T* dob = dout + bh * tq * D;
+  const int ns = WIDE ? gridDim.z : 1, z = WIDE ? blockIdx.z : 0;
+  const int ld = D * ns;               // global row stride
+  const int s0 = WIDE ? slice_at(0, z, ns) : 0;
+  const T* qb = q + bh * tq * ld;
+  const T* dob = dout + bh * tq * ld;
+  const T* kb = k + bh * tk * ld;
+  const T* vb = v + bh * tk * ld;
   const float* lseb = lse + bh * tq;
   const float* dlb = delta + bh * tq;
 
@@ -126,8 +140,10 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto load_q_tile = [&](int t, int st) {
     const int q0 = t * BLOCK_M;
-    load_tile_async<THREADS, BLOCK_M, D, LD>(qs + st * TILE, qb, q0, tq);
-    load_tile_async<THREADS, BLOCK_M, D, LD>(dos + st * TILE, dob, q0, tq);
+    load_tile_async<THREADS, BLOCK_M, D, LD>(qs + st * TILE, qb + s0 * D, q0,
+                                             tq, ld);
+    load_tile_async<THREADS, BLOCK_M, D, LD>(dos + st * TILE, dob + s0 * D,
+                                             q0, tq, ld);
     if (tid < 2 * BLOCK_M) {
       const int i = tid % BLOCK_M, row = q0 + i;
       const bool in = row < tq;
@@ -136,8 +152,8 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_4(dst, src, in);
     }
   };
-  load_tile_async<THREADS, BLOCK_N, D, LD>(ks, k + bh * tk * D, k0, tk);
-  load_tile_async<THREADS, BLOCK_N, D, LD>(vs, v + bh * tk * D, k0, tk);
+  load_tile_async<THREADS, BLOCK_N, D, LD>(ks, kb + s0 * D, k0, tk, ld);
+  load_tile_async<THREADS, BLOCK_N, D, LD>(vs, vb + s0 * D, k0, tk, ld);
   load_q_tile(t0, 0);
   cp_async_commit();
 
@@ -165,31 +181,70 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int w0 = q0 + r0;  // the warp's first row
     // all of the warp's rows left of all its keys, none fully masked
     const bool skip = causal && w0 + offset >= 0 && w0 + 31 + offset < kw;
+    T* qt = qs + st * TILE;
+    T* dot = dos + st * TILE;
+    // S^T = K Q^T: 16 keys x 32 rows; a wide head also sums dP^T = V dO^T
+    // here, slice by slice (the last slice z, which dV and dK read)
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    for (int i = 0; i < ns; ++i) {
+      if (WIDE && (i > 0 || t > t0)) {
+        // this step's slice of k and v (held slice z since the last
+        // tile) and, past the first step, of q and dO
+        const int sl = slice_at(i, z, ns);
+        __syncthreads();
+        load_tile_async<THREADS, BLOCK_N, D, LD>(ks, kb + sl * D, k0, tk, ld);
+        load_tile_async<THREADS, BLOCK_N, D, LD>(vs, vb + sl * D, k0, tk, ld);
+        if (i > 0) {
+          load_tile_async<THREADS, BLOCK_M, D, LD>(qt, qb + sl * D, q0, tq,
+                                                   ld);
+          load_tile_async<THREADS, BLOCK_M, D, LD>(dot, dob + sl * D, q0, tq,
+                                                   ld);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (!skip) {
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, a_frag<LD>(ks, 16 * kg, kk * 16, lane));
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t b[4];
+            ldsm_x4(b, b_frag<LD>(qt, r0 + np * 16, kk * 16, lane));
+            M::run(s[2 * np], a, b[0], b[1]);
+            M::run(s[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+        if (WIDE) {
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            uint32_t a[4];
+            ldsm_x4(a, a_frag<LD>(vs, 16 * kg, kk * 16, lane));
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              uint32_t b[4];
+              ldsm_x4(b, b_frag<LD>(dot, r0 + np * 16, kk * 16, lane));
+              M::run(dp[2 * np], a, b[0], b[1]);
+              M::run(dp[2 * np + 1], a, b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
     if (!skip) {
-      const T* qt = qs + st * TILE;
-      const T* dot = dos + st * TILE;
       const float* lt = lses + st * BLOCK_M;
       const float* dlt = dls + st * BLOCK_M;
       // in two halves, so that only one product's operands are live
       // beside the accumulators: S^T -> P^T -> dV, then dP^T -> dS^T -> dK
       const bool edge = q0 + BLOCK_M > tq || k0 + BLOCK_N > tk ||
                         (causal && w0 + offset < kw + 15);
-      // S^T = K Q^T: 16 keys x 32 rows
-      float s[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, a_frag<LD>(ks, 16 * kg, kk * 16, lane));
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, b_frag<LD>(qt, r0 + np * 16, kk * 16, lane));
-          M::run(s[2 * np], a, b[0], b[1]);
-          M::run(s[2 * np + 1], a, b[2], b[3]);
-        }
-      }
       // P^T in float32 with the masks, as the A operand (hi, lo) of
       // dV += P^T dO: k-step kk covers the rows of blocks 2 kk, 2 kk + 1
       uint32_t ph[2][4], pl[2][4];
@@ -230,12 +285,8 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       // dP^T = V dO^T
-      float dp[4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
+      for (int kk = 0; kk < (WIDE ? 0 : KSTEPS); ++kk) {
         uint32_t a[4];
         ldsm_x4(a, a_frag<LD>(vs, 16 * kg, kk * 16, lane));
 #pragma unroll
@@ -319,33 +370,35 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  store_tile<THREADS, BLOCK_N, D, LD>(dk + bh * tk * D, ks, k0, tk, tid);
-  store_tile<THREADS, BLOCK_N, D, LD>(dv + bh * tk * D, vs, k0, tk, tid);
+  store_tile<THREADS, BLOCK_N, D, LD>(dk + bh * tk * ld + z * D, ks, k0, tk,
+                                      tid, ld);
+  store_tile<THREADS, BLOCK_N, D, LD>(dv + bh * tk * ld + z * D, vs, k0, tk,
+                                      tid, ld);
 }
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dk, *dv;
-  int bh, tq, tk;
+  int bh, tq, tk, d;
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool WIDE>
 int launch(const Args& a) {
   constexpr size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma_kernel<T, D>,
+      flash_bwd_dkv_mma_kernel<T, D, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return for_bh_chunks(a.bh, [&](int b0, int n) {
-    const long long qo = (long long)b0 * a.tq * D;
-    const long long ko = (long long)b0 * a.tk * D;
+    const long long qo = (long long)b0 * a.tq * a.d;
+    const long long ko = (long long)b0 * a.tk * a.d;
     const long long ro = (long long)b0 * a.tq;
-    const dim3 grid((a.tk + BLOCK_N - 1) / BLOCK_N, n);
-    flash_bwd_dkv_mma_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+    const dim3 grid((a.tk + BLOCK_N - 1) / BLOCK_N, n, a.d / D);
+    flash_bwd_dkv_mma_kernel<T, D, WIDE><<<grid, THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q) + qo, static_cast<const T*>(a.k) + ko,
         static_cast<const T*>(a.v) + ko, static_cast<const T*>(a.dout) + qo,
         a.lse + ro, a.delta + ro, static_cast<T*>(a.dk) + ko,
@@ -354,16 +407,17 @@ int launch(const Args& a) {
 }
 
 template <typename T>
-int launch_d(const Args& a, int d) {
-  if (d == 64) return launch<T, 64>(a);
-  if (d == 128) return launch<T, 128>(a);
+int launch_d(const Args& a) {
+  if (a.d == 64) return launch<T, 64, false>(a);
+  if (a.d == HEAD_SLICE) return launch<T, HEAD_SLICE, false>(a);
+  if (a.d > 0 && a.d % HEAD_SLICE == 0) return launch<T, HEAD_SLICE, true>(a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 1 bfloat16, 2 float16 (float32 is flash_bwd_dkv_f32mma.cu's); d: 64 or
-// 128. q, dout: [bh, tq, d]; k, v, dk, dv: [bh, tk, d]; lse, delta:
+// a multiple of 128. q, dout: [bh, tq, d]; k, v, dk, dv: [bh, tk, d]; lse, delta:
 // [bh, tq] float32. All contiguous, the 16-bit tensors 16-byte aligned,
 // on the current device. Returns the CUDA error code of the launch
 // (0 = ok).
@@ -374,11 +428,11 @@ extern "C" int flash_bwd_dkv_mma(const void* q, const void* k, const void* v,
                                  float scale, int causal, void* stream) {
   if (bh <= 0 || tq <= 0 || tk <= 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
+  const Args a{q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,
                scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case 1: return launch_d<__nv_bfloat16>(a, d);
-    case 2: return launch_d<__half>(a, d);
+    case 1: return launch_d<__nv_bfloat16>(a);
+    case 2: return launch_d<__half>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,8 @@
 // Replaces paddle_tpu/ops/pallas_attention.py:223 _fa_bwd_dq_kernel
 // (with _recompute_ds, :161; the first pallas_call of _flash_bwd_pallas,
 // :273) on the float32 route. Per (batch*head) slice of q, do [tq, D] and
-// k, v [tk, D], D in {64, 128}, it computes what flash_bwd_dq_mma.cu
+// k, v [tk, D], D 64 or any multiple of 128, it computes what
+// flash_bwd_dq_mma.cu
 // computes:
 //   P  = exp(S - lse), S = (Q K^T) * scale   (lse from the forward, K1)
 //   dS = P o (dO V^T - delta) * scale         (delta per q row, from the
@@ -61,6 +62,12 @@
 // - dQ goes from the accumulators to global memory as float2 pairs.
 // - B*H above MAX_GRID_Y (gridDim.y's limit) is launched in chunks.
 //
+// - a head dim past 128 runs the D = 128 kernel in 128-column slices
+//   (mma_sm90.cuh HEAD_SLICE): block z of gridDim.z writes columns
+//   [128 z, 128 z + 128) of dQ. S and dP sum the slices' products, each
+//   slice's q and k split and its dO and v copied afresh (waited for),
+//   the last slice being z, whose k halves dQ += dS K reads.
+//
 // What it leaves: wgmma with TMA; overlapping a tile's split with the
 // products of the one before (one block a SM); reading GQA KV heads in
 // place.
@@ -94,7 +101,8 @@ struct Layout {
   static constexpr size_t bytes = 4 * (DO + KST + VST) + 2 * (2 * QH + 2 * KH);
 };
 
-template <int D>
+// WIDE: D = HEAD_SLICE and the head is gridDim.z slices of it
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_f32mma_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -121,8 +129,13 @@ flash_bwd_dq_f32mma_kernel(const float* __restrict__ q,
   const int g = lane >> 2, tg = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;  // heaviest first
   const long long bh = blockIdx.y;
-  const float* kb = k + bh * tk * D;
-  const float* vb = v + bh * tk * D;
+  const int ns = WIDE ? gridDim.z : 1, z = WIDE ? blockIdx.z : 0;
+  const int ld = D * ns;               // global row stride
+  const int s0 = WIDE ? slice_at(0, z, ns) : 0;
+  const float* qb = q + bh * tq * ld;
+  const float* dob = dout + bh * tq * ld;
+  const float* kb = k + bh * tk * ld;
+  const float* vb = v + bh * tk * ld;
 
   // causal: key j is visible to row i iff j <= i + offset. Keys past the
   // block's last row's limit have dS = 0 for every row of the block; a
@@ -135,13 +148,13 @@ flash_bwd_dq_f32mma_kernel(const float* __restrict__ q,
   }
 
   // dO and the first k / v tiles in flight while the q tile is split
-  load_tile_async<THREADS, BLOCK_M, D, LDF>(dos, dout + bh * tq * D, q0, tq);
+  load_tile_async<THREADS, BLOCK_M, D, LDF>(dos, dob + s0 * D, q0, tq, ld);
   if (n_tiles > 0) {
-    load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb, 0, tk);
-    load_tile_async<THREADS, BLOCK_N, D, LDF>(vst, vb, 0, tk);
+    load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb + s0 * D, 0, tk, ld);
+    load_tile_async<THREADS, BLOCK_N, D, LDF>(vst, vb + s0 * D, 0, tk, ld);
   }
   cp_async_commit();
-  split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, q + bh * tq * D, q0, tq);
+  split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, qb + s0 * D, q0, tq, ld);
 
   const int w0 = q0 + warp * 16;       // the warp's first row
   const int row_a = w0 + g;            // this lane's rows: row_a, row_a + 8
@@ -169,7 +182,8 @@ flash_bwd_dq_f32mma_kernel(const float* __restrict__ q,
     split_tile<THREADS, BLOCK_N, D, LD>(kh, kl, kst, 0, BLOCK_N);
     __syncthreads();
     if (next) {  // the k staging tile is free again
-      load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb, (t + 1) * BLOCK_N, tk);
+      load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb + s0 * D,
+                                              (t + 1) * BLOCK_N, tk, ld);
       cp_async_commit();
     }
     const int k0 = t * BLOCK_N;
@@ -177,51 +191,73 @@ flash_bwd_dq_f32mma_kernel(const float* __restrict__ q,
     // each of its rows (fully masked rows included): dS = 0 here
     const bool skip = w0 >= tq || (causal && k0 > w_last + offset);
     float s[NBLK][4], dp[NBLK][4];
-    if (!skip) {
 #pragma unroll
-      for (int j = 0; j < NBLK; ++j) {
+    for (int j = 0; j < NBLK; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    for (int i = 0; i < ns; ++i) {
+      // a wide head: this step's slice of q and dO (held slice z since
+      // the last tile) and, past the first step, of k and v, straight
+      // from global memory; the last step's is slice z, which
+      // dQ += dS K reads
+      if (WIDE && (i > 0 || t > 0)) {
+        const int sl = slice_at(i, z, ns);
+        __syncthreads();
+        load_tile_async<THREADS, BLOCK_M, D, LDF>(dos, dob + sl * D, q0, tq,
+                                                  ld);
+        if (i > 0)
+          load_tile_async<THREADS, BLOCK_N, D, LDF>(vst, vb + sl * D, k0, tk,
+                                                    ld);
+        cp_async_commit();
+        split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, qb + sl * D, q0, tq, ld);
+        if (i > 0)
+          split_tile<THREADS, BLOCK_N, D, LD>(kh, kl, kb + sl * D, k0, tk,
+                                              ld);
+        cp_async_wait<0>();
+        __syncthreads();
       }
-      // S = Q K^T, 3xbf16
+      if (!skip) {
+        // S = Q K^T, 3xbf16
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ah[4], al[4];
-        ldsm_x4(ah, a_frag<LD>(qh, warp * 16, kk * 16, lane));
-        ldsm_x4(al, a_frag<LD>(ql, warp * 16, kk * 16, lane));
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t ah[4], al[4];
+          ldsm_x4(ah, a_frag<LD>(qh, warp * 16, kk * 16, lane));
+          ldsm_x4(al, a_frag<LD>(ql, warp * 16, kk * 16, lane));
 #pragma unroll
-        for (int np = 0; np < NBLK / 2; ++np) {
-          uint32_t bh_[4], bl_[4];
-          ldsm_x4(bh_, b_frag<LD>(kh, np * 16, kk * 16, lane));
-          ldsm_x4(bl_, b_frag<LD>(kl, np * 16, kk * 16, lane));
-          mma_split3(s[2 * np], ah, al, bh_[0], bh_[1], bl_[0], bl_[1]);
-          mma_split3(s[2 * np + 1], ah, al, bh_[2], bh_[3], bl_[2], bl_[3]);
+          for (int np = 0; np < NBLK / 2; ++np) {
+            uint32_t bh_[4], bl_[4];
+            ldsm_x4(bh_, b_frag<LD>(kh, np * 16, kk * 16, lane));
+            ldsm_x4(bl_, b_frag<LD>(kl, np * 16, kk * 16, lane));
+            mma_split3(s[2 * np], ah, al, bh_[0], bh_[1], bl_[0], bl_[1]);
+            mma_split3(s[2 * np + 1], ah, al, bh_[2], bh_[3], bl_[2], bl_[3]);
+          }
         }
-      }
-      // dP = dO V^T, 3xTF32, 8 head-dim columns a step: k index t is
-      // column 2t, t + 4 is 2t + 1 (mma_sm90.cuh), in dO and V alike
+        // dP = dO V^T, 3xTF32, 8 head-dim columns a step: k index t is
+        // column 2t, t + 4 is 2t + 1 (mma_sm90.cuh), in dO and V alike
 #pragma unroll 2
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const float2 x0 = *reinterpret_cast<const float2*>(do_a + kk * 8);
-        const float2 x1 =
-            *reinterpret_cast<const float2*>(do_a + 8 * LDF + kk * 8);
-        uint32_t ah[4], al[4];
-        split_tf32_frag(x0.x, x1.x, x0.y, x1.y, ah, al);
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const float2 x0 = *reinterpret_cast<const float2*>(do_a + kk * 8);
+          const float2 x1 =
+              *reinterpret_cast<const float2*>(do_a + 8 * LDF + kk * 8);
+          uint32_t ah[4], al[4];
+          split_tf32_frag(x0.x, x1.x, x0.y, x1.y, ah, al);
 #pragma unroll
-        for (int n = 0; n < NBLK; ++n) {
-          const float2 y = *reinterpret_cast<const float2*>(
-              vst + (8 * n + g) * LDF + kk * 8 + 2 * tg);
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(y.x, bh0, bl0);
-          split_tf32(y.y, bh1, bl1);
-          mma_split3_tf32(dp[n], ah, al, bh0, bh1, bl0, bl1);
+          for (int n = 0; n < NBLK; ++n) {
+            const float2 y = *reinterpret_cast<const float2*>(
+                vst + (8 * n + g) * LDF + kk * 8 + 2 * tg);
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(y.x, bh0, bl0);
+            split_tf32(y.y, bh1, bl1);
+            mma_split3_tf32(dp[n], ah, al, bh0, bh1, bl0, bl1);
+          }
         }
       }
     }
     __syncthreads();  // every warp done with the v tile
     if (next) {
-      load_tile_async<THREADS, BLOCK_N, D, LDF>(vst, vb, (t + 1) * BLOCK_N,
-                                                tk);
+      load_tile_async<THREADS, BLOCK_N, D, LDF>(vst, vb + s0 * D,
+                                                (t + 1) * BLOCK_N, tk, ld);
       cp_async_commit();
     }
     if (!skip) {
@@ -270,32 +306,32 @@ flash_bwd_dq_f32mma_kernel(const float* __restrict__ q,
   }
   cp_async_wait<0>();  // dO's copy, also when no tile was visited
 
-  float* dqb = dq + bh * tq * D;
+  float* dqb = dq + bh * tq * ld + z * D;
 #pragma unroll
   for (int j = 0; j < DBLK; ++j) {
     const int col = 8 * j + 2 * tg;
     if (row_a < tq)
-      *reinterpret_cast<float2*>(dqb + (long long)row_a * D + col) =
+      *reinterpret_cast<float2*>(dqb + (long long)row_a * ld + col) =
           make_float2(acc[j][0], acc[j][1]);
     if (row_a + 8 < tq)
-      *reinterpret_cast<float2*>(dqb + (long long)(row_a + 8) * D + col) =
+      *reinterpret_cast<float2*>(dqb + (long long)(row_a + 8) * ld + col) =
           make_float2(acc[j][2], acc[j][3]);
   }
 }
 
-template <int D>
+template <int D, bool WIDE>
 int launch(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* delta, float* dq, int bh, int tq,
-           int tk, float scale, int causal, cudaStream_t stream) {
+           int tk, int d, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_f32mma_kernel<D>,
+      flash_bwd_dq_f32mma_kernel<D, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return for_bh_chunks(bh, [&](int b0, int n) {
-    const long long qo = (long long)b0 * tq * D, ko = (long long)b0 * tk * D;
-    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n);
-    flash_bwd_dq_f32mma_kernel<D><<<grid, THREADS, smem, stream>>>(
+    const long long qo = (long long)b0 * tq * d, ko = (long long)b0 * tk * d;
+    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n, d / D);
+    flash_bwd_dq_f32mma_kernel<D, WIDE><<<grid, THREADS, smem, stream>>>(
         q + qo, k + ko, v + ko, dout + qo, lse + (long long)b0 * tq,
         delta + (long long)b0 * tq, dq + qo, tq, tk, scale, causal);
   });
@@ -304,7 +340,7 @@ int launch(const float* q, const float* k, const float* v, const float* dout,
 }  // namespace
 
 // dtype: 0 float32 (bf16 and fp16 are flash_bwd_dq_mma.cu's); d: 64 or
-// 128. q, dout, dq: [bh, tq, d]; k, v: [bh, tk, d]; lse, delta: [bh, tq]
+// a multiple of 128. q, dout, dq: [bh, tq, d]; k, v: [bh, tk, d]; lse, delta: [bh, tq]
 // float32. All contiguous, 16-byte aligned, on the current device.
 // Returns the CUDA error code of the launch (0 = ok).
 extern "C" int flash_bwd_dq_f32mma(const void* q, const void* k,
@@ -322,10 +358,13 @@ extern "C" int flash_bwd_dq_f32mma(const void* q, const void* k,
               *df = static_cast<const float*>(dout);
   float* out = static_cast<float*>(dq);
   if (d == 64)
-    return launch<64>(qf, kf, vf, df, lse, delta, out, bh, tq, tk, scale,
-                      causal, s);
-  if (d == 128)
-    return launch<128>(qf, kf, vf, df, lse, delta, out, bh, tq, tk, scale,
-                       causal, s);
+    return launch<64, false>(qf, kf, vf, df, lse, delta, out, bh, tq, tk, d,
+                             scale, causal, s);
+  if (d == HEAD_SLICE)
+    return launch<HEAD_SLICE, false>(qf, kf, vf, df, lse, delta, out, bh, tq,
+                                     tk, d, scale, causal, s);
+  if (d > 0 && d % HEAD_SLICE == 0)
+    return launch<HEAD_SLICE, true>(qf, kf, vf, df, lse, delta, out, bh, tq,
+                                    tk, d, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,8 +4,8 @@
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:223 _fa_bwd_dq_kernel
 // (with _recompute_ds, :161; the first pallas_call of _flash_bwd_pallas,
-// :273). Per (batch*head) slice of q, do [tq, D] and k, v [tk, D], D in
-// {64, 128}, it computes:
+// :273). Per (batch*head) slice of q, do [tq, D] and k, v [tk, D], D 64
+// or any multiple of 128, it computes:
 //   P  = exp(S - lse), S = (Q K^T) * scale   (lse from the forward, K1)
 //   dS = P o (dO V^T - delta) * scale         (delta per q row, from the
 //                                              caller: rowsum(dO o O) - dlse)
@@ -57,6 +57,12 @@
 //   tiles tile_sweep.py times on the H100, this one was fastest:
 //   128 rows with 8 warps (one block a SM) ran 11% slower, 32-key tiles
 //   with three blocks a SM 2% slower (PERF.md).
+
+// - a head dim past 128 runs the D = 128 kernel in 128-column slices
+//   (mma_sm90.cuh HEAD_SLICE): block z of gridDim.z writes columns
+//   [128 z, 128 z + 128) of dQ. S and dP sum the slices' products, each
+//   slice's q, dO, k and v tiles copied afresh (waited for), the last
+//   slice being z, whose k tile dQ += dS K reads.
 //
 // What it leaves: wgmma with TMA and warp specialisation; fusing dQ into
 // K3's pass (flash_bwd_dkv_mma.cu), which would take atomics and give up
@@ -89,7 +95,8 @@ struct Layout {
   static constexpr size_t bytes = 2 * (2 * Q + 4 * KV);
 };
 
-template <typename T, int D>
+// WIDE: D = HEAD_SLICE and the head is gridDim.z slices of it
+template <typename T, int D, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -111,8 +118,13 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, tg = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;  // heaviest first
   const long long bh = blockIdx.y;
-  const T* kb = k + bh * tk * D;
-  const T* vb = v + bh * tk * D;
+  const int ns = WIDE ? gridDim.z : 1, z = WIDE ? blockIdx.z : 0;
+  const int ld = D * ns;               // global row stride
+  const int s0 = WIDE ? slice_at(0, z, ns) : 0;
+  const T* qb = q + bh * tq * ld;
+  const T* dob = dout + bh * tq * ld;
+  const T* kb = k + bh * tk * ld;
+  const T* vb = v + bh * tk * ld;
 
   // causal: key j is visible to row i iff j <= i + offset. Keys past the
   // block's last row's limit have dS = 0 for every row of the block; a
@@ -124,11 +136,11 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     n_tiles = last < 0 ? 0 : min(n_tiles, last / BLOCK_N + 1);
   }
 
-  load_tile_async<THREADS, BLOCK_M, D, LD>(qs, q + bh * tq * D, q0, tq);
-  load_tile_async<THREADS, BLOCK_M, D, LD>(dos, dout + bh * tq * D, q0, tq);
+  load_tile_async<THREADS, BLOCK_M, D, LD>(qs, qb + s0 * D, q0, tq, ld);
+  load_tile_async<THREADS, BLOCK_M, D, LD>(dos, dob + s0 * D, q0, tq, ld);
   if (n_tiles > 0) {
-    load_tile_async<THREADS, BLOCK_N, D, LD>(ks, kb, 0, tk);
-    load_tile_async<THREADS, BLOCK_N, D, LD>(vs, vb, 0, tk);
+    load_tile_async<THREADS, BLOCK_N, D, LD>(ks, kb + s0 * D, 0, tk, ld);
+    load_tile_async<THREADS, BLOCK_N, D, LD>(vs, vb + s0 * D, 0, tk, ld);
   }
   cp_async_commit();
 
@@ -155,9 +167,11 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int st = t & 1;
     if (t + 1 < n_tiles) {
       load_tile_async<THREADS, BLOCK_N, D, LD>(
-          ks + (st ^ 1) * Layout<D>::KV, kb, (t + 1) * BLOCK_N, tk);
+          ks + (st ^ 1) * Layout<D>::KV, kb + s0 * D, (t + 1) * BLOCK_N, tk,
+          ld);
       load_tile_async<THREADS, BLOCK_N, D, LD>(
-          vs + (st ^ 1) * Layout<D>::KV, vb, (t + 1) * BLOCK_N, tk);
+          vs + (st ^ 1) * Layout<D>::KV, vb + s0 * D, (t + 1) * BLOCK_N, tk,
+          ld);
       cp_async_commit();
       cp_async_wait<1>();  // tile t (and q, dO) landed; t + 1 in flight
     } else {
@@ -168,32 +182,55 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // no row of the warp exists, or every key of the tile is right of
     // each of its rows (fully masked rows included): dS = 0 here
     const bool skip = w0 >= tq || (causal && k0 > w_last + offset);
-    if (!skip) {
-      const T* kt = ks + st * Layout<D>::KV;
-      const T* vt = vs + st * Layout<D>::KV;
-      float s[NBLK][4], dp[NBLK][4];
+    T* kt = ks + st * Layout<D>::KV;
+    T* vt = vs + st * Layout<D>::KV;
+    float s[NBLK][4], dp[NBLK][4];
 #pragma unroll
-      for (int j = 0; j < NBLK; ++j) {
+    for (int j = 0; j < NBLK; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    for (int i = 0; i < ns; ++i) {
+      // a wide head: this step's slice of q and dO (held slice z since
+      // the last tile) and, past the first step, of k and v; the last
+      // step's is slice z, which dQ += dS K reads
+      if (WIDE && (i > 0 || t > 0)) {
+        const int sl = slice_at(i, z, ns);
+        __syncthreads();
+        load_tile_async<THREADS, BLOCK_M, D, LD>(qs, qb + sl * D, q0, tq, ld);
+        load_tile_async<THREADS, BLOCK_M, D, LD>(dos, dob + sl * D, q0, tq,
+                                                 ld);
+        if (i > 0) {
+          load_tile_async<THREADS, BLOCK_N, D, LD>(kt, kb + sl * D, k0, tk,
+                                                   ld);
+          load_tile_async<THREADS, BLOCK_N, D, LD>(vt, vb + sl * D, k0, tk,
+                                                   ld);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
       }
-      // S = Q K^T and dP = dO V^T: 16 rows x BLOCK_N keys each
+      if (!skip) {
+        // S = Q K^T and dP = dO V^T: 16 rows x BLOCK_N keys each
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t a[4], ad[4];
-        ldsm_x4(a, a_frag<LD>(qs, warp * 16, kk * 16, lane));
-        ldsm_x4(ad, a_frag<LD>(dos, warp * 16, kk * 16, lane));
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          uint32_t a[4], ad[4];
+          ldsm_x4(a, a_frag<LD>(qs, warp * 16, kk * 16, lane));
+          ldsm_x4(ad, a_frag<LD>(dos, warp * 16, kk * 16, lane));
 #pragma unroll
-        for (int np = 0; np < NBLK / 2; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, b_frag<LD>(kt, np * 16, kk * 16, lane));
-          M::run(s[2 * np], a, b[0], b[1]);
-          M::run(s[2 * np + 1], a, b[2], b[3]);
-          ldsm_x4(b, b_frag<LD>(vt, np * 16, kk * 16, lane));
-          M::run(dp[2 * np], ad, b[0], b[1]);
-          M::run(dp[2 * np + 1], ad, b[2], b[3]);
+          for (int np = 0; np < NBLK / 2; ++np) {
+            uint32_t b[4];
+            ldsm_x4(b, b_frag<LD>(kt, np * 16, kk * 16, lane));
+            M::run(s[2 * np], a, b[0], b[1]);
+            M::run(s[2 * np + 1], a, b[2], b[3]);
+            ldsm_x4(b, b_frag<LD>(vt, np * 16, kk * 16, lane));
+            M::run(dp[2 * np], ad, b[0], b[1]);
+            M::run(dp[2 * np + 1], ad, b[2], b[3]);
+          }
         }
       }
+    }
+    if (!skip) {
       // dS = P o (dP - delta) scale in place of S, 0 where masked (keys
       // >= tk, right of the diagonal, every key of a fully masked row);
       // the mask only where the ragged end or the diagonal crosses
@@ -255,32 +292,32 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         M::pack(acc[j][2], acc[j][3]);
   }
   __syncwarp();
-  store_tile<32, 16, D, LD>(dq + bh * tq * D, os, w0, tq, lane);
+  store_tile<32, 16, D, LD>(dq + bh * tq * ld + z * D, os, w0, tq, lane, ld);
 }
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void* dq;
-  int bh, tq, tk;
+  int bh, tq, tk, d;
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool WIDE>
 int launch(const Args& a) {
   constexpr size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<T, D>,
+      flash_bwd_dq_mma_kernel<T, D, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return for_bh_chunks(a.bh, [&](int b0, int n) {
-    const long long qo = (long long)b0 * a.tq * D;
-    const long long ko = (long long)b0 * a.tk * D;
+    const long long qo = (long long)b0 * a.tq * a.d;
+    const long long ko = (long long)b0 * a.tk * a.d;
     const long long ro = (long long)b0 * a.tq;
-    const dim3 grid((a.tq + BLOCK_M - 1) / BLOCK_M, n);
-    flash_bwd_dq_mma_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+    const dim3 grid((a.tq + BLOCK_M - 1) / BLOCK_M, n, a.d / D);
+    flash_bwd_dq_mma_kernel<T, D, WIDE><<<grid, THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q) + qo, static_cast<const T*>(a.k) + ko,
         static_cast<const T*>(a.v) + ko, static_cast<const T*>(a.dout) + qo,
         a.lse + ro, a.delta + ro, static_cast<T*>(a.dq) + qo, a.tq, a.tk,
@@ -289,16 +326,17 @@ int launch(const Args& a) {
 }
 
 template <typename T>
-int launch_d(const Args& a, int d) {
-  if (d == 64) return launch<T, 64>(a);
-  if (d == 128) return launch<T, 128>(a);
+int launch_d(const Args& a) {
+  if (a.d == 64) return launch<T, 64, false>(a);
+  if (a.d == HEAD_SLICE) return launch<T, HEAD_SLICE, false>(a);
+  if (a.d > 0 && a.d % HEAD_SLICE == 0) return launch<T, HEAD_SLICE, true>(a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 1 bfloat16, 2 float16 (float32 is flash_bwd_dq_f32mma.cu's); d: 64 or
-// 128. q, dout, dq: [bh, tq, d]; k, v: [bh, tk, d]; lse, delta: [bh, tq]
+// a multiple of 128. q, dout, dq: [bh, tq, d]; k, v: [bh, tk, d]; lse, delta: [bh, tq]
 // float32. All contiguous, the 16-bit tensors 16-byte aligned, on the
 // current device. Returns the CUDA error code of the launch (0 = ok).
 extern "C" int flash_bwd_dq_mma(const void* q, const void* k, const void* v,
@@ -308,11 +346,11 @@ extern "C" int flash_bwd_dq_mma(const void* q, const void* k, const void* v,
                                 int causal, void* stream) {
   if (bh <= 0 || tq <= 0 || tk <= 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, delta, dq, bh, tq, tk,
+  const Args a{q, k, v, dout, lse, delta, dq, bh, tq, tk, d,
                scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case 1: return launch_d<__nv_bfloat16>(a, d);
-    case 2: return launch_d<__half>(a, d);
+    case 1: return launch_d<__nv_bfloat16>(a);
+    case 2: return launch_d<__half>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,7 +5,7 @@
 // Replaces paddle_tpu/ops/pallas_attention.py:59 _fa_kernel (launched by
 // _flash_fwd_pallas, :111) on the float32 route. Computes exactly what
 // flash_fwd_mma.cu computes, per (batch*head) slice of q [tq, D] and
-// k, v [tk, D], D in {64, 128}:
+// k, v [tk, D], D 64 or any multiple of 128:
 //   S   = (Q K^T) * scale, causal-masked bottom-right (row + tk - tq >= col)
 //   O   = softmax(S) V    by online softmax (running max m, sum l)
 //   lse = m + log(l)      (l == 0 -> 1), compact [BH, tq] float32
@@ -54,6 +54,12 @@
 //   crosses. A block that holds a fully masked row visits every tile.
 // - O goes from the accumulators to global memory as float2 pairs.
 //
+// - a head dim past 128 runs the D = 128 kernel in 128-column slices
+//   (mma_sm90.cuh HEAD_SLICE): block z of gridDim.z writes columns
+//   [128 z, 128 z + 128) of O (and block 0 lse). Each k tile's S sums
+//   the slices' Q K^T, each slice's q and k split afresh straight from
+//   global memory; v comes as slice z only.
+//
 // What it leaves: the staging and split of a tile are not overlapped
 // with the tensor-core work of the same block (one block a SM); wgmma
 // with TMA and a producer warp; reading GQA KV heads in place.
@@ -86,7 +92,8 @@ struct Layout {
   static constexpr size_t bytes = 4 * 2 * STAGE + 2 * (2 * Q + 4 * KV);
 };
 
-template <int D>
+// WIDE: D = HEAD_SLICE and the head is gridDim.z slices of it
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32mma_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -112,9 +119,12 @@ flash_fwd_f32mma_kernel(const float* __restrict__ q,
   const int g = lane >> 2, tg = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;  // heaviest first
   const long long bh = blockIdx.y;
-  const float* qb = q + bh * tq * D;
-  const float* kb = k + bh * tk * D;
-  const float* vb = v + bh * tk * D;
+  const int ns = WIDE ? gridDim.z : 1, z = WIDE ? blockIdx.z : 0;
+  const int ld = D * ns;               // global row stride
+  const int s0 = WIDE ? slice_at(0, z, ns) : 0;
+  const float* qb = q + bh * tq * ld;
+  const float* kb = k + bh * tk * ld;
+  const float* vb = v + bh * tk * ld + z * D;
 
   // causal: key j is visible to row i iff j <= i + offset. A k tile
   // wholly right of the last row's limit contributes exactly zero and is
@@ -126,10 +136,10 @@ flash_fwd_f32mma_kernel(const float* __restrict__ q,
     n_tiles = min(n_tiles, (q0 + BLOCK_M - 1 + offset) / BLOCK_N + 1);
 
   // the first k / v tile in flight while the q tile is split
-  load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb, 0, tk);
-  load_tile_async<THREADS, BLOCK_N, D, D>(vst, vb, 0, tk);
+  load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb + s0 * D, 0, tk, ld);
+  load_tile_async<THREADS, BLOCK_N, D, D>(vst, vb, 0, tk, ld);
   cp_async_commit();
-  split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, qb, q0, tq);
+  split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, qb + s0 * D, q0, tq, ld);
   cp_async_wait<0>();
   __syncthreads();
   split_tile<THREADS, BLOCK_N, D, LD>(kh, kl, kst, 0, BLOCK_N);
@@ -152,33 +162,51 @@ flash_fwd_f32mma_kernel(const float* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     const bool next = t + 1 < n_tiles;
     if (next) {  // the staging tiles were split before the last barrier
-      load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb, (t + 1) * BLOCK_N, tk);
-      load_tile_async<THREADS, BLOCK_N, D, D>(vst, vb, (t + 1) * BLOCK_N, tk);
+      load_tile_async<THREADS, BLOCK_N, D, D>(kst, kb + s0 * D,
+                                              (t + 1) * BLOCK_N, tk, ld);
+      load_tile_async<THREADS, BLOCK_N, D, D>(vst, vb, (t + 1) * BLOCK_N, tk,
+                                              ld);
       cp_async_commit();
     }
     const int k0 = t * BLOCK_N;
     // every key of the tile right of each of the warp's rows, and none
     // of them fully masked: the tile adds nothing to these rows
     const bool skip = causal && w0 + offset >= 0 && k0 > w0 + 15 + offset;
-    if (!skip) {
-      float s[NBLK][4];
+    float s[NBLK][4];
 #pragma unroll
-      for (int j = 0; j < NBLK; ++j)
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < NBLK; ++j)
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int i = 0; i < ns; ++i) {
+      // a wide head: this step's slice of q (held slice z since the last
+      // tile) and, past the first step, of k, split from global memory
+      if (WIDE && (i > 0 || t > 0)) {
+        const int sl = slice_at(i, z, ns);
+        __syncthreads();
+        split_tile<THREADS, BLOCK_M, D, LD>(qh, ql, qb + sl * D, q0, tq, ld);
+        if (i > 0)
+          split_tile<THREADS, BLOCK_N, D, LD>(kh, kl, kb + sl * D, k0, tk,
+                                              ld);
+        __syncthreads();
+      }
+      if (!skip) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t ah[4], al[4];
-        ldsm_x4(ah, a_frag<LD>(qh, warp * 16, kk * 16, lane));
-        ldsm_x4(al, a_frag<LD>(ql, warp * 16, kk * 16, lane));
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          uint32_t ah[4], al[4];
+          ldsm_x4(ah, a_frag<LD>(qh, warp * 16, kk * 16, lane));
+          ldsm_x4(al, a_frag<LD>(ql, warp * 16, kk * 16, lane));
 #pragma unroll
-        for (int np = 0; np < NBLK / 2; ++np) {
-          uint32_t bh_[4], bl_[4];
-          ldsm_x4(bh_, b_frag<LD>(kh, np * 16, kk * 16, lane));
-          ldsm_x4(bl_, b_frag<LD>(kl, np * 16, kk * 16, lane));
-          mma_split3(s[2 * np], ah, al, bh_[0], bh_[1], bl_[0], bl_[1]);
-          mma_split3(s[2 * np + 1], ah, al, bh_[2], bh_[3], bl_[2], bl_[3]);
+          for (int np = 0; np < NBLK / 2; ++np) {
+            uint32_t bh_[4], bl_[4];
+            ldsm_x4(bh_, b_frag<LD>(kh, np * 16, kk * 16, lane));
+            ldsm_x4(bl_, b_frag<LD>(kl, np * 16, kk * 16, lane));
+            mma_split3(s[2 * np], ah, al, bh_[0], bh_[1], bl_[0], bl_[1]);
+            mma_split3(s[2 * np + 1], ah, al, bh_[2], bh_[3], bl_[2],
+                       bl_[3]);
+          }
         }
       }
+    }
+    if (!skip) {
       // the mask, only where the ragged end or the diagonal crosses
       const bool edge = k0 + BLOCK_N > tk ||
                         (causal && k0 + BLOCK_N - 1 > w0 + offset);
@@ -260,34 +288,35 @@ flash_fwd_f32mma_kernel(const float* __restrict__ q,
     const float safe_l = l[r] == 0.f ? 1.f : l[r];
     inv[r] = 1.f / safe_l;
     const int row = row_a + 8 * r;
-    if (tg == 0 && row < tq) lse[bh * tq + row] = m[r] * LN2 + logf(safe_l);
+    if (tg == 0 && row < tq && z == 0)
+      lse[bh * tq + row] = m[r] * LN2 + logf(safe_l);
   }
-  float* ob = o + bh * tq * D;
+  float* ob = o + bh * tq * ld + z * D;
 #pragma unroll
   for (int j = 0; j < DBLK; ++j) {
     const int col = 8 * j + 2 * tg;
     if (row_a < tq)
-      *reinterpret_cast<float2*>(ob + (long long)row_a * D + col) =
+      *reinterpret_cast<float2*>(ob + (long long)row_a * ld + col) =
           make_float2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
     if (row_a + 8 < tq)
-      *reinterpret_cast<float2*>(ob + (long long)(row_a + 8) * D + col) =
+      *reinterpret_cast<float2*>(ob + (long long)(row_a + 8) * ld + col) =
           make_float2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
   }
 }
 
-template <int D>
+template <int D, bool WIDE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int tq, int tk, float scale, int causal,
+           int bh, int tq, int tk, int d, float scale, int causal,
            cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32mma_kernel<D>,
+      flash_fwd_f32mma_kernel<D, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return for_bh_chunks(bh, [&](int b0, int n) {
-    const long long qo = (long long)b0 * tq * D, ko = (long long)b0 * tk * D;
-    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n);
-    flash_fwd_f32mma_kernel<D><<<grid, THREADS, smem, stream>>>(
+    const long long qo = (long long)b0 * tq * d, ko = (long long)b0 * tk * d;
+    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n, d / D);
+    flash_fwd_f32mma_kernel<D, WIDE><<<grid, THREADS, smem, stream>>>(
         static_cast<const float*>(q) + qo, static_cast<const float*>(k) + ko,
         static_cast<const float*>(v) + ko, static_cast<float*>(o) + qo,
         lse + (long long)b0 * tq, tq, tk, scale, causal);
@@ -298,7 +327,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // dtype: 0 float32 (bf16 and fp16 are flash_fwd_mma.cu's). q: [bh, tq,
 // d]; k, v: [bh, tk, d]; o like q; lse: [bh, tq] float32. All
-// contiguous, 16-byte aligned, on the current device; d 64 or 128.
+// contiguous, 16-byte aligned, on the current device; d 64 or a multiple
+// of 128.
 // Returns the CUDA error code of the launch (0 = ok).
 extern "C" int flash_fwd_f32mma(const void* q, const void* k, const void* v,
                                 void* o, float* lse, int bh, int tq, int tk,
@@ -307,8 +337,13 @@ extern "C" int flash_fwd_f32mma(const void* q, const void* k, const void* v,
   if (bh <= 0 || tq <= 0 || tk <= 0 || dtype != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(q, k, v, o, lse, bh, tq, tk, scale, causal, s);
-  if (d == 128)
-    return launch<128>(q, k, v, o, lse, bh, tq, tk, scale, causal, s);
+  if (d == 64)
+    return launch<64, false>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, s);
+  if (d == HEAD_SLICE)
+    return launch<HEAD_SLICE, false>(q, k, v, o, lse, bh, tq, tk, d, scale,
+                                     causal, s);
+  if (d > 0 && d % HEAD_SLICE == 0)
+    return launch<HEAD_SLICE, true>(q, k, v, o, lse, bh, tq, tk, d, scale,
+                                    causal, s);
   return (int)cudaErrorInvalidValue;
 }

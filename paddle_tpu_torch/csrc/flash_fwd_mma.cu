@@ -4,7 +4,7 @@
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:59 _fa_kernel (launched by
 // _flash_fwd_pallas, :111). Computes, per (batch*head) slice of
-// q [tq, D] and k, v [tk, D], D in {64, 128}:
+// q [tq, D] and k, v [tk, D], D 64 or any multiple of 128:
 //   S   = (Q K^T) * scale, causal-masked bottom-right (row + tk - tq >= col)
 //   O   = softmax(S) V    by online softmax (running max m, sum l)
 //   lse = m + log(l)      (l == 0 -> 1), compact [BH, tq] float32
@@ -50,6 +50,15 @@
 //   held 171 registers without a spill, one block a SM, and ran ~35%
 //   slower at the training shape (PERF.md).
 //
+// - a head dim past 128 runs the D = 128 kernel in 128-column slices
+//   (mma_sm90.cuh HEAD_SLICE): block z of gridDim.z writes columns
+//   [128 z, 128 z + 128) of O (and block 0 lse). Each k tile's S sums
+//   the slices' Q K^T, each slice's q and k tiles copied afresh (the
+//   copy waited for, not overlapped); v comes as slice z only. At
+//   D = 256 the registers and the 104 KB of shared memory are those of
+//   D = 128, where a whole-D tile would hold 128 accumulators a thread
+//   for O alone.
+//
 // What it leaves: wgmma with TMA and a producer warp (warp
 // specialisation), the route to the card's full tensor-core rate;
 // reading GQA KV heads in place instead of after repeat_interleave.
@@ -80,7 +89,8 @@ struct Layout {
   static constexpr size_t bytes = 2 * (Q + 4 * KV);
 };
 
-template <typename T, int D>
+// WIDE: D = HEAD_SLICE and the head is gridDim.z slices of it
+template <typename T, int D, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
@@ -99,9 +109,12 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, tg = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;  // heaviest first
   const long long bh = blockIdx.y;
-  const T* qb = q + bh * tq * D;
-  const T* kb = k + bh * tk * D;
-  const T* vb = v + bh * tk * D;
+  const int ns = WIDE ? gridDim.z : 1, z = WIDE ? blockIdx.z : 0;
+  const int ld = D * ns;               // global row stride
+  const int s0 = WIDE ? slice_at(0, z, ns) : 0;
+  const T* qb = q + bh * tq * ld;
+  const T* kb = k + bh * tk * ld;
+  const T* vb = v + bh * tk * ld + z * D;
 
   // causal: key j is visible to row i iff j <= i + offset. A k tile
   // wholly right of the last row's limit contributes exactly zero (its
@@ -113,9 +126,9 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal && q0 + offset >= 0)
     n_tiles = min(n_tiles, (q0 + BLOCK_M - 1 + offset) / BLOCK_N + 1);
 
-  load_tile_async<THREADS, BLOCK_M, D, LD>(qs, qb, q0, tq);
-  load_tile_async<THREADS, BLOCK_N, D, LD>(ks, kb, 0, tk);
-  load_tile_async<THREADS, BLOCK_N, D, LD>(vs, vb, 0, tk);
+  load_tile_async<THREADS, BLOCK_M, D, LD>(qs, qb + s0 * D, q0, tq, ld);
+  load_tile_async<THREADS, BLOCK_N, D, LD>(ks, kb + s0 * D, 0, tk, ld);
+  load_tile_async<THREADS, BLOCK_N, D, LD>(vs, vb, 0, tk, ld);
   cp_async_commit();
 
   const int w0 = q0 + warp * 16;       // the warp's first row
@@ -135,9 +148,10 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int st = t & 1;
     if (t + 1 < n_tiles) {
       load_tile_async<THREADS, BLOCK_N, D, LD>(
-          ks + (st ^ 1) * Layout<D>::KV, kb, (t + 1) * BLOCK_N, tk);
+          ks + (st ^ 1) * Layout<D>::KV, kb + s0 * D, (t + 1) * BLOCK_N, tk,
+          ld);
       load_tile_async<THREADS, BLOCK_N, D, LD>(
-          vs + (st ^ 1) * Layout<D>::KV, vb, (t + 1) * BLOCK_N, tk);
+          vs + (st ^ 1) * Layout<D>::KV, vb, (t + 1) * BLOCK_N, tk, ld);
       cp_async_commit();
       cp_async_wait<1>();  // tile t (and q) landed; t + 1 in flight
     } else {
@@ -148,24 +162,41 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // every key of the tile right of each of the warp's rows, and none
     // of them fully masked: the tile adds nothing to these rows
     const bool skip = causal && w0 + offset >= 0 && k0 > w0 + 15 + offset;
-    if (!skip) {
-      const T* kt = ks + st * Layout<D>::KV;
-      const T* vt = vs + st * Layout<D>::KV;
-      float s[8][4];
+    T* kt = ks + st * Layout<D>::KV;
+    const T* vt = vs + st * Layout<D>::KV;
+    float s[8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int i = 0; i < ns; ++i) {
+      // a wide head: this step's slice of q (held slice z since the last
+      // tile) and, past the first step, of k, copied by the whole block
+      if (WIDE && (i > 0 || t > 0)) {
+        const int sl = slice_at(i, z, ns);
+        __syncthreads();
+        load_tile_async<THREADS, BLOCK_M, D, LD>(qs, qb + sl * D, q0, tq, ld);
+        if (i > 0)
+          load_tile_async<THREADS, BLOCK_N, D, LD>(kt, kb + sl * D, k0, tk,
+                                                   ld);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (!skip) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, a_frag<LD>(qs, warp * 16, kk * 16, lane));
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, a_frag<LD>(qs, warp * 16, kk * 16, lane));
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, b_frag<LD>(kt, np * 16, kk * 16, lane));
-          M::run(s[2 * np], a, b[0], b[1]);
-          M::run(s[2 * np + 1], a, b[2], b[3]);
+          for (int np = 0; np < 4; ++np) {
+            uint32_t b[4];
+            ldsm_x4(b, b_frag<LD>(kt, np * 16, kk * 16, lane));
+            M::run(s[2 * np], a, b[0], b[1]);
+            M::run(s[2 * np + 1], a, b[2], b[3]);
+          }
         }
       }
+    }
+    if (!skip) {
       // the mask, only where the ragged end or the diagonal crosses
       const bool edge = k0 + BLOCK_N > tk ||
                         (causal && k0 + BLOCK_N - 1 > w0 + offset);
@@ -241,7 +272,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float safe_l = l[r] == 0.f ? 1.f : l[r];
     inv[r] = 1.f / safe_l;
     const int row = row_a + 8 * r;
-    if (tg == 0 && row < tq) lse[bh * tq + row] = m[r] * LN2 + logf(safe_l);
+    if (tg == 0 && row < tq && z == 0)
+      lse[bh * tq + row] = m[r] * LN2 + logf(safe_l);
   }
   // stage O in the warp's own 16 rows of the q tile (read only by this
   // warp), then store 16 bytes a lane
@@ -255,22 +287,22 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         M::pack(acc[j][2] * inv[1], acc[j][3] * inv[1]);
   }
   __syncwarp();
-  store_tile<32, 16, D, LD>(o + bh * tq * D, os, w0, tq, lane);
+  store_tile<32, 16, D, LD>(o + bh * tq * ld + z * D, os, w0, tq, lane, ld);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WIDE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int tq, int tk, float scale, int causal,
+           int bh, int tq, int tk, int d, float scale, int causal,
            cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<T, D>,
+      flash_fwd_mma_kernel<T, D, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return for_bh_chunks(bh, [&](int b0, int n) {
-    const long long qo = (long long)b0 * tq * D, ko = (long long)b0 * tk * D;
-    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n);
-    flash_fwd_mma_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+    const long long qo = (long long)b0 * tq * d, ko = (long long)b0 * tk * d;
+    const dim3 grid((tq + BLOCK_M - 1) / BLOCK_M, n, d / D);
+    flash_fwd_mma_kernel<T, D, WIDE><<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q) + qo, static_cast<const T*>(k) + ko,
         static_cast<const T*>(v) + ko, static_cast<T*>(o) + qo,
         lse + (long long)b0 * tq, tq, tk, scale, causal);
@@ -282,16 +314,22 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
              int bh, int tq, int tk, int d, float scale, int causal,
              cudaStream_t stream) {
   if (d == 64)
-    return launch<T, 64>(q, k, v, o, lse, bh, tq, tk, scale, causal, stream);
-  if (d == 128)
-    return launch<T, 128>(q, k, v, o, lse, bh, tq, tk, scale, causal, stream);
+    return launch<T, 64, false>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
+                                stream);
+  if (d == HEAD_SLICE)
+    return launch<T, HEAD_SLICE, false>(q, k, v, o, lse, bh, tq, tk, d, scale,
+                                        causal, stream);
+  if (d > 0 && d % HEAD_SLICE == 0)
+    return launch<T, HEAD_SLICE, true>(q, k, v, o, lse, bh, tq, tk, d, scale,
+                                       causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 1 bfloat16, 2 float16 (float32 is flash_fwd_f32mma.cu's). q:
-// [bh, tq, d]; k, v: [bh, tk, d]; o like q; lse: [bh, tq] float32. All
+// dtype: 1 bfloat16, 2 float16 (float32 is flash_fwd_f32mma.cu's); d: 64
+// or a multiple of 128. q: [bh, tq, d]; k, v: [bh, tk, d]; o like q;
+// lse: [bh, tq] float32. All
 // contiguous, 16-byte aligned, on the current device. Returns the CUDA
 // error code of the launch (0 = ok).
 extern "C" int flash_fwd_mma(const void* q, const void* k, const void* v,

@@ -33,6 +33,20 @@ namespace mma_sm90 {
 // B*H in chunks of at most this many slices
 constexpr int MAX_GRID_Y = 65535;
 
+// Head dims past 128 (any multiple of it) run in 128-column slices: the
+// kernels are instantiated at D = HEAD_SLICE with ns = d / HEAD_SLICE
+// slices on gridDim.z. A block owns slice blockIdx.z of its output and
+// takes the products that sum over the head dim (Q K^T, dO V^T) slice
+// by slice through its D = 128 tiles, ending on its own slice, so the
+// tiles its output product reads hold that slice when it runs. Each
+// block recomputes the scores of its slice: ns times the Q K^T work.
+constexpr int HEAD_SLICE = 128;
+
+// the slice of step i of a block's slice loop: its own slice z last
+__device__ __forceinline__ int slice_at(int i, int z, int ns) {
+  return (z + 1 + i) % ns;
+}
+
 // Calls launch_chunk(b0, n) for each chunk of at most MAX_GRID_Y of the
 // bh slices: b0 is its first slice and n its size, which the launcher
 // puts on gridDim.y after offsetting its pointers by b0. Returns the
@@ -82,10 +96,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [g0, g0 + ROWS) of a row-major [t, D] slice into a shared tile of
-// row stride LD elements, 16 bytes a copy; rows past t are zero
+// row stride LD elements, 16 bytes a copy; rows past t are zero. The
+// slice's rows lie ldg elements apart (D unless the slice is D columns
+// of a wider head, see HEAD_SLICE)
 template <int THREADS, int ROWS, int D, int LD, typename T>
 __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int g0,
-                                                int t) {
+                                                int t, int ldg = D) {
   constexpr int CHUNKS = D * (int)sizeof(T) / 16;
   constexpr int PER = 16 / (int)sizeof(T);
   for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
@@ -93,23 +109,23 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int g0,
     const int g = g0 + row;
     const bool in = g < t;
     cp_async_16(dst + row * LD + ch * PER,
-                src + (long long)(in ? g : 0) * D + ch * PER, in);
+                src + (long long)(in ? g : 0) * ldg + ch * PER, in);
   }
 }
 
 // the shared tile's rows [0, ROWS) to rows [g0, g0 + ROWS) of a [t, D]
-// slice, 16 bytes a store, rows past t not written; one group of
-// NTHREADS threads (thread index ti) does it
+// slice (rows ldg elements apart), 16 bytes a store, rows past t not
+// written; one group of NTHREADS threads (thread index ti) does it
 template <int NTHREADS, int ROWS, int D, int LD, typename T>
 __device__ __forceinline__ void store_tile(T* dst, const T* src, int g0,
-                                           int t, int ti) {
+                                           int t, int ti, int ldg = D) {
   constexpr int CHUNKS = D * (int)sizeof(T) / 16;
   constexpr int PER = 16 / (int)sizeof(T);
   for (int i = ti; i < ROWS * CHUNKS; i += NTHREADS) {
     const int row = i / CHUNKS, ch = i % CHUNKS;
     const int g = g0 + row;
     if (g < t)
-      *reinterpret_cast<uint4*>(dst + (long long)g * D + ch * PER) =
+      *reinterpret_cast<uint4*>(dst + (long long)g * ldg + ch * PER) =
           *reinterpret_cast<const uint4*>(src + row * LD + ch * PER);
   }
 }
@@ -219,12 +235,14 @@ __device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
 // rows [g0, g0 + ROWS) of a row-major float32 [t, D] slice (global or
 // shared memory, rows 16-byte aligned), each element x split into
 // hi = bf16(x) and lo = bf16(x - hi), into two shared bf16 tiles of row
-// stride LD; rows past t are zero. bf16 keeps float32's exponent range,
-// so lo is a normal number wherever x is: hi + lo holds x to ~2^-17.
+// stride LD; rows past t are zero; the slice's rows lie ldg elements
+// apart. bf16 keeps float32's exponent range, so lo is a normal number
+// wherever x is: hi + lo holds x to ~2^-17.
 template <int THREADS, int ROWS, int D, int LD>
 __device__ __forceinline__ void split_tile(__nv_bfloat16* hi,
                                            __nv_bfloat16* lo,
-                                           const float* src, int g0, int t) {
+                                           const float* src, int g0, int t,
+                                           int ldg = D) {
   constexpr int CHUNKS = D / 4;
   static_assert(ROWS * CHUNKS % THREADS == 0, "whole passes of the block");
 #pragma unroll
@@ -234,7 +252,7 @@ __device__ __forceinline__ void split_tile(__nv_bfloat16* hi,
     const int g = g0 + row;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (g < t)
-      x = *reinterpret_cast<const float4*>(src + (long long)g * D + ch * 4);
+      x = *reinterpret_cast<const float4*>(src + (long long)g * ldg + ch * 4);
     uint2 h, l;
     split_pack<__nv_bfloat16>(x.x, x.y, h.x, l.x);
     split_pack<__nv_bfloat16>(x.z, x.w, h.y, l.y);

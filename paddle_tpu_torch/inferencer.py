@@ -11,10 +11,11 @@ Beyond the reference: an Inferencer is also loadable directly from a
 — no ``infer_func`` needed, the pruned program ships in the artifact),
 and :meth:`Inferencer.serve` wraps it in a
 :class:`~paddle_tpu_torch.serving.ServingEngine` for batched concurrent
-traffic. ``serve(replicas > 1)`` and ``serve(remotes=...)`` (replica
-pools and remote hosts) are ROADMAP.md item 'Fleet and analyzers', and
-``serve_decode`` item 'Generation and the paged decode engine': they
-raise NotImplementedError naming the item.
+traffic, :meth:`Inferencer.serve_decode` in a continuous-batching
+:class:`~paddle_tpu_torch.serving.DecodeEngine`. ``serve(replicas >
+1)``, ``serve(remotes=...)`` and ``serve_decode(replicas > 1)``
+(replica pools behind a Router, remote hosts) are ROADMAP.md item
+'Fleet and analyzers': they raise NotImplementedError naming it.
 """
 import os
 
@@ -151,10 +152,30 @@ class Inferencer:
                      auto_start=True, warmup=False, replicas=1,
                      policy="health_aware", max_cluster_queue=None,
                      compile_store=None):
-        """A continuous-batching DecodeEngine over this scope: ROADMAP.md
-        item 'Generation and the paged decode engine' — raises
-        NotImplementedError naming it."""
-        raise NotImplementedError(
-            "serve_decode (the continuous-batching DecodeEngine) is a "
-            "later slice of the torch port (ROADMAP.md item 'Generation "
-            "and the paged decode engine')")
+        """Wrap this Inferencer's scope in a continuous-batching
+        :class:`~paddle_tpu_torch.serving.DecodeEngine` on this
+        Inferencer's place (the card by default). The scope must hold
+        the generator-layout weights for ``cfg`` (a ``param_path``
+        written from a stacked or quantized serving scope, with draft
+        weights under ``draft.*`` when ``draft_cfg`` is given); the
+        decode engine never initializes weights. ``warmup=True`` builds
+        every step, so the engine comes back with the no-recompile
+        contract armed. ``compile_store`` hands the engine a persistent
+        artifact store (None defers to PADDLE_TPU_ARTIFACT_DIR).
+        ``replicas > 1`` (a Router over decode engines sharing this
+        scope) is ROADMAP.md item 'Fleet and analyzers' and raises
+        NotImplementedError naming it; ``policy`` and
+        ``max_cluster_queue`` belong to that Router."""
+        if int(replicas) > 1:
+            raise NotImplementedError(
+                f"serve_decode(replicas={replicas}) builds a replica pool "
+                "behind a Router, a later slice of the torch port "
+                "(ROADMAP.md item 'Fleet and analyzers')")
+        from .serving import DecodeEngine
+        eng = DecodeEngine(cfg, scope=self.scope, place=self._place,
+                           config=config, draft_cfg=draft_cfg,
+                           auto_start=auto_start,
+                           compile_store=compile_store)
+        if warmup:
+            eng.warmup()
+        return eng

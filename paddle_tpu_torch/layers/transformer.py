@@ -1,27 +1,27 @@
 """Transformer building-block layers (port of
 ``paddle_tpu/layers/transformer.py``): rms_norm, rope, multihead
 attention (the flash kernel), silu, the layer-stacked decoder, the
-vocab-chunked fused head loss and the fused KV-cache generators
-(``llama_generate``, ``llama_spec_generate``). The paged-decode layers
-arrive with ROADMAP.md item 'Generation and the paged decode engine'
-(4b); ``moe_ffn`` and ``llama_stack_1f1b_loss`` with 'Multi-device
-parallelism'."""
+vocab-chunked fused head loss, the fused KV-cache generators
+(``llama_generate``, ``llama_spec_generate``) and the paged-KV step
+layers of the decode engine (``llama_paged_prefill``,
+``llama_paged_prefill_chunk``, ``llama_paged_decode``,
+``llama_paged_spec_step``). ``moe_ffn`` and ``llama_stack_1f1b_loss``
+come with ROADMAP.md item 'Multi-device parallelism'."""
 import copy
 
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..sharding import PartitionSpec as P
-from ..waiting import DECODE, MESH, module_getattr
+from ..waiting import MESH, module_getattr
 from .. import initializer as init_mod
 
 __all__ = ["rms_norm", "rope", "multihead_attention", "silu",
            "llama_decoder_stack", "fused_head_cross_entropy",
-           "llama_generate", "llama_spec_generate"]
+           "llama_generate", "llama_spec_generate", "llama_paged_prefill",
+           "llama_paged_prefill_chunk", "llama_paged_decode",
+           "llama_paged_spec_step"]
 
-WAITING = {"moe_ffn": MESH, "llama_stack_1f1b_loss": MESH,
-           "llama_paged_prefill": DECODE,
-           "llama_paged_prefill_chunk": DECODE,
-           "llama_paged_decode": DECODE, "llama_paged_spec_step": DECODE}
+WAITING = {"moe_ffn": MESH, "llama_stack_1f1b_loss": MESH}
 __getattr__ = module_getattr(__name__, WAITING)
 
 
@@ -278,6 +278,240 @@ def llama_generate(tokens, vocab_size, dim, n_layers, n_heads,
     if return_probs:
         return out, probs
     return out
+
+
+def _dense_serving_params(helper, *, dtype, vocab_size, dim, n_layers,
+                          n_heads, n_kv_heads, ffn_hidden, quantize,
+                          emb_name="tok_emb",
+                          final_norm_name="final_norm",
+                          head_name="lm_head"):
+    """The dense generator tensor set (stacked decoder weights + emb /
+    final norm / lm head, with int8 ``@scale`` companions when
+    ``quantize``) as an op-input slot dict — shared by the paged
+    serving ops so they read the exact scope layout
+    ``build_llama_generator`` serves from. MoE is a design-out here
+    (the paged engine serves dense models; route MoE through
+    llama_generate)."""
+    hd = dim // n_heads
+    weights = _stack_params(helper, dtype, n_layers, n_heads,
+                            n_kv_heads, dim, hd, ffn_hidden, None,
+                            pp_sharded=False)
+    ninit = init_mod.Normal(0.0, 0.02)
+    emb = helper.create_parameter(
+        ParamAttr(name=emb_name, initializer=ninit),
+        [vocab_size, dim], dtype)
+    fnorm = helper.create_parameter(
+        ParamAttr(name=final_norm_name,
+                  initializer=init_mod.Constant(1.0)), [dim], dtype)
+    head = helper.create_parameter(
+        ParamAttr(name=head_name, initializer=ninit),
+        [dim, vocab_size], dtype)
+    inputs = {"Emb": [emb.name], "FinalNorm": [fnorm.name],
+              "LmHead": [head.name],
+              **{slot: [w.name] for slot, w in weights.items()}}
+    if quantize:
+        out_dims = {"Wq": n_heads * hd, "Wk": n_kv_heads * hd,
+                    "Wv": n_kv_heads * hd, "Wo": dim,
+                    "WGate": ffn_hidden, "WUp": ffn_hidden,
+                    "WDown": dim}
+        for slot, out_d in out_dims.items():
+            w = weights[slot]
+            w.dtype = "int8"
+            sc = helper.create_parameter(
+                ParamAttr(name=w.name + "@scale",
+                          initializer=init_mod.Constant(1.0)),
+                [n_layers, 1, out_d], "float32")
+            inputs[slot + "Scale"] = [sc.name]
+        head.dtype = "int8"
+        hsc = helper.create_parameter(
+            ParamAttr(name=head.name + "@scale",
+                      initializer=init_mod.Constant(1.0)),
+            [vocab_size], "float32")
+        inputs["LmHeadScale"] = [hsc.name]
+    return inputs
+
+
+def _paged_model_attrs(n_heads, n_kv_heads, rope_base, epsilon,
+                       page_size):
+    return {"n_heads": n_heads, "n_kv_heads": n_kv_heads,
+            "rope_base": rope_base, "epsilon": epsilon,
+            "page_size": int(page_size)}
+
+
+def llama_paged_prefill(tokens, lens, table, k_pages, v_pages, *,
+                        vocab_size, dim, n_layers, n_heads, n_kv_heads,
+                        ffn_hidden, page_size, rope_base=10000.0,
+                        epsilon=1e-6, dtype="float32", quantize=False,
+                        name="blocks", emb_name="tok_emb",
+                        final_norm_name="final_norm",
+                        head_name="lm_head"):
+    """Prefill prompts into paged-KV slots (see ops/transformer_ops.py
+    llama_paged_prefill). tokens [B, T_bucket] int end-padded; lens [B]
+    real lengths; table [B, max_pages] int32; k_pages/v_pages
+    [L, n_pages, page_size, n_kv, hd]. Returns (next_tok [B],
+    k_pages_out, v_pages_out). Parameter names match
+    build_llama_generator's serving layout."""
+    helper = LayerHelper("llama_paged_prefill", name=name)
+    inputs = _dense_serving_params(
+        helper, dtype=dtype, vocab_size=vocab_size, dim=dim,
+        n_layers=n_layers, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        ffn_hidden=ffn_hidden, quantize=quantize, emb_name=emb_name,
+        final_norm_name=final_norm_name, head_name=head_name)
+    inputs.update({"Tokens": [tokens.name], "Lens": [lens.name],
+                   "Table": [table.name], "KPages": [k_pages.name],
+                   "VPages": [v_pages.name]})
+    nxt = helper.create_variable_for_type_inference(
+        tokens.dtype, shape=[tokens.shape[0]])
+    kp_out = helper.create_variable_for_type_inference(
+        k_pages.dtype, shape=k_pages.shape)
+    vp_out = helper.create_variable_for_type_inference(
+        v_pages.dtype, shape=v_pages.shape)
+    helper.append_op(
+        type="llama_paged_prefill", inputs=inputs,
+        outputs={"NextTok": [nxt.name], "KPagesOut": [kp_out.name],
+                 "VPagesOut": [vp_out.name]},
+        attrs=_paged_model_attrs(n_heads, n_kv_heads, rope_base,
+                                 epsilon, page_size))
+    return nxt, kp_out, vp_out
+
+
+def llama_paged_prefill_chunk(tokens, lens, offsets, table, k_pages,
+                              v_pages, *, vocab_size, dim, n_layers,
+                              n_heads, n_kv_heads, ffn_hidden,
+                              page_size, rope_base=10000.0,
+                              epsilon=1e-6, dtype="float32",
+                              quantize=False, name="blocks",
+                              emb_name="tok_emb",
+                              final_norm_name="final_norm",
+                              head_name="lm_head"):
+    """Prefill one SLICE of each row's prompt at a per-row offset into
+    already-allocated pages (see ops/transformer_ops.py
+    llama_paged_prefill_chunk). tokens [B, C] int end-padded to the
+    chunk width; lens [B] real tokens in this slice; offsets [B] int32
+    absolute start positions; table/k_pages/v_pages as in
+    llama_paged_prefill. Returns (next_tok [B] — meaningful on the
+    final chunk only, k_pages_out, v_pages_out)."""
+    helper = LayerHelper("llama_paged_prefill_chunk", name=name)
+    inputs = _dense_serving_params(
+        helper, dtype=dtype, vocab_size=vocab_size, dim=dim,
+        n_layers=n_layers, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        ffn_hidden=ffn_hidden, quantize=quantize, emb_name=emb_name,
+        final_norm_name=final_norm_name, head_name=head_name)
+    inputs.update({"Tokens": [tokens.name], "Lens": [lens.name],
+                   "Offsets": [offsets.name], "Table": [table.name],
+                   "KPages": [k_pages.name], "VPages": [v_pages.name]})
+    nxt = helper.create_variable_for_type_inference(
+        tokens.dtype, shape=[tokens.shape[0]])
+    kp_out = helper.create_variable_for_type_inference(
+        k_pages.dtype, shape=k_pages.shape)
+    vp_out = helper.create_variable_for_type_inference(
+        v_pages.dtype, shape=v_pages.shape)
+    helper.append_op(
+        type="llama_paged_prefill_chunk", inputs=inputs,
+        outputs={"NextTok": [nxt.name], "KPagesOut": [kp_out.name],
+                 "VPagesOut": [vp_out.name]},
+        attrs=_paged_model_attrs(n_heads, n_kv_heads, rope_base,
+                                 epsilon, page_size))
+    return nxt, kp_out, vp_out
+
+
+def llama_paged_decode(tokens, positions, table, k_pages, v_pages, *,
+                       vocab_size, dim, n_layers, n_heads, n_kv_heads,
+                       ffn_hidden, page_size, steps=1,
+                       rope_base=10000.0, epsilon=1e-6,
+                       dtype="float32", quantize=False, name="blocks"):
+    """``steps`` greedy decode steps over the paged pools, all slots in
+    lockstep (see ops/transformer_ops.py llama_paged_decode). tokens
+    [B] last emitted token per slot; positions [B] its absolute
+    position. Returns (out_tokens [B, steps], k_pages_out,
+    v_pages_out)."""
+    helper = LayerHelper("llama_paged_decode", name=name)
+    inputs = _dense_serving_params(
+        helper, dtype=dtype, vocab_size=vocab_size, dim=dim,
+        n_layers=n_layers, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        ffn_hidden=ffn_hidden, quantize=quantize)
+    inputs.update({"Tokens": [tokens.name], "Positions": [positions.name],
+                   "Table": [table.name], "KPages": [k_pages.name],
+                   "VPages": [v_pages.name]})
+    out = helper.create_variable_for_type_inference(
+        tokens.dtype, shape=[tokens.shape[0], int(steps)])
+    kp_out = helper.create_variable_for_type_inference(
+        k_pages.dtype, shape=k_pages.shape)
+    vp_out = helper.create_variable_for_type_inference(
+        v_pages.dtype, shape=v_pages.shape)
+    attrs = _paged_model_attrs(n_heads, n_kv_heads, rope_base,
+                               epsilon, page_size)
+    attrs["steps"] = int(steps)
+    helper.append_op(
+        type="llama_paged_decode", inputs=inputs,
+        outputs={"OutTokens": [out.name], "KPagesOut": [kp_out.name],
+                 "VPagesOut": [vp_out.name]},
+        attrs=attrs)
+    return out, kp_out, vp_out
+
+
+def llama_paged_spec_step(tokens, prev, positions, table, k_pages,
+                          v_pages, draft_k_pages, draft_v_pages, *,
+                          vocab_size, dim, n_layers, n_heads,
+                          n_kv_heads, ffn_hidden, draft_dim,
+                          draft_n_layers, draft_n_heads,
+                          draft_n_kv_heads, draft_ffn_hidden,
+                          page_size, gamma=4, rope_base=10000.0,
+                          epsilon=1e-6, draft_rope_base=None,
+                          draft_epsilon=None, draft_dtype=None,
+                          dtype="float32", name="blocks",
+                          draft_name="draft"):
+    """One speculative round with per-row acceptance (see
+    ops/transformer_ops.py llama_paged_spec_step). Returns (emitted
+    [B, gamma+1], accepted [B], k_pages_out, v_pages_out,
+    draft_k_pages_out, draft_v_pages_out). Draft parameters live under
+    ``{draft_name}.*`` exactly as in llama_spec_generate."""
+    helper = LayerHelper("llama_paged_spec_step", name=name)
+    inputs = _dense_serving_params(
+        helper, dtype=dtype, vocab_size=vocab_size, dim=dim,
+        n_layers=n_layers, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        ffn_hidden=ffn_hidden, quantize=False)
+    d_helper = LayerHelper("llama_paged_spec_step", name=draft_name)
+    d_inputs = _dense_serving_params(
+        d_helper, dtype=draft_dtype or dtype, vocab_size=vocab_size,
+        dim=draft_dim, n_layers=draft_n_layers, n_heads=draft_n_heads,
+        n_kv_heads=draft_n_kv_heads, ffn_hidden=draft_ffn_hidden,
+        quantize=False, emb_name=f"{draft_name}.tok_emb",
+        final_norm_name=f"{draft_name}.final_norm",
+        head_name=f"{draft_name}.lm_head")
+    inputs.update({"Draft" + slot: names
+                   for slot, names in d_inputs.items()})
+    inputs.update({"Tokens": [tokens.name], "Prev": [prev.name],
+                   "Positions": [positions.name], "Table": [table.name],
+                   "KPages": [k_pages.name], "VPages": [v_pages.name],
+                   "DraftKPages": [draft_k_pages.name],
+                   "DraftVPages": [draft_v_pages.name]})
+    b = tokens.shape[0]
+    emitted = helper.create_variable_for_type_inference(
+        tokens.dtype, shape=[b, int(gamma) + 1])
+    accepted = helper.create_variable_for_type_inference(
+        "int32", shape=[b])
+    outs = {"Emitted": [emitted.name], "Accepted": [accepted.name]}
+    page_outs = []
+    for nm, src in (("KPagesOut", k_pages), ("VPagesOut", v_pages),
+                    ("DraftKPagesOut", draft_k_pages),
+                    ("DraftVPagesOut", draft_v_pages)):
+        v = helper.create_variable_for_type_inference(
+            src.dtype, shape=src.shape)
+        outs[nm] = [v.name]
+        page_outs.append(v)
+    attrs = _paged_model_attrs(n_heads, n_kv_heads, rope_base,
+                               epsilon, page_size)
+    attrs.update({"gamma": int(gamma),
+                  "draft_n_heads": draft_n_heads,
+                  "draft_n_kv_heads": draft_n_kv_heads,
+                  "draft_rope_base": (rope_base if draft_rope_base
+                                      is None else draft_rope_base),
+                  "draft_epsilon": (epsilon if draft_epsilon is None
+                                    else draft_epsilon)})
+    helper.append_op(type="llama_paged_spec_step", inputs=inputs,
+                     outputs=outs, attrs=attrs)
+    return (emitted, accepted) + tuple(page_outs)
 
 
 def llama_spec_generate(tokens, vocab_size, max_new_tokens, *,

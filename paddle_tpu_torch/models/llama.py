@@ -19,10 +19,12 @@ KV cache with ``kv_int8``) and ``build_llama_spec_generator``
 directly, since the parameter names match; ``stack_generator_weights``
 converts a per-layer scope, ``copy_weights_as_draft`` aliases the
 target as its own draft, and ``save_decode_model`` /
-``load_decode_model`` persist (config, weights). A pipeline over a mesh
-(``pp_schedule="1f1b"``), the other mesh knobs and MoE (ROADMAP.md item
-'Multi-device parallelism') and the paged decode programs (item
-'Generation and the paged decode engine', 4b) are refused by name.
+``load_decode_model`` persist (config, weights).
+``build_llama_paged_programs`` builds the step programs of the
+continuous-batching decode engine (``serving.DecodeEngine``) over the
+same names. A pipeline over a mesh (``pp_schedule="1f1b"``), the other
+mesh knobs and MoE (ROADMAP.md item 'Multi-device parallelism') are
+refused by name.
 """
 import json
 import os
@@ -37,15 +39,15 @@ from ..layers import transformer as tfl
 from ..param_attr import ParamAttr
 from .. import initializer as init_mod
 from ..sharding import PartitionSpec as P
-from ..waiting import DECODE, MESH, module_getattr
+from ..waiting import MESH, module_getattr
 
 __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA_TINY", "build_llama",
            "build_llama_generator", "build_llama_spec_generator",
+           "build_llama_paged_programs", "PagedDecodePrograms",
            "quantize_generator_weights", "stack_generator_weights",
            "save_decode_model", "load_decode_model"]
 
-WAITING = {"build_llama_paged_programs": DECODE,
-           "PagedDecodePrograms": DECODE, "_tp_spec_table": MESH}
+WAITING = {"_tp_spec_table": MESH}
 __getattr__ = module_getattr(__name__, WAITING)
 
 
@@ -268,6 +270,226 @@ def build_llama_spec_generator(cfg, draft_cfg, tokens, max_new_tokens,
         draft_epsilon=draft_cfg.norm_eps, draft_dtype=draft_cfg.dtype,
         unroll_layers=unroll_layers, eos_id=eos_id, pad_id=pad_id,
         name=name, draft_name=draft_name)
+
+
+class PagedDecodePrograms:
+    """The step-function program set the continuous-batching decode
+    engine runs (serving/decode_engine.py): one prefill program per
+    prompt-length bucket, one decode-step program, and optionally one
+    speculative-round program — every shape in them static, so the
+    whole set compiles exactly once per (model config, max_batch) and
+    never again as requests churn through the slots (in the port: one
+    step build each).
+
+    ``prefill`` maps bucket length -> a bundle dict with the program,
+    feed var names, and fetch vars; ``decode``/``spec`` are single
+    bundles. ``kv_shape`` (and ``draft_kv_shape`` when spec) are the
+    [L, n_pages, page_size, n_kv, head_dim] pool shapes the engine
+    allocates on its device and feeds to every dispatch."""
+
+    def __init__(self, cfg, draft_cfg, page_size, pages_per_seq,
+                 n_pages, max_batch, prefill, decode, spec, kv_shape,
+                 draft_kv_shape, kv_dtype, draft_kv_dtype,
+                 draft_prefill=None, chunk=None, chunk_size=None):
+        self.cfg = cfg
+        self.draft_cfg = draft_cfg
+        self.page_size = page_size
+        self.pages_per_seq = pages_per_seq
+        self.n_pages = n_pages
+        self.max_batch = max_batch
+        self.seq_capacity = pages_per_seq * page_size
+        self.prefill = prefill
+        self.draft_prefill = draft_prefill
+        self.decode = decode
+        self.spec = spec
+        self.chunk = chunk              # chunked-prefill bundle or None
+        self.chunk_size = chunk_size
+        self.kv_shape = kv_shape
+        self.draft_kv_shape = draft_kv_shape
+        self.kv_dtype = kv_dtype
+        self.draft_kv_dtype = draft_kv_dtype
+
+
+def build_llama_paged_programs(cfg, *, max_batch, page_size, n_pages,
+                               pages_per_seq, prompt_buckets,
+                               decode_block=1, prefill_batch=1,
+                               quantize=False, draft_cfg=None,
+                               gamma=4, chunk_size=None):
+    """Builds the paged-KV step programs for ``cfg`` (dense configs
+    only): prefill-into-slot per prompt bucket, a ``decode_block``-step
+    decode program, and (with ``draft_cfg``) a speculative-round
+    program. Parameter names are the generator serving layout
+    (``blocks.* / tok_emb / final_norm / lm_head``, draft under
+    ``draft.*``), so a scope prepared for ``build_llama_generator`` —
+    trained, stacked, optionally ``quantize_generator_weights``'d —
+    serves these programs directly. The scope must already hold the
+    weights: the throwaway startup programs built here are never
+    returned, by design (the engine never initializes weights)."""
+    if cfg.moe_experts > 0 or (draft_cfg is not None
+                               and draft_cfg.moe_experts > 0):
+        raise NotImplementedError(
+            "the paged decode engine serves dense configs; route MoE "
+            "serving through build_llama_generator")
+    if draft_cfg is not None and quantize:
+        raise NotImplementedError(
+            "speculative paged decoding is float-only (same design-out "
+            "as llama_spec_generate); drop quantize or draft_cfg")
+    if draft_cfg is not None and draft_cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(
+            f"target and draft must share a vocabulary: "
+            f"{cfg.vocab_size} vs {draft_cfg.vocab_size}")
+    from ..core import framework
+    hd = cfg.dim // cfg.n_heads
+    kv_shape = [cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, hd]
+    common = dict(vocab_size=cfg.vocab_size, dim=cfg.dim,
+                  n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+                  n_kv_heads=cfg.n_kv_heads, ffn_hidden=cfg.ffn_hidden,
+                  page_size=page_size, rope_base=cfg.rope_base,
+                  epsilon=cfg.norm_eps, dtype=cfg.dtype)
+
+    def _data(name, shape, dtype):
+        return layers.data(name=name, shape=list(shape), dtype=dtype,
+                           append_batch_size=False)
+
+    prefill = {}
+    pb = max(1, int(prefill_batch))
+    for bucket in sorted(set(int(b) for b in prompt_buckets)):
+        main = framework.Program()
+        with framework.program_guard(main, framework.Program()), \
+                framework.unique_name.guard():
+            tokens = _data("pp_tokens", [pb, bucket], "int64")
+            lens = _data("pp_lens", [pb], "int32")
+            table = _data("pp_table", [pb, pages_per_seq], "int32")
+            kp = _data("pp_kpages", kv_shape, cfg.dtype)
+            vp = _data("pp_vpages", kv_shape, cfg.dtype)
+            nxt, kp_out, vp_out = tfl.llama_paged_prefill(
+                tokens, lens, table, kp, vp, quantize=quantize,
+                **common)
+        prefill[bucket] = {
+            "program": main.clone(for_test=True),
+            "feeds": ("pp_tokens", "pp_lens", "pp_table",
+                      "pp_kpages", "pp_vpages"),
+            "fetch": [nxt, kp_out, vp_out]}
+
+    main = framework.Program()
+    with framework.program_guard(main, framework.Program()), \
+            framework.unique_name.guard():
+        tokens = _data("dc_tokens", [max_batch], "int64")
+        positions = _data("dc_positions", [max_batch], "int32")
+        table = _data("dc_table", [max_batch, pages_per_seq], "int32")
+        kp = _data("dc_kpages", kv_shape, cfg.dtype)
+        vp = _data("dc_vpages", kv_shape, cfg.dtype)
+        out, kp_out, vp_out = tfl.llama_paged_decode(
+            tokens, positions, table, kp, vp, steps=decode_block,
+            quantize=quantize, **common)
+    decode = {"program": main.clone(for_test=True),
+              "feeds": ("dc_tokens", "dc_positions", "dc_table",
+                        "dc_kpages", "dc_vpages"),
+              "fetch": [out, kp_out, vp_out]}
+
+    chunk = None
+    if chunk_size is not None:
+        # chunked prefill: ONE executable for every slice of every
+        # prompt — batch 1 (a chunk is one request's slice; slices of
+        # different requests are separate dispatches so admission stays
+        # per-request), width `chunk_size`, per-row offset fed as data.
+        # Partial final slices ride the same shape via Lens padding,
+        # so chunk churn can never trigger a recompile.
+        cs = int(chunk_size)
+        if cs < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {cs}")
+        main = framework.Program()
+        with framework.program_guard(main, framework.Program()), \
+                framework.unique_name.guard():
+            tokens = _data("ck_tokens", [1, cs], "int64")
+            lens = _data("ck_lens", [1], "int32")
+            offsets = _data("ck_offsets", [1], "int32")
+            table = _data("ck_table", [1, pages_per_seq], "int32")
+            kp = _data("ck_kpages", kv_shape, cfg.dtype)
+            vp = _data("ck_vpages", kv_shape, cfg.dtype)
+            nxt, kp_out, vp_out = tfl.llama_paged_prefill_chunk(
+                tokens, lens, offsets, table, kp, vp,
+                quantize=quantize, **common)
+        chunk = {"program": main.clone(for_test=True),
+                 "feeds": ("ck_tokens", "ck_lens", "ck_offsets",
+                           "ck_table", "ck_kpages", "ck_vpages"),
+                 "fetch": [nxt, kp_out, vp_out]}
+
+    spec = None
+    draft_prefill = None
+    draft_kv_shape = None
+    if draft_cfg is not None:
+        d_hd = draft_cfg.dim // draft_cfg.n_heads
+        draft_kv_shape = [draft_cfg.n_layers, n_pages, page_size,
+                          draft_cfg.n_kv_heads, d_hd]
+        # the draft prefills its own paged cache over the same prompt
+        # (and the same page indices — one table serves both pools)
+        draft_prefill = {}
+        for bucket in sorted(set(int(b) for b in prompt_buckets)):
+            main = framework.Program()
+            with framework.program_guard(main, framework.Program()), \
+                    framework.unique_name.guard():
+                tokens = _data("dp_tokens", [pb, bucket], "int64")
+                lens = _data("dp_lens", [pb], "int32")
+                table = _data("dp_table", [pb, pages_per_seq], "int32")
+                kp = _data("dp_kpages", draft_kv_shape, draft_cfg.dtype)
+                vp = _data("dp_vpages", draft_kv_shape, draft_cfg.dtype)
+                nxt, kp_out, vp_out = tfl.llama_paged_prefill(
+                    tokens, lens, table, kp, vp,
+                    vocab_size=draft_cfg.vocab_size, dim=draft_cfg.dim,
+                    n_layers=draft_cfg.n_layers,
+                    n_heads=draft_cfg.n_heads,
+                    n_kv_heads=draft_cfg.n_kv_heads,
+                    ffn_hidden=draft_cfg.ffn_hidden,
+                    page_size=page_size, rope_base=draft_cfg.rope_base,
+                    epsilon=draft_cfg.norm_eps, dtype=draft_cfg.dtype,
+                    name="draft", emb_name="draft.tok_emb",
+                    final_norm_name="draft.final_norm",
+                    head_name="draft.lm_head")
+            draft_prefill[bucket] = {
+                "program": main.clone(for_test=True),
+                "feeds": ("dp_tokens", "dp_lens", "dp_table",
+                          "dp_kpages", "dp_vpages"),
+                "fetch": [nxt, kp_out, vp_out]}
+        main = framework.Program()
+        with framework.program_guard(main, framework.Program()), \
+                framework.unique_name.guard():
+            tokens = _data("sp_tokens", [max_batch], "int64")
+            prev = _data("sp_prev", [max_batch], "int64")
+            positions = _data("sp_positions", [max_batch], "int32")
+            table = _data("sp_table", [max_batch, pages_per_seq],
+                          "int32")
+            kp = _data("sp_kpages", kv_shape, cfg.dtype)
+            vp = _data("sp_vpages", kv_shape, cfg.dtype)
+            dkp = _data("sp_draft_kpages", draft_kv_shape,
+                        draft_cfg.dtype)
+            dvp = _data("sp_draft_vpages", draft_kv_shape,
+                        draft_cfg.dtype)
+            spec_common = dict(common)
+            del spec_common["dtype"]
+            outs = tfl.llama_paged_spec_step(
+                tokens, prev, positions, table, kp, vp, dkp, dvp,
+                draft_dim=draft_cfg.dim,
+                draft_n_layers=draft_cfg.n_layers,
+                draft_n_heads=draft_cfg.n_heads,
+                draft_n_kv_heads=draft_cfg.n_kv_heads,
+                draft_ffn_hidden=draft_cfg.ffn_hidden,
+                gamma=gamma, dtype=cfg.dtype,
+                draft_rope_base=draft_cfg.rope_base,
+                draft_epsilon=draft_cfg.norm_eps,
+                draft_dtype=draft_cfg.dtype, **spec_common)
+        spec = {"program": main.clone(for_test=True),
+                "feeds": ("sp_tokens", "sp_prev", "sp_positions",
+                          "sp_table", "sp_kpages", "sp_vpages",
+                          "sp_draft_kpages", "sp_draft_vpages"),
+                "fetch": list(outs)}
+
+    return PagedDecodePrograms(
+        cfg, draft_cfg, page_size, pages_per_seq, n_pages, max_batch,
+        prefill, decode, spec, kv_shape, draft_kv_shape,
+        cfg.dtype, None if draft_cfg is None else draft_cfg.dtype,
+        draft_prefill=draft_prefill, chunk=chunk,
+        chunk_size=None if chunk is None else int(chunk_size))
 
 
 # scope-name suffixes of the layer-stacked generator weights (the

@@ -32,17 +32,19 @@ counts its launches in ``<wrapper>.launches`` and, by kernel symbol, in
 ``<wrapper>.launches_by_kernel``: one a call, or ceil(B·H / 65535) for
 B·H past ``gridDim.y``'s limit, which the launchers start in chunks.
 
-The head dims the kernels take are 64 and 128. The reference sends the
-head dims its Pallas kernels do not take (D % 128 != 0) to its plain
-path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``); so does
+The head dims the kernels take are 64 and every multiple of 128, the
+reference's Pallas gate (D % 128 == 0): past 128 each kernel runs its
+D = 128 tiles in 128-column slices, one block a slice of its output
+(``csrc/mma_sm90.cuh`` ``HEAD_SLICE``). The reference sends the head
+dims its Pallas kernels do not take (D % 128 != 0) to its plain path on
+every backend (``_flash_fwd``, ``_flash_vjp_bwd``); so does
 :class:`FlashAttention` here, decided by the head dim before any
 launch: on a CUDA tensor of a head dim that is neither 64 nor a
 multiple of 128 it runs :func:`ref_attention_lse` and its gradient the
 plain versions of K2 and K3, and counts each call in
 ``launches_by_kernel["plain"]`` of the wrapper it stands in for
-(``launches`` counts kernels only). The wrappers themselves still
-refuse that head dim on CUDA, and a multiple of 128 other than 128
-(which the reference runs on its kernels) reaches them and raises.
+(``launches`` counts kernels only). The wrappers themselves refuse that
+head dim on CUDA.
 
 The kernels follow the semantics of ``_ref_attention_lse`` and of
 ``jax.vjp`` of it, not the Pallas kernels' quirks: causal masking is
@@ -87,7 +89,9 @@ __all__ = ["flash_attention", "attention_with_lse", "flash_fwd",
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+# head dims past the kernels' widest tile run in slices of it
+HEAD_SLICE = cuda_build.parse_constexprs(
+    (cuda_build.CSRC / "mma_sm90.cuh").read_text())["HEAD_SLICE"]
 _ALIGN = 16   # bytes: every kernel copies 16 bytes a cp.async
 # B*H slices a kernel launch takes (gridDim.y's limit, in the header)
 MAX_GRID_Y = cuda_build.parse_constexprs(
@@ -106,15 +110,21 @@ _ROUTES = {
 }
 
 
+def _kernel_head_dim(d):
+    """Whether the kernels take head dim ``d``: 64, or a multiple of
+    :data:`HEAD_SLICE` (128), sliced past it."""
+    return d == 64 or (d > 0 and d % HEAD_SLICE == 0)
+
+
 def kernel_for(wrapper, dtype, d):
     """(library, symbol) of the CUDA kernel that ``wrapper``
     ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
     16-bit tensor-core kernels, float32 to the split-operand ones.
     Raises ValueError for what no kernel takes."""
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{wrapper} kernels take head dims {_HEAD_DIMS}, "
-                         f"got {d}")
+    if not _kernel_head_dim(d):
+        raise ValueError(f"{wrapper} kernels take head dims 64 and the "
+                         f"multiples of {HEAD_SLICE}, got {d}")
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"{wrapper} kernels take float32, bfloat16 or "
                          f"float16, got {dtype}")
@@ -123,14 +133,12 @@ def kernel_for(wrapper, dtype, d):
 
 def takes_kernels(x):
     """Whether attention on ``x`` ([..., T, D]) goes to the wrappers: a
-    CPU tensor takes their plain versions, a CUDA tensor of head dim 64,
-    128 or a multiple of 128 their kernels (one past 128 raises in
-    :func:`kernel_for`). False only for a CUDA tensor of a head dim that
-    is neither 64 nor a multiple of 128, which the reference's gate
-    (``pallas_attention.py`` ``_flash_fwd``, ``_bwd_shapes_ok``: D % 128
-    == 0) also sends to its plain path."""
-    d = x.shape[-1]
-    return x.device.type != "cuda" or d in _HEAD_DIMS or d % 128 == 0
+    CPU tensor takes their plain versions, a CUDA tensor of head dim 64
+    or a multiple of 128 their kernels. False only for a CUDA tensor of
+    a head dim that is neither 64 nor a multiple of 128, which the
+    reference's gate (``pallas_attention.py`` ``_flash_fwd``,
+    ``_bwd_shapes_ok``: D % 128 == 0) also sends to its plain path."""
+    return x.device.type != "cuda" or _kernel_head_dim(x.shape[-1])
 
 
 def _misaligned(tensors):

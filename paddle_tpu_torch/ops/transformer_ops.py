@@ -1,17 +1,20 @@
 """Transformer-family op lowering rules (port of
 ``paddle_tpu/ops/transformer_ops.py``): RMSNorm, rotary embeddings,
 multi-head attention on the flash kernel, SiLU, the layer-stacked
-decoder ``llama_decoder_stack``, and the fused KV-cache generators
+decoder ``llama_decoder_stack``, the fused KV-cache generators
 ``llama_generate`` and ``llama_spec_generate`` with their sampling
-(``warp_logits``), W8A8 (``qmat``) and int8 KV cache.
+(``warp_logits``), W8A8 (``qmat``) and int8 KV cache, and the paged-KV
+ops of the continuous-batching decode engine (``llama_paged_prefill``,
+``llama_paged_prefill_chunk``, ``llama_paged_decode``,
+``llama_paged_spec_step``).
 
 rms_norm, rope and silu are plain torch: XLA fused them in the
 reference and no Pallas kernel exists for them. Attention goes through
 K1 forward and K2/K3 backward (ops/flash_attention.py). The generators'
-cached attention is plain torch too, as the reference's is plain jax (a
-grouped einsum against the n_kv cache). The paged decode ops come with
-ROADMAP.md item 'Generation and the paged decode engine' (4b) and the
-1F1B pipelined loss with 'Multi-device parallelism'.
+cached attention and the paged ops' attention are plain torch too, as
+the reference's are plain jax (grouped einsums against the n_kv cache).
+The 1F1B pipelined loss comes with ROADMAP.md item 'Multi-device
+parallelism'.
 """
 import math
 
@@ -20,14 +23,12 @@ from torch.utils import checkpoint as _ckpt
 
 from ..core.lowering import _mix_seed
 from ..core.registry import register_op
-from ..waiting import DECODE, MESH, module_getattr
+from ..waiting import MESH, module_getattr
 from .flash_attention import flash_attention
 from .moe import _act_quant
 
-# the reference's helpers of the paged decode ops (4b) and of the 1F1B
-# pipelined loss
-WAITING = {"_PagedRunner": DECODE, "_make_paged_runner": DECODE,
-           "_paged_model_inputs": DECODE, "_llama_stack_1f1b_loss": MESH}
+# the reference's helper of the 1F1B pipelined loss
+WAITING = {"_llama_stack_1f1b_loss": MESH}
 __getattr__ = module_getattr(__name__, WAITING)
 
 
@@ -760,3 +761,369 @@ def _llama_spec_generate(ctx, ins, attrs):
     return {"Out": [buf[:, :t_prompt + max_new]],
             "Rounds": [rounds.to(torch.int32)],
             "Emitted": [torch.clamp(emitted, max=max_new).to(torch.int32)]}
+
+
+# ---------------------------------------------------------------------
+# Paged KV cache: the continuous-batching decode engine's step ops.
+#
+# Continuous batching needs requests to join and leave every step while
+# the step programs keep one shape, so the cache is a page pool
+# [L, n_pages, page_size, g, hd] plus a per-slot page TABLE fed each
+# step: allocation is a host-side integer problem (serving/kv_pages.py).
+# Page 0 is the null page, never handed out: inactive slots point every
+# table entry at it, their writes land there, and nothing a live row
+# attends is read from it, because the attention mask bounds each row
+# at its own length. Several writes onto page 0 in one index-put (torch
+# leaves their order open on CUDA) therefore decide nothing. Reads
+# gather pages through the table; writes scatter at (table[pos //
+# page_size], pos % page_size), before the position is attended.
+#
+# Every row's computation depends only on its own row and its own
+# pages, so a request's greedy tokens do not depend on its neighbours
+# at one step shape. The ops write the pools they are fed in place and
+# return them: the engine's pools stay on its device across dispatches
+# and are never copied.
+# ---------------------------------------------------------------------
+
+class _PagedRunner:
+    """Paged twin of :func:`_make_cached_runner` over one model's
+    stacked weights, with two forms of the same math:
+
+    - ``forward(h, k_pages, v_pages, table, pos0, t_len)`` works on the
+      [L, n_pages, page_size, g, hd] pools through ``table`` [B,
+      max_pages] (prefill: one window, one gather a layer);
+    - ``gather`` / ``forward_dense`` / ``scatter`` take each row's pages
+      into a dense [L, B, kmax, g, hd] cache once, run every step of a
+      multi-step op against it, and write it back through the table
+      once at the end (the decode and speculative ops).
+
+    The dense view holds the pools' values bit for bit, so both forms
+    give the same numbers. int8 ``<Slot>Scale`` companions ride in
+    ``params`` as in the contiguous runner (:func:`qmat`)."""
+
+    def __init__(self, params, emb_w, fnorm, head, *, n_heads, n_kv,
+                 base, eps, page_size, head_scale=None, moe_top_k=2):
+        self.params = params
+        self.emb_w = emb_w
+        self.fnorm = fnorm
+        self.head = head
+        self.head_scale = head_scale
+        self.n_heads = n_heads
+        self.n_kv = n_kv
+        self.base = base
+        self.eps = eps
+        self.page_size = page_size
+        self.moe_top_k = moe_top_k
+        self.hd = params["Wq"].shape[-1] // n_heads
+        self.rep = n_heads // n_kv
+        self.layers = [{s: w[i] for s, w in params.items()}
+                       for i in range(params["Wq"].shape[0])]
+
+    def _attend_math(self, q, k_all, v_all, q_pos, t_len):
+        """GQA attention of a [B, t_len] query window against dense
+        [B, kmax] caches in float32, each row masked at its own
+        positions: what lies past a row's length gets an exact softmax
+        zero (exp(-1e30 - max) is 0.0), so it never reaches a live
+        row."""
+        b, kmax = k_all.shape[0], k_all.shape[1]
+        qg = q.reshape(b, t_len, self.n_kv, self.rep, self.hd)
+        keys = torch.arange(kmax, device=q.device)
+        visible = keys[None, None] <= q_pos[:, :, None]     # [B, T, K]
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                              k_all.float()) / math.sqrt(self.hd)
+        logits = logits.masked_fill(~visible[:, None, None], -1e30)
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bgrqk,bkgd->bqgrd", w, v_all.float())
+        return out.to(q.dtype).reshape(b, t_len, self.n_heads * self.hd)
+
+    def _stack_forward(self, h, k_caches, v_caches, q_pos, attend_write):
+        """The layer loop shared by both forms: ``attend_write(q, k, v,
+        kc, vc) -> out`` writes layer i's caches ``kc``, ``vc`` (views
+        of ``k_caches[i]``, ``v_caches[i]``) and attends."""
+        for i, p in enumerate(self.layers):
+            kc, vc = k_caches[i], v_caches[i]
+            h = decoder_block(
+                p, h, n_heads=self.n_heads, n_kv=self.n_kv,
+                base=self.base, eps=self.eps, pos=q_pos,
+                attend_fn=lambda q, k, v, kc=kc, vc=vc: attend_write(
+                    q, k, v, kc, vc),
+                moe_top_k=self.moe_top_k)
+        return h
+
+    # -- paged form (prefill) --------------------------------------------
+    def forward(self, h, k_pages, v_pages, table, pos0, t_len):
+        """h [B, t_len, D] at positions pos0 [B] + 0.. through every
+        layer; writes each position's K/V into its page of the pools
+        (in place) before the window attends."""
+        b = h.shape[0]
+        ps = self.page_size
+        kmax = table.shape[1] * ps
+        q_pos = pos0.long()[:, None] + torch.arange(t_len,
+                                                    device=h.device)[None]
+        tbl = table.long()
+        pg = torch.gather(tbl, 1, q_pos // ps)              # [B, T]
+        off = q_pos % ps
+
+        def attend_write(q, k, v, kp, vp):
+            kp[pg, off] = k
+            vp[pg, off] = v
+            k_all = kp[tbl].reshape(b, kmax, self.n_kv, self.hd)
+            v_all = vp[tbl].reshape(b, kmax, self.n_kv, self.hd)
+            return self._attend_math(q, k_all, v_all, q_pos, t_len)
+
+        return self._stack_forward(h, k_pages, v_pages, q_pos,
+                                   attend_write)
+
+    # -- dense form (decode / spec loops) --------------------------------
+    def gather(self, pages, table):
+        """[L, P, ps, g, hd] pools -> a dense [L, B, kmax, g, hd] copy of
+        each row's pages, in table order."""
+        lyr, b = pages.shape[0], table.shape[0]
+        return pages[:, table.long()].reshape(
+            lyr, b, table.shape[1] * self.page_size, pages.shape[-2],
+            pages.shape[-1])
+
+    def scatter(self, pages, dense, table):
+        """Write the dense view back through the table, in place, and
+        return the pools. Rows' real pages are disjoint; every null
+        entry (inactive slots, unallocated tails) lands on page 0,
+        which no live row reads."""
+        lyr, b = dense.shape[0], dense.shape[1]
+        mp = table.shape[1]
+        pages[:, table.long()] = dense.reshape(
+            lyr, b, mp, self.page_size, dense.shape[-2], dense.shape[-1])
+        return pages
+
+    def forward_dense(self, h, k_dense, v_dense, pos0, t_len):
+        """h [B, t_len, D] at positions pos0 [B] + 0.. against the dense
+        caches, written in place."""
+        b = h.shape[0]
+        rows = torch.arange(b, device=h.device)[:, None]
+        q_pos = pos0.long()[:, None] + torch.arange(t_len,
+                                                    device=h.device)[None]
+
+        def attend_write(q, k, v, kd, vd):
+            kd[rows, q_pos] = k
+            vd[rows, q_pos] = v
+            return self._attend_math(q, kd, vd, q_pos, t_len)
+
+        return self._stack_forward(h, k_dense, v_dense, q_pos,
+                                   attend_write)
+
+    def logits_of(self, hl):
+        hn = rms_normalize(hl, self.fnorm, self.eps)
+        if self.head_scale is None:
+            return (hn @ self.head).float()
+        return qmat(hn, {"W": self.head, "WScale": self.head_scale}, "W",
+                    cdt=torch.float32)
+
+
+def _make_paged_runner(params, emb_w, fnorm, head, *, n_heads, n_kv,
+                       base, eps, page_size, head_scale=None,
+                       moe_top_k=2):
+    return _PagedRunner(params, emb_w, fnorm, head, n_heads=n_heads,
+                        n_kv=n_kv, base=base, eps=eps,
+                        page_size=page_size, head_scale=head_scale,
+                        moe_top_k=moe_top_k)
+
+
+def _paged_model_inputs(ins, prefix=""):
+    """(params, emb, fnorm, head, head_scale) from a paged op's input
+    slots, with the int8 ``<Slot>Scale`` companions; ``prefix`` selects
+    the draft model's slots of ``llama_paged_spec_step``."""
+    params = {s: ins[prefix + s][0] for s in _STACK_SLOTS
+              if prefix + s in ins}
+    for s in _MATMUL_SLOTS:
+        if prefix + s + "Scale" in ins:
+            params[s + "Scale"] = ins[prefix + s + "Scale"][0]
+    head_scale = (ins[prefix + "LmHeadScale"][0]
+                  if prefix + "LmHeadScale" in ins else None)
+    return (params, ins[prefix + "Emb"][0], ins[prefix + "FinalNorm"][0],
+            ins[prefix + "LmHead"][0], head_scale)
+
+
+def _target_runner(ins, attrs):
+    params, emb_w, fnorm, head, head_scale = _paged_model_inputs(ins)
+    run = _make_paged_runner(
+        params, emb_w, fnorm, head, n_heads=attrs["n_heads"],
+        n_kv=attrs.get("n_kv_heads", attrs["n_heads"]),
+        base=attrs.get("rope_base", 10000.0),
+        eps=attrs.get("epsilon", 1e-6),
+        page_size=attrs["page_size"], head_scale=head_scale)
+    return run, emb_w
+
+
+def _prefill(ins, attrs, offsets):
+    """The prefill ops' shared body: the window at ``offsets`` (per row)
+    into the pools, and the greedy token after each row's last real
+    position."""
+    tokens = ins["Tokens"][0]
+    lens = ins["Lens"][0].long()
+    table = ins["Table"][0]
+    kp, vp = ins["KPages"][0], ins["VPages"][0]
+    run, emb_w = _target_runner(ins, attrs)
+    b = tokens.shape[0]
+    h = run.forward(emb_w[tokens], kp, vp, table, offsets, tokens.shape[1])
+    last = h[torch.arange(b, device=h.device), lens - 1]
+    nxt = torch.argmax(run.logits_of(last), dim=-1).to(tokens.dtype)
+    return {"NextTok": [nxt], "KPagesOut": [kp], "VPagesOut": [vp]}
+
+
+@register_op("llama_paged_prefill")
+def _llama_paged_prefill(ctx, ins, attrs):
+    """Prefill prompts into paged-KV slots and emit each row's first
+    greedy token.
+
+    Tokens [B, T_bucket] int (end-padded to the bucket: pad K/V lands at
+    positions >= Lens and is overwritten before it is attended by the
+    decode steps that later claim those positions); Lens [B] real prompt
+    lengths; Table [B, max_pages] page indices; KPages/VPages [L,
+    n_pages, page_size, g, hd]. Outputs NextTok [B] and the pools,
+    written in place."""
+    tokens = ins["Tokens"][0]
+    return _prefill(ins, attrs, torch.zeros(
+        (tokens.shape[0],), dtype=torch.long, device=tokens.device))
+
+
+@register_op("llama_paged_prefill_chunk")
+def _llama_paged_prefill_chunk(ctx, ins, attrs):
+    """Prefill one slice of each row's prompt at a per-row offset: the
+    chunked prefill, which lets a long prompt share dispatches with
+    other requests' decode steps.
+
+    Tokens [B, C] int (the slice, end-padded to the chunk width); Lens
+    [B] real tokens in this slice; Offsets [B] int the absolute position
+    of each row's first slice token; Table, KPages, VPages as in
+    ``llama_paged_prefill``. The math is ``llama_paged_prefill``'s
+    forward at pos0 = Offsets: every position's K/V depends only on the
+    positions up to it, so filling [0, C), [C, 2C), ... writes the
+    values one whole-prompt pass writes (the same einsum shapes a
+    position attends). NextTok [B] is the greedy token after the
+    slice's last real position, meaningful on a prompt's final
+    chunk."""
+    return _prefill(ins, attrs, ins["Offsets"][0].long())
+
+
+@register_op("llama_paged_decode")
+def _llama_paged_decode(ctx, ins, attrs):
+    """``steps`` greedy decode steps over the paged pools, every slot in
+    lockstep: one step program per (model, max_batch, steps) whatever
+    requests come and go.
+
+    Tokens [B]: each row's last emitted token, not yet cached;
+    Positions [B]: the absolute position that token takes (the row's
+    cache length). Inactive slots feed token 0, position 1 and an
+    all-null table; their outputs are discarded and their writes land
+    on the null page. OutTokens [B, steps]. The reference's ``lax.scan``
+    over the steps is a Python loop against one dense gather of the
+    pools, scattered back once."""
+    tok = ins["Tokens"][0]
+    pos = ins["Positions"][0].long()
+    table = ins["Table"][0]
+    kp, vp = ins["KPages"][0], ins["VPages"][0]
+    run, emb_w = _target_runner(ins, attrs)
+    steps = max(1, int(attrs.get("steps", 1)))
+    kd, vd = run.gather(kp, table), run.gather(vp, table)
+    toks = []
+    for _ in range(steps):
+        h = run.forward_dense(emb_w[tok][:, None, :], kd, vd, pos, 1)
+        tok = torch.argmax(run.logits_of(h[:, 0]), dim=-1).to(tok.dtype)
+        pos = pos + 1
+        toks.append(tok)
+    return {"OutTokens": [torch.stack(toks, dim=1)],
+            "KPagesOut": [run.scatter(kp, kd, table)],
+            "VPagesOut": [run.scatter(vp, vd, table)]}
+
+
+@register_op("llama_paged_spec_step")
+def _llama_paged_spec_step(ctx, ins, attrs):
+    """One speculative round over the paged pools with per-row
+    acceptance (greedy): the draft proposes ``gamma`` tokens a slot, the
+    target scores cur and every proposal in one [B, gamma + 1] forward,
+    and each row keeps its own longest accepted prefix.
+
+    The draft's first window reprocesses [Prev, Tokens] at pos - 1,
+    pos: after a fully accepted round the draft never cached its own
+    last proposal, and reprocessing Prev fills that hole (rewriting the
+    same values otherwise). Emitted [B, gamma + 1] holds the greedy
+    target token after each window position; Accepted [B] (per-row
+    m + 1) how many leading entries count. Rejected K/V sits at
+    positions >= pos + Accepted and is rewritten before any later query
+    attends it."""
+    cur = ins["Tokens"][0]
+    prev = ins["Prev"][0]
+    pos = ins["Positions"][0].long()
+    table = ins["Table"][0]
+    tkp, tvp = ins["KPages"][0], ins["VPages"][0]
+    dkp, dvp = ins["DraftKPages"][0], ins["DraftVPages"][0]
+    page_size = attrs["page_size"]
+    gamma = max(1, int(attrs.get("gamma", 4)))
+    t_run, emb_w = _target_runner(ins, attrs)
+    d_params, demb, dfnorm, dhead, d_hscale = \
+        _paged_model_inputs(ins, prefix="Draft")
+    d_run = _make_paged_runner(
+        d_params, demb, dfnorm, dhead, n_heads=attrs["draft_n_heads"],
+        n_kv=attrs.get("draft_n_kv_heads", attrs["draft_n_heads"]),
+        base=attrs.get("draft_rope_base",
+                       attrs.get("rope_base", 10000.0)),
+        eps=attrs.get("draft_epsilon", attrs.get("epsilon", 1e-6)),
+        page_size=page_size, head_scale=d_hscale)
+
+    dkd, dvd = d_run.gather(dkp, table), d_run.gather(dvp, table)
+    tkd, tvd = t_run.gather(tkp, table), t_run.gather(tvp, table)
+
+    # 1. the draft proposes gamma tokens a row
+    dh = d_run.forward_dense(demb[torch.stack([prev, cur], dim=1)], dkd,
+                             dvd, pos - 1, 2)
+    dl = d_run.logits_of(dh[:, 1])
+    drafts = []
+    for i in range(gamma):
+        if i > 0:
+            dh = d_run.forward_dense(demb[d_tok][:, None], dkd, dvd,
+                                     pos + i, 1)
+            dl = d_run.logits_of(dh[:, 0])
+        d_tok = torch.argmax(dl, dim=-1).to(cur.dtype)
+        drafts.append(d_tok)
+    D = torch.stack(drafts, dim=1)                       # [B, gamma]
+
+    # 2. the target scores cur and every proposal in one forward
+    cand = torch.cat([cur[:, None], D], dim=1)           # [B, gamma+1]
+    th = t_run.forward_dense(emb_w[cand], tkd, tvd, pos, gamma + 1)
+    G = torch.argmax(t_run.logits_of(th), dim=-1).to(cur.dtype)
+
+    # 3. each row's longest accepted prefix: row b emits G[b, :m_b + 1]
+    match = (D == G[:, :gamma]).to(torch.int32)
+    m = torch.cumprod(match, dim=1).sum(dim=1)
+    return {"Emitted": [G], "Accepted": [(m + 1).to(torch.int32)],
+            "KPagesOut": [t_run.scatter(tkp, tkd, table)],
+            "VPagesOut": [t_run.scatter(tvp, tvd, table)],
+            "DraftKPagesOut": [d_run.scatter(dkp, dkd, table)],
+            "DraftVPagesOut": [d_run.scatter(dvp, dvd, table)]}
+
+
+# Numerics rule of the paged family (analysis/numcheck.py): tokens are
+# finite non-negative integers; each pool output is finite when its pool
+# input is (the attention runs in float32 with -1e30 masking: exact
+# softmax zeros, never inf arithmetic). One rule covers the four ops,
+# each declaring only its own slots.
+from ..analysis.numcheck import NumInfo, num_first  # noqa: E402
+from ..core.registry import register_numerics  # noqa: E402
+
+
+def _num_paged_kv(op, ins, attrs):
+    tok = NumInfo(0.0, math.inf, finite=True, confident=True)
+    out = {"NextTok": [tok], "OutTokens": [tok], "Emitted": [tok],
+           "Accepted": [NumInfo(0.0, math.inf, finite=True,
+                                confident=True)]}
+    for slot, src in (("KPagesOut", "KPages"), ("VPagesOut", "VPages"),
+                      ("DraftKPagesOut", "DraftKPages"),
+                      ("DraftVPagesOut", "DraftVPages")):
+        pool = num_first(ins, src)
+        out[slot] = [NumInfo(-math.inf, math.inf, finite=pool.finite,
+                             confident=pool.confident)]
+    return out
+
+
+for _t in ("llama_paged_prefill", "llama_paged_prefill_chunk",
+           "llama_paged_decode", "llama_paged_spec_step"):
+    register_numerics(_t)(_num_paged_kv)

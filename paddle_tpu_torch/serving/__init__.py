@@ -1,9 +1,9 @@
-"""paddle_tpu_torch.serving — the bucketed model server (port of
-``paddle_tpu.serving``): dynamic micro-batching over pre-declared shape
-buckets, admission control, health and serving metrics. Continuous
-decode batching (the decode engine, its page allocator, schedulers and
-overload control) arrives with ROADMAP.md item 'Generation and the paged
-decode engine' (4b) and is refused by name.
+"""paddle_tpu_torch.serving — the model servers (port of
+``paddle_tpu.serving``): the bucketed ``ServingEngine`` (dynamic
+micro-batching over pre-declared shape buckets, admission control,
+health and serving metrics) and the continuous-batching
+``DecodeEngine`` over a paged KV cache, with its page allocator,
+admission schedulers and overload control.
 
     from paddle_tpu_torch import serving
     eng = serving.ServingEngine(program, ["tokens"], [logits], scope=scope,
@@ -11,28 +11,37 @@ decode engine' (4b) and is refused by name.
                                          seq_lens={"tokens": (128, 256)}))
     eng.warmup()
     out = eng.infer({"tokens": toks})          # toks: [1, T]
+
+    dec = serving.DecodeEngine(cfg, scope=scope,
+              config=serving.DecodeConfig(max_batch=8,
+                                          prompt_buckets=(128, 256)))
+    dec.warmup()
+    tokens = dec.generate(prompt)              # prompt: 1-D int
 """
-from ..waiting import DECODE, module_getattr
 from .batching import (MicroBatcher, PendingResult, QueueFullError,  # noqa: F401
                        RequestTimeoutError, ServerClosedError,
                        ServingError)
 from .buckets import BucketError, BucketSpec                         # noqa: F401
+from .decode_engine import (DecodeConfig, DecodeEngine,              # noqa: F401
+                            DecodeRequest)
 from .engine import ServingConfig, ServingEngine                     # noqa: F401
 from .health import (CircuitBreaker, HealthMonitor, HealthState,     # noqa: F401
                      ServiceUnavailableError, WorkerDiedError)
+from .kv_pages import PageAllocator, PagesExhaustedError             # noqa: F401
 from .metrics import ServingMetrics                                  # noqa: F401
+from .overload import (AdmissionController, BrownoutController,      # noqa: F401
+                       RetryBudget, RetryBudgetExhaustedError)
+from .sched import (PRIORITIES, FIFOScheduler, SLOClass,             # noqa: F401
+                    SLOScheduler, get_scheduler, priority_rank)
 
-__all__ = ["BucketError", "BucketSpec", "CircuitBreaker",
+__all__ = ["AdmissionController", "BrownoutController", "BucketError",
+           "BucketSpec", "CircuitBreaker", "DecodeConfig",
+           "DecodeEngine", "DecodeRequest", "FIFOScheduler",
            "HealthMonitor", "HealthState", "MicroBatcher",
+           "PRIORITIES", "PageAllocator", "PagesExhaustedError",
            "PendingResult", "QueueFullError", "RequestTimeoutError",
-           "ServerClosedError", "ServiceUnavailableError", "ServingError",
-           "ServingConfig", "ServingEngine", "ServingMetrics",
-           "WorkerDiedError"]
-
-WAITING = dict.fromkeys((
-    "AdmissionController", "BrownoutController", "DecodeConfig",
-    "DecodeEngine", "DecodeRequest", "FIFOScheduler", "PRIORITIES",
-    "PageAllocator", "PagesExhaustedError", "RetryBudget",
-    "RetryBudgetExhaustedError", "SLOClass", "SLOScheduler",
-    "get_scheduler", "priority_rank"), DECODE)
-__getattr__ = module_getattr(__name__, WAITING)
+           "RetryBudget", "RetryBudgetExhaustedError", "SLOClass",
+           "SLOScheduler", "ServerClosedError",
+           "ServiceUnavailableError", "ServingError", "ServingConfig",
+           "ServingEngine", "ServingMetrics", "WorkerDiedError",
+           "get_scheduler", "priority_rank"]

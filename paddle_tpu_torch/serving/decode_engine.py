@@ -1,0 +1,1590 @@
+"""DecodeEngine — continuous batching for autoregressive LLM decode
+(port of ``paddle_tpu/serving/decode_engine.py``).
+
+The batching engine (engine.py) coalesces fixed-shape requests: right
+for classifiers, wrong for decode, where a batch member finishes when
+IT emits eos, not when its peers do. This engine schedules at
+**iteration level** (Orca/vLLM style, under this repo's
+one-step-per-program rule): every step, queued prompts are
+admitted into free slots of a fixed ``max_batch``-wide decode program,
+finished sequences retire and free their slots, and the step programs
+never change shape — request churn is pure host-side integer
+bookkeeping over a paged KV cache (kv_pages.py).
+
+The step programs (models/llama.py build_llama_paged_programs):
+
+- **prefill-into-slot** — one program per declared prompt-length
+  bucket, batch 1: runs the prompt through the stack, writes its KV
+  into the slot's pages, returns the first greedy token (TTFT is
+  measured here).
+- **decode-step** — ONE program at [max_batch] that advances every
+  slot ``decode_block`` tokens per dispatch. Inactive slots ride along
+  masked (null page table, outputs discarded); each row's math depends
+  only on its own row and pages, so a request's greedy tokens are
+  bit-identical alone or co-scheduled — the same
+  numerics-never-depend-on-peers discipline as the serving engine's
+  signature grouping, enforced structurally instead of by grouping.
+- **spec-step** (``draft_cfg``) — speculative decoding as an engine
+  mode: per round the draft proposes ``gamma`` tokens per slot and the
+  target verifies them in one forward, with PER-ROW acceptance (rows
+  advance at their own rate; the fused llama_spec_generate op is
+  batch-lockstep).
+
+Hardening is the serving engine's machinery at request level: bounded admission
+(QueueFullError / PagesExhaustedError), per-request deadlines swept to
+RequestTimeoutError, engine circuit breaker, HealthMonitor + watchdog
+(worker death fails everything pending with WorkerDiedError — the
+``serving_worker_crash`` fault point drills this), graceful
+``close(drain=True)``, deadline propagation into dispatch retries, and
+``warmup()`` + ``assert_no_recompiles()`` pinning the zero-recompile
+steady state. Metrics add TTFT/TPOT windows and token counters.
+
+Differences from the reference, all of place and memory, none of
+numbers: the default place is the card (``core.executor.default_place``
+— ``CUDAPlace(0)``, or the host after ``fluid.force_cpu()``), as for
+every entry point of the port, where the reference defaults to the
+host; the page pools are torch tensors on the executor's device,
+written in place by the step ops and never copied to the host between
+dispatches (only tokens cross); the engine's optimize rewrite folds on
+that device; a handoff export indexes the pages on the device and
+copies only those (bfloat16 pages as ``<V2`` bits, read back by
+``weights.array_to_tensor``); ``compile_store=`` has the port's
+opt-in meaning (``None`` defers to ``PADDLE_TPU_ARTIFACT_DIR``, else no
+store). "Compiles" are the port executor's step builds
+(``Executor.compile_counts``: one per step program and feed
+signature).
+"""
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .. import weights as _weights
+from ..core.executor import Executor, default_place, global_scope, to_numpy
+from ..resilience import faultinject as _faultinject
+from ..resilience.retry import RetryPolicy, default_policy, with_retries
+from .batching import (QueueFullError, RequestTimeoutError,
+                       ServerClosedError)
+from .buckets import BucketError
+from .health import (CircuitBreaker, HealthMonitor, HealthState,
+                     ServiceUnavailableError, WorkerDiedError)
+from .batching import ServingError
+from .kv_pages import PageAllocator, PagesExhaustedError
+from .metrics import ServingMetrics
+from .overload import BrownoutController
+from .sched import get_scheduler, priority_rank, PRIORITIES
+
+__all__ = ["DecodeConfig", "DecodeRequest", "DecodeEngine"]
+
+_DECODE_COUNTERS = (
+    "prefill_total", "decode_batches_total", "generated_tokens_total",
+    "retired_total", "spec_rounds_total", "spec_tokens_accepted_total",
+    "page_wait_total",
+    # chunked prefill + SLO attainment + disaggregation:
+    # chunk_prefill_total counts chunk DISPATCHES (a long prompt is
+    # several); the slo_* counters score each SLO-carrying request
+    # once per target half; handoffs count exports (prefill side) and
+    # imports (decode side) separately so a disaggregated pool's books
+    # balance end to end
+    "chunk_prefill_total",
+    "slo_ttft_met", "slo_ttft_violated",
+    "slo_tpot_met", "slo_tpot_violated",
+    "handoff_export_total", "handoff_import_total",
+    # overload robustness: sheds broken out by priority tier
+    # (the strict shed-ordering proof reads these), queue evictions
+    # (a higher-priority arrival displacing a queued batch request),
+    # and the brownout ladder — engage/revert transitions plus one
+    # counter per degradation step so every brownout action is
+    # metered and its full revert is checkable
+    "shed_interactive_total", "shed_standard_total",
+    "shed_batch_total", "evictions_total",
+    "brownout_engage_total", "brownout_revert_total",
+    "brownout_cap_max_new_total", "brownout_spec_off_total",
+    "brownout_chunk_defer_total")
+
+# priority rank -> the per-class shed counter it lands in
+_SHED_BY_RANK = {rank: f"shed_{name}_total"
+                 for name, rank in PRIORITIES.items()}
+
+
+def _env_float(name, default):
+    return float(os.environ.get(name, default))
+
+
+class DecodeConfig:
+    """Tuning knobs for one decode engine.
+
+    Geometry — fixed at build time, every step program derives from it:
+    ``max_batch`` concurrent decode slots; ``prompt_buckets`` declared
+    prompt-length pads (one prefill program each);
+    ``max_new_tokens`` the per-request generation cap; ``page_size``
+    positions per KV page; ``n_pages`` pool size (None → full
+    residency: every slot can hold its longest sequence — smaller
+    values overcommit and admission waits for pages);
+    ``decode_block`` tokens generated per decode dispatch (the
+    dispatch-overhead amortizer; admission/retirement happen at block
+    boundaries); ``gamma`` draft tokens per speculative round.
+
+    Traffic: ``eos_id`` retires a sequence early (None = generate to
+    max_new); ``max_queue`` admission bound; ``default_timeout_s``
+    per-request deadline when the caller gives none. Hardening knobs
+    mirror ServingConfig (same env vars)."""
+
+    def __init__(self, max_batch=4, prompt_buckets=(16, 32),
+                 max_new_tokens=32, page_size=16, n_pages=None,
+                 decode_block=4, prefill_batch=4, gamma=4,
+                 eos_id=None, quantize=False,
+                 max_queue=64, default_timeout_s=30.0,
+                 retry_policy=None, breaker_threshold=None,
+                 breaker_cooldown_s=None, drain_timeout_s=None,
+                 watchdog_interval_s=None, hang_timeout_s=None,
+                 chunk_size=None, scheduler=None, brownout=None):
+        self.max_batch = int(max_batch)
+        self.prompt_buckets = tuple(
+            sorted(set(int(b) for b in prompt_buckets)))
+        if not self.prompt_buckets or self.prompt_buckets[0] < 1:
+            raise ValueError("prompt_buckets must be positive ints")
+        self.max_new_tokens = int(max_new_tokens)
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        self.page_size = int(page_size)
+        self.n_pages = n_pages
+        self.decode_block = max(1, int(decode_block))
+        self.prefill_batch = max(1, int(prefill_batch))
+        self.gamma = max(1, int(gamma))
+        self.eos_id = eos_id
+        self.quantize = bool(quantize)
+        self.max_queue = int(max_queue)
+        self.default_timeout_s = default_timeout_s
+        self.retry_policy = retry_policy
+        self.breaker_threshold = int(
+            _env_float("PADDLE_TPU_BREAKER_THRESHOLD", 5)
+            if breaker_threshold is None else breaker_threshold)
+        self.breaker_cooldown_s = (
+            _env_float("PADDLE_TPU_BREAKER_COOLDOWN", 1.0)
+            if breaker_cooldown_s is None else float(breaker_cooldown_s))
+        self.drain_timeout_s = (
+            _env_float("PADDLE_TPU_DRAIN_TIMEOUT", 10.0)
+            if drain_timeout_s is None else float(drain_timeout_s))
+        self.watchdog_interval_s = (
+            _env_float("PADDLE_TPU_WATCHDOG_INTERVAL", 0.1)
+            if watchdog_interval_s is None else float(watchdog_interval_s))
+        self.hang_timeout_s = (
+            _env_float("PADDLE_TPU_HANG_TIMEOUT", 30.0)
+            if hang_timeout_s is None else float(hang_timeout_s))
+        # chunked prefill: prompts LONGER than chunk_size are prefilled
+        # as chunk_size-token slices, one slice per engine iteration,
+        # co-scheduled with the decode batch (None = whole-prompt
+        # prefill only). scheduler: None/'fifo', 'slo', or an object
+        # with order()/admit_now() (serving/sched.py)
+        self.chunk_size = None if chunk_size is None else int(chunk_size)
+        if self.chunk_size is not None and self.chunk_size < 1:
+            raise ValueError(
+                f"chunk_size must be >= 1, got {self.chunk_size}")
+        self.scheduler = scheduler
+        # brownout: None/False = off; True = ladder with defaults; a
+        # dict = BrownoutController kwargs, plus the engine-side
+        # "queue_target_s" (seconds of queue delay that count as full
+        # pressure) and "max_new_cap" (batch-tier max_new under
+        # level >= 1; default max_new_tokens // 4)
+        self.brownout = brownout
+
+
+class DecodeRequest:
+    """Caller handle for one generation request. Settlement is
+    first-writer-wins (the worker and the watchdog can race, exactly
+    as in batching.PendingResult). ``result()`` returns the generated
+    tokens as a 1-D int64 array (prompt not included; ends at eos_id
+    inclusive when one was emitted)."""
+
+    __slots__ = ("prompt", "max_new", "deadline", "enqueued_at",
+                 "ttft_s", "slo", "prefill_only", "handoff_state",
+                 "_event", "_result", "_error", "_settle_lock",
+                 "_callbacks")
+
+    def __init__(self, prompt, max_new, deadline, enqueued_at,
+                 slo=None, prefill_only=False, handoff_state=None):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.deadline = deadline
+        self.enqueued_at = enqueued_at
+        self.slo = slo               # SLOClass or None (best effort)
+        self.prefill_only = bool(prefill_only)
+        self.handoff_state = handoff_state   # imported KV blob or None
+        self.ttft_s = None           # set when the first token lands
+        self._event = threading.Event()
+        self._result = None
+        self._error = None
+        self._settle_lock = threading.Lock()
+        self._callbacks = []
+
+    def done(self):
+        return self._event.is_set()
+
+    def add_done_callback(self, fn):
+        """Call ``fn(self)`` exactly once on settlement (result OR
+        error); immediately if already settled. Same contract as
+        PendingResult.add_done_callback — the router's admission
+        accounting hangs off this. Callback exceptions are
+        swallowed."""
+        with self._settle_lock:
+            if not self._event.is_set():
+                self._callbacks.append(fn)
+                return
+        self._run_callback(fn)
+
+    def _run_callback(self, fn):
+        try:
+            fn(self)
+        except Exception:       # noqa: BLE001 — observer must not break settle
+            pass
+
+    def set_result(self, value):
+        with self._settle_lock:
+            if self._event.is_set():
+                return False
+            self._result = value
+            self._event.set()
+            cbs, self._callbacks = self._callbacks, []
+        for fn in cbs:           # outside the lock: observers may block
+            self._run_callback(fn)
+        return True
+
+    def set_error(self, exc):
+        with self._settle_lock:
+            if self._event.is_set():
+                return False
+            self._error = exc
+            self._event.set()
+            cbs, self._callbacks = self._callbacks, []
+        for fn in cbs:
+            self._run_callback(fn)
+        return True
+
+    def wait(self, timeout=None):
+        return self._event.wait(timeout)
+
+    def result(self, timeout=None):
+        if not self._event.wait(timeout):
+            raise RequestTimeoutError(
+                "result not ready within the wait bound")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+class _Slot:
+    """One active decode slot: the request, its page set / table row,
+    and the per-sequence scheduler state."""
+
+    __slots__ = ("req", "pages", "table", "pos", "cur", "prev",
+                 "emitted", "first_token_at")
+
+    def __init__(self, req, pages, table, pos, cur, prev, emitted,
+                 first_token_at):
+        self.req = req
+        self.pages = pages
+        self.table = table            # np int32 [pages_per_seq]
+        self.pos = pos                # cache length (cur not cached yet)
+        self.cur = cur                # last emitted token
+        self.prev = prev              # token at pos - 1
+        self.emitted = emitted        # generated tokens so far
+        self.first_token_at = first_token_at
+
+
+class _ChunkJob:
+    """One in-progress chunked prefill: the request, its (already
+    allocated) page set / table row, and the next slice offset. The
+    job reserves a slot index (the slot stays None until the final
+    chunk installs it), so free-slot accounting and the decode batch
+    never see a half-prefilled sequence."""
+
+    __slots__ = ("req", "pages", "table", "off")
+
+    def __init__(self, req, pages, table, off=0):
+        self.req = req
+        self.pages = pages
+        self.table = table            # np int32 [pages_per_seq]
+        self.off = off                # prompt tokens prefilled so far
+
+
+class DecodeEngine:
+    """Continuous-batching decode server for one dense Llama-family
+    config. ``scope`` must already hold the generator-layout weights
+    (``build_llama_generator`` startup, a trained+stacked scope, or a
+    ``quantize_generator_weights``'d one; draft weights under
+    ``draft.*`` when ``draft_cfg`` — see models/llama.py
+    copy_weights_as_draft). The engine never initializes weights."""
+
+    def __init__(self, cfg, scope=None, place=None, config=None,
+                 draft_cfg=None, auto_start=True, optimize=True,
+                 compile_store=None):
+        from ..models.llama import build_llama_paged_programs
+        self.cfg = cfg
+        self.draft_cfg = draft_cfg
+        self.config = config or DecodeConfig()
+        c = self.config
+        self.scope = scope or global_scope()
+        if c.chunk_size is not None and draft_cfg is not None:
+            raise NotImplementedError(
+                "chunked prefill is a target-model path (the draft "
+                "would need its own chunk program); drop chunk_size "
+                "or draft_cfg")
+        # worst-case positions a slot can touch: a full longest bucket,
+        # max_new generated, plus the block/speculation overshoot of
+        # the final dispatch before retirement is noticed
+        slack = c.decode_block + (c.gamma + 1 if draft_cfg else 0)
+        seq_need = c.prompt_buckets[-1] + c.max_new_tokens + slack
+        self.pages_per_seq = -(-seq_need // c.page_size)
+        n_pages = (c.max_batch * self.pages_per_seq + 1
+                   if c.n_pages is None else int(c.n_pages))
+        self.allocator = PageAllocator(n_pages, c.page_size)
+        self.sched = get_scheduler(c.scheduler)
+        # brownout ladder (overload.py): pressure = max(normalized
+        # queue delay, breaker-open, page occupancy beyond 90%). The
+        # controller decides the level; this engine applies/reverts
+        # the effects and counts them.
+        self.brownout = None
+        self._bo_queue_target_s = 0.5
+        self._bo_max_new_cap = max(1, c.max_new_tokens // 4)
+        if c.brownout:
+            bo_kw = dict(c.brownout) if isinstance(c.brownout, dict) \
+                else {}
+            self._bo_queue_target_s = float(
+                bo_kw.pop("queue_target_s", 0.5))
+            self._bo_max_new_cap = int(
+                bo_kw.pop("max_new_cap", self._bo_max_new_cap))
+            self.brownout = BrownoutController(**bo_kw)
+        self.programs = build_llama_paged_programs(
+            cfg, max_batch=c.max_batch, page_size=c.page_size,
+            n_pages=n_pages, pages_per_seq=self.pages_per_seq,
+            prompt_buckets=c.prompt_buckets,
+            decode_block=c.decode_block,
+            prefill_batch=c.prefill_batch, quantize=c.quantize,
+            draft_cfg=draft_cfg, gamma=c.gamma,
+            chunk_size=c.chunk_size)
+        # graph rewrites on every step program (analysis/optimize.py,
+        # proven bit-exact by optcheck): the bundles are private
+        # clones, so optimizing in place is safe, and each program's
+        # version bump lands BEFORE warmup so the no-recompile pin
+        # covers the optimized steps. Failure degrades to the
+        # unoptimized bundle.
+        # all retries surface at the serving layer (counted); the inner
+        # executor must not also retry. The default place is the card.
+        # compile_store: persistent artifact store — a second decode
+        # replica loads every step the first one exported instead of
+        # building it (io/artifact_store.py; None defers to
+        # PADDLE_TPU_ARTIFACT_DIR)
+        self.exe = Executor(place if place is not None else default_place(),
+                            retry_policy=RetryPolicy(max_attempts=1),
+                            compile_store=compile_store)
+        self.optimize_reports = {}
+        if optimize:
+            self._optimize_programs()
+        # the page pools live on the executor's device; the step ops
+        # write them in place and hand them back, so they never cross
+        # to the host between dispatches
+        dev = self.exe.device
+        self._kp = self._pool(self.programs.kv_shape, cfg.dtype, dev)
+        self._vp = self._pool(self.programs.kv_shape, cfg.dtype, dev)
+        self._dkp = self._dvp = None
+        if draft_cfg is not None:
+            self._dkp = self._pool(self.programs.draft_kv_shape,
+                                   draft_cfg.dtype, dev)
+            self._dvp = self._pool(self.programs.draft_kv_shape,
+                                   draft_cfg.dtype, dev)
+        self.metrics = ServingMetrics(extra_counters=_DECODE_COUNTERS)
+        self.health = HealthMonitor()
+        self.breaker = CircuitBreaker(
+            failure_threshold=c.breaker_threshold,
+            cooldown_s=c.breaker_cooldown_s)
+        self.slots = [None] * c.max_batch
+        # slot idx -> _ChunkJob: chunked prefills in flight (the slot
+        # itself stays None until the final chunk installs it)
+        self._chunk_jobs = {}
+        # guards slots + chunk jobs + allocator against the
+        # close()/watchdog vs worker race (drain-timeout expiry,
+        # worker death)
+        self._slots_lock = threading.RLock()
+        self._queue = []
+        self._qlock = threading.Lock()
+        self._cv = threading.Condition(self._qlock)
+        self._closed = False          # no new admissions (drain)
+        self._warmed = None
+        self._worker = None
+        self._watchdog = None
+        self._worker_death_seen = False
+        self._stop = threading.Event()
+        self._watchdog_stop = threading.Event()
+        # chaos hook: per-engine ungraceful worker kill (cluster chaos
+        # targets one replica; the global fault point cannot)
+        self._crash = threading.Event()
+        if auto_start:
+            self.start()
+
+    @staticmethod
+    def _pool(shape, dtype, device):
+        return torch.zeros(tuple(shape), dtype=getattr(torch, dtype),
+                           device=device)
+
+    # -- lifecycle -------------------------------------------------------
+    def start(self):
+        """Start (or restart after a watchdog-declared death) the
+        worker + watchdog threads."""
+        if self._worker is not None and self._worker.is_alive():
+            return self
+        self._stop.clear()
+        self._crash.clear()
+        self._worker_death_seen = False
+        self.health.beat()
+        self._worker = threading.Thread(
+            target=self._worker_loop, name="paddle-tpu-decode-worker",
+            daemon=True)
+        self._worker.start()
+        if self._watchdog is None or not self._watchdog.is_alive():
+            self._watchdog_stop.clear()
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop,
+                name="paddle-tpu-decode-watchdog", daemon=True)
+            self._watchdog.start()
+        self.health.to(HealthState.READY)
+        return self
+
+    def close(self, timeout=5.0, drain=False, drain_timeout=None):
+        """``drain=False``: stop admitting, refuse everything pending
+        with ServerClosedError, join. ``drain=True``: stop admitting,
+        let the worker FINISH every admitted request (bounded by
+        ``drain_timeout``, default config.drain_timeout_s); per-request
+        deadlines stay live during the drain."""
+        worker = self._worker
+        if drain and worker is not None and worker.is_alive() \
+                and not self._stop.is_set():
+            self.health.to(HealthState.DRAINING)
+            with self._cv:
+                self._closed = True
+                self._cv.notify_all()
+            budget = (self.config.drain_timeout_s
+                      if drain_timeout is None else float(drain_timeout))
+            worker.join(max(budget, 0.0))
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._stop.set()
+        for req in self._take_pending():
+            req.set_error(ServerClosedError("engine closed"))
+        if self._worker is not None:
+            self._worker.join(timeout)
+        self._watchdog_stop.set()
+        if self._watchdog is not None:
+            self._watchdog.join(timeout)
+            self._watchdog = None
+        self.health.to(HealthState.STOPPED)
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # -- warmup ----------------------------------------------------------
+    def warmup(self):
+        """Build every step (each prefill bucket, the decode step, the
+        spec step) with null-page dummy dispatches, then snapshot the
+        executor's step-build counts for assert_no_recompiles(). The
+        steady state after this builds nothing, no matter how requests
+        churn."""
+        n = 0
+        pb = self.config.prefill_batch
+        for bucket in sorted(self.programs.prefill):
+            self._run_prefill_program(
+                bucket, np.zeros((pb, bucket), np.int64),
+                np.ones((pb,), np.int32),
+                np.zeros((pb, self.pages_per_seq), np.int32))
+            n += 1
+            if self.draft_cfg is not None:
+                self._run_draft_prefill_program(
+                    bucket, np.zeros((pb, bucket), np.int64),
+                    np.ones((pb,), np.int32),
+                    np.zeros((pb, self.pages_per_seq), np.int32))
+                n += 1
+        if self.programs.chunk is not None:
+            cs = self.programs.chunk_size
+            self._run_chunk_program(
+                np.zeros((1, cs), np.int64), np.ones((1,), np.int32),
+                np.zeros((1,), np.int32),
+                np.zeros((1, self.pages_per_seq), np.int32))
+            n += 1
+        # the PLAIN decode program warms even for speculative engines:
+        # brownout level 2 (spec_off) switches a live engine to it,
+        # and the no-recompile pin must survive that switch
+        self._run_decode_program(
+            np.zeros((self.config.max_batch,), np.int64),
+            np.ones((self.config.max_batch,), np.int32),
+            np.zeros((self.config.max_batch, self.pages_per_seq),
+                     np.int32))
+        n += 1
+        if self.draft_cfg is not None:
+            self._run_spec_program(
+                np.zeros((self.config.max_batch,), np.int64),
+                np.zeros((self.config.max_batch,), np.int64),
+                np.ones((self.config.max_batch,), np.int32),
+                np.zeros((self.config.max_batch, self.pages_per_seq),
+                         np.int32))
+            n += 1
+        self._warmed = self.exe.compile_counts()
+        compiles = self.exe.total_compiles()
+        self.metrics.incr("warmup_compiles", compiles)
+        return {"programs": n, "compiles": compiles}
+
+    def assert_no_recompiles(self):
+        """AssertionError if any step was built after warmup — the
+        churn-proof contract. No-op before warmup."""
+        if self._warmed is None:
+            return
+        now = self.exe.compile_counts()
+        if now != self._warmed:
+            raise AssertionError(
+                f"decode step builds changed after warmup: "
+                f"{self._warmed} -> {now} — a traced shape escaped the "
+                "paged-buffer discipline")
+
+    # -- request path ----------------------------------------------------
+    def submit(self, prompt, max_new=None, timeout=None, slo=None,
+               prefill_only=False, queued_for_s=0.0):
+        """Enqueue one prompt; returns a DecodeRequest immediately.
+        Rejections (all before any queueing): BucketError (prompt
+        outside every declared bucket), PagesExhaustedError (the
+        request can NEVER fit the page pool), QueueFullError (shed),
+        ServiceUnavailableError (breaker open), ServerClosedError.
+
+        ``slo``: an SLOClass — the scheduler orders admission by its
+        TTFT deadline and the attainment counters score against it
+        (no SLO = best-effort, FIFO among best-effort peers). The
+        SLO's ``priority`` tier also drives overload behavior: a full
+        queue EVICTS the lowest-priority queued request (counted in
+        ``evictions_total`` + its class's ``shed_*_total``) when the
+        newcomer outranks it, instead of flat-shedding the newcomer.
+        ``prefill_only=True``: the request resolves with a KV handoff
+        blob (page contents + generated-so-far) instead of generated
+        tokens — the disaggregated prefill replica's verb; feed the
+        blob to a decode replica's :meth:`import_handoff`.
+        ``queued_for_s``: seconds this request ALREADY waited upstream
+        (a router redrive, a cross-process hop) — backdates
+        ``enqueued_at`` so TTFT and the EDF deadline measure from the
+        original arrival, never from the latest hop (an age, not an
+        absolute timestamp, so it is clock-skew-free on the wire)."""
+        if slo is not None and (
+                not hasattr(slo, "ttft_target_s")
+                or not hasattr(slo, "tpot_target_s")):
+            raise TypeError(
+                f"slo must be an SLOClass (serving.sched), got "
+                f"{type(slo).__name__}")
+        prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must hold at least one token")
+        if prompt.size > self.config.prompt_buckets[-1]:
+            self.metrics.incr("shed_total")
+            raise BucketError(
+                f"prompt of {prompt.size} tokens exceeds the largest "
+                f"declared bucket {self.config.prompt_buckets[-1]}")
+        max_new = (self.config.max_new_tokens if max_new is None
+                   else int(max_new))
+        if not 1 <= max_new <= self.config.max_new_tokens:
+            raise ValueError(
+                f"max_new must be in [1, {self.config.max_new_tokens}]"
+                f", got {max_new}")
+        rank = priority_rank(slo) if slo is not None \
+            else PRIORITIES["standard"]
+        if self.brownout is not None and rank == PRIORITIES["batch"] \
+                and self.brownout.active("cap_batch_max_new") \
+                and max_new > self._bo_max_new_cap:
+            # brownout level >= 1: batch-tier generation is capped —
+            # fewer tokens, identical numerics for every token served
+            max_new = self._bo_max_new_cap
+            self.metrics.incr("brownout_cap_max_new_total")
+        if self._pages_needed(prompt.size, max_new) \
+                > self.allocator.usable_pages:
+            self.metrics.incr("shed_total")
+            raise PagesExhaustedError(
+                f"request needs {self._pages_needed(prompt.size, max_new)}"
+                f" pages but the pool only has "
+                f"{self.allocator.usable_pages} — grow n_pages or "
+                "shorten the request")
+        if not self.breaker.admits():
+            self.metrics.incr("breaker_shed_total")
+            raise ServiceUnavailableError(
+                "circuit breaker open — the engine is failing; back "
+                f"off at least {self.config.breaker_cooldown_s}s")
+        if timeout is None:
+            timeout = self.config.default_timeout_s
+        now = time.monotonic()
+        req = DecodeRequest(
+            prompt=prompt, max_new=max_new,
+            deadline=None if timeout is None else now + float(timeout),
+            enqueued_at=now - max(0.0, float(queued_for_s)),
+            slo=slo, prefill_only=prefill_only)
+        victim = None
+        with self._cv:
+            if self._closed:
+                raise ServerClosedError("decode engine is closed")
+            if len(self._queue) >= self.config.max_queue:
+                # priority eviction: displace the WORST queued request
+                # iff the newcomer strictly outranks it — under
+                # pressure batch leaves the queue first, interactive
+                # never yields to anything
+                worst_i = max(range(len(self._queue)),
+                              key=lambda i: (
+                                  priority_rank(self._queue[i]),
+                                  self._queue[i].enqueued_at))
+                if priority_rank(self._queue[worst_i]) > rank:
+                    victim = self._queue.pop(worst_i)
+                else:
+                    self.metrics.incr("shed_total")
+                    self.metrics.incr(
+                        _SHED_BY_RANK.get(rank, "shed_standard_total"))
+                    raise QueueFullError(
+                        f"admission queue full "
+                        f"({self.config.max_queue} requests) — load "
+                        "shed, retry with backoff")
+            self._queue.append(req)
+            self._cv.notify_all()
+        if victim is not None:
+            self.metrics.incr("shed_total")
+            self.metrics.incr("evictions_total")
+            self.metrics.incr(
+                _SHED_BY_RANK.get(priority_rank(victim),
+                                  "shed_standard_total"))
+            victim.set_error(QueueFullError(
+                "evicted from a full admission queue by a "
+                "higher-priority request — load shed, retry with "
+                "backoff"))
+        # progress mark for deterministic chaos barriers: "crash N loop
+        # iterations after the K-th admission" (faultinject.arm after=)
+        _faultinject.event("decode_submit")
+        self.metrics.incr("requests_total")
+        self.metrics.set_queue_depth(len(self._queue))
+        return req
+
+    def generate(self, prompt, max_new=None, timeout=None):
+        """Synchronous convenience: submit + liveness-aware wait.
+        Returns the generated tokens (1-D int64)."""
+        req = self.submit(prompt, max_new=max_new, timeout=timeout)
+        end = None if req.deadline is None else req.deadline + 10.0
+        while True:
+            if req.wait(0.05):
+                return req.result(0)
+            worker = self._worker
+            if worker is None or not worker.is_alive():
+                if req.wait(0.2):
+                    return req.result(0)
+                raise WorkerDiedError(
+                    "decode worker died while this request waited "
+                    "(restart the engine with start())")
+            if end is not None and time.monotonic() >= end:
+                return req.result(0)
+
+    def import_handoff(self, state, timeout=None, slo=None):
+        """Adopt a prefill replica's exported KV state: allocate local
+        pages, copy the page contents in (an exact value copy — the
+        paged cache is location-independent, so fresh page ids cost
+        nothing), install a decode slot, and continue generating.
+        Returns a DecodeRequest whose result is the FULL generated
+        token sequence (handed-off tokens included). This is the
+        decode half of the ``handoff`` replica verb.
+
+        Typed rejections mirror submit(): ServingError on a malformed
+        or geometry-mismatched blob, PagesExhaustedError when the
+        state can never fit, QueueFullError / ServiceUnavailableError
+        / ServerClosedError under load/failure."""
+        if not isinstance(state, dict) \
+                or state.get("kind") != "kv_handoff" \
+                or not all(key in state for key in
+                           ("prompt", "max_new", "pos", "cur", "prev",
+                            "emitted", "pages", "page_size", "k", "v")):
+            raise ServingError(
+                "import_handoff needs the blob a prefill_only request "
+                "resolved with (dict with kind='kv_handoff')")
+        if int(state["page_size"]) != self.config.page_size:
+            raise ServingError(
+                f"handoff page_size {state['page_size']} != this "
+                f"engine's {self.config.page_size} — prefill and "
+                "decode replicas must share the page geometry")
+        prompt = np.asarray(state["prompt"], np.int64).reshape(-1)
+        max_new = int(state["max_new"])
+        emitted = [int(t) for t in state["emitted"]]
+        if timeout is None:
+            timeout = self.config.default_timeout_s
+        now = time.monotonic()
+        req = DecodeRequest(
+            prompt=prompt, max_new=max_new,
+            deadline=None if timeout is None else now + float(timeout),
+            enqueued_at=now, slo=slo, handoff_state=state)
+        req.ttft_s = state.get("ttft_s")
+        self.metrics.incr("requests_total")
+        if state.get("done"):
+            # the prefill side already finished the sequence (eos on
+            # the first token / max_new == 1): settle without touching
+            # the pool
+            self.metrics.incr("handoff_import_total")
+            self.metrics.incr("responses_total")
+            self.metrics.incr("retired_total")
+            req.set_result(np.asarray(emitted, dtype=np.int64))
+            return req
+        k = state["k"]
+        if self.allocator.pages_for(prompt.size + max_new) \
+                > self.allocator.usable_pages \
+                or k.shape[1] > self.allocator.usable_pages:
+            self.metrics.incr("shed_total")
+            raise PagesExhaustedError(
+                f"handoff state needs {k.shape[1]} pages but the pool "
+                f"only has {self.allocator.usable_pages}")
+        if not self.breaker.admits():
+            self.metrics.incr("breaker_shed_total")
+            raise ServiceUnavailableError(
+                "circuit breaker open — handoff shed; back off at "
+                f"least {self.config.breaker_cooldown_s}s")
+        with self._cv:
+            if self._closed:
+                raise ServerClosedError("decode engine is closed")
+            if len(self._queue) >= self.config.max_queue:
+                self.metrics.incr("shed_total")
+                raise QueueFullError(
+                    f"admission queue full ({self.config.max_queue} "
+                    "requests) — load shed, retry with backoff")
+            self._queue.append(req)
+            self._cv.notify_all()
+        _faultinject.event("decode_submit")
+        self.metrics.set_queue_depth(len(self._queue))
+        return req
+
+    def outstanding(self):
+        """Admitted-but-unfinished requests: queued prompts plus
+        active decode slots plus in-flight chunked prefills — the
+        cluster router's balancing signal (cheap reads, not a
+        stats() snapshot)."""
+        with self._qlock:
+            queued = len(self._queue)
+        return (queued + sum(s is not None for s in self.slots)
+                + len(self._chunk_jobs))
+
+    def _simulate_worker_crash(self):
+        """Kill THIS engine's worker ungracefully on its next loop
+        iteration (per-engine SIGKILL model for cluster chaos).
+        start() revives."""
+        self._crash.set()
+
+    def worker_alive(self):
+        """True iff the worker thread exists and is running."""
+        w = self._worker
+        return w is not None and w.is_alive()
+
+    def stats(self):
+        snap = self.metrics.stats()
+        snap["compiles_now"] = self.exe.total_compiles()
+        with self._qlock:
+            snap["queue_depth"] = len(self._queue)
+        snap["active_slots"] = sum(s is not None for s in self.slots)
+        snap["active_chunk_jobs"] = len(self._chunk_jobs)
+        snap["scheduler"] = getattr(self.sched, "name",
+                                    type(self.sched).__name__)
+        snap["max_batch"] = self.config.max_batch
+        snap["pages_in_use"] = self.allocator.in_use
+        snap["pages_available"] = self.allocator.available
+        snap["health_state"] = self.health.state
+        snap["breaker"] = self.breaker.snapshot()
+        snap["brownout"] = (None if self.brownout is None
+                            else self.brownout.snapshot())
+        snap["optimize"] = self.optimize_reports or None
+        snap["artifact_store"] = self.exe.store_stats()
+        return snap
+
+    # -- internal: program rewrites --------------------------------------
+    def _optimize_programs(self):
+        """Runs the rewrite pipeline (analysis/optimize.py, folding on
+        the executor's device) over every step-program bundle, keyed
+        like the dispatch methods name them. All bundles are private
+        clones built by build_llama_paged_programs, so in-place
+        mutation leaks nowhere; fetch Variables are resolved by NAME
+        because they belong to the pre-clone builder program."""
+        import warnings
+        from ..analysis.optimize import optimize_program
+        bundles = {}
+        for bucket, b in self.programs.prefill.items():
+            bundles[f"prefill_{bucket}"] = b
+        if self.programs.draft_prefill:
+            for bucket, b in self.programs.draft_prefill.items():
+                bundles[f"draft_prefill_{bucket}"] = b
+        bundles["decode"] = self.programs.decode
+        if self.programs.chunk is not None:
+            bundles["chunk"] = self.programs.chunk
+        if self.programs.spec is not None:
+            bundles["spec"] = self.programs.spec
+        for label, b in bundles.items():
+            try:
+                report = optimize_program(
+                    b["program"],
+                    fetch_list=[v.name if hasattr(v, "name") else v
+                                for v in b["fetch"]],
+                    device=self.exe.device)
+                if report:
+                    self.optimize_reports[label] = report.to_dict()
+            except Exception as e:  # a rewrite bug must not block serving
+                warnings.warn(
+                    f"decode optimize rewrite failed on {label} "
+                    f"({e!r}); serving it unoptimized", stacklevel=2)
+
+    # -- internal: program dispatch --------------------------------------
+    @staticmethod
+    def _maybe_inject_fault():
+        """serving_device_error fault point, raised INSIDE the retried
+        dispatch so armed fault counts interact with the retry policy
+        exactly as in ServingEngine."""
+        if _faultinject.fires("serving_device_error"):
+            from ..resilience.retry import TransientDeviceError
+            raise TransientDeviceError(
+                "injected serving-layer transient device error "
+                "(UNAVAILABLE)")
+
+    def _bundle_feed(self, bundle, arrays):
+        return dict(zip(bundle["feeds"], arrays))
+
+    # scope is passed explicitly to every run — scope_guard swaps a
+    # process-global, which would race other live engines' threads
+    def _run_prefill_program(self, bucket, tokens, lens, table):
+        b = self.programs.prefill[bucket]
+        nxt, self._kp, self._vp = self.exe.run(
+            b["program"],
+            feed=self._bundle_feed(
+                b, (tokens, lens, table, self._kp, self._vp)),
+            fetch_list=b["fetch"], mode="test", return_numpy=False,
+            scope=self.scope)
+        return to_numpy(nxt)
+
+    def _run_draft_prefill_program(self, bucket, tokens, lens, table):
+        b = self.programs.draft_prefill[bucket]
+        _, self._dkp, self._dvp = self.exe.run(
+            b["program"],
+            feed=self._bundle_feed(
+                b, (tokens, lens, table, self._dkp, self._dvp)),
+            fetch_list=b["fetch"], mode="test", return_numpy=False,
+            scope=self.scope)
+
+    def _run_chunk_program(self, tokens, lens, offsets, table):
+        b = self.programs.chunk
+        nxt, self._kp, self._vp = self.exe.run(
+            b["program"],
+            feed=self._bundle_feed(
+                b, (tokens, lens, offsets, table, self._kp, self._vp)),
+            fetch_list=b["fetch"], mode="test", return_numpy=False,
+            scope=self.scope)
+        return to_numpy(nxt)
+
+    def _run_decode_program(self, tokens, positions, table):
+        b = self.programs.decode
+        out, self._kp, self._vp = self.exe.run(
+            b["program"],
+            feed=self._bundle_feed(
+                b, (tokens, positions, table, self._kp, self._vp)),
+            fetch_list=b["fetch"], mode="test", return_numpy=False,
+            scope=self.scope)
+        return to_numpy(out)
+
+    def _run_spec_program(self, tokens, prev, positions, table):
+        b = self.programs.spec
+        (emitted, accepted, self._kp, self._vp, self._dkp,
+         self._dvp) = self.exe.run(
+            b["program"],
+            feed=self._bundle_feed(
+                b, (tokens, prev, positions, table, self._kp,
+                    self._vp, self._dkp, self._dvp)),
+            fetch_list=b["fetch"], mode="test", return_numpy=False,
+            scope=self.scope)
+        return to_numpy(emitted), to_numpy(accepted)
+
+    # -- internal: scheduler ---------------------------------------------
+    def _pages_needed(self, prompt_len, max_new):
+        c = self.config
+        bucket = self._bucket_for(prompt_len)
+        slack = c.decode_block + (c.gamma + 1 if self.draft_cfg else 0)
+        return self.allocator.pages_for(
+            max(bucket, prompt_len + max_new + slack))
+
+    def _bucket_for(self, prompt_len):
+        for b in self.config.prompt_buckets:
+            if b >= prompt_len:
+                return b
+        raise BucketError(
+            f"prompt length {prompt_len} exceeds the largest bucket")
+
+    def _has_work(self):
+        with self._qlock:
+            queued = len(self._queue)
+        return queued > 0 or any(s is not None for s in self.slots) \
+            or bool(self._chunk_jobs)
+
+    def _pressure(self):
+        """The overload pressure signal in [0, 1]: max of (a) oldest
+        queued wait normalized by the queue-delay target, (b) breaker
+        open, (c) page-pool occupancy beyond 90% (full residency at
+        steady state is normal; the last 10% means admission is about
+        to wait on pages)."""
+        now = time.monotonic()
+        with self._qlock:
+            oldest = min((r.enqueued_at for r in self._queue),
+                         default=None)
+        q = 0.0 if oldest is None else min(
+            1.0, max(0.0, now - oldest) / self._bo_queue_target_s)
+        b = 0.0 if self.breaker.admits() else 1.0
+        in_use = self.allocator.in_use
+        total = in_use + self.allocator.available
+        occ = in_use / total if total else 0.0
+        return max(q, b, max(0.0, (occ - 0.9) / 0.1))
+
+    def _update_brownout(self):
+        """One controller tick per worker iteration: feed the pressure
+        signal, count level transitions. Returns True when the level
+        moved (the loop treats that as progress so a braking engine
+        keeps ticking)."""
+        if self.brownout is None:
+            return False
+        old, new = self.brownout.update(self._pressure())
+        if new > old:
+            self.metrics.incr("brownout_engage_total")
+        elif new < old:
+            self.metrics.incr("brownout_revert_total")
+        return new != old
+
+    def _take_pending(self):
+        """Remove and return every queued request plus every active
+        slot's / chunk job's request, freeing their pages
+        (shutdown/death path)."""
+        with self._qlock:
+            q, self._queue = self._queue, []
+        pending = list(q)
+        with self._slots_lock:
+            for i, slot in enumerate(self.slots):
+                if slot is not None:
+                    pending.append(slot.req)
+                    self.allocator.free(slot.pages)
+                    self.slots[i] = None
+            jobs, self._chunk_jobs = dict(self._chunk_jobs), {}
+            for job in jobs.values():
+                pending.append(job.req)
+                self.allocator.free(job.pages)
+        return pending
+
+    def _sweep_expired(self):
+        """Fail deadline-blown queued requests before any compute is
+        spent on peers (the batching.py discipline)."""
+        now = time.monotonic()
+        expired = []
+        with self._qlock:
+            keep = []
+            for r in self._queue:
+                if r.deadline is not None and now >= r.deadline:
+                    expired.append(r)
+                else:
+                    keep.append(r)
+            self._queue = keep
+        for r in expired:
+            self.metrics.incr("timeouts_total")
+            r.set_error(RequestTimeoutError(
+                "request deadline expired before it was served "
+                "(queue saturated or timeout too tight)"))
+        return bool(expired)
+
+    def _retire(self, idx, error=None, draining=False):
+        with self._slots_lock:
+            slot = self.slots[idx]
+            if slot is None:      # already failed by close()/watchdog
+                return
+            self.slots[idx] = None
+            self.allocator.free(slot.pages)
+        now = time.monotonic()
+        if error is not None:
+            slot.req.set_error(error)
+        else:
+            n = len(slot.emitted)
+            if n > 1 and slot.first_token_at is not None:
+                tpot = (now - slot.first_token_at) / (n - 1)
+                self.metrics.observe_window("tpot_s", tpot)
+                slo = slot.req.slo
+                if slo is not None:
+                    if slo.tpot_target_s is not None:
+                        self.metrics.incr(
+                            "slo_tpot_met"
+                            if tpot <= slo.tpot_target_s
+                            else "slo_tpot_violated")
+                    self.metrics.observe_window(
+                        f"{slo.name}.tpot_s", tpot)
+            self.metrics.observe_latency(now - slot.req.enqueued_at)
+            self.metrics.incr("responses_total")
+            self.metrics.incr("retired_total")
+            if draining:
+                self.metrics.incr("drained_total")
+            slot.req.set_result(
+                np.asarray(slot.emitted, dtype=np.int64))
+        with self._cv:
+            self._cv.notify_all()
+
+    def _is_chunk_path(self, r):
+        """Long prompts go through the chunked-prefill path when the
+        chunk program exists; handoff imports and short prompts never
+        do."""
+        return (r.handoff_state is None
+                and self.programs.chunk is not None
+                and r.prompt.size > self.programs.chunk_size)
+
+    def _admit(self, policy):
+        """Move queued prompts into free slots — in SCHEDULER order
+        (serving/sched.py): each pass re-sorts the queue (EDF over
+        TTFT deadlines for the SLO scheduler, arrival order for FIFO)
+        and asks the scheduler whether prefill work may run this
+        iteration at all (the TPOT budget guard defers admission to
+        the decode batch when a running stream is about to blow its
+        per-token budget). The head of the order then picks its path:
+        handoff import (pages + an eager KV copy, no dispatch),
+        chunked prefill (reserve a slot + pages now; the slices run in
+        _step_chunks), or whole-prompt prefill — up to
+        ``prefill_batch`` same-bucket requests per DISPATCH (one
+        dispatch per request would make admission cost rival the fused
+        baseline). Rows are independent inside the prefill program, so
+        grouping never couples request numerics (same contract as the
+        decode step). Transient page exhaustion leaves requests queued
+        (retirement frees pages and wakes admission); a terminal
+        prefill failure fails only that dispatch's requests."""
+        admitted = False
+        while True:
+            with self._slots_lock:
+                free = [i for i, sl in enumerate(self.slots)
+                        if sl is None and i not in self._chunk_jobs]
+            if not free:
+                break
+            now = time.monotonic()
+            with self._qlock:
+                if not self._queue:
+                    break
+                self._queue = self.sched.order(self._queue, now)
+                if not self.sched.admit_now(self._queue, self.slots,
+                                            now):
+                    break
+                head = self._queue[0]
+                if head.handoff_state is not None:
+                    self._queue.pop(0)
+                    plan = ("handoff", head)
+                elif self._is_chunk_path(head):
+                    self._queue.pop(0)
+                    plan = ("chunk", head)
+                else:
+                    limit = min(len(free), self.config.prefill_batch)
+                    bucket = self._bucket_for(head.prompt.size)
+                    group, rest = [], []
+                    for r in self._queue:
+                        if (len(group) < limit
+                                and r.handoff_state is None
+                                and not self._is_chunk_path(r)
+                                and self._bucket_for(r.prompt.size)
+                                == bucket):
+                            group.append(r)
+                        else:
+                            rest.append(r)
+                    self._queue = rest
+                    plan = ("prefill", bucket, group)
+            if plan[0] == "handoff":
+                if not self._admit_handoff(plan[1], free[0]):
+                    break
+                admitted = True
+                continue
+            if plan[0] == "chunk":
+                if not self._start_chunk_job(plan[1], free[0]):
+                    break
+                admitted = True
+                continue
+            bucket, group = plan[1], plan[2]
+            granted = []       # (req, pages) actually prefilling now
+            starved = []
+            for j, r in enumerate(group):
+                if starved:
+                    starved.append(r)
+                    continue
+                try:
+                    with self._slots_lock:
+                        pages = self.allocator.alloc(
+                            self._pages_needed(r.prompt.size,
+                                               r.max_new))
+                except PagesExhaustedError:
+                    self.metrics.incr("page_wait_total")
+                    starved.append(r)
+                    continue
+                granted.append((r, pages))
+            if starved:        # put them back at the front, in order
+                with self._qlock:
+                    self._queue[0:0] = starved
+            if not granted:
+                break
+            self.metrics.set_queue_depth(len(self._queue))
+            if not self.breaker.allow():
+                with self._slots_lock:
+                    for _, pages in granted:
+                        self.allocator.free(pages)
+                self.metrics.incr("breaker_shed_total", len(granted))
+                for r, _ in granted:
+                    r.set_error(ServiceUnavailableError(
+                        "circuit breaker open — prefill shed; back "
+                        f"off {self.config.breaker_cooldown_s}s"))
+                continue
+            pb = self.config.prefill_batch
+            tokens = np.zeros((pb, bucket), np.int64)
+            lens = np.ones((pb,), np.int32)
+            tables = np.zeros((pb, self.pages_per_seq), np.int32)
+            for j, (r, pages) in enumerate(granted):
+                tokens[j, :r.prompt.size] = r.prompt
+                lens[j] = r.prompt.size
+                tables[j, :len(pages)] = pages
+            deadlines = [r.deadline for r, _ in granted
+                         if r.deadline is not None]
+
+            def _prefill_dispatch():
+                self._maybe_inject_fault()
+                nxt = self._run_prefill_program(bucket, tokens, lens,
+                                                tables)
+                if self.draft_cfg is not None:
+                    self._run_draft_prefill_program(bucket, tokens,
+                                                    lens, tables)
+                return nxt
+
+            try:
+                nxt = with_retries(
+                    _prefill_dispatch, policy=policy,
+                    deadline=min(deadlines) if deadlines else None,
+                    on_retry=lambda exc, n, delay:
+                        self.metrics.incr("retries_total"))
+            except BaseException as exc:     # noqa: BLE001 — forwarded
+                with self._slots_lock:
+                    for _, pages in granted:
+                        self.allocator.free(pages)
+                if self.breaker.record_failure():
+                    self.metrics.incr("breaker_open_total")
+                    self.health.to(HealthState.DEGRADED)
+                self.metrics.incr("errors_total", len(granted))
+                for r, _ in granted:
+                    r.set_error(exc)
+                continue
+            self.breaker.record_success()
+            for j, (r, pages) in enumerate(granted):
+                self._install_first_token(r, pages, tables[j],
+                                          int(nxt[j]), free[j])
+            admitted = True
+        return admitted
+
+    def _score_ttft(self, r):
+        """SLO attainment bookkeeping for a freshly prefilled request:
+        met/violated counter (only when the class has a TTFT half) and
+        the per-class latency window."""
+        slo = r.slo
+        if slo is None or r.ttft_s is None:
+            return
+        if slo.ttft_target_s is not None:
+            self.metrics.incr("slo_ttft_met"
+                              if r.ttft_s <= slo.ttft_target_s
+                              else "slo_ttft_violated")
+        self.metrics.observe_window(f"{slo.name}.ttft_s", r.ttft_s)
+
+    def _install_first_token(self, r, pages, table, first, idx):
+        """Post-prefill bookkeeping shared by whole-prompt admission
+        and the final chunk of a chunked prefill: TTFT accounting,
+        then either a decode slot install or — for ``prefill_only``
+        requests — a KV handoff export (the request resolves with the
+        handoff blob instead of occupying a slot)."""
+        now = time.monotonic()
+        r.ttft_s = now - r.enqueued_at
+        self.metrics.observe_window("ttft_s", r.ttft_s)
+        self._score_ttft(r)
+        self.metrics.incr("prefill_total")
+        self.metrics.incr("generated_tokens_total")
+        if r.prefill_only:
+            self._export_handoff(r, pages, first)
+            return
+        with self._slots_lock:
+            self.slots[idx] = _Slot(
+                r, pages, table, pos=r.prompt.size, cur=first,
+                prev=int(r.prompt[-1]), emitted=[first],
+                first_token_at=now)
+        eos = self.config.eos_id
+        if (eos is not None and first == eos) or r.max_new == 1:
+            self._retire(idx, draining=self._closed
+                         and not self._stop.is_set())
+
+    def _export_handoff(self, r, pages, first):
+        """Resolve a ``prefill_only`` request with the KV handoff
+        blob: the filled page CONTENTS in table order (sequence
+        position p lives at blob page ``p // page_size``), the prompt,
+        and the tokens generated so far. Pages are freed here — the
+        blob owns the KV state now; import allocates fresh pages on
+        the destination, so the handoff is location-independent."""
+        with self._slots_lock:
+            alloc_state = self.allocator.export_state(pages)
+        eos = self.config.eos_id
+        done = (eos is not None and first == eos) or r.max_new == 1
+        # a finished request needs no KV — the importer resolves it
+        # without a decode slot, so don't ship dead pages. The pages are
+        # picked on the device and only they cross to the host.
+        idxs = torch.as_tensor(np.asarray([] if done else pages, np.int64),
+                               device=self._kp.device)
+        k = self._host_pages(self._kp, idxs)
+        v = self._host_pages(self._vp, idxs)
+        with self._slots_lock:
+            self.allocator.free(pages)
+        if done:
+            alloc_state = {"pages": [], "page_size":
+                           alloc_state["page_size"]}
+        state = {"kind": "kv_handoff",
+                 "prompt": np.asarray(r.prompt, np.int64),
+                 "max_new": int(r.max_new),
+                 "pos": int(r.prompt.size),
+                 "cur": int(first),
+                 "prev": int(r.prompt[-1]),
+                 "emitted": [int(first)],
+                 "pages": alloc_state["pages"],
+                 "page_size": alloc_state["page_size"],
+                 "k": k, "v": v,
+                 "done": bool(done),
+                 "ttft_s": r.ttft_s}
+        self.metrics.incr("handoff_export_total")
+        self.metrics.observe_latency(time.monotonic() - r.enqueued_at)
+        self.metrics.incr("responses_total")
+        self.metrics.incr("retired_total")
+        r.set_result(state)
+        with self._cv:
+            self._cv.notify_all()
+
+    @staticmethod
+    def _host_pages(pool, idxs):
+        """Pages ``idxs`` of ``pool`` [L, P, ...] as a host numpy array
+        [L, len(idxs), ...] (bfloat16 as its ``<V2`` bits)."""
+        return _weights.tensor_to_array(pool[:, idxs],
+                                        bfloat16=np.dtype("V2"))
+
+    def _admit_handoff(self, r, idx):
+        """Install an imported handoff blob into slot ``idx``: fresh
+        pages, an exact value copy of the exported page contents into
+        the local pools (an eager in-place copy — no program dispatch,
+        no step build, so the no-recompile pin is untouched), and a
+        decode slot resuming at the handed-off position. Returns False
+        (request requeued at the front) on page exhaustion."""
+        state = r.handoff_state
+        k, v = state["k"], state["v"]
+        n_src = int(k.shape[1])
+        try:
+            with self._slots_lock:
+                pages = self.allocator.import_alloc(
+                    state,
+                    total=self._pages_needed(r.prompt.size, r.max_new))
+        except PagesExhaustedError:
+            self.metrics.incr("page_wait_total")
+            with self._qlock:
+                self._queue.insert(0, r)
+            return False
+        rows = torch.as_tensor(np.asarray(pages[:n_src], np.int64),
+                               device=self._kp.device)
+        with torch.inference_mode():   # the pools may be step outputs
+            for pool, x in ((self._kp, k), (self._vp, v)):
+                pool[:, rows] = _weights.array_to_tensor(
+                    x, pool.device, dtype=pool.dtype).to(pool.dtype)
+        table = np.zeros((self.pages_per_seq,), np.int32)
+        table[:len(pages)] = pages
+        emitted = [int(t) for t in state["emitted"]]
+        with self._slots_lock:
+            self.slots[idx] = _Slot(
+                r, pages, table, pos=int(state["pos"]),
+                cur=int(state["cur"]), prev=int(state["prev"]),
+                emitted=emitted,
+                first_token_at=time.monotonic())
+        self.metrics.incr("handoff_import_total")
+        eos = self.config.eos_id
+        if (eos is not None and emitted and emitted[-1] == eos) \
+                or len(emitted) >= r.max_new:
+            self._retire(idx, draining=self._closed
+                         and not self._stop.is_set())
+        return True
+
+    def _start_chunk_job(self, r, idx):
+        """Reserve slot ``idx`` and the request's full page budget for
+        a chunked prefill. No dispatch happens here — the slices run
+        one per engine iteration in _step_chunks, interleaved with the
+        decode batch. Returns False (request requeued at the front) on
+        page exhaustion."""
+        try:
+            with self._slots_lock:
+                pages = self.allocator.alloc(
+                    self._pages_needed(r.prompt.size, r.max_new))
+        except PagesExhaustedError:
+            self.metrics.incr("page_wait_total")
+            with self._qlock:
+                self._queue.insert(0, r)
+            return False
+        table = np.zeros((self.pages_per_seq,), np.int32)
+        table[:len(pages)] = pages
+        with self._slots_lock:
+            self._chunk_jobs[idx] = _ChunkJob(r, pages, table)
+        return True
+
+    def _fail_chunk_job(self, idx, exc):
+        with self._slots_lock:
+            job = self._chunk_jobs.pop(idx, None)
+            if job is None:
+                return
+            self.allocator.free(job.pages)
+        job.req.set_error(exc)
+        with self._cv:
+            self._cv.notify_all()
+
+    def _step_chunks(self, policy):
+        """One chunk dispatch per in-flight chunked prefill — chunk
+        work is per-step work, interleaved with the decode batch so a
+        long prompt never monopolizes the worker between decode steps.
+        The final chunk's NextTok is the request's first token (TTFT
+        lands there, via _install_first_token). A terminal dispatch
+        failure fails only that job's request."""
+        with self._slots_lock:
+            jobs = sorted(self._chunk_jobs)
+        if not jobs:
+            return False
+        if len(jobs) > 1 and self.brownout is not None \
+                and self.brownout.active("chunk_shrink"):
+            # brownout level 3: one chunk slice per iteration — decode
+            # steps for running streams outrank prefill progress for
+            # queued long prompts while the crowd passes
+            self.metrics.incr("brownout_chunk_defer_total",
+                              len(jobs) - 1)
+            jobs = jobs[:1]
+        cs = self.programs.chunk_size
+        progressed = False
+        for idx in jobs:
+            with self._slots_lock:
+                job = self._chunk_jobs.get(idx)
+            if job is None:
+                continue
+            r = job.req
+            if r.deadline is not None \
+                    and time.monotonic() >= r.deadline:
+                self.metrics.incr("timeouts_total")
+                self._fail_chunk_job(idx, RequestTimeoutError(
+                    "request deadline expired mid-chunked-prefill"))
+                progressed = True
+                continue
+            sl = r.prompt[job.off:job.off + cs]
+            tokens = np.zeros((1, cs), np.int64)
+            tokens[0, :sl.size] = sl
+            lens = np.asarray([sl.size], np.int32)
+            offs = np.asarray([job.off], np.int32)
+            table = job.table.reshape(1, -1)
+
+            def _chunk_dispatch():
+                self._maybe_inject_fault()
+                return self._run_chunk_program(tokens, lens, offs,
+                                               table)
+
+            try:
+                nxt = with_retries(
+                    _chunk_dispatch, policy=policy,
+                    deadline=r.deadline,
+                    on_retry=lambda exc, n, delay:
+                        self.metrics.incr("retries_total"))
+            except BaseException as exc:  # noqa: BLE001 — forwarded
+                if self.breaker.record_failure():
+                    self.metrics.incr("breaker_open_total")
+                    self.health.to(HealthState.DEGRADED)
+                self.metrics.incr("errors_total")
+                self._fail_chunk_job(idx, exc)
+                progressed = True
+                continue
+            self.breaker.record_success()
+            self.metrics.incr("chunk_prefill_total")
+            job.off += int(sl.size)
+            progressed = True
+            if job.off >= r.prompt.size:
+                with self._slots_lock:
+                    self._chunk_jobs.pop(idx, None)
+                self._install_first_token(r, job.pages, job.table,
+                                          int(nxt[0]), idx)
+        return progressed
+
+    def _active(self):
+        return [(i, s) for i, s in enumerate(self.slots)
+                if s is not None]
+
+    def _step(self, policy):
+        """One decode (or speculative) dispatch over the full slot
+        array; per-row bookkeeping afterwards. A terminal dispatch
+        failure fails every active request (and trips the breaker),
+        never the worker."""
+        active = self._active()
+        if not active:
+            return False
+        now = time.monotonic()
+        for i, slot in list(active):
+            if slot.req.deadline is not None \
+                    and now >= slot.req.deadline:
+                self.metrics.incr("timeouts_total")
+                self._retire(i, error=RequestTimeoutError(
+                    "request deadline expired mid-generation"))
+        active = self._active()
+        if not active:
+            return True
+        c = self.config
+        B = c.max_batch
+        toks = np.zeros((B,), np.int64)
+        prev = np.zeros((B,), np.int64)
+        pos = np.ones((B,), np.int32)
+        table = np.zeros((B, self.pages_per_seq), np.int32)
+        for i, slot in active:
+            toks[i] = slot.cur
+            prev[i] = slot.prev
+            pos[i] = slot.pos
+            table[i] = slot.table
+        deadlines = [s.req.deadline for _, s in active
+                     if s.req.deadline is not None]
+        batch_deadline = min(deadlines) if deadlines else None
+        # brownout level >= 2 runs the (warmed) plain decode program
+        # instead of the spec step: exact greedy output either way —
+        # verification pins spec to target-greedy parity — so the
+        # switch trades draft speedup for target-model load, never
+        # numerics. Stale draft KV across the gap only lowers
+        # acceptance after revert; it cannot change tokens.
+        use_spec = self.draft_cfg is not None
+        if use_spec and self.brownout is not None \
+                and self.brownout.active("spec_off"):
+            use_spec = False
+            self.metrics.incr("brownout_spec_off_total")
+
+        def _step_dispatch():
+            self._maybe_inject_fault()
+            if not use_spec:
+                return self._run_decode_program(toks, pos, table)
+            return self._run_spec_program(toks, prev, pos, table)
+
+        try:
+            result = with_retries(
+                _step_dispatch, policy=policy, deadline=batch_deadline,
+                on_retry=lambda exc, n, delay:
+                    self.metrics.incr("retries_total"))
+            if not use_spec:
+                out = result
+            else:
+                emitted, accepted = result
+        except BaseException as exc:     # noqa: BLE001 — forwarded
+            if self.breaker.record_failure():
+                self.metrics.incr("breaker_open_total")
+                self.health.to(HealthState.DEGRADED)
+            self.metrics.incr("errors_total", len(active))
+            for i, _ in active:
+                self._retire(i, error=exc)
+            return True
+        self.breaker.record_success()
+        if self.health.state == HealthState.DEGRADED:
+            self.health.to(HealthState.READY)
+        self.metrics.incr("decode_batches_total")
+        draining = self._closed and not self._stop.is_set()
+        eos = c.eos_id
+        n_new = 0
+        if not use_spec:
+            for i, slot in active:
+                row = out[i]
+                taken, done = self._truncate(slot, row)
+                slot.emitted.extend(taken)
+                n_new += len(taken)
+                slot.pos += len(row)
+                slot.cur = int(row[-1])
+                slot.prev = int(row[-2]) if len(row) >= 2 \
+                    else int(toks[i])
+                if done:
+                    self._retire(i, draining=draining)
+        else:
+            self.metrics.incr("spec_rounds_total", len(active))
+            for i, slot in active:
+                a = int(accepted[i])
+                row = emitted[i]
+                self.metrics.incr("spec_tokens_accepted_total", a)
+                taken, done = self._truncate(slot, row[:a])
+                slot.emitted.extend(taken)
+                n_new += len(taken)
+                old_cur = slot.cur
+                slot.pos += a
+                slot.cur = int(row[a - 1])
+                slot.prev = int(row[a - 2]) if a >= 2 else old_cur
+                if done:
+                    self._retire(i, draining=draining)
+        self.metrics.incr("generated_tokens_total", n_new)
+        return True
+
+    def _truncate(self, slot, row):
+        """The slice of freshly generated ``row`` this slot actually
+        keeps: cut at eos_id (inclusive) and at the request's max_new.
+        Returns (tokens, done)."""
+        eos = self.config.eos_id
+        row = [int(t) for t in row]
+        if eos is not None and eos in row:
+            row = row[:row.index(eos) + 1]
+        room = slot.req.max_new - len(slot.emitted)
+        done = (len(row) >= room
+                or (eos is not None and row and row[-1] == eos))
+        return row[:room], done
+
+    # -- worker / watchdog -----------------------------------------------
+    def _worker_loop(self):
+        policy = self.config.retry_policy or default_policy()
+        while not self._stop.is_set():
+            # the crash point is consumed only while this engine has
+            # work: fires() advances a process-global clock, so an IDLE
+            # engine polling the point (a drained fixture, a spare pool
+            # replica) would otherwise steal a fire armed against the
+            # loaded engine under test
+            if self._crash.is_set() or (
+                    self._has_work()
+                    and _faultinject.fires("serving_worker_crash")):
+                return   # models SIGKILL — the watchdog's job
+            self.health.beat()
+            moved = self._update_brownout()
+            swept = self._sweep_expired()
+            admitted = self._admit(policy)
+            chunked = self._step_chunks(policy)
+            stepped = self._step(policy)
+            if self._closed and not self._has_work():
+                break    # drain complete
+            if not (admitted or chunked or stepped or swept or moved):
+                with self._cv:
+                    if not self._queue and not self._closed:
+                        self._cv.wait(0.02)
+        for req in self._take_pending():
+            req.set_error(ServerClosedError("engine closed"))
+
+    def _watchdog_loop(self):
+        while not self._watchdog_stop.wait(
+                self.config.watchdog_interval_s):
+            if self._stop.is_set() or self._closed:
+                continue
+            worker = self._worker
+            if worker is None:
+                continue
+            if not worker.is_alive():
+                self._on_worker_dead("decode worker thread died")
+                continue
+            age = self.health.heartbeat_age()
+            hang = self.config.hang_timeout_s
+            if hang and age is not None and age > hang:
+                self._on_worker_dead(
+                    f"decode worker heartbeat stalled {age:.1f}s "
+                    f"(hang timeout {hang:g}s) — worker is stuck")
+
+    def _on_worker_dead(self, reason):
+        if not self._worker_death_seen:
+            self._worker_death_seen = True
+            self.metrics.incr("worker_died_total")
+            self.health.to(HealthState.DEGRADED)
+        for req in self._take_pending():
+            req.set_error(WorkerDiedError(reason))

@@ -8,11 +8,10 @@ its module ``__getattr__`` (PEP 562), which Python calls only for a
 name the module does not define.
 """
 
-__all__ = ["CONV", "DECODE", "MESH", "REST", "FLEET", "module_getattr"]
+__all__ = ["CONV", "MESH", "REST", "FLEET", "module_getattr"]
 
 # the ROADMAP.md section-1 items the refusals name (get_op's too)
 CONV = "Conv nets and the transpilers"
-DECODE = "Generation and the paged decode engine"
 MESH = "Multi-device parallelism"
 REST = "Remaining op families and the zoo"
 FLEET = "Fleet and analyzers"

@@ -89,6 +89,8 @@ import paddle_tpu_torch.layers.io
 import paddle_tpu_torch.ops.moe, paddle_tpu_torch.models.llama_import
 import paddle_tpu_torch.waiting, paddle_tpu_torch.layers.transformer
 import paddle_tpu_torch.ops.transformer_ops
+import paddle_tpu_torch.serving.decode_engine, paddle_tpu_torch.serving.kv_pages
+import paddle_tpu_torch.serving.sched, paddle_tpu_torch.serving.overload
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                     "ml_dtypes"))
@@ -252,36 +254,39 @@ def test_later_slices_refuse_loudly():
         zoo.build_zoo_program("resnet")
     with pytest.raises(NotImplementedError, match="Remaining op families"):
         zoo.build_zoo_program("machine_translation")
-    # item 4a (the fused generator) lifted: the generator builders, their
-    # layers and the weight tools resolve; still refused, by name: the
-    # paged decode programs, layers and serving names (item 4b), the mesh
-    # knobs and MoE (item 6)
+    # items 4a (the fused generator) and 4b (the paged decode engine)
+    # lifted: the generator builders, the paged programs, their layers,
+    # the weight tools and the decode-serving names resolve; still
+    # refused, by name: the mesh knobs and MoE (item 6)
     from paddle_tpu_torch.models import llama as tllama
     for name in ("build_llama_generator", "build_llama_spec_generator",
                  "quantize_generator_weights", "stack_generator_weights",
                  "copy_weights_as_draft", "save_decode_model",
-                 "load_decode_model"):
+                 "load_decode_model", "build_llama_paged_programs",
+                 "PagedDecodePrograms"):
         assert callable(getattr(tllama, name))
-    for name in ("llama_generate", "llama_spec_generate"):
+    for name in ("llama_generate", "llama_spec_generate",
+                 "llama_paged_prefill", "llama_paged_prefill_chunk",
+                 "llama_paged_decode", "llama_paged_spec_step"):
         assert callable(getattr(fluid.layers, name))
-    decode = "Generation and the paged decode engine"
-    for mod, name in ((tllama, "build_llama_paged_programs"),
-                      (fluid.layers, "llama_paged_decode"),
-                      (fluid.serving, "DecodeEngine"),
-                      (fluid.serving, "PageAllocator")):
-        with pytest.raises(NotImplementedError, match=decode):
-            getattr(mod, name)
+    for name in ("DecodeEngine", "DecodeConfig", "DecodeRequest",
+                 "PageAllocator", "PagesExhaustedError", "SLOClass",
+                 "FIFOScheduler", "SLOScheduler", "get_scheduler",
+                 "priority_rank", "AdmissionController",
+                 "BrownoutController", "RetryBudget",
+                 "RetryBudgetExhaustedError"):
+        assert callable(getattr(fluid.serving, name))
+    assert fluid.serving.PRIORITIES["interactive"] == 0
     tokens = infer.global_block().var("tokens")
     with pytest.raises(NotImplementedError, match="Multi-device"):
         tllama.build_llama_generator(LLAMA_TINY, tokens, 4, shard_tp=True)
     # item 3 (IO, persistables and Inferencer) lifted: the load op runs;
-    # still refused, by name: decode serving (item 4), replica pools and
-    # remote replicas (item 8), sequence readers and feeders (item 7)
-    # and a JAX AOT artifact
+    # still refused, by name: replica pools (of either engine) and remote
+    # replicas (item 8), sequence readers and feeders (item 7) and a JAX
+    # AOT artifact
     inf = fluid.Inferencer.__new__(fluid.Inferencer)
-    with pytest.raises(NotImplementedError,
-                       match="Generation and the paged decode engine"):
-        inf.serve_decode(LLAMA_TINY)
+    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
+        inf.serve_decode(LLAMA_TINY, replicas=2)
     with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
         inf.serve(replicas=2)
     with pytest.raises(NotImplementedError, match="Fleet and analyzers"):

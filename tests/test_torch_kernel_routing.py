@@ -57,33 +57,47 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     (torch.float64, 128, "float32, bfloat16 or float16"),
     (torch.int32, 128, "float32, bfloat16 or float16"),
     (torch.bfloat16, 96, "head dims"),
-    (torch.float32, 256, "head dims"),
+    # head dims past 128 that are multiples of it (the reference's
+    # D % 128 == 0 gate) are no longer refused: this case now holds
+    # that 256 and 384 route to the kernel symbols on every dtype
+    pytest.param(torch.float32, 256, None, id="dtype3-256-head dims"),
 ])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
                                      "flash_bwd_dkv"])
 def test_routing_raises_for_what_no_kernel_takes(wrapper, dtype, d, match):
+    if match is None:
+        for wide in (256, 384):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                assert fa.kernel_for(wrapper, dt, wide) \
+                    == fa.kernel_for(wrapper, dt, 128)
+        return
     with pytest.raises(ValueError, match=match):
         fa.kernel_for(wrapper, dtype, d)
 
 
 @pytest.mark.parametrize("d,kernels", [(8, False), (16, False), (32, False),
                                        (96, False), (64, True), (128, True),
-                                       (256, True)])
+                                       (256, True), (192, False),
+                                       (384, True)])
 def test_head_dim_gate_sends_what_no_kernel_takes_to_the_plain_route(
         d, kernels):
-    """On a CUDA tensor, head dims 64 and 128 go to the kernels at any T;
-    a head dim that is neither 64 nor a multiple of 128 (LLAMA_TINY's 16,
-    TRANSFORMER_TINY's 8) to the plain versions, as the reference's gate
-    (D % 128 == 0) sends it to its plain path. A multiple of 128 that no
-    kernel takes (256) goes to the wrappers as in the reference, and
-    kernel_for refuses it there, as it refuses the plain route's head
-    dims. A CPU tensor always takes the wrappers' plain versions."""
+    """On a CUDA tensor, head dim 64 and every multiple of 128 (256 and
+    384 in 128-column slices) go to the kernels at any T; a head dim
+    that is neither 64 nor a multiple of 128 (LLAMA_TINY's 16,
+    TRANSFORMER_TINY's 8, 192) to the plain versions, as the reference's
+    gate (D % 128 == 0) sends it to its plain path, and kernel_for
+    refuses only those non-multiples. A CPU tensor always takes the
+    wrappers' plain versions."""
     for t in (16, 128, 2048):
         cuda = types.SimpleNamespace(device=torch.device("cuda", 0),
                                      shape=(2, 4, t, d))
         assert fa.takes_kernels(cuda) is kernels
         assert fa.takes_kernels(torch.zeros(1, 1, t, d))
-    if d not in (64, 128):
+    if kernels:
+        for dt in (torch.float32, torch.bfloat16):
+            assert fa.kernel_for("flash_fwd", dt, d)[1] in \
+                set(fa.flash_fwd.launches_by_kernel) - {fa.PLAIN}
+    else:
         with pytest.raises(ValueError, match="head dims"):
             fa.kernel_for("flash_fwd", torch.float32, d)
 

@@ -114,11 +114,13 @@ def test_attention_gradients_on_the_card_match_the_cpu():
 HALF_RTOL, HALF_RMS = 1e-2, 1e-2
 
 # (tq, tk, d, causal): ragged T, tq < tk, tq > tk (fully masked rows),
-# both head dims, causal and not
+# head dims 64 and 128 and the sliced 256 and 384, causal and not
 MMA_CASES = [(200, 200, 128, True), (200, 200, 128, False),
              (128, 256, 128, True), (256, 128, 128, True),
              (256, 256, 64, True), (256, 256, 64, False),
-             (256, 256, 128, False)]
+             (256, 256, 128, False), (256, 256, 256, True),
+             (200, 200, 256, False), (128, 256, 256, True),
+             (256, 128, 384, True)]
 
 
 def _half_tier_ratio(got, want):
@@ -650,7 +652,8 @@ def test_engine_serves_optimized_clone_identically_on_the_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 128)])
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 128),
+                                     ("bfloat16", 256)])
 def test_custom_op_launches_flash_attentions_kernel(dtype, d):
     """K1's operator (``torch.ops.paddle_tpu_torch.flash_fwd``, what an
     exported graph calls) launches the kernel FlashAttention launches:
@@ -838,3 +841,52 @@ def test_generator_on_the_card_matches_the_cpu():
                         scope=card_scope, mode="test")[0]
         np.testing.assert_array_equal(toks[:, :16], prompt)
         assert ((toks >= 0) & (toks < 512)).all()
+
+
+@pytest.mark.gpu
+def test_decode_engine_on_the_card_matches_the_cpu():
+    """A float32 DecodeEngine built with no place runs on the card (its
+    pools on the card) and serves the tokens the same engine serves on
+    the CPU (TF32 off; a seeded model whose margins are far above
+    float32's rounding), with no step build after warmup and every page
+    returned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               build_llama_generator)
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, ffn_hidden=512, dtype="float32")
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        ptok = fluid.layers.data(name="ptok", shape=[-1, 16],
+                                 dtype="int64", append_batch_size=False)
+        build_llama_generator(cfg, ptok, max_new_tokens=8)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    card_scope = fluid.Scope()
+    for n in scope.keys():
+        card_scope.set(n, scope.find_var(n).cuda())
+    conf = dict(max_batch=4, prompt_buckets=(16, 32), max_new_tokens=8,
+                page_size=8, decode_block=4, prefill_batch=2,
+                default_timeout_s=120.0)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 512, (int(n),)).astype(np.int64)
+               for n in rng.randint(3, 33, 8)]
+    outs = {}
+    for where, sc, place in (("cpu", scope, fluid.CPUPlace()),
+                             ("card", card_scope, None)):
+        eng = DecodeEngine(cfg, scope=sc, place=place,
+                           config=DecodeConfig(**conf))
+        try:
+            eng.warmup()
+            assert eng._kp.device.type == ("cpu" if place else "cuda")
+            reqs = [eng.submit(p, timeout=120) for p in prompts]
+            outs[where] = [r.result(120) for r in reqs]
+            eng.assert_no_recompiles()
+            assert eng.stats()["pages_in_use"] == 0
+        finally:
+            eng.close()
+    for a, b in zip(outs["card"], outs["cpu"]):
+        np.testing.assert_array_equal(a, b)

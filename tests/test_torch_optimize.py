@@ -4,8 +4,7 @@ against the JAX package's.
 
 Mirrors tests/test_optimize_rewrites.py's TestFold, TestFuse (with
 ``test_fused_elementwise_gradients_bit_exact``), TestPassSelection and
-TestServingOptimize (the ServingEngine; the decode engine comes with
-ROADMAP.md item 'Generation and the paged decode engine', 4b), with
+TestServingOptimize (the ServingEngine and the DecodeEngine), with
 ``test_load_op_never_folds`` (the ``load`` op, ported with item 'IO,
 persistables and Inferencer'). Every case
 asserts on the port what the reference case asserts, and that both
@@ -790,6 +789,48 @@ class TestServingOptimize:
         finally:
             jeng.close()
             teng.close()
+
+    def test_decode_engine_optimize_reports(self):
+        """DecodeEngine(optimize=True), the default, rewrites each step
+        program on a private clone: the single fused-op step programs
+        leave the pipeline nothing to rewrite, the wiring still reports,
+        and the reports equal the reference engine's."""
+        from paddle_tpu import serving as jserving
+        from paddle_tpu.models import llama as jllama
+        from paddle_tpu_torch import serving
+        from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                                   build_llama_generator)
+        kw = dict(vocab_size=64, dim=16, n_layers=1, n_heads=2,
+                  n_kv_heads=1, ffn_hidden=32, dtype="float32")
+        cfg = LlamaConfig(**kw)
+        prog, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.unique_name.guard(), tfluid.program_guard(prog,
+                                                              startup):
+            ptok = tfluid.layers.data(name="ptok", shape=[1, 8],
+                                      dtype="int64",
+                                      append_batch_size=False)
+            build_llama_generator(cfg, ptok, max_new_tokens=4)
+        scope = tfluid.Scope()
+        tfluid.Executor(CPU).run(startup, scope=scope)
+        conf = dict(max_batch=2, prompt_buckets=(8,), max_new_tokens=4,
+                    page_size=8)
+        eng = serving.DecodeEngine(cfg, scope=scope, place=CPU,
+                                   config=serving.DecodeConfig(**conf),
+                                   auto_start=False)
+        jeng = jserving.DecodeEngine(jllama.LlamaConfig(**kw),
+                                     scope=jfluid.Scope(),
+                                     place=jfluid.CPUPlace(),
+                                     config=jserving.DecodeConfig(**conf),
+                                     auto_start=False)
+        try:
+            assert isinstance(eng.optimize_reports, dict)
+            assert eng.stats()["optimize"] is None \
+                or isinstance(eng.stats()["optimize"], dict)
+            assert eng.optimize_reports == jeng.optimize_reports
+            assert eng.stats()["optimize"] == jeng.stats()["optimize"]
+        finally:
+            eng.close()
+            jeng.close()
 
 
 # ---------------------------------------------------------------------------

@@ -82,6 +82,10 @@ def _llama_feed(step, b=2, t=16, vocab=256):
 TINY = dict(vars(jllama.LLAMA_TINY))
 HD128 = dict(vocab_size=256, dim=256, n_layers=1, n_heads=2, n_kv_heads=1,
              ffn_hidden=256, dtype="float32")
+# head dim 256: the reference's Pallas kernels take it (D % 128 == 0),
+# as the port's kernels do in 128-column slices
+HD256 = dict(vocab_size=256, dim=512, n_layers=1, n_heads=2, n_kv_heads=1,
+             ffn_hidden=256, dtype="float32")
 
 
 def _pair(build, *args):
@@ -114,17 +118,20 @@ def _scalar(x):
     return float(np.asarray(x).reshape(()))
 
 
-@pytest.mark.parametrize("model", ["mnist", "llama_tiny", "llama_hd128"])
+@pytest.mark.parametrize("model", ["mnist", "llama_tiny", "llama_hd128",
+                                   "llama_hd256"])
 def test_training_matches_reference(monkeypatch, model):
     """Step-1 gradients of every parameter, then the per-step losses of
-    5 Adam steps on fresh feeds. ``llama_hd128`` (head dim 128, T = 128)
-    runs the reference's Pallas K1, K2 and K3 through the interpreter."""
+    5 Adam steps on fresh feeds. ``llama_hd128`` and ``llama_hd256``
+    (head dims 128 and 256, T = 128) run the reference's Pallas K1, K2
+    and K3 through the interpreter."""
     monkeypatch.setattr(pa, "_FORCE_INTERPRET", True)
     if model == "mnist":
         (jm, _, jl), (tm, _, tl), jscope, tscope = _pair(_mnist, _adam)
         feed, steps = _mnist_feed, 5
     else:
-        cfg = TINY if model == "llama_tiny" else HD128
+        cfg = {"llama_tiny": TINY, "llama_hd128": HD128,
+               "llama_hd256": HD256}[model]
         (jm, _, jl), (tm, _, tl), jscope, tscope = _pair(_llama, cfg, _adam)
         t = 16 if model == "llama_tiny" else 128
         feed = lambda s: _llama_feed(s, t=t)  # noqa: E731

@@ -193,6 +193,46 @@ Phases — any failure exits non-zero:
    (``quantize=True`` against the quantized generator) and speculative
    mode (a 2-layer draft cut from the target, gamma 4) at max_batch 4,
    and float32 at 4 layers, exact past the f32 tier.
+24. resnet50_train (ROADMAP item 5, the main path of this slice): the
+   reference's primary benchmark, ``bench.py``'s default configuration —
+   ``resnet50`` at 3 x 224², 1000 classes, batch 128,
+   ``Momentum(0.1, 0.9)``, ``amp_transpile(level="O2")`` — through
+   ``Executor()`` with no place, in NHWC and in NCHW from one initial
+   scope: 2 warmup steps, then timed steps through ``run(...,
+   repeats=4)``: step ms, images/s, the share of the bf16 peak (3 x 4.09
+   GFLOP an image over 989 TFLOP/s, bench.py:403-405), peak memory, one
+   step's device time by kind (cuDNN convolutions, batch norm and the
+   other elementwise ops, casts and clones by aten op, the Momentum
+   segment) and idle share; the first losses finite, near ln 1000 and
+   within the bf16 tier of each other; no activation-sized copy in the
+   NHWC step; no attention launch. Its variants, each timed the same
+   way: ``fuse_optimizer_ops`` (parameters bit-equal to the
+   per-parameter run after 2 steps, deterministic cuDNN), ``memory_
+   optimize`` ``recompute_norms`` and ``save_conv_only`` (losses within
+   the bf16 tier, peaks beside the run without remat), and the
+   ``"layout"`` pass over the NCHW program (the executed layout as
+   bench.py:181 reads it, losses within the tier);
+25. resnet50_serve: 24's trained scope, ``clone(for_test=True)`` →
+   ``InferenceTranspiler().transpile`` → ``ServingEngine`` with no
+   place, buckets (1, 8, 32), 64 single-image requests from 8
+   closed-loop clients: no batch_norm left; the fold's logits against
+   the unfolded program's (float32 with TF32 off and float64: the
+   reference test's 1e-4 / 1e-5, normwise; bf16: the relative-RMS
+   tier); a ``QuantizeTranspiler`` program within 0.05 relative max
+   error; no step build after warmup; requests/s, p50/p99;
+26. resnet_parity: ResNet-50 at full width, batch 2, TF32 off: one
+   Momentum step on the card and on the CPU from one scope — in float32
+   the loss and every moving statistic within 2e-3 / 2e-4 (the
+   gradients' distance reported: ill-conditioned in float32), in
+   float64 also the stem filter's gradient and every updated filter;
+27. conv_zoo: the zoo's ``mnist``, ``vgg``, ``resnet`` and
+   ``se_resnext`` take 3 float32 steps on the card and the CPU from one
+   state; ``conv2d_transpose`` / ``conv3d_transpose`` with groups and
+   dilation, ``conv3d``, ``pool3d``, ``ceil_mode`` pooling with padding,
+   ``lrn``, both interpolations up and down, ``roi_pool`` with an empty
+   bin and ``batch_norm`` card against CPU, outputs and gradients; the
+   hand-derived ``batch_norm`` backward against
+   ``PADDLE_TPU_BN_AUTODIFF=1`` on the card.
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
 on its kernel symbol, and times them at the head_dim_256 phase's bf16
@@ -4158,6 +4198,822 @@ def phase_decode_engine(torch, fluid, fa, card):
     return check_launches, stats
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP item 5: conv nets (ResNet-50, the reference's primary benchmark)
+# ---------------------------------------------------------------------------
+
+RN_BATCH = 128                  # bench.py conv_main's batch on the chip
+RN_HW = 224
+RN_CLASSES = 1000
+RN_LR = 0.1                     # bench.py: Momentum(0.1, 0.9)
+RN_REPEATS = 4                  # steps a timed run(repeats=) takes
+RN_TIMED_RUNS = 2               # timed runs a configuration
+RN_VARIANT_STEPS = 2            # steps a variant is held over
+# train FLOP an image at 224² (bench.py:403-405: 3 x the forward's 4.09
+# GFLOP) against the card's bf16 peak
+RN_TRAIN_FLOP = 3 * 4.09e9
+RN_LOSS_BAND = 1.5              # |first loss - ln 1000| allowed
+RN_BF16_RTOL = 2e-2             # losses of two bf16 runs (layouts, remat)
+RN_PARITY_BATCH = 2
+RN_STEM = "conv2d_0.w_0"
+RN_PARITY_TOL = (2e-3, 2e-4)    # card against host, float32, TF32 off
+RN_SERVE_BUCKETS = (1, 8, 32)
+RN_SERVE_REQUESTS = 64
+RN_SERVE_CLIENTS = 8
+# tests/test_transpilers.py's fold tier, held normwise as
+# tools/optcheck.py holds its tolerances (|Δ| <= atol + rtol · max|want|):
+# a trained model's logits span decades, and float32 rounds the largest
+# (1.6e8 after the train phase's steps) to 16
+RN_FOLD_TOL = (1e-4, 1e-5)
+# an NHWC step may copy no activation to relayout it: a clone of more
+# elements than the largest filter (512 x 512 x 3 x 3) is an activation
+RN_ACTIVATION_NUMEL = 512 * 512 * 3 * 3
+RN_QUANT_REL = 0.05             # tests/test_quantize.py:79
+ZOO_CONV = ("mnist", "vgg", "resnet", "se_resnext")
+ZOO_BATCH = 16
+ZOO_STEPS = 3
+# the zoo's later steps, card against CPU: VGG's fc batch norm over 16
+# rows amplifies the float order (the two packages' float32 losses on
+# the CPU reach 6.1e-3 of |a| + 0.1 apart by step 3), so steps past the
+# first hold at this rtol; the first step at RN_PARITY_TOL
+ZOO_LATER_RTOL = 2e-2
+
+
+def conv_kind(name):
+    """The kind of one device kernel of a conv-net step, by its name."""
+    n = name.lower()
+    if "direct_copy" in n:
+        return "direct_copy"
+    if any(w in n for w in ("nchwtonhwc", "nhwctonchw", "nchw_to_nhwc",
+                            "nhwc_to_nchw")):
+        return "layout_transform"
+    if any(w in n for w in ("conv", "cudnn", "xmma", "implicit", "dgrad",
+                            "wgrad", "fprop", "sm90_", "sm80_")):
+        return "conv"
+    if any(w in n for w in ("gemm", "nvjet", "cutlass", "matmul")):
+        return "matmul"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    if any(w in n for w in ("elementwise", "reduce", "batch_norm",
+                            "vectorized", "unrolled", "pool", "norm")):
+        return "bn_and_elementwise"
+    return "other"
+
+
+def activation_clones(torch, fn):
+    """The ``aten.clone`` calls (what ``.contiguous()`` and
+    ``.clone()`` dispatch) of one call of ``fn`` whose input is
+    activation-sized (more than RN_ACTIVATION_NUMEL elements), as
+    (shape, strides) pairs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Clones(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.clone.default \
+                    and args[0].numel() > RN_ACTIVATION_NUMEL:
+                self.seen.append((list(args[0].shape),
+                                  list(args[0].stride())))
+            return func(*args, **(kwargs or {}))
+
+    with Clones() as mode:
+        fn()
+        torch.cuda.synchronize()
+    return mode.seen
+
+
+def normwise_close(got, want, tol):
+    """(max |got - want| <= atol + rtol · max |want|, that error)."""
+    rtol, atol = tol
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    return err <= atol + rtol * float(np.abs(want).max()), err
+
+
+def conv_ms_by_kind(torch, fn):
+    """Device ms of one call of ``fn`` by kind (``conv_kind``), the
+    optimizer segment's span and kernels (the lowering's profiler range)
+    and the eight largest kernels by name; None where the profiler sees
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.core.lowering import RANGE_OPTIMIZER
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range for e in on_device if e.name == RANGE_OPTIMIZER]
+    kinds, names = {}, {}
+    opt_ms = 0.0
+    # the device time of the copies by the aten op that made them:
+    # dtype casts (the AMP casts, batch norm's float32 widening) and
+    # clones (.contiguous(): relayouts)
+    by_op = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+             if e.key in ("aten::_to_copy", "aten::clone")}
+    for e in on_device:
+        if e.name == RANGE_OPTIMIZER:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        k = conv_kind(e.name)
+        kinds[k] = kinds.get(k, 0.0) + ms
+        names[e.name[:100]] = names.get(e.name[:100], 0.0) + ms
+        if any(s.start <= e.time_range.start < s.end for s in spans):
+            opt_ms += ms
+    if not kinds:
+        return None
+    return {"device_busy_ms": sum(kinds.values()),
+            "device_ms_by_kind": kinds,
+            "optimizer_kernels_ms": opt_ms,
+            "optimizer_span_ms": sum(s.elapsed_us() for s in spans) / 1e3,
+            "copies_ms_by_aten_op": by_op,
+            "top": sorted(names.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def resnet_program(fluid, layout, amp=True, fuse=False, policy=None,
+                   dtype="float32"):
+    """``bench.py`` conv_main's program: ``resnet50`` at 3 x 224², 1000
+    classes, ``Momentum(0.1, 0.9)``, then its transpiles in its order
+    (fused updates, remat, AMP O2). Returns (main, startup, loss)."""
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.transpiler import (amp_transpile,
+                                             fuse_optimizer_ops)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, RN_HW, RN_HW],
+                                dtype=dtype)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        loss, _, _ = resnet50(img, label, class_num=RN_CLASSES,
+                              layout=layout)
+        fluid.optimizer.Momentum(learning_rate=RN_LR,
+                                 momentum=0.9).minimize(loss)
+    if fuse:
+        fuse_optimizer_ops(main, startup)
+    if policy:
+        fluid.memory_optimize(main, policy=policy)
+    if amp:
+        amp_transpile(main, level="O2")
+    return main, startup, loss
+
+
+def resnet_infer_program(fluid, layout, amp=True, dtype="float32"):
+    """The served forward: ``resnet_imagenet(depth=50)``'s softmax over
+    an image feed of ``dtype`` (the training program's parameter names),
+    AMP O2 when ``amp``. Returns (program, prediction)."""
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+    from paddle_tpu_torch.transpiler import amp_transpile
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[3, RN_HW, RN_HW],
+                                dtype=dtype)
+        pred = resnet_imagenet(img, class_num=RN_CLASSES, depth=50,
+                               layout=layout)
+    test = main.clone(for_test=True)
+    if amp:
+        amp_transpile(test, level="O2")
+    return test, pred
+
+
+def resnet_feed(torch, batch, dev, seed=SEED):
+    """bench.py's images (uniform [0, 1), 3 x 224²) and labels, staged on
+    ``dev`` once."""
+    rng = np.random.RandomState(seed)
+    return {"img": torch.from_numpy(rng.rand(batch, 3, RN_HW, RN_HW)
+                                    .astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.randint(
+                0, RN_CLASSES, (batch, 1)).astype(np.int64)).to(dev)}
+
+
+def scope_from(fluid, state):
+    """A scope of its own holding a copy of each tensor of ``state``."""
+    scope = fluid.Scope()
+    for n, v in state.items():
+        scope.set(n, v.clone())
+    return scope
+
+
+def executed_layout(program):
+    """bench.py:181's rule: the formats the conv, pool and batch-norm ops
+    of ``program`` run in ("NCHW", "NHWC" or "mixed(...)")."""
+    fmts = {op.attrs.get("data_format", op.attrs.get("data_layout", "NCHW"))
+            for op in program.global_block().ops
+            if op.type in ("conv2d", "depthwise_conv2d", "pool2d",
+                           "batch_norm")}
+    return fmts.pop() if len(fmts) == 1 else \
+        "mixed(" + ",".join(sorted(fmts)) + ")"
+
+
+def resnet_steps(exe, main, loss, scope, feed, steps):
+    """``steps`` train steps, one ``run`` each; the losses."""
+    return [float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0].reshape(()))
+            for _ in range(steps)]
+
+
+def resnet_timed(torch, exe, main, loss, scope, feed, tag):
+    """RN_TIMED_RUNS runs of ``run(..., repeats=RN_REPEATS)`` after the
+    caller's warmup: each run's ms a step (host clock, synchronized),
+    images/s, the share of the bf16 peak, the peak memory over them, and
+    one more step's device time by kind, with the idle share of the
+    median step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(RN_TIMED_RUNS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False, repeats=RN_REPEATS)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / RN_REPEATS)
+    last = float(out[0].float().reshape(()).cpu())
+    check(math.isfinite(last), f"{tag}: non-finite loss {last}")
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms))
+    ips = RN_BATCH / (med / 1e3)
+    prof = conv_ms_by_kind(torch, lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope,
+        return_numpy=False))
+    stats = {"step_ms": step_ms, "images_per_s": ips,
+             "bf16_peak_share": ips * RN_TRAIN_FLOP / PEAK_FLOPS["bfloat16"],
+             "peak_gb": peak / 1e9, "last_loss": last}
+    if prof is None:
+        stats["device_busy_ms"] = "not measured"
+    else:
+        stats.update(prof)
+        # against the timed steps' median: the profiled step's own wall
+        # carries the profiler's start-up
+        stats["device_idle_share"] = 1 - prof["device_busy_ms"] / med
+    return stats
+
+
+def phase_resnet50_train(torch, fluid, fa, card):
+    """The main path of this slice: ``bench.py``'s default configuration
+    (ResNet-50, 3 x 224², 1000 classes, batch 128, Momentum(0.1, 0.9),
+    AMP O2) through ``Executor()`` with no place, once with
+    ``layout="NHWC"`` and once with ``"NCHW"``, both from one initial
+    scope: 2 warmup steps, then RN_TIMED_RUNS x RN_REPEATS timed steps.
+    Checks: the first losses finite, within RN_LOSS_BAND of ln 1000 and
+    within RN_BF16_RTOL of each other; no attention kernel launched.
+    Then the variants, each timed the same way: ``fuse_optimizer_ops``
+    (its parameters after RN_VARIANT_STEPS steps bit-equal to the
+    per-parameter run's, both with deterministic cuDNN),
+    ``memory_optimize`` ``recompute_norms`` and ``save_conv_only``
+    (losses within RN_BF16_RTOL of no remat) and the ``"layout"`` pass
+    over the NCHW program (its executed layout, losses within
+    RN_BF16_RTOL). Returns (attention launches by kernel symbol, the
+    trained NHWC scope, stats)."""
+    tag = "resnet50_train"
+    exe = fluid.Executor()                    # the card: CUDAPlace(0)
+    dev = exe.device
+    feed = resnet_feed(torch, RN_BATCH, dev)
+    torch.backends.cudnn.allow_tf32 = True    # the defaults: bf16 convs
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    stats, first, scopes = {}, {}, {}
+    init = None
+    fa.reset_launch_counts()
+    for layout in ("NHWC", "NCHW"):
+        main, startup, loss = resnet_program(fluid, layout)
+        if init is None:
+            s0 = fluid.Scope()
+            exe.run(startup, scope=s0)
+            init = {n: v.clone() for n, v in s0.vars.items()}
+            del s0
+        scope = scope_from(fluid, init)
+        warm = resnet_steps(exe, main, loss, scope, feed, 2)
+        first[layout] = warm[0]
+        s = resnet_timed(torch, exe, main, loss, scope, feed,
+                         f"{tag} {layout}")
+        s["first_losses"] = warm
+        clones = activation_clones(torch, lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope,
+            return_numpy=False))
+        s["activation_clones"] = len(clones)
+        check(layout != "NHWC" or not clones,
+              f"{tag} NHWC: {len(clones)} activation-sized copies a step "
+              f"(first: {clones[:2]})")
+        stats[layout] = s
+        scopes[layout] = scope
+        log(f"{tag} {layout}: " + json.dumps(s))
+        free_card(torch)
+    by_kernel = launches_by_kernel(fa)
+    check(not any(by_kernel.values()),
+          f"{tag}: attention launched on a ResNet step: {by_kernel}")
+    for layout, loss0 in first.items():
+        check(math.isfinite(loss0) and abs(loss0 - math.log(RN_CLASSES))
+              < RN_LOSS_BAND,
+              f"{tag} {layout}: first loss {loss0} not near ln "
+              f"{RN_CLASSES} = {math.log(RN_CLASSES):.4f}")
+    check(abs(first["NHWC"] - first["NCHW"])
+          <= RN_BF16_RTOL * abs(first["NCHW"]),
+          f"{tag}: first losses NHWC {first['NHWC']} and NCHW "
+          f"{first['NCHW']} differ beyond rtol {RN_BF16_RTOL}")
+    del scopes["NCHW"]
+    free_card(torch)
+
+    # fused optimizer updates: exact against the per-parameter updates
+    # with deterministic cuDNN, then timed
+    torch.backends.cudnn.deterministic = True
+    per_main, _, per_loss = resnet_program(fluid, "NHWC")
+    fused_main, fused_startup, fused_loss = resnet_program(
+        fluid, "NHWC", fuse=True)
+    per_scope = scope_from(fluid, init)
+    fused_scope = fluid.Scope()
+    exe.run(fused_startup, scope=fused_scope)
+    for n in [p.name for p in per_main.all_parameters()] + [
+            n for n in init if ".global_" in n]:
+        fused_scope.set(n, init[n].clone())
+    per_losses = resnet_steps(exe, per_main, per_loss, per_scope,
+                              feed, RN_VARIANT_STEPS)
+    fused_losses = resnet_steps(exe, fused_main, fused_loss,
+                                fused_scope, feed, RN_VARIANT_STEPS)
+    params = [p.name for p in per_main.all_parameters()]
+    unequal = [n for n in params if not torch.equal(
+        per_scope.find_var(n), fused_scope.find_var(n))]
+    check(not unequal and per_losses == fused_losses,
+          f"{tag} fused: {len(unequal)} of {len(params)} parameters differ "
+          f"from the per-parameter run after {RN_VARIANT_STEPS} steps "
+          f"(first: {unequal[:3]}); losses {fused_losses} vs {per_losses}")
+    n_update_ops = (sum(op.type == "momentum" for op in
+                        per_main.global_block().ops),
+                    sum(op.type == "momentum" for op in
+                        fused_main.global_block().ops))
+    torch.backends.cudnn.deterministic = False
+    del per_scope
+    free_card(torch)
+    s = resnet_timed(torch, exe, fused_main, fused_loss, fused_scope, feed,
+                     f"{tag} fused")
+    s.update(first_losses=fused_losses, bit_equal_params=len(params),
+             momentum_ops=n_update_ops, deterministic_check="cudnn."
+             "deterministic=True, benchmark=False")
+    stats["fuse_optimizer_ops"] = s
+    log(f"{tag} fuse_optimizer_ops: " + json.dumps(s))
+    del fused_scope
+    free_card(torch)
+
+    # remat: the two conv-net policies against no remat
+    base = stats["NHWC"]["first_losses"]
+    for policy in ("recompute_norms", "save_conv_only"):
+        main, _, loss = resnet_program(fluid, "NHWC", policy=policy)
+        scope = scope_from(fluid, init)
+        losses = resnet_steps(exe, main, loss, scope, feed, 2)
+        check(np.allclose(losses, base, rtol=RN_BF16_RTOL, atol=0),
+              f"{tag} {policy}: losses {losses} vs no remat {base} beyond "
+              f"rtol {RN_BF16_RTOL}")
+        s = resnet_timed(torch, exe, main, loss, scope, feed,
+                         f"{tag} {policy}")
+        s.update(first_losses=losses,
+                 peak_gb_without_remat=stats["NHWC"]["peak_gb"])
+        stats[policy] = s
+        log(f"{tag} {policy}: " + json.dumps(s))
+        del scope
+        free_card(torch)
+
+    # the "layout" rewrite over the NCHW program
+    main, _, loss = resnet_program(fluid, "NCHW")
+    report = main.optimize(fetch_list=[loss.name], passes=("layout",))
+    scope = scope_from(fluid, init)
+    losses = resnet_steps(exe, main, loss, scope, feed, 2)
+    nchw = stats["NCHW"]["first_losses"]
+    check(np.allclose(losses, nchw, rtol=RN_BF16_RTOL, atol=0),
+          f"{tag} layout pass: losses {losses} vs NCHW {nchw} beyond rtol "
+          f"{RN_BF16_RTOL}")
+    s = resnet_timed(torch, exe, main, loss, scope, feed,
+                     f"{tag} layout pass")
+    s.update(first_losses=losses, executed_layout=executed_layout(main),
+             declared_layout="NCHW", converted=report.n_converted,
+             layout_transposes=report.n_layout_transposes)
+    stats["layout_pass"] = s
+    log(f"{tag} layout pass: " + json.dumps(s))
+    del scope
+    free_card(torch)
+    log(f"{tag}: {card}; step ms / images/s / bf16 peak share / peak GB: "
+        + json.dumps({k: [float(np.median(v["step_ms"])),
+                          v["images_per_s"], v["bf16_peak_share"],
+                          v["peak_gb"]] for k, v in stats.items()}))
+    return by_kernel, (scopes["NHWC"], init), stats
+
+
+def rn_step_card_and_cpu(torch, fluid, fa, dtype):
+    """One Momentum step of ResNet-50 (NCHW, batch RN_PARITY_BATCH,
+    ``dtype``) on the card and on the CPU from one initial scope: (card
+    fetches, CPU fetches, card scope, CPU scope, names held after the
+    step, attention launches on the card, seconds each)."""
+    main, startup, loss = resnet_program(fluid, "NCHW", amp=False,
+                                         dtype=dtype)
+    fetch = [loss, RN_STEM + "@GRAD"]
+    card_exe = fluid.Executor()
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    s0 = fluid.Scope()
+    cpu_exe.run(startup, scope=s0)
+    init = {n: v.clone() for n, v in s0.vars.items()}
+    feed = {k: v.to(torch.float64 if v.is_floating_point()
+                    and dtype == "float64" else v.dtype)
+            for k, v in resnet_feed(torch, RN_PARITY_BATCH,
+                                    torch.device("cpu"),
+                                    seed=SEED + 1).items()}
+    card_scope = fluid.Scope()
+    for n, v in init.items():
+        card_scope.set(n, v.clone().to(card_exe.device))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = card_exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    card_s = time.perf_counter() - t0
+    by_kernel = launches_by_kernel(fa)
+    cpu_scope = scope_from(fluid, init)
+    t0 = time.perf_counter()
+    want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    held = [n for n in init if n.endswith(".w_0") or ".global_" in n]
+    return got, want, card_scope, cpu_scope, held, by_kernel, (card_s,
+                                                               cpu_s)
+
+
+def phase_resnet_parity(torch, fluid, fa, card):
+    """ResNet-50 at full width, batch RN_PARITY_BATCH at 224², TF32 off:
+    one Momentum step on the card and the same step on the port's CPU
+    path from one initial scope. In float32 the forward's quantities —
+    the loss and every batch-norm moving statistic after the step — hold
+    within RN_PARITY_TOL, and the gradients' card-vs-CPU distance is
+    reported: a random-init ResNet-50's backward is ill-conditioned in
+    float32 (on the CPU, the port's float32 stem gradient sits 2.9% of
+    its largest value from float64's at batch 16, a late conv's 19.5%;
+    at batch 2, 150%), so two correct float orders cannot meet that tier
+    there. The same step in float64 then holds the loss, the stem
+    filter's gradient, every updated filter and every moving statistic
+    within RN_PARITY_TOL. Returns (attention launches, stats)."""
+    tag = "resnet_parity"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = {"tf32": "off (cuda.matmul and cudnn)"}
+    launches = {}
+    for dtype in ("float32", "float64"):
+        got, want, cs, hs, held, by_kernel, secs = rn_step_card_and_cpu(
+            torch, fluid, fa, dtype)
+        launches = {k: launches.get(k, 0) + v for k, v in by_kernel.items()}
+        worst = {}
+        gated = ["loss"] + ([RN_STEM + "@GRAD"] if dtype == "float64"
+                            else [])
+        for name, g, w in zip(["loss", RN_STEM + "@GRAD"], got, want):
+            ok, err = allclose_err(torch.from_numpy(g),
+                                   torch.from_numpy(w), RN_PARITY_TOL)
+            check(ok or name not in gated,
+                  f"{tag} {dtype}: {name} card vs CPU max err {err} "
+                  f"beyond rtol/atol {RN_PARITY_TOL}")
+            worst[name] = [err, float(np.abs(w).max())]
+        for n in held:
+            ok, err = allclose_err(cs.find_var(n).cpu(), hs.find_var(n),
+                                   RN_PARITY_TOL)
+            gate = dtype == "float64" or ".global_" in n
+            check(ok or not gate,
+                  f"{tag} {dtype}: {n} after the step, card vs CPU max err "
+                  f"{err} beyond {RN_PARITY_TOL}")
+            worst[n] = [err, float(hs.find_var(n).abs().max())]
+        moving = max((worst[n][0], n) for n in worst if ".global_" in n)
+        filters = max((worst[n][0], n) for n in worst if n.endswith(".w_0"))
+        stats[dtype] = {
+            "loss": [float(got[0].reshape(())), float(want[0].reshape(()))],
+            "stem_grad_max_err_and_max": worst[RN_STEM + "@GRAD"],
+            "worst_moving_stat": moving, "worst_updated_filter": filters,
+            "held": len(held) + 1 + (dtype == "float64"),
+            "card_s": secs[0], "cpu_s": secs[1]}
+        del cs, hs
+        free_card(torch)
+    check(not any(launches.values()),
+          f"{tag}: attention launched: {launches}")
+    log(f"{tag}: {card}: " + json.dumps(stats))
+    return launches, stats
+
+
+def rn_requests(n, seed):
+    rng = np.random.RandomState(seed)
+    return [{"img": rng.rand(1, 3, RN_HW, RN_HW).astype(np.float32)}
+            for _ in range(n)]
+
+
+def phase_resnet50_serve(torch, fluid, fa, card, trained):
+    """``resnet50_train``'s trained NHWC scope served: the bf16 test
+    program (AMP O2) through ``InferenceTranspiler().transpile`` on a copy
+    of the scope, behind ``ServingEngine`` with no place, buckets
+    RN_SERVE_BUCKETS; RN_SERVE_REQUESTS single-image requests from
+    RN_SERVE_CLIENTS closed-loop clients. Checks, on the logits (the
+    softmax's input) of 8 images: no batch_norm op in the served
+    program; the folded bf16 program against the unfolded one within
+    the relative-RMS tier; the float32 fold (TF32 off) and the float64
+    fold (of a float64 copy of the scope) against their unfolded
+    programs within RN_FOLD_TOL, normwise; a ``QuantizeTranspiler``
+    float32 program within RN_QUANT_REL relative max error; no step
+    build after warmup. Prints requests/s and p50/p99. Returns
+    (attention launches, stats)."""
+    from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
+                                          ServingEngine)
+    from paddle_tpu_torch.transpiler import (InferenceTranspiler,
+                                             QuantizeTranspiler)
+    tag = "resnet50_serve"
+    trained_scope, _ = trained
+    state = {n: v for n, v in trained_scope.vars.items()}
+    exe = fluid.Executor()
+    test, pred = resnet_infer_program(fluid, "NHWC")
+    test32, _ = resnet_infer_program(fluid, "NHWC", amp=False)
+    # the fc's logits, the softmax's input: a trained model's
+    # probabilities can saturate, its logits carry the fold's error
+    logits = [op for op in test32.global_block().ops
+              if op.type == "softmax"][-1].input("X")[0]
+    reqs = rn_requests(RN_SERVE_REQUESTS, SEED + 3)
+    batch8 = {"img": np.concatenate([r["img"] for r in reqs[:8]])}
+    stats = {}
+
+    # float32, TF32 off: the fold and int8 against the unfolded program
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want32 = exe.run(test32, feed=batch8, fetch_list=[logits],
+                     scope=scope_from(fluid, state), mode="test")[0]
+    fscope = scope_from(fluid, state)
+    folded32 = InferenceTranspiler().transpile(test32, scope=fscope)
+    got32 = exe.run(folded32, feed=batch8, fetch_list=[logits],
+                    scope=fscope, mode="test")[0]
+    ok, err = normwise_close(got32, want32, RN_FOLD_TOL)
+    stats["f32_fold"] = {"max_err": err,
+                         "max_abs_logit": float(np.abs(want32).max())}
+    check(ok, f"{tag}: float32 fold vs unfolded max err {err} (logits up "
+              f"to {np.abs(want32).max()}), beyond rtol/atol "
+              f"{RN_FOLD_TOL}")
+    # the same fold in float64, on a float64 copy of the trained scope
+    test64, _ = resnet_infer_program(fluid, "NHWC", amp=False,
+                                     dtype="float64")
+    state64 = {n: v.double() for n, v in state.items()}
+    batch64 = {"img": batch8["img"].astype(np.float64)}
+    want64 = exe.run(test64, feed=batch64, fetch_list=[logits],
+                     scope=scope_from(fluid, state64), mode="test")[0]
+    fscope64 = scope_from(fluid, state64)
+    folded64 = InferenceTranspiler().transpile(test64, scope=fscope64)
+    got64 = exe.run(folded64, feed=batch64, fetch_list=[logits],
+                    scope=fscope64, mode="test")[0]
+    ok, err = normwise_close(got64, want64, RN_FOLD_TOL)
+    check(ok, f"{tag}: float64 fold vs unfolded max err {err}")
+    stats["f64_fold_max_err"] = err
+    del state64, fscope64
+    qscope = scope_from(fluid, state)
+    quant = QuantizeTranspiler().transpile(test32, scope=qscope)
+    gotq = exe.run(quant, feed=batch8, fetch_list=[logits], scope=qscope,
+                   mode="test")[0]
+    rel = float(np.abs(gotq - want32).max() / (np.abs(want32).max() + 1e-6))
+    check(rel < RN_QUANT_REL, f"{tag}: int8 relative max error {rel} >= "
+                              f"{RN_QUANT_REL}")
+    stats["int8_rel_max_err"] = rel
+    stats["quantized_ops"] = sum(op.type.startswith("quantized_")
+                                 for op in quant.global_block().ops)
+    del fscope, qscope
+    free_card(torch)
+
+    # bf16: the served program
+    torch.backends.cudnn.allow_tf32 = True
+    want16 = exe.run(test, feed=batch8, fetch_list=[logits],
+                     scope=scope_from(fluid, state), mode="test")[0]
+    sscope = scope_from(fluid, state)
+    folded = InferenceTranspiler().transpile(test, scope=sscope)
+    types = [op.type for op in folded.global_block().ops]
+    check("batch_norm" not in types,
+          f"{tag}: a batch_norm op is left in the served program")
+    stats["folded_ops"] = [len(test.global_block().ops), len(types)]
+    engine = ServingEngine(folded, ["img"], [pred], scope=sscope,
+                           buckets=BucketSpec(batch_sizes=RN_SERVE_BUCKETS),
+                           config=ServingConfig(max_wait_ms=5.0,
+                                                default_timeout_s=600.0))
+    try:
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.warmup()
+        stats["warmup_s"] = time.perf_counter() - t0
+        got16 = exe.run(folded, feed=batch8, fetch_list=[logits],
+                        scope=sscope, mode="test")[0]
+        err16 = rel_rms(got16, want16)
+        check(err16 <= TOL_LOGITS_BF16_RMS,
+              f"{tag}: bf16 folded answers vs unfolded relative RMS "
+              f"{err16} > {TOL_LOGITS_BF16_RMS}")
+        stats["bf16_fold_rel_rms"] = err16
+        lat = [[] for _ in range(RN_SERVE_CLIENTS)]
+        per = RN_SERVE_REQUESTS // RN_SERVE_CLIENTS
+
+        def client(i):
+            for r in reqs[i * per:(i + 1) * per]:
+                t = time.perf_counter()
+                ans = engine.infer(r, timeout=600.0)
+                lat[i].append(time.perf_counter() - t)
+                check(ans[0].shape == (1, RN_CLASSES)
+                      and np.isfinite(ans[0]).all(),
+                      f"{tag}: a bad answer {ans[0].shape}")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(RN_SERVE_CLIENTS) as pool:
+            for f in [pool.submit(client, i)
+                      for i in range(RN_SERVE_CLIENTS)]:
+                f.result()
+        wall = time.perf_counter() - t0
+        by_kernel = launches_by_kernel(fa)
+        all_lat = np.concatenate([np.asarray(x) for x in lat]) * 1e3
+        p50, p99 = np.percentile(all_lat, [50, 99])
+        engine.assert_no_recompiles()
+        st = engine.stats()
+        stats.update(requests=int(all_lat.size), wall_s=wall,
+                     requests_per_s=all_lat.size / wall,
+                     p50_ms=float(p50), p99_ms=float(p99),
+                     batch_latency=st.get("batch_latency"),
+                     batch_fill=st.get("batch_fill"))
+    finally:
+        engine.close()
+    check(not any(by_kernel.values()),
+          f"{tag}: attention launched: {by_kernel}")
+    log(f"{tag}: {card}: " + json.dumps(stats, default=str))
+    return by_kernel, stats
+
+
+def card_vs_cpu(torch, card_dev, rule, ins, attrs, grad, tag,
+                mode="test"):
+    """One op rule on ``card_dev`` and on the CPU, same inputs: outputs
+    and the gradients of ``grad`` slots (one random cotangent) within the
+    float32 kernel tier (TF32 off). Returns the worst error."""
+    from paddle_tpu_torch.core import lowering
+    worst = 0.0
+    res = []
+    for dev in (card_dev, torch.device("cpu")):
+        tins = {s: [torch.from_numpy(a).to(dev) for a in v]
+                for s, v in ins.items()}
+        leaves = [t.requires_grad_() for s in grad for t in tins[s]]
+        ctx = lowering.LoweringContext(None, mode, dev, SEED, 1)
+        with torch.enable_grad():
+            out = rule(ctx, tins, dict(attrs))
+            flat = [t for s in sorted(out) for t in out[s]
+                    if t.is_floating_point()]
+            gen = torch.Generator().manual_seed(SEED)
+            total = sum((t * torch.randn(t.shape, generator=gen).to(dev))
+                        .sum() for t in flat if t.requires_grad)
+            grads = torch.autograd.grad(total, leaves) if leaves else []
+        res.append([t.detach().cpu() for t in flat] + [g.cpu() for g in grads])
+    card, host = res
+    for i, (a, b) in enumerate(zip(card, host)):
+        ok, err = allclose_err(a, b, TOL_F32)
+        check(ok, f"conv_zoo {tag}: output/gradient {i} card vs CPU max "
+                  f"err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_conv_zoo(torch, fluid, fa, card):
+    """The rest of the conv family on the card, float32, TF32 off:
+    the zoo's ``mnist`` (conv), ``vgg``, ``resnet`` and ``se_resnext``
+    take ZOO_STEPS steps at batch ZOO_BATCH on the card and on the CPU
+    from one state (losses within RN_PARITY_TOL); single ops card against
+    CPU (outputs and gradients within the float32 kernel tier):
+    ``conv2d_transpose`` and ``conv3d_transpose`` with groups and
+    dilation, ``conv3d``, ``pool3d``, ``ceil_mode`` pooling with padding
+    in both layouts, ``lrn``, both interpolations up and down,
+    ``roi_pool`` with an empty bin, and the ``batch_norm``
+    autograd.Function against ``PADDLE_TPU_BN_AUTODIFF=1``. Returns
+    (attention launches, stats)."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.models import zoo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = {"models": {}, "ops": {}}
+    fa.reset_launch_counts()
+    for name in ZOO_CONV:
+        zp = zoo.build_zoo_program(name)
+        for op in zp.main.global_block().ops:
+            if op.type == "dropout":       # the packages draw apart
+                op.attrs["dropout_prob"] = 0.0
+        cpu = fluid.Executor(fluid.CPUPlace())
+        s0 = fluid.Scope()
+        cpu.run(zp.startup, scope=s0)
+        init = {n: v.clone() for n, v in s0.vars.items()}
+        losses = {}
+        for side, exe in (("card", fluid.Executor()), ("cpu", cpu)):
+            scope = fluid.Scope()
+            for n, v in init.items():
+                scope.set(n, v.clone())
+            losses[side] = [
+                np.asarray(exe.run(zp.main, feed=zoo.example_feed(
+                    name, ZOO_BATCH, step), fetch_list=zp.fetch_list[:1],
+                    scope=scope)[0], np.float64).ravel()
+                for step in range(ZOO_STEPS)]
+        got, want = np.stack(losses["card"]), np.stack(losses["cpu"])
+        ok, err = allclose_err(torch.from_numpy(got[0]),
+                               torch.from_numpy(want[0]), RN_PARITY_TOL)
+        later_ok, later = allclose_err(torch.from_numpy(got),
+                                       torch.from_numpy(want),
+                                       (ZOO_LATER_RTOL, 0.0))
+        check(ok and later_ok and np.isfinite(got).all(),
+              f"conv_zoo {name}: card {got[:, 0]} vs CPU {want[:, 0]} "
+              f"(first step max err {err}, all steps {later})")
+        stats["models"][name] = {"first_step_max_err": err,
+                                 "all_steps_max_err": later,
+                                 "card": got[:, 0].tolist()}
+    rng = np.random.RandomState(SEED)
+
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    def nhwc(x):
+        return np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+
+    # 8 wide: ceil_mode adds one column of right padding, and no window
+    # lies wholly in the padding (where the reference's avg divides 0 by
+    # 0 and its max gives -inf: ROADMAP §3, R2)
+    pool_x = (np.arange(2 * 4 * 8 * 8, dtype=np.float32)
+              [rng.permutation(512)].reshape(2, 4, 8, 8) / 100.0)
+    ops = {
+        "conv2d_transpose g2 d2": ("conv2d_transpose", {
+            "Input": [f(2, 4, 6, 6)], "Filter": [f(4, 3, 3, 3)]},
+            dict(strides=[2, 2], paddings=[1, 1], dilations=[2, 2],
+                 groups=2), ("Input", "Filter")),
+        "conv3d_transpose g2 d2": ("conv3d_transpose", {
+            "Input": [f(1, 4, 3, 4, 4)], "Filter": [f(4, 2, 3, 3, 3)]},
+            dict(strides=[1, 2, 2], paddings=[1, 1, 1], dilations=[2, 1, 1],
+                 groups=2), ("Input", "Filter")),
+        "conv3d g2": ("conv3d", {"Input": [f(2, 4, 5, 6, 6)],
+                                 "Filter": [f(6, 2, 2, 3, 3)]},
+                      dict(strides=[1, 2, 2], paddings=[1, 1, 1],
+                           dilations=[1, 1, 1], groups=2),
+                      ("Input", "Filter")),
+        "pool3d avg ceil": ("pool3d", {"X": [f(1, 3, 5, 8, 8)]},
+                            dict(ksize=[2, 3, 3], strides=[2, 2, 2],
+                                 paddings=[0, 1, 1], pooling_type="avg",
+                                 ceil_mode=True), ("X",)),
+        "pool2d max ceil pad": ("pool2d", {"X": [pool_x]},
+                                dict(ksize=[3, 3], strides=[2, 2],
+                                     paddings=[1, 1], pooling_type="max",
+                                     ceil_mode=True), ("X",)),
+        "pool2d avg ceil pad NHWC": ("pool2d", {"X": [nhwc(pool_x)]},
+                                     dict(ksize=[3, 3], strides=[2, 2],
+                                          paddings=[1, 1],
+                                          pooling_type="avg",
+                                          ceil_mode=True,
+                                          data_format="NHWC"), ("X",)),
+        "lrn": ("lrn", {"X": [f(2, 7, 5, 5)]},
+                dict(n=5, alpha=0.3, beta=0.75), ("X",)),
+        "bilinear up": ("bilinear_interp", {"X": [f(2, 3, 5, 7)]},
+                        dict(out_h=10, out_w=12), ("X",)),
+        "bilinear down": ("bilinear_interp", {"X": [f(2, 3, 12, 10)]},
+                          dict(out_h=5, out_w=3), ("X",)),
+        "nearest up": ("nearest_interp", {"X": [f(2, 3, 5, 7)]},
+                       dict(out_h=10, out_w=12), ("X",)),
+        "nearest down": ("nearest_interp", {"X": [f(2, 3, 12, 10)]},
+                         dict(out_h=5, out_w=3), ("X",)),
+        "roi_pool empty bin": ("roi_pool", {
+            "X": [f(2, 3, 8, 8)],
+            "ROIs": [np.asarray([[0, 0, 5, 4], [6, 6, 12, 14]],
+                                np.float32)],
+            "RoisBatchId": [np.asarray([1, 0], np.int64)]},
+            dict(pooled_height=2, pooled_width=3), ("X",)),
+        "batch_norm NHWC train": ("batch_norm", {
+            "X": [nhwc(f(8, 6, 7, 7) * 2 + 1)],
+            "Scale": [np.abs(f(6)) + 0.5], "Bias": [f(6)],
+            "Mean": [f(6) * 0.1], "Variance": [np.abs(f(6)) + 0.5]},
+            dict(data_layout="NHWC", momentum=0.9),
+            ("X", "Scale", "Bias")),
+    }
+    dev = fluid.Executor().device            # the card
+    for label, (op, ins, attrs, grad) in ops.items():
+        mode = "train" if op == "batch_norm" else "test"
+        stats["ops"][label] = card_vs_cpu(
+            torch, dev, registry.get_op(op).lower, ins, attrs, grad, label,
+            mode)
+    # the hand-derived batch_norm backward against autograd on the card
+    bn = ops["batch_norm NHWC train"]
+    prev = os.environ.get("PADDLE_TPU_BN_AUTODIFF")
+    outs = []
+    for flag in ("0", "1"):
+        os.environ["PADDLE_TPU_BN_AUTODIFF"] = flag
+        from paddle_tpu_torch.core import lowering
+        ctx = lowering.LoweringContext(None, "train", dev, SEED, 1)
+        tins = {s: [torch.from_numpy(a).to(dev) for a in v]
+                for s, v in bn[1].items()}
+        leaves = [tins[s][0].requires_grad_() for s in bn[3]]
+        with torch.enable_grad():
+            y = registry.get_op("batch_norm").lower(ctx, tins, bn[2])["Y"][0]
+            gen = torch.Generator().manual_seed(SEED + 1)
+            dy = torch.randn(y.shape, generator=gen).to(dev)
+            outs.append([g.cpu() for g in torch.autograd.grad(
+                (y * dy).sum(), leaves)])
+    if prev is None:
+        os.environ.pop("PADDLE_TPU_BN_AUTODIFF", None)
+    else:
+        os.environ["PADDLE_TPU_BN_AUTODIFF"] = prev
+    for name, a, b in zip(bn[3], *outs):
+        ok, err = allclose_err(a, b, TOL_F32)
+        check(ok, f"conv_zoo: batch_norm hand backward d{name} vs autograd "
+                  f"on the card, max err {err}")
+        stats["ops"][f"batch_norm hand vs autodiff d{name}"] = err
+    by_kernel = launches_by_kernel(fa)
+    check(not any(by_kernel.values()),
+          f"conv_zoo: attention launched: {by_kernel}")
+    log(f"conv_zoo: {card}, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -4309,6 +5165,22 @@ def main():
         # engine serving the 8B width
         dec_launches, _ = phase_decode_engine(torch, fluid, fa, smi)
         free_card(torch)
+        # ROADMAP item 5, the main path of this slice: the reference's
+        # primary benchmark, ResNet-50 at 224² and batch 128, trained in
+        # both layouts (with the fused updates, the conv-net remat
+        # policies and the layout pass), held to the CPU in float32,
+        # served after the conv + batch_norm fold; then the rest of the
+        # conv family
+        rn_launches, rn_trained, _ = phase_resnet50_train(torch, fluid, fa,
+                                                          smi)
+        rn_serve_launches, _ = phase_resnet50_serve(torch, fluid, fa, smi,
+                                                    rn_trained)
+        del rn_trained
+        free_card(torch)
+        rn_parity_launches, _ = phase_resnet_parity(torch, fluid, fa, smi)
+        free_card(torch)
+        zoo_launches, _ = phase_conv_zoo(torch, fluid, fa, smi)
+        free_card(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4340,7 +5212,11 @@ def main():
              "head_dim_256_bf16_train": hd_launches["bf16"],
              "head_dim_256_serve": hd_launches["serve"],
              "head_dim_256_f32_train": hd_launches["f32"],
-             "decode_engine_checks": dec_launches}
+             "decode_engine_checks": dec_launches,
+             "resnet50_train": rn_launches,
+             "resnet50_serve": rn_serve_launches,
+             "resnet_parity": rn_parity_launches,
+             "conv_zoo": zoo_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),

@@ -29,6 +29,7 @@ from .ops import transformer_ops as _ops_tf   # noqa: F401
 from .ops import optimizer_ops as _ops_opt    # noqa: F401
 from .ops import fused_loss as _ops_loss      # noqa: F401
 from .ops import sequence as _ops_seq         # noqa: F401
+from .ops import extras as _ops_extras        # noqa: F401
 
 from .core.framework import (                  # noqa: F401
     Program, Block, Variable, Parameter, Operator,
@@ -52,7 +53,8 @@ from . import weights                          # noqa: F401
 from . import debugger                         # noqa: F401
 from . import analysis                         # noqa: F401
 from . import transpiler                       # noqa: F401
-from .transpiler import memory_optimize, release_memory  # noqa: F401
+from .transpiler import (memory_optimize, release_memory,  # noqa: F401
+                         InferenceTranspiler)
 from .data_feeder import DataFeeder            # noqa: F401
 from . import io                               # noqa: F401
 from . import reader                           # noqa: F401
@@ -61,7 +63,8 @@ from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa: F401
                       BeginStepEvent, EndStepEvent, CheckpointConfig)
 from .inferencer import Inferencer             # noqa: F401
 from . import models                           # noqa: F401
-from .waiting import CONV, FLEET, MESH, REST, module_getattr
+from . import nets                             # noqa: F401
+from .waiting import FLEET, MESH, REST, module_getattr
 
 __version__ = "0.1.0"
 
@@ -69,10 +72,10 @@ __version__ = "0.1.0"
 WAITING = {**dict.fromkeys(("ParallelExecutor", "ExecutionStrategy",
                             "BuildStrategy", "DistributeTranspiler",
                             "parallel"), MESH),
-           "InferenceTranspiler": CONV, "cluster": FLEET,
+           "cluster": FLEET,
            **dict.fromkeys((
                "SequenceBatch", "to_sequence_batch", "lod_tensor",
-               "create_lod_tensor", "create_random_int_lodtensor", "nets",
+               "create_lod_tensor", "create_random_int_lodtensor",
                "concurrency", "make_channel", "channel_send",
                "channel_recv", "channel_close", "Select", "evaluator",
                "metrics", "average", "profiler", "contrib", "dataset",

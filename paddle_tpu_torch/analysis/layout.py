@@ -1,12 +1,6 @@
 """Cost-model-driven layout analysis: whole-program NCHW→NHWC
-conversion (port of ``paddle_tpu/analysis/layout.py``, pure IR code).
-
-The port registers no conv, pool, ``batch_norm`` or ``lrn`` op yet
-(ROADMAP.md item 'Conv nets and the transpilers'), so on every program
-it can run no region has a layout-sensitive op and the opt-in
-``"layout"`` pass converts nothing; ``LayoutConsistencyPass`` and
-``TpuHostileLayoutPass`` read the analysis all the same. What follows
-is the reference's account of the analysis.
+conversion (port of ``paddle_tpu/analysis/layout.py``, pure IR code;
+the reference's account of the analysis follows).
 
 Fluid's conv/pool/BN kernels are NCHW and the layers default to it for
 API parity — but NCHW is the TPU-hostile layout: the lane (128-wide)

@@ -97,7 +97,8 @@ _FOLD_EXCLUDED = frozenset(["load"])
 # OpDef has no such flag, so the reference's list of the ops the port
 # registers stands here. tests/test_torch_optimize.py holds it equal to
 # that list, so porting another seq-aware op means adding it here
-_FOLD_SEQ_AWARE = frozenset(["mul", "lookup_table", "sequence_mask"])
+_FOLD_SEQ_AWARE = frozenset(["mul", "lookup_table", "sequence_mask",
+                             "quantized_mul"])
 
 # default per-value cap for materialized folded constants (bytes)
 _FOLD_BUDGET_DEFAULT = 256 * 1024

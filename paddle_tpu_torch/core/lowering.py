@@ -22,12 +22,14 @@ Three program-level switches shape the step, as in the reference:
 - Rematerialisation (``program._remat_policy``,
   ``transpiler/memory_optimization.py``): the forward segment runs under
   ``torch.utils.checkpoint`` (non-reentrant), with a selective policy
-  where the jax policy saves some values (:data:`REMAT_POLICIES`).
+  where the jax policy saves some values (:data:`REMAT_POLICIES`), or
+  the values the conv-net ops tag by name (:data:`NAMED_POLICIES`).
 - The NaN guard (``program._nan_guard``, ``debugger.py``): one
   ``isfinite(v).all()`` flag per float op output, labelled
   ``"{op.type} -> {name}"``, stacked into one tensor that the executor
   reads back once per run.
 """
+import contextlib
 import functools
 
 import torch
@@ -38,7 +40,8 @@ from .amp_policy import (AMP_BF16_FLOW_OPS, AMP_MATMUL_OPS,
 from .registry import get_op
 
 __all__ = ["LoweringContext", "Env", "lower_program", "written_names",
-           "read_names", "RANGE_OPTIMIZER", "REMAT_POLICIES", "remat_saves",
+           "read_names", "RANGE_OPTIMIZER", "REMAT_POLICIES",
+           "NAMED_POLICIES", "NamedSaves", "remat_saves", "remat_tag",
            "GUARD"]
 
 # the torch.profiler range around a train step's optimizer ops
@@ -61,15 +64,27 @@ REMAT_POLICIES = {
     "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
     "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
 }
-_CONV_NETS = "ROADMAP.md item 'Conv nets and the transpilers'"
+
+
+class NamedSaves:
+    """The torch form of a conv-net remat policy, which the reference
+    writes over values its ops tag by name (``checkpoint_name``): with
+    ``save`` True only the ops run under tag ``name`` are saved
+    (``save_only_these_names``), with ``save`` False every op but those
+    (``save_anything_except_these_names``)."""
+
+    def __init__(self, name, save):
+        self.name, self.save = name, save
+
+
+# the reference's own policies (paddle_tpu/core/lowering.py): conv nets
+# save only the conv outputs, or all but the batch_norm outputs
+NAMED_POLICIES = {
+    "save_conv_only": NamedSaves("conv_out", True),
+    "recompute_norms": NamedSaves("batch_norm_out", False),
+}
 # the reference's other policy names, refused by name
 _REFUSED_POLICIES = {
-    "recompute_norms": "it saves all but the batch_norm_out values that "
-                       "the conv-net ops tag, a later slice of the torch "
-                       f"port ({_CONV_NETS})",
-    "save_conv_only": "it saves only the conv_out values that the conv-net "
-                      "ops tag, a later slice of the torch port "
-                      f"({_CONV_NETS})",
     "offload_dot_with_no_batch_dims": "host offload of saved values is not "
                                       "ported",
     "save_and_offload_only_these_names": "host offload of saved values is "
@@ -78,29 +93,53 @@ _REFUSED_POLICIES = {
 for _n in ("save_anything_except_these_names", "save_any_names_but_these",
            "save_only_these_names", "save_from_both_policies"):
     _REFUSED_POLICIES[_n] = (
-        "it is a jax policy factory that takes value names, and the "
-        f"only named values are the conv-net tags ({_CONV_NETS})")
+        "it is a jax policy factory that takes value names; the named "
+        "policies are 'recompute_norms' and 'save_conv_only'")
+
+@contextlib.contextmanager
+def remat_tag(ctx, name):
+    """Runs its block with the aten ops it dispatches tagged ``name``
+    (pushed on ``ctx.remat_tags``) for the selective checkpoint of a
+    :data:`NAMED_POLICIES` policy over that name (the reference's
+    ``checkpoint_name``). Tagged only when the program's policy reads
+    ``name``: every other program runs exactly as it would without the
+    tag."""
+    named = NAMED_POLICIES.get(getattr(ctx.program, "_remat_policy", None))
+    if named is None or named.name != name:
+        yield
+        return
+    ctx.remat_tags.append(name)
+    try:
+        yield
+    finally:
+        ctx.remat_tags.pop()
 
 
 def remat_saves(policy):
-    """The aten products the torch form of remat ``policy`` saves (see
-    :data:`REMAT_POLICIES`). Raises NotImplementedError naming a policy
-    the reference accepts that the port has no counterpart for, and
-    ValueError for a name neither knows."""
+    """The torch form of remat ``policy``: the aten products it saves
+    (see :data:`REMAT_POLICIES`), or a :class:`NamedSaves`. Raises
+    NotImplementedError naming a policy the reference accepts that the
+    port has no counterpart for, and ValueError for a name neither
+    knows."""
     if policy in REMAT_POLICIES:
         return REMAT_POLICIES[policy]
+    if policy in NAMED_POLICIES:
+        return NAMED_POLICIES[policy]
     if policy in _REFUSED_POLICIES:
         raise NotImplementedError(
             f"remat policy {policy!r}: {_REFUSED_POLICIES[policy]}")
-    valid = ["auto"] + sorted(REMAT_POLICIES) + sorted(_REFUSED_POLICIES)
+    valid = (["auto"] + sorted(REMAT_POLICIES) + sorted(NAMED_POLICIES)
+             + sorted(_REFUSED_POLICIES))
     raise ValueError(f"unknown remat policy {policy!r}; one of {valid}")
 
 
-def checkpointed(fn, saves):
+def checkpointed(fn, saves, tags=()):
     """``fn`` under non-reentrant ``torch.utils.checkpoint``: a plain
     checkpoint for ``saves == ()``, selective checkpointing that saves
     the outputs of the aten ops named in ``saves`` (and recomputes the
-    rest) otherwise, ``fn`` itself for ``saves is None``.
+    rest), or for a :class:`NamedSaves` the ops dispatched while its tag
+    is on ``tags`` (the running context's ``remat_tags``; or all but
+    those), ``fn`` itself for ``saves is None``.
 
     The hand kernels launch through ctypes, which the dispatcher cannot
     see; only the ``torch.empty`` of their outputs is an aten op, and no
@@ -111,11 +150,17 @@ def checkpointed(fn, saves):
     from torch.utils import checkpoint as ckpt
     if not saves:
         return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
-    keep = {getattr(torch.ops.aten, n).default for n in saves}
+    save, recompute = (ckpt.CheckpointPolicy.MUST_SAVE,
+                       ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    if isinstance(saves, NamedSaves):
+        def policy(ctx, op, *args, **kwargs):
+            return save if (saves.name in tags) == saves.save \
+                else recompute
+    else:
+        keep = {getattr(torch.ops.aten, n).default for n in saves}
 
-    def policy(ctx, op, *args, **kwargs):
-        return (ckpt.CheckpointPolicy.MUST_SAVE if op in keep
-                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+        def policy(ctx, op, *args, **kwargs):
+            return save if op in keep else recompute
 
     return functools.partial(
         ckpt.checkpoint, fn, use_reentrant=False,
@@ -196,6 +241,9 @@ class LoweringContext:
         # name -> state tensor an optimizer op may update in place (a
         # step that donates its state, during its optimizer segment)
         self.donated = {}
+        # the value names the running op rule tags its aten ops with
+        # (remat_tag), read by a named remat policy
+        self.remat_tags = []
 
     @property
     def is_test(self):
@@ -454,7 +502,7 @@ def lower_program(program, fetch_names, mode):
 
         leaves = {p: env[p].detach().requires_grad_() for p in param_names}
         with torch.enable_grad():
-            loss, kept = checkpointed(forward, saves)(
+            loss, kept = checkpointed(forward, saves, ctx.remat_tags)(
                 *(leaves[p] for p in param_names))
             key_after = ctx._key_count
             if loss.requires_grad:

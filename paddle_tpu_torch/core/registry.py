@@ -38,11 +38,6 @@ _NUMERICS = {}
 # The reference's op types the port does not register yet, by the
 # ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
 _ITEMS = {
-    "Conv nets and the transpilers": (
-        "conv2d", "depthwise_conv2d", "conv2d_transpose", "conv3d",
-        "conv3d_transpose", "pool2d", "pool3d", "batch_norm", "lrn",
-        "bilinear_interp", "nearest_interp", "roi_pool", "random_crop",
-        "flatten_concat", "fused_param_split"),
     "Multi-device parallelism": (
         "llama_stack_1f1b_loss", "moe_ffn"),
     "Remaining op families and the zoo": (
@@ -70,8 +65,7 @@ _ITEMS = {
         "minus", "modified_huber_loss", "pad_constant_like", "conv_shift",
         "max_pool2d_with_index", "unpool", "spp", "positive_negative_pair",
         "precision_recall", "fake_quantize_abs_max",
-        "fake_dequantize_max_abs", "weight_norm", "weight_norm_g_init",
-        "quantized_mul", "quantized_conv2d"),
+        "fake_dequantize_max_abs", "weight_norm", "weight_norm_g_init"),
 }
 #: op type -> the ROADMAP.md item that ports it
 WAITING = {op: item for item, ops in _ITEMS.items() for op in ops}

@@ -4,11 +4,11 @@ The layers over the ops the port registers, copied from the reference
 with only the sharding annotation type changed: ``fc``, ``embedding``,
 the norms, ``dropout``, the losses, the reductions, the shape and
 gather/scatter layers, ``autoincreased_step_counter`` (the LR
-schedulers' counter) and the activation layers. The conv, pool,
-``batch_norm``, ``lrn``, image-resize, ``roi_pool`` and ``random_crop``
-layers arrive with ROADMAP.md item 'Conv nets and the transpilers';
-``hsigmoid``, ``nce``, ``im2sequence``, ``row_conv`` and the CRF, CTC
-and beam-search layers with item 'Remaining op families and the zoo'.
+schedulers' counter), the activation layers, and the conv-net layers
+(the convolutions, pools, ``batch_norm``, ``lrn``, image resize,
+``roi_pool`` and ``random_crop``). ``hsigmoid``, ``nce``,
+``im2sequence``, ``row_conv`` and the CRF, CTC and beam-search layers
+arrive with ROADMAP.md item 'Remaining op families and the zoo'.
 Each layer builds Program ops; shapes are inferred in Python (batch
 dims stay -1) so parameters can be sized.
 """
@@ -17,7 +17,7 @@ import numpy as np
 from ..core import framework
 from ..layer_helper import LayerHelper
 from ..sharding import PartitionSpec as P
-from ..waiting import CONV, REST, module_getattr
+from ..waiting import REST, module_getattr
 from .. import initializer as init_mod
 
 __all__ = [
@@ -29,17 +29,16 @@ __all__ = [
     "label_smooth", "dice_loss", "gather", "scatter", "mean_iou", "relu",
     "log", "crop", "rank_loss", "prelu", "flatten", "stack", "unstack",
     "expand", "autoincreased_step_counter", "cos_sim", "multiplex",
-    "maxout", "brelu", "hard_sigmoid",
+    "maxout", "brelu", "hard_sigmoid", "conv2d", "conv3d",
+    "conv2d_transpose", "conv3d_transpose", "pool2d", "pool3d",
+    "batch_norm", "lrn", "roi_pool", "image_resize", "resize_bilinear",
+    "image_resize_short", "random_crop",
 ]
 
-WAITING = {**dict.fromkeys((
-    "conv2d", "conv3d", "conv2d_transpose", "conv3d_transpose", "pool2d",
-    "pool3d", "batch_norm", "lrn", "roi_pool", "image_resize",
-    "image_resize_short", "resize_bilinear", "random_crop"), CONV),
-    **dict.fromkeys((
-        "hsigmoid", "nce", "im2sequence", "row_conv", "linear_chain_crf",
-        "crf_decoding", "warpctc", "ctc_greedy_decoder", "beam_search",
-        "beam_search_decode", "beam_expand", "beam_gather"), REST)}
+WAITING = dict.fromkeys((
+    "hsigmoid", "nce", "im2sequence", "row_conv", "linear_chain_crf",
+    "crf_decoding", "warpctc", "ctc_greedy_decoder", "beam_search",
+    "beam_search_decode", "beam_expand", "beam_gather"), REST)
 __getattr__ = module_getattr(__name__, WAITING)
 
 
@@ -688,4 +687,382 @@ def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
     helper.append_op(type="hard_sigmoid", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]},
                      attrs={"slope": slope, "offset": offset})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# conv nets (ROADMAP item 5)
+# ---------------------------------------------------------------------------
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None, data_format="NCHW"):
+    """2D convolution (reference conv_op.cc). ``use_cudnn`` accepted
+    and ignored: the op runs cuDNN on the card either way.
+    ``data_format``: "NCHW" (fluid default) or "NHWC" — channels-last;
+    the filter stays [cout, cin/g, kh, kw] in both so checkpoints are
+    layout-portable."""
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"data_format must be NCHW or NHWC, "
+                         f"got {data_format!r}")
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    c_axis = 1 if data_format == "NCHW" else 3
+    sp0 = 2 if data_format == "NCHW" else 1
+    num_channels = int(input.shape[c_axis])
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    stride = [stride, stride] if isinstance(stride, int) else list(stride)
+    padding = [padding, padding] if isinstance(padding, int) else list(padding)
+    dilation = [dilation, dilation] if isinstance(dilation, int) else list(dilation)
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    std = (2.0 / fan_in) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, filter_shape, dtype,
+        default_initializer=init_mod.Normal(0.0, std))
+
+    h = _conv_out(input.shape[sp0], filter_size[0], stride[0], padding[0],
+                  dilation[0])
+    wd = _conv_out(input.shape[sp0 + 1], filter_size[1], stride[1],
+                   padding[1], dilation[1])
+    if data_format == "NCHW":
+        out_shape = [input.shape[0], num_filters, h, wd]
+    else:
+        out_shape = [input.shape[0], h, wd, num_filters]
+    out = helper.create_variable_for_type_inference(dtype, shape=out_shape)
+    helper.append_op(type="conv2d",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "data_format": data_format})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters], dtype,
+                                    is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(dtype,
+                                                            shape=out.shape)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out.name], "Y": [b.name]},
+                         outputs={"Out": [pre_act.name]},
+                         attrs={"axis": c_axis})
+        out = pre_act
+    return helper.append_activation(out)
+
+
+def _conv_out(size, k, s, p, d=1):
+    if size == -1 or size is None:
+        return -1
+    k_eff = d * (k - 1) + 1
+    return (size + 2 * p - k_eff) // s + 1
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None):
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    nc = int(input.shape[1])
+    fs = [filter_size] * 3 if isinstance(filter_size, int) else list(filter_size)
+    stride = [stride] * 3 if isinstance(stride, int) else list(stride)
+    padding = [padding] * 3 if isinstance(padding, int) else list(padding)
+    dilation = [dilation] * 3 if isinstance(dilation, int) else list(dilation)
+    w = helper.create_parameter(helper.param_attr,
+                                [num_filters, nc // groups] + fs, dtype)
+    dims = [_conv_out(input.shape[2 + i], fs[i], stride[i], padding[i],
+                      dilation[i]) for i in range(3)]
+    out = helper.create_variable_for_type_inference(
+        dtype, shape=[input.shape[0], num_filters] + dims)
+    helper.append_op(type="conv3d",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters], dtype,
+                                    is_bias=True)
+        pre = helper.create_variable_for_type_inference(dtype, shape=out.shape)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out.name], "Y": [b.name]},
+                         outputs={"Out": [pre.name]}, attrs={"axis": 1})
+        out = pre
+    return helper.append_activation(out)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    nc = int(input.shape[1])
+    stride = [stride, stride] if isinstance(stride, int) else list(stride)
+    padding = [padding, padding] if isinstance(padding, int) else list(padding)
+    dilation = [dilation, dilation] if isinstance(dilation, int) else list(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = [output_size] * 2 if isinstance(output_size, int) \
+            else list(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in range(2)]
+    else:
+        filter_size = [filter_size] * 2 if isinstance(filter_size, int) \
+            else list(filter_size)
+    g = groups or 1
+    w = helper.create_parameter(helper.param_attr,
+                                [nc, num_filters // g] + filter_size, dtype)
+    dims = [(input.shape[2 + i] - 1) * stride[i] - 2 * padding[i]
+            + dilation[i] * (filter_size[i] - 1) + 1
+            if input.shape[2 + i] != -1 else -1 for i in range(2)]
+    out = helper.create_variable_for_type_inference(
+        dtype, shape=[input.shape[0], num_filters] + dims)
+    helper.append_op(type="conv2d_transpose",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": g})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters], dtype,
+                                    is_bias=True)
+        pre = helper.create_variable_for_type_inference(dtype, shape=out.shape)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out.name], "Y": [b.name]},
+                         outputs={"Out": [pre.name]}, attrs={"axis": 1})
+        out = pre
+    return helper.append_activation(out)
+
+
+def conv3d_transpose(input, num_filters, output_size=None,
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups=None, param_attr=None, bias_attr=None,
+                     use_cudnn=True, act=None, name=None):
+    """3D transposed convolution, NCDHW (reference conv3d_transpose)."""
+    helper = LayerHelper("conv3d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    nc = int(input.shape[1])
+    stride = [stride] * 3 if isinstance(stride, int) else list(stride)
+    padding = [padding] * 3 if isinstance(padding, int) else list(padding)
+    dilation = [dilation] * 3 if isinstance(dilation, int) \
+        else list(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = [output_size] * 3 if isinstance(output_size, int) \
+            else list(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in range(3)]
+    else:
+        filter_size = [filter_size] * 3 \
+            if isinstance(filter_size, int) else list(filter_size)
+    g = groups or 1
+    w = helper.create_parameter(helper.param_attr,
+                                [nc, num_filters // g] + filter_size,
+                                dtype)
+    dims = [(input.shape[2 + i] - 1) * stride[i] - 2 * padding[i]
+            + dilation[i] * (filter_size[i] - 1) + 1
+            if input.shape[2 + i] != -1 else -1 for i in range(3)]
+    out = helper.create_variable_for_type_inference(
+        dtype, shape=[input.shape[0], num_filters] + dims)
+    helper.append_op(type="conv3d_transpose",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": g})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters],
+                                    dtype, is_bias=True)
+        pre = helper.create_variable_for_type_inference(dtype,
+                                                        shape=out.shape)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out.name], "Y": [b.name]},
+                         outputs={"Out": [pre.name]}, attrs={"axis": 1})
+        out = pre
+    return helper.append_activation(out)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None,
+           data_format="NCHW"):
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"data_format must be NCHW or NHWC, "
+                         f"got {data_format!r}")
+    helper = LayerHelper("pool2d", name=name)
+    ps = [pool_size] * 2 if isinstance(pool_size, int) else list(pool_size)
+    st = [pool_stride] * 2 if isinstance(pool_stride, int) else list(pool_stride)
+    pd = [pool_padding] * 2 if isinstance(pool_padding, int) else list(pool_padding)
+    sp0 = 2 if data_format == "NCHW" else 1
+    if global_pooling:
+        h = w = 1
+    else:
+        h = _pool_out(input.shape[sp0], ps[0], st[0], pd[0], ceil_mode)
+        w = _pool_out(input.shape[sp0 + 1], ps[1], st[1], pd[1], ceil_mode)
+    if data_format == "NCHW":
+        out_shape = [input.shape[0], input.shape[1], h, w]
+    else:
+        out_shape = [input.shape[0], h, w, input.shape[3]]
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=out_shape)
+    helper.append_op(type="pool2d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"ksize": ps, "strides": st, "paddings": pd,
+                            "pooling_type": pool_type,
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode,
+                            "data_format": data_format})
+    return out
+
+
+def _pool_out(size, k, s, p, ceil_mode):
+    if size == -1 or size is None:
+        return -1
+    if ceil_mode:
+        return int(np.ceil((size + 2 * p - k) / s)) + 1
+    return (size + 2 * p - k) // s + 1
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    ps = [pool_size] * 3 if isinstance(pool_size, int) else list(pool_size)
+    st = [pool_stride] * 3 if isinstance(pool_stride, int) else list(pool_stride)
+    pd = [pool_padding] * 3 if isinstance(pool_padding, int) else list(pool_padding)
+    if global_pooling:
+        dims = [1, 1, 1]
+    else:
+        dims = [_pool_out(input.shape[2 + i], ps[i], st[i], pd[i], ceil_mode)
+                for i in range(3)]
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=[input.shape[0], input.shape[1]] + dims)
+    helper.append_op(type="pool3d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"ksize": ps, "strides": st, "paddings": pd,
+                            "pooling_type": pool_type,
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False,
+               use_global_stats=False, use_mkldnn=False,
+               fuse_with_relu=False):
+    """Batch normalization (reference batch_norm_op.cc). Moving stats are
+    persistable vars updated functionally each step."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    c = int(input.shape[1] if data_layout == "NCHW" else input.shape[-1])
+    scale = helper.create_parameter(helper.param_attr, [c], dtype,
+                                    default_initializer=init_mod.Constant(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [c], dtype, is_bias=True)
+    mean = helper.create_global_variable(
+        shape=[c], dtype=dtype, name=moving_mean_name, persistable=True)
+    helper.set_variable_initializer(mean, init_mod.Constant(0.0))
+    var = helper.create_global_variable(
+        shape=[c], dtype=dtype, name=moving_variance_name, persistable=True)
+    helper.set_variable_initializer(var, init_mod.Constant(1.0))
+
+    saved_mean = helper.create_variable_for_type_inference(dtype, shape=[c],
+                                                           stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(dtype, shape=[c],
+                                                          stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype, shape=input.shape)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name],
+                "Bias": [bias.name], "Mean": [mean.name],
+                "Variance": [var.name]},
+        outputs={"Y": [out.name], "MeanOut": [mean.name],
+                 "VarianceOut": [var.name], "SavedMean": [saved_mean.name],
+                 "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    mid = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape,
+                                                    stop_gradient=True)
+    helper.append_op(type="lrn", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "MidOut": [mid.name]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1, spatial_scale=1.0,
+             rois_batch_id=None):
+    """rois: [R, 4] (+ rois_batch_id) like the reference, or batched
+    [B, S, 4] — the generate_proposal_labels output — in which case
+    batch ids are derived and the output is [B*S, C, ph, pw]."""
+    helper = LayerHelper("roi_pool")
+    n_rois = rois.shape[0] if len(rois.shape) == 2 else \
+        rois.shape[0] * rois.shape[1]
+    shape = [n_rois, input.shape[1], pooled_height, pooled_width]
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    argmax = helper.create_variable_for_type_inference("int64", shape=shape,
+                                                       stop_gradient=True)
+    inputs = {"X": [input.name], "ROIs": [rois.name]}
+    if rois_batch_id is not None:
+        inputs["RoisBatchId"] = [rois_batch_id.name]
+    helper.append_op(type="roi_pool", inputs=inputs,
+                     outputs={"Out": [out.name], "Argmax": [argmax.name]},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None):
+    helper = LayerHelper("image_resize", name=name)
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    op = {"BILINEAR": "bilinear_interp", "NEAREST": "nearest_interp"}[resample]
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=[input.shape[0], input.shape[1]] + list(out_shape))
+    helper.append_op(type=op, inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"out_h": out_shape[0], "out_w": out_shape[1]})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None):
+    return image_resize(input, out_shape, scale, name, "BILINEAR")
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    h, w = int(input.shape[2]), int(input.shape[3])
+    short = min(h, w)
+    oh = int(h * out_short_len / short)
+    ow = int(w * out_short_len / short)
+    return image_resize(input, [oh, ow], resample=resample)
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop")
+    out_shape = list(x.shape[:len(x.shape) - len(shape)]) + list(shape)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=out_shape)
+    helper.append_op(type="random_crop", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"shape": list(shape)})
     return out

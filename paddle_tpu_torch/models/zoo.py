@@ -1,6 +1,7 @@
 """Model-zoo program builders (port of ``paddle_tpu/models/zoo.py``):
 the entries whose ops the port has, each building a complete (main,
 startup) Program pair at a tiny configuration with an example feed —
+the conv nets ``mnist``, ``vgg``, ``resnet`` and ``se_resnext``, then
 ``mnist_mlp``, ``fit_a_line``, ``transformer`` and ``llama``. Every
 other zoo name of the reference raises NotImplementedError naming the
 ROADMAP.md item that ports what it needs.
@@ -14,14 +15,13 @@ __all__ = ["ZOO", "zoo_model_names", "build_zoo_program", "ZooProgram",
 ZOO = {}
 FEEDS = {}
 
-_CONV = "Conv nets and the transpilers"
 _SEQ = "Remaining op families and the zoo"
 #: the reference's other zoo names -> the ROADMAP.md item they wait for
-WAITING = {"mnist": _CONV, "vgg": _CONV, "resnet": _CONV,
-           "se_resnext": _CONV, "ocr_recognition": _CONV,
-           "word2vec": _SEQ, "recommender": _SEQ, "ctr": _SEQ,
-           "stacked_dynamic_lstm": _SEQ, "machine_translation": _SEQ,
-           "label_semantic_roles": _SEQ, "faster_rcnn": _SEQ}
+#: (``ocr_recognition`` needs warpctc, the RNN ops and LoD feeds)
+WAITING = dict.fromkeys((
+    "ocr_recognition", "word2vec", "recommender", "ctr",
+    "stacked_dynamic_lstm", "machine_translation", "label_semantic_roles",
+    "faster_rcnn"), _SEQ)
 
 
 class ZooProgram:
@@ -91,6 +91,46 @@ def build_zoo_program(name):
     return ZooProgram(main, startup, fetch_list, feed_names)
 
 
+@_zoo("mnist")
+def _build_mnist():
+    from .mnist import cnn_model
+    img = layers.data(name="img", shape=[1, 28, 28], dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    loss, acc, _ = cnn_model(img, label)
+    optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return [loss, acc], ["img", "label"]
+
+
+@_zoo("vgg")
+def _build_vgg():
+    from .vgg import vgg16
+    img = layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    loss, acc, _ = vgg16(img, label, class_num=10, fc_size=64)
+    optimizer.SGD(learning_rate=1e-2).minimize(loss)
+    return [loss, acc], ["img", "label"]
+
+
+@_zoo("resnet")
+def _build_resnet():
+    from .resnet import resnet_cifar10
+    img = layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    pred = resnet_cifar10(img, class_num=4, depth=8)
+    loss = layers.mean(layers.cross_entropy(input=pred, label=label))
+    optimizer.SGD(learning_rate=1e-2).minimize(loss)
+    return [loss], ["img", "label"]
+
+
+@_zoo("se_resnext")
+def _build_se_resnext():
+    from .se_resnext import build_se_resnext
+    img = layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+    probs = build_se_resnext(img, class_dim=10, depth=50, cardinality=8,
+                             reduction_ratio=4)
+    return [probs], ["img"]
+
+
 @_zoo("mnist_mlp")
 def _build_mnist_mlp():
     from .mnist import mlp_model
@@ -135,6 +175,33 @@ def _build_llama():
     _, loss = build_llama(LLAMA_TINY, tokens, targets)
     optimizer.Adam(learning_rate=1e-3).minimize(loss)
     return [loss], ["tokens", "targets"]
+
+
+@_feed("mnist")
+def _feed_mnist(b, rng):
+    import numpy as np
+    return {"img": rng.rand(b, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (b, 1)).astype(np.int64)}
+
+
+@_feed("vgg")
+def _feed_vgg(b, rng):
+    import numpy as np
+    return {"img": rng.rand(b, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (b, 1)).astype(np.int64)}
+
+
+@_feed("resnet")
+def _feed_resnet(b, rng):
+    import numpy as np
+    return {"img": rng.rand(b, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 4, (b, 1)).astype(np.int64)}
+
+
+@_feed("se_resnext")
+def _feed_se_resnext(b, rng):
+    import numpy as np
+    return {"img": rng.rand(b, 3, 32, 32).astype(np.float32)}
 
 
 @_feed("mnist_mlp")

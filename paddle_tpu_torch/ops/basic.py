@@ -3,7 +3,9 @@
 ``*_batch_size_like`` ops, matmul, the elementwise family with fluid
 axis broadcast, the unary activation table, reductions, shape movement,
 gather/scatter, arg/sort/top-k, norms, the compare and logical ops,
-and ``fused_elementwise``, the chain the optimize pass's fusion builds;
+``fused_elementwise``, the chain the optimize pass's fusion builds, and
+``flatten_concat`` / ``fused_param_split``, the plumbing of
+``transpiler/fuse_optimizer.py``;
 then each op's static infer and numerics rules (the reference's, for
 the analysis package).
 
@@ -745,6 +747,13 @@ def _load(ctx, ins, attrs):
 # the fused elementwise chain (analysis/optimize.py fusion pass)
 # ---------------------------------------------------------------------------
 
+@register_op("flatten_concat")
+def _flatten_concat(ctx, ins, attrs):
+    """Optimizer-fusion plumbing (transpiler/fuse_optimizer.py): ravel
+    every input into one flat vector."""
+    return {"Out": [torch.cat([x.reshape(-1) for x in ins["X"]])]}
+
+
 @register_op("fused_elementwise")
 def _fused_elementwise(ctx, ins, attrs):
     """One elementwise chain the fusion pass collapsed (reference
@@ -775,6 +784,20 @@ def _fused_elementwise(ctx, ins, attrs):
             step_ins["Y"] = [cur if arg == -2 else args[arg]]
         cur = get_op(t).lower(ctx, step_ins, a)["Out"][0]
     return {"Out": [cur]}
+
+
+@register_op("fused_param_split")
+def _fused_param_split(ctx, ins, attrs):
+    """Inverse of flatten_concat: slice the fused update result back
+    into the individual parameter buffers (attrs['shapes'] carries the
+    per-output shapes, in order)."""
+    x = ins["X"][0]
+    outs, off = [], 0
+    for shp in attrs["shapes"]:
+        n = int(np.prod([int(s) for s in shp])) if shp else 1
+        outs.append(x[off:off + n].reshape([int(s) for s in shp]))
+        off += n
+    return {"Out": outs}
 
 
 # ---------------------------------------------------------------------------

@@ -14,11 +14,15 @@ reference's jax.checkpoint names; ``core/lowering.py``
   ``aten.addmm`` and ``aten.bmm`` and recomputes the rest;
 - ``"dots_with_no_batch_dims_saveable"`` (alias
   ``"checkpoint_dots_with_no_batch_dims"``): the same without ``bmm``;
-- ``"everything_saveable"``: no checkpoint.
+- ``"everything_saveable"``: no checkpoint;
+- the conv-net policies over the values the ops tag by name
+  (``lowering.NAMED_POLICIES``): ``"save_conv_only"`` saves only the
+  conv2d outputs (``conv_out``) and recomputes the rest,
+  ``"recompute_norms"`` saves all but the batch_norm normalize
+  (``batch_norm_out``), which it recomputes in the backward.
 
 The reference's other names raise NotImplementedError naming what they
-need: ``recompute_norms`` and ``save_conv_only`` (the conv-net tags),
-the name-taking policy factories and the host-offload policies.
+need: the name-taking policy factories and the host-offload policies.
 """
 from ..core import framework
 from ..core.lowering import remat_saves

@@ -212,3 +212,122 @@ def test_amp_transpile_flags():
         tfluid.transpiler.decorate_amp(
             tfluid.optimizer.SGD(learning_rate=0.1)).minimize(loss)
     assert main._amp == "O1"
+
+
+# ---------------------------------------------------------------------------
+# conv nets under O2 (the cases of tests/test_amp.py:173-236)
+# ---------------------------------------------------------------------------
+
+
+def _convnet(fluid, level, layout="NCHW"):
+    """tests/test_amp.py's conv + bn + pool residual net with a
+    Momentum(0.05, 0.9) step, transpiled to ``level``."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", [3, 8, 8], dtype="float32")
+        label = fluid.layers.data("label", [1], dtype="int64")
+        x = img
+        if layout == "NHWC":
+            x = fluid.layers.transpose(x, perm=[0, 2, 3, 1])
+        y = fluid.layers.conv2d(input=x, num_filters=8, filter_size=3,
+                                padding=1, bias_attr=False,
+                                data_format=layout)
+        y = fluid.layers.batch_norm(input=y, act="relu", data_layout=layout)
+        y = fluid.layers.pool2d(input=y, pool_type="max", pool_size=2,
+                                pool_stride=2, data_format=layout)
+        y = fluid.layers.conv2d(input=y, num_filters=8, filter_size=3,
+                                padding=1, bias_attr=False,
+                                data_format=layout)
+        y = fluid.layers.batch_norm(input=y, act=None, data_layout=layout)
+        y = fluid.layers.elementwise_add(x=y, y=y, act="relu")
+        y = fluid.layers.pool2d(input=y, pool_type="avg",
+                                global_pooling=True, data_format=layout)
+        logits = fluid.layers.fc(y, size=4, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=logits, label=label))
+        fluid.optimizer.Momentum(learning_rate=0.05,
+                                 momentum=0.9).minimize(loss)
+    if level:
+        fluid.transpiler.amp_transpile(main, level=level)
+    return main, startup, loss
+
+
+def _convnet_state():
+    """The reference's startup state of the conv net (one for every
+    level and layout: the same parameter names)."""
+    _, js, _ = _convnet(jfluid, None)
+    jscope = jfluid.Scope()
+    jfluid.Executor(jfluid.CPUPlace()).run(js, scope=jscope)
+    return {n: np.asarray(jscope.find_var(n)) for n in jscope.keys()}
+
+
+def _convnet_feed():
+    rng = np.random.RandomState(3)
+    return {"img": rng.randn(16, 3, 8, 8).astype(np.float32),
+            "label": rng.randint(0, 4, (16, 1)).astype(np.int64)}
+
+
+def _train_convnet(level, layout="NCHW", steps=8, state=None):
+    main, _, loss = _convnet(tfluid, level, layout)
+    scope = weights.load_state(tfluid.Scope(), state or _convnet_state(),
+                               CPU)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    feed = _convnet_feed()
+    return [float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0].reshape(()))
+            for _ in range(steps)], scope
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_amp_o2_convnet_matches_o1_and_trains(layout):
+    """O2 (bf16 activation flow) tracks O1 on a conv + bn + pool residual
+    net (first losses within 0.05, the reference test's), converges, and
+    its losses follow the reference's O2 run at the bf16 tier (rtol
+    5e-2)."""
+    state = _convnet_state()
+    o1, _ = _train_convnet("O1", layout, state=state)
+    o2, _ = _train_convnet("O2", layout, state=state)
+    assert all(np.isfinite(o2)), o2
+    assert abs(o2[0] - o1[0]) < 0.05, (o1[0], o2[0])
+    assert o2[-1] < o2[0], o2
+    jm, _, jl = _convnet(jfluid, "O2", layout)
+    jscope = jfluid.Scope()
+    for n, v in state.items():
+        jscope.set(n, v)
+    jexe = jfluid.Executor(jfluid.CPUPlace())
+    want = [float(np.asarray(jexe.run(jm, feed=_convnet_feed(),
+                                      fetch_list=[jl], scope=jscope)[0])
+                  .reshape(())) for _ in range(8)]
+    np.testing.assert_allclose(o2, want, rtol=ADAM_RTOL)
+
+
+def test_amp_o2_master_state_stays_f32():
+    """Parameters, optimizer state and BN moving statistics stay float32
+    in the scope under O2: bf16 lives only inside the step."""
+    _, scope = _train_convnet("O2", steps=2)
+    for name, val in scope.vars.items():
+        if val.is_floating_point():
+            assert val.dtype == torch.float32, (name, val.dtype)
+
+
+def test_amp_o2_biased_conv_keeps_bf16_flow():
+    """A conv with a bias under O2: the bias add computes bf16 + f32 in
+    f32 but writes its activation back as bf16; reduce_sum is no flow op
+    and is fetched in f32."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        img = tfluid.layers.data("img", [3, 8, 8], dtype="float32")
+        y = tfluid.layers.conv2d(input=img, num_filters=4, filter_size=3,
+                                 padding=1)
+        r = tfluid.layers.relu(y)
+        out = tfluid.layers.reduce_sum(r)
+    tfluid.transpiler.amp_transpile(main, level="O2")
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    from paddle_tpu_torch.core.lowering import lower_program
+    fn = lower_program(main, [r.name, out.name], "test")
+    _, (rel, tot) = fn(dict(scope.vars),
+                       {"img": torch.ones((2, 3, 8, 8))}, CPU, 0, 1)
+    assert rel.dtype == torch.bfloat16, rel.dtype
+    assert tot.dtype == torch.float32, tot.dtype

@@ -247,8 +247,11 @@ class TestDefUse:
                 zp = zoo.build_zoo_program(name)
             lv[k] = df.program_liveness(zp.main,
                                         [v.name for v in zp.fetch_list])
-        assert lv["torch"].backward_idx is not None
-        assert lv["torch"].residual_names
+        # se_resnext's zoo entry is a forward program (no optimizer), in
+        # the reference too: no backward marker and no residuals
+        trains = lv["jax"].backward_idx is not None
+        assert (lv["torch"].backward_idx is not None) == trains
+        assert bool(lv["torch"].residual_names) == trains
         assert lv["torch"].live_before == lv["jax"].live_before
         assert lv["torch"].live_out == lv["jax"].live_out
         assert lv["torch"].residual_names == lv["jax"].residual_names

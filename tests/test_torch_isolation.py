@@ -190,15 +190,21 @@ def test_later_slices_refuse_loudly():
     # lifted: each switch's step runs
     for attr, value in (("_amp", "O1"), ("_amp", "O2"), ("_nan_guard", True),
                         ("_remat_policy", "nothing_saveable"),
-                        ("_remat_policy", "dots_saveable")):
+                        ("_remat_policy", "dots_saveable"),
+                        ("_remat_policy", "recompute_norms"),
+                        ("_remat_policy", "save_conv_only")):
         prog = main.clone()
         setattr(prog, attr, value)
         runs(prog, startup, loss)
     for kw in (dict(fused_head_chunk=64), dict(shard_pp=True),
                dict(shard_pp=True, fused_head_chunk=64, remat=False)):
         runs(*train_program(**kw))
-    # still refused, by name
+    # item 5 lifted: the conv-net remat policies are taken
     for policy in ("recompute_norms", "save_conv_only"):
+        assert fluid.memory_optimize(main.clone(), policy=policy) \
+            ._remat_policy == policy
+    # still refused, by name
+    for policy in ("save_only_these_names", "save_from_both_policies"):
         prog = main.clone()
         prog._remat_policy = policy
         with pytest.raises(NotImplementedError, match=policy):
@@ -229,10 +235,10 @@ def test_later_slices_refuse_loudly():
     assert np.isfinite(out[0]).all()
     # still refused, by name: the ops that wait for later items, sequence
     # feeds, and the zoo's other models
-    for op_type, item in (("conv2d", "Conv nets and the transpilers"),
-                          ("batch_norm", "Conv nets and the transpilers"),
+    for op_type, item in (("im2sequence", "Remaining op families and the zoo"),
+                          ("row_conv", "Remaining op families and the zoo"),
                           ("lstm", "Remaining op families and the zoo"),
-                          ("lrn", "Conv nets and the transpilers"),
+                          ("moe_ffn", "Multi-device parallelism"),
                           ("sequence_pool",
                            "Remaining op families and the zoo")):
         prog = main.clone()
@@ -250,8 +256,11 @@ def test_later_slices_refuse_loudly():
         exe.run(seq_main, feed={"w": np.zeros((2, 1), np.int64)},
                 scope=scope)
     from paddle_tpu_torch.models import zoo
-    with pytest.raises(NotImplementedError, match="Conv nets"):
-        zoo.build_zoo_program("resnet")
+    # item 5 lifted: the conv nets build; ocr_recognition waits for the
+    # sequence ops
+    assert zoo.build_zoo_program("resnet").fetch_list
+    with pytest.raises(NotImplementedError, match="Remaining op families"):
+        zoo.build_zoo_program("ocr_recognition")
     with pytest.raises(NotImplementedError, match="Remaining op families"):
         zoo.build_zoo_program("machine_translation")
     # items 4a (the fused generator) and 4b (the paged decode engine)

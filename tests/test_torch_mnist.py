@@ -108,7 +108,8 @@ def test_first_steps_match_reference(opt):
 
 
 @pytest.mark.parametrize("name", ["mnist_mlp", "fit_a_line", "transformer",
-                                  "llama"])
+                                  "llama", "mnist", "vgg", "resnet",
+                                  "se_resnext"])
 def test_zoo_entry_trains(name):
     """The port's zoo entries build, initialize and take 3 steps on their
     example feeds with finite fetches; the reference's other zoo names
@@ -122,7 +123,8 @@ def test_zoo_entry_trains(name):
                       fetch_list=zp.fetch_list, scope=scope)
     assert all(np.isfinite(np.asarray(o)).all() for o in out)
     assert set(zoo.zoo_model_names()) == {"mnist_mlp", "fit_a_line",
-                                          "transformer", "llama"}
+                                          "transformer", "llama", "mnist",
+                                          "vgg", "resnet", "se_resnext"}
     for other, item in zoo.WAITING.items():
         with pytest.raises(NotImplementedError, match=item):
             zoo.build_zoo_program(other)

@@ -3,14 +3,14 @@ port against the JAX package's.
 
 Mirrors tests/test_numcheck.py's lattice and program cases on the ops
 the port registers (the fake-quantize fixture waits for ROADMAP.md item
-'Conv nets and the transpilers'; the numlint CLI for item 'Fleet and
+'Remaining op families and the zoo'; the numlint CLI for item 'Fleet and
 analyzers'): every case asserts on the port what the reference case
 asserts, and that ``check_program`` gives the reference's report on the
 same program built with each package's layer code — every binding's
 interval, finiteness, run-time dtype and shape, the ``narrowed`` set,
 ``finite_safe`` and the findings (code, level, block, op index,
-message). Then the zoo sweep: the four ported zoo programs, train and
-test, with and without AMP O1/O2. All exact.
+message). Then the zoo sweep: every ported zoo program (the conv nets
+since item 5), train and test, with and without AMP O1/O2. All exact.
 """
 import numpy as np
 import pytest

@@ -109,29 +109,48 @@ GENERATE = {"llama_generate", "llama_spec_generate"}
 # ROADMAP item 4b: the paged decode engine's step ops
 PAGED = {"llama_paged_prefill", "llama_paged_prefill_chunk",
          "llama_paged_decode", "llama_paged_spec_step"}
+# ROADMAP item 5: conv nets and the transpilers
+CONV = {"conv2d", "depthwise_conv2d", "conv2d_transpose", "conv3d",
+        "conv3d_transpose", "pool2d", "pool3d", "batch_norm", "lrn",
+        "bilinear_interp", "nearest_interp", "roi_pool", "random_crop",
+        "flatten_concat", "fused_param_split", "quantized_mul",
+        "quantized_conv2d"}
 PORTED = (LLAMA_SLICES | BASIC_REST | NN_REST | {"sequence_mask"}
-          | OPTIMIZER_RULES | REWRITE | IO | GENERATE | PAGED)
+          | OPTIMIZER_RULES | REWRITE | IO | GENERATE | PAGED | CONV)
 
 
 def test_port_registers_exactly_the_slice_ops():
     assert set(pt_registry.registered_ops()) == PORTED
     assert PORTED <= set(jax_registry.registered_ops())
     with pytest.raises(NotImplementedError, match="no lowering rule"):
-        pt_registry.get_op("conv2d")
+        pt_registry.get_op("im2sequence")
+
+
+@pytest.mark.parametrize("op_type", sorted(CONV))
+def test_conv_net_ops_register_with_the_reference_rules(op_type):
+    """Each op of item 5 has a lowering rule, and an infer and a numerics
+    rule exactly where the reference has one; ``random_crop`` draws
+    (``stateful``), as in the reference."""
+    assert pt_registry.has_op(op_type) and op_type not in pt_registry.WAITING
+    assert pt_registry.has_infer(op_type) == jax_registry.has_infer(op_type)
+    assert pt_registry.has_numerics(op_type) == \
+        jax_registry.has_numerics(op_type)
+    assert pt_registry.get_op(op_type).stateful == \
+        jax_registry.get_op(op_type).stateful
 
 
 # what waits, by name, with its ROADMAP item
 STILL_REFUSED = {
     "lstm": "Remaining op families and the zoo",
-    "lrn": "Conv nets and the transpilers",
-    "flatten_concat": "Conv nets and the transpilers",
-    "fused_param_split": "Conv nets and the transpilers",
-    "conv2d": "Conv nets and the transpilers",
-    "pool2d": "Conv nets and the transpilers",
-    "batch_norm": "Conv nets and the transpilers",
-    "bilinear_interp": "Conv nets and the transpilers",
-    "roi_pool": "Conv nets and the transpilers",
-    "random_crop": "Conv nets and the transpilers",
+    "im2sequence": "Remaining op families and the zoo",
+    "hierarchical_sigmoid": "Remaining op families and the zoo",
+    "nce": "Remaining op families and the zoo",
+    "warpctc": "Remaining op families and the zoo",
+    "while": "Remaining op families and the zoo",
+    "multiclass_nms": "Remaining op families and the zoo",
+    "fake_quantize_abs_max": "Remaining op families and the zoo",
+    "chunk_eval": "Remaining op families and the zoo",
+    "gru": "Remaining op families and the zoo",
     "sequence_pool": "Remaining op families and the zoo",
     "sequence_pad": "Remaining op families and the zoo",
     "row_conv": "Remaining op families and the zoo",
@@ -156,12 +175,12 @@ def test_every_reference_op_is_ported_or_named_as_waiting():
 
 
 def test_registry_counts():
-    """253 reference ops: 167 ported, 86 named as waiting; both
+    """253 reference ops: 184 ported, 69 named as waiting; both
     generators registered ``stateful`` (they draw at temperature > 0),
     as in the reference."""
     ref = set(jax_registry.registered_ops())
     assert (len(ref), len(PORTED), len(pt_registry.WAITING)) == \
-        (253, 167, 86)
+        (253, 184, 69)
     for op in GENERATE:
         assert pt_registry.get_op(op).stateful
         assert jax_registry.get_op(op).stateful

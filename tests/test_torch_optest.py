@@ -40,15 +40,10 @@ from test_torch_ops import BASIC_REST, NN_REST
 
 torch.set_num_threads(1)
 
-CONV = "Conv nets and the transpilers"
 SEQ = "Remaining op families and the zoo"
 # spec ops the port does not register yet, with the ROADMAP item that
 # ports each (registry.WAITING names the same)
 SKIPPED = {
-    "batch_norm": CONV, "bilinear_interp": CONV, "conv2d": CONV,
-    "conv2d_transpose": CONV, "conv3d": CONV, "conv3d_transpose": CONV,
-    "depthwise_conv2d": CONV, "lrn": CONV, "nearest_interp": CONV,
-    "pool2d": CONV, "pool3d": CONV, "roi_pool": CONV,
     "conv_shift": SEQ, "fake_dequantize_max_abs": SEQ, "gru_unit": SEQ,
     "im2sequence": SEQ, "lstm_unit": SEQ, "max_pool2d_with_index": SEQ,
     "minus": SEQ, "modified_huber_loss": SEQ, "pad_constant_like": SEQ,

@@ -329,7 +329,8 @@ def test_remat_recomputes_the_forward_kernel(monkeypatch, remat, policy,
 
 
 @pytest.mark.parametrize("policy,match", [
-    ("recompute_norms", "Conv nets"), ("save_conv_only", "Conv nets"),
+    ("save_from_both_policies", "factory"),
+    ("save_and_offload_only_these_names", "offload"),
     ("save_only_these_names", "factory"),
     ("save_anything_except_these_names", "factory"),
     ("offload_dot_with_no_batch_dims", "offload"),

@@ -64,15 +64,15 @@ from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,  # noqa: F401
 from .inferencer import Inferencer             # noqa: F401
 from . import models                           # noqa: F401
 from . import nets                             # noqa: F401
-from .waiting import FLEET, MESH, REST, module_getattr
+from . import parallel                         # noqa: F401
+from .parallel import (ParallelExecutor, ExecutionStrategy,  # noqa: F401
+                       BuildStrategy, DistributeTranspiler)
+from .waiting import FLEET, REST, module_getattr
 
 __version__ = "0.1.0"
 
 # the reference's top-level names of later ROADMAP.md items
-WAITING = {**dict.fromkeys(("ParallelExecutor", "ExecutionStrategy",
-                            "BuildStrategy", "DistributeTranspiler",
-                            "parallel"), MESH),
-           "cluster": FLEET,
+WAITING = {"cluster": FLEET,
            **dict.fromkeys((
                "SequenceBatch", "to_sequence_batch", "lod_tensor",
                "create_lod_tensor", "create_random_int_lodtensor",

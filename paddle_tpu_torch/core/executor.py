@@ -72,7 +72,8 @@ from ..resilience.retry import (TransientDeviceError, default_policy,
 
 __all__ = ["Scope", "global_scope", "scope_guard", "Executor",
            "CPUPlace", "TPUPlace", "CUDAPlace", "EOFException",
-           "force_cpu", "default_place"]
+           "force_cpu", "default_place", "compiled_cost_stats",
+           "global_value"]
 
 
 class EOFException(Exception):
@@ -558,6 +559,10 @@ class Executor:
                         "scope and is not produced by this program — did "
                         "you forget to run the startup program first?")
                 continue  # created by this program (startup initializer)
+            if _is_sharded(val):
+                # a ParallelExecutor's placed value: its global tensor
+                val = global_value(val)
+                scope.set(n, val)
             if not isinstance(val, torch.Tensor) \
                     or val.device != self.device:
                 # stage once and keep the resident copy in the scope
@@ -610,6 +615,42 @@ class Executor:
         warmup assertions compare."""
         return sum(len(sigs) for _, sigs in self._cache.values())
 
+    def compiled_stats(self, program=None, feed=None, fetch_list=None,
+                       scope=None, mode=None, repeats=1, top_k=10):
+        """Measured cost of one dispatch of ``run`` for this (program,
+        feed, fetch, repeats): the same optimized clone, the same built
+        step and rng stream, run once on a copy of the scope's state
+        (the step donates its state, and the scope must not move), with
+        :func:`compiled_cost_stats` counting — the counterpart of the
+        reference's AOT-compiled analysis. Keys as the reference's:
+        'flops', 'bytes_accessed', 'n_kernels', 'peak_memory_bytes'
+        (the card only), 'kernel_histogram' and 'top_kernels' (with
+        ``top_k``); see :func:`compiled_cost_stats`."""
+        program = program or framework.default_main_program()
+        scope = scope or global_scope()
+        program = self._maybe_optimize(program, fetch_list)
+        fetch_names, mode, state, feed_vals = \
+            self._prepare(program, dict(feed) if feed else {}, fetch_list,
+                          scope, mode)
+        step_fn = lower_program(program, fetch_names, mode)
+        state = {n: v.clone() for n, v in state.items()}
+
+        def step():
+            if step_fn.trains:
+                grad_mode = contextlib.nullcontext()
+            elif mode == "test":
+                grad_mode = torch.inference_mode()
+            else:
+                grad_mode = torch.no_grad()
+            cur = state
+            with grad_mode:
+                for i in range(repeats):
+                    new_state, _ = step_fn(cur, feed_vals, self.device,
+                                           program.random_seed or 0, 1 + i)
+                    cur = {**cur, **new_state}
+
+        return compiled_cost_stats(step, self.device, top_k)
+
     def close(self):
         self._cache.clear()
         self._opt_cache.clear()
@@ -647,13 +688,143 @@ def check_nan_guard(flags, labels):
             f"outputs: {bad}")
 
 
+def _is_sharded(v):
+    """Whether ``v`` is a value placed on a device mesh (a DTensor of a
+    ParallelExecutor's scope)."""
+    return hasattr(v, "full_tensor") and hasattr(v, "placements")
+
+
+def global_value(v):
+    """``v`` as one tensor holding its global value: a placed value
+    (DTensor) gathered from its shards — a collective, so every rank
+    of its mesh calls it alike — anything else as it is."""
+    return v.full_tensor() if _is_sharded(v) else v
+
+
 def to_numpy(t):
     """A fetched tensor as a numpy array of its own on the host (a fetched
     state tensor is updated in place by a later donating step);
     bfloat16 widens to float32 (numpy has no bfloat16 without
-    ml_dtypes)."""
-    t = t.detach()
+    ml_dtypes). A placed value (DTensor) gives its global value."""
+    t = global_value(t).detach()
     if t.dtype == torch.bfloat16:
         return t.float().cpu().numpy()
     a = t.cpu().numpy()
     return a.copy() if t.device.type == "cpu" else a
+
+
+# ----------------------------------------------------------------------
+# compiled_stats: what one step dispatches, counted as it runs
+# ----------------------------------------------------------------------
+_HLO_DTYPE = {
+    torch.float32: "f32", torch.float64: "f64", torch.float16: "f16",
+    torch.bfloat16: "bf16", torch.int8: "s8", torch.uint8: "u8",
+    torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",
+    torch.bool: "pred", torch.complex64: "c64",
+}
+
+
+def _tensor_bytes(t):
+    return t.numel() * t.element_size()
+
+
+def _shape_str(outs):
+    """The reference's HLO shape text of an op's tensor outputs
+    (``f32[4,64]``; a tuple for several)."""
+    parts = [f"{_HLO_DTYPE.get(t.dtype, str(t.dtype))}"
+             f"[{','.join(str(d) for d in t.shape)}]" for t in outs]
+    return parts[0] if len(parts) == 1 else f"({', '.join(parts)})"
+
+
+def _aten_recorder():
+    """A dispatch mode recording every non-view aten op a step runs as
+    (name, output shape, input + output bytes)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class _Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                ins = [a for a in tree_flatten((args, kwargs or {}))[0]
+                       if isinstance(a, torch.Tensor)]
+                outs = [o for o in tree_flatten(out)[0]
+                        if isinstance(o, torch.Tensor)]
+                nbytes = sum(_tensor_bytes(t) for t in ins + outs)
+                self.ops.append((func.overloadpacket.__name__,
+                                 _shape_str(outs) if outs else "()",
+                                 nbytes))
+            return out
+
+    return _Recorder()
+
+
+def _kernel_histogram(kernels):
+    """Aggregate [(kind, shape, bytes)] into a kind-keyed table sorted
+    by total bytes (the reference's layout)."""
+    agg = {}
+    for kind, _, b in kernels:
+        cnt, tot = agg.get(kind, (0, 0))
+        agg[kind] = (cnt + 1, tot + b)
+    return [{"kind": k, "count": c, "mbytes": round(t / 2**20, 2)}
+            for k, (c, t) in
+            sorted(agg.items(), key=lambda kv: -kv[1][1])]
+
+
+def compiled_cost_stats(step, device, top_k=10):
+    """Run ``step()`` once and count what it dispatched — the shared
+    assembly behind Executor.compiled_stats and
+    ParallelExecutor.compiled_stats, the torch counterpart of the
+    reference's XLA analyses of a compiled executable:
+
+    - ``flops``: ``torch.utils.flop_counter.FlopCounterMode``'s total;
+    - ``bytes_accessed``: each aten op's input and output bytes, summed;
+    - ``n_kernels``, ``kernel_histogram`` (kind -> count, mbytes) and
+      ``top_kernels`` (kind, shape, mbytes; ``top_k`` of them, none for
+      ``top_k=0``): on the card the CUDA kernels ``torch.profiler``
+      traced (kind = the kernel's name, bytes = 0: a trace gives no
+      operand sizes; ``kernel_source`` says ``"cuda"``), and where the
+      trace holds none, or on the host, the non-view aten ops
+      dispatched (``kernel_source`` ``"aten"``);
+    - ``peak_memory_bytes``: the allocator's peak over the step, on the
+      card only.
+
+    The reference's ``generated_code_size_bytes`` has no torch
+    counterpart (there is no compiled module) and is left out."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cuda = device.type == "cuda"
+    prof = contextlib.nullcontext()
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+    rec = _aten_recorder()
+    with prof as p, FlopCounterMode(display=False) as fc, rec:
+        step()
+        if cuda:
+            torch.cuda.synchronize(device)
+    stats = {"flops": float(fc.get_total_flops()),
+             "bytes_accessed": float(sum(b for _, _, b in rec.ops))}
+    kernels, source = rec.ops, "aten"
+    if cuda:
+        stats["peak_memory_bytes"] = int(
+            torch.cuda.max_memory_allocated(device))
+        from torch.autograd import DeviceType
+        traced = [(e.name[:80], "", 0) for e in p.events()
+                  if e.device_type == DeviceType.CUDA]
+        if traced:
+            kernels, source = traced, "cuda"
+    stats["n_kernels"] = len(kernels)
+    stats["kernel_source"] = source
+    if top_k:
+        stats["kernel_histogram"] = _kernel_histogram(kernels)
+        stats["top_kernels"] = [
+            {"kind": k, "shape": s, "mbytes": round(b / 2**20, 2)}
+            for k, s, b in sorted(kernels, key=lambda t: -t[2])[:top_k]]
+    return stats

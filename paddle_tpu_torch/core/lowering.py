@@ -28,6 +28,12 @@ Three program-level switches shape the step, as in the reference:
   ``isfinite(v).all()`` flag per float op output, labelled
   ``"{op.type} -> {name}"``, stacked into one tensor that the executor
   reads back once per run.
+
+Under a device mesh (``parallel.ParallelExecutor``) the step takes an
+``spmd`` object (``parallel/spmd.py``): values are placed DTensors, each
+op goes through ``spmd.lower``, the parameters' gradients are brought to
+their parameters' placements (``spmd.sync_grads``) and donation works on
+the local blocks (``spmd.donate``).
 """
 import contextlib
 import functools
@@ -225,8 +231,11 @@ class LoweringContext:
     """Carries step-wide services to op lowering rules: the device,
     deterministic per-op random generators, and train/test mode."""
 
-    def __init__(self, program, mode, device, seed, step, read=None):
+    def __init__(self, program, mode, device, seed, step, read=None,
+                 spmd=None):
         self.program = program
+        # parallel.spmd.Spmd under a device mesh, else None
+        self.spmd = spmd
         self.mode = mode  # "train" | "test"
         self.device = device
         self._seed = seed
@@ -333,7 +342,10 @@ class LoweringContext:
         prev_op, prev_env = self.op, self.env
         self.op, self.env = op, env
         try:
-            outs = opdef.lower(self, ins, op.attrs)
+            if self.spmd is not None:
+                outs = self.spmd.lower(self, op, opdef.lower, ins, op.attrs)
+            else:
+                outs = opdef.lower(self, ins, op.attrs)
         finally:
             self.op, self.env = prev_op, prev_env
         if outs is None:
@@ -432,8 +444,8 @@ def read_names(block):
 def lower_program(program, fetch_names, mode):
     """Builds the step function for a Program.
 
-    Returns ``fn(state, feed, device, seed, step) -> (new_state,
-    fetches)`` where ``state`` holds the scope's persistables and
+    Returns ``fn(state, feed, device, seed, step, spmd=None) ->
+    (new_state, fetches)`` where ``state`` holds the scope's persistables and
     ``new_state`` every persistable some op of the program wrote — and,
     when the NaN guard is on, :data:`GUARD`: a bool tensor of one flag a
     float op output, whose labels are ``fn.guard_labels``.
@@ -511,6 +523,9 @@ def lower_program(program, fetch_names, mode):
                     allow_unused=True)
             else:
                 grads = [None] * len(param_names)
+        if ctx.spmd is not None:
+            grads = ctx.spmd.sync_grads([leaves[p] for p in param_names],
+                                        grads)
         ctx._key_count = key_after
         env.update({n: v.detach() for n, v in kept.items()})
         for p, g in zip(param_names, grads):
@@ -521,10 +536,13 @@ def lower_program(program, fetch_names, mode):
                 torch.profiler.record_function(RANGE_OPTIMIZER):
             for op in ops[bwd_idx + 1:]:
                 ctx.eval_op(op, env)
-                _donate(op, env, state)
+                if ctx.spmd is not None:
+                    ctx.spmd.donate(op, env, state)
+                else:
+                    _donate(op, env, state)
 
-    def fn(state, feed, device, seed, step):
-        ctx = LoweringContext(program, mode, device, seed, step, read)
+    def fn(state, feed, device, seed, step, spmd=None):
+        ctx = LoweringContext(program, mode, device, seed, step, read, spmd)
         env = Env()
         env.update(state)
         env.update(feed)

@@ -97,8 +97,10 @@ PARAMS_MANIFEST = "__params_manifest__.json"
 def _save_arrays(dirname, names, scope):
     # parent dirs created in one go; the write is temp+rename so a kill
     # mid-save never leaves a half-written params.npz behind
+    from ..core.executor import _is_sharded, global_value
     os.makedirs(dirname, exist_ok=True)
     arrays = {}
+    placed = False
     for n in names:
         val = scope.find_var(n)
         if val is None:
@@ -106,7 +108,12 @@ def _save_arrays(dirname, names, scope):
                 f"cannot save variable {n!r}: it has no value in the "
                 "scope — run the startup program (or load a checkpoint) "
                 "before saving")
-        arrays[n.replace("/", "%2F")] = val
+        # a ParallelExecutor's placed value is gathered on every rank
+        # (a collective), and rank 0 alone writes the file
+        placed = placed or _is_sharded(val)
+        arrays[n.replace("/", "%2F")] = global_value(val)
+    if placed and _rank() != 0:
+        return
     final = os.path.join(dirname, "params.npz")
     tmp = os.path.join(dirname, f".tmp.{os.getpid()}.params.npz")
     try:
@@ -128,6 +135,12 @@ def _save_arrays(dirname, names, scope):
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def _rank():
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
 
 
 def _load_arrays(dirname, scope, names=None, program=None, device=None):

@@ -90,8 +90,9 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     ``is_sparse`` is accepted for parity (the lookup is a gather).
 
     ``is_distributed`` annotates the table ``P('mp', None)`` as the
-    reference does (row-sharded over a mesh 'mp' axis); nothing reads
-    the annotation until multi-device execution is ported.
+    reference does: under a ParallelExecutor whose mesh has an 'mp'
+    axis the table and its optimizer state (which inherits the spec)
+    are row-sharded over it, each rank looking up the ids in its rows.
     """
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, size, dtype)

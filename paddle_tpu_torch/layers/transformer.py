@@ -1,12 +1,12 @@
 """Transformer building-block layers (port of
 ``paddle_tpu/layers/transformer.py``): rms_norm, rope, multihead
 attention (the flash kernel), silu, the layer-stacked decoder, the
-vocab-chunked fused head loss, the fused KV-cache generators
-(``llama_generate``, ``llama_spec_generate``) and the paged-KV step
-layers of the decode engine (``llama_paged_prefill``,
+vocab-chunked fused head loss, the MoE FFN (``moe_ffn``), the fused
+KV-cache generators (``llama_generate``, ``llama_spec_generate``) and
+the paged-KV step layers of the decode engine (``llama_paged_prefill``,
 ``llama_paged_prefill_chunk``, ``llama_paged_decode``,
-``llama_paged_spec_step``). ``moe_ffn`` and ``llama_stack_1f1b_loss``
-come with ROADMAP.md item 'Multi-device parallelism'."""
+``llama_paged_spec_step``). ``llama_stack_1f1b_loss`` comes with the
+pipeline part of ROADMAP.md item 'Multi-device parallelism'."""
 import copy
 
 from ..layer_helper import LayerHelper
@@ -15,13 +15,13 @@ from ..sharding import PartitionSpec as P
 from ..waiting import MESH, module_getattr
 from .. import initializer as init_mod
 
-__all__ = ["rms_norm", "rope", "multihead_attention", "silu",
+__all__ = ["rms_norm", "rope", "multihead_attention", "silu", "moe_ffn",
            "llama_decoder_stack", "fused_head_cross_entropy",
            "llama_generate", "llama_spec_generate", "llama_paged_prefill",
            "llama_paged_prefill_chunk", "llama_paged_decode",
            "llama_paged_spec_step"]
 
-WAITING = {"moe_ffn": MESH, "llama_stack_1f1b_loss": MESH}
+WAITING = {"llama_stack_1f1b_loss": MESH}
 __getattr__ = module_getattr(__name__, WAITING)
 
 
@@ -52,13 +52,15 @@ def fused_head_cross_entropy(h, label, vocab_size, chunk_size=8192,
 
 
 def _stack_params(helper, x_dtype, n_layers, n_heads, n_kv_heads, d, hd,
-                  ffn_hidden, param_attr, pp_sharded=True):
+                  ffn_hidden, param_attr, pp_sharded=True,
+                  include_ffn=True):
     """The layer-stacked decoder weights (leading [L] axis), named
     ``{helper.name}.{suffix}`` as the reference's — shared by
     llama_decoder_stack (training) and llama_generate (inference), so a
     trained scope serves generation directly. With ``pp_sharded`` they
-    are annotated ``P('pp', ...)`` (read once a mesh exists: ROADMAP.md
-    item 'Multi-device parallelism')."""
+    are annotated ``P('pp', ...)`` (a mesh without a 'pp' axis keeps
+    them replicated); ``include_ffn=False`` leaves out the dense FFN
+    weights (an MoE model's)."""
     base_attr = ParamAttr._to_attr(param_attr)
 
     def _p(suffix, shape, default_init):
@@ -73,17 +75,61 @@ def _stack_params(helper, x_dtype, n_layers, n_heads, n_kv_heads, d, hd,
 
     ninit = init_mod.Normal(0.0, 0.02)
     L = n_layers
-    return {
+    out = {
         "AttnNorm": _p("attn_norm", [L, d], init_mod.Constant(1.0)),
         "Wq": _p("wq", [L, d, n_heads * hd], ninit),
         "Wk": _p("wk", [L, d, n_kv_heads * hd], ninit),
         "Wv": _p("wv", [L, d, n_kv_heads * hd], ninit),
         "Wo": _p("wo", [L, n_heads * hd, d], ninit),
         "MlpNorm": _p("mlp_norm", [L, d], init_mod.Constant(1.0)),
-        "WGate": _p("w_gate", [L, d, ffn_hidden], ninit),
-        "WUp": _p("w_up", [L, d, ffn_hidden], ninit),
-        "WDown": _p("w_down", [L, ffn_hidden, d], ninit),
     }
+    if include_ffn:
+        out["WGate"] = _p("w_gate", [L, d, ffn_hidden], ninit)
+        out["WUp"] = _p("w_up", [L, d, ffn_hidden], ninit)
+        out["WDown"] = _p("w_down", [L, ffn_hidden, d], ninit)
+    return out
+
+
+def moe_ffn(x, num_experts, hidden_dim, top_k=2, capacity_factor=2.0,
+            param_attr=None, name=None):
+    """Mixture-of-Experts SwiGLU FFN (GShard/Switch recipe).
+
+    x: [batch, seq, dim]. Expert weights are created [E, dim, hidden] /
+    [E, hidden, dim] and annotated ``P('ep', None, None)``, so a mesh
+    with an 'ep' axis splits them over it (and the op dispatches tokens
+    to their experts' owners by an all-to-all, ops/moe.py). Returns
+    (out [batch, seq, dim], aux_loss scalar) — add ``aux_weight *
+    aux_loss`` to the training loss for load balancing.
+    """
+    helper = LayerHelper("moe_ffn", param_attr=param_attr, name=name)
+    d = int(x.shape[-1])
+    base = ParamAttr._to_attr(param_attr)
+
+    def _p(suffix, shape):
+        # the caller's param_attr (initializer/regularizer/...) with a
+        # per-weight name; default init Normal(0, 0.02)
+        attr = copy.copy(base) if base else ParamAttr()
+        attr.name = f"{helper.name}.{suffix}"
+        if attr.initializer is None:
+            attr.initializer = init_mod.Normal(0.0, 0.02)
+        return helper.create_parameter(attr, shape, x.dtype)
+
+    gate_w = _p("router", [d, num_experts])
+    w_up = _p("w_up", [num_experts, d, hidden_dim])
+    w_gate = _p("w_gate", [num_experts, d, hidden_dim])
+    w_down = _p("w_down", [num_experts, hidden_dim, d])
+    for w in (w_up, w_gate, w_down):
+        w.sharding = P("ep", None, None)
+
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    aux = helper.create_variable_for_type_inference("float32", shape=[])
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [x.name], "GateW": [gate_w.name], "WUp": [w_up.name],
+                "WGate": [w_gate.name], "WDown": [w_down.name]},
+        outputs={"Out": [out.name], "AuxLoss": [aux.name]},
+        attrs={"top_k": top_k, "capacity_factor": capacity_factor})
+    return out, aux
 
 
 def rms_norm(input, epsilon=1e-6, param_attr=None, name=None):
@@ -204,21 +250,35 @@ def llama_generate(tokens, vocab_size, dim, n_layers, n_heads,
     each product runs W8A8 (``qmat``). ``kv_int8`` keeps the KV cache in
     int8 with per-(position, kv-head) scales. ``unroll_layers`` and
     ``decode_unroll`` are kept on the op as the reference keeps them
-    (XLA unrolling) and change nothing in the port. MoE
-    (``moe_experts``) comes with ROADMAP.md item 'Multi-device
-    parallelism'."""
+    (XLA unrolling) and change nothing in the port. ``moe_experts`` > 0
+    replaces each layer's dense FFN by the drop-free MoE FFN over the
+    stacked ``{name}.moe_router`` [L, D, E] and expert tables [L, E,
+    ...]; with ``quantize`` the expert tables are int8 too, with
+    per-expert x output-channel scales (the router stays float)."""
     _validate_sampling(temperature, top_k, top_p)
     if max_new_tokens < 1:
         raise ValueError(
             f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if moe_experts:
-        raise NotImplementedError(
-            "MoE generation is a later slice of the torch port "
-            f"(ROADMAP.md item '{MESH}')")
     helper = LayerHelper("llama_generate", name=name)
     hd = dim // n_heads
     weights = _stack_params(helper, dtype, n_layers, n_heads, n_kv_heads,
-                            dim, hd, ffn_hidden, None, pp_sharded=False)
+                            dim, hd, ffn_hidden, None, pp_sharded=False,
+                            include_ffn=moe_experts == 0)
+    moe_inputs = {}
+    if moe_experts:
+        ninit = init_mod.Normal(0.0, 0.02)
+        E, L = moe_experts, n_layers
+
+        def _mp(suffix, shape):
+            return helper.create_parameter(
+                ParamAttr(name=f"{helper.name}.{suffix}",
+                          initializer=ninit), shape, dtype)
+        moe_inputs = {
+            "MoeRouter": [_mp("moe_router", [L, dim, E]).name],
+            "MoeWGate": [_mp("moe_w_gate", [L, E, dim, ffn_hidden]).name],
+            "MoeWUp": [_mp("moe_w_up", [L, E, dim, ffn_hidden]).name],
+            "MoeWDown": [_mp("moe_w_down", [L, E, ffn_hidden, dim]).name],
+        }
     emb = helper.create_parameter(
         ParamAttr(name=emb_name, initializer=init_mod.Normal(0.0, 0.02)),
         [vocab_size, dim], dtype)
@@ -232,8 +292,10 @@ def llama_generate(tokens, vocab_size, dim, n_layers, n_heads,
     quant_inputs = {}
     if quantize:
         out_dims = {"Wq": n_heads * hd, "Wk": n_kv_heads * hd,
-                    "Wv": n_kv_heads * hd, "Wo": dim,
-                    "WGate": ffn_hidden, "WUp": ffn_hidden, "WDown": dim}
+                    "Wv": n_kv_heads * hd, "Wo": dim}
+        if moe_experts == 0:
+            out_dims.update({"WGate": ffn_hidden, "WUp": ffn_hidden,
+                             "WDown": dim})
         for slot, out_d in out_dims.items():
             w = weights[slot]
             w.dtype = "int8"
@@ -242,6 +304,20 @@ def llama_generate(tokens, vocab_size, dim, n_layers, n_heads,
                           initializer=init_mod.Constant(1.0)),
                 [n_layers, 1, out_d], "float32")
             quant_inputs[slot + "Scale"] = [sc.name]
+        if moe_experts:
+            # per-expert x per-output-channel scales; the router stays
+            # float (tiny, and its softmax ranking is the routing)
+            moe_dims = {"MoeWGate": ffn_hidden, "MoeWUp": ffn_hidden,
+                        "MoeWDown": dim}
+            gb = helper.main_program.global_block()
+            for slot, out_d in moe_dims.items():
+                wname = moe_inputs[slot][0]
+                gb.var(wname).dtype = "int8"
+                sc = helper.create_parameter(
+                    ParamAttr(name=wname + "@scale",
+                              initializer=init_mod.Constant(1.0)),
+                    [n_layers, moe_experts, 1, out_d], "float32")
+                quant_inputs[slot + "Scale"] = [sc.name]
         head.dtype = "int8"
         hsc = helper.create_parameter(
             ParamAttr(name=head.name + "@scale",
@@ -262,7 +338,7 @@ def llama_generate(tokens, vocab_size, dim, n_layers, n_heads,
         inputs={"Tokens": [tokens.name], "Emb": [emb.name],
                 "FinalNorm": [fnorm.name], "LmHead": [head.name],
                 **{slot: [w.name] for slot, w in weights.items()},
-                **quant_inputs},
+                **moe_inputs, **quant_inputs},
         outputs=outputs,
         attrs={"n_heads": n_heads, "n_kv_heads": n_kv_heads,
                "rope_base": rope_base, "epsilon": epsilon,

@@ -22,9 +22,11 @@ target as its own draft, and ``save_decode_model`` /
 ``load_decode_model`` persist (config, weights).
 ``build_llama_paged_programs`` builds the step programs of the
 continuous-batching decode engine (``serving.DecodeEngine``) over the
-same names. A pipeline over a mesh (``pp_schedule="1f1b"``), the other
-mesh knobs and MoE (ROADMAP.md item 'Multi-device parallelism') are
-refused by name.
+same names. ``moe_experts`` > 0 makes every FFN a mixture of experts
+(``moe_ffn``). ``shard_dp`` / ``shard_tp`` annotate the batch and the
+Megatron splits for ``parallel.ParallelExecutor``; a pipeline over a
+mesh (``pp_schedule="1f1b"``) and ``shard_sp`` come with the second part
+of ROADMAP.md item 'Multi-device parallelism' and are refused by name.
 """
 import json
 import os
@@ -47,7 +49,7 @@ __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA_TINY", "build_llama",
            "quantize_generator_weights", "stack_generator_weights",
            "save_decode_model", "load_decode_model"]
 
-WAITING = {"_tp_spec_table": MESH}
+WAITING = {}
 __getattr__ = module_getattr(__name__, WAITING)
 
 
@@ -63,7 +65,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     # MoE: >0 turns every FFN into a mixture of this many SwiGLU experts
-    # in the reference; the port refuses it until MoE is ported
+    # (GShard top-k routing, expert-parallel over the mesh 'ep' axis)
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -118,17 +120,12 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
     if pp_schedule == "1f1b":
         raise NotImplementedError(
             "pp_schedule='1f1b' (llama_stack_1f1b_loss, the pipelined "
-            "backward) is a later slice of the torch port (ROADMAP.md "
-            "item 'Multi-device parallelism')")
-    if shard_tp or shard_sp or shard_dp:
+            "backward) comes with the pipeline part of ROADMAP.md item "
+            f"'{MESH}'")
+    if shard_sp:
         raise NotImplementedError(
-            "shard_tp / shard_sp / shard_dp need a device mesh, a later "
-            "slice of the torch port (ROADMAP.md item 'Multi-device "
-            "parallelism')")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE FFNs are a later slice of the torch port (ROADMAP.md "
-            "item 'Multi-device parallelism')")
+            "shard_sp (ring attention over a mesh 'sp' axis) comes with "
+            f"the second part of ROADMAP.md item '{MESH}'")
     dt = cfg.dtype
     hd = cfg.dim // cfg.n_heads
     h = layers.embedding(tokens, size=[cfg.vocab_size, cfg.dim],
@@ -143,7 +140,9 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
             rope_base=cfg.rope_base, epsilon=cfg.norm_eps,
             n_micro=pp_n_micro, scan_unroll=scan_unroll, remat=remat,
             name="blocks")
-        return _finish(cfg, h, tokens, targets, fused_head_chunk)
+        return _finish(cfg, h, tokens, targets, [], shard_tp=False,
+                       shard_dp=shard_dp, fused_head_chunk=fused_head_chunk)
+    aux_losses = []
     for i in range(cfg.n_layers):
         pre = tfl.rms_norm(h, epsilon=cfg.norm_eps,
                            param_attr=ParamAttr(name=f"l{i}.attn_norm"))
@@ -162,26 +161,40 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
 
         pre2 = tfl.rms_norm(h, epsilon=cfg.norm_eps,
                             param_attr=ParamAttr(name=f"l{i}.mlp_norm"))
-        gate = tfl.silu(_linear(pre2, cfg.ffn_hidden, f"l{i}.w_gate"))
-        up = _linear(pre2, cfg.ffn_hidden, f"l{i}.w_up")
-        mlp = _linear(layers.elementwise_mul(gate, up), cfg.dim,
-                      f"l{i}.w_down")
+        if cfg.moe_experts > 0:
+            mlp, aux = tfl.moe_ffn(
+                pre2, num_experts=cfg.moe_experts,
+                hidden_dim=cfg.ffn_hidden, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor,
+                name=f"l{i}.moe")
+            aux_losses.append(aux)
+        else:
+            gate = tfl.silu(_linear(pre2, cfg.ffn_hidden, f"l{i}.w_gate"))
+            up = _linear(pre2, cfg.ffn_hidden, f"l{i}.w_up")
+            mlp = _linear(layers.elementwise_mul(gate, up), cfg.dim,
+                          f"l{i}.w_down")
         h = layers.elementwise_add(h, mlp)
-    return _finish(cfg, h, tokens, targets, fused_head_chunk)
+    return _finish(cfg, h, tokens, targets, aux_losses, shard_tp=shard_tp,
+                   shard_dp=shard_dp, fused_head_chunk=fused_head_chunk)
 
 
-def _finish(cfg, h, tokens, targets, fused_head_chunk=0):
+def _finish(cfg, h, tokens, targets, aux_losses, shard_tp, shard_dp,
+            fused_head_chunk=0):
     """final_norm → lm_head logits (none under ``fused_head_chunk``) →
-    the loss when ``targets`` (reference ``_finish``, one device)."""
+    the loss when ``targets``, plus the weighted MoE aux losses; the
+    batch annotated over 'dp' with ``shard_dp`` and the Megatron specs
+    with ``shard_tp`` (reference ``_finish``)."""
+    gb = tokens.block.program.global_block()
     h = tfl.rms_norm(h, epsilon=cfg.norm_eps,
                      param_attr=ParamAttr(name="final_norm"))
     logits = None
     if not fused_head_chunk:
         logits = _linear(h, cfg.vocab_size, "lm_head")
-    tokens.sharding = P(None, None)
+    tok_spec = P(("dp",) if shard_dp else None, None)
+    tokens.sharding = tok_spec
     avg_loss = None
     if targets is not None:
-        targets.sharding = P(None, None)
+        targets.sharding = tok_spec
         if fused_head_chunk:
             loss = tfl.fused_head_cross_entropy(
                 h, targets, cfg.vocab_size, chunk_size=fused_head_chunk,
@@ -189,14 +202,48 @@ def _finish(cfg, h, tokens, targets, fused_head_chunk=0):
         else:
             loss = layers.softmax_with_cross_entropy(logits, targets)
         avg_loss = layers.mean(loss)
+        if aux_losses:
+            total_aux = aux_losses[0]
+            for a in aux_losses[1:]:
+                total_aux = layers.elementwise_add(total_aux, a)
+            avg_loss = layers.elementwise_add(
+                avg_loss, layers.scale(total_aux, cfg.moe_aux_weight))
+    # the specs go on after every parameter exists (the fused head makes
+    # lm_head inside the loss)
+    if shard_tp:
+        for name, spec in _tp_spec_table(cfg).items():
+            if name in gb.vars:
+                gb.vars[name].sharding = spec
     return logits, avg_loss
 
 
-def _refuse_mesh(shard_tp, shard_dp):
-    if shard_tp or shard_dp:
-        raise NotImplementedError(
-            "shard_tp / shard_dp need a device mesh, a later slice of the "
-            f"torch port (ROADMAP.md item '{MESH}')")
+def _tp_spec_table(cfg):
+    """Megatron splits: qkv/gate/up column-parallel, o/down row-parallel,
+    embedding + lm_head vocab/column split."""
+    table = {"tok_emb": P(None, "tp"), "lm_head": P(None, "tp")}
+    for i in range(cfg.n_layers):
+        table[f"l{i}.wq"] = P(None, "tp")
+        table[f"l{i}.wk"] = P(None, "tp")
+        table[f"l{i}.wv"] = P(None, "tp")
+        table[f"l{i}.wo"] = P("tp", None)
+        table[f"l{i}.w_gate"] = P(None, "tp")
+        table[f"l{i}.w_up"] = P(None, "tp")
+        table[f"l{i}.w_down"] = P("tp", None)
+    return table
+
+
+# the generator's Megatron splits on the stacked [L, in, out] weights
+# over 'tp'; MoE experts split inside each expert (hidden dim), the
+# router replicated
+_GEN_TP_SPECS = {
+    "blocks.wq": P(None, None, "tp"), "blocks.wk": P(None, None, "tp"),
+    "blocks.wv": P(None, None, "tp"), "blocks.wo": P(None, "tp", None),
+    "blocks.w_gate": P(None, None, "tp"), "blocks.w_up": P(None, None, "tp"),
+    "blocks.w_down": P(None, "tp", None),
+    "blocks.moe_w_gate": P(None, None, None, "tp"),
+    "blocks.moe_w_up": P(None, None, None, "tp"),
+    "blocks.moe_w_down": P(None, None, "tp", None),
+    "tok_emb": P(None, "tp"), "lm_head": P(None, "tp")}
 
 
 def build_llama_generator(cfg, tokens, max_new_tokens,
@@ -212,9 +259,12 @@ def build_llama_generator(cfg, tokens, max_new_tokens,
     scope converts with :func:`stack_generator_weights`). Returns the
     [batch, prompt + max_new] token variable; with ``return_probs``,
     ``(tokens, probs)``, ``probs`` being the first decode step's [batch,
-    vocab] distribution from the prefill cache alone."""
-    _refuse_mesh(shard_tp, shard_dp)
-    return tfl.llama_generate(
+    vocab] distribution from the prefill cache alone. MoE configs decode
+    with the drop-free top-k routing of training's test mode.
+    ``shard_tp`` annotates the Megatron splits of the stacked weights
+    over 'tp' and ``shard_dp`` the batch over 'dp', for
+    ``parallel.ParallelExecutor``."""
+    out = tfl.llama_generate(
         tokens, vocab_size=cfg.vocab_size, dim=cfg.dim,
         n_layers=cfg.n_layers, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, ffn_hidden=cfg.ffn_hidden,
@@ -225,6 +275,16 @@ def build_llama_generator(cfg, tokens, max_new_tokens,
         moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
         unroll_layers=unroll_layers, decode_unroll=decode_unroll,
         kv_int8=kv_int8, return_probs=return_probs)
+    gen = out[0] if return_probs else out
+    if shard_tp:
+        gb = tokens.block.program.global_block()
+        for name, spec in _GEN_TP_SPECS.items():
+            if name in gb.vars:
+                gb.vars[name].sharding = spec
+    if shard_dp:
+        tokens.sharding = P("dp", None)
+        gen.sharding = P("dp", None)
+    return out
 
 
 def build_llama_spec_generator(cfg, draft_cfg, tokens, max_new_tokens,
@@ -509,6 +569,8 @@ def _scope(scope):
 
 
 def _tensor(v):
+    from ..core.executor import global_value
+    v = global_value(v)
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(
         np.asarray(v))
 
@@ -528,22 +590,32 @@ def stack_generator_weights(cfg, scope=None, name="blocks"):
     """Convert a scope trained with the PER-LAYER weight layout (the
     unstacked ``build_llama`` path) into the layer-stacked ``{name}.*``
     tensors the generator reads: ``l{i}.wq [d, H*hd]`` -> ``blocks.wq
-    [L, d, H*hd]`` etc., on the weights' own device. The per-layer
-    entries stay in the scope. MoE tables wait for ROADMAP.md item
-    'Multi-device parallelism'."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "stacking MoE expert tables is a later slice of the torch port "
-            f"(ROADMAP.md item '{MESH}')")
+    [L, d, H*hd]`` etc., on the weights' own device. Norms and MoE
+    tables stack the same way (``l{i}.moe.router`` -> ``blocks.
+    moe_router`` [L, d, E], the expert tables [L, E, ...]). The per-layer
+    entries stay in the scope."""
     scope = _scope(scope)
-    for sfx in GENERATOR_STACK_SUFFIXES:
+
+    def stack(fmt):
         rows = []
         for i in range(cfg.n_layers):
-            v = scope.find_var(f"l{i}.{sfx}")
+            v = scope.find_var(fmt.format(i=i))
             if v is None:
-                raise KeyError(f"missing trained weight l{i}.{sfx}")
+                raise KeyError(f"missing trained weight {fmt.format(i=i)}")
             rows.append(_tensor(v))
-        scope.set(f"{name}.{sfx}", torch.stack(rows))
+        return torch.stack(rows)
+
+    suffixes = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"]
+    if cfg.moe_experts > 0:
+        for stacked, per_layer in (("moe_router", "moe.router"),
+                                   ("moe_w_gate", "moe.w_gate"),
+                                   ("moe_w_up", "moe.w_up"),
+                                   ("moe_w_down", "moe.w_down")):
+            scope.set(f"{name}.{stacked}", stack("l{i}." + per_layer))
+    else:
+        suffixes += ["w_gate", "w_up", "w_down"]
+    for sfx in suffixes:
+        scope.set(f"{name}.{sfx}", stack("l{i}." + sfx))
 
 
 def _quantize_columns(w):
@@ -568,9 +640,14 @@ def quantize_generator_weights(scope=None, name="blocks",
     one block of head columns) at a time, so the float32 temporaries stay
     a layer's size; the int8 values and scales are the reference's numpy
     recipe bit for bit. The scope's entries are replaced, not written
-    into: a tensor another scope also holds keeps its float values."""
+    into: a tensor another scope also holds keeps its float values. An
+    MoE scope's expert stacks [L, E, in, out] get one scale per layer x
+    expert x output channel ([L, E, 1, out]); its router stays float."""
     scope = _scope(scope)
-    for suffix in _QUANT_SUFFIXES:
+    moe = scope.find_var(f"{name}.moe_router") is not None
+    suffixes = (("wq", "wk", "wv", "wo", "moe_w_gate", "moe_w_up",
+                 "moe_w_down") if moe else _QUANT_SUFFIXES)
+    for suffix in suffixes:
         n = f"{name}.{suffix}"
         v = scope.find_var(n)
         if v is None:
@@ -578,14 +655,14 @@ def quantize_generator_weights(scope=None, name="blocks",
                 f"missing {n!r} in scope — run the startup program (or "
                 "stack_generator_weights on a trained per-layer scope) "
                 "before quantize_generator_weights")
-        w = _tensor(v)                                  # [L, in, out]
+        w = _tensor(v)                      # [L, in, out] / [L, E, in, out]
         wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-        scale = torch.empty((w.shape[0], 1, w.shape[-1]),
+        scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
                             dtype=torch.float32, device=w.device)
-        for i in range(w.shape[0]):
-            wq[i], scale[i] = _quantize_columns(w[i])
+        for idx in np.ndindex(*w.shape[:-2]):
+            wq[idx], scale[idx] = _quantize_columns(w[idx])
         scope.set(n, wq)
-        scope.set(n + "@scale", scale)                  # [L, 1, out]
+        scope.set(n + "@scale", scale)      # [L, 1, out] / [L, E, 1, out]
     head = _tensor(scope.find_var(head_name))           # [D, V]
     hq = torch.empty(head.shape, dtype=torch.int8, device=head.device)
     hscale = torch.empty(head.shape[1], dtype=torch.float32,

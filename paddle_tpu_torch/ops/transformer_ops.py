@@ -13,8 +13,8 @@ reference and no Pallas kernel exists for them. Attention goes through
 K1 forward and K2/K3 backward (ops/flash_attention.py). The generators'
 cached attention and the paged ops' attention are plain torch too, as
 the reference's are plain jax (grouped einsums against the n_kv cache).
-The 1F1B pipelined loss comes with ROADMAP.md item 'Multi-device
-parallelism'.
+The 1F1B pipelined loss comes with the pipeline part of ROADMAP.md item
+'Multi-device parallelism'.
 """
 import math
 
@@ -25,7 +25,7 @@ from ..core.lowering import _mix_seed
 from ..core.registry import register_op
 from ..waiting import MESH, module_getattr
 from .flash_attention import flash_attention
-from .moe import _act_quant
+from .moe import _act_quant, moe_apply_no_drop, moe_apply_no_drop_q
 
 # the reference's helper of the 1F1B pipelined loss
 WAITING = {"_llama_stack_1f1b_loss": MESH}
@@ -114,9 +114,10 @@ def attention_core(q, k, v, causal=True, scale=None):
     """GQA-aware attention on [B, T, H, D] tensors: repeats each kv head
     for its group of q heads (``repeat_interleave``, as the reference's
     ``jnp.repeat`` on the head axis), moves heads next to batch and runs
-    the flash kernel. The reference's ring-attention branch needs a
-    device mesh, which the port does not have yet (ROADMAP.md item
-    'Multi-device parallelism')."""
+    the flash kernel. Under a device mesh it runs on each rank's own
+    batch and heads (parallel/spmd.py). The reference's ring-attention
+    branch (a mesh 'sp' axis) comes with the second part of ROADMAP.md
+    item 'Multi-device parallelism'."""
     if k.shape[2] != q.shape[2]:  # GQA repeat kv heads
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
@@ -142,6 +143,11 @@ def _silu(ctx, ins, attrs):
 
 _STACK_SLOTS = ("AttnNorm", "Wq", "Wk", "Wv", "Wo",
                 "MlpNorm", "WGate", "WUp", "WDown")
+_MOE_SLOTS = ("MoeRouter", "MoeWGate", "MoeWUp", "MoeWDown")
+# the attribute under which a mesh's rule (parallel/spmd.py) hands
+# llama_generate the tensor-parallel sum of decoder_block's ``reduce``;
+# never stored on a program
+TP_REDUCE = "__tp_reduce__"
 _MATMUL_SLOTS = ("Wq", "Wk", "Wv", "Wo", "WGate", "WUp", "WDown")
 
 # int8 x int8 products summed in float32 stay exact while every partial
@@ -230,7 +236,7 @@ def _reject_quant_scales(ins, op_name):
 
 
 def decoder_block(p, h, *, n_heads, n_kv, base, eps, pos, attend_fn,
-                  moe_top_k=2):
+                  moe_top_k=2, reduce=None):
     """One Llama decoder block over one layer's weights ``p`` (the
     ``_STACK_SLOTS``, with ``<Slot>Scale`` companions for int8 weights)
     — the single copy of the block math shared by training
@@ -239,9 +245,13 @@ def decoder_block(p, h, *, n_heads, n_kv, base, eps, pos, attend_fn,
     rms_norm → SwiGLU → residual. ``attend_fn(q, k, v) -> [b, t,
     n_heads*hd]`` gets the roped q/k and raw v ([b, t, heads, hd]) and
     owns the attention (and any KV-cache side effects). Every product
-    goes through :func:`qmat`. The reference's MoE FFN branch
-    (``moe_top_k``) comes with ROADMAP.md item 'Multi-device
-    parallelism'."""
+    goes through :func:`qmat`. With ``MoeRouter`` in ``p`` the FFN is
+    the drop-free MoE (ops/moe.py, ``moe_top_k`` experts a token), as
+    training's ``moe_ffn`` in test mode, so cached decoding reproduces
+    the eval forward; int8 expert stacks (``MoeWGateScale``...) run
+    W8A8. ``reduce`` (tensor parallelism: ``p`` holds this rank's
+    column / row blocks and ``n_heads``/``n_kv`` its heads) sums the
+    row-split products' partial results over the ranks."""
     b, t, _ = h.shape
     hd = p["Wq"].shape[-1] // n_heads
     pre = rms_normalize(h, p["AttnNorm"], eps)
@@ -250,15 +260,25 @@ def decoder_block(p, h, *, n_heads, n_kv, base, eps, pos, attend_fn,
     k = apply_rope_at(qmat(pre, p, "Wk").reshape(b, t, n_kv, hd), pos,
                       base)
     v = qmat(pre, p, "Wv").reshape(b, t, n_kv, hd)
-    h = h + qmat(attend_fn(q, k, v), p, "Wo")
+    reduce = reduce or (lambda y: y)
+    h = h + reduce(qmat(attend_fn(q, k, v), p, "Wo"))
     pre2 = rms_normalize(h, p["MlpNorm"], eps)
     if p.get("MoeRouter") is not None:
-        raise NotImplementedError(
-            "MoE FFNs in the decoder block are a later slice of the torch "
-            f"port (ROADMAP.md item '{MESH}')")
+        d_model = h.shape[-1]
+        xt = pre2.reshape(b * t, d_model)
+        if p.get("MoeWGateScale") is not None:      # W8A8 expert stacks
+            out = moe_apply_no_drop_q(
+                xt, p["MoeRouter"], p["MoeWGate"], p["MoeWUp"],
+                p["MoeWDown"],
+                {"gate": p["MoeWGateScale"], "up": p["MoeWUpScale"],
+                 "down": p["MoeWDownScale"]}, moe_top_k)
+        else:
+            out = moe_apply_no_drop(xt, p["MoeRouter"], p["MoeWGate"],
+                                    p["MoeWUp"], p["MoeWDown"], moe_top_k)
+        return h + reduce(out.reshape(b, t, d_model))
     g = qmat(pre2, p, "WGate")
     u = qmat(pre2, p, "WUp")
-    return h + qmat((g * torch.sigmoid(g)) * u, p, "WDown")
+    return h + reduce(qmat((g * torch.sigmoid(g)) * u, p, "WDown"))
 
 
 def make_flash_block(n_heads, n_kv, base, eps, remat=True):
@@ -298,8 +318,10 @@ def _llama_decoder_stack(ctx, ins, attrs):
     On one device ``scan_unroll`` and ``n_micro`` change nothing, as in
     the reference's ``pp <= 1`` branch: there is no scan to unroll, and
     microbatches only shape the pipeline schedule of a mesh with a 'pp'
-    axis, which the port does not have yet (ROADMAP.md item
-    'Multi-device parallelism'). Each layer's weights are ``unbind``
+    axis, which comes with the pipeline part of ROADMAP.md item
+    'Multi-device parallelism' (under a mesh without one the op runs on
+    each rank's batch block, parallel/spmd.py). Each layer's weights are
+    ``unbind``
     views of the stacks, so the backward writes each stack's gradient
     once."""
     x = ins["X"][0]                                     # [B, T, D]
@@ -343,7 +365,8 @@ def _categorical(gen, logits):
 
 
 def _make_cached_runner(params, emb_w, fnorm, head, *, n_heads, n_kv,
-                        base, eps, b, total, moe_top_k=2, kv_int8=False):
+                        base, eps, b, total, moe_top_k=2, kv_int8=False,
+                        reduce=None):
     """KV-cached model runner shared by llama_generate and
     llama_spec_generate: returns (run_layers, logits_all, k_cache,
     v_cache) over one model's stacked weights ``params`` (slot -> [L,
@@ -352,7 +375,7 @@ def _make_cached_runner(params, emb_w, fnorm, head, *, n_heads, n_kv,
     small n_kv cache, never expanded to n_heads (that would cost rep x
     the bandwidth the small cache exists to save), with each step's K/V
     written into the cache before it is attended. ``run_layers`` writes
-    the caches in place."""
+    the caches in place. ``reduce``: see :func:`decoder_block`."""
     n_layers = params["Wq"].shape[0]
     hd = params["Wq"].shape[-1] // n_heads
     rep = n_heads // n_kv
@@ -413,7 +436,7 @@ def _make_cached_runner(params, emb_w, fnorm, head, *, n_heads, n_kv,
 
         return decoder_block(layers[i], h, n_heads=n_heads, n_kv=n_kv,
                              base=base, eps=eps, pos=pos, attend_fn=attend,
-                             moe_top_k=moe_top_k)
+                             moe_top_k=moe_top_k, reduce=reduce)
 
     def run_layers(h, k_caches, v_caches, t0, t_len):
         """h [b, t_len, D] at positions t0.. (an int or a 0-dim tensor)
@@ -466,18 +489,18 @@ def _llama_generate(ctx, ins, attrs):
     Rows that emit ``eos_id`` emit ``pad_id`` from then on; the loop runs
     its fixed count regardless, as the reference's static scan does (no
     early exit). ``unroll_layers`` and ``decode_unroll`` choose XLA's
-    unrolling in the reference and change nothing here. MoE inputs wait
-    for ROADMAP.md item 'Multi-device parallelism'.
+    unrolling in the reference and change nothing here. MoE inputs
+    (``_MOE_SLOTS``, with int8 ``<Slot>Scale`` companions for the expert
+    stacks) make every layer's FFN the drop-free MoE.
 
     Tokens [B, T_prompt] int; Out [B, T_prompt + max_new_tokens]; with
     ``return_probs`` also FirstProbs [B, V], the first decode step's
     distribution from the prefill cache alone.
     """
-    _refuse_moe(ins, "llama_generate")
     tokens = ins["Tokens"][0]
     emb_w = ins["Emb"][0]                               # [V, D]
-    params = {s: ins[s][0] for s in _STACK_SLOTS if s in ins}
-    for s in _MATMUL_SLOTS:
+    params = {s: ins[s][0] for s in _STACK_SLOTS + _MOE_SLOTS if s in ins}
+    for s in _MATMUL_SLOTS + ("MoeWGate", "MoeWUp", "MoeWDown"):
         if s + "Scale" in ins:
             params[s + "Scale"] = ins[s + "Scale"][0]
     head_scale = ins["LmHeadScale"][0] if "LmHeadScale" in ins else None
@@ -503,7 +526,8 @@ def _llama_generate(ctx, ins, attrs):
         params, emb_w, fnorm, head, n_heads=n_heads, n_kv=n_kv,
         base=attrs.get("rope_base", 10000.0), eps=eps, b=b, total=total,
         moe_top_k=int(attrs.get("moe_top_k", 2)),
-        kv_int8=bool(attrs.get("kv_int8", False)))
+        kv_int8=bool(attrs.get("kv_int8", False)),
+        reduce=attrs.get(TP_REDUCE))
 
     def logits_of(h_last):
         hn = rms_normalize(h_last, fnorm, eps)

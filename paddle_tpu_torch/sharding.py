@@ -3,9 +3,8 @@
 The reference annotates variables with ``jax.sharding.PartitionSpec``
 (``var.sharding = P("mp", None)``) and its ParallelExecutor reads them.
 The port keeps the annotations on the program, so both packages build
-the same program, with this small type in place of jax's. Nothing reads
-them until multi-device execution is ported (ROADMAP.md item
-'Multi-device parallelism').
+the same program, with this small type in place of jax's; the port's
+ParallelExecutor (``parallel/``) places each value per its spec.
 """
 
 __all__ = ["PartitionSpec"]

@@ -59,8 +59,10 @@ def tensor_to_array(t, bfloat16=None):
     """One tensor as a host numpy array of its own (never a view of the
     tensor: a train step that donates its state updates the scope's
     tensors in place). bfloat16 comes back as its bits viewed as
-    ``bfloat16`` (a numpy dtype) when given, else as float32."""
-    t = t.detach().cpu()
+    ``bfloat16`` (a numpy dtype) when given, else as float32. A placed
+    value (a ParallelExecutor's DTensor) gives its global value."""
+    from .core.executor import global_value
+    t = global_value(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         if bfloat16 is None:
             return t.float().numpy()

@@ -319,23 +319,38 @@ def test_eos_masks_remaining_tokens():
 
 
 def test_mesh_and_moe_generation_refused_by_name():
-    """The reference's mesh and MoE generation cases (tp/dp sharding, the
-    MoE stacks, W8A8 on a dp mesh, quantized MoE) wait for ROADMAP item
-    'Multi-device parallelism'."""
-    item = "Multi-device parallelism"
+    """The mesh and MoE generation cases build now (tp/dp
+    sharding annotations, the MoE stacks, W8A8 on a dp mesh, quantized
+    MoE; tests/test_torch_llama_mesh.py runs them); what stays refused,
+    by name: speculative decoding and the paged engine with MoE
+    configs, as in the reference."""
     for kw in (dict(shard_tp=True), dict(shard_dp=True),
                dict(quantize=True, shard_dp=True)):
-        with pytest.raises(NotImplementedError, match=item):
-            _gen(tfluid, tllama, max_new_tokens=NEW, **kw)
+        prog, _, outs = _gen(tfluid, tllama, max_new_tokens=NEW, **kw)
+        gb = prog.global_block()
+        if kw.get("shard_tp"):
+            assert gb.var("blocks.wq").sharding == (None, None, "tp")
+            assert gb.var("blocks.wo").sharding == (None, "tp", None)
+        if kw.get("shard_dp"):
+            assert outs[0].sharding == ("dp", None)
     moe = dict(CFG, ffn_hidden=48, moe_experts=4)
     for kw in ({}, dict(quantize=True)):
-        with pytest.raises(NotImplementedError, match=item):
-            _gen(tfluid, tllama, moe, max_new_tokens=NEW, **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tllama.stack_generator_weights(tllama.LlamaConfig(**moe),
-                                       tfluid.Scope())
-    with pytest.raises(NotImplementedError, match=item):
-        tmoe.moe_apply_no_drop
+        prog, _, _ = _gen(tfluid, tllama, moe, max_new_tokens=NEW, **kw)
+        gb = prog.global_block()
+        assert tuple(gb.var("blocks.moe_w_gate").shape) == (2, 4, 32, 48)
+        assert ("blocks.moe_w_gate@scale" in gb.vars) == bool(kw)
+    assert callable(tmoe.moe_apply_no_drop)
+    mcfg = tllama.LlamaConfig(**moe)
+    with tfluid.unique_name.guard(), tfluid.program_guard(tfluid.Program(),
+                                                          tfluid.Program()):
+        ptok = tfluid.layers.data(name="ptok", shape=[-1, PROMPT],
+                                  dtype="int64", append_batch_size=False)
+        with pytest.raises(NotImplementedError, match="MoE"):
+            tllama.build_llama_spec_generator(mcfg, mcfg, ptok, NEW)
+        with pytest.raises(NotImplementedError, match="MoE"):
+            tllama.build_llama_paged_programs(
+                mcfg, max_batch=2, page_size=4, n_pages=8, pages_per_seq=4,
+                prompt_buckets=(8,))
 
 
 def test_unstacked_dense_weights_generate_via_stacking():

@@ -214,12 +214,18 @@ def test_later_slices_refuse_loudly():
     with pytest.raises(NotImplementedError, match="auto"):
         fluid.memory_optimize(main.clone(), policy="auto")
     for kw, match in ((dict(shard_pp=True, pp_schedule="1f1b"), "1f1b"),
-                      (dict(shard_tp=True), "shard_tp")):
+                      (dict(shard_sp=True), "shard_sp")):
         with pytest.raises(NotImplementedError, match=match):
             train_program(**kw)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tokens = infer.global_block().var("tokens")
-        build_llama(dataclasses.replace(LLAMA_TINY, moe_experts=4), tokens)
+    # item 6a lifted: the mesh knobs and MoE build and run on one device
+    runs(*train_program(shard_dp=True, shard_tp=True))
+    with fluid.unique_name.guard(), fluid.program_guard(fluid.Program(),
+                                                        fluid.Program()):
+        tokens = fluid.layers.data(name="tokens", shape=[-1, -1],
+                                   dtype="int64", append_batch_size=False)
+        _, moe_loss = build_llama(
+            dataclasses.replace(LLAMA_TINY, moe_experts=4), tokens, tokens)
+    assert moe_loss is not None
     # item 1b lifted: a step built from the op library's layers, the
     # operator sugar and a scheduled rate runs
     main, startup = fluid.Program(), fluid.Program()
@@ -238,7 +244,8 @@ def test_later_slices_refuse_loudly():
     for op_type, item in (("im2sequence", "Remaining op families and the zoo"),
                           ("row_conv", "Remaining op families and the zoo"),
                           ("lstm", "Remaining op families and the zoo"),
-                          ("moe_ffn", "Multi-device parallelism"),
+                          ("llama_stack_1f1b_loss",
+                           "Multi-device parallelism"),
                           ("sequence_pool",
                            "Remaining op families and the zoo")):
         prog = main.clone()
@@ -266,7 +273,8 @@ def test_later_slices_refuse_loudly():
     # items 4a (the fused generator) and 4b (the paged decode engine)
     # lifted: the generator builders, the paged programs, their layers,
     # the weight tools and the decode-serving names resolve; still
-    # refused, by name: the mesh knobs and MoE (item 6)
+    # refused, by name: the pipeline schedules and ring attention (item
+    # 6b)
     from paddle_tpu_torch.models import llama as tllama
     for name in ("build_llama_generator", "build_llama_spec_generator",
                  "quantize_generator_weights", "stack_generator_weights",
@@ -286,9 +294,9 @@ def test_later_slices_refuse_loudly():
                  "RetryBudgetExhaustedError"):
         assert callable(getattr(fluid.serving, name))
     assert fluid.serving.PRIORITIES["interactive"] == 0
-    tokens = infer.global_block().var("tokens")
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        tllama.build_llama_generator(LLAMA_TINY, tokens, 4, shard_tp=True)
+    for name in ("gpipe", "one_f_one_b", "ring_attention"):
+        with pytest.raises(NotImplementedError, match="Multi-device"):
+            getattr(fluid.parallel, name)
     # item 3 (IO, persistables and Inferencer) lifted: the load op runs;
     # still refused, by name: replica pools (of either engine) and remote
     # replicas (item 8), sequence readers and feeders (item 7) and a JAX

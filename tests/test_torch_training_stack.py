@@ -430,7 +430,7 @@ def test_stacked_llama_refuses_mesh_knobs_by_name():
                                shard_pp=True, pp_schedule="1f1b")
         with pytest.raises(NotImplementedError, match="mesh"):
             tllama.build_llama(tllama.LLAMA_TINY, tokens, tokens,
-                               shard_pp=True, shard_dp=True)
+                               shard_sp=True)
         with pytest.raises(ValueError, match="shard_pp composes"):
             tllama.build_llama(tllama.LLAMA_TINY, tokens, tokens,
                                shard_pp=True, shard_tp=True)

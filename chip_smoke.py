@@ -232,7 +232,32 @@ Phases — any failure exits non-zero:
    ``lrn``, both interpolations up and down, ``roi_pool`` with an empty
    bin and ``batch_norm`` card against CPU, outputs and gradients; the
    hand-derived ``batch_norm`` backward against
-   ``PADDLE_TPU_BN_AUTODIFF=1`` on the card.
+   ``PADDLE_TPU_BN_AUTODIFF=1`` on the card;
+28. mesh_llama_train, moe_train, moe_generate (ROADMAP item 6a): the 8B
+   width through ``ParallelExecutor`` on the one card's mesh bit-equal
+   to the plain Executor; the Mixtral width's MoE trained and
+   generating;
+29. pipeline_llama_train (ROADMAP item 6b, the main path of this
+   slice): the 8B width at 4 layers, bf16, 4 x 2048 tokens,
+   ``build_llama(shard_pp=True)`` with the GPipe op and with
+   ``pp_schedule="1f1b"`` from one startup scope, each through
+   ``Executor.run`` and ``ParallelExecutor`` on a one-rank
+   {"dp": 1, "pp": 1} mesh: the executors bit-equal (first step's loss
+   and gradients, 3 timed steps, every persistable), the programs'
+   first losses and gradients within the bf16 relative-RMS tier, K1
+   twice and K2/K3 once a layer a step; step ms, launches, peak memory;
+30. pipeline_schedule: ``gpipe`` and ``one_f_one_b`` on a one-rank 'pp'
+   mesh, a 2-layer stage at the 8B width, 4 microbatches of 1 x 2048,
+   bf16 (and float32 at 1 layer, T 512, TF32 off), against plain
+   autograd of the sequential function: loss, stage and head gradients,
+   dx;
+31. ring_attention: the ring's step at the 8B attention width over 8
+   chunks of T 16384 in bf16 against K1 (causal and not), a wrong-offset
+   control that must fail, the float32 gradient over 4 chunks of T 8192
+   against K1-K3, ``ring_attention_sharded`` on a one-rank 'sp' mesh;
+   the ring's time and peak memory beside K1's;
+32. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
+   expected to refuse them: recorded, not gated).
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
 on its kernel symbol, and times them at the head_dim_256 phase's bf16
@@ -447,6 +472,30 @@ MOE_Q_AGREE = 0.9               # tests/test_llama_generate.py:468
 # ulp at ln 32000 is 2**-5 / 10.4 relative)
 MOE_TOL_LOSS = 4e-3
 TWO_RANK_TIMEOUT_S = 120
+# ROADMAP item 6b (the pipeline schedules, ring attention, shard_sp):
+# the 8B width's stacked program with the GPipe op and with the 1F1B
+# op, at PIPE_LAYERS layers on PIPE_BATCH x PIPE_SEQ tokens, PIPE_STEPS
+# timed steps each (one card admits one-rank meshes only, so the 1F1B
+# op runs its single-device branch there); the schedules themselves on
+# a one-rank 'pp' mesh, a stage of SCHED_LAYERS layers, SCHED_MICRO
+# microbatches of 1 x SCHED_SEQ (float32: SCHED_F32_LAYERS layers at
+# SCHED_F32_SEQ); the ring's step at the 8B attention width (B 1, 32
+# heads, D 128) over RING_CHUNKS chunks of RING_SEQ, its gradient over
+# RING_GRAD_CHUNKS chunks of RING_GRAD_SEQ in float32
+PIPE_LAYERS, PIPE_BATCH, PIPE_SEQ, PIPE_STEPS = 4, 4, 2048, 3
+SCHED_LAYERS, SCHED_MICRO, SCHED_SEQ = 2, 4, 2048
+SCHED_F32_LAYERS, SCHED_F32_SEQ = 1, 512
+RING_HEADS, RING_D = 32, 128
+RING_SEQ, RING_CHUNKS = 16384, 8
+RING_GRAD_SEQ, RING_GRAD_CHUNKS = 8192, 4
+RING_MESH_SEQ = 2048
+# the ring's bf16 output against K1: relative RMS error. Each step's
+# probabilities enter P V in bf16, its partial output is bf16, and the
+# accumulator is rounded to bf16 at each of the n merges (the
+# reference's plain step and merge), so the element-wise kernel tier
+# does not apply: ~2n roundings of 2**-9 relative (RMS ~1.1e-3 each)
+# come to ~5e-3 at 8 chunks, and the tier allows 4x that
+RING_TOL_BF16_RMS = 2e-2
 
 # the profiler's kinds and the kernel functions each covers (both routes)
 KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
@@ -5099,9 +5148,7 @@ def phase_mesh_llama_train(torch, fluid, fa, card):
     exe = fluid.Executor()                     # the card: CUDAPlace(0)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    plain_scope = fluid.Scope()
-    for n in scope.keys():
-        plain_scope.set(n, scope.find_var(n).clone())
+    plain_scope = scope_from(fluid, scope.vars)
     mesh = make_mesh({"dp": -1, "tp": 1})
     check(mesh.axes == {"dp": 1, "tp": 1} and mesh.device.type == "cuda",
           f"{tag}: the one card's mesh is {mesh.axes} on {mesh.device}")
@@ -5486,6 +5533,503 @@ def phase_mesh_two_ranks(torch, card):
     return outcome
 
 
+def rel_rms_t(got, want):
+    """Relative RMS error of tensor ``got`` against ``want`` (float32)."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_pipeline_llama_train(torch, fluid, fa, card):
+    """The main path of this slice's pipeline: the Llama-3-8B width cut
+    to PIPE_LAYERS layers, bf16, Adam(1e-4), ``build_llama(shard_pp=True,
+    fused_head_chunk=STACK_CHUNK)`` as two programs over one startup
+    scope — the GPipe op (``llama_decoder_stack``) and
+    ``pp_schedule="1f1b"`` (``llama_stack_1f1b_loss``, head and loss
+    inside the op). One card admits only one-rank meshes, where both ops
+    take their single-device branch (the 1F1B one is the reference's
+    ``test_llama_1f1b_single_device_fallback``). Each program runs
+    through ``Executor.run`` and through ``ParallelExecutor`` on a
+    one-rank {"dp": 1, "pp": 1} NCCL mesh, on copies of the scope, with
+    deterministic algorithms: the first step's loss and every gradient,
+    then PIPE_STEPS timed steps' losses and every persistable after
+    them, bit-equal between the executors; the two programs' first
+    losses and first-step gradients within the bf16 relative-RMS tier
+    (TOL_LOGITS_BF16_RMS) of each other; K1 twice (remat) and K2/K3 once
+    a layer a step on the tensor cores. Records each program's step ms
+    on both executors, its launches a step and peak memory. Returns
+    ({program: launches by kernel of its timed Executor steps}, stats)."""
+    from paddle_tpu_torch.core.executor import global_value
+    from paddle_tpu_torch.models.llama import LLAMA3_8B
+    from paddle_tpu_torch.parallel import make_mesh
+    tag = "pipeline_llama_train"
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=PIPE_LAYERS)
+    progs = {"gpipe": build_train(fluid, cfg, 1e-4, shard_pp=True,
+                                  fused_head_chunk=STACK_CHUNK),
+             "1f1b": build_train(fluid, cfg, 1e-4, shard_pp=True,
+                                 pp_schedule="1f1b",
+                                 fused_head_chunk=STACK_CHUNK)}
+    op_types = {n: [op.type for op in m.global_block().ops]
+                for n, (m, _, _) in progs.items()}
+    check("llama_decoder_stack" in op_types["gpipe"]
+          and "llama_stack_1f1b_loss" in op_types["1f1b"]
+          and "llama_decoder_stack" not in op_types["1f1b"],
+          f"{tag}: the programs' ops {op_types}")
+    persist = {n: sorted(v for v, var in m.global_block().vars.items()
+                         if var.persistable) for n, (m, _, _) in progs.items()}
+    check(persist["gpipe"] == persist["1f1b"],
+          f"{tag}: the programs' persistables differ: "
+          f"{set(persist['gpipe']) ^ set(persist['1f1b'])}")
+    exe = fluid.Executor()                     # the card: CUDAPlace(0)
+    init = fluid.Scope()
+    exe.run(progs["gpipe"][1], scope=init)
+    feed = train_feed(cfg.vocab_size, PIPE_BATCH, PIPE_SEQ)
+    mesh = make_mesh({"dp": 1, "pp": 1})
+    check(mesh.axes == {"dp": 1, "pp": 1} and mesh.device.type == "cuda",
+          f"{tag}: the one card's mesh is {mesh.axes} on {mesh.device}")
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    expected = math.log(cfg.vocab_size) + cfg.dim * INIT_STD ** 2 / 2
+    first, launches, stats = {}, {}, {"layers": cfg.n_layers,
+                                      "batch": [PIPE_BATCH, PIPE_SEQ],
+                                      "mesh": mesh.axes, "card": card}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for name, (main, _, loss) in progs.items():
+                grads = sorted(v for v in main.global_block().vars
+                               if v.endswith("@GRAD"))
+                e_scope, p_scope = scope_from(fluid, init.vars), \
+                    scope_from(fluid, init.vars)
+                pe = fluid.ParallelExecutor(loss_name=loss.name,
+                                            main_program=main,
+                                            scope=p_scope, mesh=mesh)
+                # the first step, every gradient fetched, on both
+                ge = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                             scope=e_scope, return_numpy=False)
+                gp = [global_value(g) for g in pe.run(
+                    fetch_list=[loss.name] + grads, feed=feed,
+                    return_numpy=False)]
+                differing = [n for n, a, b in zip(["loss"] + grads, ge, gp)
+                             if not torch.equal(a, b)]
+                check(not differing,
+                      f"{tag} {name}: the ParallelExecutor's first step "
+                      f"differs from the Executor's in {differing[:6]}")
+                del gp
+                first[name] = (float(ge[0].reshape(())),
+                               dict(zip(grads, ge[1:])))
+                del ge
+                check(abs(first[name][0] - expected) < 0.5,
+                      f"{tag} {name}: first loss {first[name][0]:.4f} not "
+                      f"within 0.5 of {expected:.4f}")
+                # the main path: counts reset just before, read just after
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated() / 1e9
+                torch.cuda.reset_peak_memory_stats()
+                fa.reset_launch_counts()
+                e_losses, e_ms = [], []
+                for _ in range(PIPE_STEPS):
+                    out, ms = timed(torch, lambda: exe.run(
+                        main, feed=feed, fetch_list=[loss], scope=e_scope))
+                    e_losses.append(float(np.asarray(out[0]).reshape(())))
+                    e_ms.append(ms)
+                counts = [w.launches for w in wrappers]
+                launches[name] = launches_by_kernel(fa)
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                p_losses, p_ms = [], []
+                for _ in range(PIPE_STEPS):
+                    out, ms = timed(torch, lambda: pe.run(
+                        feed=feed, fetch_list=[loss.name]))
+                    p_losses.append(float(np.asarray(out[0]).reshape(())))
+                    p_ms.append(ms)
+                differing = [n for n in e_scope.keys() if not torch.equal(
+                    global_value(p_scope.find_var(n)), e_scope.find_var(n))]
+                check(p_losses == e_losses,
+                      f"{tag} {name}: ParallelExecutor losses {p_losses} "
+                      f"are not the Executor's {e_losses} bit for bit")
+                check(not differing,
+                      f"{tag} {name}: {len(differing)} persistables differ "
+                      f"after {PIPE_STEPS} steps: {differing[:6]}")
+                check(all(math.isfinite(x) for x in e_losses)
+                      and e_losses[-1] < first[name][0],
+                      f"{tag} {name}: losses {first[name][0]} then "
+                      f"{e_losses}")
+                for k, w, n, per in zip(("K1", "K2", "K3"), wrappers,
+                                        counts, (2, 1, 1)):
+                    check(n == per * cfg.n_layers * PIPE_STEPS,
+                          f"{tag} {name}: {k} launched {n} times, not "
+                          f"{per} x {cfg.n_layers} layers x {PIPE_STEPS} "
+                          "steps")
+                    _, variant = fa.kernel_for(w.__name__, torch.bfloat16,
+                                               128)
+                    check(launches[name][variant] == n,
+                          f"{tag} {name}: {k} by kernel {launches[name]}: "
+                          f"not all {variant}")
+                stats[name] = {
+                    "first_loss": first[name][0], "losses": e_losses,
+                    "executor_step_ms": e_ms, "pe_step_ms": p_ms,
+                    "tokens_per_s": PIPE_BATCH * PIPE_SEQ
+                    / (float(np.median(e_ms)) / 1e3),
+                    "launches_per_step": [n // PIPE_STEPS for n in counts],
+                    "resident_gb_before": resident, "peak_gb": peak}
+                del e_scope, p_scope, pe
+                free_card(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del init
+    (lg, gg), (lf, gf) = first["gpipe"], first["1f1b"]
+    loss_err = abs(lf - lg) / abs(lg)
+    check(loss_err <= TOL_LOGITS_BF16_RMS and set(gg) == set(gf),
+          f"{tag}: first losses gpipe {lg} vs 1f1b {lf}, gradients "
+          f"{sorted(set(gg) ^ set(gf))}")
+    errs = {n: rel_rms_t(gf[n], gg[n]) for n in gg}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TOL_LOGITS_BF16_RMS,
+          f"{tag}: 1F1B's first-step gradient of {worst} is {errs[worst]:.3e}"
+          f" (relative RMS) from GPipe's, over {TOL_LOGITS_BF16_RMS}")
+    stats["first_loss_rel_err"] = loss_err
+    stats["grads_rel_rms_worst"] = [worst, errs[worst]]
+    stats["grads_checked"] = len(errs)
+    log(f"{tag}: " + json.dumps(stats))
+    return launches, stats
+
+
+def sched_stage(torch, cfg, layers, dtype, dev, gen):
+    """One stage's stacked decoder weights ([1, layers, ...] per slot of
+    ``transformer_ops._STACK_SLOTS``: norms 1, matrices N(0, INIT_STD)),
+    the head's (final norm, lm head [dim, vocab]) and the stage function
+    of the layer-stacked ops (``make_flash_block``, remat on)."""
+    from paddle_tpu_torch.ops import transformer_ops as tops
+    d, hd = cfg.dim, cfg.dim // cfg.n_heads
+    shapes = {"AttnNorm": (d,), "Wq": (d, cfg.n_heads * hd),
+              "Wk": (d, cfg.n_kv_heads * hd),
+              "Wv": (d, cfg.n_kv_heads * hd), "Wo": (cfg.n_heads * hd, d),
+              "MlpNorm": (d,), "WGate": (d, cfg.ffn_hidden),
+              "WUp": (d, cfg.ffn_hidden), "WDown": (cfg.ffn_hidden, d)}
+
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * INIT_STD) \
+            .to(dtype)
+
+    stage = {s: (torch.ones((1, layers) + sh, device=dev, dtype=dtype)
+                 if len(sh) == 1 else normal((1, layers) + sh))
+             for s, sh in shapes.items()}
+    head = {"fnorm": torch.ones(d, device=dev, dtype=dtype),
+            "head": normal((d, cfg.vocab_size))}
+    blk = tops.make_flash_block(cfg.n_heads, cfg.n_kv_heads, cfg.rope_base,
+                                cfg.norm_eps, remat=True)
+    return stage, head, lambda sp, h: tops._run_layers(blk, sp, h)
+
+
+def sched_loss(cfg):
+    """The 1F1B op's loss of a microbatch: final rms_norm, then the
+    vocab-chunked cross entropy's mean."""
+    from paddle_tpu_torch.ops.fused_loss import fused_head_cross_entropy
+    from paddle_tpu_torch.ops.transformer_ops import rms_normalize
+
+    def ce(lp, y, t):
+        h = rms_normalize(y, lp["fnorm"], cfg.norm_eps)
+        return fused_head_cross_entropy(h.reshape(-1, h.shape[-1]),
+                                        lp["head"], t.reshape(-1),
+                                        STACK_CHUNK).mean()
+    return ce
+
+
+def sched_case(torch, fa, cfg, layers, seq, dtype, mesh, seed):
+    """gpipe and one_f_one_b(loss_params=True, return_dx=True) on a
+    one-rank 'pp' mesh against plain autograd of the sequential function
+    (the stage over each microbatch, the mean of the microbatches'
+    losses): {schedule: (loss, {gradient name: tensor}, [K1, K2, K3
+    launches], launches by kernel)}."""
+    from paddle_tpu_torch.parallel.pipeline import gpipe, one_f_one_b
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + seed)
+    stage, head, stage_fn = sched_stage(torch, cfg, layers, dtype, dev, gen)
+    ce = sched_loss(cfg)
+    x = torch.randn((SCHED_MICRO, 1, seq, cfg.dim), generator=gen,
+                    device=dev).to(dtype)
+    y = torch.randint(0, cfg.vocab_size, (SCHED_MICRO, 1, seq),
+                      generator=gen, device=dev)
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+
+    def leaves():
+        return ({s: w.detach().clone().requires_grad_()
+                 for s, w in stage.items()},
+                {s: w.detach().clone().requires_grad_()
+                 for s, w in head.items()},
+                x.detach().clone().requires_grad_())
+
+    def by_autograd(total, sp, lp, xl):
+        names = [f"stage.{s}" for s in sp] + [f"head.{s}" for s in lp] + [
+            "dx"]
+        got = torch.autograd.grad(total, list(sp.values())
+                                  + list(lp.values()) + [xl])
+        return float(total.detach()), dict(zip(names, got))
+
+    def sequential():
+        sp, lp, xl = leaves()
+        layers_ = {s: w[0] for s, w in sp.items()}
+        total = sum(ce(lp, stage_fn(layers_, xl[k]), y[k])
+                    for k in range(SCHED_MICRO)) / SCHED_MICRO
+        return by_autograd(total, sp, lp, xl)
+
+    def piped():
+        sp, lp, xl = leaves()
+        out = gpipe(stage_fn, mesh, checkpoint_stages=False)(sp, xl)
+        total = sum(ce(lp, out[k], y[k])
+                    for k in range(SCHED_MICRO)) / SCHED_MICRO
+        return by_autograd(total, sp, lp, xl)
+
+    def one_f_one_b_():
+        step = one_f_one_b(stage_fn, ce, mesh, loss_params=True,
+                           return_dx=True)
+        loss, grads, lgrads, dx = step(stage, head, x, y)
+        out = {f"stage.{s}": g for s, g in grads.items()}
+        out.update({f"head.{s}": g for s, g in lgrads.items()})
+        out["dx"] = dx
+        return float(loss), out
+
+    res = {}
+    for name, fn in (("sequential", sequential), ("gpipe", piped),
+                     ("1f1b", one_f_one_b_)):
+        fa.reset_launch_counts()
+        loss, grads = fn()
+        torch.cuda.synchronize()
+        res[name] = (loss, grads, [w.launches for w in wrappers],
+                     launches_by_kernel(fa))
+    return res
+
+
+def phase_pipeline_schedule(torch, fa, card):
+    """The schedules themselves on the card: ``gpipe`` and
+    ``one_f_one_b(loss_params=True, return_dx=True)`` on a one-rank
+    {"pp": 1} NCCL mesh, a stage of SCHED_LAYERS decoder layers at the 8B
+    width with the 8B head and loss, SCHED_MICRO microbatches of 1 x
+    SCHED_SEQ, in bf16: loss, stage gradients, head gradients and dx
+    against plain autograd of the sequential function within the bf16
+    relative-RMS tier; then in float32 at SCHED_F32_LAYERS layer(s) and
+    T SCHED_F32_SEQ with TF32 off, at the f32 gradient tier. A one-stage
+    pipeline exchanges nothing: its ticks, the 1F1B slot ring, the
+    in-schedule recompute and the accumulation are what run. Returns
+    ({schedule: the bf16 case's launches by kernel}, stats)."""
+    from paddle_tpu_torch.models.llama import LLAMA3_8B
+    from paddle_tpu_torch.parallel import collectives, make_mesh
+    tag = "pipeline_schedule"
+    mesh = make_mesh({"pp": 1})
+    cfg = LLAMA3_8B
+    log(f"{tag}: a one-stage pipeline exchanges nothing (each permute is "
+        "a copy to itself; the shares and sums over 'pp' are one-rank "
+        "all-reduces): what runs is the schedules' ticks, 1F1B's slot "
+        "ring, its in-schedule recompute and the accumulation")
+    stats = {"card": card, "mesh": mesh.axes}
+    allow = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for label, layers, seq, dtype in (
+                ("bf16", SCHED_LAYERS, SCHED_SEQ, torch.bfloat16),
+                ("f32", SCHED_F32_LAYERS, SCHED_F32_SEQ, torch.float32)):
+            torch.backends.cuda.matmul.allow_tf32 = False
+            with collectives.counting() as coll:
+                res = sched_case(torch, fa, cfg, layers, seq, dtype, mesh,
+                                 seed=21 if label == "bf16" else 22)
+            want_loss, want = res["sequential"][:2]
+            worst = {}
+            for name in ("gpipe", "1f1b"):
+                loss, grads = res[name][:2]
+                check(set(grads) == set(want),
+                      f"{tag} {label} {name}: gradients {sorted(grads)}")
+                if label == "bf16":
+                    errs = {g: rel_rms_t(grads[g], want[g]) for g in want}
+                    errs["loss"] = abs(loss - want_loss) / abs(want_loss)
+                    bad = {g: e for g, e in errs.items()
+                           if not e <= TOL_LOGITS_BF16_RMS}
+                    check(not bad, f"{tag} bf16 {name}: relative RMS "
+                          f"errors over {TOL_LOGITS_BF16_RMS}: {bad}")
+                else:
+                    errs = {}
+                    for g in want:
+                        ok, err = allclose_err(grads[g], want[g],
+                                               TOL_GRAD_F32)
+                        check(ok, f"{tag} f32 {name}: {g} off by {err:.3e}"
+                              f" (rtol, atol {TOL_GRAD_F32})")
+                        errs[g] = err
+                    check(abs(loss - want_loss) <= TOL_GRAD_F32[1]
+                          + TOL_GRAD_F32[0] * abs(want_loss),
+                          f"{tag} f32 {name}: loss {loss} vs {want_loss}")
+                    errs["loss"] = abs(loss - want_loss)
+                w = max(errs, key=errs.get)
+                worst[name] = [w, errs[w]]
+            k1 = {n: r[2] for n, r in res.items()}
+            # the stage's layers run the flash kernels in every schedule:
+            # the sequential and GPipe forward once and recompute once
+            # (remat) a layer a microbatch, 1F1B forward, recompute
+            # under its in-schedule grad and again in the backward
+            m, nl = SCHED_MICRO, layers
+            want_k = {"sequential": [2 * nl * m, nl * m, nl * m],
+                      "gpipe": [2 * nl * m, nl * m, nl * m],
+                      "1f1b": [3 * nl * m, nl * m, nl * m]}
+            check(k1 == want_k, f"{tag} {label}: K1/K2/K3 launches "
+                  f"{k1}, expected {want_k}")
+            stats[label] = {"layers": layers, "seq": seq,
+                            "loss": {n: r[0] for n, r in res.items()},
+                            "worst_err": worst, "launches_k1_k2_k3": k1,
+                            "collectives": dict(coll)}
+            if label == "bf16":
+                launches = {n: r[3] for n, r in res.items()}
+            del res
+            free_card(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    log(f"{tag}: " + json.dumps(stats))
+    return launches, stats
+
+
+def ring_rows(torch, q, k, v, n, i, causal, zero_offsets=False):
+    """Query chunk i's ring output over n chunks of q, k, v [B, H, T, D]:
+    the steps rank i of an n-rank 'sp' axis runs
+    (``parallel.ring_attention.ring_step``). At step s it attends chunk
+    (i - s) mod n, masked at global positions, or, with
+    ``zero_offsets``, as if both chunks started at 0 (a wrong bias: the
+    control). Differentiable."""
+    from paddle_tpu_torch.parallel.ring_attention import ring_step
+    tl = q.shape[2] // n
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qi = q[:, :, i * tl:(i + 1) * tl]
+    o = torch.zeros_like(qi)
+    lse = torch.full(qi.shape[:3], -1e30, dtype=torch.float32,
+                     device=q.device)
+    for s in range(n):
+        src = (i - s) % n
+        q_off, k_off = (0, 0) if zero_offsets else (i * tl, src * tl)
+        o, lse = ring_step(qi, k[:, :, src * tl:(src + 1) * tl],
+                           v[:, :, src * tl:(src + 1) * tl], o, lse, q_off,
+                           k_off, causal, scale)
+    return o
+
+
+def ring_over_chunks(torch, q, k, v, n, causal, zero_offsets=False):
+    """The ring's output over n chunks: every query chunk's rows."""
+    return torch.cat([ring_rows(torch, q, k, v, n, i, causal, zero_offsets)
+                      for i in range(n)], dim=2)
+
+
+def phase_ring_attention(torch, fa, card):
+    """The ring's step (``ring_step``: the bias from the chunks' global
+    offsets, the plain biased attention, the lse merge — the code each
+    rank of an 'sp' axis runs) at the 8B attention width (B 1, 32 heads,
+    D 128) on the card. Forward: T RING_SEQ as RING_CHUNKS chunks in
+    bf16 against K1 over the whole sequence, causal and not, within
+    RING_TOL_BF16_RMS (relative RMS); the same ring with a bias built as
+    if every chunk started at 0 (the control) must miss it. Gradient: T
+    RING_GRAD_SEQ as RING_GRAD_CHUNKS chunks in float32 (TF32 off) against
+    K1-K3 at the f32 gradient tier. ``ring_attention_sharded`` on a
+    one-rank 'sp' NCCL mesh at T RING_MESH_SEQ against K1. Records the
+    ring's and K1's time and peak memory (the plain step materialises
+    [32, Tl, Tl] float32 scores). Returns stats."""
+    from torch.distributed.tensor import DTensor, Shard
+    from paddle_tpu_torch.parallel import collectives, make_mesh
+    from paddle_tpu_torch.parallel.ring_attention import \
+        ring_attention_sharded
+    tag = "ring_attention"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+
+    def qkv(seq, dtype, grad=False):
+        return [torch.randn((1, RING_HEADS, seq, RING_D), generator=gen,
+                            device=dev).to(dtype).requires_grad_(grad)
+                for _ in range(3)]
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = timed(torch, fn)
+        return out, ms, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    stats = {"card": card, "chunks": RING_CHUNKS, "seq": RING_SEQ}
+    q, k, v = qkv(RING_SEQ, torch.bfloat16)
+    for causal in (True, False):
+        with torch.no_grad():
+            ring, ring_ms, ring_gb = measured(lambda: ring_over_chunks(
+                torch, q, k, v, RING_CHUNKS, causal))
+            want, k1_ms, k1_gb = measured(lambda: fa.flash_attention(
+                q, k, v, causal))
+        err = rel_rms_t(ring, want)
+        check(err <= RING_TOL_BF16_RMS,
+              f"{tag}: the bf16 ring (causal={causal}) is {err:.3e} from K1 "
+              f"(relative RMS), over {RING_TOL_BF16_RMS}")
+        stats[f"bf16_causal={causal}"] = {
+            "rel_rms": err, "max_abs_err": float((ring.float()
+                                                  - want.float()).abs().max()),
+            "ring_ms": ring_ms, "ring_peak_gb": ring_gb, "k1_ms": k1_ms,
+            "k1_peak_gb": k1_gb}
+        del ring, want
+    # the control: offsets of 0 for every chunk mask the wrong keys
+    with torch.no_grad():
+        bad = ring_over_chunks(torch, q, k, v, RING_CHUNKS, True,
+                               zero_offsets=True)
+        err = rel_rms_t(bad, fa.flash_attention(q, k, v, True))
+    check(err > RING_TOL_BF16_RMS,
+          f"{tag}: the control (every chunk's offset 0) passed the rule "
+          f"({err:.3e} <= {RING_TOL_BF16_RMS})")
+    stats["control_rel_rms"] = err
+    del q, k, v, bad
+    # the gradient, float32: a weighted sum of the output, one query
+    # chunk's graph at a time
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        q, k, v = qkv(RING_GRAD_SEQ, torch.float32, grad=True)
+        w = torch.randn(q.shape, generator=gen, device=dev)
+        n, tl = RING_GRAD_CHUNKS, RING_GRAD_SEQ // RING_GRAD_CHUNKS
+        outs = []
+        for i in range(n):
+            oi = ring_rows(torch, q, k, v, n, i, True)
+            (oi * w[:, :, i * tl:(i + 1) * tl]).sum().backward()
+            outs.append(oi.detach())
+            del oi
+        ring_out = torch.cat(outs, dim=2)
+        ring_grads = [x.grad for x in (q, k, v)]
+        q2, k2, v2 = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        want = fa.flash_attention(q2, k2, v2, True)
+        (want * w).sum().backward()
+        ok, fwd_err = allclose_err(ring_out, want.detach(), TOL_F32)
+        check(ok, f"{tag}: the f32 ring is {fwd_err:.3e} from K1 "
+              f"(rtol, atol {TOL_F32})")
+        grad_errs = {}
+        for name, g, g2 in zip(("dq", "dk", "dv"), ring_grads,
+                               (q2.grad, k2.grad, v2.grad)):
+            ok, err = allclose_err(g, g2, TOL_GRAD_F32)
+            check(ok, f"{tag}: the f32 ring's {name} is {err:.3e} from "
+                  f"K2/K3's (rtol, atol {TOL_GRAD_F32})")
+            grad_errs[name] = err
+        stats["f32_grad"] = {"seq": RING_GRAD_SEQ, "chunks": n,
+                             "fwd_max_abs_err": fwd_err,
+                             "grad_max_abs_err": grad_errs}
+        del q, k, v, q2, k2, v2, w, want, ring_out, ring_grads, outs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    # the global entry on the one card's 'sp' mesh: one chunk, no permute
+    mesh = make_mesh({"sp": 1})
+    q, k, v = qkv(RING_MESH_SEQ, torch.bfloat16)
+    placed = [DTensor.from_local(x, mesh.mesh, [Shard(2)], run_check=False)
+              for x in (q, k, v)]
+    with torch.no_grad(), collectives.counting() as coll:
+        got = ring_attention_sharded(*placed, mesh, axis="sp", causal=True)
+        want = fa.flash_attention(q, k, v, True)
+    check(isinstance(got, DTensor) and list(got.placements) == [Shard(2)],
+          f"{tag}: the sharded ring returned {type(got).__name__} "
+          f"{getattr(got, 'placements', None)}")
+    err = rel_rms_t(got.to_local(), want)
+    check(err <= RING_TOL_BF16_RMS and not coll,
+          f"{tag}: the one-rank sharded ring is {err:.3e} from K1, "
+          f"collectives {coll}")
+    stats["one_rank_mesh"] = {"seq": RING_MESH_SEQ, "rel_rms": err,
+                              "collectives": dict(coll)}
+    log(f"{tag}: " + json.dumps(stats))
+    return stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -5667,6 +6211,15 @@ def main():
                                                  moe_scope)
         del moe_scope
         free_card(torch)
+        # ROADMAP item 6b, the main paths of this slice: the 8B width's
+        # pipelined programs (GPipe and 1F1B), the schedules themselves
+        # and the ring's step
+        pipe_launches, _ = phase_pipeline_llama_train(torch, fluid, fa, smi)
+        free_card(torch)
+        sched_launches, _ = phase_pipeline_schedule(torch, fa, smi)
+        free_card(torch)
+        phase_ring_attention(torch, fa, smi)
+        free_card(torch)
         phase_mesh_two_ranks(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -5706,7 +6259,11 @@ def main():
              "conv_zoo": zoo_launches,
              "mesh_llama_train": mesh_launches,
              "moe_train": moe_launches,
-             "moe_generate": moe_gen_launches}
+             "moe_generate": moe_gen_launches,
+             "pipeline_llama_train_gpipe": pipe_launches["gpipe"],
+             "pipeline_llama_train_1f1b": pipe_launches["1f1b"],
+             "pipeline_schedule_gpipe": sched_launches["gpipe"],
+             "pipeline_schedule_1f1b": sched_launches["1f1b"]}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),

@@ -38,7 +38,6 @@ _NUMERICS = {}
 # The reference's op types the port does not register yet, by the
 # ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
 _ITEMS = {
-    "Multi-device parallelism": ("llama_stack_1f1b_loss",),
     "Remaining op families and the zoo": (
         # ops/nn.py
         "im2sequence", "hierarchical_sigmoid", "nce", "row_conv",

@@ -38,6 +38,5 @@ WAITING = {**dict.fromkeys((
     "box_coder", "polygon_box_transform", "multiclass_nms",
     "anchor_generator", "rpn_target_assign", "generate_proposals",
     "generate_proposal_labels", "detection_map"), REST),
-    **nn.WAITING, **metric_op.WAITING, **transformer.WAITING,
-    **sequence_layers.WAITING}
+    **nn.WAITING, **metric_op.WAITING, **sequence_layers.WAITING}
 __getattr__ = module_getattr(__name__, WAITING)

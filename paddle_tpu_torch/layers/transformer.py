@@ -5,24 +5,20 @@ vocab-chunked fused head loss, the MoE FFN (``moe_ffn``), the fused
 KV-cache generators (``llama_generate``, ``llama_spec_generate``) and
 the paged-KV step layers of the decode engine (``llama_paged_prefill``,
 ``llama_paged_prefill_chunk``, ``llama_paged_decode``,
-``llama_paged_spec_step``). ``llama_stack_1f1b_loss`` comes with the
-pipeline part of ROADMAP.md item 'Multi-device parallelism'."""
+``llama_paged_spec_step``) and the 1F1B pipelined loss
+(``llama_stack_1f1b_loss``)."""
 import copy
 
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..sharding import PartitionSpec as P
-from ..waiting import MESH, module_getattr
 from .. import initializer as init_mod
 
 __all__ = ["rms_norm", "rope", "multihead_attention", "silu", "moe_ffn",
            "llama_decoder_stack", "fused_head_cross_entropy",
            "llama_generate", "llama_spec_generate", "llama_paged_prefill",
            "llama_paged_prefill_chunk", "llama_paged_decode",
-           "llama_paged_spec_step"]
-
-WAITING = {"llama_stack_1f1b_loss": MESH}
-__getattr__ = module_getattr(__name__, WAITING)
+           "llama_paged_spec_step", "llama_stack_1f1b_loss"]
 
 
 def fused_head_cross_entropy(h, label, vocab_size, chunk_size=8192,
@@ -204,6 +200,47 @@ def llama_decoder_stack(x, n_layers, n_heads, n_kv_heads, ffn_hidden,
                "n_micro": n_micro, "remat": remat,
                "scan_unroll": int(scan_unroll)})
     return out
+
+
+def llama_stack_1f1b_loss(x, targets, vocab_size, n_layers, n_heads,
+                          n_kv_heads, ffn_hidden, rope_base=10000.0,
+                          epsilon=1e-6, n_micro=0, remat=True,
+                          loss_chunk=8192, scan_unroll=1,
+                          param_attr=None, name=None,
+                          final_norm_name="final_norm",
+                          head_name="lm_head"):
+    """The decoder stack, final norm, lm head and cross entropy as one
+    loss-valued op, so that the 1F1B schedule can run the backward inside
+    the forward on a 'pp' mesh (see ops/transformer_ops.py). Creates the
+    parameter names of llama_decoder_stack and build_llama's head, so
+    checkpoints and the generators interoperate. Returns the scalar mean
+    loss."""
+    helper = LayerHelper("llama_stack_1f1b_loss", param_attr=param_attr,
+                         name=name)
+    d = int(x.shape[-1])
+    hd = d // n_heads
+    weights = _stack_params(helper, x.dtype, n_layers, n_heads,
+                            n_kv_heads, d, hd, ffn_hidden, param_attr)
+    fnorm = helper.create_parameter(
+        ParamAttr(name=final_norm_name,
+                  initializer=init_mod.Constant(1.0)), [d], x.dtype)
+    head = helper.create_parameter(
+        ParamAttr(name=head_name,
+                  initializer=init_mod.Normal(0.0, 0.02)),
+        [d, vocab_size], x.dtype)
+    loss = helper.create_variable_for_type_inference("float32", shape=[])
+    helper.append_op(
+        type="llama_stack_1f1b_loss",
+        inputs={"X": [x.name], "Targets": [targets.name],
+                "FinalNorm": [fnorm.name], "LmHead": [head.name],
+                **{slot: [w.name] for slot, w in weights.items()}},
+        outputs={"Loss": [loss.name]},
+        attrs={"n_heads": n_heads, "n_kv_heads": n_kv_heads,
+               "rope_base": rope_base, "epsilon": epsilon,
+               "n_micro": n_micro, "remat": remat,
+               "loss_chunk": loss_chunk,
+               "scan_unroll": int(scan_unroll)})
+    return loss
 
 
 def _validate_sampling(temperature, top_k, top_p):

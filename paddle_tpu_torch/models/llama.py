@@ -23,10 +23,12 @@ target as its own draft, and ``save_decode_model`` /
 ``build_llama_paged_programs`` builds the step programs of the
 continuous-batching decode engine (``serving.DecodeEngine``) over the
 same names. ``moe_experts`` > 0 makes every FFN a mixture of experts
-(``moe_ffn``). ``shard_dp`` / ``shard_tp`` annotate the batch and the
-Megatron splits for ``parallel.ParallelExecutor``; a pipeline over a
-mesh (``pp_schedule="1f1b"``) and ``shard_sp`` come with the second part
-of ROADMAP.md item 'Multi-device parallelism' and are refused by name.
+(``moe_ffn``). ``shard_dp`` / ``shard_tp`` / ``shard_sp`` annotate the
+batch, the Megatron splits and the sequence split (ring attention over
+the mesh 'sp' axis) for ``parallel.ParallelExecutor``; with ``shard_pp``
+a mesh 'pp' axis pipelines the stacked decoder (GPipe, or 1F1B with
+``pp_schedule="1f1b"``, whose op ``llama_stack_1f1b_loss`` holds the
+head and the loss too).
 """
 import json
 import os
@@ -41,7 +43,7 @@ from ..layers import transformer as tfl
 from ..param_attr import ParamAttr
 from .. import initializer as init_mod
 from ..sharding import PartitionSpec as P
-from ..waiting import MESH, module_getattr
+from ..waiting import module_getattr
 
 __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA_TINY", "build_llama",
            "build_llama_generator", "build_llama_spec_generator",
@@ -94,12 +96,20 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
     ``fused_head_chunk``, which needs ``targets``.
 
     ``shard_pp`` builds the decoder as one layer-stacked op
-    (``llama_decoder_stack``); on one device, as here, that is a loop
-    over the layers, with ``pp_n_micro`` and ``scan_unroll`` kept on the
-    op and changing nothing, and ``remat`` recomputing each layer in the
-    backward pass. ``fused_head_chunk`` > 0 computes the loss with the
-    vocab-chunked fused lm-head cross entropy in chunks of that many
-    columns."""
+    (``llama_decoder_stack``) whose stacked weights are annotated
+    ``P('pp', ...)``: on one device a loop over the layers, ``remat``
+    recomputing each layer in the backward pass; on a mesh with a 'pp'
+    axis the GPipe schedule over its stages, ``pp_n_micro``
+    microbatches (0: one a stage), embedding and head replicated outside
+    the pipeline (``scan_unroll`` changes nothing here).
+    ``pp_schedule="1f1b"`` (with ``shard_pp`` and ``targets``) folds
+    final norm, lm head and loss into the pipelined op
+    (``llama_stack_1f1b_loss``: the backward runs inside the schedule)
+    and returns logits None. ``fused_head_chunk`` > 0 computes the loss
+    with the vocab-chunked fused lm-head cross entropy in chunks of that
+    many columns (under 1F1B, the chunk of the op's own loss).
+    ``shard_sp`` splits tokens and targets on the sequence over 'sp',
+    where attention is the ring."""
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {pp_schedule!r}")
     if pp_schedule == "1f1b" and not shard_pp:
@@ -117,15 +127,6 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
                          "not with tp/sp — stage weights are pp-sharded "
                          "and the stacked decoder runs flash (not ring) "
                          "attention inside the pipeline")
-    if pp_schedule == "1f1b":
-        raise NotImplementedError(
-            "pp_schedule='1f1b' (llama_stack_1f1b_loss, the pipelined "
-            "backward) comes with the pipeline part of ROADMAP.md item "
-            f"'{MESH}'")
-    if shard_sp:
-        raise NotImplementedError(
-            "shard_sp (ring attention over a mesh 'sp' axis) comes with "
-            f"the second part of ROADMAP.md item '{MESH}'")
     dt = cfg.dtype
     hd = cfg.dim // cfg.n_heads
     h = layers.embedding(tokens, size=[cfg.vocab_size, cfg.dim],
@@ -133,6 +134,17 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
                              name="tok_emb",
                              initializer=init_mod.Normal(0.0, 0.02)),
                          dtype=dt)
+    if shard_pp and pp_schedule == "1f1b":
+        loss = tfl.llama_stack_1f1b_loss(
+            h, targets, vocab_size=cfg.vocab_size,
+            n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, ffn_hidden=cfg.ffn_hidden,
+            rope_base=cfg.rope_base, epsilon=cfg.norm_eps,
+            n_micro=pp_n_micro, scan_unroll=scan_unroll, remat=remat,
+            loss_chunk=fused_head_chunk or 8192, name="blocks")
+        tokens.sharding = P(("dp",) if shard_dp else None, None)
+        targets.sharding = tokens.sharding
+        return None, loss
     if shard_pp:
         h = tfl.llama_decoder_stack(
             h, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
@@ -175,22 +187,24 @@ def build_llama(cfg, tokens, targets=None, shard_tp=False, shard_sp=False,
                           f"l{i}.w_down")
         h = layers.elementwise_add(h, mlp)
     return _finish(cfg, h, tokens, targets, aux_losses, shard_tp=shard_tp,
-                   shard_dp=shard_dp, fused_head_chunk=fused_head_chunk)
+                   shard_dp=shard_dp, fused_head_chunk=fused_head_chunk,
+                   shard_sp=shard_sp)
 
 
 def _finish(cfg, h, tokens, targets, aux_losses, shard_tp, shard_dp,
-            fused_head_chunk=0):
+            fused_head_chunk=0, shard_sp=False):
     """final_norm → lm_head logits (none under ``fused_head_chunk``) →
     the loss when ``targets``, plus the weighted MoE aux losses; the
-    batch annotated over 'dp' with ``shard_dp`` and the Megatron specs
-    with ``shard_tp`` (reference ``_finish``)."""
+    batch annotated over 'dp' with ``shard_dp``, the sequence over 'sp'
+    with ``shard_sp`` and the Megatron specs with ``shard_tp``
+    (reference ``_finish``)."""
     gb = tokens.block.program.global_block()
     h = tfl.rms_norm(h, epsilon=cfg.norm_eps,
                      param_attr=ParamAttr(name="final_norm"))
     logits = None
     if not fused_head_chunk:
         logits = _linear(h, cfg.vocab_size, "lm_head")
-    tok_spec = P(("dp",) if shard_dp else None, None)
+    tok_spec = P(("dp",) if shard_dp else None, "sp" if shard_sp else None)
     tokens.sharding = tok_spec
     avg_loss = None
     if targets is not None:

@@ -6,15 +6,16 @@ decoder ``llama_decoder_stack``, the fused KV-cache generators
 (``warp_logits``), W8A8 (``qmat``) and int8 KV cache, and the paged-KV
 ops of the continuous-batching decode engine (``llama_paged_prefill``,
 ``llama_paged_prefill_chunk``, ``llama_paged_decode``,
-``llama_paged_spec_step``).
+``llama_paged_spec_step``), and the 1F1B pipelined loss
+``llama_stack_1f1b_loss``.
 
 rms_norm, rope and silu are plain torch: XLA fused them in the
 reference and no Pallas kernel exists for them. Attention goes through
-K1 forward and K2/K3 backward (ops/flash_attention.py). The generators'
+K1 forward and K2/K3 backward (ops/flash_attention.py), except on a
+mesh 'sp' axis, where it is the ring (parallel/ring_attention.py,
+plain attention a step, as the reference's ring). The generators'
 cached attention and the paged ops' attention are plain torch too, as
 the reference's are plain jax (grouped einsums against the n_kv cache).
-The 1F1B pipelined loss comes with the pipeline part of ROADMAP.md item
-'Multi-device parallelism'.
 """
 import math
 
@@ -23,13 +24,21 @@ from torch.utils import checkpoint as _ckpt
 
 from ..core.lowering import _mix_seed
 from ..core.registry import register_op
-from ..waiting import MESH, module_getattr
 from .flash_attention import flash_attention
+from .fused_loss import fused_head_cross_entropy
 from .moe import _act_quant, moe_apply_no_drop, moe_apply_no_drop_q
 
-# the reference's helper of the 1F1B pipelined loss
-WAITING = {"_llama_stack_1f1b_loss": MESH}
-__getattr__ = module_getattr(__name__, WAITING)
+# the attributes under which a mesh's rules (parallel/spmd.py) hand an
+# op what its local blocks are; never stored on a program:
+# multihead_attention's q, k and v are chunks of the sequence over the
+# 'sp' axis of this mesh (the reference's ring branch)
+SP_RING = "__sp_ring__"
+# the layer-stacked ops run their stage of the pipeline over the 'pp'
+# axis: (mesh, microbatches)
+PIPELINE = "__pipeline__"
+# llama_stack_1f1b_loss off the pipeline gives per-token losses [B, T]
+# (the rule averages them over the batch's shards)
+TOKEN_LOSSES = "__token_losses__"
 
 
 def rms_normalize(x, scale=None, eps=1e-6):
@@ -110,29 +119,42 @@ def _rope(ctx, ins, attrs):
     return {"Out": [apply_rope(ins["X"][0], attrs.get("base", 10000.0))]}
 
 
-def attention_core(q, k, v, causal=True, scale=None):
+def attention_core(q, k, v, causal=True, scale=None, allow_ring=True,
+                   ring_mesh=None):
     """GQA-aware attention on [B, T, H, D] tensors: repeats each kv head
     for its group of q heads (``repeat_interleave``, as the reference's
     ``jnp.repeat`` on the head axis), moves heads next to batch and runs
     the flash kernel. Under a device mesh it runs on each rank's own
-    batch and heads (parallel/spmd.py). The reference's ring-attention
-    branch (a mesh 'sp' axis) comes with the second part of ROADMAP.md
-    item 'Multi-device parallelism'."""
+    batch and heads (parallel/spmd.py). ``ring_mesh``: the mesh whose
+    'sp' axis splits q, k and v's sequence (each rank's chunk); with
+    ``allow_ring`` and an 'sp' axis past 1 the attention is the ring
+    over it, which, as the reference's ring branch, drops ``scale``
+    (1/sqrt(D) always: ROADMAP.md section 3, R3)."""
     if k.shape[2] != q.shape[2]:  # GQA repeat kv heads
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    ot = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), causal, scale)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if (allow_ring and ring_mesh is not None
+            and ring_mesh.axes.get("sp", 1) > 1):
+        from ..parallel.ring_attention import ring_attention_sharded
+        ot = ring_attention_sharded(qt, kt, vt, ring_mesh, axis="sp",
+                                    causal=causal)
+    else:
+        ot = flash_attention(qt, kt, vt, causal, scale)
     return ot.transpose(1, 2)
 
 
 @register_op("multihead_attention")
 def _mha(ctx, ins, attrs):
-    """Q,K,V: [B, T, H, D] (K/V may have fewer heads — GQA)."""
+    """Q,K,V: [B, T, H, D] (K/V may have fewer heads — GQA). Ring
+    attention where a mesh's rule hands the op sequence chunks over a
+    real 'sp' axis (long-context sequence parallelism), else the flash
+    kernel."""
     return {"Out": [attention_core(ins["Q"][0], ins["K"][0], ins["V"][0],
                                    attrs.get("causal", True),
-                                   attrs.get("scale"))]}
+                                   attrs.get("scale"),
+                                   ring_mesh=attrs.get(SP_RING))]}
 
 
 @register_op("silu")
@@ -286,12 +308,16 @@ def make_flash_block(n_heads, n_kv, base, eps, remat=True):
     ``remat`` the block runs under non-reentrant
     ``torch.utils.checkpoint`` where autograd records it: only its
     input is kept, and the backward recomputes the block — K1 included —
-    before K2 and K3 run (the reference's ``jax.checkpoint``)."""
+    before K2 and K3 run (the reference's ``jax.checkpoint``).
+    ``allow_ring=False``: the pipeline's stages map only 'pp' and 'dp',
+    so the 'sp' ring is not there (and build_llama refuses shard_pp with
+    shard_sp)."""
     def block(p, h):
         b, t, _ = h.shape
 
         def attend(q, k, v):
-            return attention_core(q, k, v, causal=True).reshape(b, t, -1)
+            return attention_core(q, k, v, causal=True,
+                                  allow_ring=False).reshape(b, t, -1)
 
         return decoder_block(p, h, n_heads=n_heads, n_kv=n_kv, base=base,
                              eps=eps, pos=torch.arange(t, device=h.device),
@@ -308,22 +334,59 @@ def make_flash_block(n_heads, n_kv, base, eps, remat=True):
     return remat_block
 
 
+def pipeline_plan(op_name, n_layers, batch, n_micro, mesh):
+    """The microbatch count of a layer-stacked op's pipeline over the
+    mesh's 'pp' axis (``n_micro``, default one a stage), with the
+    reference's checks on the global sizes: the layers split over the
+    stages, the batch over the microbatches, a microbatch over 'dp'."""
+    pp = mesh.axes["pp"]
+    if n_layers % pp:
+        raise ValueError(
+            f"{op_name}: {n_layers} layers do not split over the mesh "
+            f"'pp' axis of size {pp}")
+    nm = int(n_micro) or pp
+    if batch % nm:
+        raise ValueError(
+            f"{op_name}: batch {batch} is not divisible by n_micro={nm} "
+            "microbatches")
+    dp = mesh.axes.get("dp", 1)
+    if (batch // nm) % dp:
+        detail = f" (batch {batch} / n_micro {nm})" \
+            if op_name == "llama_decoder_stack" else ""
+        raise ValueError(
+            f"{op_name}: microbatch {batch // nm}{detail} is not divisible "
+            f"by the mesh 'dp' axis of size {dp}")
+    return nm
+
+
+def _run_layers(blk, params, h):
+    """``blk`` over the layers of the stacked ``params`` (each layer's
+    weights ``unbind`` views of the stacks, so the backward writes each
+    stack's gradient once)."""
+    layers = {s: w.unbind(0) for s, w in params.items()}
+    for i in range(len(layers["Wq"])):
+        h = blk({s: w[i] for s, w in layers.items()}, h)
+    return h
+
+
+def _micro(x, nm):
+    """[B, ...] as [nm, B / nm, ...]."""
+    return x.reshape((nm, x.shape[0] // nm) + tuple(x.shape[1:]))
+
+
 @register_op("llama_decoder_stack")
 def _llama_decoder_stack(ctx, ins, attrs):
     """The whole decoder-layer stack as one op with layer-stacked
     weights (leading [L] axis): [rms_norm → GQA attention (rope, flash
     kernels) → rms_norm → SwiGLU] × L, as a Python loop over the layer
-    axis — the reference's single-device branch (its ``lax.scan``).
+    axis — the reference's single-device branch (its ``lax.scan``;
+    ``scan_unroll`` changes nothing here).
 
-    On one device ``scan_unroll`` and ``n_micro`` change nothing, as in
-    the reference's ``pp <= 1`` branch: there is no scan to unroll, and
-    microbatches only shape the pipeline schedule of a mesh with a 'pp'
-    axis, which comes with the pipeline part of ROADMAP.md item
-    'Multi-device parallelism' (under a mesh without one the op runs on
-    each rank's batch block, parallel/spmd.py). Each layer's weights are
-    ``unbind``
-    views of the stacks, so the backward writes each stack's gradient
-    once."""
+    Under a mesh with a 'pp' axis past 1 the mesh's rule
+    (parallel/spmd.py) hands the op this rank's stage of the stacks and
+    its batch block, and the op runs the GPipe schedule over the stages
+    (parallel/pipeline.py), ``n_micro`` microbatches (default one a
+    stage); the output is the whole stack's on every stage."""
     x = ins["X"][0]                                     # [B, T, D]
     _reject_quant_scales(ins, "llama_decoder_stack")
     n_heads = attrs["n_heads"]
@@ -331,11 +394,105 @@ def _llama_decoder_stack(ctx, ins, attrs):
                            attrs.get("rope_base", 10000.0),
                            attrs.get("epsilon", 1e-6),
                            attrs.get("remat", True))
-    layers = {s: ins[s][0].unbind(0) for s in _STACK_SLOTS}
-    h = x
-    for i in range(len(layers["Wq"])):
-        h = blk({s: w[i] for s, w in layers.items()}, h)
-    return {"Out": [h]}
+    params = {s: ins[s][0] for s in _STACK_SLOTS}
+    pipe = attrs.get(PIPELINE)
+    if pipe is None:
+        return {"Out": [_run_layers(blk, params, x)]}
+    from ..parallel.pipeline import gpipe
+    mesh, nm = pipe
+    piped = gpipe(lambda sp, h: _run_layers(blk, sp, h), mesh,
+                  checkpoint_stages=False)
+    stacked = {s: w[None] for s, w in params.items()}
+    return {"Out": [piped(stacked, _micro(x, nm)).reshape(x.shape)]}
+
+
+class _PipeLoss(torch.autograd.Function):
+    """The 1F1B schedule's loss, whose gradients the schedule has
+    already computed: the backward scales them by the loss's cotangent
+    (exact, the output being the scalar loss itself) — the reference's
+    ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, run, x, tgt, fnorm, head, *weights):
+        loss, grads, dx = run(x, tgt, fnorm, head, weights)
+        ctx.grads, ctx.dx = grads, dx
+        return loss
+
+    @staticmethod
+    def backward(ctx, ct):
+        def scale(a):
+            return (a * ct).to(a.dtype)
+        dfnorm, dhead, *dweights = ctx.grads
+        out = (None, scale(ctx.dx), None, scale(dfnorm), scale(dhead),
+               *(scale(g) for g in dweights))
+        del ctx.grads, ctx.dx
+        return out
+
+
+@register_op("llama_stack_1f1b_loss")
+def _llama_stack_1f1b_loss(ctx, ins, attrs):
+    """The decoder stack plus final norm, lm head and cross entropy as
+    one loss-valued op, so that the 1F1B schedule can run the backward
+    inside its own forward. Off the pipeline it is the loop over the
+    layers and the vocab-chunked loss (``loss_chunk`` columns a chunk,
+    ops/fused_loss.py), and autograd applies. Under a mesh with a 'pp'
+    axis past 1 the mesh's rule hands the op this rank's stage and
+    batch block, and it runs :func:`parallel.pipeline.one_f_one_b`
+    (forward and backward interleaved, at most n_stages in-flight
+    stage inputs, gradients accumulated in the schedule) inside an
+    ``autograd.Function`` whose backward hands the program's autodiff
+    those gradients.
+
+    X [B, T, D] embedded tokens; Targets [B, T] int; Loss [] the mean
+    cross entropy.
+    """
+    x = ins["X"][0]
+    tgt = ins["Targets"][0]
+    _reject_quant_scales(ins, "llama_stack_1f1b_loss")
+    params = {s: ins[s][0] for s in _STACK_SLOTS}
+    fnorm = ins["FinalNorm"][0]
+    head = ins["LmHead"][0]
+    n_heads = attrs["n_heads"]
+    eps = attrs.get("epsilon", 1e-6)
+    blk = make_flash_block(n_heads, attrs.get("n_kv_heads", n_heads),
+                           attrs.get("rope_base", 10000.0), eps,
+                           attrs.get("remat", True))
+    # vocab-chunked: at 128k vocab the [mb*T, vocab] logits would be
+    # built a microbatch, and kept for the in-schedule backward
+    chunk = min(int(attrs.get("loss_chunk", 8192) or 8192), head.shape[1])
+
+    def token_losses(lp, y, t):
+        h2 = rms_normalize(y, lp["fnorm"], eps)
+        return fused_head_cross_entropy(
+            h2.reshape(-1, h2.shape[-1]), lp["head"],
+            t.reshape(-1).to(torch.int64), chunk)
+
+    def ce_loss(lp, y, t):
+        return token_losses(lp, y, t).mean()
+
+    lp = {"fnorm": fnorm, "head": head}
+    pipe = attrs.get(PIPELINE)
+    if pipe is None:
+        y = _run_layers(blk, params, x)
+        if attrs.get(TOKEN_LOSSES):
+            return {"Loss": [token_losses(lp, y, tgt).reshape(tgt.shape)]}
+        return {"Loss": [ce_loss(lp, y, tgt)]}
+
+    from ..parallel.pipeline import one_f_one_b
+    mesh, nm = pipe
+    step = one_f_one_b(lambda sp, h: _run_layers(blk, sp, h), ce_loss, mesh,
+                       loss_params=True, return_dx=True)
+
+    def run(x, tgt, fnorm, head, weights):
+        stacked = {s: w[None] for s, w in zip(_STACK_SLOTS, weights)}
+        loss, grads, lgrads, dx = step(stacked, {"fnorm": fnorm,
+                                                 "head": head},
+                                       _micro(x, nm), _micro(tgt, nm))
+        return loss, [lgrads["fnorm"], lgrads["head"]] + [
+            grads[s][0] for s in _STACK_SLOTS], dx.reshape(x.shape)
+
+    return {"Loss": [_PipeLoss.apply(
+        run, x, tgt, fnorm, head, *(params[s] for s in _STACK_SLOTS))]}
 
 
 # ---------------------------------------------------------------------
@@ -464,12 +621,16 @@ def _make_cached_runner(params, emb_w, fnorm, head, *, n_heads, n_kv,
 
 
 def _refuse_moe(ins, op_name):
+    """Speculative decoding is dense-only, as in the reference (whose
+    ``build_llama_spec_generator`` refuses MoE configs): MoE generates
+    through ``llama_generate``."""
     moe = sorted(s for s in ins if s.startswith("Moe")
                  or s.startswith("DraftMoe"))
     if moe:
         raise NotImplementedError(
-            f"{op_name}: MoE FFN inputs {moe} are a later slice of the "
-            f"torch port (ROADMAP.md item '{MESH}')")
+            f"{op_name}: got MoE FFN inputs {moe}, but speculative "
+            "decoding is dense-only, as in the reference; generate with "
+            "an MoE model through build_llama_generator")
 
 
 @register_op("llama_generate", stateful=True)    # draws iff temperature > 0

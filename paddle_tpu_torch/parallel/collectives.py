@@ -200,15 +200,18 @@ class _Permute(torch.autograd.Function):
 
 def _permute(x, group, perm):
     """Send ``x`` along each (source, destination) pair of axis indices;
-    a rank no pair sends to gets zeros (as ``lax.ppermute``)."""
+    a rank no pair sends to gets zeros (as ``lax.ppermute``). A pair from
+    a rank to itself is a copy (a one-rank axis exchanges nothing)."""
     me = dist.get_rank(group)
-    out = torch.zeros_like(x)
+    out = torch.zeros_like(x, memory_format=torch.contiguous_format)
     ops = []
     for src, dst in perm:
-        if src == me:
+        if src == me and dst == me:
+            out.copy_(x)
+        elif src == me:
             ops.append(dist.P2POp(dist.isend, x.contiguous(),
                                   dist.get_global_rank(group, dst), group))
-        if dst == me:
+        elif dst == me:
             ops.append(dist.P2POp(dist.irecv, out,
                                   dist.get_global_rank(group, src), group))
     if ops:

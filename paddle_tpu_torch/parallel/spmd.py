@@ -12,10 +12,12 @@ placed values. How each op runs (:meth:`Spmd.lower`):
 - an op with a rule here (:data:`RULES`) runs it. These are the ops
   whose work is local to a shard but whose torch form DTensor cannot
   follow: attention (it folds heads into the batch for the kernels,
-  which DTensor would answer with an all-gather of q, k and v), the
-  layer-stacked decoder, the fused loss, the generator, the table
-  lookup of a row-sharded table, and the MoE FFN (its explicit expert
-  dispatch);
+  which DTensor would answer with an all-gather of q, k and v; over an
+  'sp' axis, the ring on each rank's chunk of the sequence), the
+  layer-stacked decoder and the 1F1B loss (over a 'pp' axis, each rank
+  runs the schedule on its own stage), the fused loss, the generator,
+  the table lookup (a row-sharded table's too), and the MoE FFN (its
+  explicit expert dispatch);
 - every other op runs its rule on the DTensors, and DTensor's sharding
   propagation inserts the collectives, as GSPMD does: a mean over a
   dp-sharded batch becomes an all-reduce, batch norm's sums become
@@ -32,6 +34,9 @@ locally, a ZeRO-sharded moment on its shard, its parameter gathered
 back after the update.
 """
 import torch
+
+from ..ops.transformer_ops import (PIPELINE, SP_RING, TOKEN_LOSSES,
+                                   pipeline_plan)
 
 __all__ = ["Spmd", "place", "RULES", "spmd_rule"]
 
@@ -198,13 +203,34 @@ class Spmd:
 
     def gather_except_batch(self, v):
         """``v`` with every placement but a Shard(0) made Replicate."""
+        return self.gather_except(v, (0,))
+
+    def gather_except(self, v, dims):
+        """``v`` with every placement but a Shard of one of ``dims`` made
+        Replicate."""
         dt = _dt()
         if not isinstance(v, dt.DTensor):
             return v
-        target = self.batch_placements(v)
-        if list(v.placements) == target:
+        target = [p if isinstance(p, dt.Shard) and p.dim in dims
+                  else dt.Replicate() for p in _no_partial(v).placements]
+        return self.to(v, target)
+
+    def to(self, v, placements):
+        """``v`` (a plain value is replicated) at ``placements``."""
+        dt = _dt()
+        if not isinstance(v, dt.DTensor):
+            v = self.wrap(v, self.replicate())
+        v = _no_partial(v)
+        if list(v.placements) == list(placements):
             return v
-        return v.redistribute(self.dmesh, target)
+        return v.redistribute(self.dmesh, placements)
+
+    def on_axis(self, axis, placement):
+        """Placements: ``placement`` on mesh axis ``axis``, Replicate on
+        the others."""
+        dt = _dt()
+        return [placement if n == axis else dt.Replicate()
+                for n in self.mesh.axes]
 
     # ------------------------------------------------------------------
     def sync_grads(self, params, grads):
@@ -296,27 +322,34 @@ def _attention(spmd, ctx, ins, attrs, rule):
     Shard on B (dim 0) and H (dim 2); any other placement is gathered
     first. K/V heads follow q's head split (the kv-head count divides
     the axis where the wk/wv specs fit); where they cannot, q's heads
-    are gathered too."""
+    are gathered too. Over an 'sp' axis past 1, q, k and v are split on
+    T (dim 1) over it, whatever they came with, and the op runs the ring
+    on each rank's chunk (the reference's ring branch)."""
     dt = _dt()
-    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    names = list(spmd.mesh.axes)
+    sp = spmd.mesh.axes.get("sp", 1)
 
-    def keep(x):
-        if not isinstance(x, dt.DTensor):
-            return x
-        want = [p if isinstance(p, dt.Shard) and p.dim in (0, 2)
-                else dt.Replicate() for p in x.placements]
-        return x if list(x.placements) == want else \
-            x.redistribute(spmd.dmesh, want)
+    def want(x, dims):
+        return [dt.Shard(1) if n == "sp" and sp > 1
+                else p if isinstance(p, dt.Shard) and p.dim in dims
+                else dt.Replicate()
+                for n, p in zip(names, _no_partial(x).placements)]
 
-    q, k, v = keep(q), keep(k), keep(v)
-    qp = list(q.placements) if isinstance(q, dt.DTensor) else \
-        spmd.replicate()
-    if isinstance(k, dt.DTensor) and list(k.placements) != qp:
+    q, k, v = (x if isinstance(x, dt.DTensor) else
+               spmd.wrap(x, spmd.replicate())
+               for x in (ins["Q"][0], ins["K"][0], ins["V"][0]))
+    if sp > 1 and q.shape[1] % sp:
+        raise ValueError(
+            f"multihead_attention: sequence {q.shape[1]} does not split "
+            f"over the mesh 'sp' axis of size {sp}")
+    q, k, v = (spmd.to(x, want(x, (0, 2))) for x in (q, k, v))
+    qp = list(q.placements)
+    if list(k.placements) != qp:
         # k/v heads not split as q's: bring all three to the batch split
-        q = spmd.gather_except_batch(q)
-        qp = list(q.placements)
-        k = k.redistribute(spmd.dmesh, qp)
-        v = v.redistribute(spmd.dmesh, qp)
+        qp = want(q, (0,))
+        q, k, v = (spmd.to(x, qp) for x in (q, k, v))
+    if sp > 1:
+        attrs = dict(attrs, **{SP_RING: spmd.mesh})
     return spmd.run_local(rule, ctx, {"Q": [q], "K": [k], "V": [v]},
                           attrs, out_placements=qp)
 
@@ -351,8 +384,57 @@ def _batch_local(x_slot):
     return rule_fn
 
 
-RULES["llama_decoder_stack"] = _batch_local("X")
 RULES["fused_head_cross_entropy"] = _batch_local("X")
+
+
+def _pipeline_ins(spmd, ins, op_name, attrs):
+    """A layer-stacked op's inputs on a mesh with a 'pp' axis past 1:
+    the stacks at their stage, Shard(0) over 'pp'; X and Targets split
+    on the batch over 'dp' (as the reference's in_spec P(None, 'dp')
+    splits each microbatch) and replicated elsewhere; the rest
+    replicated. Returns (inputs, attrs with the plan, X's placements)."""
+    dt = _dt()
+    x = ins["X"][0]
+    stage = spmd.on_axis("pp", dt.Shard(0))
+    batch = spmd.on_axis("dp", dt.Shard(0))
+    nm = pipeline_plan(op_name, ins["Wq"][0].shape[0], x.shape[0],
+                       attrs.get("n_micro", 0), spmd.mesh)
+    placed = {}
+    for slot, vals in ins.items():
+        pl = batch if slot in ("X", "Targets") else \
+            stage if vals[0].dim() > 0 and slot not in (
+                "FinalNorm", "LmHead") else spmd.replicate()
+        placed[slot] = [spmd.to(v, pl) for v in vals]
+    return placed, dict(attrs, **{PIPELINE: (spmd.mesh, nm)}), batch
+
+
+@spmd_rule("llama_decoder_stack")
+def _decoder_stack(spmd, ctx, ins, attrs, rule):
+    """Off a 'pp' axis: each rank's batch block through every layer
+    (the stacks gathered). On one: the GPipe schedule, each rank running
+    its own stage; the output follows X's batch split and is replicated
+    over 'pp', as the reference's psum leaves it."""
+    if spmd.mesh.axes.get("pp", 1) <= 1:
+        return _batch_local("X")(spmd, ctx, ins, attrs, rule)
+    ins, attrs, batch = _pipeline_ins(spmd, ins, "llama_decoder_stack",
+                                      attrs)
+    return spmd.run_local(rule, ctx, ins, attrs, out_placements=batch)
+
+
+@spmd_rule("llama_stack_1f1b_loss")
+def _stack_1f1b(spmd, ctx, ins, attrs, rule):
+    """On a 'pp' axis: the 1F1B schedule, each rank running its own
+    stage; its loss and gradients come averaged over 'dp' and shared
+    along 'pp', so the loss is replicated. Off one: each rank's batch
+    block through every layer to per-token losses, whose mean over the
+    blocks is the loss."""
+    if spmd.mesh.axes.get("pp", 1) <= 1:
+        outs = _batch_local("X")(spmd, ctx, ins,
+                                 dict(attrs, **{TOKEN_LOSSES: True}), rule)
+        return {"Loss": [outs["Loss"][0].mean()]}
+    ins, attrs, _ = _pipeline_ins(spmd, ins, "llama_stack_1f1b_loss",
+                                  attrs)
+    return spmd.run_local(rule, ctx, ins, attrs)
 
 
 @spmd_rule("lookup_table")
@@ -364,8 +446,13 @@ def _lookup(spmd, ctx, ins, attrs, rule):
     embedding); a replicated or column-sharded table looks up locally."""
     dt = _dt()
     w, ids = ins["W"][0], ins["Ids"][0]
-    ids = spmd.gather_except_batch(ids)
-    out_pl = spmd.batch_placements(ids)
+    # the ids' batch split, and their sequence split (an 'sp' axis) when
+    # the ids have a sequence dim: the output follows both
+    seq = isinstance(ids, dt.DTensor) and ids.dim() >= 2 and not (
+        ids.dim() == 2 and ids.shape[-1] == 1)
+    ids = spmd.gather_except(ids, (0, 1) if seq else (0,))
+    out_pl = list(ids.placements) if isinstance(ids, dt.DTensor) \
+        else spmd.replicate()
     row_axes = []
     if isinstance(w, dt.DTensor):
         w = _no_partial(w)

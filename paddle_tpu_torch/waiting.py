@@ -8,10 +8,9 @@ its module ``__getattr__`` (PEP 562), which Python calls only for a
 name the module does not define.
 """
 
-__all__ = ["MESH", "REST", "FLEET", "module_getattr"]
+__all__ = ["REST", "FLEET", "module_getattr"]
 
 # the ROADMAP.md section-1 items the refusals name (get_op's too)
-MESH = "Multi-device parallelism"
 REST = "Remaining op families and the zoo"
 FLEET = "Fleet and analyzers"
 

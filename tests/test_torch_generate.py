@@ -1,7 +1,8 @@
 """The fused KV-cache generator (``llama_generate``), the JAX package
 against the torch port on the CPU: the cases of
-tests/test_llama_generate.py, with the mesh and MoE ones as refusals
-naming ROADMAP item 'Multi-device parallelism'.
+tests/test_llama_generate.py; the mesh and MoE cases build here (they
+run in tests/test_torch_llama_mesh.py), and speculative decoding and the
+paged engine refuse MoE by name.
 
 Both packages build their programs with the same layer code; the JAX
 startup (and, where the reference test trains, its Adam steps)

@@ -213,10 +213,11 @@ def test_later_slices_refuse_loudly():
             fluid.memory_optimize(main.clone(), policy=policy)
     with pytest.raises(NotImplementedError, match="auto"):
         fluid.memory_optimize(main.clone(), policy="auto")
-    for kw, match in ((dict(shard_pp=True, pp_schedule="1f1b"), "1f1b"),
-                      (dict(shard_sp=True), "shard_sp")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_program(**kw)
+    # item 6b lifted: the 1F1B program and the sequence split build and
+    # run on one device
+    for kw in (dict(shard_pp=True, pp_schedule="1f1b"),
+               dict(shard_sp=True)):
+        runs(*train_program(**kw))
     # item 6a lifted: the mesh knobs and MoE build and run on one device
     runs(*train_program(shard_dp=True, shard_tp=True))
     with fluid.unique_name.guard(), fluid.program_guard(fluid.Program(),
@@ -244,8 +245,7 @@ def test_later_slices_refuse_loudly():
     for op_type, item in (("im2sequence", "Remaining op families and the zoo"),
                           ("row_conv", "Remaining op families and the zoo"),
                           ("lstm", "Remaining op families and the zoo"),
-                          ("llama_stack_1f1b_loss",
-                           "Multi-device parallelism"),
+                          ("gru", "Remaining op families and the zoo"),
                           ("sequence_pool",
                            "Remaining op families and the zoo")):
         prog = main.clone()
@@ -272,9 +272,8 @@ def test_later_slices_refuse_loudly():
         zoo.build_zoo_program("machine_translation")
     # items 4a (the fused generator) and 4b (the paged decode engine)
     # lifted: the generator builders, the paged programs, their layers,
-    # the weight tools and the decode-serving names resolve; still
-    # refused, by name: the pipeline schedules and ring attention (item
-    # 6b)
+    # the weight tools and the decode-serving names resolve; item 6b
+    # lifted: the pipeline schedules and ring attention
     from paddle_tpu_torch.models import llama as tllama
     for name in ("build_llama_generator", "build_llama_spec_generator",
                  "quantize_generator_weights", "stack_generator_weights",
@@ -294,9 +293,12 @@ def test_later_slices_refuse_loudly():
                  "RetryBudgetExhaustedError"):
         assert callable(getattr(fluid.serving, name))
     assert fluid.serving.PRIORITIES["interactive"] == 0
-    for name in ("gpipe", "one_f_one_b", "ring_attention"):
-        with pytest.raises(NotImplementedError, match="Multi-device"):
-            getattr(fluid.parallel, name)
+    for fn in (fluid.parallel.gpipe, fluid.parallel.pipeline.one_f_one_b,
+               fluid.parallel.ring_attention.ring_attention,
+               fluid.parallel.ring_attention.ring_attention_sharded,
+               fluid.parallel.ring_attention._merge,
+               fluid.layers.llama_stack_1f1b_loss):
+        assert callable(fn)
     # item 3 (IO, persistables and Inferencer) lifted: the load op runs;
     # still refused, by name: replica pools (of either engine) and remote
     # replicas (item 8), sequence readers and feeders (item 7) and a JAX

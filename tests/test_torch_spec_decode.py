@@ -207,6 +207,18 @@ def test_spec_decode_rejects_moe_configs():
             _programs(tfluid, tllama, 4, 2, target=target, draft=draft)
 
 
+def test_spec_op_refuses_moe_inputs_as_dense_only():
+    """The op itself, handed MoE FFN inputs, says speculative decoding
+    is dense-only (as the reference's build_llama_spec_generator refuses
+    MoE configs) and routes MoE to the plain generator."""
+    from paddle_tpu_torch.core.registry import get_op
+    rule = get_op("llama_spec_generate").lower
+    with pytest.raises(NotImplementedError,
+                       match="dense-only, as in the reference.*"
+                             "build_llama_generator"):
+        rule(None, {"MoeRouter": [torch.zeros(2, 2)]}, {})
+
+
 def test_spec_decode_round_stats():
     """A perfect draft takes far fewer verification rounds than a random
     one for the same output; the port's rounds equal the reference's."""

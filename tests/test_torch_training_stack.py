@@ -421,16 +421,25 @@ def test_nan_guard_flags_once_under_remat():
 
 
 def test_stacked_llama_refuses_mesh_knobs_by_name():
+    """The mesh knobs build as the reference's (1F1B: the loss inside one
+    op, no logits; shard_sp: tokens split on the sequence over 'sp'); the
+    compositions the reference refuses raise its errors."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
         tokens = tfluid.layers.data(name="tokens", shape=[-1, -1],
                                     dtype="int64", append_batch_size=False)
-        with pytest.raises(NotImplementedError, match="1f1b"):
-            tllama.build_llama(tllama.LLAMA_TINY, tokens, tokens,
+        logits, loss = tllama.build_llama(tllama.LLAMA_TINY, tokens, tokens,
+                                          shard_pp=True, pp_schedule="1f1b")
+        assert logits is None
+        assert [op.type for op in main.global_block().ops
+                if loss.name in op.output("Loss")] == ["llama_stack_1f1b_loss"]
+        assert tuple(tokens.sharding) == (None, None)
+        tllama.build_llama(tllama.LLAMA_TINY, tokens, tokens,
+                           shard_sp=True, shard_dp=True)
+        assert tuple(tokens.sharding) == (("dp",), "sp")
+        with pytest.raises(ValueError, match="requires targets"):
+            tllama.build_llama(tllama.LLAMA_TINY, tokens, None,
                                shard_pp=True, pp_schedule="1f1b")
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tllama.build_llama(tllama.LLAMA_TINY, tokens, tokens,
-                               shard_sp=True)
         with pytest.raises(ValueError, match="shard_pp composes"):
             tllama.build_llama(tllama.LLAMA_TINY, tokens, tokens,
                                shard_pp=True, shard_tp=True)

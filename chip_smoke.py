@@ -256,7 +256,35 @@ Phases — any failure exits non-zero:
    control that must fail, the float32 gradient over 4 chunks of T 8192
    against K1-K3, ``ring_attention_sharded`` on a one-rank 'sp' mesh;
    the ring's time and peak memory beside K1's;
-32. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
+32. deepfm_train (ROADMAP item 7a, a main path of this slice): DeepFM
+   at ``bench.py`` ``ctr_main``'s knobs — 1,000,000 ids, 23 fields,
+   embedding 16, hidden (400, 400), batch 4096, ``Adam(1e-3)``,
+   ``is_sparse=True`` (its F13 warning caught and checked) — in float32
+   through ``Executor()``: 2 warmup and 20 timed steps on one batch of
+   the planted rule (losses finite and falling), step ms, examples/s,
+   peak memory, one step's device time by kind (the embedding gather,
+   its backward, matrix products, the Adam segment) and idle share;
+   wide&deep at the same vocab for 3 steps; the first step at vocab
+   10,000 on the card equal to the CPU's (loss and every gradient within
+   2e-3 / 2e-4, TF32 off); no attention launch;
+33. stacked_lstm_train (a main path of this slice): ``bench.py``
+   ``seq_main``'s stacked dynamic LSTM (vocab 10,000, emb 128, hid_dim
+   512: three LSTMs of hidden 128 with peepholes, the middle reversed),
+   batch 32 x 64 tokens, ``Adam(1e-3)``: 2 warmup and 10 timed steps on
+   bench.py's all-64 feed (words/s, step ms, launches a step, idle
+   share), a variable-length feed (9-64, bucket 8) for 4 steps (finite,
+   falling), its first step on the card equal to the CPU's (loss and
+   every gradient, TF32 off); no attention launch;
+34. seq_zoo: the recommender at MovieLens's table sizes, batch 256 (1-6
+   categories and 2-15 title words a movie, fed through ``DataFeeder``
+   and through ``create_lod_tensor``, the two feeds equal) and word2vec
+   (embed 32, hidden 256, dict 2073, batch 32): each first step on the
+   card equal to the CPU's, 3 finite steps; the recommender's inference
+   program exported through ``save_inference_model`` (sequence axes
+   symbolic) and served by ``CompiledPredictor`` at padded title
+   lengths 16 and 8, each within the f32 serving tier of the executor's
+   test-mode run; no attention launch;
+35. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
    expected to refuse them: recorded, not gated).
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
@@ -6030,6 +6058,485 @@ def phase_ring_attention(torch, fa, card):
     return stats
 
 
+# ----------------------------------------------------------------------
+# ROADMAP item 7a: the dense zoo leftovers, sequences and the recurrent
+# ops — DeepFM and the stacked dynamic LSTM at bench.py's widths, the
+# recommender and word2vec
+# ----------------------------------------------------------------------
+CTR_VOCAB = 1_000_000           # bench.py ctr_main's knobs (:1024-1031)
+CTR_FIELDS = 23
+CTR_EMBED = 16
+CTR_HIDDEN = (400, 400)
+CTR_BATCH = 4096
+CTR_WARMUP = 2
+CTR_STEPS = 20
+CTR_WIDE_STEPS = 3
+CTR_PARITY_VOCAB = 10_000       # card vs CPU at a vocab the CPU steps fast
+CTR_PARITY_BATCH = 512
+SEQ_TOL = (2e-3, 2e-4)          # card vs CPU, float32, TF32 off
+LSTM_VOCAB = 10_000             # bench.py seq_main's knobs (:793-825)
+LSTM_EMB = 128
+LSTM_HID = 512                  # dynamic_lstm size: hidden 128, 3 stacked
+LSTM_BATCH = 32
+LSTM_SEQ = 64
+LSTM_WARMUP = 2
+LSTM_STEPS = 10                 # bench.py's iters on the chip
+LSTM_VAR_LENS = (9, 64)         # the variable-length feed's lengths
+LSTM_VAR_STEPS = 4
+REC_BATCH = 256
+REC_CATS = (1, 6)               # categories a movie
+REC_TITLE = (2, 15)             # title words a movie
+W2V_DICT = 2073                 # the PTB dictionary's size (book example)
+W2V_BATCH = 32
+SEQ_ZOO_STEPS = 3
+SEQ_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch", "_build", "chip_smoke_seq")
+
+
+def np_close(got, want, tol):
+    """(within ``tol`` = (rtol, atol) everywhere, max abs error) of two
+    arrays of one shape."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return False, float("inf")
+    err = np.abs(got - want)
+    return (bool((err <= tol[1] + tol[0] * np.abs(want)).all()),
+            float(err.max()) if err.size else 0.0)
+
+
+def kernel_table(torch, fn):
+    """One call of ``fn`` under torch.profiler: {kernel name: [ms,
+    launches]} of the device's kernels and copies, and the call's wall
+    ms. Empty where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.core.lowering import RANGE_OPTIMIZER
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    table = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key == RANGE_OPTIMIZER:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        table[e.key] = [us / 1e3, int(e.count)]
+    return table, wall
+
+
+# kernel-name fragments of the CTR step's kinds (lower case)
+CTR_KINDS = (("embedding_backward", ("indexing_backward", "index_put",
+                                     "radix", "sort", "scatter",
+                                     "embedding_backward")),
+             ("embedding_gather", ("index_elementwise", "gather",
+                                   "index_select", "indexselect")),
+             ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul")),
+             ("copy", ("memcpy", "memset")))
+
+
+def step_breakdown(torch, fn, step_ms, kinds=CTR_KINDS, top=12):
+    """One profiled step: device ms by kind (name fragments), the
+    optimizer segment's ms (its profiler range), kernel launches, busy
+    ms and its idle share of ``step_ms`` (the unprofiled steps' median;
+    the profiled step's own wall time, which the profiler inflates, is
+    reported beside it), and the ``top`` kernels by device time."""
+    table, wall = kernel_table(torch, fn)
+    if not table:
+        return {"device_busy_ms": "not measured", "profiled_wall_ms": wall}
+    by_kind = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
+    for name, (ms, _) in table.items():
+        low = name.lower()
+        kind = next((k for k, frags in kinds
+                     if any(f in low for f in frags)), "other")
+        by_kind[kind] += ms
+    busy = sum(ms for ms, _ in table.values())
+    seg = device_ms_by_kind(torch, fn)
+    return {"profiled_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / step_ms,
+            "launches": sum(n for _, n in table.values()),
+            "device_ms_by_kind": by_kind,
+            "optimizer_segment": (seg or {}).get("optimizer_segment"),
+            "top_kernels": sorted(([k[:90], ms, n]
+                                   for k, (ms, n) in table.items()),
+                                  key=lambda r: -r[1])[:top]}
+
+
+def first_step_card_vs_cpu(torch, fluid, tag, main, startup, fetch, feed):
+    """One step of ``main`` on the card and on the CPU from one initial
+    state (the CPU's startup): the fetched loss and every parameter's
+    gradient within SEQ_TOL. Returns the worst error and the card's
+    loss."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = sorted(p.name for p in main.all_parameters())
+    names = [fetch] + [p + "@GRAD" for p in params]
+    s0 = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=s0)
+    outs = {}
+    for side, exe in (("card", fluid.Executor()),
+                      ("cpu", fluid.Executor(fluid.CPUPlace()))):
+        scope = fluid.Scope()
+        for n, v in s0.vars.items():
+            scope.set(n, v.clone())
+        outs[side] = exe.run(main, feed=feed, fetch_list=names, scope=scope)
+    worst = 0.0
+    for n, a, b in zip(names, outs["card"], outs["cpu"]):
+        ok, err = np_close(a, b, SEQ_TOL)
+        check(ok and np.isfinite(np.asarray(a)).all(),
+              f"{tag}: {n} card vs CPU max err {err}")
+        worst = max(worst, err)
+    return worst, float(np.asarray(outs["card"][0]).reshape(()))
+
+
+def timed_steps(torch, exe, main, fetch, scope, feed, warmup, steps):
+    """``warmup`` then ``steps`` train steps on one feed: each step's
+    wall ms (ending in a synchronize), the losses (read after the
+    window), and the window's peak memory."""
+    for _ in range(warmup):
+        exe.run(main, feed=feed, fetch_list=[fetch], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[fetch], scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out[0])
+    losses = [float(v.reshape(()).item()) for v in losses]
+    return ms, losses, torch.cuda.max_memory_allocated()
+
+
+def ctr_feed(rng, batch, fields, vocab):
+    """ids and tests/test_model_zoo.py TestCTR's planted rule: click iff
+    any even id below vocab / 4."""
+    ids = rng.randint(0, vocab, size=(batch, fields)).astype(np.int64)
+    label = ((ids < vocab // 4) & (ids % 2 == 0)).any(1)
+    return ids, label.astype(np.float32).reshape(-1, 1)
+
+
+def ctr_program(fluid, vocab, wide=False):
+    """DeepFM (or wide&deep) at bench.py's width over ``vocab`` ids,
+    Adam(1e-3); returns (main, startup, loss, the warnings the build
+    raised)."""
+    from paddle_tpu_torch.models.ctr import build_deepfm, build_wide_deep
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        feat = fluid.layers.data(name="feat", shape=[-1, CTR_FIELDS],
+                                 dtype="int64", append_batch_size=False)
+        label = fluid.layers.data(name="label", shape=[-1, 1],
+                                  dtype="float32", append_batch_size=False)
+        if wide:
+            _, loss = build_wide_deep(feat, feat, label, num_features=vocab,
+                                      embed_size=CTR_EMBED,
+                                      hidden_sizes=CTR_HIDDEN)
+        else:
+            _, loss = build_deepfm(feat, label, num_features=vocab,
+                                   num_fields=CTR_FIELDS,
+                                   embed_size=CTR_EMBED,
+                                   hidden_sizes=CTR_HIDDEN)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, [str(w.message) for w in caught]
+
+
+def phase_deepfm_train(torch, fluid, fa, card):
+    """DeepFM at bench.py ``ctr_main``'s knobs in float32 through
+    ``Executor()`` (the card): the F13 warning at the million-row table,
+    2 warmup and 20 timed steps on one batch of the planted rule (losses
+    finite and falling), step ms, examples/s, peak memory and one step's
+    device time by kind; wide&deep at the same vocab for 3 steps; and
+    the first step at vocab 10,000 on the card equal to the CPU's (loss
+    and every gradient, TF32 off). Returns (attention launches,
+    stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    main, startup, loss, caught = ctr_program(fluid, CTR_VOCAB)
+    check(any("is_distributed=True" in m for m in caught),
+          f"deepfm_train: no F13 warning for the {CTR_VOCAB}-row table "
+          f"({caught})")
+    exe = fluid.Executor()
+    dev = exe.device
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    ids, lbl = ctr_feed(rng, CTR_BATCH, CTR_FIELDS, CTR_VOCAB)
+    feed = {"feat": torch.from_numpy(ids).to(dev),
+            "label": torch.from_numpy(lbl).to(dev)}
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    ms, losses, peak = timed_steps(torch, exe, main, loss.name, scope, feed,
+                                   CTR_WARMUP, CTR_STEPS)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"deepfm_train: losses not finite and falling: {losses}")
+    med = float(np.median(ms))
+    stats = {"vocab": CTR_VOCAB, "fields": CTR_FIELDS, "embed": CTR_EMBED,
+             "hidden": list(CTR_HIDDEN), "batch": CTR_BATCH,
+             "params": n_params, "steps": CTR_STEPS, "step_ms": ms,
+             "step_ms_median": med,
+             "examples_per_s": CTR_BATCH / (med / 1e3),
+             "peak_memory_gb": peak / 1e9,
+             "losses": [losses[0], losses[-1]],
+             "one_step": step_breakdown(torch, lambda: exe.run(
+                 main, feed=feed, fetch_list=[loss.name], scope=scope,
+                 return_numpy=False), med)}
+    del scope
+    # wide&deep at the same vocab and embedding
+    wmain, wstart, wloss, _ = ctr_program(fluid, CTR_VOCAB, wide=True)
+    wscope = fluid.Scope()
+    exe.run(wstart, scope=wscope)
+    wl = [float(np.asarray(exe.run(wmain, feed=feed, fetch_list=[wloss],
+                                   scope=wscope)[0]).reshape(()))
+          for _ in range(CTR_WIDE_STEPS)]
+    check(np.isfinite(wl).all(), f"deepfm_train: wide&deep losses {wl}")
+    stats["wide_deep_losses"] = wl
+    del wscope
+    # the first step, card vs CPU, at a vocab the CPU steps fast
+    pmain, pstart, ploss, _ = ctr_program(fluid, CTR_PARITY_VOCAB)
+    pids, plbl = ctr_feed(np.random.RandomState(SEED + 1), CTR_PARITY_BATCH,
+                          CTR_FIELDS, CTR_PARITY_VOCAB)
+    stats["parity_max_err"], _ = first_step_card_vs_cpu(
+        torch, fluid, "deepfm_train parity", pmain, pstart, ploss.name,
+        {"feat": pids, "label": plbl})
+    by_kernel = launches_by_kernel(fa)
+    check(not any(by_kernel.values()),
+          f"deepfm_train: attention launched: {by_kernel}")
+    log(f"deepfm_train: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def lstm_program(fluid):
+    """bench.py seq_main's stacked dynamic LSTM (``stacked_lstm_net`` at
+    vocab 10,000, emb 128, hid_dim 512: three LSTMs of hidden 128 with
+    peepholes, the middle one reversed), Adam(1e-3)."""
+    from paddle_tpu_torch.models.stacked_dynamic_lstm import \
+        stacked_lstm_net
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        data = fluid.layers.data(name="src", shape=[1], dtype="int64",
+                                 lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        loss, _, _ = stacked_lstm_net(data, label, LSTM_VOCAB,
+                                      emb_dim=LSTM_EMB, hid_dim=LSTM_HID)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def phase_stacked_lstm_train(torch, fluid, fa, card):
+    """The stacked dynamic LSTM at bench.py ``seq_main``'s width in
+    float32 through ``Executor()``: bench.py's all-64 feed (batch 32)
+    for 2 warmup and 10 timed steps — words/s as bench.py counts them
+    (batch x seq a step), step ms, launches a step and the device's idle
+    share; a variable-length feed (lengths 9-64, bucket 8) through the
+    same program for 4 steps (finite, falling); and that feed's first
+    step on the card equal to the CPU's (loss and every gradient, TF32
+    off). Returns (attention launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    main, startup, loss = lstm_program(fluid)
+    exe = fluid.Executor()
+    dev = exe.device
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    sb = fluid.to_sequence_batch(
+        [rng.randint(1, LSTM_VOCAB, (LSTM_SEQ, 1)).astype(np.int64)
+         for _ in range(LSTM_BATCH)])
+    labels = rng.randint(0, 2, (LSTM_BATCH, 1)).astype(np.int64)
+    feed = {"src": fluid.SequenceBatch(sb.data.to(dev), sb.lengths.to(dev)),
+            "label": torch.from_numpy(labels).to(dev)}
+    ms, losses, peak = timed_steps(torch, exe, main, loss.name, scope, feed,
+                                   LSTM_WARMUP, LSTM_STEPS)
+    check(np.isfinite(losses).all(),
+          f"stacked_lstm_train: losses not finite: {losses}")
+    med = float(np.median(ms))
+    stats = {"vocab": LSTM_VOCAB, "emb": LSTM_EMB, "hid_dim": LSTM_HID,
+             "batch": LSTM_BATCH, "seq": LSTM_SEQ, "steps": LSTM_STEPS,
+             "step_ms": ms, "step_ms_median": med,
+             "words_per_s": LSTM_BATCH * LSTM_SEQ * LSTM_STEPS
+             / (sum(ms) / 1e3),
+             "peak_memory_gb": peak / 1e9, "losses": [losses[0],
+                                                     losses[-1]],
+             "one_step": step_breakdown(torch, lambda: exe.run(
+                 main, feed=feed, fetch_list=[loss.name], scope=scope,
+                 return_numpy=False), med)}
+    # lengths 9-64 through the same program (padded 64, bucket 8)
+    vrng = np.random.RandomState(SEED + 1)
+    vseqs = [vrng.randint(1, LSTM_VOCAB, (int(n), 1)).astype(np.int64)
+             for n in vrng.randint(LSTM_VAR_LENS[0], LSTM_VAR_LENS[1] + 1,
+                                   LSTM_BATCH)]
+    vfeed = {"src": fluid.to_sequence_batch(vseqs),
+             "label": vrng.randint(0, 2, (LSTM_BATCH, 1)).astype(np.int64)}
+    vl = [float(np.asarray(exe.run(main, feed=vfeed, fetch_list=[loss],
+                                   scope=scope)[0]).reshape(()))
+          for _ in range(LSTM_VAR_STEPS)]
+    check(np.isfinite(vl).all() and vl[-1] < vl[0],
+          f"stacked_lstm_train: variable-length losses {vl}")
+    stats["variable_lengths"] = {
+        "lengths": [int(a.shape[0]) for a in vseqs],
+        "padded": int(vfeed["src"].data.shape[1]), "losses": vl}
+    del scope
+    stats["parity_max_err"], _ = first_step_card_vs_cpu(
+        torch, fluid, "stacked_lstm_train parity", main, startup, loss.name,
+        vfeed)
+    by_kernel = launches_by_kernel(fa)
+    check(not any(by_kernel.values()),
+          f"stacked_lstm_train: attention launched: {by_kernel}")
+    log(f"stacked_lstm_train: {card}, float32, TF32 off: "
+        + json.dumps(stats))
+    return by_kernel, stats
+
+
+REC_NAMES = ("uid", "gender", "age", "job", "mid", "cats", "title")
+
+
+def rec_program(fluid, train):
+    """The recommender at its MovieLens table sizes (``DEFAULT_SIZES``):
+    the training program with Adam(5e-3), or the inference one (the
+    scaled cosine, no rating)."""
+    from paddle_tpu_torch.models.recommender import build_recommender
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ins = [fluid.layers.data(name=n, shape=[1], dtype="int64",
+                                 lod_level=1 if n in ("cats", "title") else 0)
+               for n in REC_NAMES]
+        rating = fluid.layers.data(name="rating", shape=[1],
+                                   dtype="float32") if train else None
+        score, loss = build_recommender(*ins, rating)
+        if train:
+            fluid.optimizer.Adam(learning_rate=5e-3).minimize(loss)
+    return main, startup, (loss if train else score)
+
+
+def rec_rows(rng, n, title_max=REC_TITLE[1]):
+    """``n`` movie-rating rows at MovieLens's id ranges: 1-6 categories
+    and 2-``title_max`` title words a movie, a rating of 1-5."""
+    from paddle_tpu_torch.models.recommender import DEFAULT_SIZES as sz
+    return [(np.array([rng.randint(1, sz["uid"])], np.int64),
+             np.array([rng.randint(0, sz["gender"])], np.int64),
+             np.array([rng.randint(0, sz["age"])], np.int64),
+             np.array([rng.randint(0, sz["job"])], np.int64),
+             np.array([rng.randint(1, sz["mid"])], np.int64),
+             rng.randint(0, sz["category"],
+                         rng.randint(REC_CATS[0], REC_CATS[1] + 1)),
+             rng.randint(0, sz["title"],
+                         rng.randint(REC_TITLE[0], title_max + 1)),
+             np.array([float(rng.randint(1, 6))], np.float32))
+            for _ in range(n)]
+
+
+def phase_seq_zoo(torch, fluid, fa, card):
+    """The recommender at MovieLens's table sizes (batch 256, sequence
+    feeds built by ``DataFeeder`` and by ``create_lod_tensor``) and
+    word2vec (embed 32, hidden 256, 4 context words, dict 2073, batch
+    32) in float32: each model's first step on the card equal to the
+    CPU's (loss and every gradient, TF32 off) and 3 finite steps; the
+    recommender's inference program exported through ``io/aot.py``
+    (sequence axes symbolic) and served by ``CompiledPredictor`` at two
+    padded title lengths, each within the f32 serving tier of the
+    executor's test-mode run. Returns (attention launches, stats)."""
+    import shutil
+    from paddle_tpu_torch.io import load_compiled_predictor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    stats = {}
+    rng = np.random.RandomState(SEED)
+    main, startup, loss = rec_program(fluid, train=True)
+    names = list(REC_NAMES) + ["rating"]
+    feeder = fluid.DataFeeder(names, program=main)
+    rows = rec_rows(rng, REC_BATCH)
+    feed = feeder.feed(rows)
+    check(isinstance(feed["title"], fluid.SequenceBatch)
+          and feed["title"].data.shape[1] == 16,
+          f"seq_zoo: DataFeeder title {feed['title']}")
+    # the same rows' sequences through create_lod_tensor
+    lod_feed = dict(feed)
+    for col, n in ((5, "cats"), (6, "title")):
+        seqs = [r[col] for r in rows]
+        lod_feed[n] = fluid.create_lod_tensor(
+            np.concatenate(seqs), [[len(s) for s in seqs]])
+        check(torch.equal(lod_feed[n].data, feed[n].data)
+              and torch.equal(lod_feed[n].lengths, feed[n].lengths),
+              f"seq_zoo: create_lod_tensor {n} differs from DataFeeder's")
+    err, first = first_step_card_vs_cpu(torch, fluid, "seq_zoo recommender",
+                                        main, startup, loss.name, feed)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rl = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                   scope=scope)[0]).reshape(()))
+          for f in (feed, lod_feed, feeder.feed(rec_rows(rng, REC_BATCH)))]
+    check(np.isfinite(rl).all(), f"seq_zoo: recommender losses {rl}")
+    stats["recommender"] = {"batch": REC_BATCH, "parity_max_err": err,
+                            "losses": rl}
+    # the inference program, exported and served at two padded lengths
+    imain, _, score = rec_program(fluid, train=False)
+    shutil.rmtree(SEQ_ROOT, ignore_errors=True)
+    d = os.path.join(SEQ_ROOT, "recommender")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, list(REC_NAMES), [score], exe,
+                                      main_program=imain)
+    meta = json.load(open(os.path.join(d, "__compiled_meta__.json")))
+    check(not any(s.get("fixed_seq_len") for s in meta["feed_specs"]),
+          f"seq_zoo: the recommender exported at fixed lengths: {meta}")
+    pred = load_compiled_predictor(d)
+    served = {}
+    for title_max in (REC_TITLE[1], 7):
+        f = fluid.DataFeeder(list(REC_NAMES), program=imain).feed(
+            [r[:7] for r in rec_rows(rng, 64, title_max)])
+        want = exe.run(imain, feed=f, fetch_list=[score], scope=scope,
+                       mode="test")[0]
+        got = pred.run(f)[0]
+        ok, perr = np_close(got, want, TOL_F32)
+        padded = int(f["title"].data.shape[1])
+        check(ok, f"seq_zoo: predictor at title length {padded} max err "
+                  f"{perr}")
+        served[padded] = perr
+    check(len(served) == 2, f"seq_zoo: padded lengths served {served}")
+    stats["recommender"]["predictor_max_err_by_padded_title"] = served
+    shutil.rmtree(SEQ_ROOT, ignore_errors=True)
+    del scope
+    # word2vec at build_word2vec's default widths
+    from paddle_tpu_torch.models.word2vec import build_word2vec
+    wmain, wstart = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(wmain, wstart):
+        words = [fluid.layers.data(name=f"w{i}", shape=[1], dtype="int64")
+                 for i in range(4)]
+        nxt = fluid.layers.data(name="next", shape=[1], dtype="int64")
+        _, wloss = build_word2vec(words, nxt, W2V_DICT)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(wloss)
+    wfeed = {f"w{i}": rng.randint(0, W2V_DICT, (W2V_BATCH, 1))
+             for i in range(4)}
+    wfeed["next"] = rng.randint(0, W2V_DICT, (W2V_BATCH, 1))
+    werr, _ = first_step_card_vs_cpu(torch, fluid, "seq_zoo word2vec",
+                                     wmain, wstart, wloss.name, wfeed)
+    wscope = fluid.Scope()
+    exe.run(wstart, scope=wscope)
+    wl = [float(np.asarray(exe.run(wmain, feed=wfeed, fetch_list=[wloss],
+                                   scope=wscope)[0]).reshape(()))
+          for _ in range(SEQ_ZOO_STEPS)]
+    check(np.isfinite(wl).all() and wl[-1] < wl[0],
+          f"seq_zoo: word2vec losses {wl}")
+    stats["word2vec"] = {"dict": W2V_DICT, "batch": W2V_BATCH,
+                         "parity_max_err": werr, "losses": wl}
+    by_kernel = launches_by_kernel(fa)
+    check(not any(by_kernel.values()),
+          f"seq_zoo: attention launched: {by_kernel}")
+    log(f"seq_zoo: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -6220,6 +6727,15 @@ def main():
         free_card(torch)
         phase_ring_attention(torch, fa, smi)
         free_card(torch)
+        # ROADMAP item 7a, the main paths of this slice: DeepFM at
+        # bench.py's million-row width, the stacked dynamic LSTM at its
+        # width, the recommender and word2vec with sequence feeds
+        ctr_launches, _ = phase_deepfm_train(torch, fluid, fa, smi)
+        free_card(torch)
+        lstm_launches, _ = phase_stacked_lstm_train(torch, fluid, fa, smi)
+        free_card(torch)
+        seq_zoo_launches, _ = phase_seq_zoo(torch, fluid, fa, smi)
+        free_card(torch)
         phase_mesh_two_ranks(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -6263,7 +6779,10 @@ def main():
              "pipeline_llama_train_gpipe": pipe_launches["gpipe"],
              "pipeline_llama_train_1f1b": pipe_launches["1f1b"],
              "pipeline_schedule_gpipe": sched_launches["gpipe"],
-             "pipeline_schedule_1f1b": sched_launches["1f1b"]}
+             "pipeline_schedule_1f1b": sched_launches["1f1b"],
+             "deepfm_train": ctr_launches,
+             "stacked_lstm_train": lstm_launches,
+             "seq_zoo": seq_zoo_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),

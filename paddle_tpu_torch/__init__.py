@@ -29,6 +29,7 @@ from .ops import transformer_ops as _ops_tf   # noqa: F401
 from .ops import optimizer_ops as _ops_opt    # noqa: F401
 from .ops import fused_loss as _ops_loss      # noqa: F401
 from .ops import sequence as _ops_seq         # noqa: F401
+from .ops import rnn as _ops_rnn              # noqa: F401
 from .ops import extras as _ops_extras        # noqa: F401
 
 from .core.framework import (                  # noqa: F401
@@ -39,6 +40,10 @@ from .core.executor import (                   # noqa: F401
     Executor, Scope, global_scope, scope_guard, _switch_scope,
     CPUPlace, TPUPlace, CUDAPlace, force_cpu)
 from .core import unique_name                  # noqa: F401
+from .core.sequence import SequenceBatch, to_sequence_batch  # noqa: F401
+from . import lod_tensor                       # noqa: F401
+from .lod_tensor import (create_lod_tensor,    # noqa: F401
+                         create_random_int_lodtensor)
 
 from . import layers                           # noqa: F401
 from . import initializer                      # noqa: F401
@@ -74,8 +79,6 @@ __version__ = "0.1.0"
 # the reference's top-level names of later ROADMAP.md items
 WAITING = {"cluster": FLEET,
            **dict.fromkeys((
-               "SequenceBatch", "to_sequence_batch", "lod_tensor",
-               "create_lod_tensor", "create_random_int_lodtensor",
                "concurrency", "make_channel", "channel_send",
                "channel_recv", "channel_close", "Select", "evaluator",
                "metrics", "average", "profiler", "contrib", "dataset",

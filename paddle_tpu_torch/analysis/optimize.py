@@ -92,14 +92,6 @@ _CONST_PRODUCERS = frozenset(["fill_constant", "assign_value"])
 # file held at optimize time instead of at trace time
 _FOLD_EXCLUDED = frozenset(["load"])
 
-# never folded: the reference registers these seq_aware (they take
-# SequenceBatch values), and its fold refuses seq-aware ops; the port's
-# OpDef has no such flag, so the reference's list of the ops the port
-# registers stands here. tests/test_torch_optimize.py holds it equal to
-# that list, so porting another seq-aware op means adding it here
-_FOLD_SEQ_AWARE = frozenset(["mul", "lookup_table", "sequence_mask",
-                             "quantized_mul"])
-
 # default per-value cap for materialized folded constants (bytes)
 _FOLD_BUDGET_DEFAULT = 256 * 1024
 
@@ -415,7 +407,7 @@ def fold_constants(program, fetch_list=None, budget_bytes=None,
             and has_op(op.type)
             and op.type not in _FOLD_EXCLUDED
             and not get_op(op.type).stateful
-            and op.type not in _FOLD_SEQ_AWARE
+            and not get_op(op.type).seq_aware
             and not eff.barrier and op.type not in BARRIER_OPS
             and eff.writes
             and not (eff.writes & (persist | datas))

@@ -52,8 +52,13 @@ graph and builds nothing (``compile_counts`` does not grow), a miss
 builds the step as always and persists its export for the next process.
 The exported step returns the persistables it writes with its fetches,
 and they go to the scope as the eager step's do. ``store_stats()`` reads
-the counters. Train steps, guarded steps and steps that draw random
-numbers bypass the store.
+the counters. Train steps, guarded steps, steps that draw random
+numbers and steps fed sequences bypass the store.
+
+Sequence feeds (variables with ``lod_level > 0``) are SequenceBatch
+values (``to_sequence_batch``, ``DataFeeder``, ``create_lod_tensor``, or
+any value with ``.data`` and ``.lengths``); a fetched sequence comes back
+as a SequenceBatch, with numpy leaves under ``return_numpy=True``.
 
 Later slice: the profiler hook.
 """
@@ -66,6 +71,7 @@ import torch
 
 from . import framework
 from .lowering import GUARD, lower_program, written_names
+from .sequence import SequenceBatch
 from ..resilience import faultinject as _faultinject
 from ..resilience.retry import (TransientDeviceError, default_policy,
                                 with_retries)
@@ -192,8 +198,15 @@ def default_place():
 
 
 def _feed_signature(feed):
-    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
-                        for k, v in feed.items()))
+    """Each feed's shape and dtype; a sequence's padded shape (each
+    padded length its own signature, as the reference's retrace) with
+    the shapes of its lengths and counts."""
+    def sig(v):
+        if isinstance(v, SequenceBatch):
+            return tuple(tuple(leaf.shape) for leaf in v.leaves()) \
+                + (str(v.dtype),)
+        return tuple(v.shape), str(v.dtype)
+    return tuple(sorted((k,) + tuple(sig(v)) for k, v in feed.items()))
 
 
 class Executor:
@@ -376,13 +389,16 @@ class Executor:
         or on any failure — the ordinary step runs, so the store can
         degrade but never break a dispatch. A step that draws random
         numbers bypasses it too: the exported graph has no seed or step
-        input, so it would repeat one draw."""
+        input, so it would repeat one draw; and a step fed sequences,
+        whose exported graph would take plain tensors (io/aot.py
+        decomposes them for its own export)."""
         from ..io import artifact_store as ast
         if mode != "test" or repeats != 1 or \
                 getattr(program, "_nan_guard", False) or any(
                     op.type == "backward"
                     for op in program.global_block().ops) or \
-                _draws_rng(program):
+                _draws_rng(program) or any(
+                    isinstance(v, SequenceBatch) for v in feed_vals.values()):
             self._store._incr("bypass_total")
             return None
         try:
@@ -569,25 +585,22 @@ class Executor:
                 val = self._to_tensor(val)
                 scope.set(n, val)
             state[n] = val
-        feed_vals = {}
-        for k, v in feed.items():
-            var = gb.vars.get(k)
-            if var is not None and var.lod_level > 0:
-                raise NotImplementedError(
-                    f"feed {k!r} is a sequence (lod_level "
-                    f"{var.lod_level}); sequences are a later slice of "
-                    "the torch port (ROADMAP.md item 'Remaining op "
-                    "families')")
-            feed_vals[k] = self._to_tensor(v)
+        feed_vals = {k: self._to_tensor(v) for k, v in feed.items()}
         return fetch_names, mode, state, feed_vals
 
     def _to_tensor(self, v):
+        """A feed on the device: a tensor, an array, or a sequence — a
+        SequenceBatch, or any value with ``.data`` and ``.lengths`` (and
+        ``.outer_counts``) leaves — as a SequenceBatch of tensors."""
         if isinstance(v, torch.Tensor):
             return v.to(self.device)
         if hasattr(v, "lengths") and hasattr(v, "data"):
-            raise NotImplementedError(
-                "SequenceBatch values are a later slice of the torch port "
-                "(ROADMAP.md item 'Remaining op families')")
+            counts = getattr(v, "outer_counts", None)
+            return SequenceBatch(
+                self._to_tensor(v.data),
+                self._to_tensor(v.lengths).to(torch.int64),
+                None if counts is None
+                else self._to_tensor(counts).to(torch.int64))
         # a copy: a donated update never writes into the caller's array
         return torch.as_tensor(np.array(v), device=self.device)
 
@@ -705,7 +718,10 @@ def to_numpy(t):
     """A fetched tensor as a numpy array of its own on the host (a fetched
     state tensor is updated in place by a later donating step);
     bfloat16 widens to float32 (numpy has no bfloat16 without
-    ml_dtypes). A placed value (DTensor) gives its global value."""
+    ml_dtypes). A placed value (DTensor) gives its global value; a
+    SequenceBatch comes back as one with numpy leaves."""
+    if isinstance(t, SequenceBatch):
+        return t.map(to_numpy)
     t = global_value(t).detach()
     if t.dtype == torch.bfloat16:
         return t.float().cpu().numpy()

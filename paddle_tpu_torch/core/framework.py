@@ -379,9 +379,10 @@ class Program:
     def to_string(self, throw_on_error=True, with_details=False):
         """Readable pseudo-code listing (fluid Program.to_string;
         rendering in debugger.program_to_code)."""
+        from ..waiting import REST
         raise NotImplementedError(
             "Program.to_string needs debugger.program_to_code, which is "
-            "ported with the ROADMAP.md item 'Remaining op families'")
+            f"ported with the ROADMAP.md item '{REST}'")
 
     def __str__(self):
         return self.to_string()

@@ -44,6 +44,7 @@ from . import framework
 from .amp_policy import (AMP_BF16_FLOW_OPS, AMP_MATMUL_OPS,
                          AMP_SELF_MANAGED_DTYPE_OPS)
 from .registry import get_op
+from .sequence import SequenceBatch
 
 __all__ = ["LoweringContext", "Env", "lower_program", "written_names",
            "read_names", "RANGE_OPTIMIZER", "REMAT_POLICIES",
@@ -322,8 +323,23 @@ class LoweringContext:
 
     def _eval_op(self, op, env):
         opdef = get_op(op.type)
-        ins = {slot: [env[n] for n in names]
-               for slot, names in op.inputs.items()}
+        ins = {}
+        seq_lengths = seq_counts = None
+        for slot, names in op.inputs.items():
+            vals = [env[n] for n in names]
+            if not opdef.seq_aware:
+                # a dense op gets the padded data of a sequence; its
+                # lengths rewrap the outputs whose variables are lod
+                unwrapped = []
+                for v in vals:
+                    if isinstance(v, SequenceBatch):
+                        if seq_lengths is None:
+                            seq_lengths = v.lengths
+                            seq_counts = v.outer_counts
+                        v = v.data
+                    unwrapped.append(v)
+                vals = unwrapped
+            ins[slot] = vals
         amp_level = getattr(self.program, "_amp", False)
         amp = bool(amp_level) and op.type in AMP_MATMUL_OPS
         o2 = amp_level == "O2"
@@ -366,17 +382,23 @@ class LoweringContext:
                 vals = [vals]
             for name, val in zip(names, vals):
                 var = block._find_var_recursive(name)
+                if (var is not None and var.lod_level > 0
+                        and seq_lengths is not None
+                        and not isinstance(val, SequenceBatch)
+                        and val.dim() >= 2):
+                    val = SequenceBatch(val, seq_lengths, seq_counts)
+                data = val.data if isinstance(val, SequenceBatch) else val
                 if (var is not None and var.stop_gradient
                         and not isinstance(var, framework.Parameter)
-                        and val.is_floating_point()):
-                    val = val.detach()
+                        and data.is_floating_point()):
+                    val = detach(val)
                 env[name] = val
-                if self.guard is not None and val.is_floating_point():
+                if self.guard is not None and data.is_floating_point():
                     # detached: the probe is no part of the autograd
                     # graph, so a remat's recompute saves what the
                     # first run saved
                     self.guard.append((f"{op.type} -> {name}",
-                                       torch.isfinite(val.detach()).all()))
+                                       torch.isfinite(data.detach()).all()))
 
 
 def _donate(op, env, state):
@@ -397,12 +419,24 @@ def _donate(op, env, state):
             env[n] = old
 
 
+def detach(v):
+    """``v`` detached: a tensor, or a SequenceBatch's data (its lengths
+    carry no gradient)."""
+    if isinstance(v, SequenceBatch):
+        return v.with_data(v.data.detach())
+    return v.detach()
+
+
 def _cast_all(vals_by_slot, from_dtype, to_dtype):
     """Each tensor of ``{slot: value or [values]}`` of ``from_dtype`` cast
-    to ``to_dtype``; the rest as they are."""
+    to ``to_dtype`` (a SequenceBatch's data, keeping its lengths); the
+    rest as they are."""
     def cast(v):
-        return v.to(to_dtype) if getattr(v, "dtype", None) == from_dtype \
-            else v
+        if getattr(v, "dtype", None) != from_dtype:
+            return v
+        if isinstance(v, SequenceBatch):
+            return v.with_data(v.data.to(to_dtype))
+        return v.to(to_dtype)
     return {slot: [cast(v) for v in (vals if isinstance(vals, (list, tuple))
                                      else [vals])]
             for slot, vals in vals_by_slot.items()}
@@ -527,7 +561,7 @@ def lower_program(program, fetch_names, mode):
             grads = ctx.spmd.sync_grads([leaves[p] for p in param_names],
                                         grads)
         ctx._key_count = key_after
-        env.update({n: v.detach() for n, v in kept.items()})
+        env.update({n: detach(v) for n, v in kept.items()})
         for p, g in zip(param_names, grads):
             env[framework.grad_var_name(p)] = \
                 torch.zeros_like(env[p]) if g is None else g

@@ -41,17 +41,9 @@ _ITEMS = {
     "Remaining op families and the zoo": (
         # ops/nn.py
         "im2sequence", "hierarchical_sigmoid", "nce", "row_conv",
-        # ops/sequence.py, all but sequence_mask
-        "sequence_pool", "sequence_first_step", "sequence_last_step",
-        "sequence_softmax", "sequence_expand", "sequence_conv",
-        "sequence_reshape", "sequence_concat", "sequence_slice",
-        "sequence_enumerate", "sequence_erase", "sequence_pad",
-        "sequence_unpad", "lod_reset", "lod_array_length",
-        "edit_distance",
-        # ops/rnn.py, control_flow.py, crf_ctc.py, detection.py,
+        # ops/rnn.py's scan, control_flow.py, crf_ctc.py, detection.py,
         # eval_ops.py, extras.py
-        "lstm", "gru", "lstm_unit", "gru_unit", "scan",
-        "while", "if_else", "select_input", "print", "is_empty",
+        "scan", "while", "if_else", "select_input", "print", "is_empty",
         "write_to_array", "read_from_array",
         "linear_chain_crf", "crf_decoding", "warpctc", "ctc_greedy_decoder",
         "beam_search", "beam_search_decode", "beam_expand", "beam_gather",
@@ -78,12 +70,16 @@ def canonical_int():
 
 
 class OpDef:
-    __slots__ = ("type", "lower", "stateful")
+    __slots__ = ("type", "lower", "stateful", "seq_aware")
 
-    def __init__(self, type, lower, stateful=False):
+    def __init__(self, type, lower, stateful=False, seq_aware=False):
         self.type = type
         self.lower = lower
         self.stateful = stateful   # uses rng (dropout, random init ops)
+        # seq_aware ops take SequenceBatch values as they are; the
+        # lowering hands every other op the padded data and rewraps its
+        # outputs whose variables have lod_level > 0
+        self.seq_aware = seq_aware
 
 
 # stateful ops whose draws depend on their temperature: greedy (<= 0)
@@ -103,7 +99,7 @@ def draws_rng(op):
     return True
 
 
-def register_op(type, stateful=False):
+def register_op(type, stateful=False, seq_aware=False):
     """Decorator: register a lowering rule for ``type``.
 
     A second registration for the same type is rejected loudly — a
@@ -116,7 +112,7 @@ def register_op(type, stateful=False):
                 f"op {type!r} registered twice (existing rule: "
                 f"{_REGISTRY[type].lower.__module__}."
                 f"{_REGISTRY[type].lower.__qualname__})")
-        _REGISTRY[type] = OpDef(type, fn, stateful)
+        _REGISTRY[type] = OpDef(type, fn, stateful, seq_aware)
         return fn
     return deco
 

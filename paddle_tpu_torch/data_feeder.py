@@ -3,15 +3,15 @@
 Port of ``paddle_tpu/data_feeder.py`` (parity with
 python/paddle/fluid/data_feeder.py): takes a list of feed Variables;
 ``feed(batch_of_rows)`` transposes row-major reader output into
-per-variable arrays. Dense variables only: a variable with
-``lod_level > 0`` raises, as the executor does for sequence feeds
-(sequences are ROADMAP.md item 'Remaining op families and the zoo').
-A batch that is already a feed dict (``io.DeviceLoader``'s) passes
-through as it is.
+per-variable arrays. Variables with ``lod_level > 0`` become
+SequenceBatch values (padded + lengths; at level 2 rows carry lists of
+subsequences) instead of LoDTensors. A batch that is already a feed
+dict (``io.DeviceLoader``'s) passes through as it is.
 """
 import numpy as np
 
 from .core import framework
+from .core.sequence import to_nested_sequence_batch, to_sequence_batch
 
 __all__ = ["DataFeeder"]
 
@@ -23,12 +23,6 @@ class DataFeeder:
         for v in feed_list:
             if isinstance(v, str):
                 v = program.global_block().var(v)
-            if v.lod_level > 0:
-                raise NotImplementedError(
-                    f"feed {v.name!r} is a sequence (lod_level "
-                    f"{v.lod_level}); sequences are a later slice of the "
-                    "torch port (ROADMAP.md item 'Remaining op families "
-                    "and the zoo')")
             self.feed_vars.append(v)
         self.place = place
 
@@ -39,9 +33,16 @@ class DataFeeder:
         feed = {}
         for i, var in enumerate(self.feed_vars):
             col = [r[i] for r in rows]
-            arr = np.asarray(col, dtype=np.dtype(var.dtype))
-            want = [s for s in var.shape if s != -1]
-            if list(arr.shape[1:]) != want and want:
-                arr = arr.reshape([arr.shape[0]] + want)
-            feed[var.name] = arr
+            if var.lod_level == 2:
+                feed[var.name] = to_nested_sequence_batch(
+                    col, dtype=np.dtype(var.dtype))
+            elif var.lod_level > 0:
+                feed[var.name] = to_sequence_batch(
+                    col, dtype=np.dtype(var.dtype))
+            else:
+                arr = np.asarray(col, dtype=np.dtype(var.dtype))
+                want = [s for s in var.shape if s != -1]
+                if list(arr.shape[1:]) != want and want:
+                    arr = arr.reshape([arr.shape[0]] + want)
+                feed[var.name] = arr
         return feed

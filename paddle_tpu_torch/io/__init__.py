@@ -341,7 +341,9 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         try:
             export_compiled(dirname, inference_program,
                             list(feeded_var_names), fetch_names,
-                            global_scope(), device=_device(executor))
+                            global_scope(), device=_device(executor),
+                            seq_lens=serving_meta.get("buckets", {})
+                            .get("seq_lens"))
         except Exception as e:                    # noqa: BLE001
             import warnings
             warnings.warn(
@@ -465,8 +467,9 @@ def load_inference_model(dirname, executor, model_filename=None,
         raise ValueError(
             "pserver_endpoints is a parameter-server concept; the "
             "distributed path here is collectives over a device mesh "
-            "(ROADMAP.md item 'Multi-device parallelism') — load the "
-            "model normally instead")
+            "(parallel.make_mesh) — load the model normally and shard "
+            "it with the sharding transpiler "
+            "(transpiler.ShardingTranspiler) instead")
     device = _device(executor)
     with open(os.path.join(dirname, "__model__.json")) as f:
         program = framework.Program.from_json(f.read())

@@ -15,8 +15,20 @@ starts with -1 shares one symbolic batch dimension (``Dim("b")``), so
 one artifact serves any batch size, 1 included: the example batch is 2,
 because ``torch.export`` specializes a dimension whose example is 1.
 The other -1 dimensions are ``Dim.AUTO``: dynamic where the program
-allows it, specialized to the example where it does not (a sequence
-length that fixes a weight's shape).
+allows it, specialized to the example where it does not (a width that
+fixes a weight's shape).
+
+A sequence feed (``lod_level > 0``) enters the graph as its padded
+decomposition — data [b, t..., *feature], lengths [b] (or [b, s] at
+level 2, plus outer counts [b]) — which the exported step reassembles
+into a SequenceBatch, so the artifact takes plain tensors. Each padded
+axis is its own dimension: a program without a recurrence keeps it
+symbolic, so one artifact serves any padded length, as the reference's
+does. A recurrent op (``lstm``, ``gru``) loops over the padded axis in
+Python, and the export specializes that loop to one length (ROADMAP.md
+§3, F14): such a program exports at the largest padded length its
+``serving_buckets`` declare for the feed, and the predictor refuses any
+other length by name. A fetched sequence comes back as its padded data.
 
 ``CompiledPredictor`` loads that graph and runs it: no Program IR, no op
 registry, no lowering. It imports ``torch.export``, numpy and the
@@ -128,19 +140,72 @@ def load_exported(blob):
     return torch.export.load(_io.BytesIO(blob)).module()
 
 
+# example sizes of a sequence feed's padded axes (level 1's time axis;
+# level 2's subsequence and time axes): distinct from the batch's and
+# the other -1 dims' so no two dims share an example size
+_EXAMPLE_SEQ = (7, 3)
+# the suffixes of a sequence feed's lengths and outer counts in the
+# exported step's flat feed list
+_LENGTHS, _COUNTS = "@lengths", "@outer_counts"
+
+
+def _sequence_step(step_fn, specs):
+    """``step_fn`` over the flat feed names of :func:`export_compiled`:
+    reassembles each sequence feed's SequenceBatch from its data,
+    lengths and counts, and returns a fetched sequence's padded data."""
+    from ..core.sequence import SequenceBatch
+
+    def step(state, feed, device, seed, step_no):
+        feed = dict(feed)
+        for spec in specs:
+            n = spec["name"]
+            if spec["lod_level"]:
+                feed[n] = SequenceBatch(feed.pop(n), feed.pop(n + _LENGTHS),
+                                        feed.pop(n + _COUNTS, None))
+        new_state, fetches = step_fn(state, feed, device, seed, step_no)
+        return new_state, [f.data if isinstance(f, SequenceBatch) else f
+                           for f in fetches]
+    return step
+
+
+def _specialized_axes(ep, n_params, flat_names, specs):
+    """{feed name: [size]} of each sequence feed whose padded axes the
+    export fixed to their example sizes (the placeholder's dims there
+    are ints, not symbols)."""
+    user = ep.graph_signature.user_inputs
+    nodes = {nd.name: nd for nd in ep.graph.nodes if nd.op == "placeholder"}
+    fixed = {}
+    for spec in specs:
+        lod = spec["lod_level"]
+        if not lod:
+            continue
+        node = nodes.get(user[n_params + flat_names.index(spec["name"])])
+        shape = node.meta["val"].shape if node is not None else ()
+        sizes = [shape[1 + k] for k in range(lod)] if shape else []
+        if sizes and all(isinstance(d, int) or d.node.expr.is_number
+                         for d in sizes):
+            fixed[spec["name"]] = [int(d) for d in sizes]
+    return fixed
+
+
 def export_compiled(dirname, program, feed_names, fetch_names, scope,
-                    device, batch_symbol="b", param_names=None):
+                    device, batch_symbol="b", param_names=None,
+                    seq_lens=None):
     """Lower ``program`` (already pruned to the inference slice) to its
     test-mode step of (params, feeds), export it through
     ``torch.export`` on ``device`` with one symbolic leading batch dim
     shared by every feed whose shape starts with -1, and write it into
     ``dirname``. Returns the meta dict.
 
+    A sequence feed enters as its padded decomposition, each padded axis
+    a dimension of its own. ``seq_lens`` ({feed: [padded lengths]}, the
+    serving buckets') sets the example length of a feed's time axis
+    (the largest); a program that fixes that axis (a recurrence, F14)
+    exports at it, and without a declared length raises ValueError.
+
     Raises whatever ``torch.export`` raises if the program is not
     exportable (a value read back to the host, a data-dependent shape)
-    — callers that want the JSON-program fallback catch and continue.
-    A sequence feed (lod_level > 0) raises: sequences are ROADMAP.md
-    item 'Remaining op families and the zoo'."""
+    — callers that want the JSON-program fallback catch and continue."""
     from ..core.framework import collect_op_input_names
     from ..core.lowering import lower_program
 
@@ -167,25 +232,65 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
         params.append(val.to(device))
 
     batch = torch.export.Dim(batch_symbol)
-    feed_specs, examples, dyn = [], [], []
+    auto = torch.export.Dim.AUTO
+    seq_lens = seq_lens or {}
+    feed_specs, flat_names, examples, dyn = [], [], [], []
     for n in feed_names:
         v = gb.var(n)
-        if int(getattr(v, "lod_level", 0) or 0):
-            raise NotImplementedError(
-                f"feed {n!r} is a sequence (lod_level {v.lod_level}); "
-                "sequences are a later slice of the torch port "
-                "(ROADMAP.md item 'Remaining op families and the zoo')")
         shape = [int(s) for s in v.shape]
+        lod = int(getattr(v, "lod_level", 0) or 0)
+        if lod > 2:
+            raise ValueError(
+                f"feed {n!r}: lod_level {lod} > 2 is unsupported "
+                "(SequenceBatch nests at most 2 levels)")
         feed_specs.append({"name": n, "shape": shape, "dtype": v.dtype,
-                           "lod_level": 0})
-        ex = [(_EXAMPLE_BATCH if j == 0 else 2 * _EXAMPLE_BATCH + 1)
-              if s == -1 else s for j, s in enumerate(shape)]
-        examples.append(torch.zeros(ex, dtype=_torch_dtype(v.dtype),
-                                    device=device))
-        dyn.append({j: (batch if j == 0 else torch.export.Dim.AUTO)
-                    for j, s in enumerate(shape) if s == -1} or None)
-    ep = export_step(step_fn, param_names, params, feed_names, examples,
+                           "lod_level": lod})
+        dt = _torch_dtype(v.dtype)
+        if not lod:
+            ex = [(_EXAMPLE_BATCH if j == 0 else 2 * _EXAMPLE_BATCH + 1)
+                  if s == -1 else s for j, s in enumerate(shape)]
+            flat_names.append(n)
+            examples.append(torch.zeros(ex, dtype=dt, device=device))
+            dyn.append({j: (batch if j == 0 else auto)
+                        for j, s in enumerate(shape) if s == -1} or None)
+            continue
+        # data [b, t...(lod), *feature]: the feature dims are the
+        # variable's own after its batch dim
+        axes = list(_EXAMPLE_SEQ[:lod][::-1])
+        if seq_lens.get(n):
+            axes[-1] = max(int(t) for t in seq_lens[n])
+        feature = [2 * _EXAMPLE_BATCH + 1 if s == -1 else s
+                   for s in shape[1:]]
+        flat_names += [n, n + _LENGTHS] + ([n + _COUNTS] if lod == 2
+                                           else [])
+        examples.append(torch.zeros([_EXAMPLE_BATCH] + axes + feature,
+                                    dtype=dt, device=device))
+        examples.append(torch.ones([_EXAMPLE_BATCH] + axes[:-1],
+                                   dtype=torch.int64, device=device))
+        dyn.append({0: batch, **{1 + k: auto for k in range(lod)},
+                    **{1 + lod + j: auto for j, s in enumerate(shape[1:])
+                       if s == -1}})
+        dyn.append({0: batch, **{1 + k: auto for k in range(lod - 1)}})
+        if lod == 2:
+            examples.append(torch.ones([_EXAMPLE_BATCH], dtype=torch.int64,
+                                       device=device))
+            dyn.append({0: batch})
+    if any(s["lod_level"] for s in feed_specs):
+        step_fn = _sequence_step(step_fn, feed_specs)
+    ep = export_step(step_fn, param_names, params, flat_names, examples,
                      device, dynamic_shapes=([None] * len(params), dyn))
+    fixed = _specialized_axes(ep, len(params), flat_names, feed_specs)
+    for spec in feed_specs:
+        if spec["name"] not in fixed:
+            continue
+        if not seq_lens.get(spec["name"]):
+            raise ValueError(
+                f"feed {spec['name']!r}: the program fixes its padded "
+                "length when exported (a recurrent op loops over it; "
+                "ROADMAP.md §3, F14) — declare the length to serve with "
+                "serving_buckets=BucketSpec(seq_lens={"
+                f"{spec['name']!r}: (T,)}})")
+        spec["fixed_seq_len"] = fixed[spec["name"]]
     os.makedirs(dirname, exist_ok=True)
     with open(os.path.join(dirname, _ARTIFACT), "wb") as f:
         f.write(save_exported(ep))
@@ -303,11 +408,72 @@ class CompiledPredictor:
     def fetch_names(self):
         return list(self._meta["fetch_names"])
 
+    def _tensor(self, v, dtype):
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(np.asarray(v, dtype=dtype))
+        return v.to(self.device, dtype=_torch_dtype(dtype))
+
+    def _sequence(self, spec, v):
+        """A sequence feed's (data, lengths[, outer_counts]) tensors from
+        a tuple, a dict with those keys, or any value with .data and
+        .lengths (a SequenceBatch duck-types; this module never imports
+        it); a padded length other than the one a recurrent program was
+        exported at raises (F14)."""
+        n, lod = spec["name"], spec["lod_level"]
+        contract = (f"sequence feed {n!r} (lod_level={lod}) needs "
+                    + ("(data, lengths, outer_counts)" if lod == 2
+                       else "(data, lengths)")
+                    + " — a tuple, a dict with those keys, or a "
+                    "SequenceBatch-like object")
+        explicit = True
+        if isinstance(v, (tuple, list)):
+            parts = list(v)
+        elif isinstance(v, dict):
+            parts = [v.get("data"), v.get("lengths"), v.get("outer_counts")]
+        elif hasattr(v, "data") and hasattr(v, "lengths") and \
+                not isinstance(v, (np.ndarray, torch.Tensor)):
+            # a SequenceBatch with outer_counts None derives them from
+            # its nonzero lengths (its own sub_counts)
+            parts = [v.data, v.lengths, getattr(v, "outer_counts", None)]
+            explicit = False
+        else:
+            raise TypeError(f"{contract}; got {type(v).__name__}")
+        if (len(parts) < 2 or parts[0] is None or parts[1] is None
+                or (lod == 2 and explicit
+                    and (len(parts) < 3 or parts[2] is None))):
+            # at level 2 a spelled-out feed must carry outer_counts:
+            # inferring them from nonzero lengths miscounts legitimate
+            # zero-length subsequences
+            raise TypeError(f"{contract}; got an incomplete value")
+        data = self._tensor(parts[0], spec["dtype"])
+        if data.dim() == lod + len(spec["shape"]) - 1 and \
+                spec["shape"][-1] == 1:
+            # rows of ids without their trailing unit dim (DataFeeder's
+            # form of 1-D rows): the exported graph takes it
+            data = data.unsqueeze(-1)
+        fixed = spec.get("fixed_seq_len")
+        if fixed and list(data.shape[1:1 + lod]) != list(fixed):
+            raise ValueError(
+                f"sequence feed {n!r} is padded to "
+                f"{list(data.shape[1:1 + lod])}, but this artifact's "
+                f"recurrent program was exported at {fixed} (ROADMAP.md "
+                "§3, F14): pad to that length (to_sequence_batch("
+                "max_len=...)) or serve through the executor")
+        out = [data, self._tensor(parts[1], "int64")]
+        if lod == 2:
+            counts = parts[2] if len(parts) > 2 and parts[2] is not None \
+                else (out[1] > 0).sum(-1)
+            out.append(self._tensor(counts, "int64"))
+        return out
+
     def run(self, feed, return_numpy=True):
         """feed: dict name -> array (batch size free wherever the saved
-        program's feed shape had -1). Returns the fetches in fetch
-        order, as numpy arrays (bfloat16 widened to float32) or, with
-        ``return_numpy=False``, as tensors on the device."""
+        program's feed shape had -1); a sequence feed takes its padded
+        decomposition: a (data, lengths[, outer_counts]) tuple, a dict
+        with those keys, or a SequenceBatch-like value. Returns the
+        fetches in fetch order, as numpy arrays (bfloat16 widened to
+        float32) or, with ``return_numpy=False``, as tensors on the
+        device."""
         feeds = []
         for spec in self._meta["feed_specs"]:
             n = spec["name"]
@@ -315,11 +481,10 @@ class CompiledPredictor:
                 raise KeyError(
                     f"missing feed {n!r}; predictor feeds: "
                     f"{self.feed_names}")
-            v = feed[n]
-            if not isinstance(v, torch.Tensor):
-                v = torch.as_tensor(np.asarray(v, dtype=spec["dtype"]))
-            feeds.append(v.to(self.device,
-                              dtype=_torch_dtype(spec["dtype"])))
+            if spec.get("lod_level", 0):
+                feeds += self._sequence(spec, feed[n])
+            else:
+                feeds.append(self._tensor(feed[n], spec["dtype"]))
         with torch.no_grad():
             outs = self._call(self._params, feeds)
         if not return_numpy:

@@ -1,6 +1,6 @@
 """Layers namespace (port of ``paddle_tpu/layers``). The layers of later
-ROADMAP.md items (conv and detection nets, sequences, control flow, MoE,
-the paged decode ops) are refused by name."""
+ROADMAP.md items (control flow and StaticRNN/DynamicRNN, detection, the
+CRF/CTC and beam-search layers) are refused by name."""
 from ..waiting import REST, module_getattr
 from . import ops
 from .ops import *            # noqa: F401,F403

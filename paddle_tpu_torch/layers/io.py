@@ -15,13 +15,15 @@ open_recordio_file return reader handles, read_file(reader) yields the
 data variables, batch/shuffle/double_buffer wrap readers, and
 Preprocessor builds its transform as ordinary program ops.
 
-Readers are dense: ``lod_levels`` with a level above 0 raises, naming
-ROADMAP.md item 'Remaining op families and the zoo' (sequences).
+A reader variable with ``lod_levels[i] > 0`` gets each batch's rows of
+variable-length sequences as a SequenceBatch (``to_sequence_batch``),
+as the reference's readers do.
 """
 import numpy as np
 
 from ..core import framework
 from ..core.executor import EOFException
+from ..core.sequence import to_sequence_batch
 from ..layer_helper import LayerHelper
 from ..core import unique_name as _un
 
@@ -54,7 +56,6 @@ class Reader:
         self.program = program or framework.default_main_program()
         self.name = name or _un.generate("reader")
         lod_levels = lod_levels or [0] * len(shapes)
-        _refuse_sequences(lod_levels)
         self._vars = [
             data(f"{self.name}.out{i}", shape=list(s), dtype=dt,
                  lod_level=ll, append_batch_size=False)
@@ -114,16 +115,12 @@ class Reader:
         rows = item if self._batched else [item]
         for i, v in enumerate(self._vars):
             col = [r[i] for r in rows]
-            feed[v.name] = np.asarray(col, dtype=np.dtype(v.dtype))
+            if v.lod_level > 0:
+                feed[v.name] = to_sequence_batch(
+                    col, dtype=np.dtype(v.dtype))
+            else:
+                feed[v.name] = np.asarray(col, dtype=np.dtype(v.dtype))
         return feed
-
-
-def _refuse_sequences(lod_levels):
-    if any(int(ll or 0) > 0 for ll in lod_levels):
-        raise NotImplementedError(
-            f"readers with lod_levels {list(lod_levels)}: sequences are a "
-            "later slice of the torch port (ROADMAP.md item 'Remaining op "
-            "families and the zoo')")
 
 
 def py_reader(capacity, shapes, dtypes, lod_levels=None, name=None,

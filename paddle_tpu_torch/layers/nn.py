@@ -87,7 +87,9 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
     """Embedding lookup (reference lookup_table_op.cc).
 
-    ``is_sparse`` is accepted for parity (the lookup is a gather).
+    ``is_sparse`` is accepted for parity (the lookup is a gather); for
+    a single-device table of at least 1,000,000 rows it warns, as the
+    reference does, that the dense optimizer sweep remains.
 
     ``is_distributed`` annotates the table ``P('mp', None)`` as the
     reference does: under a ParallelExecutor whose mesh has an 'mp'
@@ -96,6 +98,18 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     """
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, size, dtype)
+    if is_sparse and not is_distributed and size[0] >= 1_000_000:
+        # the reference's warning (paddle_tpu/layers/nn.py): the flag
+        # exists to avoid a dense optimizer sweep over a huge table, and
+        # on one device the sweep still happens (the gradient is a dense
+        # scatter-add, the optimizer updates every row)
+        import warnings
+        warnings.warn(stacklevel=2, message=(
+            f"embedding(is_sparse=True) is a no-op on the card (the "
+            f"lookup is a gather, its gradient a scatter-add); for a "
+            f"{size[0]}-row table the dense optimizer sweep is the real "
+            "cost — shard it with is_distributed=True on a mesh with an "
+            "'mp' axis instead"))
     if is_distributed:
         w.sharding = P(*(("mp",) + (None,) * (len(size) - 1)))
     out_shape = list(input.shape)

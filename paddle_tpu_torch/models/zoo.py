@@ -2,9 +2,11 @@
 the entries whose ops the port has, each building a complete (main,
 startup) Program pair at a tiny configuration with an example feed —
 the conv nets ``mnist``, ``vgg``, ``resnet`` and ``se_resnext``, then
-``mnist_mlp``, ``fit_a_line``, ``transformer`` and ``llama``. Every
-other zoo name of the reference raises NotImplementedError naming the
-ROADMAP.md item that ports what it needs.
+``mnist_mlp``, ``fit_a_line``, ``word2vec``, ``recommender``, ``ctr``,
+``stacked_dynamic_lstm``, ``transformer`` and ``llama``. Every other zoo
+name of the reference raises NotImplementedError naming the ROADMAP.md
+item that ports what it needs. Example feeds give lod_level inputs as
+SequenceBatch values.
 """
 from .. import layers, optimizer
 from ..core import framework, unique_name
@@ -17,10 +19,9 @@ FEEDS = {}
 
 _SEQ = "Remaining op families and the zoo"
 #: the reference's other zoo names -> the ROADMAP.md item they wait for
-#: (``ocr_recognition`` needs warpctc, the RNN ops and LoD feeds)
+#: (control flow, CRF/CTC, beam search and detection)
 WAITING = dict.fromkeys((
-    "ocr_recognition", "word2vec", "recommender", "ctr",
-    "stacked_dynamic_lstm", "machine_translation", "label_semantic_roles",
+    "ocr_recognition", "machine_translation", "label_semantic_roles",
     "faster_rcnn"), _SEQ)
 
 
@@ -151,6 +152,66 @@ def _build_fit_a_line():
     return [loss], ["x", "y"]
 
 
+@_zoo("word2vec")
+def _build_word2vec():
+    from .word2vec import build_word2vec
+    words = [layers.data(name=f"w{i}", shape=[1], dtype="int64")
+             for i in range(4)]
+    nxt = layers.data(name="next", shape=[1], dtype="int64")
+    _, loss = build_word2vec(words, nxt, dict_size=30, embed_size=16,
+                             hidden_size=32)
+    optimizer.Adam(learning_rate=1e-2).minimize(loss)
+    return [loss], [f"w{i}" for i in range(4)] + ["next"]
+
+
+@_zoo("recommender")
+def _build_recommender():
+    from .recommender import build_recommender
+    uid = layers.data(name="uid", shape=[1], dtype="int64")
+    gender = layers.data(name="gender", shape=[1], dtype="int64")
+    age = layers.data(name="age", shape=[1], dtype="int64")
+    job = layers.data(name="job", shape=[1], dtype="int64")
+    mid = layers.data(name="mid", shape=[1], dtype="int64")
+    cats = layers.data(name="cats", shape=[1], dtype="int64",
+                       lod_level=1)
+    title = layers.data(name="title", shape=[1], dtype="int64",
+                        lod_level=1)
+    rating = layers.data(name="rating", shape=[1], dtype="float32")
+    _, loss = build_recommender(
+        uid, gender, age, job, mid, cats, title, rating,
+        sizes=dict(uid=8, gender=2, age=4, job=4, mid=8, category=6,
+                   title=20))
+    optimizer.Adam(learning_rate=5e-3).minimize(loss)
+    return [loss], ["uid", "gender", "age", "job", "mid", "cats",
+                    "title", "rating"]
+
+
+@_zoo("ctr")
+def _build_ctr():
+    from .ctr import build_deepfm
+    feat = layers.data(name="feat", shape=[-1, 6], dtype="int64",
+                       append_batch_size=False)
+    label = layers.data(name="label", shape=[-1, 1], dtype="float32",
+                        append_batch_size=False)
+    _, loss = build_deepfm(feat, label, num_features=64, num_fields=6,
+                           embed_size=4, hidden_sizes=(16,))
+    optimizer.Adam(learning_rate=5e-3).minimize(loss)
+    return [loss], ["feat", "label"]
+
+
+@_zoo("stacked_dynamic_lstm")
+def _build_stacked_lstm():
+    from .stacked_dynamic_lstm import stacked_lstm_net
+    data = layers.data(name="words", shape=[1], dtype="int64",
+                       lod_level=1)
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    loss, acc, _ = stacked_lstm_net(data, label, dict_dim=100,
+                                    emb_dim=16, hid_dim=16,
+                                    stacked_num=2)
+    optimizer.Adam(learning_rate=1e-2).minimize(loss)
+    return [loss, acc], ["words", "label"]
+
+
 @_zoo("transformer")
 def _build_transformer():
     from .transformer import TRANSFORMER_TINY, build_transformer
@@ -175,6 +236,14 @@ def _build_llama():
     _, loss = build_llama(LLAMA_TINY, tokens, targets)
     optimizer.Adam(learning_rate=1e-3).minimize(loss)
     return [loss], ["tokens", "targets"]
+
+
+def _seqs(rng, batch, lo, hi, width=1, min_len=3, max_len=6):
+    import numpy as np
+    from ..core.sequence import to_sequence_batch
+    lens = [int(rng.randint(min_len, max_len + 1)) for _ in range(batch)]
+    arrs = [rng.randint(lo, hi, (n, width)) for n in lens]
+    return to_sequence_batch(arrs, np.int64, bucket=4), lens
 
 
 @_feed("mnist")
@@ -231,3 +300,41 @@ def _feed_llama(b, rng):
     import numpy as np
     toks = rng.randint(2, 256, (b, 16)).astype(np.int64)
     return {"tokens": toks, "targets": np.roll(toks, -1, 1)}
+
+
+@_feed("word2vec")
+def _feed_word2vec(b, rng):
+    import numpy as np
+    feed = {f"w{i}": rng.randint(0, 30, (b, 1)).astype(np.int64)
+            for i in range(4)}
+    feed["next"] = rng.randint(0, 30, (b, 1)).astype(np.int64)
+    return feed
+
+
+@_feed("recommender")
+def _feed_recommender(b, rng):
+    import numpy as np
+    cats, _ = _seqs(rng, b, 0, 6, max_len=4)
+    title, _ = _seqs(rng, b, 0, 20, max_len=4)
+    return {"uid": rng.randint(0, 8, (b, 1)).astype(np.int64),
+            "gender": rng.randint(0, 2, (b, 1)).astype(np.int64),
+            "age": rng.randint(0, 4, (b, 1)).astype(np.int64),
+            "job": rng.randint(0, 4, (b, 1)).astype(np.int64),
+            "mid": rng.randint(0, 8, (b, 1)).astype(np.int64),
+            "cats": cats, "title": title,
+            "rating": rng.rand(b, 1).astype(np.float32)}
+
+
+@_feed("ctr")
+def _feed_ctr(b, rng):
+    import numpy as np
+    return {"feat": rng.randint(0, 64, (b, 6)).astype(np.int64),
+            "label": rng.randint(0, 2, (b, 1)).astype(np.float32)}
+
+
+@_feed("stacked_dynamic_lstm")
+def _feed_stacked_lstm(b, rng):
+    import numpy as np
+    words, _ = _seqs(rng, b, 0, 100)
+    return {"words": words,
+            "label": rng.randint(0, 2, (b, 1)).astype(np.int64)}

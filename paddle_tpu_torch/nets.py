@@ -1,17 +1,15 @@
 """Composite networks (port of ``paddle_tpu/nets.py``; parity with
-python/paddle/fluid/nets.py): simple_img_conv_pool, img_conv_group, glu
-and scaled_dot_product_attention, copied from the reference.
-``sequence_conv_pool`` needs the sequence layers, which come with
-ROADMAP.md item 'Remaining op families and the zoo'.
+python/paddle/fluid/nets.py): simple_img_conv_pool, img_conv_group,
+sequence_conv_pool, glu and scaled_dot_product_attention, copied from
+the reference.
 """
 from . import layers
-from .waiting import REST, module_getattr
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
-           "scaled_dot_product_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
-WAITING = {"sequence_conv_pool": REST}
-__getattr__ = module_getattr(__name__, WAITING)
+#: the reference's names still to port (none)
+WAITING = {}
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -65,6 +63,14 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride,
                          data_format=data_format)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

@@ -144,12 +144,17 @@ def _shape(ctx, ins, attrs):
 # ---------------------------------------------------------------------------
 
 
-@register_op("mul")
+@register_op("mul", seq_aware=True)
 def _mul(ctx, ins, attrs):
     """fluid mul op (reference paddle/fluid/operators/mul_op.cc): flattens X
     to 2D at x_num_col_dims, Y at y_num_col_dims, then matmul — the
-    product behind fc."""
+    product behind fc. A SequenceBatch X contracts its last dim row-wise
+    (the lod-tensor [N, D] @ [D, K] semantics)."""
+    from ..core.sequence import SequenceBatch
     x, y = ins["X"][0], ins["Y"][0]
+    if isinstance(x, SequenceBatch):
+        return {"Out": [SequenceBatch(torch.einsum("btd,dk->btk", x.data, y),
+                                      x.lengths)]}
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
     xs, ys = tuple(x.shape), tuple(y.shape)

@@ -21,14 +21,15 @@ def _dequant_weight(ins, axis, like_dtype):
     return wq.to(like_dtype) * scale.to(like_dtype).reshape(shape)
 
 
-@register_op("quantized_mul")
+@register_op("quantized_mul", seq_aware=True)
 def _quantized_mul(ctx, ins, attrs):
     """Weight-only int8 mul (QuantizeTranspiler): the weight is stored
     int8 with one scale a column and dequantized ahead of ``mul``'s own
-    rule."""
+    rule (which takes a SequenceBatch X as it is)."""
     x = ins["X"][0]
+    x_dtype = getattr(x, "data", x).dtype
     new_ins = {k: v for k, v in ins.items() if k != "Scale"}
-    new_ins["Y"] = [_dequant_weight(ins, axis=1, like_dtype=x.dtype)]
+    new_ins["Y"] = [_dequant_weight(ins, axis=1, like_dtype=x_dtype)]
     return get_op("mul").lower(ctx, new_ins, attrs)
 
 

@@ -324,12 +324,18 @@ def _batch_norm(ctx, ins, attrs):
             "SavedVariance": [saved_var.detach()]}
 
 
-@register_op("lookup_table")
+@register_op("lookup_table", seq_aware=True)
 def _lookup_table(ctx, ins, attrs):
     """reference paddle/fluid/operators/lookup_table_op.cc. Ids [..., 1]
     or [...] int; a trailing dim of size 1 is squeezed; padding_idx rows
-    return zeros."""
+    return zeros. SequenceBatch ids give a SequenceBatch of
+    embeddings."""
+    from ..core.sequence import SequenceBatch
     w, ids = ins["W"][0], ins["Ids"][0]
+    if isinstance(ids, SequenceBatch):
+        out = _lookup_table(ctx, {"W": [w], "Ids": [ids.data]},
+                            attrs)["Out"][0]
+        return {"Out": [ids.with_data(out)]}
     if ids.dim() and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     if ids.is_floating_point() or ids.dtype == torch.bool:

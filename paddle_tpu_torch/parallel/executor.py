@@ -163,6 +163,16 @@ class ParallelExecutor:
             state[n] = placed
         feed_vals = {}
         for k, v in feed.items():
+            var = gb.vars.get(k)
+            if (var is not None and var.lod_level > 0) or (
+                    hasattr(v, "lengths") and hasattr(v, "data")):
+                # a sequence's rows would shard over 'dp' apart from its
+                # lengths: refused rather than mis-sharded
+                from ..waiting import FLEET
+                raise NotImplementedError(
+                    f"feed {k!r} is a sequence: sequence feeds under a "
+                    "device mesh are not ported yet (ROADMAP.md item "
+                    f"'{FLEET}'); run the program through Executor")
             v = v if isinstance(v, torch.Tensor) else \
                 torch.as_tensor(np.array(v))
             spec = self._feed_spec(k)

@@ -265,8 +265,15 @@ def test_saved_files_are_the_reference_files(tmp_path, pkg):
     with pytest.raises(ValueError, match="one output list per feed"):
         fluid.io.save_golden_set(d, feeds, outs[:1])
     assert fluid.io.load_golden_set(str(tmp_path / "none")) is None
-    with pytest.raises(ValueError, match="pserver_endpoints"):
+    with pytest.raises(ValueError, match="pserver_endpoints") as err:
         fluid.io.load_inference_model(d, exe, pserver_endpoints=["h:1"])
+    # the reference's advice (paddle_tpu/io/__init__.py) in the port's
+    # names: load normally, then shard with the sharding transpiler
+    assert "load the model normally and shard it with the sharding " \
+        "transpiler" in str(err.value)
+    if pkg == "port":
+        assert "transpiler.ShardingTranspiler" in str(err.value)
+        assert hasattr(fluid.transpiler, "ShardingTranspiler")
 
 
 def test_golden_sets_cross_both_ways(tmp_path):

@@ -73,6 +73,11 @@ import paddle_tpu_torch.transpiler.memory_optimization
 import paddle_tpu_torch.models.transformer, paddle_tpu_torch.models.zoo
 import paddle_tpu_torch.models.mnist, paddle_tpu_torch.models.fit_a_line
 import paddle_tpu_torch.ops.sequence, paddle_tpu_torch.layers.math_op_patch
+import paddle_tpu_torch.ops.rnn, paddle_tpu_torch.core.sequence
+import paddle_tpu_torch.lod_tensor, paddle_tpu_torch.nets
+import paddle_tpu_torch.models.ctr, paddle_tpu_torch.models.word2vec
+import paddle_tpu_torch.models.recommender
+import paddle_tpu_torch.models.stacked_dynamic_lstm
 import paddle_tpu_torch.layers.learning_rate_scheduler
 import paddle_tpu_torch.layers.metric_op
 import paddle_tpu_torch.layers.sequence_layers
@@ -240,13 +245,14 @@ def test_later_slices_refuse_loudly():
     out = exe.run(main, feed={"x": np.ones((2, 8), np.float32)},
                   fetch_list=[loss], scope=scope)
     assert np.isfinite(out[0]).all()
-    # still refused, by name: the ops that wait for later items, sequence
-    # feeds, and the zoo's other models
+    # still refused, by name: the ops that wait for later items (7b's
+    # scan and control flow, CRF/CTC; 7c's detection and extras) and the
+    # zoo's other models
     for op_type, item in (("im2sequence", "Remaining op families and the zoo"),
                           ("row_conv", "Remaining op families and the zoo"),
-                          ("lstm", "Remaining op families and the zoo"),
-                          ("gru", "Remaining op families and the zoo"),
-                          ("sequence_pool",
+                          ("scan", "Remaining op families and the zoo"),
+                          ("while", "Remaining op families and the zoo"),
+                          ("warpctc",
                            "Remaining op families and the zoo")):
         prog = main.clone()
         prog.global_block().append_op(
@@ -254,18 +260,26 @@ def test_later_slices_refuse_loudly():
         with pytest.raises(NotImplementedError, match=item):
             exe.run(prog, feed={"x": np.ones((2, 8), np.float32)},
                     fetch_list=[loss], scope=scope)
-    seq_main = fluid.Program()
+    # item 7a lifted: a sequence feed, the sequence layers and the
+    # recurrent ops run
+    seq_main, seq_start = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(seq_main,
-                                                        fluid.Program()):
+                                                        seq_start):
         w = fluid.layers.data(name="w", shape=[1], dtype="int64",
                               lod_level=1)
-    with pytest.raises(NotImplementedError, match="Remaining op families"):
-        exe.run(seq_main, feed={"w": np.zeros((2, 1), np.int64)},
-                scope=scope)
+        proj = fluid.layers.fc(fluid.layers.embedding(w, size=[10, 4]),
+                               size=8)
+        h, _ = fluid.layers.dynamic_lstm(proj, size=8)
+        pooled = fluid.layers.sequence_pool(h, "max")
+    exe.run(seq_start, scope=scope)
+    out = exe.run(seq_main, feed={"w": fluid.to_sequence_batch(
+        [[[1], [2]], [[3]]])}, fetch_list=[pooled], scope=scope)
+    assert out[0].shape == (2, 2) and np.isfinite(out[0]).all()
     from paddle_tpu_torch.models import zoo
-    # item 5 lifted: the conv nets build; ocr_recognition waits for the
-    # sequence ops
+    # item 5 lifted: the conv nets build; item 7a: the sequence models;
+    # ocr_recognition and machine_translation wait for 7b
     assert zoo.build_zoo_program("resnet").fetch_list
+    assert zoo.build_zoo_program("stacked_dynamic_lstm").fetch_list
     with pytest.raises(NotImplementedError, match="Remaining op families"):
         zoo.build_zoo_program("ocr_recognition")
     with pytest.raises(NotImplementedError, match="Remaining op families"):
@@ -301,8 +315,8 @@ def test_later_slices_refuse_loudly():
         assert callable(fn)
     # item 3 (IO, persistables and Inferencer) lifted: the load op runs;
     # still refused, by name: replica pools (of either engine) and remote
-    # replicas (item 8), sequence readers and feeders (item 7) and a JAX
-    # AOT artifact
+    # replicas (item 8) and a JAX AOT artifact; item 7a lifted: sequence
+    # readers and feeders
     inf = fluid.Inferencer.__new__(fluid.Inferencer)
     with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
         inf.serve_decode(LLAMA_TINY, replicas=2)
@@ -312,12 +326,12 @@ def test_later_slices_refuse_loudly():
         inf.serve(remotes=["localhost:1"])
     with fluid.unique_name.guard(), fluid.program_guard(fluid.Program(),
                                                         fluid.Program()):
-        with pytest.raises(NotImplementedError,
-                           match="Remaining op families"):
-            fluid.layers.py_reader(capacity=2, shapes=[[-1, 1]],
-                                   dtypes=["int64"], lod_levels=[1])
-    with pytest.raises(NotImplementedError, match="Remaining op families"):
-        fluid.DataFeeder(["w"], program=seq_main)
+        reader = fluid.layers.py_reader(capacity=2, shapes=[[-1, 1]],
+                                        dtypes=["int64"], lod_levels=[1])
+        out = fluid.layers.read_file(reader)      # one var: not a list
+        assert out.lod_level == 1
+    feed = fluid.DataFeeder(["w"], program=seq_main).feed([([1, 2],), ([3],)])
+    assert isinstance(feed["w"], fluid.SequenceBatch)
     import tempfile
     from paddle_tpu_torch.io import load_compiled_predictor
     with tempfile.TemporaryDirectory() as d:

@@ -890,3 +890,45 @@ def test_decode_engine_on_the_card_matches_the_cpu():
             eng.close()
     for a, b in zip(outs["card"], outs["cpu"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_step_on_the_card_matches_the_cpu(reverse):
+    """One ``lstm`` rule (peepholes, lengths 1-9 over a padded 12) on the
+    card against the same rule on the CPU: the whole padded hidden and
+    cell sequences (forward rtol 2e-4 / atol 2e-5) and the gradients of
+    the input, the recurrent weight and the bias through one cotangent
+    (rtol 2e-3 / atol 2e-4), TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from paddle_tpu_torch.core import lowering, registry
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    rng = np.random.RandomState(3)
+    h = 16
+    x = (rng.randn(5, 12, 4 * h) * 0.5).astype(np.float32)
+    w = (rng.randn(h, 4 * h) * 0.3).astype(np.float32)
+    b = (rng.randn(7 * h) * 0.3).astype(np.float32)
+    lengths = np.asarray([9, 1, 12, 4, 7])
+    cot = [rng.randn(5, 12, h).astype(np.float32) for _ in range(2)]
+    res = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in (x, w, b)]
+        ins = {"Input": [SequenceBatch(leaves[0], torch.from_numpy(
+            lengths).to(dev))], "Weight": [leaves[1]], "Bias": [leaves[2]]}
+        ctx = lowering.LoweringContext(None, "train", dev, 0, 1)
+        with torch.enable_grad():
+            out = registry.get_op("lstm").lower(
+                ctx, ins, {"use_peepholes": True, "is_reverse": reverse})
+            hc = [out["Hidden"][0].data, out["Cell"][0].data]
+            total = sum((t * torch.from_numpy(c).to(dev)).sum()
+                        for t, c in zip(hc, cot))
+            grads = torch.autograd.grad(total, leaves)
+        res.append(([t.detach().cpu() for t in hc], [g.cpu() for g in grads]))
+    (card_out, card_g), (cpu_out, cpu_g) = res
+    for a, b_ in zip(card_out, cpu_out):
+        torch.testing.assert_close(a, b_, **F32_TOL)
+    for a, b_ in zip(card_g, cpu_g):
+        torch.testing.assert_close(a, b_, rtol=2e-3, atol=2e-4)

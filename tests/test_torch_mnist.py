@@ -109,7 +109,8 @@ def test_first_steps_match_reference(opt):
 
 @pytest.mark.parametrize("name", ["mnist_mlp", "fit_a_line", "transformer",
                                   "llama", "mnist", "vgg", "resnet",
-                                  "se_resnext"])
+                                  "se_resnext", "word2vec", "recommender",
+                                  "ctr", "stacked_dynamic_lstm"])
 def test_zoo_entry_trains(name):
     """The port's zoo entries build, initialize and take 3 steps on their
     example feeds with finite fetches; the reference's other zoo names
@@ -124,7 +125,9 @@ def test_zoo_entry_trains(name):
     assert all(np.isfinite(np.asarray(o)).all() for o in out)
     assert set(zoo.zoo_model_names()) == {"mnist_mlp", "fit_a_line",
                                           "transformer", "llama", "mnist",
-                                          "vgg", "resnet", "se_resnext"}
+                                          "vgg", "resnet", "se_resnext",
+                                          "word2vec", "recommender", "ctr",
+                                          "stacked_dynamic_lstm"}
     for other, item in zoo.WAITING.items():
         with pytest.raises(NotImplementedError, match=item):
             zoo.build_zoo_program(other)

@@ -117,8 +117,18 @@ CONV = {"conv2d", "depthwise_conv2d", "conv2d_transpose", "conv3d",
         "quantized_conv2d"}
 # ROADMAP items 6a and 6b: the MoE FFN, the 1F1B pipelined loss
 MESH = {"moe_ffn", "llama_stack_1f1b_loss"}
+# ROADMAP item 7a: ops/sequence.py's 16 waiting ops, and ops/rnn.py's
+# four recurrent ops (scan waits with control flow, 7b)
+SEQUENCE = {"sequence_pool", "sequence_first_step", "sequence_last_step",
+            "sequence_softmax", "sequence_expand", "sequence_conv",
+            "sequence_reshape", "sequence_concat", "sequence_slice",
+            "sequence_enumerate", "sequence_erase", "sequence_pad",
+            "sequence_unpad", "lod_reset", "lod_array_length",
+            "edit_distance"}
+RNN = {"lstm", "gru", "lstm_unit", "gru_unit"}
 PORTED = (LLAMA_SLICES | BASIC_REST | NN_REST | {"sequence_mask"}
-          | OPTIMIZER_RULES | REWRITE | IO | GENERATE | PAGED | CONV | MESH)
+          | OPTIMIZER_RULES | REWRITE | IO | GENERATE | PAGED | CONV | MESH
+          | SEQUENCE | RNN)
 
 
 def test_port_registers_exactly_the_slice_ops():
@@ -141,24 +151,26 @@ def test_conv_net_ops_register_with_the_reference_rules(op_type):
         jax_registry.get_op(op_type).stateful
 
 
+@pytest.mark.parametrize("op_type", sorted(SEQUENCE | RNN))
+def test_sequence_and_rnn_ops_register_with_the_reference_flags(op_type):
+    """Each op of item 7a has a lowering rule with the reference's
+    ``seq_aware`` and ``stateful`` flags, and an infer and a numerics
+    rule exactly where the reference has one (none)."""
+    assert pt_registry.has_op(op_type) and op_type not in pt_registry.WAITING
+    for flag in ("seq_aware", "stateful"):
+        assert getattr(pt_registry.get_op(op_type), flag) == \
+            getattr(jax_registry.get_op(op_type), flag)
+    assert pt_registry.has_infer(op_type) == jax_registry.has_infer(op_type)
+    assert pt_registry.has_numerics(op_type) == \
+        jax_registry.has_numerics(op_type)
+
+
 # what waits, by name, with its ROADMAP item
-STILL_REFUSED = {
-    "lstm": "Remaining op families and the zoo",
-    "im2sequence": "Remaining op families and the zoo",
-    "hierarchical_sigmoid": "Remaining op families and the zoo",
-    "nce": "Remaining op families and the zoo",
-    "warpctc": "Remaining op families and the zoo",
-    "while": "Remaining op families and the zoo",
-    "multiclass_nms": "Remaining op families and the zoo",
-    "fake_quantize_abs_max": "Remaining op families and the zoo",
-    "chunk_eval": "Remaining op families and the zoo",
-    "gru": "Remaining op families and the zoo",
-    "sequence_pool": "Remaining op families and the zoo",
-    "sequence_pad": "Remaining op families and the zoo",
-    "row_conv": "Remaining op families and the zoo",
-    "sequence_expand": "Remaining op families and the zoo",
-    "sequence_conv": "Remaining op families and the zoo",
-}
+STILL_REFUSED = dict.fromkeys((
+    "scan", "im2sequence", "hierarchical_sigmoid", "nce", "warpctc",
+    "while", "multiclass_nms", "fake_quantize_abs_max", "chunk_eval",
+    "linear_chain_crf", "beam_search", "if_else", "row_conv", "box_coder",
+    "detection_map"), "Remaining op families and the zoo")
 
 
 @pytest.mark.parametrize("op_type", sorted(STILL_REFUSED))
@@ -177,12 +189,12 @@ def test_every_reference_op_is_ported_or_named_as_waiting():
 
 
 def test_registry_counts():
-    """253 reference ops: 186 ported, 67 named as waiting; both
+    """253 reference ops: 206 ported, 47 named as waiting; both
     generators registered ``stateful`` (they draw at temperature > 0),
     as in the reference."""
     ref = set(jax_registry.registered_ops())
     assert (len(ref), len(PORTED), len(pt_registry.WAITING)) == \
-        (253, 186, 67)
+        (253, 206, 47)
     for op in GENERATE:
         assert pt_registry.get_op(op).stateful
         assert jax_registry.get_op(op).stateful

@@ -44,8 +44,8 @@ SEQ = "Remaining op families and the zoo"
 # spec ops the port does not register yet, with the ROADMAP item that
 # ports each (registry.WAITING names the same)
 SKIPPED = {
-    "conv_shift": SEQ, "fake_dequantize_max_abs": SEQ, "gru_unit": SEQ,
-    "im2sequence": SEQ, "lstm_unit": SEQ, "max_pool2d_with_index": SEQ,
+    "conv_shift": SEQ, "fake_dequantize_max_abs": SEQ,
+    "im2sequence": SEQ, "max_pool2d_with_index": SEQ,
     "minus": SEQ, "modified_huber_loss": SEQ, "pad_constant_like": SEQ,
     "row_conv": SEQ, "spp": SEQ, "ssd_loss": SEQ, "unpool": SEQ,
     "weight_norm": SEQ,

@@ -266,8 +266,8 @@ class TestFold:
 
     def test_seq_aware_ops_never_fold(self):
         """The reference refuses to fold its seq-aware ops (``mul``
-        among them) even on constant inputs; the port, whose ops carry
-        no such flag, refuses the same ops by name."""
+        among them) even on constant inputs; so does the port, by the
+        same ``seq_aware`` flag of its registry."""
         def build(fluid):
             gb = _gb(fluid)
             for n, shape in (("a", [2, 3]), ("b", [3, 2])):
@@ -282,14 +282,18 @@ class TestFold:
         assert report.n_folded == 0 and "mul" in _types(main)
 
     def test_fold_refuses_exactly_the_reference_seq_aware_ops(self):
-        """``_FOLD_SEQ_AWARE`` is the reference's ``seq_aware`` ops that
-        the port registers, no more and no fewer: a later slice that
-        ports another one (the sequence ops, ``lstm``, ``gru``,
-        ``im2sequence``) fails here until the fold refuses it too."""
-        from paddle_tpu_torch.analysis.optimize import _FOLD_SEQ_AWARE
+        """The fold refuses an op by its registry's ``seq_aware`` flag,
+        as the reference's does, and the port flags exactly the
+        reference's seq-aware ops that it registers, no more and no
+        fewer (the sequence ops, ``lstm`` and ``gru`` since they were
+        ported; ``im2sequence`` when it is)."""
         want = {t for t in jregistry.registered_op_types()
                 if jregistry.get_op(t).seq_aware}
-        assert _FOLD_SEQ_AWARE == want & set(registry.registered_op_types())
+        got = {t for t in registry.registered_op_types()
+               if registry.get_op(t).seq_aware}
+        assert got == want & set(registry.registered_op_types())
+        assert {"mul", "lookup_table", "sequence_mask", "quantized_mul",
+                "sequence_pool", "lstm", "gru"} <= got
 
     @staticmethod
     def _fold_devices(monkeypatch, cuda):

@@ -180,7 +180,7 @@ Phases — any failure exits non-zero:
    float32 train step at 1 x 256 (the ``_f32mma`` kernels); no launch
    on the plain route; first losses near ln V + dim·0.02²/2;
 23. decode_engine (ROADMAP item 4b, the main path of this slice): the
-   8B width, all 32 layers in bf16, behind ``DecodeEngine`` built with
+   8B width at 8 of its 32 layers in bf16, behind ``DecodeEngine`` built with
    no place (the card): warmup, 24 requests of 40-256 prompt tokens and
    64 new from 8 concurrent clients, every request's tokens against the
    port's ``llama_generate`` of its prompt at batch 1 (a flip only where
@@ -284,7 +284,36 @@ Phases — any failure exits non-zero:
    symbolic) and served by ``CompiledPredictor`` at padded title
    lengths 16 and 8, each within the f32 serving tier of the executor's
    test-mode run; no attention launch;
-35. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
+35. seq2seq_train (ROADMAP item 7b, the main path of this slice):
+   ``bench.py`` ``seq_main``'s seq2seq-attention model
+   (``seq_to_seq_net``: vocab 10,000 on both sides, width 512, a
+   bidirectional GRU encoder and a DynamicRNN decoder, the ``scan`` op),
+   batch 32 x 64 words, ``Adam(1e-3)``, float32 and TF32 off: its first
+   step on the card equal to the CPU's (loss and every gradient within
+   2e-3 / 2e-4), 2 warmup and 10 timed steps on bench.py's all-64 feed
+   (words/s, step ms, launches a step, busy ms, idle share, device ms
+   by kind, peak memory), 4 steps at lengths 9-64; losses falling;
+36. seq2seq_decode: ``greedy_decode`` (a StaticRNN feeding back the
+   argmax, 64 steps) and contrib's ``BeamSearchDecoder`` (beam 4) at
+   that width, each against the CPU's from the same weights by the flip
+   rule (tokens equal up to a first step where the CPU's logits, from
+   the greedy decoder's teacher-forced probe, or beam scores tie within
+   the card's error), ms and launches per decoded step;
+37. srl_crf_train: ``db_lstm`` at the book's widths (word_dim 32,
+   mark_dim 5, hidden 512, depth 8) over CoNLL-05's dictionaries (44,068
+   words, 3,162 predicates, 59 tags), batch 10 of lengths 10-60,
+   ``linear_chain_crf`` with SGD(0.01): the first step against the CPU,
+   the trained scope's Viterbi tags equal to the CPU's (a differing row
+   only where the CPU scores the card's path within the tier of its
+   best) and ``chunk_eval`` over them;
+38. ocr_ctc_train: ``ctc_train_net`` at its defaults on 1 x 48 x 512
+   images, 95 classes, batch 32, labels of 5-20 tokens: the first step
+   against the CPU, greedy CTC tokens equal to the CPU's (a frame's
+   argmax may flip only within twice the row's score error);
+39. control_flow: a bounded and an unbounded While, IfElse, Switch, the
+   tensor arrays and the bounded While's gradient, card against CPU;
+   35-39 each with no attention launch;
+40. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
    expected to refuse them: recorded, not gated).
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
@@ -461,8 +490,10 @@ HD256_OP_LABEL = "bf16 D=256 serving T=256"
 # DEC_GAMMA) and chunked prefill
 # (DEC_CHUNK) once each at max_batch DEC_SMALL_BATCH
 # 32 → 16 layers: at 32 the phase took a quarter of the script's time,
-# which must stay well inside the chip call's limit
-DEC_LAYERS = 16
+# which must stay well inside the chip call's limit; 16 → 8 to make room
+# for the control-flow, CRF/CTC and seq2seq phases (a depth cut: the
+# width stays the 8B model's)
+DEC_LAYERS = 8
 DEC_CONFIG = dict(max_batch=8, prompt_buckets=(128, 256), max_new_tokens=64,
                   page_size=16, decode_block=4, prefill_batch=4)
 DEC_REQUESTS, DEC_CLIENTS = 24, 8
@@ -6167,17 +6198,23 @@ def step_breakdown(torch, fn, step_ms, kinds=CTR_KINDS, top=12):
                                   key=lambda r: -r[1])[:top]}
 
 
-def first_step_card_vs_cpu(torch, fluid, tag, main, startup, fetch, feed):
+def first_step_card_vs_cpu(torch, fluid, tag, main, startup, fetch, feed,
+                           dtype=None):
     """One step of ``main`` on the card and on the CPU from one initial
-    state (the CPU's startup): the fetched loss and every parameter's
-    gradient within SEQ_TOL. Returns the worst error and the card's
-    loss."""
+    state (the CPU's startup, its floating tensors cast to ``dtype``
+    when one is given): the fetched loss and every trainable
+    parameter's gradient within SEQ_TOL. Returns the worst error and the
+    card's loss."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params = sorted(p.name for p in main.all_parameters())
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
     names = [fetch] + [p + "@GRAD" for p in params]
     s0 = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=s0)
+    if dtype is not None:
+        for n, v in list(s0.vars.items()):
+            if v.is_floating_point():
+                s0.set(n, v.to(dtype))
     outs = {}
     for side, exe in (("card", fluid.Executor()),
                       ("cpu", fluid.Executor(fluid.CPUPlace()))):
@@ -6537,6 +6574,667 @@ def phase_seq_zoo(torch, fluid, fa, card):
     return by_kernel, stats
 
 
+# ROADMAP item 7b: bench.py seq_main's seq2seq knobs (BENCH_MODEL=seq2seq,
+# :779-876): vocab 10,000 on both sides, width 512, batch 32 x 64 words,
+# Adam(1e-3), float32; its all-64 feed is src = trg = lbl
+MT_VOCAB = 10_000
+MT_WIDTH = 512
+MT_BATCH, MT_SEQ = 32, 64
+MT_WARMUP, MT_STEPS = 2, 10
+MT_VAR_LENS, MT_VAR_STEPS = (9, 64), 4
+MT_BEAM, MT_BOS, MT_EOS = 4, 0, 1
+# db_lstm at its own defaults (the book chapter's widths) over CoNLL-05's
+# dictionaries as the book prints them; SGD(0.01)
+SRL_DICTS = dict(word_dict_len=44_068, pred_dict_len=3_162,
+                 label_dict_len=59)
+SRL_BATCH, SRL_LENS, SRL_STEPS = 10, (10, 60), 3
+SRL_NAMES = ("word", "predicate", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
+             "ctx_p2", "mark")
+# ctc_train_net at its defaults on 1 x 48 x 512 images, 95 classes
+OCR_CLASSES, OCR_SHAPE, OCR_BATCH = 95, (1, 48, 512), 32
+OCR_LABEL_LENS, OCR_STEPS = (5, 20), 3
+# kernel-name fragments of the recurrent steps' kinds (lower case)
+RNN_KINDS = (("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul")),
+             ("copy", ("memcpy", "memset")),
+             ("reduce_softmax", ("reduce", "softmax", "logsumexp")),
+             ("index", ("index", "gather", "scatter", "embedding")),
+             ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def attention_idle(fa, tag):
+    """K1-K3's launches since the phase reset them, which must all be
+    0: no attention lies on the recurrent paths."""
+    by_kernel = launches_by_kernel(fa)
+    check(not any(by_kernel.values()),
+          f"{tag}: attention launched: {by_kernel}")
+    return by_kernel
+
+
+def mt_programs(fluid):
+    """seq_to_seq_net at bench.py's seq2seq width with Adam(1e-3):
+    (main, startup, loss)."""
+    from paddle_tpu_torch.models.machine_translation import seq_to_seq_net
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src, trg, lbl = (fluid.layers.data(name=n, shape=[1], dtype="int64",
+                                           lod_level=1)
+                         for n in ("src", "trg", "lbl"))
+        loss, _ = seq_to_seq_net(src, trg, lbl, MT_VOCAB, MT_VOCAB,
+                                 embedding_dim=MT_WIDTH,
+                                 encoder_size=MT_WIDTH,
+                                 decoder_size=MT_WIDTH)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def mt_feed(fluid, rng, lens, dev=None):
+    """src = trg = lbl, random ids (bench.py's feed) of ``lens``."""
+    sb = fluid.to_sequence_batch([rng.randint(1, MT_VOCAB, (int(n), 1))
+                                  .astype(np.int64) for n in lens])
+    if dev is not None:
+        sb = fluid.SequenceBatch(sb.data.to(dev), sb.lengths.to(dev))
+    return {"src": sb, "trg": sb, "lbl": sb}
+
+
+def phase_seq2seq_train(torch, fluid, fa, card):
+    """The seq2seq-attention model at bench.py ``seq_main``'s width in
+    float32 through ``Executor()``: the first step of the all-64 feed
+    on the card equal to the CPU's (loss and every gradient, TF32 off),
+    2 warmup and 10 timed steps (words/s as bench.py counts them, step
+    ms, launches a step, busy ms, idle share, device ms by kind, peak
+    memory), then 4 steps on a feed of lengths 9-64; losses finite and
+    falling. Returns (attention launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    main, startup, loss = mt_programs(fluid)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    cpu_feed = mt_feed(fluid, np.random.RandomState(SEED),
+                       [MT_SEQ] * MT_BATCH)
+    err, first = first_step_card_vs_cpu(torch, fluid, "seq2seq_train",
+                                        main, startup, loss.name, cpu_feed)
+    fa.reset_launch_counts()
+    exe = fluid.Executor()
+    dev = exe.device
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = mt_feed(fluid, np.random.RandomState(SEED), [MT_SEQ] * MT_BATCH,
+                   dev)
+    ms, losses, peak = timed_steps(torch, exe, main, loss.name, scope, feed,
+                                   MT_WARMUP, MT_STEPS)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"seq2seq_train: losses not finite and falling: {losses}")
+    med = float(np.median(ms))
+    stats = {"vocab": MT_VOCAB, "width": MT_WIDTH, "batch": MT_BATCH,
+             "seq": MT_SEQ, "params": n_params, "parity_max_err": err,
+             "first_loss": first, "steps": MT_STEPS, "step_ms": ms,
+             "step_ms_median": med,
+             "words_per_s": MT_BATCH * MT_SEQ * MT_STEPS / (sum(ms) / 1e3),
+             "peak_memory_gb": peak / 1e9,
+             "losses": [losses[0], losses[-1]],
+             "one_step": step_breakdown(torch, lambda: exe.run(
+                 main, feed=feed, fetch_list=[loss.name], scope=scope,
+                 return_numpy=False), med, kinds=RNN_KINDS)}
+    vrng = np.random.RandomState(SEED + 1)
+    lens = vrng.randint(MT_VAR_LENS[0], MT_VAR_LENS[1] + 1, MT_BATCH)
+    vfeed = mt_feed(fluid, vrng, lens)
+    vl = [float(np.asarray(exe.run(main, feed=vfeed, fetch_list=[loss],
+                                   scope=scope)[0]).reshape(()))
+          for _ in range(MT_VAR_STEPS)]
+    check(np.isfinite(vl).all() and vl[-1] < vl[0],
+          f"seq2seq_train: variable-length losses {vl}")
+    stats["variable_lengths"] = {
+        "lengths": [int(n) for n in lens],
+        "padded": int(vfeed["src"].data.shape[1]), "losses": vl}
+    by_kernel = attention_idle(fa, "seq2seq_train")
+    log(f"seq2seq_train: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def mt_decoders(fluid):
+    """The inference programs at the training width, each with its own
+    startup: ``greedy_decode`` for MT_SEQ steps; contrib's
+    ``BeamSearchDecoder`` (beam MT_BEAM, a GRU StateCell over the
+    previous word's embedding, booted from the encoder's last state);
+    and the greedy decoder's teacher-forced probe (its step body with
+    the fed history in place of the fed-back argmax and the logits as
+    step outputs, built in the same order, so its parameters are
+    greedy_decode's by name). Returns ((main, startup, tokens), (main,
+    startup, ids, scores, the beam's per-step scores), (probe,
+    logits))."""
+    from paddle_tpu_torch.contrib.decoder import (BeamSearchDecoder,
+                                                  InitState, StateCell)
+    from paddle_tpu_torch.models import machine_translation as mt
+    layers = fluid.layers
+
+    def fresh():
+        return fluid.Program(), fluid.Program()
+
+    def src_var():
+        return layers.data(name="src", shape=[1], dtype="int64",
+                           lod_level=1)
+
+    greedy, g_start = fresh()
+    with fluid.unique_name.guard(), fluid.program_guard(greedy, g_start):
+        tokens = mt.greedy_decode(src_var(), MT_VOCAB, MT_VOCAB, MT_SEQ,
+                                  embedding_dim=MT_WIDTH,
+                                  encoder_size=MT_WIDTH,
+                                  decoder_size=MT_WIDTH, bos_id=MT_BOS)
+    beam, b_start = fresh()
+    with fluid.unique_name.guard(), fluid.program_guard(beam, b_start):
+        boot = layers.fc(layers.sequence_last_step(
+            mt._encoder(src_var(), MT_VOCAB, MT_WIDTH, MT_WIDTH)),
+            size=MT_WIDTH, act="tanh", bias_attr=False)
+        cell = StateCell(inputs={"x": None}, states={"h": InitState(
+            init=boot)}, out_state="h")
+
+        @cell.state_updater
+        def _update(c):
+            h, _, _ = layers.gru_unit(
+                input=layers.fc(c.get_input("x"), size=3 * MT_WIDTH,
+                                bias_attr=False),
+                hidden=c.get_state("h"), size=3 * MT_WIDTH)
+            c.set_state("h", h)
+
+        init_ids = layers.fill_constant_batch_size_like(
+            input=boot, shape=[-1, 1], dtype="int64", value=MT_BOS)
+        init_scores = layers.fill_constant_batch_size_like(
+            input=boot, shape=[-1, 1], dtype="float32", value=0.0)
+        dec = BeamSearchDecoder(cell, init_ids, init_scores,
+                                target_dict_dim=MT_VOCAB, word_dim=MT_WIDTH,
+                                max_len=MT_SEQ, beam_size=MT_BEAM,
+                                end_id=MT_EOS, name="mt_beam")
+        ids, scores = dec.decode()
+        step_scores = [op for op in beam.global_block().ops
+                       if op.type == "scan"][-1].output("Out")[2]
+    probe, _ = fresh()
+    with fluid.unique_name.guard(), fluid.program_guard(probe, _):
+        src = src_var()
+        hist = layers.data(name="hist", shape=[-1, MT_SEQ, 1],
+                           dtype="int64", append_batch_size=False)
+        encoded = mt._encoder(src, MT_VOCAB, MT_WIDTH, MT_WIDTH)
+        proj = layers.fc(input=encoded, size=MT_WIDTH, bias_attr=False)
+        proj.lod_level = 1
+        mem0 = layers.fc(input=layers.sequence_last_step(input=encoded),
+                         size=MT_WIDTH, act="tanh", bias_attr=False)
+        rnn = layers.StaticRNN(masked=False)
+        with rnn.step():
+            word = rnn.step_input(hist)
+            mem = rnn.memory(init=mem0)
+            emb = layers.embedding(input=word, size=[MT_VOCAB, MT_WIDTH],
+                                   param_attr="decode_emb")
+            context = mt._attention(mem, encoded, proj)
+            h, _, _ = layers.gru_unit(
+                input=layers.fc(input=layers.concat([context, emb], axis=1),
+                                size=MT_WIDTH * 3, bias_attr=False),
+                hidden=mem, size=MT_WIDTH * 3)
+            rnn.update_memory(mem, h)
+            rnn.step_output(layers.fc(input=h, size=MT_VOCAB))
+        logits = rnn()
+    check({p.name for p in probe.all_parameters()}
+          == {p.name for p in greedy.all_parameters()},
+          "seq2seq_decode: the probe's parameters are not greedy_decode's")
+    return ((greedy, g_start, tokens),
+            (beam, b_start, ids, scores, step_scores), (probe, logits))
+
+
+def greedy_flips(tag, got, want, cpu_logits, row_err):
+    """``got`` (the card's greedy tokens [B, T]) against ``want`` (the
+    CPU's): each row equal, or equal up to a first difference at step j
+    where the CPU's logits put want[j] at most twice the row's logit
+    error (card vs CPU, on the same history) above got[j]; past a flip
+    the rows go their own ways. Returns (rows equal, the rows' steps
+    before a flip)."""
+    equal, agreed = 0, []
+    for r in range(want.shape[0]):
+        diff = np.nonzero(got[r] != want[r])[0]
+        if not len(diff):
+            equal += 1
+            agreed.append(int(want.shape[1]))
+            continue
+        j = int(diff[0])
+        row = cpu_logits[r, j]
+        margin = float(row[want[r, j]] - row[got[r, j]])
+        check(margin <= 2 * row_err[r],
+              f"{tag}: row {r} step {j}: the card chose {got[r, j]}, the "
+              f"CPU {want[r, j]} by a margin {margin:.3e} > 2 x the row's "
+              f"logit error {row_err[r]:.3e}")
+        agreed.append(j)
+    return equal, agreed
+
+
+def beam_flips(tag, got, want):
+    """The card's beam search (ids [B, W, T], per-step selected scores
+    [B, T, W]) against the CPU's: per row, the ids equal, or equal up to
+    a first step whose selected scores agree with the CPU's within the
+    float32 card tier (SEQ_TOL) — the card chose among candidates that
+    tie within rounding. Returns the rows whose ids are equal."""
+    gid, gsc = got
+    wid, wsc = want
+    equal = []
+    for r in range(wid.shape[0]):
+        diff = np.nonzero((gid[r] != wid[r]).any(axis=0))[0]
+        if not len(diff):
+            equal.append(r)
+            continue
+        j = int(diff[0])
+        ok, err = np_close(np.sort(gsc[r, j]), np.sort(wsc[r, j]), SEQ_TOL)
+        check(ok, f"{tag}: row {r} step {j}: the beams differ and their "
+                  f"scores differ by {err:.3e}, past the card tier")
+    return equal
+
+
+def phase_seq2seq_decode(torch, fluid, fa, card):
+    """``greedy_decode`` (MT_SEQ steps) and contrib's ``BeamSearchDecoder``
+    (beam MT_BEAM) at the seq2seq width, float32 and TF32 off, on random
+    weights from SEED over 32 sources of 64 words: each against the
+    CPU's from the same weights by the flip rule (greedy_flips, whose
+    logits come from the greedy decoder's teacher-forced probe;
+    beam_flips, and the best beam's score on every row whose ids are
+    equal within the card tier); ms per decoded step and launches per
+    step of each. Returns (attention launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    (greedy, g_start, tokens), (beam, b_start, ids, scores, step_scores), \
+        (probe, logits) = mt_decoders(fluid)
+    rng = np.random.RandomState(SEED + 2)
+    src = mt_feed(fluid, rng, [MT_SEQ] * MT_BATCH)["src"]
+    exes = {"cpu": fluid.Executor(fluid.CPUPlace()), "card": fluid.Executor()}
+    scopes = {"cpu": {}, "card": {}}
+    outs = {"cpu": {}, "card": {}}
+    for name, main, start, fetch in (
+            ("greedy", greedy, g_start, [tokens.name]),
+            ("beam", beam, b_start, [ids.name, scores.name, step_scores])):
+        s0 = fluid.Scope()
+        exes["cpu"].run(start, scope=s0)
+        for side, exe in exes.items():
+            scope = fluid.Scope()
+            for n, v in s0.vars.items():
+                scope.set(n, v.clone())
+            outs[side][name] = [np.asarray(v) for v in exe.run(
+                main, feed={"src": src}, fetch_list=fetch, scope=scope,
+                mode="test")]
+            scopes[side][name] = scope
+    gw = outs["cpu"]["greedy"][0][..., 0]
+    gg = outs["card"]["greedy"][0][..., 0]
+    # the probe on the CPU's own history: its argmax is the CPU's tokens,
+    # and the card's probe of the same history gives each row's error
+    hist = np.concatenate([np.full((MT_BATCH, 1), MT_BOS, np.int64),
+                           gw[:, :-1]], axis=1)[..., None]
+    pl = {side: np.asarray(exes[side].run(
+        probe, feed={"src": src, "hist": hist}, fetch_list=[logits.name],
+        scope=scopes[side]["greedy"], mode="test")[0]) for side in exes}
+    check(np.array_equal(pl["cpu"].argmax(-1), gw),
+          "seq2seq_decode: the probe's argmax is not greedy_decode's tokens "
+          "on the CPU")
+    row_err = np.abs(pl["card"] - pl["cpu"]).reshape(MT_BATCH, -1).max(1)
+    g_equal, agreed = greedy_flips("seq2seq_decode greedy", gg, gw,
+                                   pl["cpu"], row_err)
+    bg, bw = outs["card"]["beam"], outs["cpu"]["beam"]
+    b_equal = beam_flips("seq2seq_decode beam", (bg[0], bg[2]),
+                         (bw[0], bw[2]))
+    ok, serr = np_close(bg[1][b_equal, 0], bw[1][b_equal, 0], SEQ_TOL)
+    check(ok, f"seq2seq_decode: best beam scores of the equal rows differ "
+              f"by {serr:.3e}")
+    stats = {"batch": MT_BATCH, "src_len": MT_SEQ, "steps": MT_SEQ,
+             "beam": MT_BEAM, "greedy_rows_equal": g_equal,
+             "greedy_steps_before_flip": agreed,
+             "greedy_logit_err_max": float(row_err.max()),
+             "beam_rows_equal": len(b_equal),
+             "beam_best_score_err": serr}
+    dev = exes["card"].device
+    feed = {"src": fluid.SequenceBatch(src.data.to(dev),
+                                       src.lengths.to(dev))}
+    for name, main, fetch_name in (("greedy", greedy, tokens.name),
+                                   ("beam", beam, ids.name)):
+        def run():
+            return exes["card"].run(main, feed=feed, fetch_list=[fetch_name],
+                                    scope=scopes["card"][name], mode="test",
+                                    return_numpy=False)
+        ms = wall_ms(torch, run)
+        table, _ = kernel_table(torch, run)
+        stats[name] = {"ms": ms, "ms_per_step": ms / MT_SEQ,
+                       "launches_per_step": (sum(n for _, n in
+                                                 table.values()) / MT_SEQ
+                                             if table else "not measured")}
+    by_kernel = attention_idle(fa, "seq2seq_decode")
+    log(f"seq2seq_decode: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def srl_program(fluid):
+    """db_lstm at its defaults over SRL_DICTS, linear_chain_crf's cost
+    with SGD(0.01), crf_decoding and chunk_eval (IOB) over the decode:
+    (main, startup, loss, decoded, feature_out, chunk counts)."""
+    import math as _m
+    from paddle_tpu_torch.models.label_semantic_roles import db_lstm
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ins = [layers.data(name=n, shape=[1], dtype="int64", lod_level=1)
+               for n in SRL_NAMES]
+        target = layers.data(name="target", shape=[1], dtype="int64",
+                             lod_level=1)
+        feature = db_lstm(*ins, **SRL_DICTS)
+        loss = layers.mean(layers.linear_chain_crf(
+            input=feature, label=target,
+            param_attr=fluid.ParamAttr(name="crfw")))
+        decoded = layers.crf_decoding(
+            input=feature, param_attr=fluid.ParamAttr(name="crfw"))
+        counts = layers.chunk_eval(
+            decoded, target, chunk_scheme="IOB",
+            num_chunk_types=int(_m.ceil((SRL_DICTS["label_dict_len"] - 1)
+                                        / 2.0)))
+        fluid.optimizer.SGD(learning_rate=0.01).minimize(loss)
+    return main, startup, loss, decoded, feature, counts[3:]
+
+
+def srl_feed(fluid, rng):
+    lens = rng.randint(SRL_LENS[0], SRL_LENS[1] + 1, SRL_BATCH)
+    hi = {"predicate": SRL_DICTS["pred_dict_len"], "mark": 2,
+          "target": SRL_DICTS["label_dict_len"]}
+    return {n: fluid.to_sequence_batch(
+        [rng.randint(0, hi.get(n, SRL_DICTS["word_dict_len"]), (int(k), 1))
+         .astype(np.int64) for k in lens])
+        for n in SRL_NAMES + ("target",)}
+
+
+def viterbi_score(emission, trans, path):
+    """The CRF score of ``path`` over one row's [T, K] emissions."""
+    s = trans[0, path[0]] + trans[1, path[-1]] + emission[
+        np.arange(len(path)), path].sum()
+    return s + trans[2:][path[:-1], path[1:]].sum()
+
+
+def phase_srl_crf_train(torch, fluid, fa, card):
+    """db_lstm + the CRF at the book chapter's widths over CoNLL-05's
+    dictionaries, batch 10 of lengths 10-60, float32 and TF32 off: the
+    first SGD step on the card equal to the CPU's (loss and every
+    gradient), SRL_STEPS steps finite, and from the same trained scope
+    the Viterbi tags on the card equal to the CPU's (a row may differ
+    only where the CPU scores the card's path within the card tier of
+    its best) with chunk_eval's counts over them. Returns (attention
+    launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    main, startup, loss, decoded, feature, counts = srl_program(fluid)
+    rng = np.random.RandomState(SEED + 3)
+    feed = srl_feed(fluid, rng)
+    err, first = first_step_card_vs_cpu(torch, fluid, "srl_crf_train", main,
+                                        startup, loss.name, feed)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    ms, losses = [], []
+    for _ in range(SRL_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+    check(np.isfinite(losses).all(), f"srl_crf_train: losses {losses}")
+    # the trained scope's decode, card and CPU
+    fetch = [decoded.name, feature.name] + [c.name for c in counts]
+    cpu_scope = fluid.Scope()
+    for n, v in scope.vars.items():
+        cpu_scope.set(n, v.detach().cpu().clone())
+    test_feed = srl_feed(fluid, rng)
+    got = exe.run(main, feed=test_feed, fetch_list=fetch, scope=scope,
+                  mode="test")
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=test_feed, fetch_list=fetch, scope=cpu_scope, mode="test")
+    trans = np.asarray(cpu_scope.find_var("crfw"))
+    lens = np.asarray(want[0].lengths)
+    gt, wt = np.asarray(got[0].data), np.asarray(want[0].data)
+    emis = np.asarray(want[1].data)
+    equal = 0
+    for r, n in enumerate(lens):
+        if np.array_equal(gt[r, :n], wt[r, :n]):
+            equal += 1
+            continue
+        best = viterbi_score(emis[r, :n], trans, wt[r, :n])
+        mine = viterbi_score(emis[r, :n], trans, gt[r, :n])
+        check(best - mine <= SEQ_TOL[1] + SEQ_TOL[0] * abs(best),
+              f"srl_crf_train: row {r}: the card's Viterbi path scores "
+              f"{mine:.6f} against the CPU's best {best:.6f}")
+    if equal == len(lens):
+        check([int(np.asarray(c)) for c in got[2:]]
+              == [int(np.asarray(c)) for c in want[2:]],
+              f"srl_crf_train: chunk_eval counts {got[2:]} vs {want[2:]}")
+    stats = {"dicts": SRL_DICTS, "batch": SRL_BATCH,
+             "lengths": [int(n) for n in lens],
+             "parity_max_err": err, "first_loss": first,
+             "step_ms": ms, "losses": losses, "viterbi_rows_equal": equal,
+             "chunk_counts": [int(np.asarray(c)) for c in got[2:]]}
+    by_kernel = attention_idle(fa, "srl_crf_train")
+    log(f"srl_crf_train: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def ocr_program(fluid, dtype="float32"):
+    """ctc_train_net at its defaults (rnn_hidden 64, conv_filters
+    (16, 32)) over OCR_CLASSES classes in ``dtype``, Adam(1e-3): (main,
+    startup, loss, decoded, per-column scores)."""
+    from paddle_tpu_torch.models.ocr_recognition import ctc_train_net
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        images = fluid.layers.data(name="images", shape=list(OCR_SHAPE),
+                                   dtype=dtype)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64",
+                                  lod_level=1)
+        loss, decoded = ctc_train_net(images, label, OCR_CLASSES)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    scores = [op for op in main.global_block().ops
+              if op.type == "warpctc"][0].input("Logits")[0]
+    return main, startup, loss, decoded, scores
+
+
+def phase_ocr_ctc_train(torch, fluid, fa, card):
+    """CRNN-CTC on 1 x 48 x 512 images (batch 32, 95 classes, labels of
+    5-20 tokens), TF32 off: the first step on the card equal to the
+    CPU's (loss and every gradient) in float64 — in float32 the batch
+    norms' scale gradients, sums over 32 x 48 x 512 terms that cancel,
+    sit up to 6.8e-4 apart in two correct orders (the conv-net gotcha;
+    resnet_parity holds ResNet the same way) — and its loss in float32;
+    OCR_STEPS finite float32 steps, and the greedy CTC tokens on the
+    card equal to the CPU's from the same scope (a frame's argmax may
+    differ only within twice the row's score error, card vs CPU).
+    Returns (attention launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    rng = np.random.RandomState(SEED + 4)
+    images = rng.randn(OCR_BATCH, *OCR_SHAPE)
+    label = fluid.to_sequence_batch(
+        [rng.randint(0, OCR_CLASSES, (int(n), 1)).astype(np.int64)
+         for n in rng.randint(OCR_LABEL_LENS[0], OCR_LABEL_LENS[1] + 1,
+                              OCR_BATCH)])
+    pmain, pstart, ploss, _, _ = ocr_program(fluid, "float64")
+    err, first64 = first_step_card_vs_cpu(
+        torch, fluid, "ocr_ctc_train float64", pmain, pstart, ploss.name,
+        {"images": images, "label": label}, dtype=torch.float64)
+    main, startup, loss, decoded, scores = ocr_program(fluid)
+    feed = {"images": images.astype(np.float32), "label": label}
+    s0 = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=s0)
+    firsts = []
+    for exe_ in (fluid.Executor(), fluid.Executor(fluid.CPUPlace())):
+        sc = fluid.Scope()
+        for n, v in s0.vars.items():
+            sc.set(n, v.clone())
+        firsts.append(np.asarray(exe_.run(main, feed=feed, fetch_list=[loss],
+                                          scope=sc)[0]))
+    ok, lerr = np_close(firsts[0], firsts[1], SEQ_TOL)
+    check(ok, f"ocr_ctc_train: the float32 first loss card vs CPU {lerr}")
+    first = float(firsts[0].reshape(()))
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    ms, losses = [], []
+    for _ in range(OCR_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+    check(np.isfinite(losses).all(), f"ocr_ctc_train: losses {losses}")
+    cpu_scope = fluid.Scope()
+    for n, v in scope.vars.items():
+        cpu_scope.set(n, v.detach().cpu().clone())
+    fetch = [decoded.name, scores]
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                  mode="test")
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=cpu_scope, mode="test")
+    gs, ws = np.asarray(got[1].data), np.asarray(want[1].data)
+    row_err = np.abs(gs - ws).reshape(OCR_BATCH, -1).max(1)
+    ga, wa = gs.argmax(-1), ws.argmax(-1)
+    flipped = set()
+    for r, t in zip(*np.nonzero(ga != wa)):
+        margin = float(ws[r, t, wa[r, t]] - ws[r, t, ga[r, t]])
+        check(margin <= 2 * row_err[r],
+              f"ocr_ctc_train: row {r} frame {t}: argmax {ga[r, t]} on the "
+              f"card, {wa[r, t]} on the CPU, margin {margin:.3e}")
+        flipped.add(int(r))
+    gd, wd = got[0], want[0]
+    for r in range(OCR_BATCH):
+        if r in flipped:
+            continue
+        n = int(np.asarray(wd.lengths)[r])
+        check(int(np.asarray(gd.lengths)[r]) == n and np.array_equal(
+            np.asarray(gd.data)[r, :n], np.asarray(wd.data)[r, :n]),
+            f"ocr_ctc_train: row {r}'s greedy CTC tokens differ")
+    stats = {"classes": OCR_CLASSES, "image": list(OCR_SHAPE),
+             "batch": OCR_BATCH, "frames": int(ws.shape[1]),
+             "parity_max_err_float64": err, "first_loss_float64": first64,
+             "first_loss_err_float32": lerr, "first_loss": first,
+             "step_ms": ms,
+             "losses": losses, "score_err_max": float(row_err.max()),
+             "rows_with_flipped_frames": sorted(flipped),
+             "decoded_lengths": [int(n) for n in
+                                 np.asarray(gd.lengths)]}
+    by_kernel = attention_idle(fa, "ocr_ctc_train")
+    log(f"ocr_ctc_train: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def cf_programs(fluid):
+    """Small control-flow programs, each (name, main, startup, feed,
+    fetch names, with gradients): a bounded and an unbounded While, an
+    IfElse, a Switch, the tensor arrays, the bounded While's gradient."""
+    layers = fluid.layers
+    out = []
+
+    def build(name, fn, feed, grads=False):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            fetch = fn()
+            if grads:
+                params = [p.name for p in main.all_parameters()]
+                fluid.append_backward(fetch[0], parameter_list=params)
+                fetch = fetch + [p + "@GRAD" for p in params]
+        out.append((name, main, startup, feed,
+                    [v if isinstance(v, str) else v.name for v in fetch]))
+
+    def loop(max_iters, grads=False):
+        def fn():
+            w = layers.create_parameter(
+                [64], "float32", attr=fluid.ParamAttr(name="cf_w"),
+                default_initializer=fluid.initializer.Normal(0.0, 1.0))
+            x = layers.data("x", shape=[-1, 64], append_batch_size=False)
+            i = layers.fill_constant([1], "float32", 0.0)
+            acc = layers.scale(x, scale=1.0)
+            acc.stop_gradient = False
+            limit = layers.fill_constant([1], "float32", 6.0)
+            cond = layers.less_than(i, limit)
+            loop_ = layers.While(cond, max_iters=max_iters)
+            with loop_.block():
+                layers.assign(layers.elementwise_add(
+                    i, layers.fill_constant([1], "float32", 1.0)), output=i)
+                layers.assign(layers.tanh(layers.elementwise_add(
+                    layers.elementwise_mul(acc, w), x)), output=acc)
+                layers.less_than(i, limit, cond=cond)
+            return [layers.reduce_sum(acc), i]
+        return fn
+
+    x = np.random.RandomState(SEED + 5).randn(256, 64).astype(np.float32)
+    build("while_bounded", loop(10), {"x": x})
+    build("while_unbounded", loop(None), {"x": x})
+    build("while_bounded_grad", loop(10), {"x": x}, grads=True)
+
+    def ifelse():
+        x_ = layers.data("x", shape=[-1, 64], append_batch_size=False)
+        total = layers.reduce_sum(x_)
+        ie = layers.IfElse(layers.greater_than(
+            total, layers.fill_constant([1], "float32", 0.0)))
+        with ie.true_block():
+            ie.output(layers.tanh(x_))
+        with ie.false_block():
+            ie.output(layers.sigmoid(x_))
+        return [ie()[0]]
+    build("ifelse", ifelse, {"x": x})
+
+    def switch():
+        x_ = layers.data("x", shape=[-1, 64], append_batch_size=False)
+        m = layers.reduce_mean(x_)
+        out_ = layers.fill_constant([1], "float32", 0.0)
+        with layers.Switch().block() as sw:
+            with sw.case(layers.less_than(
+                    m, layers.fill_constant([1], "float32", -1.0))):
+                layers.assign(layers.fill_constant([1], "float32", 1.0),
+                              output=out_)
+            with sw.case(layers.less_than(
+                    m, layers.fill_constant([1], "float32", 1.0))):
+                layers.assign(layers.reduce_max(x_), output=out_)
+            with sw.default():
+                layers.assign(layers.fill_constant([1], "float32", 3.0),
+                              output=out_)
+        return [out_]
+    build("switch", switch, {"x": x})
+
+    def arrays():
+        x_ = layers.data("x", shape=[-1, 64], append_batch_size=False)
+        i0 = layers.fill_constant([1], "int64", 0)
+        i1 = layers.fill_constant([1], "int64", 1)
+        arr = layers.array_write(x_, i0)
+        layers.array_write(layers.scale(x_, scale=2.0), i1, array=arr)
+        return [layers.array_read(arr, i1), layers.array_length(arr)]
+    build("arrays", arrays, {"x": x})
+    return out
+
+
+def phase_control_flow(torch, fluid, fa, card):
+    """Each of cf_programs on the card against the CPU from one startup
+    (float32, TF32 off): a bounded and an unbounded While, IfElse,
+    Switch, the tensor arrays, the bounded While's gradient, within the
+    card tier (integers exactly). Returns (attention launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    stats = {}
+    for name, main, startup, feed, fetch in cf_programs(fluid):
+        s0 = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=s0)
+        outs = {}
+        for side, exe in (("card", fluid.Executor()),
+                          ("cpu", fluid.Executor(fluid.CPUPlace()))):
+            scope = fluid.Scope()
+            for n, v in s0.vars.items():
+                scope.set(n, v.clone())
+            outs[side] = exe.run(main, feed=feed, fetch_list=fetch,
+                                 scope=scope)
+        worst = 0.0
+        for n, a, b in zip(fetch, outs["card"], outs["cpu"]):
+            ok, e = np_close(a, b, SEQ_TOL)
+            check(ok, f"control_flow {name}: {n} card vs CPU max err {e}")
+            worst = max(worst, e)
+        stats[name] = worst
+    by_kernel = attention_idle(fa, "control_flow")
+    log(f"control_flow: {card}, float32, TF32 off, max err by program: "
+        + json.dumps(stats))
+    return by_kernel, stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -6736,6 +7434,20 @@ def main():
         free_card(torch)
         seq_zoo_launches, _ = phase_seq_zoo(torch, fluid, fa, smi)
         free_card(torch)
+        # ROADMAP item 7b, the main path of this slice: the seq2seq
+        # attention model at bench.py's width, trained and decoded
+        # (greedy and beam search); SRL through the CRF, OCR through
+        # CTC; the control-flow ops against the CPU
+        mt_launches, _ = phase_seq2seq_train(torch, fluid, fa, smi)
+        free_card(torch)
+        mt_dec_launches, _ = phase_seq2seq_decode(torch, fluid, fa, smi)
+        free_card(torch)
+        srl_launches, _ = phase_srl_crf_train(torch, fluid, fa, smi)
+        free_card(torch)
+        ocr_launches, _ = phase_ocr_ctc_train(torch, fluid, fa, smi)
+        free_card(torch)
+        cf_launches, _ = phase_control_flow(torch, fluid, fa, smi)
+        free_card(torch)
         phase_mesh_two_ranks(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -6782,7 +7494,12 @@ def main():
              "pipeline_schedule_1f1b": sched_launches["1f1b"],
              "deepfm_train": ctr_launches,
              "stacked_lstm_train": lstm_launches,
-             "seq_zoo": seq_zoo_launches}
+             "seq_zoo": seq_zoo_launches,
+             "seq2seq_train": mt_launches,
+             "seq2seq_decode": mt_dec_launches,
+             "srl_crf_train": srl_launches,
+             "ocr_ctc_train": ocr_launches,
+             "control_flow": cf_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),

@@ -30,6 +30,9 @@ from .ops import optimizer_ops as _ops_opt    # noqa: F401
 from .ops import fused_loss as _ops_loss      # noqa: F401
 from .ops import sequence as _ops_seq         # noqa: F401
 from .ops import rnn as _ops_rnn              # noqa: F401
+from .ops import control_flow as _ops_cf      # noqa: F401
+from .ops import crf_ctc as _ops_crf          # noqa: F401
+from .ops import eval_ops as _ops_eval        # noqa: F401
 from .ops import extras as _ops_extras        # noqa: F401
 
 from .core.framework import (                  # noqa: F401
@@ -70,6 +73,7 @@ from .inferencer import Inferencer             # noqa: F401
 from . import models                           # noqa: F401
 from . import nets                             # noqa: F401
 from . import parallel                         # noqa: F401
+from . import contrib                          # noqa: F401
 from .parallel import (ParallelExecutor, ExecutionStrategy,  # noqa: F401
                        BuildStrategy, DistributeTranspiler)
 from .waiting import FLEET, REST, module_getattr
@@ -81,6 +85,6 @@ WAITING = {"cluster": FLEET,
            **dict.fromkeys((
                "concurrency", "make_channel", "channel_send",
                "channel_recv", "channel_close", "Select", "evaluator",
-               "metrics", "average", "profiler", "contrib", "dataset",
+               "metrics", "average", "profiler", "dataset",
                "default_scope_funcs", "recordio_writer"), REST)}
 __getattr__ = module_getattr(__name__, WAITING)

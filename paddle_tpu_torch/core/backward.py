@@ -14,12 +14,15 @@ __all__ = ["append_backward"]
 
 
 _WHILE_ERR = (
-    "append_backward cannot differentiate through the 'while' op "
-    "(unbounded lax.while_loop has no reverse-mode rule). Construct "
-    "the loop as fluid.layers.While(cond, max_iters=N) — it then "
-    "lowers to a bounded, differentiable lax.scan whose extra "
-    "iterations are masked no-ops — or express the recurrence with "
-    "StaticRNN/DynamicRNN (lax.scan-based and always trainable).")
+    "append_backward cannot differentiate through the 'while' op: "
+    "without max_iters it is a host loop that reads its condition "
+    "back each turn, with a trip count the step does not fix, and "
+    "autograd cannot replay it. Construct the loop as "
+    "fluid.layers.While(cond, max_iters=N) — it then runs exactly N "
+    "masked steps (those after the exit keep the carry) and is "
+    "differentiable — or express the recurrence with "
+    "StaticRNN/DynamicRNN (a loop over the padded time axis, always "
+    "trainable).")
 
 
 def _check_whiles_differentiable(gb, loss_name):

@@ -381,6 +381,10 @@ class LoweringContext:
             if not isinstance(vals, (list, tuple)):
                 vals = [vals]
             for name, val in zip(names, vals):
+                if isinstance(val, list):
+                    # a tensor array (write_to_array): a list of tensors
+                    env[name] = val
+                    continue
                 var = block._find_var_recursive(name)
                 if (var is not None and var.lod_level > 0
                         and seq_lengths is not None

@@ -40,18 +40,13 @@ _NUMERICS = {}
 _ITEMS = {
     "Remaining op families and the zoo": (
         # ops/nn.py
-        "im2sequence", "hierarchical_sigmoid", "nce", "row_conv",
-        # ops/rnn.py's scan, control_flow.py, crf_ctc.py, detection.py,
-        # eval_ops.py, extras.py
-        "scan", "while", "if_else", "select_input", "print", "is_empty",
-        "write_to_array", "read_from_array",
-        "linear_chain_crf", "crf_decoding", "warpctc", "ctc_greedy_decoder",
-        "beam_search", "beam_search_decode", "beam_expand", "beam_gather",
+        "hierarchical_sigmoid", "nce",
+        # detection.py, eval_ops.py, extras.py
         "iou_similarity", "box_coder", "prior_box", "bipartite_match",
         "target_assign", "multiclass_nms", "polygon_box_transform",
         "ssd_loss", "anchor_generator", "rpn_target_assign",
         "generate_proposals", "generate_proposal_labels",
-        "chunk_eval", "detection_map",
+        "detection_map",
         "minus", "modified_huber_loss", "pad_constant_like", "conv_shift",
         "max_pool2d_with_index", "unpool", "spp", "positive_negative_pair",
         "precision_recall", "fake_quantize_abs_max",

@@ -58,14 +58,12 @@ class SequenceBatch:
 
     def mask(self, dtype=torch.float32):
         """[batch, max_len] (or [batch, s, max_len] at level 2)
-        validity mask."""
+        validity mask (a tensor; a fetched batch's numpy lengths too)."""
+        lengths = torch.as_tensor(self.lengths)
         if self.lod_level == 2:
-            pos = torch.arange(self.data.shape[2],
-                               device=self.lengths.device)
-            return (pos[None, None, :]
-                    < self.lengths[:, :, None]).to(dtype)
-        return sequence_mask_from_lengths(self.lengths, self.data.shape[1],
-                                          dtype)
+            pos = torch.arange(self.data.shape[2], device=lengths.device)
+            return (pos[None, None, :] < lengths[:, :, None]).to(dtype)
+        return sequence_mask_from_lengths(lengths, self.data.shape[1], dtype)
 
     def leaves(self):
         """(data, lengths[, outer_counts]) — the padded decomposition."""

@@ -24,11 +24,16 @@ level 2, plus outer counts [b]) — which the exported step reassembles
 into a SequenceBatch, so the artifact takes plain tensors. Each padded
 axis is its own dimension: a program without a recurrence keeps it
 symbolic, so one artifact serves any padded length, as the reference's
-does. A recurrent op (``lstm``, ``gru``) loops over the padded axis in
-Python, and the export specializes that loop to one length (ROADMAP.md
-§3, F14): such a program exports at the largest padded length its
-``serving_buckets`` declare for the feed, and the predictor refuses any
-other length by name. A fetched sequence comes back as its padded data.
+does. A recurrent op (``lstm``, ``gru``, the ``scan`` of StaticRNN /
+DynamicRNN) loops over the padded axis in Python, and the export
+specializes that loop to one length (ROADMAP.md §3, F14): such a
+program exports at the largest padded length its ``serving_buckets``
+declare for the feed, and the predictor refuses any other length by
+name. A fetched sequence comes back as its padded data. Control flow
+that reads a value back to the host — ``while`` without ``max_iters``
+and ``if_else`` — does not export (F14): the export raises naming it,
+so ``save_inference_model`` warns "AOT export skipped" and the JSON
+program serves. A bounded ``while`` never reads back, and exports.
 
 ``CompiledPredictor`` loads that graph and runs it: no Program IR, no op
 registry, no lowering. It imports ``torch.export``, numpy and the
@@ -63,6 +68,23 @@ _JAX_ARTIFACT = "__compiled__.stablehlo"
 _EXAMPLE_BATCH = 2
 # torch.export traces under process-wide modes: one export at a time
 _EXPORT_LOCK = threading.Lock()
+
+
+def _host_control_flow(block):
+    """The op types in ``block`` or its sub-blocks that read a value
+    back to the host each run: ``while`` without ``max_iters`` and
+    ``if_else``."""
+    from ..core.framework import Block
+    found = set()
+    for op in block.ops:
+        if op.type == "if_else" or (
+                op.type == "while"
+                and not int(op.attrs.get("max_iters", 0) or 0)):
+            found.add(op.type)
+        for v in op.attrs.values():
+            if isinstance(v, Block):
+                found |= _host_control_flow(v)
+    return found
 
 
 def _warn_if_stochastic(gb):
@@ -201,7 +223,9 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
     a dimension of its own. ``seq_lens`` ({feed: [padded lengths]}, the
     serving buckets') sets the example length of a feed's time axis
     (the largest); a program that fixes that axis (a recurrence, F14)
-    exports at it, and without a declared length raises ValueError.
+    exports at it, and without a declared length raises ValueError, as
+    it does for a program whose control flow reads back to the host (a
+    ``while`` without ``max_iters``, an ``if_else``; F14).
 
     Raises whatever ``torch.export`` raises if the program is not
     exportable (a value read back to the host, a data-dependent shape)
@@ -210,6 +234,12 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
     from ..core.lowering import lower_program
 
     gb = program.global_block()
+    host = _host_control_flow(gb)
+    if host:
+        raise ValueError(
+            f"ops {sorted(host)} read their condition back to the host, "
+            "which torch.export cannot trace (ROADMAP.md §3, F14): serve "
+            "the JSON program, or bound the loop with While(max_iters=N)")
     _warn_if_stochastic(gb)
     step_fn = lower_program(program, list(fetch_names), "test")
     if param_names is None:

@@ -1,15 +1,43 @@
 """Metric layers (port of ``paddle_tpu/layers/metric_op.py``; parity
-with python/paddle/fluid/layers/metric_op.py): ``accuracy`` and the
-streaming ``auc``. ``chunk_eval`` needs the sequence ops of ROADMAP.md
-item 'Remaining op families and the zoo'."""
+with python/paddle/fluid/layers/metric_op.py): ``chunk_eval``,
+``accuracy`` and the streaming ``auc``."""
 from ..layer_helper import LayerHelper
-from ..waiting import REST, module_getattr
 from .. import initializer as init_mod
 
-__all__ = ["accuracy", "auc"]
+__all__ = ["accuracy", "auc", "chunk_eval"]
 
-WAITING = {"chunk_eval": REST}
-__getattr__ = module_getattr(__name__, WAITING)
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Chunk-level precision/recall/F1 for sequence labeling (reference
+    layers/nn.py chunk_eval + chunk_eval_op.h). ``input``/``label`` are
+    lod_level-1 int sequences of tags encoded
+    ``chunk_type * num_tag_types + tag_pos`` under ``chunk_scheme``
+    (IOB / IOE / IOBES / plain). Returns (precision, recall, f1,
+    num_infer_chunks, num_label_chunks, num_correct_chunks) — feed the
+    counts into metrics.ChunkEvaluator for streaming totals."""
+    helper = LayerHelper("chunk_eval")
+
+    def _scalar(dtype):
+        return helper.create_variable_for_type_inference(
+            dtype, shape=[], stop_gradient=True)
+
+    precision, recall, f1 = _scalar("float32"), _scalar("float32"), \
+        _scalar("float32")
+    num_infer, num_label, num_correct = _scalar("int64"), \
+        _scalar("int64"), _scalar("int64")
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input.name], "Label": [label.name]},
+        outputs={"Precision": [precision.name], "Recall": [recall.name],
+                 "F1-Score": [f1.name],
+                 "NumInferChunks": [num_infer.name],
+                 "NumLabelChunks": [num_label.name],
+                 "NumCorrectChunks": [num_correct.name]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return precision, recall, f1, num_infer, num_label, num_correct
 
 
 def accuracy(input, label, k=1, correct=None, total=None):

@@ -6,9 +6,9 @@ the norms, ``dropout``, the losses, the reductions, the shape and
 gather/scatter layers, ``autoincreased_step_counter`` (the LR
 schedulers' counter), the activation layers, and the conv-net layers
 (the convolutions, pools, ``batch_norm``, ``lrn``, image resize,
-``roi_pool`` and ``random_crop``). ``hsigmoid``, ``nce``,
-``im2sequence``, ``row_conv`` and the CRF, CTC and beam-search layers
-arrive with ROADMAP.md item 'Remaining op families and the zoo'.
+``roi_pool`` and ``random_crop``), ``im2sequence``, ``row_conv`` and
+the CRF, CTC and beam-search layers. ``hsigmoid`` and ``nce`` arrive
+with ROADMAP.md item 'Remaining op families and the zoo'.
 Each layer builds Program ops; shapes are inferred in Python (batch
 dims stay -1) so parameters can be sized.
 """
@@ -32,13 +32,12 @@ __all__ = [
     "maxout", "brelu", "hard_sigmoid", "conv2d", "conv3d",
     "conv2d_transpose", "conv3d_transpose", "pool2d", "pool3d",
     "batch_norm", "lrn", "roi_pool", "image_resize", "resize_bilinear",
-    "image_resize_short", "random_crop",
+    "image_resize_short", "random_crop", "im2sequence", "row_conv",
+    "linear_chain_crf", "crf_decoding", "warpctc", "ctc_greedy_decoder",
+    "beam_search", "beam_search_decode", "beam_expand", "beam_gather",
 ]
 
-WAITING = dict.fromkeys((
-    "hsigmoid", "nce", "im2sequence", "row_conv", "linear_chain_crf",
-    "crf_decoding", "warpctc", "ctc_greedy_decoder", "beam_search",
-    "beam_search_decode", "beam_expand", "beam_gather"), REST)
+WAITING = dict.fromkeys(("hsigmoid", "nce"), REST)
 __getattr__ = module_getattr(__name__, WAITING)
 
 
@@ -1080,4 +1079,204 @@ def random_crop(x, shape, seed=None):
     out = helper.create_variable_for_type_inference(x.dtype, shape=out_shape)
     helper.append_op(type="random_crop", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]}, attrs={"shape": list(shape)})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    if input_image_size is not None:
+        raise NotImplementedError(
+            "im2sequence(input_image_size=...) computes per-image true "
+            "sizes from a runtime tensor (reference im2sequence_op.cc "
+            "variable-size batches); the port, as the JAX package, treats "
+            "every image as full-size — crop/pad the batch to one size "
+            "instead (out_stride only applies with input_image_size)")
+    helper = LayerHelper("im2sequence", name=name)
+    fs = [filter_size] * 2 if isinstance(filter_size, int) else list(filter_size)
+    st = [stride] * 2 if isinstance(stride, int) else list(stride)
+    pd = [padding] * 4 if isinstance(padding, int) else list(padding)
+    c = input.shape[1]
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=[-1, int(c * fs[0] * fs[1])], lod_level=1)
+    helper.append_op(type="im2sequence", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"kernels": fs, "strides": st, "paddings": pd})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead row convolution (reference row_conv_op.cc) over
+    [batch, time, dim] padded sequences."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    d = int(input.shape[-1])
+    w = helper.create_parameter(helper.param_attr,
+                                [future_context_size + 1, d], input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input.name], "Filter": [w.name]},
+                     outputs={"Out": [out.name]})
+    return helper.append_activation(out)
+
+
+# ---------------------------------------------------------------------
+# Structured prediction: CRF, CTC, beam search
+# (reference python/paddle/fluid/layers/nn.py linear_chain_crf 815,
+#  crf_decoding 859, beam_search 2710, beam_search_decode 2822,
+#  ctc_greedy_decoder 3640, warpctc 3713)
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """Linear-chain CRF training cost. ``input`` are per-tag emission
+    scores (lod_level=1, [sum_len, K]); learns a [K+2, K] transition
+    parameter (row 0 start, row 1 end weights). Returns the per-sequence
+    negated log-likelihood [N, 1] — minimize its mean."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    alpha = helper.create_variable_for_type_inference(
+        input.dtype, shape=input.shape, lod_level=input.lod_level)
+    emission_exps = helper.create_variable_for_type_inference(
+        input.dtype, shape=input.shape, lod_level=input.lod_level)
+    transition_exps = helper.create_variable_for_type_inference(
+        input.dtype, shape=[size + 2, size])
+    log_likelihood = helper.create_variable_for_type_inference(
+        input.dtype, shape=[-1, 1])
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input.name], "Transition": [transition.name],
+                "Label": [label.name]},
+        outputs={"Alpha": [alpha.name],
+                 "EmissionExps": [emission_exps.name],
+                 "TransitionExps": [transition_exps.name],
+                 "LogLikelihood": [log_likelihood.name]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """Viterbi decode with the transition learned by linear_chain_crf
+    (share it via ``param_attr`` name). Without ``label`` returns the
+    decoded tag sequence; with it, per-position error indicators."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    transition = helper.get_parameter(helper.param_attr.name)
+    out = helper.create_variable_for_type_inference(
+        "int32", shape=list(input.shape[:-1]), lod_level=max(
+            input.lod_level, 1))
+    inputs = {"Emission": [input.name], "Transition": [transition.name]}
+    if label is not None:
+        inputs["Label"] = [label.name]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [out.name]})
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """CTC loss. ``input``: unnormalized per-frame class scores
+    (lod_level=1, [sum_frames, C] with C including the blank);
+    ``label``: target token sequences (lod_level=1). Returns the
+    per-sequence loss [N, 1]."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(
+        input.dtype, shape=[-1, 1])
+    grad = helper.create_variable_for_type_inference(
+        input.dtype, shape=input.shape, lod_level=input.lod_level)
+    helper.append_op(
+        type="warpctc",
+        inputs={"Logits": [input.name], "Label": [label.name]},
+        outputs={"Loss": [loss.name], "WarpCTCGrad": [grad.name]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Greedy CTC decode: per-frame argmax, merge repeats, drop blanks.
+    Returns the decoded token sequences (lod_level=1)."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    out = helper.create_variable_for_type_inference(
+        "int32", shape=list(input.shape[:-1]),
+        lod_level=max(input.lod_level, 1))
+    helper.append_op(type="ctc_greedy_decoder",
+                     inputs={"Input": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"blank": blank})
+    return out
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, name=None):
+    """One beam-expansion step over dense fixed-shape beams
+    ([batch, beam] state — the dense form of the reference's LoD beams).
+    ``scores``: accumulated candidate log-probs [batch, beam, K] for the
+    candidate ``ids`` (or K == vocab with ids=None). Returns
+    (selected_ids, selected_scores, parent_idx), each [batch, beam]."""
+    helper = LayerHelper("beam_search", name=name)
+    b, w = pre_ids.shape[0], pre_ids.shape[1]
+    sel_ids = helper.create_variable_for_type_inference("int32",
+                                                        shape=[b, beam_size])
+    sel_scores = helper.create_variable_for_type_inference(
+        scores.dtype, shape=[b, beam_size])
+    parent = helper.create_variable_for_type_inference("int32",
+                                                       shape=[b, beam_size])
+    inputs = {"pre_ids": [pre_ids.name], "pre_scores": [pre_scores.name],
+              "scores": [scores.name]}
+    if ids is not None:
+        inputs["ids"] = [ids.name]
+    helper.append_op(type="beam_search", inputs=inputs,
+                     outputs={"selected_ids": [sel_ids.name],
+                              "selected_scores": [sel_scores.name],
+                              "parent_idx": [parent.name]},
+                     attrs={"beam_size": beam_size, "end_id": end_id,
+                            "level": level})
+    return sel_ids, sel_scores, parent
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, name=None):
+    """Backtrack per-step beam selections (ids stacked [T, batch, beam],
+    parents from the matching ``parent_idx`` stack) into full sequences.
+    ``ids`` is a pair (step_ids, step_parents); returns
+    (sentence_ids [batch, beam, T], sentence_scores [batch, beam])."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    step_ids, step_parents = ids
+    t, b, w = step_ids.shape
+    sent = helper.create_variable_for_type_inference("int32",
+                                                     shape=[b, w, t])
+    sent_scores = helper.create_variable_for_type_inference(
+        scores.dtype, shape=[b, w])
+    sent_lens = helper.create_variable_for_type_inference("int32",
+                                                          shape=[b, w])
+    helper.append_op(type="beam_search_decode",
+                     inputs={"ids": [step_ids.name],
+                             "parents": [step_parents.name],
+                             "scores": [scores.name]},
+                     outputs={"sentence_ids": [sent.name],
+                              "sentence_scores": [sent_scores.name],
+                              "sentence_lens": [sent_lens.name]},
+                     attrs={"beam_size": beam_size, "end_id": end_id})
+    return sent, sent_scores
+
+
+def beam_expand(x, beam_size, name=None):
+    """Fan each batch row out to its beam candidates:
+    [batch, ...] -> [batch*beam, ...] (row i repeats beam times)."""
+    helper = LayerHelper("beam_expand", name=name)
+    shape = list(x.shape)
+    if shape:
+        shape[0] = -1 if shape[0] in (-1, None) else shape[0] * beam_size
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shape)
+    helper.append_op(type="beam_expand", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"beam_size": beam_size})
+    return out
+
+
+def beam_gather(x, parent, name=None):
+    """Reorder beam-major rows by parent beam index (used after a
+    beam_search step to pull each selected beam's state forward):
+    x [batch*beam, ...], parent [batch, beam] -> [batch*beam, ...]."""
+    helper = LayerHelper("beam_gather", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype,
+                                                    shape=list(x.shape))
+    helper.append_op(type="beam_gather",
+                     inputs={"X": [x.name], "Parent": [parent.name]},
+                     outputs={"Out": [out.name]})
     return out

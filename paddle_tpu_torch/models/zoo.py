@@ -3,13 +3,15 @@ the entries whose ops the port has, each building a complete (main,
 startup) Program pair at a tiny configuration with an example feed —
 the conv nets ``mnist``, ``vgg``, ``resnet`` and ``se_resnext``, then
 ``mnist_mlp``, ``fit_a_line``, ``word2vec``, ``recommender``, ``ctr``,
-``stacked_dynamic_lstm``, ``transformer`` and ``llama``. Every other zoo
-name of the reference raises NotImplementedError naming the ROADMAP.md
-item that ports what it needs. Example feeds give lod_level inputs as
+``stacked_dynamic_lstm``, ``machine_translation``, ``ocr_recognition``,
+``label_semantic_roles``, ``transformer`` and ``llama``. The reference's
+``faster_rcnn`` raises NotImplementedError naming the ROADMAP.md item
+that ports what it needs. Example feeds give lod_level inputs as
 SequenceBatch values.
 """
 from .. import layers, optimizer
 from ..core import framework, unique_name
+from ..param_attr import ParamAttr
 
 __all__ = ["ZOO", "zoo_model_names", "build_zoo_program", "ZooProgram",
            "example_feed", "WAITING"]
@@ -18,11 +20,9 @@ ZOO = {}
 FEEDS = {}
 
 _SEQ = "Remaining op families and the zoo"
-#: the reference's other zoo names -> the ROADMAP.md item they wait for
-#: (control flow, CRF/CTC, beam search and detection)
-WAITING = dict.fromkeys((
-    "ocr_recognition", "machine_translation", "label_semantic_roles",
-    "faster_rcnn"), _SEQ)
+#: the reference's other zoo name -> the ROADMAP.md item it waits for
+#: (detection)
+WAITING = {"faster_rcnn": _SEQ}
 
 
 class ZooProgram:
@@ -212,6 +212,52 @@ def _build_stacked_lstm():
     return [loss, acc], ["words", "label"]
 
 
+@_zoo("machine_translation")
+def _build_machine_translation():
+    from .machine_translation import seq_to_seq_net
+    src = layers.data(name="src", shape=[1], dtype="int64", lod_level=1)
+    trg = layers.data(name="trg", shape=[1], dtype="int64", lod_level=1)
+    lbl = layers.data(name="lbl", shape=[1], dtype="int64", lod_level=1)
+    loss, _ = seq_to_seq_net(src, trg, lbl, src_dict_size=40,
+                             trg_dict_size=40, embedding_dim=16,
+                             encoder_size=16, decoder_size=16)
+    optimizer.Adam(learning_rate=1e-2).minimize(loss)
+    return [loss], ["src", "trg", "lbl"]
+
+
+@_zoo("ocr_recognition")
+def _build_ocr():
+    from .ocr_recognition import ctc_train_net
+    images = layers.data(name="images", shape=[1, 8, 16],
+                         dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64",
+                        lod_level=1)
+    loss, _ = ctc_train_net(images, label, num_classes=3, rnn_hidden=16,
+                            conv_filters=(8,))
+    optimizer.Adam(learning_rate=5e-3).minimize(loss)
+    return [loss], ["images", "label"]
+
+
+@_zoo("label_semantic_roles")
+def _build_srl():
+    from .label_semantic_roles import db_lstm
+    names = ["word", "predicate", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
+             "ctx_p2", "mark"]
+    ins = [layers.data(name=n, shape=[1], dtype="int64", lod_level=1)
+           for n in names]
+    target = layers.data(name="target", shape=[1], dtype="int64",
+                         lod_level=1)
+    feature_out = db_lstm(*ins, word_dict_len=40, label_dict_len=9,
+                          pred_dict_len=12, word_dim=8, mark_dim=4,
+                          hidden_dim=16, depth=4)
+    crf_cost = layers.linear_chain_crf(
+        input=feature_out, label=target,
+        param_attr=ParamAttr(name="crfw"))
+    loss = layers.mean(crf_cost)
+    optimizer.SGD(learning_rate=1e-2).minimize(loss)
+    return [loss], names + ["target"]
+
+
 @_zoo("transformer")
 def _build_transformer():
     from .transformer import TRANSFORMER_TINY, build_transformer
@@ -338,3 +384,48 @@ def _feed_stacked_lstm(b, rng):
     words, _ = _seqs(rng, b, 0, 100)
     return {"words": words,
             "label": rng.randint(0, 2, (b, 1)).astype(np.int64)}
+
+
+@_feed("machine_translation")
+def _feed_machine_translation(b, rng):
+    import numpy as np
+    from ..core.sequence import to_sequence_batch
+    src, trg, lbl = [], [], []
+    for _ in range(b):
+        n = int(rng.randint(3, 6))
+        s = rng.randint(0, 40, (n, 1))
+        src.append(s)
+        trg.append(s)                       # copy task
+        lbl.append(np.roll(s, -1, 0))
+    return {"src": to_sequence_batch(src, np.int64, bucket=4),
+            "trg": to_sequence_batch(trg, np.int64, bucket=4),
+            "lbl": to_sequence_batch(lbl, np.int64, bucket=4)}
+
+
+@_feed("ocr_recognition")
+def _feed_ocr(b, rng):
+    import numpy as np
+    from ..core.sequence import to_sequence_batch
+    imgs = rng.randn(b, 1, 8, 16).astype(np.float32)
+    labs = [rng.randint(0, 3, (2, 1)).astype(np.int64)
+            for _ in range(b)]
+    return {"images": imgs,
+            "label": to_sequence_batch(labs, np.int64, bucket=2)}
+
+
+@_feed("label_semantic_roles")
+def _feed_srl(b, rng):
+    import numpy as np
+    from ..core.sequence import to_sequence_batch
+    names = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+    feats = {n: [] for n in
+             names + ("predicate", "mark", "target")}
+    for _ in range(b):
+        n = int(rng.randint(3, 7))
+        for name in names:
+            feats[name].append(rng.randint(0, 40, (n, 1)))
+        feats["predicate"].append(rng.randint(0, 12, (n, 1)))
+        feats["mark"].append(rng.randint(0, 2, (n, 1)))
+        feats["target"].append(rng.randint(0, 9, (n, 1)))
+    return {k: to_sequence_batch(v, np.int64, bucket=4)
+            for k, v in feats.items()}

@@ -6,19 +6,18 @@ lookup, ``layer_norm``, ``group_norm`` and ``lrn``, ``dropout``, the
 losses, ``label_smooth``, the norms and distances, the metrics
 (``mean_iou``, ``accuracy``, ``auc``), the composed
 ``scaled_dot_product_attention``, the image ops (``bilinear_interp``,
-``nearest_interp``, ``roi_pool``, ``random_crop``); then each op's
-static infer and numerics rules (the reference's, for the analysis
-package).
+``nearest_interp``, ``roi_pool``, ``random_crop``), the sequence ops
+``im2sequence`` and ``row_conv``; then each op's static infer and
+numerics rules (the reference's, for the analysis package).
 
 Every rule is plain torch, as XLA computed them in the reference; the
 convolutions run ``torch.nn.functional``'s (cuDNN on the card). An
 ``NHWC`` tensor stays ``[N, H, W, C]`` at the op boundary, as in the
 reference's IR; the rule hands cuDNN its ``permute(0, 3, 1, 2)`` view,
 an NCHW tensor in ``torch.channels_last`` memory, so no activation is
-copied, and permutes the result back the same way. ``im2sequence``,
-``hierarchical_sigmoid``, ``nce`` and ``row_conv`` wait for ROADMAP.md
-item 'Remaining op families and the zoo' (``core/registry.py`` names
-each).
+copied, and permutes the result back the same way.
+``hierarchical_sigmoid`` and ``nce`` wait for ROADMAP.md item
+'Remaining op families and the zoo' (``core/registry.py`` names each).
 """
 import math
 import os
@@ -848,6 +847,40 @@ def _random_crop(ctx, ins, attrs):
         start = int(torch.randint(0, limit + 1, (), generator=g,
                                   device=g.device))
         out = torch.narrow(out, lead + i, start, s)
+    return {"Out": [out]}
+
+
+@register_op("im2sequence", seq_aware=True)
+def _im2sequence(ctx, ins, attrs):
+    """Each image becomes one sequence of its oh*ow patches (the
+    reference emits LoD [0, oh*ow, 2*oh*ow, ...]; here a SequenceBatch
+    of equal lengths), each patch flattened channel-major (C, kh, kw),
+    so the output feeds sequence ops like dynamic_gru directly — the
+    CRNN/OCR pipeline."""
+    from ..core.sequence import SequenceBatch
+    x = ins["X"][0]  # NCHW
+    kh, kw = _pair(attrs["kernels"])
+    sh, sw = _pair(attrs.get("strides", [1, 1]))
+    pt, pl, pb, pr = (list(attrs.get("paddings", [0, 0, 0, 0]))
+                      + [0] * 4)[:4]
+    x = F.pad(x, (pl, pr, pt, pb))
+    n = x.shape[0]
+    patches = F.unfold(x, (kh, kw), stride=(sh, sw))   # [N, C*kh*kw, L]
+    out = patches.transpose(1, 2)                      # [N, oh*ow, C*kh*kw]
+    lengths = torch.full((n,), out.shape[1], dtype=torch.int64,
+                         device=x.device)
+    return {"Out": [SequenceBatch(out, lengths)]}
+
+
+@register_op("row_conv")
+def _row_conv(ctx, ins, attrs):
+    """Lookahead row convolution (reference row_conv_op.cc): x [B, T, D]
+    padded, Filter [context + 1, D]; out[t] = sum_i x[t + i] * f[i],
+    zeros past the padded end."""
+    x, f = ins["X"][0], ins["Filter"][0]
+    k = f.shape[0]
+    padded = F.pad(x, (0, 0, 0, k - 1))
+    out = sum(padded[:, i:i + x.shape[1], :] * f[i] for i in range(k))
     return {"Out": [out]}
 
 

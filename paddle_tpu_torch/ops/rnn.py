@@ -1,5 +1,5 @@
-"""Recurrent op lowering rules: dynamic_lstm, dynamic_gru, lstm_unit and
-gru_unit.
+"""Recurrent op lowering rules: dynamic_lstm, dynamic_gru, lstm_unit,
+gru_unit, and the generic ``scan`` op behind StaticRNN / DynamicRNN.
 
 Port of ``paddle_tpu/ops/rnn.py`` (capability parity with
 paddle/fluid/operators/{lstm_op, gru_op, lstm_unit_op, gru_unit_op}.cc).
@@ -8,9 +8,8 @@ kernels; the JAX package runs ``lax.scan`` over the padded time axis;
 here each recurrence is a plain torch loop over that axis, with the
 reference's validity mask freezing finished rows: a forward recurrence
 holds the last valid state at the padded steps, a reversed one (which
-flips the whole padded axis) holds its initial state there. The generic
-``scan`` op behind StaticRNN / DynamicRNN waits with control flow
-(ROADMAP.md item 7b).
+flips the whole padded axis) holds its initial state there. ``scan``
+evaluates its sub-block once a time step in the same kind of loop.
 """
 import torch
 
@@ -158,3 +157,77 @@ def _gru_unit(ctx, ins, attrs):
     c = act_c(x[:, 2 * h_dim:] + (r * h_prev) @ w[:, 2 * h_dim:])
     h = z * h_prev + (1 - z) * c
     return {"Hidden": [h], "ResetHiddenPrev": [r * h_prev], "Gate": [rz]}
+
+
+# ---------------------------------------------------------------------------
+# generic scan op — the lowering target of StaticRNN / DynamicRNN
+# ---------------------------------------------------------------------------
+
+
+@register_op("scan", seq_aware=True)
+def _scan(ctx, ins, attrs):
+    """Runs a sub-block once a time step (the reference's ``lax.scan``)
+    in a torch loop over the padded time axis.
+
+    inputs  X:    per-step sequences ([B, T, ...] dense or SequenceBatch)
+            Init: initial state values
+    attrs   sub_block, x_names, state_in_names, state_out_names,
+            out_names, masked (freeze finished rows using X's lengths)
+    outputs Out: collected per-step outputs [B, T, ...] (SequenceBatch
+                 with the step input's lengths when it was one)
+            FinalState: last state values
+
+    The masked update is the reference's arithmetic ``m·new + (1 − m)·
+    old``, so gradients agree with it. Each step binds its slices and
+    states into a child ``Env`` of the op's own, so the body's sequence
+    ops see the outer SequenceBatch values."""
+    from ..core.lowering import Env
+
+    sub_block = attrs["sub_block"]
+    x_names = attrs.get("x_names", [])
+    st_in = attrs.get("state_in_names", [])
+    st_out = attrs.get("state_out_names", [])
+    out_names = attrs.get("out_names", [])
+    masked = attrs.get("masked", False)
+
+    lengths = None
+    xs = []
+    for v in ins.get("X", []):
+        if isinstance(v, SequenceBatch):
+            lengths = v.lengths if lengths is None else lengths
+            v = v.data
+        xs.append(v)
+    states = list(ins.get("Init", []))
+    t = xs[0].shape[1] if xs else attrs.get("num_steps")
+    b = xs[0].shape[0] if xs else states[0].shape[0]
+    device = xs[0].device if xs else states[0].device
+    if masked and lengths is not None:
+        mask = (torch.arange(t, device=device)[None, :]
+                < lengths[:, None]).to(torch.float32)
+    else:
+        mask = torch.ones((b, t), dtype=torch.float32, device=device)
+
+    outer_env = ctx.env
+    outs = [[] for _ in out_names]
+    for i in range(t):
+        env = Env(parent=outer_env)
+        for name, x in zip(x_names, xs):
+            env[name] = x[:, i]
+        for name, val in zip(st_in, states):
+            env[name] = val
+        ctx.eval_block(sub_block, env)
+        new_states = []
+        for name, old in zip(st_out, states):
+            new = env[name]
+            if masked:
+                mm = mask[:, i].reshape(
+                    (-1,) + (1,) * (new.dim() - 1)).to(new.dtype)
+                new = mm * new + (1 - mm) * old
+            new_states.append(new)
+        states = new_states
+        for acc, name in zip(outs, out_names):
+            acc.append(env[name])
+    collected = [torch.stack(o, dim=1) for o in outs]
+    if lengths is not None:
+        collected = [SequenceBatch(c, lengths) for c in collected]
+    return {"Out": collected, "FinalState": states}

@@ -17,7 +17,9 @@ placed values. How each op runs (:meth:`Spmd.lower`):
   layer-stacked decoder and the 1F1B loss (over a 'pp' axis, each rank
   runs the schedule on its own stage), the fused loss, the generator,
   the table lookup (a row-sharded table's too), and the MoE FFN (its
-  explicit expert dispatch);
+  explicit expert dispatch); and control flow (``while``, ``if_else``,
+  ``scan``), whose rule runs on the placed values while each op of its
+  sub-block goes through :meth:`Spmd.lower`;
 - every other op runs its rule on the DTensors, and DTensor's sharding
   propagation inserts the collectives, as GSPMD does: a mean over a
   dp-sharded batch becomes an all-reduce, batch norm's sums become
@@ -560,3 +562,15 @@ def _generate(spmd, ctx, ins, attrs, rule):
         attrs = dict(attrs, n_heads=n_heads // tp, n_kv_heads=n_kv // tp)
         attrs[TP_REDUCE] = lambda y: C.all_reduce(y, "tp", mesh=mesh)
     return spmd.run_local(rule, ctx, local_ins, attrs, out_placements=out_pl)
+
+
+@spmd_rule("while", "if_else", "scan")
+def _sub_block(spmd, ctx, ins, attrs, rule):
+    """Control flow: the rule itself, on the placed values (an if_else's
+    condition whole, as every rank reads it back); each op of its
+    sub-block goes through :meth:`Spmd.lower` in turn."""
+    if "Cond" in ins:
+        dt = _dt()
+        ins = dict(ins, Cond=[v.full_tensor() if isinstance(v, dt.DTensor)
+                              else v for v in ins["Cond"]])
+    return rule(ctx, ins, attrs)

@@ -577,12 +577,6 @@ def _no_infer_rule(fluid):
                          outputs={"Out": ["o"]})
 
 
-# the port registers no `while` yet (ROADMAP.md item 'Remaining op
-# families and the zoo'): on the control-flow cases it adds that one
-# no-lowering-rule error, and the reference's no-infer-rule warning for
-# the same op has no counterpart — the other findings are the same
-_WHILE = ("no-lowering-rule", "no-infer-rule")
-
 NEW_PASS_CASES = {
     "dead_write": (_dead_write, "dead-write", "warning"),
     "dead_write_silent_when_read_between": (_dead_write_read_between,
@@ -605,13 +599,8 @@ def test_new_verifier_pass_as_in_reference(case):
         assert code not in _codes(diags["torch"])
     else:
         assert code in _codes(diags["torch"], level)
-    if build in (_cross_block, _fetch_of_dead_var):
-        extra = [d for d in diags["torch"] if d.code in _WHILE]
-        assert [(d.code, d.message) for d in extra] == [
-            ("no-lowering-rule",
-             "op type 'while' has no registered lowering rule")]
-        diags = {k: [d for d in v if d.code not in _WHILE]
-                 for k, v in diags.items()}
+    # the control-flow cases too, with `while` ported: the same
+    # findings, the reference's no-infer-rule warning for it included
     assert _key(diags["torch"]) == _key(diags["jax"])
 
 

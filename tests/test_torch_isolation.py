@@ -96,6 +96,12 @@ import paddle_tpu_torch.waiting, paddle_tpu_torch.layers.transformer
 import paddle_tpu_torch.ops.transformer_ops
 import paddle_tpu_torch.serving.decode_engine, paddle_tpu_torch.serving.kv_pages
 import paddle_tpu_torch.serving.sched, paddle_tpu_torch.serving.overload
+import paddle_tpu_torch.ops.control_flow, paddle_tpu_torch.ops.crf_ctc
+import paddle_tpu_torch.ops.eval_ops, paddle_tpu_torch.layers.control_flow
+import paddle_tpu_torch.contrib, paddle_tpu_torch.contrib.decoder
+import paddle_tpu_torch.models.machine_translation
+import paddle_tpu_torch.models.label_semantic_roles
+import paddle_tpu_torch.models.ocr_recognition
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                     "ml_dtypes"))
@@ -245,14 +251,14 @@ def test_later_slices_refuse_loudly():
     out = exe.run(main, feed={"x": np.ones((2, 8), np.float32)},
                   fetch_list=[loss], scope=scope)
     assert np.isfinite(out[0]).all()
-    # still refused, by name: the ops that wait for later items (7b's
-    # scan and control flow, CRF/CTC; 7c's detection and extras) and the
-    # zoo's other models
-    for op_type, item in (("im2sequence", "Remaining op families and the zoo"),
-                          ("row_conv", "Remaining op families and the zoo"),
-                          ("scan", "Remaining op families and the zoo"),
-                          ("while", "Remaining op families and the zoo"),
-                          ("warpctc",
+    # still refused, by name: the ops that wait for a later item (7c's
+    # detection and extras)
+    for op_type, item in (("prior_box", "Remaining op families and the zoo"),
+                          ("nce", "Remaining op families and the zoo"),
+                          ("box_coder", "Remaining op families and the zoo"),
+                          ("detection_map",
+                           "Remaining op families and the zoo"),
+                          ("hierarchical_sigmoid",
                            "Remaining op families and the zoo")):
         prog = main.clone()
         prog.global_block().append_op(
@@ -277,13 +283,14 @@ def test_later_slices_refuse_loudly():
     assert out[0].shape == (2, 2) and np.isfinite(out[0]).all()
     from paddle_tpu_torch.models import zoo
     # item 5 lifted: the conv nets build; item 7a: the sequence models;
-    # ocr_recognition and machine_translation wait for 7b
+    # item 7b: ocr_recognition and machine_translation; faster_rcnn
+    # waits for 7c
     assert zoo.build_zoo_program("resnet").fetch_list
     assert zoo.build_zoo_program("stacked_dynamic_lstm").fetch_list
+    assert zoo.build_zoo_program("ocr_recognition").fetch_list
+    assert zoo.build_zoo_program("machine_translation").fetch_list
     with pytest.raises(NotImplementedError, match="Remaining op families"):
-        zoo.build_zoo_program("ocr_recognition")
-    with pytest.raises(NotImplementedError, match="Remaining op families"):
-        zoo.build_zoo_program("machine_translation")
+        zoo.build_zoo_program("faster_rcnn")
     # items 4a (the fused generator) and 4b (the paged decode engine)
     # lifted: the generator builders, the paged programs, their layers,
     # the weight tools and the decode-serving names resolve; item 6b

@@ -127,7 +127,10 @@ def test_zoo_entry_trains(name):
                                           "transformer", "llama", "mnist",
                                           "vgg", "resnet", "se_resnext",
                                           "word2vec", "recommender", "ctr",
-                                          "stacked_dynamic_lstm"}
+                                          "stacked_dynamic_lstm",
+                                          "machine_translation",
+                                          "ocr_recognition",
+                                          "label_semantic_roles"}
     for other, item in zoo.WAITING.items():
         with pytest.raises(NotImplementedError, match=item):
             zoo.build_zoo_program(other)

@@ -126,16 +126,25 @@ SEQUENCE = {"sequence_pool", "sequence_first_step", "sequence_last_step",
             "sequence_unpad", "lod_reset", "lod_array_length",
             "edit_distance"}
 RNN = {"lstm", "gru", "lstm_unit", "gru_unit"}
+# ROADMAP item 7b: ops/rnn.py's scan, ops/control_flow.py's 7,
+# ops/crf_ctc.py's 8, ops/nn.py's im2sequence and row_conv, and
+# eval_ops.py's chunk_eval
+CONTROL_FLOW = {"scan", "while", "if_else", "select_input", "print",
+                "is_empty", "write_to_array", "read_from_array"}
+CRF_CTC = {"linear_chain_crf", "crf_decoding", "warpctc",
+           "ctc_greedy_decoder", "beam_search", "beam_search_decode",
+           "beam_expand", "beam_gather", "im2sequence", "row_conv",
+           "chunk_eval"}
 PORTED = (LLAMA_SLICES | BASIC_REST | NN_REST | {"sequence_mask"}
           | OPTIMIZER_RULES | REWRITE | IO | GENERATE | PAGED | CONV | MESH
-          | SEQUENCE | RNN)
+          | SEQUENCE | RNN | CONTROL_FLOW | CRF_CTC)
 
 
 def test_port_registers_exactly_the_slice_ops():
     assert set(pt_registry.registered_ops()) == PORTED
     assert PORTED <= set(jax_registry.registered_ops())
     with pytest.raises(NotImplementedError, match="no lowering rule"):
-        pt_registry.get_op("im2sequence")
+        pt_registry.get_op("prior_box")
 
 
 @pytest.mark.parametrize("op_type", sorted(CONV))
@@ -165,12 +174,28 @@ def test_sequence_and_rnn_ops_register_with_the_reference_flags(op_type):
         jax_registry.has_numerics(op_type)
 
 
-# what waits, by name, with its ROADMAP item
+@pytest.mark.parametrize("op_type", sorted(CONTROL_FLOW | CRF_CTC))
+def test_control_flow_and_crf_ops_register_with_the_reference_flags(
+        op_type):
+    """Each op of item 7b has a lowering rule with the reference's
+    ``seq_aware`` and ``stateful`` flags, and an infer and a numerics
+    rule exactly where the reference has one (none)."""
+    assert pt_registry.has_op(op_type) and op_type not in pt_registry.WAITING
+    for flag in ("seq_aware", "stateful"):
+        assert getattr(pt_registry.get_op(op_type), flag) == \
+            getattr(jax_registry.get_op(op_type), flag)
+    assert pt_registry.has_infer(op_type) == jax_registry.has_infer(op_type)
+    assert pt_registry.has_numerics(op_type) == \
+        jax_registry.has_numerics(op_type)
+
+
+# what waits, by name, with its ROADMAP item (item 7c's ops)
 STILL_REFUSED = dict.fromkeys((
-    "scan", "im2sequence", "hierarchical_sigmoid", "nce", "warpctc",
-    "while", "multiclass_nms", "fake_quantize_abs_max", "chunk_eval",
-    "linear_chain_crf", "beam_search", "if_else", "row_conv", "box_coder",
-    "detection_map"), "Remaining op families and the zoo")
+    "prior_box", "iou_similarity", "hierarchical_sigmoid", "nce",
+    "bipartite_match", "multiclass_nms", "fake_quantize_abs_max",
+    "target_assign", "ssd_loss", "anchor_generator", "generate_proposals",
+    "spp", "weight_norm", "box_coder", "detection_map"),
+    "Remaining op families and the zoo")
 
 
 @pytest.mark.parametrize("op_type", sorted(STILL_REFUSED))
@@ -189,12 +214,12 @@ def test_every_reference_op_is_ported_or_named_as_waiting():
 
 
 def test_registry_counts():
-    """253 reference ops: 206 ported, 47 named as waiting; both
+    """253 reference ops: 225 ported, 28 named as waiting; both
     generators registered ``stateful`` (they draw at temperature > 0),
     as in the reference."""
     ref = set(jax_registry.registered_ops())
     assert (len(ref), len(PORTED), len(pt_registry.WAITING)) == \
-        (253, 206, 47)
+        (253, 225, 28)
     for op in GENERATE:
         assert pt_registry.get_op(op).stateful
         assert jax_registry.get_op(op).stateful

@@ -45,9 +45,9 @@ SEQ = "Remaining op families and the zoo"
 # ports each (registry.WAITING names the same)
 SKIPPED = {
     "conv_shift": SEQ, "fake_dequantize_max_abs": SEQ,
-    "im2sequence": SEQ, "max_pool2d_with_index": SEQ,
+    "max_pool2d_with_index": SEQ,
     "minus": SEQ, "modified_huber_loss": SEQ, "pad_constant_like": SEQ,
-    "row_conv": SEQ, "spp": SEQ, "ssd_loss": SEQ, "unpool": SEQ,
+    "spp": SEQ, "ssd_loss": SEQ, "unpool": SEQ,
     "weight_norm": SEQ,
 }
 
@@ -101,6 +101,12 @@ def _out_slots(spec):
     return spec["outputs"] if "outputs" in spec else spec["want"]
 
 
+def _dense(v):
+    """An output's array: a sequence output's padded data (im2sequence
+    emits one), else the value."""
+    return v.data if hasattr(v, "lengths") else v
+
+
 def _run(spec, seed=0):
     """Both rules on the spec's inputs; returns (jax outs, port outs,
     jax grads, port grads) as numpy, the grads by (slot, index) for the
@@ -126,7 +132,8 @@ def _run(spec, seed=0):
                  if _is_float(a)]
     jdiff = {k: jnp.asarray(ins[k[0]][k[1]]) for k in diff_keys}
     jout = jfn(jdiff)
-    jout_np = {s: [np.asarray(a) for a in v] for s, v in jout.items()}
+    jout_np = {s: [np.asarray(_dense(a)) for a in v]
+               for s, v in jout.items()}
 
     tins = {s: [torch.from_numpy(a.copy()) for a in v]
             for s, v in ins.items()}
@@ -137,7 +144,7 @@ def _run(spec, seed=0):
                                        0, 1)
     with torch.enable_grad():
         tout = trule(tctx, tins, dict(attrs))
-    tout_np = {s: [t.detach().numpy() for t in v]
+    tout_np = {s: [_dense(t).detach().numpy() for t in v]
                for s, v in tout.items()}
     if not diff_keys:
         return jout_np, tout_np, {}, {}
@@ -149,11 +156,12 @@ def _run(spec, seed=0):
 
     def jloss(diff):
         out = jfn(diff)
-        return sum(jnp.sum(out[s][i] * c) for (s, i), c in cots.items())
+        return sum(jnp.sum(_dense(out[s][i]) * c)
+                   for (s, i), c in cots.items())
 
     jgrad = jax.grad(jloss)(jdiff)
     with torch.enable_grad():
-        tl = sum((tout[s][i] * torch.from_numpy(c)).sum()
+        tl = sum((_dense(tout[s][i]) * torch.from_numpy(c)).sum()
                  for (s, i), c in cots.items())
         # an output that does not depend on the inputs (fill_zeros_like)
         # has no graph: its gradient is zero

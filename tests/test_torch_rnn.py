@@ -105,12 +105,10 @@ def test_padding_holds_the_reference_states():
 
 def test_recurrent_ops_are_ported_and_seq_aware_as_the_reference():
     from paddle_tpu.core import registry as jregistry
-    for op in ("lstm", "gru", "lstm_unit", "gru_unit"):
+    for op in ("lstm", "gru", "lstm_unit", "gru_unit", "scan"):
         assert op not in pt_registry.WAITING
         assert pt_registry.get_op(op).seq_aware == \
             jregistry.get_op(op).seq_aware
-    with pytest.raises(NotImplementedError, match="Remaining op families"):
-        pt_registry.get_op("scan")
     with pytest.raises(TypeError, match="SequenceBatch"):
         rule_pair("lstm", {"Input": [X4.data], "Weight": [W4]})
 

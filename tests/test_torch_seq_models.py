@@ -301,8 +301,7 @@ def test_stacked_lstm_trains():
 # ---------------------------------------------------------------------------
 def test_zoo_builds_the_slice_models_and_refuses_the_rest():
     assert set(NEW_ZOO) <= set(tzoo.zoo_model_names())
-    assert set(tzoo.WAITING) == {"ocr_recognition", "machine_translation",
-                                 "label_semantic_roles", "faster_rcnn"}
+    assert set(tzoo.WAITING) == {"faster_rcnn"}
     assert set(tzoo.zoo_model_names()) | set(tzoo.WAITING) == \
         set(jzoo.zoo_model_names())
     for name, item in tzoo.WAITING.items():

@@ -313,7 +313,34 @@ Phases — any failure exits non-zero:
 39. control_flow: a bounded and an unbounded While, IfElse, Switch, the
    tensor arrays and the bounded While's gradient, card against CPU;
    35-39 each with no attention launch;
-40. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
+40. faster_rcnn_train (ROADMAP item 7c, the main path of this slice):
+   ``build_faster_rcnn`` at ``FasterRCNNConfig()``'s full width on 2
+   images of 3 x 600 x 800 (Faster R-CNN's training scale, Fast R-CNN's
+   two images a minibatch) with 1-6 ground-truth boxes each,
+   ``Momentum(1e-3, 0.9)``, float32 and TF32 off: the first step on the
+   card against the CPU — the sampled anchors' labels and targets and
+   the sampled RoIs and labels equal (a candidate within float error of
+   a sampler's threshold may flip, and is printed), then the loss and
+   every gradient within 2e-3 / 2e-4 — 2 warmup and 10 timed steps
+   (step ms, images/s, launches a step, busy ms, idle share, device ms
+   by kind, peak memory), the inference program's RoIs, class
+   probabilities and box regressions against the CPU's;
+41. ssd_train: ``multi_box_head`` over SSD300's six maps (fed as data,
+   512/1024/512/256/256/256 channels at 38/19/10/5/3/1), 21 classes,
+   8,732 priors (asserted), ``ssd_loss`` into Momentum: the first step
+   at batch 8 against the CPU, 5 timed steps at batch 32;
+   ``detection_output`` (nms 0.45, top 400, keep 200, score 0.01) timed
+   at batch 32; at batch 8 its NMS rows against the CPU's (a row may
+   differ only between scores tied within the tier), the NMS rule on the
+   CPU's own inputs on the card equal to the CPU's rows exactly, and
+   ``detection_map`` (11point) with ``evaluator.DetectionMAP`` over two
+   batches equal to the CPU's;
+42. detection_extras: every op of the extras family, ``hierarchical_sigmoid``
+   and ``nce`` (equal table rows) against the CPU at small shapes
+   (integers exactly, gradients through one cotangent), and a
+   WeightNormParamAttr fc step, an hsigmoid step and an nce step;
+   40-42 each with no attention launch;
+43. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
    expected to refuse them: recorded, not gated).
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
@@ -6198,6 +6225,26 @@ def step_breakdown(torch, fn, step_ms, kinds=CTR_KINDS, top=12):
                                   key=lambda r: -r[1])[:top]}
 
 
+def card_and_cpu(fluid, main, startup, fetch, feed, scope0=None):
+    """One run of ``main`` on the card and on the CPU from one initial
+    state (the CPU's startup, or ``scope0``), each in a fresh Executor
+    (so both take the same step's draws). Returns {side: fetches}."""
+    if scope0 is None:
+        scope0 = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope0)
+    outs = {}
+    for side, exe in (("card", fluid.Executor()),
+                      ("cpu", fluid.Executor(fluid.CPUPlace()))):
+        scope = fluid.Scope()
+        for n, v in scope0.vars.items():
+            scope.set(n, v.detach().clone())
+        outs[side] = [np.asarray(o.data if isinstance(o, fluid.SequenceBatch)
+                                 else o)
+                      for o in exe.run(main, feed=feed, fetch_list=fetch,
+                                       scope=scope)]
+    return outs
+
+
 def first_step_card_vs_cpu(torch, fluid, tag, main, startup, fetch, feed,
                            dtype=None):
     """One step of ``main`` on the card and on the CPU from one initial
@@ -6215,13 +6262,7 @@ def first_step_card_vs_cpu(torch, fluid, tag, main, startup, fetch, feed,
         for n, v in list(s0.vars.items()):
             if v.is_floating_point():
                 s0.set(n, v.to(dtype))
-    outs = {}
-    for side, exe in (("card", fluid.Executor()),
-                      ("cpu", fluid.Executor(fluid.CPUPlace()))):
-        scope = fluid.Scope()
-        for n, v in s0.vars.items():
-            scope.set(n, v.clone())
-        outs[side] = exe.run(main, feed=feed, fetch_list=names, scope=scope)
+    outs = card_and_cpu(fluid, main, startup, names, feed, scope0=s0)
     worst = 0.0
     for n, a, b in zip(names, outs["card"], outs["cpu"]):
         ok, err = np_close(a, b, SEQ_TOL)
@@ -7235,6 +7276,638 @@ def phase_control_flow(torch, fluid, fa, card):
     return by_kernel, stats
 
 
+# ROADMAP item 7c: Faster R-CNN at its published training scale and an
+# SSD300 head, float32, TF32 off
+FRCNN_BATCH = 2                 # Fast R-CNN's N = 2 images a minibatch
+FRCNN_HW = (600, 800)           # shorter side 600 (a 375 x 500 VOC image)
+FRCNN_GT = (1, 6)               # ground-truth boxes an image
+FRCNN_WARMUP = 2
+FRCNN_STEPS = 10
+SSD_MAPS = ((512, 38), (1024, 19), (512, 10), (256, 5), (256, 3), (256, 1))
+SSD_RATIOS = [[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0], [2.0]]
+SSD_PRIORS = 8732
+SSD_CLASSES = 21
+SSD_BATCH = 32
+SSD_PARITY_BATCH = 8
+SSD_WARMUP = 2
+SSD_STEPS = 5
+SSD_NMS = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+               score_threshold=0.01)
+IOU_EPS = 1e-5                  # a candidate this near a threshold may flip
+DET_KINDS = (("conv", ("conv", "cudnn", "implicit", "winograd", "fprop",
+                       "dgrad", "wgrad", "sm90_xmma")),
+             ("matmul", ("gemm", "nvjet", "cutlass", "matmul")),
+             ("sort_topk", ("sort", "topk", "radix", "scan")),
+             ("reduce", ("reduce",)),
+             ("index", ("index", "gather", "scatter")),
+             ("copy", ("memcpy", "memset")),
+             ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def op_output(main, op_type, slot):
+    """The name of ``op_type``'s ``slot`` output in ``main`` (its first
+    such op)."""
+    op = next(o for o in main.global_block().ops if o.type == op_type)
+    return op.outputs[slot][0]
+
+
+def op_input(main, op_type, slot):
+    op = next(o for o in main.global_block().ops if o.type == op_type)
+    return op.inputs[slot][0]
+
+
+def iou_np(a, b, off=1.0):
+    """IoU in float64 of boxes a [M, 4] against b [N, 4] (+1 pixel
+    widths by default, the samplers' convention)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    area = lambda x: (np.maximum(x[:, 2] - x[:, 0] + off, 0)   # noqa: E731
+                      * np.maximum(x[:, 3] - x[:, 1] + off, 0))
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.maximum(rb - lt + off, 0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1e-30), 0.0)
+
+
+def near_thresholds(iou_max, thresholds):
+    """How many of ``iou_max`` lie within IOU_EPS of a threshold."""
+    return int(sum((np.abs(iou_max - t) < IOU_EPS).sum()
+                   for t in thresholds))
+
+
+def frcnn_programs(fluid):
+    """Faster R-CNN at ``FasterRCNNConfig()``'s defaults (its full
+    width): the train program with ``Momentum(1e-3, 0.9)`` (Ren et al.)
+    and the inference program, which share their parameter names."""
+    from paddle_tpu_torch.models.faster_rcnn import (FasterRCNNConfig,
+                                                     build_faster_rcnn)
+    h, w = FRCNN_HW
+    progs = []
+    for train in (True, False):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data("img", shape=[-1, 3, h, w],
+                                    dtype="float32", append_batch_size=False)
+            info = fluid.layers.data("info", shape=[-1, 3], dtype="float32",
+                                     append_batch_size=False)
+            if train:
+                gtb = fluid.layers.data("gtb", shape=[4], dtype="float32",
+                                        lod_level=1)
+                gtl = fluid.layers.data("gtl", shape=[1], dtype="int64",
+                                        lod_level=1)
+                loss, _, _ = build_faster_rcnn(img, gtb, gtl, info,
+                                               FasterRCNNConfig())
+                fluid.optimizer.Momentum(learning_rate=1e-3,
+                                         momentum=0.9).minimize(loss)
+                fetch = [loss.name]
+            else:
+                fetch = [v.name for v in build_faster_rcnn(
+                    img, None, None, info, FasterRCNNConfig(),
+                    is_train=False)]
+        progs.append((main, startup, fetch))
+    return progs
+
+
+def frcnn_feed(fluid, rng, batch, dev=None):
+    """``batch`` random 3 x 600 x 800 images with 1-6 ground-truth boxes
+    each (40-400 pixels a side, labels 1-20), im_info (600, 800, 1)."""
+    h, w = FRCNN_HW
+    boxes, labels = [], []
+    for _ in range(batch):
+        n = rng.randint(FRCNN_GT[0], FRCNN_GT[1] + 1)
+        wh = rng.uniform(40, 400, (n, 2))
+        xy = rng.uniform(0, 1, (n, 2)) * (np.asarray([w, h]) - wh)
+        boxes.append(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+        labels.append(rng.randint(1, 21, (n, 1)).astype(np.int64))
+    feed = {"img": rng.rand(batch, 3, h, w).astype(np.float32),
+            "gtb": fluid.to_sequence_batch(boxes, np.float32),
+            "gtl": fluid.to_sequence_batch(labels, np.int64),
+            "info": np.asarray([[h, w, 1.0]] * batch, np.float32)}
+    if dev is not None:
+        import torch
+        feed = {k: (fluid.SequenceBatch(v.data.to(dev), v.lengths.to(dev))
+                    if isinstance(v, fluid.SequenceBatch)
+                    else torch.from_numpy(v).to(dev))
+                for k, v in feed.items()}
+    return feed, boxes
+
+
+def phase_faster_rcnn_train(torch, fluid, fa, card):
+    """Faster R-CNN at its full width (``FasterRCNNConfig()``: 21
+    classes, anchors 32/64/128 x 0.5/1/2 at stride 16, RPN 64, backbone
+    (16, 32), 64 RPN samples, 512 -> 64 proposals, 32 RoIs, 7 x 7
+    pooling, head 128) on 2 images of 3 x 600 x 800, Momentum(1e-3,
+    0.9), float32, TF32 off: the first step on the card against the CPU
+    (the sampled anchors' labels and targets and the sampled RoIs and
+    labels equal, then the loss and every gradient within 2e-3 / 2e-4;
+    a candidate within float error of a threshold may flip, and is
+    printed), 2 warmup and 10 timed steps (step ms, images/s, launches a
+    step, busy ms, idle share, device ms by kind, peak memory), losses
+    finite, the inference program's RoIs, class probabilities and box
+    regressions on the card against the CPU from the trained scope; no
+    attention launch. Returns (attention launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    (main, startup, fetch), (infer, _, infer_fetch) = frcnn_programs(fluid)
+    check(sorted(p.name for p in infer.all_parameters())
+          == sorted(p.name for p in main.all_parameters()),
+          "faster_rcnn_train: the inference program's parameters differ")
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    rng = np.random.RandomState(SEED + 11)
+    feed, gt_boxes = frcnn_feed(fluid, rng, FRCNN_BATCH)
+    params = sorted(p.name for p in main.all_parameters() if p.trainable)
+    samples = [op_output(main, "rpn_target_assign", "ScoreTarget"),
+               op_output(main, "rpn_target_assign", "LocTarget"),
+               op_output(main, "generate_proposal_labels", "LabelsInt32"),
+               op_output(main, "generate_proposal_labels", "Rois"),
+               op_output(main, "generate_proposals", "RpnRois"),
+               op_output(main, "anchor_generator", "Anchors")]
+    names = fetch + [p + "@GRAD" for p in params] + samples
+    t0 = time.perf_counter()
+    outs = card_and_cpu(fluid, main, startup, names, feed)
+    parity_s = time.perf_counter() - t0
+    card_s, cpu_s = outs["card"][-6:], outs["cpu"][-6:]
+    same = (np.array_equal(card_s[0], cpu_s[0])
+            and np.array_equal(card_s[2], cpu_s[2])
+            and np_close(card_s[1], cpu_s[1], SEQ_TOL)[0]
+            and np_close(card_s[3], cpu_s[3], SEQ_TOL)[0])
+    # the candidates within float error of a sampler's threshold: anchors
+    # at the RPN's 0.7 / 0.3, proposals and gts at the RoI sampler's 0.5
+    anchors = cpu_s[5].reshape(-1, 4)
+    near_rpn = sum(near_thresholds(iou_np(g, anchors).max(0), (0.7, 0.3))
+                   for g in gt_boxes)
+    near_roi = sum(near_thresholds(
+        iou_np(g, np.concatenate([cpu_s[4][b], g])).max(0), (0.5,))
+        for b, g in enumerate(gt_boxes))
+    sampled = {"rpn_fg": int((cpu_s[0] == 1).sum()),
+               "rpn_bg": int((cpu_s[0] == 0).sum()),
+               "roi_fg": int((cpu_s[2] > 0).sum()),
+               "roi_bg": int((cpu_s[2] == 0).sum()),
+               "equal": bool(same),
+               "candidates_near_a_threshold": near_rpn + near_roi}
+    if not same:
+        # allowed only where a candidate lies within float error of a
+        # threshold; then the two steps trained on different samples
+        log(f"faster_rcnn_train: the card sampled other boxes than the "
+            f"CPU: {sampled}")
+        check(near_rpn + near_roi > 0,
+              "faster_rcnn_train: the card's sampled anchors or RoIs "
+              "differ from the CPU's with no candidate near a threshold")
+        worst = None
+    else:
+        worst = 0.0
+        for n, a, b in zip(names[:-6], outs["card"], outs["cpu"]):
+            ok, err = np_close(a, b, SEQ_TOL)
+            check(ok and np.isfinite(a).all(),
+                  f"faster_rcnn_train: {n} card vs CPU max err {err}")
+            worst = max(worst, err)
+    fa.reset_launch_counts()
+    exe = fluid.Executor()
+    dev = exe.device
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    dfeed, _ = frcnn_feed(fluid, np.random.RandomState(SEED + 11),
+                          FRCNN_BATCH, dev)
+    ms, losses, peak = timed_steps(torch, exe, main, fetch[0], scope, dfeed,
+                                   FRCNN_WARMUP, FRCNN_STEPS)
+    check(np.isfinite(losses).all(),
+          f"faster_rcnn_train: losses not finite: {losses}")
+    med = float(np.median(ms))
+    stats = {"config": "FasterRCNNConfig()", "params": n_params,
+             "batch": FRCNN_BATCH, "image": list(FRCNN_HW),
+             "anchors_an_image": int(anchors.shape[0]),
+             "gt_boxes": [int(g.shape[0]) for g in gt_boxes],
+             "sampled": sampled, "parity_max_err": worst,
+             "parity_s": parity_s, "steps": FRCNN_STEPS, "step_ms": ms,
+             "step_ms_median": med,
+             "images_per_s": FRCNN_BATCH * FRCNN_STEPS / (sum(ms) / 1e3),
+             "peak_memory_gb": peak / 1e9, "losses": [losses[0], losses[-1]],
+             "one_step": step_breakdown(torch, lambda: exe.run(
+                 main, feed=dfeed, fetch_list=fetch, scope=scope,
+                 return_numpy=False), med, kinds=DET_KINDS)}
+    # the inference program from the trained scope, card and CPU
+    cpu_scope = fluid.Scope()
+    for n, v in scope.vars.items():
+        cpu_scope.set(n, v.detach().cpu().clone())
+    ifeed = {k: feed[k] for k in ("img", "info")}
+    got = exe.run(infer, feed=ifeed, fetch_list=infer_fetch, scope=scope)
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        infer, feed=ifeed, fetch_list=infer_fetch, scope=cpu_scope)
+    ierr = 0.0
+    for n, a, b in zip(("rois", "cls_prob", "bbox_pred"), got, want):
+        ok, err = np_close(a, b, SEQ_TOL)
+        check(ok and np.isfinite(a).all(),
+              f"faster_rcnn_train: inference {n} card vs CPU max err {err}")
+        ierr = max(ierr, err)
+    stats["inference_max_err"] = ierr
+    stats["inference_rois"] = list(np.asarray(got[0]).shape)
+    by_kernel = attention_idle(fa, "faster_rcnn_train")
+    log(f"faster_rcnn_train: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def ssd_programs(fluid):
+    """The SSD300 multibox head over the six maps (data at SSD300's
+    shapes), ``base_size`` 300, 21 classes, ``min_ratio`` 20,
+    ``max_ratio`` 90, 3 x 3 heads, flipped ratios: (train main, startup,
+    loss, priors) with ``ssd_loss`` -> ``reduce_sum`` -> Momentum(1e-3,
+    0.9); (infer main, nms rows) with ``detection_output`` at SSD's
+    evaluation settings; (eval main, nms rows, evaluator) adding
+    ``evaluator.DetectionMAP`` (11point). All share parameter names."""
+    out = {}
+    for kind in ("train", "infer", "eval"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data("img", shape=[-1, 3, 300, 300],
+                                    dtype="float32", append_batch_size=False)
+            maps = [fluid.layers.data(f"map{i}", shape=[-1, c, s, s],
+                                      dtype="float32",
+                                      append_batch_size=False)
+                    for i, (c, s) in enumerate(SSD_MAPS)]
+            locs, confs, boxes, var = fluid.layers.multi_box_head(
+                maps, img, base_size=300, num_classes=SSD_CLASSES,
+                aspect_ratios=SSD_RATIOS, min_ratio=20, max_ratio=90,
+                kernel_size=3, pad=1, flip=True)
+            if kind == "train":
+                gb = fluid.layers.data("gb", shape=[4], dtype="float32",
+                                       lod_level=1)
+                gl = fluid.layers.data("gl", shape=[1], dtype="int64",
+                                       lod_level=1)
+                loss = fluid.layers.reduce_sum(fluid.layers.ssd_loss(
+                    locs, confs, gb, gl, boxes, var))
+                fluid.optimizer.Momentum(learning_rate=1e-3,
+                                         momentum=0.9).minimize(loss)
+                out[kind] = (main, startup, loss.name, boxes.name)
+                continue
+            nms = fluid.layers.detection_output(locs, confs, boxes, var,
+                                                **SSD_NMS)
+            if kind == "infer":
+                out[kind] = (main, nms.name)
+                continue
+            gl = fluid.layers.data("gl", shape=[1], dtype="int64",
+                                   lod_level=1)
+            gb = fluid.layers.data("gb", shape=[4], dtype="float32",
+                                   lod_level=1)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # deprecation
+                ev = fluid.evaluator.DetectionMAP(
+                    nms, gl, gb, class_num=SSD_CLASSES, overlap_threshold=0.5,
+                    ap_version="11point")
+            out[kind] = (main, nms.name, ev)
+    return out
+
+
+def ssd_feed(rng, batch, dev=None):
+    """Feature maps drawn from N(0, 1) at SSD300's six shapes, a zero
+    image (only its shape is read), and 1-6 ground-truth boxes an image
+    (normalized, 0.05-0.6 a side, labels 1-20)."""
+    import torch
+    feed = {"img": np.zeros((batch, 3, 300, 300), np.float32)}
+    for i, (c, s) in enumerate(SSD_MAPS):
+        feed[f"map{i}"] = rng.randn(batch, c, s, s).astype(np.float32)
+    boxes, labels = [], []
+    for _ in range(batch):
+        n = rng.randint(1, 7)
+        wh = rng.uniform(0.05, 0.6, (n, 2))
+        xy = rng.uniform(0, 1, (n, 2)) * (1 - wh)
+        boxes.append(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+        labels.append(rng.randint(1, SSD_CLASSES, (n, 1)).astype(np.int64))
+    if dev is not None:
+        feed = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+    return feed, boxes, labels
+
+
+def nms_rows_agree(tag, got, want):
+    """NMS rows of the card against the CPU's: labels equal and scores
+    and boxes within the card tier, but where two candidates' scores tie
+    within the tier (the card may order them the other way). Returns the
+    rows that differ."""
+    differ = 0
+    for b in range(want.shape[0]):
+        for k in range(want.shape[1]):
+            if np.array_equal(got[b, k, :1], want[b, k, :1]) and \
+                    np_close(got[b, k], want[b, k], SEQ_TOL)[0]:
+                continue
+            differ += 1
+            check(abs(got[b, k, 1] - want[b, k, 1])
+                  <= SEQ_TOL[1] + SEQ_TOL[0] * abs(want[b, k, 1]),
+                  f"{tag}: image {b} slot {k}: card row {got[b, k]} against "
+                  f"the CPU's {want[b, k]}, scores not tied")
+    return differ
+
+
+def phase_ssd_train(torch, fluid, fa, card):
+    """The SSD300 multibox head (``multi_box_head`` over SSD300's six
+    maps, fed as data): 8,732 priors, ``ssd_loss`` -> ``reduce_sum`` ->
+    Momentum; the first step at batch 8 on the card against the CPU
+    (loss and every gradient within 2e-3 / 2e-4), 2 warmup and 5 timed
+    steps at batch 32 (step ms, launches, peak memory);
+    ``detection_output`` (nms 0.45, top 400, keep 200, score 0.01) at
+    batch 32 timed (ms, launches); at batch 8 its NMS rows on the card
+    against the CPU's (a differing row only between scores tied within
+    the tier), the NMS rule on the CPU's own inputs moved to the card
+    equal to the CPU's rows exactly, and ``detection_map`` (11point)
+    with ``evaluator.DetectionMAP`` over two batches (ground truth drawn
+    from the CPU's detections) equal to the CPU's; no attention launch.
+    Returns (attention launches, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    progs = ssd_programs(fluid)
+    main, startup, loss, priors = progs["train"]
+    rng = np.random.RandomState(SEED + 12)
+    pfeed, pboxes, plabels = ssd_feed(rng, SSD_PARITY_BATCH)
+    pfeed["gb"] = fluid.to_sequence_batch(pboxes, np.float32)
+    pfeed["gl"] = fluid.to_sequence_batch(plabels, np.int64)
+    t0 = time.perf_counter()
+    err, first = first_step_card_vs_cpu(torch, fluid, "ssd_train", main,
+                                        startup, loss, pfeed)
+    parity_s = time.perf_counter() - t0
+    fa.reset_launch_counts()
+    exe = fluid.Executor()
+    dev = exe.device
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    n_priors = exe.run(main, feed=pfeed, fetch_list=[priors],
+                       scope=scope)[0].shape[0]
+    check(n_priors == SSD_PRIORS,
+          f"ssd_train: {n_priors} priors, not SSD300's {SSD_PRIORS}")
+    feed, boxes, labels = ssd_feed(np.random.RandomState(SEED + 13),
+                                   SSD_BATCH, dev)
+    gb = fluid.to_sequence_batch(boxes, np.float32)
+    gl = fluid.to_sequence_batch(labels, np.int64)
+    feed["gb"] = fluid.SequenceBatch(gb.data.to(dev), gb.lengths.to(dev))
+    feed["gl"] = fluid.SequenceBatch(gl.data.to(dev), gl.lengths.to(dev))
+    ms, losses, peak = timed_steps(torch, exe, main, loss, scope, feed,
+                                   SSD_WARMUP, SSD_STEPS)
+    check(np.isfinite(losses).all(), f"ssd_train: losses {losses}")
+    med = float(np.median(ms))
+    stats = {"maps": [list(m) for m in SSD_MAPS], "priors": n_priors,
+             "batch": SSD_BATCH, "parity_batch": SSD_PARITY_BATCH,
+             "parity_max_err": err, "first_loss": first,
+             "parity_s": parity_s, "step_ms": ms, "step_ms_median": med,
+             "peak_memory_gb": peak / 1e9,
+             "losses": [losses[0], losses[-1]],
+             "one_step": step_breakdown(torch, lambda: exe.run(
+                 main, feed=feed, fetch_list=[loss], scope=scope,
+                 return_numpy=False), med, kinds=DET_KINDS)}
+    # detection_output at batch 32 from the trained scope
+    infer, nms = progs["infer"]
+    ifeed = {k: v for k, v in feed.items() if k not in ("gb", "gl")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rows = exe.run(infer, feed=ifeed, fetch_list=[nms], scope=scope,
+                       return_numpy=False)[0]
+        torch.cuda.synchronize()
+        dms.append((time.perf_counter() - t0) * 1e3)
+    dmed = float(np.median(dms))
+    stats["detection_output"] = {
+        "ms": dms, "ms_median": dmed,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "kept_rows": int((rows[..., 0] >= 0).sum().item()),
+        "one_call": step_breakdown(torch, lambda: exe.run(
+            infer, feed=ifeed, fetch_list=[nms], scope=scope,
+            return_numpy=False), dmed, kinds=DET_KINDS)}
+    # NMS rows and mAP at batch 8, card against CPU, one trained state
+    cpu_scope = fluid.Scope()
+    for n, v in scope.vars.items():
+        cpu_scope.set(n, v.detach().cpu().clone())
+    emain, enms, ev_cpu = progs["eval"]
+    ev_card = ssd_programs(fluid)["eval"][2]
+    boxes_in = op_input(emain, "multiclass_nms", "BBoxes")
+    scores_in = op_input(emain, "multiclass_nms", "Scores")
+    nms_attrs = next(o for o in emain.global_block().ops
+                     if o.type == "multiclass_nms").attrs
+    differ, exact_rows, maps = 0, True, {"card": [], "cpu": []}
+    for batch in range(2):
+        bfeed, _, _ = ssd_feed(np.random.RandomState(SEED + 20 + batch),
+                               SSD_PARITY_BATCH)
+        want = fluid.Executor(fluid.CPUPlace()).run(
+            infer, feed=bfeed, fetch_list=[nms], scope=cpu_scope)[0]
+        # ground truth: three of each image's detections, nudged, and
+        # one box no detection is near (so the AP is neither 0 nor 1)
+        pick = [0, 3, 7]
+        gtb = [np.concatenate([np.clip(want[b, pick, 2:] + 0.02, 0, 1),
+                               [[0.9, 0.9, 0.99, 0.99]]]).astype(np.float32)
+               for b in range(len(want))]
+        gtl = [np.maximum(want[b, pick + [1], :1], 1).astype(np.int64)
+               for b in range(len(want))]
+        bfeed["gb"] = fluid.to_sequence_batch(gtb, np.float32)
+        bfeed["gl"] = fluid.to_sequence_batch(gtl, np.int64)
+        fetch = [enms, boxes_in, scores_in] + [v.name for v in ev_cpu.metrics]
+        res = {}
+        for side, e, sc, ev in (("card", exe, scope, ev_card),
+                                ("cpu", fluid.Executor(fluid.CPUPlace()),
+                                 cpu_scope, ev_cpu)):
+            out = e.run(emain, feed=bfeed, fetch_list=fetch, scope=sc)
+            ev.update(*out[3:])
+            maps[side].append(float(np.asarray(out[3]).reshape(())))
+            res[side] = out
+        differ += nms_rows_agree("ssd_train", res["card"][0], res["cpu"][0])
+        # the NMS rule alone on the CPU's own inputs, on the card: exact
+        from paddle_tpu_torch.core import lowering
+        from paddle_tpu_torch.core.registry import get_op
+        ctx = lowering.LoweringContext(None, "test", dev, SEED, 1)
+        rows = get_op("multiclass_nms").lower(ctx, {
+            "BBoxes": [torch.from_numpy(res["cpu"][1]).to(dev)],
+            "Scores": [torch.from_numpy(res["cpu"][2]).to(dev)]},
+            dict(nms_attrs))["Out"][0].cpu().numpy()
+        exact_rows = exact_rows and np.array_equal(rows, res["cpu"][0])
+        check(np.array_equal(rows, res["cpu"][0]),
+              "ssd_train: multiclass_nms on the CPU's inputs gave other "
+              "rows on the card")
+    maps["card_dataset"] = ev_card.eval(exe)
+    maps["cpu_dataset"] = ev_cpu.eval(None)
+    if differ == 0:
+        for a, b in ((maps["card"], maps["cpu"]),
+                     ([maps["card_dataset"]], [maps["cpu_dataset"]])):
+            check(np.allclose(a, b, rtol=0, atol=1e-6),
+                  f"ssd_train: mAP card {a} against CPU {b}")
+    stats.update(nms_rows_differing=differ, nms_rule_exact=exact_rows,
+                 map_11point=maps)
+    by_kernel = attention_idle(fa, "ssd_train")
+    log(f"ssd_train: {card}, float32, TF32 off: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def extras_cases():
+    """(name, op, inputs, attrs, grad slots, mode) for every op of the
+    extras family and hsigmoid / nce at small shapes."""
+    r = np.random.RandomState(SEED + 30)
+
+    def f(*shape, lo=-1.0, hi=1.0):
+        return r.uniform(lo, hi, shape).astype(np.float32)
+
+    def ids(hi, *shape):
+        return r.randint(0, hi, shape).astype(np.int64)
+
+    pool_idx = ((np.arange(3)[:, None] * 2 + ids(2, 2, 3, 3, 3)) * 6
+                + np.arange(3)[None, :] * 2 + ids(2, 2, 3, 3, 3))
+    return [
+        ("minus", "minus", {"X": [f(3, 4)], "Y": [f(3, 4)]}, {},
+         ("X", "Y"), "test"),
+        ("modified_huber_loss", "modified_huber_loss",
+         {"X": [f(16, 1, lo=-3, hi=3)],
+          "Y": [ids(2, 16, 1).astype(np.float32)]}, {}, ("X",), "test"),
+        ("pad_constant_like", "pad_constant_like",
+         {"X": [f(4, 5, 6)], "Y": [f(2, 3, 6)]}, {"pad_value": 1.5},
+         ("Y",), "test"),
+        ("conv_shift", "conv_shift", {"X": [f(4, 9)], "Y": [f(4, 5)]}, {},
+         ("X", "Y"), "test"),
+        ("max_pool2d_with_index", "max_pool2d_with_index",
+         {"X": [f(2, 3, 7, 5)]}, {"ksize": 3, "strides": 2, "paddings": 1},
+         ("X",), "test"),
+        ("unpool", "unpool", {"X": [f(2, 3, 3, 3)], "Indices": [pool_idx]},
+         {"unpooled_height": 6, "unpooled_width": 6}, ("X",), "test"),
+        ("spp_max", "spp", {"X": [f(2, 3, 5, 7)]},
+         {"pyramid_height": 3, "pooling_type": "max"}, ("X",), "test"),
+        ("spp_avg", "spp", {"X": [f(2, 3, 5, 7)]},
+         {"pyramid_height": 3, "pooling_type": "avg"}, ("X",), "test"),
+        ("positive_negative_pair", "positive_negative_pair",
+         {"Score": [np.round(f(32, 1), 1)],
+          "Label": [ids(3, 32, 1).astype(np.float32)],
+          "QueryID": [ids(4, 32, 1)]}, {}, (), "test"),
+        ("precision_recall", "precision_recall",
+         {"Indices": [ids(5, 64, 1)], "Labels": [ids(5, 64, 1)],
+          "Weights": [f(64, 1, lo=0.5, hi=2)],
+          "StatesInfo": [np.abs(f(5, 4)) * 5]}, {"class_number": 5}, (),
+         "test"),
+        ("fake_quantize_abs_max", "fake_quantize_abs_max",
+         {"X": [f(64, 64)]}, {"bit_length": 8}, ("X",), "test"),
+        ("fake_dequantize_max_abs", "fake_dequantize_max_abs",
+         {"X": [np.round(f(8, 8) * 127)],
+          "Scale": [np.asarray([0.75], np.float32)]}, {"max_range": 127.0},
+         ("X", "Scale"), "test"),
+        ("weight_norm", "weight_norm", {"V": [f(16, 8)],
+                                        "G": [f(8, lo=0.5)]},
+         {"dim": 1}, ("V", "G"), "test"),
+        ("weight_norm_g_init", "weight_norm_g_init", {"V": [f(16, 8)]},
+         {"dim": -1}, (), "test"),
+        ("hierarchical_sigmoid", "hierarchical_sigmoid",
+         {"X": [f(32, 16)], "Label": [ids(100, 32, 1)], "W": [f(99, 16)],
+          "Bias": [f(99)]}, {"num_classes": 100}, ("X", "W", "Bias"),
+         "test"),
+        ("nce_same_rows", "nce",
+         {"Input": [f(32, 16)], "Label": [ids(1000, 32, 1)],
+          "Weight": [np.tile(f(1, 16), (1000, 1))],
+          "Bias": [np.full((1000,), 0.3, np.float32)]},
+         {"num_total_classes": 1000, "num_neg_samples": 10}, ("Input",),
+         "train"),
+    ]
+
+
+def extras_programs(fluid):
+    """(name, main, startup, loss, feed): a WeightNormParamAttr fc step,
+    an hsigmoid step and an nce step whose table rows are equal (its
+    table and bias not trained, so every gradient is independent of the
+    negatives drawn)."""
+    layers = fluid.layers
+    r = np.random.RandomState(SEED + 31)
+    out = []
+
+    def build(name, fn, feed):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            loss = fn()
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        out.append((name, main, startup, loss.name, feed))
+
+    x = r.randn(64, 32).astype(np.float32)
+    lbl = r.randint(0, 100, (64, 1)).astype(np.int64)
+
+    def weight_norm():
+        xv = layers.data("x", shape=[32], dtype="float32")
+        yv = layers.data("y", shape=[1], dtype="float32")
+        pred = layers.fc(xv, size=1, param_attr=fluid.WeightNormParamAttr(
+            dim=None, name="wn"))
+        h = layers.fc(xv, size=16, param_attr=fluid.WeightNormParamAttr(
+            dim=1, name="wn1"))
+        return layers.mean(layers.square_error_cost(pred, yv)) + \
+            layers.mean(h * h)
+    build("weight_norm_fc", weight_norm,
+          {"x": x, "y": x[:, :1] * 2.0 - x[:, 1:2]})
+
+    def hsig():
+        xv = layers.data("x", shape=[32], dtype="float32")
+        lv = layers.data("lbl", shape=[1], dtype="int64")
+        h = layers.fc(xv, size=16, act="tanh")
+        return layers.mean(layers.hsigmoid(h, lv, num_classes=100))
+    build("hsigmoid", hsig, {"x": x, "lbl": lbl})
+
+    def nce():
+        xv = layers.data("x", shape=[32], dtype="float32")
+        lv = layers.data("lbl", shape=[1], dtype="int64")
+        h = layers.fc(xv, size=16, act="tanh")
+        return layers.mean(layers.nce(
+            h, lv, num_total_classes=100, num_neg_samples=8,
+            param_attr=fluid.ParamAttr(
+                name="nce_w", trainable=False,
+                initializer=fluid.initializer.Constant(0.2)),
+            bias_attr=False))
+    build("nce", nce, {"x": x, "lbl": lbl})
+    return out
+
+
+def phase_detection_extras(torch, fluid, fa, card):
+    """Every extras op, ``hierarchical_sigmoid`` and ``nce`` (identical
+    table rows) on the card against the CPU at small shapes, float32,
+    TF32 off: outputs within the float32 tier, integers (pooling
+    indices, pair counts, the quantized domain) exactly, the gradients
+    of the float inputs through one random cotangent; then a
+    WeightNormParamAttr fc step, an hsigmoid step and an nce step on the
+    card against the CPU (loss and every gradient). Returns (attention
+    launches, stats)."""
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.core.registry import get_op
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    dev = fluid.Executor().device
+    stats = {}
+    for name, op, ins, attrs, grad, mode in extras_cases():
+        res = []
+        for d in (dev, torch.device("cpu")):
+            tins = {s: [torch.from_numpy(np.array(a)).to(d) for a in v]
+                    for s, v in ins.items()}
+            leaves = [t.requires_grad_() for s in grad for t in tins[s]]
+            ctx = lowering.LoweringContext(None, mode, d, SEED, 1)
+            with torch.enable_grad():
+                out = get_op(op).lower(ctx, tins, dict(attrs))
+                flat = [t for s in sorted(out) for t in out[s]]
+                gen = torch.Generator().manual_seed(SEED)
+                total = sum((t * torch.randn(t.shape, generator=gen).to(d))
+                            .sum() for t in flat if t.requires_grad)
+                grads = torch.autograd.grad(total, leaves) if leaves else []
+            res.append([t.detach().cpu().numpy() for t in flat]
+                       + [g.cpu().numpy() for g in grads])
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(*res)):
+            if b.dtype.kind in "iub" or (op == "fake_quantize_abs_max"
+                                         and i == 0):
+                check(np.array_equal(a, b),
+                      f"detection_extras {name}: output {i} not exact")
+                continue
+            ok, e = np_close(a, b, TOL_F32)
+            check(ok, f"detection_extras {name}: output/gradient {i} card "
+                      f"vs CPU max err {e}")
+            worst = max(worst, e)
+        stats[name] = worst
+    for name, main, startup, loss, feed in extras_programs(fluid):
+        stats[f"{name}_step"] = first_step_card_vs_cpu(
+            torch, fluid, f"detection_extras {name}", main, startup, loss,
+            feed)[0]
+    by_kernel = attention_idle(fa, "detection_extras")
+    log(f"detection_extras: {card}, float32, TF32 off, max err: "
+        + json.dumps(stats))
+    return by_kernel, stats
+
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -7448,6 +8121,15 @@ def main():
         free_card(torch)
         cf_launches, _ = phase_control_flow(torch, fluid, fa, smi)
         free_card(torch)
+        # ROADMAP item 7c, the main path of this slice: Faster R-CNN at
+        # its full width on 2 x 600 x 800, the SSD300 head with
+        # detection_output and detection_map, the extras ops
+        frcnn_launches, _ = phase_faster_rcnn_train(torch, fluid, fa, smi)
+        free_card(torch)
+        ssd_launches, _ = phase_ssd_train(torch, fluid, fa, smi)
+        free_card(torch)
+        extras_launches, _ = phase_detection_extras(torch, fluid, fa, smi)
+        free_card(torch)
         phase_mesh_two_ranks(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -7499,7 +8181,10 @@ def main():
              "seq2seq_decode": mt_dec_launches,
              "srl_crf_train": srl_launches,
              "ocr_ctc_train": ocr_launches,
-             "control_flow": cf_launches}
+             "control_flow": cf_launches,
+             "faster_rcnn_train": frcnn_launches,
+             "ssd_train": ssd_launches,
+             "detection_extras": extras_launches}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),

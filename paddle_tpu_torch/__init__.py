@@ -33,6 +33,7 @@ from .ops import rnn as _ops_rnn              # noqa: F401
 from .ops import control_flow as _ops_cf      # noqa: F401
 from .ops import crf_ctc as _ops_crf          # noqa: F401
 from .ops import eval_ops as _ops_eval        # noqa: F401
+from .ops import detection as _ops_det        # noqa: F401
 from .ops import extras as _ops_extras        # noqa: F401
 
 from .core.framework import (                  # noqa: F401
@@ -74,6 +75,9 @@ from . import models                           # noqa: F401
 from . import nets                             # noqa: F401
 from . import parallel                         # noqa: F401
 from . import contrib                          # noqa: F401
+from . import evaluator                        # noqa: F401
+from . import metrics                          # noqa: F401
+from . import average                          # noqa: F401
 from .parallel import (ParallelExecutor, ExecutionStrategy,  # noqa: F401
                        BuildStrategy, DistributeTranspiler)
 from .waiting import FLEET, REST, module_getattr
@@ -84,7 +88,6 @@ __version__ = "0.1.0"
 WAITING = {"cluster": FLEET,
            **dict.fromkeys((
                "concurrency", "make_channel", "channel_send",
-               "channel_recv", "channel_close", "Select", "evaluator",
-               "metrics", "average", "profiler", "dataset",
-               "default_scope_funcs", "recordio_writer"), REST)}
+               "channel_recv", "channel_close", "Select", "profiler",
+               "dataset", "default_scope_funcs", "recordio_writer"), REST)}
 __getattr__ = module_getattr(__name__, WAITING)

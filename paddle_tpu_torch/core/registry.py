@@ -37,21 +37,8 @@ _NUMERICS = {}
 
 # The reference's op types the port does not register yet, by the
 # ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
-_ITEMS = {
-    "Remaining op families and the zoo": (
-        # ops/nn.py
-        "hierarchical_sigmoid", "nce",
-        # detection.py, eval_ops.py, extras.py
-        "iou_similarity", "box_coder", "prior_box", "bipartite_match",
-        "target_assign", "multiclass_nms", "polygon_box_transform",
-        "ssd_loss", "anchor_generator", "rpn_target_assign",
-        "generate_proposals", "generate_proposal_labels",
-        "detection_map",
-        "minus", "modified_huber_loss", "pad_constant_like", "conv_shift",
-        "max_pool2d_with_index", "unpool", "spp", "positive_negative_pair",
-        "precision_recall", "fake_quantize_abs_max",
-        "fake_dequantize_max_abs", "weight_norm", "weight_norm_g_init"),
-}
+# Every op type of the reference is ported: none waits.
+_ITEMS = {}
 #: op type -> the ROADMAP.md item that ports it
 WAITING = {op: item for item, ops in _ITEMS.items() for op in ops}
 

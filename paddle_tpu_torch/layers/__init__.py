@@ -1,7 +1,6 @@
-"""Layers namespace (port of ``paddle_tpu/layers``). The layers of later
-ROADMAP.md items (detection, ``hsigmoid``, ``nce``) are refused by
-name."""
-from ..waiting import REST, module_getattr
+"""Layers namespace (port of ``paddle_tpu/layers``; parity with
+python/paddle/fluid/layers/__init__.py). As in the reference, the
+``extras`` layers are star-imported but left out of ``__all__``."""
 from . import ops
 from .ops import *            # noqa: F401,F403
 from . import tensor
@@ -20,6 +19,10 @@ from . import sequence_layers
 from .sequence_layers import *  # noqa: F401,F403
 from . import control_flow
 from .control_flow import *   # noqa: F401,F403
+from . import detection
+from .detection import *      # noqa: F401,F403
+from . import extras
+from .extras import *         # noqa: F401,F403
 
 from .math_op_patch import monkey_patch_variable
 monkey_patch_variable()
@@ -27,15 +30,7 @@ monkey_patch_variable()
 __all__ = (ops.__all__ + tensor.__all__ + io.__all__ + nn.__all__
            + metric_op.__all__ + learning_rate_scheduler.__all__
            + transformer.__all__ + sequence_layers.__all__
-           + control_flow.__all__)
+           + control_flow.__all__ + detection.__all__)
 
-# the reference's detection.py layers, and each submodule's own waiting
-# names
-WAITING = {**dict.fromkeys((
-    "prior_box", "multi_box_head", "bipartite_match",
-    "target_assign", "detection_output", "ssd_loss", "iou_similarity",
-    "box_coder", "polygon_box_transform", "multiclass_nms",
-    "anchor_generator", "rpn_target_assign", "generate_proposals",
-    "generate_proposal_labels", "detection_map"), REST),
-    **nn.WAITING, **sequence_layers.WAITING}
-__getattr__ = module_getattr(__name__, WAITING)
+#: the reference's names still to port (none: every name is ported)
+WAITING = {}

@@ -6,9 +6,8 @@ the norms, ``dropout``, the losses, the reductions, the shape and
 gather/scatter layers, ``autoincreased_step_counter`` (the LR
 schedulers' counter), the activation layers, and the conv-net layers
 (the convolutions, pools, ``batch_norm``, ``lrn``, image resize,
-``roi_pool`` and ``random_crop``), ``im2sequence``, ``row_conv`` and
-the CRF, CTC and beam-search layers. ``hsigmoid`` and ``nce`` arrive
-with ROADMAP.md item 'Remaining op families and the zoo'.
+``roi_pool`` and ``random_crop``), ``im2sequence``, ``row_conv``, the
+CRF, CTC and beam-search layers, and ``hsigmoid`` and ``nce``.
 Each layer builds Program ops; shapes are inferred in Python (batch
 dims stay -1) so parameters can be sized.
 """
@@ -17,7 +16,6 @@ import numpy as np
 from ..core import framework
 from ..layer_helper import LayerHelper
 from ..sharding import PartitionSpec as P
-from ..waiting import REST, module_getattr
 from .. import initializer as init_mod
 
 __all__ = [
@@ -28,7 +26,8 @@ __all__ = [
     "squeeze", "unsqueeze", "one_hot", "l2_normalize", "pad", "pad2d",
     "label_smooth", "dice_loss", "gather", "scatter", "mean_iou", "relu",
     "log", "crop", "rank_loss", "prelu", "flatten", "stack", "unstack",
-    "expand", "autoincreased_step_counter", "cos_sim", "multiplex",
+    "expand", "autoincreased_step_counter", "cos_sim", "hsigmoid", "nce",
+    "multiplex",
     "maxout", "brelu", "hard_sigmoid", "conv2d", "conv3d",
     "conv2d_transpose", "conv3d_transpose", "pool2d", "pool3d",
     "batch_norm", "lrn", "roi_pool", "image_resize", "resize_bilinear",
@@ -37,8 +36,8 @@ __all__ = [
     "beam_search", "beam_search_decode", "beam_expand", "beam_gather",
 ]
 
-WAITING = dict.fromkeys(("hsigmoid", "nce"), REST)
-__getattr__ = module_getattr(__name__, WAITING)
+#: the reference's names still to port (none: every name is ported)
+WAITING = {}
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -647,6 +646,23 @@ def cos_sim(X, Y):
                      outputs={"Out": [out.name], "XNorm": [xn.name],
                               "YNorm": [yn.name]})
     return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid via a complete binary tree, composed from dense
+    ops (reference hierarchical_sigmoid_op.cc): the per-sample
+    code path is a fixed-depth gather + dense dot."""
+    from . import hsig_impl
+    return hsig_impl.hsigmoid(input, label, num_classes, param_attr,
+                              bias_attr, name)
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None):
+    from . import nce_impl
+    return nce_impl.nce(input, label, num_total_classes, sample_weight,
+                        param_attr, bias_attr, num_neg_samples, name)
 
 
 def multiplex(inputs, index):

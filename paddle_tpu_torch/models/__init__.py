@@ -3,11 +3,10 @@ serving and generation, with the HF importer), Transformer-base, the
 conv nets (ResNet, VGG, SE-ResNeXt, the MNIST CNN), the MNIST MLP and
 fit-a-line, the CTR models (DeepFM, wide&deep), word2vec, the
 recommender and the stacked dynamic LSTM, seq2seq machine translation,
-semantic role labelling and CRNN-CTC OCR, and the zoo's entries for
-them. ``faster_rcnn`` waits for its ROADMAP.md item and is refused by
-name."""
-from ..waiting import REST, module_getattr
+semantic role labelling and CRNN-CTC OCR, Faster R-CNN, and the zoo's
+entries for them."""
 from . import ctr             # noqa: F401
+from . import faster_rcnn     # noqa: F401
 from . import fit_a_line      # noqa: F401
 from . import llama           # noqa: F401
 from . import label_semantic_roles  # noqa: F401
@@ -24,5 +23,5 @@ from . import vgg             # noqa: F401
 from . import word2vec        # noqa: F401
 from . import zoo             # noqa: F401
 
-WAITING = {"faster_rcnn": REST}
-__getattr__ = module_getattr(__name__, WAITING)
+#: the reference's names still to port (none: every model is ported)
+WAITING = {}

@@ -4,10 +4,9 @@ startup) Program pair at a tiny configuration with an example feed —
 the conv nets ``mnist``, ``vgg``, ``resnet`` and ``se_resnext``, then
 ``mnist_mlp``, ``fit_a_line``, ``word2vec``, ``recommender``, ``ctr``,
 ``stacked_dynamic_lstm``, ``machine_translation``, ``ocr_recognition``,
-``label_semantic_roles``, ``transformer`` and ``llama``. The reference's
-``faster_rcnn`` raises NotImplementedError naming the ROADMAP.md item
-that ports what it needs. Example feeds give lod_level inputs as
-SequenceBatch values.
+``label_semantic_roles``, ``faster_rcnn``, ``transformer`` and
+``llama``: all 16 of the reference's. Example feeds give lod_level
+inputs as SequenceBatch values.
 """
 from .. import layers, optimizer
 from ..core import framework, unique_name
@@ -19,10 +18,9 @@ __all__ = ["ZOO", "zoo_model_names", "build_zoo_program", "ZooProgram",
 ZOO = {}
 FEEDS = {}
 
-_SEQ = "Remaining op families and the zoo"
-#: the reference's other zoo name -> the ROADMAP.md item it waits for
-#: (detection)
-WAITING = {"faster_rcnn": _SEQ}
+#: the reference's other zoo names -> the ROADMAP.md item each waits for
+#: (none: every entry is ported)
+WAITING = {}
 
 
 class ZooProgram:
@@ -258,6 +256,29 @@ def _build_srl():
     return [loss], names + ["target"]
 
 
+# ---------------------------------------------------------------------------
+# detection
+# ---------------------------------------------------------------------------
+
+@_zoo("faster_rcnn")
+def _build_faster_rcnn():
+    from .faster_rcnn import FasterRCNNConfig, build_faster_rcnn
+    cfg = FasterRCNNConfig(class_num=4, anchor_sizes=[16.0, 32.0],
+                           aspect_ratios=[1.0], backbone_channels=[8, 8],
+                           rpn_channels=16, rpn_batch_size=16,
+                           pre_nms_top_n=32, post_nms_top_n=8,
+                           roi_batch_size=8, pooled_size=3, head_dim=16)
+    img = layers.data("img", shape=[-1, 3, 64, 64], dtype="float32",
+                      append_batch_size=False)
+    gtb = layers.data("gtb", shape=[4], dtype="float32", lod_level=1)
+    gtl = layers.data("gtl", shape=[1], dtype="int64", lod_level=1)
+    info = layers.data("info", shape=[-1, 3], dtype="float32",
+                       append_batch_size=False)
+    loss, _, _ = build_faster_rcnn(img, gtb, gtl, info, cfg)
+    optimizer.SGD(learning_rate=1e-3).minimize(loss)
+    return [loss], ["img", "gtb", "gtl", "info"]
+
+
 @_zoo("transformer")
 def _build_transformer():
     from .transformer import TRANSFORMER_TINY, build_transformer
@@ -429,3 +450,18 @@ def _feed_srl(b, rng):
         feats["target"].append(rng.randint(0, 9, (n, 1)))
     return {k: to_sequence_batch(v, np.int64, bucket=4)
             for k, v in feats.items()}
+
+
+@_feed("faster_rcnn")
+def _feed_faster_rcnn(b, rng):
+    import numpy as np
+    from ..core.sequence import to_sequence_batch
+    hw = 64
+    gtb = [np.array([[8, 8, 40, 40]], np.float32),
+           np.array([[4, 4, 30, 30], [20, 20, 60, 60]], np.float32)]
+    gtl = [np.array([[1]], np.int64), np.array([[2], [3]], np.int64)]
+    gtb, gtl = gtb[:b] * b, gtl[:b] * b  # cycle to any batch size
+    return {"img": rng.rand(b, 3, hw, hw).astype(np.float32),
+            "gtb": to_sequence_batch(gtb[:b], dtype=np.float32),
+            "gtl": to_sequence_batch(gtl[:b], dtype=np.int64),
+            "info": np.asarray([[hw, hw, 1.0]] * b, np.float32)}

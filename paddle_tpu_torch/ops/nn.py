@@ -7,7 +7,8 @@ losses, ``label_smooth``, the norms and distances, the metrics
 (``mean_iou``, ``accuracy``, ``auc``), the composed
 ``scaled_dot_product_attention``, the image ops (``bilinear_interp``,
 ``nearest_interp``, ``roi_pool``, ``random_crop``), the sequence ops
-``im2sequence`` and ``row_conv``; then each op's static infer and
+``im2sequence`` and ``row_conv``, the sampled softmax losses
+``hierarchical_sigmoid`` and ``nce``; then each op's static infer and
 numerics rules (the reference's, for the analysis package).
 
 Every rule is plain torch, as XLA computed them in the reference; the
@@ -16,8 +17,6 @@ convolutions run ``torch.nn.functional``'s (cuDNN on the card). An
 reference's IR; the rule hands cuDNN its ``permute(0, 3, 1, 2)`` view,
 an NCHW tensor in ``torch.channels_last`` memory, so no activation is
 copied, and permutes the result back the same way.
-``hierarchical_sigmoid`` and ``nce`` wait for ROADMAP.md item
-'Remaining op families and the zoo' (``core/registry.py`` names each).
 """
 import math
 import os
@@ -779,10 +778,13 @@ def _nearest_interp(ctx, ins, attrs):
 
 def _bin_edges(lo, extent, bins):
     """jnp.linspace(0, 1, bins + 1)·extent + lo for each roi (the
-    reference's bin edges, jax's linspace: i / bins, the last exactly 1)."""
-    frac = torch.cat([torch.arange(bins, dtype=torch.float32,
-                                   device=lo.device) / bins,
-                      torch.ones(1, device=lo.device)])
+    reference's bin edges). jax's linspace is i · float32(1 / bins), the
+    last exactly 1 — not i / bins, which differs in the last place at 7
+    bins and moves a pixel on an edge into the next bin. The fractions
+    are made on the host, where no device arithmetic rounds them."""
+    step = torch.tensor(1.0 / bins, dtype=torch.float32)
+    frac = torch.cat([torch.arange(bins, dtype=torch.float32) * step,
+                      torch.ones(1)]).to(lo.device)
     return frac[None, :] * extent[:, None] + lo[:, None]
 
 
@@ -882,6 +884,77 @@ def _row_conv(ctx, ins, attrs):
     padded = F.pad(x, (0, 0, 0, k - 1))
     out = sum(padded[:, i:i + x.shape[1], :] * f[i] for i in range(k))
     return {"Out": [out]}
+
+
+def _hsig_tables(num_classes):
+    """The complete binary tree's static code tables (heap layout, leaves
+    from ``num_classes``): for each class and depth, the inner node on
+    its path from the root, the branch bit (1 left) and whether the
+    depth is on the path."""
+    depth = int(np.ceil(np.log2(num_classes)))
+    codes = np.zeros((num_classes, depth), np.int64)
+    signs = np.zeros((num_classes, depth), np.float32)
+    valid = np.zeros((num_classes, depth), np.float32)
+    for c in range(num_classes):
+        node = c + num_classes
+        path = []
+        while node > 1:
+            parent = node // 2
+            path.append((parent - 1, 1.0 if node % 2 == 0 else 0.0))
+            node = parent
+        for d, (nid, bit) in enumerate(reversed(path)):
+            if nid < num_classes - 1:
+                codes[c, d] = nid
+                signs[c, d] = bit
+                valid[c, d] = 1.0
+    return codes, signs, valid
+
+
+@register_op("hierarchical_sigmoid")
+def _hsigmoid(ctx, ins, attrs):
+    """Complete-binary-tree hsigmoid: the code/path tables are built on
+    the host with numpy and go to the device as constants; the loss is
+    dense gathers and one [batch, depth, dim] contraction."""
+    x, label, w = ins["X"][0], ins["Label"][0], ins["W"][0]
+    codes, signs, valid = (torch.from_numpy(t).to(x.device)
+                           for t in _hsig_tables(attrs["num_classes"]))
+    lbl = label.reshape(-1).to(torch.int64)
+    node_ids = codes[lbl]            # [B, depth]
+    bit = signs[lbl]                 # [B, depth]
+    msk = valid[lbl]
+    logits = torch.einsum("bd,bkd->bk", x, w[node_ids])
+    if ins.get("Bias"):
+        logits = logits + ins["Bias"][0][node_ids]
+    # bit==1 -> sigmoid(logit), else sigmoid(-logit); NLL over path
+    ll = bit * F.logsigmoid(logits) + (1 - bit) * F.logsigmoid(-logits)
+    return {"Out": [-torch.sum(ll * msk, dim=1, keepdim=True)]}
+
+
+@register_op("nce", stateful=True)
+def _nce(ctx, ins, attrs):
+    """Noise-contrastive estimation with ``num_neg_samples`` negatives a
+    row drawn uniformly from [0, num_total_classes) with the op's device
+    generator (``ctx.next_key()``)."""
+    x, label, w = ins["Input"][0], ins["Label"][0], ins["Weight"][0]
+    k = attrs.get("num_neg_samples", 10)
+    n = attrs["num_total_classes"]
+    lbl = label.reshape(-1).to(torch.int64)
+    neg = torch.randint(0, n, (x.shape[0], k), generator=ctx.next_key(),
+                        device=x.device)
+    ids = torch.cat([lbl[:, None], neg], dim=1)     # [B, 1+k]
+    logits = torch.einsum("bd,bkd->bk", x, w[ids])
+    if ins.get("Bias"):
+        logits = logits + ins["Bias"][0][ids]
+    # NCE with uniform noise: P_n = 1/n
+    adjusted = logits - torch.log(torch.tensor(k / n, dtype=x.dtype,
+                                               device=x.device))
+    lbls = F.pad(torch.ones_like(adjusted[:, :1]), (0, k))
+    loss = torch.clamp(adjusted, min=0) - adjusted * lbls + \
+        F.softplus(-torch.abs(adjusted))
+    out = torch.sum(loss, dim=1, keepdim=True)
+    if ins.get("SampleWeight"):
+        out = out * ins["SampleWeight"][0].reshape(-1, 1)
+    return {"Cost": [out]}
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,11 @@ name the module does not define.
 
 __all__ = ["REST", "FLEET", "module_getattr"]
 
-# the ROADMAP.md section-1 items the refusals name (get_op's too)
+# the ROADMAP.md section-1 items the refusals name. REST is item 7's
+# name; what it still refuses is item 7d's (the rest of debugger.py and
+# Program.to_string, profiler.py, contrib's memory_usage_calc,
+# concurrency.py, default_scope_funcs.py, recordio_writer.py, dataset/,
+# utils/plot.py). get_op refuses nothing: every op type is ported.
 REST = "Remaining op families and the zoo"
 FLEET = "Fleet and analyzers"
 

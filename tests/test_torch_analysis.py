@@ -442,15 +442,16 @@ class TestRegistry:
 
     def test_infer_and_numerics_rules_cover_what_the_reference_covers(self):
         """On the ops the port registers, the port has an infer rule and
-        a numerics rule exactly where the reference has one (124 and 106,
-        fused_elementwise, the four paged decode ops and the conv-net ops
-        included), and none for an op it lacks."""
+        a numerics rule exactly where the reference has one (126 and 108,
+        fused_elementwise, the four paged decode ops, the conv-net ops
+        and, since item 7c, the fake quantize pair included), and none
+        for an op it lacks."""
         ops = set(registry.registered_op_types())
         ref_infer = set(jregistry.registered_infer_types()) & ops
         ref_num = set(jregistry.registered_numerics_types()) & ops
         assert set(registry.registered_infer_types()) == ref_infer
         assert set(registry.registered_numerics_types()) == ref_num
-        assert (len(ref_infer), len(ref_num)) == (124, 106)
+        assert (len(ref_infer), len(ref_num)) == (126, 108)
         assert registry.get_infer("no_such_op") is None
         assert registry.get_numerics("no_such_op") is None
         assert not registry.has_infer("rms_norm")   # none in the reference

@@ -135,16 +135,28 @@ CRF_CTC = {"linear_chain_crf", "crf_decoding", "warpctc",
            "ctc_greedy_decoder", "beam_search", "beam_search_decode",
            "beam_expand", "beam_gather", "im2sequence", "row_conv",
            "chunk_eval"}
+# ROADMAP item 7c: ops/detection.py's 12, eval_ops.py's detection_map,
+# ops/extras.py's 13, and ops/nn.py's hierarchical_sigmoid and nce
+DETECTION = {"iou_similarity", "box_coder", "prior_box", "bipartite_match",
+             "target_assign", "multiclass_nms", "polygon_box_transform",
+             "ssd_loss", "anchor_generator", "rpn_target_assign",
+             "generate_proposals", "generate_proposal_labels",
+             "detection_map"}
+EXTRAS = {"minus", "modified_huber_loss", "pad_constant_like", "conv_shift",
+          "max_pool2d_with_index", "unpool", "spp", "positive_negative_pair",
+          "precision_recall", "fake_quantize_abs_max",
+          "fake_dequantize_max_abs", "weight_norm", "weight_norm_g_init",
+          "hierarchical_sigmoid", "nce"}
 PORTED = (LLAMA_SLICES | BASIC_REST | NN_REST | {"sequence_mask"}
           | OPTIMIZER_RULES | REWRITE | IO | GENERATE | PAGED | CONV | MESH
-          | SEQUENCE | RNN | CONTROL_FLOW | CRF_CTC)
+          | SEQUENCE | RNN | CONTROL_FLOW | CRF_CTC | DETECTION | EXTRAS)
 
 
 def test_port_registers_exactly_the_slice_ops():
     assert set(pt_registry.registered_ops()) == PORTED
     assert PORTED <= set(jax_registry.registered_ops())
     with pytest.raises(NotImplementedError, match="no lowering rule"):
-        pt_registry.get_op("prior_box")
+        pt_registry.get_op("no_such_op")
 
 
 @pytest.mark.parametrize("op_type", sorted(CONV))
@@ -189,7 +201,7 @@ def test_control_flow_and_crf_ops_register_with_the_reference_flags(
         jax_registry.has_numerics(op_type)
 
 
-# what waits, by name, with its ROADMAP item (item 7c's ops)
+# the op types that waited, by name, for item 7c until it landed
 STILL_REFUSED = dict.fromkeys((
     "prior_box", "iou_similarity", "hierarchical_sigmoid", "nce",
     "bipartite_match", "multiclass_nms", "fake_quantize_abs_max",
@@ -200,9 +212,29 @@ STILL_REFUSED = dict.fromkeys((
 
 @pytest.mark.parametrize("op_type", sorted(STILL_REFUSED))
 def test_waiting_ops_refuse_naming_their_roadmap_item(op_type):
-    with pytest.raises(NotImplementedError,
-                       match=f"no lowering rule.*'{STILL_REFUSED[op_type]}'"):
-        pt_registry.get_op(op_type)
+    """Each op that waited for item 7c now has a lowering rule with the
+    reference's ``stateful`` and ``seq_aware`` flags, no refusal, and an
+    infer and a numerics rule exactly where the reference has one."""
+    assert op_type not in pt_registry.WAITING
+    od, ref = pt_registry.get_op(op_type), jax_registry.get_op(op_type)
+    assert (od.stateful, od.seq_aware) == (ref.stateful, ref.seq_aware)
+    assert pt_registry.has_infer(op_type) == jax_registry.has_infer(op_type)
+    assert pt_registry.has_numerics(op_type) == \
+        jax_registry.has_numerics(op_type)
+
+
+@pytest.mark.parametrize("op_type", sorted(DETECTION | EXTRAS))
+def test_detection_and_extras_ops_register_with_the_reference_flags(
+        op_type):
+    """Each op of item 7c has a lowering rule with the reference's
+    ``seq_aware`` and ``stateful`` flags (the two samplers and ``nce``
+    draw), and an infer and a numerics rule exactly where the reference
+    has one (the fake quantize pair)."""
+    od, ref = pt_registry.get_op(op_type), jax_registry.get_op(op_type)
+    assert (od.stateful, od.seq_aware) == (ref.stateful, ref.seq_aware)
+    assert pt_registry.has_infer(op_type) == jax_registry.has_infer(op_type)
+    assert pt_registry.has_numerics(op_type) == \
+        jax_registry.has_numerics(op_type)
 
 
 def test_every_reference_op_is_ported_or_named_as_waiting():
@@ -214,12 +246,12 @@ def test_every_reference_op_is_ported_or_named_as_waiting():
 
 
 def test_registry_counts():
-    """253 reference ops: 225 ported, 28 named as waiting; both
-    generators registered ``stateful`` (they draw at temperature > 0),
-    as in the reference."""
+    """253 reference ops: all 253 ported, none waiting; both generators
+    registered ``stateful`` (they draw at temperature > 0), as in the
+    reference."""
     ref = set(jax_registry.registered_ops())
     assert (len(ref), len(PORTED), len(pt_registry.WAITING)) == \
-        (253, 225, 28)
+        (253, 253, 0)
     for op in GENERATE:
         assert pt_registry.get_op(op).stateful
         assert jax_registry.get_op(op).stateful

@@ -29,10 +29,13 @@ import jax.numpy as jnp
 
 from paddle_tpu.core import lowering as jax_lowering
 from paddle_tpu.core import registry as jax_registry
+from paddle_tpu.core import sequence as jseq
 import paddle_tpu_torch  # noqa: F401  (registers the port's rules)
 from paddle_tpu_torch.core import lowering as pt_lowering
 from paddle_tpu_torch.core import registry as pt_registry
+from paddle_tpu_torch.core import sequence as tseq
 
+from op_test import Seq
 from test_optest_grad import GRAD_SPECS
 from test_optest_math import (BX, BY, COMPARE, ELEMENTWISE, LOGICAL, REDUCE,
                               UNARY, XR)
@@ -40,16 +43,10 @@ from test_torch_ops import BASIC_REST, NN_REST
 
 torch.set_num_threads(1)
 
-SEQ = "Remaining op families and the zoo"
 # spec ops the port does not register yet, with the ROADMAP item that
-# ports each (registry.WAITING names the same)
-SKIPPED = {
-    "conv_shift": SEQ, "fake_dequantize_max_abs": SEQ,
-    "max_pool2d_with_index": SEQ,
-    "minus": SEQ, "modified_huber_loss": SEQ, "pad_constant_like": SEQ,
-    "spp": SEQ, "ssd_loss": SEQ, "unpool": SEQ,
-    "weight_norm": SEQ,
-}
+# ports each (registry.WAITING names the same): none since item 7c,
+# whose extras and ssd_loss specs the sweep now runs
+SKIPPED = {}
 
 
 def _math_specs():
@@ -113,8 +110,11 @@ def _run(spec, seed=0):
     spec's grad slots, through one random cotangent per float output
     the spec names."""
     op, attrs = spec["op"], dict(spec.get("attrs") or {})
+    # a Seq input (op_test's lod_level-1 marker) becomes each package's
+    # SequenceBatch; it is never a grad slot
+    seqs = {s: v for s, v in spec["inputs"].items() if isinstance(v, Seq)}
     ins = {s: [np.asarray(a) for a in _as_list(v)]
-           for s, v in spec["inputs"].items()}
+           for s, v in spec["inputs"].items() if s not in seqs}
     grad_slots = spec.get("grad") or []
     out_slots = list(_out_slots(spec))
     jrule = jax_registry.get_op(op).lower
@@ -122,6 +122,8 @@ def _run(spec, seed=0):
 
     def jfn(diff):
         jins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
+        jins.update({s: [jseq.to_sequence_batch(v.arrays, dtype=v.dtype)]
+                     for s, v in seqs.items()})
         for (s, i), a in diff.items():
             jins[s][i] = a
         ctx = jax_lowering.LoweringContext(None, "test",
@@ -137,6 +139,8 @@ def _run(spec, seed=0):
 
     tins = {s: [torch.from_numpy(a.copy()) for a in v]
             for s, v in ins.items()}
+    tins.update({s: [tseq.to_sequence_batch(v.arrays, dtype=v.dtype)]
+                 for s, v in seqs.items()})
     leaves = {}
     for k in diff_keys:
         leaves[k] = tins[k[0]][k[1]].requires_grad_()

@@ -300,13 +300,13 @@ def test_stacked_lstm_trains():
 # the zoo
 # ---------------------------------------------------------------------------
 def test_zoo_builds_the_slice_models_and_refuses_the_rest():
+    """The slice's models are in the zoo; since item 7c nothing is left
+    to refuse: the zoo's WAITING is empty and its names are the
+    reference's 16."""
     assert set(NEW_ZOO) <= set(tzoo.zoo_model_names())
-    assert set(tzoo.WAITING) == {"faster_rcnn"}
-    assert set(tzoo.zoo_model_names()) | set(tzoo.WAITING) == \
-        set(jzoo.zoo_model_names())
-    for name, item in tzoo.WAITING.items():
-        with pytest.raises(NotImplementedError, match=item):
-            tzoo.build_zoo_program(name)
+    assert tzoo.WAITING == {}
+    assert set(tzoo.zoo_model_names()) == set(jzoo.zoo_model_names())
+    assert len(tzoo.zoo_model_names()) == 16
 
 
 # ---------------------------------------------------------------------------

@@ -146,11 +146,23 @@ def _float_outs(outs):
             for d in [v.data if _is_seq(v) else v] if _is_float(d)]
 
 
-def rule_pair(op, ins, attrs=None, grad=(), seed=0, mode="test"):
+def port_rule(op, ins, attrs=None, seed=0, mode="train"):
+    """The port's rule alone on ``ins`` (slot -> [array or S]) on the CPU,
+    its draws seeded by ``seed``."""
+    ctx = pt_lowering.LoweringContext(None, mode, CPU, seed, 1)
+    return pt_registry.get_op(op).lower(
+        ctx, {s: [_tin(v) for v in vals] for s, vals in ins.items()},
+        dict(attrs or {}))
+
+
+def rule_pair(op, ins, attrs=None, grad=(), seed=0, mode="test",
+              jit=False):
     """Run ``op``'s rule in both packages on ``ins`` (slot -> [array or
     S]); compare every output whole, and the gradients of the float
     inputs of the ``grad`` slots through one random cotangent per float
-    output. Returns (reference outputs, port outputs)."""
+    output. With ``jit`` the reference's rule runs as one ``jax.jit``
+    program (one compile, instead of a dispatch per primitive). Returns
+    (reference outputs, port outputs)."""
     attrs = dict(attrs or {})
     keys = [(s, i) for s in grad for i, v in enumerate(ins[s])
             if np.asarray(v.data if isinstance(v, S) else v).dtype.kind
@@ -165,6 +177,9 @@ def rule_pair(op, ins, attrs=None, grad=(), seed=0, mode="test"):
         ctx = jax_lowering.LoweringContext(None, mode,
                                            jax.random.PRNGKey(0))
         return jax_registry.get_op(op).lower(ctx, jins, dict(attrs))
+
+    if jit:
+        jrun = jax.jit(jrun)
 
     def data_of(v):
         return v.data if isinstance(v, S) else np.asarray(v)
@@ -188,7 +203,7 @@ def rule_pair(op, ins, attrs=None, grad=(), seed=0, mode="test"):
     if keys:
         jflat = _float_outs(jout)
         rng = np.random.RandomState(seed + 7)
-        cots = [rng.randn(*o.shape).astype(np.float32) for o in jflat]
+        cots = [np.asarray(rng.randn(*o.shape), np.float32) for o in jflat]
 
         def jsum(*diff):
             return sum(jnp.sum(o * c) for o, c in

@@ -157,10 +157,11 @@ Phases — any failure exits non-zero:
    engine's, K1 on ``flash_fwd_mma`` at D 128, ``CompiledPredictor``
    within the bf16 tier;
 21. generate (ROADMAP item 4a, the main path of this slice): the 8B
-   width, all 32 layers in bf16, through ``build_llama_generator`` and
+   width at 16 layers (32 until PR 19) in bf16, through
+   ``build_llama_generator`` and
    ``Executor.run``: 4 prompts of 128 tokens, 64 new tokens each, every
    generated token held against ``build_llama(shard_pp=True)``'s
-   forward of the generated sequence on the same scope (K1 32 launches
+   forward of the generated sequence on the same scope (K1 16 launches
    on ``flash_fwd_mma``), a flip allowed only within twice the row's
    logit error; FirstProbs against that forward's softmax; the int8 KV
    cache and W8A8 (their int8 accumulators exact on the card against
@@ -180,7 +181,7 @@ Phases — any failure exits non-zero:
    float32 train step at 1 x 256 (the ``_f32mma`` kernels); no launch
    on the plain route; first losses near ln V + dim·0.02²/2;
 23. decode_engine (ROADMAP item 4b, the main path of this slice): the
-   8B width at 8 of its 32 layers in bf16, behind ``DecodeEngine`` built with
+   8B width at 4 of its 32 layers in bf16, behind ``DecodeEngine`` built with
    no place (the card): warmup, 24 requests of 40-256 prompt tokens and
    64 new from 8 concurrent clients, every request's tokens against the
    port's ``llama_generate`` of its prompt at batch 1 (a flip only where
@@ -233,11 +234,23 @@ Phases — any failure exits non-zero:
    bin and ``batch_norm`` card against CPU, outputs and gradients; the
    hand-derived ``batch_norm`` backward against
    ``PADDLE_TPU_BN_AUTODIFF=1`` on the card;
-28. mesh_llama_train, moe_train, moe_generate (ROADMAP item 6a): the 8B
+28. flowers_train (ROADMAP item 7d, the main path of this slice): 24's
+   program with 102 classes, fed the way the reference benchmark feeds
+   ``--data_set flowers`` (``dataset.flowers.train()``'s synthetic
+   fallback → ``reader.shuffle`` → ``reader.batch`` → ``DataFeeder``):
+   the first steps bit-equal to the same batches fed as tensors and read
+   back from a ``recordio_writer`` file, then 8 steps reader-fed, 8
+   under a ``profiler`` session (8 dispatch slices, the summary, a
+   non-empty CUDA kernel profile) and 8 on one resident batch;
+   ``compiled_memory_usage`` (its arguments exact), ``memory_usage``,
+   ``program_cost`` beside ``compiled_stats`` and the step's peak;
+   ``memory_optimize(policy="auto")`` picking the CPU's policy, its
+   losses within rtol 2e-2 of no remat's; no attention launch;
+29. mesh_llama_train, moe_train, moe_generate (ROADMAP item 6a): the 8B
    width through ``ParallelExecutor`` on the one card's mesh bit-equal
    to the plain Executor; the Mixtral width's MoE trained and
    generating;
-29. pipeline_llama_train (ROADMAP item 6b, the main path of this
+30. pipeline_llama_train (ROADMAP item 6b, the main path of this
    slice): the 8B width at 4 layers, bf16, 4 x 2048 tokens,
    ``build_llama(shard_pp=True)`` with the GPipe op and with
    ``pp_schedule="1f1b"`` from one startup scope, each through
@@ -246,17 +259,17 @@ Phases — any failure exits non-zero:
    and gradients, 3 timed steps, every persistable), the programs'
    first losses and gradients within the bf16 relative-RMS tier, K1
    twice and K2/K3 once a layer a step; step ms, launches, peak memory;
-30. pipeline_schedule: ``gpipe`` and ``one_f_one_b`` on a one-rank 'pp'
+31. pipeline_schedule: ``gpipe`` and ``one_f_one_b`` on a one-rank 'pp'
    mesh, a 2-layer stage at the 8B width, 4 microbatches of 1 x 2048,
    bf16 (and float32 at 1 layer, T 512, TF32 off), against plain
    autograd of the sequential function: loss, stage and head gradients,
    dx;
-31. ring_attention: the ring's step at the 8B attention width over 8
+32. ring_attention: the ring's step at the 8B attention width over 8
    chunks of T 16384 in bf16 against K1 (causal and not), a wrong-offset
    control that must fail, the float32 gradient over 4 chunks of T 8192
    against K1-K3, ``ring_attention_sharded`` on a one-rank 'sp' mesh;
    the ring's time and peak memory beside K1's;
-32. deepfm_train (ROADMAP item 7a, a main path of this slice): DeepFM
+33. deepfm_train (ROADMAP item 7a, a main path of this slice): DeepFM
    at ``bench.py`` ``ctr_main``'s knobs — 1,000,000 ids, 23 fields,
    embedding 16, hidden (400, 400), batch 4096, ``Adam(1e-3)``,
    ``is_sparse=True`` (its F13 warning caught and checked) — in float32
@@ -267,7 +280,7 @@ Phases — any failure exits non-zero:
    wide&deep at the same vocab for 3 steps; the first step at vocab
    10,000 on the card equal to the CPU's (loss and every gradient within
    2e-3 / 2e-4, TF32 off); no attention launch;
-33. stacked_lstm_train (a main path of this slice): ``bench.py``
+34. stacked_lstm_train (a main path of this slice): ``bench.py``
    ``seq_main``'s stacked dynamic LSTM (vocab 10,000, emb 128, hid_dim
    512: three LSTMs of hidden 128 with peepholes, the middle reversed),
    batch 32 x 64 tokens, ``Adam(1e-3)``: 2 warmup and 10 timed steps on
@@ -275,7 +288,7 @@ Phases — any failure exits non-zero:
    share), a variable-length feed (9-64, bucket 8) for 4 steps (finite,
    falling), its first step on the card equal to the CPU's (loss and
    every gradient, TF32 off); no attention launch;
-34. seq_zoo: the recommender at MovieLens's table sizes, batch 256 (1-6
+35. seq_zoo: the recommender at MovieLens's table sizes, batch 256 (1-6
    categories and 2-15 title words a movie, fed through ``DataFeeder``
    and through ``create_lod_tensor``, the two feeds equal) and word2vec
    (embed 32, hidden 256, dict 2073, batch 32): each first step on the
@@ -284,7 +297,7 @@ Phases — any failure exits non-zero:
    symbolic) and served by ``CompiledPredictor`` at padded title
    lengths 16 and 8, each within the f32 serving tier of the executor's
    test-mode run; no attention launch;
-35. seq2seq_train (ROADMAP item 7b, the main path of this slice):
+36. seq2seq_train (ROADMAP item 7b, the main path of this slice):
    ``bench.py`` ``seq_main``'s seq2seq-attention model
    (``seq_to_seq_net``: vocab 10,000 on both sides, width 512, a
    bidirectional GRU encoder and a DynamicRNN decoder, the ``scan`` op),
@@ -293,27 +306,27 @@ Phases — any failure exits non-zero:
    2e-3 / 2e-4), 2 warmup and 10 timed steps on bench.py's all-64 feed
    (words/s, step ms, launches a step, busy ms, idle share, device ms
    by kind, peak memory), 4 steps at lengths 9-64; losses falling;
-36. seq2seq_decode: ``greedy_decode`` (a StaticRNN feeding back the
+37. seq2seq_decode: ``greedy_decode`` (a StaticRNN feeding back the
    argmax, 64 steps) and contrib's ``BeamSearchDecoder`` (beam 4) at
    that width, each against the CPU's from the same weights by the flip
    rule (tokens equal up to a first step where the CPU's logits, from
    the greedy decoder's teacher-forced probe, or beam scores tie within
    the card's error), ms and launches per decoded step;
-37. srl_crf_train: ``db_lstm`` at the book's widths (word_dim 32,
+38. srl_crf_train: ``db_lstm`` at the book's widths (word_dim 32,
    mark_dim 5, hidden 512, depth 8) over CoNLL-05's dictionaries (44,068
    words, 3,162 predicates, 59 tags), batch 10 of lengths 10-60,
    ``linear_chain_crf`` with SGD(0.01): the first step against the CPU,
    the trained scope's Viterbi tags equal to the CPU's (a differing row
    only where the CPU scores the card's path within the tier of its
    best) and ``chunk_eval`` over them;
-38. ocr_ctc_train: ``ctc_train_net`` at its defaults on 1 x 48 x 512
+39. ocr_ctc_train: ``ctc_train_net`` at its defaults on 1 x 48 x 512
    images, 95 classes, batch 32, labels of 5-20 tokens: the first step
    against the CPU, greedy CTC tokens equal to the CPU's (a frame's
    argmax may flip only within twice the row's score error);
-39. control_flow: a bounded and an unbounded While, IfElse, Switch, the
+40. control_flow: a bounded and an unbounded While, IfElse, Switch, the
    tensor arrays and the bounded While's gradient, card against CPU;
-   35-39 each with no attention launch;
-40. faster_rcnn_train (ROADMAP item 7c, the main path of this slice):
+   36-40 each with no attention launch;
+41. faster_rcnn_train (ROADMAP item 7c, the main path of this slice):
    ``build_faster_rcnn`` at ``FasterRCNNConfig()``'s full width on 2
    images of 3 x 600 x 800 (Faster R-CNN's training scale, Fast R-CNN's
    two images a minibatch) with 1-6 ground-truth boxes each,
@@ -325,7 +338,7 @@ Phases — any failure exits non-zero:
    (step ms, images/s, launches a step, busy ms, idle share, device ms
    by kind, peak memory), the inference program's RoIs, class
    probabilities and box regressions against the CPU's;
-41. ssd_train: ``multi_box_head`` over SSD300's six maps (fed as data,
+42. ssd_train: ``multi_box_head`` over SSD300's six maps (fed as data,
    512/1024/512/256/256/256 channels at 38/19/10/5/3/1), 21 classes,
    8,732 priors (asserted), ``ssd_loss`` into Momentum: the first step
    at batch 8 against the CPU, 5 timed steps at batch 32;
@@ -335,12 +348,12 @@ Phases — any failure exits non-zero:
    CPU's own inputs on the card equal to the CPU's rows exactly, and
    ``detection_map`` (11point) with ``evaluator.DetectionMAP`` over two
    batches equal to the CPU's;
-42. detection_extras: every op of the extras family, ``hierarchical_sigmoid``
+43. detection_extras: every op of the extras family, ``hierarchical_sigmoid``
    and ``nce`` (equal table rows) against the CPU at small shapes
    (integers exactly, gradients through one cotangent), and a
    WeightNormParamAttr fc step, an hsigmoid step and an nce step;
-   40-42 each with no attention launch;
-43. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
+   41-43 each with no attention launch;
+44. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
    expected to refuse them: recorded, not gated).
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
@@ -366,11 +379,13 @@ It prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
 """
+import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -489,6 +504,7 @@ IO_LLAMA_LAYERS = 2
 # GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows, and
 # the layer-stacked forward (K1) scores the generated sequence again
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
+GEN_LAYERS = 16                 # 32 → 16: room for flowers_train (PR 19)
 GEN_F32_LAYERS = 4              # 32 → 4: the exact float32 check
 GEN_GAMMA = 4
 GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
@@ -518,9 +534,9 @@ HD256_OP_LABEL = "bf16 D=256 serving T=256"
 # (DEC_CHUNK) once each at max_batch DEC_SMALL_BATCH
 # 32 → 16 layers: at 32 the phase took a quarter of the script's time,
 # which must stay well inside the chip call's limit; 16 → 8 to make room
-# for the control-flow, CRF/CTC and seq2seq phases (a depth cut: the
-# width stays the 8B model's)
-DEC_LAYERS = 8
+# for the control-flow, CRF/CTC and seq2seq phases; 8 → 4 for
+# flowers_train (depth cuts: the width stays the 8B model's)
+DEC_LAYERS = 4
 DEC_CONFIG = dict(max_batch=8, prompt_buckets=(128, 256), max_new_tokens=64,
                   page_size=16, decode_block=4, prefill_batch=4)
 DEC_REQUESTS, DEC_CLIENTS = 24, 8
@@ -3486,7 +3502,7 @@ def check_qmat_exact(torch, tag, qscope, pre, attn):
 
 def phase_generate(torch, fluid, fa, card):
     """ROADMAP item 4a, the main path of this slice: the Llama-3-8B width
-    (all 32 layers, bf16, random weights from SEED) generating
+    (GEN_LAYERS of its 32 layers, bf16, random weights from SEED) generating
     GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows
     through ``Executor.run(gen_program, feed={"ptok": prompt},
     fetch_list=[out])``, held against ``build_llama(shard_pp=True)``'s
@@ -3514,7 +3530,7 @@ def phase_generate(torch, fluid, fa, card):
                                                quantize_generator_weights)
     tag = "generate"
     t_phase = time.perf_counter()
-    cfg = LLAMA3_8B                                   # 32 layers, bf16
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=GEN_LAYERS)    # bf16
     total = GEN_PROMPT + GEN_NEW
     gen_p, startup, (out_v, probs_v) = gen_programs(
         fluid, cfg, GEN_PROMPT, max_new_tokens=GEN_NEW, return_probs=True)
@@ -4502,19 +4518,30 @@ def conv_ms_by_kind(torch, fn):
 
 
 def resnet_program(fluid, layout, amp=True, fuse=False, policy=None,
-                   dtype="float32"):
-    """``bench.py`` conv_main's program: ``resnet50`` at 3 x 224², 1000
-    classes, ``Momentum(0.1, 0.9)``, then its transpiles in its order
-    (fused updates, remat, AMP O2). Returns (main, startup, loss)."""
+                   dtype="float32", classes=RN_CLASSES, recordio=None):
+    """``bench.py`` conv_main's program: ``resnet50`` at 3 x 224²,
+    ``classes`` classes (its 1000 unless named), ``Momentum(0.1, 0.9)``,
+    then its transpiles in its order (fused updates, remat, AMP O2).
+    With ``recordio`` (a path) the images and labels come from
+    ``open_recordio_file`` -> ``batch(RN_BATCH)`` -> ``read_file``
+    instead of data layers. Returns (main, startup, loss), and with
+    ``recordio`` the reader too."""
     from paddle_tpu_torch.models.resnet import resnet50
     from paddle_tpu_torch.transpiler import (amp_transpile,
                                              fuse_optimizer_ops)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        img = fluid.layers.data(name="img", shape=[3, RN_HW, RN_HW],
-                                dtype=dtype)
-        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
-        loss, _, _ = resnet50(img, label, class_num=RN_CLASSES,
+        if recordio is None:
+            img = fluid.layers.data(name="img", shape=[3, RN_HW, RN_HW],
+                                    dtype=dtype)
+            label = fluid.layers.data(name="label", shape=[1],
+                                      dtype="int64")
+        else:
+            reader = fluid.layers.batch(fluid.layers.open_recordio_file(
+                recordio, shapes=[[-1, 3, RN_HW, RN_HW], [-1, 1]],
+                dtypes=[dtype, "int64"]), RN_BATCH)
+            img, label = fluid.layers.read_file(reader)
+        loss, _, _ = resnet50(img, label, class_num=classes,
                               layout=layout)
         fluid.optimizer.Momentum(learning_rate=RN_LR,
                                  momentum=0.9).minimize(loss)
@@ -4524,6 +4551,8 @@ def resnet_program(fluid, layout, amp=True, fuse=False, policy=None,
         fluid.memory_optimize(main, policy=policy)
     if amp:
         amp_transpile(main, level="O2")
+    if recordio is not None:
+        return main, startup, loss, reader
     return main, startup, loss
 
 
@@ -5185,6 +5214,363 @@ def phase_conv_zoo(torch, fluid, fa, card):
 # ----------------------------------------------------------------------
 # ROADMAP item 6a: the device mesh, the ParallelExecutor and the MoE FFNs
 # ----------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# flowers_train: ResNet-50 fed by the flowers reader under the profiler
+# ---------------------------------------------------------------------------
+FL_CLASSES = 102                # Oxford 102 Flowers
+FL_BUF = 5120                   # benchmark/fluid/models/resnet.py's shuffle
+FL_WARMUP = 2                   # reader-fed steps before the timed sets,
+                                # held against tensor and recordio feeds
+FL_STEPS = 8                    # steps a timed set
+FL_PASS = 256                   # samples a pass of the flowers fallback
+# the policy memory_optimize(policy="auto") picks for the flowers
+# program: the reference's pick on the same program, which
+# tests/test_torch_dataflow.py holds on the CPU
+FL_AUTO_POLICY = "save_conv_only"
+FL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "paddle_tpu_torch", "_build", "chip_smoke_flowers")
+
+
+def flowers_batches(fluid):
+    """The reference benchmark's flowers feed (``--data_set flowers``):
+    ``reader.batch(reader.shuffle(dataset.flowers.train(), FL_BUF),
+    RN_BATCH)``, the pass run again for each epoch: an endless iterator
+    of batches. ``flowers.train()`` finds no file under FL_ROOT's data
+    home and takes its synthetic fallback, whose one warning is expected
+    here; any other warning it raises fails the phase."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        base = fluid.dataset.flowers.train()
+    msgs = [str(w.message) for w in caught]
+    check(len(msgs) == 1 and msgs[0].startswith("flowers.train:")
+          and msgs[0].endswith("synthetic fallback"),
+          f"flowers_train: expected the fallback's one warning, got {msgs}")
+    reader = fluid.reader.batch(fluid.reader.shuffle(base, buf_size=FL_BUF),
+                                RN_BATCH)
+
+    def batches():
+        while True:
+            yield from reader()
+    return batches()
+
+
+def check_flowers_samples(batch):
+    check(len(batch) == RN_BATCH and all(
+        im.shape == (3, RN_HW, RN_HW) and im.dtype == np.float32
+        and 0 <= lab < FL_CLASSES for im, lab in batch),
+        "flowers_train: a sample is not 3 x 224² float32 with a label in "
+        f"[0, {FL_CLASSES})")
+
+
+def flowers_step(torch, exe, main, loss, scope, feeder, batches,
+                 region=None):
+    """One reader-fed step: the next batch through the DataFeeder, then
+    ``run``; ``region`` (profiler.record_event) wraps the feed as "feed"
+    and the run as "step". Returns (ms on the host clock, synchronized;
+    the loss; the batch)."""
+    region = region or (lambda name: contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with region("feed"):
+        batch = next(batches)
+        check_flowers_samples(batch)
+        feed = feeder.feed(batch)
+    with region("step"):
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, float(out[0].float().reshape(()).cpu()), batch
+
+
+def tensor_feed(torch, feeder, batch, dev):
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in feeder.feed(batch).items()}
+
+
+def step_set(ms, key="step_ms"):
+    med = float(np.median(ms))
+    return {key: ms, "median_ms": med, "images_per_s": RN_BATCH / med * 1e3}
+
+
+def phase_flowers_train(torch, fluid, fa, card):
+    """The main path of this slice: ``resnet_program``'s ResNet-50 (NHWC,
+    Momentum(0.1, 0.9), AMP O2) with FL_CLASSES classes, fed the way the
+    reference benchmark feeds ``--data_set flowers`` (``flowers_batches``
+    → ``DataFeeder(place=exe.place)`` → ``Executor().run``). Checks:
+
+    - every sample 3 x 224² float32 with a label in [0, FL_CLASSES); the
+      first losses finite and within RN_LOSS_BAND of ln FL_CLASSES;
+    - the FL_WARMUP reader-fed steps (deterministic cuDNN) bit-equal to
+      the same batches passed as tensors, and to the same samples
+      written with ``recordio_writer`` and read back through
+      ``open_recordio_file`` → ``batch`` → ``read_file`` in the same
+      network, all from one initial scope;
+    - then three timed sets of FL_STEPS: reader-fed; reader-fed inside a
+      ``profiler`` session (each feed in ``record_event("feed")``, each
+      run in ``record_event("step")``), whose host timeline holds
+      exactly FL_STEPS ``dispatch step N`` slices with consecutive N and
+      FL_STEPS of each region, whose summary names both and
+      ``<session>``, and whose torch.profiler trace holds convolution
+      and batch-norm/elementwise kernels (``conv_kind``) adding up to no
+      more than the session's wall time; one resident device batch;
+    - ``contrib.compiled_memory_usage``'s ``argument_bytes`` equal to the
+      scope's state plus the feeds, the scope left as it was;
+      ``memory_usage``, ``program_cost`` and ``exe.compiled_stats``
+      printed beside one step's peak;
+    - ``memory_optimize(policy="auto", print_log=True)`` picks
+      FL_AUTO_POLICY, and two steps under it give losses within
+      RN_BF16_RTOL of no remat's.
+
+    Returns (attention launches by kernel symbol, stats)."""
+    import io
+    import random
+    import shutil
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.analysis import program_cost
+    from paddle_tpu_torch.contrib import compiled_memory_usage, memory_usage
+    from paddle_tpu_torch.core.executor import EOFException
+    tag = "flowers_train"
+    shutil.rmtree(FL_ROOT, ignore_errors=True)
+    os.makedirs(FL_ROOT)
+    data_home = fluid.dataset.common.DATA_HOME
+    fluid.dataset.common.DATA_HOME = os.path.join(FL_ROOT, "data")
+    random.seed(SEED)                     # the shuffle's draws
+    fa.reset_launch_counts()
+    exe = fluid.Executor()                # the card: CUDAPlace(0)
+    dev = exe.device
+    t_phase = time.perf_counter()
+    main, startup, loss = resnet_program(fluid, "NHWC", classes=FL_CLASSES)
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = {n: v.clone() for n, v in s0.vars.items()}
+    del s0
+    feeder = fluid.DataFeeder(feed_list=["img", "label"], place=exe.place,
+                              program=main)
+    batches = flowers_batches(fluid)
+    stats = {"classes": FL_CLASSES, "batch": RN_BATCH}
+
+    # the first reader-fed steps, held bit for bit against the same
+    # batches fed as tensors and read back from a recordio file
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    scope = scope_from(fluid, init)
+    warm, fed, warm_ms = [], [], []
+    for _ in range(FL_WARMUP):
+        ms, lv, batch = flowers_step(torch, exe, main, loss, scope, feeder,
+                                     batches)
+        warm.append(lv)
+        fed.append(batch)
+        warm_ms.append(ms)
+    check(all(math.isfinite(v) for v in warm)
+          and abs(warm[0] - math.log(FL_CLASSES)) < RN_LOSS_BAND,
+          f"{tag}: first losses {warm} not near ln {FL_CLASSES} = "
+          f"{math.log(FL_CLASSES):.4f}")
+    tscope = scope_from(fluid, init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tensor_losses = [float(exe.run(
+        main, feed=tensor_feed(torch, feeder, b, dev), fetch_list=[loss],
+        scope=tscope, return_numpy=False)[0].float().reshape(()).cpu())
+        for b in fed]
+    peak_no_remat = torch.cuda.max_memory_allocated()
+    check(tensor_losses == warm,
+          f"{tag}: tensor-fed losses {tensor_losses} differ from the "
+          f"reader-fed {warm}")
+    del tscope
+    free_card(torch)
+    path = os.path.join(FL_ROOT, "flowers.recordio")
+    t0 = time.perf_counter()
+    n = fluid.recordio_writer.convert_reader_to_recordio_file(
+        path, lambda: (s for b in fed for s in b), feeder,
+        compressor="none")
+    write_s = time.perf_counter() - t0
+    check(n == FL_WARMUP * RN_BATCH == FL_PASS,
+          f"{tag}: {n} records written")
+    rmain, rstartup, rloss, rreader = resnet_program(
+        fluid, "NHWC", classes=FL_CLASSES, recordio=path)
+    rscope = fluid.Scope()
+    exe.run(rstartup, scope=rscope)
+    for k, v in init.items():
+        rscope.set(k, v.clone())
+    rreader.start()
+    rec_losses = [float(exe.run(rmain, fetch_list=[rloss], scope=rscope,
+                                return_numpy=False)[0].float()
+                        .reshape(()).cpu()) for _ in range(FL_WARMUP)]
+    try:
+        exe.run(rmain, fetch_list=[rloss], scope=rscope)
+        eof = False
+    except EOFException:
+        eof = True
+    check(rec_losses == warm and eof,
+          f"{tag}: recordio-fed losses {rec_losses} (EOF after "
+          f"{FL_WARMUP} batches: {eof}) differ from the reader-fed {warm}")
+    del rscope, rmain
+    os.remove(path)
+    torch.backends.cudnn.deterministic = False
+    stats.update(first_losses=warm, tensor_fed_losses=tensor_losses,
+                 recordio_fed_losses=rec_losses, warmup_ms=warm_ms,
+                 recordio_write_s=write_s)
+    free_card(torch)
+
+    # the timed sets: reader-fed, reader-fed under the profiler, one
+    # resident batch
+    stats["reader_fed"] = step_set(
+        [flowers_step(torch, exe, main, loss, scope, feeder, batches)[0]
+         for _ in range(FL_STEPS)])
+    prof_dir = os.path.join(FL_ROOT, "profile")
+    profiler.reset_profiler()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        with profiler.profiler("All", sorted_key="total",
+                               profile_path=prof_dir):
+            prof_ms = [flowers_step(torch, exe, main, loss, scope, feeder,
+                                    batches, profiler.record_event)[0]
+                       for _ in range(FL_STEPS)]
+    stop_s = time.perf_counter() - t0 - sum(prof_ms) / 1e3
+    summary = printed.getvalue()
+    log(f"{tag}: the profiler's summary:\n{summary}")
+    stats["profiled"] = step_set(prof_ms)
+    session_s = [s for name, s in profiler._records
+                 if name == "<session>"][-1]
+    with open(os.path.join(prof_dir, "host_timeline.json")) as f:
+        timeline = json.load(f)["traceEvents"]
+    names = [e["name"] for e in timeline]
+    steps = [int(m.group(1)) for m in (re.fullmatch(r"dispatch step (\d+)",
+                                                    n) for n in names) if m]
+    check(len(steps) == FL_STEPS and steps == list(
+        range(steps[0], steps[0] + FL_STEPS))
+          and names.count("feed") == names.count("step") == FL_STEPS,
+          f"{tag}: the host timeline holds dispatch steps {steps}, "
+          f"{names.count('feed')} feed and {names.count('step')} step "
+          "slices")
+    rows = re.findall(r"^(\S+)\s+\d+\.\d+$", summary, re.M)
+    check({"feed", "step", "<session>"} <= set(rows),
+          f"{tag}: the printed summary names {sorted(set(rows))}")
+    kernels = profiler.device_kernel_profile(prof_dir, top_k=10 ** 6)
+    check(kernels is not None and kernels["n_kernels"] > 0,
+          f"{tag}: the session's device trace is missing or empty "
+          f"({kernels and {k: kernels[k] for k in ('planes', 'n_kernels')}})")
+    by_kind = {}
+    for k in kernels["top_kernels"]:
+        kind = conv_kind(k["name"])
+        by_kind[kind] = by_kind.get(kind, 0.0) + k["total_ms"]
+    check(by_kind.get("conv", 0) > 0 and by_kind.get("bn_and_elementwise", 0)
+          > 0 and kernels["device_total_ms"] <= session_s * 1e3,
+          f"{tag}: device kernels by kind {by_kind}, "
+          f"{kernels['device_total_ms']} ms over a {session_s * 1e3:.1f} "
+          "ms session")
+    stats["profiled"].update(
+        session_ms=session_s * 1e3, stop_and_export_s=stop_s,
+        device_total_ms=kernels["device_total_ms"],
+        n_kernels=kernels["n_kernels"], planes=kernels["planes"],
+        device_ms_by_kind=by_kind,
+        trace_mb=os.path.getsize(os.path.join(
+            prof_dir, profiler.TORCH_TRACE)) / 2 ** 20,
+        top_kernels=[dict(k, name=k["name"][:100])
+                     for k in kernels["top_kernels"][:6]])
+    resident = tensor_feed(torch, feeder, next(batches), dev)
+    res_ms = []
+    for _ in range(FL_STEPS):
+        t0 = time.perf_counter()
+        exe.run(main, feed=resident, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+        res_ms.append((time.perf_counter() - t0) * 1e3)
+    stats["resident"] = step_set(res_ms)
+    med = {k: stats[k]["median_ms"] for k in ("reader_fed", "profiled",
+                                              "resident")}
+    log(f"{tag}: {card}; median step ms reader-fed | profiled | resident: "
+        f"{med['reader_fed']:.2f} | {med['profiled']:.2f} | "
+        f"{med['resident']:.2f}; images/s " + " | ".join(
+            f"{stats[k]['images_per_s']:.1f}" for k in med))
+    free_card(torch)
+
+    # the memory and cost readings, beside one step's peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run(main, feed=resident, fetch_list=[loss], scope=scope,
+            return_numpy=False)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    gb = main.global_block()
+    state = {n: scope.find_var(n) for n, v in gb.vars.items()
+             if v.persistable and scope.find_var(n) is not None}
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    feed_bytes = sum(t.numel() * t.element_size() for t in resident.values())
+    probe = {n: t.clone() for n, t in list(state.items())[:4]}
+    step_before = exe._step
+    cmu = compiled_memory_usage(
+        main, {"img": ((RN_BATCH, 3, RN_HW, RN_HW), "float32"),
+               "label": ((RN_BATCH, 1), "int64")},
+        fetch_list=[loss], scope=scope)
+    check(cmu["argument_bytes"] == state_bytes + feed_bytes
+          and exe._step == step_before
+          and all(torch.equal(scope.find_var(n), t)
+                  for n, t in probe.items()),
+          f"{tag}: compiled_memory_usage's arguments {cmu['argument_bytes']}"
+          f" against the state's {state_bytes} + the feeds' {feed_bytes}, "
+          "or the caller's scope or step moved")
+    del probe
+    cost = program_cost(main, fetch_list=[loss], assume_batch=RN_BATCH)
+    measured = exe.compiled_stats(main, feed=resident, fetch_list=[loss],
+                                  scope=scope, top_k=0)
+    lo, hi, unit = memory_usage(main, RN_BATCH)
+    scale = {"B": 1, "KB": 2 ** 10, "MB": 2 ** 20}[unit]
+    stats["memory"] = {
+        "step_peak_bytes": step_peak, "memory_usage": [lo, hi, unit],
+        "memory_usage_max_bytes": hi * scale,
+        "compiled_memory_usage": cmu,
+        "program_cost": {k: cost.to_dict()[k] for k in (
+            "total_flops", "total_bytes", "params_bytes",
+            "peak_residency_bytes", "residual_at_backward_bytes",
+            "recommended_remat_policy")},
+        "compiled_stats": {k: measured[k] for k in (
+            "flops", "bytes_accessed", "n_kernels")},
+        "compiled_stats_peak_bytes": measured.get("peak_memory_bytes"),
+        "flop_ratio_static_to_measured":
+            cost.total_flops / measured["flops"],
+        "bytes_ratio_static_to_measured":
+            cost.total_bytes / measured["bytes_accessed"],
+        "peak_ratio_static_to_measured":
+            cost.peak_residency_bytes / step_peak}
+    log(f"{tag} memory and cost: " + json.dumps(stats["memory"]))
+    del resident
+    free_card(torch)
+
+    # the static remat recommendation, against no remat
+    auto = main.clone()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        fluid.memory_optimize(auto, policy="auto", print_log=True)
+    log(f"{tag}: {printed.getvalue().strip()}")
+    check(auto._remat_policy == FL_AUTO_POLICY,
+          f"{tag}: policy 'auto' picked {auto._remat_policy!r}, the CPU's "
+          f"pick is {FL_AUTO_POLICY!r}")
+    ascope = scope_from(fluid, init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    auto_losses = [float(exe.run(
+        auto, feed=tensor_feed(torch, feeder, b, dev), fetch_list=[loss],
+        scope=ascope, return_numpy=False)[0].float().reshape(()).cpu())
+        for b in fed]
+    auto_peak = torch.cuda.max_memory_allocated()
+    check(np.allclose(auto_losses, warm, rtol=RN_BF16_RTOL, atol=0),
+          f"{tag} {FL_AUTO_POLICY}: losses {auto_losses} vs no remat "
+          f"{warm} beyond rtol {RN_BF16_RTOL}")
+    stats["auto_remat"] = {"policy": auto._remat_policy,
+                           "losses": auto_losses, "peak_bytes": auto_peak,
+                           "peak_bytes_without_remat": peak_no_remat}
+    del ascope, scope, init, fed
+    fluid.dataset.common.DATA_HOME = data_home
+    shutil.rmtree(FL_ROOT, ignore_errors=True)
+    by_kernel = attention_idle(fa, tag)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: {card}: " + json.dumps(stats))
+    return by_kernel, stats
+
+
 def range_ms(torch, fn, names):
     """Device ms of the kernels that start inside each torch.profiler
     range of ``names`` during one call of ``fn`` (the ranges' device
@@ -8078,6 +8464,11 @@ def main():
         free_card(torch)
         zoo_launches, _ = phase_conv_zoo(torch, fluid, fa, smi)
         free_card(torch)
+        # ROADMAP item 7d, the main path of this slice: ResNet-50 fed by
+        # the flowers reader through the DataFeeder, under the profiler,
+        # with the memory and cost readings
+        flowers_launches, _ = phase_flowers_train(torch, fluid, fa, smi)
+        free_card(torch)
         # ROADMAP item 6a, the main paths of this slice: the 8B width
         # through ParallelExecutor on the one card's mesh, bit-equal to
         # the plain Executor; the Mixtral width's MoE trained and
@@ -8167,6 +8558,7 @@ def main():
              "resnet50_serve": rn_serve_launches,
              "resnet_parity": rn_parity_launches,
              "conv_zoo": zoo_launches,
+             "flowers_train": flowers_launches,
              "mesh_llama_train": mesh_launches,
              "moe_train": moe_launches,
              "moe_generate": moe_gen_launches,

@@ -78,16 +78,19 @@ from . import contrib                          # noqa: F401
 from . import evaluator                        # noqa: F401
 from . import metrics                          # noqa: F401
 from . import average                          # noqa: F401
+from . import dataset                          # noqa: F401
+from . import profiler                         # noqa: F401
+from . import recordio_writer                  # noqa: F401
+from . import default_scope_funcs              # noqa: F401
+from . import concurrency                      # noqa: F401
+from .concurrency import (make_channel, channel_send, channel_recv,  # noqa: F401
+                          channel_close, Select)
 from .parallel import (ParallelExecutor, ExecutionStrategy,  # noqa: F401
                        BuildStrategy, DistributeTranspiler)
-from .waiting import FLEET, REST, module_getattr
+from .waiting import FLEET, module_getattr
 
 __version__ = "0.1.0"
 
-# the reference's top-level names of later ROADMAP.md items
-WAITING = {"cluster": FLEET,
-           **dict.fromkeys((
-               "concurrency", "make_channel", "channel_send",
-               "channel_recv", "channel_close", "Select", "profiler",
-               "dataset", "default_scope_funcs", "recordio_writer"), REST)}
+# the reference's top-level names of a later ROADMAP.md item
+WAITING = {"cluster": FLEET}
 __getattr__ = module_getattr(__name__, WAITING)

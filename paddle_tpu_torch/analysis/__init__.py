@@ -3,17 +3,17 @@
 performance lints, dataflow analysis (def-use chains, liveness, effect
 summaries), static numerics, and the numerics-preserving rewrite passes
 (constant folding / elementwise-chain fusion / CSE / DCE via
-``Program.optimize``). The verifier/lint paths never run an op and never
-import torch, so they are safe to run over any program before the first
-executor dispatch — the build-time diagnostics layer the reference gets
-from per-op C++ InferShape. The ONE exception is the rewrite pipeline's
-fold pass, which evaluates the port's lowering rules eagerly (lazy
-import, only when it runs).
+``Program.optimize``), and the static FLOPs/bytes cost + residency
+model (``cost``: ``program_cost`` and the remat estimators). The
+verifier/lint/cost paths never run an op, so they are safe to run over
+any program before the first executor dispatch — the build-time
+diagnostics layer the reference gets from per-op C++ InferShape. The
+ONE exception is the rewrite pipeline's fold pass, which evaluates the
+port's lowering rules eagerly (lazy import, only when it runs).
 
-Not ported yet, and refused by name: the static cost model
-(``cost``: ``program_cost`` and the remat estimators) and the
-source-level checkers (``racecheck``, ``protocheck``), with ROADMAP.md
-item 'Fleet and analyzers'.
+Not ported yet, and refused by name: the source-level checkers
+(``racecheck``, ``protocheck``), with ROADMAP.md item 'Fleet and
+analyzers'.
 """
 from ..waiting import FLEET, module_getattr
 from .diagnostics import (Diagnostic, SourceDiagnostic,  # noqa: F401
@@ -34,6 +34,9 @@ from .optimize import (OptimizeReport, optimize_program,  # noqa: F401
                        fold_constants, fuse_elementwise_chains)
 from .layout import (LayoutPlan, LayoutRegion,  # noqa: F401
                      analyze_layout, convert_layout)
+from .cost import (OpCost, CostReport, program_cost,  # noqa: F401
+                   recommend_remat_policy, estimate_remat_residuals,
+                   estimate_remat_policies)
 from . import lints  # noqa: F401
 
 __all__ = ["Diagnostic", "SourceDiagnostic", "VerifyError",
@@ -48,11 +51,10 @@ __all__ = ["Diagnostic", "SourceDiagnostic", "VerifyError",
            "KNOWN_PASSES", "parse_passes", "fold_constants",
            "fuse_elementwise_chains", "LayoutPlan", "LayoutRegion",
            "analyze_layout", "convert_layout", "pinned_names",
-           "axis_permutation"]
+           "axis_permutation", "OpCost", "CostReport", "program_cost",
+           "recommend_remat_policy", "estimate_remat_residuals",
+           "estimate_remat_policies"]
 
 #: the reference's analysis names the port refuses, by ROADMAP item
-WAITING = dict.fromkeys((
-    "cost", "racecheck", "protocheck", "OpCost", "CostReport",
-    "program_cost", "recommend_remat_policy", "estimate_remat_residuals",
-    "estimate_remat_policies"), FLEET)
+WAITING = dict.fromkeys(("racecheck", "protocheck"), FLEET)
 __getattr__ = module_getattr(__name__, WAITING)

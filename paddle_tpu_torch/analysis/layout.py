@@ -53,21 +53,13 @@ Like the rest of analysis/, this module never imports torch.
 from ..core import framework
 from .dataflow import (attr_name_refs, axis_permutation, def_use,
                        pinned_names)
+from .cost import DTYPE_BYTES
 from .infer import infer_program
 
 __all__ = ["NCHW", "NHWC", "AGNOSTIC", "FIXED", "join",
            "NCHW_TO_NHWC", "NHWC_TO_NCHW", "LayoutRegion", "LayoutPlan",
            "analyze_layout", "convert_layout", "SENSITIVE_OPS",
            "LayoutConsistencyPass"]
-
-# bytes per element by dtype: the reference's analysis/cost.py table,
-# which the port's cost model (ROADMAP.md item 'Fleet and analyzers')
-# will own
-DTYPE_BYTES = {
-    "float16": 2, "bfloat16": 2, "float32": 4, "float64": 8,
-    "int8": 1, "int16": 2, "int32": 4, "int64": 8, "uint8": 1,
-    "bool": 1,
-}
 
 # ---------------------------------------------------------------------------
 # the lattice

@@ -95,11 +95,6 @@ _FOLD_EXCLUDED = frozenset(["load"])
 # default per-value cap for materialized folded constants (bytes)
 _FOLD_BUDGET_DEFAULT = 256 * 1024
 
-_COST_ITEM = ("collect_cost=True needs the static cost model "
-              "(analysis/cost.py), which is ported with ROADMAP.md item "
-              "'Fleet and analyzers'")
-
-
 def parse_passes(spec):
     """Pass tuple from a user/env spec: True/"1"/"on" → the default
     pipeline; a comma-separated string ("fold,dce") or iterable →
@@ -123,9 +118,10 @@ class OptimizeReport:
     (op_type(s), output_names) tuples per rewrite (``converted``
     additionally records the frontier ``transpose2`` ops the layout
     pass inserted); ``passes`` is the pipeline that ran;
-    ``cost_deltas`` stays None (the reference's ``collect_cost=True``
-    needs the cost model of ROADMAP.md item 'Fleet and analyzers').
-    Truthy iff anything changed."""
+    ``cost_deltas`` (``collect_cost=True`` only) maps each pass name
+    to the static cost-model movement it caused: ``{"flops":
+    after-before, "bytes": after-before, "n_ops": ...}`` summed over
+    every iteration. Truthy iff anything changed."""
 
     def __init__(self, passes=DEFAULT_PASSES):
         self.passes = tuple(passes)
@@ -795,15 +791,39 @@ def optimize_program(program, fetch_list=None, passes=DEFAULT_PASSES,
     that device's bit for bit (None: ``default_fold_device()``, the card
     when CUDA is available, what a direct ``Program.optimize`` does).
 
-    ``collect_cost=True`` (per-pass cost-model deltas in the reference)
-    raises NotImplementedError: the static cost model is ported with
-    ROADMAP.md item 'Fleet and analyzers'."""
-    if collect_cost:
-        raise NotImplementedError(_COST_ITEM)
+    ``collect_cost=True`` additionally snapshots the static cost model
+    (cost.py) around every pass application and records the per-pass
+    FLOPs/bytes/op-count deltas in ``report.cost_deltas`` — the
+    logged evidence each rewrite actually shrank the program. Off by
+    default: the snapshot runs shape inference, which the serving
+    construction hot path doesn't need."""
     passes = parse_passes(passes)
     report = OptimizeReport(passes)
     if fetch_list is None:
         return report
+
+    cost_state = None
+    if collect_cost:
+        from .cost import program_cost
+
+        def _snap():
+            c = program_cost(program, fetch_list=fetch_list)
+            return {"flops": c.total_flops, "bytes": c.total_bytes,
+                    "n_ops": len(c.per_op)}
+
+        report.cost_deltas = {}
+        cost_state = _snap()
+
+    def _apply(name, records):
+        nonlocal cost_state
+        if collect_cost and records:
+            new = _snap()
+            delta = report.cost_deltas.setdefault(
+                name, {"flops": 0.0, "bytes": 0.0, "n_ops": 0})
+            for k in delta:
+                delta[k] += new[k] - cost_state[k]
+            cost_state = new
+        return bool(records)
 
     from .layout import convert_layout
     runners = {
@@ -820,7 +840,7 @@ def optimize_program(program, fetch_list=None, passes=DEFAULT_PASSES,
             fn, acc = runners[name]
             records = fn(program, fetch_list)
             acc.extend(records)
-            changed |= bool(records)
+            changed |= _apply(name, records)
         report.iterations += 1
         if not changed:
             break

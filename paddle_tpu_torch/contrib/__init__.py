@@ -1,16 +1,12 @@
 """Contrib surface (port of ``paddle_tpu/contrib``; parity with
-python/paddle/fluid/contrib): the decoder package (beam_search_decoder).
-``memory_usage_calc`` waits for ROADMAP.md item 'Remaining op families
-and the zoo' and is refused by name.
+python/paddle/fluid/contrib): memory_usage_calc and the decoder package
+(beam_search_decoder).
 """
-from ..waiting import REST, module_getattr
+from .memory_usage_calc import memory_usage, compiled_memory_usage  # noqa: F401
 from . import decoder                                               # noqa: F401
 from .decoder import (InitState, StateCell, TrainingDecoder,
                       BeamSearchDecoder)                            # noqa: F401
 
-__all__ = ["decoder", "InitState", "StateCell", "TrainingDecoder",
+__all__ = ["memory_usage", "compiled_memory_usage", "decoder",
+           "InitState", "StateCell", "TrainingDecoder",
            "BeamSearchDecoder"]
-
-WAITING = dict.fromkeys(("memory_usage_calc", "memory_usage",
-                         "compiled_memory_usage"), REST)
-__getattr__ = module_getattr(__name__, WAITING)

@@ -60,10 +60,13 @@ values (``to_sequence_batch``, ``DataFeeder``, ``create_lod_tensor``, or
 any value with ``.data`` and ``.lengths``); a fetched sequence comes back
 as a SequenceBatch, with numpy leaves under ``return_numpy=True``.
 
-Later slice: the profiler hook.
+While a ``profiler`` session is open, each run records one
+``dispatch step N`` slice (N its first step) in the session's host
+timeline.
 """
 import contextlib
 import os
+import time
 import warnings
 
 import numpy as np
@@ -330,12 +333,23 @@ class Executor:
                     cur = {**cur, **new_state}
             return written, fetches
 
+        from .. import profiler
+        prof = profiler.profiling_active()
+        t0 = time.perf_counter() if prof else 0.0
         policy = self._retry_policy or default_policy()
         new_state, fetches = with_retries(
             _dispatch, policy=policy,
             on_retry=lambda exc, n, delay: warnings.warn(
                 f"transient device error on dispatch (failure {n}): "
                 f"{exc}; retrying in {delay:.3g}s", stacklevel=3))
+        if prof:
+            # dispatch slice for the chrome timeline (host time: the
+            # launches are asynchronous on the card; device time is in
+            # the session's torch.profiler trace)
+            profiler.add_timeline_event(
+                f"dispatch step {first_step}", t0, time.perf_counter(),
+                args={"repeats": repeats,
+                      "program": f"uid={program.uid}"})
         guard = new_state.pop(GUARD, None)
         for n, v in new_state.items():
             scope.set(n, v)

@@ -3,8 +3,7 @@
 Port of ``paddle_tpu/core/framework.py``: the same IR, so a program built
 with the port's layers is op for op and name for name the program the
 JAX package builds. Only the dtype table (torch dtypes, bfloat16 without
-ml_dtypes), the place ``Program.optimize`` folds constants (the CPU) and
-the hooks into modules the port does not have yet differ.
+ml_dtypes) and the place ``Program.optimize`` folds constants differ.
 
 Capability parity with Fluid's ProgramDesc stack (reference
 paddle/fluid/framework/program_desc.h, block_desc.h, op_desc.h and
@@ -379,10 +378,8 @@ class Program:
     def to_string(self, throw_on_error=True, with_details=False):
         """Readable pseudo-code listing (fluid Program.to_string;
         rendering in debugger.program_to_code)."""
-        from ..waiting import REST
-        raise NotImplementedError(
-            "Program.to_string needs debugger.program_to_code, which is "
-            f"ported with the ROADMAP.md item '{REST}'")
+        from ..debugger import program_to_code
+        return program_to_code(self)
 
     def __str__(self):
         return self.to_string()
@@ -519,9 +516,8 @@ class Program:
         tests/test_torch_optimize.py's zoo sweep). Returns an
         :class:`analysis.optimize.OptimizeReport`; mutation bumps
         ``version`` so executor step caches refresh.
-        ``collect_cost=True`` (per-pass cost-model deltas in the
-        reference) raises NotImplementedError until the cost model
-        comes with ROADMAP.md item 'Fleet and analyzers'.
+        ``collect_cost=True`` records per-pass cost-model deltas in
+        the report.
 
         The constant fold evaluates the port's lowering rules on the
         card when CUDA is available and on the CPU otherwise, as the

@@ -8,14 +8,11 @@ its module ``__getattr__`` (PEP 562), which Python calls only for a
 name the module does not define.
 """
 
-__all__ = ["REST", "FLEET", "module_getattr"]
+__all__ = ["FLEET", "module_getattr"]
 
-# the ROADMAP.md section-1 items the refusals name. REST is item 7's
-# name; what it still refuses is item 7d's (the rest of debugger.py and
-# Program.to_string, profiler.py, contrib's memory_usage_calc,
-# concurrency.py, default_scope_funcs.py, recordio_writer.py, dataset/,
-# utils/plot.py). get_op refuses nothing: every op type is ported.
-REST = "Remaining op families and the zoo"
+# the ROADMAP.md section-1 item the refusals name: item 8's (cluster/,
+# racecheck, protocheck). get_op refuses nothing: every op type is
+# ported.
 FLEET = "Fleet and analyzers"
 
 

@@ -610,3 +610,218 @@ def test_no_infer_rule_names_the_op():
     hits = [d for d in main.verify() if d.code == "no-infer-rule"]
     assert hits and hits[0].level == "warning"
     assert op_type in hits[0].message
+
+
+# ---------------------------------------------------------------------------
+# static cost model (tests/test_dataflow.py's TestCostModel and
+# TestMemoryOptimizeLog): the port's analysis/cost.py is a copy of the
+# reference's, so every number, choice and printed line equals the
+# reference's on the same program
+# ---------------------------------------------------------------------------
+
+def _mul_program(fluid):
+    a = fluid.layers.data(name="a", shape=[4, 6], dtype="float32",
+                          append_batch_size=False)
+    gb = _gb(fluid)
+    w = gb.create_parameter("w", shape=[6, 10])
+    gb.create_var(name="mm", dtype="float32")
+    gb.append_op("mul", inputs={"X": [a.name], "Y": [w.name]},
+                 outputs={"Out": ["mm"]})
+
+
+def _cost(k, main, fetch, **kw):
+    cost = {"jax": jfluid.analysis, "torch": tfluid.analysis}[k]
+    return cost.program_cost(main, fetch_list=fetch, **kw)
+
+
+class TestCostModel:
+    def test_matmul_flops_exact(self):
+        reps = {k: _cost(k, main, ["mm"])
+                for k, (main, _, _) in _both(_mul_program).items()}
+        mm = [c for c in reps["torch"].per_op if c.op_type == "mul"][0]
+        assert mm.flops == 2 * 4 * 6 * 10
+        # bytes: read a (96B) + w (240B), write out (160B)
+        assert mm.bytes == (4 * 6 + 6 * 10 + 4 * 10) * 4
+        assert reps["torch"].to_dict() == reps["jax"].to_dict()
+        assert repr(mm) == repr([c for c in reps["jax"].per_op
+                                 if c.op_type == "mul"][0])
+
+    def test_peak_residency_counts_params_plus_live(self):
+        tp, jp = (tzoo.build_zoo_program("mnist_mlp"),
+                  jzoo.build_zoo_program("mnist_mlp"))
+        rep = tfluid.analysis.program_cost(tp.main, fetch_list=tp.fetch_list)
+        assert rep.params_bytes > 0
+        assert rep.peak_residency_bytes > rep.params_bytes
+        assert rep.dead_op_count == 0
+        d = rep.to_dict(top_k=5)
+        assert len(d["top_ops"]) == 5
+        assert d["peak_residency_bytes"] == rep.peak_residency_bytes
+        assert d == jfluid.analysis.program_cost(
+            jp.main, fetch_list=jp.fetch_list).to_dict(top_k=5)
+        assert [c.to_dict() for c in rep.top_ops(4, by="bytes")] == [
+            c.to_dict() for c in jfluid.analysis.program_cost(
+                jp.main, fetch_list=jp.fetch_list).top_ops(4, by="bytes")]
+
+    def test_remat_recommendations_by_family(self):
+        rec = tfluid.analysis.recommend_remat_policy
+        assert rec(tzoo.build_zoo_program("resnet").main) == "save_conv_only"
+        assert rec(tzoo.build_zoo_program("mnist_mlp").main) == \
+            "dots_saveable"
+        # inference program: no backward marker, nothing to remat
+        assert rec(tzoo.build_zoo_program("se_resnext").main) is None
+        assert tfluid.analysis.estimate_remat_residuals(
+            tzoo.build_zoo_program("se_resnext").main) == {}
+
+    def test_never_runs_an_op(self, monkeypatch):
+        from paddle_tpu_torch.core import lowering
+
+        def no_lowering(*a, **k):
+            raise AssertionError("cost model lowered the program")
+
+        monkeypatch.setattr(lowering, "lower_program", no_lowering)
+        monkeypatch.setattr(tfluid.core.executor, "lower_program",
+                            no_lowering)
+        zp = tzoo.build_zoo_program("resnet")
+        assert tfluid.analysis.program_cost(
+            zp.main, fetch_list=zp.fetch_list).total_flops > 0
+
+    @pytest.mark.parametrize("name", tzoo.zoo_model_names())
+    def test_zoo_costs_equal_the_reference(self, name):
+        """program_cost's whole report (totals, peak, residual at the
+        backward, dead ops, recommendation, top ops by FLOPs and by
+        bytes), the residual estimates and the recommendation equal the
+        reference's on every zoo entry, at batch 1 and 16."""
+        jp, tp = jzoo.build_zoo_program(name), tzoo.build_zoo_program(name)
+        for batch in (1, 16):
+            want = jfluid.analysis.program_cost(
+                jp.main, fetch_list=jp.fetch_list, assume_batch=batch)
+            got = tfluid.analysis.program_cost(
+                tp.main, fetch_list=tp.fetch_list, assume_batch=batch)
+            assert got.to_dict(top_k=20) == want.to_dict(top_k=20)
+            assert [c.to_dict() for c in got.per_op] == \
+                [c.to_dict() for c in want.per_op]
+        assert tfluid.analysis.estimate_remat_residuals(tp.main) == \
+            jfluid.analysis.estimate_remat_residuals(jp.main)
+
+    def test_collect_cost_deltas_equal_the_reference(self):
+        """optimize_program(collect_cost=True): per-pass FLOPs, bytes and
+        op-count deltas, the reference's on the same program."""
+        reports = {}
+        for k, (main, _, _) in _both(_optimizable).items():
+            reports[k] = main.optimize(fetch_list=["out"],
+                                       collect_cost=True)
+        got, want = reports["torch"], reports["jax"]
+        assert got.cost_deltas == want.cost_deltas
+        assert got.cost_deltas and all(
+            d["n_ops"] <= 0 for d in got.cost_deltas.values())
+        assert got.to_dict()["cost_deltas"] == want.to_dict()["cost_deltas"]
+        # without the flag, no snapshot
+        main = _build(tfluid, _optimizable)[0]
+        assert main.optimize(fetch_list=["out"]).cost_deltas is None
+
+
+def _optimizable(fluid):
+    """Foldable constants, a duplicate relu and a dead branch: fold,
+    cse and dce each have work."""
+    x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+    c = fluid.layers.fill_constant([8], "float32", 2.0)
+    c2 = fluid.layers.scale(c, scale=3.0)
+    a = fluid.layers.relu(x)
+    b = fluid.layers.relu(x)
+    fluid.layers.tanh(x)                     # dead
+    out = fluid.layers.elementwise_add(fluid.layers.elementwise_add(a, b),
+                                       c2)
+    fluid.layers.assign(out, output=_gb(fluid).create_var(
+        name="out", dtype="float32"))
+
+
+def _memory_optimize_out(k, main, capsys, **kw):
+    fluid = PACKAGES[k][0]
+    fluid.memory_optimize(main, **kw)
+    return capsys.readouterr().out, main._remat_policy
+
+
+class TestMemoryOptimizeLog:
+    def _train(self, k, name="resnet"):
+        return (jzoo if k == "jax" else tzoo).build_zoo_program(name).main
+
+    def test_print_log_reports_estimates(self, capsys):
+        out = {k: _memory_optimize_out(k, self._train(k), capsys,
+                                       print_log=True)
+               for k in PACKAGES}
+        text, policy = out["torch"]
+        assert "fwd->bwd residuals" in text
+        assert "dots_saveable=" in text
+        assert "recommended" in text            # chosen != recommended
+        assert policy == "dots_saveable"
+        assert out["torch"] == out["jax"]
+
+    def test_auto_policy_uses_recommendation(self, capsys):
+        main = self._train("torch")
+        v = main.version
+        tfluid.memory_optimize(main, policy="auto")
+        assert main._remat_policy == "save_conv_only" and main.version > v
+
+    def test_auto_without_backward_disables_remat(self, capsys):
+        def fwd(fluid):
+            x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+            fluid.layers.fc(x, size=4)
+
+        out = {k: _memory_optimize_out(k, main, capsys, policy="auto",
+                                       print_log=True)
+               for k, (main, _, _) in _both(fwd).items()}
+        assert out["torch"][1] is None
+        assert "no backward marker" in out["torch"][0]
+        assert out["torch"] == out["jax"]
+
+    def test_print_log_false_prints_nothing(self, capsys):
+        tfluid.memory_optimize(self._train("torch"), print_log=False)
+        assert capsys.readouterr().out == ""
+
+    @pytest.mark.parametrize("name", tzoo.zoo_model_names())
+    @pytest.mark.parametrize("policy", ["auto", "nothing_saveable",
+                                        "save_conv_only"])
+    def test_zoo_log_and_choice_equal_the_reference(self, name, policy,
+                                                    capsys):
+        out = {k: _memory_optimize_out(k, self._train(k, name), capsys,
+                                       policy=policy, print_log=True)
+               for k in PACKAGES}
+        assert out["torch"] == out["jax"]
+
+
+def test_flowers_program_auto_policy_is_chip_smokes():
+    """chip_smoke.py's flowers_train program (ResNet-50 at 3 x 224², 102
+    classes, NHWC, Momentum, AMP O2): the port's static cost, residual
+    estimates and ``memory_optimize(policy="auto")`` pick equal the
+    reference's on the same program, and the pick is the policy the
+    card's phase expects (``chip_smoke.FL_AUTO_POLICY``)."""
+    import chip_smoke
+    from paddle_tpu.models.resnet import resnet50 as jresnet50
+    from paddle_tpu.transpiler import amp_transpile as jamp
+
+    tmain, _, tloss = chip_smoke.resnet_program(
+        tfluid, "NHWC", classes=chip_smoke.FL_CLASSES)
+    jmain, jstartup = jfluid.Program(), jfluid.Program()
+    with jfluid.unique_name.guard(), jfluid.program_guard(jmain, jstartup):
+        img = jfluid.layers.data(name="img", shape=[3, 224, 224],
+                                 dtype="float32")
+        label = jfluid.layers.data(name="label", shape=[1], dtype="int64")
+        jloss, _, _ = jresnet50(img, label, class_num=chip_smoke.FL_CLASSES,
+                                layout="NHWC")
+        jfluid.optimizer.Momentum(learning_rate=chip_smoke.RN_LR,
+                                  momentum=0.9).minimize(jloss)
+    jamp(jmain, level="O2")
+    assert str(tmain) == str(jmain)
+    batch = chip_smoke.RN_BATCH
+    assert tfluid.analysis.program_cost(
+        tmain, fetch_list=[tloss], assume_batch=batch).to_dict() == \
+        jfluid.analysis.program_cost(
+            jmain, fetch_list=[jloss], assume_batch=batch).to_dict()
+    assert tfluid.contrib.memory_usage(tmain, batch) == \
+        jfluid.contrib.memory_usage(jmain, batch)
+    picks = []
+    for fluid, main in ((tfluid, tmain), (jfluid, jmain)):
+        auto = main.clone()
+        fluid.memory_optimize(auto, policy="auto")
+        picks.append(auto._remat_policy)
+    assert picks == [chip_smoke.FL_AUTO_POLICY] * 2

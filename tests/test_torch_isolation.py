@@ -102,6 +102,13 @@ import paddle_tpu_torch.contrib, paddle_tpu_torch.contrib.decoder
 import paddle_tpu_torch.models.machine_translation
 import paddle_tpu_torch.models.label_semantic_roles
 import paddle_tpu_torch.models.ocr_recognition
+import paddle_tpu_torch.profiler, paddle_tpu_torch.concurrency
+import paddle_tpu_torch.recordio_writer, paddle_tpu_torch.default_scope_funcs
+import paddle_tpu_torch.utils.plot, paddle_tpu_torch.analysis.cost
+import paddle_tpu_torch.contrib.memory_usage_calc
+import paddle_tpu_torch.dataset.flowers, paddle_tpu_torch.dataset.image
+import paddle_tpu_torch.dataset.voc2012, paddle_tpu_torch.dataset.synthetic
+assert "matplotlib" not in sys.modules and "cv2" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                     "ml_dtypes"))
@@ -152,9 +159,10 @@ def test_later_slices_refuse_loudly():
     its ROADMAP item; training itself runs, with the switches ported so
     far: AMP, the NaN guard, remat policies, the layer-stacked decoder
     (shard_pp), the fused head loss (fused_head_chunk), (item 1b) the
-    op library's layers, math_op_patch and the LR schedulers, and (item
-    2) the optimize rewrite — the serving engine's default — and the
-    verifier."""
+    op library's layers, math_op_patch and the LR schedulers, (item 2)
+    the optimize rewrite — the serving engine's default — and the
+    verifier, and (item 7d) the cost model and the supporting
+    modules."""
     infer, _, logits = _tiny_program()
     # item 2 lifted: the engine optimizes a clone by default, and
     # Program.optimize / Program.verify run
@@ -167,15 +175,16 @@ def test_later_slices_refuse_loudly():
     report = infer.clone(for_test=True).optimize(fetch_list=[logits])
     assert report.counts() == engine.optimize_report.counts()
     assert not fluid.analysis.errors(infer.verify(fetch_list=[logits]))
-    # still refused, by name: the cost model and the source checkers
-    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-        infer.clone(for_test=True).optimize(fetch_list=[logits],
-                                            collect_cost=True)
-    for name in ("cost", "racecheck", "protocheck", "program_cost"):
+    # item 7d lifted: the cost model (collect_cost, the analysis
+    # names); still refused, by name: the source checkers
+    costed = infer.clone(for_test=True).optimize(fetch_list=[logits],
+                                                 collect_cost=True)
+    assert costed.cost_deltas is not None
+    for name in ("cost", "program_cost", "recommend_remat_policy"):
+        assert getattr(fluid.analysis, name) is not None
+    for name in ("racecheck", "protocheck"):
         with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
             getattr(fluid.analysis, name)
-    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-        from paddle_tpu_torch.analysis import cost  # noqa: F401
 
     def train_program(**kw):
         main, startup = fluid.Program(), fluid.Program()
@@ -222,8 +231,9 @@ def test_later_slices_refuse_loudly():
             exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
         with pytest.raises(NotImplementedError, match=policy):
             fluid.memory_optimize(main.clone(), policy=policy)
-    with pytest.raises(NotImplementedError, match="auto"):
-        fluid.memory_optimize(main.clone(), policy="auto")
+    # item 7d lifted: "auto" takes the cost model's recommendation
+    assert fluid.memory_optimize(main.clone(), policy="auto") \
+        ._remat_policy == fluid.analysis.recommend_remat_policy(main)
     # item 6b lifted: the 1F1B program and the sequence split build and
     # run on one device
     for kw in (dict(shard_pp=True, pp_schedule="1f1b"),
@@ -252,8 +262,7 @@ def test_later_slices_refuse_loudly():
                   fetch_list=[loss], scope=scope)
     assert np.isfinite(out[0]).all()
     # item 7c lifted: a detection program (anchors, proposals, the
-    # extras' ops) runs; still refused, by name: item 7d's module-level
-    # names
+    # extras' ops) runs; item 7d lifted: the module-level names
     det_main, det_start = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(det_main,
                                                         det_start):
@@ -270,9 +279,10 @@ def test_later_slices_refuse_loudly():
     assert out[0].shape == (8 * 8 * 3, 4) and not out[1].any()
     for name in ("profiler", "dataset", "default_scope_funcs",
                  "recordio_writer", "concurrency"):
-        with pytest.raises(NotImplementedError,
-                           match="Remaining op families and the zoo"):
-            getattr(fluid, name)
+        assert getattr(fluid, name).__name__ == f"paddle_tpu_torch.{name}"
+    assert str(det_main) == fluid.debugger.program_to_code(det_main)
+    assert not hasattr(fluid.waiting, "REST")
+    assert fluid.WAITING == {"cluster": fluid.waiting.FLEET}
     # item 7a lifted: a sequence feed, the sequence layers and the
     # recurrent ops run
     seq_main, seq_start = fluid.Program(), fluid.Program()

@@ -117,3 +117,88 @@ def test_zoo_layout_parity(name):
 @pytest.mark.parametrize("name", CONV_ZOO)
 def test_zoo_layout_combined_pipeline(name):
     _check(name, ("layout", "fold", "fuse", "cse", "dce"))
+
+
+# ---------------------------------------------------------------------------
+# the cost-model remat upgrade (tests/test_layout.py's
+# TestRematPolicyUpgrade): analysis/cost.py's per-policy estimates and
+# recommendation, equal to the reference's
+# ---------------------------------------------------------------------------
+
+import paddle_tpu as jfluid  # noqa: E402
+
+import paddle_tpu_torch as tfluid  # noqa: E402
+from paddle_tpu_torch.analysis import cost as tcost  # noqa: E402
+
+
+class TestRematPolicyUpgrade:
+    def test_estimates_structure(self):
+        est = tcost.estimate_remat_policies(
+            tzoo.build_zoo_program("resnet").main)
+        assert est == jfluid.analysis.estimate_remat_policies(
+            jzoo.build_zoo_program("resnet").main)
+        fwd = est.pop("__forward_flops__")
+        assert fwd > 0
+        assert est["everything_saveable"]["recompute_flops"] == 0
+        assert est["nothing_saveable"]["residual_bytes"] == 0
+        # nested policies: residuals monotone with permissiveness
+        assert est["nothing_saveable"]["residual_bytes"] \
+            <= est["save_conv_only"]["residual_bytes"] \
+            <= est["dots_saveable"]["residual_bytes"] \
+            <= est["everything_saveable"]["residual_bytes"]
+        assert est["nothing_saveable"]["recompute_flops"] \
+            >= est["save_conv_only"]["recompute_flops"] \
+            >= est["dots_saveable"]["recompute_flops"] \
+            >= est["everything_saveable"]["recompute_flops"]
+
+    def test_conv_net_agrees_with_heuristic(self):
+        assert tcost.recommend_remat_policy(
+            tzoo.build_zoo_program("resnet").main) == "save_conv_only"
+        assert tcost.recommend_remat_policy(
+            tzoo.build_zoo_program("mnist_mlp").main) == "dots_saveable"
+
+    def test_elementwise_net_disagrees_with_heuristic(self):
+        """A pure elementwise forward: the old table says recompute
+        everything (nothing_saveable); the cost model sees that
+        recomputing the whole forward blows the recompute budget and
+        recommends no remat instead — in both packages."""
+        got = {}
+        for fluid in (jfluid, tfluid):
+            main = fluid.Program()
+            with fluid.unique_name.guard(), fluid.program_guard(
+                    main, fluid.Program()):
+                x = fluid.layers.data(name="x", shape=[64],
+                                      dtype="float32")
+                gb = main.global_block()
+                gb.create_parameter("w", shape=[64])
+                for op, ins, out in (("elementwise_mul", {"X": [x.name],
+                                                          "Y": ["w"]}, "y"),
+                                     ("tanh", {"X": ["y"]}, "t"),
+                                     ("mean", {"X": ["t"]}, "loss")):
+                    gb.create_var(name=out, dtype="float32")
+                    gb.append_op(op, inputs=ins, outputs={"Out": [out]})
+                gb.create_var(name="w@GRAD", dtype="float32")
+                gb.append_op("backward", inputs={"Loss": ["loss"]},
+                             attrs={"parameter_names": ["w"]})
+            cost = jfluid.analysis.cost if fluid is jfluid else tcost
+            got[fluid.__name__] = (
+                cost._heuristic_remat_policy(
+                    cost.estimate_remat_residuals(main)),
+                cost.recommend_remat_policy(main),
+                cost.estimate_remat_policies(main))
+        assert got["paddle_tpu_torch"][:2] == ("nothing_saveable",
+                                               "everything_saveable")
+        assert got["paddle_tpu_torch"] == got["paddle_tpu"]
+
+    @pytest.mark.parametrize("name", tzoo.zoo_model_names())
+    def test_zoo_estimate_remat_policies_equal_the_reference(self, name):
+        jp, tp = jzoo.build_zoo_program(name), tzoo.build_zoo_program(name)
+        for batch in (1, 8):
+            assert tcost.estimate_remat_policies(
+                tp.main, assume_batch=batch) == \
+                jfluid.analysis.estimate_remat_policies(
+                    jp.main, assume_batch=batch)
+            assert tcost.recommend_remat_policy(
+                tp.main, assume_batch=batch) == \
+                jfluid.analysis.recommend_remat_policy(
+                    jp.main, assume_batch=batch)

@@ -710,11 +710,20 @@ class TestPassSelection:
         # the caller's program is never mutated by the hook
         assert _types(main) == ["fill_constant", "scale", "elementwise_add"]
 
-    def test_collect_cost_refused_naming_its_item(self):
+    def test_collect_cost_deltas_as_the_reference(self):
+        """collect_cost=True: the per-pass cost-model deltas of the
+        reference's report on the same program (folding turns the ops
+        into constants, dce drops the two the fetch no longer reads)."""
+        reports = {}
+        for fluid in (jfluid, tfluid):
+            main = _build(fluid, _const_chain)[0]
+            reports[fluid] = main.optimize(fetch_list=["c3"],
+                                           collect_cost=True)
+        got, want = reports[tfluid], reports[jfluid]
+        assert got.cost_deltas == want.cost_deltas
+        assert got.cost_deltas["fold"]["bytes"] < 0
+        assert got.cost_deltas["dce"]["n_ops"] == -2
         main = _build(tfluid, _const_chain)[0]
-        with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-            main.optimize(fetch_list=["c3"], collect_cost=True)
-        assert _types(main) == ["fill_constant", "scale", "elementwise_add"]
         report = main.optimize(fetch_list=["c3"])
         assert report.cost_deltas is None
         assert report.to_dict()["passes"] == list(DEFAULT_PASSES)

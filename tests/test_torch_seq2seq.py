@@ -371,9 +371,3 @@ def test_beam_search_decoder_decodes():
     assert (np.diff(got_scores, axis=1) <= 1e-5).all()
     assert ((got_ids >= 0) & (got_ids < VOCAB)).all()
 
-
-def test_contrib_memory_usage_refuses_by_name():
-    with pytest.raises(NotImplementedError,
-                       match="Remaining op families and the zoo"):
-        tfluid.contrib.memory_usage_calc
-    assert not hasattr(jfluid.contrib, "WAITING")

@@ -333,8 +333,7 @@ def test_remat_recomputes_the_forward_kernel(monkeypatch, remat, policy,
     ("save_and_offload_only_these_names", "offload"),
     ("save_only_these_names", "factory"),
     ("save_anything_except_these_names", "factory"),
-    ("offload_dot_with_no_batch_dims", "offload"),
-    ("auto", "Fleet and analyzers")])
+    ("offload_dot_with_no_batch_dims", "offload")])
 def test_memory_optimize_refuses_by_name(policy, match):
     main = _llama(tfluid, tllama, TINY)[0]
     with pytest.raises(NotImplementedError, match=match) as e:
@@ -343,10 +342,18 @@ def test_memory_optimize_refuses_by_name(policy, match):
     assert main._remat_policy is None
 
 
-def test_memory_optimize_print_log_and_unknown_policy():
+def test_memory_optimize_print_log_and_unknown_policy(capsys):
     main = _llama(tfluid, tllama, TINY)[0]
-    with pytest.raises(NotImplementedError, match="print_log"):
-        tfluid.memory_optimize(main, print_log=True)
+    tfluid.memory_optimize(main, print_log=True)
+    got = capsys.readouterr().out
+    jfluid.memory_optimize(_llama(jfluid, jllama, TINY)[0], print_log=True)
+    assert got == capsys.readouterr().out
+    assert "fwd->bwd residuals" in got
+    for fluid, llama in ((tfluid, tllama), (jfluid, jllama)):
+        auto = fluid.memory_optimize(_llama(fluid, llama, TINY)[0],
+                                     policy="auto")
+        assert auto._remat_policy == "dots_saveable"
+    main._remat_policy = None
     with pytest.raises(ValueError, match="unknown remat policy"):
         tfluid.memory_optimize(main, policy="not_a_policy")
     v = main.version

@@ -157,7 +157,7 @@ Phases — any failure exits non-zero:
    engine's, K1 on ``flash_fwd_mma`` at D 128, ``CompiledPredictor``
    within the bf16 tier;
 21. generate (ROADMAP item 4a, the main path of this slice): the 8B
-   width at 16 layers (32 until PR 19) in bf16, through
+   width at 8 layers (cut from 32, then 16, for room) in bf16, through
    ``build_llama_generator`` and
    ``Executor.run``: 4 prompts of 128 tokens, 64 new tokens each, every
    generated token held against ``build_llama(shard_pp=True)``'s
@@ -355,6 +355,40 @@ Phases — any failure exits non-zero:
    41-43 each with no attention launch;
 44. mesh_two_ranks: whether the one card admits two NCCL ranks (it is
    expected to refuse them: recorded, not gated).
+45. cluster_serve (ROADMAP item 8, the main path of this slice; run
+   right after 4's bf16 serve, on its scope): ``cluster.serve_cluster(
+   factory, replicas=2, warmup=True)``, the factory building
+   ``ServingEngine``s over 4's bf16 scope and buckets (the weights held
+   once: the peak under 1.5 x their bytes); 4's 8 requests concurrently,
+   each answer held to the request alone at 4's bf16 tier, both
+   replicas serving, K1 32 launches a dispatch summed over both, all
+   flash_fwd_mma, K2/K3 none, no step build after warmup; then under
+   in-flight traffic a ``rolling_restart()`` and the
+   ``serving_replica_crash`` drill: no request lost, the replica
+   revived. p50/p99 through the pool beside the lone engine's, the
+   restart and failover windows;
+46. cluster_remote (run inside 19, on its saved directory): two
+   ``python -m paddle_tpu_torch.cluster.net_worker`` processes on the
+   card behind ``Inferencer.from_inference_model(D).serve(remotes=)``
+   and one ``ProcessReplica``: each request alone bit-equal to a lone
+   in-process engine's (K1 f32 at D 64, launches held exact);
+   ``provision_from_remote`` copies D with every sha256 equal; a server
+   ``kill -9``ed under load, nothing lost; a ``DeploymentManager``
+   promotes a canary equal to v1 and rolls back one with perturbed
+   weights on the golden-set gate, nothing lost; the RPC overhead;
+47. cluster_decode (run inside 23, on its scope and requests):
+   ``Inferencer(infer_func, param_path).serve_decode(cfg, replicas=2)``
+   over 23's weights, one prefill and one decode replica,
+   ``Router.generate`` of 23's requests: the lone engine's tokens, one
+   handoff exported and imported per request, no attention kernel;
+48. train_fabric: a ``TrainCoordinator`` over ``python -m
+   paddle_tpu_torch.cluster.train_worker`` processes on the card
+   (``ProgramGradTask``, 12 steps, commits every 4): the two-worker
+   run's parameter sha equal in a one-worker run, a run whose worker
+   dies at step 6 and is replaced by one provisioned over the wire, and
+   a coordinator crash resumed by a new coordinator; the parameters
+   within 2e-3 / 2e-4 of the CPU's. Every worker process is killed
+   before the script ends.
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
 on its kernel symbol, and times them at the head_dim_256 phase's bf16
@@ -504,7 +538,8 @@ IO_LLAMA_LAYERS = 2
 # GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows, and
 # the layer-stacked forward (K1) scores the generated sequence again
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
-GEN_LAYERS = 16                 # 32 → 16: room for flowers_train (PR 19)
+GEN_LAYERS = 8                  # 32 → 16 → 8: room for flowers_train
+                                # and the fleet phases
 GEN_F32_LAYERS = 4              # 32 → 4: the exact float32 check
 GEN_GAMMA = 4
 GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
@@ -1356,7 +1391,7 @@ def add_busy(out, kinds, wall_ms):
                 "device_ms_by_kind": kinds})
 
 
-def phase_serve(torch, fluid, dtype, card):
+def phase_serve(torch, fluid, dtype, card, then=None):
     """Serve the 8B-width forward in ``dtype`` and hold every answer to
     the same request run alone; every K1 launch must go to the variant
     the dtype routes to (bf16: flash_fwd_mma, float32:
@@ -1367,7 +1402,9 @@ def phase_serve(torch, fluid, dtype, card):
     differs between GEMM shapes (a batch of 4 x 128 rows vs 1 x n): the
     logits are held to a relative RMS error of TOL_LOGITS_BF16_RMS, and a
     greedy flip is allowed only where the top-1 margin is within twice
-    that row's logit error."""
+    that row's logit error. ``then(served)``, when given, runs last with
+    the scope, programs, buckets, requests and their lone answers (the
+    cluster_serve phase)."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B, build_llama
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
@@ -1453,6 +1490,7 @@ def phase_serve(torch, fluid, dtype, card):
         f"{dispatches} dispatches, all {variant}")
 
     worst_abs = worst_rms = 0.0
+    alones = []
     for n, r, ans in zip(lengths, reqs, answers):
         got = ans[0]
         bucket = buckets.seq_bucket("tokens", n)
@@ -1462,6 +1500,8 @@ def phase_serve(torch, fluid, dtype, card):
         check(np.isfinite(got).all(), f"non-finite logits (len {n})")
         alone = exe.run(infer, feed={"tokens": r}, fetch_list=[logits],
                         scope=scope)[0]
+        if then is not None:
+            alones.append(alone)
         err = np.abs(got - alone)
         rel_rms = float(np.sqrt((err ** 2).mean() / (alone ** 2).mean()))
         worst_abs = max(worst_abs, float(err.max()))
@@ -1508,6 +1548,11 @@ def phase_serve(torch, fluid, dtype, card):
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "construction": construction, "card": card}
     log(f"{tag}: " + json.dumps(serve))
+    if then is not None:
+        then({"cfg": cfg, "infer": infer, "logits": logits, "scope": scope,
+              "buckets": buckets, "reqs": reqs, "lengths": lengths,
+              "alone": alones, "warm_signatures": warm["signatures"],
+              "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"]})
     return launches, dict(serve, one_dispatch=dispatch)
 
 
@@ -2984,7 +3029,7 @@ def rel_rms(got, want):
                  / np.sqrt(np.mean(want ** 2)))
 
 
-def phase_io_saved_serve(torch, fluid, fa, card, run):
+def phase_io_saved_serve(torch, fluid, fa, card, run, then=None):
     """Path A's serving, the main path of this slice:
     ``save_inference_model`` of ``phase_io_train_resume``'s trained test
     clone (feeds src, tgt, src_len; the logits), with buckets
@@ -3002,7 +3047,9 @@ def phase_io_saved_serve(torch, fluid, fa, card, run):
     ``CompiledPredictor`` of ``__compiled__.pt2`` at batch 1 and 8 within
     TOL_LOGITS_REL_RMS_F32 of the engine, K1 launched through the custom
     op, which copies no input there nor in the engine. The save, load, construction and warmup times, with the store and
-    without it. Returns (launches by kernel symbol, stats)."""
+    without it. ``then(saved)``, when given, runs last with the directory,
+    the requests and the engine config (the cluster_remote phase).
+    Returns (launches by kernel symbol, stats)."""
     from paddle_tpu_torch import io as fio
     from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
                                           ServingEngine)
@@ -3144,6 +3191,9 @@ def phase_io_saved_serve(torch, fluid, fa, card, run):
                                  "predictor": pred_copies},
              "launches_by_kernel": by_kernel, "card": card}
     log(f"{tag}: " + json.dumps(stats))
+    if then is not None:
+        then({"dir": work, "reqs": reqs, "config": config,
+              "n_dec": n_dec})
     return by_kernel, stats
 
 
@@ -4021,7 +4071,7 @@ def dec_serve(engine, prompts, clients, max_new=None):
     return outs, wall, max(high + [engine.allocator.in_use])
 
 
-def phase_decode_engine(torch, fluid, fa, card):
+def phase_decode_engine(torch, fluid, fa, card, then=None):
     """ROADMAP item 4b, the main path of this slice: the Llama-3-8B width
     (DEC_LAYERS of its 32 layers, bf16, random weights from SEED through
     ``build_llama_generator``'s startup) behind ``DecodeEngine`` built
@@ -4045,8 +4095,10 @@ def phase_decode_engine(torch, fluid, fa, card):
     cut from the target, gamma DEC_GAMMA) and ``chunk_size=DEC_CHUNK`` against the generator. Prints TTFT
     p50/p99, decode ms a token per slot beside the bound of reading the
     weights once, aggregate tokens/s, the device's idle share and the
-    page high-water mark. Returns (K1 launches of the checks' recompute,
-    stats)."""
+    page high-water mark. ``then(dec)``, when given, runs after the main
+    wave's checks with its config, scope, prompts and tokens (the
+    cluster_decode phase). Returns (K1 launches of the checks'
+    recompute, stats)."""
     from paddle_tpu_torch.models.llama import (LLAMA3_8B,
                                                copy_weights_as_draft,
                                                quantize_generator_weights)
@@ -4165,6 +4217,10 @@ def phase_decode_engine(torch, fluid, fa, card):
         f"{stats['own_sequence']['at_argmax']} of {new}; the control "
         f"(prompt rolled by one) rejected at "
         f"{stats['own_sequence']['control_rejected']} of {new} positions")
+    if then is not None:
+        free_card(torch)
+        then({"cfg": cfg, "scope": scope, "prompts": prompts, "outs": outs})
+        free_card(torch)
 
     # the device's idle share over a shorter wave, against the same wave
     # unprofiled
@@ -8294,6 +8350,779 @@ def phase_detection_extras(torch, fluid, fa, card):
 
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP item 8: the fleet (paddle_tpu_torch/cluster/)
+# ---------------------------------------------------------------------------
+
+FLEET_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "paddle_tpu_torch", "_build", "chip_smoke_fleet")
+FLEET_READY_S = 240.0           # a worker's start: torch, the card, warmup
+FLEET_CLIENTS = 4               # client threads of the chaos drills
+FLEET_PROCS = []                # every worker process the script started
+TRAIN_FABRIC_STEPS, TRAIN_FABRIC_COMMIT = 12, 4
+TRAIN_FABRIC_SHARDS, TRAIN_FABRIC_CRASH_STEP = 4, 6
+TOL_TRAIN_FABRIC_CPU = (2e-3, 2e-4)     # rtol, atol: card vs CPU params
+CLUSTER_PEAK_OVER_WEIGHTS = 1.5         # the pool holds the scope once
+
+
+def fleet_workdir(name):
+    """A fresh directory ``name`` under FLEET_ROOT."""
+    import shutil
+    path = os.path.join(FLEET_ROOT, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def spawn_worker(module, args, env=None):
+    """``python -m paddle_tpu_torch.cluster.<module>`` in a fresh
+    interpreter, on this process's default place (the card); a thread
+    keeps its output lines. Registered in FLEET_PROCS, which
+    ``stop_workers`` empties."""
+    from paddle_tpu_torch.cluster.replica import worker_argv, worker_env
+    full_env, root = worker_env()
+    full_env["PYTHONUNBUFFERED"] = "1"
+    full_env.update(env or {})
+    proc = subprocess.Popen(worker_argv(module) + list(args),
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=full_env, cwd=root)
+    proc.lines, proc.ready = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            proc.lines.append(line.rstrip())
+            if "ready on" in line:
+                proc.ready.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    FLEET_PROCS.append(proc)
+    return proc
+
+
+def worker_addr(proc, tag):
+    """The ``host:port`` a worker's ready line names, waiting up to
+    FLEET_READY_S; a worker that dies or never gets ready fails."""
+    deadline = time.monotonic() + FLEET_READY_S
+    while not proc.ready.wait(0.2):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            check(False, f"{tag}: worker {proc.args[2:]} not ready (rc "
+                  f"{proc.poll()}): {proc.lines[-12:]}")
+    line = next(ln for ln in proc.lines if "ready on" in ln)
+    return line.split("ready on ")[1].split()[0]
+
+
+def stop_workers(procs=None):
+    """Kill and reap ``procs`` (default: every worker still listed)."""
+    procs = list(FLEET_PROCS if procs is None else procs)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        try:
+            p.wait(30)
+        except subprocess.TimeoutExpired:
+            pass
+        if p in FLEET_PROCS:
+            FLEET_PROCS.remove(p)
+
+
+class ChaosLoad:
+    """FLEET_CLIENTS threads sending ``call(i)`` in a loop while a drill
+    runs; each outcome tallied as ok, typed (a ServingError, by class
+    name in ``typed_by``) or lost (anything else, or a result check that
+    failed)."""
+
+    def __init__(self, call, n_items):
+        from paddle_tpu_torch.serving import ServingError
+        self._typed = ServingError
+        self.call, self.n = call, n_items
+        self.outcomes = {"ok": 0, "typed": 0, "lost": 0}
+        self.typed_by, self.errors = {}, []
+        self._lock, self._stop = threading.Lock(), threading.Event()
+        self._threads = [threading.Thread(target=self._client, args=(k,),
+                                          daemon=True)
+                         for k in range(FLEET_CLIENTS)]
+
+    def _client(self, k):
+        i = k
+        while not self._stop.is_set():
+            try:
+                self.call(i % self.n)
+                key = "ok"
+            except self._typed as e:
+                key, err = "typed", e
+            except Exception as e:           # noqa: BLE001 — tallied
+                key, err = "lost", e
+            with self._lock:
+                self.outcomes[key] += 1
+                if key == "typed":
+                    name = type(err).__name__
+                    self.typed_by[name] = self.typed_by.get(name, 0) + 1
+                if key != "ok" and len(self.errors) < 8:
+                    self.errors.append(f"{type(err).__name__}: {err}")
+            i += FLEET_CLIENTS
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(900.0)
+        return False
+
+    def ok_count(self):
+        with self._lock:
+            return self.outcomes["ok"]
+
+    def check_nothing_lost(self, tag, typed_ok=None, most=0):
+        """Every request answered, or (at most ``most`` of them) failed
+        with the typed error ``typed_ok`` names, none lost."""
+        o = self.outcomes
+        allowed = o["typed"] == 0 or (
+            set(self.typed_by) == {typed_ok} and o["typed"] <= most)
+        check(o["ok"] > 0 and o["lost"] == 0 and allowed,
+              f"{tag}: requests under the drill {o} {self.typed_by}: "
+              f"{self.errors}")
+
+
+def pct_ms(samples):
+    """p50 / p99 of ``samples`` (ms)."""
+    s = np.asarray(samples, np.float64)
+    return {"p50_ms": float(np.percentile(s, 50)),
+            "p99_ms": float(np.percentile(s, 99)), "n": int(s.size)}
+
+
+def phase_cluster_serve(torch, fluid, fa, card, served):
+    """ROADMAP item 8, the main path of this slice: the Llama-3-8B width,
+    all 32 layers in bf16, behind ``cluster.serve_cluster(factory,
+    replicas=2, warmup=True)`` (the call ``Inferencer.serve(replicas=2)``
+    makes), the factory building ``ServingEngine``s over ``phase_serve``'s
+    bf16 scope and buckets, so the pool holds the weights once. Its 8
+    request lengths sent concurrently; each answer held to the request
+    alone at ``phase_serve``'s bf16 tier; both replicas take traffic; K1
+    launched 32 times a dispatch summed over both replicas, all on
+    flash_fwd_mma, K2/K3 none; no step build after warmup; the peak under
+    CLUSTER_PEAK_OVER_WEIGHTS x the weights' bytes. Then under in-flight
+    traffic a ``pool.rolling_restart()`` and the ``serving_replica_crash``
+    drill: no request lost, the replica revived. Returns (launches by
+    kernel symbol, stats)."""
+    from paddle_tpu_torch import cluster
+    from paddle_tpu_torch.resilience import faultinject
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    tag = "cluster_serve"
+    t_phase = time.perf_counter()
+    cfg, infer, logits, scope = (served[k] for k in ("cfg", "infer",
+                                                     "logits", "scope"))
+    buckets, reqs, lengths, alone = (served[k] for k in (
+        "buckets", "reqs", "lengths", "alone"))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in scope.vars.values())
+
+    def factory():
+        return ServingEngine(infer, ["tokens"], [logits], scope=scope,
+                             buckets=buckets,
+                             config=ServingConfig(max_wait_ms=20.0,
+                                                  default_timeout_s=600.0))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    router = cluster.serve_cluster(factory, replicas=2, warmup=True)
+    try:
+        up_s = time.perf_counter() - t0
+        engines = [r.engine for r in router.pool.replicas()]
+        check(len(engines) == 2 and engines[0] is not engines[1]
+              and all(e.scope is scope for e in engines),
+              f"{tag}: the pool's engines do not share the one scope")
+        start = threading.Barrier(len(reqs))
+
+        def call(r):
+            start.wait()
+            t = time.perf_counter()
+            out = router.infer({"tokens": r}, timeout=600.0)
+            return out, (time.perf_counter() - t) * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            results = list(pool.map(call, reqs))
+        wall = time.perf_counter() - t0
+        by_kernel = launches_by_kernel(fa)
+        launches = fa.flash_fwd.launches
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        per = [e.stats() for e in engines]
+        for e in engines:
+            e.assert_no_recompiles()
+        warm = [e.exe.total_compiles() for e in engines]
+        snap = router.stats()
+
+        # the drills, under in-flight traffic
+        def chaos_call(i):
+            out = router.infer({"tokens": reqs[i]}, timeout=600.0)
+            check(out[0].shape[-1] == cfg.vocab_size, "answer shape")
+
+        t0 = time.perf_counter()
+        with ChaosLoad(chaos_call, len(reqs)) as load:
+            time.sleep(0.5)
+            t1 = time.perf_counter()
+            restart = router.pool.rolling_restart()
+            restart_s = time.perf_counter() - t1
+            spec = faultinject.arm("serving_replica_crash", at=0, times=1)
+            t1 = time.perf_counter()
+            while not spec.fired and time.perf_counter() - t1 < 120.0:
+                time.sleep(0.01)
+            faultinject.disarm("serving_replica_crash")
+            check(spec.fired, f"{tag}: the replica crash never fired")
+            while router.pool.ready_count() < 2 \
+                    and time.perf_counter() - t1 < 120.0:
+                time.sleep(0.01)
+            failover_s = time.perf_counter() - t1
+            time.sleep(0.5)
+        drill_s = time.perf_counter() - t0
+        load.check_nothing_lost(tag)
+        after = router.stats()
+    finally:
+        faultinject.disarm()
+        router.close(drain=True)
+    dispatches = [w + p["batches_total"] for w, p in zip(warm, per)]
+    check(all(w == served["warm_signatures"] for w in warm),
+          f"{tag}: warmup built {warm} steps, phase_serve "
+          f"{served['warm_signatures']}")
+    check(all(p["batches_total"] > 0 for p in per),
+          f"{tag}: a replica took no traffic "
+          f"({[p['batches_total'] for p in per]} batches)")
+    check(snap["cluster"]["responses_total"] == len(reqs),
+          f"{tag}: {snap['cluster']['responses_total']} responses of "
+          f"{len(reqs)}")
+    check(launches == cfg.n_layers * sum(dispatches)
+          and by_kernel["flash_fwd_mma"] == launches
+          and not fa_others(by_kernel, "flash_fwd_mma"),
+          f"{tag}: K1 launches {by_kernel} != {cfg.n_layers} layers x "
+          f"{dispatches} dispatches, all flash_fwd_mma")
+    worst_rms = 0.0
+    for n, (ans, _), want in zip(lengths, results, alone):
+        got = ans[0][:, :n]
+        check(np.isfinite(got).all(), f"{tag}: non-finite logits (len {n})")
+        err = np.abs(got - want)
+        rms = float(np.sqrt((err ** 2).mean() / (want ** 2).mean()))
+        worst_rms = max(worst_rms, rms)
+        g_tok, a_tok = int(got[0, -1].argmax()), int(want[0, -1].argmax())
+        top2 = np.sort(want[0, -1])[-2:]
+        check(rms <= TOL_LOGITS_BF16_RMS,
+              f"{tag}: len {n}: rel rms {rms:.3e} > {TOL_LOGITS_BF16_RMS}")
+        check(g_tok == a_tok or float(top2[1] - top2[0])
+              <= 2 * float(err[0, -1].max()),
+              f"{tag}: len {n}: greedy {g_tok} != {a_tok} beyond the "
+              "flip rule")
+    check(peak < CLUSTER_PEAK_OVER_WEIGHTS * weight_bytes,
+          f"{tag}: peak {peak / 1e9:.2f} GB >= "
+          f"{CLUSTER_PEAK_OVER_WEIGHTS} x the {weight_bytes / 1e9:.2f} GB "
+          "of weights: the scope is not held once")
+    check(len(restart["restarted"]) == 2
+          and restart["min_ready_observed"] >= 1,
+          f"{tag}: rolling restart {restart}")
+    check(after["revives_total"] >= 1 and after["ready_replicas"] == 2,
+          f"{tag}: the crashed replica was not revived "
+          f"(revives {after['revives_total']}, ready "
+          f"{after['ready_replicas']})")
+    lat = pct_ms([ms for _, ms in results])
+    stats = {"replicas": 2, "requests": len(reqs), "wall_s": wall,
+             "pool_up_s": up_s, "request_ms": lat,
+             "cluster_latency": after["cluster"]["request_latency"],
+             "lone_engine_p50_ms": served["p50_ms"],
+             "lone_engine_p99_ms": served["p99_ms"],
+             "batches_by_replica": [p["batches_total"] for p in per],
+             "dispatches": dispatches, "k1_launches": launches,
+             "max_rel_rms_vs_alone": worst_rms,
+             "peak_gb": peak / 1e9, "weights_gb": weight_bytes / 1e9,
+             "rolling_restart_s": restart_s,
+             "failover_window_s": failover_s, "drill_s": drill_s,
+             "drill_requests": load.outcomes,
+             "revives_total": after["revives_total"],
+             "restarts_total": after["restarts_total"],
+             "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"{tag}: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def fa_others(by_kernel, keep):
+    """The launches in ``by_kernel`` other than ``keep``'s (plain route
+    entries included)."""
+    return {k: n for k, n in by_kernel.items() if k != keep and n}
+
+
+def phase_cluster_remote(torch, fluid, fa, card, saved):
+    """The socket fabric on the card, over ``phase_io_saved_serve``'s
+    saved Transformer-base (float32, K1 f32 at D = 64): two ``python -m
+    paddle_tpu_torch.cluster.net_worker --dir D --port 0`` processes and
+    ``Inferencer.from_inference_model(D).serve(remotes=[a, b])``; each
+    request, sent alone, answered bit-equal to a lone in-process engine
+    on the same directory (whose K1 launches are held exact), as is one
+    ``ProcessReplica`` (the pipe transport); ``provision_from_remote``
+    fills a fresh directory whose files' sha256 equal the source's; one
+    server ``kill -9``ed under load, the router re-routing on typed
+    RemoteUnavailableErrors, nothing lost; then a ``DeploymentManager``
+    over an in-process pool on D: a canary equal to v1 promotes, one with
+    perturbed weights fails the golden-set numerics gate and rolls back,
+    nothing lost. Returns (launches by kernel symbol, stats)."""
+    from paddle_tpu_torch import cluster
+    from paddle_tpu_torch.io.artifact_store import dir_manifest
+    from paddle_tpu_torch.serving import ServingEngine
+
+    tag = "cluster_remote"
+    t_phase = time.perf_counter()
+    work, reqs, config, n_dec = (saved[k] for k in ("dir", "reqs",
+                                                    "config", "n_dec"))
+    k1 = F32_KERNELS["flash_fwd"]
+    args = ["--dir", work, "--host", "127.0.0.1", "--port", "0",
+            "--max-wait-ms", str(config.max_wait_ms),
+            "--default-timeout-s", str(config.default_timeout_s)]
+    t0 = time.perf_counter()
+    procs = [spawn_worker("net_worker", args) for _ in range(2)]
+    proc_rep = cluster.ProcessReplica(
+        work, name="proc-0", max_wait_ms=config.max_wait_ms,
+        default_timeout_s=config.default_timeout_s)
+    router = None
+    try:
+        # the lone in-process engine: each request alone (the main path
+        # here: counts reset just before, read just after)
+        fa.reset_launch_counts()
+        lone = ServingEngine.from_saved_model(work, config=config)
+        try:
+            warm = lone.warmup()
+            alone, lone_ms = [], []
+            for r in reqs:
+                t = time.perf_counter()
+                alone.append(lone.infer(r, timeout=600.0))
+                lone_ms.append((time.perf_counter() - t) * 1e3)
+            lone.assert_no_recompiles()
+            lone_batches = lone.stats()["batches_total"]
+        finally:
+            lone.close()
+        by_kernel = launches_by_kernel(fa)
+        dispatches = warm["signatures"] + lone_batches
+        check(by_kernel[k1] == n_dec * dispatches
+              and not fa_others(by_kernel, k1),
+              f"{tag}: the lone engine's launches {by_kernel} != {n_dec} "
+              f"x {dispatches} dispatches on {k1}")
+
+        addrs = [worker_addr(p, tag) for p in procs]
+        spawn_s = time.perf_counter() - t0
+        inf = fluid.Inferencer.from_inference_model(work)
+        router = inf.serve(remotes=addrs)
+        check(isinstance(router, cluster.Router),
+              f"{tag}: serve(remotes=) gave {type(router).__name__}")
+        remote_ms = []
+        for i, r in enumerate(reqs):
+            t = time.perf_counter()
+            got = router.infer(r, timeout=600.0)
+            remote_ms.append((time.perf_counter() - t) * 1e3)
+            check(isinstance(got[0], np.ndarray)
+                  and np.array_equal(got[0], alone[i][0]),
+                  f"{tag}: request {i} through the remotes differs from "
+                  "the lone engine's")
+        served_by = [r.stats().get("responses_total", 0)
+                     for r in router.pool.replicas()]
+        proc_rep.wait_ready()
+        proc_ms = []
+        for i, r in enumerate(reqs):
+            t = time.perf_counter()
+            got = proc_rep.submit(r, timeout=600.0).result(600.0)
+            proc_ms.append((time.perf_counter() - t) * 1e3)
+            check(np.array_equal(got[0], alone[i][0]),
+                  f"{tag}: request {i} through the ProcessReplica differs "
+                  "from the lone engine's")
+
+        dest = fleet_workdir("provisioned")
+        t0 = time.perf_counter()
+        prov = cluster.provision_from_remote(addrs[0], dest)
+        prov_s = time.perf_counter() - t0
+        check(dir_manifest(dest) == dir_manifest(work)
+              and prov["files"] == len(dir_manifest(work)),
+              f"{tag}: the provisioned directory's sha256s differ "
+              f"({prov})")
+
+        def remote_call(i):
+            # batched with other clients' requests: another GEMM shape
+            # than alone, so held at the float32 tier, not bit for bit
+            got = router.infer(reqs[i], timeout=600.0)
+            check(rel_rms(got[0], alone[i][0]) <= TOL_LOGITS_REL_RMS_F32,
+                  f"request {i} answered beyond the f32 tier under the "
+                  "drill")
+
+        before = router.pool.stats()
+        with ChaosLoad(remote_call, len(reqs)) as load:
+            time.sleep(1.0)
+            t1 = time.perf_counter()
+            procs[1].kill()                 # kill -9
+            procs[1].wait(30)
+            ok_at_kill = load.ok_count()
+            time.sleep(2.0)
+            ok_after = load.ok_count() - ok_at_kill
+        kill_s = time.perf_counter() - t1
+        # a request in flight on the killed server resolves with the
+        # typed, retriable RemoteUnavailableError (Router.infer fails
+        # over on a dead worker or a closed engine, as the reference's);
+        # every later request is re-routed and answered
+        load.check_nothing_lost(tag, typed_ok="RemoteUnavailableError",
+                                most=FLEET_CLIENTS)
+        check(ok_after > 0, f"{tag}: nothing answered after the kill")
+        after = router.pool.stats()
+        rerouted = sum(after[k] - before[k]
+                       for k in ("reroutes_total", "failovers_total"))
+        dead = router.pool.replicas()[1]
+        check(not dead.alive() and dead.health_state() != "READY",
+              f"{tag}: the killed server's replica is still in rotation "
+              f"({dead.health_state()})")
+        router.close()
+        router = None
+        deploy = fleet_deploy(tag, work, reqs, config)
+    finally:
+        if router is not None:
+            router.close()
+        proc_rep.close()
+        stop_workers(procs)
+    stats = {"requests": len(reqs), "servers": 2, "spawn_s": spawn_s,
+             "lone_request_ms": pct_ms(lone_ms),
+             "remote_request_ms": pct_ms(remote_ms),
+             "process_replica_request_ms": pct_ms(proc_ms),
+             "remote_overhead_p50_ms": float(np.median(remote_ms))
+             - float(np.median(lone_ms)),
+             "responses_by_server": served_by,
+             "provision": dict(prov, wall_s=prov_s),
+             "kill_drill": {"requests": load.outcomes,
+                            "typed": load.typed_by, "window_s": kill_s,
+                            "answered_after_kill": ok_after,
+                            "rerouted": rerouted,
+                            "killed_replica_state": str(
+                                dead.health_state())},
+             "deploy": deploy, "k1_launches_lone": by_kernel[k1],
+             "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"{tag}: " + json.dumps(stats))
+    return by_kernel, stats
+
+
+def fleet_deploy(tag, work, reqs, config):
+    """Two canaries through a ``DeploymentManager`` over an in-process
+    pool of two engines on ``work``, under load: v2 (the same model)
+    promotes; v3 (every weight x 1.01) fails the golden-set numerics
+    gate and rolls back. Returns the reports' summary."""
+    from paddle_tpu_torch import cluster
+    from paddle_tpu_torch.serving import ServingEngine
+
+    def v1():
+        return ServingEngine.from_saved_model(work, config=config)
+
+    def perturbed():
+        eng = ServingEngine.from_saved_model(work, config=config)
+        for t in eng.scope.vars.values():
+            if hasattr(t, "is_floating_point") and t.is_floating_point():
+                t.mul_(1.01)
+        return eng
+
+    router = cluster.serve_cluster(v1, replicas=2, warmup=True)
+    try:
+        mgr = cluster.DeploymentManager(router)
+        mgr.register("v1", factory=v1)
+        mgr.register("v2", factory=v1)
+        mgr.register("v3", factory=perturbed)
+        mgr.set_incumbent("v1")
+        golden = reqs[:4]
+        mgr.record_golden(golden, save=False)
+
+        def call(i):
+            router.infer(reqs[i], timeout=600.0)
+
+        t0 = time.perf_counter()
+        with ChaosLoad(call, len(reqs)) as load:
+            good = mgr.deploy_canary("v2", replicas=1)
+            check(good["accepted"] and good["numerics"]["ok"],
+                  f"{tag}: the v1-equal canary was rejected: "
+                  f"{good.get('rejected')} {good.get('numerics')}")
+            promo = mgr.promote(stages=(0.5, 1.0), stage_s=1.0,
+                                poll_s=0.05)
+            check(promo["accepted"] and mgr.incumbent == "v2",
+                  f"{tag}: promotion of v2 {promo.get('rejected')}: "
+                  f"{promo.get('reason')}")
+            mgr.record_golden(golden, save=False)
+            bad = mgr.deploy_canary("v3", replicas=1)
+            check(not bad["accepted"] and bad["rejected"] == "numerics"
+                  and bad["rollback"]["action"] == "rollback",
+                  f"{tag}: the perturbed canary was not rolled back: "
+                  f"{bad.get('rejected')}")
+            check(mgr.canary is None and mgr.incumbent == "v2"
+                  and router.weights() == {"v2": 1.0}
+                  and all(r.version == "v2"
+                          for r in router.pool.replicas()),
+                  f"{tag}: after the rollback {mgr.status()['weights']}")
+        load.check_nothing_lost(f"{tag} deploy")
+        return {"wall_s": time.perf_counter() - t0,
+                "requests": load.outcomes,
+                "v2": {"accepted": True,
+                       "rewarm_compiles": good["rewarm_compiles"],
+                       "promote_rewarm_compiles":
+                           promo.get("rewarm_compiles")},
+                "v3": {"rejected": bad["rejected"],
+                       "worst": bad["numerics"].get("worst"),
+                       "rollback_rewarm_compiles":
+                           bad["rollback"]["rewarm_compiles"]}}
+    finally:
+        router.close(drain=True)
+
+
+def phase_cluster_decode(torch, fluid, fa, card, dec):
+    """The decode engine behind a pool on the card, at the
+    ``decode_engine`` phase's depth (DEC_LAYERS of the 8B width, bf16)
+    and weights: those weights saved with ``save_persistables`` and
+    loaded by ``Inferencer(infer_func, param_path)``, whose
+    ``serve_decode(cfg, replicas=2)`` is the pool; one replica takes the
+    prefill role (``prefill_only`` submits that come back as KV handoff
+    blobs) and one the decode role, and ``Router.generate`` serves that
+    phase's DEC_REQUESTS prompts from DEC_CLIENTS clients: the tokens
+    equal the lone engine's, every request crosses one handoff
+    (exported and imported once each), no step build after warmup, and
+    the paged ops launch no attention kernel. Returns (launches by
+    kernel symbol, stats)."""
+    from paddle_tpu_torch.models.llama import build_llama_generator
+    from paddle_tpu_torch.serving import DecodeConfig
+
+    tag = "cluster_decode"
+    t_phase = time.perf_counter()
+    cfg, scope, prompts, outs = (dec[k] for k in ("cfg", "scope",
+                                                  "prompts", "outs"))
+    gen, _, _ = gen_programs(fluid, cfg, DEC_PROMPT_RANGE[1],
+                             max_new_tokens=1)
+    params = fleet_workdir("decode_params")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(fluid.Executor(), params,
+                                   main_program=gen)
+
+    def infer_func():
+        ptok = fluid.layers.data(name="ptok",
+                                 shape=[-1, DEC_PROMPT_RANGE[1]],
+                                 dtype="int64", append_batch_size=False)
+        return build_llama_generator(cfg, ptok, max_new_tokens=1)
+
+    inf = fluid.Inferencer(infer_func, params)      # the card
+    load_s = time.perf_counter() - t0
+    new = DEC_CONFIG["max_new_tokens"]
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    router = inf.serve_decode(cfg, config=DecodeConfig(
+        default_timeout_s=900.0, **DEC_CONFIG), replicas=2, warmup=True)
+    try:
+        up_s = time.perf_counter() - t0
+        reps = router.pool.replicas()
+        reps[0].role, reps[1].role = "prefill", "decode"
+        engines = [r.engine for r in reps]
+        check(all(e.scope is inf.scope for e in engines),
+              f"{tag}: the decode engines do not share the Inferencer's "
+              "scope")
+        got, ms = [None] * len(prompts), [None] * len(prompts)
+
+        def client(k):
+            for i in range(k, len(prompts), DEC_CLIENTS):
+                t = time.perf_counter()
+                got[i] = np.asarray(router.generate(
+                    prompts[i], max_new=new, timeout=900.0))
+                ms[i] = (time.perf_counter() - t) * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(DEC_CLIENTS) as pool:
+            list(pool.map(client, range(DEC_CLIENTS)))
+        wall = time.perf_counter() - t0
+        by_kernel = launches_by_kernel(fa)
+        for e in engines:
+            e.assert_no_recompiles()
+        est = [e.stats() for e in engines]
+        pst = router.pool.stats()
+    finally:
+        router.close(drain=True)
+    same = [i for i, (g, w) in enumerate(zip(got, outs))
+            if g is None or not np.array_equal(g, np.asarray(w))]
+    check(not same, f"{tag}: requests {same} differ from the lone "
+                    "engine's tokens")
+    exports, imports = (est[0]["handoff_export_total"],
+                        est[1]["handoff_import_total"])
+    check(exports == imports == len(prompts)
+          and pst["handoffs_total"] == len(prompts)
+          and est[0].get("handoff_import_total", 0) == 0
+          and est[1].get("handoff_export_total", 0) == 0,
+          f"{tag}: handoffs exported {exports}, imported {imports}, "
+          f"routed {pst['handoffs_total']} for {len(prompts)} requests")
+    check(not any(by_kernel.values()),
+          f"{tag}: the paged ops launched attention kernels {by_kernel}")
+    stats = {"layers": cfg.n_layers, "requests": len(prompts),
+             "clients": DEC_CLIENTS, "save_and_load_s": load_s,
+             "pool_up_s": up_s, "wave_s": wall,
+             "tokens_per_s": sum(len(g) for g in got) / wall,
+             "request_ms": pct_ms(ms),
+             "handoffs": {"exported": exports, "imported": imports,
+                          "redrives": pst["handoff_redrives_total"]},
+             "ttft_ms_prefill_replica": {
+                 k: est[0]["ttft_s"][k] for k in ("p50_ms", "p99_ms")},
+             "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"{tag}: " + json.dumps(stats))
+    del inf
+    return by_kernel, stats
+
+
+def phase_train_fabric(torch, fluid, fa, card):
+    """The train fabric on the card: a ``TrainCoordinator`` over
+    ``python -m paddle_tpu_torch.cluster.train_worker`` processes
+    computing ``ProgramGradTask`` (its defaults, the reference's one
+    program task) gradient sums, TRAIN_FABRIC_STEPS steps, commits every
+    TRAIN_FABRIC_COMMIT, TRAIN_FABRIC_SHARDS shards. The uninterrupted
+    two-worker run's parameter sha is held by a one-worker run, by a run
+    whose worker dies at step TRAIN_FABRIC_CRASH_STEP
+    (``trainer_crash_at_step``, a hard exit) and is replaced by one that
+    provisions over the wire and rejoins, and by a ``coordinator_crash``
+    run resumed by a new coordinator; its parameters within
+    TOL_TRAIN_FABRIC_CPU of the same run on the CPU (in-process workers).
+    Returns (launches by kernel symbol in this process, stats)."""
+    from paddle_tpu_torch.cluster.train_fabric import (ProgramGradTask,
+                                                       TrainCoordinator)
+    from paddle_tpu_torch.cluster.train_worker import TrainWorkerServer
+    from paddle_tpu_torch.resilience import faultinject
+    from paddle_tpu_torch.resilience.checkpoint import state_sha
+
+    tag = "train_fabric"
+    t_phase = time.perf_counter()
+    root = fleet_workdir("train")
+
+    def worker(name, *extra, env=None):
+        return spawn_worker("train_worker", [
+            "--host", "127.0.0.1", "--port", "0",
+            "--artifact-dir", os.path.join(root, f"af_{name}"),
+            *extra], env=env)
+
+    t0 = time.perf_counter()
+    w1, w2 = worker("w1"), worker("w2")
+    w3 = worker("w3", "--hard-exit", env={
+        "PADDLE_TPU_FAULTS":
+            f"trainer_crash_at_step@{TRAIN_FABRIC_CRASH_STEP - 1}"})
+    procs = [w1, w2, w3]
+    runs = {}
+
+    def coordinator(name, addrs):
+        return TrainCoordinator(
+            ProgramGradTask(), addrs, os.path.join(root, name),
+            commit_interval=TRAIN_FABRIC_COMMIT,
+            n_shards=TRAIN_FABRIC_SHARDS, step_deadline_s=120.0,
+            admit_deadline_s=60.0, readmit_interval_s=0.1)
+
+    def finish(name, co, t_start, steps):
+        runs[name] = {"commits": co.commits(), "sha": state_sha(co.state),
+                      "state": {k: np.array(v) for k, v in
+                                co.state.items()},
+                      "step_ms": (time.perf_counter() - t_start) * 1e3
+                      / steps, "evictions": co.evictions_total,
+                      "rejoins": co.rejoins_total}
+        co.close()
+
+    try:
+        a1, a2, a3 = (worker_addr(p, tag) for p in procs)
+        # the replacement provisions from w1 while the first runs go
+        w4 = worker("w4", "--provision-from", a1)
+        procs.append(w4)
+        spawn_s = time.perf_counter() - t0
+        fa.reset_launch_counts()
+        for name, addrs in (("two_workers", [a1, a2]),
+                            ("one_worker", [a1])):
+            co = coordinator(name, addrs)
+            t0 = time.perf_counter()
+            co.run(TRAIN_FABRIC_STEPS)
+            finish(name, co, t0, TRAIN_FABRIC_STEPS)
+        # a worker dies at the crash step; the replacement rejoins
+        co = coordinator("trainer_crash", [a3, a1])
+        t0 = time.perf_counter()
+        co.run(TRAIN_FABRIC_CRASH_STEP)
+        w3.wait(60)
+        check(co.evictions_total >= 1 and w3.returncode is not None,
+              f"{tag}: the crashed worker was not evicted "
+              f"(evictions {co.evictions_total}, rc {w3.returncode})")
+        t1 = time.perf_counter()
+        a4 = worker_addr(w4, tag)
+        client = co.admit(a4)
+        co.run(TRAIN_FABRIC_STEPS - TRAIN_FABRIC_CRASH_STEP)
+        rejoin_s = time.perf_counter() - t1
+        check(client.admitted and w4.poll() is None,
+              f"{tag}: the replacement worker was not admitted")
+        finish("trainer_crash", co, t0, TRAIN_FABRIC_STEPS)
+        # the coordinator dies before step TRAIN_FABRIC_CRASH_STEP + 1; a
+        # new one resumes from the last commit
+        co = coordinator("coordinator_crash", [a1, a2])
+        t0 = time.perf_counter()
+        faultinject.arm("coordinator_crash", at=TRAIN_FABRIC_CRASH_STEP)
+        try:
+            co.run(TRAIN_FABRIC_STEPS)
+            check(False, f"{tag}: the coordinator crash never fired")
+        except faultinject.SimulatedCrash:
+            pass
+        finally:
+            faultinject.disarm()
+        check(co.step == TRAIN_FABRIC_CRASH_STEP,
+              f"{tag}: the coordinator crashed at step {co.step}")
+        co.close()
+        co = coordinator("coordinator_crash", [a1, a2])
+        resumed_at = co.step
+        check(resumed_at == TRAIN_FABRIC_CRASH_STEP
+              // TRAIN_FABRIC_COMMIT * TRAIN_FABRIC_COMMIT,
+              f"{tag}: the new coordinator resumed at step {resumed_at}")
+        co.run(TRAIN_FABRIC_STEPS - resumed_at)
+        finish("coordinator_crash", co, t0, TRAIN_FABRIC_STEPS)
+        by_kernel = launches_by_kernel(fa)
+    finally:
+        faultinject.disarm()
+        stop_workers(procs)
+    # the same run on the CPU, in-process workers on the host
+    host = [TrainWorkerServer(place=fluid.CPUPlace()) for _ in range(2)]
+    try:
+        co = coordinator("cpu", [w.addr for w in host])
+        t0 = time.perf_counter()
+        co.run(TRAIN_FABRIC_STEPS)
+        finish("cpu", co, t0, TRAIN_FABRIC_STEPS)
+    finally:
+        for w in host:
+            w.close()
+    want = runs["two_workers"]
+    for name in ("one_worker", "trainer_crash", "coordinator_crash"):
+        check(runs[name]["sha"] == want["sha"]
+              and runs[name]["commits"][-1] == want["commits"][-1],
+              f"{tag}: the {name} run's parameter sha "
+              f"{runs[name]['sha'][:12]} != the two-worker run's "
+              f"{want['sha'][:12]}")
+    rtol, atol = TOL_TRAIN_FABRIC_CPU
+    cpu_err = 0.0
+    for name, v in want["state"].items():
+        c = runs["cpu"]["state"][name]
+        cpu_err = max(cpu_err, float(np.abs(v - c).max()))
+        check(np.allclose(v, c, rtol=rtol, atol=atol),
+              f"{tag}: {name} on the card vs the CPU beyond rtol {rtol}, "
+              f"atol {atol} (max |d| {cpu_err:.3e})")
+    check(not any(by_kernel.values()),
+          f"{tag}: this process launched attention kernels {by_kernel}")
+    stats = {"steps": TRAIN_FABRIC_STEPS,
+             "commit_interval": TRAIN_FABRIC_COMMIT,
+             "shards": TRAIN_FABRIC_SHARDS, "spawn_s": spawn_s,
+             "step_ms": {n: r["step_ms"] for n, r in runs.items()},
+             "sha": want["sha"][:16], "resumed_at": resumed_at,
+             "replacement_rejoin_s": rejoin_s,
+             "max_abs_vs_cpu": cpu_err,
+             "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"{tag}: " + json.dumps(stats))
+    return by_kernel, stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -8369,8 +9198,17 @@ def main():
         free_card(torch)
         # serving: bf16, then float32, where the answers can be held to
         # the request run alone logit for logit
+        # ... and (ROADMAP item 8, the main path of this slice) the same
+        # scope behind a pool of two replicas
+        fleet = {}
+
+        def cluster_serve(served):
+            free_card(torch)
+            fleet["cluster_serve"] = phase_cluster_serve(torch, fluid, fa,
+                                                         smi, served)
+
         serve_launches, serve_bf16 = phase_serve(torch, fluid, "bfloat16",
-                                                 smi)
+                                                 smi, then=cluster_serve)
         free_card(torch)
         serve_f32_launches, serve_f32 = phase_serve(torch, fluid, "float32",
                                                     smi)
@@ -8429,8 +9267,16 @@ def main():
         # in bf16 from disk
         io_train_launches, _, io_run = phase_io_train_resume(
             torch, fluid, fa, smi)
+        # and (item 8) that directory behind remote and process
+        # replicas, provisioned over the wire, with canary deploys
+
+        def cluster_remote(saved):
+            fleet["cluster_remote"] = phase_cluster_remote(
+                torch, fluid, fa, smi, saved)
+
         io_serve_launches, _ = phase_io_saved_serve(torch, fluid, fa, smi,
-                                                    io_run)
+                                                    io_run,
+                                                    then=cluster_remote)
         del io_run
         free_card(torch)
         io_llama_launches, _ = phase_io_llama_saved(torch, fluid, fa, smi)
@@ -8446,7 +9292,22 @@ def main():
         free_card(torch)
         # ROADMAP item 4b, the main path of this slice: the paged decode
         # engine serving the 8B width
-        dec_launches, _ = phase_decode_engine(torch, fluid, fa, smi)
+        # and (item 8) the engine's scope behind a prefill replica and a
+        # decode replica
+
+        def cluster_decode(dec):
+            fleet["cluster_decode"] = phase_cluster_decode(
+                torch, fluid, fa, smi, dec)
+
+        dec_launches, _ = phase_decode_engine(torch, fluid, fa, smi,
+                                              then=cluster_decode)
+        free_card(torch)
+        # item 8: the train fabric's workers on the card
+        fleet["train_fabric"] = phase_train_fabric(torch, fluid, fa, smi)
+        check(sorted(fleet) == ["cluster_decode", "cluster_remote",
+                                "cluster_serve", "train_fabric"],
+              f"the fleet phases that ran: {sorted(fleet)}")
+        shutil.rmtree(FLEET_ROOT, ignore_errors=True)
         free_card(torch)
         # ROADMAP item 5, the main path of this slice: the reference's
         # primary benchmark, ResNet-50 at 224² and batch 128, trained in
@@ -8525,6 +9386,8 @@ def main():
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_workers()
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -8576,7 +9439,8 @@ def main():
              "control_flow": cf_launches,
              "faster_rcnn_train": frcnn_launches,
              "ssd_train": ssd_launches,
-             "detection_extras": extras_launches}
+             "detection_extras": extras_launches,
+             **{name: launches for name, (launches, _) in fleet.items()}}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),

@@ -58,6 +58,7 @@ from .core.backward import append_backward     # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import resilience                       # noqa: F401
 from . import serving                          # noqa: F401
+from . import cluster                          # noqa: F401
 from . import weights                          # noqa: F401
 from . import debugger                         # noqa: F401
 from . import analysis                         # noqa: F401
@@ -87,10 +88,5 @@ from .concurrency import (make_channel, channel_send, channel_recv,  # noqa: F40
                           channel_close, Select)
 from .parallel import (ParallelExecutor, ExecutionStrategy,  # noqa: F401
                        BuildStrategy, DistributeTranspiler)
-from .waiting import FLEET, module_getattr
 
 __version__ = "0.1.0"
-
-# the reference's top-level names of a later ROADMAP.md item
-WAITING = {"cluster": FLEET}
-__getattr__ = module_getattr(__name__, WAITING)

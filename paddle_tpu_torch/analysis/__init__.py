@@ -9,13 +9,11 @@ verifier/lint/cost paths never run an op, so they are safe to run over
 any program before the first executor dispatch — the build-time
 diagnostics layer the reference gets from per-op C++ InferShape. The
 ONE exception is the rewrite pipeline's fold pass, which evaluates the
-port's lowering rules eagerly (lazy import, only when it runs).
-
-Not ported yet, and refused by name: the source-level checkers
-(``racecheck``, ``protocheck``), with ROADMAP.md item 'Fleet and
-analyzers'.
+port's lowering rules eagerly (lazy import, only when it runs). The
+source-level checkers ``racecheck`` and ``protocheck`` lint the port's
+own concurrency and wire code (``python -m
+paddle_tpu_torch.analysis.racecheck`` / ``.protocheck``).
 """
-from ..waiting import FLEET, module_getattr
 from .diagnostics import (Diagnostic, SourceDiagnostic,  # noqa: F401
                           VerifyError, VerifyWarning,
                           ERROR, WARNING, INFO, CODES, errors)
@@ -38,6 +36,8 @@ from .cost import (OpCost, CostReport, program_cost,  # noqa: F401
                    recommend_remat_policy, estimate_remat_residuals,
                    estimate_remat_policies)
 from . import lints  # noqa: F401
+from . import racecheck  # noqa: F401  (source-level; no IR imports)
+from . import protocheck  # noqa: F401  (source-level; no IR imports)
 
 __all__ = ["Diagnostic", "SourceDiagnostic", "VerifyError",
            "VerifyWarning", "ERROR",
@@ -54,7 +54,3 @@ __all__ = ["Diagnostic", "SourceDiagnostic", "VerifyError",
            "axis_permutation", "OpCost", "CostReport", "program_cost",
            "recommend_remat_policy", "estimate_remat_residuals",
            "estimate_remat_policies"]
-
-#: the reference's analysis names the port refuses, by ROADMAP item
-WAITING = dict.fromkeys(("racecheck", "protocheck"), FLEET)
-__getattr__ = module_getattr(__name__, WAITING)

@@ -12,8 +12,7 @@ objects that render human-readable and serialize to JSON.
 meanings, the TPU-named lints (``tpu-pad``, ``tpu-hostile-layout``)
 included — so the two packages' findings compare one for one (two
 source-level meanings drop the reference's history notes). The
-source-level codes (racecheck, protocheck) belong to analysis passes
-the port has not ported yet (ROADMAP.md item 'Fleet and analyzers').
+source-level codes are racecheck's and protocheck's.
 """
 
 __all__ = ["Diagnostic", "SourceDiagnostic", "VerifyError",

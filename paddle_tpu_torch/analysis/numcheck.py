@@ -28,8 +28,8 @@ analysis but never make it wrong.
 Findings use the documented CODES vocabulary (diagnostics.py):
 ``fp16-overflow-risk``, ``cast-precision-loss``, ``int8-scale-clip``,
 ``domain-hazard``, ``amp-unprotected-reduce``. The reference's CLIs
-over it (numlint, fluidlint) wait for ROADMAP.md item 'Fleet and
-analyzers'.
+over it (``tools/numlint.py``, ``tools/fluidlint.py``) are tools of the
+JAX package, which the port does not copy.
 
 The analysis also *gates rewrites*: ``amp_fold_admissible``,
 ``amp_fuse_admissible`` and ``amp_layout_admissible`` replace the old

@@ -20,7 +20,7 @@ __all__ = ["register_op", "get_op", "has_op", "registered_ops",
            "registered_op_types", "register_infer", "get_infer",
            "has_infer", "registered_infer_types", "register_numerics",
            "get_numerics", "has_numerics", "registered_numerics_types",
-           "canonical_int", "draws_rng", "WAITING"]
+           "canonical_int", "draws_rng"]
 
 _REGISTRY = {}
 
@@ -34,13 +34,6 @@ _INFER = {}
 # op type → numerics transfer function (analysis/numcheck.py engine):
 # how an op's value RANGES behave. Same colocation and purity rule.
 _NUMERICS = {}
-
-# The reference's op types the port does not register yet, by the
-# ROADMAP.md item (section 1) that ports them; ``get_op`` names it.
-# Every op type of the reference is ported: none waits.
-_ITEMS = {}
-#: op type -> the ROADMAP.md item that ports it
-WAITING = {op: item for item, ops in _ITEMS.items() for op in ops}
 
 
 def canonical_int():
@@ -103,11 +96,6 @@ def get_op(type):
     try:
         return _REGISTRY[type]
     except KeyError:
-        if type in WAITING:
-            raise NotImplementedError(
-                f"no lowering rule registered for op {type!r} in the torch "
-                f"port yet: it is ported with ROADMAP.md item "
-                f"'{WAITING[type]}'") from None
         raise NotImplementedError(
             f"no lowering rule registered for op {type!r} in the torch "
             f"port; ported ops: {sorted(_REGISTRY)}") from None

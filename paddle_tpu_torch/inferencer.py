@@ -12,10 +12,8 @@ Beyond the reference: an Inferencer is also loadable directly from a
 and :meth:`Inferencer.serve` wraps it in a
 :class:`~paddle_tpu_torch.serving.ServingEngine` for batched concurrent
 traffic, :meth:`Inferencer.serve_decode` in a continuous-batching
-:class:`~paddle_tpu_torch.serving.DecodeEngine`. ``serve(replicas >
-1)``, ``serve(remotes=...)`` and ``serve_decode(replicas > 1)``
-(replica pools behind a Router, remote hosts) are ROADMAP.md item
-'Fleet and analyzers': they raise NotImplementedError naming it.
+:class:`~paddle_tpu_torch.serving.DecodeEngine`; ``replicas > 1`` and
+``remotes=`` return a :class:`~paddle_tpu_torch.cluster.Router`.
 """
 import os
 
@@ -110,19 +108,24 @@ class Inferencer:
         when none was exported); the default (None) is
         ``PADDLE_TPU_ARTIFACT_DIR``, else no store.
 
-        ``replicas > 1`` and ``remotes=`` (a balanced Router over a
-        replica pool or over remote hosts) raise NotImplementedError:
-        they are ROADMAP.md item 'Fleet and analyzers'."""
+        ``replicas=N`` (N > 1) returns a balanced
+        :class:`~paddle_tpu_torch.cluster.Router` over a pool of N such
+        engines instead — same scope (parameters are read-only at
+        serve time, held once), one worker each, health-aware
+        routing, crash revival, and ``pool.rolling_restart()`` for
+        zero-downtime redeploys.
+
+        ``remotes=["host:port", ...]`` routes to already-running
+        :class:`~paddle_tpu_torch.cluster.ReplicaServer` hosts instead
+        of building local engines: a Router over socket-backed replicas
+        with deadline-aware RPC, per-connection breakers and membership
+        staleness eviction. ``net_token`` is the shared fabric auth
+        token (default ``PADDLE_TPU_NET_TOKEN``)."""
         if remotes:
-            raise NotImplementedError(
-                "serve(remotes=...) routes to remote replica hosts, a "
-                "later slice of the torch port (ROADMAP.md item 'Fleet "
-                "and analyzers')")
-        if int(replicas) > 1:
-            raise NotImplementedError(
-                f"serve(replicas={replicas}) builds a replica pool behind "
-                "a Router, a later slice of the torch port (ROADMAP.md "
-                "item 'Fleet and analyzers')")
+            from .cluster import serve_remotes
+            return serve_remotes(remotes, token=net_token,
+                                 policy=policy,
+                                 max_cluster_queue=max_cluster_queue)
         from .serving import BucketSpec, ServingEngine
         feed_names = self.feed_names
         if feed_names is None:
@@ -139,11 +142,20 @@ class Inferencer:
                     "serve(compile_store=True) needs an Inferencer loaded "
                     "from a saved model with an embedded artifact store "
                     "(save_inference_model(..., artifact_store=True))")
-        eng = ServingEngine(self.inference_program, feed_names,
-                            self.fetch_vars, scope=self.scope,
-                            place=self._place, buckets=buckets,
-                            config=config, auto_start=auto_start,
-                            compile_store=compile_store)
+
+        def factory():
+            return ServingEngine(self.inference_program, feed_names,
+                                 self.fetch_vars, scope=self.scope,
+                                 place=self._place, buckets=buckets,
+                                 config=config, auto_start=auto_start,
+                                 compile_store=compile_store)
+
+        if int(replicas) > 1:
+            from .cluster import serve_cluster
+            return serve_cluster(factory, replicas=int(replicas),
+                                 policy=policy, warmup=warmup,
+                                 max_cluster_queue=max_cluster_queue)
+        eng = factory()
         if warmup:
             eng.warmup()
         return eng
@@ -162,20 +174,23 @@ class Inferencer:
         every step, so the engine comes back with the no-recompile
         contract armed. ``compile_store`` hands the engine a persistent
         artifact store (None defers to PADDLE_TPU_ARTIFACT_DIR).
-        ``replicas > 1`` (a Router over decode engines sharing this
-        scope) is ROADMAP.md item 'Fleet and analyzers' and raises
-        NotImplementedError naming it; ``policy`` and
-        ``max_cluster_queue`` belong to that Router."""
-        if int(replicas) > 1:
-            raise NotImplementedError(
-                f"serve_decode(replicas={replicas}) builds a replica pool "
-                "behind a Router, a later slice of the torch port "
-                "(ROADMAP.md item 'Fleet and analyzers')")
+        ``replicas=N`` returns a balanced cluster Router over N decode
+        engines sharing this scope (``policy`` and
+        ``max_cluster_queue`` are that Router's)."""
         from .serving import DecodeEngine
-        eng = DecodeEngine(cfg, scope=self.scope, place=self._place,
-                           config=config, draft_cfg=draft_cfg,
-                           auto_start=auto_start,
-                           compile_store=compile_store)
+
+        def factory():
+            return DecodeEngine(cfg, scope=self.scope, place=self._place,
+                                config=config, draft_cfg=draft_cfg,
+                                auto_start=auto_start,
+                                compile_store=compile_store)
+
+        if int(replicas) > 1:
+            from .cluster import serve_cluster
+            return serve_cluster(factory, replicas=int(replicas),
+                                 policy=policy, warmup=warmup,
+                                 max_cluster_queue=max_cluster_queue)
+        eng = factory()
         if warmup:
             eng.warmup()
         return eng

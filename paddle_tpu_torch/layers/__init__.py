@@ -31,6 +31,3 @@ __all__ = (ops.__all__ + tensor.__all__ + io.__all__ + nn.__all__
            + metric_op.__all__ + learning_rate_scheduler.__all__
            + transformer.__all__ + sequence_layers.__all__
            + control_flow.__all__ + detection.__all__)
-
-#: the reference's names still to port (none: every name is ported)
-WAITING = {}

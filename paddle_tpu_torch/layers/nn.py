@@ -36,9 +36,6 @@ __all__ = [
     "beam_search", "beam_search_decode", "beam_expand", "beam_gather",
 ]
 
-#: the reference's names still to port (none: every name is ported)
-WAITING = {}
-
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, use_mkldnn=False, name=None):

@@ -13,9 +13,6 @@ __all__ = ["dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
            "sequence_mask", "sequence_enumerate", "sequence_concat",
            "sequence_slice", "sequence_erase", "lod_reset", "edit_distance"]
 
-#: the reference's names still to port (none: every name is ported)
-WAITING = {}
-
 
 def _seq_out(helper, like, dtype=None, shape=None, lod_level=1):
     return helper.create_variable_for_type_inference(

@@ -22,6 +22,3 @@ from . import transformer     # noqa: F401
 from . import vgg             # noqa: F401
 from . import word2vec        # noqa: F401
 from . import zoo             # noqa: F401
-
-#: the reference's names still to port (none: every model is ported)
-WAITING = {}

@@ -43,16 +43,12 @@ from ..layers import transformer as tfl
 from ..param_attr import ParamAttr
 from .. import initializer as init_mod
 from ..sharding import PartitionSpec as P
-from ..waiting import module_getattr
 
 __all__ = ["LlamaConfig", "LLAMA3_8B", "LLAMA_TINY", "build_llama",
            "build_llama_generator", "build_llama_spec_generator",
            "build_llama_paged_programs", "PagedDecodePrograms",
            "quantize_generator_weights", "stack_generator_weights",
            "save_decode_model", "load_decode_model"]
-
-WAITING = {}
-__getattr__ = module_getattr(__name__, WAITING)
 
 
 @dataclass

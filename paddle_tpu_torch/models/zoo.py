@@ -13,14 +13,10 @@ from ..core import framework, unique_name
 from ..param_attr import ParamAttr
 
 __all__ = ["ZOO", "zoo_model_names", "build_zoo_program", "ZooProgram",
-           "example_feed", "WAITING"]
+           "example_feed"]
 
 ZOO = {}
 FEEDS = {}
-
-#: the reference's other zoo names -> the ROADMAP.md item each waits for
-#: (none: every entry is ported)
-WAITING = {}
 
 
 class ZooProgram:
@@ -55,20 +51,12 @@ def example_feed(name, batch=2, seed=0):
     dtypes, and vocab ranges matching the builder's data declarations
     — for any consumer that needs to actually RUN a zoo program."""
     import numpy as np
-    _refuse_waiting(name)
     try:
         builder = FEEDS[name]
     except KeyError:
         raise KeyError(f"no example feed for zoo model {name!r}; one "
                        f"of {sorted(FEEDS)}") from None
     return builder(batch, np.random.RandomState(seed))
-
-
-def _refuse_waiting(name):
-    if name in WAITING:
-        raise NotImplementedError(
-            f"zoo model {name!r} is ported with ROADMAP.md item "
-            f"'{WAITING[name]}'")
 
 
 def zoo_model_names():
@@ -78,7 +66,6 @@ def zoo_model_names():
 def build_zoo_program(name):
     """Builds the named model into fresh programs (isolated from the
     caller's default programs and name generator)."""
-    _refuse_waiting(name)
     try:
         builder = ZOO[name]
     except KeyError:

@@ -8,9 +8,6 @@ from . import layers
 __all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
            "glu", "scaled_dot_product_attention"]
 
-#: the reference's names still to port (none)
-WAITING = {}
-
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
                          pool_stride, pool_padding=0, pool_type="max",

@@ -75,6 +75,7 @@ delta = rowsum(dO * O) - dlse.
 """
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -277,9 +278,23 @@ def _launch(wrapper, route, ptrs, q, tk, scale, causal):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"(bh={bh}, tq={tq}, tk={tk}, d={d}, "
                            f"dtype={q.dtype})")
-    n = -(-bh // MAX_GRID_Y)
-    wrapper.launches += n
-    wrapper.launches_by_kernel[name] += n
+    _count(wrapper, name, -(-bh // MAX_GRID_Y))
+
+
+# the counters are read exactly (chip_smoke.py holds launches per path),
+# and replica threads of a serving pool dispatch concurrently: a bare
+# ``+=`` can lose an increment between its read and its write
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper, name, n=1):
+    """Add ``n`` launches of ``name`` (a kernel symbol, or :data:`PLAIN`,
+    which ``launches`` leaves out) to ``wrapper``'s counters, under the
+    counters' lock."""
+    with _COUNT_LOCK:
+        if name != PLAIN:
+            wrapper.launches += n
+        wrapper.launches_by_kernel[name] += n
 
 
 def flash_fwd(q, k, v, scale, causal):
@@ -338,11 +353,13 @@ def reset_launch_counts():
     """Zero every wrapper's ``launches`` and ``launches_by_kernel`` (its
     kernels' symbols and :data:`PLAIN`), and ``flash_fwd.input_copies``
     (the inputs :func:`flash_fwd_op` had to copy)."""
-    for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
-        w.launches = 0
-        w.launches_by_kernel = {sym: 0 for _, sym in _ROUTES[w.__name__]}
-        w.launches_by_kernel[PLAIN] = 0
-    flash_fwd.input_copies = 0
+    with _COUNT_LOCK:
+        for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+            w.launches = 0
+            w.launches_by_kernel = {sym: 0
+                                    for _, sym in _ROUTES[w.__name__]}
+            w.launches_by_kernel[PLAIN] = 0
+        flash_fwd.input_copies = 0
 
 
 reset_launch_counts()
@@ -353,7 +370,8 @@ def _aligned_copy(x):
     boundary), else a contiguous copy, counted."""
     if x.is_contiguous() and not _misaligned((x,)):
         return x
-    flash_fwd.input_copies += 1
+    with _COUNT_LOCK:
+        flash_fwd.input_copies += 1
     return x.clone(memory_format=torch.contiguous_format)
 
 
@@ -367,7 +385,7 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its plain path (:func:`takes_kernels`) the plain version, counted as
     :data:`PLAIN`."""
     if not takes_kernels(q):
-        flash_fwd.launches_by_kernel[PLAIN] += 1
+        _count(flash_fwd, PLAIN)
         o, lse = ref_attention_lse(q, k, v, scale, causal)
         return o, lse.contiguous()
     # an exported graph records no copy for a ``.contiguous()`` that was
@@ -428,8 +446,8 @@ class FlashAttention(torch.autograd.Function):
         if ctx.plain:
             dq = ref_flash_bwd_dq(*bwd)
             dk, dv = ref_flash_bwd_dkv(*bwd)
-            flash_bwd_dq.launches_by_kernel[PLAIN] += 1
-            flash_bwd_dkv.launches_by_kernel[PLAIN] += 1
+            _count(flash_bwd_dq, PLAIN)
+            _count(flash_bwd_dkv, PLAIN)
         else:
             dq = flash_bwd_dq(*bwd)
             dk, dv = flash_bwd_dkv(*bwd)

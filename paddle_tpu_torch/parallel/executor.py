@@ -167,12 +167,12 @@ class ParallelExecutor:
             if (var is not None and var.lod_level > 0) or (
                     hasattr(v, "lengths") and hasattr(v, "data")):
                 # a sequence's rows would shard over 'dp' apart from its
-                # lengths: refused rather than mis-sharded
-                from ..waiting import FLEET
+                # lengths: refused rather than mis-sharded (the
+                # reference's ParallelExecutor stages every feed as one
+                # dense array and takes no sequence either)
                 raise NotImplementedError(
-                    f"feed {k!r} is a sequence: sequence feeds under a "
-                    "device mesh are not ported yet (ROADMAP.md item "
-                    f"'{FLEET}'); run the program through Executor")
+                    f"feed {k!r} is a sequence: a ParallelExecutor takes "
+                    "no sequence feed; run the program through Executor")
             v = v if isinstance(v, torch.Tensor) else \
                 torch.as_tensor(np.array(v))
             spec = self._feed_spec(k)

@@ -137,6 +137,10 @@ def test_recordio_shards_cross(tmp_path, writer, reader):
 # --------------------------------------------------------- scope functions
 def test_default_scope_funcs(fluid):
     dsf = fluid.default_scope_funcs
+    # the thread-local stack roots at the global scope of its first use
+    # in this thread, and tests/conftest.py swaps the reference's global
+    # scope per test: start from this test's
+    dsf._tl.__dict__.pop("stack", None)
     root = dsf.get_cur_scope()
     assert root is fluid.global_scope()
     root.set("a", 1)

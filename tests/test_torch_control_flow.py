@@ -576,10 +576,10 @@ def test_aot_bounded_while_exports(tmp_path):
 def test_control_flow_under_a_one_rank_mesh_matches():
     """The ParallelExecutor on the one-rank mesh runs a program with a
     While, an IfElse and a StaticRNN and fetches what the reference's
-    executor fetches; a DynamicRNN over a sequence feed is refused there
-    naming item 'Fleet and analyzers', as every sequence feed is."""
+    executor fetches; a DynamicRNN over a sequence feed is refused there,
+    as every sequence feed is (the reference's ParallelExecutor stages
+    every feed as one dense array)."""
     from paddle_tpu_torch import parallel
-    from paddle_tpu_torch.waiting import FLEET
 
     def build(f):
         total = _sum_to_ten(f)[0]
@@ -619,5 +619,6 @@ def test_control_flow_under_a_one_rank_mesh_matches():
                                  scope=port_scope(seq_state), mesh=mesh)
     rows = {"src": seqs(_seq_rows(0, D), bucket=4),
             "trg": seqs(_seq_rows(1, D), bucket=4)}
-    with pytest.raises(NotImplementedError, match=FLEET):
+    with pytest.raises(NotImplementedError,
+                       match="takes no sequence feed"):
         pe.run(seq["port"][2], feed=make_feed("port", rows))

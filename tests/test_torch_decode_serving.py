@@ -630,8 +630,8 @@ def test_engine_default_place_is_the_card(served_scope, monkeypatch):
 def test_inferencer_serve_decode(served_scope, tmp_path):
     """Inferencer.serve_decode wraps a DecodeEngine around the
     Inferencer's scope (params from disk) on its place; replicas > 1
-    is a Router over engines (ROADMAP item 'Fleet and analyzers') and
-    raises naming it."""
+    is a Router over engines sharing that scope, whose tokens equal the
+    lone engine's."""
     scope, exe, gen_p, gen_out = served_scope
     with fluid.scope_guard(scope):
         fluid.io.save_persistables(exe, str(tmp_path), main_program=gen_p)
@@ -643,9 +643,9 @@ def test_inferencer_serve_decode(served_scope, tmp_path):
 
     inf = fluid.Inferencer(infer_func, str(tmp_path),
                            place=fluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-        inf.serve_decode(CFG, config=DecodeConfig(**ENGINE_CONF),
-                         replicas=2)
+    from paddle_tpu_torch.cluster import Router
+    router = inf.serve_decode(CFG, config=DecodeConfig(**ENGINE_CONF),
+                              replicas=2)
     eng = inf.serve_decode(CFG, config=DecodeConfig(**ENGINE_CONF),
                            warmup=True)
     try:
@@ -657,5 +657,11 @@ def test_inferencer_serve_decode(served_scope, tmp_path):
         got = eng.generate(prompt[0], max_new=GEN_NEW, timeout=120)
         np.testing.assert_array_equal(got, ref[0, GEN_PROMPT:])
         eng.assert_no_recompiles()
+        assert isinstance(router, Router)
+        assert all(r.engine.scope is inf.scope
+                   for r in router.pool.replicas())
+        np.testing.assert_array_equal(
+            router.generate(prompt[0], max_new=GEN_NEW, timeout=120), got)
     finally:
         eng.close()
+        router.close()

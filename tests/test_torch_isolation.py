@@ -92,7 +92,7 @@ import paddle_tpu_torch.reader.decorator, paddle_tpu_torch.trainer
 import paddle_tpu_torch.inferencer, paddle_tpu_torch.data_feeder
 import paddle_tpu_torch.layers.io
 import paddle_tpu_torch.ops.moe, paddle_tpu_torch.models.llama_import
-import paddle_tpu_torch.waiting, paddle_tpu_torch.layers.transformer
+import paddle_tpu_torch.layers.transformer
 import paddle_tpu_torch.ops.transformer_ops
 import paddle_tpu_torch.serving.decode_engine, paddle_tpu_torch.serving.kv_pages
 import paddle_tpu_torch.serving.sched, paddle_tpu_torch.serving.overload
@@ -108,6 +108,11 @@ import paddle_tpu_torch.utils.plot, paddle_tpu_torch.analysis.cost
 import paddle_tpu_torch.contrib.memory_usage_calc
 import paddle_tpu_torch.dataset.flowers, paddle_tpu_torch.dataset.image
 import paddle_tpu_torch.dataset.voc2012, paddle_tpu_torch.dataset.synthetic
+import paddle_tpu_torch.cluster, paddle_tpu_torch.cluster.train_fabric
+import paddle_tpu_torch.cluster.deploy, paddle_tpu_torch.cluster.membership
+import paddle_tpu_torch.analysis.racecheck
+import paddle_tpu_torch.analysis.protocheck
+import paddle_tpu_torch.analysis.suppress
 assert "matplotlib" not in sys.modules and "cv2" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
@@ -119,6 +124,60 @@ sys.exit(1 if bad else 0)
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+WORKERS = ("net_worker", "proc_worker", "train_worker")
+
+
+def test_worker_entry_points_run_with_jax_blocked():
+    """The three ``python -m paddle_tpu_torch.cluster.*_worker`` entry
+    points answer ``--help`` in a fresh interpreter where jax and the
+    JAX package cannot be imported, and load neither."""
+    code = r"""
+import runpy, sys, importlib.abc
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
+                                  "ml_dtypes"):
+            raise ImportError(f"blocked import of {name}")
+sys.meta_path.insert(0, Block())
+for worker in %r:
+    sys.argv = [worker, "--help"]
+    try:
+        runpy.run_module("paddle_tpu_torch.cluster." + worker,
+                         run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        assert e.code in (0, None), (worker, e.code)
+    else:
+        raise AssertionError(worker + " --help did not exit")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
+                                    "ml_dtypes"))
+sys.exit(1 if bad else 0)
+""" % (WORKERS,)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stdout + out.stderr
+    for worker in WORKERS:
+        assert f"--cpu" in out.stdout and "usage:" in out.stdout
+
+
+@pytest.mark.parametrize("worker", WORKERS)
+def test_worker_without_cuda_exits_naming_the_reason(worker, tmp_path):
+    """A worker asked for the card on a machine without CUDA exits
+    non-zero, naming the reason; it does not fall back to the host."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default place works")
+    argv = [sys.executable, "-m", f"paddle_tpu_torch.cluster.{worker}"]
+    if worker != "train_worker":
+        argv += ["--dir", str(tmp_path)]
+    out = subprocess.run(argv + ["--port", "0"] if worker != "proc_worker"
+                         else argv, cwd=str(REPO), capture_output=True,
+                         text=True, timeout=120, stdin=subprocess.DEVNULL,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "no CUDA device" in out.stderr and "--cpu" in out.stderr
 
 
 def _tiny_program():
@@ -155,9 +214,9 @@ def test_tpu_place_is_the_card():
 
 
 def test_later_slices_refuse_loudly():
-    """What the port has not ported yet raises NotImplementedError naming
-    its ROADMAP item; training itself runs, with the switches ported so
-    far: AMP, the NaN guard, remat policies, the layer-stacked decoder
+    """Every slice is lifted: nothing refuses by ROADMAP item any more
+    (item 8, the last, brought the cluster and the source checkers);
+    training itself runs, with the switches: AMP, the NaN guard, remat policies, the layer-stacked decoder
     (shard_pp), the fused head loss (fused_head_chunk), (item 1b) the
     op library's layers, math_op_patch and the LR schedulers, (item 2)
     the optimize rewrite — the serving engine's default — and the
@@ -176,15 +235,15 @@ def test_later_slices_refuse_loudly():
     assert report.counts() == engine.optimize_report.counts()
     assert not fluid.analysis.errors(infer.verify(fetch_list=[logits]))
     # item 7d lifted: the cost model (collect_cost, the analysis
-    # names); still refused, by name: the source checkers
+    # names); item 8 lifted: the source checkers
     costed = infer.clone(for_test=True).optimize(fetch_list=[logits],
                                                  collect_cost=True)
     assert costed.cost_deltas is not None
     for name in ("cost", "program_cost", "recommend_remat_policy"):
         assert getattr(fluid.analysis, name) is not None
     for name in ("racecheck", "protocheck"):
-        with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-            getattr(fluid.analysis, name)
+        assert getattr(fluid.analysis, name).__name__ == \
+            f"paddle_tpu_torch.analysis.{name}"
 
     def train_program(**kw):
         main, startup = fluid.Program(), fluid.Program()
@@ -281,8 +340,8 @@ def test_later_slices_refuse_loudly():
                  "recordio_writer", "concurrency"):
         assert getattr(fluid, name).__name__ == f"paddle_tpu_torch.{name}"
     assert str(det_main) == fluid.debugger.program_to_code(det_main)
-    assert not hasattr(fluid.waiting, "REST")
-    assert fluid.WAITING == {"cluster": fluid.waiting.FLEET}
+    assert not hasattr(fluid, "WAITING") and not hasattr(fluid, "waiting")
+    assert fluid.cluster.__name__ == "paddle_tpu_torch.cluster"
     # item 7a lifted: a sequence feed, the sequence layers and the
     # recurrent ops run
     seq_main, seq_start = fluid.Program(), fluid.Program()
@@ -337,16 +396,13 @@ def test_later_slices_refuse_loudly():
                fluid.layers.llama_stack_1f1b_loss):
         assert callable(fn)
     # item 3 (IO, persistables and Inferencer) lifted: the load op runs;
-    # still refused, by name: replica pools (of either engine) and remote
-    # replicas (item 8) and a JAX AOT artifact; item 7a lifted: sequence
-    # readers and feeders
-    inf = fluid.Inferencer.__new__(fluid.Inferencer)
-    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-        inf.serve_decode(LLAMA_TINY, replicas=2)
-    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-        inf.serve(replicas=2)
-    with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
-        inf.serve(remotes=["localhost:1"])
+    # still refused: a JAX AOT artifact; item 7a lifted: sequence readers
+    # and feeders; item 8 lifted: replica pools of either engine and
+    # remote replicas (tests/test_torch_cluster.py runs them)
+    for name in ("serve_cluster", "serve_remotes", "Router", "ReplicaPool",
+                 "ProcessReplica", "RemoteReplica", "ReplicaServer",
+                 "TrainCoordinator", "DeploymentManager"):
+        assert callable(getattr(fluid.cluster, name))
     with fluid.unique_name.guard(), fluid.program_guard(fluid.Program(),
                                                         fluid.Program()):
         reader = fluid.layers.py_reader(capacity=2, shapes=[[-1, 1]],
@@ -439,17 +495,27 @@ def _reference_modules():
     return names
 
 
+def test_every_reference_module_has_a_port_file():
+    """Every module of the JAX package has its port file, but the Pallas
+    kernels' module, whose port is ``ops/flash_attention.py``."""
+    ref = REPO / "paddle_tpu"
+    lacking = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (PORT / p.relative_to(ref)).exists())
+    assert lacking == ["ops/pallas_attention.py"]
+    assert (PORT / "ops" / "flash_attention.py").exists()
+
+
 @pytest.mark.parametrize("mod", _reference_modules(),
                          ids=lambda m: m or "paddle_tpu")
 def test_reference_names_resolve_or_refuse(mod):
-    """F7's scan: every public name of a reference module that has a port
-    file (its ``__all__``, else the names the module defines itself, or,
-    for the package, every public attribute) is a value in the port, or
-    raises NotImplementedError naming the ROADMAP item that ports it —
-    never a bare AttributeError. A subpackage also has every public
-    attribute that is not a module checked beside its ``__all__`` (F16:
-    ``layers`` star-imports ``extras``, whose names its ``__all__``
-    leaves out)."""
+    """F7's scan, with every slice lifted: every public name of a
+    reference module that has a port file (its ``__all__``, else the
+    names the module defines itself, or, for the package, every public
+    attribute) is a value in the port — nothing raises
+    NotImplementedError by ROADMAP item, nothing a bare AttributeError.
+    A subpackage also has every public attribute that is not a module
+    checked beside its ``__all__`` (F16: ``layers`` star-imports
+    ``extras``, whose names its ``__all__`` leaves out)."""
     import importlib
     import types
     ref = importlib.import_module("paddle_tpu" + (f".{mod}" if mod else ""))
@@ -466,12 +532,5 @@ def test_reference_names_resolve_or_refuse(mod):
         names = [n for n, v in vars(ref).items() if not n.startswith("_")
                  and not isinstance(v, types.ModuleType)
                  and getattr(v, "__module__", ref.__name__) == ref.__name__]
-    missing = []
-    for name in names:
-        try:
-            getattr(port, name)
-        except NotImplementedError as e:
-            assert "ROADMAP.md item '" in str(e), (name, str(e))
-        except AttributeError:
-            missing.append(name)
+    missing = [name for name in names if not hasattr(port, name)]
     assert not missing, f"{port.__name__} lacks {missing}"

@@ -164,7 +164,7 @@ def test_conv_net_ops_register_with_the_reference_rules(op_type):
     """Each op of item 5 has a lowering rule, and an infer and a numerics
     rule exactly where the reference has one; ``random_crop`` draws
     (``stateful``), as in the reference."""
-    assert pt_registry.has_op(op_type) and op_type not in pt_registry.WAITING
+    assert pt_registry.has_op(op_type)
     assert pt_registry.has_infer(op_type) == jax_registry.has_infer(op_type)
     assert pt_registry.has_numerics(op_type) == \
         jax_registry.has_numerics(op_type)
@@ -177,7 +177,7 @@ def test_sequence_and_rnn_ops_register_with_the_reference_flags(op_type):
     """Each op of item 7a has a lowering rule with the reference's
     ``seq_aware`` and ``stateful`` flags, and an infer and a numerics
     rule exactly where the reference has one (none)."""
-    assert pt_registry.has_op(op_type) and op_type not in pt_registry.WAITING
+    assert pt_registry.has_op(op_type)
     for flag in ("seq_aware", "stateful"):
         assert getattr(pt_registry.get_op(op_type), flag) == \
             getattr(jax_registry.get_op(op_type), flag)
@@ -192,7 +192,7 @@ def test_control_flow_and_crf_ops_register_with_the_reference_flags(
     """Each op of item 7b has a lowering rule with the reference's
     ``seq_aware`` and ``stateful`` flags, and an infer and a numerics
     rule exactly where the reference has one (none)."""
-    assert pt_registry.has_op(op_type) and op_type not in pt_registry.WAITING
+    assert pt_registry.has_op(op_type)
     for flag in ("seq_aware", "stateful"):
         assert getattr(pt_registry.get_op(op_type), flag) == \
             getattr(jax_registry.get_op(op_type), flag)
@@ -215,7 +215,7 @@ def test_waiting_ops_refuse_naming_their_roadmap_item(op_type):
     """Each op that waited for item 7c now has a lowering rule with the
     reference's ``stateful`` and ``seq_aware`` flags, no refusal, and an
     infer and a numerics rule exactly where the reference has one."""
-    assert op_type not in pt_registry.WAITING
+    assert pt_registry.has_op(op_type)
     od, ref = pt_registry.get_op(op_type), jax_registry.get_op(op_type)
     assert (od.stateful, od.seq_aware) == (ref.stateful, ref.seq_aware)
     assert pt_registry.has_infer(op_type) == jax_registry.has_infer(op_type)
@@ -238,11 +238,11 @@ def test_detection_and_extras_ops_register_with_the_reference_flags(
 
 
 def test_every_reference_op_is_ported_or_named_as_waiting():
-    """The reference's registry splits exactly into what the port
-    registers and what ``registry.WAITING`` names with its item."""
+    """The port registers every op type of the reference's registry;
+    none waits any more, and the registry keeps no map of waiting ops."""
     ref = set(jax_registry.registered_ops())
-    assert set(pt_registry.WAITING) == ref - PORTED
-    assert not set(pt_registry.WAITING) & PORTED
+    assert ref - PORTED == set()
+    assert not hasattr(pt_registry, "WAITING")
 
 
 def test_registry_counts():
@@ -250,8 +250,7 @@ def test_registry_counts():
     registered ``stateful`` (they draw at temperature > 0), as in the
     reference."""
     ref = set(jax_registry.registered_ops())
-    assert (len(ref), len(PORTED), len(pt_registry.WAITING)) == \
-        (253, 253, 0)
+    assert (len(ref), len(PORTED)) == (253, 253)
     for op in GENERATE:
         assert pt_registry.get_op(op).stateful
         assert jax_registry.get_op(op).stateful

@@ -44,7 +44,7 @@ from test_torch_ops import BASIC_REST, NN_REST
 torch.set_num_threads(1)
 
 # spec ops the port does not register yet, with the ROADMAP item that
-# ports each (registry.WAITING names the same): none since item 7c,
+# ports each: none since item 7c,
 # whose extras and ssd_loss specs the sweep now runs
 SKIPPED = {}
 
@@ -451,7 +451,7 @@ def test_the_sweep_skips_exactly_the_named_ops():
                if not pt_registry.has_op(s["op"])}
     assert skipped == set(SKIPPED)
     for op, item in SKIPPED.items():
-        assert pt_registry.WAITING[op] == item, op
+        assert not pt_registry.has_op(op), (op, item)
 
 
 OWN_TESTS = {"uniform_random_batch_size_like", "sampling_id",

@@ -7,10 +7,15 @@ counters, and the decode engine's priority eviction and brownout ladder
 generator weights carried across as numpy).
 
 The reference's Router cases (tiered shed, SLO priority resolution, the
-retry-storm budget, hedging, redrive inheritance) need ``cluster/``,
-and its trace-helper cases test ``tools/servebench.py``: both wait for
-ROADMAP.md item 'Fleet and analyzers'.
+retry-storm budget, hedging, redrive inheritance) run on the port's
+``cluster.Router`` against the same fake replicas, and its trace-helper
+cases on the port's copy of ``tools/servebench.py``'s three helpers
+(``tests/torch_traces.py``), over the shipped trace under
+``tools/traces/``.
 """
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +34,11 @@ from paddle_tpu_torch.serving.overload import (AdmissionController,
                                                BrownoutController,
                                                RetryBudget, shed_counter)
 from paddle_tpu_torch.serving.sched import PRIORITIES
+from paddle_tpu_torch.cluster import ClusterOverloadError, Router
+from paddle_tpu_torch.resilience import faultinject
+from paddle_tpu_torch.serving.batching import RequestTimeoutError
+from paddle_tpu_torch.serving.health import HealthState, WorkerDiedError
+from paddle_tpu_torch.serving.overload import RetryBudgetExhaustedError
 
 torch.set_num_threads(1)
 
@@ -366,3 +376,305 @@ def test_engine_brownout_caps_batch_and_fully_reverts(served_scope):
         assert r_after.max_new == 8
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------------
+# Router against fake replicas (no engine, no XLA)
+# ---------------------------------------------------------------------
+
+class FakeHandle:
+    def __init__(self, value="ok", error=None, ready=True):
+        self._value, self._error = value, error
+        self._ev = threading.Event()
+        self._cbs = []
+        if ready:
+            self.settle()
+
+    def settle(self, value=None):
+        if value is not None:
+            self._value = value
+        self._ev.set()
+        for cb in self._cbs:
+            cb(self)
+        self._cbs = []
+
+    def add_done_callback(self, cb):
+        if self._ev.is_set():
+            cb(self)
+        else:
+            self._cbs.append(cb)
+
+    def done(self):
+        return self._ev.is_set()
+
+    def wait(self, timeout=None):
+        return self._ev.wait(timeout)
+
+    def result(self, timeout=None):
+        if not self._ev.wait(timeout):
+            raise RequestTimeoutError("fake handle never settled")
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class FakeReplica:
+    """Just enough replica surface for Router: a scripted ``plan`` of
+    callables consumed one submit at a time (raise or return a
+    handle); every submit's kwargs are recorded for inheritance
+    assertions."""
+
+    def __init__(self, name, role=None, outstanding=0, value="ok"):
+        self.name, self.role = name, role
+        self.version = None
+        self.restarting = False
+        self._alive = True
+        self._out = outstanding
+        self.value = value
+        self.plan = []
+        self.submits = []
+        self.handoffs = []
+
+    def alive(self):
+        return self._alive
+
+    def outstanding(self):
+        return self._out
+
+    def admits(self):
+        return True
+
+    def health_state(self):
+        return HealthState.READY
+
+    def crash(self):
+        self._alive = False
+
+    def submit(self, item, timeout=None, **kw):
+        self.submits.append(dict(kw, item=item, timeout=timeout))
+        if self.plan:
+            return self.plan.pop(0)(self)
+        return FakeHandle(value=self.value)
+
+    def handoff(self, state, timeout=None, **kw):
+        self.handoffs.append(dict(kw, state=state, timeout=timeout))
+        return FakeHandle(value=self.value)
+
+    def metrics_obj(self):
+        return None
+
+
+class FakePool:
+    def __init__(self, *replicas):
+        self._replicas = list(replicas)
+        self.counters = {}
+
+    def replicas(self):
+        return list(self._replicas)
+
+    def total_outstanding(self):
+        return sum(r.outstanding() for r in self._replicas)
+
+    def incr(self, name, n=1):
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def stats(self):
+        return dict(self.counters)
+
+    def close(self, **kw):
+        pass
+
+
+def test_router_tiered_shed_and_per_class_counts():
+    rep = FakeReplica("r0", outstanding=3)
+    pool = FakePool(rep)
+    router = Router(pool, max_cluster_queue=16,
+                    admission=AdmissionController(hard_ceiling=16,
+                                                  start_limit=4))
+    # limit 4 @ 3 outstanding: batch band 2.4 refuses, standard 3.4
+    # admits, interactive rides the ceiling
+    with pytest.raises(ClusterOverloadError) as ei:
+        router.submit("x", priority="batch")
+    assert ei.value.per_class == {"interactive": 0, "standard": 0,
+                                  "batch": 0}
+    assert router.submit("x", priority="standard").result(1) == "ok"
+    assert router.submit("x", priority="interactive").result(1) == "ok"
+    # the hard ceiling sheds even interactive — with its own counter
+    rep._out = 16
+    with pytest.raises(ClusterOverloadError):
+        router.submit("x", priority="interactive")
+    assert pool.counters["shed_batch_total"] == 1
+    assert pool.counters["shed_interactive_total"] == 1
+    assert pool.counters.get("shed_standard_total", 0) == 0
+    over = router.stats()["overload"]
+    assert over["admission"]["refused_total"] == 1
+    assert over["shed_by_class"] == {"interactive": 1, "standard": 0,
+                                     "batch": 1}
+    assert over["retry_budget"] is None
+
+
+def test_router_slo_priority_resolution():
+    """Explicit priority= outranks the SLO's tier; SLO alone sets the
+    tier; nothing at all is standard."""
+    rep = FakeReplica("r0", outstanding=3)
+    router = Router(FakePool(rep), max_cluster_queue=16,
+                    admission=AdmissionController(hard_ceiling=16,
+                                                  start_limit=4))
+    batchy = SLOClass(name="bulk", priority="batch")
+    with pytest.raises(ClusterOverloadError):
+        router.submit("x", slo=batchy)
+    # same SLO, explicitly promoted: admitted, and the SLO still rides
+    # to the replica
+    router.submit("x", slo=batchy, priority="interactive")
+    assert rep.submits[-1]["slo"] is batchy
+
+
+def test_router_retry_storm_budget_bounds_amplification():
+    rep = FakeReplica("r0")
+    pool = FakePool(rep)
+    router = Router(pool, retry_budget=RetryBudget(capacity=2,
+                                                   refill_ratio=0.0))
+    try:
+        # each armed call: the first attempt's answer drops in flight,
+        # the forced retry costs one token
+        for _ in range(2):
+            faultinject.arm("serving_retry_storm", at=0, times=1)
+            assert router.infer("x", timeout=5.0) == "ok"
+        faultinject.arm("serving_retry_storm", at=0, times=1)
+        with pytest.raises(RetryBudgetExhaustedError) as ei:
+            router.infer("x", timeout=5.0)
+        assert isinstance(ei.value.__cause__, WorkerDiedError)
+        assert pool.counters["retry_budget_exhausted_total"] == 1
+        assert pool.counters["failovers_total"] == 2
+    finally:
+        faultinject.disarm("serving_retry_storm")
+    # disarmed: first-try success needs no budget
+    assert router.infer("x", timeout=5.0) == "ok"
+
+
+def test_router_hedges_interactive_tier():
+    slow = FakeReplica("slow", outstanding=0)
+    fast = FakeReplica("fast", outstanding=1, value="hedged")
+    # the primary pick (least outstanding) never answers, and refuses
+    # the hedge duplicate so it lands on the fast replica
+    slow.plan = [lambda r: FakeHandle(ready=False),
+                 lambda r: (_ for _ in ()).throw(
+                     QueueFullError("full"))]
+    pool = FakePool(slow, fast)
+    router = Router(pool, retry_budget=RetryBudget(capacity=4),
+                    hedge_delay_s=0.01)
+    out = router.infer("x", timeout=5.0, priority="interactive")
+    assert out == "hedged"
+    assert pool.counters["hedges_total"] == 1
+    assert pool.counters["hedge_wins_total"] == 1
+    # standard tier never hedges: the slow primary answering late is
+    # simply awaited
+    slow.plan = []
+    assert router.infer("x", timeout=5.0, priority="standard") == "ok"
+    assert pool.counters["hedges_total"] == 1
+
+
+def test_generate_redrive_inherits_deadline_slo_and_age():
+    """The deadline/SLO-propagation satellite: a redriven prefill hop
+    carries the ORIGINAL deadline's remainder, the original SLO, and
+    ``queued_for_s`` backdating — never a fresh clock."""
+    p0 = FakeReplica("p0", role="prefill", outstanding=0)
+    p1 = FakeReplica("p1", role="prefill", outstanding=1)
+    d0 = FakeReplica("d0", role="decode", value="tokens")
+
+    def die_slowly(rep):
+        time.sleep(0.05)
+        rep.crash()
+        raise WorkerDiedError("prefill died mid-request")
+
+    p0.plan = [die_slowly]
+    blob = {"kind": "kv_handoff"}
+    p1.value = blob
+    pool = FakePool(p0, p1, d0)
+    router = Router(pool, retry_budget=RetryBudget(capacity=4))
+    slo = SLOClass(ttft_target_s=1.0, name="chat",
+                   priority="interactive")
+    assert router.generate("x", timeout=5.0, slo=slo) == "tokens"
+    hop = p1.submits[-1]
+    assert hop["prefill_only"] is True
+    assert hop["slo"] is slo
+    assert hop["queued_for_s"] >= 0.04        # the first hop's burn
+    assert hop["timeout"] < 5.0 - 0.04        # remainder, not a reset
+    hand = d0.handoffs[-1]
+    assert hand["state"] is blob and hand["slo"] is slo
+    assert hand["timeout"] < 5.0
+    assert pool.counters["handoff_redrives_total"] == 1
+    assert pool.counters["handoffs_total"] == 1
+    # the redrive consumed budget
+    assert router.retry_budget.snapshot()["acquired_total"] == 1
+
+
+# ---------------------------------------------------------------------
+# Overload-trace helpers (the port's copy, tests/torch_traces.py, of
+# tools/servebench.py's three)
+# ---------------------------------------------------------------------
+
+def test_gen_overload_trace_shape_and_mix():
+    from torch_traces import gen_overload_trace
+    t = gen_overload_trace(200, 2.0, np.random.RandomState(0))
+    assert len(t["offsets"]) == 200
+    assert np.all(np.diff(t["offsets"]) >= 0)
+    assert set(t["classes"]) == {"interactive", "standard", "batch"}
+    assert set(t["buckets"]) <= {8, 16}
+    flash = [i for i, p in enumerate(t["phases"]) if p == "flash"]
+    assert flash and flash == list(range(flash[0], flash[-1] + 1))
+    assert np.array_equal(t["burst"],
+                          np.asarray(t["phases"]) == "flash")
+    # the flash segment really is denser than its neighbourhood
+    flash_rate = len(flash) / (t["offsets"][flash[-1]]
+                               - t["offsets"][flash[0]] + 1e-9)
+    base_rate = 200 / t["offsets"][-1]
+    assert flash_rate > 2.0 * base_rate
+    with pytest.raises(ValueError):
+        gen_overload_trace(8, 0.0, np.random.RandomState(0))
+    with pytest.raises(ValueError):
+        gen_overload_trace(8, 1.0, np.random.RandomState(0),
+                           mix=(0.5, 0.2, 0.2))
+
+
+def test_load_rich_trace_roundtrip(tmp_path):
+    import json
+    from torch_traces import load_rich_trace, load_trace
+    doc = {"offsets": [0.0, 0.5, 1.0, 1.5],
+           "class": ["interactive", "batch", "standard", "batch"],
+           "bucket": [8, 16, 8, 16],
+           "phase": ["diurnal", "flash", "flash", "diurnal"]}
+    p = tmp_path / "t.json"
+    p.write_text(json.dumps(doc))
+    t = load_rich_trace(p)
+    assert list(t["offsets"]) == doc["offsets"]
+    assert t["classes"] == doc["class"]
+    assert t["buckets"] == doc["bucket"]
+    assert list(t["burst"]) == [False, True, True, False]
+    offs, burst = load_trace(p)              # back-compat view
+    assert list(offs) == doc["offsets"] and list(burst) == list(t["burst"])
+    # a bare offset list still parses (the older format)
+    p2 = tmp_path / "bare.json"
+    p2.write_text(json.dumps([0.0, 1.0]))
+    t2 = load_rich_trace(p2)
+    assert t2["classes"] is None and not t2["burst"].any()
+    # misaligned columns are a hard error, not silent truncation
+    doc_bad = dict(doc)
+    doc_bad["class"] = doc["class"][:2]
+    p3 = tmp_path / "bad.json"
+    p3.write_text(json.dumps(doc_bad))
+    with pytest.raises(ValueError):
+        load_rich_trace(p3)
+
+
+def test_shipped_flashcrowd_trace_parses():
+    import pathlib
+    from torch_traces import load_rich_trace
+    path = (pathlib.Path(__file__).resolve().parent.parent
+            / "tools" / "traces" / "diurnal_flashcrowd.json")
+    t = load_rich_trace(path)
+    n = len(t["offsets"])
+    assert n >= 64
+    assert len(t["classes"]) == n and len(t["buckets"]) == n
+    assert t["burst"].any() and not t["burst"].all()
+    assert set(t["classes"]) == {"interactive", "standard", "batch"}

@@ -301,10 +301,10 @@ def test_stacked_lstm_trains():
 # ---------------------------------------------------------------------------
 def test_zoo_builds_the_slice_models_and_refuses_the_rest():
     """The slice's models are in the zoo; since item 7c nothing is left
-    to refuse: the zoo's WAITING is empty and its names are the
+    to refuse: the zoo keeps no WAITING map and its names are the
     reference's 16."""
     assert set(NEW_ZOO) <= set(tzoo.zoo_model_names())
-    assert tzoo.WAITING == {}
+    assert not hasattr(tzoo, "WAITING")
     assert set(tzoo.zoo_model_names()) == set(jzoo.zoo_model_names())
     assert len(tzoo.zoo_model_names()) == 16
 

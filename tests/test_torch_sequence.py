@@ -151,7 +151,7 @@ def test_every_sequence_op_is_seq_aware_and_ported():
     assert ops == {c[0] for c in RULE_CASES.values()}
     for op in ops:
         assert pt_registry.get_op(op).seq_aware
-        assert op not in pt_registry.WAITING
+        assert pt_registry.has_op(op)
     for op in pt_registry.registered_ops():
         assert pt_registry.get_op(op).seq_aware == \
             jregistry.get_op(op).seq_aware, op
@@ -894,9 +894,10 @@ def test_lod_value_never_joins():
 
 
 def test_parallel_executor_refuses_sequence_feeds():
-    """A sequence feed under a device mesh raises naming its item — its
-    rows would shard over 'dp' apart from its lengths — rather than
-    running mis-sharded."""
+    """A sequence feed under a device mesh raises — its rows would shard
+    over 'dp' apart from its lengths — rather than running mis-sharded
+    (the reference's ParallelExecutor stages every feed as one dense
+    array and takes no sequence either)."""
     import torch.distributed as dist
     from paddle_tpu_torch import parallel
     fresh = not dist.is_initialized()
@@ -914,7 +915,8 @@ def test_parallel_executor_refuses_sequence_feeds():
         pe = tfluid.ParallelExecutor(
             loss_name=loss.name, main_program=main, scope=scope,
             mesh=parallel.make_mesh({"dp": 1}, place=tfluid.CPUPlace()))
-        with pytest.raises(NotImplementedError, match="Fleet and analyzers"):
+        with pytest.raises(NotImplementedError,
+                           match="takes no sequence feed"):
             pe.run([loss.name], feed={"w": tfluid.to_sequence_batch(
                 [[[1], [2]], [[3]]])})
     finally:

@@ -10,9 +10,10 @@ while co-scheduled, or split across two engines by a handoff: integer-
 exact, and equal to the reference engine's chunked tokens); the chunk
 program is one step build at [1, chunk_size]; the schedulers are pure
 policies on fake clocks. The reference's cases that route handoffs
-across a replica pool (``Router``, the ``serving_handoff_drop`` drill,
-the process and socket transports) need ``cluster/``: ROADMAP.md item
-'Fleet and analyzers'.
+across a replica pool (``Router.generate`` over prefill and decode
+roles, the ``serving_handoff_drop`` drill, and the slow process and
+socket transports) run on the port's ``cluster/``, tokens equal to the
+lone engine's.
 """
 import numpy as np
 import pytest
@@ -413,3 +414,163 @@ def test_handoff_blob_pages_are_the_engines_pages(served_scope,
         dec.close()
     np.testing.assert_array_equal(out, plain_engine.generate(p,
                                                              timeout=120.0))
+
+
+# ---------------------------------------------------------------------
+# disaggregated router + the serving_handoff_drop chaos drill
+# ---------------------------------------------------------------------
+
+def _role_pool(scope, n_prefill, n_decode):
+    from paddle_tpu_torch.cluster import ReplicaPool, Router
+    pool = ReplicaPool(
+        lambda: DecodeEngine(CFG, scope=scope, place=fluid.CPUPlace(),
+                             config=_cfg(chunk_size=CHUNK,
+                                         scheduler="slo")),
+        replicas=n_prefill + n_decode, warmup=False)
+    reps = pool.replicas()
+    for r in reps[:n_prefill]:
+        r.role = "prefill"
+    for r in reps[n_prefill:]:
+        r.role = "decode"
+    return pool, Router(pool)
+
+
+def test_router_disaggregated_generate(served_scope, plain_engine):
+    rng = np.random.RandomState(8)
+    prompts = [_prompt(rng, LONG_PROMPT), _prompt(rng, 3)]
+    refs = [plain_engine.generate(p, timeout=120.0) for p in prompts]
+    pool, router = _role_pool(served_scope[0], 1, 1)
+    try:
+        slo = SLOClass(ttft_target_s=5.0, tpot_target_s=5.0,
+                       name="chat")
+        for p, ref in zip(prompts, refs):
+            out = router.generate(p, max_new=MAX_NEW, timeout=120.0,
+                                  slo=slo)
+            np.testing.assert_array_equal(np.asarray(ref),
+                                          np.asarray(out))
+        snap = pool.stats()
+        assert snap["handoffs_total"] == 2
+        assert snap["handoff_redrives_total"] == 0
+    finally:
+        router.close()
+        pool.close()
+
+
+def test_router_generate_without_roles_degrades_to_infer(
+        served_scope, plain_engine):
+    p = _prompt(np.random.RandomState(9), 5)
+    ref = plain_engine.generate(p, timeout=120.0)
+    from paddle_tpu_torch.cluster import ReplicaPool, Router
+    pool = ReplicaPool(
+        lambda: DecodeEngine(CFG, scope=served_scope[0],
+                             place=fluid.CPUPlace(), config=_cfg()),
+        replicas=1, warmup=False)
+    router = Router(pool)
+    try:
+        out = router.generate(p, max_new=MAX_NEW, timeout=120.0)
+        np.testing.assert_array_equal(np.asarray(ref), np.asarray(out))
+        assert pool.stats()["handoffs_total"] == 0
+    finally:
+        router.close()
+        pool.close()
+
+
+def test_handoff_drop_chaos_loses_nothing(served_scope, plain_engine):
+    """The prefill replica dies WITH the finished KV blob mid-handoff:
+    the router re-prefills on the survivor, the pool monitor revives
+    the corpse, and the caller sees bit-identical tokens — never a
+    lost request or an untyped error."""
+    from paddle_tpu_torch.resilience import faultinject
+    rng = np.random.RandomState(10)
+    prompts = [_prompt(rng, LONG_PROMPT), _prompt(rng, 4)]
+    refs = [plain_engine.generate(p, timeout=120.0) for p in prompts]
+    pool, router = _role_pool(served_scope[0], 2, 1)
+    faultinject.arm("serving_handoff_drop", at=0, times=1)
+    try:
+        for p, ref in zip(prompts, refs):
+            out = router.generate(p, max_new=MAX_NEW, timeout=120.0)
+            np.testing.assert_array_equal(np.asarray(ref),
+                                          np.asarray(out))
+        snap = pool.stats()
+        assert snap["handoff_redrives_total"] >= 1
+        assert snap["handoffs_total"] == 2
+    finally:
+        faultinject.disarm("serving_handoff_drop")
+        router.close()
+        pool.close()
+
+
+# ---------------------------------------------------------------------
+# handoff across the process and socket transports
+# ---------------------------------------------------------------------
+
+def _transport_trip(pre, dec, prompt, ref):
+    """prefill_only on ``pre`` → wire blob → handoff on ``dec``; the
+    SLO crosses as a plain dict (the restricted unpickler refuses
+    custom classes) and is rebuilt worker-side."""
+    slo = {"ttft_target_s": 5.0, "tpot_target_s": 5.0, "name": "chat"}
+    blob = pre.submit(prompt, timeout=60.0, prefill_only=True,
+                      max_new=MAX_NEW, slo=slo).result(60.0)
+    assert blob["kind"] == "kv_handoff"
+    out = dec.handoff(blob, timeout=60.0, slo=slo).result(60.0)
+    np.testing.assert_array_equal(ref, np.asarray(out))
+
+
+@pytest.mark.slow
+def test_handoff_process_transport(tmp_path, served_scope,
+                                   plain_engine):
+    """Two ``proc_worker --decode --cpu`` processes over the saved decode
+    model: the blob crosses the pipe as numpy."""
+    from paddle_tpu_torch.cluster.replica import ProcessReplica
+    from paddle_tpu_torch.models.llama import (load_decode_model,
+                                               save_decode_model)
+    p = _prompt(np.random.RandomState(11), LONG_PROMPT)
+    ref = np.asarray(plain_engine.generate(p, timeout=120.0))
+    model_dir = str(tmp_path / "decode_model")
+    save_decode_model(model_dir, CFG, served_scope[0])
+    cfg2, scope2 = load_decode_model(model_dir)
+    assert cfg2 == CFG and scope2.has(next(iter(served_scope[0].keys())))
+    common = dict(decode=True, prompt_buckets="4,16",
+                  max_new_tokens=MAX_NEW, page_size=8,
+                  place=fluid.CPUPlace())
+    pre = ProcessReplica(model_dir, name="pre", role="prefill",
+                         chunk_size=CHUNK, scheduler="slo", **common)
+    dec = ProcessReplica(model_dir, name="dec", role="decode", **common)
+    try:
+        pre.wait_ready()
+        dec.wait_ready()
+        _transport_trip(pre, dec, p, ref)
+    finally:
+        pre.close()
+        dec.close()
+
+
+@pytest.mark.slow
+def test_handoff_socket_transport(served_scope, plain_engine):
+    from paddle_tpu_torch.cluster.net_worker import ReplicaServer
+    from paddle_tpu_torch.cluster.remote import RemoteReplica
+    p = _prompt(np.random.RandomState(12), LONG_PROMPT)
+    ref = np.asarray(plain_engine.generate(p, timeout=120.0))
+    scope = served_scope[0]
+
+    def eng(**kw):
+        return DecodeEngine(CFG, scope=scope, place=fluid.CPUPlace(),
+                            config=_cfg(**kw))
+
+    pre_srv = ReplicaServer(None, engine=eng(chunk_size=CHUNK),
+                            token="slo-test", name="pre")
+    dec_srv = ReplicaServer(None, engine=eng(), token="slo-test",
+                            name="dec")
+    pre = dec = None
+    try:
+        pre = RemoteReplica(pre_srv.addr, token="slo-test",
+                            role="prefill")
+        dec = RemoteReplica(dec_srv.addr, token="slo-test",
+                            role="decode")
+        _transport_trip(pre, dec, p, ref)
+    finally:
+        for r in (pre, dec):
+            if r is not None:
+                r.close()
+        pre_srv.close()
+        dec_srv.close()

@@ -151,18 +151,19 @@ Phases — any failure exits non-zero:
    the f32 serving tier, K1 launched through its ``torch.library``
    operator; the save, load, construction and warmup times with and
    without the store; K1's operator copies no input;
-20. io_llama_saved (path B): ``LLAMA3_8B`` at full width cut to 2
-   layers in bf16 saved and served back: every persistable's bits, 8
+20. io_llama_saved (path B): ``LLAMA3_8B`` at full width cut to 1
+   layer (from 2, for room) in bf16 saved and served back: every
+   persistable's bits, 8
    requests across (1, 2, 4) x (128, 256) bit for bit the in-memory
    engine's, K1 on ``flash_fwd_mma`` at D 128, ``CompiledPredictor``
    within the bf16 tier;
 21. generate (ROADMAP item 4a, the main path of this slice): the 8B
-   width at 8 layers (cut from 32, then 16, for room) in bf16, through
-   ``build_llama_generator`` and
-   ``Executor.run``: 4 prompts of 128 tokens, 64 new tokens each, every
+   width at 4 layers (cut from 32, then 16 and 8, for room) in bf16,
+   through ``build_llama_generator`` and ``Executor.run``: 4 prompts of
+   128 tokens, 64 new tokens each, every
    generated token held against ``build_llama(shard_pp=True)``'s
-   forward of the generated sequence on the same scope (K1 16 launches
-   on ``flash_fwd_mma``), a flip allowed only within twice the row's
+   forward of the generated sequence on the same scope (K1 once a
+   layer on ``flash_fwd_mma``), a flip allowed only within twice the row's
    logit error; FirstProbs against that forward's softmax; the int8 KV
    cache and W8A8 (their int8 accumulators exact on the card against
    the CPU; FirstProbs' distance and token agreement reported);
@@ -389,6 +390,20 @@ Phases — any failure exits non-zero:
    a coordinator crash resumed by a new coordinator; the parameters
    within 2e-3 / 2e-4 of the CPU's. Every worker process is killed
    before the script ends.
+49. serving_chaos (run right after 45, on 4's bf16 scope, 32 layers,
+   buckets (1, 2, 4) x (128, 256); its decode part right after 47, on
+   23's weights): one ``ServingEngine`` through the breaker cycle (two
+   injected ``serving_device_error`` failures open it, a submit is
+   shed, the half-open probe answers bit-equal to the healthy engine),
+   a retried request, a graceful drain of 8 requests behind a slowed
+   batch; a second engine through a worker crash caught by the
+   watchdog, a restart, and a drain deadline against wedged
+   dispatches; ``Executor(retry_policy=)`` through injected
+   ``device_error``s; K1 32 launches for each dispatch that computed,
+   none for a failed or shed one; then a ``DecodeEngine`` wave with one
+   device error retried, tokens equal to 23's. One ``serving_chaos:``
+   line, before the kernel line, gives the windows, K1 by step and the
+   counters.
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
 on its kernel symbol, and times them at the head_dim_256 phase's bf16
@@ -533,12 +548,12 @@ SERVE_8B_OPTIMIZE_COUNTS = dict.fromkeys(TF_SERVE_OPTIMIZE_COUNTS, 0)
 IO_STEPS, IO_EPOCH_STEPS, IO_KEEP = 6, 2, 3
 IO_TIMED_STEPS = 4              # steps timed with and without DeviceLoader
 IO_GOLDEN = 8                   # the golden set's requests
-IO_LLAMA_LAYERS = 2
+IO_LLAMA_LAYERS = 1              # 2 → 1: room for later phases
 # ROADMAP item 4a (the fused KV-cache generator): the 8B width generates
 # GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows, and
 # the layer-stacked forward (K1) scores the generated sequence again
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
-GEN_LAYERS = 8                  # 32 → 16 → 8: room for flowers_train
+GEN_LAYERS = 4                  # 32 → 16 → 8 → 4: room for later phases
                                 # and the fleet phases
 GEN_F32_LAYERS = 4              # 32 → 4: the exact float32 check
 GEN_GAMMA = 4
@@ -9123,6 +9138,407 @@ def phase_train_fabric(torch, fluid, fa, card):
     return by_kernel, stats
 
 
+# serving_chaos: the serving engines' failure paths
+CHAOS_COOLDOWN_S = 0.5          # the breaker's cooldown
+CHAOS_BACKOFF_S = 0.01          # the retry policies' first backoff
+CHAOS_WATCHDOG_S = 0.05         # the watchdog's interval
+CHAOS_DETECT_S = 5.0            # bound on the watchdog's detection
+CHAOS_SLOW_S = 1.0              # a wedged dispatch (serving_slow_batch)
+CHAOS_DRAIN_DEADLINE_S = 0.2    # close(drain=True)'s budget against it
+CHAOS_DEC_REQUESTS = 8          # the decode wave under a device error
+
+
+def recording_sleep(delays):
+    """A retry policy's ``sleep`` that records each delay, then sleeps."""
+    def sleep(d):
+        delays.append(d)
+        time.sleep(d)
+    return sleep
+
+
+def raises(exc_type, fn):
+    """True iff ``fn()`` raises ``exc_type``; any other outcome fails."""
+    try:
+        fn()
+    except exc_type:
+        return True
+    return False
+
+
+def phase_serving_chaos(torch, fluid, fa, card, served):
+    """The serving engine's failure paths on the card, at the Llama-3-8B
+    width with all 32 layers in bf16, on ``phase_serve``'s scope, program
+    and buckets (no weights built again), each fault armed through
+    ``resilience.faultinject`` as the CPU tests arm it
+    (tests/test_torch_serving_chaos.py):
+
+    1. breaker: an engine with ``breaker_threshold=2`` and a one-attempt
+       policy; ``serving_device_error`` twice fails two requests with
+       ``TransientDeviceError``, opens the engine's and the bucket's
+       breakers (health DEGRADED), and a submit is shed with
+       ``ServiceUnavailableError``, K1 not moving across the failures
+       and the shed (the fault fires before ``exe.run``); after the
+       cooldown the half-open probe answers with the logits of the same
+       request served alone by the healthy engine bit for bit (the same
+       bucket), the breaker closes, health reads READY, no step build
+       after warmup;
+    2. retry: the policy at 3 attempts and the fault twice: one answer,
+       ``retries_total`` 2, the backoff schedule, the same logits;
+    3. drain: ``serving_slow_batch`` on the first of 8 requests, then
+       ``close(drain=True)``: all 8 answered;
+    4. watchdog, on a second engine: ``serving_worker_crash`` fails the
+       pending request with ``WorkerDiedError`` within CHAOS_DETECT_S,
+       ``start()`` revives it and the next request answers bit-equal;
+       then every dispatch wedged CHAOS_SLOW_S: ``close(drain=True,
+       drain_timeout=CHAOS_DRAIN_DEADLINE_S)`` returns within the wedged
+       dispatch, every request answered or refused with
+       ``ServerClosedError``;
+    5. executor: ``Executor(retry_policy=)`` runs the served program;
+       ``device_error`` twice gives one answer after two recorded
+       sleeps, equal bit for bit; past the policy ``TransientDeviceError``
+       is raised, and a plain run afterwards answers the same logits.
+
+    K1 adds exactly 32 launches for each dispatch that computed, none
+    for one that failed or was shed. Returns (launches by kernel symbol,
+    stats: the windows in seconds, K1 launches by step, the counters)."""
+    from paddle_tpu_torch.resilience import faultinject
+    from paddle_tpu_torch.resilience.retry import (RetryPolicy,
+                                                   TransientDeviceError)
+    from paddle_tpu_torch.serving import (HealthState, ServerClosedError,
+                                          ServiceUnavailableError,
+                                          ServingConfig, ServingEngine,
+                                          WorkerDiedError)
+
+    tag = "serving_chaos"
+    t_phase = time.perf_counter()
+    cfg, infer, logits, scope, buckets, reqs, alone = (served[k] for k in (
+        "cfg", "infer", "logits", "scope", "buckets", "reqs", "alone"))
+    per = cfg.n_layers                  # K1 launches a computed dispatch
+    feed = {"tokens": reqs[0]}          # 40 tokens: the (1, 128) bucket
+    windows, steps, counts = {}, {}, {}
+
+    def k1():
+        return fa.flash_fwd.launches
+
+    def engine_of(**config):
+        return ServingEngine(infer, ["tokens"], [logits], scope=scope,
+                             buckets=buckets, auto_start=False,
+                             config=ServingConfig(max_wait_ms=5.0,
+                                                  default_timeout_s=600.0,
+                                                  **config))
+
+    sleeps = []
+    policy = RetryPolicy(max_attempts=1, initial_backoff=CHAOS_BACKOFF_S,
+                         sleep=recording_sleep(sleeps))
+    slow_env = os.environ.get("PADDLE_TPU_FAULT_SLOW_S")
+    faultinject.disarm()
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    engine = engine_of(breaker_threshold=2,
+                       breaker_cooldown_s=CHAOS_COOLDOWN_S,
+                       retry_policy=policy).start()
+    try:
+        warm = engine.warmup()
+        steps["warmup"] = k1()
+        check(steps["warmup"] == per * warm["signatures"],
+              f"{tag}: warmup K1 {steps['warmup']} != {per} x "
+              f"{warm['signatures']} signatures")
+        n0 = k1()
+        healthy = engine.infer(feed, timeout=600.0)[0]
+        steps["healthy"] = k1() - n0
+        check(np.isfinite(healthy).all(), f"{tag}: non-finite logits")
+
+        # 1. the breaker: open, shed, half-open, recover
+        n0 = k1()
+        faultinject.arm("serving_device_error", at=0, times=2)
+        failed = [raises(TransientDeviceError,
+                         lambda: engine.infer(feed, timeout=600.0))
+                  for _ in range(2)]
+        t_open = time.perf_counter()
+        faultinject.disarm("serving_device_error")
+        opened = engine.stats()
+        check(failed == [True, True]
+              and opened["health_state"] == HealthState.DEGRADED
+              and opened["breaker"]["state"] == "open"
+              and opened["breaker_open_total"] == 2
+              and opened["errors_total"] == 2
+              and opened["bucket_breakers_not_closed"],
+              f"{tag}: after two injected failures {failed}: health "
+              f"{opened['health_state']}, breaker {opened['breaker']}, "
+              f"opened {opened['breaker_open_total']}, errors "
+              f"{opened['errors_total']}, bucket breakers "
+              f"{opened['bucket_breakers_not_closed']}")
+        shed = raises(ServiceUnavailableError, lambda: engine.submit(feed))
+        counts["breaker_shed_total"] = engine.stats()["breaker_shed_total"]
+        check(shed and counts["breaker_shed_total"] == 1,
+              f"{tag}: the open breaker did not shed the submit ({shed}, "
+              f"{counts['breaker_shed_total']})")
+        steps["failures_and_shed"] = k1() - n0
+        time.sleep(max(0.0, CHAOS_COOLDOWN_S
+                       - (time.perf_counter() - t_open)) + 0.05)
+        n0 = k1()
+        probe = engine.infer(feed, timeout=600.0)[0]
+        windows["breaker_open_to_recovered_s"] = time.perf_counter() - t_open
+        steps["probe"] = k1() - n0
+        recovered = engine.stats()
+        check(recovered["breaker"]["state"] == "closed"
+              and recovered["health_state"] == HealthState.READY
+              and recovered["breaker_probe_total"] == 1,
+              f"{tag}: after the probe: breaker {recovered['breaker']}, "
+              f"health {recovered['health_state']}, probes "
+              f"{recovered['breaker_probe_total']}")
+        check(probe.shape == healthy.shape and np.array_equal(probe, healthy),
+              f"{tag}: the probe's logits differ from the healthy engine's "
+              f"(max |d| {float(np.abs(probe - healthy).max()):.3e})")
+        engine.assert_no_recompiles()
+
+        # 2. retry: the same policy object, now three attempts
+        policy.max_attempts = 3
+        n0 = k1()
+        faultinject.arm("serving_device_error", at=0, times=2)
+        retried = engine.infer(feed, timeout=600.0)[0]
+        faultinject.disarm("serving_device_error")
+        steps["retry"] = k1() - n0
+        st = engine.stats()
+        counts.update({k: st[k] for k in (
+            "retries_total", "errors_total", "breaker_open_total",
+            "breaker_probe_total")})
+        check(counts["retries_total"] == 2 and counts["errors_total"] == 2
+              and sleeps == [CHAOS_BACKOFF_S, 2 * CHAOS_BACKOFF_S],
+              f"{tag}: retried request: {counts}, sleeps {sleeps}")
+        check(np.array_equal(retried, healthy),
+              f"{tag}: the retried request's logits differ from the "
+              "healthy engine's")
+
+        # 3. graceful drain: 8 requests, the first batch slowed
+        n0 = k1()
+        before = engine.stats()
+        faultinject.arm("serving_slow_batch", at=0, times=1)
+        pending = [engine.submit({"tokens": r}, timeout=600.0) for r in reqs]
+        t0 = time.perf_counter()
+        engine.close(drain=True, drain_timeout=600.0)
+        windows["drain_s"] = time.perf_counter() - t0
+        faultinject.disarm("serving_slow_batch")
+        answers = [p.result(timeout=1.0)[0] for p in pending]
+        drained = engine.stats()
+        batches = drained["batches_total"] - before["batches_total"]
+        steps["drain"] = k1() - n0
+        counts["drained_total"] = drained["drained_total"]
+        check(drained["responses_total"] - before["responses_total"]
+              == len(reqs) and drained["errors_total"] == 2
+              and drained["health_state"] == HealthState.STOPPED,
+              f"{tag}: the drain answered "
+              f"{drained['responses_total'] - before['responses_total']} of "
+              f"{len(reqs)} (errors {drained['errors_total']}, health "
+              f"{drained['health_state']})")
+        check(steps["drain"] == per * batches,
+              f"{tag}: the drain's K1 {steps['drain']} != {per} x {batches} "
+              "batches")
+        worst = 0.0
+        for r, got, want in zip(reqs, answers, alone):
+            got = got[:, :r.shape[1]]
+            check(np.isfinite(got).all(), f"{tag}: non-finite drain answer")
+            worst = max(worst, float(np.sqrt(
+                ((got - want) ** 2).mean() / (want ** 2).mean())))
+        check(worst <= TOL_LOGITS_BF16_RMS,
+              f"{tag}: a drained answer differs from its request alone by "
+              f"rel rms {worst:.3e}")
+        check(raises(ServerClosedError, lambda: engine.submit(feed)),
+              f"{tag}: the stopped engine admitted a request")
+    finally:
+        faultinject.disarm()
+        engine.close()
+
+    # 4. the watchdog, then the drain deadline, on a second engine
+    engine = engine_of(watchdog_interval_s=CHAOS_WATCHDOG_S)
+    try:
+        pending = engine.submit(feed, timeout=600.0)
+        n0 = k1()
+        faultinject.arm("serving_worker_crash", at=0, times=1)
+        t0 = time.perf_counter()
+        engine.start()                      # the worker dies at once
+        died = raises(WorkerDiedError, lambda: pending.result(timeout=60.0))
+        windows["watchdog_detection_s"] = time.perf_counter() - t0
+        faultinject.disarm("serving_worker_crash")
+        st = engine.stats()
+        check(died and st["worker_died_total"] == 1
+              and st["health_state"] == HealthState.DEGRADED
+              and windows["watchdog_detection_s"] < CHAOS_DETECT_S,
+              f"{tag}: the crashed worker's request: WorkerDiedError "
+              f"{died} after {windows['watchdog_detection_s']:.3f} s, "
+              f"deaths {st['worker_died_total']}, health "
+              f"{st['health_state']}")
+        steps["worker_crash"] = k1() - n0
+        n0 = k1()
+        t0 = time.perf_counter()
+        engine.start()
+        ready = engine.stats()["health_state"]
+        revived = engine.infer(feed, timeout=600.0)[0]
+        windows["restart_s"] = time.perf_counter() - t0
+        steps["restart"] = k1() - n0
+        counts["worker_died_total"] = engine.stats()["worker_died_total"]
+        check(ready == HealthState.READY and counts["worker_died_total"] == 1
+              and np.array_equal(revived, healthy),
+              f"{tag}: after the restart: health {ready}, deaths "
+              f"{counts['worker_died_total']}, logits equal "
+              f"{np.array_equal(revived, healthy)}")
+        # every dispatch wedged: the drain deadline binds
+        n0 = k1()
+        before = engine.stats()
+        os.environ["PADDLE_TPU_FAULT_SLOW_S"] = str(CHAOS_SLOW_S)
+        faultinject.arm("serving_slow_batch", at=0, times=len(reqs))
+        pending = [engine.submit({"tokens": r}, timeout=600.0) for r in reqs]
+        t0 = time.perf_counter()
+        engine.close(drain=True, drain_timeout=CHAOS_DRAIN_DEADLINE_S)
+        windows["drain_deadline_close_s"] = time.perf_counter() - t0
+        outcome = {"served": 0, "refused": 0}
+        for p in pending:
+            if raises(ServerClosedError, lambda: p.result(timeout=10.0)):
+                outcome["refused"] += 1
+            else:
+                p.result(timeout=0)
+                outcome["served"] += 1
+        after = engine.stats()
+        batches = after["batches_total"] - before["batches_total"]
+        steps["drain_deadline"] = k1() - n0
+        counts["drain_deadline"] = outcome
+        check(windows["drain_deadline_close_s"] < CHAOS_SLOW_S + 2.0
+              and outcome["refused"] >= 1 and outcome["served"] >= 1
+              and sum(outcome.values()) == len(reqs),
+              f"{tag}: the drain deadline: close took "
+              f"{windows['drain_deadline_close_s']:.3f} s against a "
+              f"{CHAOS_SLOW_S} s wedged dispatch, outcome {outcome}")
+        check(steps["drain_deadline"] == per * batches,
+              f"{tag}: the wedged drain's K1 {steps['drain_deadline']} != "
+              f"{per} x {batches} batches")
+    finally:
+        faultinject.disarm()
+        if slow_env is None:
+            os.environ.pop("PADDLE_TPU_FAULT_SLOW_S", None)
+        else:
+            os.environ["PADDLE_TPU_FAULT_SLOW_S"] = slow_env
+        engine.close()
+
+    # 5. the executor's own retry, on the served program
+    ex_sleeps = []
+    exe = fluid.Executor(retry_policy=RetryPolicy(
+        max_attempts=3, initial_backoff=CHAOS_BACKOFF_S,
+        sleep=recording_sleep(ex_sleeps)))
+    batch, _, _ = buckets.pad_batch([feed])
+
+    def run():
+        return exe.run(infer, feed=batch, fetch_list=[logits], scope=scope,
+                       mode="test")[0]
+
+    try:
+        n0 = k1()
+        faultinject.arm("device_error", at=0, times=2)
+        # the retry warnings recorded; the run's error filters still raise
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.filterwarnings("always",
+                                    message=".*transient device error.*")
+            out = run()
+        faultinject.disarm("device_error")
+        steps["executor_retry"] = k1() - n0
+        retry_warnings = sum("transient device error" in str(w.message)
+                             for w in caught)
+        check(ex_sleeps == [CHAOS_BACKOFF_S, 2 * CHAOS_BACKOFF_S]
+              and retry_warnings == 2 and np.array_equal(out, healthy),
+              f"{tag}: the executor's retried run: sleeps {ex_sleeps}, "
+              f"warnings {retry_warnings}, logits equal "
+              f"{np.array_equal(out, healthy)}")
+        n0 = k1()
+        spec = faultinject.arm("device_error", at=0, times=10)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore",
+                                    message=".*transient device error.*")
+            exhausted = raises(TransientDeviceError, run)
+        faultinject.disarm("device_error")
+        steps["executor_exhausted"] = k1() - n0
+        n0 = k1()
+        plain = run()
+        steps["executor_plain"] = k1() - n0
+        check(exhausted and spec.fired == 3 and np.array_equal(plain, healthy),
+              f"{tag}: past the policy: raised {exhausted} after "
+              f"{spec.fired} attempts; the plain run equal "
+              f"{np.array_equal(plain, healthy)}")
+    finally:
+        faultinject.disarm()
+    by_kernel = launches_by_kernel(fa)
+    computed = ("healthy", "probe", "retry", "restart", "executor_retry",
+                "executor_plain")
+    check(all(steps[s] == per for s in computed)
+          and steps["failures_and_shed"] == steps["worker_crash"]
+          == steps["executor_exhausted"] == 0
+          and by_kernel["flash_fwd_mma"] == k1()
+          and not fa_others(by_kernel, "flash_fwd_mma"),
+          f"{tag}: K1 launches by step {steps} (by kernel {by_kernel}): "
+          f"{per} for each computed dispatch, 0 for a failed one")
+    stats = {"layers": cfg.n_layers, "windows_s": windows,
+             "k1_launches_by_step": steps, "counters": counts,
+             "k1_launches": k1(), "phase_s": time.perf_counter() - t_phase,
+             "card": card}
+    return by_kernel, stats
+
+
+def phase_serving_chaos_decode(torch, fluid, fa, card, dec):
+    """The decode engine's ``serving_device_error`` point on the card, on
+    the ``decode_engine`` phase's weights (DEC_LAYERS of the 8B width,
+    bf16) and config: a new ``DecodeEngine`` with a three-attempt policy,
+    one injected device error, CHAOS_DEC_REQUESTS of that phase's
+    prompts from DEC_CLIENTS clients: the error retried once on the
+    policy's backoff, nothing failed, the breaker closed, no step build
+    after warmup, and the tokens equal to the unfaulted wave's. Returns
+    (launches by kernel symbol, stats)."""
+    from paddle_tpu_torch.resilience import faultinject
+    from paddle_tpu_torch.resilience.retry import RetryPolicy
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    tag = "serving_chaos decode"
+    t_phase = time.perf_counter()
+    cfg, scope = dec["cfg"], dec["scope"]
+    prompts = dec["prompts"][:CHAOS_DEC_REQUESTS]
+    want = dec["outs"][:CHAOS_DEC_REQUESTS]
+    sleeps = []
+    policy = RetryPolicy(max_attempts=3, initial_backoff=CHAOS_BACKOFF_S,
+                         sleep=recording_sleep(sleeps))
+    faultinject.disarm()
+    # the main path: counts reset just before, read just after
+    fa.reset_launch_counts()
+    engine = DecodeEngine(cfg, scope=scope, config=DecodeConfig(
+        default_timeout_s=900.0, retry_policy=policy, **DEC_CONFIG))
+    try:
+        warm = engine.warmup()
+        faultinject.arm("serving_device_error", at=0, times=1)
+        got, wall, _ = dec_serve(engine, prompts, DEC_CLIENTS)
+        faultinject.disarm("serving_device_error")
+        engine.assert_no_recompiles()
+        st = engine.stats()
+    finally:
+        faultinject.disarm()
+        engine.close(drain=True)
+    by_kernel = launches_by_kernel(fa)
+    counts = {k: st[k] for k in ("retries_total", "errors_total",
+                                 "breaker_open_total", "retired_total",
+                                 "warmup_compiles")}
+    check(counts["retries_total"] == 1 and counts["errors_total"] == 0
+          and counts["breaker_open_total"] == 0
+          and counts["retired_total"] == len(prompts)
+          and sleeps == [CHAOS_BACKOFF_S]
+          and st["breaker"]["state"] == "closed",
+          f"{tag}: {counts}, sleeps {sleeps}, breaker {st['breaker']}")
+    differ = [i for i, (g, w) in enumerate(zip(got, want))
+              if not np.array_equal(np.asarray(g), np.asarray(w))]
+    check(not differ, f"{tag}: requests {differ} differ from the unfaulted "
+                      "wave's tokens")
+    check(not any(by_kernel.values()),
+          f"{tag}: the paged ops launched attention kernels {by_kernel}")
+    stats = {"layers": cfg.n_layers, "requests": len(prompts),
+             "warmup": warm, "wave_s": wall, "counters": counts,
+             "phase_s": time.perf_counter() - t_phase, "card": card}
+    return by_kernel, stats
+
+
 def check_sass(cuda_build):
     """Log each kernel's count of tensor-core instructions (HMMA) from
     its SASS; fail if a tensor-core kernel has none."""
@@ -9198,14 +9614,18 @@ def main():
         free_card(torch)
         # serving: bf16, then float32, where the answers can be held to
         # the request run alone logit for logit
-        # ... and (ROADMAP item 8, the main path of this slice) the same
-        # scope behind a pool of two replicas
-        fleet = {}
+        # ... and (ROADMAP item 8) the same scope behind a pool of two
+        # replicas, then (the serving engine's failure paths) one engine
+        # under the breaker, retry, drain, watchdog and executor drills
+        fleet, chaos = {}, {}
 
         def cluster_serve(served):
             free_card(torch)
             fleet["cluster_serve"] = phase_cluster_serve(torch, fluid, fa,
                                                          smi, served)
+            free_card(torch)
+            chaos["serve"] = phase_serving_chaos(torch, fluid, fa, smi,
+                                                 served)
 
         serve_launches, serve_bf16 = phase_serve(torch, fluid, "bfloat16",
                                                  smi, then=cluster_serve)
@@ -9293,11 +9713,14 @@ def main():
         # ROADMAP item 4b, the main path of this slice: the paged decode
         # engine serving the 8B width
         # and (item 8) the engine's scope behind a prefill replica and a
-        # decode replica
+        # decode replica, then a decode engine under a device error
 
         def cluster_decode(dec):
             fleet["cluster_decode"] = phase_cluster_decode(
                 torch, fluid, fa, smi, dec)
+            free_card(torch)
+            chaos["decode"] = phase_serving_chaos_decode(torch, fluid, fa,
+                                                         smi, dec)
 
         dec_launches, _ = phase_decode_engine(torch, fluid, fa, smi,
                                               then=cluster_decode)
@@ -9307,6 +9730,8 @@ def main():
         check(sorted(fleet) == ["cluster_decode", "cluster_remote",
                                 "cluster_serve", "train_fabric"],
               f"the fleet phases that ran: {sorted(fleet)}")
+        check(sorted(chaos) == ["decode", "serve"],
+              f"the serving_chaos parts that ran: {sorted(chaos)}")
         shutil.rmtree(FLEET_ROOT, ignore_errors=True)
         free_card(torch)
         # ROADMAP item 5, the main path of this slice: the reference's
@@ -9440,7 +9865,10 @@ def main():
              "faster_rcnn_train": frcnn_launches,
              "ssd_train": ssd_launches,
              "detection_extras": extras_launches,
-             **{name: launches for name, (launches, _) in fleet.items()}}
+             **{name: launches for name, (launches, _) in fleet.items()},
+             "serving_chaos": {
+                 k: chaos["serve"][0].get(k, 0) + chaos["decode"][0].get(k, 0)
+                 for k in set(chaos["serve"][0]) | set(chaos["decode"][0])}}
     for kind_, label, launches, shape in (
             ("fwd", TRAIN_LABEL, stack_launches, train_shape),
             ("dq", TRAIN_LABEL, stack_launches, train_shape),
@@ -9556,6 +9984,8 @@ def main():
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": shape, "card": kind, "power_limit": power})
+    print("serving_chaos: " + json.dumps(
+        {"serve": chaos["serve"][1], "decode": chaos["decode"][1]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

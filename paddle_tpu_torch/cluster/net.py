@@ -298,6 +298,36 @@ def _remaining(deadline, clock=time.monotonic):
     return left
 
 
+# A socket's timeout is the socket's state, not the calling thread's:
+# ``settimeout(None)`` clears O_NONBLOCK on the fd and any other value
+# sets it. A RemoteReplica sends from its callers' threads while its
+# reader sits in ``recv``; had the sender armed its deadline between the
+# reader's ``settimeout(None)`` and its ``recv``, that recv would fail
+# with EAGAIN and the live connection be torn down. So every socket
+# these primitives touch keeps one timeout for its whole life, and a
+# deadline is kept by waking every _IO_SLICE_S to look at it.
+_IO_SLICE_S = 0.05
+
+
+def _expired(deadline):
+    return deadline is not None and time.monotonic() >= deadline
+
+
+def _send_all(sock, data, deadline):
+    """``sendall`` bounded by ``deadline`` without touching the
+    socket's mode between calls (see _IO_SLICE_S)."""
+    sock.settimeout(_IO_SLICE_S)
+    view = memoryview(data)
+    while view:
+        try:
+            sent = sock.send(view)
+        except socket.timeout:
+            if _expired(deadline):
+                raise
+            continue
+        view = view[sent:]
+
+
 def send_frame(sock, obj, deadline=None):
     """One frame onto a socket, bounded by ``deadline`` (monotonic
     seconds). Transport failures surface as RemoteUnavailableError;
@@ -312,17 +342,17 @@ def send_frame(sock, obj, deadline=None):
     data = encode_frame(obj)
     if _faultinject.fires("net_frame_drop"):
         return                      # the network ate it; caller's
-    try:                            # deadline is the safety net
-        sock.settimeout(_remaining(deadline))
+    _remaining(deadline)            # deadline is the safety net
+    try:
         if _faultinject.fires("net_partial_write"):
-            sock.sendall(data[:max(1, len(data) // 2)])
+            _send_all(sock, data[:max(1, len(data) // 2)], deadline)
             try:
                 sock.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
             raise ConnectionResetError(
                 "injected partial write — connection torn mid-frame")
-        sock.sendall(data)
+        _send_all(sock, data, deadline)
     except socket.timeout as exc:
         raise RequestTimeoutError(
             "deadline expired while sending a frame") from exc
@@ -334,13 +364,16 @@ def send_frame(sock, obj, deadline=None):
 def _recv_exact(sock, n, deadline):
     chunks = []
     got = 0
+    sock.settimeout(_IO_SLICE_S)
+    _remaining(deadline)
     while got < n:
-        sock.settimeout(_remaining(deadline))
         try:
             chunk = sock.recv(min(n - got, 1 << 20))
         except socket.timeout as exc:
-            raise RequestTimeoutError(
-                "deadline expired while receiving a frame") from exc
+            if _expired(deadline):
+                raise RequestTimeoutError(
+                    "deadline expired while receiving a frame") from exc
+            continue
         if not chunk:
             break
         chunks.append(chunk)

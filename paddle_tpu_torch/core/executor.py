@@ -622,6 +622,12 @@ class Executor:
     # step-build introspection (serving/ warmup leans on this to PROVE
     # bucket reuse: after warming every declared shape bucket,
     # steady-state traffic must not grow these numbers)
+    def compile_cache_keys(self):
+        """Snapshot of the lowered-program cache keys, each
+        ``(program_uid, program_version, mode, fetch_names)`` — one entry
+        per distinct lowered step, as :meth:`compile_counts` keys it."""
+        return sorted(self._cache)
+
     def compile_counts(self):
         """``{(program_uid, program_version, mode, fetch_names):
         n_feed_signatures}`` — the distinct step builds

@@ -1,8 +1,14 @@
-"""Port of ``paddle_tpu/io/batcher.py`` (the same binding over the same
-``native/batcher.cc``, built into ``paddle_tpu_torch/_build/``).
+"""Port of ``paddle_tpu/io/batcher.py``: the same binding over the
+port's own copy of ``native/batcher.cc``, ``paddle_tpu_torch/csrc/
+batcher.cc``, built with g++ into ``paddle_tpu_torch/_build/``. The copy
+draws its buffered shuffle over the first ``shuffle_buf`` samples of the
+pool, so with one producer thread (``n_threads=1``, or one file) the
+order is a function of the seed alone; the reference draws over however
+many samples its producers have pooled, which follows thread timing.
+Files are the reference's: either package reads what the other writes.
 
 Native batch pipeline binding — fixed-shape samples assembled into
-batches by C++ worker threads (native/batcher.cc; the native
+batches by C++ worker threads (csrc/batcher.cc; the native
 counterpart of the reference's C++ reader op stack, reference
 paddle/fluid/operators/reader/create_batch_reader_op.cc /
 create_shuffle_reader_op.cc).
@@ -18,7 +24,7 @@ import os
 
 import numpy as np
 
-from .recordio import Writer, _BUILD_DIR, build_native_lib
+from .recordio import Writer, _BUILD_DIR, _PKG_DIR, build_native_lib
 
 __all__ = ["write_fixed", "FixedBatcher"]
 
@@ -30,7 +36,8 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    lib = build_native_lib("batcher.cc", _SO_PATH)
+    lib = build_native_lib("batcher.cc", _SO_PATH,
+                           src_dir=os.path.join(_PKG_DIR, "csrc"))
     lib.ptru_batcher_open.restype = ctypes.c_void_p
     lib.ptru_batcher_open.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,

@@ -29,17 +29,18 @@ _SO_PATH = os.path.join(_BUILD_DIR, "libptrecordio.so")
 _lib = None
 
 
-def build_native_lib(src_name, so_path):
-    """Compile ``native/<src_name>`` to ``so_path`` on first use and
-    return a CDLL — shared by every native binding (recordio, batcher).
-    Builds to a per-pid temp path and renames into place so N
-    data-parallel worker processes racing on first use never load a
-    partially written .so (rename is atomic on posix)."""
-    if not os.path.exists(so_path):
-        src = os.path.join(_NATIVE_DIR, src_name)
-        if not os.path.exists(src):
-            raise RuntimeError(
-                f"native source not found; expected {src}")
+def build_native_lib(src_name, so_path, src_dir=_NATIVE_DIR):
+    """Compile ``<src_dir>/<src_name>`` (``native/`` by default) to
+    ``so_path`` on first use, or when the source is newer than the
+    library, and return a CDLL — shared by every native binding
+    (recordio, batcher). Builds to a per-pid temp path and renames into
+    place so N data-parallel worker processes racing on first use never
+    load a partially written .so (rename is atomic on posix)."""
+    src = os.path.join(src_dir, src_name)
+    if not os.path.exists(src):
+        raise RuntimeError(f"native source not found; expected {src}")
+    if not os.path.exists(so_path) \
+            or os.path.getmtime(so_path) < os.path.getmtime(src):
         os.makedirs(os.path.dirname(so_path), exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
         subprocess.check_call(

@@ -12,8 +12,11 @@ framework one shared vocabulary for it:
   transient failures into it.
 - :func:`is_transient` — message-pattern classification of runtime
   errors that are worth re-dispatching (UNAVAILABLE / DEADLINE_EXCEEDED
-  / connection-reset style failures from jax's XlaRuntimeError, which
-  subclasses RuntimeError).
+  / connection-reset style failures, the reference's list for jax's
+  XlaRuntimeError, which subclasses RuntimeError). The port's own CUDA
+  and NCCL failures are never transient: an out-of-memory error is
+  deterministic, and after a sticky CUDA error the process's context is
+  dead, so no re-dispatch can succeed.
 - :class:`RetryPolicy` + :func:`with_retries` — bounded attempts with
   exponential backoff; the sleep function is injectable so tier-1 tests
   assert the exact backoff schedule without ever sleeping.
@@ -26,6 +29,8 @@ Env knobs (read by :func:`default_policy`, used by ``Executor.run`` and
 """
 import os
 import time
+
+import torch
 
 __all__ = ["TransientDeviceError", "is_transient", "RetryPolicy",
            "with_retries", "default_policy"]
@@ -48,16 +53,35 @@ _TRANSIENT_PATTERNS = (
 )
 
 
+# the port's CUDA and NCCL failures, which no re-dispatch survives:
+# torch's out-of-memory and accelerator errors, whose text says "CUDA
+# out of memory" / "CUDA error: ..." (a sticky one — "an illegal memory
+# access was encountered", "unspecified launch failure" — leaves the
+# process's CUDA context dead), the kernel wrappers' "kernel launch
+# failed: CUDA error <code>", and NCCL's errors. Checked before
+# _TRANSIENT_PATTERNS, which would call "CUDA-capable device(s) is/are
+# busy or unavailable" or an aborted NCCL communicator transient.
+_CUDA_FAILURE_TYPES = tuple(
+    t for t in (torch.cuda.OutOfMemoryError,
+                getattr(torch, "AcceleratorError", None)) if t is not None)
+_CUDA_FAILURE_PATTERNS = ("cuda error", "cuda out of memory",
+                          "kernel launch failed", "nccl")
+
+
 def is_transient(exc):
     """True iff ``exc`` looks like a failure that a fresh attempt could
-    survive. TransientDeviceError always qualifies; other RuntimeErrors
-    and OSErrors qualify by message pattern (jax's XlaRuntimeError is a
-    RuntimeError subclass, so tunneled-backend failures land here)."""
+    survive. TransientDeviceError always qualifies; a CUDA or NCCL
+    failure never does; other RuntimeErrors and OSErrors qualify by
+    message pattern (the reference's list for jax's XlaRuntimeError, a
+    RuntimeError subclass)."""
     if isinstance(exc, TransientDeviceError):
         return True
     if not isinstance(exc, (RuntimeError, OSError)):
         return False
     msg = str(exc).lower()
+    if isinstance(exc, _CUDA_FAILURE_TYPES) \
+            or any(p in msg for p in _CUDA_FAILURE_PATTERNS):
+        return False
     return any(p in msg for p in _TRANSIENT_PATTERNS)
 
 

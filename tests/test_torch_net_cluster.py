@@ -257,6 +257,10 @@ class FakeSock:
                 if out is not None:
                     self.push(out)
 
+    def send(self, data):
+        self.sendall(bytes(data))
+        return len(data)
+
     def recv(self, n):
         deadline = (None if self._timeout is None
                     else time.monotonic() + self._timeout)
@@ -681,6 +685,55 @@ def test_handshake_wrong_token_refused_server_survives(
     finally:
         rep.close()
     assert loopback_server.stats()["handshake_refused_total"] >= 1
+
+
+def test_sender_deadline_never_breaks_the_readers_recv():
+    """A socket's timeout is shared by every thread that uses it. The
+    RemoteReplica's callers send with a deadline while its reader waits
+    in recv with none: had a send switched the socket out of blocking
+    mode just as the reader entered its recv, that recv would fail with
+    EAGAIN and tear a live connection down under load. The window is
+    too narrow to hit on demand, so what is pinned is its cause: a send
+    with a deadline and a recv without one leave the socket in the same
+    timeout mode, never blocking; and 400 frames sent with deadlines
+    while the reader receives their echoes all arrive."""
+    a, b = socket.socketpair()
+    n = 400
+    got, errors = [], []
+
+    def read():
+        try:
+            for _ in range(n):
+                got.append(net.recv_frame(a)["i"])
+        except Exception as e:          # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    def echo():
+        try:
+            for _ in range(n):
+                net.send_frame(b, net.recv_frame(
+                    b, deadline=time.monotonic() + 30.0))
+        except Exception as e:          # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=f, daemon=True)
+               for f in (read, echo)]
+    try:
+        for t in threads:
+            t.start()
+        for i in range(n):
+            net.send_frame(a, {"i": i},
+                           deadline=time.monotonic() + 30.0)
+        for t in threads:
+            t.join(30.0)
+        assert not errors and got == list(range(n))
+        mode = a.gettimeout()
+        net.send_frame(a, {"i": n}, deadline=time.monotonic() + 5.0)
+        assert net.recv_frame(b) == {"i": n}
+        assert a.gettimeout() == mode and mode is not None and mode > 0
+    finally:
+        a.close()
+        b.close()
 
 
 def test_handshake_fingerprint_mismatch_refused(loopback_server):

@@ -1,15 +1,24 @@
 """The input pipeline of the torch port against the JAX package: the
-native recordio and batcher files (paddle_tpu_torch/io/recordio.py,
-batcher.py — the same ``native/*.cc`` through the port's own ctypes
-binding, built into ``paddle_tpu_torch/_build/``), the in-graph readers
-feeding ``Executor.run`` until ``EOFException`` (layers/io.py), the
-reader decorators, DataFeeder, and DeviceLoader on the CPU.
+native recordio and batcher files (paddle_tpu_torch/io/recordio.py over
+``native/recordio.cc``, batcher.py over the port's own
+``csrc/batcher.cc``, each through the port's ctypes binding, built into
+``paddle_tpu_torch/_build/``), the in-graph readers feeding
+``Executor.run`` until ``EOFException`` (layers/io.py), the reader
+decorators, DataFeeder, and DeviceLoader on the CPU.
 
 Files written by either package read in the other byte for byte; the
 readers' training losses equal the reference's from the same initial
 scope at the f32 loss tier (rtol 2e-3, tests/test_torch_transformer.py).
+The port's shuffled batcher order is a function of its seed with one
+producer thread; the reference's follows thread timing (ROADMAP §3 R5),
+so the two are held to the same samples.
+
+``tests/test_batcher.py`` → here: ``test_batches_cover_all_samples``
+[jax, port], ``test_shuffle_changes_order_but_not_content``,
+``test_drop_last_and_bad_record_error``, ``test_feeds_training``.
 """
 import os
+import time
 
 import numpy as np
 import pytest
@@ -105,14 +114,187 @@ def test_fixed_batcher_files_cross(tmp_path, writer, reader):
     ys = np.concatenate([b[1] for b in batches])
     assert np.array_equal(xs[:, 0], np.arange(10, dtype=np.float32))
     assert np.array_equal(ys[:, 0], np.arange(10))
-    # the shuffled order is the reference's for the same seed
-    want = [b[1][:, 0].tolist() for b in jbatcher.FixedBatcher(
-        path, SPECS, 4, shuffle_buf=6, seed=3, n_threads=1)]
-    got = [b[1][:, 0].tolist() for b in tbatcher.FixedBatcher(
-        path, SPECS, 4, shuffle_buf=6, seed=3, n_threads=1)]
-    assert got == want
+    # a shuffled pass of either package yields every sample exactly once;
+    # the reference's order follows its producer thread's timing (ROADMAP
+    # §3 R5), so the packages are held to the same samples, and the
+    # port's order to its seed (test_port_batcher_order_is_a_function_of
+    # _the_seed)
+    passes = {name: [int(v) for b in mod[1].FixedBatcher(
+        path, SPECS, 4, shuffle_buf=6, seed=3, n_threads=1)
+        for v in b[1][:, 0]] for name, mod in PACKAGES.items()}
+    for order in passes.values():
+        assert sorted(order) == list(range(10))
     assert len(list(r.FixedBatcher(path, SPECS, 4, n_threads=1,
                                    drop_last=True))) == 2
+
+
+def _shuffle_files(tmp_path, n_files=8, per_file=16):
+    """Small gzip files: the one producer thread reads and inflates a
+    file at a time, so between files the pool runs dry and the consumer
+    waits on it (the producer held back)."""
+    paths = []
+    for f in range(n_files):
+        p = str(tmp_path / f"shuf-{f}.rio")
+        rows = [(np.full(3, f * per_file + i, np.float32),
+                 np.asarray([f * per_file + i], np.int64))
+                for i in range(per_file)]
+        tbatcher.write_fixed(p, rows, SPECS, compressor="gzip")
+        paths.append(p)
+    return paths
+
+
+def _port_order(paths, seed, lead_s):
+    """One shuffled pass of the port's batcher (one producer thread);
+    ``lead_s`` > 0 lets the producer fill its pool to capacity before the
+    first batch is taken."""
+    with tbatcher.FixedBatcher(paths, SPECS, 5, shuffle_buf=12, seed=seed,
+                               n_threads=1) as it:
+        if lead_s:
+            time.sleep(lead_s)
+        return [int(v) for _, lab in it for v in lab[:, 0]]
+
+
+def test_port_batcher_order_is_a_function_of_the_seed(tmp_path):
+    """F20: the port's buffered shuffle draws over the first
+    ``shuffle_buf`` slots of its pool, so with one producer thread the
+    order of a pass is the same in 20 passes — ten where the producer ran
+    far ahead (the pool at capacity before the first batch) and ten where
+    it was held back (consumed at once, the pool refilled file by
+    file) — every sample exactly once, and another seed gives another
+    order."""
+    paths = _shuffle_files(tmp_path)
+    n = 8 * 16
+    want = _port_order(paths, seed=3, lead_s=0.0)
+    assert sorted(want) == list(range(n)) and want != list(range(n))
+    for k in range(20):
+        assert _port_order(paths, seed=3,
+                           lead_s=0.05 if k % 2 else 0.0) == want, k
+    other = _port_order(paths, seed=4, lead_s=0.0)
+    assert sorted(other) == list(range(n)) and other != want
+    # the reference's pass holds the same samples, in an order of its own
+    got = [int(v) for _, lab in jbatcher.FixedBatcher(
+        paths, SPECS, 5, shuffle_buf=12, seed=3, n_threads=1)
+        for v in lab[:, 0]]
+    assert sorted(got) == list(range(n))
+
+
+# tests/test_batcher.py's cases, each package reading the same files
+BATCHER_SPECS = [((4,), "float32"), ((1,), "int64")]
+
+
+def _write_parts(tmp_path, n_files=3, per_file=10):
+    paths, k = [], 0
+    for f in range(n_files):
+        p = str(tmp_path / f"part-{f}.rec")
+        rows = [(np.full(4, k + i, np.float32), np.array([k + i], np.int64))
+                for i in range(per_file)]
+        assert tbatcher.write_fixed(p, rows, BATCHER_SPECS) == per_file
+        paths.append(p)
+        k += per_file
+    return paths
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_batches_cover_all_samples(tmp_path, pkg):
+    """Three files on two producer threads, batches of 7: every sample
+    once, the fields of a sample aligned."""
+    paths = _write_parts(tmp_path)
+    seen = []
+    with PACKAGES[pkg][1].FixedBatcher(paths, BATCHER_SPECS,
+                                       batch_size=7) as it:
+        for imgs, labels in it:
+            assert imgs.dtype == np.float32 and labels.dtype == np.int64
+            assert imgs.shape[1:] == (4,) and labels.shape[1:] == (1,)
+            np.testing.assert_array_equal(imgs[:, 0],
+                                          labels[:, 0].astype(np.float32))
+            seen.extend(labels[:, 0].tolist())
+    assert sorted(seen) == list(range(30))
+
+
+def test_shuffle_changes_order_but_not_content(tmp_path):
+    """One file: the plain order is the file's in both packages; the
+    shuffled one is another order of the same samples."""
+    paths = _write_parts(tmp_path, n_files=1, per_file=64)
+    orders = {}
+    for name, (_, mod) in PACKAGES.items():
+        plain = [int(v) for _, lab in mod.FixedBatcher(paths,
+                                                       BATCHER_SPECS, 8)
+                 for v in lab[:, 0]]
+        shuf = [int(v) for _, lab in mod.FixedBatcher(
+            paths, BATCHER_SPECS, 8, shuffle_buf=32, seed=3)
+            for v in lab[:, 0]]
+        assert sorted(shuf) == sorted(plain) == list(range(64))
+        assert shuf != plain
+        orders[name] = plain
+    assert orders["port"] == orders["jax"]
+
+
+def test_drop_last_and_bad_record_error(tmp_path):
+    paths = _write_parts(tmp_path, n_files=1, per_file=10)
+    out = {}
+    for name, (_, mod) in PACKAGES.items():
+        n = sum(len(lab) for _, lab in mod.FixedBatcher(
+            paths, BATCHER_SPECS, 4, drop_last=True))
+        assert n == 8                  # 10 -> two full batches of 4
+        # wrong specs: the size mismatch surfaces as IOError
+        with pytest.raises(IOError, match="expected") as e:
+            list(mod.FixedBatcher(paths, [((3,), "float32"),
+                                          ((1,), "int64")], 4))
+        out[name] = (n, str(e.value))
+    assert out["port"] == out["jax"]
+
+
+def _batcher_training(fluid, mod, path, specs, state, **kw):
+    """SGD over FixedBatcher's batches from ``state``'s initial values
+    (the reference's startup when ``state`` is empty)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        pred = fluid.layers.fc(input=x, size=1)
+        loss = fluid.layers.mean(
+            fluid.layers.square_error_cost(input=pred, label=y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    exe = fluid.Executor(fluid.CPUPlace())
+    if fluid is jfluid:
+        scope = jfluid.Scope()
+        exe.run(startup, scope=scope)
+        state.update({n: np.asarray(scope.find_var(n))
+                      for n in scope.keys()})
+    else:
+        scope = weights.load_state(tfluid.Scope(), state, CPU)
+    losses = []
+    for xs, ys in mod.FixedBatcher(path, specs, 16, **kw):
+        out = exe.run(main, feed={"x": xs, "y": ys}, fetch_list=[loss],
+                      scope=scope)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+    return losses
+
+
+def test_feeds_training(tmp_path):
+    """200 samples in batches of 16 train a linear fit: through the
+    port's shuffled batcher the loss falls as in the reference test; in
+    file order (one producer, no shuffle) the losses equal the
+    reference's from the same initial scope at the f32 loss tier."""
+    rng = np.random.RandomState(0)
+    w_true = rng.randn(4, 1).astype(np.float32)
+    rows = []
+    for _ in range(200):
+        x = rng.randn(4).astype(np.float32)
+        rows.append((x, (x @ w_true).astype(np.float32)))
+    p = str(tmp_path / "train.rec")
+    specs = [((4,), "float32"), ((1,), "float32")]
+    tbatcher.write_fixed(p, rows, specs)
+    state = {}
+    want = _batcher_training(jfluid, jbatcher, p, specs, state,
+                             n_threads=1)
+    got = _batcher_training(tfluid, tbatcher, p, specs, state, n_threads=1)
+    assert len(got) == len(want) == 13     # 200/16 -> 12 full + 1 short
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    shuffled = _batcher_training(tfluid, tbatcher, p, specs, state,
+                                 shuffle_buf=64, seed=1)
+    assert len(shuffled) == 13
+    assert shuffled[-1] < 0.3 * shuffled[0], shuffled
 
 
 def _py_reader_program(fluid):

@@ -129,15 +129,16 @@ Phases — any failure exits non-zero:
    under ``PADDLE_TPU_OPTIMIZE=1`` and ``validate="strict"``: the ten
    losses and every persistable after the run bit for bit equal to 11's,
    K1/K2/K3 6 launches a step; the step-time median beside 11's.
-18. io_train_resume (ROADMAP item 3, path A): 11's model, batch and
-   recipe trained by ``Trainer`` for 6 steps in epochs of 2, every batch
+18. io_train_resume (ROADMAP item 3, path A): 11's model at 3 layers a
+   side, its batch and recipe trained by ``Trainer`` for 6 steps in
+   epochs of 2, every batch
    new, written once with ``batcher.write_fixed`` and read through
    ``FixedBatcher`` -> ``DeviceLoader`` (pinned memory, copies on a side
    stream), a checkpoint an epoch; a second run killed by the
    ``torn_write`` fault in its second checkpoint, a third resumed from
    the newest valid one: its losses and every persistable bit for bit
    the uninterrupted run's (``torch.equal``; the checkpoint restores the
-   step counter that seeds dropout), K1/K2/K3 6 launches a step on the
+   step counter that seeds dropout), K1/K2/K3 3 launches a step on the
    float32 kernels; step time with and without ``DeviceLoader``, each
    with its device busy time and idle share;
 19. io_saved_serve (the main path of item 3): 18's trained test clone
@@ -145,7 +146,7 @@ Phases — any failure exits non-zero:
    embedded artifact store, a golden set of 8), then a fresh
    ``ServingEngine.from_saved_model(compile_store=True)``: warmup builds
    no step (4 store hits), 32 requests bit for bit an in-memory engine's answers, K1 on
-   ``flash_fwd_f32mma`` (6 a dispatch), K2/K3 none, no build after
+   ``flash_fwd_f32mma`` (3 a dispatch), K2/K3 none, no build after
    warmup; ``Inferencer.from_inference_model`` and the golden set equal;
    ``CompiledPredictor`` (``__compiled__.pt2``) at batch 1 and 8 within
    the f32 serving tier, K1 launched through its ``torch.library``
@@ -324,9 +325,9 @@ Phases — any failure exits non-zero:
    images, 95 classes, batch 32, labels of 5-20 tokens: the first step
    against the CPU, greedy CTC tokens equal to the CPU's (a frame's
    argmax may flip only within twice the row's score error);
-40. control_flow: a bounded and an unbounded While, IfElse, Switch, the
-   tensor arrays and the bounded While's gradient, card against CPU;
-   36-40 each with no attention launch;
+40. control_flow: a bounded and two unbounded Whiles (one whose limit is
+   fed), IfElse, Switch, the tensor arrays and the bounded While's
+   gradient, card against CPU; 36-40 each with no attention launch;
 41. faster_rcnn_train (ROADMAP item 7c, the main path of this slice):
    ``build_faster_rcnn`` at ``FasterRCNNConfig()``'s full width on 2
    images of 3 x 600 x 800 (Faster R-CNN's training scale, Fast R-CNN's
@@ -404,6 +405,18 @@ Phases — any failure exits non-zero:
    device error retried, tokens equal to 23's. One ``serving_chaos:``
    line, before the kernel line, gives the windows, K1 by step and the
    counters.
+50. aot_recurrent (run right after 40; F14 closed, the main path of this
+   slice): 34's stacked LSTM and 36's seq2seq-attention model at their
+   widths, each pruned to its prediction and saved with
+   ``save_inference_model`` declaring no padded length, then served
+   through one ``load_compiled_predictor`` artifact on the card — the
+   LSTM at batch 32 x padded 16, 64 and 128, batch 1 x 37 and batch 32
+   at lengths 9-64, seq2seq at batch 32 x (src, trg) (16, 16), (64, 64)
+   and (64, 24) — each within 2e-4 / 2e-5 of the eager Executor; 40's
+   fed While at three trip counts and its IfElse on each branch, equal
+   to the Executor; no attention launch. Its line gives each export's
+   wall s and artifact bytes, the predictor's and the Executor's ms at
+   each geometry (median of 5) and launches a run.
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
 on its kernel symbol, and times them at the head_dim_256 phase's bf16
@@ -540,8 +553,9 @@ TF_SERVE_OPTIMIZE_COUNTS = {"folded": 0, "fused": 26, "merged": 0,
                             "layout_transposes": 0}
 SERVE_8B_OPTIMIZE_COUNTS = dict.fromkeys(TF_SERVE_OPTIMIZE_COUNTS, 0)
 # ROADMAP item 3 (IO, persistables, checkpoints, the Inferencer): path A
-# trains TRANSFORMER_BASE (TF_BATCH x TF_SEQ, lengths) through Trainer
-# for IO_STEPS steps in epochs of IO_EPOCH_STEPS, a checkpoint at each
+# trains TRANSFORMER_BASE at IO_TF_LAYERS layers a side (TF_BATCH x
+# TF_SEQ, lengths) through Trainer for IO_STEPS steps in epochs of
+# IO_EPOCH_STEPS, a checkpoint at each
 # epoch's end (IO_KEEP kept), then serves it from its saved directory;
 # path B saves and serves the 8B width at IO_LLAMA_LAYERS layers in bf16
 # (32 layers would be 16 GB of params.npz to write and hash a run)
@@ -549,6 +563,8 @@ IO_STEPS, IO_EPOCH_STEPS, IO_KEEP = 6, 2, 3
 IO_TIMED_STEPS = 4              # steps timed with and without DeviceLoader
 IO_GOLDEN = 8                   # the golden set's requests
 IO_LLAMA_LAYERS = 1              # 2 → 1: room for later phases
+IO_TF_LAYERS = 3                 # path A's layers a side, 6 → 3: room
+                                 # for aot_recurrent
 # ROADMAP item 4a (the fused KV-cache generator): the 8B width generates
 # GEN_NEW tokens after a GEN_PROMPT-token prompt for GEN_BATCH rows, and
 # the layer-stacked forward (K1) scores the generated sequence again
@@ -2900,8 +2916,9 @@ class IOTrainRun:
 
 def phase_io_train_resume(torch, fluid, fa, card):
     """Path A's training (ROADMAP item 3): TRANSFORMER_BASE in float32
-    at full width and the ``transformer`` phase's batch (TF_BATCH x
-    TF_SEQ a side, lengths from SEED), trained by ``Trainer`` (noam +
+    at full width, IO_TF_LAYERS layers a side, and the ``transformer``
+    phase's batch (TF_BATCH x TF_SEQ a side, lengths from SEED), trained
+    by ``Trainer`` (noam +
     Adam, dropout 0.1) for IO_STEPS steps, fed from record files written
     once with ``batcher.write_fixed`` and read through ``FixedBatcher``
     -> ``DeviceLoader`` (pinned memory, side-stream copies), a
@@ -2912,7 +2929,7 @@ def phase_io_train_resume(torch, fluid, fa, card):
     and finishes. Checks: run 3's losses and every persistable after the
     last step equal run 1's bit for bit (``torch.equal``: the step
     counter that seeds dropout is restored), run 2's first epoch equals
-    run 1's, K1/K2/K3 6 launches a step on the float32 kernels (run 1,
+    run 1's, K1/K2/K3 3 launches a step on the float32 kernels (run 1,
     counts reset just before and read just after). Then the step time
     with and without ``DeviceLoader`` (host numpy feeds), each with one
     step's device busy time and idle share. Returns (launches by kernel
@@ -2923,7 +2940,9 @@ def phase_io_train_resume(torch, fluid, fa, card):
 
     tag = "io_train_resume"
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TRANSFORMER_BASE
+    cfg = dataclasses.replace(TRANSFORMER_BASE,
+                              n_encoder_layers=IO_TF_LAYERS,
+                              n_decoder_layers=IO_TF_LAYERS)
     work = io_workdir("train")
     t0 = time.perf_counter()
     names, specs, paths, feeds = io_batches(cfg, work)
@@ -7618,8 +7637,9 @@ def phase_ocr_ctc_train(torch, fluid, fa, card):
 
 def cf_programs(fluid):
     """Small control-flow programs, each (name, main, startup, feed,
-    fetch names, with gradients): a bounded and an unbounded While, an
-    IfElse, a Switch, the tensor arrays, the bounded While's gradient."""
+    fetch names): a bounded and an unbounded While, an unbounded While
+    whose trip count is the fed ``lim``, an IfElse, a Switch, the tensor
+    arrays, the bounded While's gradient."""
     layers = fluid.layers
     out = []
 
@@ -7634,7 +7654,7 @@ def cf_programs(fluid):
         out.append((name, main, startup, feed,
                     [v if isinstance(v, str) else v.name for v in fetch]))
 
-    def loop(max_iters, grads=False):
+    def loop(max_iters, grads=False, fed_limit=False):
         def fn():
             w = layers.create_parameter(
                 [64], "float32", attr=fluid.ParamAttr(name="cf_w"),
@@ -7643,7 +7663,9 @@ def cf_programs(fluid):
             i = layers.fill_constant([1], "float32", 0.0)
             acc = layers.scale(x, scale=1.0)
             acc.stop_gradient = False
-            limit = layers.fill_constant([1], "float32", 6.0)
+            limit = (layers.data("lim", shape=[1], append_batch_size=False)
+                     if fed_limit
+                     else layers.fill_constant([1], "float32", 6.0))
             cond = layers.less_than(i, limit)
             loop_ = layers.While(cond, max_iters=max_iters)
             with loop_.block():
@@ -7658,6 +7680,8 @@ def cf_programs(fluid):
     x = np.random.RandomState(SEED + 5).randn(256, 64).astype(np.float32)
     build("while_bounded", loop(10), {"x": x})
     build("while_unbounded", loop(None), {"x": x})
+    build("while_fed_limit", loop(None, fed_limit=True),
+          {"x": x, "lim": np.asarray([6.0], np.float32)})
     build("while_bounded_grad", loop(10), {"x": x}, grads=True)
 
     def ifelse():
@@ -7703,7 +7727,7 @@ def cf_programs(fluid):
 
 def phase_control_flow(torch, fluid, fa, card):
     """Each of cf_programs on the card against the CPU from one startup
-    (float32, TF32 off): a bounded and an unbounded While, IfElse,
+    (float32, TF32 off): a bounded and two unbounded Whiles, IfElse,
     Switch, the tensor arrays, the bounded While's gradient, within the
     card tier (integers exactly). Returns (attention launches, stats)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7730,6 +7754,230 @@ def phase_control_flow(torch, fluid, fa, card):
     by_kernel = attention_idle(fa, "control_flow")
     log(f"control_flow: {card}, float32, TF32 off, max err by program: "
         + json.dumps(stats))
+    return by_kernel, stats
+
+
+# F14 closed: one exported artifact of each recurrent and control-flow
+# program, served at every padded length; float32, TF32 off
+AOT_TOL = (2e-4, 2e-5)          # the sequence tests' FWD tier
+AOT_LSTM_GEOMS = (("b32 t16", 32, 16), ("b32 t64", 32, LSTM_SEQ),
+                  ("b32 t128", 32, 128), ("b1 t37", 1, 37),
+                  ("b32 var", 32, None))  # None: LSTM_VAR_LENS lengths
+AOT_MT_GEOMS = ((16, 16), (MT_SEQ, MT_SEQ), (MT_SEQ, 24))
+AOT_WHILE_LIMITS = (2.0, 6.0, 11.0)    # the fed While's trip counts
+AOT_REPS = 5
+AOT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch", "_build", "chip_smoke_aot")
+
+
+def aot_export(fluid, main, startup, feeds, fetch, tag):
+    """``main``'s startup on the card, then ``save_inference_model`` of
+    its slice from ``feeds`` to ``fetch`` (variables) with no declared
+    length, and ``load_compiled_predictor`` of it on the card. Returns
+    (Executor, scope, the pruned program, the predictor, export wall s,
+    the artifact's bytes); an export that fails warns "AOT export
+    skipped", which main() makes an error."""
+    import shutil
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    d = os.path.join(AOT_ROOT, tag)
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, feeds, fetch, exe,
+                                      main_program=main)
+    export_s = time.perf_counter() - t0
+    art = os.path.join(d, "__compiled__.pt2")
+    check(os.path.exists(art), f"aot_recurrent {tag}: no artifact")
+    with open(os.path.join(d, "__compiled_meta__.json")) as f:
+        specs = json.load(f)["feed_specs"]
+    check(not any("fixed_seq_len" in sp for sp in specs),
+          f"aot_recurrent {tag}: a padded length was fixed: {specs}")
+    infer = main.prune(list(feeds), [v.name for v in fetch])
+    pred = fluid.io.load_compiled_predictor(d)
+    return exe, scope, infer, pred, export_s, os.path.getsize(art)
+
+
+def aot_serve(torch, tag, exe, scope, infer, pred, feed, tol):
+    """One geometry through the predictor and the eager Executor on the
+    card: the worst error of the predictor's fetches against the
+    Executor's (a fetched sequence by its padded data), which must be
+    within ``tol`` (exactly for None), and each side's ms (host clock
+    around a synchronized call, median of AOT_REPS after a warmup)."""
+    names = pred.fetch_names
+
+    def eager():
+        return exe.run(infer, feed=feed, fetch_list=names, scope=scope,
+                       mode="test", return_numpy=False)
+
+    def served():
+        return pred.run(feed, return_numpy=False)
+
+    ms = {}
+    for side, fn in (("predictor", served), ("executor", eager)):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(AOT_REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms[side] = float(np.median(runs))
+    worst = 0.0
+    for n, g, w in zip(names, served(), eager()):
+        g = g.detach().cpu().numpy()
+        w = getattr(w, "data", w).detach().cpu().numpy()
+        if tol is None:
+            check(g.shape == w.shape and np.array_equal(g, w),
+                  f"aot_recurrent {tag}: {n} not equal to the Executor's")
+            e = float(np.abs(g.astype(np.float64) - w).max()) if g.size \
+                else 0.0
+        else:
+            ok, e = np_close(g, w, tol)
+            check(ok and np.isfinite(g).all(),
+                  f"aot_recurrent {tag}: {n} max err {e} against the "
+                  "Executor's")
+        worst = max(worst, e)
+    return worst, ms
+
+
+def aot_launches(torch, exe, scope, infer, pred, feed):
+    """Kernel launches of one predictor run and one Executor run (the
+    profiler's count; None where it sees no device time)."""
+    out = {}
+    for side, fn in (
+            ("predictor", lambda: pred.run(feed, return_numpy=False)),
+            ("executor", lambda: exe.run(
+                infer, feed=feed, fetch_list=pred.fetch_names, scope=scope,
+                mode="test", return_numpy=False))):
+        table, _ = kernel_table(torch, fn)
+        out[side] = sum(n for _, n in table.values()) if table else None
+    return out
+
+
+def seq_on(fluid, dev, rows):
+    """``rows`` padded to the longest on the card."""
+    sb = fluid.to_sequence_batch(rows, bucket=1)
+    return fluid.SequenceBatch(sb.data.to(dev), sb.lengths.to(dev))
+
+
+def phase_aot_recurrent(torch, fluid, fa, card):
+    """F14 closed on the card: the stacked dynamic LSTM at bench.py
+    ``seq_main``'s width and the seq2seq-attention model at its width,
+    each pruned to its prediction and saved with ``save_inference_model``
+    declaring no padded length, then served through one
+    ``load_compiled_predictor`` artifact at every geometry of
+    AOT_LSTM_GEOMS / AOT_MT_GEOMS within the FWD tier of the eager
+    Executor; cf_programs' unbounded While (its trip count fed) and
+    IfElse exported and served at feeds that take different trip counts
+    and each branch, equal to the Executor. Logs export s, artifact
+    bytes, the predictor's and the Executor's ms at each geometry,
+    launches a run, the worst error per case; K1-K3 launch 0. Returns
+    (attention launches, stats)."""
+    from paddle_tpu_torch.models.machine_translation import seq_to_seq_net
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launch_counts()
+    t_phase = time.perf_counter()
+    stats = {"torch": torch.__version__, "card": card}
+
+    def record(tag, export_s, size, rows):
+        stats[tag] = {"export_s": export_s, "artifact_bytes": size,
+                      "geometries": rows}
+
+    # (a) the stacked dynamic LSTM, prediction only
+    main, startup, _ = lstm_program(fluid)
+    pred_var = main.global_block().var(next(
+        op.output("Out")[0] for op in reversed(main.global_block().ops)
+        if op.type == "softmax"))
+    exe, scope, infer, pred, export_s, size = aot_export(
+        fluid, main, startup, ["src"], [pred_var], "stacked_lstm")
+    dev = exe.device
+    rng = np.random.RandomState(SEED + 22)
+    rows = {}
+    for label, batch, t in AOT_LSTM_GEOMS:
+        lens = ([t] * batch if t is not None else
+                rng.randint(LSTM_VAR_LENS[0], LSTM_VAR_LENS[1] + 1, batch))
+        feed = {"src": seq_on(fluid, dev, [
+            rng.randint(1, LSTM_VOCAB, (int(n), 1)).astype(np.int64)
+            for n in lens])}
+        err, ms = aot_serve(torch, f"stacked_lstm {label}", exe, scope,
+                            infer, pred, feed, AOT_TOL)
+        rows[label] = {"padded": int(feed["src"].data.shape[1]),
+                       "max_err": err, "ms": ms}
+        if t == LSTM_SEQ:
+            rows[label]["launches"] = aot_launches(torch, exe, scope, infer,
+                                                   pred, feed)
+    record("stacked_lstm", export_s, size, rows)
+    del exe, scope, infer, pred
+
+    # (b) seq2seq with attention, teacher-forced prediction
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src, trg, lbl = (fluid.layers.data(name=n, shape=[1], dtype="int64",
+                                           lod_level=1)
+                         for n in ("src", "trg", "lbl"))
+        _, prediction = seq_to_seq_net(src, trg, lbl, MT_VOCAB, MT_VOCAB,
+                                       embedding_dim=MT_WIDTH,
+                                       encoder_size=MT_WIDTH,
+                                       decoder_size=MT_WIDTH)
+    exe, scope, infer, pred, export_s, size = aot_export(
+        fluid, main, startup, ["src", "trg"], [prediction], "seq2seq")
+    rows = {}
+    for ts, tt in AOT_MT_GEOMS:
+        feed = {n: seq_on(fluid, dev, [
+            rng.randint(1, MT_VOCAB, (int(k), 1)).astype(np.int64)
+            for k in [t] + list(rng.randint(1, t + 1, MT_BATCH - 1))])
+            for n, t in (("src", ts), ("trg", tt))}
+        label = f"b{MT_BATCH} src{ts} trg{tt}"
+        err, ms = aot_serve(torch, f"seq2seq {label}", exe, scope, infer,
+                            pred, feed, AOT_TOL)
+        rows[label] = {"padded": [int(feed["src"].data.shape[1]),
+                                  int(feed["trg"].data.shape[1])],
+                       "max_err": err, "ms": ms}
+        if (ts, tt) == (MT_SEQ, MT_SEQ):
+            rows[label]["launches"] = aot_launches(torch, exe, scope, infer,
+                                                   pred, feed)
+    record("seq2seq", export_s, size, rows)
+    del exe, scope, infer, pred
+
+    # (c) the unbounded While (trip count fed) and the IfElse
+    progs = {name: (m, st, feed, fetch)
+             for name, m, st, feed, fetch in cf_programs(fluid)}
+    for name, feeds in (
+            ("while_fed_limit", [
+                dict(progs["while_fed_limit"][2],
+                     lim=np.asarray([lim], np.float32))
+                for lim in AOT_WHILE_LIMITS]),
+            ("ifelse", [{"x": sign * np.abs(progs["ifelse"][2]["x"])}
+                        for sign in (1.0, -1.0)])):
+        m, st, feed0, fetch = progs[name]
+        gb = m.global_block()
+        exe, scope, infer, pred, export_s, size = aot_export(
+            fluid, m, st, sorted(feed0), [gb.var(n) for n in fetch], name)
+        rows = {}
+        for k, feed in enumerate(feeds):
+            want = ([feed["lim"][0]] if name == "while_fed_limit"
+                    else np.tanh(feed["x"]) if k == 0
+                    else 1 / (1 + np.exp(-feed["x"])))
+            feed = {n: torch.from_numpy(np.asarray(v)).to(dev)
+                    for n, v in feed.items()}
+            err, ms = aot_serve(torch, f"{name} {k}", exe, scope, infer,
+                                pred, feed, None)
+            # the trip count (the While's counter), or the branch taken
+            ok, _ = np_close(pred.run(feed)[-1], want, AOT_TOL)
+            check(ok, f"aot_recurrent {name} {k}: not the expected "
+                  "trip count or branch")
+            rows[str(k)] = {"max_err": err, "ms": ms}
+        record(name, export_s, size, rows)
+        del exe, scope, infer, pred
+    import shutil
+    shutil.rmtree(AOT_ROOT, ignore_errors=True)
+    by_kernel = attention_idle(fa, "aot_recurrent")
+    stats["attention_launches"] = by_kernel
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"aot_recurrent: {card}, float32, TF32 off: " + json.dumps(stats))
     return by_kernel, stats
 
 
@@ -9798,6 +10046,10 @@ def main():
         free_card(torch)
         cf_launches, _ = phase_control_flow(torch, fluid, fa, smi)
         free_card(torch)
+        # F14 closed, the main path of this slice: recurrent and
+        # control-flow programs exported once and served at every length
+        aot_launches_, _ = phase_aot_recurrent(torch, fluid, fa, smi)
+        free_card(torch)
         # ROADMAP item 7c, the main path of this slice: Faster R-CNN at
         # its full width on 2 x 600 x 800, the SSD300 head with
         # detection_output and detection_map, the extras ops
@@ -9862,6 +10114,7 @@ def main():
              "srl_crf_train": srl_launches,
              "ocr_ctc_train": ocr_launches,
              "control_flow": cf_launches,
+             "aot_recurrent": aot_launches_,
              "faster_rcnn_train": frcnn_launches,
              "ssd_train": ssd_launches,
              "detection_extras": extras_launches,

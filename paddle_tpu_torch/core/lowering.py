@@ -233,8 +233,13 @@ class LoweringContext:
     deterministic per-op random generators, and train/test mode."""
 
     def __init__(self, program, mode, device, seed, step, read=None,
-                 spmd=None):
+                 spmd=None, for_export=False):
         self.program = program
+        # True while torch.export traces the step (io/aot.py): the
+        # recurrences and the host-read control flow lower to torch's
+        # higher-order ops (scan, while_loop, cond) instead of loops and
+        # branches on the host
+        self.for_export = for_export
         # parallel.spmd.Spmd under a device mesh, else None
         self.spmd = spmd
         self.mode = mode  # "train" | "test"
@@ -296,6 +301,18 @@ class LoweringContext:
         seed = _mix_seed(self._seed, self._step, self._key_count)
         self._key_count += 1
         return seed
+
+    def fork(self):
+        """A context of the same step for the body of a higher-order op
+        that ``torch.export`` traces (``scan``, ``while_loop``,
+        ``cond``), made inside that body: such a body may mutate nothing
+        made outside it, and evaluating an op sets the context's current
+        op, env and draw count."""
+        sub = LoweringContext(self.program, self.mode, self.device,
+                              self._seed, self._step, self._read, self.spmd,
+                              self.for_export)
+        sub._key_count = self._key_count
+        return sub
 
     # ------ block evaluation -------------------------------------------
     def eval_block(self, block, env):
@@ -479,7 +496,7 @@ def read_names(block):
     return out
 
 
-def lower_program(program, fetch_names, mode):
+def lower_program(program, fetch_names, mode, for_export=False):
     """Builds the step function for a Program.
 
     Returns ``fn(state, feed, device, seed, step, spmd=None) ->
@@ -497,6 +514,11 @@ def lower_program(program, fetch_names, mode):
     are never both alive. A rule that asks
     (:meth:`LoweringContext.donated_output`, Adam's) writes there
     itself; any other's new tensor is copied in and freed.
+
+    ``for_export`` builds the step ``torch.export`` traces
+    (:attr:`LoweringContext.for_export`): the same values, with every
+    loop over a padded axis and every host read of a condition a
+    higher-order op, so no length or trip count is fixed in the graph.
     """
     gb = program.global_block()
     ops = gb.ops
@@ -580,13 +602,19 @@ def lower_program(program, fetch_names, mode):
                     _donate(op, env, state)
 
     def fn(state, feed, device, seed, step, spmd=None):
-        ctx = LoweringContext(program, mode, device, seed, step, read, spmd)
+        ctx = LoweringContext(program, mode, device, seed, step, read, spmd,
+                              for_export)
         env = Env()
         env.update(state)
         env.update(feed)
         if bwd_idx is None:
+            # exported: the first op after which a sequence feed's
+            # padded axis is no longer a symbol (fn.fixed_by)
+            watch = _padded_symbols(feed) if for_export else ()
             for op in ops:
                 ctx.eval_op(op, env)
+                if watch and any(d.node.expr.is_number for d in watch):
+                    fn.fixed_by, watch = op.type, ()
         else:
             train_segment(ctx, env, state)
         new_state = {n: env.d[n] for n in out_names if n in env.d}
@@ -601,4 +629,13 @@ def lower_program(program, fetch_names, mode):
 
     fn.trains = bwd_idx is not None
     fn.guard_labels = []
+    fn.fixed_by = None
     return fn
+
+
+def _padded_symbols(feed):
+    """The symbolic sizes of the padded axes of the sequence feeds of a
+    step ``torch.export`` traces."""
+    return [d for v in feed.values() if isinstance(v, SequenceBatch)
+            for d in v.data.shape[1:1 + v.lod_level]
+            if isinstance(d, torch.SymInt)]

@@ -43,7 +43,11 @@ class SequenceBatch:
         """1 for flat sequences ([B, T, ...] + lengths [B]); 2 for
         nested sequences-of-sequences ([B, S, T, ...] + lengths [B, S],
         where a zero length marks subsequence padding)."""
-        return int(np.ndim(self.lengths))
+        # a tensor's own ndim: np.ndim of a tensor does not trace in a
+        # body torch.export traces through a higher-order op
+        lengths = self.lengths
+        return int(lengths.ndim if hasattr(lengths, "ndim")
+                   else np.ndim(lengths))
 
     def sub_counts(self):
         """Level-2 only: number of real subsequences per outer sequence.

@@ -22,18 +22,24 @@ A sequence feed (``lod_level > 0``) enters the graph as its padded
 decomposition — data [b, t..., *feature], lengths [b] (or [b, s] at
 level 2, plus outer counts [b]) — which the exported step reassembles
 into a SequenceBatch, so the artifact takes plain tensors. Each padded
-axis is its own dimension: a program without a recurrence keeps it
-symbolic, so one artifact serves any padded length, as the reference's
-does. A recurrent op (``lstm``, ``gru``, the ``scan`` of StaticRNN /
-DynamicRNN) loops over the padded axis in Python, and the export
-specializes that loop to one length (ROADMAP.md §3, F14): such a
-program exports at the largest padded length its ``serving_buckets``
-declare for the feed, and the predictor refuses any other length by
-name. A fetched sequence comes back as its padded data. Control flow
-that reads a value back to the host — ``while`` without ``max_iters``
-and ``if_else`` — does not export (F14): the export raises naming it,
-so ``save_inference_model`` warns "AOT export skipped" and the JSON
-program serves. A bounded ``while`` never reads back, and exports.
+axis is its own dimension, symbolic as the reference's are, so one
+artifact serves any padded length. The step is lowered for export
+(``lower_program(for_export=True)``): the recurrences (``lstm``,
+``gru``, ``crf_decoding``, the ``scan`` of StaticRNN / DynamicRNN) run
+torch's ``scan`` over the padded axis, an unbounded ``while`` is torch's
+``while_loop`` and ``if_else`` is ``torch.cond``, as the reference
+traces ``lax.scan``, ``lax.while_loop`` and ``lax.cond``; a bounded
+``while`` never read back, and unrolls. What those ops do not take (a
+carry whose shape or dtype changes, a tensor array grown in the carry,
+branches whose outputs differ) raises naming F14 and the cause
+(ROADMAP.md §3), so ``save_inference_model`` warns "AOT export skipped"
+and the JSON program serves. An op that still loops over a padded axis
+on the host (``linear_chain_crf``, ``warpctc``, ``chunk_eval``: F14)
+fixes it, and is named: such a program exports at the largest padded
+length its ``serving_buckets`` declare for the feed, and the predictor
+refuses any other length by name, as it does for an artifact whose meta
+holds ``fixed_seq_len`` from an earlier export. A fetched sequence comes
+back as its padded data.
 
 ``CompiledPredictor`` loads that graph and runs it: no Program IR, no op
 registry, no lowering. It imports ``torch.export``, numpy and the
@@ -68,23 +74,6 @@ _JAX_ARTIFACT = "__compiled__.stablehlo"
 _EXAMPLE_BATCH = 2
 # torch.export traces under process-wide modes: one export at a time
 _EXPORT_LOCK = threading.Lock()
-
-
-def _host_control_flow(block):
-    """The op types in ``block`` or its sub-blocks that read a value
-    back to the host each run: ``while`` without ``max_iters`` and
-    ``if_else``."""
-    from ..core.framework import Block
-    found = set()
-    for op in block.ops:
-        if op.type == "if_else" or (
-                op.type == "while"
-                and not int(op.attrs.get("max_iters", 0) or 0)):
-            found.add(op.type)
-        for v in op.attrs.values():
-            if isinstance(v, Block):
-                found |= _host_control_flow(v)
-    return found
 
 
 def _warn_if_stochastic(gb):
@@ -220,12 +209,18 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
     ``dirname``. Returns the meta dict.
 
     A sequence feed enters as its padded decomposition, each padded axis
-    a dimension of its own. ``seq_lens`` ({feed: [padded lengths]}, the
-    serving buckets') sets the example length of a feed's time axis
-    (the largest); a program that fixes that axis (a recurrence, F14)
-    exports at it, and without a declared length raises ValueError, as
-    it does for a program whose control flow reads back to the host (a
-    ``while`` without ``max_iters``, an ``if_else``; F14).
+    a dimension of its own. The step is lowered for export
+    (``lower_program(for_export=True)``): the recurrences and the
+    control flow become torch's higher-order ops, so the padded axes
+    stay symbols and one artifact serves any padded length. An op that
+    still fixes a feed's padded axis (a loop over it on the host, F14)
+    is named: the program is exported again at the largest padded
+    length ``seq_lens`` ({feed: [padded lengths]}, the serving
+    buckets') declares for the feed, which the artifact then requires,
+    and without one raises ValueError.
+    A control-flow form no higher-order op takes (a carry whose shape or
+    dtype changes, a tensor array grown in the carry, branches whose
+    outputs differ) raises ValueError naming F14 and its cause.
 
     Raises whatever ``torch.export`` raises if the program is not
     exportable (a value read back to the host, a data-dependent shape)
@@ -234,14 +229,9 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
     from ..core.lowering import lower_program
 
     gb = program.global_block()
-    host = _host_control_flow(gb)
-    if host:
-        raise ValueError(
-            f"ops {sorted(host)} read their condition back to the host, "
-            "which torch.export cannot trace (ROADMAP.md §3, F14): serve "
-            "the JSON program, or bound the loop with While(max_iters=N)")
     _warn_if_stochastic(gb)
-    step_fn = lower_program(program, list(fetch_names), "test")
+    lowered = step_fn = lower_program(program, list(fetch_names), "test",
+                                      for_export=True)
     if param_names is None:
         # persistables the ops actually read (what save_inference_model
         # writes to params.npz)
@@ -261,66 +251,62 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
                                           dtype=gb.var(n).dtype)
         params.append(val.to(device))
 
-    batch = torch.export.Dim(batch_symbol)
-    auto = torch.export.Dim.AUTO
     seq_lens = seq_lens or {}
-    feed_specs, flat_names, examples, dyn = [], [], [], []
+    feed_specs = []
     for n in feed_names:
         v = gb.var(n)
-        shape = [int(s) for s in v.shape]
         lod = int(getattr(v, "lod_level", 0) or 0)
         if lod > 2:
             raise ValueError(
                 f"feed {n!r}: lod_level {lod} > 2 is unsupported "
                 "(SequenceBatch nests at most 2 levels)")
-        feed_specs.append({"name": n, "shape": shape, "dtype": v.dtype,
-                           "lod_level": lod})
-        dt = _torch_dtype(v.dtype)
-        if not lod:
-            ex = [(_EXAMPLE_BATCH if j == 0 else 2 * _EXAMPLE_BATCH + 1)
-                  if s == -1 else s for j, s in enumerate(shape)]
-            flat_names.append(n)
-            examples.append(torch.zeros(ex, dtype=dt, device=device))
-            dyn.append({j: (batch if j == 0 else auto)
-                        for j, s in enumerate(shape) if s == -1} or None)
-            continue
-        # data [b, t...(lod), *feature]: the feature dims are the
-        # variable's own after its batch dim
-        axes = list(_EXAMPLE_SEQ[:lod][::-1])
-        if seq_lens.get(n):
-            axes[-1] = max(int(t) for t in seq_lens[n])
-        feature = [2 * _EXAMPLE_BATCH + 1 if s == -1 else s
-                   for s in shape[1:]]
-        flat_names += [n, n + _LENGTHS] + ([n + _COUNTS] if lod == 2
-                                           else [])
-        examples.append(torch.zeros([_EXAMPLE_BATCH] + axes + feature,
-                                    dtype=dt, device=device))
-        examples.append(torch.ones([_EXAMPLE_BATCH] + axes[:-1],
-                                   dtype=torch.int64, device=device))
-        dyn.append({0: batch, **{1 + k: auto for k in range(lod)},
-                    **{1 + lod + j: auto for j, s in enumerate(shape[1:])
-                       if s == -1}})
-        dyn.append({0: batch, **{1 + k: auto for k in range(lod - 1)}})
-        if lod == 2:
-            examples.append(torch.ones([_EXAMPLE_BATCH], dtype=torch.int64,
-                                       device=device))
-            dyn.append({0: batch})
-    if any(s["lod_level"] for s in feed_specs):
+        feed_specs.append({"name": n, "shape": [int(s) for s in v.shape],
+                           "dtype": v.dtype, "lod_level": lod})
+    # each padded axis's example size is one no parameter has and no
+    # other axis takes: torch's higher-order ops fakify the tensors their
+    # bodies close over anew, and a size shared with one of those would
+    # tie the axis to that constant
+    taken = {int(d) for p in params for d in p.shape}
+    taken |= {_EXAMPLE_BATCH, 2 * _EXAMPLE_BATCH + 1}
+
+    def free(size):
+        while size in taken:
+            size += 1
+        taken.add(size)
+        return size
+
+    axes = {spec["name"]: [free(e) for e in
+                           _EXAMPLE_SEQ[:spec["lod_level"]][::-1]]
+            for spec in feed_specs if spec["lod_level"]}
+    if axes:
         step_fn = _sequence_step(step_fn, feed_specs)
+    flat_names, examples, dyn = _examples(feed_specs, axes, batch_symbol,
+                                          device)
     ep = export_step(step_fn, param_names, params, flat_names, examples,
                      device, dynamic_shapes=([None] * len(params), dyn))
     fixed = _specialized_axes(ep, len(params), flat_names, feed_specs)
-    for spec in feed_specs:
-        if spec["name"] not in fixed:
-            continue
-        if not seq_lens.get(spec["name"]):
-            raise ValueError(
-                f"feed {spec['name']!r}: the program fixes its padded "
-                "length when exported (a recurrent op loops over it; "
-                "ROADMAP.md §3, F14) — declare the length to serve with "
-                "serving_buckets=BucketSpec(seq_lens={"
-                f"{spec['name']!r}: (T,)}})")
-        spec["fixed_seq_len"] = fixed[spec["name"]]
+    if fixed:
+        # an op still loops over the axis on the host: export at the
+        # serving buckets' largest padded length, which the artifact
+        # then requires
+        for n in fixed:
+            if not seq_lens.get(n):
+                raise ValueError(
+                    f"feed {n!r}: op {lowered.fixed_by!r} fixes its "
+                    "padded length when exported (it loops over the "
+                    "padded axis on the host; ROADMAP.md §3, F14) — "
+                    "declare the length to serve with serving_buckets="
+                    f"BucketSpec(seq_lens={{{n!r}: (T,)}})")
+            axes[n][-1] = max(int(t) for t in seq_lens[n])
+        flat_names, examples, dyn = _examples(feed_specs, axes,
+                                              batch_symbol, device)
+        ep = export_step(step_fn, param_names, params, flat_names,
+                         examples, device,
+                         dynamic_shapes=([None] * len(params), dyn))
+        fixed = _specialized_axes(ep, len(params), flat_names, feed_specs)
+        for spec in feed_specs:
+            if spec["name"] in fixed:
+                spec["fixed_seq_len"] = fixed[spec["name"]]
     os.makedirs(dirname, exist_ok=True)
     with open(os.path.join(dirname, _ARTIFACT), "wb") as f:
         f.write(save_exported(ep))
@@ -333,6 +319,47 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
     with open(os.path.join(dirname, _META), "w") as f:
         json.dump(meta, f)
     return meta
+
+
+def _examples(feed_specs, axes, batch_symbol, device):
+    """The flat feed names, example tensors and dynamic shapes of
+    :func:`export_compiled`'s step: one symbolic batch dim shared by
+    every feed whose shape starts with -1, the other -1 dims and a
+    sequence feed's padded axes (example sizes ``axes[name]``) each
+    ``Dim.AUTO``."""
+    batch = torch.export.Dim(batch_symbol)
+    auto = torch.export.Dim.AUTO
+    flat_names, examples, dyn = [], [], []
+    for spec in feed_specs:
+        n, shape, lod = spec["name"], spec["shape"], spec["lod_level"]
+        dt = _torch_dtype(spec["dtype"])
+        if not lod:
+            ex = [(_EXAMPLE_BATCH if j == 0 else 2 * _EXAMPLE_BATCH + 1)
+                  if s == -1 else s for j, s in enumerate(shape)]
+            flat_names.append(n)
+            examples.append(torch.zeros(ex, dtype=dt, device=device))
+            dyn.append({j: (batch if j == 0 else auto)
+                        for j, s in enumerate(shape) if s == -1} or None)
+            continue
+        # data [b, t...(lod), *feature]: the feature dims are the
+        # variable's own after its batch dim
+        feature = [2 * _EXAMPLE_BATCH + 1 if s == -1 else s
+                   for s in shape[1:]]
+        flat_names += [n, n + _LENGTHS] + ([n + _COUNTS] if lod == 2
+                                           else [])
+        examples.append(torch.zeros([_EXAMPLE_BATCH] + axes[n] + feature,
+                                    dtype=dt, device=device))
+        examples.append(torch.ones([_EXAMPLE_BATCH] + axes[n][:-1],
+                                   dtype=torch.int64, device=device))
+        dyn.append({0: batch, **{1 + k: auto for k in range(lod)},
+                    **{1 + lod + j: auto for j, s in enumerate(shape[1:])
+                       if s == -1}})
+        dyn.append({0: batch, **{1 + k: auto for k in range(lod - 1)}})
+        if lod == 2:
+            examples.append(torch.ones([_EXAMPLE_BATCH], dtype=torch.int64,
+                                       device=device))
+            dyn.append({0: batch})
+    return flat_names, examples, dyn
 
 
 def _torch_dtype(name):
@@ -447,8 +474,8 @@ class CompiledPredictor:
         """A sequence feed's (data, lengths[, outer_counts]) tensors from
         a tuple, a dict with those keys, or any value with .data and
         .lengths (a SequenceBatch duck-types; this module never imports
-        it); a padded length other than the one a recurrent program was
-        exported at raises (F14)."""
+        it); an artifact exported at a fixed padded length
+        (``fixed_seq_len``) refuses any other (F14)."""
         n, lod = spec["name"], spec["lod_level"]
         contract = (f"sequence feed {n!r} (lod_level={lod}) needs "
                     + ("(data, lengths, outer_counts)" if lod == 2
@@ -485,8 +512,8 @@ class CompiledPredictor:
         if fixed and list(data.shape[1:1 + lod]) != list(fixed):
             raise ValueError(
                 f"sequence feed {n!r} is padded to "
-                f"{list(data.shape[1:1 + lod])}, but this artifact's "
-                f"recurrent program was exported at {fixed} (ROADMAP.md "
+                f"{list(data.shape[1:1 + lod])}, but this artifact was "
+                f"exported at the fixed padded length {fixed} (ROADMAP.md "
                 "§3, F14): pad to that length (to_sequence_batch("
                 "max_len=...)) or serve through the executor")
         out = [data, self._tensor(parts[1], "int64")]

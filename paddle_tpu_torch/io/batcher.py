@@ -24,7 +24,7 @@ import os
 
 import numpy as np
 
-from .recordio import Writer, _BUILD_DIR, _PKG_DIR, build_native_lib
+from .recordio import Writer, _BUILD_DIR, build_native_lib
 
 __all__ = ["write_fixed", "FixedBatcher"]
 
@@ -36,8 +36,7 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    lib = build_native_lib("batcher.cc", _SO_PATH,
-                           src_dir=os.path.join(_PKG_DIR, "csrc"))
+    lib = build_native_lib("batcher.cc", _SO_PATH)
     lib.ptru_batcher_open.restype = ctypes.c_void_p
     lib.ptru_batcher_open.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,

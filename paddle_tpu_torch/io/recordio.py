@@ -1,9 +1,10 @@
-"""ctypes binding for the native chunked record format (native/recordio.cc).
+"""ctypes binding for the native chunked record format
+(``paddle_tpu_torch/csrc/recordio.cc``).
 
 Port of ``paddle_tpu/io/recordio.py``: the same ctypes binding over the
-same, unchanged ``native/recordio.cc``, so a file written by either
-package reads in the other. The library builds with ``g++`` at first use
-into ``paddle_tpu_torch/_build/`` (never into ``native/build/``).
+port's own copy of the reference's ``native/recordio.cc``, byte for
+byte, so a file written by either package reads in the other. The
+library builds with ``g++`` at first use into ``paddle_tpu_torch/_build/``.
 
 Capability parity with the reference's paddle/fluid/recordio (writer /
 scanner, CRC-checked chunks, compression) plus a threaded native
@@ -22,21 +23,21 @@ __all__ = ["Writer", "Scanner", "DataLoader", "write_arrays",
            "array_scanner", "array_reader"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SO_PATH = os.path.join(_BUILD_DIR, "libptrecordio.so")
 
 _lib = None
 
 
-def build_native_lib(src_name, so_path, src_dir=_NATIVE_DIR):
-    """Compile ``<src_dir>/<src_name>`` (``native/`` by default) to
-    ``so_path`` on first use, or when the source is newer than the
-    library, and return a CDLL — shared by every native binding
-    (recordio, batcher). Builds to a per-pid temp path and renames into
-    place so N data-parallel worker processes racing on first use never
-    load a partially written .so (rename is atomic on posix)."""
-    src = os.path.join(src_dir, src_name)
+def build_native_lib(src_name, so_path):
+    """Compile the port's ``csrc/<src_name>`` to ``so_path`` on first use,
+    or when the source is newer than the library, and return a CDLL —
+    shared by every native binding (recordio, batcher). Builds to a
+    per-pid temp path and renames into place so N data-parallel worker
+    processes racing on first use never load a partially written .so
+    (rename is atomic on posix)."""
+    src = os.path.join(_CSRC_DIR, src_name)
     if not os.path.exists(src):
         raise RuntimeError(f"native source not found; expected {src}")
     if not os.path.exists(so_path) \

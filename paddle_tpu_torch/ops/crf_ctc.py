@@ -7,8 +7,10 @@ reference computes each as a masked dense dynamic program, ``lax.scan``
 over the padded time axis and ``vmap`` over the batch; here the same
 arithmetic runs batched over B in a torch loop over the padded axis,
 and autograd differentiates it (the reference needs no grad kernels
-either). ``NEG_INF`` is the reference's sentinel; an infeasible CTC
-target costs ``inf``, as there.
+either). ``crf_decoding``'s loops are ``rnn._recur``'s, so an exported
+decoder keeps its padded length a symbol. ``NEG_INF`` is the
+reference's sentinel; an infeasible CTC target costs ``inf``, as
+there.
 """
 import torch
 import torch.nn.functional as F
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from ..core.registry import register_op
 from ..core.sequence import SequenceBatch
 from .moe import _top_k
+from .rnn import _recur
 
 NEG_INF = -1e30
 
@@ -84,27 +87,41 @@ def _linear_chain_crf(ctx, ins, attrs):
 def _crf_decoding(ctx, ins, attrs):
     """Viterbi path of each row (positions past its length decode to 0);
     with a Label, 1 marks a mis-decoded position (reference
-    crf_decoding_op.h). Ties go to the lower tag, as ``argmax``'s."""
+    crf_decoding_op.h). Ties go to the lower tag, as ``argmax``'s. The
+    forward pass and the backtrack are recurrences over the padded axis
+    (``rnn._recur``), so an exported decoder keeps its length a symbol."""
     em = ins["Emission"][0]
     emission, lengths = em.data, em.lengths
-    w_start, w_end, trans = _crf_split(ins["Transition"][0])
+    transition = ins["Transition"][0]
     b, t, k = emission.shape
     valid = _valid(lengths, t)
     keep = torch.arange(k, device=emission.device).expand(b, k)
-    alpha = emission[:, 0] + w_start
-    back = []
-    for i in range(1, t):
-        cand = alpha[:, :, None] + trans                  # [B, Kp, Kn]
-        best, best_prev = cand.max(dim=1)
-        v = valid[:, i, None]
-        alpha = torch.where(v, best + emission[:, i], alpha)
-        back.append(torch.where(v, best_prev, keep))
-    tag = torch.argmax(alpha + w_end, dim=-1)
-    path = [tag]
-    for bp in reversed(back):
-        tag = torch.gather(bp, 1, tag[:, None])[:, 0]
-        path.append(tag)
-    path = torch.stack(path[::-1], dim=1)
+    first = (torch.arange(t, device=emission.device) == 0).expand(b, t)
+
+    def forward(carry, e, v):
+        # step 0 starts the path; a later step extends the best one (the
+        # split is taken here: a scanned step closes over no two views
+        # of one tensor)
+        w_start, _, trans = _crf_split(transition)
+        alpha, = carry
+        f, v = v[:, 0, None], v[:, 1, None]
+        best, best_prev = (alpha[:, :, None] + trans).max(dim=1)
+        alpha = torch.where(f, e[0] + w_start,
+                            torch.where(v, best + e[0], alpha))
+        return [alpha], [torch.where(v & ~f, best_prev, keep)]
+
+    (alpha,), (back,) = _recur(
+        ctx, forward, [torch.zeros_like(emission[:, 0])], [emission],
+        torch.stack([first, valid], dim=-1), False)
+
+    def backtrack(carry, bp, v):
+        # the tag at this step, then the best previous one
+        tag, = carry
+        return [torch.gather(bp[0], 1, tag[:, None])[:, 0]], [tag]
+
+    _, (path,) = _recur(ctx, backtrack,
+                        [torch.argmax(alpha + transition[1], dim=-1)], [back],
+                        valid, True)
     path = torch.where(valid, path, 0).to(torch.int32)
     if ins.get("Label"):
         path = (path != _labels(ins["Label"][0])).to(torch.int32)

@@ -15,8 +15,10 @@ reference test's own expected value. Beside them: a DynamicRNN whose
 step reads outer sequences through ``sequence_expand`` and
 ``sequence_softmax``, its gradients; the bounded While's NaN hazard; the
 wording of the refusal (F15); the AOT export of ``scan``, ``while`` and
-``if_else`` programs (F14); and control flow under a one-rank mesh.
+``if_else`` programs and the forms it refuses naming F14; and control
+flow under a one-rank mesh.
 """
+import json
 import os
 import warnings
 
@@ -489,24 +491,40 @@ def test_save_inference_model_subblock_params(tmp_path, build, param,
 
 
 def test_aot_scan_program_exports_at_its_fixed_length(tmp_path):
-    """A DynamicRNN program exports at the padded length its serving
-    buckets declare (F14, as the recurrences), serves it equal to the
-    executor, and refuses another length by name."""
+    """A DynamicRNN program saved with serving buckets that declare a
+    padded length exports with that length a symbol (F14 closed): the
+    artifact serves the declared length and another, equal to the
+    executor, and its meta fixes none. An artifact whose meta holds
+    ``fixed_seq_len``, as earlier exports of a recurrent program wrote
+    it, still serves that length and refuses another by name."""
     from paddle_tpu_torch.io import load_compiled_predictor
     d = str(tmp_path / "scan")
     main, scope = _save(tfluid, d, _subblock_program,
                         serving_buckets=tfluid.serving.BucketSpec(
                             batch_sizes=(1, 4), seq_lens={"x": (8,)}))
+    meta_path = os.path.join(d, "__compiled_meta__.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    assert "fixed_seq_len" not in meta["feed_specs"][0]
     pred = load_compiled_predictor(d, device="cpu")
-    feed = {"x": tfluid.to_sequence_batch(_seq_rows(4, 6), bucket=8)}
-    want = tfluid.Executor(tfluid.CPUPlace()).run(
-        main, feed=feed, fetch_list=[main.global_block().ops[-1]
-                                     .output("Out")[0]],
-        scope=scope, mode="test")[0]
-    np.testing.assert_allclose(pred.run(feed)[0], want, **FWD)
+    fetch = [main.global_block().ops[-1].output("Out")[0]]
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    feed8 = {"x": tfluid.to_sequence_batch(_seq_rows(4, 6), bucket=8)}
+    feed4 = {"x": tfluid.to_sequence_batch(
+        [r[:2] for r in _seq_rows(4, 6)], bucket=4)}
+    for feed in (feed8, feed4):
+        want = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       mode="test")[0]
+        np.testing.assert_allclose(pred.run(feed)[0], want, **FWD)
+    # the meta an earlier export wrote for this program
+    meta["feed_specs"][0]["fixed_seq_len"] = [8]
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    old = load_compiled_predictor(d, device="cpu")
+    np.testing.assert_allclose(old.run(feed8)[0], pred.run(feed8)[0],
+                               **FWD)
     with pytest.raises(ValueError, match="F14"):
-        pred.run({"x": tfluid.to_sequence_batch(
-            [r[:2] for r in _seq_rows(4, 6)], bucket=4)})
+        old.run(feed4)
 
 
 def _loop_program(f, max_iters):
@@ -535,19 +553,77 @@ def _ifelse_program(f):
     return [ie()[0]]
 
 
-@pytest.mark.parametrize("case", ["while", "if_else"])
+def _growing_carry_program(f):
+    """An unbounded While whose carry grows a row each turn."""
+    x = f.layers.data("x", shape=[1], append_batch_size=False)
+    acc = f.layers.scale(x, scale=1.0)
+    i = f.layers.fill_constant([1], "float32", 0.0)
+    limit = f.layers.fill_constant([1], "float32", 3.0)
+    cond = f.layers.less_than(i, limit)
+    w = f.layers.While(cond)
+    with w.block():
+        f.layers.assign(f.layers.elementwise_add(
+            i, f.layers.fill_constant([1], "float32", 1.0)), output=i)
+        f.layers.assign(f.layers.concat([acc, x], axis=0), output=acc)
+        f.layers.less_than(i, limit, cond=cond)
+    return [f.layers.reduce_sum(acc)]
+
+
+def _differing_branches_program(f):
+    """An IfElse whose branches return [1] and [1, 1]."""
+    x = f.layers.data("x", shape=[1], append_batch_size=False)
+    ie = f.layers.IfElse(f.layers.greater_than(
+        x, f.layers.fill_constant([1], "float32", 0.0)))
+    with ie.true_block():
+        ie.output(f.layers.scale(x, scale=5.0))
+    with ie.false_block():
+        ie.output(f.layers.reshape(x, [1, 1]))
+    return [f.layers.reduce_sum(ie()[0])]
+
+
+def _growing_array_program(f):
+    """An unbounded While that appends to a tensor array it carries."""
+    x = f.layers.data("x", shape=[1], append_batch_size=False)
+    i = f.layers.fill_constant([1], "int64", 0)
+    arr = f.layers.array_write(x, i)
+    limit = f.layers.fill_constant([1], "int64", 3)
+    cond = f.layers.less_than(i, limit)
+    w = f.layers.While(cond)
+    with w.block():
+        f.layers.increment(i, value=1)
+        f.layers.array_write(f.layers.scale(x, scale=2.0), i, array=arr)
+        f.layers.less_than(i, limit, cond=cond)
+    return [f.layers.scale(f.layers.array_read(arr, i), scale=1.0)]
+
+
+# case -> (program, the cause the refusal names, the JSON program's
+# answer at x = 2)
+_UNTRACEABLE = {
+    "while": (_growing_carry_program,
+              r"changes from torch.float32 \[1\] to torch.float32 \[2\]",
+              8.0),
+    "if_else": (_differing_branches_program,
+                r"\[1\] in the true branch and torch.float32 \[1, 1\]",
+                10.0),
+    "array": (_growing_array_program, "tensor array, which grows", 4.0),
+}
+
+
+@pytest.mark.parametrize("case", ["while", "if_else", "array"])
 def test_aot_host_control_flow_is_refused_naming_f14(tmp_path, case):
-    """An unbounded while and an if_else read their condition back to
-    the host: the export raises naming F14, save_inference_model warns
-    "AOT export skipped", and the JSON program serves."""
+    """The unbounded While and the IfElse export as torch's while_loop
+    and cond, which take what lax.while_loop and lax.cond take; a form
+    they do not (a carry whose shape changes, branches whose outputs
+    differ, a tensor array grown in the carry) makes the export raise a
+    ValueError naming F14 and the cause, save_inference_model warns "AOT
+    export skipped", and the JSON program serves."""
     from paddle_tpu_torch.io.aot import export_compiled
-    build = (lambda f: _loop_program(f, None)) if case == "while" \
-        else _ifelse_program
+    build, cause, want = _UNTRACEABLE[case]
     d = str(tmp_path / case)
     with pytest.warns(UserWarning, match="AOT export skipped.*F14"):
         main, scope = _save(tfluid, d, build)
     assert not os.path.exists(os.path.join(d, "__compiled__.pt2"))
-    with pytest.raises(ValueError, match="F14"):
+    with pytest.raises(ValueError, match=f"{cause}.*F14"):
         export_compiled(str(tmp_path / "again"), main, ["x"],
                         [main.global_block().ops[-1].output("Out")[0]],
                         scope, "cpu")
@@ -555,7 +631,7 @@ def test_aot_host_control_flow_is_refused_naming_f14(tmp_path, case):
     prog, _, fetches = tfluid.io.load_inference_model(d, exe)
     got = exe.run(prog, feed={"x": np.asarray([2.0], np.float32)},
                   fetch_list=fetches)[0]
-    assert _value(got) == (12.0 if case == "while" else 10.0)
+    assert _value(got) == want
 
 
 def test_aot_bounded_while_exports(tmp_path):

@@ -126,6 +126,53 @@ sys.exit(1 if bad else 0)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def _names_native_dir(value):
+    """Whether a string constant is a path into the repo's ``native/``."""
+    return value.rstrip("/") == "native" or value.startswith("native/") \
+        or "/native/" in value or value.endswith("/native")
+
+
+def test_native_sources_are_the_ports_own(tmp_path):
+    """F26: the port builds its native libraries from its own copies in
+    ``paddle_tpu_torch/csrc/`` — ``recordio.cc`` byte for byte the
+    reference's ``native/recordio.cc``, so files cross both ways — and
+    no port module names the repo's ``native/`` as a build source. The
+    package copied alone, with no ``native/`` beside it, builds its
+    recordio and batcher and reads back what it wrote."""
+    import shutil
+    from paddle_tpu_torch.io import recordio
+    assert Path(recordio._CSRC_DIR) == PORT / "csrc"
+    assert (PORT / "csrc" / "recordio.cc").read_bytes() == \
+        (REPO / "native" / "recordio.cc").read_bytes()
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and \
+                    _names_native_dir(node.value):
+                bad.append(f"{path.name}:{node.lineno}")
+    assert not bad, bad
+    shutil.copytree(PORT, tmp_path / "paddle_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = r"""
+import numpy as np
+from paddle_tpu_torch.io import batcher, recordio
+recordio.write_arrays("f.rio", [(np.arange(3) + i,) for i in range(4)])
+got = [int(a[0][0]) for a in recordio.array_scanner("f.rio")]
+assert got == [0, 1, 2, 3], got
+batcher.write_fixed("b.rio", [(np.full(2, i, np.float32),)
+                              for i in range(4)], [((2,), np.float32)])
+rows = list(batcher.FixedBatcher(["b.rio"], [((2,), np.float32)],
+                                 batch_size=2, shuffle_buf=0))
+got = sorted(float(r[0][k, 0]) for r in rows for k in range(2))
+assert got == [0.0, 1.0, 2.0, 3.0], got
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(tmp_path)))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 WORKERS = ("net_worker", "proc_worker", "train_worker")
 
 

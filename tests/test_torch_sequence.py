@@ -756,15 +756,6 @@ def _seq_conv_model(f):
     return [f.layers.fc(conv, size=3, act="softmax")]
 
 
-def _seq_gru_model(f):
-    words = f.layers.data(name="words", shape=[1], dtype="int64",
-                          lod_level=1)
-    emb = f.layers.embedding(input=words, size=[100, 16])
-    gru = f.layers.dynamic_gru(f.layers.fc(emb, size=48), size=16)
-    pool = f.layers.sequence_pool(gru, pool_type="max")
-    return [f.layers.fc(pool, size=3, act="softmax")]
-
-
 def _words(rng, lens):
     return [rng.randint(1, 100, (n, 1)).astype(np.int64) for n in lens]
 
@@ -787,8 +778,8 @@ def _saved(tmp_path, build, name, **save_kw):
 
 
 def test_aot_exports_sequence_program(tmp_path):
-    """A non-recurrent sequence program exports with batch AND padded
-    length symbolic (the reference's contract): one artifact serves any
+    """A sequence program exports with batch AND padded length
+    symbolic (the reference's contract): one artifact serves any
     geometry, fed a SequenceBatch, a (data, lengths) tuple or a dict."""
     main, names, scope, exe, pred = _saved(tmp_path, _seq_conv_model, "sc")
     rng = np.random.RandomState(0)
@@ -812,15 +803,29 @@ def test_aot_exports_sequence_program(tmp_path):
         pred.run({"words": sb.data.numpy()})
 
 
+def _seq_crf_cost_model(f):
+    """linear_chain_crf's cost of tagging each word with its own id."""
+    words = f.layers.data(name="words", shape=[1], dtype="int64",
+                          lod_level=1)
+    emb = f.layers.embedding(input=words, size=[100, 8])
+    return [f.layers.linear_chain_crf(
+        input=f.layers.fc(emb, size=100), label=words,
+        param_attr=f.ParamAttr(name="crfw"))]
+
+
 def test_aot_recurrent_program_exports_at_its_fixed_length(tmp_path):
-    """F14: a recurrent program (a Python loop over the padded axis)
-    exports at one padded length, the largest the serving buckets
-    declare for the feed; the predictor serves it there, equal to the
-    executor, and refuses any other padded length by name."""
+    """F14, narrowed: the recurrences export with the padded length a
+    symbol (test_torch_aot_recurrent.py), but an op that still loops
+    over the padded axis on the host (linear_chain_crf's forward
+    algorithm) fixes it. Such a program exports at the largest padded
+    length its serving buckets declare for the feed; the predictor
+    serves it there, equal to the executor, and refuses any other padded
+    length by name; with no declared length the export raises naming
+    F14 and the op."""
     spec = tfluid.serving.BucketSpec(batch_sizes=(1, 4),
                                      seq_lens={"words": (8, 16)})
-    main, names, scope, exe, pred = _saved(tmp_path, _seq_gru_model, "gru",
-                                           serving_buckets=spec)
+    main, names, scope, exe, pred = _saved(
+        tmp_path, _seq_crf_cost_model, "crf", serving_buckets=spec)
     rng = np.random.RandomState(1)
     for lens in ((5, 3, 7), (16, 2)):
         sb = tfluid.to_sequence_batch(_words(rng, lens), max_len=16)
@@ -832,7 +837,7 @@ def test_aot_recurrent_program_exports_at_its_fixed_length(tmp_path):
         pred.run({"words": sb})
     # with no declared length there is nothing to export at
     from paddle_tpu_torch.io.aot import export_compiled
-    with pytest.raises(ValueError, match="F14"):
+    with pytest.raises(ValueError, match="'linear_chain_crf'.*F14"):
         export_compiled(str(tmp_path / "none"), main, ["words"], names,
                         scope, torch.device("cpu"))
 

@@ -13,9 +13,9 @@ Phases — any failure exits non-zero:
 2. build: every kernel of ``paddle_tpu_torch/csrc`` with nvcc (one
    process per source, all at once), with the build seconds, the
    compiler's register/shared-memory/spill report, and each kernel's
-   count of tensor-core instructions (``HMMA``) in its SASS
-   (``cuobjdump``) — none in a kernel (every one is ``_mma`` or
-   ``_f32mma``) fails the run;
+   count of tensor-core instructions in its SASS (``cuobjdump``) — no
+   ``HMMA`` in an ``mma.sync`` kernel (``_mma``, ``_f32mma``) or no
+   ``HGMMA`` in a warpgroup kernel (``_d256_wgmma``) fails the run;
 3. kernels: K1 (the flash-attention forward) and K2/K3 (its backward,
    dQ and dK/dV) against their plain torch versions on the same inputs,
    on both routes — bf16/fp16 through the 16-bit tensor-core kernels
@@ -178,8 +178,10 @@ Phases — any failure exits non-zero:
 22. head_dim_256 (the head-dim repair): the 8B width with 16 heads of
    256 and 4 kv heads at 2 layers through ``build_llama`` →
    ``Adam.minimize`` → ``Executor.run``: one bf16 train step at 2 x
-   2048 (K1, K2, K3 once a layer on ``flash_*_mma``, run in 128-column
-   slices), one ``ServingEngine`` dispatch of the trained scope, one
+   2048 (K1 and K3 once a layer on their warpgroup kernels
+   ``flash_fwd_d256_wgmma`` and ``flash_bwd_dkv_d256_wgmma``, K2 on
+   ``flash_bwd_dq_mma`` in 128-column slices), one ``ServingEngine``
+   dispatch of the trained scope (K1 on ``flash_fwd_d256_wgmma``), one
    float32 train step at 1 x 256 (the ``_f32mma`` kernels); no launch
    on the plain route; first losses near ln V + dim·0.02²/2;
 23. decode_engine (ROADMAP item 4b, the main path of this slice): the
@@ -414,13 +416,21 @@ Phases — any failure exits non-zero:
    at lengths 9-64, seq2seq at batch 32 x (src, trg) (16, 16), (64, 64)
    and (64, 24) — each within 2e-4 / 2e-5 of the eager Executor; 40's
    fed While at three trip counts and its IfElse on each branch, equal
-   to the Executor; no attention launch. Its line gives each export's
-   wall s and artifact bytes, the predictor's and the Executor's ms at
-   each geometry (median of 5) and launches a run.
+   to the Executor; 43's SRL tagger (linear_chain_crf's cost and
+   chunk_eval's counts) and 44's CRNN-CTC (warpctc's cost per row), the
+   F14 ops, each exported with no declared length and served at two
+   padded lengths within 2e-4 / 2e-5 of the Executor; no attention
+   launch. Its line gives each export's wall s and artifact bytes, the
+   predictor's and the Executor's ms at each geometry (median of 5) and
+   launches a run.
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
-routes (T 128 and 2048, causal and not, tq != tk, ragged), each launch
-on its kernel symbol, and times them at the head_dim_256 phase's bf16
-and float32 shapes, whose rows the kernel line adds.
+routes (T 128 and 2048, causal and not, tq != tk, ragged, and at D 256
+B*H past 65535), each launch on its kernel symbol — bf16 and fp16 K1
+and K3 at D 256 on their warpgroup kernels, with planted faults at
+their tiles at the D = 256 training shape — and times them at the
+head_dim_256 phase's bf16 and float32 shapes, whose rows the kernel
+line adds: K1 and K3 there beside the sliced D = 128 kernels they
+replaced, timed in the same run.
 The kernels phase also holds K1's operator (``flash_fwd_op``, what an
 exported graph calls) to the wrapper bit for bit and to the plain
 version, at Transformer-base's f32 D 64 shape, the 8B width's bf16
@@ -665,21 +675,31 @@ RING_MESH_SEQ = 2048
 # come to ~5e-3 at 8 chunks, and the tier allows 4x that
 RING_TOL_BF16_RMS = 2e-2
 
-# the profiler's kinds and the kernel functions each covers (both routes)
+# the profiler's kinds and the kernel functions each covers (every
+# route)
 KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
-                                   "flash_fwd_mma_kernel")),
+                                   "flash_fwd_mma_kernel",
+                                   "flash_fwd_d256_wgmma_kernel")),
                 ("k2_flash_bwd_dq", ("flash_bwd_dq_f32mma_kernel",
                                      "flash_bwd_dq_mma_kernel")),
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_f32mma_kernel",
-                                      "flash_bwd_dkv_mma_kernel")))
-# the tensor-core kernels, whose SASS must hold HMMA instructions: all
-MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns)
+                                      "flash_bwd_dkv_mma_kernel",
+                                      "flash_bwd_dkv_d256_wgmma_kernel")))
+# the warpgroup kernels (bf16 and fp16 K1 and K3 at head dim 256), whose
+# SASS must hold HGMMA instructions, and the mma.sync kernels, whose
+# SASS must hold HMMA: every kernel is one or the other
+WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
+                 "flash_bwd_dkv_d256_wgmma_kernel")
+MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns
+                    if kern not in WGMMA_KERNELS)
 # kernel symbol -> the constexprs of its source that give its tile's q
 # rows and keys, where the planted faults are placed
 TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
                    for sym in ("flash_fwd_f32mma", "flash_fwd_mma",
                                "flash_bwd_dq_f32mma", "flash_bwd_dq_mma",
-                               "flash_bwd_dkv_f32mma", "flash_bwd_dkv_mma")}
+                               "flash_bwd_dkv_f32mma", "flash_bwd_dkv_mma",
+                               "flash_fwd_d256_wgmma",
+                               "flash_bwd_dkv_d256_wgmma")}
 
 
 class SmokeFailure(Exception):
@@ -927,9 +947,9 @@ def phase_kernels(torch, fa, seed):
             heads={64: 8, 256: HD256_HEADS}.get(d),
             err_fwd=max(errs["O"][1], errs["lse"][1]), err_dq=errs["dQ"][1],
             err_dkv=max(errs["dK"][1], errs["dV"][1]))
-        if label == TRAIN_LABEL and ok:
+        if label in (TRAIN_LABEL, HD256_LABEL) and ok:
             check_planted_faults(torch, fa, (q, k, v, do, lse, delta), scale,
-                                 pairs, errs)
+                                 pairs, errs, label)
         if label in F32_FAULT_CASES and ok:
             check_planted_f32_faults(torch, fa, label,
                                      (q, k, v, do, lse, delta), scale,
@@ -939,6 +959,8 @@ def phase_kernels(torch, fa, seed):
           f"K1/K2/K3 disagree with their plain versions: {failures}")
     check_lse_gradient(torch, fa, gen, dev)
     check_big_bh(torch, fa, gen, dev)
+    # bf16 K1 and K3 at D 256 run their warpgroup kernels, K2 the sliced
+    check_big_bh(torch, fa, gen, dev, d=256, dtypes=(bf16,))
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
     timing = {}
@@ -1047,6 +1069,8 @@ def time_kernels(torch, fa, r, label, kinds, flush):
         ms = time_ms(kern, torch, flush=flush)
         plain_ms = time_ms(plain, torch, iters=plain_iters, flush=flush)
         symbol = fa.kernel_for(wrapper, q.dtype, d)[1]
+        sliced = sliced_call(torch, fa, wrapper, bwd) \
+            if symbol in fa._WGMMA_ROUTES.get(wrapper, ()) else None
         rates = RATE_OF_KERNEL.get(symbol, (dt_name,) * len(PRODUCTS[kind]))
         bound, by, nbytes, flops = attention_bound_ms(
             bh, tq, tk, d, rates, causal, q.element_size(), kind)
@@ -1057,6 +1081,13 @@ def time_kernels(torch, fa, r, label, kinds, flush):
             library_ms=lib_ms[kind], bound_ms=bound, bound_by=by,
             max_abs_err=r[err])
         also = ""
+        if sliced is not None:
+            # the D = 128 kernel in slices that this one replaced, on the
+            # same inputs in the same run
+            rows[(kind, label)]["sliced_ms"] = time_ms(sliced, torch,
+                                                       flush=flush)
+            also = (f" (the sliced {fa._ROUTES[wrapper][1][1]} it replaced:"
+                    f" {rows[(kind, label)]['sliced_ms']:.4f} ms)")
         if symbol in RATE_OF_KERNEL:
             # the same work with every product at the 3xbf16 rate: one
             # yardstick for any float32 design, whichever splits it takes
@@ -1074,6 +1105,24 @@ def time_kernels(torch, fa, r, label, kinds, flush):
     return rows
 
 
+def sliced_call(torch, fa, wrapper, bwd):
+    """A call of the 16-bit D = 128 kernel of ``wrapper`` ("flash_fwd" or
+    "flash_bwd_dkv") in 128-column slices on ``bwd``'s D = 256 inputs —
+    the route the warpgroup kernel replaced, for timing beside it. Its
+    launches count on the wrapper under that kernel's symbol."""
+    q, k, v, do, lse, delta, scale, causal = bwd
+    route = fa._ROUTES[wrapper][1]
+    if wrapper == "flash_fwd":
+        outs = (torch.empty_like(q), torch.empty_like(lse))
+        ins = (q, k, v)
+    else:
+        outs = (torch.empty_like(k), torch.empty_like(v))
+        ins = (q, k, v, do, lse, delta)
+    ptrs = tuple(x.data_ptr() for x in ins + outs)
+    return lambda: fa._launch(getattr(fa, wrapper), route, ptrs, q,
+                              k.shape[1], scale, causal)
+
+
 def kernel_tile(fa, wrapper, dtype, d=128):
     """(q rows, keys) of a tile of the kernel ``wrapper`` launches on
     ``dtype``, read from its source's constexprs."""
@@ -1083,22 +1132,24 @@ def kernel_tile(fa, wrapper, dtype, d=128):
     return tuple(values[name] for name in TILE_CONSTEXPRS[sym])
 
 
-def planted_fault_tiles(torch, fa):
-    """(q rows, keys) of a tile of each kernel the bf16 training shape
-    runs (K1, K2 and K3 on the tensor cores)."""
-    return {w: kernel_tile(fa, w, torch.bfloat16)
+def planted_fault_tiles(torch, fa, d=128):
+    """(q rows, keys) of a tile of each kernel a bf16 training shape of
+    head dim ``d`` runs (K1, K2 and K3 on the tensor cores)."""
+    return {w: kernel_tile(fa, w, torch.bfloat16, d)
             for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
-def check_planted_faults(torch, fa, inputs, scale, pairs, errs):
+def check_planted_faults(torch, fa, inputs, scale, pairs, errs,
+                         label=TRAIN_LABEL):
     """The bf16 tier must catch what a grid or tile-loop fault leaves at
-    the training shape (causal, tq = tk = T), where late rows and keys
-    hold the smallest values: each fault is planted in a copy of a
-    kernel's output and must fail the check the kernel passed. Tiles are
-    those of the kernels that ran (:func:`planted_fault_tiles`)."""
+    a training shape (``label``: causal, tq = tk = T), where late rows
+    and keys hold the smallest values: each fault is planted in a copy
+    of a kernel's output and must fail the check the kernel passed.
+    Tiles are those of the kernels that ran at its head dim
+    (:func:`planted_fault_tiles`)."""
     q, k, v, do, lse, delta = inputs
     bh, t, d = q.shape
-    tiles = planted_fault_tiles(torch, fa)
+    tiles = planted_fault_tiles(torch, fa, d)
     fwd_rows, _ = tiles["flash_fwd"]
     dq_rows, dq_keys = tiles["flash_bwd_dq"]
     dkv_rows, dkv_keys = tiles["flash_bwd_dkv"]
@@ -1147,7 +1198,7 @@ def check_planted_faults(torch, fa, inputs, scale, pairs, errs):
     )
     for name, what, bad in faults:
         _, err, ratio = kernel_err(bad, pairs[name][1])
-        log(f"planted fault, {TRAIN_LABEL}: {what}: {name} max abs err "
+        log(f"planted fault, {label}: {what}: {name} max abs err "
             f"{err:.3e}, err/limit {ratio:.3f} (the kernel's own "
             f"{errs[name][2]:.3f}) {'caught' if ratio > 1 else 'MISSED'}")
         check(ratio > 1.0, f"the bf16 tier does not catch a planted fault "
@@ -1226,15 +1277,15 @@ def check_planted_f32_faults(torch, fa, label, inputs, scale, pairs,
                            f"{ratio:.3f})")
 
 
-def check_big_bh(torch, fa, gen, dev):
+def check_big_bh(torch, fa, gen, dev, d=64, dtypes=None):
     """B*H = BIG_BH, one past gridDim.y's 65535, which the launchers take
-    in chunks: K1, K2 and K3 in bf16 and float32 (causal, T = 32,
-    D = 64) against their plain versions in the tier of the output's
-    type — the slices past the first chunk among them."""
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v, do = attention_inputs(torch, gen, dev, BIG_BH, 32, 32, 64,
+    in chunks: K1, K2 and K3 in ``dtypes`` (bf16 and float32; causal,
+    T = 32, head dim ``d``) against their plain versions in the tier of
+    the output's type — the slices past the first chunk among them."""
+    for dt in dtypes or (torch.bfloat16, torch.float32):
+        q, k, v, do = attention_inputs(torch, gen, dev, BIG_BH, 32, 32, d,
                                        dt)
-        scale = 1.0 / 8
+        scale = 1.0 / math.sqrt(d)
         fa.reset_launch_counts()
         o, lse = fa.flash_fwd(q, k, v, scale, True)
         delta = (do.float() * o.float()).sum(-1)
@@ -1242,7 +1293,7 @@ def check_big_bh(torch, fa, gen, dev):
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, True)
         torch.cuda.synchronize()
         # one call a wrapper, launched as two chunks of B*H
-        ran = check_variants(torch, fa, dt, 64,
+        ran = check_variants(torch, fa, dt, d,
                              launches=-(-BIG_BH // fa.MAX_GRID_Y))
         o_ref, lse_ref = fa.ref_attention_lse(q.float(), k.float(),
                                               v.float(), scale, True)
@@ -1254,7 +1305,7 @@ def check_big_bh(torch, fa, gen, dev):
                     q, k, v, do, lse, delta, scale, True)),
                 "dK": kernel_err(dk, want_k), "dV": kernel_err(dv, want_v)}
         ok = all(e[0] for e in errs.values())
-        log(f"K1-3 bh={BIG_BH} (past gridDim.y) t=32 d=64 {dt} causal "
+        log(f"K1-3 bh={BIG_BH} (past gridDim.y) t=32 d={d} {dt} causal "
             f"({', '.join(ran)}): max abs err (err/limit) "
             + ", ".join(f"{n} {e:.3e} ({r:.3f})"
                         for n, (_, e, r) in errs.items())
@@ -3876,10 +3927,11 @@ def phase_head_dim_256(torch, fluid, fa, card):
     """Head dims past 128 on the main path: the 8B width with
     HD256_HEADS heads (head dim 256) and HD256_KV kv heads, cut to
     HD256_LAYERS layers, through ``build_llama`` → ``Adam(1e-4)`` →
-    ``Executor.run``: one bf16 train step at TRAIN_BATCH x TRAIN_SEQ (K1,
-    K2 and K3 once a layer on the 16-bit tensor-core kernels, in
-    128-column slices), one ``ServingEngine`` dispatch of that scope's
-    test clone (K1 once a layer), and one float32 train step at
+    ``Executor.run``: one bf16 train step at TRAIN_BATCH x TRAIN_SEQ (K1
+    and K3 once a layer on their warpgroup kernels, K2 once a layer on
+    the 16-bit tensor-core kernel in 128-column slices), one
+    ``ServingEngine`` dispatch of that scope's test clone (K1 once a
+    layer), and one float32 train step at
     HD256_F32_BATCH x HD256_F32_SEQ with TF32 off (the split-operand
     kernels); every launch on its kernel symbol, none on the plain
     route, finite losses near ln V + dim·0.02²/2. Returns ({"bf16": ...,
@@ -3930,10 +3982,17 @@ def phase_head_dim_256(torch, fluid, fa, card):
             f"{ms:.1f} ms, launches {by_kernel}")
         return main, scope, exe, by_kernel
 
-    # bf16: a train step, then one served dispatch of the trained scope
-    _, scope, exe, by_kernel = one_step(
-        "bf16 train", cfg, TRAIN_BATCH, TRAIN_SEQ,
-        ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"))
+    # bf16: a train step (K1 and K3 on their warpgroup kernels, K2 on
+    # the sliced D = 128 one), then one served dispatch of the scope
+    bf16_kernels = tuple(fa.kernel_for(w, torch.bfloat16, d)[1]
+                         for w in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"))
+    check(bf16_kernels == ("flash_fwd_d256_wgmma", "flash_bwd_dq_mma",
+                           "flash_bwd_dkv_d256_wgmma"),
+          f"{tag}: bf16 K1-K3 at D {d} route to {bf16_kernels}")
+    k1 = bf16_kernels[0]
+    _, scope, exe, by_kernel = one_step("bf16 train", cfg, TRAIN_BATCH,
+                                        TRAIN_SEQ, bf16_kernels)
     launches["bf16"] = by_kernel
     serve_p, serve_s = fluid.Program(), fluid.Program()
     with fluid.program_guard(serve_p, serve_s), fluid.unique_name.guard():
@@ -3959,14 +4018,14 @@ def phase_head_dim_256(torch, fluid, fa, card):
     check(np.isfinite(ans).all() and ans.shape[-1] == cfg.vocab_size,
           f"{tag} serve: logits {ans.shape}, finite "
           f"{bool(np.isfinite(ans).all())}")
-    check(served["flash_fwd_mma"] == 2 * cfg.n_layers
+    check(served[k1] == 2 * cfg.n_layers
           and sum(served.values()) == 2 * cfg.n_layers,
           f"{tag} serve: K1 launches {served}, not {cfg.n_layers} a "
-          "dispatch (warmup + one request) on flash_fwd_mma")
+          f"dispatch (warmup + one request) on {k1}")
     launches["serve"] = served
     stats["serve"] = {"launches_by_kernel": served}
     log(f"{tag} serve: one request of 200 tokens (bucket 256), K1 "
-        f"{served['flash_fwd_mma']} launches on flash_fwd_mma")
+        f"{served[k1]} launches on {k1}")
     del scope, exe, engine
     free_card(torch)
 
@@ -7871,10 +7930,13 @@ def phase_aot_recurrent(torch, fluid, fa, card):
     AOT_LSTM_GEOMS / AOT_MT_GEOMS within the FWD tier of the eager
     Executor; cf_programs' unbounded While (its trip count fed) and
     IfElse exported and served at feeds that take different trip counts
-    and each branch, equal to the Executor. Logs export s, artifact
-    bytes, the predictor's and the Executor's ms at each geometry,
-    launches a run, the worst error per case; K1-K3 launch 0. Returns
-    (attention launches, stats)."""
+    and each branch, equal to the Executor; srl_crf_train's tagger
+    (linear_chain_crf's cost, chunk_eval's counts) and ocr_ctc_train's
+    CRNN (warpctc's cost), exported with no declared length and served
+    at two batch x padded-length geometries each within AOT_TOL of the
+    Executor. Logs export s, artifact bytes, the predictor's and the
+    Executor's ms at each geometry, launches a run, the worst error per
+    case; K1-K3 launch 0. Returns (attention launches, stats)."""
     from paddle_tpu_torch.models.machine_translation import seq_to_seq_net
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7972,6 +8034,53 @@ def phase_aot_recurrent(torch, fluid, fa, card):
             rows[str(k)] = {"max_err": err, "ms": ms}
         record(name, export_s, size, rows)
         del exe, scope, infer, pred
+
+    # (d) F14's last ops: srl_crf_train's tagger (linear_chain_crf's
+    # cost a row, chunk_eval's counts over crf_decoding's tags; its nine
+    # feeds share one padded length) and ocr_ctc_train's CRNN (warpctc's
+    # cost a row; the label's padded length is the symbol)
+    t_f14 = time.perf_counter()
+    main, startup, _, _, _, counts = srl_program(fluid)
+    gb = main.global_block()
+    cost = gb.var(next(op.output("LogLikelihood")[0] for op in gb.ops
+                       if op.type == "linear_chain_crf"))
+    names = SRL_NAMES + ("target",)
+    exe, scope, infer, pred, export_s, size = aot_export(
+        fluid, main, startup, list(names), [cost] + list(counts), "srl_crf")
+    hi = {"predicate": SRL_DICTS["pred_dict_len"], "mark": 2,
+          "target": SRL_DICTS["label_dict_len"]}
+    rows = {}
+    for batch, t in ((SRL_BATCH, SRL_LENS[1]), (4, 24)):
+        lens = [t] + list(rng.randint(SRL_LENS[0], t + 1, batch - 1))
+        feed = {n: seq_on(fluid, dev, [
+            rng.randint(0, hi.get(n, SRL_DICTS["word_dict_len"]),
+                        (int(k), 1)).astype(np.int64) for k in lens])
+            for n in names}
+        err, ms = aot_serve(torch, f"srl_crf b{batch} t{t}", exe, scope,
+                            infer, pred, feed, AOT_TOL)
+        rows[f"b{batch} t{t}"] = {"max_err": err, "ms": ms}
+    record("srl_crf", export_s, size, rows)
+    del exe, scope, infer, pred
+    main, startup, _, _, _ = ocr_program(fluid)
+    gb = main.global_block()
+    cost = gb.var(next(op.output("Loss")[0] for op in gb.ops
+                       if op.type == "warpctc"))
+    exe, scope, infer, pred, export_s, size = aot_export(
+        fluid, main, startup, ["images", "label"], [cost], "ocr_ctc")
+    rows = {}
+    for batch, t in ((OCR_BATCH, OCR_LABEL_LENS[1]), (8, 9)):
+        lens = [t] + list(rng.randint(OCR_LABEL_LENS[0], t + 1, batch - 1))
+        feed = {"images": torch.from_numpy(rng.randn(batch, *OCR_SHAPE)
+                                           .astype(np.float32)).to(dev),
+                "label": seq_on(fluid, dev, [
+                    rng.randint(0, OCR_CLASSES, (int(k), 1)).astype(np.int64)
+                    for k in lens])}
+        err, ms = aot_serve(torch, f"ocr_ctc b{batch} label t{t}", exe,
+                            scope, infer, pred, feed, AOT_TOL)
+        rows[f"b{batch} label t{t}"] = {"max_err": err, "ms": ms}
+    record("ocr_ctc", export_s, size, rows)
+    del exe, scope, infer, pred
+    stats["f14_ops_s"] = time.perf_counter() - t_f14
     import shutil
     shutil.rmtree(AOT_ROOT, ignore_errors=True)
     by_kernel = attention_idle(fa, "aot_recurrent")
@@ -9788,18 +9897,23 @@ def phase_serving_chaos_decode(torch, fluid, fa, card, dec):
 
 
 def check_sass(cuda_build):
-    """Log each kernel's count of tensor-core instructions (HMMA) from
-    its SASS; fail if a tensor-core kernel has none."""
-    hmma = {}
+    """Log each kernel's count of tensor-core instructions from its
+    SASS, mma.sync's (HMMA) and wgmma's (HGMMA); fail if an mma.sync
+    kernel has no HMMA or a warpgroup kernel no HGMMA (one that fell
+    back to mma.sync or to SIMT)."""
+    counts = {"HMMA": {}, "HGMMA": {}}
     for name in cuda_build.SOURCES:
-        for fn, n in cuda_build.sass_counts(name, "HMMA").items():
-            hmma[fn] = n
-            log(f"sass {name}: {fn}: {n} HMMA")
-    for kern in MMA_KERNELS:
-        fns = {fn: n for fn, n in hmma.items() if kern in fn}
-        check(fns and all(fns.values()),
-              f"{kern}: no HMMA instruction in its SASS ({fns})")
-    return hmma
+        for opcode, found in counts.items():
+            for fn, n in cuda_build.sass_counts(name, opcode).items():
+                found[fn] = n
+                log(f"sass {name}: {fn}: {n} {opcode}")
+    for opcode, kernels in (("HMMA", MMA_KERNELS),
+                            ("HGMMA", WGMMA_KERNELS)):
+        for kern in kernels:
+            fns = {fn: n for fn, n in counts[opcode].items() if kern in fn}
+            check(fns and all(fns.values()),
+                  f"{kern}: no {opcode} instruction in its SASS ({fns})")
+    return counts
 
 
 def free_card(torch):
@@ -10175,10 +10289,12 @@ def main():
                     shape=f"bh={GEN_BATCH}*32 t={GEN_PROMPT + GEN_NEW} "
                           "d=128 causal bf16")
         kernels.append(row)
-    # K1-K3 at head dim 256 (128-column slices) on both routes: the
-    # bf16 training shape of the head_dim_256 phase (launches: its bf16
-    # train step; its serve dispatch under launches_by_path) and its
-    # float32 train step's shape
+    # K1-K3 at head dim 256 on both routes: the bf16 training shape of
+    # the head_dim_256 phase (launches: its bf16 train step; its serve
+    # dispatch under launches_by_path; bf16 K1 and K3 on their warpgroup
+    # kernels, each with the sliced kernel it replaced timed beside it
+    # as sliced_ms) and its float32 train step's shape (128-column
+    # slices)
     for label, path, dtype, shape in (
             (HD256_LABEL, "bf16", torch.bfloat16,
              f"bh={TRAIN_BATCH}*{HD256_HEADS} t={TRAIN_SEQ} d=256 causal "
@@ -10204,6 +10320,8 @@ def main():
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": shape, "card": kind, "power_limit": power})
+            if "sliced_ms" in t:
+                kernels[-1]["sliced_ms"] = t["sliced_ms"]
             if kind_ == "fwd" and path == "bf16":
                 # K1 at the phase's served shape, timed and held to its
                 # plain version in phase_kernels; launches: its dispatch

@@ -1,0 +1,312 @@
+// Hopper-only helpers shared by the head-dim-256 attention kernels
+// (flash_fwd_d256_wgmma.cu, flash_bwd_dkv_d256_wgmma.cu): TMA tile loads
+// completing on mbarriers, the shared-memory matrix descriptors of
+// wgmma, the two wgmma shapes the kernels issue (m64n64k16 with both
+// operands in shared memory, m64n256k16 with A in registers), warpgroup
+// register reallocation (setmaxnreg) and the host-side tensor maps.
+// sm_90a only: wgmma and setmaxnreg do not exist on plain sm_90.
+//
+// Shared tiles are in the layout that TMA's 128-byte swizzle writes and
+// wgmma's 128-byte-swizzle descriptors read: a [rows, 256] 16-bit tile
+// is four column blocks of 64 (one 128-byte row each), each block
+// [rows][64] with rows 128 bytes apart and its 16-byte chunk c of row r
+// stored at chunk c ^ (r % 8). Every block starts on 1024 bytes.
+//
+// wgmma fragment layouts (warp w of the warpgroup holds rows 16 w ..
+// 16 w + 15; lane = 4 g + t), the same per warp as mma.sync.m16n8k16's:
+//   accumulator of m64nN: d[4 j + e], j the 8-column block:
+//     e 0, 1: (row g,     cols 8 j + 2 t, + 1)
+//     e 2, 3: (row g + 8, cols 8 j + 2 t, + 1)
+//   A of m64n256k16 in registers, four 32-bit registers of two halves:
+//     a0 (row g, k 2t, 2t+1)  a1 (row g + 8, k 2t, 2t+1)
+//     a2 (row g, k 2t+8, +9)  a3 (row g + 8, k 2t+8, +9)
+// so accumulator blocks 2 s, 2 s + 1 of one product are, packed in
+// pairs, the A registers of k-step s of the next.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wgmma_sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrive once and expect `bytes` more of TMA traffic in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- TMA ----
+
+// box (c0, c1, c2) of the tensor map into shared memory at dst; the
+// bytes complete on bar. Coordinates past the tensor's extent read as 0.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- warpgroups ----
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// barrier `id` (1..15) over the `n` threads that reach it
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- wgmma ----
+
+// descriptor of a 128-byte-swizzled K-major operand (rows 128 bytes
+// apart, 8-row groups 1024 bytes apart) starting at p; a k-step of 16
+// elements inside the 64-wide block is p + 16
+__device__ __forceinline__ uint64_t desc_k_major(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// descriptor of a 128-byte-swizzled MN-major operand: the MN dim runs
+// along the 64-wide column blocks (block_bytes apart), the K dim along
+// the rows (8-row groups 1024 bytes apart); a k-step of 16 rows is
+// p + 16 rows
+__device__ __forceinline__ uint64_t desc_mn_major(const void* p,
+                                                  uint32_t block_bytes) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(block_bytes >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving register reads or writes of x across a
+// wgmma that is still in flight
+__device__ __forceinline__ void reg_fence(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+#define WG_F8(d, i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(d, i) WG_F8(d, i), WG_F8(d, i + 8), WG_F8(d, i + 16), \
+                     WG_F8(d, i + 24)
+
+#define WG_REGS32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31}"
+#define WG_REGS128                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
+  "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "        \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "        \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "        \
+  "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "        \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "        \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "        \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "          \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "        \
+  "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+template <typename T>
+struct Wgmma;
+
+// d (+)= A B, A [64 x 16] and B [16 x 64] both K-major in shared memory
+// (descriptors da, db); accumulate: 0 overwrites d, 1 adds to it
+#define WG_SS_64(TY)                                                     \
+  static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t da, \
+                                              uint64_t db, int accumulate) { \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "      \
+        WG_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                      \
+        : WG_F32(d, 0)                                                   \
+        : "l"(da), "l"(db), "r"(accumulate));                            \
+  }
+
+// d += A B, A [64 x 16] in registers (a), B [16 x 256] MN-major in
+// shared memory (descriptor db)
+#define WG_RS_256(TY)                                                    \
+  static __device__ __forceinline__ void rs256(float (&d)[128],          \
+                                               const uint32_t (&a)[4],   \
+                                               uint64_t db) {            \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                    \
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "     \
+        WG_REGS128 ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"  \
+        : WG_F32(d, 0), WG_F32(d, 32), WG_F32(d, 64), WG_F32(d, 96)      \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
+  }
+
+template <>
+struct Wgmma<__nv_bfloat16> {
+  WG_SS_64("bf16")
+  WG_RS_256("bf16")
+  static __device__ __forceinline__ uint32_t pack(float x, float y) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  }
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <>
+struct Wgmma<__half> {
+  WG_SS_64("f16")
+  WG_RS_256("f16")
+  static __device__ __forceinline__ uint32_t pack(float x, float y) {
+    __half2 h = __floats2half2_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
+  }
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+#undef WG_SS_64
+#undef WG_RS_256
+
+// (x, y) as a pair rounded to T (hi) and the pair of what that rounding
+// lost, rounded again (lo): hi + lo keeps ~16 significant bits
+template <typename T>
+__device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = Wgmma<T>::pack(x, y);
+  const float2 h = Wgmma<T>::unpack(hi);
+  lo = Wgmma<T>::pack(x - h.x, y - h.y);
+}
+
+// element offset of (row r, column c) in a swizzled [rows, 256] tile of
+// `rows` rows (four [rows][64] column blocks)
+template <int ROWS>
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * ROWS * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+
+// ---- host: tensor maps ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime, so that the
+// library links against the runtime alone
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p : nullptr;
+  }();
+  return fn;
+}
+
+// tensor map of a contiguous [bh, t, 256] 16-bit tensor read in boxes
+// of (64 columns, rows, 1 slice), 128-byte swizzled; rows past t read
+// as 0. Returns a CUDA error code (0 = ok).
+template <typename T>
+int make_map(CUtensorMap* map, const void* base, int bh, int t, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {256, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {256 * sizeof(T),
+                                 (cuuint64_t)t * 256 * sizeof(T)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, Wgmma<T>::TMA_TYPE, 3, const_cast<void*>(base),
+                        dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace wgmma_sm90

@@ -341,9 +341,7 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         try:
             export_compiled(dirname, inference_program,
                             list(feeded_var_names), fetch_names,
-                            global_scope(), device=_device(executor),
-                            seq_lens=serving_meta.get("buckets", {})
-                            .get("seq_lens"))
+                            global_scope(), device=_device(executor))
         except Exception as e:                    # noqa: BLE001
             import warnings
             warnings.warn(

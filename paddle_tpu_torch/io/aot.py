@@ -33,13 +33,13 @@ traces ``lax.scan``, ``lax.while_loop`` and ``lax.cond``; a bounded
 carry whose shape or dtype changes, a tensor array grown in the carry,
 branches whose outputs differ) raises naming F14 and the cause
 (ROADMAP.md §3), so ``save_inference_model`` warns "AOT export skipped"
-and the JSON program serves. An op that still loops over a padded axis
-on the host (``linear_chain_crf``, ``warpctc``, ``chunk_eval``: F14)
-fixes it, and is named: such a program exports at the largest padded
-length its ``serving_buckets`` declare for the feed, and the predictor
-refuses any other length by name, as it does for an artifact whose meta
-holds ``fixed_seq_len`` from an earlier export. A fetched sequence comes
-back as its padded data.
+and the JSON program serves. ``linear_chain_crf``, ``warpctc``,
+``chunk_eval`` and ``edit_distance`` run their recurrences the same way,
+so no op fixes a padded length any more; one that did (a loop over the
+axis on the host) would raise naming it. An artifact whose meta holds
+``fixed_seq_len`` from an earlier export, which fixed it, is still
+served at that length only and refuses any other by name. A fetched
+sequence comes back as its padded data.
 
 ``CompiledPredictor`` loads that graph and runs it: no Program IR, no op
 registry, no lowering. It imports ``torch.export``, numpy and the
@@ -200,8 +200,7 @@ def _specialized_axes(ep, n_params, flat_names, specs):
 
 
 def export_compiled(dirname, program, feed_names, fetch_names, scope,
-                    device, batch_symbol="b", param_names=None,
-                    seq_lens=None):
+                    device, batch_symbol="b", param_names=None):
     """Lower ``program`` (already pruned to the inference slice) to its
     test-mode step of (params, feeds), export it through
     ``torch.export`` on ``device`` with one symbolic leading batch dim
@@ -213,11 +212,8 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
     (``lower_program(for_export=True)``): the recurrences and the
     control flow become torch's higher-order ops, so the padded axes
     stay symbols and one artifact serves any padded length. An op that
-    still fixes a feed's padded axis (a loop over it on the host, F14)
-    is named: the program is exported again at the largest padded
-    length ``seq_lens`` ({feed: [padded lengths]}, the serving
-    buckets') declares for the feed, which the artifact then requires,
-    and without one raises ValueError.
+    would fix a feed's padded axis (a loop over it on the host, F14)
+    raises ValueError naming it.
     A control-flow form no higher-order op takes (a carry whose shape or
     dtype changes, a tensor array grown in the carry, branches whose
     outputs differ) raises ValueError naming F14 and its cause.
@@ -251,7 +247,6 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
                                           dtype=gb.var(n).dtype)
         params.append(val.to(device))
 
-    seq_lens = seq_lens or {}
     feed_specs = []
     for n in feed_names:
         v = gb.var(n)
@@ -280,33 +275,37 @@ def export_compiled(dirname, program, feed_names, fetch_names, scope,
             for spec in feed_specs if spec["lod_level"]}
     if axes:
         step_fn = _sequence_step(step_fn, feed_specs)
-    flat_names, examples, dyn = _examples(feed_specs, axes, batch_symbol,
-                                          device)
-    ep = export_step(step_fn, param_names, params, flat_names, examples,
-                     device, dynamic_shapes=([None] * len(params), dyn))
+
+    def export(axes):
+        flat_names, examples, dyn = _examples(feed_specs, axes, batch_symbol,
+                                              device)
+        return flat_names, export_step(
+            step_fn, param_names, params, flat_names, examples, device,
+            dynamic_shapes=([None] * len(params), dyn))
+
+    try:
+        flat_names, ep = export(axes)
+    except Exception as first:                    # noqa: BLE001
+        if len(axes) < 2:
+            raise
+        # feeds the program combines position by position (one LoD in
+        # Fluid, as a tagger's word, predicate and label feeds are) must
+        # share their padded length: one example size for every feed's
+        # innermost padded axis ties those axes into one symbol, which
+        # the artifact then asks of its feeds. If that fails too, the
+        # first failure stands
+        shared = free(_EXAMPLE_SEQ[0])
+        try:
+            flat_names, ep = export({n: a[:-1] + [shared]
+                                     for n, a in axes.items()})
+        except Exception:                         # noqa: BLE001
+            raise first from None
     fixed = _specialized_axes(ep, len(params), flat_names, feed_specs)
     if fixed:
-        # an op still loops over the axis on the host: export at the
-        # serving buckets' largest padded length, which the artifact
-        # then requires
-        for n in fixed:
-            if not seq_lens.get(n):
-                raise ValueError(
-                    f"feed {n!r}: op {lowered.fixed_by!r} fixes its "
-                    "padded length when exported (it loops over the "
-                    "padded axis on the host; ROADMAP.md §3, F14) — "
-                    "declare the length to serve with serving_buckets="
-                    f"BucketSpec(seq_lens={{{n!r}: (T,)}})")
-            axes[n][-1] = max(int(t) for t in seq_lens[n])
-        flat_names, examples, dyn = _examples(feed_specs, axes,
-                                              batch_symbol, device)
-        ep = export_step(step_fn, param_names, params, flat_names,
-                         examples, device,
-                         dynamic_shapes=([None] * len(params), dyn))
-        fixed = _specialized_axes(ep, len(params), flat_names, feed_specs)
-        for spec in feed_specs:
-            if spec["name"] in fixed:
-                spec["fixed_seq_len"] = fixed[spec["name"]]
+        raise ValueError(
+            f"feeds {sorted(fixed)}: op {lowered.fixed_by!r} fixes the "
+            "padded length when exported (it loops over the padded axis "
+            "on the host; ROADMAP.md §3, F14)")
     os.makedirs(dirname, exist_ok=True)
     with open(os.path.join(dirname, _ARTIFACT), "wb") as f:
         f.write(save_exported(ep))

@@ -144,6 +144,16 @@ def _shape(ctx, ins, attrs):
 # ---------------------------------------------------------------------------
 
 
+def _check_contraction(op, kx, ky, x, y):
+    """TypeError naming both sizes when the contracted dims of X and Y
+    differ, before any product runs: jax raises TypeError there while
+    tracing, torch's eager product a RuntimeError."""
+    if kx != ky:
+        raise TypeError(f"{op}: X's contracted size {kx} (shape "
+                        f"{tuple(x.shape)}) does not match Y's {ky} (shape "
+                        f"{tuple(y.shape)})")
+
+
 @register_op("mul", seq_aware=True)
 def _mul(ctx, ins, attrs):
     """fluid mul op (reference paddle/fluid/operators/mul_op.cc): flattens X
@@ -153,11 +163,13 @@ def _mul(ctx, ins, attrs):
     from ..core.sequence import SequenceBatch
     x, y = ins["X"][0], ins["Y"][0]
     if isinstance(x, SequenceBatch):
+        _check_contraction("mul", x.data.shape[-1], y.shape[0], x.data, y)
         return {"Out": [SequenceBatch(torch.einsum("btd,dk->btk", x.data, y),
                                       x.lengths)]}
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
     xs, ys = tuple(x.shape), tuple(y.shape)
+    _check_contraction("mul", _prod(xs[xn:]), _prod(ys[:yn]), x, y)
     x2 = x.reshape(_prod(xs[:xn]), _prod(xs[xn:]))
     y2 = y.reshape(_prod(ys[:yn]), _prod(ys[yn:]))
     return {"Out": [(x2 @ y2).reshape(xs[:xn] + ys[yn:])]}
@@ -173,6 +185,8 @@ def _matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.dim() > 1:
         y = y.transpose(-1, -2)
+    _check_contraction("matmul", x.shape[-1], y.shape[-2 if y.dim() > 1
+                                                       else 0], x, y)
     out = torch.matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:

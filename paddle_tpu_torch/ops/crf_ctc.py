@@ -5,10 +5,11 @@ paddle/fluid/operators/{linear_chain_crf_op, crf_decoding_op,
 warpctc_op, ctc_align_op, beam_search_op, beam_search_decode_op}). The
 reference computes each as a masked dense dynamic program, ``lax.scan``
 over the padded time axis and ``vmap`` over the batch; here the same
-arithmetic runs batched over B in a torch loop over the padded axis,
+arithmetic runs batched over B in ``rnn._recur``'s recurrence over the
+padded axis (a torch loop eagerly, torch's ``scan`` in an export, so an
+exported CRF, decoder or CTC loss keeps its padded length a symbol),
 and autograd differentiates it (the reference needs no grad kernels
-either). ``crf_decoding``'s loops are ``rnn._recur``'s, so an exported
-decoder keeps its padded length a symbol. ``NEG_INF`` is the
+either). ``NEG_INF`` is the
 reference's sentinel; an infeasible CTC target costs ``inf``, as
 there.
 """
@@ -65,17 +66,22 @@ def _linear_chain_crf(ctx, ins, attrs):
     path = (emit_score + trans_score + w_start[labels[:, 0]]
             + w_end[torch.gather(labels, 1, last[:, None])[:, 0]])
 
-    alpha = emission[:, 0] + w_start
-    alphas = [alpha]
-    for i in range(1, t):
-        alphas.append(alpha)
-        nxt = torch.logsumexp(alpha[:, :, None] + trans, dim=1) \
-            + emission[:, i]
-        alpha = torch.where(valid[:, i, None], nxt, alpha)
+    def forward(carry, e, v):
+        # each later step emits the carry entering it; the split is taken
+        # here: a scanned step closes over no two views of one tensor
+        _, _, trans = _crf_split(transition)
+        alpha, = carry
+        nxt = torch.logsumexp(alpha[:, :, None] + trans, dim=1) + e[0]
+        return [torch.where(v[:, None], nxt, alpha)], [alpha]
+
+    alpha0 = emission[:, 0] + w_start
+    (alpha,), ys = _recur(ctx, forward, [alpha0], [emission[:, 1:]],
+                          valid[:, 1:], False)
+    alphas = torch.cat([alpha0[:, None]] + ys, dim=1)
     log_z = torch.logsumexp(alpha + w_end, dim=-1)
     out = {"LogLikelihood": [(log_z - path)[:, None]]}
     if ctx.wants("Alpha"):
-        out["Alpha"] = [SequenceBatch(torch.stack(alphas, dim=1), lengths)]
+        out["Alpha"] = [SequenceBatch(alphas, lengths)]
     if ctx.wants("EmissionExps"):
         out["EmissionExps"] = [SequenceBatch(torch.exp(emission), lengths)]
     if ctx.wants("TransitionExps"):
@@ -132,9 +138,10 @@ def _crf_decoding(ctx, ins, attrs):
 # CTC
 
 
-def _ctc_loss(logits, logit_lens, labels, label_lens, blank):
+def _ctc_loss(ctx, logits, logit_lens, labels, label_lens, blank):
     """CTC negative log-likelihood of each row. logits [B, T, C] raw
-    scores, labels [B, U]."""
+    scores, labels [B, U]. The alpha recursion over the padded axis is
+    ``rnn._recur``'s, so an exported loss keeps that length a symbol."""
     b, t, _ = logits.shape
     u = labels.shape[1]
     s = 2 * u + 1
@@ -158,14 +165,23 @@ def _ctc_loss(logits, logit_lens, labels, label_lens, blank):
     if u:
         first.append(torch.gather(log_probs[:, 0], 1, ext[:, 1:2]))
     alpha = torch.cat(first + [neg(s - len(first))], dim=1)
-    for i in range(1, t):
-        shift1 = torch.cat([neg(1), alpha[:, :-1]], dim=1)
-        shift2 = torch.cat([neg(2), alpha[:, :-2]], dim=1)[:, :s]
+
+    def step(carry, lp, v):
+        # ext and can_skip are tensors of their own (no views), which a
+        # scanned step may close over; the padding comes from the carry
+        alpha, = carry
+        pad = torch.full_like(alpha[:, :2], NEG_INF)
+        shift1 = torch.cat([pad[:, :1], alpha[:, :-1]], dim=1)
+        shift2 = torch.cat([pad, alpha[:, :-2]], dim=1)[:, :alpha.shape[1]]
         merged = torch.logaddexp(alpha, shift1)
         merged = torch.where(can_skip, torch.logaddexp(merged, shift2),
                              merged)
-        nxt = merged + torch.gather(log_probs[:, i], 1, ext)
-        alpha = torch.where((i < logit_lens)[:, None], nxt, alpha)
+        nxt = merged + torch.gather(lp[0], 1, ext)
+        return [torch.where(v[:, None], nxt, alpha)], []
+
+    valid = torch.arange(t, device=dev)[None, :] < logit_lens[:, None]
+    (alpha,), _ = _recur(ctx, step, [alpha], [log_probs[:, 1:]],
+                         valid[:, 1:], False)
 
     end = (2 * label_lens)[:, None]
     ll = torch.logaddexp(
@@ -182,7 +198,7 @@ def _warpctc(ctx, ins, attrs):
     lg = ins["Logits"][0]
     lab = ins["Label"][0]
     logits, logit_lens = lg.data, lg.lengths
-    loss = _ctc_loss(logits, logit_lens, _labels(lab), lab.lengths,
+    loss = _ctc_loss(ctx, logits, logit_lens, _labels(lab), lab.lengths,
                      attrs.get("blank", 0))
     if attrs.get("norm_by_times", False):
         loss = loss / torch.clamp(logit_lens, min=1).to(loss.dtype)

@@ -5,8 +5,9 @@ Port of ``paddle_tpu/ops/eval_ops.py`` (capability parity with
 paddle/fluid/operators/chunk_eval_op.h and detection_map_op.h). The
 reference walks LoD sequences on the host; here, as in the JAX
 package, chunk segmentation is elementwise begin/end flags over the
-padded tags, and matching is a masked scan over the time axis — a torch
-loop batched over the rows. ``detection_map`` matches each image's
+padded tags, and matching is a masked scan over the time axis, batched
+over the rows: ``rnn._recur``'s recurrence, a torch loop eagerly and
+torch's ``scan`` in an export. ``detection_map`` matches each image's
 detections in score order in one loop over the detection slots,
 batched over the images, then computes every class's AP at once.
 """
@@ -17,6 +18,7 @@ from ..core.sequence import SequenceBatch
 # the reference module's sentinel (its detection_map's), the one
 # ops/crf_ctc.py keeps
 from .crf_ctc import NEG_INF
+from .rnn import _recur
 
 _SCHEMES = {
     # num_tag_types, tag_begin, tag_inside, tag_end, tag_single
@@ -99,17 +101,22 @@ def _chunk_eval(ctx, ins, attrs):
         inc_i = inc_i & (ityp != e)
         inc_l = inc_l & (ltyp != e)
 
-    in_match = torch.zeros(b, dtype=torch.bool, device=iseq.device)
-    correct = torch.zeros(b, dtype=torch.int64, device=iseq.device)
-    for i in range(t):
-        # the exclusion applies to match starts too
-        starts = ib[:, i] & lb[:, i] & (ityp[:, i] == ltyp[:, i]) \
-            & inc_i[:, i]
+    def step(carry, flags, _):
+        in_match, correct = carry
+        starts, same_begin, both_end, any_end = flags
         # a mismatched boundary or type kills any active match
-        in_match = in_match & (ib[:, i] == lb[:, i])
-        in_match = in_match | starts
-        correct = correct + (in_match & ie[:, i] & le[:, i])
-        in_match = in_match & ~(ie[:, i] | le[:, i])
+        in_match = (in_match & same_begin) | starts
+        correct = correct + (in_match & both_end)
+        return [in_match & ~any_end, correct], []
+
+    # the exclusion applies to match starts too; the matching runs over
+    # the padded axis as ``rnn._recur``'s recurrence, so an exported
+    # chunk_eval keeps that length a symbol
+    starts = ib & lb & (ityp == ltyp) & inc_i
+    (_, correct), _ = _recur(
+        ctx, step, [torch.zeros(b, dtype=torch.bool, device=iseq.device),
+                    torch.zeros(b, dtype=torch.int64, device=iseq.device)],
+        [starts, ib == lb, ie & le, ie | le], mask, False)
     num_i = inc_i.sum().to(canonical_int())
     num_l = inc_l.sum().to(canonical_int())
     num_c = correct.sum().to(canonical_int())

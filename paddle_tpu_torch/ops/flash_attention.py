@@ -2,7 +2,10 @@
 ``paddle_tpu/ops/pallas_attention.py``).
 
 The reference's three Pallas kernels are CUDA kernels here, all on the
-tensor cores (``mma.sync``), one source a route:
+tensor cores (``mma.sync``), one source a route; bf16 and fp16 K1 and
+K3 at head dim 256 run warpgroup kernels of their own (``wgmma`` fed by
+TMA from a producer warp, ``csrc/flash_fwd_d256_wgmma.cu`` and
+``csrc/flash_bwd_dkv_d256_wgmma.cu``):
 
 - K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
   and fp16 run ``csrc/flash_fwd_mma.cu``, float32
@@ -33,13 +36,14 @@ counts its launches in ``<wrapper>.launches`` and, by kernel symbol, in
 B·H past ``gridDim.y``'s limit, which the launchers start in chunks.
 
 The head dims the kernels take are 64 and every multiple of 128, the
-reference's Pallas gate (D % 128 == 0): past 128 each kernel runs its
-D = 128 tiles in 128-column slices, one block a slice of its output
-(``csrc/mma_sm90.cuh`` ``HEAD_SLICE``). The reference sends the head
-dims its Pallas kernels do not take (D % 128 != 0) to its plain path on
-every backend (``_flash_fwd``, ``_flash_vjp_bwd``); so does
-:class:`FlashAttention` here, decided by the head dim before any
-launch: on a CUDA tensor of a head dim that is neither 64 nor a
+reference's Pallas gate (D % 128 == 0): past 128 each ``mma.sync``
+kernel runs its D = 128 tiles in 128-column slices, one block a slice
+of its output (``csrc/mma_sm90.cuh`` ``HEAD_SLICE``), but for the
+warpgroup kernels at D = 256 (:data:`WGMMA_HEAD_DIM`). The reference
+sends the head dims its Pallas kernels do not take (D % 128 != 0) to
+its plain path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``);
+so does :class:`FlashAttention` here, decided by the head dim before
+any launch: on a CUDA tensor of a head dim that is neither 64 nor a
 multiple of 128 it runs :func:`ref_attention_lse` and its gradient the
 plain versions of K2 and K3, and counts each call in
 ``launches_by_kernel["plain"]`` of the wrapper it stands in for
@@ -111,6 +115,16 @@ _ROUTES = {
 }
 
 
+# bf16 and fp16 K1 and K3 at this head dim run kernels of their own on
+# Hopper's warpgroup instructions (wgmma, TMA, a producer warp); K2 and
+# float32 keep the D = 128 tiles in slices there
+WGMMA_HEAD_DIM = 256
+_WGMMA_ROUTES = {
+    "flash_fwd": ("flash_fwd_d256_wgmma", "flash_fwd_d256_wgmma"),
+    "flash_bwd_dkv": ("flash_bwd_dkv_d256_wgmma", "flash_bwd_dkv_d256_wgmma"),
+}
+
+
 def _kernel_head_dim(d):
     """Whether the kernels take head dim ``d``: 64, or a multiple of
     :data:`HEAD_SLICE` (128), sliced past it."""
@@ -121,7 +135,8 @@ def kernel_for(wrapper, dtype, d):
     """(library, symbol) of the CUDA kernel that ``wrapper``
     ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
-    16-bit tensor-core kernels, float32 to the split-operand ones.
+    16-bit tensor-core kernels (K1 and K3 at D = :data:`WGMMA_HEAD_DIM`
+    to their warpgroup kernels), float32 to the split-operand ones.
     Raises ValueError for what no kernel takes."""
     if not _kernel_head_dim(d):
         raise ValueError(f"{wrapper} kernels take head dims 64 and the "
@@ -129,6 +144,9 @@ def kernel_for(wrapper, dtype, d):
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"{wrapper} kernels take float32, bfloat16 or "
                          f"float16, got {dtype}")
+    if (d == WGMMA_HEAD_DIM and dtype != torch.float32
+            and wrapper in _WGMMA_ROUTES):
+        return _WGMMA_ROUTES[wrapper]
     return _ROUTES[wrapper][dtype != torch.float32]
 
 
@@ -356,8 +374,10 @@ def reset_launch_counts():
     with _COUNT_LOCK:
         for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
             w.launches = 0
-            w.launches_by_kernel = {sym: 0
-                                    for _, sym in _ROUTES[w.__name__]}
+            routes = _ROUTES[w.__name__]
+            if w.__name__ in _WGMMA_ROUTES:
+                routes += (_WGMMA_ROUTES[w.__name__],)
+            w.launches_by_kernel = {sym: 0 for _, sym in routes}
             w.launches_by_kernel[PLAIN] = 0
         flash_fwd.input_copies = 0
 

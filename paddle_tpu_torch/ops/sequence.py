@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from ..core.framework import torch_dtype
 from ..core.registry import canonical_int, register_op
 from ..core.sequence import SequenceBatch, sequence_mask_from_lengths
+from .rnn import _recur
 
 
 def _as_seq(v):
@@ -357,24 +358,34 @@ def _lod_array_length(ctx, ins, attrs):
 def _edit_distance(ctx, ins, attrs):
     """Levenshtein distance of each hypothesis row to its reference row,
     the dynamic program run over the padded positions for the whole
-    batch at once (rows past a hypothesis's length keep the last row)."""
+    batch at once (rows past a hypothesis's length keep the last row).
+    The rows are ``rnn._recur``'s recurrence over the hypothesis's
+    padded axis, so an exported distance keeps that length a symbol.
+    Within a row, left_m = min(left_{m-1} + 1, a_m) with a_m the
+    deletion and substitution costs unrolls to
+    left_m = m + min(left_0, min_{k <= m} (a_k - k)): one ``cummin``
+    over the reference's padded axis, in integers."""
     hyp = _as_seq(ins["Hyps"][0])
     ref = _as_seq(ins["Refs"][0])
     h = hyp.data if hyp.data.dim() == 2 else hyp.data[..., 0]
     r = ref.data if ref.data.dim() == 2 else ref.data[..., 0]
     dev = h.device
     b, tm, tn = h.shape[0], h.shape[1], r.shape[1]
-    prev = torch.arange(tn + 1, device=dev).expand(b, tn + 1)
-    for i in range(tm):
-        left = torch.full((b,), i + 1, dtype=prev.dtype, device=dev)
-        row = [left]
-        for j in range(tn):
-            cost = (h[:, i] != r[:, j]).to(prev.dtype)
-            left = torch.minimum(torch.minimum(left + 1, prev[:, j + 1] + 1),
-                                 prev[:, j] + cost)
-            row.append(left)
-        prev = torch.where((i < hyp.lengths)[:, None],
-                           torch.stack(row, dim=1), prev)
+    cols = torch.arange(tn + 1, device=dev)
+
+    def row_step(carry, hi, v):
+        # row i's first cell is i + 1 = prev[:, 0] + 1 on every row that
+        # is kept (the rows before a kept row were all kept)
+        prev, = carry
+        cost = (hi[0][:, None] != r).to(prev.dtype)
+        a = torch.minimum(prev[:, 1:] + 1, prev[:, :-1] + cost)
+        row = torch.cummin(torch.cat([prev[:, :1] + 1, a], dim=1) - cols,
+                           dim=1).values + cols
+        return [torch.where(v[:, None], row, prev)], []
+
+    (prev,), _ = _recur(ctx, row_step, [cols.expand(b, tn + 1).contiguous()],
+                        [h], torch.arange(tm, device=dev)[None, :]
+                        < hyp.lengths[:, None], False)
     d = torch.gather(prev, 1, ref.lengths.reshape(-1, 1).to(torch.int64))
     d = d.to(torch.float32)
     if attrs.get("normalized", True):

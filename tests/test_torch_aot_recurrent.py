@@ -338,3 +338,151 @@ def test_crf_decoding_exports_its_length_symbolic(tmp_path):
                       scope=tscope, mode="test")[0]
         np.testing.assert_array_equal(got, np.asarray(want.data))
         np.testing.assert_array_equal(got, np.asarray(own.data))
+
+
+# F14's last ops: linear_chain_crf's forward algorithm, warpctc's alpha
+# recursion and chunk_eval's matching are recurrences over the padded
+# axis (rnn._recur), as the reference's lax.scans are
+
+
+def _crf_model(f, alpha=False):
+    """A tagger's linear-chain CRF cost over 5 tags, the fed ids its own
+    gold tags (one sequence feed), with its Alpha fetched too."""
+    words = f.layers.data(name="words", shape=[1], dtype="int64",
+                          lod_level=1)
+    emb = f.layers.embedding(input=words, size=[5, 8])
+    ll = f.layers.linear_chain_crf(input=f.layers.fc(emb, size=5),
+                                   label=words,
+                                   param_attr=f.ParamAttr(name="crfw"))
+    if not alpha:
+        return [ll]
+    block = f.default_main_program().global_block()
+    op, = [op for op in block.ops if op.type == "linear_chain_crf"]
+    return [ll, block.var(op.output("Alpha")[0])]
+
+
+def _ctc_model(f, norm_by_times):
+    """An OCR head's CTC cost over projected frames."""
+    x = f.layers.data(name="x", shape=[8], dtype="float32", lod_level=1)
+    lab = f.layers.data(name="lab", shape=[1], dtype="int64", lod_level=1)
+    return [f.layers.warpctc(input=f.layers.fc(x, size=6), label=lab,
+                             blank=0, norm_by_times=norm_by_times)]
+
+
+def _chunk_model(f, scheme, n_tags):
+    """chunk_eval's six outputs over 3 chunk types (type 1 excluded):
+    a CRF tagger's Viterbi tags against the fed ids as gold tags."""
+    words = f.layers.data(name="words", shape=[1], dtype="int64",
+                          lod_level=1)
+    emb = f.layers.embedding(input=words, size=[n_tags, 8])
+    f.layers.create_parameter([n_tags + 2, n_tags], "float32",
+                              attr=f.ParamAttr(name="crfw"))
+    tags = f.layers.crf_decoding(input=f.layers.fc(emb, size=n_tags),
+                                 param_attr=f.ParamAttr(name="crfw"))
+    return list(f.layers.chunk_eval(input=tags, label=words,
+                                    chunk_scheme=scheme, num_chunk_types=3,
+                                    excluded_chunk_types=[1]))
+
+
+def _edit_model(f):
+    """edit_distance of hypotheses to references, normalized."""
+    hyp, ref = (f.layers.data(name=n, shape=[1], dtype="int64",
+                              lod_level=1) for n in ("hyp", "ref"))
+    return [f.layers.edit_distance(input=hyp, label=ref)[0]]
+
+
+def _rows(seed, lens, hi=100, width=None):
+    rng = np.random.RandomState(seed)
+    if width:
+        return [rng.randn(n, width).astype(np.float32) for n in lens]
+    return [rng.randint(0, hi, (n, 1)).astype(np.int64) for n in lens]
+
+
+def _ctc_feeds():
+    return [{"x": _rows(4, (8, 5, 9), width=8), "lab": _rows(5, (3, 1, 2), 6)},
+            {"x": _rows(6, (4, 12, 6, 7, 3), width=8),
+             "lab": _rows(7, (2, 4, 1, 3, 1), 6)}]
+
+
+def _word_feeds(hi):
+    return [{"words": _rows(0, (5, 3, 7), hi)},
+            {"words": _rows(1, (2, 9, 4, 6, 1), hi)}]
+
+
+# name -> (build, whether the reference's export takes it, two batch x
+# padded-length geometries)
+F14_CASES = {
+    "linear_chain_crf": (_crf_model, False, _word_feeds(5)),
+    "linear_chain_crf_alpha": (lambda f: _crf_model(f, alpha=True), False,
+                               _word_feeds(5)),
+    "warpctc": (lambda f: _ctc_model(f, False), False, _ctc_feeds()),
+    "warpctc_norm_by_times": (lambda f: _ctc_model(f, True), False,
+                              _ctc_feeds()),
+    "chunk_eval_iob": (lambda f: _chunk_model(f, "IOB", 7), False,
+                       _word_feeds(7)),
+    "chunk_eval_iobes": (lambda f: _chunk_model(f, "IOBES", 13), False,
+                         _word_feeds(13)),
+    "edit_distance": (_edit_model, True, [
+        {"hyp": _rows(8, (5, 3, 7), 6), "ref": _rows(9, (4, 6, 2), 6)},
+        {"hyp": _rows(10, (2, 9, 4, 6, 1), 6),
+         "ref": _rows(11, (3, 3, 8, 5, 2), 6)}]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F14_CASES))
+def test_f14_op_exports_with_its_length_symbolic(tmp_path, case):
+    """Each program exports from the reference's scope through the
+    port's ``save_inference_model`` with no declared padded length (its
+    meta fixes none), and one artifact serves both geometries within
+    the forward tier of the port's Executor and of the reference's
+    Executor, and of the reference's own artifact where its export takes
+    the program (edit_distance's). The reference's export does not take
+    the others: its ``lax.scan`` over ``x[1:]`` asks whether the
+    symbolic length minus one is at least one, which shape polymorphism
+    cannot decide, so its ``save_inference_model`` warns that it skipped
+    the export (ROADMAP §3, R7)."""
+    from paddle_tpu.io import load_compiled_predictor as jload
+    from paddle_tpu_torch.io import load_compiled_predictor as tload
+    build, ref_exports, geometries = F14_CASES[case]
+    progs = build_both(build)
+    jmain, jstart, names, _ = progs["jax"]
+    tmain = progs["port"][0]
+    jscope, state = reference_state(jstart)
+    tscope = port_scope(state)
+    feed_names = sorted(geometries[0])
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
+    _save(tfluid, td, tmain, feed_names, names, tscope)
+    with open(os.path.join(td, "__compiled_meta__.json")) as f:
+        assert not any("fixed_seq_len" in s
+                       for s in json.load(f)["feed_specs"])
+    tpred = tload(td, device="cpu")
+    if ref_exports:
+        _save(jfluid, jd, jmain, feed_names, names, jscope)
+        jpred = jload(jd)
+    else:
+        with jfluid.scope_guard(jscope), \
+                pytest.warns(UserWarning, match="AOT export skipped.*"
+                             "inconclusive"):
+            jfluid.io.save_inference_model(
+                jd, feed_names, names, jfluid.Executor(jfluid.CPUPlace()),
+                main_program=jmain)
+    exe, jexe = tfluid.Executor(tfluid.CPUPlace()), \
+        jfluid.Executor(jfluid.CPUPlace())
+    for spec in geometries:
+        tfeed = {n: tfluid.to_sequence_batch(v, bucket=1)
+                 for n, v in spec.items()}
+        jfeed = {n: jfluid.to_sequence_batch(v, bucket=1)
+                 for n, v in spec.items()}
+        got = tpred.run(tfeed)
+        wants = [exe.run(tmain, feed=tfeed, fetch_list=names, scope=tscope,
+                         mode="test"),
+                 jexe.run(jmain, feed=jfeed, fetch_list=names, scope=jscope,
+                          mode="test")]
+        if ref_exports:
+            wants.append(jpred.run(jfeed))
+        for want in wants:
+            assert len(got) == len(want) == len(names)
+            for n, g, w in zip(names, got, want):
+                w = np.asarray(getattr(w, "data", w))
+                assert g.shape == w.shape, (n, g.shape, w.shape)
+                np.testing.assert_allclose(g, w, err_msg=n, **FWD)

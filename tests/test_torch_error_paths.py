@@ -9,7 +9,8 @@ Reference test → port case:
 - ``test_run_main_before_startup_is_diagnosed`` → ``test_run_main_before_startup_is_diagnosed``
 - ``test_unknown_fetch_name`` → ``test_unknown_fetch_name``
 - ``test_bad_feed_shape_raises_before_device_work`` → ``test_bad_feed_shape_raises_before_device_work``
-  (the error's type differs: ROADMAP §3 F24)
+  (both raise TypeError since F24's repair, ROADMAP §3), and its
+  ``matmul`` form, ``test_matmul_of_mismatched_widths_raises_type_error``
 """
 import numpy as np
 import pytest
@@ -83,14 +84,39 @@ def test_unknown_fetch_name():
 
 def test_bad_feed_shape_raises_before_device_work():
     """A feed of 7 columns where the program declares 4 raises at the
-    first op whose shapes disagree, and no parameter is written. The
-    reference raises jax's TypeError while tracing; the port raises
-    torch's RuntimeError when its eager matmul checks the shapes (F24),
-    and both messages give the two sizes."""
+    first op whose shapes disagree, and no parameter is written. Both
+    packages raise TypeError (the reference's jax while tracing, the
+    port's mul and matmul rules before their product: F24 repaired), and
+    both messages give the two sizes."""
     out = both(lambda p: _error_of(p, _feed(x_cols=7)))
-    assert out["jax"][0] == "TypeError" and out["port"][0] == "RuntimeError"
+    assert out["jax"][0] == out["port"][0] == "TypeError"
     for kind, msg, before, after in out.values():
         assert "7" in msg and "4" in msg
         assert sorted(after) == sorted(before)
         for n in before:
             np.testing.assert_array_equal(after[n], before[n])
+
+
+def test_matmul_of_mismatched_widths_raises_type_error():
+    """A ``matmul`` whose contracted sizes differ (a fed [2, 7] against a
+    [4, 3] parameter) raises TypeError in both packages, naming both
+    sizes, before its product runs."""
+    def run(p):
+        fluid = p.fluid
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+            w = fluid.layers.create_parameter([4, 3], "float32", name="w")
+            out = fluid.layers.matmul(x, w)
+        exe = fluid.Executor(fluid.CPUPlace())
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            with pytest.raises(Exception) as e:
+                exe.run(main, feed=_feed(x_cols=7, with_y=False),
+                        fetch_list=[out])
+        return type(e.value).__name__, str(e.value)
+
+    out = both(run)
+    for kind, msg in out.values():
+        assert kind == "TypeError" and "7" in msg and "4" in msg

@@ -128,13 +128,20 @@ def test_ragged_and_unequal_lengths_match_the_reference(tq, tk, causal):
 
 def test_slices_are_the_d128_tiles():
     """The sliced head dims run the D = 128 instantiation of every
-    kernel (128-column slices on gridDim.z): the slice width is the
-    kernels' widest tile, and every launcher dispatches the multiples of
-    it to its wide instantiation."""
+    mma.sync kernel (128-column slices on gridDim.z): the slice width is
+    the kernels' widest tile, and every such launcher dispatches the
+    multiples of it to its wide instantiation. bf16 and fp16 K1 and K3
+    at D = 256 have warpgroup kernels of their own, which take D = 256
+    whole and nothing else."""
     assert fa.HEAD_SLICE == 128
     assert cuda_build.parse_constexprs(
         (cuda_build.CSRC / "mma_sm90.cuh").read_text())["HEAD_SLICE"] == 128
-    for lib in cuda_build.SOURCES:
+    whole = {lib for lib, _ in fa._WGMMA_ROUTES.values()}
+    assert whole == {"flash_fwd_d256_wgmma", "flash_bwd_dkv_d256_wgmma"}
+    for lib in whole:
+        src = (cuda_build.CSRC / f"{lib}.cu").read_text()
+        assert "d != D" in src and "gridDim.z" not in src, lib
+    for lib in sorted(set(cuda_build.SOURCES) - whole):
         src = (cuda_build.CSRC / f"{lib}.cu").read_text()
         assert "d % HEAD_SLICE == 0" in src, lib
         assert "HEAD_SLICE, true>" in src, lib

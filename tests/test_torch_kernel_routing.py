@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+import split_check
 import tile_sweep
 from paddle_tpu_torch.ops import cuda_build
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -26,8 +27,13 @@ CSRC = REPO / "paddle_tpu_torch" / "csrc"
 
 def _library_of(symbol):
     """The csrc library that builds kernel ``symbol``."""
-    return next(lib for routes in fa._ROUTES.values()
+    return next(lib for routes in (*fa._ROUTES.values(),
+                                   fa._WGMMA_ROUTES.values())
                 for lib, sym in routes if sym == symbol)
+
+
+# the warpgroup kernels of K1 and K3 at head dim 256
+WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dkv_d256_wgmma")
 
 
 @pytest.mark.parametrize("wrapper,dtype,want", [
@@ -58,18 +64,22 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     (torch.int32, 128, "float32, bfloat16 or float16"),
     (torch.bfloat16, 96, "head dims"),
     # head dims past 128 that are multiples of it (the reference's
-    # D % 128 == 0 gate) are no longer refused: this case now holds
-    # that 256 and 384 route to the kernel symbols on every dtype
+    # D % 128 == 0 gate) are not refused: this case holds that bf16 and
+    # fp16 K1 and K3 at 256 route to their warpgroup kernels, and K2 at
+    # 256, float32 at 256 and every dtype at 384 to the sliced kernels
+    # of D 128
     pytest.param(torch.float32, 256, None, id="dtype3-256-head dims"),
 ])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
                                      "flash_bwd_dkv"])
 def test_routing_raises_for_what_no_kernel_takes(wrapper, dtype, d, match):
     if match is None:
-        for wide in (256, 384):
-            for dt in (torch.float32, torch.bfloat16, torch.float16):
-                assert fa.kernel_for(wrapper, dt, wide) \
-                    == fa.kernel_for(wrapper, dt, 128)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            sliced = fa.kernel_for(wrapper, dt, 128)
+            assert fa.kernel_for(wrapper, dt, 384) == sliced
+            own = dt != torch.float32 and wrapper != "flash_bwd_dq"
+            assert fa.kernel_for(wrapper, dt, 256) == (
+                (f"{wrapper}_d256_wgmma",) * 2 if own else sliced)
         return
     with pytest.raises(ValueError, match=match):
         fa.kernel_for(wrapper, dtype, d)
@@ -285,11 +295,19 @@ def test_misaligned_views_are_found():
 @pytest.mark.parametrize("symbol", sorted(chip_smoke.TILE_CONSTEXPRS))
 def test_only_cp_async_kernels_need_16_byte_alignment(symbol):
     """Every kernel copies its tiles by cp.async (mma_sm90.cuh's
-    load_tile_async), so the wrappers refuse any input off a 16-byte
-    boundary: no SIMT kernel that took any contiguous view is left."""
-    text = (CSRC / f"{_library_of(symbol)}.cu").read_text()
+    load_tile_async) or, the warpgroup kernels, by TMA (wgmma_sm90.cuh's
+    tma_load_3d, whose tensor maps want a 16-byte aligned base), so the
+    wrappers refuse any input off a 16-byte boundary: no SIMT kernel
+    that took any contiguous view is left."""
+    lib = _library_of(symbol)
+    text = (CSRC / f"{lib}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in text
-    assert "load_tile_async<" in text
+    if lib in WGMMA_SOURCES:
+        assert "tma_load_3d(" in text and "load_tile_async<" not in text
+        assert "cp.async.bulk.tensor" in \
+            (CSRC / "wgmma_sm90.cuh").read_text()
+    else:
+        assert "load_tile_async<" in text
     assert "cp.async" in (CSRC / "mma_sm90.cuh").read_text()
 
 
@@ -302,13 +320,81 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         assert w.launches == 0
         assert not any(w.launches_by_kernel.values())
-    assert fa.flash_fwd.launches_by_kernel == {"flash_fwd_f32mma": 0,
-                                               "flash_fwd_mma": 0,
-                                               "plain": 0}
+    assert fa.flash_fwd.launches_by_kernel == {
+        "flash_fwd_f32mma": 0, "flash_fwd_mma": 0, "flash_fwd_d256_wgmma": 0,
+        "plain": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {
         "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0, "plain": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
-        "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0, "plain": 0}
+        "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
+        "flash_bwd_dkv_d256_wgmma": 0, "plain": 0}
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+def test_wgmma_sources_name_their_design(name):
+    """The head-dim-256 kernels of K1 and K3: warpgroup products
+    (wgmma) fed by TMA from a producer warp (setmaxnreg), built for
+    sm_90a, where alone those instructions exist; each source names the
+    TPU kernel it replaces and its shared-memory budget, and its
+    kernel's SASS is held to HGMMA by chip_smoke.py."""
+    text = (CSRC / f"{name}.cu").read_text()
+    header = (CSRC / "wgmma_sm90.cuh").read_text()
+    replaces = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
+                "flash_bwd_dkv_d256_wgmma": ":189 _fa_bwd_dkv_kernel"}[name]
+    assert f"paddle_tpu/ops/pallas_attention.py{replaces}" in text
+    assert '#include "wgmma_sm90.cuh"' in text
+    for word in ("wgmma", "TMA", "setmaxnreg", "of the 227 KB"):
+        assert word in text, word
+    assert "wgmma.mma_async" in header and "setmaxnreg" in header
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    values = cuda_build.constexprs(name)
+    assert values["D"] == fa.WGMMA_HEAD_DIM == 256
+    assert values["SMEM_BYTES"] <= 232448          # 227 KB a block
+    assert values["THREADS"] == 3 * 128            # producer + 2 consumers
+    assert f"{name}_kernel" in chip_smoke.WGMMA_KERNELS
+    assert f"{name}_kernel" not in chip_smoke.MMA_KERNELS
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+def test_split_check_cuts_only_the_lo_product(name):
+    """split_check.py's "hi only" variant of each warpgroup kernel is
+    the shipped source less the one wgmma that takes the lo halves of P
+    (or dS); its "hi + lo" variant is the source as it ships."""
+    lo_line, n_ptrs = split_check.LO_PRODUCTS[name]
+    text = (CSRC / f"{name}.cu").read_text()
+    got = split_check.variants(text, lo_line)
+    assert got["hi + lo (shipped)"] == text
+    cut = [a for a, b in zip(text.splitlines(), got["hi only"].splitlines())
+           if a != b]
+    assert len(cut) == 1 and cut[0].strip() == lo_line
+    sig = text[text.index(f'extern "C" int {name}('):]
+    assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
+
+
+def test_sass_gate_holds_wgmma_kernels_to_hgmma():
+    """chip_smoke.py's SASS gate: every mma.sync kernel shows HMMA and
+    every warpgroup kernel HGMMA; a warpgroup kernel that fell back to
+    mma.sync (HMMA and no HGMMA) fails it."""
+    def sass(hgmma_of_wgmma):
+        def counts(name, opcode):
+            fn = f"_ZN_{name}_kernelI13__nv_bfloat16EEv"
+            if name in WGMMA_SOURCES:
+                n = hgmma_of_wgmma if opcode == "HGMMA" else 16
+            else:
+                n = 8 if opcode == "HMMA" else 0
+            return {fn: n}
+        return types.SimpleNamespace(SOURCES=cuda_build.SOURCES,
+                                     sass_counts=counts)
+
+    logged = []
+    chip_smoke.log, log = logged.append, chip_smoke.log
+    try:
+        chip_smoke.check_sass(sass(24))
+        with pytest.raises(chip_smoke.SmokeFailure, match="HGMMA"):
+            chip_smoke.check_sass(sass(0))
+    finally:
+        chip_smoke.log = log
+    assert any("HGMMA" in x for x in logged)
 
 
 def test_sass_counts_parse_cuobjdump_text():

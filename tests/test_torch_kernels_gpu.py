@@ -10,8 +10,10 @@ Gradients through the autograd.Function (K1, K2, K3 on the card)
 against the plain versions on the CPU: rtol 2e-3 / atol 2e-4.
 
 The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
-``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) are held to chip_smoke.py's
-16-bit tier: rtol
+``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``, and at head dim 256 the
+warpgroup kernels ``flash_fwd_d256_wgmma`` and
+``flash_bwd_dkv_d256_wgmma``) are held to chip_smoke.py's 16-bit tier:
+rtol
 1e-2 (one rounding of the output) plus atol 1e-2 x the plain output's
 RMS, against the plain version evaluated in float32 on the same inputs
 and rounded once to the output's type. The float32 kernels
@@ -114,7 +116,8 @@ def test_attention_gradients_on_the_card_match_the_cpu():
 HALF_RTOL, HALF_RMS = 1e-2, 1e-2
 
 # (tq, tk, d, causal): ragged T, tq < tk, tq > tk (fully masked rows),
-# head dims 64 and 128 and the sliced 256 and 384, causal and not
+# head dims 64 and 128, 256 (the warpgroup K1 and K3 in bf16 and fp16,
+# sliced otherwise) and the sliced 384, causal and not
 MMA_CASES = [(200, 200, 128, True), (200, 200, 128, False),
              (128, 256, 128, True), (256, 128, 128, True),
              (256, 256, 64, True), (256, 256, 64, False),
@@ -155,15 +158,13 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
     torch.cuda.synchronize()
     f32 = dt == torch.float32
-    assert fa.flash_fwd.launches_by_kernel == {
-        "flash_fwd_f32mma": int(f32), "flash_fwd_mma": int(not f32),
-        "plain": 0}
-    assert fa.flash_bwd_dkv.launches_by_kernel == {
-        "flash_bwd_dkv_f32mma": int(f32), "flash_bwd_dkv_mma": int(not f32),
-        "plain": 0}
-    assert fa.flash_bwd_dq.launches_by_kernel == {
-        "flash_bwd_dq_f32mma": int(f32), "flash_bwd_dq_mma": int(not f32),
-        "plain": 0}
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        sym = fa.kernel_for(w.__name__, dt, d)[1]
+        assert sym == (f"{w.__name__}_d256_wgmma"
+                       if d == 256 and not f32 and w is not fa.flash_bwd_dq
+                       else f"{w.__name__}_{'f32mma' if f32 else 'mma'}")
+        assert w.launches_by_kernel == {
+            s: int(s == sym) for s in w.launches_by_kernel}
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
                                             sc, causal)
     want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
@@ -176,6 +177,52 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
         if f32:
             torch.testing.assert_close(got, want, **F32_TOL)
             continue
+        ratio = _half_tier_ratio(got, want)
+        assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
+
+
+# (bh, tq, tk, causal) at head dim 256: T 128 and 2048, causal and not,
+# tq != tk (fully masked rows), ragged, and B*H past gridDim.y's 65535
+WGMMA_CASES = [(8, 128, 128, True), (8, 128, 128, False),
+               (2, 2048, 2048, True), (2, 2048, 2048, False),
+               (8, 128, 256, True), (8, 256, 128, True),
+               (8, 200, 200, True), (8, 200, 200, False),
+               (65536, 16, 16, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("bh,tq,tk,causal", WGMMA_CASES)
+def test_wgmma_kernels_match_plain_versions(dtype, bh, tq, tk, causal):
+    """bf16 and fp16 K1 and K3 at head dim 256 on their warpgroup
+    kernels (wgmma, TMA), each output against its plain version in the
+    16-bit tier, one launch on each symbol (two for B*H past 65535)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, tq, tk,
+                                              256, dt)
+    sc = 1 / 16
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    chunks = -(-bh // fa.MAX_GRID_Y)
+    assert fa.flash_fwd.launches_by_kernel["flash_fwd_d256_wgmma"] \
+        == fa.flash_fwd.launches == chunks
+    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_d256_wgmma"] \
+        == fa.flash_bwd_dkv.launches == chunks
+    want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
+                                            sc, causal)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
+                                          causal)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    for name, got, want in (("O", o, want_o.to(dt)), ("dK", dk, want_k),
+                            ("dV", dv, want_v)):
+        assert got.dtype == dt and torch.isfinite(got).all(), name
         ratio = _half_tier_ratio(got, want)
         assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
 

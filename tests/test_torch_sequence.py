@@ -14,6 +14,7 @@ on the same numpy inputs and compared whole, padded positions included:
 forwards rtol 2e-4 / atol 2e-5, gradients (autograd against jax.grad)
 rtol 2e-3 / atol 2e-4, integers by value (torch_seq_common.py).
 """
+import json
 import os
 import warnings
 
@@ -813,30 +814,52 @@ def _seq_crf_cost_model(f):
         param_attr=f.ParamAttr(name="crfw"))]
 
 
-def test_aot_recurrent_program_exports_at_its_fixed_length(tmp_path):
-    """F14, narrowed: the recurrences export with the padded length a
-    symbol (test_torch_aot_recurrent.py), but an op that still loops
-    over the padded axis on the host (linear_chain_crf's forward
-    algorithm) fixes it. Such a program exports at the largest padded
-    length its serving buckets declare for the feed; the predictor
-    serves it there, equal to the executor, and refuses any other padded
-    length by name; with no declared length the export raises naming
-    F14 and the op."""
-    spec = tfluid.serving.BucketSpec(batch_sizes=(1, 4),
-                                     seq_lens={"words": (8, 16)})
-    main, names, scope, exe, pred = _saved(
-        tmp_path, _seq_crf_cost_model, "crf", serving_buckets=spec)
+def test_aot_recurrent_program_exports_at_its_fixed_length(tmp_path,
+                                                          monkeypatch):
+    """F14 closed: linear_chain_crf's forward algorithm is a recurrence
+    over the padded axis (``rnn._recur``), so its program exports with
+    no declared padded length, the length a symbol, and one artifact
+    serves any padded length equal to the executor; its meta fixes none.
+    An artifact whose meta holds ``fixed_seq_len``, as earlier exports
+    of this program wrote it, still serves that length and refuses
+    another by name. An op that loops over the padded axis on the host
+    fixes the length: the export raises naming F14 and the op."""
+    main, names, scope, exe, pred = _saved(tmp_path, _seq_crf_cost_model,
+                                           "crf")
+    meta_path = os.path.join(str(tmp_path / "crf"), "__compiled_meta__.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    assert "fixed_seq_len" not in meta["feed_specs"][0]
     rng = np.random.RandomState(1)
-    for lens in ((5, 3, 7), (16, 2)):
-        sb = tfluid.to_sequence_batch(_words(rng, lens), max_len=16)
+    feeds = {}
+    for lens, pad in (((5, 3, 7), 16), ((16, 2), 16), ((5, 3), 8)):
+        sb = tfluid.to_sequence_batch(_words(rng, lens), max_len=pad)
         ref = exe.run(main, feed={"words": sb}, fetch_list=names,
                       scope=scope, mode="test")[0]
         np.testing.assert_allclose(pred.run({"words": sb})[0], ref, **FWD)
-    sb = tfluid.to_sequence_batch(_words(rng, (5, 3)))        # padded 8
+        feeds[pad] = sb
+    # the meta an earlier export wrote for this program
+    meta["feed_specs"][0]["fixed_seq_len"] = [16]
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    from paddle_tpu_torch.io import load_compiled_predictor
+    old = load_compiled_predictor(str(tmp_path / "crf"), device="cpu")
+    np.testing.assert_allclose(old.run({"words": feeds[16]})[0],
+                               pred.run({"words": feeds[16]})[0], **FWD)
     with pytest.raises(ValueError, match="F14"):
-        pred.run({"words": sb})
-    # with no declared length there is nothing to export at
+        old.run({"words": feeds[8]})
+    # an op rule that loops over the padded axis on the host
+    from paddle_tpu_torch.core import registry as pt_registry
     from paddle_tpu_torch.io.aot import export_compiled
+    rule = pt_registry.get_op("linear_chain_crf")
+    plain = rule.lower
+
+    def host_loop(ctx, ins, attrs):
+        for _ in range(ins["Emission"][0].data.shape[1]):
+            pass
+        return plain(ctx, ins, attrs)
+
+    monkeypatch.setattr(rule, "lower", host_loop)
     with pytest.raises(ValueError, match="'linear_chain_crf'.*F14"):
         export_compiled(str(tmp_path / "none"), main, ["words"], names,
                         scope, torch.device("cpu"))

@@ -178,12 +178,13 @@ Phases — any failure exits non-zero:
 22. head_dim_256 (the head-dim repair): the 8B width with 16 heads of
    256 and 4 kv heads at 2 layers through ``build_llama`` →
    ``Adam.minimize`` → ``Executor.run``: one bf16 train step at 2 x
-   2048 (K1 and K3 once a layer on their warpgroup kernels
-   ``flash_fwd_d256_wgmma`` and ``flash_bwd_dkv_d256_wgmma``, K2 on
-   ``flash_bwd_dq_mma`` in 128-column slices), one ``ServingEngine``
-   dispatch of the trained scope (K1 on ``flash_fwd_d256_wgmma``), one
-   float32 train step at 1 x 256 (the ``_f32mma`` kernels); no launch
-   on the plain route; first losses near ln V + dim·0.02²/2;
+   2048 (K1, K2 and K3 once a layer on their warpgroup kernels
+   ``flash_fwd_d256_wgmma``, ``flash_bwd_dq_d256_wgmma`` and
+   ``flash_bwd_dkv_d256_wgmma``), one ``ServingEngine`` dispatch of the
+   trained scope (K1 on ``flash_fwd_d256_wgmma``), one float32 train
+   step at 1 x 256 (K1 on ``flash_fwd_f32_d256_wgmma``, K2 and K3 on the
+   ``_f32mma`` kernels in slices); no launch on the plain route; first
+   losses near ln V + dim·0.02²/2;
 23. decode_engine (ROADMAP item 4b, the main path of this slice): the
    8B width at 4 of its 32 layers in bf16, behind ``DecodeEngine`` built with
    no place (the card): warmup, 24 requests of 40-256 prompt tokens and
@@ -425,12 +426,13 @@ Phases — any failure exits non-zero:
    launches a run.
 The kernels phase also checks K1-K3 at head dims 256 and 384 on both
 routes (T 128 and 2048, causal and not, tq != tk, ragged, and at D 256
-B*H past 65535), each launch on its kernel symbol — bf16 and fp16 K1
-and K3 at D 256 on their warpgroup kernels, with planted faults at
-their tiles at the D = 256 training shape — and times them at the
-head_dim_256 phase's bf16 and float32 shapes, whose rows the kernel
-line adds: K1 and K3 there beside the sliced D = 128 kernels they
-replaced, timed in the same run.
+B*H past 65535 in bf16 and float32), each launch on its kernel symbol
+— bf16 and fp16 K1, K2 and K3 and float32 K1 at D 256 on their
+warpgroup kernels, with planted faults at their tiles at the D = 256
+training shape and the float32 train step's shape — and times them at
+the head_dim_256 phase's bf16 and float32 shapes, whose rows the kernel
+line adds: each warpgroup kernel there beside the sliced D = 128 kernel
+it replaced, timed in the same run.
 The kernels phase also holds K1's operator (``flash_fwd_op``, what an
 exported graph calls) to the wrapper bit for bit and to the plain
 version, at Transformer-base's f32 D 64 shape, the 8B width's bf16
@@ -485,6 +487,7 @@ PRODUCTS = {"fwd": ("QK^T", "PV"), "dq": ("QK^T", "dOV^T", "dSK"),
 # listed runs every product at its dtype's rate)
 RATE_OF_KERNEL = {
     "flash_fwd_f32mma": (F32_SPLIT_RATE, F32_SPLIT_RATE),
+    "flash_fwd_f32_d256_wgmma": (F32_SPLIT_RATE, F32_SPLIT_RATE),
     "flash_bwd_dq_f32mma": (F32_SPLIT_RATE, F32_SPLIT_TF32_RATE,
                             F32_SPLIT_RATE),
     "flash_bwd_dkv_f32mma": (F32_SPLIT_RATE, F32_SPLIT_TF32_RATE,
@@ -518,13 +521,11 @@ AMP_LAYERS = 4                  # 32 → 4: float32 master state (params,
                                 # gradients, two Adam moments) of 4 layers
                                 # with the embedding and head is 31 GB
 AMP_STEPS = 3
-# each wrapper's float32 kernel
+# each wrapper's float32 kernel, and at head dim 256 K1's own
 F32_KERNELS = {"flash_fwd": "flash_fwd_f32mma",
                "flash_bwd_dq": "flash_bwd_dq_f32mma",
                "flash_bwd_dkv": "flash_bwd_dkv_f32mma"}
-# the float32 cases where faults planted at the float32 kernels' tiles
-# must fail
-F32_FAULT_CASES = ("f32 serving T=256", "f32 causal")
+F32_D256_KERNELS = dict(F32_KERNELS, flash_fwd="flash_fwd_f32_d256_wgmma")
 F32_LONG_LABEL = "f32 T=2048"   # the float32 kernels where the grid fills
 BIG_BH = 65536                  # past gridDim.y's 65535
 # Transformer-base (models/transformer.py TRANSFORMER_BASE: d_model 512,
@@ -597,6 +598,9 @@ HD256_HEADS, HD256_KV, HD256_LAYERS = 16, 4, 2
 HD256_F32_BATCH, HD256_F32_SEQ = 1, 256
 HD256_LABEL = "D=256 training shape"
 HD256_F32_LABEL = "f32 D=256 train step"
+# the float32 cases where faults planted at the float32 kernels' tiles
+# must fail (the last: float32 K1's warpgroup kernel at head dim 256)
+F32_FAULT_CASES = ("f32 serving T=256", "f32 causal", HD256_F32_LABEL)
 # K1 at the phase's served dispatch: one 200-token request in bucket
 # 256, B*H 1*16
 HD256_OP_LABEL = "bf16 D=256 serving T=256"
@@ -679,17 +683,22 @@ RING_TOL_BF16_RMS = 2e-2
 # route)
 KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                    "flash_fwd_mma_kernel",
-                                   "flash_fwd_d256_wgmma_kernel")),
+                                   "flash_fwd_d256_wgmma_kernel",
+                                   "flash_fwd_f32_d256_wgmma_kernel")),
                 ("k2_flash_bwd_dq", ("flash_bwd_dq_f32mma_kernel",
-                                     "flash_bwd_dq_mma_kernel")),
+                                     "flash_bwd_dq_mma_kernel",
+                                     "flash_bwd_dq_d256_wgmma_kernel")),
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_f32mma_kernel",
                                       "flash_bwd_dkv_mma_kernel",
                                       "flash_bwd_dkv_d256_wgmma_kernel")))
-# the warpgroup kernels (bf16 and fp16 K1 and K3 at head dim 256), whose
-# SASS must hold HGMMA instructions, and the mma.sync kernels, whose
-# SASS must hold HMMA: every kernel is one or the other
+# the warpgroup kernels (bf16 and fp16 K1, K2 and K3 and float32 K1 at
+# head dim 256), whose SASS must hold HGMMA instructions, and the
+# mma.sync kernels, whose SASS must hold HMMA: every kernel is one or
+# the other
 WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
-                 "flash_bwd_dkv_d256_wgmma_kernel")
+                 "flash_bwd_dq_d256_wgmma_kernel",
+                 "flash_bwd_dkv_d256_wgmma_kernel",
+                 "flash_fwd_f32_d256_wgmma_kernel")
 MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns
                     if kern not in WGMMA_KERNELS)
 # kernel symbol -> the constexprs of its source that give its tile's q
@@ -699,7 +708,9 @@ TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
                                "flash_bwd_dq_f32mma", "flash_bwd_dq_mma",
                                "flash_bwd_dkv_f32mma", "flash_bwd_dkv_mma",
                                "flash_fwd_d256_wgmma",
-                               "flash_bwd_dkv_d256_wgmma")}
+                               "flash_bwd_dq_d256_wgmma",
+                               "flash_bwd_dkv_d256_wgmma",
+                               "flash_fwd_f32_d256_wgmma")}
 
 
 class SmokeFailure(Exception):
@@ -869,9 +880,11 @@ def phase_kernels(torch, fa, seed):
         (TF_CAUSAL_LABEL, TF_BATCH * 8, TF_SEQ, TF_SEQ, 64, f32, True),
         (TF_CROSS_LABEL, TF_BATCH * 8, TF_SEQ // 2, TF_SEQ, 64, f32,
          False),
-        # head dims past 128, run in 128-column slices: the D = 256
-        # training, serving and f32 train-step shapes of the head_dim_256
-        # phase, T 128 and 2048, causal and not, tq != tk, ragged; D = 384
+        # head dims past 128: the D = 256 training, serving and f32
+        # train-step shapes of the head_dim_256 phase, T 128 and 2048,
+        # causal and not, tq != tk, ragged (bf16 and fp16 K1-K3 and f32 K1
+        # on their warpgroup kernels, f32 K2 and K3 in 128-column slices);
+        # D = 384, sliced
         (HD256_OP_LABEL, HD256_HEADS, 256, 256, 256, bf16, True),
         ("bf16 D=256 T=128 causal", 8, 128, 128, 256, bf16, True),
         ("bf16 D=256 T=128 non-causal", 8, 128, 128, 256, bf16, False),
@@ -885,14 +898,19 @@ def phase_kernels(torch, fa, seed):
         ("bf16 D=256 ragged T=200 causal", 8, 200, 200, 256, bf16, True),
         ("fp16 D=256 ragged T=200 non-causal", 8, 200, 200, 256, f16,
          False),
+        ("fp16 D=256 tq>tk causal (fully masked rows)", 8, 256, 128, 256,
+         f16, True),
         ("f32 D=256 T=128 causal", 8, 128, 128, 256, f32, True),
         ("f32 D=256 T=128 non-causal", 8, 128, 128, 256, f32, False),
         (HD256_F32_LABEL, HD256_F32_BATCH * HD256_HEADS, HD256_F32_SEQ,
          HD256_F32_SEQ, 256, f32, True),
         ("f32 D=256 T=2048 causal", 4, TRAIN_SEQ, TRAIN_SEQ, 256, f32, True),
+        ("f32 D=256 T=2048 non-causal", 4, TRAIN_SEQ, TRAIN_SEQ, 256, f32,
+         False),
         ("f32 D=256 tq<tk causal", 8, 128, 256, 256, f32, True),
         ("f32 D=256 tq>tk causal (fully masked rows)", 8, 256, 128, 256,
          f32, True),
+        ("f32 D=256 ragged T=200 causal", 8, 200, 200, 256, f32, True),
         ("f32 D=256 ragged T=200 non-causal", 8, 200, 200, 256, f32, False),
         ("bf16 D=384 causal", 8, 256, 256, 384, bf16, True),
         ("bf16 D=384 ragged T=200 non-causal", 8, 200, 200, 384, bf16,
@@ -959,8 +977,10 @@ def phase_kernels(torch, fa, seed):
           f"K1/K2/K3 disagree with their plain versions: {failures}")
     check_lse_gradient(torch, fa, gen, dev)
     check_big_bh(torch, fa, gen, dev)
-    # bf16 K1 and K3 at D 256 run their warpgroup kernels, K2 the sliced
-    check_big_bh(torch, fa, gen, dev, d=256, dtypes=(bf16,))
+    # at D 256 bf16 K1-K3 and float32 K1 run their warpgroup kernels,
+    # float32 K2 and K3 the sliced ones: inputs, outputs and the plain
+    # versions of one float32 case take ~25 GB of the card's 80
+    check_big_bh(torch, fa, gen, dev, d=256)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
     timing = {}
@@ -1011,7 +1031,7 @@ def check_variants(torch, fa, dt, d, launches=1):
     ran = []
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         _, sym = fa.kernel_for(w.__name__, dt, d)
-        want = F32_KERNELS[w.__name__]
+        want = (F32_D256_KERNELS if d == 256 else F32_KERNELS)[w.__name__]
         check(dt != torch.float32 or sym == want,
               f"float32 {w.__name__} routes to {sym}, not {want}")
         by = w.launches_by_kernel
@@ -1069,8 +1089,10 @@ def time_kernels(torch, fa, r, label, kinds, flush):
         ms = time_ms(kern, torch, flush=flush)
         plain_ms = time_ms(plain, torch, iters=plain_iters, flush=flush)
         symbol = fa.kernel_for(wrapper, q.dtype, d)[1]
+        route = fa.F32_ROUTE if q.dtype == torch.float32 else fa.HALF_ROUTE
         sliced = sliced_call(torch, fa, wrapper, bwd) \
-            if symbol in fa._WGMMA_ROUTES.get(wrapper, ()) else None
+            if d == fa.WGMMA_HEAD_DIM and (wrapper, route) in \
+            fa._WGMMA_ROUTES else None
         rates = RATE_OF_KERNEL.get(symbol, (dt_name,) * len(PRODUCTS[kind]))
         bound, by, nbytes, flops = attention_bound_ms(
             bh, tq, tk, d, rates, causal, q.element_size(), kind)
@@ -1086,16 +1108,16 @@ def time_kernels(torch, fa, r, label, kinds, flush):
             # same inputs in the same run
             rows[(kind, label)]["sliced_ms"] = time_ms(sliced, torch,
                                                        flush=flush)
-            also = (f" (the sliced {fa._ROUTES[wrapper][1][1]} it replaced:"
-                    f" {rows[(kind, label)]['sliced_ms']:.4f} ms)")
+            also = (f" (the sliced {fa._ROUTES[wrapper][route][1]} it "
+                    f"replaced: {rows[(kind, label)]['sliced_ms']:.4f} ms)")
         if symbol in RATE_OF_KERNEL:
             # the same work with every product at the 3xbf16 rate: one
             # yardstick for any float32 design, whichever splits it takes
             rows[(kind, label)]["bound_3xbf16_ms"] = attention_bound_ms(
                 bh, tq, tk, d, F32_SPLIT_RATE, causal, q.element_size(),
                 kind)[0]
-            also = (f" (every product at 3xbf16: "
-                    f"{rows[(kind, label)]['bound_3xbf16_ms']:.4f} ms)")
+            also += (f" (every product at 3xbf16: "
+                     f"{rows[(kind, label)]['bound_3xbf16_ms']:.4f} ms)")
         log(f"{symbol} {label} timing (cold L2): kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa "
             f"{'forward' if kind == 'fwd' else 'backward (dQ, dK, dV)'} "
@@ -1106,15 +1128,20 @@ def time_kernels(torch, fa, r, label, kinds, flush):
 
 
 def sliced_call(torch, fa, wrapper, bwd):
-    """A call of the 16-bit D = 128 kernel of ``wrapper`` ("flash_fwd" or
-    "flash_bwd_dkv") in 128-column slices on ``bwd``'s D = 256 inputs —
-    the route the warpgroup kernel replaced, for timing beside it. Its
-    launches count on the wrapper under that kernel's symbol."""
+    """A call of the D = 128 kernel of ``wrapper`` ("flash_fwd",
+    "flash_bwd_dq" or "flash_bwd_dkv") on the route of ``bwd``'s dtype
+    (float32 or 16-bit), in 128-column slices on ``bwd``'s D = 256
+    inputs — the route the warpgroup kernel replaced, for timing beside
+    it. Its launches count on the wrapper under that kernel's symbol."""
     q, k, v, do, lse, delta, scale, causal = bwd
-    route = fa._ROUTES[wrapper][1]
+    route = fa._ROUTES[wrapper][fa.F32_ROUTE if q.dtype == torch.float32
+                                else fa.HALF_ROUTE]
     if wrapper == "flash_fwd":
         outs = (torch.empty_like(q), torch.empty_like(lse))
         ins = (q, k, v)
+    elif wrapper == "flash_bwd_dq":
+        outs = (torch.empty_like(q),)
+        ins = (q, k, v, do, lse, delta)
     else:
         outs = (torch.empty_like(k), torch.empty_like(v))
         ins = (q, k, v, do, lse, delta)
@@ -3927,13 +3954,13 @@ def phase_head_dim_256(torch, fluid, fa, card):
     """Head dims past 128 on the main path: the 8B width with
     HD256_HEADS heads (head dim 256) and HD256_KV kv heads, cut to
     HD256_LAYERS layers, through ``build_llama`` → ``Adam(1e-4)`` →
-    ``Executor.run``: one bf16 train step at TRAIN_BATCH x TRAIN_SEQ (K1
-    and K3 once a layer on their warpgroup kernels, K2 once a layer on
-    the 16-bit tensor-core kernel in 128-column slices), one
+    ``Executor.run``: one bf16 train step at TRAIN_BATCH x TRAIN_SEQ (K1,
+    K2 and K3 once a layer on their warpgroup kernels), one
     ``ServingEngine`` dispatch of that scope's test clone (K1 once a
     layer), and one float32 train step at
-    HD256_F32_BATCH x HD256_F32_SEQ with TF32 off (the split-operand
-    kernels); every launch on its kernel symbol, none on the plain
+    HD256_F32_BATCH x HD256_F32_SEQ with TF32 off (K1 on its warpgroup
+    kernel, K2 and K3 on the split-operand kernels in 128-column
+    slices); every launch on its kernel symbol, none on the plain
     route, finite losses near ln V + dim·0.02²/2. Returns ({"bf16": ...,
     "f32": ...} launches by kernel symbol, stats)."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B, build_llama
@@ -3982,12 +4009,12 @@ def phase_head_dim_256(torch, fluid, fa, card):
             f"{ms:.1f} ms, launches {by_kernel}")
         return main, scope, exe, by_kernel
 
-    # bf16: a train step (K1 and K3 on their warpgroup kernels, K2 on
-    # the sliced D = 128 one), then one served dispatch of the scope
+    # bf16: a train step (K1, K2 and K3 on their warpgroup kernels),
+    # then one served dispatch of the scope
     bf16_kernels = tuple(fa.kernel_for(w, torch.bfloat16, d)[1]
                          for w in ("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv"))
-    check(bf16_kernels == ("flash_fwd_d256_wgmma", "flash_bwd_dq_mma",
+    check(bf16_kernels == ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
                            "flash_bwd_dkv_d256_wgmma"),
           f"{tag}: bf16 K1-K3 at D {d} route to {bf16_kernels}")
     k1 = bf16_kernels[0]
@@ -4029,12 +4056,18 @@ def phase_head_dim_256(torch, fluid, fa, card):
     del scope, exe, engine
     free_card(torch)
 
-    # float32 with TF32 off: the split-operand kernels
+    # float32 with TF32 off: K1 on its warpgroup kernel, K2 and K3 on
+    # the split-operand ones in slices
     torch.backends.cuda.matmul.allow_tf32 = False
+    f32_kernels = tuple(fa.kernel_for(w, torch.float32, d)[1]
+                        for w in ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"))
+    check(f32_kernels == ("flash_fwd_f32_d256_wgmma", "flash_bwd_dq_f32mma",
+                          "flash_bwd_dkv_f32mma"),
+          f"{tag}: float32 K1-K3 at D {d} route to {f32_kernels}")
     _, scope, exe, by_kernel = one_step(
         "f32 train", dataclasses.replace(cfg, dtype="float32"),
-        HD256_F32_BATCH, HD256_F32_SEQ,
-        ("flash_fwd_f32mma", "flash_bwd_dq_f32mma", "flash_bwd_dkv_f32mma"))
+        HD256_F32_BATCH, HD256_F32_SEQ, f32_kernels)
     launches["f32"] = by_kernel
     del scope, exe
     free_card(torch)
@@ -10291,10 +10324,10 @@ def main():
         kernels.append(row)
     # K1-K3 at head dim 256 on both routes: the bf16 training shape of
     # the head_dim_256 phase (launches: its bf16 train step; its serve
-    # dispatch under launches_by_path; bf16 K1 and K3 on their warpgroup
-    # kernels, each with the sliced kernel it replaced timed beside it
-    # as sliced_ms) and its float32 train step's shape (128-column
-    # slices)
+    # dispatch under launches_by_path; K1, K2 and K3 on their warpgroup
+    # kernels) and its float32 train step's shape (K1 on its warpgroup
+    # kernel, K2 and K3 in 128-column slices); each warpgroup kernel
+    # with the sliced kernel it replaced timed beside it as sliced_ms
     for label, path, dtype, shape in (
             (HD256_LABEL, "bf16", torch.bfloat16,
              f"bh={TRAIN_BATCH}*{HD256_HEADS} t={TRAIN_SEQ} d=256 causal "

@@ -1,9 +1,12 @@
 // Hopper-only helpers shared by the head-dim-256 attention kernels
-// (flash_fwd_d256_wgmma.cu, flash_bwd_dkv_d256_wgmma.cu): TMA tile loads
-// completing on mbarriers, the shared-memory matrix descriptors of
-// wgmma, the two wgmma shapes the kernels issue (m64n64k16 with both
-// operands in shared memory, m64n256k16 with A in registers), warpgroup
-// register reallocation (setmaxnreg) and the host-side tensor maps.
+// (flash_fwd_d256_wgmma.cu, flash_bwd_dq_d256_wgmma.cu,
+// flash_bwd_dkv_d256_wgmma.cu, flash_fwd_f32_d256_wgmma.cu): TMA tile
+// loads completing on mbarriers, the shared-memory matrix descriptors of
+// wgmma, the three wgmma shapes the kernels issue (m64n64k16 and
+// m64n32k16 with both operands in shared memory, m64n256k16 with A in
+// registers), warpgroup register reallocation (setmaxnreg), the proxy
+// fence that lets wgmma read what threads wrote, and the host-side
+// tensor maps (16-bit tiles swizzled, float32 tiles plain).
 // sm_90a only: wgmma and setmaxnreg do not exist on plain sm_90.
 //
 // Shared tiles are in the layout that TMA's 128-byte swizzle writes and
@@ -113,6 +116,14 @@ __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// order this thread's generic-proxy accesses of shared memory before
+// later async-proxy ones (wgmma operand reads, TMA writes): each thread
+// that wrote a wgmma operand, or read a buffer TMA refills, fences
+// before the barrier that hands it over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- wgmma ----
 
 // descriptor of a 128-byte-swizzled K-major operand (rows 128 bytes
@@ -164,6 +175,8 @@ __device__ __forceinline__ void reg_fence(uint32_t& x) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
   "%28, %29, %30, %31}"
+#define WG_REGS16                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define WG_REGS128                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
   "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
@@ -193,6 +206,18 @@ struct Wgmma;
         : "l"(da), "l"(db), "r"(accumulate));                            \
   }
 
+// d (+)= A B, A [64 x 16] and B [16 x 32] both K-major in shared memory
+#define WG_SS_32(TY)                                                     \
+  static __device__ __forceinline__ void ss32(float (&d)[16], uint64_t da, \
+                                              uint64_t db, int accumulate) { \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "      \
+        WG_REGS16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"                      \
+        : WG_F8(d, 0), WG_F8(d, 8)                                       \
+        : "l"(da), "l"(db), "r"(accumulate));                            \
+  }
+
 // d += A B, A [64 x 16] in registers (a), B [16 x 256] MN-major in
 // shared memory (descriptor db)
 #define WG_RS_256(TY)                                                    \
@@ -210,6 +235,7 @@ struct Wgmma;
 template <>
 struct Wgmma<__nv_bfloat16> {
   WG_SS_64("bf16")
+  WG_SS_32("bf16")
   WG_RS_256("bf16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
@@ -225,6 +251,7 @@ struct Wgmma<__nv_bfloat16> {
 template <>
 struct Wgmma<__half> {
   WG_SS_64("f16")
+  WG_SS_32("f16")
   WG_RS_256("f16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __half2 h = __floats2half2_rn(x, y);
@@ -238,6 +265,7 @@ struct Wgmma<__half> {
 };
 
 #undef WG_SS_64
+#undef WG_SS_32
 #undef WG_RS_256
 
 // (x, y) as a pair rounded to T (hi) and the pair of what that rounding
@@ -304,6 +332,28 @@ int make_map(CUtensorMap* map, const void* base, int bh, int t, int rows) {
                         dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// tensor map of a contiguous [bh, t, 256] float32 tensor read in boxes
+// of (all 256 columns, rows, 1 slice), unswizzled: a box lands as a
+// row-major [rows][256] float32 tile; rows past t read as 0. Returns a
+// CUDA error code (0 = ok).
+inline int make_map_f32(CUtensorMap* map, const void* base, int bh, int t,
+                        int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {256, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {256 * sizeof(float),
+                                 (cuuint64_t)t * 256 * sizeof(float)};
+  const cuuint32_t box[3] = {256, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

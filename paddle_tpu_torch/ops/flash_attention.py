@@ -2,10 +2,12 @@
 ``paddle_tpu/ops/pallas_attention.py``).
 
 The reference's three Pallas kernels are CUDA kernels here, all on the
-tensor cores (``mma.sync``), one source a route; bf16 and fp16 K1 and
-K3 at head dim 256 run warpgroup kernels of their own (``wgmma`` fed by
-TMA from a producer warp, ``csrc/flash_fwd_d256_wgmma.cu`` and
-``csrc/flash_bwd_dkv_d256_wgmma.cu``):
+tensor cores (``mma.sync``), one source a route; at head dim 256 bf16
+and fp16 K1, K2 and K3 and float32 K1 run warpgroup kernels of their
+own (``wgmma`` fed by TMA from a producer warp,
+``csrc/flash_fwd_d256_wgmma.cu``, ``csrc/flash_bwd_dq_d256_wgmma.cu``,
+``csrc/flash_bwd_dkv_d256_wgmma.cu`` and
+``csrc/flash_fwd_f32_d256_wgmma.cu``):
 
 - K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
   and fp16 run ``csrc/flash_fwd_mma.cu``, float32
@@ -39,7 +41,8 @@ The head dims the kernels take are 64 and every multiple of 128, the
 reference's Pallas gate (D % 128 == 0): past 128 each ``mma.sync``
 kernel runs its D = 128 tiles in 128-column slices, one block a slice
 of its output (``csrc/mma_sm90.cuh`` ``HEAD_SLICE``), but for the
-warpgroup kernels at D = 256 (:data:`WGMMA_HEAD_DIM`). The reference
+warpgroup kernels at D = 256 (:data:`WGMMA_HEAD_DIM`; float32 K2 and K3
+stay sliced there). The reference
 sends the head dims its Pallas kernels do not take (D % 128 != 0) to
 its plain path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``);
 so does :class:`FlashAttention` here, decided by the head dim before
@@ -103,6 +106,8 @@ MAX_GRID_Y = cuda_build.parse_constexprs(
     (cuda_build.CSRC / "mma_sm90.cuh").read_text())["MAX_GRID_Y"]
 PLAIN = "plain"   # launches_by_kernel's entry for the head-dim gate
 
+# the routes of the tables below: float32 inputs, bf16/fp16 inputs
+F32_ROUTE, HALF_ROUTE = 0, 1
 # (library under csrc/, C symbol) of the kernel each wrapper launches:
 # on float32, on bf16/fp16 inputs
 _ROUTES = {
@@ -115,13 +120,20 @@ _ROUTES = {
 }
 
 
-# bf16 and fp16 K1 and K3 at this head dim run kernels of their own on
-# Hopper's warpgroup instructions (wgmma, TMA, a producer warp); K2 and
-# float32 keep the D = 128 tiles in slices there
+# at this head dim the (wrapper, route) pairs below run kernels of their
+# own on Hopper's warpgroup instructions (wgmma, TMA, a producer warp):
+# bf16 and fp16 K1, K2 and K3, and float32 K1; float32 K2 and K3 keep
+# the D = 128 tiles in slices there
 WGMMA_HEAD_DIM = 256
 _WGMMA_ROUTES = {
-    "flash_fwd": ("flash_fwd_d256_wgmma", "flash_fwd_d256_wgmma"),
-    "flash_bwd_dkv": ("flash_bwd_dkv_d256_wgmma", "flash_bwd_dkv_d256_wgmma"),
+    ("flash_fwd", HALF_ROUTE): ("flash_fwd_d256_wgmma",
+                                "flash_fwd_d256_wgmma"),
+    ("flash_fwd", F32_ROUTE): ("flash_fwd_f32_d256_wgmma",
+                               "flash_fwd_f32_d256_wgmma"),
+    ("flash_bwd_dq", HALF_ROUTE): ("flash_bwd_dq_d256_wgmma",
+                                   "flash_bwd_dq_d256_wgmma"),
+    ("flash_bwd_dkv", HALF_ROUTE): ("flash_bwd_dkv_d256_wgmma",
+                                    "flash_bwd_dkv_d256_wgmma"),
 }
 
 
@@ -135,19 +147,20 @@ def kernel_for(wrapper, dtype, d):
     """(library, symbol) of the CUDA kernel that ``wrapper``
     ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
-    16-bit tensor-core kernels (K1 and K3 at D = :data:`WGMMA_HEAD_DIM`
-    to their warpgroup kernels), float32 to the split-operand ones.
-    Raises ValueError for what no kernel takes."""
+    16-bit tensor-core kernels, float32 to the split-operand ones; at
+    D = :data:`WGMMA_HEAD_DIM` each (wrapper, route) of
+    ``_WGMMA_ROUTES`` to its warpgroup kernel. Raises ValueError for
+    what no kernel takes."""
     if not _kernel_head_dim(d):
         raise ValueError(f"{wrapper} kernels take head dims 64 and the "
                          f"multiples of {HEAD_SLICE}, got {d}")
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"{wrapper} kernels take float32, bfloat16 or "
                          f"float16, got {dtype}")
-    if (d == WGMMA_HEAD_DIM and dtype != torch.float32
-            and wrapper in _WGMMA_ROUTES):
-        return _WGMMA_ROUTES[wrapper]
-    return _ROUTES[wrapper][dtype != torch.float32]
+    route = F32_ROUTE if dtype == torch.float32 else HALF_ROUTE
+    if d == WGMMA_HEAD_DIM and (wrapper, route) in _WGMMA_ROUTES:
+        return _WGMMA_ROUTES[wrapper, route]
+    return _ROUTES[wrapper][route]
 
 
 def takes_kernels(x):
@@ -374,9 +387,9 @@ def reset_launch_counts():
     with _COUNT_LOCK:
         for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
             w.launches = 0
-            routes = _ROUTES[w.__name__]
-            if w.__name__ in _WGMMA_ROUTES:
-                routes += (_WGMMA_ROUTES[w.__name__],)
+            routes = _ROUTES[w.__name__] + tuple(
+                r for (name, _), r in _WGMMA_ROUTES.items()
+                if name == w.__name__)
             w.launches_by_kernel = {sym: 0 for _, sym in routes}
             w.launches_by_kernel[PLAIN] = 0
         flash_fwd.input_copies = 0

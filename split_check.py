@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Whether the head-dim-256 warpgroup kernels still need their
+"""Whether the 16-bit head-dim-256 warpgroup kernels still need their
 probabilities split into hi + lo 16-bit halves, on one CUDA card.
 
 K1 (``csrc/flash_fwd_d256_wgmma.cu``) takes P V as two products, P's
-hi and lo halves; K3 (``csrc/flash_bwd_dkv_d256_wgmma.cu``) takes
-Pᵀ dO and dSᵀ Q the same way. This script builds each kernel twice
-with the port's nvcc flags into a temporary directory, as it ships and
-with the lo product cut (one 16-bit rounding of P, and of dS), runs
-both at chip_smoke.py's D = 256 training and serving shapes, holds each
-output to the kernel's plain version in chip_smoke.py's 16-bit tier and
-times both in turns (CUDA events, cold L2).
+hi and lo halves; K2 (``csrc/flash_bwd_dq_d256_wgmma.cu``) takes dS K
+the same way, and K3 (``csrc/flash_bwd_dkv_d256_wgmma.cu``) Pᵀ dO and
+dSᵀ Q. This script builds each kernel twice with the port's nvcc flags
+into a temporary directory, as it ships and with the lo product cut
+(one 16-bit rounding of P, and of dS), runs both at chip_smoke.py's
+D = 256 training and serving shapes, holds each output to the kernel's
+plain version in chip_smoke.py's 16-bit tier and times both in turns
+(CUDA events, cold L2).
 
 Run from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit::
@@ -31,6 +32,7 @@ import tempfile
 # source -> (the lo product's line, pointers of its C interface)
 LO_PRODUCTS = {
     "flash_fwd_d256_wgmma": ("W::rs256(acc, pl[kk], dv);", 5),
+    "flash_bwd_dq_d256_wgmma": ("W::rs256(acc, dlo[kk], dk);", 7),
     "flash_bwd_dkv_d256_wgmma": ("W::rs256(acc, xl[kk], db);", 8),
 }
 HEADERS = ("mma_sm90.cuh", "wgmma_sm90.cuh")
@@ -100,15 +102,19 @@ def main():
         o_ref = o_ref.to(torch.bfloat16)
         o, lse = fa.flash_fwd(q, k, v, scale, True)
         delta = (do.float() * o.float()).sum(-1)
+        dq_ref = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, scale, True)
         dk_ref, dv_ref = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, scale,
                                               True)
         outs = {"flash_fwd_d256_wgmma": (torch.empty_like(q),
                                          torch.empty_like(lse)),
+                "flash_bwd_dq_d256_wgmma": (torch.empty_like(q),),
                 "flash_bwd_dkv_d256_wgmma": (torch.empty_like(k),
                                              torch.empty_like(v))}
         ins = {"flash_fwd_d256_wgmma": (q, k, v),
+               "flash_bwd_dq_d256_wgmma": (q, k, v, do, lse, delta),
                "flash_bwd_dkv_d256_wgmma": (q, k, v, do, lse, delta)}
         wants = {"flash_fwd_d256_wgmma": (o_ref,),
+                 "flash_bwd_dq_d256_wgmma": (dq_ref,),
                  "flash_bwd_dkv_d256_wgmma": (dk_ref, dv_ref)}
         row = {"shape": shape, "bh": bh, "t": t, "card": smi, "kernels": {}}
         calls = {}

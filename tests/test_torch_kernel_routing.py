@@ -32,8 +32,15 @@ def _library_of(symbol):
                 for lib, sym in routes if sym == symbol)
 
 
-# the warpgroup kernels of K1 and K3 at head dim 256
-WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dkv_d256_wgmma")
+# the warpgroup kernels at head dim 256: bf16 and fp16 K1, K2 and K3,
+# float32 K1
+WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
+                 "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma")
+# the TPU kernel (pallas_attention.py line and function) each replaces
+REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
+            "flash_bwd_dq_d256_wgmma": ":223 _fa_bwd_dq_kernel",
+            "flash_bwd_dkv_d256_wgmma": ":189 _fa_bwd_dkv_kernel",
+            "flash_fwd_f32_d256_wgmma": ":59 _fa_kernel"}
 
 
 @pytest.mark.parametrize("wrapper,dtype,want", [
@@ -59,15 +66,43 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     assert set(getattr(fa, wrapper).launches_by_kernel) >= {sym}
 
 
+@pytest.mark.parametrize("wrapper,dtype,want", [
+    ("flash_fwd", torch.bfloat16, "flash_fwd_d256_wgmma"),
+    ("flash_fwd", torch.float16, "flash_fwd_d256_wgmma"),
+    ("flash_fwd", torch.float32, "flash_fwd_f32_d256_wgmma"),
+    ("flash_bwd_dq", torch.bfloat16, "flash_bwd_dq_d256_wgmma"),
+    ("flash_bwd_dq", torch.float16, "flash_bwd_dq_d256_wgmma"),
+    ("flash_bwd_dq", torch.float32, "flash_bwd_dq_f32mma"),
+    ("flash_bwd_dkv", torch.bfloat16, "flash_bwd_dkv_d256_wgmma"),
+    ("flash_bwd_dkv", torch.float16, "flash_bwd_dkv_d256_wgmma"),
+    ("flash_bwd_dkv", torch.float32, "flash_bwd_dkv_f32mma"),
+])
+def test_routing_at_head_dim_256(wrapper, dtype, want):
+    """At D 256 bf16 and fp16 K1, K2 and K3 and float32 K1 go to their
+    warpgroup kernels, float32 K2 and K3 to the sliced split-operand
+    ones; at D 384 every route is the sliced kernel of D 128. Each
+    symbol is built from the source of its name, takes as many pointers
+    as its wrapper hands it, and is counted by reset_launch_counts."""
+    lib, sym = fa.kernel_for(wrapper, dtype, 256)
+    assert lib == sym == want and lib in cuda_build.SOURCES
+    text = (CSRC / f"{lib}.cu").read_text()
+    sig = text[text.index(f'extern "C" int {sym}('):]
+    n_ptrs = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[wrapper]
+    assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
+    assert sym in getattr(fa, wrapper).launches_by_kernel
+    assert fa.kernel_for(wrapper, dtype, 384) == \
+        fa.kernel_for(wrapper, dtype, 128)
+
+
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float64, 128, "float32, bfloat16 or float16"),
     (torch.int32, 128, "float32, bfloat16 or float16"),
     (torch.bfloat16, 96, "head dims"),
     # head dims past 128 that are multiples of it (the reference's
     # D % 128 == 0 gate) are not refused: this case holds that bf16 and
-    # fp16 K1 and K3 at 256 route to their warpgroup kernels, and K2 at
-    # 256, float32 at 256 and every dtype at 384 to the sliced kernels
-    # of D 128
+    # fp16 K1, K2 and K3 and float32 K1 at 256 route to their warpgroup
+    # kernels, and float32 K2 and K3 at 256 and every dtype at 384 to the
+    # sliced kernels of D 128
     pytest.param(torch.float32, 256, None, id="dtype3-256-head dims"),
 ])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
@@ -77,9 +112,12 @@ def test_routing_raises_for_what_no_kernel_takes(wrapper, dtype, d, match):
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             sliced = fa.kernel_for(wrapper, dt, 128)
             assert fa.kernel_for(wrapper, dt, 384) == sliced
-            own = dt != torch.float32 and wrapper != "flash_bwd_dq"
+            if dt != torch.float32:
+                own = f"{wrapper}_d256_wgmma"
+            else:
+                own = {"flash_fwd": "flash_fwd_f32_d256_wgmma"}.get(wrapper)
             assert fa.kernel_for(wrapper, dt, 256) == (
-                (f"{wrapper}_d256_wgmma",) * 2 if own else sliced)
+                (own,) * 2 if own else sliced)
         return
     with pytest.raises(ValueError, match=match):
         fa.kernel_for(wrapper, dtype, d)
@@ -162,12 +200,94 @@ def test_constexprs_evaluate_in_order_with_integer_division():
     assert type(values["WARPS"]) is int
 
 
-def test_planted_faults_follow_the_bf16_kernels_tiles():
+@pytest.mark.parametrize("d,want", [
+    (128, {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 64),
+           "flash_bwd_dkv": (64, 64)}),
+    # the warpgroup kernels: K2's 128 q rows over 32-key stages
+    (256, {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 32),
+           "flash_bwd_dkv": (64, 64)})])
+def test_planted_faults_follow_the_bf16_kernels_tiles(d, want):
     """chip_smoke.py plants its tile faults at the tiles of the kernels
-    the bf16 training shape runs, read from the sources' constexprs."""
-    tiles = chip_smoke.planted_fault_tiles(torch, fa)
-    assert tiles == {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 64),
-                     "flash_bwd_dkv": (64, 64)}
+    the bf16 training shape of head dim ``d`` runs, read from the
+    sources' constexprs."""
+    assert chip_smoke.planted_fault_tiles(torch, fa, d) == want
+
+
+def _plain_pairs(q, k, v, do, sc, dt):
+    """chip_smoke's (kernel output, plain version) pairs with the plain
+    outputs standing in for kernels that agree exactly, and the forward's
+    lse and delta."""
+    o, lse = fa.ref_attention_lse(q.float(), k.float(), v.float(), sc, True)
+    o = o.to(dt)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
+    dk, dv = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    pairs = {"O": (o, o), "dQ": (dq, dq), "dK": (dk, dk), "dV": (dv, dv)}
+    errs = {n: chip_smoke.kernel_err(g, w) for n, (g, w) in pairs.items()}
+    return pairs, errs, lse, delta
+
+
+def test_planted_faults_are_caught_at_the_d256_training_shape():
+    """At the head_dim_256 phase's bf16 training shape (one head here:
+    T 2048, D 256, causal), every fault chip_smoke.py plants at the
+    warpgroup kernels' tiles (K2's 128-row q tiles over 32-key stages
+    among them) fails the 16-bit tier where the kernels agree exactly."""
+    r = np.random.RandomState(5)
+    t, d = chip_smoke.TRAIN_SEQ, 256
+    q, k, v = (torch.from_numpy((r.randn(1, t, d) * 0.5).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    do = torch.from_numpy(r.randn(1, t, d).astype(np.float32)) \
+        .to(torch.bfloat16)
+    sc = 1 / 16
+    pairs, errs, lse, delta = _plain_pairs(q, k, v, do, sc, torch.bfloat16)
+    logged = []
+    chip_smoke.log, log = logged.append, chip_smoke.log
+    try:
+        chip_smoke.check_planted_faults(
+            torch, fa, (q, k, v, do, lse, delta), sc, pairs, errs,
+            chip_smoke.HD256_LABEL)
+    finally:
+        chip_smoke.log = log
+    assert len(logged) == 7 and all(" caught" in x for x in logged), logged
+    assert any("K2 skips each q tile's last 32-key tile" in x
+               for x in logged), logged
+
+
+def test_planted_f32_faults_follow_float32_k1s_warpgroup_tile():
+    """At head dim 256 the float32 faults of K1 are planted at its
+    warpgroup kernel's tile (64 q rows over 32-key tiles); K2's and
+    K3's stay the sliced kernels' tiles."""
+    assert chip_smoke.HD256_F32_LABEL in chip_smoke.F32_FAULT_CASES
+    assert chip_smoke.kernel_tile(fa, "flash_fwd", torch.float32, 256) \
+        == (64, 32)
+    for w in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert chip_smoke.kernel_tile(fa, w, torch.float32, 256) == \
+            chip_smoke.kernel_tile(fa, w, torch.float32, 128)
+
+
+def test_planted_f32_faults_are_caught_at_the_d256_train_step():
+    """At the head_dim_256 phase's float32 step shape (B*H 1*16, T 256,
+    D 256, causal) every float32 fault, K1's at its warpgroup tile,
+    fails the float32 tier where the kernels agree exactly."""
+    r = np.random.RandomState(6)
+    bh, t, d = chip_smoke.HD256_F32_BATCH * chip_smoke.HD256_HEADS, \
+        chip_smoke.HD256_F32_SEQ, 256
+    q, k, v = (torch.from_numpy((r.randn(bh, t, d) * 0.5)
+                                .astype(np.float32)) for _ in range(3))
+    do = torch.from_numpy(r.randn(bh, t, d).astype(np.float32))
+    sc = 1 / 16
+    pairs, errs, lse, delta = _plain_pairs(q, k, v, do, sc, torch.float32)
+    logged = []
+    chip_smoke.log, log = logged.append, chip_smoke.log
+    try:
+        chip_smoke.check_planted_f32_faults(
+            torch, fa, chip_smoke.HD256_F32_LABEL,
+            (q, k, v, do, lse, delta), sc, pairs, errs)
+    finally:
+        chip_smoke.log = log
+    assert len(logged) == 8 and all(" caught" in x for x in logged), logged
+    assert any("K1 f32 skips each q tile's last 32-key tile" in x
+               for x in logged), logged
 
 
 @pytest.mark.parametrize("wrapper,tile", [("flash_fwd", (128, 64)),
@@ -322,9 +442,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         assert not any(w.launches_by_kernel.values())
     assert fa.flash_fwd.launches_by_kernel == {
         "flash_fwd_f32mma": 0, "flash_fwd_mma": 0, "flash_fwd_d256_wgmma": 0,
-        "plain": 0}
+        "flash_fwd_f32_d256_wgmma": 0, "plain": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {
-        "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0, "plain": 0}
+        "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0,
+        "flash_bwd_dq_d256_wgmma": 0, "plain": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
         "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
         "flash_bwd_dkv_d256_wgmma": 0, "plain": 0}
@@ -332,34 +453,49 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_wgmma_sources_name_their_design(name):
-    """The head-dim-256 kernels of K1 and K3: warpgroup products
-    (wgmma) fed by TMA from a producer warp (setmaxnreg), built for
-    sm_90a, where alone those instructions exist; each source names the
-    TPU kernel it replaces and its shared-memory budget, and its
-    kernel's SASS is held to HGMMA by chip_smoke.py."""
+    """The head-dim-256 kernels: warpgroup products (wgmma) fed by TMA
+    from a producer warpgroup (which setmaxnreg brings down beside two
+    consumers; float32 K1's one consumer needs no reallocation, and its
+    source says so), built for sm_90a, where alone those instructions
+    exist; each source names the TPU kernel it replaces, its
+    shared-memory budget and ptxas's registers and spills, and its
+    kernel's SASS is held to HGMMA by chip_smoke.py. Each is the route
+    kernel_for names at D 256 for its dtypes."""
     text = (CSRC / f"{name}.cu").read_text()
     header = (CSRC / "wgmma_sm90.cuh").read_text()
-    replaces = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
-                "flash_bwd_dkv_d256_wgmma": ":189 _fa_bwd_dkv_kernel"}[name]
-    assert f"paddle_tpu/ops/pallas_attention.py{replaces}" in text
+    assert f"paddle_tpu/ops/pallas_attention.py{REPLACES[name]}" in text
     assert '#include "wgmma_sm90.cuh"' in text
-    for word in ("wgmma", "TMA", "setmaxnreg", "of the 227 KB"):
+    for word in ("wgmma", "TMA", "setmaxnreg", "of the 227 KB", "ptxas",
+                 "spill", "What bounds it on the H100"):
         assert word in text, word
     assert "wgmma.mma_async" in header and "setmaxnreg" in header
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     values = cuda_build.constexprs(name)
     assert values["D"] == fa.WGMMA_HEAD_DIM == 256
     assert values["SMEM_BYTES"] <= 232448          # 227 KB a block
-    assert values["THREADS"] == 3 * 128            # producer + 2 consumers
+    f32 = "f32" in name
+    if f32:
+        assert values["THREADS"] == 2 * 128        # producer + consumer
+        assert "setmaxnreg_" not in text
+    else:
+        assert values["THREADS"] == 3 * 128        # producer + 2 consumers
+        assert "setmaxnreg_dec<24>" in text and "setmaxnreg_inc<240>" in text
     assert f"{name}_kernel" in chip_smoke.WGMMA_KERNELS
     assert f"{name}_kernel" not in chip_smoke.MMA_KERNELS
+    wrapper = name.replace("_f32", "").replace("_d256_wgmma", "")
+    dtypes = (torch.float32,) if f32 else (torch.bfloat16, torch.float16)
+    for dt in dtypes:
+        assert fa.kernel_for(wrapper, dt, 256) == (name, name)
 
 
-@pytest.mark.parametrize("name", WGMMA_SOURCES)
+@pytest.mark.parametrize("name", sorted(split_check.LO_PRODUCTS))
 def test_split_check_cuts_only_the_lo_product(name):
-    """split_check.py's "hi only" variant of each warpgroup kernel is
-    the shipped source less the one wgmma that takes the lo halves of P
-    (or dS); its "hi + lo" variant is the source as it ships."""
+    """split_check.py's "hi only" variant of each 16-bit warpgroup
+    kernel (K1, K2, K3) is the shipped source less the one wgmma that
+    takes the lo halves of P (or dS); its "hi + lo" variant is the
+    source as it ships."""
+    assert set(split_check.LO_PRODUCTS) == {
+        s for s in WGMMA_SOURCES if "f32" not in s}
     lo_line, n_ptrs = split_check.LO_PRODUCTS[name]
     text = (CSRC / f"{name}.cu").read_text()
     got = split_check.variants(text, lo_line)
@@ -371,15 +507,20 @@ def test_split_check_cuts_only_the_lo_product(name):
     assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
 
 
-def test_sass_gate_holds_wgmma_kernels_to_hgmma():
+@pytest.mark.parametrize("fallen", WGMMA_SOURCES)
+def test_sass_gate_holds_wgmma_kernels_to_hgmma(fallen):
     """chip_smoke.py's SASS gate: every mma.sync kernel shows HMMA and
-    every warpgroup kernel HGMMA; a warpgroup kernel that fell back to
-    mma.sync (HMMA and no HGMMA) fails it."""
-    def sass(hgmma_of_wgmma):
+    every warpgroup kernel HGMMA; any one warpgroup kernel that fell
+    back to mma.sync (HMMA and no HGMMA) fails it."""
+    assert set(chip_smoke.WGMMA_KERNELS) == {
+        f"{s}_kernel" for s in WGMMA_SOURCES}
+
+    def sass(hgmma_of_fallen):
         def counts(name, opcode):
             fn = f"_ZN_{name}_kernelI13__nv_bfloat16EEv"
             if name in WGMMA_SOURCES:
-                n = hgmma_of_wgmma if opcode == "HGMMA" else 16
+                n = (hgmma_of_fallen if name == fallen else 24) \
+                    if opcode == "HGMMA" else 16
             else:
                 n = 8 if opcode == "HMMA" else 0
             return {fn: n}
@@ -390,7 +531,8 @@ def test_sass_gate_holds_wgmma_kernels_to_hgmma():
     chip_smoke.log, log = logged.append, chip_smoke.log
     try:
         chip_smoke.check_sass(sass(24))
-        with pytest.raises(chip_smoke.SmokeFailure, match="HGMMA"):
+        with pytest.raises(chip_smoke.SmokeFailure,
+                           match=f"{fallen}_kernel: no HGMMA"):
             chip_smoke.check_sass(sass(0))
     finally:
         chip_smoke.log = log

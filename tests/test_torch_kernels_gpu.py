@@ -11,13 +11,13 @@ against the plain versions on the CPU: rtol 2e-3 / atol 2e-4.
 
 The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
 ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``, and at head dim 256 the
-warpgroup kernels ``flash_fwd_d256_wgmma`` and
-``flash_bwd_dkv_d256_wgmma``) are held to chip_smoke.py's 16-bit tier:
-rtol
-1e-2 (one rounding of the output) plus atol 1e-2 x the plain output's
-RMS, against the plain version evaluated in float32 on the same inputs
-and rounded once to the output's type. The float32 kernels
-(``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``:
+warpgroup kernels ``flash_fwd_d256_wgmma``, ``flash_bwd_dq_d256_wgmma``
+and ``flash_bwd_dkv_d256_wgmma``) are held to chip_smoke.py's 16-bit
+tier: rtol 1e-2 (one rounding of the output) plus atol 1e-2 x the plain
+output's RMS, against the plain version evaluated in float32 on the same
+inputs and rounded once to the output's type. The float32 kernels
+(``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``,
+and at head dim 256 K1's warpgroup kernel ``flash_fwd_f32_d256_wgmma``:
 tensor cores with every operand split into bf16 or TF32 halves) are held
 to the f32 tier.
 """
@@ -116,8 +116,9 @@ def test_attention_gradients_on_the_card_match_the_cpu():
 HALF_RTOL, HALF_RMS = 1e-2, 1e-2
 
 # (tq, tk, d, causal): ragged T, tq < tk, tq > tk (fully masked rows),
-# head dims 64 and 128, 256 (the warpgroup K1 and K3 in bf16 and fp16,
-# sliced otherwise) and the sliced 384, causal and not
+# head dims 64 and 128, 256 (the warpgroup K1, K2 and K3 in bf16 and
+# fp16 and K1 in float32, sliced otherwise) and the sliced 384, causal
+# and not
 MMA_CASES = [(200, 200, 128, True), (200, 200, 128, False),
              (128, 256, 128, True), (256, 128, 128, True),
              (256, 256, 64, True), (256, 256, 64, False),
@@ -160,9 +161,12 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
     f32 = dt == torch.float32
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         sym = fa.kernel_for(w.__name__, dt, d)[1]
-        assert sym == (f"{w.__name__}_d256_wgmma"
-                       if d == 256 and not f32 and w is not fa.flash_bwd_dq
-                       else f"{w.__name__}_{'f32mma' if f32 else 'mma'}")
+        if d == 256 and not f32:
+            assert sym == f"{w.__name__}_d256_wgmma"
+        elif d == 256 and w is fa.flash_fwd:
+            assert sym == "flash_fwd_f32_d256_wgmma"
+        else:
+            assert sym == f"{w.__name__}_{'f32mma' if f32 else 'mma'}"
         assert w.launches_by_kernel == {
             s: int(s == sym) for s in w.launches_by_kernel}
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
@@ -194,7 +198,7 @@ WGMMA_CASES = [(8, 128, 128, True), (8, 128, 128, False),
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("bh,tq,tk,causal", WGMMA_CASES)
 def test_wgmma_kernels_match_plain_versions(dtype, bh, tq, tk, causal):
-    """bf16 and fp16 K1 and K3 at head dim 256 on their warpgroup
+    """bf16 and fp16 K1, K2 and K3 at head dim 256 on their warpgroup
     kernels (wgmma, TMA), each output against its plain version in the
     16-bit tier, one launch on each symbol (two for B*H past 65535)."""
     if not torch.cuda.is_available():
@@ -208,23 +212,59 @@ def test_wgmma_kernels_match_plain_versions(dtype, bh, tq, tk, causal):
     fa.reset_launch_counts()
     o, lse = fa.flash_fwd(q, k, v, sc, causal)
     delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
     torch.cuda.synchronize()
     chunks = -(-bh // fa.MAX_GRID_Y)
-    assert fa.flash_fwd.launches_by_kernel["flash_fwd_d256_wgmma"] \
-        == fa.flash_fwd.launches == chunks
-    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_d256_wgmma"] \
-        == fa.flash_bwd_dkv.launches == chunks
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert w.launches_by_kernel[f"{w.__name__}_d256_wgmma"] \
+            == w.launches == chunks
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
                                             sc, causal)
+    want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
     want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
                                           causal)
     torch.testing.assert_close(lse, want_lse, **F32_TOL)
-    for name, got, want in (("O", o, want_o.to(dt)), ("dK", dk, want_k),
-                            ("dV", dv, want_v)):
+    for name, got, want in (("O", o, want_o.to(dt)), ("dQ", dq, want_q),
+                            ("dK", dk, want_k), ("dV", dv, want_v)):
         assert got.dtype == dt and torch.isfinite(got).all(), name
         ratio = _half_tier_ratio(got, want)
         assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,causal", WGMMA_CASES)
+def test_f32_wgmma_kernel_matches_plain_version(bh, tq, tk, causal):
+    """float32 K1 at head dim 256 on its warpgroup kernel (wgmma on bf16
+    hi + lo halves, TMA), O and lse against the plain version in the f32
+    tier with TF32 off, one launch (two for B*H past 65535); K2 and K3
+    stay on the sliced split-operand kernels and match too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, tq, tk,
+                                              256, torch.float32)
+    sc = 1 / 16
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, causal)
+    delta = (do * o).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    chunks = -(-bh // fa.MAX_GRID_Y)
+    assert fa.flash_fwd.launches_by_kernel["flash_fwd_f32_d256_wgmma"] \
+        == fa.flash_fwd.launches == chunks
+    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq_f32mma"] \
+        == chunks
+    want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, causal)
+    for name, got, want in (
+            ("O", o, want_o), ("lse", lse, want_lse),
+            ("dQ", dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
+                                           causal))):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        ok, err, ratio = chip_smoke.kernel_err(got, want)
+        assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
 
 
 @pytest.mark.gpu

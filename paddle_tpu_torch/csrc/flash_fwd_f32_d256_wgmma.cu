@@ -117,30 +117,6 @@ struct Bars {
   uint64_t empty[SLOTS];  // the consumer is done with a slot
 };
 
-// the staging buffer's 32 x 256 float32 rows, each element x split into
-// hi = bf16(x) and lo = bf16(x - hi), into rows [r0, r0 + 32) of the
-// swizzled [ROWS, 256] bf16 tiles hi and lo; the producer's thread pt
-// (of 128) takes 8 columns a pass
-template <int ROWS>
-__device__ __forceinline__ void split_staged(bf16* hi, bf16* lo,
-                                             const float* st, int r0,
-                                             int pt) {
-#pragma unroll 4
-  for (int i = pt; i < STAGE_ROWS * (D / 8); i += 128) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const float4 a = *reinterpret_cast<const float4*>(st + r * D + c);
-    const float4 b = *reinterpret_cast<const float4*>(st + r * D + c + 4);
-    uint4 h, l;
-    split_pack<bf16>(a.x, a.y, h.x, l.x);
-    split_pack<bf16>(a.z, a.w, h.y, l.y);
-    split_pack<bf16>(b.x, b.y, h.z, l.z);
-    split_pack<bf16>(b.z, b.w, h.w, l.w);
-    const int o = swz<ROWS>(r0 + r, c);
-    *reinterpret_cast<uint4*>(hi + o) = h;
-    *reinterpret_cast<uint4*>(lo + o) = l;
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
@@ -205,13 +181,16 @@ flash_fwd_f32_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (tid == 0 && p + 1 < n_pieces) issue(p + 1);
       mbar_wait(&bar.staged[p & 1], (p >> 1) & 1);
       const float* buf = stage + (p & 1) * STAGE_ROWS * D;
+      // each element x into hi = bf16(x) and lo = bf16(x - hi), written
+      // swizzled into q's rows or a slot
       if (p < Q_PIECES) {
-        split_staged<BLOCK_M>(qh, ql, buf, p * STAGE_ROWS, tid);
+        split_tile<BLOCK_M, 2, 128>(qh, buf, tid, STAGE_ROWS,
+                                    p * STAGE_ROWS);
       } else {
         const int j = p - Q_PIECES, slot = j % SLOTS, round = j / SLOTS;
         mbar_wait(&bar.empty[slot], (round & 1) ^ 1);
-        bf16* hi = slots + slot * (SLOT_BYTES / 2);
-        split_staged<BLOCK_N>(hi, hi + BLOCK_N * D, buf, 0, tid);
+        split_tile<BLOCK_N, 2, 128>(slots + slot * (SLOT_BYTES / 2), buf,
+                                    tid);
       }
       // the split's writes visible to wgmma, the buffer's reads ordered
       // before the TMA that refills it

@@ -1,12 +1,15 @@
 // Hopper-only helpers shared by the head-dim-256 attention kernels
 // (flash_fwd_d256_wgmma.cu, flash_bwd_dq_d256_wgmma.cu,
-// flash_bwd_dkv_d256_wgmma.cu, flash_fwd_f32_d256_wgmma.cu): TMA tile
-// loads completing on mbarriers, the shared-memory matrix descriptors of
-// wgmma, the three wgmma shapes the kernels issue (m64n64k16 and
-// m64n32k16 with both operands in shared memory, m64n256k16 with A in
-// registers), warpgroup register reallocation (setmaxnreg), the proxy
-// fence that lets wgmma read what threads wrote, and the host-side
-// tensor maps (16-bit tiles swizzled, float32 tiles plain).
+// flash_bwd_dkv_d256_wgmma.cu, flash_fwd_f32_d256_wgmma.cu,
+// flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu): TMA
+// tile loads completing on mbarriers, the shared-memory matrix
+// descriptors of wgmma, the four wgmma shapes the kernels issue
+// (m64n64k16, m64n32k16 and m64n16k16 with both operands in shared
+// memory, m64n256k16 with A in registers), the two- and three-piece
+// 16-bit splits of float32 values, warpgroup register reallocation
+// (setmaxnreg), the proxy fence that lets wgmma read what threads wrote,
+// and the host-side tensor maps (16-bit tiles swizzled, float32 tiles
+// plain).
 // sm_90a only: wgmma and setmaxnreg do not exist on plain sm_90.
 //
 // Shared tiles are in the layout that TMA's 128-byte swizzle writes and
@@ -218,6 +221,18 @@ struct Wgmma;
         : "l"(da), "l"(db), "r"(accumulate));                            \
   }
 
+// d (+)= A B, A [64 x 16] and B [16 x 16] both K-major in shared memory
+#define WG_SS_16(TY)                                                     \
+  static __device__ __forceinline__ void ss16(float (&d)[8], uint64_t da, \
+                                              uint64_t db, int accumulate) { \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "      \
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"  \
+        : WG_F8(d, 0)                                                    \
+        : "l"(da), "l"(db), "r"(accumulate));                            \
+  }
+
 // d += A B, A [64 x 16] in registers (a), B [16 x 256] MN-major in
 // shared memory (descriptor db)
 #define WG_RS_256(TY)                                                    \
@@ -236,6 +251,7 @@ template <>
 struct Wgmma<__nv_bfloat16> {
   WG_SS_64("bf16")
   WG_SS_32("bf16")
+  WG_SS_16("bf16")
   WG_RS_256("bf16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
@@ -252,6 +268,7 @@ template <>
 struct Wgmma<__half> {
   WG_SS_64("f16")
   WG_SS_32("f16")
+  WG_SS_16("f16")
   WG_RS_256("f16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __half2 h = __floats2half2_rn(x, y);
@@ -266,6 +283,7 @@ struct Wgmma<__half> {
 
 #undef WG_SS_64
 #undef WG_SS_32
+#undef WG_SS_16
 #undef WG_RS_256
 
 // (x, y) as a pair rounded to T (hi) and the pair of what that rounding
@@ -278,12 +296,94 @@ __device__ __forceinline__ void split_pack(float x, float y, uint32_t& hi,
   lo = Wgmma<T>::pack(x - h.x, y - h.y);
 }
 
+// (x, y) in three pieces: hi as split_pack's, mid the pair of what hi
+// lost rounded to T, lo the pair of what hi + mid lost rounded again:
+// hi + mid + lo keeps ~24 significant bits in bf16 (the float32 value,
+// within its exponent range)
+template <typename T>
+__device__ __forceinline__ void split3_pack(float x, float y, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  hi = Wgmma<T>::pack(x, y);
+  const float2 h = Wgmma<T>::unpack(hi);
+  const float rx = x - h.x, ry = y - h.y;
+  mid = Wgmma<T>::pack(rx, ry);
+  const float2 m = Wgmma<T>::unpack(mid);
+  lo = Wgmma<T>::pack(rx - m.x, ry - m.y);
+}
+
 // element offset of (row r, column c) in a swizzled [rows, 256] tile of
 // `rows` rows (four [rows][64] column blocks)
 template <int ROWS>
 __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 6) * ROWS * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
          (c & 7);
+}
+
+// the NP 16-bit pieces (split_pack's for NP 2, split3_pack's for NP 3)
+// of the 8 float32 values a, b at row r, columns c .. c + 7, into the
+// swizzled [ROWS, 256] tiles dst + p ROWS 256 (piece p)
+template <int ROWS, int NP>
+__device__ __forceinline__ void store_pieces(__nv_bfloat16* dst, int r,
+                                             int c, float4 a, float4 b) {
+  using bf16 = __nv_bfloat16;
+  static_assert(NP == 2 || NP == 3, "two or three pieces");
+  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t pc[3][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (NP == 2)
+      split_pack<bf16>(x[2 * i], x[2 * i + 1], pc[0][i], pc[1][i]);
+    else
+      split3_pack<bf16>(x[2 * i], x[2 * i + 1], pc[0][i], pc[1][i],
+                        pc[2][i]);
+  }
+  const int o = swz<ROWS>(r, c);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    *reinterpret_cast<uint4*>(dst + p * ROWS * 256 + o) =
+        make_uint4(pc[p][0], pc[p][1], pc[p][2], pc[p][3]);
+}
+
+// split the row-major [rows][256] float32 tile src into rows [r0, r0 +
+// rows) of the NP pieces of a ROWS-row tile at dst (store_pieces),
+// thread i of N taking 8 columns a pass
+template <int ROWS, int NP, int N>
+__device__ __forceinline__ void split_tile(__nv_bfloat16* dst,
+                                           const float* src, int i,
+                                           int rows = ROWS, int r0 = 0) {
+#pragma unroll 4
+  for (int u = i; u < rows * 32; u += N) {
+    const int r = u >> 5, c = (u & 31) * 8;
+    store_pieces<ROWS, NP>(
+        dst, r0 + r, c, *reinterpret_cast<const float4*>(src + r * 256 + c),
+        *reinterpret_cast<const float4*>(src + r * 256 + c + 4));
+  }
+}
+
+// the same in place: the NP pieces overwrite the float32 tile they come
+// from, so each of the N threads holds its share of the tile in
+// registers until all N have read theirs (named barrier `bar`)
+template <int ROWS, int NP, int N>
+__device__ __forceinline__ void split_tile_in_place(float* tile, int i,
+                                                    int bar) {
+  constexpr int PASSES = (ROWS * 32 + N - 1) / N;
+  float4 a[PASSES], b[PASSES];
+#pragma unroll
+  for (int k = 0; k < PASSES; ++k) {
+    const int u = i + k * N, r = u >> 5, c = (u & 31) * 8;
+    if (u < ROWS * 32) {
+      a[k] = *reinterpret_cast<const float4*>(tile + r * 256 + c);
+      b[k] = *reinterpret_cast<const float4*>(tile + r * 256 + c + 4);
+    }
+  }
+  named_sync(bar, N);
+#pragma unroll
+  for (int k = 0; k < PASSES; ++k) {
+    const int u = i + k * N;
+    if (u < ROWS * 32)
+      store_pieces<ROWS, NP>(reinterpret_cast<__nv_bfloat16*>(tile), u >> 5,
+                             (u & 31) * 8, a[k], b[k]);
+  }
 }
 
 // ---- host: tensor maps ----

@@ -2,12 +2,14 @@
 ``paddle_tpu/ops/pallas_attention.py``).
 
 The reference's three Pallas kernels are CUDA kernels here, all on the
-tensor cores (``mma.sync``), one source a route; at head dim 256 bf16
-and fp16 K1, K2 and K3 and float32 K1 run warpgroup kernels of their
-own (``wgmma`` fed by TMA from a producer warp,
-``csrc/flash_fwd_d256_wgmma.cu``, ``csrc/flash_bwd_dq_d256_wgmma.cu``,
-``csrc/flash_bwd_dkv_d256_wgmma.cu`` and
-``csrc/flash_fwd_f32_d256_wgmma.cu``):
+tensor cores (``mma.sync``), one source a route; at head dim 256 K1, K2
+and K3 run warpgroup kernels of their own on both routes (``wgmma`` fed
+by TMA from a producer warp: ``csrc/flash_fwd_d256_wgmma.cu``,
+``csrc/flash_bwd_dq_d256_wgmma.cu`` and
+``csrc/flash_bwd_dkv_d256_wgmma.cu`` for bf16 and fp16;
+``csrc/flash_fwd_f32_d256_wgmma.cu``,
+``csrc/flash_bwd_dq_f32_d256_wgmma.cu`` and
+``csrc/flash_bwd_dkv_f32_d256_wgmma.cu`` for float32):
 
 - K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
   and fp16 run ``csrc/flash_fwd_mma.cu``, float32
@@ -25,7 +27,10 @@ One TF32 or bf16 rounding of the operands cannot meet the float32
 tiers, so the float32 kernels split every operand into hi + lo halves
 and take each product three times: bf16 halves (``mma.sync`` m16n8k16)
 for Q·Kᵀ, P·V, dS·K and dSᵀ·Q, TF32 halves (m16n8k8) for dO·Vᵀ and
-Pᵀ·dO, whose bf16 split misses the tier's margin
+Pᵀ·dO, whose bf16 split misses the tier's margin; the warpgroup
+backward kernels at D = 256 take dO·Vᵀ with dO in three bf16 pieces
+(five products) and Pᵀ·dO with both in three (six), since ``wgmma``
+reads a TF32 operand only K-major and their TF32 tiles do not fit
 (tests/test_torch_f32_split.py). :func:`kernel_for` is the routing;
 the plain versions of K2 and K3 are :func:`ref_flash_bwd_dq` and
 :func:`ref_flash_bwd_dkv`, which recompute P from lse over the whole
@@ -41,8 +46,8 @@ The head dims the kernels take are 64 and every multiple of 128, the
 reference's Pallas gate (D % 128 == 0): past 128 each ``mma.sync``
 kernel runs its D = 128 tiles in 128-column slices, one block a slice
 of its output (``csrc/mma_sm90.cuh`` ``HEAD_SLICE``), but for the
-warpgroup kernels at D = 256 (:data:`WGMMA_HEAD_DIM`; float32 K2 and K3
-stay sliced there). The reference
+warpgroup kernels at D = 256 (:data:`WGMMA_HEAD_DIM`, every kernel of
+both routes). The reference
 sends the head dims its Pallas kernels do not take (D % 128 != 0) to
 its plain path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``);
 so does :class:`FlashAttention` here, decided by the head dim before
@@ -122,8 +127,8 @@ _ROUTES = {
 
 # at this head dim the (wrapper, route) pairs below run kernels of their
 # own on Hopper's warpgroup instructions (wgmma, TMA, a producer warp):
-# bf16 and fp16 K1, K2 and K3, and float32 K1; float32 K2 and K3 keep
-# the D = 128 tiles in slices there
+# K1, K2 and K3 on bf16 and fp16 and on float32; other head dims past
+# 128 keep the D = 128 tiles in slices
 WGMMA_HEAD_DIM = 256
 _WGMMA_ROUTES = {
     ("flash_fwd", HALF_ROUTE): ("flash_fwd_d256_wgmma",
@@ -134,6 +139,10 @@ _WGMMA_ROUTES = {
                                    "flash_bwd_dq_d256_wgmma"),
     ("flash_bwd_dkv", HALF_ROUTE): ("flash_bwd_dkv_d256_wgmma",
                                     "flash_bwd_dkv_d256_wgmma"),
+    ("flash_bwd_dq", F32_ROUTE): ("flash_bwd_dq_f32_d256_wgmma",
+                                  "flash_bwd_dq_f32_d256_wgmma"),
+    ("flash_bwd_dkv", F32_ROUTE): ("flash_bwd_dkv_f32_d256_wgmma",
+                                   "flash_bwd_dkv_f32_d256_wgmma"),
 }
 
 
@@ -149,8 +158,8 @@ def kernel_for(wrapper, dtype, d):
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
     16-bit tensor-core kernels, float32 to the split-operand ones; at
     D = :data:`WGMMA_HEAD_DIM` each (wrapper, route) of
-    ``_WGMMA_ROUTES`` to its warpgroup kernel. Raises ValueError for
-    what no kernel takes."""
+    ``_WGMMA_ROUTES`` (all six) to its warpgroup kernel. Raises
+    ValueError for what no kernel takes."""
     if not _kernel_head_dim(d):
         raise ValueError(f"{wrapper} kernels take head dims 64 and the "
                          f"multiples of {HEAD_SLICE}, got {d}")

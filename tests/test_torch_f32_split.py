@@ -14,6 +14,12 @@ split meets the tier with room for what no emulation models (the tensor
 cores' own accumulation order). Both products need it: S = Q Kᵀ feeds
 exp, whose relative error is S's absolute one, and P V averages V,
 whose rounding passes straight into O.
+
+The backward's kernels (K2, K3) split theirs too, and the head-dim-256
+warpgroup ones (``csrc/flash_bwd_dq_f32_d256_wgmma.cu``,
+``csrc/flash_bwd_dkv_f32_d256_wgmma.cu``) take a third bf16 piece of dO
+where the D = 128 kernels take TF32 halves: the emulation below chooses
+that scheme, and shared memory's 227 KB rules out the TF32 one.
 """
 import math
 
@@ -22,6 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
+from paddle_tpu_torch.ops import cuda_build
 from paddle_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(1)
@@ -189,11 +196,11 @@ BWD_SCHEMES = {"bf16 once": (_once(_bf16),) * 5,
                "shipped": (_B3, _T3, _B3, _B3, _T3)}
 
 
-def _bwd_ratios(bh, tq, tk, d, causal, seed):
-    """{scheme: (dQ, dK, dV err/limit)} against the float64 plain
-    backward rounded to float32, on the inputs the kernels get: float32
-    q, k, v, dO, the forward's lse rounded to float32 and
-    delta = rowsum(dO O) in float32."""
+def _bwd_ratios(bh, tq, tk, d, causal, seed, schemes=BWD_SCHEMES):
+    """{scheme: (dQ, dK, dV err/limit)} for each of ``schemes`` against
+    the float64 plain backward rounded to float32, on the inputs the
+    kernels get: float32 q, k, v, dO, the forward's lse rounded to
+    float32 and delta = rowsum(dO O) in float32."""
     rng = np.random.RandomState(seed)
     q, k, v = (torch.from_numpy((rng.randn(bh, t, d) * 0.5)
                                 .astype(np.float32))
@@ -209,7 +216,7 @@ def _bwd_ratios(bh, tq, tk, d, causal, seed):
     return {how: tuple(_ratio(g, w) for g, w in zip(
                 _emulate_bwd(q, k, v, do, lse, delta, scale, causal, mms),
                 want))
-            for how, mms in BWD_SCHEMES.items()}
+            for how, mms in schemes.items()}
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -233,3 +240,169 @@ def test_backward_one_rounding_misses_the_f32_tier_and_the_shipped_split_meets_i
             assert max(r[once]) > 1.0, r
     assert max(r["shipped"]) < 0.5, r
     assert max(r["shipped"]) < max(r["3xbf16"]), r
+
+
+# --- head dim 256: the warpgroup kernels' scheme
+# (csrc/flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu).
+# wgmma reads a TF32 operand from shared memory only K-major, and TF32
+# pieces take 8 bytes an element, so the D = 128 kernels' 3xTF32 dP and
+# dV do not carry over; what does is a third bf16 piece ---
+
+def _pieces3(x):
+    """x as hi = round(x), mid = round(x - hi), lo = round(x - hi - mid)
+    in bf16 (split3_pack): ~24 significant bits."""
+    hi = _bf16(x)
+    r = x - hi
+    mid = _bf16(r)
+    return hi, mid, _bf16(r - mid)
+
+
+def _split5(a, b):
+    """a @ b with a in three bf16 pieces and b in two: the five products
+    down to ~2^-24 of the product (ah bh, ah bl, am bh, am bl, al bh)."""
+    ah, am, al = _pieces3(a)
+    bh = _bf16(b)
+    bl = _bf16(b - bh)
+    return ah @ bh + (ah @ bl + am @ bh) + (am @ bl + al @ bh)
+
+
+def _split5_b(a, b):
+    """a @ b with a in two bf16 pieces and b in three (:func:`_split5`
+    transposed)."""
+    return _split5(b.transpose(-1, -2), a.transpose(-1, -2)).transpose(-1, -2)
+
+
+def _split6(a, b):
+    """a @ b with both in three bf16 pieces: six products (ah bh, ah bm,
+    am bh, am bm, ah bl, al bh)."""
+    ah, am, al = _pieces3(a)
+    bh, bm, bl = _pieces3(b)
+    return ah @ bh + (ah @ bm + am @ bh) + (am @ bm + ah @ bl + al @ bh)
+
+
+def _tf32_trunc(x):
+    """x as a TF32 operand read from a float32 tile: its low 13 bits
+    ignored (truncation), as CUTLASS's fast 3xTF32 path assumes."""
+    u = x.contiguous().view(torch.int32)
+    return (u & ~0x1FFF).view(torch.float32)
+
+
+_T3T = _split3(_tf32_trunc)
+# (S, dP, dQ, dK, dV) at D = 256. "shipped" is what both warpgroup
+# kernels take: S, dQ and dK as 3xbf16, dP = dO Vᵀ with dO's three
+# pieces against V's two (five products), dV = Pᵀ dO with both in three
+# (six); "runner-up" takes dV with Pᵀ in two halves (five products);
+# "3xtf32, hi in place" is the D = 128 kernels' TF32 dP and dV with the
+# float32 tile itself as the TF32 hi
+BWD_SCHEMES_D256 = {"bf16 once": (_once(_bf16),) * 5,
+                    "tf32 once": (_once(_tf32),) * 5,
+                    "3xbf16": (_B3,) * 5,
+                    "3xtf32, hi in place": (_B3, _T3T, _B3, _B3, _T3T),
+                    "runner-up": (_B3, _split5, _B3, _B3, _split5_b),
+                    "shipped": (_B3, _split5, _B3, _B3, _split6)}
+
+# (bh, tq, tk, d, causal): head_dim_256's float32 train step (B*H 1*16,
+# T 256, causal), and chip_smoke.py's other float32 D = 256 shapes at
+# T <= 256
+D256_CASES = {
+    "f32 D=256 train step": (16, 256, 256, 256, True),
+    "non-causal": (8, 256, 256, 256, False),
+    "tq<tk causal": (8, 128, 256, 256, True),
+    "tq>tk causal (fully masked rows)": (8, 256, 128, 256, True),
+    "ragged T=200 causal": (8, 200, 200, 256, True),
+}
+
+
+def _bwd_ratios_d256(case, seed):
+    return _bwd_ratios(*D256_CASES[case], seed, schemes=BWD_SCHEMES_D256)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(D256_CASES))
+def test_d256_backward_one_rounding_misses_the_f32_tier_and_the_shipped_pieces_meet_it(
+        case, seed):
+    """At head dim 256: one bf16 or TF32 rounding of the operands misses
+    the f32 tier (every output on the causal cases, one at least without
+    the mask). The warpgroup kernels' scheme — dO in three bf16 pieces
+    in dP = dO Vᵀ, dO and Pᵀ in three in dV = Pᵀ dO, everything else in
+    two — keeps dQ, dK and dV under half of the limit on every case and
+    seed, and under the 3×bf16 split's worst; so does the runner-up (Pᵀ
+    in two halves, five products for dV) on these shapes, with less room
+    on dV."""
+    causal = D256_CASES[case][4]
+    r = _bwd_ratios_d256(case, seed)
+    for once in ("bf16 once", "tf32 once"):
+        if causal:
+            assert min(r[once]) > 1.0, r
+        else:
+            assert max(r[once]) > 1.0, r
+    assert max(r["shipped"]) < 0.5, r
+    assert max(r["runner-up"]) < 0.5, r
+    assert max(r["shipped"]) < max(r["3xbf16"]), r
+    assert r["runner-up"][:2] == r["shipped"][:2]   # only dV differs
+
+
+def test_d256_two_bf16_pieces_miss_the_margin_and_tf32_would_not():
+    """Why dO takes a third piece: with two (3×bf16 everywhere) dQ
+    passes half the limit at the train step's shape (the cancellation
+    in dP - delta) and dV on the ragged causal case. The D = 128
+    kernels' 3×TF32 dP and dV, with the float32 tile itself as the TF32
+    hi (its low 13 bits ignored), would meet the tier too; it does not
+    fit (below)."""
+    step = _bwd_ratios_d256("f32 D=256 train step", 0)
+    ragged = _bwd_ratios_d256("ragged T=200 causal", 0)
+    assert step["3xbf16"][0] > 0.5 and ragged["3xbf16"][2] > 0.5
+    for r in (step, ragged):
+        assert max(r["3xtf32, hi in place"]) < 0.5, r
+
+
+# bytes an element of each operand a scheme keeps in shared memory:
+# 2 a bf16 piece; 4 + 4 a TF32 operand (its float32 tile as the hi, its
+# remainder), another 4 + 4 if wgmma must read it transposed (TF32 only
+# K-major)
+_PIECE, _TF32 = 2, 8
+
+
+def _d256_smem(scheme):
+    """Shared memory of K2 (64 q rows resident, four 16-key slots that
+    each land a float32 tile first) and K3 (64 keys resident, two stages
+    of a 16-row q tile, the Pᵀ exchange) under ``scheme``: "shipped"
+    (q, k, v in two bf16 pieces, dO in three) or "3xtf32" (dO and v as
+    TF32 for dP, and dO transposed as TF32 for K3's dV, beside a single
+    k / v tile for K2)."""
+    d = 256
+    if scheme == "shipped":
+        k2 = 64 * d * (2 + 3) * _PIECE + 4 * 16 * d * 4
+        k3 = (64 * d * (2 + 2) * _PIECE
+              + 2 * 16 * d * (2 + 3) * _PIECE + 2 * 64 * 16 * 4)
+    else:
+        k2 = 64 * d * (2 * _PIECE + _TF32) + 16 * d * (2 * _PIECE + _TF32)
+        k3 = (64 * d * (2 * _PIECE + _TF32)
+              + 2 * 16 * d * (2 * _PIECE + _TF32 + _TF32) + 2 * 64 * 16 * 4)
+    return k2, k3
+
+
+def test_d256_the_shipped_pieces_fit_and_tf32_does_not():
+    """The shipped scheme is what the kernels lay out (their sources'
+    OFF_BAR, where the barriers follow the tiles), within a block's
+    227 KB; the TF32 scheme needs more than that in both kernels."""
+    limit = 232448 - 256 - 1024          # 227 KB less barriers, alignment
+    k2, k3 = _d256_smem("shipped")
+    assert k2 == cuda_build.constexprs("flash_bwd_dq_f32_d256_wgmma")[
+        "OFF_BAR"]
+    assert k3 == cuda_build.constexprs("flash_bwd_dkv_f32_d256_wgmma")[
+        "OFF_BAR"]
+    assert max(k2, k3) <= limit
+    assert min(_d256_smem("3xtf32")) > limit
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_d256_the_sixth_dv_product_holds_the_margin_at_t32(seed):
+    """Why Pᵀ takes a third piece in dV: at T 32 (chip_smoke's B·H past
+    65535 shape, here B·H 512) Pᵀ in two halves (the runner-up, five
+    products) puts dV past half the limit, as the card showed at B·H
+    65536 (0.84); the sixth product keeps it under."""
+    r = _bwd_ratios(512, 32, 32, 256, True, seed, schemes={
+        k: BWD_SCHEMES_D256[k] for k in ("runner-up", "shipped")})
+    assert r["runner-up"][2] > 0.5, r
+    assert r["shipped"][2] < 0.5, r

@@ -2,9 +2,9 @@
 D % 128 == 0), the torch port against the JAX package on the CPU.
 
 On a CUDA tensor such a head dim runs the port's tensor-core kernels in
-128-column slices (csrc/mma_sm90.cuh ``HEAD_SLICE``), but at D = 256
-bf16 and fp16 K1, K2 and K3 and float32 K1, which run warpgroup kernels
-of their own (held to their plain versions on the card by
+128-column slices (csrc/mma_sm90.cuh ``HEAD_SLICE``), but at D = 256,
+where K1, K2 and K3 on every dtype run warpgroup kernels of their own
+(held to their plain versions on the card by
 chip_smoke.py's ``head_dim_256`` cases and
 tests/test_torch_kernels_gpu.py). Here the plain versions those kernels
 are held to (``ref_attention_lse``, ``ref_flash_bwd_dq``,
@@ -132,22 +132,24 @@ def test_slices_are_the_d128_tiles():
     """The sliced head dims run the D = 128 instantiation of every
     mma.sync kernel (128-column slices on gridDim.z): the slice width is
     the kernels' widest tile, and every such launcher dispatches the
-    multiples of it to its wide instantiation. bf16 and fp16 K1, K2 and
-    K3 and float32 K1 at D = 256 have warpgroup kernels of their own,
-    which take D = 256 whole and nothing else; float32 K2 and K3 stay
-    sliced there."""
+    multiples of it to its wide instantiation. K1, K2 and K3 at D = 256
+    have warpgroup kernels of their own on every dtype, which take
+    D = 256 whole and nothing else."""
     assert fa.HEAD_SLICE == 128
     assert cuda_build.parse_constexprs(
         (cuda_build.CSRC / "mma_sm90.cuh").read_text())["HEAD_SLICE"] == 128
     whole = {lib for lib, _ in fa._WGMMA_ROUTES.values()}
     assert whole == {"flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
-                     "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma"}
-    assert sorted(fa._WGMMA_ROUTES) == [
-        ("flash_bwd_dkv", fa.HALF_ROUTE), ("flash_bwd_dq", fa.HALF_ROUTE),
-        ("flash_fwd", fa.F32_ROUTE), ("flash_fwd", fa.HALF_ROUTE)]
-    for w in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.kernel_for(w, torch.float32, 256) == \
-            fa.kernel_for(w, torch.float32, 128)
+                     "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma",
+                     "flash_bwd_dq_f32_d256_wgmma",
+                     "flash_bwd_dkv_f32_d256_wgmma"}
+    assert sorted(fa._WGMMA_ROUTES) == sorted(
+        (w, route) for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        for route in (fa.F32_ROUTE, fa.HALF_ROUTE))
+    for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for dt in (torch.float32, torch.bfloat16):
+            assert fa.kernel_for(w, dt, 256) != fa.kernel_for(w, dt, 128)
+            assert fa.kernel_for(w, dt, 384) == fa.kernel_for(w, dt, 128)
     for lib in whole:
         src = (cuda_build.CSRC / f"{lib}.cu").read_text()
         assert "d != D" in src and "gridDim.z" not in src, lib

@@ -32,15 +32,27 @@ def _library_of(symbol):
                 for lib, sym in routes if sym == symbol)
 
 
-# the warpgroup kernels at head dim 256: bf16 and fp16 K1, K2 and K3,
-# float32 K1
+# the warpgroup kernels at head dim 256: K1, K2 and K3 on bf16 and fp16
+# and on float32
 WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
-                 "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma")
+                 "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma",
+                 "flash_bwd_dq_f32_d256_wgmma",
+                 "flash_bwd_dkv_f32_d256_wgmma")
 # the TPU kernel (pallas_attention.py line and function) each replaces
 REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_d256_wgmma": ":223 _fa_bwd_dq_kernel",
             "flash_bwd_dkv_d256_wgmma": ":189 _fa_bwd_dkv_kernel",
-            "flash_fwd_f32_d256_wgmma": ":59 _fa_kernel"}
+            "flash_fwd_f32_d256_wgmma": ":59 _fa_kernel",
+            "flash_bwd_dq_f32_d256_wgmma": ":223 _fa_bwd_dq_kernel",
+            "flash_bwd_dkv_f32_d256_wgmma": ":189 _fa_bwd_dkv_kernel"}
+# each warpgroup kernel's warpgroups, and the (producer, consumer)
+# registers setmaxnreg gives them (None: no reallocation)
+WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
+              "flash_bwd_dq_d256_wgmma": (3, (24, 240)),
+              "flash_bwd_dkv_d256_wgmma": (3, (24, 240)),
+              "flash_fwd_f32_d256_wgmma": (2, None),
+              "flash_bwd_dq_f32_d256_wgmma": (2, None),
+              "flash_bwd_dkv_f32_d256_wgmma": (3, (104, 200))}
 
 
 @pytest.mark.parametrize("wrapper,dtype,want", [
@@ -72,15 +84,15 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     ("flash_fwd", torch.float32, "flash_fwd_f32_d256_wgmma"),
     ("flash_bwd_dq", torch.bfloat16, "flash_bwd_dq_d256_wgmma"),
     ("flash_bwd_dq", torch.float16, "flash_bwd_dq_d256_wgmma"),
-    ("flash_bwd_dq", torch.float32, "flash_bwd_dq_f32mma"),
+    ("flash_bwd_dq", torch.float32, "flash_bwd_dq_f32_d256_wgmma"),
     ("flash_bwd_dkv", torch.bfloat16, "flash_bwd_dkv_d256_wgmma"),
     ("flash_bwd_dkv", torch.float16, "flash_bwd_dkv_d256_wgmma"),
-    ("flash_bwd_dkv", torch.float32, "flash_bwd_dkv_f32mma"),
+    ("flash_bwd_dkv", torch.float32, "flash_bwd_dkv_f32_d256_wgmma"),
 ])
 def test_routing_at_head_dim_256(wrapper, dtype, want):
-    """At D 256 bf16 and fp16 K1, K2 and K3 and float32 K1 go to their
-    warpgroup kernels, float32 K2 and K3 to the sliced split-operand
-    ones; at D 384 every route is the sliced kernel of D 128. Each
+    """At D 256 K1, K2 and K3 go to their warpgroup kernels on both
+    routes, bf16 and fp16 and float32; at D 384 every route is the
+    sliced kernel of D 128. Each
     symbol is built from the source of its name, takes as many pointers
     as its wrapper hands it, and is counted by reset_launch_counts."""
     lib, sym = fa.kernel_for(wrapper, dtype, 256)
@@ -99,10 +111,9 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
     (torch.int32, 128, "float32, bfloat16 or float16"),
     (torch.bfloat16, 96, "head dims"),
     # head dims past 128 that are multiples of it (the reference's
-    # D % 128 == 0 gate) are not refused: this case holds that bf16 and
-    # fp16 K1, K2 and K3 and float32 K1 at 256 route to their warpgroup
-    # kernels, and float32 K2 and K3 at 256 and every dtype at 384 to the
-    # sliced kernels of D 128
+    # D % 128 == 0 gate) are not refused: this case holds that K1, K2
+    # and K3 at 256 route to their warpgroup kernels on every dtype, and
+    # every dtype at 384 to the sliced kernels of D 128
     pytest.param(torch.float32, 256, None, id="dtype3-256-head dims"),
 ])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
@@ -112,12 +123,9 @@ def test_routing_raises_for_what_no_kernel_takes(wrapper, dtype, d, match):
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             sliced = fa.kernel_for(wrapper, dt, 128)
             assert fa.kernel_for(wrapper, dt, 384) == sliced
-            if dt != torch.float32:
-                own = f"{wrapper}_d256_wgmma"
-            else:
-                own = {"flash_fwd": "flash_fwd_f32_d256_wgmma"}.get(wrapper)
-            assert fa.kernel_for(wrapper, dt, 256) == (
-                (own,) * 2 if own else sliced)
+            own = (f"{wrapper}_f32_d256_wgmma" if dt == torch.float32
+                   else f"{wrapper}_d256_wgmma")
+            assert fa.kernel_for(wrapper, dt, 256) == (own, own) != sliced
         return
     with pytest.raises(ValueError, match=match):
         fa.kernel_for(wrapper, dtype, d)
@@ -254,15 +262,15 @@ def test_planted_faults_are_caught_at_the_d256_training_shape():
 
 
 def test_planted_f32_faults_follow_float32_k1s_warpgroup_tile():
-    """At head dim 256 the float32 faults of K1 are planted at its
-    warpgroup kernel's tile (64 q rows over 32-key tiles); K2's and
-    K3's stay the sliced kernels' tiles."""
+    """At head dim 256 the float32 faults are planted at the warpgroup
+    kernels' tiles: K1's 64 q rows over 32-key tiles, K2's 64 rows over
+    16-key tiles, K3's 64 keys over 16-row q tiles (q rows, keys), none
+    the sliced kernels' tiles of D 128."""
     assert chip_smoke.HD256_F32_LABEL in chip_smoke.F32_FAULT_CASES
-    assert chip_smoke.kernel_tile(fa, "flash_fwd", torch.float32, 256) \
-        == (64, 32)
-    for w in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert chip_smoke.kernel_tile(fa, w, torch.float32, 256) == \
-            chip_smoke.kernel_tile(fa, w, torch.float32, 128)
+    for w, tile in (("flash_fwd", (64, 32)), ("flash_bwd_dq", (64, 16)),
+                    ("flash_bwd_dkv", (16, 64))):
+        assert chip_smoke.kernel_tile(fa, w, torch.float32, 256) == tile
+        assert chip_smoke.kernel_tile(fa, w, torch.float32, 128) != tile
 
 
 def test_planted_f32_faults_are_caught_at_the_d256_train_step():
@@ -286,8 +294,11 @@ def test_planted_f32_faults_are_caught_at_the_d256_train_step():
     finally:
         chip_smoke.log = log
     assert len(logged) == 8 and all(" caught" in x for x in logged), logged
-    assert any("K1 f32 skips each q tile's last 32-key tile" in x
-               for x in logged), logged
+    for fault in ("K1 f32 skips each q tile's last 32-key tile",
+                  "K2 f32 skips each q tile's last 16-key tile",
+                  "K3 f32 skips its last 16-row q tile",
+                  "K3 f32 leaves its last 64-key tile unwritten"):
+        assert any(fault in x for x in logged), (fault, logged)
 
 
 @pytest.mark.parametrize("wrapper,tile", [("flash_fwd", (128, 64)),
@@ -445,18 +456,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         "flash_fwd_f32_d256_wgmma": 0, "plain": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {
         "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0,
-        "flash_bwd_dq_d256_wgmma": 0, "plain": 0}
+        "flash_bwd_dq_d256_wgmma": 0, "flash_bwd_dq_f32_d256_wgmma": 0,
+        "plain": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
         "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
-        "flash_bwd_dkv_d256_wgmma": 0, "plain": 0}
+        "flash_bwd_dkv_d256_wgmma": 0, "flash_bwd_dkv_f32_d256_wgmma": 0,
+        "plain": 0}
 
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_wgmma_sources_name_their_design(name):
     """The head-dim-256 kernels: warpgroup products (wgmma) fed by TMA
     from a producer warpgroup (which setmaxnreg brings down beside two
-    consumers; float32 K1's one consumer needs no reallocation, and its
-    source says so), built for sm_90a, where alone those instructions
+    consumers, to exactly the launch's 168 registers a thread; float32
+    K1's and K2's one consumer needs no reallocation, and their sources
+    say so), built for sm_90a, where alone those instructions
     exist; each source names the TPU kernel it replaces, its
     shared-memory budget and ptxas's registers and spills, and its
     kernel's SASS is held to HGMMA by chip_smoke.py. Each is the route
@@ -474,12 +488,19 @@ def test_wgmma_sources_name_their_design(name):
     assert values["D"] == fa.WGMMA_HEAD_DIM == 256
     assert values["SMEM_BYTES"] <= 232448          # 227 KB a block
     f32 = "f32" in name
-    if f32:
-        assert values["THREADS"] == 2 * 128        # producer + consumer
+    groups, regs = WARPGROUPS[name]
+    assert values["THREADS"] == groups * 128       # producer + consumers
+    if regs is None:
         assert "setmaxnreg_" not in text
     else:
-        assert values["THREADS"] == 3 * 128        # producer + 2 consumers
-        assert "setmaxnreg_dec<24>" in text and "setmaxnreg_inc<240>" in text
+        producer, consumer = regs
+        assert producer * 128 + consumer * 256 == 168 * 384
+        assert (f"setmaxnreg_dec<{producer}>" in text
+                and f"setmaxnreg_inc<{consumer}>" in text) or (
+            values.get("PRODUCER_REGS") == producer
+            and values.get("CONSUMER_REGS") == consumer
+            and "setmaxnreg_dec<PRODUCER_REGS>" in text
+            and "setmaxnreg_inc<CONSUMER_REGS>" in text)
     assert f"{name}_kernel" in chip_smoke.WGMMA_KERNELS
     assert f"{name}_kernel" not in chip_smoke.MMA_KERNELS
     wrapper = name.replace("_f32", "").replace("_d256_wgmma", "")

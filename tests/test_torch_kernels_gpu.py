@@ -17,8 +17,9 @@ tier: rtol 1e-2 (one rounding of the output) plus atol 1e-2 x the plain
 output's RMS, against the plain version evaluated in float32 on the same
 inputs and rounded once to the output's type. The float32 kernels
 (``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``,
-and at head dim 256 K1's warpgroup kernel ``flash_fwd_f32_d256_wgmma``:
-tensor cores with every operand split into bf16 or TF32 halves) are held
+and at head dim 256 the warpgroup kernels ``flash_fwd_f32_d256_wgmma``,
+``flash_bwd_dq_f32_d256_wgmma`` and ``flash_bwd_dkv_f32_d256_wgmma``:
+tensor cores with every operand split into bf16 or TF32 pieces) are held
 to the f32 tier.
 """
 import numpy as np
@@ -116,9 +117,8 @@ def test_attention_gradients_on_the_card_match_the_cpu():
 HALF_RTOL, HALF_RMS = 1e-2, 1e-2
 
 # (tq, tk, d, causal): ragged T, tq < tk, tq > tk (fully masked rows),
-# head dims 64 and 128, 256 (the warpgroup K1, K2 and K3 in bf16 and
-# fp16 and K1 in float32, sliced otherwise) and the sliced 384, causal
-# and not
+# head dims 64 and 128, 256 (the warpgroup K1, K2 and K3 on every
+# dtype) and the sliced 384, causal and not
 MMA_CASES = [(200, 200, 128, True), (200, 200, 128, False),
              (128, 256, 128, True), (256, 128, 128, True),
              (256, 256, 64, True), (256, 256, 64, False),
@@ -161,10 +161,8 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
     f32 = dt == torch.float32
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         sym = fa.kernel_for(w.__name__, dt, d)[1]
-        if d == 256 and not f32:
-            assert sym == f"{w.__name__}_d256_wgmma"
-        elif d == 256 and w is fa.flash_fwd:
-            assert sym == "flash_fwd_f32_d256_wgmma"
+        if d == 256:
+            assert sym == f"{w.__name__}_{'f32_' if f32 else ''}d256_wgmma"
         else:
             assert sym == f"{w.__name__}_{'f32mma' if f32 else 'mma'}"
         assert w.launches_by_kernel == {
@@ -235,10 +233,10 @@ def test_wgmma_kernels_match_plain_versions(dtype, bh, tq, tk, causal):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,tq,tk,causal", WGMMA_CASES)
 def test_f32_wgmma_kernel_matches_plain_version(bh, tq, tk, causal):
-    """float32 K1 at head dim 256 on its warpgroup kernel (wgmma on bf16
-    hi + lo halves, TMA), O and lse against the plain version in the f32
-    tier with TF32 off, one launch (two for B*H past 65535); K2 and K3
-    stay on the sliced split-operand kernels and match too."""
+    """float32 K1, K2 and K3 at head dim 256 on their warpgroup kernels
+    (wgmma on bf16 pieces, TMA, a producer warpgroup that splits), O,
+    lse, dQ, dK and dV against the plain versions in the f32 tier with
+    TF32 off, one launch on each symbol (two for B*H past 65535)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,17 +249,20 @@ def test_f32_wgmma_kernel_matches_plain_version(bh, tq, tk, causal):
     o, lse = fa.flash_fwd(q, k, v, sc, causal)
     delta = (do * o).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
     torch.cuda.synchronize()
     chunks = -(-bh // fa.MAX_GRID_Y)
-    assert fa.flash_fwd.launches_by_kernel["flash_fwd_f32_d256_wgmma"] \
-        == fa.flash_fwd.launches == chunks
-    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq_f32mma"] \
-        == chunks
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert w.launches_by_kernel[f"{w.__name__}_f32_d256_wgmma"] \
+            == w.launches == chunks
     want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, causal)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
+                                          causal)
     for name, got, want in (
             ("O", o, want_o), ("lse", lse, want_lse),
             ("dQ", dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
-                                           causal))):
+                                           causal)),
+            ("dK", dk, want_k), ("dV", dv, want_v)):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         ok, err, ratio = chip_smoke.kernel_err(got, want)
         assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"

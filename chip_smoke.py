@@ -15,12 +15,15 @@ Phases — any failure exits non-zero:
    compiler's register/shared-memory/spill report, and each kernel's
    count of tensor-core instructions in its SASS (``cuobjdump``) — no
    ``HMMA`` in an ``mma.sync`` kernel (``_mma``, ``_f32mma``) or no
-   ``HGMMA`` in a warpgroup kernel (``_d256_wgmma``) fails the run;
+   ``HGMMA`` in a warpgroup kernel (``_d256_wgmma``, ``_d128_wgmma``)
+   fails the run;
 3. kernels: K1 (the flash-attention forward) and K2/K3 (its backward,
    dQ and dK/dV) against their plain torch versions on the same inputs,
    on both routes — bf16/fp16 through the 16-bit tensor-core kernels
    (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dq_mma.cu``,
-   ``csrc/flash_bwd_dkv_mma.cu``), float32 through the split-operand
+   ``csrc/flash_bwd_dkv_mma.cu``; at D = 128 K1 and K3 on their
+   warpgroup kernels ``csrc/flash_fwd_d128_wgmma.cu`` and
+   ``csrc/flash_bwd_dkv_d128_wgmma.cu``), float32 through the split-operand
    tensor-core kernels (``csrc/flash_fwd_f32mma.cu``,
    ``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``) —
    at the serving and training shapes and the edge cases (causal and
@@ -32,18 +35,20 @@ Phases — any failure exits non-zero:
    fail that tier, as must two faults of each float32 kernel at its own
    tile at the f32 serving shape and ``f32 causal``, in the float32
    tier; every kernel in bf16 and float32 at B*H = 65536 (past
-   gridDim.y's 65535, launched in chunks); ``attention_with_lse``'s
+   gridDim.y's 65535, launched in chunks), and at D = 128 in bf16 and
+   fp16 (K1 and K3 on their warpgroup kernels); ``attention_with_lse``'s
    gradient through both outputs against plain autograd of
    ``ref_attention_lse``; each kernel timed beside its plain version,
    its bound and ``scaled_dot_product_attention`` forward or backward (a
    yardstick only — the port never calls it), the float32 ones also at
-   B*H = 2 x 32, T = 2048;
+   B*H = 2 x 32, T = 2048, and each warpgroup kernel beside the mma.sync
+   kernel it replaced on the same inputs;
 4. serve: the Llama-3-8B-width forward program, all 32 layers (random
    weights from SEED) behind the port's ``ServingEngine``: warmup over the
    buckets, concurrent requests, each answer held against the same
    request run alone through ``Executor.run``, no step build after
    warmup, and K1 launched once per layer per dispatch — in bfloat16
-   (every launch ``flash_fwd_mma``), then in float32 (every launch
+   (every launch ``flash_fwd_d128_wgmma``), then in float32 (every launch
    ``flash_fwd_f32mma``), where answers match the lone runs logit for
    logit; one (4 x 256) dispatch's device time by kind in each dtype;
 5. train: the Llama-3-8B-width model cut to 8 layers, bf16, through
@@ -156,7 +161,7 @@ Phases — any failure exits non-zero:
    layer (from 2, for room) in bf16 saved and served back: every
    persistable's bits, 8
    requests across (1, 2, 4) x (128, 256) bit for bit the in-memory
-   engine's, K1 on ``flash_fwd_mma`` at D 128, ``CompiledPredictor``
+   engine's, K1 on ``flash_fwd_d128_wgmma`` at D 128, ``CompiledPredictor``
    within the bf16 tier;
 21. generate (ROADMAP item 4a, the main path of this slice): the 8B
    width at 4 layers (cut from 32, then 16 and 8, for room) in bf16,
@@ -164,7 +169,7 @@ Phases — any failure exits non-zero:
    128 tokens, 64 new tokens each, every
    generated token held against ``build_llama(shard_pp=True)``'s
    forward of the generated sequence on the same scope (K1 once a
-   layer on ``flash_fwd_mma``), a flip allowed only within twice the row's
+   layer on ``flash_fwd_d128_wgmma``), a flip allowed only within twice the row's
    logit error; FirstProbs against that forward's softmax; the int8 KV
    cache and W8A8 (their int8 accumulators exact on the card against
    the CPU; FirstProbs' distance and token agreement reported);
@@ -370,7 +375,7 @@ Phases — any failure exits non-zero:
    requests concurrently,
    each answer held to the request alone at 4's bf16 tier, both
    replicas serving, K1 32 launches a dispatch summed over both, all
-   flash_fwd_mma, K2/K3 none, no step build after warmup; then under
+   flash_fwd_d128_wgmma, K2/K3 none, no step build after warmup; then under
    in-flight traffic a ``rolling_restart()`` and the
    ``serving_replica_crash`` drill: no request lost, the replica
    revived. p50/p99 through the pool beside the lone engine's, the
@@ -700,7 +705,8 @@ RING_TOL_BF16_RMS = 2e-2
 KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                    "flash_fwd_mma_kernel",
                                    "flash_fwd_d256_wgmma_kernel",
-                                   "flash_fwd_f32_d256_wgmma_kernel")),
+                                   "flash_fwd_f32_d256_wgmma_kernel",
+                                   "flash_fwd_d128_wgmma_kernel")),
                 ("k2_flash_bwd_dq", ("flash_bwd_dq_f32mma_kernel",
                                      "flash_bwd_dq_mma_kernel",
                                      "flash_bwd_dq_d256_wgmma_kernel",
@@ -708,8 +714,10 @@ KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_f32mma_kernel",
                                       "flash_bwd_dkv_mma_kernel",
                                       "flash_bwd_dkv_d256_wgmma_kernel",
-                                      "flash_bwd_dkv_f32_d256_wgmma_kernel")))
-# the warpgroup kernels (K1, K2 and K3 at head dim 256 on both routes),
+                                      "flash_bwd_dkv_f32_d256_wgmma_kernel",
+                                      "flash_bwd_dkv_d128_wgmma_kernel")))
+# the warpgroup kernels (K1, K2 and K3 at head dim 256 on both routes,
+# bf16/fp16 K1 and K3 at head dim 128),
 # whose SASS must hold HGMMA instructions, and the mma.sync kernels,
 # whose SASS must hold HMMA: every kernel is one or the other
 WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
@@ -717,7 +725,9 @@ WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
                  "flash_bwd_dkv_d256_wgmma_kernel",
                  "flash_fwd_f32_d256_wgmma_kernel",
                  "flash_bwd_dq_f32_d256_wgmma_kernel",
-                 "flash_bwd_dkv_f32_d256_wgmma_kernel")
+                 "flash_bwd_dkv_f32_d256_wgmma_kernel",
+                 "flash_fwd_d128_wgmma_kernel",
+                 "flash_bwd_dkv_d128_wgmma_kernel")
 MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns
                     if kern not in WGMMA_KERNELS)
 # kernel symbol -> the constexprs of its source that give its tile's q
@@ -731,7 +741,9 @@ TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
                                "flash_bwd_dkv_d256_wgmma",
                                "flash_fwd_f32_d256_wgmma",
                                "flash_bwd_dq_f32_d256_wgmma",
-                               "flash_bwd_dkv_f32_d256_wgmma")}
+                               "flash_bwd_dkv_f32_d256_wgmma",
+                               "flash_fwd_d128_wgmma",
+                               "flash_bwd_dkv_d128_wgmma")}
 
 
 class SmokeFailure(Exception):
@@ -766,6 +778,14 @@ def nvidia_smi():
     check(out.returncode == 0 and out.stdout.strip(),
           f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bf16_k1(torch, fa, cfg):
+    """The symbol of the kernel K1 launches on bf16 attention of
+    ``cfg``'s head dim, whose launches the bf16 serving and generation
+    paths count."""
+    return fa.kernel_for("flash_fwd", torch.bfloat16,
+                         cfg.dim // cfg.n_heads)[1]
 
 
 def time_ms(fn, torch, iters=20, flush=None):
@@ -998,6 +1018,10 @@ def phase_kernels(torch, fa, seed):
           f"K1/K2/K3 disagree with their plain versions: {failures}")
     check_lse_gradient(torch, fa, gen, dev)
     check_big_bh(torch, fa, gen, dev)
+    # at D 128 16-bit K1 and K3 run their warpgroup kernels (float32 keeps
+    # the mma.sync route checked at D 64)
+    check_big_bh(torch, fa, gen, dev, d=128,
+                 dtypes=(torch.bfloat16, torch.float16))
     # at D 256 K1-K3 run their warpgroup kernels on both routes: inputs,
     # outputs and the plain versions of one float32 case take ~25 GB of
     # the card's 80
@@ -1005,7 +1029,8 @@ def phase_kernels(torch, fa, seed):
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
     timing = {}
-    for label, kinds in (("serving T=256", ("fwd",)),
+    for label, kinds in (("serving T=128", ("fwd",)),
+                         ("serving T=256", ("fwd",)),
                          (GEN_LABEL, ("fwd",)),
                          ("f32 serving T=256", ("fwd",)),
                          (TRAIN_LABEL, ("fwd", "dq", "dkv")),
@@ -1112,9 +1137,10 @@ def time_kernels(torch, fa, r, label, kinds, flush):
         plain_ms = time_ms(plain, torch, iters=plain_iters, flush=flush)
         symbol = fa.kernel_for(wrapper, q.dtype, d)[1]
         route = fa.F32_ROUTE if q.dtype == torch.float32 else fa.HALF_ROUTE
-        sliced = sliced_call(torch, fa, wrapper, bwd) \
-            if d == fa.WGMMA_HEAD_DIM and (wrapper, route) in \
-            fa._WGMMA_ROUTES else None
+        # a warpgroup kernel: the mma.sync kernel it replaced (in 128-column
+        # slices at D 256) on the same inputs in the same run
+        replaced = fa._ROUTES[wrapper][route] \
+            if (wrapper, route, d) in fa._WGMMA_ROUTES else None
         rates = RATE_OF_KERNEL.get(symbol, (dt_name,) * len(PRODUCTS[kind]))
         bound, by, nbytes, flops = attention_bound_ms(
             bh, tq, tk, d, rates, causal, q.element_size(), kind)
@@ -1125,13 +1151,17 @@ def time_kernels(torch, fa, r, label, kinds, flush):
             library_ms=lib_ms[kind], bound_ms=bound, bound_by=by,
             max_abs_err=r[err])
         also = ""
-        if sliced is not None:
-            # the D = 128 kernel in slices that this one replaced, on the
-            # same inputs in the same run
-            rows[(kind, label)]["sliced_ms"] = time_ms(sliced, torch,
-                                                       flush=flush)
-            also = (f" (the sliced {fa._ROUTES[wrapper][route][1]} it "
-                    f"replaced: {rows[(kind, label)]['sliced_ms']:.4f} ms)")
+        if replaced is not None:
+            rows[(kind, label)].update(time_replaced(
+                torch, fa, wrapper, replaced, bwd, flush))
+            rr = rows[(kind, label)]
+            also = (f" (through the launcher {rr['launcher_ms']:.4f} ms; "
+                    f"the {replaced[1]} it replaced: "
+                    f"{rr['replaced_ms']:.4f} ms, max abs err "
+                    f"{rr['replaced_max_abs_err']:.3e}; host time of a "
+                    f"launch {rr['launch_host_us']:.1f} us, its tensor "
+                    f"maps encoded each call, against "
+                    f"{rr['replaced_launch_host_us']:.1f} us)")
         if symbol in RATE_OF_KERNEL:
             # the same work with every product at the 3xbf16 rate: one
             # yardstick for any float32 design, whichever splits it takes
@@ -1149,15 +1179,21 @@ def time_kernels(torch, fa, r, label, kinds, flush):
     return rows
 
 
-def sliced_call(torch, fa, wrapper, bwd):
-    """A call of the D = 128 kernel of ``wrapper`` ("flash_fwd",
-    "flash_bwd_dq" or "flash_bwd_dkv") on the route of ``bwd``'s dtype
-    (float32 or 16-bit), in 128-column slices on ``bwd``'s D = 256
-    inputs — the route the warpgroup kernel replaced, for timing beside
-    it. Its launches count on the wrapper under that kernel's symbol."""
+# what time_replaced adds to a warpgroup kernel's timing row, copied onto
+# its row of the kernels line
+REPLACED_KEYS = ("launcher_ms", "replaced_kernel", "replaced_ms",
+                 "replaced_max_abs_err", "launch_host_us",
+                 "replaced_launch_host_us")
+
+
+def kernel_call(torch, fa, wrapper, route, bwd):
+    """(a call of kernel ``route`` (library, symbol) of ``wrapper``
+    ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") on ``bwd``'s inputs,
+    the outputs it writes) — the mma.sync kernel a warpgroup kernel
+    replaced (in 128-column slices past D 128), for timing beside it, or
+    the warpgroup kernel itself, launched the same way. Its launches
+    count on the wrapper under that kernel's symbol."""
     q, k, v, do, lse, delta, scale, causal = bwd
-    route = fa._ROUTES[wrapper][fa.F32_ROUTE if q.dtype == torch.float32
-                                else fa.HALF_ROUTE]
     if wrapper == "flash_fwd":
         outs = (torch.empty_like(q), torch.empty_like(lse))
         ins = (q, k, v)
@@ -1168,8 +1204,60 @@ def sliced_call(torch, fa, wrapper, bwd):
         outs = (torch.empty_like(k), torch.empty_like(v))
         ins = (q, k, v, do, lse, delta)
     ptrs = tuple(x.data_ptr() for x in ins + outs)
-    return lambda: fa._launch(getattr(fa, wrapper), route, ptrs, q,
-                              k.shape[1], scale, causal)
+    return (lambda: fa._launch(getattr(fa, wrapper), route, ptrs, q,
+                               k.shape[1], scale, causal)), outs
+
+
+def launch_host_us(fn, torch, n=100):
+    """Host microseconds a call of ``fn`` takes to return (no
+    synchronize between calls): for a kernel launch, its arguments, any
+    tensor maps it encodes and the launch itself."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / n * 1e6
+
+
+def time_replaced(torch, fa, wrapper, replaced, bwd, flush):
+    """The mma.sync kernel ``replaced`` that a warpgroup kernel replaced
+    (in 128-column slices at D 256), on the same inputs in the same run: its device ms (cold
+    L2) and the warpgroup kernel's through the same launcher, in turns
+    (``launcher_ms``: without the wrapper's checks and allocations,
+    which a small kernel's time may not hide), its worst error against
+    the plain version, and the host time of one launch of each kernel
+    through that launcher (the warpgroup kernels encode their TMA
+    tensor maps on every call)."""
+    q, k, v, do, lse, delta, scale, causal = bwd
+    call, outs = kernel_call(torch, fa, wrapper, replaced, bwd)
+    new, _ = kernel_call(torch, fa, wrapper,
+                         fa.kernel_for(wrapper, q.dtype, q.shape[-1]), bwd)
+    turns = {"replaced_ms": [], "launcher_ms": []}
+    for key, fn in (("replaced_ms", call), ("launcher_ms", new),
+                    ("launcher_ms", new), ("replaced_ms", call)):
+        turns[key].append(time_ms(fn, torch, flush=flush))
+    out = {"replaced_kernel": replaced[1],
+           **{key: sum(ms) / len(ms) for key, ms in turns.items()}}
+    torch.cuda.synchronize()
+    if wrapper == "flash_fwd":
+        o_ref, lse_ref = fa.ref_attention_lse(q.float(), k.float(),
+                                              v.float(), scale, causal)
+        wants = (o_ref.to(q.dtype), lse_ref)
+    elif wrapper == "flash_bwd_dq":
+        wants = (fa.ref_flash_bwd_dq(*bwd),)
+    else:
+        wants = fa.ref_flash_bwd_dkv(*bwd)
+    errs = [kernel_err(g, w) for g, w in zip(outs, wants)]
+    check(all(e[0] for e in errs),
+          f"{replaced[1]} (replaced) disagrees with its plain version: "
+          f"{[(e, r) for _, e, r in errs]}")
+    out["replaced_max_abs_err"] = max(e for _, e, _ in errs)
+    del wants, outs
+    out["launch_host_us"] = launch_host_us(new, torch)
+    out["replaced_launch_host_us"] = launch_host_us(call, torch)
+    return out
 
 
 def kernel_tile(fa, wrapper, dtype, d=128):
@@ -1525,7 +1613,7 @@ def add_busy(out, kinds, wall_ms):
 def phase_serve(torch, fluid, dtype, card, then=None):
     """Serve the 8B-width forward in ``dtype`` and hold every answer to
     the same request run alone; every K1 launch must go to the variant
-    the dtype routes to (bf16: flash_fwd_mma, float32:
+    the dtype routes to (bf16: flash_fwd_d128_wgmma, float32:
     flash_fwd_f32mma). Returns (K1 launches, serve stats).
 
     The tiers: in float32 each logit within TOL_LOGITS_F32 and the greedy
@@ -3340,7 +3428,7 @@ def phase_io_llama_saved(torch, fluid, fa, card):
     survive the round trip (the bfloat16 ``params.npz`` members are
     2-byte void arrays that the port reads by the program's dtype), 8
     requests across the buckets get answers bit-identical to an engine
-    on the in-memory scope, K1 launched on flash_fwd_mma at D 128, and
+    on the in-memory scope, K1 launched on flash_fwd_d128_wgmma at D 128, and
     the ``CompiledPredictor`` within TOL_LOGITS_BF16_RMS of the engine,
     K1's operator copying no input. Returns (launches by kernel symbol, stats)."""
     from paddle_tpu_torch import io as fio
@@ -3419,9 +3507,10 @@ def phase_io_llama_saved(torch, fluid, fa, card):
               and g[0].shape[1] >= n and g[0].shape[2] == cfg.vocab_size
               for g, n in zip(got, lengths)),
           f"{tag}: logits not finite or of the wrong shape")
-    check(by_kernel["flash_fwd_mma"] > 0
-          and by_kernel["flash_fwd_mma"] == fa.flash_fwd.launches
-          and by_kernel["flash_fwd_mma"] % cfg.n_layers == 0
+    k1 = bf16_k1(torch, fa, cfg)
+    check(by_kernel[k1] > 0
+          and by_kernel[k1] == fa.flash_fwd.launches
+          and by_kernel[k1] % cfg.n_layers == 0
           and not fa.flash_bwd_dq.launches,
           f"{tag}: launches {by_kernel}")
     t0 = time.perf_counter()
@@ -3435,8 +3524,7 @@ def phase_io_llama_saved(torch, fluid, fa, card):
         check(pred_copies[-1] == 0 and engine_copies == 0,
               f"{tag}: K1's operator copied inputs (engine "
               f"{engine_copies}, the predictor {pred_copies[-1]})")
-        check(fa.flash_fwd.launches_by_kernel["flash_fwd_mma"]
-              == cfg.n_layers,
+        check(fa.flash_fwd.launches_by_kernel[k1] == cfg.n_layers,
               f"{tag}: CompiledPredictor launched K1 "
               f"{fa.flash_fwd.launches_by_kernel}")
         errs.append(rel_rms(p, got[i][0][:, :lengths[i]]))
@@ -3692,7 +3780,7 @@ def phase_generate(torch, fluid, fa, card):
     through ``Executor.run(gen_program, feed={"ptok": prompt},
     fetch_list=[out])``, held against ``build_llama(shard_pp=True)``'s
     forward of the generated sequence on the same scope (K1 once a layer
-    a dispatch, on flash_fwd_mma): the prompt echoed, every generated
+    a dispatch, on flash_fwd_d128_wgmma): the prompt echoed, every generated
     token the recompute's argmax at its position (a flip only where the
     recompute's margin is within twice the row's logit error, and the
     row compared no further), FirstProbs within TOL_LOGITS_BF16_RMS of
@@ -3742,11 +3830,12 @@ def phase_generate(torch, fluid, fa, card):
           f"{tag}: the prompt is not echoed")
     check(((gen >= 0) & (gen < cfg.vocab_size)).all(),
           f"{tag}: a token outside the vocabulary")
-    check(by_kernel["flash_fwd_mma"] == cfg.n_layers
+    k1 = bf16_k1(torch, fa, cfg)
+    check(by_kernel[k1] == cfg.n_layers
           and fa.flash_fwd.launches == cfg.n_layers
           and not fa.flash_bwd_dq.launches,
           f"{tag}: K1 launches {by_kernel}, not {cfg.n_layers} on "
-          "flash_fwd_mma (one dispatch)")
+          f"{k1} (one dispatch)")
     logits = logits.float()
     check(bool(torch.isfinite(logits).all()), f"{tag}: recompute logits")
     probs_t = torch.as_tensor(probs, device=logits.device)
@@ -3769,7 +3858,7 @@ def phase_generate(torch, fluid, fa, card):
         f"tokens agreeing with the K1 recompute before any flip {agreed} "
         f"of {GEN_NEW}; FirstProbs rel rms {p_rms:.3e}; the rows' "
         f"first-step logit error {[f'{e:.3e}' for e in row_err]}; K1 "
-        f"{by_kernel['flash_fwd_mma']} launches on flash_fwd_mma")
+        f"{by_kernel[k1]} launches on {k1}")
     stats = {"layers": cfg.n_layers, "batch": GEN_BATCH,
              "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
              "startup_s": startup_s, "agreed_before_flip": agreed,
@@ -4349,7 +4438,7 @@ def phase_decode_engine(torch, fluid, fa, card, then=None):
     check_launches = launches_by_kernel(fa)
     # three recomputes a request: the generator's sequence, the
     # engine's, and the engine's tokens after the rolled prompt
-    check(check_launches["flash_fwd_mma"]
+    check(check_launches[bf16_k1(torch, fa, cfg)]
           == 3 * cfg.n_layers * DEC_REQUESTS,
           f"{tag}: the recompute's K1 launches {check_launches}")
     stats["agreed_before_flip"] = agreed
@@ -6064,7 +6153,7 @@ def phase_moe_generate(torch, fluid, fa, card, trained):
     gen, agreed, row_err, ms = moe_generate_check(
         torch, fluid, exe, trained, cfg, tag, prompt, MOE_GEN_NEW)
     by_kernel = launches_by_kernel(fa)
-    check(by_kernel.get("flash_fwd_mma", 0) == cfg.n_layers,
+    check(by_kernel.get(bf16_k1(torch, fa, cfg), 0) == cfg.n_layers,
           f"{tag}: K1 launches {by_kernel} (the eval forward: one a layer)")
     # W8A8: the int8 expert products exact on the card at a decode
     # step's shape; the reference's measure (tokens equal to the float
@@ -8953,7 +9042,7 @@ def phase_cluster_serve(torch, fluid, fa, card, served):
     request lengths sent concurrently; each answer held to the request
     alone at ``phase_serve``'s bf16 tier; both replicas take traffic; K1
     launched 32 times a dispatch summed over both replicas, all on
-    flash_fwd_mma, K2/K3 none; no step build after warmup; the pool, up
+    flash_fwd_d128_wgmma, K2/K3 none; no step build after warmup; the pool, up
     and idle, under CLUSTER_IDLE_OVER_WEIGHTS x the weights' bytes above
     what the card held before it, and its peak under
     :func:`cluster_peak_bound`. Then under in-flight
@@ -9053,11 +9142,12 @@ def phase_cluster_serve(torch, fluid, fa, card, served):
     check(snap["cluster"]["responses_total"] == len(reqs),
           f"{tag}: {snap['cluster']['responses_total']} responses of "
           f"{len(reqs)}")
+    k1 = bf16_k1(torch, fa, cfg)
     check(launches == cfg.n_layers * sum(dispatches)
-          and by_kernel["flash_fwd_mma"] == launches
-          and not fa_others(by_kernel, "flash_fwd_mma"),
+          and by_kernel[k1] == launches
+          and not fa_others(by_kernel, k1),
           f"{tag}: K1 launches {by_kernel} != {cfg.n_layers} layers x "
-          f"{dispatches} dispatches, all flash_fwd_mma")
+          f"{dispatches} dispatches, all {k1}")
     worst_rms = 0.0
     for n, (ans, _), want in zip(lengths, results, alone):
         got = ans[0][:, :n]
@@ -9917,8 +10007,8 @@ def phase_serving_chaos(torch, fluid, fa, card, served):
     check(all(steps[s] == per for s in computed)
           and steps["failures_and_shed"] == steps["worker_crash"]
           == steps["executor_exhausted"] == 0
-          and by_kernel["flash_fwd_mma"] == k1()
-          and not fa_others(by_kernel, "flash_fwd_mma"),
+          and by_kernel[bf16_k1(torch, fa, cfg)] == k1()
+          and not fa_others(by_kernel, bf16_k1(torch, fa, cfg)),
           f"{tag}: K1 launches by step {steps} (by kernel {by_kernel}): "
           f"{per} for each computed dispatch, 0 for a failed one")
     stats = {"layers": cfg.n_layers, "windows_s": windows,
@@ -10058,7 +10148,8 @@ def main():
             if os.path.exists(report):
                 for line in open(report).read().splitlines():
                     if any(w in line for w in ("Function properties",
-                                               "registers", "spill")):
+                                               "registers", "spill",
+                                               "Performance Loss")):
                         log(f"build {name}: {line.strip()}")
         check_sass(cuda_build)
 
@@ -10358,6 +10449,7 @@ def main():
             long.pop("kernel")
             row["t2048"] = dict(long, shape=f"bh={TRAIN_BATCH}*32 "
                                 f"t={TRAIN_SEQ} d=128 causal f32")
+        row.update((key, t[key]) for key in REPLACED_KEYS if key in t)
         if kind_ == "fwd":
             # K1 at this dtype's serving shape, timed and held to its
             # plain version in phase_kernels; launches: that serve phase
@@ -10369,22 +10461,46 @@ def main():
                 serve, launches=serve_f32_launches if f32 else serve_launches,
                 shape=f"bh=4*32 t=256 d=128 causal {'f32' if f32 else 'bf16'}")
             if not f32:
-                # K1 at the recompute's shape of the generate phase (this
-                # slice's main path), timed and held to its plain version
-                # in phase_kernels; launches: that phase's recompute
+                # K1 at the other serving bucket (T 128), and at the
+                # recompute's shape of the generate phase, timed and held
+                # to their plain versions in phase_kernels; launches: the
+                # bf16 serve phase and that phase's recompute
+                t128 = dict(timing[("fwd", "serving T=128")])
+                t128.pop("kernel")
+                row["serving_t128"] = dict(
+                    t128, launches=serve_launches,
+                    shape="bh=4*32 t=128 d=128 causal bf16")
                 g = dict(timing[("fwd", GEN_LABEL)])
                 g.pop("kernel")
                 row["generate"] = dict(
-                    g, launches=gen_launches["flash_fwd_mma"],
+                    g, launches=gen_launches[fn],
                     shape=f"bh={GEN_BATCH}*32 t={GEN_PROMPT + GEN_NEW} "
                           "d=128 causal bf16")
         kernels.append(row)
+        if "replaced_kernel" in t:
+            # the mma.sync kernel the warpgroup kernel replaced at this
+            # shape, timed and held to its plain version on the same
+            # inputs in phase_kernels; it still runs at D 64 and the
+            # sliced head dims past 256
+            old = t["replaced_kernel"]
+            kernels.append({
+                "name": old, "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/{old}.cu",
+                "replaces": row["replaces"], "replaced_by": fn,
+                "launches": launches[old],
+                "launches_by_path": {p: n[old] for p, n in paths.items()},
+                "max_abs_err": t["replaced_max_abs_err"],
+                "ms": t["replaced_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "launch_host_us": t["replaced_launch_host_us"],
+                "shape": shape, "card": kind, "power_limit": power})
     # K1-K3 at head dim 256 on both routes: the bf16 training shape of
     # the head_dim_256 phase (launches: its bf16 train step; its serve
     # dispatch under launches_by_path) and its float32 train step's
     # shape, every kernel on its warpgroup kernel; each with the sliced
-    # kernel it replaced timed beside it as sliced_ms, float32 K2 and K3
-    # also at T 2048 under "t2048"
+    # kernel it replaced timed beside it (REPLACED_KEYS), float32 K2 and
+    # K3 also at T 2048 under "t2048"
     for label, path, dtype, shape in (
             (HD256_LABEL, "bf16", torch.bfloat16,
              f"bh={TRAIN_BATCH}*{HD256_HEADS} t={TRAIN_SEQ} d=256 causal "
@@ -10410,8 +10526,7 @@ def main():
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": shape, "card": kind, "power_limit": power})
-            if "sliced_ms" in t:
-                kernels[-1]["sliced_ms"] = t["sliced_ms"]
+            kernels[-1].update((key, t[key]) for key in REPLACED_KEYS)
             if path == "f32" and kind_ != "fwd":
                 # where operations bound it, timed and held to its plain
                 # version in phase_kernels (not launched on the main path)

@@ -1,20 +1,22 @@
-// Hopper-only helpers shared by the head-dim-256 attention kernels
-// (flash_fwd_d256_wgmma.cu, flash_bwd_dq_d256_wgmma.cu,
+// Hopper-only helpers shared by the warpgroup attention kernels at head
+// dim 256 (flash_fwd_d256_wgmma.cu, flash_bwd_dq_d256_wgmma.cu,
 // flash_bwd_dkv_d256_wgmma.cu, flash_fwd_f32_d256_wgmma.cu,
-// flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu): TMA
-// tile loads completing on mbarriers, the shared-memory matrix
-// descriptors of wgmma, the four wgmma shapes the kernels issue
-// (m64n64k16, m64n32k16 and m64n16k16 with both operands in shared
-// memory, m64n256k16 with A in registers), the two- and three-piece
-// 16-bit splits of float32 values, warpgroup register reallocation
-// (setmaxnreg), the proxy fence that lets wgmma read what threads wrote,
-// and the host-side tensor maps (16-bit tiles swizzled, float32 tiles
-// plain).
+// flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu) and
+// at head dim 128 (flash_fwd_d128_wgmma.cu, flash_bwd_dkv_d128_wgmma.cu):
+// TMA tile loads completing on mbarriers, the shared-memory matrix
+// descriptors of wgmma, the six wgmma shapes the kernels issue
+// (m64n128k16, m64n64k16, m64n32k16 and m64n16k16 with both operands in
+// shared memory, m64n256k16 and m64n128k16 with A in registers), the two-
+// and three-piece 16-bit splits of float32 values, warpgroup register
+// reallocation (setmaxnreg), named barriers, the proxy fence that lets
+// wgmma read what threads wrote, and the host-side tensor maps (16-bit
+// tiles swizzled, float32 tiles plain).
 // sm_90a only: wgmma and setmaxnreg do not exist on plain sm_90.
 //
 // Shared tiles are in the layout that TMA's 128-byte swizzle writes and
 // wgmma's 128-byte-swizzle descriptors read: a [rows, 256] 16-bit tile
-// is four column blocks of 64 (one 128-byte row each), each block
+// is four column blocks of 64 (one 128-byte row each; a [rows, 128]
+// tile two), each block
 // [rows][64] with rows 128 bytes apart and its 16-byte chunk c of row r
 // stored at chunk c ^ (r % 8). Every block starts on 1024 bytes.
 //
@@ -23,7 +25,8 @@
 //   accumulator of m64nN: d[4 j + e], j the 8-column block:
 //     e 0, 1: (row g,     cols 8 j + 2 t, + 1)
 //     e 2, 3: (row g + 8, cols 8 j + 2 t, + 1)
-//   A of m64n256k16 in registers, four 32-bit registers of two halves:
+//   A of m64n256k16 (m64n128k16) in registers, four 32-bit registers of
+//   two halves:
 //     a0 (row g, k 2t, 2t+1)  a1 (row g + 8, k 2t, 2t+1)
 //     a2 (row g, k 2t+8, +9)  a3 (row g + 8, k 2t+8, +9)
 // so accumulator blocks 2 s, 2 s + 1 of one product are, packed in
@@ -119,6 +122,12 @@ __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// arrive at barrier `id` of `n` threads without waiting for it: the
+// other side of a named_sync (n counts both sides' threads)
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // order this thread's generic-proxy accesses of shared memory before
 // later async-proxy ones (wgmma operand reads, TMA writes): each thread
 // that wrote a wgmma operand, or read a buffer TMA refills, fences
@@ -180,6 +189,13 @@ __device__ __forceinline__ void reg_fence(uint32_t& x) {
   "%28, %29, %30, %31}"
 #define WG_REGS16                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_REGS64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
+  "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "        \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "        \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "        \
+  "%62, %63}"
 #define WG_REGS128                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
   "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
@@ -195,6 +211,20 @@ __device__ __forceinline__ void reg_fence(uint32_t& x) {
 
 template <typename T>
 struct Wgmma;
+
+// d (+)= A B, A [64 x 16] and B [16 x 128] both K-major in shared memory
+// (descriptors da, db); accumulate: 0 overwrites d, 1 adds to it
+#define WG_SS_128(TY)                                                    \
+  static __device__ __forceinline__ void ss128(float (&d)[64],           \
+                                               uint64_t da, uint64_t db, \
+                                               int accumulate) {         \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "     \
+        WG_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                       \
+        : WG_F32(d, 0), WG_F32(d, 32)                                    \
+        : "l"(da), "l"(db), "r"(accumulate));                            \
+  }
 
 // d (+)= A B, A [64 x 16] and B [16 x 64] both K-major in shared memory
 // (descriptors da, db); accumulate: 0 overwrites d, 1 adds to it
@@ -247,12 +277,28 @@ struct Wgmma;
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
   }
 
+// d += A B, A [64 x 16] in registers (a), B [16 x 128] MN-major in
+// shared memory (descriptor db)
+#define WG_RS_128(TY)                                                    \
+  static __device__ __forceinline__ void rs128(float (&d)[64],           \
+                                               const uint32_t (&a)[4],   \
+                                               uint64_t db) {            \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "     \
+        WG_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"         \
+        : WG_F32(d, 0), WG_F32(d, 32)                                    \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
+  }
+
 template <>
 struct Wgmma<__nv_bfloat16> {
+  WG_SS_128("bf16")
   WG_SS_64("bf16")
   WG_SS_32("bf16")
   WG_SS_16("bf16")
   WG_RS_256("bf16")
+  WG_RS_128("bf16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
     return *reinterpret_cast<uint32_t*>(&h);
@@ -266,10 +312,12 @@ struct Wgmma<__nv_bfloat16> {
 
 template <>
 struct Wgmma<__half> {
+  WG_SS_128("f16")
   WG_SS_64("f16")
   WG_SS_32("f16")
   WG_SS_16("f16")
   WG_RS_256("f16")
+  WG_RS_128("f16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __half2 h = __floats2half2_rn(x, y);
     return *reinterpret_cast<uint32_t*>(&h);
@@ -281,10 +329,12 @@ struct Wgmma<__half> {
       CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 };
 
+#undef WG_SS_128
 #undef WG_SS_64
 #undef WG_SS_32
 #undef WG_SS_16
 #undef WG_RS_256
+#undef WG_RS_128
 
 // (x, y) as a pair rounded to T (hi) and the pair of what that rounding
 // lost, rounded again (lo): hi + lo keeps ~16 significant bits
@@ -312,7 +362,8 @@ __device__ __forceinline__ void split3_pack(float x, float y, uint32_t& hi,
 }
 
 // element offset of (row r, column c) in a swizzled [rows, 256] tile of
-// `rows` rows (four [rows][64] column blocks)
+// `rows` rows (four [rows][64] column blocks; the first two of them in a
+// [rows, 128] tile)
 template <int ROWS>
 __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 6) * ROWS * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
@@ -416,16 +467,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// tensor map of a contiguous [bh, t, 256] 16-bit tensor read in boxes
-// of (64 columns, rows, 1 slice), 128-byte swizzled; rows past t read
-// as 0. Returns a CUDA error code (0 = ok).
-template <typename T>
+// tensor map of a contiguous [bh, t, COLS] 16-bit tensor (COLS 256 or
+// 128) read in boxes of (64 columns, rows, 1 slice), 128-byte swizzled;
+// rows past t read as 0. Returns a CUDA error code (0 = ok).
+template <typename T, int COLS = 256>
 int make_map(CUtensorMap* map, const void* base, int bh, int t, int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {256, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {256 * sizeof(T),
-                                 (cuuint64_t)t * 256 * sizeof(T)};
+  const cuuint64_t dims[3] = {COLS, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {COLS * sizeof(T),
+                                 (cuuint64_t)t * COLS * sizeof(T)};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, Wgmma<T>::TMA_TYPE, 3, const_cast<void*>(base),

@@ -9,19 +9,21 @@ by TMA from a producer warp: ``csrc/flash_fwd_d256_wgmma.cu``,
 ``csrc/flash_bwd_dkv_d256_wgmma.cu`` for bf16 and fp16;
 ``csrc/flash_fwd_f32_d256_wgmma.cu``,
 ``csrc/flash_bwd_dq_f32_d256_wgmma.cu`` and
-``csrc/flash_bwd_dkv_f32_d256_wgmma.cu`` for float32):
+``csrc/flash_bwd_dkv_f32_d256_wgmma.cu`` for float32), and at head dim
+128 K1 and K3 on bf16 and fp16 (``csrc/flash_fwd_d128_wgmma.cu``,
+``csrc/flash_bwd_dkv_d128_wgmma.cu``):
 
 - K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
-  and fp16 run ``csrc/flash_fwd_mma.cu``, float32
-  ``csrc/flash_fwd_f32mma.cu``. Its plain version is
+  and fp16 run ``csrc/flash_fwd_mma.cu`` (but at D = 128 and 256),
+  float32 ``csrc/flash_fwd_f32mma.cu``. Its plain version is
   :func:`ref_attention_lse`, a torch copy of the reference's
   ``_ref_attention_lse``.
 - K2 ``_fa_bwd_dq_kernel`` (dQ), wrapped by :func:`flash_bwd_dq`: bf16
   and fp16 run ``csrc/flash_bwd_dq_mma.cu``, float32
   ``csrc/flash_bwd_dq_f32mma.cu``.
 - K3 ``_fa_bwd_dkv_kernel`` (dK, dV), wrapped by :func:`flash_bwd_dkv`:
-  bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu``, float32
-  ``csrc/flash_bwd_dkv_f32mma.cu``.
+  bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu`` (but at D = 128 and
+  256), float32 ``csrc/flash_bwd_dkv_f32mma.cu``.
 
 One TF32 or bf16 rounding of the operands cannot meet the float32
 tiers, so the float32 kernels split every operand into hi + lo halves
@@ -46,8 +48,8 @@ The head dims the kernels take are 64 and every multiple of 128, the
 reference's Pallas gate (D % 128 == 0): past 128 each ``mma.sync``
 kernel runs its D = 128 tiles in 128-column slices, one block a slice
 of its output (``csrc/mma_sm90.cuh`` ``HEAD_SLICE``), but for the
-warpgroup kernels at D = 256 (:data:`WGMMA_HEAD_DIM`, every kernel of
-both routes). The reference
+warpgroup kernels (``_WGMMA_ROUTES``: every kernel of both routes at
+D = 256, 16-bit K1 and K3 at D = 128). The reference
 sends the head dims its Pallas kernels do not take (D % 128 != 0) to
 its plain path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``);
 so does :class:`FlashAttention` here, decided by the head dim before
@@ -125,24 +127,29 @@ _ROUTES = {
 }
 
 
-# at this head dim the (wrapper, route) pairs below run kernels of their
-# own on Hopper's warpgroup instructions (wgmma, TMA, a producer warp):
-# K1, K2 and K3 on bf16 and fp16 and on float32; other head dims past
-# 128 keep the D = 128 tiles in slices
-WGMMA_HEAD_DIM = 256
+# (wrapper, route, head dim) -> the kernel of its own on Hopper's
+# warpgroup instructions (wgmma, TMA, a producer warpgroup) that the
+# wrapper launches there: K1, K2 and K3 on both routes at D = 256, and
+# 16-bit K1 and K3 at D = 128 (16-bit K2 at D = 128, D = 64 and the
+# float32 route at D = 128 keep their mma.sync kernels; other head dims
+# past 128 run the D = 128 mma.sync tiles in slices)
 _WGMMA_ROUTES = {
-    ("flash_fwd", HALF_ROUTE): ("flash_fwd_d256_wgmma",
-                                "flash_fwd_d256_wgmma"),
-    ("flash_fwd", F32_ROUTE): ("flash_fwd_f32_d256_wgmma",
-                               "flash_fwd_f32_d256_wgmma"),
-    ("flash_bwd_dq", HALF_ROUTE): ("flash_bwd_dq_d256_wgmma",
-                                   "flash_bwd_dq_d256_wgmma"),
-    ("flash_bwd_dkv", HALF_ROUTE): ("flash_bwd_dkv_d256_wgmma",
-                                    "flash_bwd_dkv_d256_wgmma"),
-    ("flash_bwd_dq", F32_ROUTE): ("flash_bwd_dq_f32_d256_wgmma",
-                                  "flash_bwd_dq_f32_d256_wgmma"),
-    ("flash_bwd_dkv", F32_ROUTE): ("flash_bwd_dkv_f32_d256_wgmma",
-                                   "flash_bwd_dkv_f32_d256_wgmma"),
+    ("flash_fwd", HALF_ROUTE, 256): ("flash_fwd_d256_wgmma",
+                                     "flash_fwd_d256_wgmma"),
+    ("flash_fwd", F32_ROUTE, 256): ("flash_fwd_f32_d256_wgmma",
+                                    "flash_fwd_f32_d256_wgmma"),
+    ("flash_bwd_dq", HALF_ROUTE, 256): ("flash_bwd_dq_d256_wgmma",
+                                        "flash_bwd_dq_d256_wgmma"),
+    ("flash_bwd_dkv", HALF_ROUTE, 256): ("flash_bwd_dkv_d256_wgmma",
+                                         "flash_bwd_dkv_d256_wgmma"),
+    ("flash_bwd_dq", F32_ROUTE, 256): ("flash_bwd_dq_f32_d256_wgmma",
+                                       "flash_bwd_dq_f32_d256_wgmma"),
+    ("flash_bwd_dkv", F32_ROUTE, 256): ("flash_bwd_dkv_f32_d256_wgmma",
+                                        "flash_bwd_dkv_f32_d256_wgmma"),
+    ("flash_fwd", HALF_ROUTE, 128): ("flash_fwd_d128_wgmma",
+                                     "flash_fwd_d128_wgmma"),
+    ("flash_bwd_dkv", HALF_ROUTE, 128): ("flash_bwd_dkv_d128_wgmma",
+                                         "flash_bwd_dkv_d128_wgmma"),
 }
 
 
@@ -156,10 +163,9 @@ def kernel_for(wrapper, dtype, d):
     """(library, symbol) of the CUDA kernel that ``wrapper``
     ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") launches on CUDA
     tensors of ``dtype`` and head dim ``d``: bf16 and fp16 go to the
-    16-bit tensor-core kernels, float32 to the split-operand ones; at
-    D = :data:`WGMMA_HEAD_DIM` each (wrapper, route) of
-    ``_WGMMA_ROUTES`` (all six) to its warpgroup kernel. Raises
-    ValueError for what no kernel takes."""
+    16-bit tensor-core kernels, float32 to the split-operand ones; each
+    (wrapper, route, head dim) of ``_WGMMA_ROUTES`` to its warpgroup
+    kernel. Raises ValueError for what no kernel takes."""
     if not _kernel_head_dim(d):
         raise ValueError(f"{wrapper} kernels take head dims 64 and the "
                          f"multiples of {HEAD_SLICE}, got {d}")
@@ -167,9 +173,7 @@ def kernel_for(wrapper, dtype, d):
         raise ValueError(f"{wrapper} kernels take float32, bfloat16 or "
                          f"float16, got {dtype}")
     route = F32_ROUTE if dtype == torch.float32 else HALF_ROUTE
-    if d == WGMMA_HEAD_DIM and (wrapper, route) in _WGMMA_ROUTES:
-        return _WGMMA_ROUTES[wrapper, route]
-    return _ROUTES[wrapper][route]
+    return _WGMMA_ROUTES.get((wrapper, route, d), _ROUTES[wrapper][route])
 
 
 def takes_kernels(x):
@@ -397,7 +401,7 @@ def reset_launch_counts():
         for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
             w.launches = 0
             routes = _ROUTES[w.__name__] + tuple(
-                r for (name, _), r in _WGMMA_ROUTES.items()
+                r for (name, _, _), r in _WGMMA_ROUTES.items()
                 if name == w.__name__)
             w.launches_by_kernel = {sym: 0 for _, sym in routes}
             w.launches_by_kernel[PLAIN] = 0

@@ -32,19 +32,22 @@ def _library_of(symbol):
                 for lib, sym in routes if sym == symbol)
 
 
-# the warpgroup kernels at head dim 256: K1, K2 and K3 on bf16 and fp16
-# and on float32
+# the warpgroup kernels: at head dim 256 K1, K2 and K3 on bf16 and fp16
+# and on float32; at head dim 128 K1 and K3 on bf16 and fp16
 WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
                  "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma",
                  "flash_bwd_dq_f32_d256_wgmma",
-                 "flash_bwd_dkv_f32_d256_wgmma")
+                 "flash_bwd_dkv_f32_d256_wgmma", "flash_fwd_d128_wgmma",
+                 "flash_bwd_dkv_d128_wgmma")
 # the TPU kernel (pallas_attention.py line and function) each replaces
 REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_d256_wgmma": ":223 _fa_bwd_dq_kernel",
             "flash_bwd_dkv_d256_wgmma": ":189 _fa_bwd_dkv_kernel",
             "flash_fwd_f32_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_f32_d256_wgmma": ":223 _fa_bwd_dq_kernel",
-            "flash_bwd_dkv_f32_d256_wgmma": ":189 _fa_bwd_dkv_kernel"}
+            "flash_bwd_dkv_f32_d256_wgmma": ":189 _fa_bwd_dkv_kernel",
+            "flash_fwd_d128_wgmma": ":59 _fa_kernel",
+            "flash_bwd_dkv_d128_wgmma": ":189 _fa_bwd_dkv_kernel"}
 # each warpgroup kernel's warpgroups, and the (producer, consumer)
 # registers setmaxnreg gives them (None: no reallocation)
 WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
@@ -52,7 +55,17 @@ WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
               "flash_bwd_dkv_d256_wgmma": (3, (24, 240)),
               "flash_fwd_f32_d256_wgmma": (2, None),
               "flash_bwd_dq_f32_d256_wgmma": (2, None),
-              "flash_bwd_dkv_f32_d256_wgmma": (3, (104, 200))}
+              "flash_bwd_dkv_f32_d256_wgmma": (3, (104, 200)),
+              "flash_fwd_d128_wgmma": (3, (24, 240)),
+              "flash_bwd_dkv_d128_wgmma": (3, (24, 240))}
+# what kernel_for returned at head dims 64, 128 and 384 before the D = 128
+# warpgroup kernels: the mma.sync kernel of each (wrapper, route)
+MMA_SYMBOLS = {("flash_fwd", False): "flash_fwd_mma",
+               ("flash_fwd", True): "flash_fwd_f32mma",
+               ("flash_bwd_dq", False): "flash_bwd_dq_mma",
+               ("flash_bwd_dq", True): "flash_bwd_dq_f32mma",
+               ("flash_bwd_dkv", False): "flash_bwd_dkv_mma",
+               ("flash_bwd_dkv", True): "flash_bwd_dkv_f32mma"}
 
 
 @pytest.mark.parametrize("wrapper,dtype,want", [
@@ -69,9 +82,12 @@ WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
 @pytest.mark.parametrize("d", [64, 128])
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     """16-bit inputs go to the 16-bit tensor-core kernels of K1, K2 and
-    K3, float32 to the split-operand ones. The library is the source the
-    symbol is built from."""
+    K3, float32 to the split-operand ones; at D 128 16-bit K1 and K3 to
+    their warpgroup kernels. The library is the source the symbol is
+    built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
+    if d == 128 and dtype != torch.float32 and wrapper != "flash_bwd_dq":
+        want = f"{wrapper}_d128_wgmma"
     assert sym == want
     assert lib in cuda_build.SOURCES
     assert f'extern "C" int {sym}(' in (CSRC / f"{lib}.cu").read_text()
@@ -92,7 +108,7 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
 def test_routing_at_head_dim_256(wrapper, dtype, want):
     """At D 256 K1, K2 and K3 go to their warpgroup kernels on both
     routes, bf16 and fp16 and float32; at D 384 every route is the
-    sliced kernel of D 128. Each
+    sliced mma.sync kernel that D 64 runs. Each
     symbol is built from the source of its name, takes as many pointers
     as its wrapper hands it, and is counted by reset_launch_counts."""
     lib, sym = fa.kernel_for(wrapper, dtype, 256)
@@ -103,8 +119,41 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
     assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
     assert sym in getattr(fa, wrapper).launches_by_kernel
     assert fa.kernel_for(wrapper, dtype, 384) == \
-        fa.kernel_for(wrapper, dtype, 128)
+        fa.kernel_for(wrapper, dtype, 64) == \
+        (MMA_SYMBOLS[wrapper, dtype == torch.float32],) * 2
 
+
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_routing_at_head_dim_128(wrapper, dtype):
+    """At D 128 16-bit K1 and K3 go to their warpgroup kernels
+    (flash_fwd_d128_wgmma, flash_bwd_dkv_d128_wgmma); 16-bit K2 at D
+    128, every route at D 64 and D 384, and float32 at D 128 keep the
+    mma.sync kernels they ran before. Each new symbol is built from the
+    source of its name, takes as many pointers as its wrapper hands it,
+    is one lookup of the (wrapper, route, head dim) table and is counted
+    by reset_launch_counts."""
+    f32 = dtype == torch.float32
+    mma = MMA_SYMBOLS[wrapper, f32]
+    for d in (64, 384):
+        assert fa.kernel_for(wrapper, dtype, d) == (mma, mma)
+    lib, sym = fa.kernel_for(wrapper, dtype, 128)
+    if f32 or wrapper == "flash_bwd_dq":
+        assert lib == sym == mma
+        assert (wrapper, fa.HALF_ROUTE, 128) not in fa._WGMMA_ROUTES \
+            or f32
+        return
+    assert lib == sym == f"{wrapper}_d128_wgmma"
+    assert fa._WGMMA_ROUTES[wrapper, fa.HALF_ROUTE, 128] == (lib, sym)
+    assert lib in cuda_build.SOURCES
+    text = (CSRC / f"{lib}.cu").read_text()
+    sig = text[text.index(f'extern "C" int {sym}('):]
+    n_ptrs = {"flash_fwd": 5, "flash_bwd_dkv": 8}[wrapper]
+    assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
+    fa.reset_launch_counts()
+    assert getattr(fa, wrapper).launches_by_kernel[sym] == 0
 
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float64, 128, "float32, bfloat16 or float16"),
@@ -113,7 +162,7 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
     # head dims past 128 that are multiples of it (the reference's
     # D % 128 == 0 gate) are not refused: this case holds that K1, K2
     # and K3 at 256 route to their warpgroup kernels on every dtype, and
-    # every dtype at 384 to the sliced kernels of D 128
+    # every dtype at 384 to the sliced mma.sync kernels that D 64 runs
     pytest.param(torch.float32, 256, None, id="dtype3-256-head dims"),
 ])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
@@ -121,7 +170,7 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
 def test_routing_raises_for_what_no_kernel_takes(wrapper, dtype, d, match):
     if match is None:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
-            sliced = fa.kernel_for(wrapper, dt, 128)
+            sliced = fa.kernel_for(wrapper, dt, 64)
             assert fa.kernel_for(wrapper, dt, 384) == sliced
             own = (f"{wrapper}_f32_d256_wgmma" if dt == torch.float32
                    else f"{wrapper}_d256_wgmma")
@@ -209,8 +258,10 @@ def test_constexprs_evaluate_in_order_with_integer_division():
 
 
 @pytest.mark.parametrize("d,want", [
-    (128, {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 64),
-           "flash_bwd_dkv": (64, 64)}),
+    # the warpgroup K1 and K3: 128-row q tiles over 128-key stages, and
+    # 128-key blocks over 64-row q tiles; K2's mma.sync tile
+    (128, {"flash_fwd": (128, 128), "flash_bwd_dq": (64, 64),
+           "flash_bwd_dkv": (64, 128)}),
     # the warpgroup kernels: K2's 128 q rows over 32-key stages
     (256, {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 32),
            "flash_bwd_dkv": (64, 64)})])
@@ -233,6 +284,35 @@ def _plain_pairs(q, k, v, do, sc, dt):
     pairs = {"O": (o, o), "dQ": (dq, dq), "dK": (dk, dk), "dV": (dv, dv)}
     errs = {n: chip_smoke.kernel_err(g, w) for n, (g, w) in pairs.items()}
     return pairs, errs, lse, delta
+
+
+def test_planted_faults_are_caught_at_the_d128_training_shape():
+    """At the Llama training shape (one head here: T 2048, D 128,
+    causal), every fault chip_smoke.py plants at the tiles of the
+    kernels that shape runs (K1's 128-row q tiles, K3's 128-key blocks
+    over 64-row q tiles, K2's mma.sync tile) fails the 16-bit tier where
+    the kernels agree exactly."""
+    r = np.random.RandomState(7)
+    t, d = chip_smoke.TRAIN_SEQ, 128
+    q, k, v = (torch.from_numpy((r.randn(1, t, d) * 0.5).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    do = torch.from_numpy(r.randn(1, t, d).astype(np.float32)) \
+        .to(torch.bfloat16)
+    sc = 1 / math.sqrt(d)
+    pairs, errs, lse, delta = _plain_pairs(q, k, v, do, sc, torch.bfloat16)
+    logged = []
+    chip_smoke.log, log = logged.append, chip_smoke.log
+    try:
+        chip_smoke.check_planted_faults(
+            torch, fa, (q, k, v, do, lse, delta), sc, pairs, errs,
+            chip_smoke.TRAIN_LABEL)
+    finally:
+        chip_smoke.log = log
+    assert len(logged) == 7 and all(" caught" in x for x in logged), logged
+    for fault in ("K1 leaves its last 128-row q tile unwritten",
+                  "K3 leaves its last 128-key tile unwritten",
+                  "K3 skips its last 64-row q tile"):
+        assert any(fault in x for x in logged), (fault, logged)
 
 
 def test_planted_faults_are_caught_at_the_d256_training_shape():
@@ -453,7 +533,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         assert not any(w.launches_by_kernel.values())
     assert fa.flash_fwd.launches_by_kernel == {
         "flash_fwd_f32mma": 0, "flash_fwd_mma": 0, "flash_fwd_d256_wgmma": 0,
-        "flash_fwd_f32_d256_wgmma": 0, "plain": 0}
+        "flash_fwd_f32_d256_wgmma": 0, "flash_fwd_d128_wgmma": 0,
+        "plain": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {
         "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0,
         "flash_bwd_dq_d256_wgmma": 0, "flash_bwd_dq_f32_d256_wgmma": 0,
@@ -461,12 +542,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert fa.flash_bwd_dkv.launches_by_kernel == {
         "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
         "flash_bwd_dkv_d256_wgmma": 0, "flash_bwd_dkv_f32_d256_wgmma": 0,
-        "plain": 0}
+        "flash_bwd_dkv_d128_wgmma": 0, "plain": 0}
 
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_wgmma_sources_name_their_design(name):
-    """The head-dim-256 kernels: warpgroup products (wgmma) fed by TMA
+    """The warpgroup kernels (every route at head dim 256, 16-bit K1 and
+    K3 at 128): warpgroup products (wgmma) fed by TMA
     from a producer warpgroup (which setmaxnreg brings down beside two
     consumers, to exactly the launch's 168 registers a thread; float32
     K1's and K2's one consumer needs no reallocation, and their sources
@@ -474,7 +556,8 @@ def test_wgmma_sources_name_their_design(name):
     exist; each source names the TPU kernel it replaces, its
     shared-memory budget and ptxas's registers and spills, and its
     kernel's SASS is held to HGMMA by chip_smoke.py. Each is the route
-    kernel_for names at D 256 for its dtypes."""
+    kernel_for names at its source's D for its dtypes, and the only
+    head dim of the routing table that names it."""
     text = (CSRC / f"{name}.cu").read_text()
     header = (CSRC / "wgmma_sm90.cuh").read_text()
     assert f"paddle_tpu/ops/pallas_attention.py{REPLACES[name]}" in text
@@ -485,7 +568,9 @@ def test_wgmma_sources_name_their_design(name):
     assert "wgmma.mma_async" in header and "setmaxnreg" in header
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     values = cuda_build.constexprs(name)
-    assert values["D"] == fa.WGMMA_HEAD_DIM == 256
+    dims = {d for (_, _, d), (lib, _) in fa._WGMMA_ROUTES.items()
+            if lib == name}
+    assert dims == {values["D"]} and values["D"] in (128, 256)
     assert values["SMEM_BYTES"] <= 232448          # 227 KB a block
     f32 = "f32" in name
     groups, regs = WARPGROUPS[name]
@@ -503,27 +588,29 @@ def test_wgmma_sources_name_their_design(name):
             and "setmaxnreg_inc<CONSUMER_REGS>" in text)
     assert f"{name}_kernel" in chip_smoke.WGMMA_KERNELS
     assert f"{name}_kernel" not in chip_smoke.MMA_KERNELS
-    wrapper = name.replace("_f32", "").replace("_d256_wgmma", "")
+    wrapper = name.replace("_f32", "").replace(f"_d{values['D']}_wgmma",
+                                                 "")
     dtypes = (torch.float32,) if f32 else (torch.bfloat16, torch.float16)
     for dt in dtypes:
-        assert fa.kernel_for(wrapper, dt, 256) == (name, name)
+        assert fa.kernel_for(wrapper, dt, values["D"]) == (name, name)
 
 
 @pytest.mark.parametrize("name", sorted(split_check.LO_PRODUCTS))
 def test_split_check_cuts_only_the_lo_product(name):
     """split_check.py's "hi only" variant of each 16-bit warpgroup
-    kernel (K1, K2, K3) is the shipped source less the one wgmma that
-    takes the lo halves of P (or dS); its "hi + lo" variant is the
-    source as it ships."""
+    kernel (K1, K2, K3) is the shipped source less the wgmma that take
+    the lo halves of P (or dS); its "hi + lo" variant is the source as
+    it ships."""
     assert set(split_check.LO_PRODUCTS) == {
         s for s in WGMMA_SOURCES if "f32" not in s}
-    lo_line, n_ptrs = split_check.LO_PRODUCTS[name]
+    lo_lines, n_ptrs = split_check.LO_PRODUCTS[name]
     text = (CSRC / f"{name}.cu").read_text()
-    got = split_check.variants(text, lo_line)
+    got = split_check.variants(text, lo_lines)
     assert got["hi + lo (shipped)"] == text
-    cut = [a for a, b in zip(text.splitlines(), got["hi only"].splitlines())
-           if a != b]
-    assert len(cut) == 1 and cut[0].strip() == lo_line
+    cut = [a.strip() for a, b in zip(text.splitlines(),
+                                     got["hi only"].splitlines()) if a != b]
+    assert len(got["hi only"].splitlines()) == len(text.splitlines())
+    assert cut == list(lo_lines)
     sig = text[text.index(f'extern "C" int {name}('):]
     assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
 

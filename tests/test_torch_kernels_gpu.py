@@ -10,9 +10,11 @@ Gradients through the autograd.Function (K1, K2, K3 on the card)
 against the plain versions on the CPU: rtol 2e-3 / atol 2e-4.
 
 The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
-``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``, and at head dim 256 the
+``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``, at head dim 256 the
 warpgroup kernels ``flash_fwd_d256_wgmma``, ``flash_bwd_dq_d256_wgmma``
-and ``flash_bwd_dkv_d256_wgmma``) are held to chip_smoke.py's 16-bit
+and ``flash_bwd_dkv_d256_wgmma``, and at head dim 128 the warpgroup
+kernels ``flash_fwd_d128_wgmma`` and ``flash_bwd_dkv_d128_wgmma``) are
+held to chip_smoke.py's 16-bit
 tier: rtol 1e-2 (one rounding of the output) plus atol 1e-2 x the plain
 output's RMS, against the plain version evaluated in float32 on the same
 inputs and rounded once to the output's type. The float32 kernels
@@ -163,6 +165,8 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
         sym = fa.kernel_for(w.__name__, dt, d)[1]
         if d == 256:
             assert sym == f"{w.__name__}_{'f32_' if f32 else ''}d256_wgmma"
+        elif d == 128 and not f32 and w is not fa.flash_bwd_dq:
+            assert sym == f"{w.__name__}_d128_wgmma"
         else:
             assert sym == f"{w.__name__}_{'f32mma' if f32 else 'mma'}"
         assert w.launches_by_kernel == {
@@ -217,6 +221,73 @@ def test_wgmma_kernels_match_plain_versions(dtype, bh, tq, tk, causal):
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         assert w.launches_by_kernel[f"{w.__name__}_d256_wgmma"] \
             == w.launches == chunks
+    want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
+                                            sc, causal)
+    want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
+                                          causal)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    for name, got, want in (("O", o, want_o.to(dt)), ("dQ", dq, want_q),
+                            ("dK", dk, want_k), ("dV", dv, want_v)):
+        assert got.dtype == dt and torch.isfinite(got).all(), name
+        ratio = _half_tier_ratio(got, want)
+        assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
+
+
+# (bh, tq, tk, causal) at head dim 128: the Llama training shape, the
+# serving buckets and generate's recompute, T 2048 non-causal, tq != tk
+# (fully masked rows), ragged, and B*H past gridDim.y's 65535
+WGMMA_D128_CASES = [(64, 2048, 2048, True), (2, 2048, 2048, False),
+                    (128, 128, 128, True), (128, 256, 256, True),
+                    (128, 192, 192, True), (8, 128, 128, False),
+                    (8, 128, 256, True), (8, 256, 128, True),
+                    (8, 200, 200, True), (8, 200, 200, False),
+                    (65536, 16, 16, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("bh,tq,tk,causal", WGMMA_D128_CASES)
+def test_d128_wgmma_kernels_match_plain_versions(dtype, bh, tq, tk, causal):
+    """bf16 and fp16 K1 and K3 at head dim 128 on their warpgroup
+    kernels (wgmma, TMA; K1's consumers in ping-pong), K2 on its
+    mma.sync kernel, each output against its plain version in the 16-bit
+    tier, one launch on each symbol (two for B*H past 65535)."""
+    _check_d128_kernels(dtype, bh, tq, tk, causal, 1 / np.sqrt(128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("bh,tq,tk,causal", [(8, 256, 256, True),
+                                             (8, 512, 512, False)])
+def test_d128_wgmma_kernels_take_a_negative_scale(dtype, bh, tq, tk, causal):
+    """The reference takes any scale, a negative one too: there K1's
+    unmasked tiles may not take the raw scores' row maxima for the
+    maxima of the scaled ones (at -8 those scores span 2^249, and
+    2^(x - m) from the raw maxima would overflow to inf), so K1-K3 at
+    head dim 128 still match their plain versions."""
+    _check_d128_kernels(dtype, bh, tq, tk, causal, -8.0)
+
+
+def _check_d128_kernels(dtype, bh, tq, tk, causal, sc):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, tq, tk,
+                                              128, dt)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    chunks = -(-bh // fa.MAX_GRID_Y)
+    for w, sym in ((fa.flash_fwd, "flash_fwd_d128_wgmma"),
+                   (fa.flash_bwd_dq, "flash_bwd_dq_mma"),
+                   (fa.flash_bwd_dkv, "flash_bwd_dkv_d128_wgmma")):
+        assert w.launches_by_kernel[sym] == w.launches == chunks
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
                                             sc, causal)
     want_q = fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
@@ -419,11 +490,12 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
             + (lse * dl.to(dev)).sum()
         grads[dev] = [g.float().cpu() for g in torch.autograd.grad(loss, ts)]
         if dev == "cuda":
-            assert fa.flash_fwd.launches_by_kernel["flash_fwd_mma"] == 1
+            assert fa.flash_fwd.launches_by_kernel[
+                "flash_fwd_d128_wgmma"] == 1
             assert fa.flash_bwd_dq.launches_by_kernel[
                 "flash_bwd_dq_mma"] == 1
             assert fa.flash_bwd_dkv.launches_by_kernel[
-                "flash_bwd_dkv_mma"] == 1
+                "flash_bwd_dkv_d128_wgmma"] == 1
             card_o, card_lse = o.detach().cpu(), lse.detach().cpu()
     q, k, v = bf
     delta = (do.float() * card_o.float()).sum(-1) - dl
@@ -436,7 +508,8 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
         ratio = _half_tier_ratio(got, want)
         assert ratio <= 1.0, f"{name}: worst err / limit {ratio:.3f}"
     # K3 skipping its last q tile loses those rows' share of dK and dV
-    m = cuda_build.constexprs("flash_bwd_dkv_mma")["BLOCK_M"]
+    m = cuda_build.constexprs(fa.kernel_for("flash_bwd_dkv", torch.bfloat16,
+                                            128)[0])["BLOCK_M"]
     lost_k, lost_v = fa.ref_flash_bwd_dkv(
         q[:, :, -m:], k, v, do[:, :, -m:], card_lse[..., -m:],
         delta[..., -m:], sc, True)
@@ -448,7 +521,8 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
     # tq = tk, the share of the keys on the diagonal tile: the plain dQ
     # of each q tile's rows against those keys (the masks align
     # bottom-right)
-    tiles = cuda_build.constexprs("flash_bwd_dq_mma")
+    tiles = cuda_build.constexprs(fa.kernel_for("flash_bwd_dq", torch.bfloat16,
+                                                128)[0])
     bm, bn = tiles["BLOCK_M"], tiles["BLOCK_N"]
     nt = 256 // bm
     q_t, do_t = (x.reshape(2, 4, nt, bm, 128) for x in (q, do))
@@ -547,7 +621,8 @@ def test_fused_loss_on_the_card_matches_float64(dtype):
 @pytest.mark.parametrize("level", ["O1", "O2"])
 def test_amp_on_the_card_runs_the_bf16_kernels(level):
     """A float32 Llama (head dim 128) under amp_transpile on the card:
-    every K1/K2/K3 launch is a bf16 ``_mma`` kernel, the state stays
+    every K1/K2/K3 launch is a bf16 kernel (K1 and K3 the head-dim-128
+    warpgroup kernels, K2 its ``_mma`` kernel), the state stays
     float32, and 3 Adam losses track the CPU's AMP run at rtol 5e-2
     (tests/test_torch_amp.py's tier)."""
     if not torch.cuda.is_available():
@@ -569,9 +644,10 @@ def test_amp_on_the_card_runs_the_bf16_kernels(level):
     fa.reset_launch_counts()
     got = [float(gpu.run(main, feed=feed, fetch_list=[loss],
                          scope=scope)[0].reshape(())) for _ in range(3)]
-    assert fa.flash_fwd.launches_by_kernel["flash_fwd_mma"] == 12
+    assert fa.flash_fwd.launches_by_kernel["flash_fwd_d128_wgmma"] == 12
     assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq_mma"] == 6
-    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_mma"] == 6
+    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_d128_wgmma"] \
+        == 6
     assert fa.flash_fwd.launches == 12
     want = [float(cpu.run(main, feed=feed, fetch_list=[loss],
                           scope=cpu_scope)[0].reshape(())) for _ in range(3)]

@@ -15,17 +15,20 @@ Phases — any failure exits non-zero:
    compiler's register/shared-memory/spill report, and each kernel's
    count of tensor-core instructions in its SASS (``cuobjdump``) — no
    ``HMMA`` in an ``mma.sync`` kernel (``_mma``, ``_f32mma``) or no
-   ``HGMMA`` in a warpgroup kernel (``_d256_wgmma``, ``_d128_wgmma``)
-   fails the run;
+   ``HGMMA`` in a warpgroup kernel (``_d256_wgmma``, ``_d128_wgmma``,
+   ``_d64_wgmma``) fails the run;
 3. kernels: K1 (the flash-attention forward) and K2/K3 (its backward,
    dQ and dK/dV) against their plain torch versions on the same inputs,
    on both routes — bf16/fp16 through the 16-bit tensor-core kernels
    (``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dq_mma.cu``,
-   ``csrc/flash_bwd_dkv_mma.cu``; at D = 128 K1 and K3 on their
-   warpgroup kernels ``csrc/flash_fwd_d128_wgmma.cu`` and
+   ``csrc/flash_bwd_dkv_mma.cu``; at D = 128 K1, K2 and K3 on their
+   warpgroup kernels ``csrc/flash_fwd_d128_wgmma.cu``,
+   ``csrc/flash_bwd_dq_d128_wgmma.cu`` and
    ``csrc/flash_bwd_dkv_d128_wgmma.cu``), float32 through the split-operand
    tensor-core kernels (``csrc/flash_fwd_f32mma.cu``,
-   ``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``) —
+   ``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``; at
+   D = 64 K3 on its warpgroup kernel
+   ``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``) —
    at the serving and training shapes and the edge cases (causal and
    not, tq != tk with fully masked rows, ragged T, D = 64, in f32, bf16
    and fp16), each case asserting which variant launched, with dQ, dK
@@ -33,10 +36,12 @@ Phases — any failure exits non-zero:
    and scale; at the training shape, grid and tile-loop faults planted
    in copies of the outputs, at the tiles of the kernels that ran, must
    fail that tier, as must two faults of each float32 kernel at its own
-   tile at the f32 serving shape and ``f32 causal``, in the float32
-   tier; every kernel in bf16 and float32 at B*H = 65536 (past
-   gridDim.y's 65535, launched in chunks), and at D = 128 in bf16 and
-   fp16 (K1 and K3 on their warpgroup kernels); ``attention_with_lse``'s
+   tile at the f32 serving shape, ``f32 causal`` and Transformer-base's
+   self-attention (D = 64), in the float32 tier; every kernel in bf16
+   and float32 at B*H = 65536 (past gridDim.y's 65535, launched in
+   chunks; float32 K3 on its D = 64 warpgroup kernel), and at D = 128 in
+   bf16 and fp16 (K1, K2 and K3 on their warpgroup kernels);
+   ``attention_with_lse``'s
    gradient through both outputs against plain autograd of
    ``ref_attention_lse``; each kernel timed beside its plain version,
    its bound and ``scaled_dot_product_attention`` forward or backward (a
@@ -100,7 +105,9 @@ Phases — any failure exits non-zero:
    timed steps with finite losses, the first near ln V + d/(d + V), the
    last below the first, every fetched rate equal to its closed form,
    K1/K2/K3 6 launches a step (the causal decoder self-attention) on the
-   float32 kernels; step time, tokens/s, peak memory and one step's
+   float32 kernels of head dim 64 (K3 on its warpgroup kernel
+   ``flash_bwd_dkv_f32_d64_wgmma``); step time, tokens/s, peak memory
+   and one step's
    device time by kind;
 12. transformer_infer: ``clone(for_test=True)`` of the labels-free
    program on 11's trained scope, logits equal to the CPU's within the
@@ -508,7 +515,10 @@ RATE_OF_KERNEL = {
     "flash_bwd_dq_f32_d256_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
                                     F32_SPLIT_RATE),
     "flash_bwd_dkv_f32_d256_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
-                                     F32_SPLIT6_RATE, F32_SPLIT_RATE)}
+                                     F32_SPLIT6_RATE, F32_SPLIT_RATE),
+    # the same pieces at head dim 64
+    "flash_bwd_dkv_f32_d64_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
+                                    F32_SPLIT6_RATE, F32_SPLIT_RATE)}
 
 # tolerances (|got - want| <= atol + rtol * |want|). A kernel's plain
 # version is evaluated in float32 on the kernel's own inputs and rounded
@@ -538,13 +548,6 @@ AMP_LAYERS = 4                  # 32 → 4: float32 master state (params,
                                 # gradients, two Adam moments) of 4 layers
                                 # with the embedding and head is 31 GB
 AMP_STEPS = 3
-# each wrapper's float32 kernel, and at head dim 256 each one's own
-F32_KERNELS = {"flash_fwd": "flash_fwd_f32mma",
-               "flash_bwd_dq": "flash_bwd_dq_f32mma",
-               "flash_bwd_dkv": "flash_bwd_dkv_f32mma"}
-F32_D256_KERNELS = {"flash_fwd": "flash_fwd_f32_d256_wgmma",
-                    "flash_bwd_dq": "flash_bwd_dq_f32_d256_wgmma",
-                    "flash_bwd_dkv": "flash_bwd_dkv_f32_d256_wgmma"}
 F32_LONG_LABEL = "f32 T=2048"   # the float32 kernels where the grid fills
 BIG_BH = 65536                  # past gridDim.y's 65535
 # Transformer-base (models/transformer.py TRANSFORMER_BASE: d_model 512,
@@ -552,6 +555,7 @@ BIG_BH = 65536                  # past gridDim.y's 65535
 # as "Attention Is All You Need" section 5.3 does: noam_decay(512, 4000)
 # feeding Adam(beta1 0.9, beta2 0.98, eps 1e-9)
 TF_BATCH, TF_SEQ = 32, 256
+TF_HEAD_DIM = 64                # d_model 512 over 8 heads
 TF_LEN_RANGE = (64, 256)        # source/target lengths drawn from SEED
 TF_WARMUP, TF_STEPS = 2, 8
 TF_UNPADDED_STEPS = 3
@@ -620,8 +624,10 @@ HD256_F32_LABEL = "f32 D=256 train step"
 # float32 K2 and K3 at D 256 where operations, not latency, bound them
 HD256_F32_LONG_LABEL = "f32 D=256 T=2048 causal"
 # the float32 cases where faults planted at the float32 kernels' tiles
-# must fail (the last: the float32 warpgroup kernels at head dim 256)
-F32_FAULT_CASES = ("f32 serving T=256", "f32 causal", HD256_F32_LABEL)
+# must fail (the float32 warpgroup kernels at head dim 256, and
+# Transformer-base's self-attention with K3's at head dim 64)
+F32_FAULT_CASES = ("f32 serving T=256", "f32 causal", HD256_F32_LABEL,
+                   TF_CAUSAL_LABEL)
 # K1 at the phase's served dispatch: one 200-token request in bucket
 # 256, B*H 1*16
 HD256_OP_LABEL = "bf16 D=256 serving T=256"
@@ -710,14 +716,16 @@ KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                 ("k2_flash_bwd_dq", ("flash_bwd_dq_f32mma_kernel",
                                      "flash_bwd_dq_mma_kernel",
                                      "flash_bwd_dq_d256_wgmma_kernel",
-                                     "flash_bwd_dq_f32_d256_wgmma_kernel")),
+                                     "flash_bwd_dq_f32_d256_wgmma_kernel",
+                                     "flash_bwd_dq_d128_wgmma_kernel")),
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_f32mma_kernel",
                                       "flash_bwd_dkv_mma_kernel",
                                       "flash_bwd_dkv_d256_wgmma_kernel",
                                       "flash_bwd_dkv_f32_d256_wgmma_kernel",
-                                      "flash_bwd_dkv_d128_wgmma_kernel")))
+                                      "flash_bwd_dkv_d128_wgmma_kernel",
+                                      "flash_bwd_dkv_f32_d64_wgmma_kernel")))
 # the warpgroup kernels (K1, K2 and K3 at head dim 256 on both routes,
-# bf16/fp16 K1 and K3 at head dim 128),
+# bf16/fp16 K1, K2 and K3 at head dim 128, float32 K3 at head dim 64),
 # whose SASS must hold HGMMA instructions, and the mma.sync kernels,
 # whose SASS must hold HMMA: every kernel is one or the other
 WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
@@ -727,7 +735,9 @@ WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
                  "flash_bwd_dq_f32_d256_wgmma_kernel",
                  "flash_bwd_dkv_f32_d256_wgmma_kernel",
                  "flash_fwd_d128_wgmma_kernel",
-                 "flash_bwd_dkv_d128_wgmma_kernel")
+                 "flash_bwd_dkv_d128_wgmma_kernel",
+                 "flash_bwd_dq_d128_wgmma_kernel",
+                 "flash_bwd_dkv_f32_d64_wgmma_kernel")
 MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns
                     if kern not in WGMMA_KERNELS)
 # kernel symbol -> the constexprs of its source that give its tile's q
@@ -743,7 +753,9 @@ TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
                                "flash_bwd_dq_f32_d256_wgmma",
                                "flash_bwd_dkv_f32_d256_wgmma",
                                "flash_fwd_d128_wgmma",
-                               "flash_bwd_dkv_d128_wgmma")}
+                               "flash_bwd_dkv_d128_wgmma",
+                               "flash_bwd_dq_d128_wgmma",
+                               "flash_bwd_dkv_f32_d64_wgmma")}
 
 
 class SmokeFailure(Exception):
@@ -778,6 +790,13 @@ def nvidia_smi():
     check(out.returncode == 0 and out.stdout.strip(),
           f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def f32_kernel(torch, fa, wrapper, d):
+    """The symbol of the kernel ``wrapper`` launches on float32
+    attention of head dim ``d``, whose launches the float32 paths
+    count."""
+    return fa.kernel_for(wrapper, torch.float32, d)[1]
 
 
 def bf16_k1(torch, fa, cfg):
@@ -904,11 +923,16 @@ def phase_kernels(torch, fa, seed):
         ("f32 ragged T=200 causal", 8, 200, 200, 128, f32, True),
         ("f32 ragged T=200 non-causal", 8, 200, 200, 128, f32, False),
         ("f32 D=64 causal", 8, 256, 256, 64, f32, True),
+        ("f32 D=64 tq>tk causal (fully masked rows)", 8, 256, 128, 64, f32,
+         True),
+        ("f32 D=64 ragged T=200 non-causal", 8, 200, 200, 64, f32, False),
         ("bf16 tq<tk causal", 8, 128, 256, 128, bf16, True),
         ("bf16 tq>tk causal (fully masked rows)", 8, 256, 128, 128, bf16,
          True),
         ("bf16 ragged T=200 causal", 8, 200, 200, 128, bf16, True),
         ("bf16 ragged T=200 non-causal", 8, 200, 200, 128, bf16, False),
+        ("bf16 T=2048 non-causal", 4, TRAIN_SEQ, TRAIN_SEQ, 128, bf16,
+         False),
         ("bf16 D=64 causal", 8, 256, 256, 64, bf16, True),
         ("bf16 D=64 non-causal", 8, 256, 256, 64, bf16, False),
         ("fp16 ragged T=200 causal", 8, 200, 200, 128, f16, True),
@@ -1018,8 +1042,8 @@ def phase_kernels(torch, fa, seed):
           f"K1/K2/K3 disagree with their plain versions: {failures}")
     check_lse_gradient(torch, fa, gen, dev)
     check_big_bh(torch, fa, gen, dev)
-    # at D 128 16-bit K1 and K3 run their warpgroup kernels (float32 keeps
-    # the mma.sync route checked at D 64)
+    # at D 128 16-bit K1, K2 and K3 run their warpgroup kernels (float32
+    # keeps the mma.sync route; at D 64 above, K3 its warpgroup kernel)
     check_big_bh(torch, fa, gen, dev, d=128,
                  dtypes=(torch.bfloat16, torch.float16))
     # at D 256 K1-K3 run their warpgroup kernels on both routes: inputs,
@@ -1078,9 +1102,9 @@ def check_variants(torch, fa, dt, d, launches=1):
     ran = []
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         _, sym = fa.kernel_for(w.__name__, dt, d)
-        want = (F32_D256_KERNELS if d == 256 else F32_KERNELS)[w.__name__]
-        check(dt != torch.float32 or sym == want,
-              f"float32 {w.__name__} routes to {sym}, not {want}")
+        check((dt == torch.float32) == ("f32" in sym),
+              f"{dt} {w.__name__} routes to {sym}, a kernel of the other "
+              f"route")
         by = w.launches_by_kernel
         check(w.launches == launches and by[sym] == launches
               and not by[fa.PLAIN],
@@ -2040,7 +2064,7 @@ def phase_train_parity(torch, fluid, fa, card):
                             "train parity f32")
     by_kernel = launches_by_kernel(fa)
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        variant = F32_KERNELS[w.__name__]
+        variant = f32_kernel(torch, fa, w.__name__, cfg.dim // cfg.n_heads)
         check(w.launches == cfg.n_layers * 4
               and by_kernel[variant] == w.launches,
               f"f32 {w.__name__} launches by kernel "
@@ -2077,7 +2101,7 @@ def phase_train_stack_parity(torch, fluid, fa, card):
     by_kernel = launches_by_kernel(fa)
     for w, per_layer in zip((fa.flash_fwd, fa.flash_bwd_dq,
                              fa.flash_bwd_dkv), (2, 1, 1)):
-        variant = F32_KERNELS[w.__name__]
+        variant = f32_kernel(torch, fa, w.__name__, cfg.dim // cfg.n_heads)
         check(w.launches == per_layer * cfg.n_layers * 4
               and by_kernel[variant] == w.launches,
               f"train_stack parity f32: {w.__name__} launches by kernel "
@@ -2465,9 +2489,10 @@ def check_losses(tag, cfg, losses):
 
 def check_tf_launches(torch, fa, tag, by_kernel, per_step, steps):
     """Each of K1, K2 and K3 launched ``per_step`` times a step, every
-    launch the float32 kernel's and none on the plain route."""
+    launch the float32 kernel's of the Transformer's head dim and none on
+    the plain route."""
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        variant = F32_KERNELS[w.__name__]
+        variant = f32_kernel(torch, fa, w.__name__, TF_HEAD_DIM)
         n = per_step * steps
         check(w.launches == n and by_kernel[variant] == n
               and not w.launches_by_kernel[fa.PLAIN],
@@ -2668,7 +2693,8 @@ def phase_transformer_infer(torch, fluid, fa, card, trained):
           f"only {moved:.3e} (relative RMS)")
     for w, n in ((fa.flash_fwd, cfg.n_decoder_layers),
                  (fa.flash_bwd_dq, 0), (fa.flash_bwd_dkv, 0)):
-        check(launches[w] == n and by_kernel[F32_KERNELS[w.__name__]] == n,
+        check(launches[w] == n and by_kernel[
+                  f32_kernel(torch, fa, w.__name__, TF_HEAD_DIM)] == n,
               f"transformer_infer: {w.__name__} launched {launches[w]} "
               f"times ({by_kernel}), not {n}")
     out = {"batch": batch, "card_vs_cpu_rel_rms": rel,
@@ -2807,7 +2833,8 @@ def phase_transformer_serve(torch, fluid, fa, card, trained):
     n_k1 = cfg.n_decoder_layers * dispatches
     for w, n in ((fa.flash_fwd, n_k1), (fa.flash_bwd_dq, 0),
                  (fa.flash_bwd_dkv, 0)):
-        check(launches[w] == n and by_kernel[F32_KERNELS[w.__name__]] == n
+        check(launches[w] == n and by_kernel[
+                  f32_kernel(torch, fa, w.__name__, TF_HEAD_DIM)] == n
               and not w.launches_by_kernel[fa.PLAIN],
               f"{tag}: {w.__name__} launched {launches[w]} times "
               f"({by_kernel}), not {n}")
@@ -3336,7 +3363,7 @@ def phase_io_saved_serve(torch, fluid, fa, card, run, then=None):
             if not np.array_equal(g[0], w[0])]
     check(not same, f"{tag}: answers {same} differ from the in-memory "
           "engine's")
-    k1 = F32_KERNELS["flash_fwd"]
+    k1 = f32_kernel(torch, fa, "flash_fwd", TF_HEAD_DIM)
     n_dec = run.model_cfg.n_decoder_layers
     check(by_kernel[k1] > 0 and by_kernel[k1] % n_dec == 0
           and fa.flash_fwd.launches == by_kernel[k1]
@@ -9232,7 +9259,7 @@ def phase_cluster_remote(torch, fluid, fa, card, saved):
     t_phase = time.perf_counter()
     work, reqs, config, n_dec = (saved[k] for k in ("dir", "reqs",
                                                     "config", "n_dec"))
-    k1 = F32_KERNELS["flash_fwd"]
+    k1 = f32_kernel(torch, fa, "flash_fwd", TF_HEAD_DIM)
     args = ["--dir", work, "--host", "127.0.0.1", "--port", "0",
             "--max-wait-ms", str(config.max_wait_ms),
             "--default-timeout-s", str(config.default_timeout_s)]
@@ -10096,6 +10123,25 @@ def check_sass(cuda_build):
     return counts
 
 
+def replaced_row(t, row, launches, paths):
+    """The kernel line's row of the mma.sync kernel that the warpgroup
+    kernel of ``row`` replaced at its shape, timed and held to its plain
+    version on the same inputs in phase_kernels (``t``, its timing row);
+    it still runs at the head dims and routes that keep it."""
+    old = t["replaced_kernel"]
+    return {"name": old, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{old}.cu",
+            "replaces": row["replaces"], "replaced_by": row["name"],
+            "launches": launches[old],
+            "launches_by_path": {p: n[old] for p, n in paths.items()},
+            "max_abs_err": t["replaced_max_abs_err"],
+            "ms": t["replaced_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "launch_host_us": t["replaced_launch_host_us"],
+            **{key: row[key] for key in ("shape", "card", "power_limit")}}
+
+
 def free_card(torch):
     """Drop what the last phase left on the card; log the script's time
     so far (the phases' own times are the differences)."""
@@ -10478,23 +10524,7 @@ def main():
                           "d=128 causal bf16")
         kernels.append(row)
         if "replaced_kernel" in t:
-            # the mma.sync kernel the warpgroup kernel replaced at this
-            # shape, timed and held to its plain version on the same
-            # inputs in phase_kernels; it still runs at D 64 and the
-            # sliced head dims past 256
-            old = t["replaced_kernel"]
-            kernels.append({
-                "name": old, "route": "cuda",
-                "source": f"paddle_tpu_torch/csrc/{old}.cu",
-                "replaces": row["replaces"], "replaced_by": fn,
-                "launches": launches[old],
-                "launches_by_path": {p: n[old] for p, n in paths.items()},
-                "max_abs_err": t["replaced_max_abs_err"],
-                "ms": t["replaced_ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"],
-                "launch_host_us": t["replaced_launch_host_us"],
-                "shape": shape, "card": kind, "power_limit": power})
+            kernels.append(replaced_row(t, row, launches, paths))
     # K1-K3 at head dim 256 on both routes: the bf16 training shape of
     # the head_dim_256 phase (launches: its bf16 train step; its serve
     # dispatch under launches_by_path) and its float32 train step's
@@ -10556,7 +10586,7 @@ def main():
         for kind_ in ("fwd", "dq", "dkv"):
             t = timing[(kind_, label)]
             fn = t["kernel"]
-            kernels.append({
+            row = {
                 "name": fn, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{fn}.cu",
                 "replaces": "paddle_tpu/ops/pallas_attention.py"
@@ -10566,7 +10596,11 @@ def main():
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "shape": shape, "card": kind, "power_limit": power})
+                "shape": shape, "card": kind, "power_limit": power}
+            row.update((key, t[key]) for key in REPLACED_KEYS if key in t)
+            kernels.append(row)
+            if "replaced_kernel" in t:
+                kernels.append(replaced_row(t, row, launches, paths))
     print("serving_chaos: " + json.dumps(
         {"serve": chaos["serve"][1], "decode": chaos["decode"][1]}))
     print(json.dumps({"kernels": kernels}))

@@ -83,15 +83,6 @@ namespace {
 using namespace wgmma_sm90;
 using mma_sm90::for_bh_chunks;
 
-// 2^x by the hardware's approximation (relative error ~2^-22, results
-// below 2^-126 flushed to 0): exp2f's range handling costs a tile of
-// exponentials more than its products' issue slots can hide
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr int D = 128;
 constexpr int BLOCK_M = 128;  // q rows per block: 2 consumer warpgroups x 64
 constexpr int BLOCK_N = 128;  // keys per k/v stage

@@ -1,22 +1,24 @@
 // Hopper-only helpers shared by the warpgroup attention kernels at head
 // dim 256 (flash_fwd_d256_wgmma.cu, flash_bwd_dq_d256_wgmma.cu,
 // flash_bwd_dkv_d256_wgmma.cu, flash_fwd_f32_d256_wgmma.cu,
-// flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu) and
-// at head dim 128 (flash_fwd_d128_wgmma.cu, flash_bwd_dkv_d128_wgmma.cu):
-// TMA tile loads completing on mbarriers, the shared-memory matrix
-// descriptors of wgmma, the six wgmma shapes the kernels issue
-// (m64n128k16, m64n64k16, m64n32k16 and m64n16k16 with both operands in
-// shared memory, m64n256k16 and m64n128k16 with A in registers), the two-
-// and three-piece 16-bit splits of float32 values, warpgroup register
-// reallocation (setmaxnreg), named barriers, the proxy fence that lets
-// wgmma read what threads wrote, and the host-side tensor maps (16-bit
-// tiles swizzled, float32 tiles plain).
+// flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu), at
+// head dim 128 (flash_fwd_d128_wgmma.cu, flash_bwd_dq_d128_wgmma.cu,
+// flash_bwd_dkv_d128_wgmma.cu) and at head dim 64
+// (flash_bwd_dkv_f32_d64_wgmma.cu): TMA tile loads completing on
+// mbarriers, the shared-memory matrix descriptors of wgmma, the seven
+// wgmma shapes the kernels run (m64n128k16, m64n64k16, m64n32k16 and
+// m64n16k16 with both operands in shared memory, m64n256k16, m64n128k16
+// and m64n64k16 with A in registers), the two- and three-piece 16-bit
+// splits of float32 values, warpgroup register reallocation
+// (setmaxnreg), named barriers, the proxy fence that lets wgmma read
+// what threads wrote, the hardware's 2^x, and the host-side tensor maps
+// (16-bit tiles swizzled, float32 tiles plain).
 // sm_90a only: wgmma and setmaxnreg do not exist on plain sm_90.
 //
 // Shared tiles are in the layout that TMA's 128-byte swizzle writes and
 // wgmma's 128-byte-swizzle descriptors read: a [rows, 256] 16-bit tile
 // is four column blocks of 64 (one 128-byte row each; a [rows, 128]
-// tile two), each block
+// tile two, a [rows, 64] tile one), each block
 // [rows][64] with rows 128 bytes apart and its 16-byte chunk c of row r
 // stored at chunk c ^ (r % 8). Every block starts on 1024 bytes.
 //
@@ -25,7 +27,7 @@
 //   accumulator of m64nN: d[4 j + e], j the 8-column block:
 //     e 0, 1: (row g,     cols 8 j + 2 t, + 1)
 //     e 2, 3: (row g + 8, cols 8 j + 2 t, + 1)
-//   A of m64n256k16 (m64n128k16) in registers, four 32-bit registers of
+//   A of m64n256k16 (m64n128k16, m64n64k16) in registers, four 32-bit registers of
 //   two halves:
 //     a0 (row g, k 2t, 2t+1)  a1 (row g + 8, k 2t, 2t+1)
 //     a2 (row g, k 2t+8, +9)  a3 (row g + 8, k 2t+8, +9)
@@ -134,6 +136,15 @@ __device__ __forceinline__ void named_arrive(int id, int n) {
 // before the barrier that hands it over
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 2^x by the hardware's approximation (relative error ~2^-22, results
+// below 2^-126 flushed to 0): exp2f's range handling costs a tile of
+// exponentials more than its products can hide
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- wgmma ----
@@ -291,6 +302,20 @@ struct Wgmma;
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
   }
 
+// d += A B, A [64 x 16] in registers (a), B [16 x 64] MN-major in shared
+// memory (descriptor db)
+#define WG_RS_64(TY)                                                     \
+  static __device__ __forceinline__ void rs64(float (&d)[32],            \
+                                              const uint32_t (&a)[4],    \
+                                              uint64_t db) {             \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "      \
+        WG_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"         \
+        : WG_F32(d, 0)                                                   \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
+  }
+
 template <>
 struct Wgmma<__nv_bfloat16> {
   WG_SS_128("bf16")
@@ -299,6 +324,7 @@ struct Wgmma<__nv_bfloat16> {
   WG_SS_16("bf16")
   WG_RS_256("bf16")
   WG_RS_128("bf16")
+  WG_RS_64("bf16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
     return *reinterpret_cast<uint32_t*>(&h);
@@ -318,6 +344,7 @@ struct Wgmma<__half> {
   WG_SS_16("f16")
   WG_RS_256("f16")
   WG_RS_128("f16")
+  WG_RS_64("f16")
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __half2 h = __floats2half2_rn(x, y);
     return *reinterpret_cast<uint32_t*>(&h);
@@ -335,6 +362,7 @@ struct Wgmma<__half> {
 #undef WG_SS_16
 #undef WG_RS_256
 #undef WG_RS_128
+#undef WG_RS_64
 
 // (x, y) as a pair rounded to T (hi) and the pair of what that rounding
 // lost, rounded again (lo): hi + lo keeps ~16 significant bits
@@ -363,7 +391,7 @@ __device__ __forceinline__ void split3_pack(float x, float y, uint32_t& hi,
 
 // element offset of (row r, column c) in a swizzled [rows, 256] tile of
 // `rows` rows (four [rows][64] column blocks; the first two of them in a
-// [rows, 128] tile)
+// [rows, 128] tile, the first in a [rows, 64] one)
 template <int ROWS>
 __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 6) * ROWS * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
@@ -372,8 +400,8 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // the NP 16-bit pieces (split_pack's for NP 2, split3_pack's for NP 3)
 // of the 8 float32 values a, b at row r, columns c .. c + 7, into the
-// swizzled [ROWS, 256] tiles dst + p ROWS 256 (piece p)
-template <int ROWS, int NP>
+// swizzled [ROWS, COLS] tiles dst + p ROWS COLS (piece p)
+template <int ROWS, int NP, int COLS = 256>
 __device__ __forceinline__ void store_pieces(__nv_bfloat16* dst, int r,
                                              int c, float4 a, float4 b) {
   using bf16 = __nv_bfloat16;
@@ -391,49 +419,51 @@ __device__ __forceinline__ void store_pieces(__nv_bfloat16* dst, int r,
   const int o = swz<ROWS>(r, c);
 #pragma unroll
   for (int p = 0; p < NP; ++p)
-    *reinterpret_cast<uint4*>(dst + p * ROWS * 256 + o) =
+    *reinterpret_cast<uint4*>(dst + p * ROWS * COLS + o) =
         make_uint4(pc[p][0], pc[p][1], pc[p][2], pc[p][3]);
 }
 
-// split the row-major [rows][256] float32 tile src into rows [r0, r0 +
+// split the row-major [rows][COLS] float32 tile src into rows [r0, r0 +
 // rows) of the NP pieces of a ROWS-row tile at dst (store_pieces),
 // thread i of N taking 8 columns a pass
-template <int ROWS, int NP, int N>
+template <int ROWS, int NP, int N, int COLS = 256>
 __device__ __forceinline__ void split_tile(__nv_bfloat16* dst,
                                            const float* src, int i,
                                            int rows = ROWS, int r0 = 0) {
+  constexpr int U = COLS / 8;  // 8-column units a row
 #pragma unroll 4
-  for (int u = i; u < rows * 32; u += N) {
-    const int r = u >> 5, c = (u & 31) * 8;
-    store_pieces<ROWS, NP>(
-        dst, r0 + r, c, *reinterpret_cast<const float4*>(src + r * 256 + c),
-        *reinterpret_cast<const float4*>(src + r * 256 + c + 4));
+  for (int u = i; u < rows * U; u += N) {
+    const int r = u / U, c = (u % U) * 8;
+    store_pieces<ROWS, NP, COLS>(
+        dst, r0 + r, c, *reinterpret_cast<const float4*>(src + r * COLS + c),
+        *reinterpret_cast<const float4*>(src + r * COLS + c + 4));
   }
 }
 
 // the same in place: the NP pieces overwrite the float32 tile they come
 // from, so each of the N threads holds its share of the tile in
 // registers until all N have read theirs (named barrier `bar`)
-template <int ROWS, int NP, int N>
+template <int ROWS, int NP, int N, int COLS = 256>
 __device__ __forceinline__ void split_tile_in_place(float* tile, int i,
                                                     int bar) {
-  constexpr int PASSES = (ROWS * 32 + N - 1) / N;
+  constexpr int U = COLS / 8;
+  constexpr int PASSES = (ROWS * U + N - 1) / N;
   float4 a[PASSES], b[PASSES];
 #pragma unroll
   for (int k = 0; k < PASSES; ++k) {
-    const int u = i + k * N, r = u >> 5, c = (u & 31) * 8;
-    if (u < ROWS * 32) {
-      a[k] = *reinterpret_cast<const float4*>(tile + r * 256 + c);
-      b[k] = *reinterpret_cast<const float4*>(tile + r * 256 + c + 4);
+    const int u = i + k * N, r = u / U, c = (u % U) * 8;
+    if (u < ROWS * U) {
+      a[k] = *reinterpret_cast<const float4*>(tile + r * COLS + c);
+      b[k] = *reinterpret_cast<const float4*>(tile + r * COLS + c + 4);
     }
   }
   named_sync(bar, N);
 #pragma unroll
   for (int k = 0; k < PASSES; ++k) {
     const int u = i + k * N;
-    if (u < ROWS * 32)
-      store_pieces<ROWS, NP>(reinterpret_cast<__nv_bfloat16*>(tile), u >> 5,
-                             (u & 31) * 8, a[k], b[k]);
+    if (u < ROWS * U)
+      store_pieces<ROWS, NP, COLS>(reinterpret_cast<__nv_bfloat16*>(tile),
+                                   u / U, (u % U) * 8, a[k], b[k]);
   }
 }
 
@@ -488,18 +518,19 @@ int make_map(CUtensorMap* map, const void* base, int bh, int t, int rows) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// tensor map of a contiguous [bh, t, 256] float32 tensor read in boxes
-// of (all 256 columns, rows, 1 slice), unswizzled: a box lands as a
-// row-major [rows][256] float32 tile; rows past t read as 0. Returns a
-// CUDA error code (0 = ok).
-inline int make_map_f32(CUtensorMap* map, const void* base, int bh, int t,
-                        int rows) {
+// tensor map of a contiguous [bh, t, COLS] float32 tensor (COLS 256 or
+// 64) read in boxes of (all COLS columns, rows, 1 slice), unswizzled: a
+// box lands as a row-major [rows][COLS] float32 tile; rows past t read
+// as 0. Returns a CUDA error code (0 = ok).
+template <int COLS = 256>
+int make_map_f32(CUtensorMap* map, const void* base, int bh, int t,
+                 int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {256, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {256 * sizeof(float),
-                                 (cuuint64_t)t * 256 * sizeof(float)};
-  const cuuint32_t box[3] = {256, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[3] = {COLS, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {COLS * sizeof(float),
+                                 (cuuint64_t)t * COLS * sizeof(float)};
+  const cuuint32_t box[3] = {COLS, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                         const_cast<void*>(base), dims, strides, box, elem,

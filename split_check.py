@@ -5,8 +5,9 @@ split into hi + lo 16-bit halves, on one CUDA card.
 At head dim 256 K1 (``csrc/flash_fwd_d256_wgmma.cu``) takes P V as two
 products, P's hi and lo halves; K2 (``csrc/flash_bwd_dq_d256_wgmma.cu``)
 takes dS K the same way, and K3 (``csrc/flash_bwd_dkv_d256_wgmma.cu``)
-Pᵀ dO and dSᵀ Q. At head dim 128 K1 (``csrc/flash_fwd_d128_wgmma.cu``)
-and K3 (``csrc/flash_bwd_dkv_d128_wgmma.cu``) do the same. This script
+Pᵀ dO and dSᵀ Q. At head dim 128 K1 (``csrc/flash_fwd_d128_wgmma.cu``),
+K2 (``csrc/flash_bwd_dq_d128_wgmma.cu``) and K3
+(``csrc/flash_bwd_dkv_d128_wgmma.cu``) do the same. This script
 builds each kernel twice with the port's nvcc flags into a temporary
 directory, as it ships and with the lo products cut (one 16-bit
 rounding of P, and of dS), runs both at chip_smoke.py's training and
@@ -37,6 +38,7 @@ LO_PRODUCTS = {
     "flash_bwd_dq_d256_wgmma": (("W::rs256(acc, dlo[kk], dk);",), 7),
     "flash_bwd_dkv_d256_wgmma": (("W::rs256(acc, xl[kk], db);",), 8),
     "flash_fwd_d128_wgmma": (("W::rs128(acc, pl[kk], dv);",), 5),
+    "flash_bwd_dq_d128_wgmma": (("W::rs128(acc, dlo[kk], dk);",), 7),
     "flash_bwd_dkv_d128_wgmma": (("W::rs128(acc_v, xl[kk], db);",
                                   "W::rs128(acc_k, yl[kk], db);"), 8),
 }

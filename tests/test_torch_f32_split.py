@@ -19,7 +19,10 @@ The backward's kernels (K2, K3) split theirs too, and the head-dim-256
 warpgroup ones (``csrc/flash_bwd_dq_f32_d256_wgmma.cu``,
 ``csrc/flash_bwd_dkv_f32_d256_wgmma.cu``) take a third bf16 piece of dO
 where the D = 128 kernels take TF32 halves: the emulation below chooses
-that scheme, and shared memory's 227 KB rules out the TF32 one.
+that scheme, and shared memory's 227 KB rules out the TF32 one. Float32
+K3 at head dim 64 (``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``) takes the
+same pieces: both schemes meet the tier there, and the pieces cost fewer
+tensor-core products.
 """
 import math
 
@@ -406,3 +409,66 @@ def test_d256_the_sixth_dv_product_holds_the_margin_at_t32(seed):
         k: BWD_SCHEMES_D256[k] for k in ("runner-up", "shipped")})
     assert r["runner-up"][2] > 0.5, r
     assert r["shipped"][2] < 0.5, r
+
+
+# --- head dim 64: float32 K3's warpgroup kernel
+# (csrc/flash_bwd_dkv_f32_d64_wgmma.cu). Two schemes could serve it: the
+# D = 256 kernels' bf16 pieces, or the mma.sync kernels' 3xTF32 dPᵀ and
+# dV, which at D 64 would fit (TF32 wgmma reads shared memory only
+# K-major, so dV needs dO transposed: 16 KB a 64-row tile) ---
+
+BWD_SCHEMES_D64 = {"bf16 once": (_once(_bf16),) * 5,
+                   "tf32 once": (_once(_tf32),) * 5,
+                   "pieces (shipped)": BWD_SCHEMES_D256["shipped"],
+                   "3xtf32": BWD_SCHEMES["shipped"]}
+# bf16 tensor-core products a visible pair costs each scheme in dPᵀ = V
+# dOᵀ and dV = Pᵀ dO, a TF32 product at half the bf16 rate (S and dK
+# are 3xbf16 in both)
+D64_PRODUCT_COST = {"pieces (shipped)": 5 + 6, "3xtf32": 2 * (3 + 3)}
+
+# (bh, tq, tk, d, causal): chip_smoke.py's float32 D = 64 case and
+# Transformer-base's unpadded cross-attention (tq 128 over tk 256), cut
+# to 16 heads
+D64_CASES = {"D=64 causal": CASES["D=64 causal"],
+             "D=64 cross tq<tk": (16, 128, 256, 64, False)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(D64_CASES))
+def test_d64_backward_one_rounding_misses_the_f32_tier_and_both_schemes_meet_it(
+        case, seed):
+    """At head dim 64: one bf16 or TF32 rounding of the operands puts
+    dQ, dK and dV over the f32 tier's limit, causal or not. Both
+    candidate schemes for K3 keep dK and dV under half of the limit on
+    every case and seed; the shipped one, the D = 256 kernels' bf16
+    pieces, costs fewer tensor-core products than 3xTF32 dPᵀ and dV."""
+    r = _bwd_ratios(*D64_CASES[case], seed, schemes=BWD_SCHEMES_D64)
+    for once in ("bf16 once", "tf32 once"):
+        assert min(r[once]) > 1.0, r
+    for scheme in D64_PRODUCT_COST:
+        assert max(r[scheme][1:]) <= 0.5, (scheme, r)
+    assert D64_PRODUCT_COST["pieces (shipped)"] < D64_PRODUCT_COST["3xtf32"]
+
+
+def _dkv_smem(d, rows):
+    """Shared memory of float32 K3 in the warpgroup design at head dim
+    ``d`` with ``rows``-row q tiles: 64 keys of k and v in two bf16
+    pieces, two ring stages of a q tile in two and a dO tile in three,
+    and the Pᵀ exchange (64 keys x ``rows`` float32, two buffers)."""
+    return (64 * d * (2 + 2) * _PIECE + 2 * rows * d * (2 + 3) * _PIECE
+            + 2 * 64 * rows * 4)
+
+
+def test_d64_takes_64_row_q_tiles_where_d256_could_not():
+    """What changes at head dim 64 is room: the D = 64 kernel lays out
+    64-row q tiles (m64n64k16 products; its source's OFF_BAR, where the
+    barriers follow the tiles) well within a block's 227 KB, where at
+    D = 256 a 64-row tile needs more than twice that and 16 rows is what
+    fits."""
+    limit = 232448 - 256 - 1024          # 227 KB less barriers, alignment
+    values = cuda_build.constexprs("flash_bwd_dkv_f32_d64_wgmma")
+    assert (values["BLOCK_M"], values["BLOCK_N"], values["D"]) == (64, 64, 64)
+    assert _dkv_smem(64, 64) == values["OFF_BAR"] <= limit
+    assert _dkv_smem(256, 64) > 2 * limit
+    assert _dkv_smem(256, 16) == cuda_build.constexprs(
+        "flash_bwd_dkv_f32_d256_wgmma")["OFF_BAR"] <= limit

@@ -33,12 +33,14 @@ def _library_of(symbol):
 
 
 # the warpgroup kernels: at head dim 256 K1, K2 and K3 on bf16 and fp16
-# and on float32; at head dim 128 K1 and K3 on bf16 and fp16
+# and on float32; at head dim 128 K1, K2 and K3 on bf16 and fp16; at
+# head dim 64 K3 on float32
 WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
                  "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma",
                  "flash_bwd_dq_f32_d256_wgmma",
                  "flash_bwd_dkv_f32_d256_wgmma", "flash_fwd_d128_wgmma",
-                 "flash_bwd_dkv_d128_wgmma")
+                 "flash_bwd_dkv_d128_wgmma", "flash_bwd_dq_d128_wgmma",
+                 "flash_bwd_dkv_f32_d64_wgmma")
 # the TPU kernel (pallas_attention.py line and function) each replaces
 REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_d256_wgmma": ":223 _fa_bwd_dq_kernel",
@@ -47,7 +49,9 @@ REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_f32_d256_wgmma": ":223 _fa_bwd_dq_kernel",
             "flash_bwd_dkv_f32_d256_wgmma": ":189 _fa_bwd_dkv_kernel",
             "flash_fwd_d128_wgmma": ":59 _fa_kernel",
-            "flash_bwd_dkv_d128_wgmma": ":189 _fa_bwd_dkv_kernel"}
+            "flash_bwd_dkv_d128_wgmma": ":189 _fa_bwd_dkv_kernel",
+            "flash_bwd_dq_d128_wgmma": ":223 _fa_bwd_dq_kernel",
+            "flash_bwd_dkv_f32_d64_wgmma": ":189 _fa_bwd_dkv_kernel"}
 # each warpgroup kernel's warpgroups, and the (producer, consumer)
 # registers setmaxnreg gives them (None: no reallocation)
 WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
@@ -57,9 +61,12 @@ WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
               "flash_bwd_dq_f32_d256_wgmma": (2, None),
               "flash_bwd_dkv_f32_d256_wgmma": (3, (104, 200)),
               "flash_fwd_d128_wgmma": (3, (24, 240)),
-              "flash_bwd_dkv_d128_wgmma": (3, (24, 240))}
+              "flash_bwd_dkv_d128_wgmma": (3, (24, 240)),
+              "flash_bwd_dq_d128_wgmma": (3, (24, 240)),
+              "flash_bwd_dkv_f32_d64_wgmma": (3, (136, 184))}
 # what kernel_for returned at head dims 64, 128 and 384 before the D = 128
-# warpgroup kernels: the mma.sync kernel of each (wrapper, route)
+# and D = 64 warpgroup kernels: the mma.sync kernel of each (wrapper,
+# route)
 MMA_SYMBOLS = {("flash_fwd", False): "flash_fwd_mma",
                ("flash_fwd", True): "flash_fwd_f32mma",
                ("flash_bwd_dq", False): "flash_bwd_dq_mma",
@@ -82,12 +89,14 @@ MMA_SYMBOLS = {("flash_fwd", False): "flash_fwd_mma",
 @pytest.mark.parametrize("d", [64, 128])
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     """16-bit inputs go to the 16-bit tensor-core kernels of K1, K2 and
-    K3, float32 to the split-operand ones; at D 128 16-bit K1 and K3 to
-    their warpgroup kernels. The library is the source the symbol is
-    built from."""
+    K3, float32 to the split-operand ones; at D 128 16-bit K1, K2 and K3
+    to their warpgroup kernels, at D 64 float32 K3 to its own. The
+    library is the source the symbol is built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
-    if d == 128 and dtype != torch.float32 and wrapper != "flash_bwd_dq":
+    if d == 128 and dtype != torch.float32:
         want = f"{wrapper}_d128_wgmma"
+    if d == 64 and dtype == torch.float32 and wrapper == "flash_bwd_dkv":
+        want = "flash_bwd_dkv_f32_d64_wgmma"
     assert sym == want
     assert lib in cuda_build.SOURCES
     assert f'extern "C" int {sym}(' in (CSRC / f"{lib}.cu").read_text()
@@ -108,7 +117,8 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
 def test_routing_at_head_dim_256(wrapper, dtype, want):
     """At D 256 K1, K2 and K3 go to their warpgroup kernels on both
     routes, bf16 and fp16 and float32; at D 384 every route is the
-    sliced mma.sync kernel that D 64 runs. Each
+    sliced mma.sync kernel that D 64 runs (but float32 K3, whose D 64
+    kernel is its own). Each
     symbol is built from the source of its name, takes as many pointers
     as its wrapper hands it, and is counted by reset_launch_counts."""
     lib, sym = fa.kernel_for(wrapper, dtype, 256)
@@ -118,9 +128,10 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
     n_ptrs = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[wrapper]
     assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
     assert sym in getattr(fa, wrapper).launches_by_kernel
-    assert fa.kernel_for(wrapper, dtype, 384) == \
-        fa.kernel_for(wrapper, dtype, 64) == \
-        (MMA_SYMBOLS[wrapper, dtype == torch.float32],) * 2
+    mma = (MMA_SYMBOLS[wrapper, dtype == torch.float32],) * 2
+    assert fa.kernel_for(wrapper, dtype, 384) == mma
+    if (wrapper, dtype) != ("flash_bwd_dkv", torch.float32):
+        assert fa.kernel_for(wrapper, dtype, 64) == mma
 
 
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
@@ -128,32 +139,41 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 def test_routing_at_head_dim_128(wrapper, dtype):
-    """At D 128 16-bit K1 and K3 go to their warpgroup kernels
-    (flash_fwd_d128_wgmma, flash_bwd_dkv_d128_wgmma); 16-bit K2 at D
-    128, every route at D 64 and D 384, and float32 at D 128 keep the
-    mma.sync kernels they ran before. Each new symbol is built from the
-    source of its name, takes as many pointers as its wrapper hands it,
-    is one lookup of the (wrapper, route, head dim) table and is counted
-    by reset_launch_counts."""
+    """At D 128 16-bit K1, K2 and K3 go to their warpgroup kernels
+    (flash_fwd_d128_wgmma, flash_bwd_dq_d128_wgmma,
+    flash_bwd_dkv_d128_wgmma), and at D 64 float32 K3 to its own
+    (flash_bwd_dkv_f32_d64_wgmma); every other route at D 64, every
+    route at D 384, and float32 at D 128 keep the mma.sync kernels they
+    ran before. Each new symbol is built from the source of its name,
+    takes as many pointers as its wrapper hands it, is one lookup of the
+    (wrapper, route, head dim) table and is counted by
+    reset_launch_counts."""
     f32 = dtype == torch.float32
     mma = MMA_SYMBOLS[wrapper, f32]
-    for d in (64, 384):
-        assert fa.kernel_for(wrapper, dtype, d) == (mma, mma)
-    lib, sym = fa.kernel_for(wrapper, dtype, 128)
-    if f32 or wrapper == "flash_bwd_dq":
-        assert lib == sym == mma
-        assert (wrapper, fa.HALF_ROUTE, 128) not in fa._WGMMA_ROUTES \
-            or f32
-        return
-    assert lib == sym == f"{wrapper}_d128_wgmma"
-    assert fa._WGMMA_ROUTES[wrapper, fa.HALF_ROUTE, 128] == (lib, sym)
-    assert lib in cuda_build.SOURCES
-    text = (CSRC / f"{lib}.cu").read_text()
-    sig = text[text.index(f'extern "C" int {sym}('):]
-    n_ptrs = {"flash_fwd": 5, "flash_bwd_dkv": 8}[wrapper]
-    assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
-    fa.reset_launch_counts()
-    assert getattr(fa, wrapper).launches_by_kernel[sym] == 0
+    assert fa.kernel_for(wrapper, dtype, 384) == (mma, mma)
+    own = {}
+    if f32 and wrapper == "flash_bwd_dkv":
+        own[64] = "flash_bwd_dkv_f32_d64_wgmma"
+    else:
+        assert fa.kernel_for(wrapper, dtype, 64) == (mma, mma)
+    if f32:
+        assert fa.kernel_for(wrapper, dtype, 128) == (mma, mma)
+        assert (wrapper, fa.F32_ROUTE, 128) not in fa._WGMMA_ROUTES
+    else:
+        own[128] = f"{wrapper}_d128_wgmma"
+    route = fa.F32_ROUTE if f32 else fa.HALF_ROUTE
+    for d, want in own.items():
+        lib, sym = fa.kernel_for(wrapper, dtype, d)
+        assert lib == sym == want
+        assert fa._WGMMA_ROUTES[wrapper, route, d] == (lib, sym)
+        assert lib in cuda_build.SOURCES
+        text = (CSRC / f"{lib}.cu").read_text()
+        sig = text[text.index(f'extern "C" int {sym}('):]
+        n_ptrs = {"flash_fwd": 5, "flash_bwd_dq": 7,
+                  "flash_bwd_dkv": 8}[wrapper]
+        assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + stream
+        fa.reset_launch_counts()
+        assert getattr(fa, wrapper).launches_by_kernel[sym] == 0
 
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float64, 128, "float32, bfloat16 or float16"),
@@ -162,7 +182,7 @@ def test_routing_at_head_dim_128(wrapper, dtype):
     # head dims past 128 that are multiples of it (the reference's
     # D % 128 == 0 gate) are not refused: this case holds that K1, K2
     # and K3 at 256 route to their warpgroup kernels on every dtype, and
-    # every dtype at 384 to the sliced mma.sync kernels that D 64 runs
+    # every dtype at 384 to the sliced mma.sync kernels
     pytest.param(torch.float32, 256, None, id="dtype3-256-head dims"),
 ])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
@@ -170,7 +190,7 @@ def test_routing_at_head_dim_128(wrapper, dtype):
 def test_routing_raises_for_what_no_kernel_takes(wrapper, dtype, d, match):
     if match is None:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
-            sliced = fa.kernel_for(wrapper, dt, 64)
+            sliced = (MMA_SYMBOLS[wrapper, dt == torch.float32],) * 2
             assert fa.kernel_for(wrapper, dt, 384) == sliced
             own = (f"{wrapper}_f32_d256_wgmma" if dt == torch.float32
                    else f"{wrapper}_d256_wgmma")
@@ -258,9 +278,10 @@ def test_constexprs_evaluate_in_order_with_integer_division():
 
 
 @pytest.mark.parametrize("d,want", [
-    # the warpgroup K1 and K3: 128-row q tiles over 128-key stages, and
-    # 128-key blocks over 64-row q tiles; K2's mma.sync tile
-    (128, {"flash_fwd": (128, 128), "flash_bwd_dq": (64, 64),
+    # the warpgroup K1, K2 and K3: 128-row q tiles over 128-key stages,
+    # 128-row q tiles over 64-key stages, and 128-key blocks over 64-row
+    # q tiles
+    (128, {"flash_fwd": (128, 128), "flash_bwd_dq": (128, 64),
            "flash_bwd_dkv": (64, 128)}),
     # the warpgroup kernels: K2's 128 q rows over 32-key stages
     (256, {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 32),
@@ -289,9 +310,9 @@ def _plain_pairs(q, k, v, do, sc, dt):
 def test_planted_faults_are_caught_at_the_d128_training_shape():
     """At the Llama training shape (one head here: T 2048, D 128,
     causal), every fault chip_smoke.py plants at the tiles of the
-    kernels that shape runs (K1's 128-row q tiles, K3's 128-key blocks
-    over 64-row q tiles, K2's mma.sync tile) fails the 16-bit tier where
-    the kernels agree exactly."""
+    kernels that shape runs (K1's 128-row q tiles, K2's 128-row q tiles
+    over 64-key stages, K3's 128-key blocks over 64-row q tiles) fails
+    the 16-bit tier where the kernels agree exactly."""
     r = np.random.RandomState(7)
     t, d = chip_smoke.TRAIN_SEQ, 128
     q, k, v = (torch.from_numpy((r.randn(1, t, d) * 0.5).astype(np.float32))
@@ -310,6 +331,8 @@ def test_planted_faults_are_caught_at_the_d128_training_shape():
         chip_smoke.log = log
     assert len(logged) == 7 and all(" caught" in x for x in logged), logged
     for fault in ("K1 leaves its last 128-row q tile unwritten",
+                  "K2 leaves its last 128-row q tile unwritten",
+                  "K2 skips each q tile's last 64-key tile",
                   "K3 leaves its last 128-key tile unwritten",
                   "K3 skips its last 64-row q tile"):
         assert any(fault in x for x in logged), (fault, logged)
@@ -381,6 +404,36 @@ def test_planted_f32_faults_are_caught_at_the_d256_train_step():
         assert any(fault in x for x in logged), (fault, logged)
 
 
+def test_planted_f32_faults_are_caught_at_the_transformer_d64_shape():
+    """At Transformer-base's causal self-attention (two heads here: T
+    256, D 64) the float32 faults are planted at the tiles of the
+    kernels that shape runs, K3's the warpgroup kernel's 64 keys over
+    64-row q tiles, and each fails the float32 tier where the kernels
+    agree exactly."""
+    assert chip_smoke.TF_CAUSAL_LABEL in chip_smoke.F32_FAULT_CASES
+    assert chip_smoke.kernel_tile(fa, "flash_bwd_dkv", torch.float32,
+                                  64) == (64, 64)
+    r = np.random.RandomState(8)
+    bh, t, d = 2, chip_smoke.TF_SEQ, 64
+    q, k, v = (torch.from_numpy((r.randn(bh, t, d) * 0.5)
+                                .astype(np.float32)) for _ in range(3))
+    do = torch.from_numpy(r.randn(bh, t, d).astype(np.float32))
+    sc = 1 / 8
+    pairs, errs, lse, delta = _plain_pairs(q, k, v, do, sc, torch.float32)
+    logged = []
+    chip_smoke.log, log = logged.append, chip_smoke.log
+    try:
+        chip_smoke.check_planted_f32_faults(
+            torch, fa, chip_smoke.TF_CAUSAL_LABEL,
+            (q, k, v, do, lse, delta), sc, pairs, errs)
+    finally:
+        chip_smoke.log = log
+    assert len(logged) == 8 and all(" caught" in x for x in logged), logged
+    for fault in ("K3 f32 leaves its last 64-key tile unwritten",
+                  "K3 f32 skips its last 64-row q tile"):
+        assert any(fault in x for x in logged), (fault, logged)
+
+
 @pytest.mark.parametrize("wrapper,tile", [("flash_fwd", (128, 64)),
                                           ("flash_bwd_dq", (64, 64)),
                                           ("flash_bwd_dkv", (64, 32))])
@@ -388,7 +441,7 @@ def test_planted_f32_faults_follow_the_f32_kernels_tiles(wrapper, tile):
     """The float32 faults are planted at the split-operand kernels' own
     tiles, (q rows, keys) read from their sources' constexprs."""
     lib, sym = fa.kernel_for(wrapper, torch.float32, 128)
-    assert sym == chip_smoke.F32_KERNELS[wrapper]
+    assert sym == chip_smoke.f32_kernel(torch, fa, wrapper, 128)
     values = cuda_build.constexprs(lib)
     assert (values["BLOCK_M"], values["BLOCK_N"]) == tile
     assert chip_smoke.kernel_tile(fa, wrapper, torch.float32) == tile
@@ -538,17 +591,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert fa.flash_bwd_dq.launches_by_kernel == {
         "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0,
         "flash_bwd_dq_d256_wgmma": 0, "flash_bwd_dq_f32_d256_wgmma": 0,
-        "plain": 0}
+        "flash_bwd_dq_d128_wgmma": 0, "plain": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
         "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
         "flash_bwd_dkv_d256_wgmma": 0, "flash_bwd_dkv_f32_d256_wgmma": 0,
-        "flash_bwd_dkv_d128_wgmma": 0, "plain": 0}
+        "flash_bwd_dkv_d128_wgmma": 0, "flash_bwd_dkv_f32_d64_wgmma": 0,
+        "plain": 0}
 
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_wgmma_sources_name_their_design(name):
-    """The warpgroup kernels (every route at head dim 256, 16-bit K1 and
-    K3 at 128): warpgroup products (wgmma) fed by TMA
+    """The warpgroup kernels (every route at head dim 256, 16-bit K1, K2
+    and K3 at 128, float32 K3 at 64): warpgroup products (wgmma) fed by
+    TMA
     from a producer warpgroup (which setmaxnreg brings down beside two
     consumers, to exactly the launch's 168 registers a thread; float32
     K1's and K2's one consumer needs no reallocation, and their sources
@@ -570,7 +625,7 @@ def test_wgmma_sources_name_their_design(name):
     values = cuda_build.constexprs(name)
     dims = {d for (_, _, d), (lib, _) in fa._WGMMA_ROUTES.items()
             if lib == name}
-    assert dims == {values["D"]} and values["D"] in (128, 256)
+    assert dims == {values["D"]} and values["D"] in (64, 128, 256)
     assert values["SMEM_BYTES"] <= 232448          # 227 KB a block
     f32 = "f32" in name
     groups, regs = WARPGROUPS[name]

@@ -13,16 +13,16 @@ The tensor-core kernels (bf16 and fp16: ``flash_fwd_mma``,
 ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``, at head dim 256 the
 warpgroup kernels ``flash_fwd_d256_wgmma``, ``flash_bwd_dq_d256_wgmma``
 and ``flash_bwd_dkv_d256_wgmma``, and at head dim 128 the warpgroup
-kernels ``flash_fwd_d128_wgmma`` and ``flash_bwd_dkv_d128_wgmma``) are
-held to chip_smoke.py's 16-bit
+kernels ``flash_fwd_d128_wgmma``, ``flash_bwd_dq_d128_wgmma`` and
+``flash_bwd_dkv_d128_wgmma``) are held to chip_smoke.py's 16-bit
 tier: rtol 1e-2 (one rounding of the output) plus atol 1e-2 x the plain
 output's RMS, against the plain version evaluated in float32 on the same
 inputs and rounded once to the output's type. The float32 kernels
 (``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``,
-and at head dim 256 the warpgroup kernels ``flash_fwd_f32_d256_wgmma``,
-``flash_bwd_dq_f32_d256_wgmma`` and ``flash_bwd_dkv_f32_d256_wgmma``:
-tensor cores with every operand split into bf16 or TF32 pieces) are held
-to the f32 tier.
+at head dim 256 the warpgroup kernels ``flash_fwd_f32_d256_wgmma``,
+``flash_bwd_dq_f32_d256_wgmma`` and ``flash_bwd_dkv_f32_d256_wgmma``,
+and at head dim 64 ``flash_bwd_dkv_f32_d64_wgmma``: tensor cores with
+every operand split into bf16 or TF32 pieces) are held to the f32 tier.
 """
 import numpy as np
 import pytest
@@ -165,8 +165,10 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
         sym = fa.kernel_for(w.__name__, dt, d)[1]
         if d == 256:
             assert sym == f"{w.__name__}_{'f32_' if f32 else ''}d256_wgmma"
-        elif d == 128 and not f32 and w is not fa.flash_bwd_dq:
+        elif d == 128 and not f32:
             assert sym == f"{w.__name__}_d128_wgmma"
+        elif d == 64 and f32 and w is fa.flash_bwd_dkv:
+            assert sym == "flash_bwd_dkv_f32_d64_wgmma"
         else:
             assert sym == f"{w.__name__}_{'f32mma' if f32 else 'mma'}"
         assert w.launches_by_kernel == {
@@ -249,10 +251,10 @@ WGMMA_D128_CASES = [(64, 2048, 2048, True), (2, 2048, 2048, False),
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("bh,tq,tk,causal", WGMMA_D128_CASES)
 def test_d128_wgmma_kernels_match_plain_versions(dtype, bh, tq, tk, causal):
-    """bf16 and fp16 K1 and K3 at head dim 128 on their warpgroup
-    kernels (wgmma, TMA; K1's consumers in ping-pong), K2 on its
-    mma.sync kernel, each output against its plain version in the 16-bit
-    tier, one launch on each symbol (two for B*H past 65535)."""
+    """bf16 and fp16 K1, K2 and K3 at head dim 128 on their warpgroup
+    kernels (wgmma, TMA; K1's consumers in ping-pong), each output
+    against its plain version in the 16-bit tier, one launch on each
+    symbol (two for B*H past 65535)."""
     _check_d128_kernels(dtype, bh, tq, tk, causal, 1 / np.sqrt(128))
 
 
@@ -284,9 +286,9 @@ def _check_d128_kernels(dtype, bh, tq, tk, causal, sc):
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
     torch.cuda.synchronize()
     chunks = -(-bh // fa.MAX_GRID_Y)
-    for w, sym in ((fa.flash_fwd, "flash_fwd_d128_wgmma"),
-                   (fa.flash_bwd_dq, "flash_bwd_dq_mma"),
-                   (fa.flash_bwd_dkv, "flash_bwd_dkv_d128_wgmma")):
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        sym = fa.kernel_for(w.__name__, dt, 128)[1]
+        assert sym == f"{w.__name__}_d128_wgmma"
         assert w.launches_by_kernel[sym] == w.launches == chunks
     want_o, want_lse = fa.ref_attention_lse(q.float(), k.float(), v.float(),
                                             sc, causal)
@@ -334,6 +336,47 @@ def test_f32_wgmma_kernel_matches_plain_version(bh, tq, tk, causal):
             ("dQ", dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
                                            causal)),
             ("dK", dk, want_k), ("dV", dv, want_v)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        ok, err, ratio = chip_smoke.kernel_err(got, want)
+        assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
+
+
+# (bh, tq, tk, causal) at head dim 64 in float32: Transformer-base's
+# causal self-attention and unpadded cross-attention (B*H 32 x 8), tq > tk
+# with fully masked rows, ragged, and B*H past gridDim.y's 65535 at T 32
+F32_D64_CASES = [(256, 256, 256, True), (256, 128, 256, False),
+                 (8, 256, 128, True), (8, 200, 200, True),
+                 (8, 200, 200, False), (65536, 32, 32, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,causal", F32_D64_CASES)
+def test_f32_d64_wgmma_kernel_matches_plain_version(bh, tq, tk, causal):
+    """float32 K3 at head dim 64 on its warpgroup kernel (wgmma on bf16
+    pieces of 64-row q tiles, TMA, a producer warpgroup that splits), dK
+    and dV against the plain version in the f32 tier with TF32 off, one
+    launch (two for B*H past 65535); K1 and K2 beside it on their
+    mma.sync kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, tq, tk,
+                                              64, torch.float32)
+    sc = 1 / 8
+    o, lse = fa.flash_fwd(q, k, v, sc, causal)
+    delta = (do * o).sum(-1)
+    fa.reset_launch_counts()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    sym = fa.kernel_for("flash_bwd_dkv", torch.float32, 64)[1]
+    assert sym == "flash_bwd_dkv_f32_d64_wgmma"
+    assert fa.flash_bwd_dkv.launches_by_kernel[sym] \
+        == fa.flash_bwd_dkv.launches == -(-bh // fa.MAX_GRID_Y)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
+                                          causal)
+    for name, got, want in (("dK", dk, want_k), ("dV", dv, want_v)):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         ok, err, ratio = chip_smoke.kernel_err(got, want)
         assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
@@ -391,9 +434,9 @@ def test_float32_route_refuses_views_off_the_16_byte_boundary():
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
     torch.cuda.synchronize()
-    assert fa.flash_fwd.launches_by_kernel["flash_fwd_f32mma"] == 1
-    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq_f32mma"] == 1
-    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_f32mma"] == 1
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        sym = fa.kernel_for(w.__name__, torch.float32, 128)[1]
+        assert w.launches_by_kernel[sym] == 1
     want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, True)
     want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
     for got, want in ((o, want_o), (lse, want_lse), (dk, want_k),
@@ -490,12 +533,9 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
             + (lse * dl.to(dev)).sum()
         grads[dev] = [g.float().cpu() for g in torch.autograd.grad(loss, ts)]
         if dev == "cuda":
-            assert fa.flash_fwd.launches_by_kernel[
-                "flash_fwd_d128_wgmma"] == 1
-            assert fa.flash_bwd_dq.launches_by_kernel[
-                "flash_bwd_dq_mma"] == 1
-            assert fa.flash_bwd_dkv.launches_by_kernel[
-                "flash_bwd_dkv_d128_wgmma"] == 1
+            for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+                sym = fa.kernel_for(w.__name__, torch.bfloat16, 128)[1]
+                assert w.launches_by_kernel[sym] == 1 == w.launches
             card_o, card_lse = o.detach().cpu(), lse.detach().cpu()
     q, k, v = bf
     delta = (do.float() * card_o.float()).sum(-1) - dl
@@ -621,8 +661,8 @@ def test_fused_loss_on_the_card_matches_float64(dtype):
 @pytest.mark.parametrize("level", ["O1", "O2"])
 def test_amp_on_the_card_runs_the_bf16_kernels(level):
     """A float32 Llama (head dim 128) under amp_transpile on the card:
-    every K1/K2/K3 launch is a bf16 kernel (K1 and K3 the head-dim-128
-    warpgroup kernels, K2 its ``_mma`` kernel), the state stays
+    every K1/K2/K3 launch is a bf16 kernel (the head-dim-128 warpgroup
+    kernels), the state stays
     float32, and 3 Adam losses track the CPU's AMP run at rtol 5e-2
     (tests/test_torch_amp.py's tier)."""
     if not torch.cuda.is_available():
@@ -644,11 +684,10 @@ def test_amp_on_the_card_runs_the_bf16_kernels(level):
     fa.reset_launch_counts()
     got = [float(gpu.run(main, feed=feed, fetch_list=[loss],
                          scope=scope)[0].reshape(())) for _ in range(3)]
-    assert fa.flash_fwd.launches_by_kernel["flash_fwd_d128_wgmma"] == 12
-    assert fa.flash_bwd_dq.launches_by_kernel["flash_bwd_dq_mma"] == 6
-    assert fa.flash_bwd_dkv.launches_by_kernel["flash_bwd_dkv_d128_wgmma"] \
-        == 6
-    assert fa.flash_fwd.launches == 12
+    for w, n in ((fa.flash_fwd, 12), (fa.flash_bwd_dq, 6),
+                 (fa.flash_bwd_dkv, 6)):
+        sym = fa.kernel_for(w.__name__, torch.bfloat16, 128)[1]
+        assert w.launches_by_kernel[sym] == n == w.launches
     want = [float(cpu.run(main, feed=feed, fetch_list=[loss],
                           scope=cpu_scope)[0].reshape(())) for _ in range(3)]
     np.testing.assert_allclose(got, want, rtol=5e-2)
@@ -677,8 +716,8 @@ def test_f32_kernels_at_the_transformer_shapes(tq, tk, causal):
     to the batch by a transpose view (``attention_core``), so strided
     inputs reach ``FlashAttention``, which hands the kernels contiguous,
     aligned copies. Output and gradients against the plain versions on
-    the same inputs at the f32 tiers; one launch each, on the
-    ``_f32mma`` kernels."""
+    the same inputs at the f32 tiers; one launch each, on the kernels
+    ``kernel_for`` names at head dim 64 (K3's warpgroup kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from paddle_tpu_torch.ops.transformer_ops import attention_core
@@ -694,8 +733,8 @@ def test_f32_kernels_at_the_transformer_shapes(tq, tk, causal):
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        assert w.launches == 1 and \
-            w.launches_by_kernel[chip_smoke.F32_KERNELS[w.__name__]] == 1
+        sym = fa.kernel_for(w.__name__, torch.float32, d)[1]
+        assert w.launches == 1 and w.launches_by_kernel[sym] == 1
     ref = [x.cpu().clone().requires_grad_() for x in (q, k, v)]
     want = attention_core(*ref, causal=causal)
     want_grads = torch.autograd.grad(want, ref, do.cpu())

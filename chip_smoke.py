@@ -27,8 +27,11 @@ Phases — any failure exits non-zero:
    ``csrc/flash_bwd_dkv_d128_wgmma.cu``), float32 through the split-operand
    tensor-core kernels (``csrc/flash_fwd_f32mma.cu``,
    ``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``; at
-   D = 64 K3 on its warpgroup kernel
-   ``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``) —
+   D = 64 K1, K2 and K3 on their warpgroup kernels
+   ``csrc/flash_fwd_f32_d64_wgmma.cu``,
+   ``csrc/flash_bwd_dq_f32_d64_wgmma.cu`` and
+   ``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``, K1 and K2 sized for two
+   blocks an SM, which the card's occupancy count must confirm) —
    at the serving and training shapes and the edge cases (causal and
    not, tq != tk with fully masked rows, ragged T, D = 64, in f32, bf16
    and fp16), each case asserting which variant launched, with dQ, dK
@@ -39,7 +42,7 @@ Phases — any failure exits non-zero:
    tile at the f32 serving shape, ``f32 causal`` and Transformer-base's
    self-attention (D = 64), in the float32 tier; every kernel in bf16
    and float32 at B*H = 65536 (past gridDim.y's 65535, launched in
-   chunks; float32 K3 on its D = 64 warpgroup kernel), and at D = 128 in
+   chunks; float32 K1-K3 on their D = 64 warpgroup kernels), and at D = 128 in
    bf16 and fp16 (K1, K2 and K3 on their warpgroup kernels);
    ``attention_with_lse``'s
    gradient through both outputs against plain autograd of
@@ -105,7 +108,8 @@ Phases — any failure exits non-zero:
    timed steps with finite losses, the first near ln V + d/(d + V), the
    last below the first, every fetched rate equal to its closed form,
    K1/K2/K3 6 launches a step (the causal decoder self-attention) on the
-   float32 kernels of head dim 64 (K3 on its warpgroup kernel
+   float32 kernels of head dim 64 (their warpgroup kernels
+   ``flash_fwd_f32_d64_wgmma``, ``flash_bwd_dq_f32_d64_wgmma`` and
    ``flash_bwd_dkv_f32_d64_wgmma``); step time, tokens/s, peak memory
    and one step's
    device time by kind;
@@ -130,7 +134,7 @@ Phases — any failure exits non-zero:
    fused), every answer within the f32 serving tier of the same request
    run alone through the unoptimized program, one 8 x 256 batch through
    the optimized and the unoptimized program bit-identical, K1 6
-   launches a dispatch on ``flash_fwd_f32mma`` and K2/K3 none, no step
+   launches a dispatch on ``flash_fwd_f32_d64_wgmma`` and K2/K3 none, no step
    build after warmup; then requests/s and p50/p99 under sustained
    load (32 closed-loop clients, three 3 s windows), that dispatch's
    device time by kind and idle share, its host wall optimized against
@@ -158,7 +162,7 @@ Phases — any failure exits non-zero:
    embedded artifact store, a golden set of 8), then a fresh
    ``ServingEngine.from_saved_model(compile_store=True)``: warmup builds
    no step (4 store hits), 32 requests bit for bit an in-memory engine's answers, K1 on
-   ``flash_fwd_f32mma`` (3 a dispatch), K2/K3 none, no build after
+   ``flash_fwd_f32_d64_wgmma`` (3 a dispatch), K2/K3 none, no build after
    warmup; ``Inferencer.from_inference_model`` and the golden set equal;
    ``CompiledPredictor`` (``__compiled__.pt2``) at batch 1 and 8 within
    the f32 serving tier, K1 launched through its ``torch.library``
@@ -518,7 +522,10 @@ RATE_OF_KERNEL = {
                                      F32_SPLIT6_RATE, F32_SPLIT_RATE),
     # the same pieces at head dim 64
     "flash_bwd_dkv_f32_d64_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
-                                    F32_SPLIT6_RATE, F32_SPLIT_RATE)}
+                                    F32_SPLIT6_RATE, F32_SPLIT_RATE),
+    "flash_bwd_dq_f32_d64_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
+                                   F32_SPLIT_RATE),
+    "flash_fwd_f32_d64_wgmma": (F32_SPLIT_RATE, F32_SPLIT_RATE)}
 
 # tolerances (|got - want| <= atol + rtol * |want|). A kernel's plain
 # version is evaluated in float32 on the kernel's own inputs and rounded
@@ -712,12 +719,14 @@ KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                    "flash_fwd_mma_kernel",
                                    "flash_fwd_d256_wgmma_kernel",
                                    "flash_fwd_f32_d256_wgmma_kernel",
-                                   "flash_fwd_d128_wgmma_kernel")),
+                                   "flash_fwd_d128_wgmma_kernel",
+                                   "flash_fwd_f32_d64_wgmma_kernel")),
                 ("k2_flash_bwd_dq", ("flash_bwd_dq_f32mma_kernel",
                                      "flash_bwd_dq_mma_kernel",
                                      "flash_bwd_dq_d256_wgmma_kernel",
                                      "flash_bwd_dq_f32_d256_wgmma_kernel",
-                                     "flash_bwd_dq_d128_wgmma_kernel")),
+                                     "flash_bwd_dq_d128_wgmma_kernel",
+                                     "flash_bwd_dq_f32_d64_wgmma_kernel")),
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_f32mma_kernel",
                                       "flash_bwd_dkv_mma_kernel",
                                       "flash_bwd_dkv_d256_wgmma_kernel",
@@ -725,7 +734,8 @@ KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                       "flash_bwd_dkv_d128_wgmma_kernel",
                                       "flash_bwd_dkv_f32_d64_wgmma_kernel")))
 # the warpgroup kernels (K1, K2 and K3 at head dim 256 on both routes,
-# bf16/fp16 K1, K2 and K3 at head dim 128, float32 K3 at head dim 64),
+# bf16/fp16 K1, K2 and K3 at head dim 128, float32 K1, K2 and K3 at head
+# dim 64),
 # whose SASS must hold HGMMA instructions, and the mma.sync kernels,
 # whose SASS must hold HMMA: every kernel is one or the other
 WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
@@ -737,7 +747,9 @@ WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
                  "flash_fwd_d128_wgmma_kernel",
                  "flash_bwd_dkv_d128_wgmma_kernel",
                  "flash_bwd_dq_d128_wgmma_kernel",
-                 "flash_bwd_dkv_f32_d64_wgmma_kernel")
+                 "flash_bwd_dkv_f32_d64_wgmma_kernel",
+                 "flash_bwd_dq_f32_d64_wgmma_kernel",
+                 "flash_fwd_f32_d64_wgmma_kernel")
 MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns
                     if kern not in WGMMA_KERNELS)
 # kernel symbol -> the constexprs of its source that give its tile's q
@@ -755,7 +767,9 @@ TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
                                "flash_fwd_d128_wgmma",
                                "flash_bwd_dkv_d128_wgmma",
                                "flash_bwd_dq_d128_wgmma",
-                               "flash_bwd_dkv_f32_d64_wgmma")}
+                               "flash_bwd_dkv_f32_d64_wgmma",
+                               "flash_bwd_dq_f32_d64_wgmma",
+                               "flash_fwd_f32_d64_wgmma")}
 
 
 class SmokeFailure(Exception):
@@ -925,6 +939,8 @@ def phase_kernels(torch, fa, seed):
         ("f32 D=64 causal", 8, 256, 256, 64, f32, True),
         ("f32 D=64 tq>tk causal (fully masked rows)", 8, 256, 128, 64, f32,
          True),
+        ("f32 D=64 tq<tk causal", 8, 128, 256, 64, f32, True),
+        ("f32 D=64 ragged T=200 causal", 8, 200, 200, 64, f32, True),
         ("f32 D=64 ragged T=200 non-causal", 8, 200, 200, 64, f32, False),
         ("bf16 tq<tk causal", 8, 128, 256, 128, bf16, True),
         ("bf16 tq>tk causal (fully masked rows)", 8, 256, 128, 128, bf16,
@@ -2762,7 +2778,8 @@ def phase_transformer_serve(torch, fluid, fa, card, trained):
     same request run alone through the UNOPTIMIZED program; one 8 x TF_SEQ
     batch through ``engine.program`` and through the unoptimized program
     bit-identical (the reference's optcheck contract, on the card); K1
-    launched 6 times a dispatch, all flash_fwd_f32mma, K2/K3 never; no
+    launched 6 times a dispatch, all on its float32 kernel at head dim 64
+    (flash_fwd_f32_d64_wgmma), K2/K3 never; no
     step build after warmup. Then, counts read, the rate and tail under
     sustained load (``sustained_load``, TF_SERVE_WINDOWS windows), with
     no step build either. Returns (launches by kernel symbol, stats)."""
@@ -2839,7 +2856,8 @@ def phase_transformer_serve(torch, fluid, fa, card, trained):
               f"{tag}: {w.__name__} launched {launches[w]} times "
               f"({by_kernel}), not {n}")
     log(f"{tag}: K1 launched {n_k1} times = {cfg.n_decoder_layers} x "
-        f"{dispatches} dispatches, all flash_fwd_f32mma; K2/K3 0")
+        f"{dispatches} dispatches, all "
+        f"{f32_kernel(torch, fa, 'flash_fwd', TF_HEAD_DIM)}; K2/K3 0")
 
     worst = 0.0
     rtol, atol = TOL_LOGITS_F32
@@ -3291,7 +3309,7 @@ def phase_io_saved_serve(torch, fluid, fa, card, run, then=None):
     ``warmup()`` builds no step (every bucket a store hit), TF_SERVE_
     REQUESTS concurrent requests get answers bit-identical to the
     in-memory engine's (the same wave, batched alike), K1 on
-    flash_fwd_f32mma 6 launches a dispatch and K2/K3 none, no step build
+    flash_fwd_f32_d64_wgmma 6 launches a dispatch and K2/K3 none, no step build
     after warmup; ``Inferencer.from_inference_model(dir).infer`` of the
     first 8 requests equals them; the golden set replays equal; the
     ``CompiledPredictor`` of ``__compiled__.pt2`` at batch 1 and 8 within
@@ -10123,6 +10141,25 @@ def check_sass(cuda_build):
     return counts
 
 
+def check_occupancy(fa, cuda_build):
+    """Log the resident blocks an SM of each warpgroup kernel whose
+    source is sized for a count of them (its ``BLOCKS_PER_SM``), as the
+    card's occupancy calculator reports them at the kernel's shared
+    memory (``fa.blocks_per_sm``); fail if one differs from its design.
+    Returns {symbol: blocks}."""
+    got = {}
+    for route in sorted(set(fa._WGMMA_ROUTES.values())):
+        want = cuda_build.constexprs(route[0]).get("BLOCKS_PER_SM")
+        if want is None:
+            continue
+        n = got[route[1]] = fa.blocks_per_sm(route)
+        log(f"occupancy {route[1]}: {n} resident blocks an SM "
+            f"(BLOCKS_PER_SM {want})")
+        check(n == want, f"{route[1]}: {n} resident blocks an SM, not its "
+                         f"source's BLOCKS_PER_SM {want}")
+    return got
+
+
 def replaced_row(t, row, launches, paths):
     """The kernel line's row of the mma.sync kernel that the warpgroup
     kernel of ``row`` replaced at its shape, timed and held to its plain
@@ -10198,6 +10235,7 @@ def main():
                                                "Performance Loss")):
                         log(f"build {name}: {line.strip()}")
         check_sass(cuda_build)
+        check_occupancy(fa, cuda_build)
 
         timing = phase_kernels(torch, fa, SEED)
         free_card(torch)

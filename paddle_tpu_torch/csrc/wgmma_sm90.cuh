@@ -4,12 +4,14 @@
 // flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu), at
 // head dim 128 (flash_fwd_d128_wgmma.cu, flash_bwd_dq_d128_wgmma.cu,
 // flash_bwd_dkv_d128_wgmma.cu) and at head dim 64
-// (flash_bwd_dkv_f32_d64_wgmma.cu): TMA tile loads completing on
+// (flash_bwd_dkv_f32_d64_wgmma.cu, flash_bwd_dq_f32_d64_wgmma.cu,
+// flash_fwd_f32_d64_wgmma.cu): TMA tile loads completing on
 // mbarriers, the shared-memory matrix descriptors of wgmma, the seven
 // wgmma shapes the kernels run (m64n128k16, m64n64k16, m64n32k16 and
 // m64n16k16 with both operands in shared memory, m64n256k16, m64n128k16
 // and m64n64k16 with A in registers), the two- and three-piece 16-bit
-// splits of float32 values, warpgroup register reallocation
+// splits of float32 values (at head dim 64 also in place, a warp an
+// 8-row group), warpgroup register reallocation
 // (setmaxnreg), named barriers, the proxy fence that lets wgmma read
 // what threads wrote, the hardware's 2^x, and the host-side tensor maps
 // (16-bit tiles swizzled, float32 tiles plain).
@@ -150,22 +152,26 @@ __device__ __forceinline__ float ex2_ftz(float x) {
 // ---- wgmma ----
 
 // descriptor of a 128-byte-swizzled K-major operand (rows 128 bytes
-// apart, 8-row groups 1024 bytes apart) starting at p; a k-step of 16
-// elements inside the 64-wide block is p + 16
-__device__ __forceinline__ uint64_t desc_k_major(const void* p) {
+// apart, 8-row groups `group` bytes apart: 1024 in a dense tile, 2048 in
+// a group-interleaved one) starting at p; a k-step of 16 elements
+// inside the 64-wide block is p + 16
+__device__ __forceinline__ uint64_t desc_k_major(const void* p,
+                                                 uint32_t group = 1024) {
   const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(group >> 4) << 32) | (1ull << 62);
 }
 
 // descriptor of a 128-byte-swizzled MN-major operand: the MN dim runs
 // along the 64-wide column blocks (block_bytes apart), the K dim along
-// the rows (8-row groups 1024 bytes apart); a k-step of 16 rows is
-// p + 16 rows
+// the rows (8-row groups `group` bytes apart, as desc_k_major's); a
+// k-step of 16 rows is p + 16 rows
 __device__ __forceinline__ uint64_t desc_mn_major(const void* p,
-                                                  uint32_t block_bytes) {
+                                                  uint32_t block_bytes,
+                                                  uint32_t group = 1024) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)(block_bytes >> 4) << 16) |
-         (64ull << 32) | (1ull << 62);
+         ((uint64_t)(group >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -464,6 +470,45 @@ __device__ __forceinline__ void split_tile_in_place(float* tile, int i,
     if (u < ROWS * U)
       store_pieces<ROWS, NP, COLS>(reinterpret_cast<__nv_bfloat16*>(tile),
                                    u / U, (u % U) * 8, a[k], b[k]);
+  }
+}
+
+// ---- head dim 64: tiles interleaved by 8-row group ----
+//
+// A float32 row of 64 columns is 256 bytes and a 16-bit piece's row 128,
+// so an 8-row group of a row-major [rows][64] float32 tile (2048 bytes)
+// is exactly as long as its hi and lo pieces' groups (1024 bytes each).
+// In a group-interleaved [rows, 64] tile group g's hi block lies at
+// byte 2048 g and its lo block at 2048 g + 1024, each the
+// 128-byte-swizzled [8][64] block wgmma reads (desc_k_major and
+// desc_mn_major with `group` GROUP_BYTES): a float32 tile landed there
+// by TMA is split in place one group at a time, by one warp holding 16
+// values a lane, with no other thread waiting for it.
+constexpr uint32_t GROUP_BYTES = 2048;
+constexpr int GROUP_ELEMS = GROUP_BYTES / 2;  // 16-bit elements a group
+constexpr int LO_ELEMS = GROUP_ELEMS / 2;     // the lo block's offset
+
+// split 8-row group g of the row-major [rows][64] float32 tile at
+// `tile` in place into its bf16 hi and lo blocks (split_pack), by the
+// 32 lanes of one warp
+__device__ __forceinline__ void split_group_in_place(float* tile, int g,
+                                                     int lane) {
+  float* src = tile + g * 8 * 64;
+  float4 x[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    x[k] = reinterpret_cast<const float4*>(src)[lane + 32 * k];
+  __syncwarp();
+  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(src);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int f = lane + 32 * k, r = f >> 4, c = (f & 15) * 4;
+    uint32_t h0, l0, h1, l1;
+    split_pack<__nv_bfloat16>(x[k].x, x[k].y, h0, l0);
+    split_pack<__nv_bfloat16>(x[k].z, x[k].w, h1, l1);
+    const int o = r * 64 + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+    *reinterpret_cast<uint2*>(dst + o) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(dst + LO_ELEMS + o) = make_uint2(l0, l1);
   }
 }
 

@@ -12,16 +12,20 @@ by TMA from a producer warp: ``csrc/flash_fwd_d256_wgmma.cu``,
 ``csrc/flash_bwd_dkv_f32_d256_wgmma.cu`` for float32), at head dim
 128 K1, K2 and K3 on bf16 and fp16 (``csrc/flash_fwd_d128_wgmma.cu``,
 ``csrc/flash_bwd_dq_d128_wgmma.cu``, ``csrc/flash_bwd_dkv_d128_wgmma.cu``),
-and at head dim 64 K3 on float32 (``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``):
+and at head dim 64 K1, K2 and K3 on float32
+(``csrc/flash_fwd_f32_d64_wgmma.cu``, ``csrc/flash_bwd_dq_f32_d64_wgmma.cu``,
+``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``; K1 and K2 sized for two blocks
+an SM, which :func:`blocks_per_sm` reads from the card):
 
 - K1 ``_fa_kernel`` (the forward), wrapped by :func:`flash_fwd`: bf16
   and fp16 run ``csrc/flash_fwd_mma.cu`` (but at D = 128 and 256),
-  float32 ``csrc/flash_fwd_f32mma.cu``. Its plain version is
+  float32 ``csrc/flash_fwd_f32mma.cu`` (but at D = 64 and 256). Its
+  plain version is
   :func:`ref_attention_lse`, a torch copy of the reference's
   ``_ref_attention_lse``.
 - K2 ``_fa_bwd_dq_kernel`` (dQ), wrapped by :func:`flash_bwd_dq`: bf16
   and fp16 run ``csrc/flash_bwd_dq_mma.cu`` (but at D = 128 and 256),
-  float32 ``csrc/flash_bwd_dq_f32mma.cu``.
+  float32 ``csrc/flash_bwd_dq_f32mma.cu`` (but at D = 64 and 256).
 - K3 ``_fa_bwd_dkv_kernel`` (dK, dV), wrapped by :func:`flash_bwd_dkv`:
   bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu`` (but at D = 128 and
   256), float32 ``csrc/flash_bwd_dkv_f32mma.cu`` (but at D = 64 and
@@ -35,8 +39,10 @@ Pᵀ·dO, whose bf16 split misses the tier's margin; the warpgroup
 backward kernels at D = 256 take dO·Vᵀ with dO in three bf16 pieces
 (five products) and Pᵀ·dO with both in three (six), since ``wgmma``
 reads a TF32 operand only K-major and their TF32 tiles do not fit
-(tests/test_torch_f32_split.py); float32 K3 at D = 64 takes the same
-pieces, which cost less than TF32 halves there. :func:`kernel_for` is
+(tests/test_torch_f32_split.py); float32 K2 and K3 at D = 64 take the
+same pieces, which cost less than TF32 halves there (a two-piece dO
+would not keep K2's margin at short sequences), and float32 K1 at D = 64
+the 3×bf16 halves of every K1. :func:`kernel_for` is
 the routing; the plain versions of K2 and K3 are
 :func:`ref_flash_bwd_dq` and :func:`ref_flash_bwd_dkv`, which recompute
 P from lse over the whole score matrix.
@@ -52,7 +58,8 @@ reference's Pallas gate (D % 128 == 0): past 128 each ``mma.sync``
 kernel runs its D = 128 tiles in 128-column slices, one block a slice
 of its output (``csrc/mma_sm90.cuh`` ``HEAD_SLICE``), but for the
 warpgroup kernels (``_WGMMA_ROUTES``: every kernel of both routes at
-D = 256, 16-bit K1, K2 and K3 at D = 128, float32 K3 at D = 64). The
+D = 256, 16-bit K1, K2 and K3 at D = 128, float32 K1, K2 and K3 at
+D = 64). The
 reference
 sends the head dims its Pallas kernels do not take (D % 128 != 0) to
 its plain path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``);
@@ -103,7 +110,7 @@ __all__ = ["flash_attention", "attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "FlashAttention",
            "ref_attention_lse", "ref_flash_bwd_dq", "ref_flash_bwd_dkv",
            "kernel_for", "takes_kernels", "reset_launch_counts", "NEG_INF",
-           "PLAIN", "MAX_GRID_Y", "flash_fwd_op"]
+           "PLAIN", "MAX_GRID_Y", "flash_fwd_op", "blocks_per_sm"]
 
 NEG_INF = -1e30
 
@@ -134,9 +141,10 @@ _ROUTES = {
 # (wrapper, route, head dim) -> the kernel of its own on Hopper's
 # warpgroup instructions (wgmma, TMA, a producer warpgroup) that the
 # wrapper launches there: K1, K2 and K3 on both routes at D = 256,
-# 16-bit K1, K2 and K3 at D = 128, and float32 K3 at D = 64 (the rest of
-# D = 64 and the float32 route at D = 128 keep their mma.sync kernels;
-# other head dims past 128 run the D = 128 mma.sync tiles in slices)
+# 16-bit K1, K2 and K3 at D = 128, and float32 K1, K2 and K3 at D = 64
+# (K1 and K2 there two blocks an SM; the 16-bit route at D = 64 and the
+# float32 route at D = 128 keep their mma.sync kernels; other head dims
+# past 128 run the D = 128 mma.sync tiles in slices)
 _WGMMA_ROUTES = {
     ("flash_fwd", HALF_ROUTE, 256): ("flash_fwd_d256_wgmma",
                                      "flash_fwd_d256_wgmma"),
@@ -158,6 +166,10 @@ _WGMMA_ROUTES = {
                                          "flash_bwd_dkv_d128_wgmma"),
     ("flash_bwd_dkv", F32_ROUTE, 64): ("flash_bwd_dkv_f32_d64_wgmma",
                                        "flash_bwd_dkv_f32_d64_wgmma"),
+    ("flash_bwd_dq", F32_ROUTE, 64): ("flash_bwd_dq_f32_d64_wgmma",
+                                      "flash_bwd_dq_f32_d64_wgmma"),
+    ("flash_fwd", F32_ROUTE, 64): ("flash_fwd_f32_d64_wgmma",
+                                   "flash_fwd_f32_d64_wgmma"),
 }
 
 
@@ -314,6 +326,21 @@ def _bind(route, n_ptrs):
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+def blocks_per_sm(route):
+    """The blocks of ``route``'s kernel (library, symbol) resident on
+    one SM of the current card at the kernel's shared memory, as the
+    occupancy calculator counts them: ``<symbol>_blocks_per_sm`` of the
+    library, which the sources sized for more than one block an SM
+    export beside their ``BLOCKS_PER_SM``."""
+    lib, sym = route
+    fn = getattr(cuda_build.load(lib), f"{sym}_blocks_per_sm")
+    fn.restype, fn.argtypes = ctypes.c_int, []
+    n = fn()
+    if n < 0:
+        raise RuntimeError(f"{sym}: the occupancy query failed")
+    return n
 
 
 def _launch(wrapper, route, ptrs, q, tk, scale, causal):

@@ -22,7 +22,10 @@ where the D = 128 kernels take TF32 halves: the emulation below chooses
 that scheme, and shared memory's 227 KB rules out the TF32 one. Float32
 K3 at head dim 64 (``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``) takes the
 same pieces: both schemes meet the tier there, and the pieces cost fewer
-tensor-core products.
+tensor-core products. So does float32 K2 at head dim 64
+(``csrc/flash_bwd_dq_f32_d64_wgmma.cu``), whose dO takes its third piece
+for the short sequences; it and float32 K1 there
+(``csrc/flash_fwd_f32_d64_wgmma.cu``) are sized for two blocks an SM.
 """
 import math
 
@@ -472,3 +475,76 @@ def test_d64_takes_64_row_q_tiles_where_d256_could_not():
     assert _dkv_smem(256, 64) > 2 * limit
     assert _dkv_smem(256, 16) == cuda_build.constexprs(
         "flash_bwd_dkv_f32_d256_wgmma")["OFF_BAR"] <= limit
+
+
+# --- head dim 64: float32 K2 (csrc/flash_bwd_dq_f32_d64_wgmma.cu) and K1
+# (csrc/flash_fwd_f32_d64_wgmma.cu), sized for two blocks an SM. K2's
+# dP = dO Vᵀ could take dO in three bf16 pieces (D = 256's five
+# products) or in two (three products) ---
+
+DQ_SCHEMES_D64 = {"dO in three pieces (shipped)": BWD_SCHEMES_D256["shipped"],
+                  "dO in two pieces": (_B3, _B3, _B3, _B3, _split6)}
+# (bh, tq, tk, d, causal): the shapes past the Transformer's where K2
+# runs at D 64 on the card: chip_smoke.py's B·H past 65535 at T 32 (here
+# B·H 512) and the f32 serving bucket T 128 (B·H 4 x 32)
+DQ_D64_SHORT_CASES = {"T=32": (512, 32, 32, 64, True),
+                      "T=128": (128, 128, 128, 64, True)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(D64_CASES))
+def test_d64_dq_meets_the_margin_with_both_do_schemes(case, seed):
+    """Float32 K2 at head dim 64: its shipped scheme (dO in three bf16
+    pieces in dP = dO Vᵀ) keeps dQ under half of the f32 tier's limit at
+    the Transformer's shapes on every seed; so would dO in two pieces
+    there, the cheaper scheme (three products for dP, not five)."""
+    r = _bwd_ratios(*D64_CASES[case], seed, schemes=DQ_SCHEMES_D64)
+    for scheme in DQ_SCHEMES_D64:
+        assert r[scheme][0] <= 0.5, (scheme, r)
+
+
+@pytest.mark.parametrize("case", list(DQ_D64_SHORT_CASES))
+def test_d64_dq_takes_do_in_three_pieces_for_the_short_sequences(case):
+    """Why K2 at head dim 64 ships the dearer scheme: at T 32 and T 128
+    dO in two pieces puts dQ past half the limit on at least one of
+    seeds 0-2 (the cancellation in dP - delta, as at D 256), where three
+    pieces keep it under on all of them."""
+    r = [_bwd_ratios(*DQ_D64_SHORT_CASES[case], seed,
+                     schemes=DQ_SCHEMES_D64) for seed in (0, 1, 2)]
+    assert max(x["dO in two pieces"][0] for x in r) > 0.5, r
+    assert max(x["dO in three pieces (shipped)"][0] for x in r) < 0.5, r
+
+
+def _d64_smem(kernel):
+    """Shared memory of float32 K2 and K1 at head dim 64 (64-row q tile
+    and 64-key tiles, every piece bf16): K2 q in two pieces, dO in
+    three, and a ring of four k / v slots that each land a float32 tile;
+    K1 q in two pieces and a ring of five."""
+    d, tile_f32 = 64, 64 * 64 * 4
+    if kernel == "flash_bwd_dq_f32_d64_wgmma":
+        return 64 * d * (2 + 3) * _PIECE + 4 * tile_f32
+    return 64 * d * 2 * _PIECE + 5 * tile_f32
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dq_f32_d64_wgmma",
+                                  "flash_fwd_f32_d64_wgmma"])
+def test_d64_k1_and_k2_fit_two_blocks_an_sm(name):
+    """Both kernels take 64-row q tiles and 64-key tiles at D 64, and
+    are sized so that BLOCKS_PER_SM (2) of them are resident on an SM:
+    their shared memory (the tiles up to OFF_BAR, the barriers and the
+    alignment, and the 1 KB the SM keeps a block) times BLOCKS_PER_SM
+    within the SM's 228 KB, and their threads at the launch's registers
+    (setmaxnreg's producer and consumer counts, averaged) times
+    BLOCKS_PER_SM within the 65,536 registers."""
+    values = cuda_build.constexprs(name)
+    assert (values["BLOCK_M"], values["BLOCK_N"], values["D"]) == (64, 64, 64)
+    assert _d64_smem(name) == values["OFF_BAR"]
+    assert values["SMEM_BYTES"] == values["OFF_BAR"] + 256 + 1024
+    blocks = values["BLOCKS_PER_SM"]
+    assert blocks == 2
+    assert (values["SMEM_BYTES"] + 1024) * blocks <= 233472   # 228 KB
+    launch = (values["PRODUCER_REGS"] + values["CONSUMER_REGS"]) // 2
+    assert values["THREADS"] == 256 and launch == 128
+    assert values["THREADS"] * launch * blocks <= 65536
+    # one more ring slot would leave room for one block only
+    assert (values["SMEM_BYTES"] + 64 * 64 * 4 + 1024) * blocks > 233472

@@ -135,9 +135,9 @@ def test_slices_are_the_d128_tiles():
     multiples of it to its wide instantiation. K1, K2 and K3 at D = 256
     have warpgroup kernels of their own on every dtype, which take
     D = 256 whole and nothing else (16-bit K1, K2 and K3 at D = 128 too,
-    which take D = 128 alone, and float32 K3 at D = 64, which takes
-    D = 64 alone); D = 384 runs the mma.sync kernels that D = 64 runs
-    (but float32 K3)."""
+    which take D = 128 alone, and float32 K1, K2 and K3 at D = 64, which
+    take D = 64 alone); D = 384 runs the mma.sync kernels that D = 64
+    runs on 16-bit inputs and D = 128 on float32."""
     assert fa.HEAD_SLICE == 128
     assert cuda_build.parse_constexprs(
         (cuda_build.CSRC / "mma_sm90.cuh").read_text())["HEAD_SLICE"] == 128
@@ -147,7 +147,8 @@ def test_slices_are_the_d128_tiles():
                      "flash_bwd_dq_f32_d256_wgmma",
                      "flash_bwd_dkv_f32_d256_wgmma", "flash_fwd_d128_wgmma",
                      "flash_bwd_dkv_d128_wgmma", "flash_bwd_dq_d128_wgmma",
-                     "flash_bwd_dkv_f32_d64_wgmma"}
+                     "flash_bwd_dkv_f32_d64_wgmma",
+                     "flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma"}
     assert sorted(k for k in fa._WGMMA_ROUTES if k[2] == 256) == sorted(
         (w, route, 256)
         for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -155,12 +156,14 @@ def test_slices_are_the_d128_tiles():
     assert sorted(k for k in fa._WGMMA_ROUTES if k[2] != 256) == [
         ("flash_bwd_dkv", fa.F32_ROUTE, 64),
         ("flash_bwd_dkv", fa.HALF_ROUTE, 128),
+        ("flash_bwd_dq", fa.F32_ROUTE, 64),
         ("flash_bwd_dq", fa.HALF_ROUTE, 128),
+        ("flash_fwd", fa.F32_ROUTE, 64),
         ("flash_fwd", fa.HALF_ROUTE, 128)]
     for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for dt in (torch.float32, torch.bfloat16):
             assert fa.kernel_for(w, dt, 256) != fa.kernel_for(w, dt, 128)
-            if (w, dt) == ("flash_bwd_dkv", torch.float32):
+            if dt == torch.float32:
                 assert fa.kernel_for(w, dt, 384) == \
                     fa.kernel_for(w, dt, 128) != fa.kernel_for(w, dt, 64)
             else:

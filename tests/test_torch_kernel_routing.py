@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+import residency_check
 import split_check
 import tile_sweep
 from paddle_tpu_torch.ops import cuda_build
@@ -34,13 +35,17 @@ def _library_of(symbol):
 
 # the warpgroup kernels: at head dim 256 K1, K2 and K3 on bf16 and fp16
 # and on float32; at head dim 128 K1, K2 and K3 on bf16 and fp16; at
-# head dim 64 K3 on float32
+# head dim 64 K1, K2 and K3 on float32
 WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
                  "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma",
                  "flash_bwd_dq_f32_d256_wgmma",
                  "flash_bwd_dkv_f32_d256_wgmma", "flash_fwd_d128_wgmma",
                  "flash_bwd_dkv_d128_wgmma", "flash_bwd_dq_d128_wgmma",
-                 "flash_bwd_dkv_f32_d64_wgmma")
+                 "flash_bwd_dkv_f32_d64_wgmma", "flash_bwd_dq_f32_d64_wgmma",
+                 "flash_fwd_f32_d64_wgmma")
+# the warpgroup kernels sized for two resident blocks an SM, which
+# export <symbol>_blocks_per_sm
+TWO_BLOCK_SOURCES = ("flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma")
 # the TPU kernel (pallas_attention.py line and function) each replaces
 REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_d256_wgmma": ":223 _fa_bwd_dq_kernel",
@@ -51,7 +56,9 @@ REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_fwd_d128_wgmma": ":59 _fa_kernel",
             "flash_bwd_dkv_d128_wgmma": ":189 _fa_bwd_dkv_kernel",
             "flash_bwd_dq_d128_wgmma": ":223 _fa_bwd_dq_kernel",
-            "flash_bwd_dkv_f32_d64_wgmma": ":189 _fa_bwd_dkv_kernel"}
+            "flash_bwd_dkv_f32_d64_wgmma": ":189 _fa_bwd_dkv_kernel",
+            "flash_bwd_dq_f32_d64_wgmma": ":223 _fa_bwd_dq_kernel",
+            "flash_fwd_f32_d64_wgmma": ":59 _fa_kernel"}
 # each warpgroup kernel's warpgroups, and the (producer, consumer)
 # registers setmaxnreg gives them (None: no reallocation)
 WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
@@ -63,7 +70,9 @@ WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
               "flash_fwd_d128_wgmma": (3, (24, 240)),
               "flash_bwd_dkv_d128_wgmma": (3, (24, 240)),
               "flash_bwd_dq_d128_wgmma": (3, (24, 240)),
-              "flash_bwd_dkv_f32_d64_wgmma": (3, (136, 184))}
+              "flash_bwd_dkv_f32_d64_wgmma": (3, (136, 184)),
+              "flash_bwd_dq_f32_d64_wgmma": (2, (88, 168)),
+              "flash_fwd_f32_d64_wgmma": (2, (88, 168))}
 # what kernel_for returned at head dims 64, 128 and 384 before the D = 128
 # and D = 64 warpgroup kernels: the mma.sync kernel of each (wrapper,
 # route)
@@ -90,13 +99,13 @@ MMA_SYMBOLS = {("flash_fwd", False): "flash_fwd_mma",
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     """16-bit inputs go to the 16-bit tensor-core kernels of K1, K2 and
     K3, float32 to the split-operand ones; at D 128 16-bit K1, K2 and K3
-    to their warpgroup kernels, at D 64 float32 K3 to its own. The
-    library is the source the symbol is built from."""
+    to their warpgroup kernels, at D 64 float32 K1, K2 and K3 to theirs.
+    The library is the source the symbol is built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
     if d == 128 and dtype != torch.float32:
         want = f"{wrapper}_d128_wgmma"
-    if d == 64 and dtype == torch.float32 and wrapper == "flash_bwd_dkv":
-        want = "flash_bwd_dkv_f32_d64_wgmma"
+    if d == 64 and dtype == torch.float32:
+        want = f"{wrapper}_f32_d64_wgmma"
     assert sym == want
     assert lib in cuda_build.SOURCES
     assert f'extern "C" int {sym}(' in (CSRC / f"{lib}.cu").read_text()
@@ -117,8 +126,8 @@ def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
 def test_routing_at_head_dim_256(wrapper, dtype, want):
     """At D 256 K1, K2 and K3 go to their warpgroup kernels on both
     routes, bf16 and fp16 and float32; at D 384 every route is the
-    sliced mma.sync kernel that D 64 runs (but float32 K3, whose D 64
-    kernel is its own). Each
+    sliced mma.sync kernel that D 64 runs (but float32, whose D 64
+    kernels are their own). Each
     symbol is built from the source of its name, takes as many pointers
     as its wrapper hands it, and is counted by reset_launch_counts."""
     lib, sym = fa.kernel_for(wrapper, dtype, 256)
@@ -130,7 +139,7 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
     assert sym in getattr(fa, wrapper).launches_by_kernel
     mma = (MMA_SYMBOLS[wrapper, dtype == torch.float32],) * 2
     assert fa.kernel_for(wrapper, dtype, 384) == mma
-    if (wrapper, dtype) != ("flash_bwd_dkv", torch.float32):
+    if dtype != torch.float32:
         assert fa.kernel_for(wrapper, dtype, 64) == mma
 
 
@@ -141,8 +150,9 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
 def test_routing_at_head_dim_128(wrapper, dtype):
     """At D 128 16-bit K1, K2 and K3 go to their warpgroup kernels
     (flash_fwd_d128_wgmma, flash_bwd_dq_d128_wgmma,
-    flash_bwd_dkv_d128_wgmma), and at D 64 float32 K3 to its own
-    (flash_bwd_dkv_f32_d64_wgmma); every other route at D 64, every
+    flash_bwd_dkv_d128_wgmma), and at D 64 float32 K1, K2 and K3 to
+    theirs (flash_fwd_f32_d64_wgmma, flash_bwd_dq_f32_d64_wgmma,
+    flash_bwd_dkv_f32_d64_wgmma); every 16-bit route at D 64, every
     route at D 384, and float32 at D 128 keep the mma.sync kernels they
     ran before. Each new symbol is built from the source of its name,
     takes as many pointers as its wrapper hands it, is one lookup of the
@@ -151,16 +161,13 @@ def test_routing_at_head_dim_128(wrapper, dtype):
     f32 = dtype == torch.float32
     mma = MMA_SYMBOLS[wrapper, f32]
     assert fa.kernel_for(wrapper, dtype, 384) == (mma, mma)
-    own = {}
-    if f32 and wrapper == "flash_bwd_dkv":
-        own[64] = "flash_bwd_dkv_f32_d64_wgmma"
-    else:
-        assert fa.kernel_for(wrapper, dtype, 64) == (mma, mma)
     if f32:
+        own = {64: f"{wrapper}_f32_d64_wgmma"}
         assert fa.kernel_for(wrapper, dtype, 128) == (mma, mma)
         assert (wrapper, fa.F32_ROUTE, 128) not in fa._WGMMA_ROUTES
     else:
-        own[128] = f"{wrapper}_d128_wgmma"
+        own = {128: f"{wrapper}_d128_wgmma"}
+        assert fa.kernel_for(wrapper, dtype, 64) == (mma, mma)
     route = fa.F32_ROUTE if f32 else fa.HALF_ROUTE
     for d, want in own.items():
         lib, sym = fa.kernel_for(wrapper, dtype, d)
@@ -587,11 +594,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert fa.flash_fwd.launches_by_kernel == {
         "flash_fwd_f32mma": 0, "flash_fwd_mma": 0, "flash_fwd_d256_wgmma": 0,
         "flash_fwd_f32_d256_wgmma": 0, "flash_fwd_d128_wgmma": 0,
-        "plain": 0}
+        "flash_fwd_f32_d64_wgmma": 0, "plain": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {
         "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0,
         "flash_bwd_dq_d256_wgmma": 0, "flash_bwd_dq_f32_d256_wgmma": 0,
-        "flash_bwd_dq_d128_wgmma": 0, "plain": 0}
+        "flash_bwd_dq_d128_wgmma": 0, "flash_bwd_dq_f32_d64_wgmma": 0,
+        "plain": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
         "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
         "flash_bwd_dkv_d256_wgmma": 0, "flash_bwd_dkv_f32_d256_wgmma": 0,
@@ -602,12 +610,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_wgmma_sources_name_their_design(name):
     """The warpgroup kernels (every route at head dim 256, 16-bit K1, K2
-    and K3 at 128, float32 K3 at 64): warpgroup products (wgmma) fed by
-    TMA
-    from a producer warpgroup (which setmaxnreg brings down beside two
-    consumers, to exactly the launch's 168 registers a thread; float32
-    K1's and K2's one consumer needs no reallocation, and their sources
-    say so), built for sm_90a, where alone those instructions
+    and K3 at 128, float32 K1, K2 and K3 at 64): warpgroup products
+    (wgmma) fed by TMA
+    from a producer warpgroup (which setmaxnreg brings down beside the
+    consumers, to exactly the launch's registers a thread: 168 for one
+    block of three warpgroups an SM, 128 for two blocks of two; float32
+    K1's and K2's one consumer at D 256 needs no reallocation, and their
+    sources say so), built for sm_90a, where alone those instructions
     exist; each source names the TPU kernel it replaces, its
     shared-memory budget and ptxas's registers and spills, and its
     kernel's SASS is held to HGMMA by chip_smoke.py. Each is the route
@@ -634,7 +643,13 @@ def test_wgmma_sources_name_their_design(name):
         assert "setmaxnreg_" not in text
     else:
         producer, consumer = regs
-        assert producer * 128 + consumer * 256 == 168 * 384
+        # the launch's registers a thread: the register file over the
+        # resident threads, in the allocation's steps of 8
+        launch = 65536 // (values["THREADS"]
+                           * values.get("BLOCKS_PER_SM", 1)) // 8 * 8
+        assert launch == {3: 168, 2: 128}[groups]
+        assert producer * 128 + consumer * 128 * (groups - 1) \
+            == launch * 128 * groups
         assert (f"setmaxnreg_dec<{producer}>" in text
                 and f"setmaxnreg_inc<{consumer}>" in text) or (
             values.get("PRODUCER_REGS") == producer
@@ -648,6 +663,84 @@ def test_wgmma_sources_name_their_design(name):
     dtypes = (torch.float32,) if f32 else (torch.bfloat16, torch.float16)
     for dt in dtypes:
         assert fa.kernel_for(wrapper, dt, values["D"]) == (name, name)
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+def test_two_block_kernels_export_their_occupancy(name):
+    """Float32 K1 and K2 at head dim 64 are sized for two resident
+    blocks an SM: BLOCKS_PER_SM 2 in the source, launch bounds that ask
+    for it, and an exported ``<symbol>_blocks_per_sm``, the card's
+    occupancy count at the kernel's shared memory, which chip_smoke.py
+    holds to BLOCKS_PER_SM (``check_occupancy``). The other warpgroup
+    kernels run one block an SM and export none."""
+    text = (CSRC / f"{name}.cu").read_text()
+    values = cuda_build.constexprs(name)
+    if name in TWO_BLOCK_SOURCES:
+        assert values["BLOCKS_PER_SM"] == 2
+        assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in text
+        assert f'extern "C" int {name}_blocks_per_sm(void)' in text
+        assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor(" in text
+    else:
+        assert "BLOCKS_PER_SM" not in values
+        assert "_blocks_per_sm" not in text
+        assert "__launch_bounds__(THREADS, 1)" in text
+
+
+@pytest.mark.parametrize("name", TWO_BLOCK_SOURCES)
+def test_occupancy_gate_fails_a_kernel_off_its_design(name):
+    """chip_smoke.py's occupancy gate: every kernel whose source gives
+    BLOCKS_PER_SM must report that many resident blocks on the card;
+    one that fits fewer (registers or shared memory past the design's)
+    fails the run."""
+    logged = []
+    log, chip_smoke.log = chip_smoke.log, logged.append
+    try:
+        fake = types.SimpleNamespace(
+            _WGMMA_ROUTES=fa._WGMMA_ROUTES,
+            blocks_per_sm=lambda route: 2)
+        got = chip_smoke.check_occupancy(fake, cuda_build)
+        assert got == {s: 2 for s in TWO_BLOCK_SOURCES}
+        fake.blocks_per_sm = lambda route: 1 if route[1] == name else 2
+        with pytest.raises(chip_smoke.SmokeFailure,
+                           match=f"{name}: 1 resident blocks an SM"):
+            chip_smoke.check_occupancy(fake, cuda_build)
+    finally:
+        chip_smoke.log = log
+    assert any("blocks an SM" in x for x in logged)
+
+
+@pytest.mark.parametrize("name", TWO_BLOCK_SOURCES)
+def test_residency_check_changes_only_the_residency(name):
+    """residency_check.py's variants of each two-block kernel: the
+    source as it ships; the same code with its shared memory padded
+    past half the SM's 228 KB (one block an SM, nothing else changed);
+    and one block an SM with a ring deep enough to fill a block's room.
+    Both one-block variants fit a block's 227 KB and drop only the
+    assertion that two blocks fit."""
+    assert set(residency_check.DEEPER_RING) == set(TWO_BLOCK_SOURCES)
+    slots, n_ptrs = residency_check.DEEPER_RING[name]
+    text = (CSRC / f"{name}.cu").read_text()
+    got = residency_check.variants(text, slots)
+    assert got[residency_check.SHIPPED] == text
+    shipped = cuda_build.constexprs(name)
+    for label, src in got.items():
+        if label == residency_check.SHIPPED:
+            continue
+        values = cuda_build.parse_constexprs(src)
+        changed = {k for k in shipped if values[k] != shipped[k]}
+        if "same ring" in label:
+            assert changed == {"SMEM_BYTES"}
+        else:
+            assert {"SLOTS", "SMEM_BYTES", "OFF_BAR"} >= changed >= {"SLOTS"}
+            assert values["SLOTS"] == slots
+        assert 233472 // 2 < values["SMEM_BYTES"] + 1024
+        assert values["SMEM_BYTES"] <= 232448
+        gone = [a for a in text.splitlines() if a not in src.splitlines()]
+        assert sum(g.startswith("static_assert(BLOCKS_PER_SM *")
+                   for g in gone) == 1
+        assert len(gone) == 3     # the assertion's two lines, one constant
+    sig = text[text.index(f'extern "C" int {name}('):]
+    assert sig[:sig.index(")")].count("*") == n_ptrs + 1   # + the stream
 
 
 @pytest.mark.parametrize("name", sorted(split_check.LO_PRODUCTS))

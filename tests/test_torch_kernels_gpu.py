@@ -21,7 +21,9 @@ inputs and rounded once to the output's type. The float32 kernels
 (``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``,
 at head dim 256 the warpgroup kernels ``flash_fwd_f32_d256_wgmma``,
 ``flash_bwd_dq_f32_d256_wgmma`` and ``flash_bwd_dkv_f32_d256_wgmma``,
-and at head dim 64 ``flash_bwd_dkv_f32_d64_wgmma``: tensor cores with
+and at head dim 64 ``flash_fwd_f32_d64_wgmma``,
+``flash_bwd_dq_f32_d64_wgmma`` and ``flash_bwd_dkv_f32_d64_wgmma``:
+tensor cores with
 every operand split into bf16 or TF32 pieces) are held to the f32 tier.
 """
 import numpy as np
@@ -167,8 +169,8 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
             assert sym == f"{w.__name__}_{'f32_' if f32 else ''}d256_wgmma"
         elif d == 128 and not f32:
             assert sym == f"{w.__name__}_d128_wgmma"
-        elif d == 64 and f32 and w is fa.flash_bwd_dkv:
-            assert sym == "flash_bwd_dkv_f32_d64_wgmma"
+        elif d == 64 and f32:
+            assert sym == f"{w.__name__}_f32_d64_wgmma"
         else:
             assert sym == f"{w.__name__}_{'f32mma' if f32 else 'mma'}"
         assert w.launches_by_kernel == {
@@ -355,8 +357,8 @@ def test_f32_d64_wgmma_kernel_matches_plain_version(bh, tq, tk, causal):
     """float32 K3 at head dim 64 on its warpgroup kernel (wgmma on bf16
     pieces of 64-row q tiles, TMA, a producer warpgroup that splits), dK
     and dV against the plain version in the f32 tier with TF32 off, one
-    launch (two for B*H past 65535); K1 and K2 beside it on their
-    mma.sync kernels."""
+    launch (two for B*H past 65535); K1 and K2 beside it on their own
+    warpgroup kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -377,6 +379,52 @@ def test_f32_d64_wgmma_kernel_matches_plain_version(bh, tq, tk, causal):
     want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
                                           causal)
     for name, got, want in (("dK", dk, want_k), ("dV", dv, want_v)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        ok, err, ratio = chip_smoke.kernel_err(got, want)
+        assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
+
+
+# F32_D64_CASES and the two float32 D = 64 cases chip_smoke.py's kernels
+# phase adds for K1 and K2: causal tq < tk and ragged causal (already
+# above)
+F32_D64_FWD_DQ_CASES = F32_D64_CASES + [(8, 128, 256, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,tk,causal", F32_D64_FWD_DQ_CASES)
+def test_f32_d64_wgmma_fwd_and_dq_match_plain_versions(bh, tq, tk, causal):
+    """float32 K1 and K2 at head dim 64 on their warpgroup kernels
+    (wgmma on bf16 pieces, TMA, a producer warpgroup that splits in
+    place, two blocks an SM): O, lse and dQ against the plain versions
+    in the f32 tier with TF32 off, one launch each (two for B*H past
+    65535) on the symbol kernel_for names, and the card's occupancy
+    count equal to each source's BLOCKS_PER_SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, tq, tk,
+                                              64, torch.float32)
+    sc = 1 / 8
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, causal)
+    delta = (do * o).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    chunks = -(-bh // fa.MAX_GRID_Y)
+    for w, want in ((fa.flash_fwd, "flash_fwd_f32_d64_wgmma"),
+                    (fa.flash_bwd_dq, "flash_bwd_dq_f32_d64_wgmma")):
+        route = fa.kernel_for(w.__name__, torch.float32, 64)
+        assert route == (want, want)
+        assert w.launches_by_kernel[want] == w.launches == chunks
+        assert fa.blocks_per_sm(route) \
+            == cuda_build.constexprs(want)["BLOCKS_PER_SM"]
+    want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, causal)
+    for name, got, want in (
+            ("O", o, want_o), ("lse", lse, want_lse),
+            ("dQ", dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
+                                           causal))):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         ok, err, ratio = chip_smoke.kernel_err(got, want)
         assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
@@ -717,7 +765,7 @@ def test_f32_kernels_at_the_transformer_shapes(tq, tk, causal):
     inputs reach ``FlashAttention``, which hands the kernels contiguous,
     aligned copies. Output and gradients against the plain versions on
     the same inputs at the f32 tiers; one launch each, on the kernels
-    ``kernel_for`` names at head dim 64 (K3's warpgroup kernel)."""
+    ``kernel_for`` names at head dim 64 (their warpgroup kernels)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from paddle_tpu_torch.ops.transformer_ops import attention_core
@@ -753,7 +801,7 @@ def test_transformer_on_the_card_matches_the_cpu():
         pytest.skip("needs a CUDA card")
     by_kernel, out = chip_smoke.phase_transformer_parity(torch, fluid, fa,
                                                          "test")
-    assert by_kernel["flash_fwd_f32mma"] == 8
+    assert by_kernel[fa.kernel_for("flash_fwd", torch.float32, 64)[1]] == 8
     assert out["lr_counter"] == 3
 
 

@@ -31,7 +31,9 @@ Phases — any failure exits non-zero:
    ``csrc/flash_fwd_f32_d64_wgmma.cu``,
    ``csrc/flash_bwd_dq_f32_d64_wgmma.cu`` and
    ``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``, K1 and K2 sized for two
-   blocks an SM, which the card's occupancy count must confirm) —
+   blocks an SM, which the card's occupancy count must confirm; at
+   D = 128 K1 and K2 on theirs, ``csrc/flash_fwd_f32_d128_wgmma.cu``,
+   two blocks an SM, and ``csrc/flash_bwd_dq_f32_d128_wgmma.cu``) —
    at the serving and training shapes and the edge cases (causal and
    not, tq != tk with fully masked rows, ragged T, D = 64, in f32, bf16
    and fp16), each case asserting which variant launched, with dQ, dK
@@ -42,9 +44,9 @@ Phases — any failure exits non-zero:
    tile at the f32 serving shape, ``f32 causal`` and Transformer-base's
    self-attention (D = 64), in the float32 tier; every kernel in bf16
    and float32 at B*H = 65536 (past gridDim.y's 65535, launched in
-   chunks; float32 K1-K3 on their D = 64 warpgroup kernels), and at D = 128 in
-   bf16 and fp16 (K1, K2 and K3 on their warpgroup kernels);
-   ``attention_with_lse``'s
+   chunks; float32 K1-K3 on their D = 64 warpgroup kernels), and at
+   D = 128 in bf16 and fp16 (K1, K2 and K3 on their warpgroup kernels)
+   and float32 (K1 and K2 on theirs); ``attention_with_lse``'s
    gradient through both outputs against plain autograd of
    ``ref_attention_lse``; each kernel timed beside its plain version,
    its bound and ``scaled_dot_product_attention`` forward or backward (a
@@ -57,7 +59,7 @@ Phases — any failure exits non-zero:
    request run alone through ``Executor.run``, no step build after
    warmup, and K1 launched once per layer per dispatch — in bfloat16
    (every launch ``flash_fwd_d128_wgmma``), then in float32 (every launch
-   ``flash_fwd_f32mma``), where answers match the lone runs logit for
+   ``flash_fwd_f32_d128_wgmma``), where answers match the lone runs logit for
    logit; one (4 x 256) dispatch's device time by kind in each dtype;
 5. train: the Llama-3-8B-width model cut to 8 layers, bf16, through
    ``build_llama(targets)`` → ``Adam.minimize`` → ``Executor.run`` on one
@@ -76,9 +78,10 @@ Phases — any failure exits non-zero:
    of 5, and peak memory below 5's, with both steps' times, tokens/s,
    peak memory and device time by kind side by side;
 7. train parity: a narrow float32 model (head dim 128, TF32 off) whose
-   step on the card (the kernels: ``flash_fwd_f32mma``,
-   ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``) matches the same
-   step on the CPU (the plain versions): loss and every parameter's
+   step on the card (the kernels: ``flash_fwd_f32_d128_wgmma``,
+   ``flash_bwd_dq_f32_d128_wgmma``, ``flash_bwd_dkv_f32mma``) matches
+   the same step on the CPU (the plain versions): loss and every
+   parameter's
    gradient, then 3 Adam steps' losses; then the same model built as 6
    builds its own (stacked, remat, a fused loss whose last chunk slides
    back), held to the CPU the same way, and its step with remat off and
@@ -188,8 +191,8 @@ Phases — any failure exits non-zero:
    greedy's under the same tier; acceptance, rounds); sampling
    (replayed for a seed and step, different across steps); float32 at
    4 layers, exact wherever the margin exceeds the f32 tier (K1 on
-   ``flash_fwd_f32mma``); prefill and per-token decode ms at batch 1
-   and 4 beside the weights' read bound, speculative tokens/s, the
+   ``flash_fwd_f32_d128_wgmma``); prefill and per-token decode ms at
+   batch 1 and 4 beside the weights' read bound, speculative tokens/s, the
    device's busy share over a 16-token batch-4 generate;
 22. head_dim_256 (the head-dim repair): the 8B width with 16 heads of
    256 and 4 kv heads at 2 layers through ``build_llama`` →
@@ -215,7 +218,8 @@ Phases — any failure exits non-zero:
    high-water mark; then chunked prefill (``chunk_size=128``), W8A8
    (``quantize=True`` against the quantized generator) and speculative
    mode (a 2-layer draft cut from the target, gamma 4) at max_batch 4,
-   and float32 at 4 layers, exact past the f32 tier.
+   and float32 at 4 layers, exact past the f32 tier (the recompute's K1
+   on ``flash_fwd_f32_d128_wgmma``).
 24. resnet50_train (ROADMAP item 5, the main path of this slice): the
    reference's primary benchmark, ``bench.py``'s default configuration —
    ``resnet50`` at 3 x 224², 1000 classes, batch 128,
@@ -271,7 +275,7 @@ Phases — any failure exits non-zero:
 29. mesh_llama_train, moe_train, moe_generate (ROADMAP item 6a): the 8B
    width through ``ParallelExecutor`` on the one card's mesh bit-equal
    to the plain Executor; the Mixtral width's MoE trained and
-   generating;
+   generating (its float32 check's K1 on ``flash_fwd_f32_d128_wgmma``);
 30. pipeline_llama_train (ROADMAP item 6b, the main path of this
    slice): the 8B width at 4 layers, bf16, 4 x 2048 tokens,
    ``build_llama(shard_pp=True)`` with the GPipe op and with
@@ -283,9 +287,10 @@ Phases — any failure exits non-zero:
    twice and K2/K3 once a layer a step; step ms, launches, peak memory;
 31. pipeline_schedule: ``gpipe`` and ``one_f_one_b`` on a one-rank 'pp'
    mesh, a 2-layer stage at the 8B width, 4 microbatches of 1 x 2048,
-   bf16 (and float32 at 1 layer, T 512, TF32 off), against plain
-   autograd of the sequential function: loss, stage and head gradients,
-   dx;
+   bf16 (and float32 at 1 layer, T 512, TF32 off: K1 and K2 on
+   ``flash_fwd_f32_d128_wgmma`` and ``flash_bwd_dq_f32_d128_wgmma``, K3
+   on ``flash_bwd_dkv_f32mma``), against plain autograd of the
+   sequential function: loss, stage and head gradients, dx;
 32. ring_attention: the ring's step at the 8B attention width over 8
    chunks of T 16384 in bf16 against K1 (causal and not), a wrong-offset
    control that must fail, the float32 gradient over 4 chunks of T 8192
@@ -525,7 +530,11 @@ RATE_OF_KERNEL = {
                                     F32_SPLIT6_RATE, F32_SPLIT_RATE),
     "flash_bwd_dq_f32_d64_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
                                    F32_SPLIT_RATE),
-    "flash_fwd_f32_d64_wgmma": (F32_SPLIT_RATE, F32_SPLIT_RATE)}
+    "flash_fwd_f32_d64_wgmma": (F32_SPLIT_RATE, F32_SPLIT_RATE),
+    # and at head dim 128
+    "flash_bwd_dq_f32_d128_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
+                                    F32_SPLIT_RATE),
+    "flash_fwd_f32_d128_wgmma": (F32_SPLIT_RATE, F32_SPLIT_RATE)}
 
 # tolerances (|got - want| <= atol + rtol * |want|). A kernel's plain
 # version is evaluated in float32 on the kernel's own inputs and rounded
@@ -720,13 +729,15 @@ KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                    "flash_fwd_d256_wgmma_kernel",
                                    "flash_fwd_f32_d256_wgmma_kernel",
                                    "flash_fwd_d128_wgmma_kernel",
-                                   "flash_fwd_f32_d64_wgmma_kernel")),
+                                   "flash_fwd_f32_d64_wgmma_kernel",
+                                   "flash_fwd_f32_d128_wgmma_kernel")),
                 ("k2_flash_bwd_dq", ("flash_bwd_dq_f32mma_kernel",
                                      "flash_bwd_dq_mma_kernel",
                                      "flash_bwd_dq_d256_wgmma_kernel",
                                      "flash_bwd_dq_f32_d256_wgmma_kernel",
                                      "flash_bwd_dq_d128_wgmma_kernel",
-                                     "flash_bwd_dq_f32_d64_wgmma_kernel")),
+                                     "flash_bwd_dq_f32_d64_wgmma_kernel",
+                                     "flash_bwd_dq_f32_d128_wgmma_kernel")),
                 ("k3_flash_bwd_dkv", ("flash_bwd_dkv_f32mma_kernel",
                                       "flash_bwd_dkv_mma_kernel",
                                       "flash_bwd_dkv_d256_wgmma_kernel",
@@ -734,8 +745,8 @@ KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                       "flash_bwd_dkv_d128_wgmma_kernel",
                                       "flash_bwd_dkv_f32_d64_wgmma_kernel")))
 # the warpgroup kernels (K1, K2 and K3 at head dim 256 on both routes,
-# bf16/fp16 K1, K2 and K3 at head dim 128, float32 K1, K2 and K3 at head
-# dim 64),
+# bf16/fp16 K1, K2 and K3 and float32 K1 and K2 at head dim 128, float32
+# K1, K2 and K3 at head dim 64),
 # whose SASS must hold HGMMA instructions, and the mma.sync kernels,
 # whose SASS must hold HMMA: every kernel is one or the other
 WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
@@ -749,7 +760,9 @@ WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
                  "flash_bwd_dq_d128_wgmma_kernel",
                  "flash_bwd_dkv_f32_d64_wgmma_kernel",
                  "flash_bwd_dq_f32_d64_wgmma_kernel",
-                 "flash_fwd_f32_d64_wgmma_kernel")
+                 "flash_fwd_f32_d64_wgmma_kernel",
+                 "flash_fwd_f32_d128_wgmma_kernel",
+                 "flash_bwd_dq_f32_d128_wgmma_kernel")
 MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns
                     if kern not in WGMMA_KERNELS)
 # kernel symbol -> the constexprs of its source that give its tile's q
@@ -769,7 +782,9 @@ TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
                                "flash_bwd_dq_d128_wgmma",
                                "flash_bwd_dkv_f32_d64_wgmma",
                                "flash_bwd_dq_f32_d64_wgmma",
-                               "flash_fwd_f32_d64_wgmma")}
+                               "flash_fwd_f32_d64_wgmma",
+                               "flash_fwd_f32_d128_wgmma",
+                               "flash_bwd_dq_f32_d128_wgmma")}
 
 
 class SmokeFailure(Exception):
@@ -1058,10 +1073,10 @@ def phase_kernels(torch, fa, seed):
           f"K1/K2/K3 disagree with their plain versions: {failures}")
     check_lse_gradient(torch, fa, gen, dev)
     check_big_bh(torch, fa, gen, dev)
-    # at D 128 16-bit K1, K2 and K3 run their warpgroup kernels (float32
-    # keeps the mma.sync route; at D 64 above, K3 its warpgroup kernel)
+    # at D 128 16-bit K1, K2 and K3 run their warpgroup kernels, float32
+    # K1 and K2 theirs (K3 keeps the mma.sync route)
     check_big_bh(torch, fa, gen, dev, d=128,
-                 dtypes=(torch.bfloat16, torch.float16))
+                 dtypes=(torch.bfloat16, torch.float16, torch.float32))
     # at D 256 K1-K3 run their warpgroup kernels on both routes: inputs,
     # outputs and the plain versions of one float32 case take ~25 GB of
     # the card's 80
@@ -1072,6 +1087,7 @@ def phase_kernels(torch, fa, seed):
     for label, kinds in (("serving T=128", ("fwd",)),
                          ("serving T=256", ("fwd",)),
                          (GEN_LABEL, ("fwd",)),
+                         ("f32 serving T=128", ("fwd",)),
                          ("f32 serving T=256", ("fwd",)),
                          (TRAIN_LABEL, ("fwd", "dq", "dkv")),
                          ("f32 causal", ("fwd", "dq", "dkv")),
@@ -1654,7 +1670,7 @@ def phase_serve(torch, fluid, dtype, card, then=None):
     """Serve the 8B-width forward in ``dtype`` and hold every answer to
     the same request run alone; every K1 launch must go to the variant
     the dtype routes to (bf16: flash_fwd_d128_wgmma, float32:
-    flash_fwd_f32mma). Returns (K1 launches, serve stats).
+    flash_fwd_f32_d128_wgmma). Returns (K1 launches, serve stats).
 
     The tiers: in float32 each logit within TOL_LOGITS_F32 and the greedy
     token exact. In bfloat16 a 32-layer network amplifies rounding that
@@ -2064,8 +2080,9 @@ def launches_by_kernel(fa):
 
 def phase_train_parity(torch, fluid, fa, card):
     """One float32 step of a narrow model with head dim 128 on the card
-    (K1, K2 and K3 on flash_fwd_f32mma, flash_bwd_dq_f32mma and
-    flash_bwd_dkv_f32mma: 2 layers x 4 steps, 8 launches each) and on
+    (K1, K2 and K3 on flash_fwd_f32_d128_wgmma,
+    flash_bwd_dq_f32_d128_wgmma and flash_bwd_dkv_f32mma: 2 layers x 4
+    steps, 8 launches each) and on
     the CPU (the plain versions), from one startup scope: the loss and
     every parameter's gradient within the f32 gradient tier, then 3 Adam
     steps' losses within the loss tier. Returns (launches by kernel
@@ -2099,9 +2116,9 @@ def phase_train_stack_parity(torch, fluid, fa, card):
     """The float32 parity model (``phase_train_parity``'s) built as
     ``phase_train_stack`` builds the 8B one — stacked, remat, its fused
     loss in chunks of PARITY_CHUNK (the last slides back) — on the card
-    (K1 twice a layer a step, K2 and K3 once, on the ``_f32mma``
-    kernels) against the CPU at the f32 tiers. Then the same step on the
-    card with ``remat=False`` and under ``memory_optimize`` with
+    (K1 twice a layer a step, K2 and K3 once, on the float32 kernels of
+    head dim 128) against the CPU at the f32 tiers. Then the same step on
+    the card with ``remat=False`` and under ``memory_optimize`` with
     ``nothing_saveable`` and ``dots_saveable`` (a checkpoint of the
     whole forward around each layer's own) gives the loss and gradients
     of ``remat=True`` within the f32 gradient tier; whether they are
@@ -3837,11 +3854,11 @@ def phase_generate(torch, fluid, fa, card):
     tier; acceptance and rounds), sampling (in the vocabulary, replayed
     for a seed and step, different across steps), the float32 check at
     GEN_F32_LAYERS layers (exact where the margin exceeds the f32 tier,
-    K1 on flash_fwd_f32mma), and the timings: prefill, per-token decode
-    at batch 1 and GEN_BATCH for bf16, W8A8 and the int8 cache beside
-    the weights' read bound, speculative tokens/s, the device's busy
-    share over a GEN_PROFILED_NEW-token generate. Returns (K1 launches
-    by kernel, stats)."""
+    K1 on flash_fwd_f32_d128_wgmma), and the timings: prefill,
+    per-token decode at batch 1 and GEN_BATCH for bf16, W8A8 and the
+    int8 cache beside the weights' read bound, speculative tokens/s, the
+    device's busy share over a GEN_PROFILED_NEW-token generate. Returns
+    (K1 launches by kernel, stats)."""
     from paddle_tpu_torch.models.llama import (LLAMA3_8B,
                                                build_llama_spec_generator,
                                                copy_weights_as_draft,
@@ -4074,7 +4091,9 @@ def phase_generate(torch, fluid, fa, card):
     l32 = exe.run(f32_p, feed={"ftok": g32}, fetch_list=[f32_logits],
                   scope=scope32, mode="test")[0]
     f32_launches = launches_by_kernel(fa)
-    check(f32_launches["flash_fwd_f32mma"] == GEN_F32_LAYERS,
+    check(f32_launches[f32_kernel(torch, fa, "flash_fwd", cfg32.dim
+                                  // cfg32.n_heads)] == GEN_F32_LAYERS
+          and fa.flash_fwd.launches == GEN_F32_LAYERS,
           f"{tag} f32: K1 launches {f32_launches}")
     # the logits before each generated token, their top two and argmax
     before = l32[:, GEN_PROMPT - 1:total - 1]
@@ -4699,6 +4718,7 @@ def phase_decode_engine(torch, fluid, fa, card, then=None):
     fwd32 = recompute_program(fluid, cfg32)
     rtol, atol = TOL_LOGITS_F32
     f32_agreed = []
+    fa.reset_launch_counts()
     for i, (p, got) in enumerate(zip(p32, o32)):
         want, _, logits = dec_reference(fluid, exe, scope32, cfg32, p,
                                         fwd32, new)
@@ -4711,8 +4731,16 @@ def phase_decode_engine(torch, fluid, fa, card, then=None):
                 atol + rtol * float(row[want[j]].abs()))
         f32_agreed.append(dec_within_flip_rule(
             f"{tag} f32 request {i}", got, want, undecided, 0.0))
+    # the recompute: K1 once a layer a request, on the kernel float32
+    # routes to at the 8B head dim
+    f32_launches = launches_by_kernel(fa)
+    check(f32_launches[f32_kernel(torch, fa, "flash_fwd",
+                                  cfg.dim // cfg.n_heads)]
+          == fa.flash_fwd.launches == DEC_F32_LAYERS * DEC_F32_REQUESTS,
+          f"{tag} f32: the recompute's K1 launches {f32_launches}")
     stats["f32"] = {"layers": DEC_F32_LAYERS, "requests": DEC_F32_REQUESTS,
-                    "agreed_before_undecided": f32_agreed}
+                    "agreed_before_undecided": f32_agreed,
+                    "launches_by_kernel": f32_launches}
     log(f"{tag} f32: " + json.dumps(stats["f32"]))
     del scope32
     free_card(torch)
@@ -6259,9 +6287,17 @@ def phase_moe_generate(torch, fluid, fa, card, trained):
     fscope = fluid.Scope()
     exe.run(fstart, scope=fscope)
     stack_generator_weights(fcfg, fscope)
+    fa.reset_launch_counts()
     _, f_agreed, f_err, _ = moe_generate_check(
         torch, fluid, exe, fscope, fcfg, f"{tag} f32", prompt[:2],
         MOE_GEN_NEW // 2)
+    # the eval forward: K1 once a layer, on the kernel float32 routes to
+    # at the Mixtral head dim
+    f_by_kernel = launches_by_kernel(fa)
+    check(f_by_kernel[f32_kernel(torch, fa, "flash_fwd",
+                                 fcfg.dim // fcfg.n_heads)]
+          == fa.flash_fwd.launches == MOE_F32_LAYERS,
+          f"{tag} f32: K1 launches {f_by_kernel} (one a layer)")
     del fscope
     stats = {"layers": cfg.n_layers, "batch": MOE_GEN_BATCH,
              "prompt": MOE_GEN_PROMPT, "new_tokens": MOE_GEN_NEW,
@@ -6279,6 +6315,7 @@ def phase_moe_generate(torch, fluid, fa, card, trained):
              "w8a8_row_first_step_err": q_err,
              "f32_layers": MOE_F32_LAYERS, "f32_agreed_before_flip": f_agreed,
              "f32_row_logit_err": f_err,
+             "f32_launches_by_kernel": f_by_kernel,
              "launches_by_kernel": by_kernel, "card": card}
     log(f"{tag}: " + json.dumps(stats))
     return by_kernel, stats
@@ -6621,8 +6658,11 @@ def phase_pipeline_schedule(torch, fa, card):
     relative-RMS tier; then in float32 at SCHED_F32_LAYERS layer(s) and
     T SCHED_F32_SEQ with TF32 off, at the f32 gradient tier. A one-stage
     pipeline exchanges nothing: its ticks, the 1F1B slot ring, the
-    in-schedule recompute and the accumulation are what run. Returns
-    ({schedule: the bf16 case's launches by kernel}, stats)."""
+    in-schedule recompute and the accumulation are what run; the float32
+    case's K1 and K2 launches on their warpgroup kernels of head dim 128,
+    K3's on flash_bwd_dkv_f32mma. Returns ({schedule: the bf16 case's
+    launches by kernel}, stats; the float32 case's launches by kernel
+    under stats["f32"]["launches_by_kernel"])."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B
     from paddle_tpu_torch.parallel import collectives, make_mesh
     tag = "pipeline_schedule"
@@ -6680,12 +6720,25 @@ def phase_pipeline_schedule(torch, fa, card):
                       "1f1b": [3 * nl * m, nl * m, nl * m]}
             check(k1 == want_k, f"{tag} {label}: K1/K2/K3 launches "
                   f"{k1}, expected {want_k}")
+            by_kernel = {n: r[3] for n, r in res.items()}
+            if label == "f32":
+                # every launch on the kernel float32 routes to at the
+                # 8B head dim
+                syms = [f32_kernel(torch, fa, w, cfg.dim // cfg.n_heads)
+                        for w in ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv")]
+                for n, counts in k1.items():
+                    check([by_kernel[n][s] for s in syms] == counts,
+                          f"{tag} f32 {n}: launches {by_kernel[n]}, "
+                          f"expected {dict(zip(syms, counts))}")
             stats[label] = {"layers": layers, "seq": seq,
                             "loss": {n: r[0] for n, r in res.items()},
                             "worst_err": worst, "launches_k1_k2_k3": k1,
                             "collectives": dict(coll)}
             if label == "bf16":
-                launches = {n: r[3] for n, r in res.items()}
+                launches = by_kernel
+            else:
+                stats[label]["launches_by_kernel"] = by_kernel
             del res
             free_card(torch)
     finally:
@@ -10170,7 +10223,7 @@ def replaced_row(t, row, launches, paths):
             "source": f"paddle_tpu_torch/csrc/{old}.cu",
             "replaces": row["replaces"], "replaced_by": row["name"],
             "launches": launches[old],
-            "launches_by_path": {p: n[old] for p, n in paths.items()},
+            "launches_by_path": {p: n.get(old, 0) for p, n in paths.items()},
             "max_abs_err": t["replaced_max_abs_err"],
             "ms": t["replaced_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -10332,7 +10385,7 @@ def main():
         shutil.rmtree(IO_ROOT, ignore_errors=True)
         # ROADMAP item 4a, the main path of this slice: the 8B width
         # generating tokens, held against the K1 recompute
-        gen_launches, _ = phase_generate(torch, fluid, fa, smi)
+        gen_launches, gen_stats = phase_generate(torch, fluid, fa, smi)
         free_card(torch)
         # the head-dim repair: K1-K3 at D = 256 on the main path
         hd_launches, _ = phase_head_dim_256(torch, fluid, fa, smi)
@@ -10349,8 +10402,8 @@ def main():
             chaos["decode"] = phase_serving_chaos_decode(torch, fluid, fa,
                                                          smi, dec)
 
-        dec_launches, _ = phase_decode_engine(torch, fluid, fa, smi,
-                                              then=cluster_decode)
+        dec_launches, dec_stats = phase_decode_engine(
+            torch, fluid, fa, smi, then=cluster_decode)
         free_card(torch)
         # item 8: the train fabric's workers on the card
         fleet["train_fabric"] = phase_train_fabric(torch, fluid, fa, smi)
@@ -10389,8 +10442,8 @@ def main():
         mesh_launches, _ = phase_mesh_llama_train(torch, fluid, fa, smi)
         free_card(torch)
         moe_launches, _, moe_scope = phase_moe_train(torch, fluid, fa, smi)
-        moe_gen_launches, _ = phase_moe_generate(torch, fluid, fa, smi,
-                                                 moe_scope)
+        moe_gen_launches, moe_gen_stats = phase_moe_generate(
+            torch, fluid, fa, smi, moe_scope)
         del moe_scope
         free_card(torch)
         # ROADMAP item 6b, the main paths of this slice: the 8B width's
@@ -10398,7 +10451,8 @@ def main():
         # and the ring's step
         pipe_launches, _ = phase_pipeline_llama_train(torch, fluid, fa, smi)
         free_card(torch)
-        sched_launches, _ = phase_pipeline_schedule(torch, fa, smi)
+        sched_launches, sched_stats = phase_pipeline_schedule(torch, fa,
+                                                              smi)
         free_card(torch)
         phase_ring_attention(torch, fa, smi)
         free_card(torch)
@@ -10468,11 +10522,16 @@ def main():
              "io_train_resume": io_train_launches,
              "io_saved_serve": io_serve_launches,
              "io_llama_saved": io_llama_launches,
+             "serve_f32": {f32_kernel(torch, fa, "flash_fwd", 128):
+                           serve_f32_launches},
              "generate": gen_launches,
+             "generate_f32": gen_stats["f32"]["launches_by_kernel"],
              "head_dim_256_bf16_train": hd_launches["bf16"],
              "head_dim_256_serve": hd_launches["serve"],
              "head_dim_256_f32_train": hd_launches["f32"],
              "decode_engine_checks": dec_launches,
+             "decode_engine_f32_checks": dec_stats["f32"][
+                 "launches_by_kernel"],
              "resnet50_train": rn_launches,
              "resnet50_serve": rn_serve_launches,
              "resnet_parity": rn_parity_launches,
@@ -10481,10 +10540,13 @@ def main():
              "mesh_llama_train": mesh_launches,
              "moe_train": moe_launches,
              "moe_generate": moe_gen_launches,
+             "moe_generate_f32": moe_gen_stats["f32_launches_by_kernel"],
              "pipeline_llama_train_gpipe": pipe_launches["gpipe"],
              "pipeline_llama_train_1f1b": pipe_launches["1f1b"],
              "pipeline_schedule_gpipe": sched_launches["gpipe"],
              "pipeline_schedule_1f1b": sched_launches["1f1b"],
+             **{f"pipeline_schedule_f32_{n}": by_kernel for n, by_kernel
+                in sched_stats["f32"]["launches_by_kernel"].items()},
              "deepfm_train": ctr_launches,
              "stacked_lstm_train": lstm_launches,
              "seq_zoo": seq_zoo_launches,
@@ -10520,7 +10582,8 @@ def main():
                "replaces": "paddle_tpu/ops/pallas_attention.py"
                            + replaces[kind_],
                "launches": launches[fn],
-               "launches_by_path": {p: n[fn] for p, n in paths.items()},
+               "launches_by_path": {p: n.get(fn, 0)
+                                    for p, n in paths.items()},
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -10537,23 +10600,22 @@ def main():
         if kind_ == "fwd":
             # K1 at this dtype's serving shape, timed and held to its
             # plain version in phase_kernels; launches: that serve phase
+            # and at the other serving bucket (T 128); launches: that
+            # serve phase's, in both buckets
             f32 = label == "f32 causal"
-            serve = dict(timing[("fwd", "f32 serving T=256" if f32
-                                 else "serving T=256")])
-            serve.pop("kernel")
-            row["serving"] = dict(
-                serve, launches=serve_f32_launches if f32 else serve_launches,
-                shape=f"bh=4*32 t=256 d=128 causal {'f32' if f32 else 'bf16'}")
+            dt = "f32" if f32 else "bf16"
+            for key, bucket in (("serving", 256), ("serving_t128", 128)):
+                serve = dict(timing[
+                    ("fwd", f"{'f32 ' if f32 else ''}serving T={bucket}")])
+                serve.pop("kernel")
+                row[key] = dict(
+                    serve,
+                    launches=serve_f32_launches if f32 else serve_launches,
+                    shape=f"bh=4*32 t={bucket} d=128 causal {dt}")
             if not f32:
-                # K1 at the other serving bucket (T 128), and at the
-                # recompute's shape of the generate phase, timed and held
-                # to their plain versions in phase_kernels; launches: the
-                # bf16 serve phase and that phase's recompute
-                t128 = dict(timing[("fwd", "serving T=128")])
-                t128.pop("kernel")
-                row["serving_t128"] = dict(
-                    t128, launches=serve_launches,
-                    shape="bh=4*32 t=128 d=128 causal bf16")
+                # K1 at the recompute's shape of the generate phase, timed
+                # and held to its plain version in phase_kernels;
+                # launches: that phase's recompute
                 g = dict(timing[("fwd", GEN_LABEL)])
                 g.pop("kernel")
                 row["generate"] = dict(
@@ -10589,7 +10651,8 @@ def main():
                             + replaces[kind_],
                 "launches": hd_launches[path][fn],
                 "path": f"head_dim_256_{path}_train",
-                "launches_by_path": {p: n[fn] for p, n in paths.items()},
+                "launches_by_path": {p: n.get(fn, 0)
+                                     for p, n in paths.items()},
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -10630,7 +10693,8 @@ def main():
                 "replaces": "paddle_tpu/ops/pallas_attention.py"
                             + replaces[kind_],
                 "launches": launches[fn], "path": path,
-                "launches_by_path": {p: n[fn] for p, n in paths.items()},
+                "launches_by_path": {p: n.get(fn, 0)
+                                     for p, n in paths.items()},
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],

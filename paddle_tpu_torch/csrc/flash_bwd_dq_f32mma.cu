@@ -3,6 +3,15 @@
 // and fp16 inputs run flash_bwd_dq_mma.cu; dK/dV (K3) is
 // flash_bwd_dkv_f32mma.cu's.
 //
+// Where it runs: the float32 route at head dims 64, 128 and 256 runs
+// kernels of its own on the warpgroup instructions
+// (flash_bwd_dq_f32_d64_wgmma.cu, flash_bwd_dq_f32_d128_wgmma.cu,
+// flash_bwd_dq_f32_d256_wgmma.cu), so no model path launches this
+// kernel; it takes the head dims past 256 (384, ...) in 128-column
+// slices, and chip_smoke.py times it at D = 128 beside the kernel that
+// replaced it there. The shapes and bounds below are those it was
+// written for.
+//
 // Replaces paddle_tpu/ops/pallas_attention.py:223 _fa_bwd_dq_kernel
 // (with _recompute_ds, :161; the first pallas_call of _flash_bwd_pallas,
 // :273) on the float32 route. Per (batch*head) slice of q, do [tq, D] and

@@ -2,6 +2,14 @@
 // mma.sync m16n8k16 bf16 with float32 accumulators), plain C interface.
 // bf16 and fp16 inputs run flash_fwd_mma.cu.
 //
+// Where it runs: the float32 route at head dims 64, 128 and 256 runs
+// kernels of its own on the warpgroup instructions
+// (flash_fwd_f32_d64_wgmma.cu, flash_fwd_f32_d128_wgmma.cu,
+// flash_fwd_f32_d256_wgmma.cu), so no model path launches this kernel;
+// it takes the head dims past 256 (384, ...) in 128-column slices, and
+// chip_smoke.py times it at D = 128 beside the kernel that replaced it
+// there. The shapes and bounds below are those it was written for.
+//
 // Replaces paddle_tpu/ops/pallas_attention.py:59 _fa_kernel (launched by
 // _flash_fwd_pallas, :111) on the float32 route. Computes exactly what
 // flash_fwd_mma.cu computes, per (batch*head) slice of q [tq, D] and

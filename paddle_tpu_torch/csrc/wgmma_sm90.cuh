@@ -3,15 +3,16 @@
 // flash_bwd_dkv_d256_wgmma.cu, flash_fwd_f32_d256_wgmma.cu,
 // flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu), at
 // head dim 128 (flash_fwd_d128_wgmma.cu, flash_bwd_dq_d128_wgmma.cu,
-// flash_bwd_dkv_d128_wgmma.cu) and at head dim 64
+// flash_bwd_dkv_d128_wgmma.cu, flash_fwd_f32_d128_wgmma.cu,
+// flash_bwd_dq_f32_d128_wgmma.cu) and at head dim 64
 // (flash_bwd_dkv_f32_d64_wgmma.cu, flash_bwd_dq_f32_d64_wgmma.cu,
 // flash_fwd_f32_d64_wgmma.cu): TMA tile loads completing on
 // mbarriers, the shared-memory matrix descriptors of wgmma, the seven
 // wgmma shapes the kernels run (m64n128k16, m64n64k16, m64n32k16 and
 // m64n16k16 with both operands in shared memory, m64n256k16, m64n128k16
 // and m64n64k16 with A in registers), the two- and three-piece 16-bit
-// splits of float32 values (at head dim 64 also in place, a warp an
-// 8-row group), warpgroup register reallocation
+// splits of float32 values (at head dims 64 and 128 also in place, a warp
+// an 8-row group), warpgroup register reallocation
 // (setmaxnreg), named barriers, the proxy fence that lets wgmma read
 // what threads wrote, the hardware's 2^x, and the host-side tensor maps
 // (16-bit tiles swizzled, float32 tiles plain).
@@ -473,7 +474,7 @@ __device__ __forceinline__ void split_tile_in_place(float* tile, int i,
   }
 }
 
-// ---- head dim 64: tiles interleaved by 8-row group ----
+// ---- head dims 64 and 128: tiles interleaved by 8-row group ----
 //
 // A float32 row of 64 columns is 256 bytes and a 16-bit piece's row 128,
 // so an 8-row group of a row-major [rows][64] float32 tile (2048 bytes)
@@ -484,31 +485,50 @@ __device__ __forceinline__ void split_tile_in_place(float* tile, int i,
 // desc_mn_major with `group` GROUP_BYTES): a float32 tile landed there
 // by TMA is split in place one group at a time, by one warp holding 16
 // values a lane, with no other thread waiting for it.
+//
+// At head dim 128 a float32 row is 512 bytes and a group 4096: group g
+// of a group-interleaved [rows, 128] tile holds its hi piece's two
+// column blocks at byte 4096 g and 4096 g + 1024 and its lo piece's at
+// 4096 g + 2048 and + 3072 (`group` GROUP_BYTES_D128; a K-major k-step
+// past column 64 starts CBLOCK_ELEMS further on, and an MN-major
+// operand's two column blocks lie CBLOCK_BYTES apart). One warp splits
+// a group holding 32 values a lane.
 constexpr uint32_t GROUP_BYTES = 2048;
 constexpr int GROUP_ELEMS = GROUP_BYTES / 2;  // 16-bit elements a group
 constexpr int LO_ELEMS = GROUP_ELEMS / 2;     // the lo block's offset
+constexpr uint32_t GROUP_BYTES_D128 = 4096;
+constexpr int GROUP_ELEMS_D128 = GROUP_BYTES_D128 / 2;
+constexpr int LO_ELEMS_D128 = GROUP_ELEMS_D128 / 2;
+constexpr uint32_t CBLOCK_BYTES = 1024;       // one swizzled [8][64] block
+constexpr int CBLOCK_ELEMS = CBLOCK_BYTES / 2;
 
-// split 8-row group g of the row-major [rows][64] float32 tile at
-// `tile` in place into its bf16 hi and lo blocks (split_pack), by the
-// 32 lanes of one warp
+// split 8-row group g of the row-major [rows][COLS] float32 tile at
+// `tile` (COLS 64 or 128) in place into its bf16 hi and lo blocks
+// (split_pack), by the 32 lanes of one warp
+template <int COLS = 64>
 __device__ __forceinline__ void split_group_in_place(float* tile, int g,
                                                      int lane) {
-  float* src = tile + g * 8 * 64;
-  float4 x[4];
+  static_assert(COLS == 64 || COLS == 128, "head dim 64 or 128");
+  constexpr int VEC = COLS / 16;   // float4 a lane
+  constexpr int ROW4 = COLS / 4;   // float4 a row
+  float* src = tile + g * 8 * COLS;
+  float4 x[VEC];
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < VEC; ++k)
     x[k] = reinterpret_cast<const float4*>(src)[lane + 32 * k];
   __syncwarp();
   __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(src);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int f = lane + 32 * k, r = f >> 4, c = (f & 15) * 4;
+  for (int k = 0; k < VEC; ++k) {
+    const int f = lane + 32 * k, r = f / ROW4, c = (f % ROW4) * 4;
+    const int cc = c & 63;
     uint32_t h0, l0, h1, l1;
     split_pack<__nv_bfloat16>(x[k].x, x[k].y, h0, l0);
     split_pack<__nv_bfloat16>(x[k].z, x[k].w, h1, l1);
-    const int o = r * 64 + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+    const int o = (c >> 6) * CBLOCK_ELEMS + r * 64 +
+                  ((((cc >> 3) ^ r) & 7) << 3) + (cc & 7);
     *reinterpret_cast<uint2*>(dst + o) = make_uint2(h0, h1);
-    *reinterpret_cast<uint2*>(dst + LO_ELEMS + o) = make_uint2(l0, l1);
+    *reinterpret_cast<uint2*>(dst + 8 * COLS + o) = make_uint2(l0, l1);
   }
 }
 
@@ -563,8 +583,8 @@ int make_map(CUtensorMap* map, const void* base, int bh, int t, int rows) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// tensor map of a contiguous [bh, t, COLS] float32 tensor (COLS 256 or
-// 64) read in boxes of (all COLS columns, rows, 1 slice), unswizzled: a
+// tensor map of a contiguous [bh, t, COLS] float32 tensor (COLS 256, 128
+// or 64) read in boxes of (all COLS columns, rows, 1 slice), unswizzled: a
 // box lands as a row-major [rows][COLS] float32 tile; rows past t read
 // as 0. Returns a CUDA error code (0 = ok).
 template <int COLS = 256>

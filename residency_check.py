@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Whether residency, two blocks an SM, is what makes the float32
-warpgroup kernels at head dim 64 fast, on one CUDA card.
+warpgroup kernels sized for it fast, on one CUDA card.
 
-Float32 K1 (``csrc/flash_fwd_f32_d64_wgmma.cu``) and K2
-(``csrc/flash_bwd_dq_f32_d64_wgmma.cu``) are sized so that two blocks
+Float32 K1 and K2 at head dim 64 (``csrc/flash_fwd_f32_d64_wgmma.cu``,
+``csrc/flash_bwd_dq_f32_d64_wgmma.cu``) and float32 K1 at head dim 128
+(``csrc/flash_fwd_f32_d128_wgmma.cu``) are sized so that two blocks
 share an SM (their ``BLOCKS_PER_SM``). This script builds each kernel
 three times with the port's nvcc flags into a temporary directory: as it
 ships; the same code held to one block an SM by padding its dynamic
 shared memory past half the SM's (residency alone changes); and one
 block an SM with a ring deep enough to fill that room (the other
-arrangement, more tiles in flight a block). It runs them at
-Transformer-base's two attention shapes (chip_smoke.py's
-``TF_CAUSAL_LABEL`` and ``TF_CROSS_LABEL``: B·H 32 x 8, head dim 64,
-float32), holds each output to the kernel's plain version in
+arrangement, more tiles in flight a block). It runs the head-dim-64
+kernels at Transformer-base's two attention shapes (chip_smoke.py's
+``TF_CAUSAL_LABEL`` and ``TF_CROSS_LABEL``: B·H 32 x 8, float32) and
+the head-dim-128 K1 at the Llama width's float32 serving bucket (B·H
+4 x 32, T 256, causal) and at T 2048 (B·H 2 x 32, causal; chip_smoke.py's
+``F32_LONG_LABEL``), holds each output to the kernel's plain version in
 chip_smoke.py's float32 tier, reads each variant's resident blocks an SM
 from the card's occupancy calculator (the sources' exported
 ``<symbol>_blocks_per_sm``), and times the variants in turns (CUDA
@@ -23,8 +26,8 @@ the CUDA toolkit::
 
     python3 residency_check.py
 
-Prints one JSON line a shape: each variant's blocks an SM, worst
-err / limit and ms, with the card's name and power limit. Exits
+Prints one JSON line a head dim and shape: each variant's blocks an SM,
+worst err / limit and ms, with the card's name and power limit. Exits
 non-zero if a variant misses the tier or the shipped one's blocks an SM
 differ from its ``BLOCKS_PER_SM``.
 """
@@ -40,7 +43,8 @@ import tempfile
 # source -> (the ring's slots that fill one block's shared memory, the
 # pointers of its C interface)
 DEEPER_RING = {"flash_bwd_dq_f32_d64_wgmma": (8, 7),
-               "flash_fwd_f32_d64_wgmma": (12, 5)}
+               "flash_fwd_f32_d64_wgmma": (12, 5),
+               "flash_fwd_f32_d128_wgmma": (12, 5)}
 PAD_KB = 120     # past half the SM's 228 KB, within a block's 227
 HEADERS = ("mma_sm90.cuh", "wgmma_sm90.cuh")
 SHIPPED = "2 blocks/SM (shipped)"
@@ -113,52 +117,73 @@ def main():
     gen.manual_seed(cs.SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    shapes = ((cs.TF_CAUSAL_LABEL, cs.TF_SEQ, True),
-              (cs.TF_CROSS_LABEL, cs.TF_SEQ // 2, False))
-    bh, tk, d, scale = cs.TF_BATCH * 8, cs.TF_SEQ, cs.TF_HEAD_DIM, 0.125
+    tf_bh = cs.TF_BATCH * 8
+    # head dim -> its shapes (label, bh, tq, tk, causal)
+    shapes = {cs.TF_HEAD_DIM: (
+                  (cs.TF_CAUSAL_LABEL, tf_bh, cs.TF_SEQ, cs.TF_SEQ, True),
+                  (cs.TF_CROSS_LABEL, tf_bh, cs.TF_SEQ // 2, cs.TF_SEQ,
+                   False)),
+              128: (("f32 serving T=256", 4 * 32, 256, 256, True),
+                    (cs.F32_LONG_LABEL, cs.TRAIN_BATCH * 32, cs.TRAIN_SEQ,
+                     cs.TRAIN_SEQ,
+                     True))}
     ok = True
-    for shape, tq, causal in shapes:
-        q, k, v, do = cs.attention_inputs(torch, gen, dev, bh, tq, tk, d,
-                                          torch.float32)
-        o_ref, lse_ref = fa.ref_attention_lse(q, k, v, scale, causal)
-        lse = lse_ref.contiguous()
-        delta = (do * o_ref).sum(-1)
-        bwd = (q, k, v, do, lse, delta)
-        # source -> (inputs, outputs, plain versions of the outputs)
-        io = {"flash_fwd_f32_d64_wgmma": (
-                  (q, k, v), (torch.empty_like(q), torch.empty_like(lse)),
-                  (o_ref, lse_ref)),
-              "flash_bwd_dq_f32_d64_wgmma": (
-                  bwd, (torch.empty_like(q),),
-                  (fa.ref_flash_bwd_dq(*bwd, scale, causal),))}
-        row = {"shape": shape, "bh": bh, "tq": tq, "tk": tk, "d": d,
-               "card": smi, "kernels": {}}
-        calls = {}
-        for (source, label), (fn, occupancy) in fns.items():
-            ins, outs, wants = io[source]
-            ptrs = [x.data_ptr() for x in ins + outs]
+    for d, cases in shapes.items():
+        sources = [s for s in DEEPER_RING
+                   if cuda_build.constexprs(s)["D"] == d]
+        scale = 1 / d ** 0.5
+        for shape, bh, tq, tk, causal in cases:
+            q, k, v, do = cs.attention_inputs(torch, gen, dev, bh, tq, tk,
+                                              d, torch.float32)
+            o_ref, lse_ref = fa.ref_attention_lse(q, k, v, scale, causal)
+            lse = lse_ref.contiguous()
+            delta = (do * o_ref).sum(-1)
+            bwd = (q, k, v, do, lse, delta)
+            # source -> (inputs, outputs, plain versions of the outputs)
+            io = {}
+            for source in sources:
+                if source.startswith("flash_fwd"):
+                    io[source] = ((q, k, v), (torch.empty_like(q),
+                                              torch.empty_like(lse)),
+                                  (o_ref, lse_ref))
+                else:
+                    io[source] = (bwd, (torch.empty_like(q),),
+                                  (fa.ref_flash_bwd_dq(*bwd, scale,
+                                                       causal),))
+            row = {"shape": shape, "bh": bh, "tq": tq, "tk": tk, "d": d,
+                   "card": smi, "kernels": {}}
+            calls = {}
+            for (source, label), (fn, occupancy) in fns.items():
+                if source not in io:
+                    continue
+                ins, outs, wants = io[source]
+                ptrs = [x.data_ptr() for x in ins + outs]
 
-            def call(fn=fn, ptrs=ptrs):
-                rc = fn(*ptrs, bh, tq, tk, d, 0, scale, int(causal), stream)
-                if rc:
-                    raise RuntimeError(f"launch failed: CUDA error {rc}")
+                def call(fn=fn, ptrs=ptrs):
+                    rc = fn(*ptrs, bh, tq, tk, d, 0, scale, int(causal),
+                            stream)
+                    if rc:
+                        raise RuntimeError(f"launch failed: CUDA error {rc}")
 
-            call()
-            torch.cuda.synchronize()
-            ratio = max(cs.kernel_err(g, w)[2] for g, w in zip(outs, wants))
-            blocks = occupancy()
-            ok &= ratio <= 1.0
-            if label == SHIPPED:
-                ok &= blocks == cuda_build.constexprs(source)["BLOCKS_PER_SM"]
-            row["kernels"].setdefault(source, {})[label] = {
-                "blocks_per_sm": blocks, "err_over_limit": ratio, "ms": []}
-            calls[source, label] = call
-        for _ in range(2):
-            for key in list(calls) + list(calls)[::-1]:
-                row["kernels"][key[0]][key[1]]["ms"].append(
-                    cs.time_ms(calls[key], torch, flush=flush))
-        print(json.dumps(row), flush=True)
-        del q, k, v, do, o_ref, lse_ref, lse, delta, bwd, io
+                call()
+                torch.cuda.synchronize()
+                ratio = max(cs.kernel_err(g, w)[2]
+                            for g, w in zip(outs, wants))
+                blocks = occupancy()
+                ok &= ratio <= 1.0
+                if label == SHIPPED:
+                    ok &= blocks == cuda_build.constexprs(source)[
+                        "BLOCKS_PER_SM"]
+                row["kernels"].setdefault(source, {})[label] = {
+                    "blocks_per_sm": blocks, "err_over_limit": ratio,
+                    "ms": []}
+                calls[source, label] = call
+            for _ in range(2):
+                for key in list(calls) + list(calls)[::-1]:
+                    row["kernels"][key[0]][key[1]]["ms"].append(
+                        cs.time_ms(calls[key], torch, flush=flush))
+            print(json.dumps(row), flush=True)
+            del q, k, v, do, o_ref, lse_ref, lse, delta, bwd, io
     return 0 if ok else 1
 
 

@@ -26,6 +26,11 @@ tensor-core products. So does float32 K2 at head dim 64
 (``csrc/flash_bwd_dq_f32_d64_wgmma.cu``), whose dO takes its third piece
 for the short sequences; it and float32 K1 there
 (``csrc/flash_fwd_f32_d64_wgmma.cu``) are sized for two blocks an SM.
+At head dim 128 float32 K2 (``csrc/flash_bwd_dq_f32_d128_wgmma.cu``)
+takes the same pieces where the mma.sync kernel took 3xTF32 (both meet
+the tier; the pieces cost fewer products and leave room for two stages
+of k and v), and float32 K1 (``csrc/flash_fwd_f32_d128_wgmma.cu``) is
+sized for two blocks an SM; float32 K3 there keeps its mma.sync kernel.
 """
 import math
 
@@ -548,3 +553,147 @@ def test_d64_k1_and_k2_fit_two_blocks_an_sm(name):
     assert values["THREADS"] * launch * blocks <= 65536
     # one more ring slot would leave room for one block only
     assert (values["SMEM_BYTES"] + 64 * 64 * 4 + 1024) * blocks > 233472
+
+
+# --- head dim 128: float32 K1 (csrc/flash_fwd_f32_d128_wgmma.cu, two
+# blocks an SM) and K2 (csrc/flash_bwd_dq_f32_d128_wgmma.cu, one). K2's
+# dP = dO Vᵀ could take dO in three bf16 pieces against V's two (the
+# D = 64 and 256 warpgroup K2s' five products) or 3xTF32 (the mma.sync
+# kernel's); dQ = dS K is 3xbf16 in both ---
+
+DQ_SCHEMES_D128 = {"bf16 once": (_once(_bf16),) * 5,
+                   "dO in three pieces (shipped)": BWD_SCHEMES_D256["shipped"],
+                   "3xtf32": BWD_SCHEMES["shipped"],
+                   "dO in two pieces": DQ_SCHEMES_D64["dO in two pieces"]}
+# (bh, tq, tk, d, causal): the float32 D = 128 shapes K2 runs on the card
+# (chip_smoke.py's serving buckets, the parity shape, tq > tk, ragged,
+# T 2048) and T 32, chip_smoke.py's B·H past 65535 (here B·H 512)
+D128_DQ_CASES = {**{k: CASES[k] for k in (
+    "serving T=128", "serving T=256", "causal",
+    "tq>tk causal (fully masked rows)", "ragged T=200 causal",
+    "T=2048, two heads")}, "T=32": (512, 32, 32, 128, True)}
+
+
+def _d128_dq(case, seed):
+    """{scheme: dQ err/limit} of DQ_SCHEMES_D128 at D128_DQ_CASES[case]."""
+    r = _bwd_ratios(*D128_DQ_CASES[case], seed, schemes=DQ_SCHEMES_D128)
+    return {scheme: ratios[0] for scheme, ratios in r.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(D128_DQ_CASES))
+def test_d128_dq_one_rounding_misses_and_both_dp_schemes_meet_the_margin(
+        case, seed):
+    """Float32 K2 at head dim 128: one bf16 rounding of the operands puts
+    dQ past the f32 tier's limit on every case; both candidate schemes
+    for dP = dO Vᵀ, dO in three bf16 pieces (shipped) and 3×TF32, keep
+    dQ under half of it on every case and seed, B·H 65536's T 32
+    among them."""
+    r = _d128_dq(case, seed)
+    assert r["bf16 once"] > 1.0, r
+    assert r["dO in three pieces (shipped)"] < 0.5, r
+    assert r["3xtf32"] < 0.5, r
+
+
+@pytest.mark.parametrize("case", ["serving T=256", "ragged T=200 causal",
+                                  "T=32"])
+def test_d128_dq_takes_do_in_three_pieces(case):
+    """Why dO takes a third piece at head dim 128, as at 64 and 256: with
+    two (three products for dP) dQ passes half the limit on at least one
+    of seeds 0-2 at the serving bucket T 256, the ragged causal case and
+    T 32 (the cancellation in dP - delta), where three pieces keep it
+    under on all of them."""
+    r = [_d128_dq(case, seed) for seed in (0, 1, 2)]
+    assert max(x["dO in two pieces"] for x in r) > 0.5, r
+    assert max(x["dO in three pieces (shipped)"] for x in r) < 0.5, r
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_d128_forward_split_meets_the_margin_at_t32(seed):
+    """Float32 K1 at head dim 128 keeps every K1's 3×bf16 split (the
+    cases above at D 128); at T 32, B·H 65536's sequence on the card,
+    one rounding misses the tier and the split keeps O and lse under
+    half of it."""
+    r = _ratios(512, 32, 32, 128, True, seed)
+    assert r["bf16 once"][0] > 1.0, r
+    assert max(r["3xbf16"]) < 0.5, r
+
+
+# bf16 products a visible pair costs each dP scheme, a TF32 product at
+# half the bf16 rate
+D128_DP_COST = {"dO in three pieces (shipped)": 5, "3xtf32": 2 * 3}
+
+
+def _d128_dq_smem(scheme, keys=64, stages=2):
+    """Shared memory of float32 K2 at head dim 128: a resident 64-row q
+    tile in two bf16 pieces and dO, then ``stages`` stages of a
+    ``keys``-key k tile in two bf16 pieces and a v tile. Shipped: dO in
+    three bf16 pieces, V in two (each k or v slot lands its float32 tile
+    first, the pieces' bytes). 3×TF32: dO and V each as a TF32 hi and lo
+    (8 bytes an element); wgmma reads TF32 from shared memory K-major,
+    which both operands of dP are."""
+    d = 128
+    if scheme == "dO in three pieces (shipped)":
+        return 64 * d * (2 + 3) * _PIECE + stages * 2 * keys * d * 4
+    return (64 * d * (2 * _PIECE + _TF32)
+            + stages * keys * d * (2 * _PIECE + _TF32))
+
+
+def test_d128_dq_pieces_keep_two_stages_where_tf32_fits_one():
+    """The shipped pieces cost fewer tensor-core products than 3×TF32,
+    and take what the kernel lays out (its source's OFF_BAR: q, dO's
+    pieces and two stages of 64 keys) within a block's 227 KB; 3×TF32's
+    halves of V would leave room for one 64-key stage only, no k and v
+    in flight while a tile's products run."""
+    limit = 232448 - 512 - 1024          # 227 KB less barriers, alignment
+    values = cuda_build.constexprs("flash_bwd_dq_f32_d128_wgmma")
+    assert (values["BLOCK_M"], values["BLOCK_N"], values["D"]) == (64, 64, 128)
+    assert values["SLOTS"] == 4          # two stages of a v and a k tile
+    shipped = _d128_dq_smem("dO in three pieces (shipped)")
+    assert shipped == values["OFF_BAR"] <= limit
+    assert _d128_dq_smem("3xtf32", stages=1) <= limit
+    assert _d128_dq_smem("3xtf32") > limit
+    assert D128_DP_COST["dO in three pieces (shipped)"] < D128_DP_COST[
+        "3xtf32"]
+
+
+@pytest.mark.parametrize("keys", [64, 32])
+def test_d128_dq_fits_one_block_an_sm_not_two(keys):
+    """Float32 K2 at head dim 128 runs one block an SM: its shared
+    memory (the tiles up to OFF_BAR, the barriers and the alignment, and
+    the 1 KB the SM keeps a block) fits the SM's 228 KB once and not
+    twice, with the shipped 64-key stages and with 32-key ones alike;
+    256 threads at 255 registers fit the register file, so no setmaxnreg
+    is needed."""
+    values = cuda_build.constexprs("flash_bwd_dq_f32_d128_wgmma")
+    assert "BLOCKS_PER_SM" not in values
+    assert values["SMEM_BYTES"] == values["OFF_BAR"] + 512 + 1024
+    smem = _d128_dq_smem("dO in three pieces (shipped)", keys) + 512 + 1024
+    if keys == values["BLOCK_N"]:
+        assert smem == values["SMEM_BYTES"]
+    assert smem + 1024 <= 233472 < 2 * (smem + 1024)
+    assert values["THREADS"] == 256 and 256 * 255 <= 65536
+
+
+def test_d128_k1_fits_two_blocks_an_sm():
+    """Float32 K1 at head dim 128 takes a resident 64-row q tile and a
+    ring of four 32-key k / v slots, sized so that BLOCKS_PER_SM (2) of
+    it are resident on an SM: its shared memory times BLOCKS_PER_SM
+    within the SM's 228 KB, its threads at the launch's registers
+    (setmaxnreg's producer and consumer counts, averaged) times
+    BLOCKS_PER_SM within the 65,536 registers. A fifth slot, or 64-key
+    tiles in the same four slots, would leave room for one block."""
+    values = cuda_build.constexprs("flash_fwd_f32_d128_wgmma")
+    assert (values["BLOCK_M"], values["BLOCK_N"], values["D"]) == (64, 32, 128)
+    d, slot = 128, 32 * 128 * 4
+    assert values["OFF_BAR"] == 64 * d * 2 * _PIECE + values["SLOTS"] * slot
+    assert values["SMEM_BYTES"] == values["OFF_BAR"] + 512 + 1024
+    blocks = values["BLOCKS_PER_SM"]
+    assert blocks == 2
+    assert (values["SMEM_BYTES"] + 1024) * blocks <= 233472   # 228 KB
+    launch = (values["PRODUCER_REGS"] + values["CONSUMER_REGS"]) // 2
+    assert values["THREADS"] == 256 and launch == 128
+    assert values["THREADS"] * launch * blocks <= 65536
+    assert (values["SMEM_BYTES"] + slot + 1024) * blocks > 233472
+    assert (values["SMEM_BYTES"] + values["SLOTS"] * slot + 1024) \
+        * blocks > 233472

@@ -143,8 +143,9 @@ def test_library_path_keys_on_sources():
         "flash_bwd_dq_f32_d256_wgmma", "flash_bwd_dkv_f32_d256_wgmma",
         "flash_fwd_d128_wgmma", "flash_bwd_dkv_d128_wgmma",
         "flash_bwd_dq_d128_wgmma", "flash_bwd_dkv_f32_d64_wgmma",
-        "flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma"}
-    assert len(cuda_build.SOURCES) == 18
+        "flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma",
+        "flash_fwd_f32_d128_wgmma", "flash_bwd_dq_f32_d128_wgmma"}
+    assert len(cuda_build.SOURCES) == 20
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").exists()
     assert cuda_build.library_path("flash_bwd_dq_f32mma").name.startswith(

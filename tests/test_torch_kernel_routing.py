@@ -34,18 +34,20 @@ def _library_of(symbol):
 
 
 # the warpgroup kernels: at head dim 256 K1, K2 and K3 on bf16 and fp16
-# and on float32; at head dim 128 K1, K2 and K3 on bf16 and fp16; at
-# head dim 64 K1, K2 and K3 on float32
+# and on float32; at head dim 128 K1, K2 and K3 on bf16 and fp16 and K1
+# and K2 on float32; at head dim 64 K1, K2 and K3 on float32
 WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
                  "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma",
                  "flash_bwd_dq_f32_d256_wgmma",
                  "flash_bwd_dkv_f32_d256_wgmma", "flash_fwd_d128_wgmma",
                  "flash_bwd_dkv_d128_wgmma", "flash_bwd_dq_d128_wgmma",
                  "flash_bwd_dkv_f32_d64_wgmma", "flash_bwd_dq_f32_d64_wgmma",
-                 "flash_fwd_f32_d64_wgmma")
+                 "flash_fwd_f32_d64_wgmma", "flash_fwd_f32_d128_wgmma",
+                 "flash_bwd_dq_f32_d128_wgmma")
 # the warpgroup kernels sized for two resident blocks an SM, which
 # export <symbol>_blocks_per_sm
-TWO_BLOCK_SOURCES = ("flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma")
+TWO_BLOCK_SOURCES = ("flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma",
+                     "flash_fwd_f32_d128_wgmma")
 # the TPU kernel (pallas_attention.py line and function) each replaces
 REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_d256_wgmma": ":223 _fa_bwd_dq_kernel",
@@ -58,7 +60,9 @@ REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_d128_wgmma": ":223 _fa_bwd_dq_kernel",
             "flash_bwd_dkv_f32_d64_wgmma": ":189 _fa_bwd_dkv_kernel",
             "flash_bwd_dq_f32_d64_wgmma": ":223 _fa_bwd_dq_kernel",
-            "flash_fwd_f32_d64_wgmma": ":59 _fa_kernel"}
+            "flash_fwd_f32_d64_wgmma": ":59 _fa_kernel",
+            "flash_fwd_f32_d128_wgmma": ":59 _fa_kernel",
+            "flash_bwd_dq_f32_d128_wgmma": ":223 _fa_bwd_dq_kernel"}
 # each warpgroup kernel's warpgroups, and the (producer, consumer)
 # registers setmaxnreg gives them (None: no reallocation)
 WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
@@ -72,7 +76,9 @@ WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
               "flash_bwd_dq_d128_wgmma": (3, (24, 240)),
               "flash_bwd_dkv_f32_d64_wgmma": (3, (136, 184)),
               "flash_bwd_dq_f32_d64_wgmma": (2, (88, 168)),
-              "flash_fwd_f32_d64_wgmma": (2, (88, 168))}
+              "flash_fwd_f32_d64_wgmma": (2, (88, 168)),
+              "flash_fwd_f32_d128_wgmma": (2, (88, 168)),
+              "flash_bwd_dq_f32_d128_wgmma": (2, None)}
 # what kernel_for returned at head dims 64, 128 and 384 before the D = 128
 # and D = 64 warpgroup kernels: the mma.sync kernel of each (wrapper,
 # route)
@@ -99,11 +105,14 @@ MMA_SYMBOLS = {("flash_fwd", False): "flash_fwd_mma",
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     """16-bit inputs go to the 16-bit tensor-core kernels of K1, K2 and
     K3, float32 to the split-operand ones; at D 128 16-bit K1, K2 and K3
-    to their warpgroup kernels, at D 64 float32 K1, K2 and K3 to theirs.
-    The library is the source the symbol is built from."""
+    and float32 K1 and K2 to their warpgroup kernels (float32 K3 keeps
+    its mma.sync kernel), at D 64 float32 K1, K2 and K3 to theirs. The
+    library is the source the symbol is built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
     if d == 128 and dtype != torch.float32:
         want = f"{wrapper}_d128_wgmma"
+    if d == 128 and dtype == torch.float32 and wrapper != "flash_bwd_dkv":
+        want = f"{wrapper}_f32_d128_wgmma"
     if d == 64 and dtype == torch.float32:
         want = f"{wrapper}_f32_d64_wgmma"
     assert sym == want
@@ -150,21 +159,25 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
 def test_routing_at_head_dim_128(wrapper, dtype):
     """At D 128 16-bit K1, K2 and K3 go to their warpgroup kernels
     (flash_fwd_d128_wgmma, flash_bwd_dq_d128_wgmma,
-    flash_bwd_dkv_d128_wgmma), and at D 64 float32 K1, K2 and K3 to
-    theirs (flash_fwd_f32_d64_wgmma, flash_bwd_dq_f32_d64_wgmma,
-    flash_bwd_dkv_f32_d64_wgmma); every 16-bit route at D 64, every
-    route at D 384, and float32 at D 128 keep the mma.sync kernels they
-    ran before. Each new symbol is built from the source of its name,
-    takes as many pointers as its wrapper hands it, is one lookup of the
-    (wrapper, route, head dim) table and is counted by
-    reset_launch_counts."""
+    flash_bwd_dkv_d128_wgmma), and so do float32 K1 and K2
+    (flash_fwd_f32_d128_wgmma, flash_bwd_dq_f32_d128_wgmma); at D 64
+    float32 K1, K2 and K3 go to theirs (flash_fwd_f32_d64_wgmma,
+    flash_bwd_dq_f32_d64_wgmma, flash_bwd_dkv_f32_d64_wgmma); every
+    16-bit route at D 64, every route at D 384, and float32 K3 at D 128
+    keep the mma.sync kernels they ran before. Each new symbol is built
+    from the source of its name, takes as many pointers as its wrapper
+    hands it, is one lookup of the (wrapper, route, head dim) table and
+    is counted by reset_launch_counts."""
     f32 = dtype == torch.float32
     mma = MMA_SYMBOLS[wrapper, f32]
     assert fa.kernel_for(wrapper, dtype, 384) == (mma, mma)
     if f32:
         own = {64: f"{wrapper}_f32_d64_wgmma"}
-        assert fa.kernel_for(wrapper, dtype, 128) == (mma, mma)
-        assert (wrapper, fa.F32_ROUTE, 128) not in fa._WGMMA_ROUTES
+        if wrapper == "flash_bwd_dkv":
+            assert fa.kernel_for(wrapper, dtype, 128) == (mma, mma)
+            assert (wrapper, fa.F32_ROUTE, 128) not in fa._WGMMA_ROUTES
+        else:
+            own[128] = f"{wrapper}_f32_d128_wgmma"
     else:
         own = {128: f"{wrapper}_d128_wgmma"}
         assert fa.kernel_for(wrapper, dtype, 64) == (mma, mma)
@@ -375,12 +388,12 @@ def test_planted_f32_faults_follow_float32_k1s_warpgroup_tile():
     """At head dim 256 the float32 faults are planted at the warpgroup
     kernels' tiles: K1's 64 q rows over 32-key tiles, K2's 64 rows over
     16-key tiles, K3's 64 keys over 16-row q tiles (q rows, keys), none
-    the sliced kernels' tiles of D 128."""
+    the sliced mma.sync kernels' tiles (D 384)."""
     assert chip_smoke.HD256_F32_LABEL in chip_smoke.F32_FAULT_CASES
     for w, tile in (("flash_fwd", (64, 32)), ("flash_bwd_dq", (64, 16)),
                     ("flash_bwd_dkv", (16, 64))):
         assert chip_smoke.kernel_tile(fa, w, torch.float32, 256) == tile
-        assert chip_smoke.kernel_tile(fa, w, torch.float32, 128) != tile
+        assert chip_smoke.kernel_tile(fa, w, torch.float32, 384) != tile
 
 
 def test_planted_f32_faults_are_caught_at_the_d256_train_step():
@@ -441,12 +454,14 @@ def test_planted_f32_faults_are_caught_at_the_transformer_d64_shape():
         assert any(fault in x for x in logged), (fault, logged)
 
 
-@pytest.mark.parametrize("wrapper,tile", [("flash_fwd", (128, 64)),
+@pytest.mark.parametrize("wrapper,tile", [("flash_fwd", (64, 32)),
                                           ("flash_bwd_dq", (64, 64)),
                                           ("flash_bwd_dkv", (64, 32))])
 def test_planted_f32_faults_follow_the_f32_kernels_tiles(wrapper, tile):
-    """The float32 faults are planted at the split-operand kernels' own
-    tiles, (q rows, keys) read from their sources' constexprs."""
+    """The float32 faults at D 128 are planted at the tiles of the
+    kernels that head dim runs (K1 and K2 their warpgroup kernels', K3
+    its mma.sync kernel's), (q rows, keys) read from their sources'
+    constexprs."""
     lib, sym = fa.kernel_for(wrapper, torch.float32, 128)
     assert sym == chip_smoke.f32_kernel(torch, fa, wrapper, 128)
     values = cuda_build.constexprs(lib)
@@ -594,12 +609,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert fa.flash_fwd.launches_by_kernel == {
         "flash_fwd_f32mma": 0, "flash_fwd_mma": 0, "flash_fwd_d256_wgmma": 0,
         "flash_fwd_f32_d256_wgmma": 0, "flash_fwd_d128_wgmma": 0,
-        "flash_fwd_f32_d64_wgmma": 0, "plain": 0}
+        "flash_fwd_f32_d64_wgmma": 0, "flash_fwd_f32_d128_wgmma": 0,
+        "plain": 0}
     assert fa.flash_bwd_dq.launches_by_kernel == {
         "flash_bwd_dq_f32mma": 0, "flash_bwd_dq_mma": 0,
         "flash_bwd_dq_d256_wgmma": 0, "flash_bwd_dq_f32_d256_wgmma": 0,
         "flash_bwd_dq_d128_wgmma": 0, "flash_bwd_dq_f32_d64_wgmma": 0,
-        "plain": 0}
+        "flash_bwd_dq_f32_d128_wgmma": 0, "plain": 0}
     assert fa.flash_bwd_dkv.launches_by_kernel == {
         "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
         "flash_bwd_dkv_d256_wgmma": 0, "flash_bwd_dkv_f32_d256_wgmma": 0,
@@ -610,12 +626,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_wgmma_sources_name_their_design(name):
     """The warpgroup kernels (every route at head dim 256, 16-bit K1, K2
-    and K3 at 128, float32 K1, K2 and K3 at 64): warpgroup products
-    (wgmma) fed by TMA
-    from a producer warpgroup (which setmaxnreg brings down beside the
-    consumers, to exactly the launch's registers a thread: 168 for one
-    block of three warpgroups an SM, 128 for two blocks of two; float32
-    K1's and K2's one consumer at D 256 needs no reallocation, and their
+    and K3 and float32 K1 and K2 at 128, float32 K1, K2 and K3 at 64):
+    warpgroup products (wgmma) fed by TMA from a producer warpgroup
+    (which setmaxnreg brings down beside the consumers, to exactly the
+    launch's registers a thread: 168 for one block of three warpgroups an
+    SM, 128 for two blocks of two; float32 K1's and K2's one consumer at
+    D 256, and float32 K2's at D 128, needs no reallocation, and their
     sources say so), built for sm_90a, where alone those instructions
     exist; each source names the TPU kernel it replaces, its
     shared-memory budget and ptxas's registers and spills, and its
@@ -667,9 +683,10 @@ def test_wgmma_sources_name_their_design(name):
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_two_block_kernels_export_their_occupancy(name):
-    """Float32 K1 and K2 at head dim 64 are sized for two resident
-    blocks an SM: BLOCKS_PER_SM 2 in the source, launch bounds that ask
-    for it, and an exported ``<symbol>_blocks_per_sm``, the card's
+    """Float32 K1 and K2 at head dim 64 and float32 K1 at head dim 128
+    are sized for two resident blocks an SM: BLOCKS_PER_SM 2 in the
+    source, launch bounds that ask for it, and an exported
+    ``<symbol>_blocks_per_sm``, the card's
     occupancy count at the kernel's shared memory, which chip_smoke.py
     holds to BLOCKS_PER_SM (``check_occupancy``). The other warpgroup
     kernels run one block an SM and export none."""

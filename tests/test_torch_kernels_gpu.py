@@ -21,9 +21,10 @@ inputs and rounded once to the output's type. The float32 kernels
 (``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``,
 at head dim 256 the warpgroup kernels ``flash_fwd_f32_d256_wgmma``,
 ``flash_bwd_dq_f32_d256_wgmma`` and ``flash_bwd_dkv_f32_d256_wgmma``,
-and at head dim 64 ``flash_fwd_f32_d64_wgmma``,
-``flash_bwd_dq_f32_d64_wgmma`` and ``flash_bwd_dkv_f32_d64_wgmma``:
-tensor cores with
+at head dim 128 ``flash_fwd_f32_d128_wgmma`` and
+``flash_bwd_dq_f32_d128_wgmma``, and at head dim 64
+``flash_fwd_f32_d64_wgmma``, ``flash_bwd_dq_f32_d64_wgmma`` and
+``flash_bwd_dkv_f32_d64_wgmma``: tensor cores with
 every operand split into bf16 or TF32 pieces) are held to the f32 tier.
 """
 import numpy as np
@@ -171,6 +172,8 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
             assert sym == f"{w.__name__}_d128_wgmma"
         elif d == 64 and f32:
             assert sym == f"{w.__name__}_f32_d64_wgmma"
+        elif d == 128 and f32 and w is not fa.flash_bwd_dkv:
+            assert sym == f"{w.__name__}_f32_d128_wgmma"
         else:
             assert sym == f"{w.__name__}_{'f32mma' if f32 else 'mma'}"
         assert w.launches_by_kernel == {
@@ -430,6 +433,97 @@ def test_f32_d64_wgmma_fwd_and_dq_match_plain_versions(bh, tq, tk, causal):
         assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
 
 
+# (bh, tq, tk, causal) at head dim 128 in float32: the Llama width's
+# serving buckets (B*H 4 x 32, T 128 and 256), the parity shape causal and
+# not, tq < tk, tq > tk with fully masked rows, ragged causal and not,
+# T 2048 (B*H 2 x 32) and B*H past gridDim.y's 65535 at T 32
+F32_D128_CASES = [(128, 128, 128, True), (128, 256, 256, True),
+                  (8, 256, 256, True), (8, 256, 256, False),
+                  (8, 128, 256, True), (8, 256, 128, True),
+                  (8, 200, 200, True), (8, 200, 200, False),
+                  (64, 2048, 2048, True), (65536, 32, 32, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale_sign", [1, -1])
+@pytest.mark.parametrize("bh,tq,tk,causal", F32_D128_CASES)
+def test_f32_d128_wgmma_fwd_and_dq_match_plain_versions(bh, tq, tk, causal,
+                                                        scale_sign):
+    """float32 K1 and K2 at head dim 128 on their warpgroup kernels
+    (wgmma on bf16 pieces, TMA, a producer warpgroup that splits in
+    place; K1 two blocks an SM): O, lse and dQ against the plain versions
+    in the f32 tier with TF32 off, under a scale and its negative (the
+    masked path), one launch each (two for B*H past 65535) on the symbol
+    kernel_for names, and K1's occupancy count equal to its source's
+    BLOCKS_PER_SM; K3 beside them keeps flash_bwd_dkv_f32mma."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, tq, tk,
+                                              128, torch.float32)
+    sc = scale_sign / np.sqrt(128)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, sc, causal)
+    delta = (do * o).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    chunks = -(-bh // fa.MAX_GRID_Y)
+    for w, want in ((fa.flash_fwd, "flash_fwd_f32_d128_wgmma"),
+                    (fa.flash_bwd_dq, "flash_bwd_dq_f32_d128_wgmma")):
+        route = fa.kernel_for(w.__name__, torch.float32, 128)
+        assert route == (want, want)
+        assert w.launches_by_kernel[want] == w.launches == chunks
+    assert fa.blocks_per_sm(fa.kernel_for("flash_fwd", torch.float32, 128)) \
+        == cuda_build.constexprs("flash_fwd_f32_d128_wgmma")["BLOCKS_PER_SM"]
+    assert fa.kernel_for("flash_bwd_dkv", torch.float32, 128)[1] \
+        == "flash_bwd_dkv_f32mma"
+    want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, causal)
+    for name, got, want in (
+            ("O", o, want_o), ("lse", lse, want_lse),
+            ("dQ", dq, fa.ref_flash_bwd_dq(q, k, v, do, lse, delta, sc,
+                                           causal))):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        ok, err, ratio = chip_smoke.kernel_err(got, want)
+        assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_d128_gradients_through_the_function_match_the_cpu(causal):
+    """attention_with_lse in float32 at head dim 128 on the card (K1 and
+    K2 on their warpgroup kernels, K3 on flash_bwd_dkv_f32mma, one launch
+    each) against the same autograd on the CPU (the plain versions),
+    tq > tk so that causal rows are fully masked, rtol 2e-3 / atol
+    2e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.RandomState(29)
+    q = (r.randn(2, 4, 256, 128) * 0.5).astype(np.float32)
+    k, v = ((r.randn(2, 4, 200, 128) * 0.5).astype(np.float32)
+            for _ in range(2))
+    do = r.randn(2, 4, 256, 128).astype(np.float32)
+    dl = r.randn(2, 4, 256).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        fa.reset_launch_counts()
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (q, k, v)]
+        o, lse = fa.attention_with_lse(*ts, causal=causal)
+        loss = (o * torch.from_numpy(do).to(dev)).sum() \
+            + (lse * torch.from_numpy(dl).to(dev)).sum()
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, ts)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for w, sym in ((fa.flash_fwd, "flash_fwd_f32_d128_wgmma"),
+                           (fa.flash_bwd_dq, "flash_bwd_dq_f32_d128_wgmma"),
+                           (fa.flash_bwd_dkv, "flash_bwd_dkv_f32mma")):
+                assert w.launches_by_kernel[sym] == w.launches == 1
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-4)
+
+
 @pytest.mark.gpu
 def test_mma_route_refuses_what_it_does_not_take():
     """A 16-bit CUDA input the tensor-core kernels do not take raises at
@@ -636,15 +730,18 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
 @pytest.mark.gpu
 def test_stacked_remat_fused_llama_on_the_card_matches_the_cpu():
     """``build_llama(shard_pp=True, fused_head_chunk=384, remat=True)``
-    in float32 on the card (the three ``_f32mma`` kernels, K1 twice a
-    layer a step) against the CPU at the f32 tiers; remat off and
-    ``memory_optimize`` (``nothing_saveable``, ``dots_saveable``) give
-    the gradients of remat on (chip_smoke.phase_train_stack_parity)."""
+    in float32 on the card (K1 and K2 on their warpgroup kernels of head
+    dim 128, K3 on ``flash_bwd_dkv_f32mma``; K1 twice a layer a step)
+    against the CPU at the f32 tiers; remat off and ``memory_optimize``
+    (``nothing_saveable``, ``dots_saveable``) give the gradients of remat
+    on (chip_smoke.phase_train_stack_parity)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     by_kernel, out = chip_smoke.phase_train_stack_parity(torch, fluid, fa,
                                                          "test")
-    assert by_kernel["flash_fwd_f32mma"] == 16
+    assert by_kernel["flash_fwd_f32_d128_wgmma"] == 16
+    assert by_kernel["flash_bwd_dq_f32_d128_wgmma"] == 8
+    assert by_kernel["flash_bwd_dkv_f32mma"] == 8
     assert out["remat_variants"]["nothing_saveable"]["k1_launches"] == 6
 
 

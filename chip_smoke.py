@@ -32,8 +32,9 @@ Phases — any failure exits non-zero:
    ``csrc/flash_bwd_dq_f32_d64_wgmma.cu`` and
    ``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``, K1 and K2 sized for two
    blocks an SM, which the card's occupancy count must confirm; at
-   D = 128 K1 and K2 on theirs, ``csrc/flash_fwd_f32_d128_wgmma.cu``,
-   two blocks an SM, and ``csrc/flash_bwd_dq_f32_d128_wgmma.cu``) —
+   D = 128 K1, K2 and K3 on theirs, ``csrc/flash_fwd_f32_d128_wgmma.cu``,
+   two blocks an SM, ``csrc/flash_bwd_dq_f32_d128_wgmma.cu`` and
+   ``csrc/flash_bwd_dkv_f32_d128_wgmma.cu``) —
    at the serving and training shapes and the edge cases (causal and
    not, tq != tk with fully masked rows, ragged T, D = 64, in f32, bf16
    and fp16), each case asserting which variant launched, with dQ, dK
@@ -79,7 +80,7 @@ Phases — any failure exits non-zero:
    peak memory and device time by kind side by side;
 7. train parity: a narrow float32 model (head dim 128, TF32 off) whose
    step on the card (the kernels: ``flash_fwd_f32_d128_wgmma``,
-   ``flash_bwd_dq_f32_d128_wgmma``, ``flash_bwd_dkv_f32mma``) matches
+   ``flash_bwd_dq_f32_d128_wgmma``, ``flash_bwd_dkv_f32_d128_wgmma``) matches
    the same step on the CPU (the plain versions): loss and every
    parameter's
    gradient, then 3 Adam steps' losses; then the same model built as 6
@@ -287,9 +288,9 @@ Phases — any failure exits non-zero:
    twice and K2/K3 once a layer a step; step ms, launches, peak memory;
 31. pipeline_schedule: ``gpipe`` and ``one_f_one_b`` on a one-rank 'pp'
    mesh, a 2-layer stage at the 8B width, 4 microbatches of 1 x 2048,
-   bf16 (and float32 at 1 layer, T 512, TF32 off: K1 and K2 on
-   ``flash_fwd_f32_d128_wgmma`` and ``flash_bwd_dq_f32_d128_wgmma``, K3
-   on ``flash_bwd_dkv_f32mma``), against plain autograd of the
+   bf16 (and float32 at 1 layer, T 512, TF32 off: K1, K2 and K3 on
+   ``flash_fwd_f32_d128_wgmma``, ``flash_bwd_dq_f32_d128_wgmma`` and
+   ``flash_bwd_dkv_f32_d128_wgmma``), against plain autograd of the
    sequential function: loss, stage and head gradients, dx;
 32. ring_attention: the ring's step at the 8B attention width over 8
    chunks of T 16384 in bf16 against K1 (causal and not), a wrong-offset
@@ -534,6 +535,8 @@ RATE_OF_KERNEL = {
     # and at head dim 128
     "flash_bwd_dq_f32_d128_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
                                     F32_SPLIT_RATE),
+    "flash_bwd_dkv_f32_d128_wgmma": (F32_SPLIT_RATE, F32_SPLIT5_RATE,
+                                     F32_SPLIT6_RATE, F32_SPLIT_RATE),
     "flash_fwd_f32_d128_wgmma": (F32_SPLIT_RATE, F32_SPLIT_RATE)}
 
 # tolerances (|got - want| <= atol + rtol * |want|). A kernel's plain
@@ -565,6 +568,13 @@ AMP_LAYERS = 4                  # 32 → 4: float32 master state (params,
                                 # with the embedding and head is 31 GB
 AMP_STEPS = 3
 F32_LONG_LABEL = "f32 T=2048"   # the float32 kernels where the grid fills
+F32_PIPE_LABEL = "f32 T=512"    # pipeline_schedule's float32 stage's shape
+# the kernels of the head dims no model path runs, checked in
+# phase_kernels and timed there so that they can be ranked: 16-bit at
+# D 64 (mma.sync), both routes at D 384 (the mma.sync kernels in
+# 128-column slices)
+EXTRA_TIMED_LABELS = ("bf16 D=64 causal", "bf16 D=384 causal",
+                      "f32 D=384 causal")
 BIG_BH = 65536                  # past gridDim.y's 65535
 # Transformer-base (models/transformer.py TRANSFORMER_BASE: d_model 512,
 # 8 heads of 64, 6 + 6 layers, d_ff 2048, vocab 10000, float32) trained
@@ -743,10 +753,10 @@ KERNEL_NAMES = (("k1_flash_fwd", ("flash_fwd_f32mma_kernel",
                                       "flash_bwd_dkv_d256_wgmma_kernel",
                                       "flash_bwd_dkv_f32_d256_wgmma_kernel",
                                       "flash_bwd_dkv_d128_wgmma_kernel",
-                                      "flash_bwd_dkv_f32_d64_wgmma_kernel")))
-# the warpgroup kernels (K1, K2 and K3 at head dim 256 on both routes,
-# bf16/fp16 K1, K2 and K3 and float32 K1 and K2 at head dim 128, float32
-# K1, K2 and K3 at head dim 64),
+                                      "flash_bwd_dkv_f32_d64_wgmma_kernel",
+                                      "flash_bwd_dkv_f32_d128_wgmma_kernel")))
+# the warpgroup kernels (K1, K2 and K3 at head dims 256 and 128 on both
+# routes, float32 K1, K2 and K3 at head dim 64),
 # whose SASS must hold HGMMA instructions, and the mma.sync kernels,
 # whose SASS must hold HMMA: every kernel is one or the other
 WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
@@ -762,7 +772,8 @@ WGMMA_KERNELS = ("flash_fwd_d256_wgmma_kernel",
                  "flash_bwd_dq_f32_d64_wgmma_kernel",
                  "flash_fwd_f32_d64_wgmma_kernel",
                  "flash_fwd_f32_d128_wgmma_kernel",
-                 "flash_bwd_dq_f32_d128_wgmma_kernel")
+                 "flash_bwd_dq_f32_d128_wgmma_kernel",
+                 "flash_bwd_dkv_f32_d128_wgmma_kernel")
 MMA_KERNELS = tuple(kern for _, kerns in KERNEL_NAMES for kern in kerns
                     if kern not in WGMMA_KERNELS)
 # kernel symbol -> the constexprs of its source that give its tile's q
@@ -784,7 +795,8 @@ TILE_CONSTEXPRS = {sym: ("BLOCK_M", "BLOCK_N")
                                "flash_bwd_dq_f32_d64_wgmma",
                                "flash_fwd_f32_d64_wgmma",
                                "flash_fwd_f32_d128_wgmma",
-                               "flash_bwd_dq_f32_d128_wgmma")}
+                               "flash_bwd_dq_f32_d128_wgmma",
+                               "flash_bwd_dkv_f32_d128_wgmma")}
 
 
 class SmokeFailure(Exception):
@@ -970,6 +982,7 @@ def phase_kernels(torch, fa, seed):
         ("fp16 ragged T=200 non-causal", 8, 200, 200, 128, f16, False),
         ("fp16 D=64 causal", 8, 256, 256, 64, f16, True),
         (F32_LONG_LABEL, bh_train, TRAIN_SEQ, TRAIN_SEQ, 128, f32, True),
+        (F32_PIPE_LABEL, 32, SCHED_F32_SEQ, SCHED_F32_SEQ, 128, f32, True),
         # Transformer-base's attention (32 x 8 heads, head dim 64, f32):
         # the causal decoder self-attention at T 256, and the unpadded
         # cross-attention of 128 target rows over 256 source keys
@@ -1073,8 +1086,7 @@ def phase_kernels(torch, fa, seed):
           f"K1/K2/K3 disagree with their plain versions: {failures}")
     check_lse_gradient(torch, fa, gen, dev)
     check_big_bh(torch, fa, gen, dev)
-    # at D 128 16-bit K1, K2 and K3 run their warpgroup kernels, float32
-    # K1 and K2 theirs (K3 keeps the mma.sync route)
+    # at D 128 K1, K2 and K3 run their warpgroup kernels on both routes
     check_big_bh(torch, fa, gen, dev, d=128,
                  dtypes=(torch.bfloat16, torch.float16, torch.float32))
     # at D 256 K1-K3 run their warpgroup kernels on both routes: inputs,
@@ -1092,6 +1104,9 @@ def phase_kernels(torch, fa, seed):
                          (TRAIN_LABEL, ("fwd", "dq", "dkv")),
                          ("f32 causal", ("fwd", "dq", "dkv")),
                          (F32_LONG_LABEL, ("fwd", "dq", "dkv")),
+                         (F32_PIPE_LABEL, ("fwd", "dq", "dkv")),
+                         *((label, ("fwd", "dq", "dkv"))
+                           for label in EXTRA_TIMED_LABELS),
                          (TF_CAUSAL_LABEL, ("fwd", "dq", "dkv")),
                          (TF_CROSS_LABEL, ("fwd", "dq", "dkv")),
                          (HD256_LABEL, ("fwd", "dq", "dkv")),
@@ -2081,8 +2096,8 @@ def launches_by_kernel(fa):
 def phase_train_parity(torch, fluid, fa, card):
     """One float32 step of a narrow model with head dim 128 on the card
     (K1, K2 and K3 on flash_fwd_f32_d128_wgmma,
-    flash_bwd_dq_f32_d128_wgmma and flash_bwd_dkv_f32mma: 2 layers x 4
-    steps, 8 launches each) and on
+    flash_bwd_dq_f32_d128_wgmma and flash_bwd_dkv_f32_d128_wgmma: 2
+    layers x 4 steps, 8 launches each) and on
     the CPU (the plain versions), from one startup scope: the loss and
     every parameter's gradient within the f32 gradient tier, then 3 Adam
     steps' losses within the loss tier. Returns (launches by kernel
@@ -6659,8 +6674,8 @@ def phase_pipeline_schedule(torch, fa, card):
     T SCHED_F32_SEQ with TF32 off, at the f32 gradient tier. A one-stage
     pipeline exchanges nothing: its ticks, the 1F1B slot ring, the
     in-schedule recompute and the accumulation are what run; the float32
-    case's K1 and K2 launches on their warpgroup kernels of head dim 128,
-    K3's on flash_bwd_dkv_f32mma. Returns ({schedule: the bf16 case's
+    case's K1, K2 and K3 launches on their warpgroup kernels of head dim
+    128. Returns ({schedule: the bf16 case's
     launches by kernel}, stats; the float32 case's launches by kernel
     under stats["f32"]["launches_by_kernel"])."""
     from paddle_tpu_torch.models.llama import LLAMA3_8B
@@ -10596,6 +10611,14 @@ def main():
             long.pop("kernel")
             row["t2048"] = dict(long, shape=f"bh={TRAIN_BATCH}*32 "
                                 f"t={TRAIN_SEQ} d=128 causal f32")
+            # and at pipeline_schedule's float32 stage's shape; launches:
+            # that phase's float32 schedules
+            pipe = dict(timing[(kind_, F32_PIPE_LABEL)])
+            pipe.pop("kernel")
+            row["t512"] = dict(
+                pipe, shape=f"bh=32 t={SCHED_F32_SEQ} d=128 causal f32",
+                launches=sum(n.get(fn, 0) for p, n in paths.items()
+                             if p.startswith("pipeline_schedule_f32_")))
         row.update((key, t[key]) for key in REPLACED_KEYS if key in t)
         if kind_ == "fwd":
             # K1 at this dtype's serving shape, timed and held to its
@@ -10703,6 +10726,17 @@ def main():
             kernels.append(row)
             if "replaced_kernel" in t:
                 kernels.append(replaced_row(t, row, launches, paths))
+    # the kernels of the head dims no model path runs (no launches
+    # there), timed in phase_kernels: on the row of the kernel that runs
+    # them, under "timed_at"
+    for label in EXTRA_TIMED_LABELS:
+        for kind_ in ("fwd", "dq", "dkv"):
+            t = dict(timing[(kind_, label)])
+            fn = t.pop("kernel")
+            rows = [r for r in kernels if r["name"] == fn]
+            check(rows, f"{fn} ({label}) has no row in the kernel line")
+            rows[0].setdefault("timed_at", {})[label] = dict(
+                t, launches=0, shape=label)
     print("serving_chaos: " + json.dumps(
         {"serve": chaos["serve"][1], "decode": chaos["decode"][1]}))
     print(json.dumps({"kernels": kernels}))

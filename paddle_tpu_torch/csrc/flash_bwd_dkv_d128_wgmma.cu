@@ -1,9 +1,9 @@
 // Flash-attention backward dK/dV at head dim 128 on Hopper's warpgroup
 // tensor cores (sm_90a: wgmma, TMA, warp specialisation), bf16 and fp16,
-// plain C interface. Head dim 64, the sliced head dims past 256 and
-// float32 run flash_bwd_dkv_mma.cu and flash_bwd_dkv_f32mma.cu; head dim
-// 256 runs flash_bwd_dkv_d256_wgmma.cu; dQ (K2) stays
-// flash_bwd_dq_mma.cu's at this head dim.
+// plain C interface. Head dim 64 and the sliced head dims past 256 run
+// flash_bwd_dkv_mma.cu, head dim 256 flash_bwd_dkv_d256_wgmma.cu;
+// float32 runs flash_bwd_dkv_f32_d128_wgmma.cu at this head dim; dQ (K2)
+// is flash_bwd_dq_d128_wgmma.cu's.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel
 // (with _recompute_ds, :161; the second pallas_call of

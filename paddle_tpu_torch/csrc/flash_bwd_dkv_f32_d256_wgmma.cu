@@ -1,8 +1,10 @@
 // Flash-attention backward dK/dV for float32 at head dim 256 on Hopper's
 // warpgroup tensor cores (sm_90a: wgmma, TMA, a producer warpgroup that
-// splits), plain C interface. Other head dims run
-// flash_bwd_dkv_f32mma.cu; bf16 and fp16 run flash_bwd_dkv_mma.cu and
-// flash_bwd_dkv_d256_wgmma.cu; dQ (K2) is flash_bwd_dq_f32_d256_wgmma.cu's.
+// splits), plain C interface. Head dims 64 and 128 run
+// flash_bwd_dkv_f32_d64_wgmma.cu and flash_bwd_dkv_f32_d128_wgmma.cu
+// (this design with 64- and 32-row q tiles), the head dims past 256
+// flash_bwd_dkv_f32mma.cu; bf16 and fp16 run flash_bwd_dkv_d256_wgmma.cu
+// at this head dim; dQ (K2) is flash_bwd_dq_f32_d256_wgmma.cu's.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel
 // (with _recompute_ds, :161; the second pallas_call of

@@ -1,9 +1,10 @@
 // Flash-attention backward dK/dV for float32 at head dim 64 on Hopper's
 // warpgroup tensor cores (sm_90a: wgmma, TMA, a producer warpgroup that
-// splits), plain C interface. Head dims 128 and past 256 run
-// flash_bwd_dkv_f32mma.cu, head dim 256 flash_bwd_dkv_f32_d256_wgmma.cu;
-// bf16 and fp16 run flash_bwd_dkv_mma.cu at this head dim; dQ (K2) stays
-// flash_bwd_dq_f32mma.cu's.
+// splits), plain C interface. Head dim 128 runs
+// flash_bwd_dkv_f32_d128_wgmma.cu (this design with 32-row q tiles),
+// head dim 256 flash_bwd_dkv_f32_d256_wgmma.cu, the head dims past 256
+// flash_bwd_dkv_f32mma.cu; bf16 and fp16 run flash_bwd_dkv_mma.cu at
+// this head dim; dQ (K2) is flash_bwd_dq_f32_d64_wgmma.cu's.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel
 // (with _recompute_ds, :161; the second pallas_call of

@@ -1,6 +1,10 @@
 // Flash-attention backward dK/dV for float32 on Hopper's tensor cores
-// (sm_90a, mma.sync with float32 accumulators), plain C interface. bf16
-// and fp16 inputs run flash_bwd_dkv_mma.cu; dQ (K2) is
+// (sm_90a, mma.sync with float32 accumulators), plain C interface. It
+// serves the float32 head dims past 256 (in 128-column slices) alone:
+// head dims 64, 128 and 256 run warpgroup kernels of their own
+// (flash_bwd_dkv_f32_d64_wgmma.cu, flash_bwd_dkv_f32_d128_wgmma.cu,
+// flash_bwd_dkv_f32_d256_wgmma.cu), which chip_smoke.py times beside
+// this one. bf16 and fp16 inputs run flash_bwd_dkv_mma.cu; dQ (K2) is
 // flash_bwd_dq_f32mma.cu's.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py:189 _fa_bwd_dkv_kernel

@@ -4,7 +4,8 @@
 // flash_bwd_dq_f32_d256_wgmma.cu, flash_bwd_dkv_f32_d256_wgmma.cu), at
 // head dim 128 (flash_fwd_d128_wgmma.cu, flash_bwd_dq_d128_wgmma.cu,
 // flash_bwd_dkv_d128_wgmma.cu, flash_fwd_f32_d128_wgmma.cu,
-// flash_bwd_dq_f32_d128_wgmma.cu) and at head dim 64
+// flash_bwd_dq_f32_d128_wgmma.cu, flash_bwd_dkv_f32_d128_wgmma.cu) and at
+// head dim 64
 // (flash_bwd_dkv_f32_d64_wgmma.cu, flash_bwd_dq_f32_d64_wgmma.cu,
 // flash_fwd_f32_d64_wgmma.cu): TMA tile loads completing on
 // mbarriers, the shared-memory matrix descriptors of wgmma, the seven

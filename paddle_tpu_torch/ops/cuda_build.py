@@ -31,7 +31,8 @@ SOURCES = ("flash_fwd_f32mma", "flash_bwd_dq_f32mma", "flash_bwd_dkv_f32mma",
            "flash_fwd_d128_wgmma", "flash_bwd_dkv_d128_wgmma",
            "flash_bwd_dq_d128_wgmma", "flash_bwd_dkv_f32_d64_wgmma",
            "flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma",
-           "flash_fwd_f32_d128_wgmma", "flash_bwd_dq_f32_d128_wgmma")
+           "flash_fwd_f32_d128_wgmma", "flash_bwd_dq_f32_d128_wgmma",
+           "flash_bwd_dkv_f32_d128_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

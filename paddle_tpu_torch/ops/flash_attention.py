@@ -12,9 +12,10 @@ by TMA from a producer warp: ``csrc/flash_fwd_d256_wgmma.cu``,
 ``csrc/flash_bwd_dkv_f32_d256_wgmma.cu`` for float32), at head dim
 128 K1, K2 and K3 on bf16 and fp16 (``csrc/flash_fwd_d128_wgmma.cu``,
 ``csrc/flash_bwd_dq_d128_wgmma.cu``, ``csrc/flash_bwd_dkv_d128_wgmma.cu``)
-and K1 and K2 on float32 (``csrc/flash_fwd_f32_d128_wgmma.cu``, sized
-for two blocks an SM, and ``csrc/flash_bwd_dq_f32_d128_wgmma.cu``), and
-at head dim 64 K1, K2 and K3 on float32
+and on float32 (``csrc/flash_fwd_f32_d128_wgmma.cu``, sized for two
+blocks an SM, ``csrc/flash_bwd_dq_f32_d128_wgmma.cu`` and
+``csrc/flash_bwd_dkv_f32_d128_wgmma.cu``), and at head dim 64 K1, K2
+and K3 on float32
 (``csrc/flash_fwd_f32_d64_wgmma.cu``, ``csrc/flash_bwd_dq_f32_d64_wgmma.cu``,
 ``csrc/flash_bwd_dkv_f32_d64_wgmma.cu``; K1 and K2 sized for two blocks
 an SM, which :func:`blocks_per_sm` reads from the card):
@@ -31,7 +32,7 @@ an SM, which :func:`blocks_per_sm` reads from the card):
   256).
 - K3 ``_fa_bwd_dkv_kernel`` (dK, dV), wrapped by :func:`flash_bwd_dkv`:
   bf16 and fp16 run ``csrc/flash_bwd_dkv_mma.cu`` (but at D = 128 and
-  256), float32 ``csrc/flash_bwd_dkv_f32mma.cu`` (but at D = 64 and
+  256), float32 ``csrc/flash_bwd_dkv_f32mma.cu`` (but at D = 64, 128 and
   256).
 
 One TF32 or bf16 rounding of the operands cannot meet the float32
@@ -42,11 +43,11 @@ Pᵀ·dO, whose bf16 split misses the tier's margin; the warpgroup
 backward kernels at D = 256 take dO·Vᵀ with dO in three bf16 pieces
 (five products) and Pᵀ·dO with both in three (six), since ``wgmma``
 reads a TF32 operand only K-major and their TF32 tiles do not fit
-(tests/test_torch_f32_split.py); float32 K2 and K3 at D = 64 take the
-same pieces, which cost less than TF32 halves there (a two-piece dO
-would not keep K2's margin at short sequences), as does float32 K2 at
-D = 128, and float32 K1 at D = 64 and 128 the 3×bf16 halves of every
-K1. :func:`kernel_for` is
+(tests/test_torch_f32_split.py); float32 K2 and K3 at D = 64 and 128
+take the same pieces, which cost less than TF32 halves there (a
+two-piece dO would not keep K2's margin at short sequences, nor a
+two-piece Pᵀ K3's at T 32), and float32 K1 at D = 64 and 128 the
+3×bf16 halves of every K1. :func:`kernel_for` is
 the routing; the plain versions of K2 and K3 are
 :func:`ref_flash_bwd_dq` and :func:`ref_flash_bwd_dkv`, which recompute
 P from lse over the whole score matrix.
@@ -62,8 +63,7 @@ reference's Pallas gate (D % 128 == 0): past 128 each ``mma.sync``
 kernel runs its D = 128 tiles in 128-column slices, one block a slice
 of its output (``csrc/mma_sm90.cuh`` ``HEAD_SLICE``), but for the
 warpgroup kernels (``_WGMMA_ROUTES``: every kernel of both routes at
-D = 256, 16-bit K1, K2 and K3 and float32 K1 and K2 at D = 128,
-float32 K1, K2 and K3 at D = 64). The
+D = 256 and at D = 128, float32 K1, K2 and K3 at D = 64). The
 reference
 sends the head dims its Pallas kernels do not take (D % 128 != 0) to
 its plain path on every backend (``_flash_fwd``, ``_flash_vjp_bwd``);
@@ -144,11 +144,10 @@ _ROUTES = {
 
 # (wrapper, route, head dim) -> the kernel of its own on Hopper's
 # warpgroup instructions (wgmma, TMA, a producer warpgroup) that the
-# wrapper launches there: K1, K2 and K3 on both routes at D = 256;
-# 16-bit K1, K2 and K3 and float32 K1 (two blocks an SM) and K2 at
-# D = 128; float32 K1, K2 and K3 at D = 64 (K1 and K2 there two blocks
-# an SM). The mma.sync kernels keep the 16-bit route at D = 64, float32
-# K3 at D = 128, and the other head dims past 128, which run their
+# wrapper launches there: K1, K2 and K3 on both routes at D = 256 and
+# at D = 128 (float32 K1 two blocks an SM); float32 K1, K2 and K3 at
+# D = 64 (K1 and K2 there two blocks an SM). The mma.sync kernels keep
+# the 16-bit route at D = 64 and the head dims past 256, which run their
 # D = 128 tiles in slices.
 _WGMMA_ROUTES = {
     ("flash_fwd", HALF_ROUTE, 256): ("flash_fwd_d256_wgmma",
@@ -179,6 +178,8 @@ _WGMMA_ROUTES = {
                                     "flash_fwd_f32_d128_wgmma"),
     ("flash_bwd_dq", F32_ROUTE, 128): ("flash_bwd_dq_f32_d128_wgmma",
                                        "flash_bwd_dq_f32_d128_wgmma"),
+    ("flash_bwd_dkv", F32_ROUTE, 128): ("flash_bwd_dkv_f32_d128_wgmma",
+                                        "flash_bwd_dkv_f32_d128_wgmma"),
 }
 
 

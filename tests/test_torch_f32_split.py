@@ -30,7 +30,9 @@ At head dim 128 float32 K2 (``csrc/flash_bwd_dq_f32_d128_wgmma.cu``)
 takes the same pieces where the mma.sync kernel took 3xTF32 (both meet
 the tier; the pieces cost fewer products and leave room for two stages
 of k and v), and float32 K1 (``csrc/flash_fwd_f32_d128_wgmma.cu``) is
-sized for two blocks an SM; float32 K3 there keeps its mma.sync kernel.
+sized for two blocks an SM; float32 K3 there
+(``csrc/flash_bwd_dkv_f32_d128_wgmma.cu``) takes D = 64's and 256's
+pieces, with 32-row q tiles so that a ring of them fits beside k and v.
 """
 import math
 
@@ -458,12 +460,13 @@ def test_d64_backward_one_rounding_misses_the_f32_tier_and_both_schemes_meet_it(
     assert D64_PRODUCT_COST["pieces (shipped)"] < D64_PRODUCT_COST["3xtf32"]
 
 
-def _dkv_smem(d, rows):
+def _dkv_smem(d, rows, stages=2):
     """Shared memory of float32 K3 in the warpgroup design at head dim
     ``d`` with ``rows``-row q tiles: 64 keys of k and v in two bf16
-    pieces, two ring stages of a q tile in two and a dO tile in three,
-    and the Pᵀ exchange (64 keys x ``rows`` float32, two buffers)."""
-    return (64 * d * (2 + 2) * _PIECE + 2 * rows * d * (2 + 3) * _PIECE
+    pieces, ``stages`` ring stages of a q tile in two and a dO tile in
+    three, and the Pᵀ exchange (64 keys x ``rows`` float32, two
+    buffers)."""
+    return (64 * d * (2 + 2) * _PIECE + stages * rows * d * (2 + 3) * _PIECE
             + 2 * 64 * rows * 4)
 
 
@@ -697,3 +700,68 @@ def test_d128_k1_fits_two_blocks_an_sm():
     assert (values["SMEM_BYTES"] + slot + 1024) * blocks > 233472
     assert (values["SMEM_BYTES"] + values["SLOTS"] * slot + 1024) \
         * blocks > 233472
+
+
+# --- head dim 128: float32 K3 (csrc/flash_bwd_dkv_f32_d128_wgmma.cu).
+# The D = 64 and 256 warpgroup K3s' pieces, or the mma.sync kernel's
+# 3xTF32 dPᵀ and dV: TF32 wgmma reads shared memory only K-major, which
+# dV's dO operand is not, and TF32 halves take 8 bytes an element ---
+
+DKV_SCHEMES_D128 = {"bf16 once": (_once(_bf16),) * 5,
+                    "pieces (shipped)": BWD_SCHEMES_D256["shipped"],
+                    "Pᵀ in two pieces": BWD_SCHEMES_D256["runner-up"]}
+# (bh, tq, tk, d, causal): every float32 D = 128 case above (the serving
+# buckets, the parity shape causal and not, tq < tk, tq > tk, ragged,
+# T 2048) and T 32, chip_smoke.py's B·H past 65535 (here B·H 512)
+D128_DKV_CASES = {**{k: v for k, v in CASES.items() if v[3] == 128},
+                  "T=32": (512, 32, 32, 128, True)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", list(D128_DKV_CASES))
+def test_d128_dkv_one_rounding_misses_and_the_pieces_meet_the_margin(
+        case, seed):
+    """Float32 K3 at head dim 128: one bf16 rounding of the operands puts
+    dK and dV past the f32 tier's limit on every case, causal or not;
+    the shipped pieces (dO in three bf16 pieces in dPᵀ = V dOᵀ, Pᵀ and
+    dO in three in dV = Pᵀ dO, the rest in two) keep both under half of
+    it on every case and seed, B·H 65536's T 32 among them."""
+    r = _bwd_ratios(*D128_DKV_CASES[case], seed, schemes={
+        k: DKV_SCHEMES_D128[k] for k in ("bf16 once", "pieces (shipped)")})
+    assert min(r["bf16 once"][1:]) > 1.0, r
+    assert max(r["pieces (shipped)"][1:]) < 0.5, r
+
+
+def test_d128_dkv_takes_pt_in_three_pieces():
+    """Why Pᵀ takes a third piece in dV at head dim 128, as at 256: at
+    T 32 (B·H 512) Pᵀ in two halves (five products) puts dV past half the
+    limit on at least one of seeds 0-2, where the sixth product keeps it
+    under on all of them."""
+    r = [_bwd_ratios(*D128_DKV_CASES["T=32"], seed, schemes={
+        k: DKV_SCHEMES_D128[k] for k in ("Pᵀ in two pieces",
+                                         "pieces (shipped)")})
+        for seed in (0, 1, 2)]
+    assert max(x["Pᵀ in two pieces"][2] for x in r) > 0.5, r
+    assert max(x["pieces (shipped)"][2] for x in r) < 0.5, r
+
+
+@pytest.mark.parametrize("rows,stages,fits", [(32, 2, True), (32, 3, True),
+                                              (64, 1, True), (64, 2, False)])
+def test_d128_dkv_layouts_and_the_shipped_one(rows, stages, fits):
+    """Float32 K3 at head dim 128: k's and v's pieces take 64 KB, a ring
+    stage 40 KB at 32-row q tiles and 80 KB at 64, the Pᵀ exchange 16 or
+    32 KB. D = 64's 64-row tiles in two stages need 256 KB, past a
+    block's 227 KB; 64 rows fit in one stage (no load overlaps a tile's
+    products), 32 rows in two or three. The source lays out what the
+    reckoning gives for its BLOCK_M and STAGES (its OFF_BAR, where the
+    barriers follow the tiles), 32 rows in two stages, and its pieces
+    cost fewer tensor-core products for dPᵀ and dV than 3×TF32's."""
+    limit = 232448 - 256 - 1024          # 227 KB less barriers, alignment
+    assert (_dkv_smem(128, rows, stages) <= limit) == fits
+    values = cuda_build.constexprs("flash_bwd_dkv_f32_d128_wgmma")
+    assert (values["BLOCK_M"], values["BLOCK_N"], values["D"],
+            values["STAGES"]) == (32, 64, 128, 2)
+    assert _dkv_smem(128, values["BLOCK_M"], values["STAGES"]) \
+        == values["OFF_BAR"] <= limit
+    assert values["SMEM_BYTES"] == values["OFF_BAR"] + 256 + 1024
+    assert D64_PRODUCT_COST["pieces (shipped)"] < D64_PRODUCT_COST["3xtf32"]

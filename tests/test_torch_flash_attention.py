@@ -144,8 +144,9 @@ def test_library_path_keys_on_sources():
         "flash_fwd_d128_wgmma", "flash_bwd_dkv_d128_wgmma",
         "flash_bwd_dq_d128_wgmma", "flash_bwd_dkv_f32_d64_wgmma",
         "flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma",
-        "flash_fwd_f32_d128_wgmma", "flash_bwd_dq_f32_d128_wgmma"}
-    assert len(cuda_build.SOURCES) == 20
+        "flash_fwd_f32_d128_wgmma", "flash_bwd_dq_f32_d128_wgmma",
+        "flash_bwd_dkv_f32_d128_wgmma"}
+    assert len(cuda_build.SOURCES) == 21
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").exists()
     assert cuda_build.library_path("flash_bwd_dq_f32mma").name.startswith(

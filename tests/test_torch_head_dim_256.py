@@ -134,11 +134,11 @@ def test_slices_are_the_d128_tiles():
     the kernels' widest tile, and every such launcher dispatches the
     multiples of it to its wide instantiation. K1, K2 and K3 at D = 256
     have warpgroup kernels of their own on every dtype, which take
-    D = 256 whole and nothing else (16-bit K1, K2 and K3 and float32 K1
-    and K2 at D = 128 too, which take D = 128 alone, and float32 K1, K2
-    and K3 at D = 64, which take D = 64 alone); D = 384 runs the mma.sync
-    kernels that D = 64 runs on 16-bit inputs and float32 K3 at D = 128
-    runs."""
+    D = 256 whole and nothing else (K1, K2 and K3 on both routes at
+    D = 128 too, which take D = 128 alone, and float32 K1, K2 and K3 at
+    D = 64, which take D = 64 alone); D = 384 runs the mma.sync kernels
+    that D = 64 runs on 16-bit inputs, and on float32 the ones that no
+    other head dim runs."""
     assert fa.HEAD_SLICE == 128
     assert cuda_build.parse_constexprs(
         (cuda_build.CSRC / "mma_sm90.cuh").read_text())["HEAD_SLICE"] == 128
@@ -151,13 +151,15 @@ def test_slices_are_the_d128_tiles():
                      "flash_bwd_dkv_f32_d64_wgmma",
                      "flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma",
                      "flash_fwd_f32_d128_wgmma",
-                     "flash_bwd_dq_f32_d128_wgmma"}
+                     "flash_bwd_dq_f32_d128_wgmma",
+                     "flash_bwd_dkv_f32_d128_wgmma"}
     assert sorted(k for k in fa._WGMMA_ROUTES if k[2] == 256) == sorted(
         (w, route, 256)
         for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
         for route in (fa.F32_ROUTE, fa.HALF_ROUTE))
     assert sorted(k for k in fa._WGMMA_ROUTES if k[2] != 256) == [
         ("flash_bwd_dkv", fa.F32_ROUTE, 64),
+        ("flash_bwd_dkv", fa.F32_ROUTE, 128),
         ("flash_bwd_dkv", fa.HALF_ROUTE, 128),
         ("flash_bwd_dq", fa.F32_ROUTE, 64),
         ("flash_bwd_dq", fa.F32_ROUTE, 128),
@@ -172,8 +174,7 @@ def test_slices_are_the_d128_tiles():
                 mma = fa._ROUTES[w][fa.F32_ROUTE]
                 assert fa.kernel_for(w, dt, 384) == mma \
                     != fa.kernel_for(w, dt, 64)
-                assert (fa.kernel_for(w, dt, 128) == mma) \
-                    == (w == "flash_bwd_dkv")
+                assert fa.kernel_for(w, dt, 128) != mma
             else:
                 assert fa.kernel_for(w, dt, 384) == fa.kernel_for(w, dt, 64)
     for lib in whole:

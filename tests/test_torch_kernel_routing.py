@@ -33,9 +33,8 @@ def _library_of(symbol):
                 for lib, sym in routes if sym == symbol)
 
 
-# the warpgroup kernels: at head dim 256 K1, K2 and K3 on bf16 and fp16
-# and on float32; at head dim 128 K1, K2 and K3 on bf16 and fp16 and K1
-# and K2 on float32; at head dim 64 K1, K2 and K3 on float32
+# the warpgroup kernels: at head dims 256 and 128 K1, K2 and K3 on bf16
+# and fp16 and on float32; at head dim 64 K1, K2 and K3 on float32
 WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
                  "flash_bwd_dkv_d256_wgmma", "flash_fwd_f32_d256_wgmma",
                  "flash_bwd_dq_f32_d256_wgmma",
@@ -43,7 +42,8 @@ WGMMA_SOURCES = ("flash_fwd_d256_wgmma", "flash_bwd_dq_d256_wgmma",
                  "flash_bwd_dkv_d128_wgmma", "flash_bwd_dq_d128_wgmma",
                  "flash_bwd_dkv_f32_d64_wgmma", "flash_bwd_dq_f32_d64_wgmma",
                  "flash_fwd_f32_d64_wgmma", "flash_fwd_f32_d128_wgmma",
-                 "flash_bwd_dq_f32_d128_wgmma")
+                 "flash_bwd_dq_f32_d128_wgmma",
+                 "flash_bwd_dkv_f32_d128_wgmma")
 # the warpgroup kernels sized for two resident blocks an SM, which
 # export <symbol>_blocks_per_sm
 TWO_BLOCK_SOURCES = ("flash_bwd_dq_f32_d64_wgmma", "flash_fwd_f32_d64_wgmma",
@@ -62,7 +62,8 @@ REPLACES = {"flash_fwd_d256_wgmma": ":59 _fa_kernel",
             "flash_bwd_dq_f32_d64_wgmma": ":223 _fa_bwd_dq_kernel",
             "flash_fwd_f32_d64_wgmma": ":59 _fa_kernel",
             "flash_fwd_f32_d128_wgmma": ":59 _fa_kernel",
-            "flash_bwd_dq_f32_d128_wgmma": ":223 _fa_bwd_dq_kernel"}
+            "flash_bwd_dq_f32_d128_wgmma": ":223 _fa_bwd_dq_kernel",
+            "flash_bwd_dkv_f32_d128_wgmma": ":189 _fa_bwd_dkv_kernel"}
 # each warpgroup kernel's warpgroups, and the (producer, consumer)
 # registers setmaxnreg gives them (None: no reallocation)
 WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
@@ -78,7 +79,8 @@ WARPGROUPS = {"flash_fwd_d256_wgmma": (3, (24, 240)),
               "flash_bwd_dq_f32_d64_wgmma": (2, (88, 168)),
               "flash_fwd_f32_d64_wgmma": (2, (88, 168)),
               "flash_fwd_f32_d128_wgmma": (2, (88, 168)),
-              "flash_bwd_dq_f32_d128_wgmma": (2, None)}
+              "flash_bwd_dq_f32_d128_wgmma": (2, None),
+              "flash_bwd_dkv_f32_d128_wgmma": (3, (136, 184))}
 # what kernel_for returned at head dims 64, 128 and 384 before the D = 128
 # and D = 64 warpgroup kernels: the mma.sync kernel of each (wrapper,
 # route)
@@ -104,14 +106,13 @@ MMA_SYMBOLS = {("flash_fwd", False): "flash_fwd_mma",
 @pytest.mark.parametrize("d", [64, 128])
 def test_routing_maps_dtypes_to_kernels(wrapper, dtype, want, d):
     """16-bit inputs go to the 16-bit tensor-core kernels of K1, K2 and
-    K3, float32 to the split-operand ones; at D 128 16-bit K1, K2 and K3
-    and float32 K1 and K2 to their warpgroup kernels (float32 K3 keeps
-    its mma.sync kernel), at D 64 float32 K1, K2 and K3 to theirs. The
-    library is the source the symbol is built from."""
+    K3, float32 to the split-operand ones; at D 128 K1, K2 and K3 on
+    both routes to their warpgroup kernels, at D 64 float32 K1, K2 and
+    K3 to theirs. The library is the source the symbol is built from."""
     lib, sym = fa.kernel_for(wrapper, dtype, d)
     if d == 128 and dtype != torch.float32:
         want = f"{wrapper}_d128_wgmma"
-    if d == 128 and dtype == torch.float32 and wrapper != "flash_bwd_dkv":
+    if d == 128 and dtype == torch.float32:
         want = f"{wrapper}_f32_d128_wgmma"
     if d == 64 and dtype == torch.float32:
         want = f"{wrapper}_f32_d64_wgmma"
@@ -159,12 +160,13 @@ def test_routing_at_head_dim_256(wrapper, dtype, want):
 def test_routing_at_head_dim_128(wrapper, dtype):
     """At D 128 16-bit K1, K2 and K3 go to their warpgroup kernels
     (flash_fwd_d128_wgmma, flash_bwd_dq_d128_wgmma,
-    flash_bwd_dkv_d128_wgmma), and so do float32 K1 and K2
-    (flash_fwd_f32_d128_wgmma, flash_bwd_dq_f32_d128_wgmma); at D 64
-    float32 K1, K2 and K3 go to theirs (flash_fwd_f32_d64_wgmma,
-    flash_bwd_dq_f32_d64_wgmma, flash_bwd_dkv_f32_d64_wgmma); every
-    16-bit route at D 64, every route at D 384, and float32 K3 at D 128
-    keep the mma.sync kernels they ran before. Each new symbol is built
+    flash_bwd_dkv_d128_wgmma), and so do float32 K1, K2 and K3
+    (flash_fwd_f32_d128_wgmma, flash_bwd_dq_f32_d128_wgmma,
+    flash_bwd_dkv_f32_d128_wgmma); at D 64 float32 K1, K2 and K3 go to
+    theirs (flash_fwd_f32_d64_wgmma, flash_bwd_dq_f32_d64_wgmma,
+    flash_bwd_dkv_f32_d64_wgmma); every 16-bit route at D 64 and every
+    route at D 384 keep the mma.sync kernels they ran before, which
+    float32 K3 at D 128 ran until it had its own. Each new symbol is built
     from the source of its name, takes as many pointers as its wrapper
     hands it, is one lookup of the (wrapper, route, head dim) table and
     is counted by reset_launch_counts."""
@@ -172,12 +174,9 @@ def test_routing_at_head_dim_128(wrapper, dtype):
     mma = MMA_SYMBOLS[wrapper, f32]
     assert fa.kernel_for(wrapper, dtype, 384) == (mma, mma)
     if f32:
-        own = {64: f"{wrapper}_f32_d64_wgmma"}
-        if wrapper == "flash_bwd_dkv":
-            assert fa.kernel_for(wrapper, dtype, 128) == (mma, mma)
-            assert (wrapper, fa.F32_ROUTE, 128) not in fa._WGMMA_ROUTES
-        else:
-            own[128] = f"{wrapper}_f32_d128_wgmma"
+        own = {64: f"{wrapper}_f32_d64_wgmma",
+               128: f"{wrapper}_f32_d128_wgmma"}
+        assert fa.kernel_for(wrapper, dtype, 128) != (mma, mma)
     else:
         own = {128: f"{wrapper}_d128_wgmma"}
         assert fa.kernel_for(wrapper, dtype, 64) == (mma, mma)
@@ -456,12 +455,11 @@ def test_planted_f32_faults_are_caught_at_the_transformer_d64_shape():
 
 @pytest.mark.parametrize("wrapper,tile", [("flash_fwd", (64, 32)),
                                           ("flash_bwd_dq", (64, 64)),
-                                          ("flash_bwd_dkv", (64, 32))])
+                                          ("flash_bwd_dkv", (32, 64))])
 def test_planted_f32_faults_follow_the_f32_kernels_tiles(wrapper, tile):
     """The float32 faults at D 128 are planted at the tiles of the
-    kernels that head dim runs (K1 and K2 their warpgroup kernels', K3
-    its mma.sync kernel's), (q rows, keys) read from their sources'
-    constexprs."""
+    kernels that head dim runs (K1, K2 and K3 their warpgroup kernels'),
+    (q rows, keys) read from their sources' constexprs."""
     lib, sym = fa.kernel_for(wrapper, torch.float32, 128)
     assert sym == chip_smoke.f32_kernel(torch, fa, wrapper, 128)
     values = cuda_build.constexprs(lib)
@@ -535,10 +533,13 @@ def test_tile_sweep_rewrites_only_the_tile_of_the_shipped_source(source):
     """tile_sweep.py's first variant of each source is the source as it
     ships; each other one changes only its tile constexprs and blocks a
     SM, into whole mma tiles: one m16 row block a warp (K1, K2), or 16
-    keys a warp and whole 16-row k-steps of its q rows (K3)."""
+    keys a warp and whole 16-row k-steps of its q rows (K3); float32
+    K3's warpgroup kernel at D 128 its q tile's rows (an m64n32 or
+    m64n64 product) and ring stages within a block's shared memory, and
+    its registers as setmaxnreg must redistribute them."""
     assert set(tile_sweep.SWEEPS) == {
         "flash_fwd_f32mma", "flash_bwd_dq_mma", "flash_bwd_dq_f32mma",
-        "flash_bwd_dkv_f32mma"}
+        "flash_bwd_dkv_f32mma", "flash_bwd_dkv_f32_d128_wgmma"}
     assert set(tile_sweep.N_PTRS) == set(tile_sweep.SWEEPS)
     _check_tile_variants(source)
 
@@ -554,7 +555,12 @@ def _check_tile_variants(source):
         out = tile_sweep.variant_source(text, consts, blocks)
         tile = cuda_build.parse_constexprs(out)
         assert tile["BLOCK_N"] % 16 == 0
-        if source == "flash_bwd_dkv_f32mma":
+        if source == "flash_bwd_dkv_f32_d128_wgmma":
+            assert tile["BLOCK_M"] in (32, 64) and tile["STAGES"] >= 1
+            assert tile["SMEM_BYTES"] <= 232448
+            assert tile["PRODUCER_REGS"] + 2 * tile["CONSUMER_REGS"] \
+                == 3 * 168
+        elif source == "flash_bwd_dkv_f32mma":
             assert tile["KGROUPS"] * tile["RGROUPS"] == tile["WARPS"]
             assert tile["WROWS"] % 16 == 0
         else:
@@ -620,13 +626,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         "flash_bwd_dkv_f32mma": 0, "flash_bwd_dkv_mma": 0,
         "flash_bwd_dkv_d256_wgmma": 0, "flash_bwd_dkv_f32_d256_wgmma": 0,
         "flash_bwd_dkv_d128_wgmma": 0, "flash_bwd_dkv_f32_d64_wgmma": 0,
-        "plain": 0}
+        "flash_bwd_dkv_f32_d128_wgmma": 0, "plain": 0}
 
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_wgmma_sources_name_their_design(name):
-    """The warpgroup kernels (every route at head dim 256, 16-bit K1, K2
-    and K3 and float32 K1 and K2 at 128, float32 K1, K2 and K3 at 64):
+    """The warpgroup kernels (every route at head dims 256 and 128,
+    float32 K1, K2 and K3 at 64):
     warpgroup products (wgmma) fed by TMA from a producer warpgroup
     (which setmaxnreg brings down beside the consumers, to exactly the
     launch's registers a thread: 168 for one block of three warpgroups an

@@ -21,8 +21,9 @@ inputs and rounded once to the output's type. The float32 kernels
 (``flash_fwd_f32mma``, ``flash_bwd_dq_f32mma``, ``flash_bwd_dkv_f32mma``,
 at head dim 256 the warpgroup kernels ``flash_fwd_f32_d256_wgmma``,
 ``flash_bwd_dq_f32_d256_wgmma`` and ``flash_bwd_dkv_f32_d256_wgmma``,
-at head dim 128 ``flash_fwd_f32_d128_wgmma`` and
-``flash_bwd_dq_f32_d128_wgmma``, and at head dim 64
+at head dim 128 ``flash_fwd_f32_d128_wgmma``,
+``flash_bwd_dq_f32_d128_wgmma`` and ``flash_bwd_dkv_f32_d128_wgmma``,
+and at head dim 64
 ``flash_fwd_f32_d64_wgmma``, ``flash_bwd_dq_f32_d64_wgmma`` and
 ``flash_bwd_dkv_f32_d64_wgmma``: tensor cores with
 every operand split into bf16 or TF32 pieces) are held to the f32 tier.
@@ -172,7 +173,7 @@ def test_mma_kernels_match_plain_versions(dtype, tq, tk, d, causal):
             assert sym == f"{w.__name__}_d128_wgmma"
         elif d == 64 and f32:
             assert sym == f"{w.__name__}_f32_d64_wgmma"
-        elif d == 128 and f32 and w is not fa.flash_bwd_dkv:
+        elif d == 128 and f32:
             assert sym == f"{w.__name__}_f32_d128_wgmma"
         else:
             assert sym == f"{w.__name__}_{'f32mma' if f32 else 'mma'}"
@@ -455,7 +456,7 @@ def test_f32_d128_wgmma_fwd_and_dq_match_plain_versions(bh, tq, tk, causal,
     in the f32 tier with TF32 off, under a scale and its negative (the
     masked path), one launch each (two for B*H past 65535) on the symbol
     kernel_for names, and K1's occupancy count equal to its source's
-    BLOCKS_PER_SM; K3 beside them keeps flash_bwd_dkv_f32mma."""
+    BLOCKS_PER_SM; K3 beside them on its own warpgroup kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -478,7 +479,7 @@ def test_f32_d128_wgmma_fwd_and_dq_match_plain_versions(bh, tq, tk, causal,
     assert fa.blocks_per_sm(fa.kernel_for("flash_fwd", torch.float32, 128)) \
         == cuda_build.constexprs("flash_fwd_f32_d128_wgmma")["BLOCKS_PER_SM"]
     assert fa.kernel_for("flash_bwd_dkv", torch.float32, 128)[1] \
-        == "flash_bwd_dkv_f32mma"
+        == "flash_bwd_dkv_f32_d128_wgmma"
     want_o, want_lse = fa.ref_attention_lse(q, k, v, sc, causal)
     for name, got, want in (
             ("O", o, want_o), ("lse", lse, want_lse),
@@ -490,11 +491,48 @@ def test_f32_d128_wgmma_fwd_and_dq_match_plain_versions(bh, tq, tk, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scale_sign", [1, -1])
+@pytest.mark.parametrize("bh,tq,tk,causal",
+                         F32_D128_CASES + [(32, 512, 512, True)])
+def test_f32_d128_wgmma_dkv_matches_plain_version(bh, tq, tk, causal,
+                                                  scale_sign):
+    """float32 K3 at head dim 128 on its warpgroup kernel alone (wgmma on
+    bf16 pieces of 32-row q tiles, TMA, a producer warpgroup that
+    splits): dK and dV against the plain version in the f32 tier with
+    TF32 off, on chip_smoke.py's float32 D 128 cases and the pipeline
+    stage's T 512, under a scale and its negative (the masked path), one
+    launch (two for B*H past 65535) on the symbol kernel_for names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    q, k, v, do = chip_smoke.attention_inputs(torch, gen, "cuda", bh, tq, tk,
+                                              128, torch.float32)
+    sc = scale_sign / np.sqrt(128)
+    o, lse = fa.ref_attention_lse(q, k, v, sc, causal)
+    delta = (do * o).sum(-1)
+    lse = lse.contiguous()
+    fa.reset_launch_counts()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    sym = fa.kernel_for("flash_bwd_dkv", torch.float32, 128)[1]
+    assert sym == "flash_bwd_dkv_f32_d128_wgmma"
+    assert fa.flash_bwd_dkv.launches_by_kernel[sym] \
+        == fa.flash_bwd_dkv.launches == -(-bh // fa.MAX_GRID_Y)
+    want_k, want_v = fa.ref_flash_bwd_dkv(q, k, v, do, lse, delta, sc,
+                                          causal)
+    for name, got, want in (("dK", dk, want_k), ("dV", dv, want_v)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        ok, err, ratio = chip_smoke.kernel_err(got, want)
+        assert ok, f"{name}: max abs err {err:.3e}, err/limit {ratio:.3f}"
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 def test_f32_d128_gradients_through_the_function_match_the_cpu(causal):
-    """attention_with_lse in float32 at head dim 128 on the card (K1 and
-    K2 on their warpgroup kernels, K3 on flash_bwd_dkv_f32mma, one launch
-    each) against the same autograd on the CPU (the plain versions),
+    """attention_with_lse in float32 at head dim 128 on the card (K1, K2
+    and K3 on their warpgroup kernels, one launch each) against the same autograd on the CPU (the plain versions),
     tq > tk so that causal rows are fully masked, rtol 2e-3 / atol
     2e-4."""
     if not torch.cuda.is_available():
@@ -518,7 +556,8 @@ def test_f32_d128_gradients_through_the_function_match_the_cpu(causal):
             torch.cuda.synchronize()
             for w, sym in ((fa.flash_fwd, "flash_fwd_f32_d128_wgmma"),
                            (fa.flash_bwd_dq, "flash_bwd_dq_f32_d128_wgmma"),
-                           (fa.flash_bwd_dkv, "flash_bwd_dkv_f32mma")):
+                           (fa.flash_bwd_dkv,
+                            "flash_bwd_dkv_f32_d128_wgmma")):
                 assert w.launches_by_kernel[sym] == w.launches == 1
     for g, w in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-4)
@@ -730,8 +769,8 @@ def test_bf16_attention_gradients_on_the_card_match_f32_cpu():
 @pytest.mark.gpu
 def test_stacked_remat_fused_llama_on_the_card_matches_the_cpu():
     """``build_llama(shard_pp=True, fused_head_chunk=384, remat=True)``
-    in float32 on the card (K1 and K2 on their warpgroup kernels of head
-    dim 128, K3 on ``flash_bwd_dkv_f32mma``; K1 twice a layer a step)
+    in float32 on the card (K1, K2 and K3 on their warpgroup kernels of
+    head dim 128; K1 twice a layer a step)
     against the CPU at the f32 tiers; remat off and ``memory_optimize``
     (``nothing_saveable``, ``dots_saveable``) give the gradients of remat
     on (chip_smoke.phase_train_stack_parity)."""
@@ -741,7 +780,8 @@ def test_stacked_remat_fused_llama_on_the_card_matches_the_cpu():
                                                          "test")
     assert by_kernel["flash_fwd_f32_d128_wgmma"] == 16
     assert by_kernel["flash_bwd_dq_f32_d128_wgmma"] == 8
-    assert by_kernel["flash_bwd_dkv_f32mma"] == 8
+    assert by_kernel["flash_bwd_dkv_f32_d128_wgmma"] == 8
+    assert by_kernel["flash_bwd_dkv_f32mma"] == 0
     assert out["remat_variants"]["nothing_saveable"]["k1_launches"] == 6
 
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Times tile variants of the port's tensor-core attention kernels on one
 CUDA card: the float32 kernels (``csrc/flash_fwd_f32mma.cu``,
-``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``) at
-chip_smoke.py's float32 shapes, and K2's bf16 kernel
+``csrc/flash_bwd_dq_f32mma.cu``, ``csrc/flash_bwd_dkv_f32mma.cu``, and
+float32 K3's warpgroup kernel at head dim 128,
+``csrc/flash_bwd_dkv_f32_d128_wgmma.cu``: its q tile's rows and ring
+stages) at chip_smoke.py's float32 shapes, and K2's bf16 kernel
 (``csrc/flash_bwd_dq_mma.cu``) at its bf16 training shape.
 
 Run from the root of the repository, on a machine with one CUDA card and
@@ -10,6 +12,13 @@ the CUDA toolkit::
 
     python3 tile_sweep.py [source ...]     # default: every source below
     python3 tile_sweep.py --before SOURCE=FILE.cu:SYMBOL ... [source ...]
+
+e.g. the warpgroup K3 beside the mma.sync kernel it replaced, SRC being
+``paddle_tpu_torch/csrc/flash_bwd_dkv_f32mma.cu``::
+
+    python3 tile_sweep.py --before \\
+        flash_bwd_dkv_f32_d128_wgmma=SRC:flash_bwd_dkv_f32mma \\
+        flash_bwd_dkv_f32_d128_wgmma
 
 Each variant is the shipped source with its tile constexprs and its
 ``__launch_bounds__`` minimum of blocks a SM rewritten, built with the
@@ -67,10 +76,24 @@ SWEEPS = {
                                                     "WARPS": 8}, 1),
         "32 keys x 32 rows, 4 warps, 2 blocks/SM": ({"BLOCK_M": 32}, 2),
     },
+    # 64 keys a block; q rows a tile x ring stages, and the producer's
+    # and each consumer's registers (setmaxnreg: 136 + 2 x 184 = 152 +
+    # 2 x 176 = 3 x 168). Shared memory 160, 200 and 176 KB
+    "flash_bwd_dkv_f32_d128_wgmma": {
+        "32 rows x 2 stages, 136/184 regs (shipped)": ({}, 1),
+        "32 rows x 3 stages, 136/184 regs": ({"STAGES": 3}, 1),
+        "64 rows x 1 stage, 136/184 regs": ({"BLOCK_M": 64, "STAGES": 1},
+                                            1),
+        "64 rows x 1 stage, 152/176 regs": ({"BLOCK_M": 64, "STAGES": 1,
+                                             "PRODUCER_REGS": 152,
+                                             "CONSUMER_REGS": 176}, 1),
+    },
 }
 # pointers each source's C entry takes
 N_PTRS = {"flash_fwd_f32mma": 5, "flash_bwd_dq_mma": 7,
-          "flash_bwd_dq_f32mma": 7, "flash_bwd_dkv_f32mma": 8}
+          "flash_bwd_dq_f32mma": 7, "flash_bwd_dkv_f32mma": 8,
+          "flash_bwd_dkv_f32_d128_wgmma": 8}
+HEADERS = ("mma_sm90.cuh", "wgmma_sm90.cuh")
 
 
 def variant_source(text, consts, min_blocks):
@@ -138,9 +161,11 @@ def cases(source, torch, fa, chip_smoke, gen, dev):
     else:
         shapes = (("bh=8 t=256 d=128 causal f32 (train parity)", 8, 256,
                    torch.float32),
+                  ("bh=32 t=512 d=128 causal f32 (pipeline stage)", 32,
+                   chip_smoke.SCHED_F32_SEQ, torch.float32),
                   (f"bh={bh_train} t={t_train} d=128 causal f32", bh_train,
                    t_train, torch.float32))
-    kind = "dkv" if source == "flash_bwd_dkv_f32mma" else "dq"
+    kind = "dkv" if source.startswith("flash_bwd_dkv") else "dq"
     for label, bh, t, dt in shapes:
         d = 128
         q, k, v, do = chip_smoke.attention_inputs(torch, gen, dev, bh, t, t,
@@ -177,7 +202,8 @@ def sweep(source, torch, fa, chip_smoke, cuda_build, smi, flush,
     gen.manual_seed(chip_smoke.SEED)
     text = (cuda_build.CSRC / f"{source}.cu").read_text()
     tmp = tempfile.mkdtemp()
-    shutil.copy(cuda_build.CSRC / "mma_sm90.cuh", tmp)
+    for header in HEADERS:
+        shutil.copy(cuda_build.CSRC / header, tmp)
     fns = {}
     try:
         for i, (label, (consts, blocks)) in enumerate(SWEEPS[source].items()):
